@@ -1,0 +1,11 @@
+"""shuffle_exchange_tpu_torch — the PyTorch and CUDA port of
+``shuffle_exchange_tpu`` for NVIDIA Hopper.
+
+The port grows slice by slice beside the JAX package, which stays the
+reference. This package imports ``torch`` and never ``jax`` or anything of
+``shuffle_exchange_tpu``. Its entry points run on the card unless the
+caller passes ``device="cpu"``; every hand-written kernel has a plain
+PyTorch version that runs only for CPU tensors.
+"""
+
+__version__ = "0.1.0"

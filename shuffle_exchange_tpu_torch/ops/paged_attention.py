@@ -1,0 +1,260 @@
+"""Paged decode and extend attention: CUDA kernels for Hopper, and their
+plain PyTorch versions.
+
+Replaces the TPU kernels ``shuffle_exchange_tpu/ops/paged_attention.py:
+paged_decode_attention_pallas`` and ``paged_extend_attention_pallas``. The
+kernels live in ``ops/csrc/paged_attention.cu`` (whose header says what
+bounds them on the H100 and how their design answers it); ``_build``
+compiles that file with ``nvcc`` at first use and this module binds it
+with ctypes.
+
+The plain versions port the JAX package's oracle path:
+``inference/paged.py:gather_kv`` (gather the pool through the block table
+into ``[B, S, KV, Dh]``) and ``inference/engine.py:decode_attention`` /
+``extend_attention`` (dense attention with f32 scores). Like the JAX plain
+path they round the softmax weights to the cache dtype before P·V; the
+kernels keep them in f32, and so do the plain versions given
+``p_f32=True``. The CPU tests hold the plain versions against the JAX
+package in f32, where the two roundings agree, and with ``p_f32=True``
+against the Pallas kernels in bf16; on the card, ``chip_smoke.py`` holds
+each kernel against its plain version with ``p_f32=True`` in bf16.
+
+In this slice the kernels take bf16 pools without ALiBi; ALiBi slopes and
+int8/fp8 scale planes raise (ROADMAP queue A, item 3).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from .dispatch import use_kernel
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def gather_kv(ck: torch.Tensor, cv: torch.Tensor,
+              block_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ck/cv [nblk, KV, bs, Dh] (one layer), block_table [B, maxblk] (-1
+    pad, read as block 0) -> k/v [B, maxblk*bs, KV, Dh]. Padding gathers
+    whatever block 0 holds; callers mask by length."""
+    bt = block_table.clamp_min(0).long()
+    B, M = bt.shape
+
+    def g(c):
+        _, KV, bs, Dh = c.shape
+        x = c[bt.reshape(-1)]                              # [B*M, KV, bs, Dh]
+        return (x.reshape(B, M, KV, bs, Dh).permute(0, 1, 3, 2, 4)
+                .reshape(B, M * bs, KV, Dh))
+
+    return g(ck), g(cv)
+
+
+def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     kv_len: torch.Tensor, p_f32: bool = False) -> torch.Tensor:
+    """One query token against a dense cache: q [B,1,H,Dh], ck/cv
+    [B,S,KV,Dh], kv_len [B] valid slots -> [B,1,H,Dh]. Cache-dtype operands
+    with f32 products and sums (the upcast is exact), f32 softmax; the
+    weights are rounded to the cache dtype before P·V unless ``p_f32``."""
+    B, S, KV, Dh = ck.shape
+    H = q.shape[2]
+    G = H // KV
+    qf = q.to(ck.dtype).reshape(B, KV, G, Dh).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float()) / math.sqrt(Dh)
+    pos = torch.arange(S, device=ck.device)
+    mask = (pos[None, :] < kv_len.to(ck.device).long()[:, None])[:, None, None, :]
+    scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+    w = torch.exp(scores - scores.amax(-1, keepdim=True))
+    w = w / w.sum(-1, keepdim=True)
+    if not p_f32:
+        w = w.to(cv.dtype).float()
+    out = torch.einsum("bkgs,bskd->bkgd", w, cv.float())
+    return out.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def extend_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     start_pos: torch.Tensor, kv_len: torch.Tensor,
+                     p_f32: bool = False) -> torch.Tensor:
+    """A C-token chunk against a dense cache that already holds the chunk's
+    own K/V: q [B,C,H,Dh], ck/cv [B,S,KV,Dh]; query i of sequence b sees
+    slots s <= start_pos[b] + i and s < kv_len[b] -> [B,C,H,Dh]. The
+    weights are rounded to the cache dtype before P·V unless ``p_f32``."""
+    B, S, KV, Dh = ck.shape
+    C, H = q.shape[1], q.shape[2]
+    G = H // KV
+    dev = ck.device
+    qf = q.to(ck.dtype).reshape(B, C, KV, G, Dh).float()
+    scores = torch.einsum("bckgd,bskd->bckgs", qf, ck.float()) / math.sqrt(Dh)
+    lim = torch.minimum(
+        start_pos.to(dev).long()[:, None] + torch.arange(C, device=dev)[None, :] + 1,
+        kv_len.to(dev).long()[:, None])                     # [B, C]
+    s_idx = torch.arange(S, device=dev)
+    mask = (s_idx[None, None, :] < lim[:, :, None])[:, :, None, None, :]
+    scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+    w = torch.exp(scores - scores.amax(-1, keepdim=True))
+    w = w / w.sum(-1, keepdim=True)
+    if not p_f32:
+        w = w.to(cv.dtype).float()
+    out = torch.einsum("bckgs,bskd->bckgd", w, cv.float())
+    return out.reshape(B, C, H, Dh).to(q.dtype)
+
+
+def paged_decode_reference(q, ck, cv, block_table, kv_len, p_f32=False):
+    """The plain paged decode: gather through the table, dense decode."""
+    k, v = gather_kv(ck, cv, block_table)
+    return decode_attention(q, k, v, kv_len, p_f32)
+
+
+def paged_extend_reference(q, ck, cv, block_table, start, nnew, p_f32=False):
+    """The plain paged extend: gather through the table, dense extend with
+    ``kv_len = start + nnew``. Rows past ``nnew`` are don't-care (the
+    engine reads logits at ``nnew - 1``) and differ from the kernel's."""
+    k, v = gather_kv(ck, cv, block_table)
+    return extend_attention(q, k, v, start, start + nnew, p_f32)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _unsupported(alibi_slopes, k_scale, v_scale) -> None:
+    if alibi_slopes is not None:
+        raise NotImplementedError("ALiBi slopes in the paged kernels are not "
+                                  "ported yet: ROADMAP queue A, item 3")
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError("int8/fp8 KV scale planes in the paged "
+                                  "kernels are not ported yet: ROADMAP queue "
+                                  "A, item 3")
+
+
+def paged_decode_attention(q, ck, cv, block_table, kv_len, *,
+                           alibi_slopes=None, k_scale=None, v_scale=None):
+    """q [B,1,H,Dh] against one layer of the pool ck/cv [nblk,KV,bs,Dh]
+    through block_table [B,W]; kv_len [B] -> [B,1,H,Dh]. The CUDA kernel on
+    a CUDA tensor, the plain version on a CPU tensor."""
+    _unsupported(alibi_slopes, k_scale, v_scale)
+    if not use_kernel(q):
+        return paged_decode_reference(q, ck, cv, block_table, kv_len)
+    out = _launch("decode", q, ck, cv, block_table, kv_len)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def paged_extend_attention(q, ck, cv, block_table, start, nnew, *,
+                           alibi_slopes=None, k_scale=None, v_scale=None):
+    """A C-token chunk per sequence, q [B,C,H,Dh], whose own K/V are
+    already in the pool; start [B] first new position, nnew [B] <= C.
+    Row c of sequence b sees pool positions < start[b] + c + 1. The CUDA
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    _unsupported(alibi_slopes, k_scale, v_scale)
+    if not use_kernel(q):
+        return paged_extend_reference(q, ck, cv, block_table, start, nnew)
+    out = _launch("extend", q, ck, cv, block_table, start)
+    paged_extend_attention.launches += 1
+    return out
+
+
+paged_extend_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Launch
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "sxt_paged_decode_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              ctypes.c_float, _P],
+    "sxt_paged_extend_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, ctypes.c_float, _P],
+}
+_LIB = []
+
+
+def _lib():
+    if not _LIB:
+        from . import _build
+
+        lib = _build.load("paged_attention")
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.sxt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.sxt_cuda_error_string.restype = ctypes.c_char_p
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _check_operands(q, ck, cv):
+    for name, t in (("q", q), ("k pool", ck), ("v pool", cv)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"paged kernel: {name} must be on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"paged kernel: {name} must be bf16 (this slice's "
+                            f"kernels take bf16 pools), got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"paged kernel: {name} must be contiguous and "
+                             "16-byte aligned")
+    if ck.shape != cv.shape or ck.dim() != 4:
+        raise ValueError(f"paged kernel: pools must be [nblk,KV,bs,Dh], got "
+                         f"{tuple(ck.shape)} / {tuple(cv.shape)}")
+    H, Dh = q.shape[2], q.shape[3]
+    KV = ck.shape[1]
+    if ck.shape[3] != Dh or H % KV:
+        raise ValueError(f"paged kernel: q heads {H} / Dh {Dh} do not match "
+                         f"pool {tuple(ck.shape)}")
+    if Dh not in (64, 128):
+        raise ValueError(f"paged kernel: head_dim {Dh} not built (64, 128)")
+
+
+def _index(t, B, device, what):
+    t = torch.as_tensor(t, device=device)
+    if t.dtype.is_floating_point or t.shape[0] != B:
+        raise ValueError(f"paged kernel: bad {what} {tuple(t.shape)} {t.dtype}")
+    return t.to(torch.int32).contiguous()
+
+
+def _launch(kind, q, ck, cv, block_table, lens):
+    _check_operands(q, ck, cv)
+    B, C, H, Dh = q.shape
+    KV, bs = ck.shape[1], ck.shape[2]
+    table = _index(block_table, B, q.device, "block table")
+    if table.dim() != 2:
+        raise ValueError(f"paged kernel: block table must be [B, W], got "
+                         f"{tuple(table.shape)}")
+    W = table.shape[1]
+    lens = _index(lens, B, q.device, "kv_len" if kind == "decode" else "start")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _lib()
+    scale = float(Dh) ** -0.5
+    if kind == "decode":
+        if C != 1:
+            raise ValueError("paged decode kernel: one query token per sequence")
+        if (H // KV) * Dh > 1024:
+            raise ValueError(f"paged decode kernel: G*Dh = {(H // KV) * Dh} > 1024")
+        err = lib.sxt_paged_decode_bf16(
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), table.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), B, H, KV, Dh, bs, W, scale, stream)
+    else:
+        if H // KV > 64:
+            raise ValueError(f"paged extend kernel: G = {H // KV} > 64")
+        err = lib.sxt_paged_extend_bf16(
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), table.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), B, C, H, KV, Dh, bs, W, scale,
+            stream)
+    if err:
+        raise RuntimeError(f"paged {kind} kernel launch failed: CUDA error "
+                           f"{err} ({lib.sxt_cuda_error_string(err).decode()})")
+    return out
