@@ -115,9 +115,11 @@ class InferenceConfig:
     dtype: str = "bfloat16"
     max_batch_size: int = 8
     max_seq_len: int = 2048
-    # "auto" | "xla" | "pallas": "xla" is the layer body over the paged
-    # attention kernels, "auto" resolves to it until the fused decode
-    # kernels are ported, "pallas" raises at engine construction
+    # "auto" | "xla" | "pallas": "pallas" runs decode rows through the
+    # fused decode kernels (QKV+RoPE+append, split-K attention, fused MLP;
+    # their plain versions on a CPU engine), "xla" through the layer body
+    # over the paged decode kernel; "auto" is "pallas" on the card and
+    # "xla" on the CPU
     decode_kernel: str = "auto"
     kv_block_size: int = 64
     num_kv_blocks: int = 256

@@ -4,8 +4,11 @@ Counterpart of ``shuffle_exchange_tpu/inference/engine.py``: the cast of
 the weights to the serving dtype and their move to the device, the
 embedding at per-sequence positions, and the one transformer block every
 cached path shares (``_layer_body`` / ``_block_tail`` / the dense
-``_ffn``). The dense-cache v1 engine (``generate``) is a later slice
-(ROADMAP queue A, item 8).
+``_ffn``), and the pieces of the fused decode path that both JAX engines
+share: the resolution of ``decode_kernel`` against the model's structure,
+the rope rows of the fused QKV kernel, and the fused MLP that
+``_block_tail`` takes for one-token rows. The dense-cache v1 engine
+(``generate``) is a later slice (ROADMAP queue A, item 8).
 
 The JAX engine jit-compiles whole programs and scans the stacked layers;
 here each layer is a Python loop iteration over views of the stacked
@@ -19,8 +22,10 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-from ..models.transformer import Transformer, _norm, rope_table
+from ..models.transformer import Transformer, _norm, decode_fusion_eligibility, rope_table
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
+from ..ops.fused_decode import fused_mlp
+from ..utils.logging import warning_once
 from .config import InferenceConfig
 
 
@@ -69,8 +74,33 @@ class InferenceEngine:
         self.config = config or InferenceConfig()
         self._mcfg = model.config
         self.device = resolve_device(device)
-        resolve_decode_kernel(self.config.decode_kernel)   # raises on "pallas"
+        self._resolve_decode_kernel()
         self.update_params(params)
+
+    def _resolve_decode_kernel(self) -> None:
+        """Pin the decode path for the engine's lifetime, as the JAX
+        engine's ``_resolve_decode_kernel`` does: "auto" is the fused path
+        on the card and the paged-kernel layer body on the CPU; "pallas" on
+        a model with no fusable part of its decode layer raises. (The JAX
+        paged engine also fuses the attention alone for models whose QKV
+        cannot fuse; the port admits no such model yet, ROADMAP queue A,
+        item 4.)"""
+        requested = self.config.decode_kernel
+        self._decode_kernel = resolve_decode_kernel(requested, self.device)
+        self._fuse_qkv = self._fuse_mlp = False
+        if self._decode_kernel != "pallas":
+            return
+        elig = decode_fusion_eligibility(self._mcfg)
+        self._fuse_qkv = elig["qkv"] is None
+        self._fuse_mlp = elig["mlp"] is None
+        if not (self._fuse_qkv or self._fuse_mlp):
+            reasons = "; ".join(r for r in elig.values() if r)
+            if requested == "pallas":
+                raise ValueError("decode_kernel='pallas' but no part of the decode layer "
+                                 f"is fusable for this model: {reasons}")
+            warning_once(f"decode_kernel=auto: model not fusable ({reasons}); using the "
+                         "paged-kernel decode path")
+            self._decode_kernel = "xla"
 
     def _prepare_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Cast floating leaves to the serving dtype and move them to the
@@ -128,11 +158,33 @@ class InferenceEngine:
 
     def _block_tail(self, lw: Dict[str, torch.Tensor], h: torch.Tensor,
                     attn: torch.Tensor) -> torch.Tensor:
+        """Output projection, residual and FFN, shared by the plain and the
+        fused layer bodies (the FFN fuses for one-token rows)."""
         cfg = self._mcfg
         B, T = h.shape[:2]
         h = h + attn.reshape(B, T, cfg.n_heads * cfg.head_dim) @ lw["wo"]
+        out = self._maybe_fused_ffn(lw, h)
+        if out is not None:
+            return out
         y2 = _norm(h, lw["ln2_w"], eps=cfg.norm_eps)
         return h + self._ffn(lw, y2)
+
+    def _fused_qkv_args(self, positions: torch.Tensor):
+        """The f32 rope rows [B, Dh/2] at each one-token row's position,
+        which the fused QKV kernel takes (JAX ``_fused_qkv_args``)."""
+        cos, sin = self._rope
+        pc, ps = _rope_rows(cos, sin, positions)
+        return pc[:, 0].contiguous(), ps[:, 0].contiguous()
+
+    def _maybe_fused_ffn(self, lw: Dict[str, torch.Tensor],
+                         h: torch.Tensor) -> Optional[torch.Tensor]:
+        """``h + FFN(RMSNorm(h))`` through the fused MLP kernel for
+        one-token rows when the decode path is fused; None otherwise."""
+        if not (self._fuse_mlp and h.shape[1] == 1):
+            return None
+        out = fused_mlp(h[:, 0], h[:, 0], lw["ln2_w"], lw["w_up"], lw["w_down"],
+                        lw["w_gate"], eps=self._mcfg.norm_eps)
+        return out[:, None]
 
     def _ffn(self, lw: Dict[str, torch.Tensor], y: torch.Tensor) -> torch.Tensor:
         """The dense SwiGLU FFN."""

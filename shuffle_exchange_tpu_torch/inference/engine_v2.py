@@ -5,9 +5,12 @@ sequence state and block allocation, and ``step()`` — one continuous-
 batching tick that advances every decode row by one token and absorbs a
 prefill chunk for every prefilling row. A tick runs one of three
 programs, as in JAX: the mixed Dynamic-SplitFuse program, decode only, or
-extend only. Within a layer, decode rows run ``_decode_layer`` (append the
-token's K/V, then the paged decode kernel) and chunk rows run
-``_extend_layer`` (scatter the chunk's K/V, then the paged extend kernel).
+extend only. Within a layer, chunk rows run ``_extend_layer`` (scatter the
+chunk's K/V, then the paged extend kernel) and decode rows run
+``_decode_layer``: with ``decode_kernel`` resolved to "pallas" (the default
+on the card) that is ``_fused_paged_layer`` (the fused QKV+RoPE+append,
+split-K attention and fused MLP kernels), with "xla" the layer body over
+the paged decode kernel.
 
 Shapes follow the JAX bins exactly (power-of-two row counts and block-table
 widths, the serving chunk ladder), so padding rows scribble on the scratch
@@ -29,6 +32,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..models.transformer import _norm
+from ..ops.fused_decode import fused_paged_decode_attention, fused_qkv_rope
 from ..ops.paged_attention import paged_decode_attention, paged_extend_attention
 from .config import InferenceConfig
 from .engine import InferenceEngine, _bucket
@@ -172,8 +177,11 @@ class InferenceEngineV2(InferenceEngine):
     # -- layers -----------------------------------------------------------
 
     def _decode_layer(self, lw, h, ck, cv, pos, tables) -> torch.Tensor:
-        """One decode layer (one token per row): append the token's K/V into
-        the layer's pool view in place, then paged decode attention."""
+        """One decode layer (one token per row): the fused layer when the
+        decode path is fused, else append the token's K/V into the layer's
+        pool view in place and run paged decode attention."""
+        if self._decode_kernel == "pallas" and self._fuse_qkv:
+            return self._fused_paged_layer(lw, h, ck, cv, pos, tables)
 
         def attn_fn(q, k, v):
             # ck/cv are views of the stacked pool: the append writes into it
@@ -183,6 +191,21 @@ class InferenceEngineV2(InferenceEngine):
             return paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1)
 
         return self._layer_body(lw, h, pos, attn_fn)
+
+    def _fused_paged_layer(self, lw, h, ck, cv, pos, tables) -> torch.Tensor:
+        """One fused decode layer (JAX ``_fused_paged_layer``): ln1 through
+        the RMSNorm kernel; the QKV kernel projects, applies RoPE and
+        writes the new token's K/V into the layer's pool view in place;
+        the split-K kernel attends through the block table; ``_block_tail``
+        does the ``wo`` product and the residual and takes the fused MLP.
+        A kernel that fails raises: nothing drops to another path."""
+        cfg = self._mcfg
+        cosr, sinr = self._fused_qkv_args(pos)
+        y = _norm(h, lw["ln1_w"], eps=cfg.norm_eps)
+        q, _, _ = fused_qkv_rope(y[:, 0], lw["wq"], lw["wk"], lw["wv"], cosr, sinr, ck, cv,
+                                 tables, pos, n_heads=cfg.n_heads, kv_heads=cfg.kv_heads)
+        attn = fused_paged_decode_attention(q[:, None], ck, cv, tables, pos + 1)
+        return self._block_tail(lw, h, attn)
 
     def _extend_layer(self, lw, h, ck, cv, positions, start, nnew, tables) -> torch.Tensor:
         """One chunked-prefill layer: scatter the chunk's K/V into the

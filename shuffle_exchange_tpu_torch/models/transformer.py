@@ -115,6 +115,35 @@ def check_supported(cfg: TransformerConfig) -> None:
             raise NotImplementedError(f"not supported by the PyTorch port yet: {what}")
 
 
+#: activations the port's fused MLP kernel computes. The JAX package's
+#: ``ops/fused_decode.py:FUSABLE_ACTIVATIONS`` also has silu, relu,
+#: gelu_new and gelu_pytorch_tanh, which join with those activations
+#: (ROADMAP queue A, item 4)
+FUSABLE_ACTIVATIONS = ("swiglu",)
+
+
+def decode_fusion_eligibility(cfg: TransformerConfig) -> dict:
+    """Which parts of the fused decode layer this model structure takes,
+    as the JAX package's ``decode_fusion_eligibility`` decides it:
+    ``{"qkv": None | reason, "mlp": None | reason}``, None meaning
+    fusable. (The JAX ``"verify"`` entry gates speculative verify rows,
+    which the port does not serve yet: ROADMAP queue A, item 3.)"""
+    qkv = None
+    if cfg.position == "rope" and cfg.rope_interleaved:
+        qkv = ("interleaved (GPT-J rotate-every-two) rope pairing: the "
+               "fused kernel's rotate-half form does not cover it")
+    mlp = None
+    if cfg.n_experts > 0:
+        mlp = "MoE FFN (expert dispatch stays on the MoE layer path)"
+    elif cfg.activation not in FUSABLE_ACTIVATIONS:
+        mlp = (f"activation {cfg.activation!r} is not fusable "
+               f"(fusable: {', '.join(FUSABLE_ACTIVATIONS)})")
+    elif cfg.norm != "rmsnorm":
+        mlp = (f"norm {cfg.norm!r}: the port's fused MLP kernel normalises with "
+               "RMSNorm (layernorm joins with ROADMAP queue A, item 4)")
+    return {"qkv": qkv, "mlp": mlp}
+
+
 # ---------------------------------------------------------------------------
 # Core ops
 # ---------------------------------------------------------------------------

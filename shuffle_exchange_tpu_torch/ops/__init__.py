@@ -5,6 +5,7 @@ Every wrapper counts the launches of its kernel in a plain integer
 through the kernels.
 """
 
+from .fused_decode import fused_mlp, fused_paged_decode_attention, fused_qkv_rope
 from .paged_attention import paged_decode_attention, paged_extend_attention
 from .rmsnorm import rmsnorm
 
@@ -13,6 +14,9 @@ KERNEL_WRAPPERS = {
     "rmsnorm": rmsnorm,
     "paged_decode_attention": paged_decode_attention,
     "paged_extend_attention": paged_extend_attention,
+    "fused_qkv_rope": fused_qkv_rope,
+    "fused_paged_decode_attention": fused_paged_decode_attention,
+    "fused_mlp": fused_mlp,
 }
 
 
@@ -25,5 +29,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNEL_WRAPPERS", "launch_counts", "paged_decode_attention",
-           "paged_extend_attention", "reset_launch_counts", "rmsnorm"]
+__all__ = ["KERNEL_WRAPPERS", "fused_mlp", "fused_paged_decode_attention", "fused_qkv_rope",
+           "launch_counts", "paged_decode_attention", "paged_extend_attention",
+           "reset_launch_counts", "rmsnorm"]

@@ -7,8 +7,8 @@ so ``nvcc`` compiles it in seconds:
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<stem>-<hash>.so ops/csrc/<stem>.cu
 
 The library lands under ``build/`` at the checkout root, named by a hash
-of the source and the flags, so an edited source never loads a stale
-library. A missing ``nvcc`` or a failed build raises; nothing falls back.
+of the source, the shared headers and the flags, so an edited source
+never loads a stale library. A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -44,9 +45,12 @@ def _nvcc() -> str:
 
 
 def library_path(stem: str) -> Path:
-    """Where ``csrc/<stem>.cu`` builds to (content-hashed name)."""
-    src = CSRC / f"{stem}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<stem>.cu`` builds to (named by a hash of the source,
+    the shared ``csrc/*.cuh`` headers and the flags)."""
+    digest = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -67,6 +71,13 @@ def build(stem: str) -> Path:
     out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
     os.replace(tmp, out)   # atomic: a concurrent build never loads a torn file
     return out
+
+
+def build_all(stems) -> Dict[str, Path]:
+    """Build several sources at once, one ``nvcc`` process each."""
+    stems = list(stems)
+    with ThreadPoolExecutor(max_workers=len(stems)) as pool:
+        return dict(zip(stems, pool.map(build, stems)))
 
 
 def load(stem: str) -> ctypes.CDLL:

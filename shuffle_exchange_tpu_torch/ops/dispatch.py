@@ -44,17 +44,20 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {t.device}")
 
 
-def resolve_decode_kernel(mode: str) -> str:
-    """Resolve the serving ``decode_kernel`` knob, as the JAX package's
-    ``resolve_decode_kernel`` does. "xla" is the layer body over the paged
-    attention kernels; "auto" resolves to it until the fused decode
-    kernels are ported; "pallas" names those fused kernels."""
+def resolve_decode_kernel(mode: str, device: Union[str, torch.device]) -> str:
+    """Resolve the serving ``decode_kernel`` knob for an engine on
+    ``device``, as the JAX package's ``resolve_decode_kernel`` does.
+
+    - "xla": the layer body over the paged attention kernels.
+    - "pallas": the fused decode kernels (``ops/fused_decode.py``): on a
+      CUDA engine their CUDA kernels, on a CPU engine their plain
+      versions (the port's counterpart of JAX's interpret-mode hook).
+    - "auto": "pallas" on the card, "xla" on the CPU, as JAX resolves
+      "auto" to the fused kernels only on its accelerator.
+    """
     if mode not in ("auto", "pallas", "xla"):
         raise ValueError(
             f'decode_kernel must be "auto", "pallas" or "xla", got {mode!r}')
-    if mode == "pallas":
-        raise NotImplementedError(
-            'decode_kernel="pallas" (the fused QKV+RoPE+append, split-K '
-            "decode and fused MLP kernels) is not ported yet: ROADMAP "
-            "queue A, item 1")
-    return "xla"
+    if mode == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "xla"
+    return mode

@@ -82,19 +82,46 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert build.library_path("paged_attention").name.startswith("paged_attention-")
 
 
+def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to a ``csrc/*.cuh`` header both sources include renames
+    their libraries, so a stale build is never loaded."""
+    build = importlib.import_module("shuffle_exchange_tpu_torch.ops._build")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    before = build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    assert build.library_path("k") != before
+
+
 @pytest.mark.parametrize("mode,want", [("auto", "xla"), ("xla", "xla")])
 def test_decode_kernel_resolves_to_the_paged_kernels(mode, want):
-    assert dispatch.resolve_decode_kernel(mode) == want
+    """On the CPU "auto" is the paged-kernel layer body, as JAX's "auto"
+    is off its accelerator."""
+    assert dispatch.resolve_decode_kernel(mode, "cpu") == want
+
+
+@pytest.mark.parametrize("mode,device,want", [
+    ("auto", "cuda", "pallas"), ("pallas", "cuda", "pallas"), ("pallas", "cpu", "pallas"),
+    ("xla", "cuda", "xla")])
+def test_decode_kernel_resolution_by_device(mode, device, want):
+    assert dispatch.resolve_decode_kernel(mode, device) == want
 
 
 def test_fused_decode_kernels_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 1"):
-        dispatch.resolve_decode_kernel("pallas")
+    """The rules of "pallas" (the fused decode kernels): no environment
+    variable or flag is needed to run it on the CPU, where it builds an
+    engine over the plain versions, and a bad mode raises."""
+    with pytest.raises(ValueError, match="decode_kernel"):
+        dispatch.resolve_decode_kernel("cuda", "cpu")
     model = Transformer(tiny(**LLAMA), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngineV2(model, params, InferenceConfig(
-            max_seq_len=64, kv_block_size=8, decode_kernel="pallas"), device="cpu")
+    eng = InferenceEngineV2(model, params, InferenceConfig(
+        max_seq_len=64, kv_block_size=8, decode_kernel="pallas"), device="cpu")
+    assert (eng._decode_kernel, eng._fuse_qkv, eng._fuse_mlp) == ("pallas", True, True)
+    dl, _ = eng.step([], [], [(0, [1, 2, 3])])
+    dl, _ = eng.step([0], [4])
+    assert dl.shape == (1, 64) and np.isfinite(dl).all()
 
 
 @pytest.mark.parametrize("d", [
