@@ -6,29 +6,38 @@ Run from the repository root, with one CUDA card:
     python3 chip_smoke.py [--seed N] [--out result.json]
 
 It never imports JAX or the JAX package, and every failure ends it with a
-non-zero exit code. Four phases:
+non-zero exit code. The phases:
 
-1. Build: ``nvcc`` compiles the two CUDA sources (paged attention and the
-   fused decode layer) into ``build/`` at once, one process each, and the
-   Triton RMSNorm kernel compiles at its first launch.
+1. Build: ``nvcc`` compiles the three CUDA sources (paged attention, the
+   fused decode layer and flash attention) into ``build/`` at once, one
+   process each, and the Triton RMSNorm kernel compiles at its first
+   launch.
 2. Kernels: each kernel and its plain PyTorch version run in bf16 on the
-   card at the serving path's shapes; the errors are held to stated
+   card at the serving paths' shapes; the errors are held to stated
    tolerances (shown once to catch a deliberately broken plain version)
    and each is timed beside its bound (the least time the card could
    take for the same work) and one PyTorch library call that computes the
    same function, as a yardstick only; the host's cost of issuing one
-   call of each wrapper is timed too.
+   call of each wrapper is timed too. Phase 2c does this for the flash
+   attention kernel (the prefill's) and the fused QKV kernel without a
+   pool (the v1 engine's form).
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
    Llama-3-8B at full width and depth with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
    must resolve to the fused kernels) and with ``"xla"`` (the paged
-   decode kernel). The kernels' launch counters, zeroed just before each
-   serve and read just after, must equal what the engine's programs
-   imply. A short profiled serve of each shows where the device time goes.
+   decode kernel). 3b: one ``put()`` of 8 prompts (one batched prefill
+   program through the flash kernel), then ``decode_loop`` of 31 steps,
+   whose tokens must equal 31 single-token ``put()`` calls. 3c: the v1
+   ``init_inference(...).generate`` on the same prompts. Each run's
+   launch counters, zeroed just before it and read just after, must
+   equal what the engine's programs imply. Short profiled runs show where
+   the device time goes.
 4. End to end: the same weights cut to depth 2 on the card (bf16), with
-   "auto" and with "xla", and on the CPU (the plain path in f32) run one
-   teacher-forced ``step()`` schedule; every tick's logits must agree
-   within a stated tolerance.
+   "auto" and with "xla", and on the CPU (the plain path in f32) run a
+   teacher-forced ``step()`` schedule, a ``put()`` schedule (a cold
+   batched prefill, then single- and multi-token extensions) and the v1
+   prefill and decode steps; all logits must agree within a stated
+   tolerance.
 
 The second-to-last line of standard output is one JSON object with a row
 per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -364,10 +373,12 @@ def _bites(got, broken) -> bool:
     return not paged_close(got, broken)[1]
 
 
-def check_fused_qkv(gen, rng, B):
-    """B4 at Llama-3-8B widths: B rows at random positions < 2048, each
-    appending into its own block of the pool; both sides start from the
-    same pool and must leave every other pool row as it was."""
+def check_fused_qkv(gen, rng, B, pooled=True):
+    """B4 at Llama-3-8B widths: B rows at random positions < 2048. With
+    ``pooled`` (the paged engine's form) each row appends into its own
+    block of the pool; both sides start from the same pool and must leave
+    every other pool row as it was. Without, the v1 decode step's form:
+    q, k, v only."""
     import torch
 
     from shuffle_exchange_tpu_torch.models.transformer import rope_table
@@ -382,43 +393,47 @@ def check_fused_qkv(gen, rng, B):
     y = torch.randn(B, D, generator=gen, device="cuda").bfloat16()
     w = [(torch.randn(D, n * Dh, generator=gen, device="cuda") * D ** -0.5).bfloat16()
          for n in (H, KV, KV)]
-    pool = [torch.randn(B + 1, KV, bs, Dh, generator=gen, device="cuda").bfloat16()
-            for _ in range(2)]
+    pt, tt = torch.from_numpy(pos).cuda(), torch.from_numpy(table).cuda()
+    kargs = pargs = ()
+    if pooled:
+        pool = [torch.randn(B + 1, KV, bs, Dh, generator=gen, device="cuda").bfloat16()
+                for _ in range(2)]
+        kp, pp = [p.clone() for p in pool], [p.clone() for p in pool]
+        kargs, pargs = (*kp, tt, pt), (*pp, tt, pt)
     cos_t, sin_t = rope_table(W * bs, Dh, 500000.0, device="cuda")
-    pt = torch.from_numpy(pos).cuda()
     cos, sin = cos_t[pt.long()].contiguous(), sin_t[pt.long()].contiguous()
-    tt = torch.from_numpy(table).cuda()
-    kp, pp = [p.clone() for p in pool], [p.clone() for p in pool]
-    args = (cos, sin)
-    got = fused_qkv_rope(y, *w, *args, *kp, tt, pt, n_heads=H, kv_heads=KV)
-    want = fused_qkv_rope_reference(y, *w, *args, *pp, tt, pt, n_heads=H, kv_heads=KV)
+    run = lambda: fused_qkv_rope(y, *w, cos, sin, *kargs, n_heads=H, kv_heads=KV)
+    plain = lambda: fused_qkv_rope_reference(y, *w, cos, sin, *pargs, n_heads=H, kv_heads=KV)
+    got, want = run(), plain()
     torch.cuda.synchronize()
     checks = [paged_close(g, wt) for g, wt in zip(got, want)]
     tol_ok = all(ok for _, ok in checks)
     err = max(e.max().item() for e, _ in checks)
-    appended = torch.zeros(pool[0].shape[:3], dtype=torch.bool, device="cuda")
-    rows = (torch.arange(1, B + 1, device="cuda"), slice(None), pt.long() % bs)
-    appended[rows] = True
-    pool_ok = all(torch.equal(k_[~appended], p_[~appended]) and torch.equal(k_[rows], new)
-                  for k_, p_, new in zip(kp, pool, got[1:]))
+    pool_ok = True
+    if pooled:
+        appended = torch.zeros(pool[0].shape[:3], dtype=torch.bool, device="cuda")
+        rows = (torch.arange(1, B + 1, device="cuda"), slice(None), pt.long() % bs)
+        appended[rows] = True
+        pool_ok = all(torch.equal(k_[~appended], p_[~appended]) and torch.equal(k_[rows], new)
+                      for k_, p_, new in zip(kp, pool, got[1:]))
     # a plain version that misplaces the rotation (no RoPE on k) must fail
     bites = _bites(got[1], (y.float() @ w[1].float()).reshape(B, KV, Dh).bfloat16())
     wqkv = torch.cat(w, dim=1)
     n_out = (H + 2 * KV) * Dh
-    nbytes = D * n_out * 2 + B * D * 2 + B * n_out * 2 + B * 2 * KV * Dh * 2 + 2 * B * Dh * 4 \
-        + table.size * 4 + B * 4
+    nbytes = D * n_out * 2 + B * D * 2 + B * n_out * 2 + 2 * B * Dh * 4
+    if pooled:   # the appended rows, the table and the positions
+        nbytes += B * 2 * KV * Dh * 2 + table.size * 4 + B * 4
     b_ms, b_by = bound(nbytes, 2.0 * B * D * n_out)
-    run = lambda: fused_qkv_rope(y, *w, *args, *kp, tt, pt, n_heads=H, kv_heads=KV)
-    plain = lambda: fused_qkv_rope_reference(y, *w, *args, *pp, tt, pt, n_heads=H, kv_heads=KV)
-    row = dict(shape=dict(B=B, D=D, H=H, KV=KV, Dh=Dh, bs=bs, pos=pos.tolist()),
+    row = dict(shape=dict(B=B, D=D, H=H, KV=KV, Dh=Dh, bs=bs, pos=pos.tolist(), pool=pooled),
                max_abs_err=err, tolerance=PAGED_TOL + " per head row", within=tol_ok,
-               pool_rows_exact=pool_ok, tolerance_bites=bites,
-               ms=time_cold(run), host_us=host_us(run), plain_ms=time_cold(plain),
-               library_ms=time_cold(lambda: y @ wqkv),
+               tolerance_bites=bites, ms=time_cold(run), host_us=host_us(run),
+               plain_ms=time_cold(plain), library_ms=time_cold(lambda: y @ wqkv),
                library="torch.matmul(y, [wq|wk|wv]) (projection only)",
                bound_ms=b_ms, bound_by=b_by)
-    _check(tol_ok and pool_ok, f"fused QKV kernel disagrees with its plain version at B={B}: "
-           f"max abs err {err}, pool rows exact {pool_ok}")
+    if pooled:
+        row["pool_rows_exact"] = pool_ok
+    _check(tol_ok and pool_ok, f"fused QKV kernel (pool={pooled}) disagrees with its plain "
+           f"version at B={B}: max abs err {err}, pool rows exact {pool_ok}")
     _check(bites, "the fused QKV tolerance does not catch a plain version without RoPE")
     return row
 
@@ -550,6 +565,129 @@ def check_fused_decode_sweep(gen, rng):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2c: flash attention (the prefill)
+# ---------------------------------------------------------------------------
+
+
+def _masked_plain(q, k, v, allowed):
+    """Attention in f32 with P kept in f32 over an explicit [T, S] (or [B,
+    T, S]) mask: the yardstick for deliberately broken plain versions."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops.flash_attention import repeat_kv
+
+    G = q.shape[2] // k.shape[2]
+    kf, vf = repeat_kv(k, G).float(), repeat_kv(v, G).float()
+    logits = torch.einsum("bthd,bshd->bhts", q.float() * q.shape[-1] ** -0.5, kf)
+    allowed = allowed if allowed.dim() == 3 else allowed[None]
+    logits = logits.masked_fill(~allowed[:, None], -1e30)
+    return torch.einsum("bhts,bshd->bthd", torch.softmax(logits, -1), vf).to(q.dtype)
+
+
+def _sdpa_kernels(fn):
+    """Names of the CUDA kernels one call of ``fn`` launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({ev.name for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA})
+
+
+# (B, T, S, H, KV, Dh, causal, segments): the prefill's largest program
+# (8 prompts padded to 1024), one long prompt, then a sweep over MHA, GQA
+# groups 4 and 8 and both head sizes, at ragged lengths (down to one row
+# and below one tile), a full mask with T != S and segment-id cases
+FLASH_SHAPES = [
+    (8, 1024, 1024, 32, 8, 128, True, False),
+    (1, 2048, 2048, 32, 8, 128, True, False),
+    (2, 1000, 1000, 32, 8, 128, True, False),
+    (2, 200, 200, 32, 32, 128, True, False),
+    (2, 1000, 1000, 32, 32, 128, True, False),
+    (2, 200, 200, 16, 2, 64, True, False),
+    (2, 1000, 1000, 16, 2, 64, True, False),
+    (2, 200, 1000, 32, 8, 128, False, False),
+    (2, 1000, 1000, 32, 8, 128, True, True),
+    (3, 1, 1, 8, 2, 128, True, False),
+    (3, 37, 37, 8, 2, 64, True, True),
+]
+
+
+def check_flash(gen, rng):
+    """The flash kernel against its plain version with P in f32 (both round
+    one f32 result to bf16) at every FLASH_SHAPES shape, within PAGED_TOL;
+    each shape timed beside its bound, the plain version and SDPA (as a
+    yardstick; the kernels SDPA ran are recorded). At the first shape (the
+    one the ``kernels`` line reports) a
+    plain version with the causal diagonal shifted by one, and one without
+    the last 64-key tile, must fail the tolerance."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch.ops.flash_attention import (flash_attention,
+                                                                reference_attention)
+
+    rows = []
+    for i, (B, T, S, H, KV, Dh, causal, segments) in enumerate(FLASH_SHAPES):
+        q = torch.randn(B, T, H, Dh, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
+        seg = None
+        if segments:
+            seg = torch.from_numpy(np.sort(rng.integers(0, 4, size=(B, T)), axis=1)
+                                   .astype(np.int32)).cuda()
+        run = lambda: flash_attention(q, k, v, causal=causal, segment_ids=seg)
+        plain = lambda: reference_attention(q, k, v, causal, seg, p_f32=True)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err, tol_ok = paged_close(got, want)
+        _check(tol_ok, f"flash attention kernel disagrees with its plain version at "
+               f"{FLASH_SHAPES[i]}: max abs err {err.max().item()}")
+        allowed = torch.ones(T, S, dtype=torch.bool, device="cuda")
+        if causal:
+            allowed = allowed.tril()
+        if seg is not None:
+            allowed = allowed[None] & (seg[:, :, None] == seg[:, None, :])
+        pairs = int(allowed.sum().item()) * (1 if allowed.dim() == 3 else B)
+        row = dict(shape=dict(B=B, T=T, S=S, H=H, KV=KV, Dh=Dh, causal=causal,
+                              segment_ids=segments),
+                   max_abs_err=err.max().item(),
+                   max_rel_err=(err.max() / want.float().abs().max()).item(),
+                   tolerance=PAGED_TOL + " (plain with P in f32)", within=tol_ok)
+        if i == 0:
+            shifted = torch.ones(T, S, dtype=torch.bool, device="cuda").tril(1)
+            short = torch.ones(T, S, dtype=torch.bool, device="cuda").tril()
+            short[:, S - 64:] = False     # rows past S - 64 keep keys 0 .. S - 65
+            row["tolerance_bites"] = {
+                "diagonal_shifted": _bites(got, _masked_plain(q, k, v, shifted)),
+                "last_kv_tile_missing": _bites(got, _masked_plain(q, k, v, short))}
+            _check(all(row["tolerance_bites"].values()), f"the flash tolerance does not catch "
+                   f"a broken plain version: {row['tolerance_bites']}")
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if seg is None:
+            lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                         enable_gqa=True)
+        else:
+            mask = allowed[:, None]
+            lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                         enable_gqa=True)
+        row["library_max_abs_err"] = (lib().transpose(1, 2).float()
+                                      - want.float()).abs().max().item()
+        nbytes = 2 * B * T * H * Dh * 2 + 2 * B * S * KV * Dh * 2 + (0 if seg is None else B * T * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * pairs * H * Dh)
+        row.update(visible_pairs=pairs, ms=time_cold(run), host_us=host_us(run),
+                   plain_ms=time_cold(plain), library_ms=time_cold(lib),
+                   library_kernels=_sdpa_kernels(lib), bound_ms=b_ms, bound_by=b_by)
+        row["tflops"] = 4.0 * pairs * H * Dh / (row["ms"] * 1e-3) / 1e12
+        rows.append(row)
+        del q, k, v, got, want
+    torch.cuda.synchronize()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serve Llama-3-8B through the scheduler
 # ---------------------------------------------------------------------------
 
@@ -594,7 +732,8 @@ def serve(model, params, rng, device=None, config=SERVE_CONFIG, n_prompts=N_PROM
 
 def _kernel_kind(name: str) -> str:
     low = name.lower()
-    for key, kind in (("gemv_partial_kernel", "fused_gemv (qkv + mlp products)"),
+    for key, kind in (("flash_fwd_kernel", "flash_attention"),
+                      ("gemv_partial_kernel", "fused_gemv (qkv + mlp products)"),
                       ("qkv_epilogue_kernel", "fused_qkv_rope"),
                       ("split_decode_kernel", "fused_paged_decode_attention"),
                       ("split_merge_kernel", "fused_paged_decode_attention"),
@@ -618,13 +757,27 @@ def trace_serve(model, params, rng, config=SERVE_CONFIG):
     of 128-512 prompt tokens, 8 new tokens each), against the wall time of
     the window. The profiler's own host overhead lengthens the window, so
     the idle share it gives is an upper bound."""
+    out = {}
+
+    def run():
+        out["sched"] = serve(model, params, rng, config=config, n_prompts=4, max_new=8,
+                             prompt_range=(128, 512))[1]
+
+    summary = profiled(run)
+    return summary and dict(summary, ticks=out["sched"].ticks)
+
+
+def profiled(fn):
+    """Run ``fn`` under ``torch.profiler``; device busy ms (the union of
+    the kernels' intervals), the window's wall ms, the idle share (an
+    upper bound: the profiler lengthens the window) and device ms by
+    kernel kind. None when no device kernel was recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, sched, _, _ = serve(model, params, rng, config=config, n_prompts=4, max_new=8,
-                               prompt_range=(128, 512))
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_kind = [], {}
@@ -643,26 +796,29 @@ def trace_serve(model, params, rng, config=SERVE_CONFIG):
         if end > last:
             busy += end - max(start, last)
             last = end
-    return {"ticks": sched.ticks, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": 1 - busy / wall_us,
             "by_kind_ms": {k: v["us"] / 1e3 for k, v in sorted(by_kind.items())},
             "kernels_by_kind": {k: v["count"] for k, v in sorted(by_kind.items())}}
 
 
-def expected_launches(eng, n_layers):
-    """Launches per kernel that the engine's programs imply. Chunk rows
-    norm every layer twice and the final rows once, and run the extend
-    kernel in every layer. Decode rows, fused: ln1 in every layer and the
-    final norm, and each fused kernel once a layer; else like chunk rows,
-    with the paged decode kernel. The mixed program runs both row sets."""
+def expected_launches(eng, n_layers, loop_steps=0):
+    """Launches per kernel that the paged engine's programs imply. Chunk
+    and prefill rows norm every layer twice and the final rows once;
+    chunk rows run the extend kernel in every layer, prefill rows the
+    flash kernel. Decode rows (a decode program, a mixed one, or each of
+    ``loop_steps`` steps of ``decode_loop``), fused: ln1 in every layer and
+    the final norm, and each fused kernel once a layer; else like chunk
+    rows, with the paged decode kernel."""
     by = eng.dispatches_by_program
     L = n_layers
-    dec = by.get("decode", 0) + by.get("mixed", 0)
+    dec = by.get("decode", 0) + by.get("mixed", 0) + loop_steps
     ext = by.get("extend", 0) + by.get("mixed", 0)
+    pre = by.get("prefill", 0)
     fused = eng._decode_kernel == "pallas"
-    out = {"rmsnorm": (2 * L + 1) * ext + (L + 1 if fused else 2 * L + 1) * dec,
+    out = {"rmsnorm": (2 * L + 1) * (ext + pre) + (L + 1 if fused else 2 * L + 1) * dec,
            "paged_decode_attention": 0 if fused else L * dec,
-           "paged_extend_attention": L * ext}
+           "paged_extend_attention": L * ext, "flash_attention": L * pre}
     for name in ("fused_qkv_rope", "fused_paged_decode_attention", "fused_mlp"):
         out[name] = L * dec if fused else 0
     return out
@@ -704,6 +860,143 @@ def counted_serve(model, params, rng, config, n_layers, card):
     print(f"[serve {label}] host ms per tick by program: {json.dumps(tick_ms)}", flush=True)
     return dict(stats, seconds=seconds, launches=launches, resolved=eng._decode_kernel,
                 programs=dict(eng.dispatches_by_program), tick_ms=tick_ms, tokens=out)
+
+
+# ---------------------------------------------------------------------------
+# Phases 3b and 3c: put() / decode_loop, and the v1 generate
+# ---------------------------------------------------------------------------
+
+LOOP_STEPS = 31
+
+
+def loop_prompts(rng, V, n=N_PROMPTS):
+    """``n`` prompts of 128-1024 tokens, the first exactly 1024: the longest
+    sequence then needs 17 blocks of 64 from the first decode step to the
+    last, so ``decode_loop`` and the single-token ``put()`` loop see the
+    same block-table width (32) and launch identical programs."""
+    lens = np.concatenate([[1024], rng.integers(128, 1025, size=n - 1)])
+    return [rng.integers(1, V, size=int(L)).tolist() for L in lens]
+
+
+def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG):
+    """3b: one ``put()`` of every prompt (one batched prefill program),
+    then ``decode_loop`` of LOOP_STEPS steps, with the launch counters
+    zeroed just before and read just after; they must equal what the
+    programs imply. The tokens must equal LOOP_STEPS single-token
+    ``put()`` calls on a second engine."""
+    import torch
+
+    from shuffle_exchange_tpu_torch import ops
+    from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
+
+    V = model.config.vocab_size
+    uids = list(range(len(prompts)))
+    eng = InferenceEngineV2(model, params, InferenceConfig(**config))
+    _check(eng._decode_kernel == "pallas", "decode_kernel auto did not resolve to the fused "
+           "kernels on the card")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = eng.put(uids, prompts)                 # host array: synchronised
+    prefill_s = time.perf_counter() - t0
+    first = [int(t) for t in logits.argmax(-1)]
+    t0 = time.perf_counter()
+    toks = eng.decode_loop(uids, first, LOOP_STEPS)
+    loop_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    _check(logits.shape == (len(uids), V) and np.isfinite(logits).all(),
+           f"put() logits {logits.shape} not finite or not [{len(uids)}, {V}]")
+    _check(toks.shape == (len(uids), LOOP_STEPS) and ((0 <= toks) & (toks < V)).all(),
+           f"decode_loop tokens {toks.shape} out of shape or range")
+    want = expected_launches(eng, n_layers, loop_steps=LOOP_STEPS)
+    _check(launches == want, f"put/decode_loop launch counts {launches} != implied {want}")
+    _check(eng.program_shapes == {("prefill", len(uids), 1024),
+                                  ("decode_loop", len(uids), LOOP_STEPS, 32)},
+           f"put/decode_loop programs {sorted(eng.program_shapes)}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    programs = sorted(eng.program_shapes)
+    del eng
+
+    ref = InferenceEngineV2(model, params, InferenceConfig(**config))
+    ref_first = [int(t) for t in ref.put(uids, prompts).argmax(-1)]
+    nxt, host = ref_first, []
+    for _ in range(LOOP_STEPS):
+        nxt = [int(t) for t in ref.put(uids, [[t] for t in nxt]).argmax(-1)]
+        host.append(nxt)
+    host = np.asarray(host, np.int32).T
+    _check(ref_first == first and np.array_equal(toks, host),
+           f"decode_loop tokens differ from the single-token put() loop in "
+           f"{int((toks != host).sum())} of {toks.size} places")
+    del ref
+    n_tok = sum(len(p) for p in prompts)
+    out = dict(prompt_tokens=n_tok, prefill_ms=prefill_s * 1e3,
+               prefill_tokens_per_s=n_tok / prefill_s,
+               decode_loop_ms_per_step=loop_s * 1e3 / LOOP_STEPS,
+               decode_loop_tokens_per_s=len(uids) * LOOP_STEPS / loop_s, launches=launches,
+               programs=programs, equal_to_put_loop=True, tokens=toks.tolist())
+    print(f"[put] {len(uids)} prompts, {n_tok} tokens: prefill {out['prefill_ms']:.1f} ms "
+          f"({out['prefill_tokens_per_s']:.0f} tok/s); decode_loop {LOOP_STEPS} steps "
+          f"{out['decode_loop_ms_per_step']:.2f} ms/step "
+          f"({out['decode_loop_tokens_per_s']:.1f} tok/s); tokens equal to {LOOP_STEPS} "
+          f"single-token put() calls; launches={launches}; peak_mem_GiB={peak:.2f} on {card}",
+          flush=True)
+    return out
+
+
+def trace_put_decode_loop(model, params, prompts, n_steps=8):
+    """Device time by kernel kind over a profiled ``put()`` of ``prompts``
+    and a ``decode_loop`` of ``n_steps`` steps on a fresh engine."""
+    from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
+
+    def run():
+        eng = InferenceEngineV2(model, params, InferenceConfig(**SERVE_CONFIG))
+        first = [int(t) for t in eng.put(list(range(len(prompts))), prompts).argmax(-1)]
+        eng.decode_loop(list(range(len(prompts))), first, n_steps)
+
+    return profiled(run)
+
+
+def v1_generate(model, params, prompts, n_layers, card, max_new=LOOP_STEPS + 1):
+    """3c: ``init_inference(model, params, config).generate`` on right-padded
+    prompts, greedy, ``max_new`` tokens; the launch counters must equal
+    what its prefill (flash kernel) and decode steps (fused QKV without a
+    pool, fused MLP; plain decode attention) imply."""
+    import torch
+
+    from shuffle_exchange_tpu_torch import init_inference, ops
+
+    eng = init_inference(model, params, {"dtype": "bfloat16", "max_seq_len": 2048})
+    _check(eng._decode_kernel == "pallas", "v1 decode_kernel auto did not resolve to the "
+           "fused kernels on the card")
+    T = max(len(p) for p in prompts)
+    ids = np.zeros((len(prompts), T), np.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    lens = np.asarray([len(p) for p in prompts], np.int32)
+    t0 = time.perf_counter()
+    eng.generate(ids, prompt_lengths=lens, max_new_tokens=1)     # the prefill and head alone
+    prefill_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(ids, prompt_lengths=lens, max_new_tokens=max_new)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    V = model.config.vocab_size
+    _check(out.shape == (len(prompts), max_new) and ((0 <= out) & (out < V)).all(),
+           f"v1 generate tokens {out.shape} out of shape or range")
+    L, steps = n_layers, max_new - 1
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=L, rmsnorm=(2 * L + 1) + (L + 1) * steps,
+                fused_qkv_rope=L * steps, fused_mlp=L * steps)
+    _check(launches == want, f"v1 generate launch counts {launches} != implied {want}")
+    step_ms = (seconds - prefill_s) * 1e3 / steps
+    print(f"[v1 generate] {len(prompts)} x {max_new} tokens from prompts padded to {T} in "
+          f"{seconds:.2f} s ({len(prompts) * max_new / seconds:.1f} tok/s); a 1-token "
+          f"generate (prefill) {prefill_s * 1e3:.1f} ms, so {step_ms:.2f} ms a decode step; "
+          f"launches={launches} on {card}", flush=True)
+    return dict(seconds=seconds, tokens_per_s=len(prompts) * max_new / seconds,
+                prefill_ms=prefill_s * 1e3, decode_step_ms=step_ms, launches=launches,
+                tokens=out.tolist())
 
 
 # ---------------------------------------------------------------------------
@@ -754,15 +1047,93 @@ def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto"):
     for tick in e2e_schedule(rng, cfg.vocab_size):
         got = card.step(*tick)
         want = host.step(*tick)
-        g = np.concatenate([a for a in got if a.size])
-        w = np.concatenate([a for a in want if a.size])
-        _check(np.isfinite(g).all(), "non-finite logits on the card")
-        err = np.abs(g - w)
-        ticks.append(dict(rows=int(g.shape[0]), max_abs_err=float(err.max()),
-                          ref_abs_max=float(np.abs(w).max()),
-                          within=bool(err.max() <= E2E_REL_TOL * np.abs(w).max()),
-                          argmax_agree=float(np.mean(g.argmax(-1) == w.argmax(-1)))))
+        ticks.append(_compare(np.concatenate([a for a in got if a.size]),
+                              np.concatenate([a for a in want if a.size])))
     return ticks
+
+
+def _compare(got, want):
+    err = np.abs(got - want)
+    _check(np.isfinite(got).all(), "non-finite logits on the card")
+    return dict(rows=int(got.shape[0]), max_abs_err=float(err.max()),
+                ref_abs_max=float(np.abs(want).max()),
+                within=bool(err.max() <= E2E_REL_TOL * np.abs(want).max()),
+                argmax_agree=float(np.mean(got.argmax(-1) == want.argmax(-1))))
+
+
+def put_schedule(rng, V):
+    """A cold batched prefill of four prompts, single-token extensions of
+    all four, then a multi-token extension of two (70 tokens: two extend
+    chunks of 64 and 6) beside one single."""
+    p = [rng.integers(1, V, size=n).tolist() for n in (200, 120, 60, 30)]
+    t = rng.integers(1, V, size=100).tolist()
+    return [([0, 1, 2, 3], p),
+            ([0, 1, 2, 3], [[x] for x in t[0:4]]),
+            ([0, 1, 2, 3], [[x] for x in t[4:8]]),
+            ([1, 3, 0], [t[8:78], t[78:83], [t[83]]])]
+
+
+def e2e_put_check(cfg, card_state, rng, decode_kernels=("auto", "xla")):
+    """The put() schedule on bf16 engines on the card (each decode path)
+    and on an f32 engine on the CPU, from the same weights; per-call
+    logits errors."""
+    from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
+    from shuffle_exchange_tpu_torch.models import Transformer
+
+    icfg = dict(max_seq_len=512, kv_block_size=64, num_kv_blocks=24)
+    schedule = put_schedule(rng, cfg.vocab_size)
+    cpu_state = {k: v.detach().float().cpu() for k, v in card_state.items()}
+    host = InferenceEngineV2(Transformer(cfg, device="cpu"), cpu_state,
+                             InferenceConfig(dtype="float32", decode_kernel="xla", **icfg),
+                             device="cpu")
+    want = [host.put(*call) for call in schedule]
+    out = {}
+    for dk in decode_kernels:
+        card = InferenceEngineV2(Transformer(cfg), card_state,
+                                 InferenceConfig(dtype="bfloat16", decode_kernel=dk, **icfg))
+        out[dk] = [_compare(card.put(*call), w) for call, w in zip(schedule, want)]
+        _check(card.program_shapes == host.program_shapes,
+               f"put() programs on the card {sorted(card.program_shapes)} != the CPU "
+               f"engine's {sorted(host.program_shapes)}")
+    return out
+
+
+def e2e_v1_check(cfg, card_state, rng, decode_kernels=("auto", "xla"), steps=4):
+    """The v1 engine's prefill (flash kernel) and ``steps`` teacher-forced
+    decode steps, bf16 on the card against f32 on the CPU; per-call
+    logits errors."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngine
+    from shuffle_exchange_tpu_torch.models import Transformer
+
+    lens = np.asarray([200, 120, 60, 30], np.int32)
+    ids = np.zeros((4, 256), np.int32)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.integers(1, cfg.vocab_size, size=n)
+    feed = rng.integers(1, cfg.vocab_size, size=(steps, 4)).astype(np.int32)
+
+    def run(eng):
+        dev = eng.device
+        cache = eng._new_cache(4)
+        pos = torch.from_numpy(lens).to(dev)
+        logits = [eng._head(eng._prefill(torch.from_numpy(ids).to(dev), pos, cache))[:, 0]]
+        for s_ in range(steps):
+            logits.append(eng._decode_step(cache, torch.from_numpy(feed[s_]).to(dev), pos))
+            pos = pos + 1
+        return [lg.float().cpu().numpy() for lg in logits]
+
+    cpu_state = {k: v.detach().float().cpu() for k, v in card_state.items()}
+    want = run(InferenceEngine(Transformer(cfg, device="cpu"), cpu_state,
+                               InferenceConfig(dtype="float32", decode_kernel="xla",
+                                               max_seq_len=512), device="cpu"))
+    out = {}
+    for dk in decode_kernels:
+        card = InferenceEngine(Transformer(cfg), card_state,
+                               InferenceConfig(dtype="bfloat16", decode_kernel=dk,
+                                               max_seq_len=512))
+        out[dk] = [_compare(g, w) for g, w in zip(run(card), want)]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -789,12 +1160,12 @@ def main(argv=None) -> int:
 
     # 1. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    libs = _build.build_all(["paged_attention", "fused_decode"])
+    libs = _build.build_all(["paged_attention", "fused_decode", "flash_attention"])
     nvcc_s = time.perf_counter() - t0
     for stem, lib in libs.items():
         print(f"[build] nvcc {stem}.cu -> {lib.name}")
         print(lib.with_suffix(".log").read_text().strip())
-    print(f"[build] both sources in {nvcc_s:.2f} s", flush=True)
+    print(f"[build] {len(libs)} sources in {nvcc_s:.2f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     t0 = time.perf_counter()
     x = torch.randn(8, 4096, generator=gen, device="cuda").bfloat16()
@@ -818,14 +1189,18 @@ def main(argv=None) -> int:
     fsweep = check_fused_decode_sweep(gen, fused_rng)
     print(f"[kernel] split-K decode sweep {SWEEP}: {json.dumps(fsweep)}", flush=True)
     del case
+    # 2c. the prefill's flash kernel, and B4 without a pool (v1 decode)
+    flash_rng = np.random.default_rng([args.seed, 6])
+    flash = check_flash(gen, flash_rng)
+    qkv += [check_fused_qkv(gen, flash_rng, B, pooled=False) for B in (8, 1)]
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
-               "fused_mlp": mlp}
+               "fused_mlp": mlp, "flash_attention": flash}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
                                        "cublas_sequence_ms", "cublas_sequence_host_us",
-                                       "library") if k in r}
+                                       "library", "tflops", "library_kernels") if k in r}
             print(f"[kernel] {name} {json.dumps(r['shape'])}: max_abs_err={r['max_abs_err']} "
                   f"(tol {r['tolerance']}) kernel_ms={r['ms']} host_us={r['host_us']} "
                   f"plain_ms={r['plain_ms']} "
@@ -855,39 +1230,58 @@ def main(argv=None) -> int:
                for u in serves["auto"]["tokens"])
     print(f"[serve] requests with equal tokens on both paths (bf16, greedy): {same} of "
           f"{N_PROMPTS}", flush=True)
-    launches = {k: serves["auto"]["launches"][k] + serves["xla"]["launches"][k]
-                for k in ops.KERNEL_WRAPPERS}
+
+    # 3b. put() + decode_loop, 3c. the v1 generate, on the same prompts
+    prompts = loop_prompts(np.random.default_rng([args.seed, 5]), cfg.vocab_size)
+    loop = put_decode_loop(model, params, prompts, cfg.n_layers, card)
+    v1 = v1_generate(model, params, prompts, cfg.n_layers, card)
+    same = sum(v1["tokens"][i][1:] == loop["tokens"][i] for i in range(N_PROMPTS))
+    print(f"[v1 generate] sequences whose tokens equal put() + decode_loop's (bf16, plain "
+          f"decode attention vs split-K): {same} of {N_PROMPTS}", flush=True)
+    runs = [serves["auto"]["launches"], serves["xla"]["launches"], loop["launches"],
+            v1["launches"]]
+    launches = {k: sum(r[k] for r in runs) for k in ops.KERNEL_WRAPPERS}
     _check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
 
-    # 3b. where the device time goes: a short profiled serve on each path
+    # where the device time goes: short profiled runs of each path
     traces = {}
     for label, config in (("auto", SERVE_CONFIG), ("xla", XLA_CONFIG)):
         traces[label] = trace_serve(model, params, np.random.default_rng([args.seed, 4]), config)
-        print(f"[trace {label}] "
-              f"{json.dumps(traces[label]) if traces[label] else 'no device kernels recorded'}",
+    traces["put_decode_loop"] = trace_put_decode_loop(model, params, prompts)
+    for label, t in traces.items():
+        print(f"[trace {label}] {json.dumps(t) if t else 'no device kernels recorded'}",
               flush=True)
 
     # 4. depth 2 on the card, fused and not, against the CPU f32 plain path
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     state2 = {k: (v[:2] if k.startswith("layers.") else v) for k, v in params.items()}
-    e2e = {}
+    e2e = {"step": {}}
     for dk in ("auto", "xla"):
         t0 = time.perf_counter()
-        e2e[dk] = e2e_check(cfg2, state2, np.random.default_rng([args.seed, 2]), decode_kernel=dk)
-        for i, t in enumerate(e2e[dk]):
-            print(f"[e2e {dk}] tick {i}: rows={t['rows']} max_abs_err={t['max_abs_err']} "
-                  f"(tol {E2E_REL_TOL} x |ref| max {t['ref_abs_max']}) "
-                  f"argmax_agree={t['argmax_agree']}")
-        _check(all(t["within"] for t in e2e[dk]), f"depth-2 logits on the card ({dk}) "
-               "disagree with the CPU f32 plain path")
-        print(f"[e2e {dk}] {len(e2e[dk])} ticks in {time.perf_counter() - t0:.2f} s", flush=True)
+        e2e["step"][dk] = e2e_check(cfg2, state2, np.random.default_rng([args.seed, 2]),
+                                    decode_kernel=dk)
+        print(f"[e2e {dk}] {len(e2e['step'][dk])} step() ticks in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    e2e["put"] = e2e_put_check(cfg2, state2, np.random.default_rng([args.seed, 7]))
+    e2e["v1"] = e2e_v1_check(cfg2, state2, np.random.default_rng([args.seed, 8]))
+    print(f"[e2e] put() and v1 schedules in {time.perf_counter() - t0:.2f} s", flush=True)
+    for what, by_dk in e2e.items():
+        for dk, calls in by_dk.items():
+            for i, t in enumerate(calls):
+                print(f"[e2e {what} {dk}] call {i}: rows={t['rows']} "
+                      f"max_abs_err={t['max_abs_err']} (tol {E2E_REL_TOL} x |ref| max "
+                      f"{t['ref_abs_max']}) argmax_agree={t['argmax_agree']}")
+            _check(all(t["within"] for t in calls), f"depth-2 {what} logits on the card ({dk}) "
+                   "disagree with the CPU f32 plain path")
 
     replaces = {"rmsnorm": "shuffle_exchange_tpu/ops/rmsnorm.py:87",
                 "paged_decode_attention": "shuffle_exchange_tpu/ops/paged_attention.py:39",
                 "paged_extend_attention": "shuffle_exchange_tpu/ops/paged_attention.py:216",
                 "fused_qkv_rope": "shuffle_exchange_tpu/ops/fused_decode.py:130",
                 "fused_paged_decode_attention": "shuffle_exchange_tpu/ops/fused_decode.py:324",
-                "fused_mlp": "shuffle_exchange_tpu/ops/fused_decode.py:536"}
+                "fused_mlp": "shuffle_exchange_tpu/ops/fused_decode.py:536",
+                "flash_attention": "shuffle_exchange_tpu/ops/flash_attention.py:122"}
     paged_cu = "shuffle_exchange_tpu_torch/ops/csrc/paged_attention.cu"
     fused_cu = "shuffle_exchange_tpu_torch/ops/csrc/fused_decode.cu"
     sources = {"rmsnorm": ("triton", "shuffle_exchange_tpu_torch/ops/rmsnorm_triton.py"),
@@ -895,7 +1289,9 @@ def main(argv=None) -> int:
                "paged_extend_attention": ("cuda", paged_cu),
                "fused_qkv_rope": ("cuda", fused_cu),
                "fused_paged_decode_attention": ("cuda", fused_cu),
-               "fused_mlp": ("cuda", fused_cu)}
+               "fused_mlp": ("cuda", fused_cu),
+               "flash_attention": ("cuda",
+                                   "shuffle_exchange_tpu_torch/ops/csrc/flash_attention.cu")}
     kernels = []
     for name, rows in checked.items():
         route, source = sources[name]
@@ -910,7 +1306,8 @@ def main(argv=None) -> int:
     result = {"card": card, "seconds": time.perf_counter() - t_start,
               "build": {"nvcc_s": nvcc_s}, "kernels": kernels,
               "kernel_checks": dict(checked, paged_sweep=sweep, fused_decode_sweep=fsweep),
-              "serve": serves, "trace": traces, "e2e": e2e}
+              "serve": serves, "put_decode_loop": loop, "v1_generate": v1, "trace": traces,
+              "e2e": e2e}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -1,8 +1,10 @@
-"""Paged continuous-batching serving, in PyTorch (counterpart of
-``shuffle_exchange_tpu.inference`` for the names this slice ports)."""
+"""Serving in PyTorch (counterpart of ``shuffle_exchange_tpu.inference``
+for the names the port has): the paged continuous-batching engine with
+its scheduler and its sequential ``put`` / ``decode_loop`` API, and the
+dense-cache v1 engine (``init_inference(...).generate``)."""
 
 from .config import InferenceConfig, ServingConfig
-from .engine import InferenceEngine
+from .engine import InferenceEngine, KVCache, init_inference
 from .engine_v2 import InferenceEngineV2, SequenceDescriptor
 from .paged import BlockedAllocator, PagedKVCache
 from .scheduler import ContinuousBatchingScheduler, ServingRequest
@@ -11,6 +13,8 @@ __all__ = [
     "InferenceConfig",
     "ServingConfig",
     "InferenceEngine",
+    "KVCache",
+    "init_inference",
     "BlockedAllocator",
     "PagedKVCache",
     "InferenceEngineV2",

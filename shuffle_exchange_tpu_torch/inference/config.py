@@ -1,9 +1,10 @@
 """Inference config of the PyTorch port.
 
 Counterpart of ``shuffle_exchange_tpu/inference/config.py`` for the fields
-the paged continuous-batching slice runs on, with the JAX package's
-defaults and validation. Keys of features this slice does not port raise a
-``ConfigError`` naming the ROADMAP item that will; nothing is ignored.
+the paged continuous-batching engine and the dense-cache v1 ``generate``
+run on, with the JAX package's defaults and validation. Keys and values of
+features the port does not have yet raise a ``ConfigError`` naming the
+ROADMAP item that will bring them; nothing is ignored.
 """
 
 from __future__ import annotations
@@ -30,6 +31,19 @@ _UNSUPPORTED = {
     "moe": "MoE serving (ROADMAP queue A, item 9)",
     "router": "the multi-replica router (ROADMAP queue A, item 13)",
 }
+
+
+def sampling_knobs(temperature, top_k, top_p) -> str:
+    """The sampling settings that ask for more than greedy decoding, named
+    (empty when all three are at their greedy values)."""
+    out = []
+    if temperature is not None and float(temperature) > 0:
+        out.append(f"temperature={temperature}")
+    if top_k is not None and int(top_k) > 0:
+        out.append(f"top_k={top_k}")
+    if top_p is not None and float(top_p) < 1:
+        out.append(f"top_p={top_p}")
+    return ", ".join(out)
 
 
 def _refuse(key: str) -> ConfigError:
@@ -113,14 +127,26 @@ class ServingConfig:
 @dataclasses.dataclass
 class InferenceConfig:
     dtype: str = "bfloat16"
+    # tensor parallelism: only 1 (one card) is ported
+    tensor_parallel: int = 1
     max_batch_size: int = 8
     max_seq_len: int = 2048
+    # v1 generate
+    max_new_tokens: int = 128
+    eos_token_id: int = -1                    # -1 = never stop early
+    pad_token_id: int = 0
+    # sampling defaults: only greedy decoding (the defaults) is ported
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
     # "auto" | "xla" | "pallas": "pallas" runs decode rows through the
     # fused decode kernels (QKV+RoPE+append, split-K attention, fused MLP;
     # their plain versions on a CPU engine), "xla" through the layer body
     # over the paged decode kernel; "auto" is "pallas" on the card and
     # "xla" on the CPU
     decode_kernel: str = "auto"
+    # weight-only quantization: not ported yet
+    quantize_weights: bool = False
     kv_block_size: int = 64
     num_kv_blocks: int = 256
     # only the default bf16 storage (the serving dtype) is ported
@@ -151,9 +177,21 @@ class InferenceConfig:
                               f"{self.prefix_caching!r}")
         if self.prefix_caching:
             raise _refuse("prefix_caching")
-        for name in ("max_batch_size", "max_seq_len", "kv_block_size", "num_kv_blocks"):
+        for name in ("max_batch_size", "max_seq_len", "kv_block_size", "num_kv_blocks",
+                     "tensor_parallel", "max_new_tokens"):
             if int(getattr(self, name)) < 1:
                 raise ConfigError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.tensor_parallel > 1:
+            raise ConfigError(f"tensor_parallel={self.tensor_parallel}: tensor-parallel "
+                              "serving is not in the PyTorch port yet (ROADMAP queue A, "
+                              "item 12)")
+        if self.quantize_weights:
+            raise ConfigError("quantize_weights: weight-only quantization is not in the "
+                              "PyTorch port yet (ROADMAP queue A, item 8)")
+        sampled = sampling_knobs(self.temperature, self.top_k, self.top_p)
+        if sampled:
+            raise ConfigError(f"{sampled}: sampled decoding is not in the PyTorch port yet; "
+                              "it decodes greedily (ROADMAP queue A, item 3)")
 
     @classmethod
     def from_dict(cls, d: Optional[dict]) -> "InferenceConfig":

@@ -1,32 +1,49 @@
-"""The parts of the JAX ``InferenceEngine`` that the paged engine builds on.
+"""Inference engine v1 and the parts every engine shares (PyTorch port).
 
 Counterpart of ``shuffle_exchange_tpu/inference/engine.py``: the cast of
 the weights to the serving dtype and their move to the device, the
-embedding at per-sequence positions, and the one transformer block every
+embedding at per-sequence positions, the one transformer block every
 cached path shares (``_layer_body`` / ``_block_tail`` / the dense
-``_ffn``), and the pieces of the fused decode path that both JAX engines
-share: the resolution of ``decode_kernel`` against the model's structure,
-the rope rows of the fused QKV kernel, and the fused MLP that
-``_block_tail`` takes for one-token rows. The dense-cache v1 engine
-(``generate``) is a later slice (ROADMAP queue A, item 8).
+``_ffn``), the pieces of the fused decode path both JAX engines share (the
+resolution of ``decode_kernel``, the rope rows of the fused QKV kernel,
+the fused QKV for one-token rows in ``_layer_body`` and the fused MLP in
+``_block_tail``), and the dense-cache v1 engine: ``generate`` over a
+``KVCache`` ``[L, B, max_seq_len, KV, Dh]``, whose prefill runs the flash
+attention kernel and whose decode step runs the plain ``decode_attention``
+(plain jnp in JAX as well), with the fused QKV (no pool) and MLP kernels
+under ``decode_kernel: "pallas"``.
 
 The JAX engine jit-compiles whole programs and scans the stacked layers;
 here each layer is a Python loop iteration over views of the stacked
-``[L, ...]`` weights, and PyTorch runs eagerly.
+``[L, ...]`` weights, and PyTorch runs eagerly. The v1 engine decodes
+greedily; sampling (ROADMAP queue A, item 3), weight quantization (item
+8), tensor parallelism (item 12), checkpoint-backed serving (item 7),
+Hugging Face models (item 14) and the full-sequence ``forward`` (item 4)
+raise, naming their item.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..models.transformer import Transformer, _norm, decode_fusion_eligibility, rope_table
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
-from ..ops.fused_decode import fused_mlp
+from ..ops.flash_attention import flash_attention
+from ..ops.fused_decode import fused_mlp, fused_qkv_rope
+from ..ops.paged_attention import decode_attention
 from ..utils.logging import warning_once
-from .config import InferenceConfig
+from .config import InferenceConfig, sampling_knobs
+
+
+class KVCache(NamedTuple):
+    """The v1 engine's dense cache: k/v [L, B, max_seq_len, KV, Dh]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -63,10 +80,10 @@ AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 class InferenceEngine:
-    """Weights cast to the serving dtype on the serving device, plus the
-    layer body. ``params`` is a flattened-name state dict (``model.params()``
-    or ``models.convert.params_from_numpy``). The engine runs on the card
-    unless ``device="cpu"`` is given."""
+    """Weights cast to the serving dtype on the serving device, the layer
+    body, and the dense-cache ``generate``. ``params`` is a flattened-name
+    state dict (``model.params()`` or ``models.convert.params_from_numpy``).
+    The engine runs on the card unless ``device="cpu"`` is given."""
 
     def __init__(self, model: Transformer, params: Dict[str, torch.Tensor],
                  config: Optional[InferenceConfig] = None, device=None):
@@ -146,13 +163,17 @@ class InferenceEngine:
         B, T = h.shape[:2]
         H, KV, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
         y = _norm(h, lw["ln1_w"], eps=cfg.norm_eps)
-        q = (y @ lw["wq"]).reshape(B, T, H, Dh)
-        k = (y @ lw["wk"]).reshape(B, T, KV, Dh)
-        v = (y @ lw["wv"]).reshape(B, T, KV, Dh)
-        cos, sin = self._rope
-        pc, ps = _rope_rows(cos, sin, positions)
-        q = _apply_rope_batched(q, pc, ps)
-        k = _apply_rope_batched(k, pc, ps)
+        qkv = self._maybe_fused_qkv(lw, y, positions)
+        if qkv is None:
+            q = (y @ lw["wq"]).reshape(B, T, H, Dh)
+            k = (y @ lw["wk"]).reshape(B, T, KV, Dh)
+            v = (y @ lw["wv"]).reshape(B, T, KV, Dh)
+            cos, sin = self._rope
+            pc, ps = _rope_rows(cos, sin, positions)
+            q = _apply_rope_batched(q, pc, ps)
+            k = _apply_rope_batched(k, pc, ps)
+        else:
+            q, k, v = qkv
         attn = attn_fn(q, k, v)
         return self._block_tail(lw, h, attn)
 
@@ -176,6 +197,21 @@ class InferenceEngine:
         pc, ps = _rope_rows(cos, sin, positions)
         return pc[:, 0].contiguous(), ps[:, 0].contiguous()
 
+    def _maybe_fused_qkv(self, lw: Dict[str, torch.Tensor], y: torch.Tensor,
+                         positions: torch.Tensor):
+        """q/k/v [B, 1, n, Dh] through the fused QKV kernel, without a pool,
+        for one-token rows when the decode path is fused; None otherwise.
+        (The paged engine's fused decode layer appends to its pool in the
+        same kernel instead; this form serves the other one-token rows, as
+        JAX's shared ``_layer_body`` does.)"""
+        if not (self._fuse_qkv and y.shape[1] == 1):
+            return None
+        cfg = self._mcfg
+        cosr, sinr = self._fused_qkv_args(positions)
+        q, k, v = fused_qkv_rope(y[:, 0], lw["wq"], lw["wk"], lw["wv"], cosr, sinr,
+                                 n_heads=cfg.n_heads, kv_heads=cfg.kv_heads)
+        return q[:, None], k[:, None], v[:, None]
+
     def _maybe_fused_ffn(self, lw: Dict[str, torch.Tensor],
                          h: torch.Tensor) -> Optional[torch.Tensor]:
         """``h + FFN(RMSNorm(h))`` through the fused MLP kernel for
@@ -192,3 +228,140 @@ class InferenceEngine:
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         return self.model.head(self.params, x)
+
+    # -- the dense-cache v1 engine ----------------------------------------
+
+    def _new_cache(self, batch: int) -> KVCache:
+        cfg, m = self.config, self._mcfg
+        shape = (m.n_layers, batch, cfg.max_seq_len, m.kv_heads, m.head_dim)
+        dtype = cfg.torch_dtype()
+        return KVCache(torch.zeros(shape, dtype=dtype, device=self.device),
+                       torch.zeros(shape, dtype=dtype, device=self.device))
+
+    @torch.no_grad()
+    def _prefill(self, ids: torch.Tensor, prompt_len: torch.Tensor,
+                 cache: KVCache) -> torch.Tensor:
+        """Right-padded prompts ids [B, Tpad]: write every layer's K/V into
+        ``cache[:, :, :Tpad]`` in place, attend through the flash kernel
+        (causal) and return the hidden rows at ``prompt_len - 1`` [B, 1, D]."""
+        B, Tpad = ids.shape
+        x, positions = self._embed_at(ids, torch.zeros(B, dtype=torch.int32,
+                                                       device=ids.device))
+        for i, lw in enumerate(self._layer_weights):
+            def attn_fn(q, k, v, i=i):
+                cache.k[i, :, :Tpad] = k.to(cache.k.dtype)
+                cache.v[i, :, :Tpad] = v.to(cache.v.dtype)
+                return flash_attention(q, k, v, causal=True)
+
+            x = self._layer_body(lw, x, positions, attn_fn)
+        idx = (prompt_len.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+        return torch.gather(x, 1, idx)
+
+    @torch.no_grad()
+    def _decode_step(self, cache: KVCache, tok: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+        """One token per sequence at ``pos`` [B] (the cache fill level):
+        write its K/V at ``pos`` in place and attend over ``pos + 1`` slots.
+        Returns f32 logits [B, V]."""
+        B = tok.shape[0]
+        x, _ = self._embed_at(tok[:, None], pos)
+        rows = torch.arange(B, device=tok.device)
+        pos_l = pos.long()
+        for i, lw in enumerate(self._layer_weights):
+            ck, cv = cache.k[i], cache.v[i]
+
+            def attn_fn(q, k, v, ck=ck, cv=cv):
+                ck[rows, pos_l] = k[:, 0].to(ck.dtype)
+                cv[rows, pos_l] = v[:, 0].to(cv.dtype)
+                return decode_attention(q, ck, cv, pos + 1)
+
+            x = self._layer_body(lw, x, pos, attn_fn)
+        return self._head(x)[:, 0]
+
+    def forward(self, input_ids):
+        """Full-sequence logits (JAX ``model.apply``): not ported yet."""
+        raise NotImplementedError("InferenceEngine.forward (full-sequence logits through "
+                                  "the training forward) is not in the PyTorch port yet: "
+                                  "ROADMAP queue A, item 4")
+
+    @torch.no_grad()
+    def generate(self, input_ids, prompt_lengths=None, max_new_tokens: Optional[int] = None,
+                 temperature: Optional[float] = None, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, eos_token_id: Optional[int] = None,
+                 rng=None) -> np.ndarray:
+        """Greedy autoregressive generation. input_ids [B, T] right-padded,
+        with per-sequence ``prompt_lengths`` (default: the full width).
+        Returns int32 [B, max_new_tokens]; positions after a sequence's EOS
+        hold ``pad_token_id``. The tokens stay on the device until the
+        end: one copy to the host."""
+        sampled = sampling_knobs(temperature, top_k, top_p)
+        if sampled or rng is not None:
+            raise NotImplementedError(
+                f"sampled generate ({sampled or 'rng'}) is not in the PyTorch port yet; it "
+                "decodes greedily: ROADMAP queue A, item 3")
+        cfg = self.config
+        ids = np.asarray(input_ids, dtype=np.int32)
+        if ids.ndim != 2:
+            raise ValueError(f"input_ids must be [B, T], got shape {ids.shape}")
+        B, T = ids.shape
+        if B > cfg.max_batch_size:
+            raise ValueError(f"batch {B} exceeds max_batch_size {cfg.max_batch_size} "
+                             "(raise it in the inference config)")
+        lens = (np.full((B,), T, np.int32) if prompt_lengths is None
+                else np.asarray(prompt_lengths, np.int32))
+        if lens.shape != (B,) or (lens < 1).any() or (lens > T).any():
+            raise ValueError(f"prompt_lengths must be [{B}] values in [1, {T}], got {lens}")
+        max_new = int(max_new_tokens if max_new_tokens is not None else cfg.max_new_tokens)
+        if max_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
+        eos = cfg.eos_token_id if eos_token_id is None else int(eos_token_id)
+        S = cfg.max_seq_len
+        Tpad = min(_bucket(T), S)
+        if T + max_new > S:
+            raise ValueError(f"prompt {T} + max_new {max_new} exceeds max_seq_len {S}")
+        if Tpad > T:
+            ids = np.pad(ids, ((0, 0), (0, Tpad - T)))
+        dev = self.device
+        ids_t, pos = torch.from_numpy(ids).to(dev), torch.from_numpy(lens).to(dev)
+        cache = self._new_cache(B)
+        tok = self._head(self._prefill(ids_t, pos, cache))[:, 0].argmax(-1).to(torch.int32)
+        done = tok == eos if eos >= 0 else torch.zeros(B, dtype=torch.bool, device=dev)
+        out = [tok]
+        for _ in range(max_new - 1):
+            nxt = self._decode_step(cache, tok, pos).argmax(-1).to(torch.int32)
+            nxt = torch.where(done, torch.full_like(nxt, cfg.pad_token_id), nxt)
+            if eos >= 0:
+                done = done | (nxt == eos)
+            pos = torch.clamp(pos + 1, max=S - 1)
+            out.append(nxt)
+            tok = nxt
+        return torch.stack(out, dim=1).cpu().numpy()
+
+
+def init_inference(model=None, params=None, config=None, checkpoint: Optional[str] = None,
+                   device=None, **kwargs) -> InferenceEngine:
+    """Build a v1 ``InferenceEngine`` (JAX ``init_inference``) from the
+    port's model object and its parameters (``model.params()`` or
+    ``models.convert.params_from_numpy``). ``config`` is a dict in the JAX
+    package's inference-config format or an ``InferenceConfig``; extra
+    keyword arguments join the dict. The engine runs on the card unless
+    ``device="cpu"`` is given."""
+    if not isinstance(config, InferenceConfig):
+        cfg_dict = dict(config or {})
+        cfg_dict.update(kwargs)
+        config = InferenceConfig.from_dict(cfg_dict)
+    elif kwargs:
+        raise ValueError(f"init_inference: keyword settings {sorted(kwargs)} with an "
+                         "InferenceConfig object; put them in the config")
+    if isinstance(model, str) or (model is not None and not isinstance(model, Transformer)):
+        raise NotImplementedError("init_inference from a Hugging Face path or model object is "
+                                  "not in the PyTorch port yet (ROADMAP queue A, item 14); "
+                                  "pass the port's Transformer and its params")
+    if checkpoint is not None:
+        raise NotImplementedError("init_inference(checkpoint=...): serving from a training "
+                                  "checkpoint is not in the PyTorch port yet (ROADMAP queue A, "
+                                  "item 7)")
+    if model is None or params is None:
+        raise ValueError("init_inference requires the model and its params")
+    return InferenceEngine(model, params, config, device=device)
+

@@ -1,11 +1,16 @@
 """Paged continuous-batching engine (PyTorch port of ``engine_v2``).
 
 Counterpart of ``shuffle_exchange_tpu/inference/engine_v2.py``: host-side
-sequence state and block allocation, and ``step()`` — one continuous-
-batching tick that advances every decode row by one token and absorbs a
-prefill chunk for every prefilling row. A tick runs one of three
-programs, as in JAX: the mixed Dynamic-SplitFuse program, decode only, or
-extend only. Within a layer, chunk rows run ``_extend_layer`` (scatter the
+sequence state and block allocation; ``step()`` — one continuous-batching
+tick that advances every decode row by one token and absorbs a prefill
+chunk for every prefilling row, in one of three programs as in JAX (the
+mixed Dynamic-SplitFuse program, decode only, or extend only); ``put()`` —
+the sequential serving step: every new uid through one batched prefill
+program (each layer scatters the prompts' K/V into their blocks and runs
+the flash attention kernel over the prompts), single-token extensions
+through the decode program and longer ones through block-sized extend
+chunks; and ``decode_loop()`` — ``n_steps`` greedy decode programs with
+the argmax fed back on the device and one copy to the host at the end. Within a layer, chunk rows run ``_extend_layer`` (scatter the
 chunk's K/V, then the paged extend kernel) and decode rows run
 ``_decode_layer``: with ``decode_kernel`` resolved to "pallas" (the default
 on the card) that is ``_fused_paged_layer`` (the fused QKV+RoPE+append,
@@ -18,9 +23,9 @@ block just as they do in JAX. The bins matter less here than under XLA —
 PyTorch does not compile per shape — but keeping them keeps the two
 engines' kernels fed identical operands.
 
-Left for later slices: ``put()`` / ``decode_loop`` and their flash prefill
-(ROADMAP queue A, item 2), ``step_sampled``, speculation, prefix caching,
-int8/fp8 KV and the KV tier (item 3), adapters and MoE serving.
+Left for later slices: ``step_sampled``, speculation, prefix caching and
+``fork``, int8/fp8 KV and the KV tier (ROADMAP queue A, item 3), adapters
+(item 10) and MoE serving (item 9).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import _norm
+from ..ops.flash_attention import flash_attention
 from ..ops.fused_decode import fused_paged_decode_attention, fused_qkv_rope
 from ..ops.paged_attention import paged_decode_attention, paged_extend_attention
 from .config import InferenceConfig
@@ -43,11 +49,14 @@ from .paged import BlockedAllocator, PagedKVCache, append_token_kv, blocks_neede
 @dataclasses.dataclass
 class SequenceDescriptor:
     """Host state for one live sequence: the tokens whose K/V are in the
-    pool (``seen_tokens``) and the blocks holding them."""
+    pool (``seen_tokens``), the blocks holding them, and the f32 logits at
+    its latest position (``last_logits`` [V], set by every program that
+    advances it)."""
 
     uid: int
     seen_tokens: int = 0
     blocks: List[int] = dataclasses.field(default_factory=list)
+    last_logits: Optional[np.ndarray] = None
 
 
 class InferenceEngineV2(InferenceEngine):
@@ -174,6 +183,27 @@ class InferenceEngineV2(InferenceEngine):
             tables[i] = self._table(d, W)
         return B, C, W, ids, start, nnew, tables
 
+    def _pack_prefill(self, prefills: List[Tuple[SequenceDescriptor, List[int]]]):
+        """(P, tpad, ids, plen, btables) for the batched prefill program;
+        allocates each descriptor's blocks. tpad is a power of two of at
+        least one block, capped at max_seq_len; P a power of two."""
+        bs = self.cache.block_size
+        tmax = max(len(toks) for _, toks in prefills)
+        tpad = max(bs, _bucket(tmax, minimum=bs))
+        tpad = min(-(-tpad // bs) * bs, self.config.max_seq_len)
+        nblk_pad = tpad // bs
+        P = _bucket(len(prefills), minimum=1)
+        ids = np.zeros((P, tpad), np.int32)
+        plen = np.ones((P,), np.int32)
+        btables = np.full((P, nblk_pad), self._scratch, np.int32)
+        for i, (desc, toks) in enumerate(prefills):
+            T = len(toks)
+            self._ensure_blocks(desc, T)
+            ids[i, :T] = toks
+            plen[i] = T
+            btables[i, :len(desc.blocks)] = desc.blocks[:nblk_pad]
+        return P, tpad, ids, plen, btables
+
     # -- layers -----------------------------------------------------------
 
     def _decode_layer(self, lw, h, ck, cv, pos, tables) -> torch.Tensor:
@@ -248,6 +278,37 @@ class InferenceEngineV2(InferenceEngine):
             x = self._extend_layer(lw, x, self.cache.k[i], self.cache.v[i], positions,
                                    start, nnew, tables)
         return self._last_rows_logits(x, nnew)
+
+    @torch.no_grad()
+    def _prefill_program(self, ids, plen, btables) -> torch.Tensor:
+        """The batched prefill (JAX ``_paged_prefill_impl``): ids [P, tpad]
+        right-padded prompts from position 0, plen [P], btables [P,
+        tpad // bs] (scratch-padded). Each layer scatters every row's K/V
+        into its blocks of the layer's pool view in place (padding rows
+        and padding blocks land on the scratch block) and attends through
+        the flash attention kernel over the rows' own K/V, causally.
+        Returns f32 logits [P, V] at each row's ``plen - 1``."""
+        P, tpad = ids.shape
+        bs = self.cache.block_size
+        nblk = tpad // bs
+        flat = btables.reshape(-1).long()
+        x, positions = self._embed_at(ids, torch.zeros(P, dtype=torch.int32,
+                                                       device=ids.device))
+
+        def blocks(t):   # [P, tpad, KV, Dh] -> [P * nblk, KV, bs, Dh]
+            KV, Dh = t.shape[2], t.shape[3]
+            return t.reshape(P, nblk, bs, KV, Dh).transpose(2, 3).reshape(P * nblk, KV, bs, Dh)
+
+        for i, lw in enumerate(self._layer_weights):
+            ck, cv = self.cache.k[i], self.cache.v[i]
+
+            def attn_fn(q, k, v, ck=ck, cv=cv):
+                ck[flat] = blocks(k).to(ck.dtype)
+                cv[flat] = blocks(v).to(cv.dtype)
+                return flash_attention(q, k, v, causal=True)
+
+            x = self._layer_body(lw, x, positions, attn_fn)
+        return self._last_rows_logits(x, plen)
 
     @torch.no_grad()
     def _mixed_program(self, dtok, dpos, dtables, pids, pstart, pnnew, ptables):
@@ -338,15 +399,147 @@ class InferenceEngineV2(InferenceEngine):
             plogits = self._extend_program(*pargs).cpu().numpy()
         else:
             return dlogits, plogits
+        self._count_dispatch(key)
+
+        for i, d in enumerate(ddescs):
+            d.seen_tokens += 1
+            d.last_logits = dlogits[i]
+        for i, (d, (_, chunk)) in enumerate(zip(pdescs, prefills)):
+            d.seen_tokens += len(chunk)
+            d.last_logits = plogits[i]
+        return dlogits[:len(ddescs)], plogits[:len(pdescs)]
+
+    def _count_dispatch(self, key: tuple) -> None:
         self._program_keys.add(key)
         self.dispatches_by_program[key[0]] += 1
         self.dispatch_count += 1
 
-        for d in ddescs:
-            d.seen_tokens += 1
-        for d, (_, chunk) in zip(pdescs, prefills):
-            d.seen_tokens += len(chunk)
-        return dlogits[:len(ddescs)], plogits[:len(pdescs)]
+    # -- the sequential serving API --------------------------------------
+
+    def put(self, uids: Sequence[int], tokens: Sequence[Sequence[int]]) -> np.ndarray:
+        """One engine step (JAX ``put``): new uids are prefilled, known
+        uids extended by their new tokens (none: their logits are returned
+        as they are). Returns f32 logits [len(uids), V] at each sequence's
+        latest position, in order. Admission (lengths and KV blocks, then
+        the batch bound) is checked before any state changes: a refused
+        call leaves the engine as it was.
+
+        Programs: all new uids in one batched prefill program (P, tpad);
+        the single-token extensions in one decode program (the fused
+        decode layer under "pallas"); the longer ones in extend programs
+        of at most ``kv_block_size`` tokens per sequence, as many as the
+        longest needs."""
+        if len(uids) != len(tokens):
+            raise ValueError("uids and tokens must align")
+        if len(set(uids)) != len(uids):
+            raise ValueError("duplicate uid in one put() batch: a sequence can "
+                             "advance at most one decode position per engine step")
+        for uid, toks in zip(uids, tokens):
+            if uid not in self._seqs and not len(toks):
+                raise ValueError(f"new uid {uid} with no tokens")
+        ok, _, why = self._admission_detail(uids, [len(t) for t in tokens])
+        if not ok:
+            raise RuntimeError(f"cannot schedule put() batch: {why}")
+        n_ext = sum(1 for uid, toks in zip(uids, tokens) if uid in self._seqs and len(toks))
+        if n_ext > self.config.max_batch_size:
+            raise ValueError(f"decode batch {n_ext} exceeds max_batch_size "
+                             f"{self.config.max_batch_size} (raise it in the inference config)")
+        bs = self.cache.block_size
+        prefills: List[Tuple[SequenceDescriptor, List[int]]] = []
+        extends: List[Tuple[SequenceDescriptor, List[int]]] = []
+        for uid, toks in zip(uids, tokens):
+            toks = list(map(int, toks))
+            if uid in self._seqs:
+                if toks:
+                    extends.append((self._seqs[uid], toks))
+            else:
+                desc = self._seqs[uid] = SequenceDescriptor(uid=uid)
+                prefills.append((desc, toks))
+
+        if prefills:
+            P, tpad, ids, plen, btables = self._pack_prefill(prefills)
+            logits = self._prefill_program(*self._to_device(ids, plen, btables)).cpu().numpy()
+            self._count_dispatch(("prefill", P, tpad))
+            for i, (desc, toks) in enumerate(prefills):
+                desc.seen_tokens = len(toks)
+                desc.last_logits = logits[i]
+
+        singles = [(d, toks[0]) for d, toks in extends if len(toks) == 1]
+        multis = [(d, toks) for d, toks in extends if len(toks) > 1]
+        if singles:
+            for d, _ in singles:
+                self._ensure_blocks(d, d.seen_tokens + 1)
+            B, W, tok, pos, tables = self._pack_decode([d for d, _ in singles],
+                                                       [t for _, t in singles])
+            logits = self._decode_program(*self._to_device(tok, pos, tables)).cpu().numpy()
+            self._count_dispatch(("decode", B, W))
+            for i, (d, _) in enumerate(singles):
+                d.seen_tokens += 1
+                d.last_logits = logits[i]
+
+        while any(toks for _, toks in multis):
+            batch = []
+            for d, toks in multis:
+                if toks:
+                    batch.append((d, toks[:bs]))
+                    del toks[:bs]
+            for d, chunk in batch:
+                self._ensure_blocks(d, d.seen_tokens + len(chunk))
+            B, C, W, ids, start, nnew, tables = self._pack_chunks(batch)
+            logits = self._extend_program(
+                *self._to_device(ids, start, nnew, tables)).cpu().numpy()
+            self._count_dispatch(("extend", B, C, W))
+            for i, (d, chunk) in enumerate(batch):
+                d.seen_tokens += len(chunk)
+                d.last_logits = logits[i]
+
+        return np.stack([self._seqs[uid].last_logits for uid in uids])
+
+    def decode_loop(self, uids: Sequence[int], tokens: Sequence[int],
+                    n_steps: int) -> np.ndarray:
+        """Greedy-decode ``n_steps`` tokens for known uids (JAX
+        ``decode_loop``): ``tokens`` are each sequence's next input token;
+        every step runs the decode program and feeds its argmax back on
+        the device, with no host synchronisation until the one copy of the
+        tokens (and the last logits) at the end. Returns int32 [len(uids),
+        n_steps]; the descriptors advance as ``n_steps`` single-token
+        ``put()`` calls would move them. Admission is checked before any
+        state changes."""
+        if len(uids) != len(tokens):
+            raise ValueError("uids and tokens must align")
+        if len(set(uids)) != len(uids):
+            raise ValueError("duplicate uid in one decode_loop() batch")
+        for uid in uids:
+            if uid not in self._seqs:
+                raise ValueError(f"decode_loop uid {uid} unknown — put() its prompt first")
+        if int(n_steps) < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        n_steps = int(n_steps)
+        descs = [self._seqs[u] for u in uids]
+        ok, _, why = self._admission_detail(uids, [n_steps] * len(uids))
+        if not ok:
+            raise RuntimeError(f"cannot schedule decode_loop: {why}")
+        for d in descs:
+            self._ensure_blocks(d, d.seen_tokens + n_steps)
+        # the table covers exactly the blocks this loop can touch, rounded
+        # up to a power of two (the decode kernels walk it to kv_len only)
+        W = self._binned_width(max(len(d.blocks) for d in descs))
+        tables = np.stack([self._table(d, W) for d in descs]).astype(np.int32)
+        pos0 = np.asarray([d.seen_tokens for d in descs], np.int32)
+        tok, pos, tables_t = self._to_device(np.asarray(tokens, np.int32), pos0, tables)
+        out = torch.empty(n_steps, len(uids), dtype=torch.int32, device=self.device)
+        for s in range(n_steps):
+            logits = self._decode_program(tok, pos, tables_t)
+            tok = logits.argmax(-1).to(torch.int32)
+            out[s] = tok
+            pos = pos + 1
+        toks = out.T.cpu().numpy()
+        last = logits.cpu().numpy()
+        self._count_dispatch(("decode_loop", len(uids), n_steps, W))
+        for i, d in enumerate(descs):
+            d.seen_tokens += n_steps
+            d.last_logits = last[i]
+        return toks
 
     def flush(self, uids: Sequence[int]) -> None:
         """Free all state of finished sequences."""

@@ -5,11 +5,12 @@ Every wrapper counts the launches of its kernel in a plain integer
 through the kernels.
 """
 
+from .flash_attention import flash_attention
 from .fused_decode import fused_mlp, fused_paged_decode_attention, fused_qkv_rope
 from .paged_attention import paged_decode_attention, paged_extend_attention
 from .rmsnorm import rmsnorm
 
-#: the wrappers whose kernels the serving path launches, by kernel name
+#: the wrappers whose kernels the serving paths launch, by kernel name
 KERNEL_WRAPPERS = {
     "rmsnorm": rmsnorm,
     "paged_decode_attention": paged_decode_attention,
@@ -17,6 +18,7 @@ KERNEL_WRAPPERS = {
     "fused_qkv_rope": fused_qkv_rope,
     "fused_paged_decode_attention": fused_paged_decode_attention,
     "fused_mlp": fused_mlp,
+    "flash_attention": flash_attention,
 }
 
 
@@ -29,6 +31,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNEL_WRAPPERS", "fused_mlp", "fused_paged_decode_attention", "fused_qkv_rope",
-           "launch_counts", "paged_decode_attention", "paged_extend_attention",
+__all__ = ["KERNEL_WRAPPERS", "flash_attention", "fused_mlp", "fused_paged_decode_attention",
+           "fused_qkv_rope", "launch_counts", "paged_decode_attention", "paged_extend_attention",
            "reset_launch_counts", "rmsnorm"]

@@ -1,5 +1,5 @@
-// The fused decode layer for Hopper (sm_90a): QKV projection + RoPE + pool
-// append, split-K paged flash-decode, and RMSNorm + SwiGLU MLP + residual,
+// The fused decode layer for Hopper (sm_90a): QKV projection + RoPE (+ the
+// pool append, when a pool is given), split-K paged flash-decode, and RMSNorm + SwiGLU MLP + residual,
 // behind a plain C interface loaded with ctypes (ops/_build.py builds this
 // file with nvcc at first use). Each C entry point launches all of its
 // kernels on the caller's stream and returns cudaGetLastError().
@@ -184,7 +184,8 @@ __device__ __forceinline__ float sum_splits(const float* __restrict__ part, int 
 // QKV epilogue: block (row b, head of [q heads | k heads | v heads]), Dh
 // threads. Adds the partials, applies rotate-half RoPE in f32 to q and k
 // (the partner of column d is d +- Dh/2 of the same head), casts, writes
-// q/k/v and appends k/v to the pool at (table[b, pos/bs], h, pos % bs).
+// q/k/v and, given a pool, appends k/v to it at (table[b, pos/bs], h,
+// pos % bs).
 // ---------------------------------------------------------------------------
 
 __global__ void qkv_epilogue_kernel(
@@ -211,6 +212,7 @@ __global__ void qkv_epilogue_kernel(
   }
   const int h = is_v ? head - H - KV : head - H;
   (is_v ? v : k)[(size_t(b) * KV + h) * Dh + d] = o;
+  if (pool_k == nullptr) return;   // no pool: q/k/v only
   const int p = pos[b];
   int blk = table[size_t(b) * W + min(p / bs, W - 1)];
   blk = blk < 0 ? 0 : blk;
@@ -447,7 +449,8 @@ const char* sxt_fused_error_string(int err) {
 }
 
 // QKV + RoPE + append. part: f32 workspace [splits, min(B, 8), (H + 2 KV) * Dh];
-// the reduction over D runs in `splits` chunks of `chunk` rows.
+// the reduction over D runs in `splits` chunks of `chunk` rows. With null
+// pools (and null table / pos) no pool row is written.
 int sxt_fused_qkv_rope_bf16(const void* y, const void* wq, const void* wk, const void* wv,
                             const void* cos, const void* sin, const void* table,
                             const void* pos, void* pool_k, void* pool_v, void* q, void* k,
@@ -468,7 +471,8 @@ int sxt_fused_qkv_rope_bf16(const void* y, const void* wq, const void* wk, const
         static_cast<const float*>(part), splits, nb, ncols,
         static_cast<const float*>(cos) + size_t(b0) * half,
         static_cast<const float*>(sin) + size_t(b0) * half,
-        static_cast<const int*>(table) + size_t(b0) * W, static_cast<const int*>(pos) + b0,
+        table ? static_cast<const int*>(table) + size_t(b0) * W : nullptr,
+        pos ? static_cast<const int*>(pos) + b0 : nullptr,
         static_cast<__nv_bfloat16*>(pool_k), static_cast<__nv_bfloat16*>(pool_v),
         static_cast<__nv_bfloat16*>(q) + size_t(b0) * Nq,
         static_cast<__nv_bfloat16*>(k) + size_t(b0) * Nkv,

@@ -3,8 +3,10 @@ versions.
 
 Replaces the TPU kernels of ``shuffle_exchange_tpu/ops/fused_decode.py``:
 
-- ``fused_qkv_rope_pallas``: QKV projection, rotate-half RoPE in f32 and
-  the in-place append of the new token's K/V to the layer's pool;
+- ``fused_qkv_rope_pallas``: QKV projection, rotate-half RoPE in f32 and,
+  given a pool, the in-place append of the new token's K/V to the layer's
+  pool (the paged engine); without one, q/k/v only (the dense-cache v1
+  engine);
 - ``fused_paged_decode_attention_pallas``: split-K flash-decode over the
   block table with an (m, l, acc) merge;
 - ``fused_mlp_pallas``: RMSNorm + SwiGLU MLP + residual.
@@ -63,11 +65,11 @@ def append_rows(pool_k, pool_v, k, v, block_table, pos) -> None:
     pool_v[blk, :, pos % bs] = v.to(pool_v.dtype)
 
 
-def fused_qkv_rope_reference(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos,
-                             *, n_heads: int, kv_heads: int):
+def fused_qkv_rope_reference(y, wq, wk, wv, cos, sin, pool_k=None, pool_v=None,
+                             block_table=None, pos=None, *, n_heads: int, kv_heads: int):
     """y [B, D] -> (q [B, H, Dh], k, v [B, KV, Dh]) in y's dtype, with k/v
-    appended to the pool in place: f32 products and sums, RoPE in f32 from
-    the f32 rows cos/sin [B, Dh/2], one cast."""
+    appended to the pool in place when one is given: f32 products and
+    sums, RoPE in f32 from the f32 rows cos/sin [B, Dh/2], one cast."""
     B = y.shape[0]
     H, KV = n_heads, kv_heads
     Dh = wq.shape[1] // H
@@ -78,7 +80,8 @@ def fused_qkv_rope_reference(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_tabl
     q = rope_heads(q, cos.float(), sin.float()).to(y.dtype)
     k = rope_heads(k, cos.float(), sin.float()).to(y.dtype)
     v = v.to(y.dtype)
-    append_rows(pool_k, pool_v, k, v, block_table, pos)
+    if pool_k is not None:
+        append_rows(pool_k, pool_v, k, v, block_table, pos)
     return q, k, v
 
 
@@ -144,15 +147,20 @@ def _refuse_biases(what: str, *biases) -> None:
                                   "ported yet: ROADMAP queue A, item 4")
 
 
-def fused_qkv_rope(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, *,
-                   n_heads: int, kv_heads: int, bq=None, bk=None, bv=None):
+def fused_qkv_rope(y, wq, wk, wv, cos, sin, pool_k=None, pool_v=None, block_table=None,
+                   pos=None, *, n_heads: int, kv_heads: int, bq=None, bk=None, bv=None):
     """One token per sequence: y [B, D] (the normalised hidden rows) ->
     (q [B, H, Dh], k, v [B, KV, Dh]); rotate-half RoPE from the f32 rows
-    cos/sin [B, Dh/2] at each row's position ``pos`` [B]; the new K/V is
-    written into the layer's pool [nblk, KV, bs, Dh] in place at
-    (block_table[b, pos//bs], :, pos % bs). The CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    cos/sin [B, Dh/2]. Given a pool, the new K/V is also written into the
+    layer's pool [nblk, KV, bs, Dh] in place at (block_table[b, pos//bs],
+    :, pos % bs) for each row's position ``pos`` [B]; with ``pool_k=None``
+    no pool row is written (the dense-cache engine's form). The CUDA kernel
+    on a CUDA tensor, the plain version on a CPU tensor."""
     _refuse_biases("QKV", bq, bk, bv)
+    pooled = [a is not None for a in (pool_k, pool_v, block_table, pos)]
+    if any(pooled) and not all(pooled):
+        raise ValueError("fused QKV: pool_k, pool_v, block_table and pos go together "
+                         "(all given: append; all None: no pool)")
     if not use_kernel(y):
         return fused_qkv_rope_reference(y, wq, wk, wv, cos, sin, pool_k, pool_v,
                                         block_table, pos, n_heads=n_heads, kv_heads=kv_heads)
@@ -303,18 +311,24 @@ def _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, H, KV
     _bf16("wq", wq, dev, (D, Nq))
     _bf16("wk", wk, dev, (D, Nkv))
     _bf16("wv", wv, dev, (D, Nkv))
-    _bf16("k pool", pool_k, dev)
-    _bf16("v pool", pool_v, dev, pool_k.shape)
-    if pool_k.dim() != 4 or pool_k.shape[1] != KV or pool_k.shape[3] != Dh:
-        raise ValueError(f"fused QKV kernel: pool {tuple(pool_k.shape)} is not "
-                         f"[nblk, {KV}, bs, {Dh}]")
+    if pool_k is not None:
+        _bf16("k pool", pool_k, dev)
+        _bf16("v pool", pool_v, dev, pool_k.shape)
+        if pool_k.dim() != 4 or pool_k.shape[1] != KV or pool_k.shape[3] != Dh:
+            raise ValueError(f"fused QKV kernel: pool {tuple(pool_k.shape)} is not "
+                             f"[nblk, {KV}, bs, {Dh}]")
     rope = []
     for name, t in (("cos", cos), ("sin", sin)):
         if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (B, Dh // 2):
             raise ValueError(f"fused QKV kernel: {name} must be f32 [{B}, {Dh // 2}] on {dev}")
         rope.append(t.contiguous())
-    table = _index(block_table, B, dev, "block table", dims=2)
-    pos = _index(pos, B, dev, "pos")
+    if pool_k is not None:
+        table = _index(block_table, B, dev, "block table", dims=2)
+        pos = _index(pos, B, dev, "pos")
+        pool_args = (table.data_ptr(), pos.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr())
+        bs, W = pool_k.shape[2], table.shape[1]
+    else:   # no append: the kernel writes no pool row
+        pool_args, bs, W = (None,) * 4, 1, 0
     q = torch.empty(B, H, Dh, device=dev, dtype=y.dtype)
     k = torch.empty(B, KV, Dh, device=dev, dtype=y.dtype)
     v = torch.empty(B, KV, Dh, device=dev, dtype=y.dtype)
@@ -324,9 +338,8 @@ def _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, H, KV
     lib = _lib()
     err = lib.sxt_fused_qkv_rope_bf16(
         y.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), rope[0].data_ptr(),
-        rope[1].data_ptr(), table.data_ptr(), pos.data_ptr(), pool_k.data_ptr(),
-        pool_v.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), part.data_ptr(),
-        B, D, H, KV, Dh, pool_k.shape[2], table.shape[1], splits, chunk,
+        rope[1].data_ptr(), *pool_args, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        part.data_ptr(), B, D, H, KV, Dh, bs, W, splits, chunk,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "QKV")
     return q, k, v

@@ -24,11 +24,14 @@ from shuffle_exchange_tpu.inference import InferenceConfig as JConfig
 from shuffle_exchange_tpu.inference import ServingConfig as JServing
 from shuffle_exchange_tpu.inference.paged import BlockedAllocator as JAllocator
 from shuffle_exchange_tpu_torch.config import ConfigError
-from shuffle_exchange_tpu_torch.inference import (InferenceConfig, InferenceEngineV2,
-                                                  ServingConfig)
+from shuffle_exchange_tpu_torch.inference import (InferenceConfig, InferenceEngine,
+                                                  InferenceEngineV2, ServingConfig,
+                                                  init_inference)
 from shuffle_exchange_tpu_torch.inference.paged import BlockedAllocator
 from shuffle_exchange_tpu_torch.models import Transformer, tiny
 from shuffle_exchange_tpu_torch.ops import dispatch
+
+tfa = importlib.import_module("shuffle_exchange_tpu_torch.ops.flash_attention")
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "shuffle_exchange_tpu_torch"
 LLAMA = dict(vocab=64, d=32, layers=1, heads=4, seq=64, activation="swiglu",
@@ -70,6 +73,83 @@ def test_kernel_gate_follows_the_tensor():
     assert dispatch.use_kernel(torch.zeros(1)) is False
     with pytest.raises(ValueError, match="no kernel"):
         dispatch.use_kernel(torch.zeros(1, device="meta"))
+
+
+def test_flash_wrapper_raises_on_a_meta_tensor():
+    q = torch.zeros(1, 4, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_attention(q, q, q, causal=True)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_wrapper_causal_needs_t_equal_s(causal):
+    """Causal with T != S is refused on every device, naming the two
+    diagonal alignments of the JAX package; the full mask takes any T, S."""
+    q, k = torch.randn(1, 3, 2, 64), torch.randn(1, 5, 2, 64)
+    if causal:
+        with pytest.raises(ValueError, match="aligns the diagonal bottom-right"):
+            tfa.flash_attention(q, k, k, causal=True)
+    else:
+        assert tfa.flash_attention(q, k, k, causal=False).shape == q.shape
+
+
+@pytest.mark.parametrize("Dh", [32, 96, 256])
+def test_flash_kernel_operand_check_refuses_unbuilt_head_dims(Dh):
+    """On a CUDA tensor the wrapper calls this check before the launch; a
+    head_dim the kernel is not built for raises there and never reaches
+    the plain version."""
+    q = torch.zeros(1, 8, 4, Dh, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, Dh, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"head_dim {Dh} not built"):
+        tfa.check_operands(q, k, k)
+    q, k = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16), torch.zeros(1, 8, 2, 64)
+    tfa.check_operands(q, k.bfloat16(), k.bfloat16())
+    for bad, err in ((k, TypeError), (k.bfloat16().transpose(1, 2), ValueError)):
+        with pytest.raises(err):
+            tfa.check_operands(q, bad, bad)
+
+
+def _v1_engine(**cfg):
+    model = Transformer(tiny(**LLAMA), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    return model, params, init_inference(model, params, dict(max_seq_len=64, **cfg),
+                                         device="cpu")
+
+
+@pytest.mark.parametrize("what,item", [
+    ("config-temperature", "item 3"), ("config-top_k", "item 3"), ("config-top_p", "item 3"),
+    ("generate-temperature", "item 3"), ("generate-rng", "item 3"),
+    ("tensor_parallel", "item 12"), ("quantize_weights", "item 8"), ("hf-path", "item 14"),
+    ("hf-object", "item 14"), ("checkpoint", "item 7"), ("forward", "item 4")])
+def test_v1_refusals_name_their_roadmap_item(what, item):
+    model, params, eng = _v1_engine()
+    calls = {
+        "config-temperature": lambda: init_inference(model, params, {"temperature": 0.7}),
+        "config-top_k": lambda: init_inference(model, params, {"top_k": 40}),
+        "config-top_p": lambda: init_inference(model, params, {"top_p": 0.9}),
+        "generate-temperature": lambda: eng.generate([[1, 2]], temperature=0.5),
+        "generate-rng": lambda: eng.generate([[1, 2]], rng=torch.Generator()),
+        "tensor_parallel": lambda: init_inference(model, params, {"tensor_parallel": 2}),
+        "quantize_weights": lambda: init_inference(model, params, {"quantize_weights": True}),
+        "hf-path": lambda: init_inference("meta-llama/Meta-Llama-3-8B", params, {}),
+        "hf-object": lambda: init_inference(torch.nn.Linear(2, 2), params, {}),
+        "checkpoint": lambda: init_inference(model, params, {}, checkpoint="ckpt"),
+        "forward": lambda: eng.forward([[1, 2]]),
+    }
+    with pytest.raises((ConfigError, NotImplementedError), match=f"ROADMAP queue A, {item}"):
+        calls[what]()
+
+
+def test_v1_greedy_generate_on_the_cpu_engine():
+    _, _, eng = _v1_engine(max_new_tokens=5, decode_kernel="pallas")
+    assert isinstance(eng, InferenceEngine) and eng._decode_kernel == "pallas"
+    out = eng.generate(np.asarray([[3, 4, 5], [6, 7, 0]]), prompt_lengths=[3, 2])
+    assert out.shape == (2, 5) and out.dtype == np.int32
+    assert ((0 <= out) & (out < 64)).all()
+    with pytest.raises(ValueError, match="max_seq_len"):
+        eng.generate(np.ones((1, 60), np.int32), max_new_tokens=8)
+    with pytest.raises(ValueError, match="max_batch_size"):
+        eng.generate(np.ones((9, 2), np.int32))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -150,7 +230,9 @@ def test_bad_config_raises(d):
 
 def test_config_defaults_equal_the_jax_package():
     names = ("dtype", "max_batch_size", "max_seq_len", "decode_kernel", "kv_block_size",
-             "num_kv_blocks", "kv_cache_dtype", "prefix_caching")
+             "num_kv_blocks", "kv_cache_dtype", "prefix_caching", "tensor_parallel",
+             "max_new_tokens", "eos_token_id", "pad_token_id", "temperature", "top_k",
+             "top_p", "quantize_weights")
     port, ref = InferenceConfig(), JConfig()
     assert {n: getattr(port, n) for n in names} == {n: getattr(ref, n) for n in names}
     for f in dataclasses.fields(ServingConfig):
