@@ -8,19 +8,22 @@ Run from the repository root, with one CUDA card:
 It never imports JAX or the JAX package, and every failure ends it with a
 non-zero exit code. The phases:
 
-1. Build: ``nvcc`` compiles the three CUDA sources (paged attention, the
-   fused decode layer and flash attention) into ``build/`` at once, one
-   process each, and the Triton RMSNorm kernel compiles at its first
-   launch.
+1. Build: ``nvcc`` compiles the four CUDA sources (paged attention, the
+   fused decode layer, flash attention and fused AdamW) into ``build/`` at
+   once, one process each, and the Triton RMSNorm kernel compiles at its
+   first launch.
 2. Kernels: each kernel and its plain PyTorch version run in bf16 on the
-   card at the serving paths' shapes; the errors are held to stated
+   card at the shapes the serving and training paths give it (RMSNorm at
+   both); the errors are held to stated
    tolerances (shown once to catch a deliberately broken plain version)
    and each is timed beside its bound (the least time the card could
    take for the same work) and one PyTorch library call that computes the
    same function, as a yardstick only; the host's cost of issuing one
    call of each wrapper is timed too. Phase 2c does this for the flash
    attention kernel (the prefill's) and the fused QKV kernel without a
-   pool (the v1 engine's form).
+   pool (the v1 engine's form), phase 2d for the training kernels: the
+   flash forward's out and log-sum-exp at the training shapes, the flash
+   backward and fused AdamW.
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
    Llama-3-8B at full width and depth with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
@@ -38,6 +41,15 @@ non-zero exit code. The phases:
    batched prefill, then single- and multi-token extensions) and the v1
    prefill and decode steps; all logits must agree within a stated
    tolerance.
+5. Train: ``initialize`` + ``Engine.train_batch`` on the largest entry of
+   the Llama training ladder whose state fits the card (``llama3-1b-style``
+   on 80 GB), full depth, bf16, FusedAdam, full remat, batch 32 x 1024, one
+   seeded batch repeated: step p50, tokens/s, MFU, peak memory, a falling
+   loss, launch counters equal to what the program implies, and one
+   profiled step.
+6. The training model cut to depth 2: the card's bf16 loss and every
+   gradient leaf against a CPU f32 engine from the same weights, a 3-step
+   loss trajectory, and a skipped step that must leave the state bit-equal.
 
 The second-to-last line of standard output is one JSON object with a row
 per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -47,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -57,6 +70,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 FLUSH_BYTES = 256 << 20        # written between timed launches: > the 50 MB L2
 
 
@@ -71,8 +85,8 @@ def card_line() -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -120,6 +134,13 @@ def host_us(fn, calls: int = 20) -> float:
 # ---------------------------------------------------------------------------
 
 
+# the serving ticks' rows (a 256-token budget, 8 decode rows) at the 8B
+# width, then what the training step gives the kernel: a layer's norm over
+# 32 sequences of 1023 positions and one 256-position chunk of the loss
+# head's final norm, at the training model's width
+RMSNORM_SHAPES = [(256, 4096), (8, 4096), (32, 1023, 2048), (32, 256, 2048)]
+
+
 def check_rmsnorm(gen):
     import torch
     import torch.nn.functional as F
@@ -127,9 +148,9 @@ def check_rmsnorm(gen):
     from shuffle_exchange_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_reference
 
     rows_out = []
-    for rows in (256, 8):
-        D = 4096
-        x = torch.randn(rows, D, generator=gen, device="cuda").bfloat16()
+    for shape in RMSNORM_SHAPES:
+        D, rows = shape[-1], int(np.prod(shape[:-1]))
+        x = torch.randn(*shape, generator=gen, device="cuda").bfloat16()
         w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).bfloat16()
         got, want = rmsnorm(x, w, 1e-5).float(), rmsnorm_reference(x, w, 1e-5).float()
         torch.cuda.synchronize()
@@ -141,7 +162,7 @@ def check_rmsnorm(gen):
         nbytes = 2 * rows * D * 2 + D * 2
         b_ms, b_by = bound(nbytes, 4.0 * rows * D)
         rows_out.append(dict(
-            shape=[rows, D], max_abs_err=err.max().item(),
+            shape=list(shape), max_abs_err=err.max().item(),
             max_rel_err=(err.max() / want.abs().max()).item(), tolerance="2^-7*|plain| + 1e-3",
             within=tol_ok, library_max_abs_err=(lib - want).abs().max().item(),
             ms=time_cold(lambda: rmsnorm(x, w, 1e-5)),
@@ -149,8 +170,9 @@ def check_rmsnorm(gen):
             plain_ms=time_cold(lambda: rmsnorm_reference(x, w, 1e-5)),
             library_ms=time_cold(lambda: F.rms_norm(x, (D,), w, 1e-5)),
             bound_ms=b_ms, bound_by=b_by))
-        _check(tol_ok, f"rmsnorm kernel disagrees with its plain version at {[rows, D]}: "
+        _check(tol_ok, f"rmsnorm kernel disagrees with its plain version at {list(shape)}: "
                f"max abs err {rows_out[-1]['max_abs_err']}")
+        del x, got, want, err, lib
     return rows_out
 
 
@@ -688,6 +710,274 @@ def check_flash(gen, rng):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2d: the training kernels (flash attention backward, fused AdamW)
+# ---------------------------------------------------------------------------
+
+# The backward kernels and the plain version (reference_attention_bwd: the
+# passes' formulas in f32 on the same operands, the forward's bf16 out
+# included) each round one f32 gradient to bf16. The kernels feed P and dS
+# to the tensor cores as two bf16 terms (hi + lo), so their f32 results
+# differ from the plain ones by summation order and ~2^-16 relative terms
+# only: one bf16 step of the gradient (2^-7 |plain|) plus 2^-8 of the
+# tensor's RMS for elements that cancel to near zero. A causal diagonal
+# shifted by one moves dv of the early keys by far more. (Autograd through
+# the unrounded f32 forward is further away, because delta = rowsum(dout *
+# out) then lacks the rounding of out: its distance is reported beside.)
+# The 1e-5 is for gradients that are zero by cancellation in f32 (a row
+# with one visible key has dS = dP - delta = 0 up to f32 rounding of two
+# sums of order 10).
+GRAD_TOL = "2^-7*|plain| + 2^-8*rms(plain tensor) + 1e-5"
+LSE_TOL = 1e-3       # f32 sums in another order and exp2f: absolute, lse is of order 1-10
+# The worst element's distance from autograd through the unrounded f32
+# forward (reference_attention with P in f32), over the tensor's RMS, at the
+# training shape: measured 0.07 (dv) to 0.13 (dq) on the H100, all of it the
+# bf16 rounding of out inside delta. A limit of 1.5 times that holds the
+# kernels to the yardstick that shares nothing with them.
+AUTOGRAD_TOL = 0.2
+
+
+def grad_close(got, want):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rms = want.pow(2).mean().sqrt()
+    return err, bool((err <= 2 ** -7 * want.abs() + 2 ** -8 * rms + 1e-5).all())
+
+
+# (B, T, S, H, KV, Dh, causal, segments): the training step's shape (32
+# sequences of 1023 positions after the label shift, 16/4 heads of 128), the
+# same at T = 1024 and an MHA shape (these three are timed), then MHA at
+# T = 200, head size 64, segment ids, ragged T = 37, one row, and a full
+# mask with T != S
+FLASH_BWD_TIMED = 3
+FLASH_BWD_SHAPES = [
+    (32, 1023, 1023, 16, 4, 128, True, False),
+    (32, 1024, 1024, 16, 4, 128, True, False),
+    (2, 1000, 1000, 32, 32, 128, True, False),
+    (2, 200, 200, 8, 8, 128, True, False),
+    (2, 1000, 1000, 16, 2, 64, True, False),
+    (2, 1000, 1000, 16, 4, 128, True, True),
+    (3, 37, 37, 8, 2, 64, True, True),
+    (3, 1, 1, 8, 2, 128, True, False),
+    (2, 200, 1000, 16, 4, 128, False, False),
+]
+
+
+def _masked_plain_grads(q, k, v, dout, allowed):
+    """(dq, dk, dv) in bf16 by autograd through ``_masked_plain`` on f32
+    copies: the yardstick for deliberately broken plain versions."""
+    import torch
+
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    out = _masked_plain(*leaves, allowed)
+    return [g.bfloat16() for g in torch.autograd.grad(out, leaves, dout.float())]
+
+
+def check_flash_bwd(gen, rng):
+    """The forward's out and lse and the backward kernels against their
+    plain versions at every FLASH_BWD_SHAPES shape (the kernel's out goes
+    into both backwards only once it has agreed with the plain out); the
+    first FLASH_BWD_TIMED shapes are timed beside their bound, the plain
+    version and SDPA's backward (a yardstick only). At the first shape a
+    plain version with the causal diagonal shifted by one must fail both
+    tolerances, two runs of the kernels must give equal bits, and the
+    kernels must stay within AUTOGRAD_TOL of autograd through the plain
+    forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                                flash_attention_lse,
+                                                                reference_attention,
+                                                                reference_attention_bwd,
+                                                                reference_attention_lse)
+
+    rows = []
+    for i, (B, T, S, H, KV, Dh, causal, segments) in enumerate(FLASH_BWD_SHAPES):
+        shape = (B, T, S, H, KV, Dh, causal, segments)
+        q = torch.randn(B, T, H, Dh, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
+        dout = torch.randn(B, T, H, Dh, generator=gen, device="cuda").bfloat16()
+        seg = None
+        if segments:
+            seg = torch.from_numpy(np.sort(rng.integers(0, 4, size=(B, T)), axis=1)
+                                   .astype(np.int32)).cuda()
+        out, lse = flash_attention_lse(q, k, v, causal, seg)
+        want_out, want_lse = reference_attention_lse(q, k, v, causal, seg, p_f32=True)
+        torch.cuda.synchronize()
+        out_err, out_ok = paged_close(out, want_out)
+        out_err = out_err.max().item()
+        _check(out_ok, f"flash forward (with lse) out disagrees with its plain version at "
+               f"{shape}: max abs err {out_err}")
+        lse_err = (lse - want_lse).abs().max().item()
+        _check(lse_err <= LSE_TOL, f"flash forward lse disagrees with its plain version at "
+               f"{shape}: max abs err {lse_err}")
+        del want_out
+        # out has agreed with the plain forward: both backwards read it
+        run = lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal, seg)
+        plain = lambda: reference_attention_bwd(q, k, v, out, dout, causal, seg)
+        got = run()
+        want = plain()
+        torch.cuda.synchronize()
+        checks = [grad_close(g, w) for g, w in zip(got, want)]
+        errs = {n: e.max().item() for n, (e, _) in zip(("dq", "dk", "dv"), checks)}
+        tol_ok = all(ok for _, ok in checks)
+        _check(tol_ok, f"flash backward kernels disagree with their plain version at {shape}: "
+               f"max abs err {errs}")
+        allowed = torch.ones(T, S, dtype=torch.bool, device="cuda")
+        if causal:
+            allowed = allowed.tril()
+        if seg is not None:
+            allowed = allowed[None] & (seg[:, :, None] == seg[:, None, :])
+        pairs = int(allowed.sum().item()) * (1 if allowed.dim() == 3 else B)
+        row = dict(shape=dict(B=B, T=T, S=S, H=H, KV=KV, Dh=Dh, causal=causal,
+                              segment_ids=segments),
+                   max_abs_err=max(errs.values()), errs=errs, lse_max_abs_err=lse_err,
+                   fwd_out_max_abs_err=out_err,
+                   tolerance=GRAD_TOL + f"; lse {LSE_TOL} abs; forward out {PAGED_TOL}",
+                   within=tol_ok)
+        if i == 0:
+            again = run()
+            torch.cuda.synchronize()
+            row["equal_bits_twice"] = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+            _check(row["equal_bits_twice"], "two runs of the flash backward kernels differ")
+            small = slice(0, 4)      # the shifted plain version on 4 sequences
+            shifted = torch.ones(T, S, dtype=torch.bool, device="cuda").tril(1)
+            broken = _masked_plain_grads(q[small], k[small], v[small], dout[small], shifted)
+            row["tolerance_bites"] = {
+                n: not grad_close(g[small], w)[1]
+                for n, g, w in zip(("dq", "dk", "dv"), got, broken)}
+            logits = torch.einsum("bthd,bshd->bhts", q[small].float() * Dh ** -0.5,
+                                  k[small].float().repeat_interleave(H // KV, dim=2))
+            shifted_lse = torch.logsumexp(logits.masked_fill(~shifted, -1e30), -1)
+            row["tolerance_bites"]["lse"] = bool(
+                (lse[small] - shifted_lse).abs().max().item() > LSE_TOL)
+            _check(all(row["tolerance_bites"].values()), "the flash backward tolerance does "
+                   f"not catch a shifted diagonal: {row['tolerance_bites']}")
+            leaves = [t[small].float().requires_grad_(True) for t in (q, k, v)]
+            auto = torch.autograd.grad(reference_attention(*leaves, causal, None), leaves,
+                                       dout[small].float())
+            row["autograd_max_err_over_rms"] = {
+                n: ((g[small].float() - a).abs().max() / a.pow(2).mean().sqrt()).item()
+                for n, g, a in zip(("dq", "dk", "dv"), got, auto)}
+            _check(max(row["autograd_max_err_over_rms"].values()) <= AUTOGRAD_TOL,
+                   f"the flash backward kernels are further than {AUTOGRAD_TOL} of the "
+                   f"tensor's RMS from autograd through the plain forward: "
+                   f"{row['autograd_max_err_over_rms']}")
+            del broken, logits, shifted_lse, leaves, auto
+        if i < FLASH_BWD_TIMED:
+            qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+            dos = dout.transpose(1, 2).contiguous()
+            lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                     enable_gqa=True)
+            lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dos, retain_graph=True)
+            lib_dq = lib()[0].transpose(1, 2)
+            row["library_max_abs_err"] = (lib_dq.float() - want[0].float()).abs().max().item()
+            nbytes = (3 * B * T * H * Dh * 2 + 2 * B * S * KV * Dh * 2 + B * H * T * 4   # reads
+                      + B * T * H * Dh * 2 + 2 * B * S * KV * Dh * 2)                    # writes
+            b_ms, b_by = bound(nbytes, 10.0 * pairs * H * Dh)
+            row.update(visible_pairs=pairs, ms=time_cold(run, iters=10),
+                       host_us=host_us(run), plain_ms=time_cold(plain, iters=3),
+                       library_ms=time_cold(lib, iters=10),
+                       library="SDPA backward (torch.autograd.grad of "
+                               "scaled_dot_product_attention, enable_gqa)",
+                       library_kernels=_sdpa_kernels(lib), bound_ms=b_ms, bound_by=b_by,
+                       fwd_lse_ms=time_cold(lambda: flash_attention_lse(q, k, v, causal, seg),
+                                            iters=10))
+            row["tflops"] = 10.0 * pairs * H * Dh / (row["ms"] * 1e-3) / 1e12
+            del qs, ks, vs, dos, lib_out, lib_dq
+        rows.append(row)
+        del q, k, v, dout, out, lse, got, want, want_lse
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows
+
+
+# The kernel and the plain version do the same f32 operations; the
+# compiler may contract a multiply and an add into one fma and PyTorch
+# divides by a scalar as a product with its reciprocal, so they differ by a
+# few f32 roundings of the terms: 1e-6 of (|plain| + |the value before the
+# step|), the second term for elements whose update cancels the value. For
+# p there is also 1e-5*lr: where b1*m and (1-b1)*g cancel, the new m keeps
+# few digits and the update lr*m_hat/(sqrt(v_hat)+eps), of order lr, moves
+# with it. Leaving the weight decay out moves p by lr*wd*|p| = 6e-7 at the
+# typical |p| of 0.02, 200 times that floor.
+ADAM_TOL = "1e-6*(|plain| + |value before the step|) + 1e-5*lr (p) or 1e-12 (m, v)"
+ADAM_HP = dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8)
+
+
+def check_fused_adamw(gen):
+    """B10 against its plain version: the largest stacked leaf of the
+    training model, its embedding and a ragged 1-D leaf, at steps 1 and
+    1000, with and without weight decay and with a clip coefficient. The
+    first leaf is timed beside its bound and ``torch.optim.AdamW(fused=
+    True)`` (a yardstick only). A plain version without the weight decay
+    must fail the tolerance."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops.fused_adam import fused_adamw_update, reference_update
+
+    def close(got, want, before, floor):
+        err = (got - want).abs()
+        return err.max().item(), bool((err <= 1e-6 * (want.abs() + before.abs()) + floor).all())
+
+    p_floor = 1e-5 * ADAM_HP["lr"]
+
+    rows = []
+    for i, shape in enumerate([(16, 2048, 8192), (128256, 2048), (1000003,)]):
+        n = int(np.prod(shape))
+        p = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+        m = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+        v = torch.rand(shape, generator=gen, device="cuda") * 1e-6
+        worst, ok_all, bites = 0.0, True, None
+        for step, wd, gscale in ((1, 0.1, 1.0), (1000, 0.1, 0.37), (1000, 0.0, 1.0)):
+            kp, km, kv_ = p.clone(), m.clone(), v.clone()
+            if step == 1:
+                km.zero_()
+                kv_.zero_()
+            m0, v0 = km.clone(), kv_.clone()
+            fused_adamw_update(kp, g, km, kv_, weight_decay=wd, step=step, grad_scale=gscale,
+                               **ADAM_HP)
+            want = reference_update(p, g, m0, v0, weight_decay=wd, step=step,
+                                    grad_scale=gscale, **ADAM_HP)
+            torch.cuda.synchronize()
+            for got_t, want_t, before, floor in zip((kp, km, kv_), want, (p, m0, v0),
+                                                    (p_floor, 1e-12, 1e-12)):
+                err, ok = close(got_t, want_t, before, floor)
+                worst, ok_all = max(worst, err), ok_all and ok
+            if wd and bites is None:
+                no_wd = reference_update(p, g, m0, v0, weight_decay=0.0, step=step,
+                                         grad_scale=gscale, **ADAM_HP)[0]
+                bites = not close(kp, no_wd, p, p_floor)[1]
+            del kp, km, kv_, m0, v0, want
+        _check(ok_all, f"fused AdamW kernel disagrees with its plain version at {shape}: "
+               f"max abs err {worst}")
+        _check(bites, "the AdamW tolerance does not catch a plain version without weight decay")
+        row = dict(shape=list(shape), max_abs_err=worst, tolerance=ADAM_TOL, within=ok_all,
+                   tolerance_bites=bites)
+        if i == 0:
+            run = lambda: fused_adamw_update(p, g, m, v, weight_decay=0.1, step=1000, **ADAM_HP)
+            plain = lambda: reference_update(p, g, m, v, weight_decay=0.1, step=1000, **ADAM_HP)
+            lp = torch.nn.Parameter(p.clone())
+            lp.grad = g
+            opt = torch.optim.AdamW([lp], lr=ADAM_HP["lr"], betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=0.1, fused=True)
+            b_ms, b_by = bound(28.0 * n, 12.0 * n, F32_FLOP_PER_S)
+            row.update(ms=time_cold(run, iters=10), host_us=host_us(run),
+                       plain_ms=time_cold(plain, iters=3),
+                       library_ms=time_cold(opt.step, iters=10),
+                       library="torch.optim.AdamW(fused=True).step()",
+                       bound_ms=b_ms, bound_by=b_by)
+            row["gbytes_per_s"] = 28.0 * n / (row["ms"] * 1e-3) / 1e9
+            del lp, opt
+        rows.append(row)
+        del p, g, m, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serve Llama-3-8B through the scheduler
 # ---------------------------------------------------------------------------
 
@@ -733,6 +1023,8 @@ def serve(model, params, rng, device=None, config=SERVE_CONFIG, n_prompts=N_PROM
 def _kernel_kind(name: str) -> str:
     low = name.lower()
     for key, kind in (("flash_fwd_kernel", "flash_attention"),
+                      ("flash_bwd_", "flash_attention_bwd"),
+                      ("fused_adamw_kernel", "fused_adamw"),
                       ("gemv_partial_kernel", "fused_gemv (qkv + mlp products)"),
                       ("qkv_epilogue_kernel", "fused_qkv_rope"),
                       ("split_decode_kernel", "fused_paged_decode_attention"),
@@ -767,11 +1059,12 @@ def trace_serve(model, params, rng, config=SERVE_CONFIG):
     return summary and dict(summary, ticks=out["sched"].ticks)
 
 
-def profiled(fn):
+def profiled(fn, top_other: int = 0):
     """Run ``fn`` under ``torch.profiler``; device busy ms (the union of
     the kernels' intervals), the window's wall ms, the idle share (an
     upper bound: the profiler lengthens the window) and device ms by
-    kernel kind. None when no device kernel was recorded."""
+    kernel kind; with ``top_other`` the largest kernels of kind "other" by
+    name. None when no device kernel was recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -780,15 +1073,20 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_kind = [], {}
+    spans, by_kind, other = [], {}, {}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
-        kind = by_kind.setdefault(_kernel_kind(ev.name), {"us": 0.0, "count": 0})
+        name = _kernel_kind(ev.name)
+        kind = by_kind.setdefault(name, {"us": 0.0, "count": 0})
         kind["us"] += end - start
         kind["count"] += 1
+        if name == "other":
+            o = other.setdefault(ev.name[:120], {"us": 0.0, "count": 0})
+            o["us"] += end - start
+            o["count"] += 1
     if not spans:
         return None
     busy, last = 0.0, -math.inf
@@ -796,10 +1094,14 @@ def profiled(fn):
         if end > last:
             busy += end - max(start, last)
             last = end
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / wall_us,
-            "by_kind_ms": {k: v["us"] / 1e3 for k, v in sorted(by_kind.items())},
-            "kernels_by_kind": {k: v["count"] for k, v in sorted(by_kind.items())}}
+    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "idle_share": 1 - busy / wall_us,
+           "by_kind_ms": {k: v["us"] / 1e3 for k, v in sorted(by_kind.items())},
+           "kernels_by_kind": {k: v["count"] for k, v in sorted(by_kind.items())}}
+    if top_other:
+        largest = sorted(other.items(), key=lambda kv: -kv[1]["us"])[:top_other]
+        out["other_top_ms"] = [[n, v["us"] / 1e3, v["count"]] for n, v in largest]
+    return out
 
 
 def expected_launches(eng, n_layers, loop_steps=0):
@@ -821,6 +1123,7 @@ def expected_launches(eng, n_layers, loop_steps=0):
            "paged_extend_attention": L * ext, "flash_attention": L * pre}
     for name in ("fused_qkv_rope", "fused_paged_decode_attention", "fused_mlp"):
         out[name] = L * dec if fused else 0
+    out.update(flash_attention_bwd=0, fused_adamw=0)     # the training step's
     return out
 
 
@@ -1137,6 +1440,187 @@ def e2e_v1_check(cfg, card_state, rng, decode_kernels=("auto", "xla"), steps=4):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: train the ladder's pick through initialize() + train_batch
+# ---------------------------------------------------------------------------
+
+# the training config of the JAX package's one-chip benchmark row: FusedAdam,
+# bf16, ZeRO stage 3 (at world size 1 the stage changes nothing), at batch
+# 32 x 1024 with full per-layer remat
+TRAIN_CONFIG = {"train_batch_size": 32,
+                "optimizer": {"type": "FusedAdam", "params": {"lr": 3e-4, "weight_decay": 0.1}},
+                "bf16": {"enabled": True}, "zero_optimization": {"stage": 3},
+                "steps_per_print": 10 ** 9}
+TRAIN_BATCH, TRAIN_SEQ = 32, 1024
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FREE = 3, 5, 8
+
+
+def train_expected_launches(model, batch, seq, n_leaves, steps):
+    """Launches per kernel that ``steps`` training steps imply: under full
+    remat every layer's forward runs twice (two RMSNorms and one flash
+    forward each time) and its flash backward once; the chunked loss norms
+    each chunk twice (it is checkpointed), the full-logits head once; AdamW
+    steps every leaf."""
+    from shuffle_exchange_tpu_torch import ops
+    from shuffle_exchange_tpu_torch.models.transformer import _remat_policy
+
+    cfg = model.config
+    L = cfg.n_layers
+    twice = 2 if cfg.remat and _remat_policy(cfg.remat_policy) == "full" else 1
+    chunk = model._loss_chunk(batch, seq - 1)
+    head_norms = 2 * -(-(seq - 1) // chunk) if chunk else 1
+    out = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    out.update(rmsnorm=(2 * L * twice + head_norms) * steps, flash_attention=L * twice * steps,
+               flash_attention_bwd=L * steps, fused_adamw=n_leaves * steps)
+    return out
+
+
+def train(name, cfg, seed, card, device=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """``initialize`` + ``train_batch`` on one seeded batch, repeated:
+    TRAIN_WARMUP steps, TRAIN_TIMED steps each synchronised (p50) and
+    TRAIN_FREE steps with one synchronisation at the end (tokens/s). The
+    launch counters are zeroed just before the first step and read just
+    after the last; they must equal what the program implies. Then one
+    profiled step. ``device``, ``batch`` and ``seq`` are for a rehearsal
+    at a tiny size on the CPU."""
+    import torch
+
+    import shuffle_exchange_tpu_torch as sxt
+    from shuffle_exchange_tpu_torch import ops
+    from shuffle_exchange_tpu_torch.models import Transformer
+
+    on_card = device is None
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    warmup, timed, free = TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FREE
+    model = Transformer(dataclasses.replace(cfg, remat=True, remat_policy="nothing_saveable",
+                                            max_seq_len=seq), device=device)
+    t0 = time.perf_counter()
+    engine, opt, loader, sched = sxt.initialize(
+        model=model, config=dict(TRAIN_CONFIG, train_batch_size=batch), seed=seed, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(m.numel() for m in engine.state.master.values())
+    ids = np.random.default_rng([seed, 9]).integers(0, cfg.vocab_size, size=(batch, seq))
+    data = {"input_ids": ids.astype(np.int32)}
+    tokens = batch * (seq - 1)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, per_step = [], []
+    for _ in range(warmup):
+        losses.append(float(engine.train_batch(data)))
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(data)))       # float(): synchronised
+        per_step.append(time.perf_counter() - t0)
+    sync()
+    t0 = time.perf_counter()
+    pending = [engine.train_batch(data) for _ in range(free)]
+    sync()
+    free_s = time.perf_counter() - t0
+    losses += [float(x) for x in pending]
+    launches = ops.launch_counts()
+    steps = warmup + timed + free
+    want = train_expected_launches(model, batch, seq, len(engine.state.master), steps)
+    _check(launches == want, f"training launch counts {launches} != implied {want}")
+    _check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
+    _check(losses[-1] < losses[0], f"the loss did not fall on the repeated batch: {losses}")
+    _check(engine.state.step == steps and engine.global_steps == steps,
+           f"{engine.state.step} updates over {steps} steps")
+    p50 = sorted(per_step)[len(per_step) // 2]
+    tps = tokens * free / free_s
+    out = dict(model=name, params=n_params, batch=batch, seq=seq, steps=steps, init_s=init_s,
+               step_p50_ms=p50 * 1e3, step_ms=[t * 1e3 for t in per_step],
+               tokens_per_s=tps, tokens_per_step=tokens,
+               mfu_6n=6.0 * n_params * tps / BF16_FLOP_PER_S, losses=losses,
+               grad_norm=engine.get_global_grad_norm(), launches=launches,
+               launches_per_step={k: v // steps for k, v in launches.items()},
+               peak_mem_GiB=(torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None))
+    print(f"[train] {name} ({n_params / 1e9:.3f} B params), batch {batch} x {seq}, bf16, full "
+          f"remat, FusedAdam: init {init_s:.2f} s; step p50 {out['step_p50_ms']:.1f} ms over "
+          f"{timed} synchronised steps; {tps:.0f} tokens/s over {free} unsynchronised steps; "
+          f"MFU {100 * out['mfu_6n']:.2f}% of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s dense bf16 "
+          f"by 6 x params x tokens/s (bills neither attention nor the remat recompute); peak "
+          f"memory {out['peak_mem_GiB']} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"launches per step {out['launches_per_step']} on {card}", flush=True)
+    if on_card:
+        out["trace"] = profiled(lambda: engine.train_batch(data), top_other=12)
+        print(f"[trace train] one step: {json.dumps(out['trace'])} on {card}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: depth 2 on the card (bf16) against the CPU plain path in f32
+# ---------------------------------------------------------------------------
+
+# One step of a 2-layer model in bf16 against f32: the loss to 2% and every
+# gradient leaf to 3% of the leaf's largest |value|, as phase 4 holds the
+# logits (bf16 keeps 8 bits; activations, the weights' forward copy and the
+# gradients with respect to it are all rounded to it; the worst leaf
+# measured on the H100 is at 1.96%). Three steps of AdamW at lr 3e-4 move
+# each weight by at most ~1e-3, so the trajectories stay that close.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 0.02, 0.03
+
+
+def train_e2e_check(cfg, seed, card_device=None, batch=2, seq=128):
+    """The training model cut to 2 layers: the card's bf16 loss and every
+    gradient leaf (``forward`` / ``backward`` / ``get_full_grad``) against
+    a CPU f32 engine started from the same weights, a 3-step loss
+    trajectory, and a skipped step (a NaN weight) that must leave master,
+    moments and the step count bit-equal and launch no AdamW.
+    ``card_device``, ``batch`` and ``seq`` are for a rehearsal at a tiny
+    size on the CPU."""
+    import torch
+
+    import shuffle_exchange_tpu_torch as sxt
+    from shuffle_exchange_tpu_torch import ops
+    from shuffle_exchange_tpu_torch.models import Transformer
+
+    cfg = dataclasses.replace(cfg, n_layers=2, remat=True, remat_policy="nothing_saveable",
+                              max_seq_len=seq)
+    base = dict(TRAIN_CONFIG, train_batch_size=batch)
+    card, *_ = sxt.initialize(model=Transformer(cfg, device=card_device), config=base, seed=seed,
+                              device=card_device)
+    start = {k: v.detach().cpu().clone() for k, v in card.state.master.items()}
+    host_cfg = {k: v for k, v in base.items() if k != "bf16"}
+    host, *_ = sxt.initialize(model=Transformer(cfg, device="cpu"), params=start,
+                              config=host_cfg, device="cpu")
+    ids = np.random.default_rng([seed, 10]).integers(0, cfg.vocab_size, size=(batch, seq))
+    data = {"input_ids": ids.astype(np.int32)}
+
+    losses = {"card": [], "cpu": []}
+    for label, eng in (("card", card), ("cpu", host)):
+        eng.forward(data)
+        losses[label].append(float(eng.backward()))
+    leaves = {}
+    for name in start:
+        got, want = card.get_full_grad(name), host.get_full_grad(name)
+        _check(np.isfinite(got).all(), f"non-finite gradient {name} on the card")
+        scale = float(np.abs(want).max())
+        leaves[name] = dict(max_abs_err=float(np.abs(got - want).max()), ref_abs_max=scale,
+                            rel=float(np.abs(got - want).max() / scale) if scale else 0.0)
+    for label, eng in (("card", card), ("cpu", host)):
+        eng.step()
+        losses[label] += [float(eng.train_batch(data)) for _ in range(2)]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"])]
+
+    # a skipped step: a NaN weight makes the loss non-finite
+    card.set_full_fp32_param("ln_f_w", np.full(cfg.d_model, np.nan, np.float32))
+    st = card.state
+    bits = lambda: [t.detach().view(torch.int32).clone() for d in
+                    (st.master, st.opt_state.mu, st.opt_state.nu) for t in d.values()]
+    before, step_before = bits(), (st.step, st.opt_state.count)
+    ops.reset_launch_counts()
+    skipped_loss = float(card.train_batch(data))
+    skipped = dict(loss_is_nan=math.isnan(skipped_loss),
+                   state_bit_equal=all(torch.equal(a, b) for a, b in zip(before, bits())),
+                   step_unchanged=(st.step, st.opt_state.count) == step_before,
+                   adamw_launches=ops.launch_counts()["fused_adamw"])
+    return dict(losses=losses, loss_rel=loss_rel, leaves=leaves, skipped=skipped,
+                worst_leaf=max(leaves, key=lambda n: leaves[n]["rel"]))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1160,7 +1644,7 @@ def main(argv=None) -> int:
 
     # 1. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    libs = _build.build_all(["paged_attention", "fused_decode", "flash_attention"])
+    libs = _build.build_all(["paged_attention", "fused_decode", "flash_attention", "fused_adam"])
     nvcc_s = time.perf_counter() - t0
     for stem, lib in libs.items():
         print(f"[build] nvcc {stem}.cu -> {lib.name}")
@@ -1193,19 +1677,27 @@ def main(argv=None) -> int:
     flash_rng = np.random.default_rng([args.seed, 6])
     flash = check_flash(gen, flash_rng)
     qkv += [check_fused_qkv(gen, flash_rng, B, pooled=False) for B in (8, 1)]
+    # 2d. the training kernels: flash backward (and the forward's lse), AdamW
+    fbwd = check_flash_bwd(gen, np.random.default_rng([args.seed, 11]))
+    adamw = check_fused_adamw(gen)
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
-               "fused_mlp": mlp, "flash_attention": flash}
+               "fused_mlp": mlp, "flash_attention": flash, "flash_attention_bwd": fbwd,
+               "fused_adamw": adamw}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
                                        "cublas_sequence_ms", "cublas_sequence_host_us",
-                                       "library", "tflops", "library_kernels") if k in r}
+                                       "library", "tflops", "library_kernels", "errs",
+                                       "lse_max_abs_err", "fwd_out_max_abs_err",
+                                       "equal_bits_twice",
+                                       "autograd_max_err_over_rms", "fwd_lse_ms",
+                                       "gbytes_per_s") if k in r}
+            timed = ("" if "ms" not in r else
+                     f"kernel_ms={r['ms']} host_us={r['host_us']} plain_ms={r['plain_ms']} "
+                     f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} ({r['bound_by']}) ")
             print(f"[kernel] {name} {json.dumps(r['shape'])}: max_abs_err={r['max_abs_err']} "
-                  f"(tol {r['tolerance']}) kernel_ms={r['ms']} host_us={r['host_us']} "
-                  f"plain_ms={r['plain_ms']} "
-                  f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} ({r['bound_by']}) "
-                  f"{json.dumps(extra)} on {card}", flush=True)
+                  f"(tol {r['tolerance']}) {timed}{json.dumps(extra)} on {card}", flush=True)
 
     # 3. serve Llama-3-8B at full width and depth: "auto" (the fused
     # kernels on the card), then "xla" (the paged decode kernel)
@@ -1240,8 +1732,6 @@ def main(argv=None) -> int:
           f"decode attention vs split-K): {same} of {N_PROMPTS}", flush=True)
     runs = [serves["auto"]["launches"], serves["xla"]["launches"], loop["launches"],
             v1["launches"]]
-    launches = {k: sum(r[k] for r in runs) for k in ops.KERNEL_WRAPPERS}
-    _check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
 
     # where the device time goes: short profiled runs of each path
     traces = {}
@@ -1275,23 +1765,60 @@ def main(argv=None) -> int:
             _check(all(t["within"] for t in calls), f"depth-2 {what} logits on the card ({dk}) "
                    "disagree with the CPU f32 plain path")
 
+    # 5. train the ladder's pick at full width and depth; 6. depth 2 against
+    # the CPU. The serving weights go first: the trainer needs the memory.
+    del model, params, state2
+    gc.collect()
+    torch.cuda.empty_cache()
+    from shuffle_exchange_tpu_torch.models import pick_ladder_config
+
+    mem = torch.cuda.get_device_properties(0).total_memory
+    pick, train_cfg = pick_ladder_config(mem)
+    print(f"[train] the ladder rule picks {pick} for {mem / 2 ** 30:.1f} GiB of device memory",
+          flush=True)
+    trained = train(pick, train_cfg, args.seed, card)
+    t0 = time.perf_counter()
+    te2e = train_e2e_check(train_cfg, args.seed)
+    print(f"[e2e train] depth 2, bf16 on the card against f32 on the CPU in "
+          f"{time.perf_counter() - t0:.2f} s: losses {te2e['losses']} (relative differences "
+          f"{te2e['loss_rel']}, tol {TRAIN_LOSS_TOL}); worst gradient leaf "
+          f"{te2e['worst_leaf']} {te2e['leaves'][te2e['worst_leaf']]} (tol {TRAIN_GRAD_TOL} x the "
+          f"leaf's largest |value|); skipped step {te2e['skipped']} on {card}", flush=True)
+    for name, leaf in te2e["leaves"].items():
+        print(f"[e2e train] grad {name}: max_abs_err={leaf['max_abs_err']} "
+              f"ref_abs_max={leaf['ref_abs_max']} rel={leaf['rel']}")
+    _check(all(r <= TRAIN_LOSS_TOL for r in te2e["loss_rel"]),
+           f"depth-2 training losses on the card disagree with the CPU f32 path: {te2e['losses']}")
+    _check(all(leaf["rel"] <= TRAIN_GRAD_TOL for leaf in te2e["leaves"].values()),
+           f"depth-2 gradients on the card disagree with the CPU f32 path: {te2e['worst_leaf']}")
+    sk = te2e["skipped"]
+    _check(sk["loss_is_nan"] and sk["state_bit_equal"] and sk["step_unchanged"]
+           and sk["adamw_launches"] == 0, f"a skipped step changed the state: {sk}")
+
+    runs.append(trained["launches"])
+    launches = {k: sum(r[k] for r in runs) for k in ops.KERNEL_WRAPPERS}
+    _check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+
     replaces = {"rmsnorm": "shuffle_exchange_tpu/ops/rmsnorm.py:87",
                 "paged_decode_attention": "shuffle_exchange_tpu/ops/paged_attention.py:39",
                 "paged_extend_attention": "shuffle_exchange_tpu/ops/paged_attention.py:216",
                 "fused_qkv_rope": "shuffle_exchange_tpu/ops/fused_decode.py:130",
                 "fused_paged_decode_attention": "shuffle_exchange_tpu/ops/fused_decode.py:324",
                 "fused_mlp": "shuffle_exchange_tpu/ops/fused_decode.py:536",
-                "flash_attention": "shuffle_exchange_tpu/ops/flash_attention.py:122"}
+                "flash_attention": "shuffle_exchange_tpu/ops/flash_attention.py:122",
+                "flash_attention_bwd": "shuffle_exchange_tpu/ops/flash_attention.py:122",
+                "fused_adamw": "shuffle_exchange_tpu/ops/fused_adam.py:40"}
     paged_cu = "shuffle_exchange_tpu_torch/ops/csrc/paged_attention.cu"
     fused_cu = "shuffle_exchange_tpu_torch/ops/csrc/fused_decode.cu"
+    flash_cu = "shuffle_exchange_tpu_torch/ops/csrc/flash_attention.cu"
     sources = {"rmsnorm": ("triton", "shuffle_exchange_tpu_torch/ops/rmsnorm_triton.py"),
                "paged_decode_attention": ("cuda", paged_cu),
                "paged_extend_attention": ("cuda", paged_cu),
                "fused_qkv_rope": ("cuda", fused_cu),
                "fused_paged_decode_attention": ("cuda", fused_cu),
                "fused_mlp": ("cuda", fused_cu),
-               "flash_attention": ("cuda",
-                                   "shuffle_exchange_tpu_torch/ops/csrc/flash_attention.cu")}
+               "flash_attention": ("cuda", flash_cu), "flash_attention_bwd": ("cuda", flash_cu),
+               "fused_adamw": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/fused_adam.cu")}
     kernels = []
     for name, rows in checked.items():
         route, source = sources[name]
@@ -1307,7 +1834,7 @@ def main(argv=None) -> int:
               "build": {"nvcc_s": nvcc_s}, "kernels": kernels,
               "kernel_checks": dict(checked, paged_sweep=sweep, fused_decode_sweep=fsweep),
               "serve": serves, "put_decode_loop": loop, "v1_generate": v1, "trace": traces,
-              "e2e": e2e}
+              "e2e": e2e, "train": trained, "train_e2e": te2e}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

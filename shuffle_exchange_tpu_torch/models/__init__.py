@@ -1,5 +1,7 @@
-from .convert import params_from_numpy, params_to_numpy
-from .transformer import Transformer, TransformerConfig, llama3_8b, tiny
+from .convert import (load_train_state, params_from_numpy, params_to_numpy,
+                      train_state_to_numpy)
+from .transformer import (Transformer, TransformerConfig, llama3_8b, llama_ladder,
+                          param_count, pick_ladder_config, tiny)
 
 MODEL_REGISTRY = {
     "llama3-8b": llama3_8b,
@@ -16,5 +18,6 @@ def get_model(name: str, device=None, **overrides) -> Transformer:
     return Transformer(cfg, device=device)
 
 
-__all__ = ["MODEL_REGISTRY", "Transformer", "TransformerConfig", "get_model",
-           "llama3_8b", "params_from_numpy", "params_to_numpy", "tiny"]
+__all__ = ["MODEL_REGISTRY", "Transformer", "TransformerConfig", "get_model", "llama3_8b",
+           "llama_ladder", "load_train_state", "param_count", "params_from_numpy",
+           "params_to_numpy", "pick_ladder_config", "tiny", "train_state_to_numpy"]

@@ -4,7 +4,10 @@ The JAX package's parameters are a nested dict (``params["layers"]["wq"]``);
 the port keys the same leaves by their flattened names (``"layers.wq"``)
 with identical shapes and layouts, so the conversion is a rename: no
 transpose, no reshape. Leaves travel as numpy arrays, which is how the
-tests hand weights from one package to the other.
+tests hand weights from one package to the other. A training engine's
+state (f32 master, the Adam moments ``mu`` / ``nu`` and the update count)
+moves the same way, so a test can start both engines from one state and
+compare them after N steps.
 """
 
 from __future__ import annotations
@@ -55,3 +58,51 @@ def params_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = t.numpy().copy()
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Training state
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree, prefix=""):
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, f"{prefix}{k}."))
+    return out
+
+
+def load_train_state(engine, master, mu=None, nu=None, count: int = 0, step=None) -> None:
+    """Put a JAX ``TrainState``'s pieces into a port engine, in place:
+    ``master`` and the Adam moments ``mu`` / ``nu`` as nested (or flattened)
+    dicts of numpy arrays, ``count`` the optimizer's update count and
+    ``step`` the state's step (default: ``count``). Names and shapes must
+    be the engine's."""
+    st = engine.state
+    for what, tree, dst in (("master", master, st.master), ("mu", mu, st.opt_state.mu),
+                            ("nu", nu, st.opt_state.nu)):
+        if tree is None:
+            continue
+        flat = _flatten(tree)
+        if set(flat) != set(dst):
+            raise ValueError(f"{what}: names differ: missing {sorted(set(dst) - set(flat))}, "
+                             f"unexpected {sorted(set(flat) - set(dst))}")
+        for name, arr in flat.items():
+            t = _to_tensor(arr)
+            if tuple(t.shape) != tuple(dst[name].shape):
+                raise ValueError(f"{what}.{name}: shape {tuple(t.shape)} != "
+                                 f"{tuple(dst[name].shape)}")
+            dst[name].copy_(t)
+    st.opt_state.count = int(count)
+    st.step = int(count if step is None else step)
+
+
+def train_state_to_numpy(engine) -> Dict[str, Any]:
+    """``{"master", "mu", "nu"}`` as nested dicts of f32 numpy arrays (the
+    JAX tree's structure), ``"count"`` and ``"step"``."""
+    st = engine.state
+    return {"master": params_to_numpy(st.master), "mu": params_to_numpy(st.opt_state.mu),
+            "nu": params_to_numpy(st.opt_state.nu), "count": int(st.opt_state.count),
+            "step": int(st.step)}

@@ -1,8 +1,13 @@
 """Decoder-only transformer, Llama family, in PyTorch.
 
 Counterpart of ``shuffle_exchange_tpu/models/transformer.py`` cut to what
-the serving slice runs: RMSNorm, rotate-half RoPE, grouped-query
-attention, SwiGLU and an untied (or tied) unembedding. The parameters keep
+the serving and training slices run: RMSNorm, rotate-half RoPE,
+grouped-query attention, SwiGLU and an untied (or tied) unembedding; the
+pieces the inference engines call (``embed``, ``head``) and the training
+forward (``layer_apply``, ``stack_apply``, ``chunked_loss``, ``loss``),
+which is functional like the JAX one: it takes the parameters as a
+flattened-name dict, so the training engine differentiates with respect
+to its own forward copy of the weights. The parameters keep
 the JAX package's leaf names and layouts — per-layer weights stacked on a
 leading ``[L, ...]`` dim, projections stored ``[in, out]`` — so a JAX
 parameter tree moves over by name (``models/convert.py``) and a test can
@@ -19,7 +24,9 @@ import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.dispatch import resolve_device
 
@@ -52,6 +59,13 @@ class TransformerConfig:
     local_attention_window: int = 0
     attention_pattern: Tuple[str, ...] = ()
     n_experts: int = 0
+    causal: bool = True                        # False = bidirectional (BERT)
+    remat: bool = False                        # recompute each layer in backward
+    remat_policy: str = "dots_saveable"        # see _remat_policy
+    aux_loss_coef: float = 0.01                # weight of the MoE aux loss (0 for dense)
+    # Chunked vocab cross entropy: 0 = full logits; n > 0 = n tokens per
+    # chunk; -1 = auto (chunk when the f32 logits would pass 256 MB)
+    loss_chunk: int = -1
 
     @property
     def kv_heads(self) -> int:
@@ -87,6 +101,50 @@ def tiny(vocab=256, d=64, layers=2, heads=4, seq=64, **kw) -> TransformerConfig:
                              max_seq_len=seq, **kw)
 
 
+def _llama(vocab, d, layers, heads, kv, d_ff=None, tie=True) -> TransformerConfig:
+    return TransformerConfig(vocab_size=vocab, d_model=d, n_layers=layers, n_heads=heads,
+                             n_kv_heads=kv, d_ff=d_ff, max_seq_len=8192, activation="swiglu",
+                             norm="rmsnorm", position="rope", rope_theta=500000.0,
+                             tie_embeddings=tie)
+
+
+def llama_ladder():
+    """The training ladder, largest first: Llama-3-8B and scaled entries
+    that keep its head geometry (head_dim 128, GQA group 4) where they can,
+    so the attention kernels see the 8B shapes."""
+    return [
+        ("llama3-8b", llama3_8b()),
+        ("llama3-3b-style", _llama(128256, 3072, 28, 24, 8, d_ff=8192, tie=False)),
+        ("llama3-1b-style", _llama(128256, 2048, 16, 16, 4, d_ff=8192)),
+        ("llama-750m-style", _llama(32768, 1536, 16, 12, 3)),
+        ("llama-350m-style", _llama(32768, 1024, 16, 8, 2)),
+    ]
+
+
+def param_count(cfg: TransformerConfig) -> int:
+    """Weights of a Llama-family config (norm biases, which RMSNorm does not
+    use, are not counted)."""
+    d, ff = cfg.d_model, cfg.ff_dim
+    kv_dim = cfg.kv_heads * cfg.head_dim
+    attn = d * d + 2 * d * kv_dim + d * d
+    mlp = 3 * d * ff if cfg.activation == "swiglu" else 2 * d * ff
+    per_layer = attn + mlp + 2 * d
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    return cfg.n_layers * per_layer + embed + d
+
+
+def pick_ladder_config(device_memory_bytes: int):
+    """(name, config): the largest ladder entry whose 14 bytes a parameter
+    (bf16 forward copy, f32 master and two Adam moments) fit 55% of the
+    device's memory; activations under remat take the rest."""
+    budget = 0.55 * device_memory_bytes
+    ladder = llama_ladder()
+    for name, cfg in ladder:
+        if 14 * param_count(cfg) <= budget:
+            return name, cfg
+    return ladder[-1]
+
+
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for every structure outside the Llama family this slice ports."""
     later = "ROADMAP queue A, item 4"
@@ -108,6 +166,7 @@ def check_supported(cfg: TransformerConfig) -> None:
         (cfg.n_experts > 0, "MoE layers (ROADMAP queue A, item 9)"),
         (cfg.local_attention_window > 0 or "local" in cfg.attention_pattern,
          f"local attention ({later})"),
+        (not cfg.causal, f"bidirectional (encoder) attention ({later})"),
         (cfg.n_heads % cfg.kv_heads != 0, "n_heads must be a multiple of n_kv_heads"),
     ]
     for bad, what in checks:
@@ -177,6 +236,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+class _MmF32Out(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=f32)`` on the card with its gradients: the
+    f32 cotangent is cast to the operands' dtype and the two products run
+    in that dtype with f32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ w.T, x2.T @ g
+
+
 def logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., D] @ w [D, V] with f32 output: bf16 operands, f32
     accumulation and no rounding of the logits to bf16 (the JAX head's
@@ -186,10 +262,39 @@ def logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x2.dtype == torch.float32 and w.dtype == torch.float32:
         out = x2 @ w
     elif x2.is_cuda:
-        out = torch.mm(x2, w.to(x2.dtype), out_dtype=torch.float32)
+        w = w.to(x2.dtype)
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+            out = _MmF32Out.apply(x2, w)
+        else:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
     else:
         out = x2.float() @ w.float()   # exact upcast: the same products and sums
     return out.reshape(*lead, w.shape[-1])
+
+
+def _remat_policy(name: str) -> Optional[str]:
+    """What ``remat`` keeps of a layer: None for "none" (no recompute),
+    "full" for "full" / "nothing_saveable" (only the layer's input is kept
+    and the whole layer, its flash forward included, runs again in
+    backward). The JAX package's selective policies are not ported."""
+    if name == "none":
+        return None
+    if name in ("full", "nothing_saveable"):
+        return "full"
+    if name == "save_flash_lse":
+        raise NotImplementedError(
+            "remat_policy 'save_flash_lse' (keep the flash kernel's out and lse) is not "
+            "ported yet: it comes with the ALiBi flash kernels B11-B13, ROADMAP queue A, "
+            "item 5")
+    if name == "offload_kv_host":
+        raise NotImplementedError("remat_policy 'offload_kv_host' is not ported yet: host "
+                                  "offload is ROADMAP queue A, item 12")
+    if name in ("dots_saveable", "dots_with_no_batch_dims_saveable", "save_attn_seams",
+                "save_ffn"):
+        raise NotImplementedError(
+            f"remat_policy {name!r} (a selective save policy) is not ported yet: ROADMAP "
+            "queue A, item 4; use 'nothing_saveable', 'full' or 'none'")
+    raise ValueError(f"unknown remat_policy {name!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +387,7 @@ class Transformer(nn.Module):
         for name, t in state.items():
             if tuple(t.shape) != want[name]:
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != {want[name]}")
-            p = nn.Parameter(t, requires_grad=False)
+            p = nn.Parameter(t, requires_grad=t.is_floating_point())
             if name.startswith("layers."):
                 self.layers[name[len("layers."):]] = p
             else:
@@ -292,8 +397,12 @@ class Transformer(nn.Module):
                 self._parameters[name] = p
 
     def params(self) -> Dict[str, torch.Tensor]:
-        """The state dict under the flattened JAX names."""
+        """The state dict under the flattened JAX names (detached: the
+        engines own what they differentiate)."""
         return {k: v.detach() for k, v in self.state_dict(keep_vars=True).items()}
+
+    def has_params(self) -> bool:
+        return "embed" in self._parameters
 
     # -- forward pieces ------------------------------------------------
 
@@ -311,3 +420,143 @@ class Transformer(nn.Module):
         """Final norm + unembed: x [.., D] -> f32 logits [.., vocab]."""
         x = _norm(x, params["ln_f_w"], eps=self.config.norm_eps)
         return logits_f32(x, self.unembed_weight(params))
+
+    # -- training forward ------------------------------------------------
+
+    def layer_apply(self, lw: Dict[str, torch.Tensor], h: torch.Tensor, rope):
+        """One block, ``lw`` one layer's leaves: h [B, T, D] -> (h, moe aux
+        loss, 0 for this dense family). Pre-norm attention (rotate-half
+        RoPE, ``flash_attention`` with no segment ids) and a SwiGLU MLP,
+        each added to the residual stream."""
+        from ..ops.flash_attention import flash_attention
+
+        cfg = self.config
+        B, T = h.shape[:2]
+        H, KV, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        cos, sin = rope
+        y = _norm(h, lw["ln1_w"], eps=cfg.norm_eps)
+        q = apply_rope((y @ lw["wq"]).reshape(B, T, H, Dh), cos, sin)
+        k = apply_rope((y @ lw["wk"]).reshape(B, T, KV, Dh), cos, sin)
+        v = (y @ lw["wv"]).reshape(B, T, KV, Dh)
+        attn = flash_attention(q, k, v, causal=cfg.causal).reshape(B, T, H * Dh)
+        h = h + attn @ lw["wo"]
+        y2 = _norm(h, lw["ln2_w"], eps=cfg.norm_eps)
+        h = h + (F.silu(y2 @ lw["w_gate"]) * (y2 @ lw["w_up"])) @ lw["w_down"]
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def stack_apply(self, stacked_layers: Dict[str, torch.Tensor], x: torch.Tensor, rope):
+        """Run the stack over x: ``stacked_layers`` holds the ``[L, ...]``
+        leaves by their short names ("wq", ...). Returns (x, summed aux).
+        Each leaf is unbound once, so autograd builds one stacked gradient
+        per leaf; with ``remat`` each layer is checkpointed and runs again
+        in backward."""
+        cfg = self.config
+        names = list(stacked_layers)
+        per_layer = zip(*(stacked_layers[n].unbind(0) for n in names))
+        full = cfg.remat and _remat_policy(cfg.remat_policy) == "full"
+
+        def layer_fn(h, *leaves):
+            return self.layer_apply(dict(zip(names, leaves)), h, rope)
+
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for leaves in per_layer:
+            if full and torch.is_grad_enabled():
+                x, a = checkpoint(layer_fn, x, *leaves, use_reentrant=False)
+            else:
+                x, a = layer_fn(x, *leaves)
+            aux = aux + a
+        return x, aux
+
+    @staticmethod
+    def stacked(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The ``layers.*`` leaves of a flattened-name dict by short name."""
+        return {k[len("layers."):]: v for k, v in params.items() if k.startswith("layers.")}
+
+    @staticmethod
+    def token_loss(logits: torch.Tensor, labels: torch.Tensor):
+        """Cross-entropy pieces (nll_sum f32, token_count): a negative
+        label (-100) is ignored."""
+        mask = labels >= 0
+        safe = torch.where(mask, labels, torch.full_like(labels, -100)).long()
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(), safe.reshape(-1),
+                              ignore_index=-100, reduction="sum")
+        return nll, mask.sum()
+
+    def chunked_loss(self, params, x: torch.Tensor, labels: torch.Tensor, chunk: int):
+        """Final norm + unembed + cross entropy over sequence chunks of
+        ``chunk`` tokens, each checkpointed: the live logits are [B, chunk,
+        vocab], never [B, T, vocab]. The same numbers as ``head`` +
+        ``token_loss`` (the softmax is per token)."""
+        w = self.unembed_weight(params)
+        ln_w = params["ln_f_w"]
+        eps = self.config.norm_eps
+
+        def body(xch, lch, ln_w, w):
+            return self.token_loss(logits_f32(_norm(xch, ln_w, eps=eps), w), lch)[0]
+
+        nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in range(0, x.shape[1], chunk):
+            xch, lch = x[:, a:a + chunk].contiguous(), labels[:, a:a + chunk]
+            if torch.is_grad_enabled():
+                nll_sum = nll_sum + checkpoint(body, xch, lch, ln_w, w, use_reentrant=False)
+            else:
+                nll_sum = nll_sum + body(xch, lch, ln_w, w)
+        return nll_sum, (labels >= 0).sum()
+
+    def _loss_chunk(self, B: int, T: int) -> int:
+        """The resolved chunk size; 0 = full logits."""
+        c = self.config.loss_chunk
+        if c >= 0:
+            return 0 if c == 0 else min(c, T)
+        if B * T * self.config.vocab_size * 4 <= 256 * 1024 * 1024:
+            return 0
+        return min(256, T)
+
+    def apply(self, params, input_ids):
+        """input_ids [B, T] -> f32 logits [B, T, vocab]."""
+        return self.apply_with_aux(params, input_ids)[0]
+
+    def apply_with_aux(self, params, input_ids):
+        """(logits, moe aux loss): aux is 0 for dense models."""
+        params = self._params_or_own(params)
+        x, rope = self.embed(params, self._ids(input_ids, params))
+        x, aux = self.stack_apply(self.stacked(params), x, rope)
+        return self.head(params, x), aux
+
+    def loss(self, params, batch, rng=None):
+        """Next-token cross entropy of ``batch = {"input_ids": [B, T]}``
+        (labels are the ids shifted by one), or of explicit
+        ``batch["labels"]`` (already aligned, -100 = ignore). ``params`` is
+        a flattened-name dict, or None for the model's own parameters."""
+        params = self._params_or_own(params)
+        for key in ("ltd_keep_prob", "pld_theta"):
+            if key in batch:
+                raise NotImplementedError(f"batch[{key!r}] (random-LTD / progressive layer "
+                                          "drop) is not ported yet: ROADMAP queue A, item 14")
+        ids = self._ids(batch["input_ids"], params)
+        if "labels" in batch:
+            labels, model_ids = self._ids(batch["labels"], params), ids
+        else:
+            labels, model_ids = ids[:, 1:], ids[:, :-1]
+        B, T = model_ids.shape
+        chunk = self._loss_chunk(B, T)
+        if chunk:
+            x, rope = self.embed(params, model_ids)
+            x, aux = self.stack_apply(self.stacked(params), x, rope)
+            nll_sum, count = self.chunked_loss(params, x, labels, chunk)
+        else:
+            logits, aux = self.apply_with_aux(params, model_ids)
+            nll_sum, count = self.token_loss(logits, labels)
+        return nll_sum / count.clamp(min=1) + self.config.aux_loss_coef * aux
+
+    def _params_or_own(self, params):
+        if params is not None:
+            return params
+        if not self.has_params():
+            raise ValueError("the model holds no parameters yet: call init() or load_params()")
+        return dict(self.state_dict(keep_vars=True))
+
+    @staticmethod
+    def _ids(ids, params) -> torch.Tensor:
+        dev = params["embed"].device
+        return torch.as_tensor(ids).to(device=dev, dtype=torch.long)

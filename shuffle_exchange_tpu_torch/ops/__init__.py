@@ -5,12 +5,14 @@ Every wrapper counts the launches of its kernel in a plain integer
 through the kernels.
 """
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd, flash_attention_lse
+from .fused_adam import fused_adamw_update
 from .fused_decode import fused_mlp, fused_paged_decode_attention, fused_qkv_rope
 from .paged_attention import paged_decode_attention, paged_extend_attention
 from .rmsnorm import rmsnorm
 
-#: the wrappers whose kernels the serving paths launch, by kernel name
+#: the wrappers whose kernels the serving and training paths launch, by
+#: kernel name
 KERNEL_WRAPPERS = {
     "rmsnorm": rmsnorm,
     "paged_decode_attention": paged_decode_attention,
@@ -19,6 +21,8 @@ KERNEL_WRAPPERS = {
     "fused_paged_decode_attention": fused_paged_decode_attention,
     "fused_mlp": fused_mlp,
     "flash_attention": flash_attention,
+    "flash_attention_bwd": flash_attention_bwd,
+    "fused_adamw": fused_adamw_update,
 }
 
 
@@ -31,6 +35,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNEL_WRAPPERS", "flash_attention", "fused_mlp", "fused_paged_decode_attention",
-           "fused_qkv_rope", "launch_counts", "paged_decode_attention", "paged_extend_attention",
+__all__ = ["KERNEL_WRAPPERS", "flash_attention", "flash_attention_bwd", "flash_attention_lse",
+           "fused_adamw_update", "fused_mlp", "fused_paged_decode_attention", "fused_qkv_rope",
+           "launch_counts", "paged_decode_attention", "paged_extend_attention",
            "reset_launch_counts", "rmsnorm"]

@@ -1,13 +1,14 @@
-// Flash attention forward for Hopper (sm_90a): causal or full masks,
-// grouped-query heads read from unexpanded K/V, optional segment ids,
-// behind a plain C interface loaded with ctypes (ops/_build.py builds this
-// file with nvcc at first use).
+// Flash attention forward and backward for Hopper (sm_90a): causal or full
+// masks, grouped-query heads read from unexpanded K/V, optional segment
+// ids, behind a plain C interface loaded with ctypes (ops/_build.py builds
+// this file with nvcc at first use).
 //
-// Replaces the forward of the TPU kernels
+// Replaces the forward and the backward passes of the TPU kernels
 //   shuffle_exchange_tpu/ops/flash_attention.py:pallas_attention
-//     (the stock flash kernel: MHA, causal/full, segment ids)
+//     (the stock flash kernel: MHA, causal/full, segment ids; fwd + bwd)
 //   shuffle_exchange_tpu/ops/flash_attention.py:splash_attention_gqa
-//     (GQA with unexpanded K/V, causal/full masks, segment ids)
+//     (GQA with unexpanded K/V, causal/full masks, segment ids; the
+//      forward, the dq pass and the dkv pass)
 //
 // Layouts (contiguous, bf16; the JAX package's [batch, seq, heads, Dh]):
 //   q, o    [B, T, H, Dh];  k, v  [B, S, KV, Dh];  seg  [B, T] int32 or null
@@ -39,6 +40,34 @@
 // puts the kernel within one bf16 step of the plain version with P in f32
 // (the card check) and costs half again the tensor-core work (P.V runs
 // twice). wgmma, TMA and warp specialisation are later work.
+//
+// The forward optionally writes lse [B, H, T] f32, the natural-log
+// log-sum-exp of each row's scaled scores (the convention of the TPU
+// ALiBi flash kernel), which is all the backward needs besides q, k, v,
+// out and dout.
+//
+// Backward (what the TPU dq and dkv passes compute), three kernels, no
+// atomics, so every sum runs in a fixed order and two runs give equal bits:
+//   delta  = rowsum(dout * out)                    one warp per (b, t, h)
+//   dk, dv : one block per (64-key tile, kv head, sequence); it loops over
+//            the query heads of the group and, for each, over the 64-query
+//            tiles at and below the diagonal, with dk and dv (16 keys x Dh
+//            per warp) in registers; S^T = K Q^T and dP^T = V dO^T are
+//            recomputed per tile, P^T = exp(S^T - lse), dS^T = P^T (dP^T -
+//            delta), dv += P^T dO, dk += dS^T Q. The group's sum over query
+//            heads happens in those registers.
+//   dq     : one block per (64-query tile, head, sequence) looping over the
+//            key tiles up to the diagonal: dq += dS K.
+// Both recompute S, so the backward does 7 tile products where the
+// algorithm needs 5; the tensor cores bound it as they bound the forward
+// (10 * pairs * H * Dh flops against ~3x the forward's bytes). P and dS
+// enter their products as two bf16 terms (hi + lo) like P in the forward,
+// so the gradients sit within one bf16 step of a plain version that keeps
+// P in f32. Masked pairs get p = 0 explicitly (never exp of a sentinel),
+// so a row whose lse is the -1e30 sentinel contributes nothing. Q/dO tiles
+// (dk/dv pass) and K/V tiles (dq pass) are double-buffered with cp.async;
+// K and V fragments of the dk/dv pass are re-read from shared memory per
+// step instead of held, to stay under 255 registers at Dh 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +81,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNeg = -1e30f;          // finite mask sentinel (as the TPU kernels)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -124,8 +154,8 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-    __nv_bfloat16* __restrict__ o, int B, int T, int S, int H, int KV, int causal,
-    float scale_log2) {
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int T, int S, int H, int KV,
+    int causal, float scale_log2) {
   constexpr int LD = DH + 8;
   constexpr int KSTEPS = DH / 16;     // k-steps of QK^T
   constexpr int NT = kBlockN / 8;     // 8-key column tiles of S
@@ -301,12 +331,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       *reinterpret_cast<__nv_bfloat162*>(o + ((size_t(b) * T + r_hi) * H + h) * DH + col) =
           __floats2bfloat162_rn(oacc[d][2] * inv_hi, oacc[d][3] * inv_hi);
   }
+  if (lse != nullptr && tq == 0) {   // the quad holds equal m and l: one lane writes
+    float* lrow = lse + (size_t(b) * H + h) * T;
+    if (r_lo < T) lrow[r_lo] = (m_lo + log2f(fmaxf(l_lo, 1e-30f))) * kLn2;
+    if (r_hi < T) lrow[r_hi] = (m_hi + log2f(fmaxf(l_hi, 1e-30f))) * kLn2;
+  }
 }
 
 template <int DH>
 cudaError_t launch(int blocks, cudaStream_t s, const void* q, const void* k, const void* v,
-                   const void* seg, void* o, int B, int T, int S, int H, int KV, int causal,
-                   float scale_log2) {
+                   const void* seg, void* o, void* lse, int B, int T, int S, int H, int KV,
+                   int causal, float scale_log2) {
   const size_t smem = size_t(kBlockM + 4 * kBlockN) * (DH + 8) * sizeof(__nv_bfloat16);
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -314,7 +349,426 @@ cudaError_t launch(int blocks, cudaStream_t s, const void* q, const void* k, con
   flash_fwd_kernel<DH><<<blocks, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg),
-      static_cast<__nv_bfloat16*>(o), B, T, S, H, KV, causal, scale_log2);
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, T, S, H, KV, causal,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
+// delta[b, h, t] = sum_d dout[b, t, h, d] * out[b, t, h, d]; one warp a row
+// of the [B*T*H, DH] views, a fixed butterfly order for the sum.
+template <int DH>
+__global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+    float* __restrict__ delta, long long rows, int T, int H) {
+  constexpr int PER = DH / 32;   // elements a lane: 2 or 4
+  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16* op = o + row * DH + lane * PER;
+  const __nv_bfloat16* dp = dout + row * DH + lane * PER;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; i += 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op + i));
+    const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dp + i));
+    acc += a.x * d.x + a.y * d.y;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const long long bt = row / H;
+    const int h = int(row % H), t = int(bt % T);
+    const long long b = bt / T;
+    delta[(b * H + h) * T + t] = acc;
+  }
+}
+
+// Stage one 64-query tile of head h for the dk/dv pass: Q and dO rows by
+// cp.async (the caller commits), lse (into the log2 domain) and delta by
+// plain loads; rows past T read as zero.
+template <int DH>
+__device__ __forceinline__ void stage_queries(
+    __nv_bfloat16* qdst, __nv_bfloat16* dodst, float* lsedst, float* deldst,
+    const __nv_bfloat16* q, const __nv_bfloat16* dout, const float* lse, const float* delta,
+    int b, int h, int q0, int T, int H, int tid) {
+  const int qstride = H * DH;
+  const size_t off = (size_t(b) * T + q0) * qstride + size_t(h) * DH;
+  load_tile<DH>(qdst, q + off, qstride, T - q0, q, tid);
+  load_tile<DH>(dodst, dout + off, qstride, T - q0, dout, tid);
+  if (tid < kBlockM) {
+    const int row = q0 + tid;
+    const bool ok = row < T;
+    const size_t so = (size_t(b) * H + h) * T + (ok ? row : 0);
+    lsedst[tid] = ok ? lse[so] * kLog2e : 0.f;
+    deldst[tid] = ok ? delta[so] : 0.f;
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ seg,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int T, int S, int H,
+    int KV, int causal, float scale, float scale_log2) {
+  constexpr int LD = DH + 8;
+  constexpr int KSTEPS = DH / 16;     // k-steps over the head dim
+  constexpr int NT = kBlockM / 8;     // 8-query column tiles of S^T
+  constexpr int DT = DH / 8;          // 8-wide column tiles of dk, dv
+  constexpr int TILE = kBlockN * LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [64][LD]
+  __nv_bfloat16* vs = ks + TILE;                                 // [64][LD]
+  __nv_bfloat16* qs = vs + TILE;                                 // [2][64][LD]
+  __nv_bfloat16* dos = qs + 2 * TILE;                            // [2][64][LD]
+  float* lses = reinterpret_cast<float*>(dos + 2 * TILE);        // [2][64], log2 domain
+  float* dels = lses + 2 * kBlockM;                              // [2][64]
+
+  // key tile 0 has the most query tiles under a causal mask: issued first
+  const int BKV = B * KV;
+  const int kt = blockIdx.x / BKV, bkv = blockIdx.x % BKV;
+  const int b = bkv / KV, kvh = bkv % KV, n_rep = H / KV;
+  const int k0 = kt * kBlockN;
+  const int nqt = (T + kBlockM - 1) / kBlockM;
+  const int qt_lo = causal ? kt : 0;
+  const int n_q = nqt - qt_lo;        // >= 1: causal needs T == S
+  const int n_it = n_rep * n_q;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+
+  const int kstride = KV * DH;
+  const size_t koff = (size_t(b) * S + k0) * kstride + size_t(kvh) * DH;
+  load_tile<DH>(ks, k + koff, kstride, S - k0, k, tid);
+  load_tile<DH>(vs, v + koff, kstride, S - k0, v, tid);
+  stage_queries<DH>(qs, dos, lses, dels, q, dout, lse, delta, b, kvh * n_rep, qt_lo * kBlockM, T, H,
+                    tid);
+  cp_async_commit();
+
+  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
+  const int* segb = seg ? seg + size_t(b) * T : nullptr;   // segment ids need T == S
+  const int seg_lo = segb ? segb[min(key_lo, S - 1)] : 0;
+  const int seg_hi = segb ? segb[min(key_hi, S - 1)] : 0;
+
+  float dkacc[DT][4], dvacc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkacc[d][e] = dvacc[d][e] = 0.f;
+
+  const int a_row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_it) {   // prefetch the next (head, query tile) into the other buffer
+      const int nx = it + 1, nb = nx & 1;
+      stage_queries<DH>(qs + nb * TILE, dos + nb * TILE, lses + nb * kBlockM, dels + nb * kBlockM,
+                        q, dout, lse, delta, b, kvh * n_rep + nx / n_q,
+                        (qt_lo + nx % n_q) * kBlockM, T, H, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int qt = qt_lo + it % n_q, q0 = qt * kBlockM;
+    const __nv_bfloat16* qtile = qs + buf * TILE;
+    const __nv_bfloat16* dotile = dos + buf * TILE;
+    const float* lse2 = lses + buf * kBlockM;
+    const float* del = dels + buf * kBlockM;
+
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 queries
+    float sacc[NT][4], dpacc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = dpacc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, ks + a_row * LD + kk * 16 + a_col);
+      ldsm_x4(va, vs + a_row * LD + kk * 16 + a_col);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int boff = (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
+                         ((lane / 8) % 2) * 8;
+        uint32_t r[4];
+        ldsm_x4(r, qtile + boff);
+        mma_bf16(sacc[2 * np], ka, r[0], r[1]);
+        mma_bf16(sacc[2 * np + 1], ka, r[2], r[3]);
+        ldsm_x4(r, dotile + boff);
+        mma_bf16(dpacc[2 * np], va, r[0], r[1]);
+        mma_bf16(dpacc[2 * np + 1], va, r[2], r[3]);
+      }
+    }
+
+    // P^T = exp(S^T - lse) with masked pairs exactly 0; dS^T = P^T (dP^T - delta)
+    const bool masked_tile = (causal && qt == kt) || q0 + kBlockM > T || k0 + kBlockN > S ||
+                             segb != nullptr;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + tq * 2 + (e & 1);
+        float p = exp2f(sacc[n][e] * scale_log2 - lse2[c]);
+        if (masked_tile) {
+          const int query = q0 + c;
+          const int key = e < 2 ? key_lo : key_hi;
+          bool ok = key < S && query < T && !(causal && key > query);
+          if (ok && segb) ok = segb[query] == (e < 2 ? seg_lo : seg_hi);
+          p = ok ? p : 0.f;
+        }
+        sacc[n][e] = p;
+        dpacc[n][e] = p * (dpacc[n][e] - del[c]);
+      }
+    }
+
+    // dv += P^T dO and dk += dS^T Q; the accumulators of two query tiles
+    // are one A operand, each as two bf16 terms
+#pragma unroll
+    for (int kk = 0; kk < kBlockM / 16; ++kk) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      split_bf16x2(sacc[2 * kk][0], sacc[2 * kk][1], ph[0], pl[0]);
+      split_bf16x2(sacc[2 * kk][2], sacc[2 * kk][3], ph[1], pl[1]);
+      split_bf16x2(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16x2(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3], ph[3], pl[3]);
+      split_bf16x2(dpacc[2 * kk][0], dpacc[2 * kk][1], sh[0], sl[0]);
+      split_bf16x2(dpacc[2 * kk][2], dpacc[2 * kk][3], sh[1], sl[1]);
+      split_bf16x2(dpacc[2 * kk + 1][0], dpacc[2 * kk + 1][1], sh[2], sl[2]);
+      split_bf16x2(dpacc[2 * kk + 1][2], dpacc[2 * kk + 1][3], sh[3], sl[3]);
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        const int boff = (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 +
+                         (lane / 16) * 8;
+        uint32_t r[4];
+        ldsm_x4_trans(r, dotile + boff);
+        mma_bf16(dvacc[2 * dp], ph, r[0], r[1]);
+        mma_bf16(dvacc[2 * dp], pl, r[0], r[1]);
+        mma_bf16(dvacc[2 * dp + 1], ph, r[2], r[3]);
+        mma_bf16(dvacc[2 * dp + 1], pl, r[2], r[3]);
+        ldsm_x4_trans(r, qtile + boff);
+        mma_bf16(dkacc[2 * dp], sh, r[0], r[1]);
+        mma_bf16(dkacc[2 * dp], sl, r[0], r[1]);
+        mma_bf16(dkacc[2 * dp + 1], sh, r[2], r[3]);
+        mma_bf16(dkacc[2 * dp + 1], sl, r[2], r[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer before it is refilled
+  }
+
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    const int col = d * 8 + tq * 2;
+    if (key_lo < S) {
+      const size_t at = ((size_t(b) * S + key_lo) * KV + kvh) * DH + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dkacc[d][0] * scale, dkacc[d][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(dvacc[d][0], dvacc[d][1]);
+    }
+    if (key_hi < S) {
+      const size_t at = ((size_t(b) * S + key_hi) * KV + kvh) * DH + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dkacc[d][2] * scale, dkacc[d][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(dvacc[d][2], dvacc[d][3]);
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ seg,
+    __nv_bfloat16* __restrict__ dq, int B, int T, int S, int H, int KV, int causal, float scale,
+    float scale_log2) {
+  constexpr int LD = DH + 8;
+  constexpr int KSTEPS = DH / 16;
+  constexpr int NT = kBlockN / 8;
+  constexpr int DT = DH / 8;
+  constexpr int TILE = kBlockN * LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);   // [64][LD]
+  __nv_bfloat16* dos = qs + TILE;                                // [64][LD]
+  __nv_bfloat16* ks = dos + TILE;                                // [2][64][LD]
+  __nv_bfloat16* vs = ks + 2 * TILE;                             // [2][64][LD]
+
+  const int nqt = (T + kBlockM - 1) / kBlockM;
+  const int BH = B * H;
+  const int rank = blockIdx.x / BH, bh = blockIdx.x % BH;
+  const int qt = causal ? nqt - 1 - rank : rank;   // longest causal tiles first
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int q0 = qt * kBlockM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+
+  const int qstride = H * DH, kstride = KV * DH;
+  const size_t qoff = (size_t(b) * T + q0) * qstride + size_t(h) * DH;
+  const __nv_bfloat16* kb = k + size_t(b) * S * kstride + size_t(kvh) * DH;
+  const __nv_bfloat16* vb = v + size_t(b) * S * kstride + size_t(kvh) * DH;
+  const int n_s = (S + kBlockN - 1) / kBlockN;
+  const int n_kv = causal ? min(qt + 1, n_s) : n_s;
+
+  load_tile<DH>(qs, q + qoff, qstride, T - q0, q, tid);
+  load_tile<DH>(dos, dout + qoff, qstride, T - q0, dout, tid);
+  load_tile<DH>(ks, kb, kstride, S, k, tid);
+  load_tile<DH>(vs, vb, kstride, S, v, tid);
+  cp_async_commit();
+
+  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+  const int* segb = seg ? seg + size_t(b) * T : nullptr;
+  const int seg_lo = segb ? segb[min(r_lo, T - 1)] : 0;
+  const int seg_hi = segb ? segb[min(r_hi, T - 1)] : 0;
+  const size_t so = (size_t(b) * H + h) * T;
+  const float lse_lo = r_lo < T ? lse[so + r_lo] * kLog2e : 0.f;
+  const float lse_hi = r_hi < T ? lse[so + r_hi] * kLog2e : 0.f;
+  const float del_lo = r_lo < T ? delta[so + r_lo] : 0.f;
+  const float del_hi = r_hi < T ? delta[so + r_hi] : 0.f;
+
+  float dqacc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqacc[d][e] = 0.f;
+  uint32_t qa[KSTEPS][4];
+  const int a_row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
+
+  for (int j = 0; j < n_kv; ++j) {
+    if (j + 1 < n_kv) {
+      const int nb = (j + 1) & 1, k0n = (j + 1) * kBlockN;
+      load_tile<DH>(ks + nb * TILE, kb + size_t(k0n) * kstride, kstride, S - k0n, k, tid);
+      load_tile<DH>(vs + nb * TILE, vb + size_t(k0n) * kstride, kstride, S - k0n, v, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qa[kk], qs + a_row * LD + kk * 16 + a_col);
+    }
+    const __nv_bfloat16* kt = ks + (j & 1) * TILE;
+    const __nv_bfloat16* vt = vs + (j & 1) * TILE;
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
+    float sacc[NT][4], dpacc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = dpacc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t da[4];
+      ldsm_x4(da, dos + a_row * LD + kk * 16 + a_col);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int boff = (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
+                         ((lane / 8) % 2) * 8;
+        uint32_t r[4];
+        ldsm_x4(r, kt + boff);
+        mma_bf16(sacc[2 * np], qa[kk], r[0], r[1]);
+        mma_bf16(sacc[2 * np + 1], qa[kk], r[2], r[3]);
+        ldsm_x4(r, vt + boff);
+        mma_bf16(dpacc[2 * np], da, r[0], r[1]);
+        mma_bf16(dpacc[2 * np + 1], da, r[2], r[3]);
+      }
+    }
+
+    const int k0 = j * kBlockN;
+    const bool masked_tile = (causal && j == qt) || k0 + kBlockN > S || q0 + kBlockM > T ||
+                             segb != nullptr;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(sacc[n][e] * scale_log2 - (e < 2 ? lse_lo : lse_hi));
+        if (masked_tile) {
+          const int key = k0 + n * 8 + tq * 2 + (e & 1);
+          const int row = e < 2 ? r_lo : r_hi;
+          bool ok = key < S && row < T && !(causal && key > row);
+          if (ok && segb) ok = segb[key] == (e < 2 ? seg_lo : seg_hi);
+          p = ok ? p : 0.f;
+        }
+        dpacc[n][e] = p * (dpacc[n][e] - (e < 2 ? del_lo : del_hi));
+      }
+    }
+
+    // dq += dS K
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      uint32_t sh[4], sl[4];
+      split_bf16x2(dpacc[2 * kk][0], dpacc[2 * kk][1], sh[0], sl[0]);
+      split_bf16x2(dpacc[2 * kk][2], dpacc[2 * kk][3], sh[1], sl[1]);
+      split_bf16x2(dpacc[2 * kk + 1][0], dpacc[2 * kk + 1][1], sh[2], sl[2]);
+      split_bf16x2(dpacc[2 * kk + 1][2], dpacc[2 * kk + 1][3], sh[3], sl[3]);
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, kt + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 +
+                             (lane / 16) * 8);
+        mma_bf16(dqacc[2 * dp], sh, r[0], r[1]);
+        mma_bf16(dqacc[2 * dp], sl, r[0], r[1]);
+        mma_bf16(dqacc[2 * dp + 1], sh, r[2], r[3]);
+        mma_bf16(dqacc[2 * dp + 1], sl, r[2], r[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    const int col = d * 8 + tq * 2;
+    if (r_lo < T)
+      *reinterpret_cast<__nv_bfloat162*>(dq + ((size_t(b) * T + r_lo) * H + h) * DH + col) =
+          __floats2bfloat162_rn(dqacc[d][0] * scale, dqacc[d][1] * scale);
+    if (r_hi < T)
+      *reinterpret_cast<__nv_bfloat162*>(dq + ((size_t(b) * T + r_hi) * H + h) * DH + col) =
+          __floats2bfloat162_rn(dqacc[d][2] * scale, dqacc[d][3] * scale);
+  }
+}
+
+template <int DH>
+cudaError_t launch_bwd(cudaStream_t s, const void* q, const void* k, const void* v,
+                       const void* seg, const void* o, const void* dout, const void* lse,
+                       void* delta, void* dq, void* dk, void* dv, int B, int T, int S, int H,
+                       int KV, int causal, float scale) {
+  using bf = __nv_bfloat16;
+  const float scale_log2 = scale * kLog2e;
+  const long long rows = (long long)B * T * H;
+  const long long nkt = (S + kBlockN - 1) / kBlockN, nqt = (T + kBlockM - 1) / kBlockM;
+  const long long dkv_blocks = nkt * B * KV, dq_blocks = nqt * B * H;
+  const long long delta_blocks = (rows + kWarps - 1) / kWarps;
+  if (dkv_blocks > 0x7fffffffLL || dq_blocks > 0x7fffffffLL || delta_blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  flash_bwd_delta_kernel<DH><<<int(delta_blocks), kThreads, 0, s>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), static_cast<float*>(delta), rows, T,
+      H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t tiles = size_t(6) * kBlockN * (DH + 8) * sizeof(bf);
+  const size_t dkv_smem = tiles + 4 * kBlockM * sizeof(float);
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(dkv_smem));
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<DH><<<int(dkv_blocks), kThreads, dkv_smem, s>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<bf*>(dk),
+      static_cast<bf*>(dv), B, T, S, H, KV, causal, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(tiles));
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<DH><<<int(dq_blocks), kThreads, tiles, s>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<bf*>(dq), B, T,
+      S, H, KV, causal, scale, scale_log2);
   return cudaGetLastError();
 }
 
@@ -326,11 +780,12 @@ const char* sxt_flash_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// o = attention(q, k, v) as described above; seg may be null. scale is the
-// softmax scale (Dh^-0.5). Returns cudaGetLastError() after the launch.
+// o = attention(q, k, v) as described above; seg may be null, and so may
+// lse ([B, H, T] f32, written when given). scale is the softmax scale
+// (Dh^-0.5). Returns cudaGetLastError() after the launch.
 int sxt_flash_attention_bf16(const void* q, const void* k, const void* v, const void* seg,
-                             void* o, int B, int T, int S, int H, int KV, int Dh, int causal,
-                             float scale, void* stream) {
+                             void* o, void* lse, int B, int T, int S, int H, int KV, int Dh,
+                             int causal, float scale, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
   if (S <= 0 || KV <= 0 || H % KV || (causal && T != S))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -339,11 +794,30 @@ int sxt_flash_attention_bf16(const void* q, const void* k, const void* v, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * kLog2e;
   if (Dh == 128)
-    return static_cast<int>(launch<128>(int(blocks), s, q, k, v, seg, o, B, T, S, H, KV,
-                                         causal, scale_log2));
+    return static_cast<int>(launch<128>(int(blocks), s, q, k, v, seg, o, lse, B, T, S, H,
+                                         KV, causal, scale_log2));
   if (Dh == 64)
-    return static_cast<int>(launch<64>(int(blocks), s, q, k, v, seg, o, B, T, S, H, KV,
-                                        causal, scale_log2));
+    return static_cast<int>(launch<64>(int(blocks), s, q, k, v, seg, o, lse, B, T, S, H,
+                                        KV, causal, scale_log2));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dq, dk, dv = the gradients of attention(q, k, v) given dout, the forward's
+// out and its lse; delta is [B, H, T] f32 scratch. seg may be null.
+int sxt_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* seg,
+                                 const void* o, const void* dout, const void* lse, void* delta,
+                                 void* dq, void* dk, void* dv, int B, int T, int S, int H, int KV,
+                                 int Dh, int causal, float scale, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return 0;
+  if (S <= 0 || KV <= 0 || H % KV || (causal && T != S) || (seg != nullptr && T != S))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Dh == 128)
+    return static_cast<int>(launch_bwd<128>(s, q, k, v, seg, o, dout, lse, delta, dq, dk, dv, B,
+                                            T, S, H, KV, causal, scale));
+  if (Dh == 64)
+    return static_cast<int>(launch_bwd<64>(s, q, k, v, seg, o, dout, lse, delta, dq, dk, dv, B,
+                                           T, S, H, KV, causal, scale));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

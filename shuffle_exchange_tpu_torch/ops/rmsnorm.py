@@ -7,6 +7,13 @@ ln2 and the final norm) on every row of every tick. The kernel itself is
 in ``ops/rmsnorm_triton.py`` (whose header says what bounds it on the
 H100 and how its design answers that); that module imports ``triton`` at
 its top, so this one imports it only inside the launcher.
+
+``rmsnorm`` is differentiable. The JAX package has no backward kernel
+(``_build_vjp`` wraps the Pallas forward in a ``custom_vjp`` whose
+backward is plain jnp, by its own decision), so the port of it is a
+``torch.autograd.Function`` around the forward whose backward is the same
+analytic formula in plain PyTorch. It saves x as it was given (bf16 on
+the training path), not an f32 copy.
 """
 
 from __future__ import annotations
@@ -35,6 +42,18 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
     if residual is not None and residual.shape != x.shape:
         raise ValueError(f"residual shape {tuple(residual.shape)} != x shape "
                          f"{tuple(x.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or
+                                    (residual is not None and residual.requires_grad)):
+        if residual is not None:
+            x = x + residual          # autograd splits the sum's gradient
+        return _RMSNorm.apply(x, weight, float(eps))
+    return _forward(x, weight, eps, residual)
+
+
+rmsnorm.launches = 0
+
+
+def _forward(x, weight, eps, residual=None):
     if not use_kernel(x):
         if residual is not None:
             x = x + residual
@@ -42,7 +61,34 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
     return _launch(x, weight, eps, residual)
 
 
-rmsnorm.launches = 0
+def rmsnorm_backward(x, weight, g, eps: float = 1e-5):
+    """(dx, dw) of ``rmsnorm(x, weight)`` for the cotangent ``g``, in f32
+    and cast to the inputs' dtypes: with ``r = rsqrt(mean(x^2) + eps)`` and
+    ``xhat = x r``, ``dx = r (g w - xhat mean(g w xhat))`` and
+    ``dw = sum over rows of g xhat`` (JAX ``_build_vjp``'s ``_bwd``)."""
+    x32, g32, w32 = x.float(), g.float(), weight.float()
+    r = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    xhat = x32 * r
+    gw = g32 * w32
+    dx = r * (gw - xhat * (gw * xhat).mean(-1, keepdim=True))
+    dw = (g32 * xhat).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The forward (kernel on CUDA tensors) with the analytic backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _forward(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = rmsnorm_backward(x, weight, g, ctx.eps)
+        return dx, dw, None
 
 
 def _launch(x, weight, eps, residual):

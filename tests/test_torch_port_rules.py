@@ -297,3 +297,251 @@ def test_allocator_trace_equals_the_jax_allocator():
     for a in (port, ref):
         with pytest.raises(ValueError, match="double free"):
             a.free([3])
+
+
+# ---------------------------------------------------------------------------
+# The training slice
+# ---------------------------------------------------------------------------
+
+
+def test_ast_rule_covers_the_training_modules():
+    files = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    assert {"__init__.py", "config/config.py", "config/config_utils.py", "runtime/engine.py",
+            "runtime/optimizers.py", "runtime/lr_schedules.py", "runtime/loss_scaler.py",
+            "ops/fused_adam.py", "ops/flash_attention.py", "models/convert.py"} <= files
+    for f in ("ops/csrc/fused_adam.cu", "ops/csrc/flash_attention.cu"):
+        assert (PORT / f).exists()
+
+
+def _train_cfg(**extra):
+    return dict({"train_batch_size": 4,
+                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}, **extra)
+
+
+def test_initialize_without_a_card_and_without_cpu_request_raises(monkeypatch):
+    import shuffle_exchange_tpu_torch as sxt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Transformer(tiny(**LLAMA), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sxt.initialize(model=model, config=_train_cfg())
+    engine, opt, loader, sched = sxt.initialize(model=model, config=_train_cfg(), device="cpu")
+    assert engine.device.type == "cpu" and engine.module is model and loader is None
+    assert all(m.dtype == torch.float32 for m in engine.state.master.values())
+
+
+@pytest.mark.parametrize("section,item", [
+    ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "item 12"),
+    ({"zero_optimization": {"offload_param": {"device": "nvme"}}}, "item 12"),
+    ({"zero_optimization": {"zero_quantized_gradients": True}}, "item 12"),
+    ({"zero_optimization": {"zero_hpz_partition_size": 2}}, "item 12"),
+    ({"zeropp": {"bucket_mb": 16}}, "item 12"), ({"mesh": {"fsdp": 2}}, "item 12"),
+    ({"mesh": {"tensor": 2}}, "item 12"), ({"pipeline": {"stages": 2}}, "item 12"),
+    ({"tensor_parallel": {"tp_size": 2}}, "item 12"), ({"sequence_parallel_size": 2}, "item 12"),
+    ({"context_parallel": {"degree": 2}}, "item 12"), ({"lora": {"enabled": True}}, "item 10"),
+    ({"shuffle_exchange": {"enabled": True, "method": "RR"}}, "item 11"),
+    ({"data_efficiency": {"enabled": True}}, "item 14"),
+    ({"curriculum_learning": {"enabled": True}}, "item 14"),
+    ({"checkpoint": {"writer": "fast"}}, "item 7"), ({"tensorboard": {"enabled": True}}, "item 14"),
+    ({"flops_profiler": {"enabled": True}}, "item 14"), ({"wall_clock_breakdown": True}, "item 14"),
+    ({"hybrid_engine": {"enabled": True}}, "item 13"), ({"elasticity": {"enabled": True}}, "item 14"),
+    ({"progressive_layer_drop": {"enabled": True}}, "item 14"),
+    ({"resilience": {"nonfinite_policy": "rollback"}}, "item 7"),
+    ({"resilience": {"keep_last_n": 2}}, "item 7"), ({"autotuning": {"enabled": True}}, "item 14"),
+], ids=lambda v: next(iter(v)) + "-" + str(next(iter(v.values())))[:24] if isinstance(v, dict)
+   else None)
+def test_unported_training_sections_raise_naming_their_item(section, item):
+    from shuffle_exchange_tpu_torch.config import SXConfig
+
+    with pytest.raises(ConfigError, match=f"ROADMAP queue A, {item}"):
+        SXConfig.load(_train_cfg(**section))
+
+
+def test_unported_sections_at_their_inert_defaults_are_accepted():
+    """What the JAX loader accepts with the feature off loads here too,
+    legacy spellings included."""
+    from shuffle_exchange_tpu.config import SXConfig as JSX
+    from shuffle_exchange_tpu_torch.config import SXConfig
+
+    doc = _train_cfg(zeropp={"bucket_mb": 32}, lora={"enabled": False}, mesh={"data": -1},
+                     checkpoint={"tag_validation": "Warn"}, tensorboard={"enabled": False},
+                     pipeline={"stages": 0}, shuffle_exchange={"method": "RR"},
+                     bfloat16={"enabled": "true"}, gradient_clipping="1.0",
+                     zero_optimization={"stage": "2", "reduce_bucket_size": "5e8",
+                                        "stage3_gather_fp16_weights_on_model_save": True},
+                     steps_per_print=5, resilience={"nonfinite_policy": "off"})
+    port, ref = SXConfig.load(doc), JSX.load(doc, world_size=1)
+    for name in ("train_batch_size", "train_micro_batch_size_per_gpu",
+                 "gradient_accumulation_steps", "gradient_clipping", "steps_per_print"):
+        assert getattr(port, name) == getattr(ref, name), name
+    assert port.bf16.enabled and port.train_dtype == torch.bfloat16
+    assert port.zero_optimization.stage == ref.zero_optimization.stage == 2
+    assert port.zero_optimization.reduce_bucket_size == ref.zero_optimization.reduce_bucket_size
+    assert port.zero_optimization.stage3_gather_16bit_weights_on_model_save
+    assert port.resilience.nonfinite_policy == "off"
+    with pytest.raises(ConfigError, match="world size 8"):
+        SXConfig.load(_train_cfg(), world_size=8)
+
+
+def test_training_config_defaults_and_batch_triangle_equal_the_jax_package():
+    from shuffle_exchange_tpu import config as jc
+    from shuffle_exchange_tpu_torch import config as tc
+
+    for cls in ("FP16Config", "BF16Config", "ZeroConfig", "OffloadConfig", "OptimizerConfig",
+                "SchedulerConfig", "ResilienceConfig", "MeshConfig",
+                "ActivationCheckpointingConfig"):
+        port, ref = getattr(tc, cls)(), getattr(jc, cls)()
+        assert port.to_dict() == ref.to_dict(), cls
+    port, ref = tc.SXConfig(), jc.SXConfig()
+    for f in dataclasses.fields(tc.SXConfig):
+        a, b = getattr(port, f.name), getattr(ref, f.name)
+        assert (a.to_dict() if hasattr(a, "to_dict") else a) == \
+            (b.to_dict() if hasattr(b, "to_dict") else b), f.name
+    for doc in ({"train_batch_size": 32}, {"train_micro_batch_size_per_gpu": 4},
+                {"train_batch_size": 32, "gradient_accumulation_steps": 4},
+                {"train_batch_size": 32, "train_micro_batch_size_per_gpu": 8},
+                {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 3}):
+        p, r = tc.SXConfig.load(doc), jc.SXConfig.load(doc, world_size=1)
+        assert (p.train_batch_size, p.train_micro_batch_size_per_gpu,
+                p.gradient_accumulation_steps) == (r.train_batch_size,
+                                                   r.train_micro_batch_size_per_gpu,
+                                                   r.gradient_accumulation_steps)
+    for doc in ({}, {"train_batch_size": 32, "train_micro_batch_size_per_gpu": 8,
+                     "gradient_accumulation_steps": 2},
+                {"train_batch_size": 4, "fp16": {"enabled": True}, "bf16": {"enabled": True}},
+                {"train_batch_size": 4, "fp16": {"hysteresis": 0}},
+                {"train_batch_size": 4, "zero_optimization": {"stage": 4}}):
+        with pytest.raises(JConfigError):
+            jc.SXConfig.load(doc, world_size=1)
+        with pytest.raises(ConfigError):
+            tc.SXConfig.load(doc)
+
+
+@pytest.mark.parametrize("name,item", [
+    ("OneBitAdam", "item 12"), ("ZeroOneAdam", "item 12"), ("OneBitLamb", "item 12"),
+    ("Lamb", "item 14"), ("Lion", "item 14"), ("SGD", "item 14"), ("Adagrad", "item 14"),
+    ("Muon", "item 14")])
+def test_unported_optimizer_types_raise_naming_their_item(name, item):
+    import shuffle_exchange_tpu_torch as sxt
+
+    model = Transformer(tiny(**LLAMA), device="cpu")
+    with pytest.raises(ConfigError, match=f"ROADMAP queue A, {item}"):
+        sxt.initialize(model=model, device="cpu",
+                       config={"train_batch_size": 4, "optimizer": {"type": name}})
+
+
+def test_optimizer_types_and_the_adam_w_mode_rule():
+    from shuffle_exchange_tpu_torch.config import OptimizerConfig
+    from shuffle_exchange_tpu_torch.ops.fused_adam import FusedAdamW
+    from shuffle_exchange_tpu_torch.runtime.optimizers import AdamL2, build_optimizer, get_base_lr
+
+    def kind(name, **params):
+        return type(build_optimizer(OptimizerConfig(type=name, params=params), None, 0.0))
+
+    assert kind("AdamW") is kind("FusedAdam") is kind("CPUAdam") is FusedAdamW
+    assert kind("Adam") is AdamL2 and kind("Adam", adam_w_mode=True) is FusedAdamW
+    assert kind("FusedAdam", adam_w_mode=False) is AdamL2
+    assert kind("AdamW", adam_w_mode=False) is FusedAdamW       # "adamw" is always decoupled
+    tx = build_optimizer(OptimizerConfig(type="FusedAdam", params={
+        "lr": 3e-4, "betas": [0.8, 0.9], "eps": 1e-6, "weight_decay": 0.1}), None, 0.5)
+    assert (tx.b1, tx.b2, tx.eps, tx.weight_decay, tx.max_grad_norm, tx.lr_at(7)) == \
+        (0.8, 0.9, 1e-6, 0.1, 0.5, 3e-4)
+    # the schedule index: FusedAdam with decoupled decay is the reference's
+    # kernel path (count + 1), every other Adam type is optax there (count)
+    offset = lambda name, **params: build_optimizer(
+        OptimizerConfig(type=name, params=params), None, 0.0).schedule_offset
+    assert offset("FusedAdam") == 1
+    assert offset("AdamW") == offset("CPUAdam") == offset("Adam") == 0
+    assert offset("FusedAdam", adam_w_mode=False) == offset("Adam", adam_w_mode=True) == 0
+    assert get_base_lr(OptimizerConfig(params={"learning_rate": 0.5})) == 0.5
+    with pytest.raises(ConfigError, match="Unknown optimizer"):
+        kind("Nope")
+    with pytest.raises(ConfigError, match="No optimizer section"):
+        build_optimizer(None, None)
+
+
+def test_adam_with_l2_decay_follows_optax():
+    import jax.numpy as jnp
+    import optax
+
+    from shuffle_exchange_tpu_torch.config import OptimizerConfig
+    from shuffle_exchange_tpu_torch.runtime.optimizers import build_optimizer
+
+    rng = np.random.default_rng(0)
+    p0 = rng.normal(size=(6, 5)).astype(np.float32)
+    tx = optax.chain(optax.add_decayed_weights(0.1), optax.adam(1e-2))
+    jp, jstate = {"w": jnp.asarray(p0)}, None
+    jstate = tx.init(jp)
+    port = build_optimizer(OptimizerConfig(type="Adam", params={"lr": 1e-2, "weight_decay": 0.1}),
+                           None)
+    tp = {"w": torch.from_numpy(p0.copy())}
+    state = port.init(tp)
+    for _ in range(4):
+        g = rng.normal(size=p0.shape).astype(np.float32)
+        upd, jstate = tx.update({"w": jnp.asarray(g)}, jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        port.update(tp, {"w": torch.from_numpy(g)}, state)
+        np.testing.assert_allclose(tp["w"].numpy(), np.asarray(jp["w"]), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"method": "RR"}, "item 11"), ({"rings": 2}, "item 11"), ({"shuffle_step": 5}, "item 11"),
+    ({"slice_count": 2}, "item 11"), ({"training_data": [1, 2]}, "item 14"),
+    ({"collate_fn": len}, "item 14"), ({"mpu": object()}, "item 12")])
+def test_initialize_kwargs_of_unported_features_raise(kw, item):
+    import shuffle_exchange_tpu_torch as sxt
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
+        sxt.initialize(model=Transformer(tiny(**LLAMA), device="cpu"), config=_train_cfg(),
+                       device="cpu", **kw)
+    with pytest.raises(ConfigError, match="needs a model object"):
+        sxt.initialize(config=_train_cfg(), device="cpu")
+
+
+def test_initialize_signature_is_the_jax_one_plus_device():
+    import inspect
+
+    import shuffle_exchange_tpu as jsxt
+    import shuffle_exchange_tpu_torch as sxt
+
+    ref = inspect.signature(jsxt.initialize).parameters
+    port = inspect.signature(sxt.initialize).parameters
+    assert list(port) == list(ref) + ["device"]
+    for name, p in ref.items():
+        assert port[name].default == p.default, name
+
+
+def test_flash_attention_that_requires_grad_never_takes_the_no_grad_route(monkeypatch):
+    """With the kernel gate open, a call whose input requires grad goes
+    through the autograd function (forward with lse, backward kernels and
+    both counters); the same call under no_grad or on detached tensors
+    takes the inference route without lse."""
+    calls = []
+
+    def launch(q, k, v, causal, seg, want_lse):
+        calls.append(("fwd", want_lse))
+        out, lse = tfa.reference_attention_lse(q, k, v, causal, seg)
+        return out, (lse if want_lse else None)
+
+    def launch_bwd(q, k, v, out, lse, dout, causal, seg):
+        calls.append(("bwd", lse is not None))
+        return tfa.reference_attention_bwd(q, k, v, out, dout, causal, seg)
+
+    monkeypatch.setattr(tfa, "use_kernel", lambda t: True)
+    monkeypatch.setattr(tfa, "_launch", launch)
+    monkeypatch.setattr(tfa, "_launch_bwd", launch_bwd)
+    monkeypatch.setattr(tfa.flash_attention, "launches", 0)
+    monkeypatch.setattr(tfa.flash_attention_bwd, "launches", 0)
+    q = torch.randn(1, 6, 4, 8, requires_grad=True)
+    k, v = torch.randn(1, 6, 2, 8), torch.randn(1, 6, 2, 8, requires_grad=True)
+    out = tfa.flash_attention(q, k, v)
+    assert calls == [("fwd", True)] and out.requires_grad
+    out.sum().backward()
+    assert calls == [("fwd", True), ("bwd", True)]
+    assert q.grad is not None and v.grad is not None and k.grad is None
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches) == (1, 1)
+    with torch.no_grad():
+        tfa.flash_attention(q, k, v)
+    tfa.flash_attention(q.detach(), k, v.detach())
+    assert calls[2:] == [("fwd", False), ("fwd", False)]
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches) == (3, 1)
