@@ -8,10 +8,10 @@ Run from the repository root, with one CUDA card:
 It never imports JAX or the JAX package, and every failure ends it with a
 non-zero exit code. The phases:
 
-1. Build: ``nvcc`` compiles the four CUDA sources (paged attention, the
-   fused decode layer, flash attention and fused AdamW) into ``build/`` at
-   once, one process each, and the Triton RMSNorm kernel compiles at its
-   first launch.
+1. Build: ``nvcc`` compiles the five CUDA sources (paged attention, the
+   fused decode layer, flash attention, fused AdamW and the quantized
+   matmul) into ``build/`` at once, one process each, and the Triton
+   RMSNorm kernel compiles at its first launch.
 2. Kernels: each kernel and its plain PyTorch version run in bf16 on the
    card at the shapes the serving and training paths give it (RMSNorm at
    both); the errors are held to stated
@@ -23,7 +23,9 @@ non-zero exit code. The phases:
    attention kernel (the prefill's) and the fused QKV kernel without a
    pool (the v1 engine's form), phase 2d for the training kernels: the
    flash forward's out and log-sum-exp at the training shapes, the flash
-   backward and fused AdamW.
+   backward and fused AdamW, phase 2e for the quantized serving kernels:
+   the quantized matmul for int8, int4 and fp8 storage on Llama-3-8B's
+   matrices from 1 to 8192 rows, and the quantized fused MLP.
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
    Llama-3-8B at full width and depth with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
@@ -34,13 +36,19 @@ non-zero exit code. The phases:
    ``init_inference(...).generate`` on the same prompts. Each run's
    launch counters, zeroed just before it and read just after, must
    equal what the engine's programs imply. Short profiled runs show where
-   the device time goes.
+   the device time goes. 3d: weight-quantized serving, a serve for each of
+   int8, int4 and fp8 (``quantize_weights``; the engine quantizes the bf16
+   weights on the card), then int8 ``put()`` + ``decode_loop`` and the int8
+   v1 ``generate``, their launch counters held the same way, and the weight
+   bytes against bf16.
 4. End to end: the same weights cut to depth 2 on the card (bf16), with
    "auto" and with "xla", and on the CPU (the plain path in f32) run a
    teacher-forced ``step()`` schedule, a ``put()`` schedule (a cold
    batched prefill, then single- and multi-token extensions) and the v1
    prefill and decode steps; all logits must agree within a stated
-   tolerance.
+   tolerance. Then the ``step()`` and ``put()`` schedules of a quantized
+   engine of each format against the CPU f32 engine fed the weights it
+   serves.
 5. Train: ``initialize`` + ``Engine.train_batch`` on the largest entry of
    the Llama training ladder whose state fits the card (``llama3-1b-style``
    on 80 GB), full depth, bf16, FusedAdam, full remat, batch 32 x 1024, one
@@ -978,6 +986,217 @@ def check_fused_adamw(gen):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2e: the quantized serving kernels (B8 quantized matmul, B7 quantized
+# fused MLP)
+# ---------------------------------------------------------------------------
+
+QUANT_FORMATS = (8, 4, "fp8")
+# Llama-3-8B's layer matrices (K, N): wq / wo, wk / wv, w_gate / w_up, w_down
+QUANT_SHAPES = [(4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096)]
+# decode rows (8 and 1), a tick's chunk rows (256) and a put() of 8 prompts
+# padded to 1024 (8192)
+QUANT_ROWS = [8, 1, 256, 8192]
+# (M, K, N, gs) off the path: ragged rows on both forms, N not a multiple
+# of either kernel's column tile, and group 64
+QUANT_EXTRA = [(37, 4096, 1024, 256), (3, 4096, 1040, 256), (1000, 1024, 1040, 256),
+               (8, 4096, 1024, 64), (256, 4096, 1024, 64)]
+
+
+class _f32_reduction:
+    """cuBLAS with f32 reductions for bf16 products (no bf16 split-K
+    partials) while the plain versions run, so they round once as the
+    kernels do."""
+
+    def __enter__(self):
+        import torch
+
+        self.was = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = self.was
+
+
+# The quantized MLP's kernel and plain version round a = silu(g)*u to bf16
+# from f32 sums of g and u that differ in summation order (5e-7 relative on
+# the H100); about 0.1% of a's elements then round the other way, each
+# moving the down projection by ulp(a) * |w_down|. Beyond one bf16 step of
+# the output that left at most 0.0012 of the row's RMS over 20 seeds x 3
+# formats of 8 rows on the H100 (more than 1e-3 of the RMS, which the
+# serving kernels' tolerance allows), so the output is held to one bf16
+# step of itself plus one bf16 step (0.0078) of the row's RMS. A w_down with
+# its scale rows shifted by one group lands at least 0.36 of the RMS beyond.
+QUANT_MLP_TOL = "2^-7*|plain| + 2^-7*rms(plain row)"
+
+
+def quant_mlp_close(got, want):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    return err, bool((err <= 2 ** -7 * want.abs() + 2 ** -7 * rms).all())
+
+
+def _shifted_scales(qm):
+    """A broken copy: every scale row moved down by one group."""
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import QuantizedMatrix
+
+    return QuantizedMatrix(qm.q, qm.scales.roll(1, 0), qm.group_size, qm.dtype, qm.bits,
+                           qm.n_cols)
+
+
+def _swapped_nibbles(qm):
+    """A broken int4 copy: rows r and r + gs/2 of each group exchanged."""
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import QuantizedMatrix
+
+    return QuantizedMatrix((qm.q >> 4) | (qm.q << 4), qm.scales, qm.group_size, qm.dtype,
+                           qm.bits, qm.n_cols)
+
+
+def check_quant_matmul(gen):
+    """B8 against its plain version (the JAX default formula) for the three
+    formats at group 256 on Llama-3-8B's four matrix shapes and QUANT_ROWS
+    rows, then QUANT_EXTRA; each Llama case is timed beside its bound, the
+    plain version, dequantize + ``torch.matmul`` (the library yardstick)
+    and cuBLAS on the dense bf16 weight. At each format's first case a
+    plain version with the scale rows shifted by one group (and, for
+    int4, one with the nibbles swapped) must fail the tolerance, and two
+    runs must give equal bits."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import (quant_matmul,
+                                                             quant_matmul_reference,
+                                                             quantize_weight)
+
+    cases = [(bits, M, K, N, 256, True) for bits in QUANT_FORMATS for K, N in QUANT_SHAPES
+             for M in QUANT_ROWS]
+    cases += [(bits, M, K, N, gs, False) for bits in QUANT_FORMATS
+              for M, K, N, gs in QUANT_EXTRA]
+    rows, made = [], {}
+    with _f32_reduction():
+        for bits, M, K, N, gs, timed in cases:
+            if (bits, K, N, gs) not in made:
+                made.clear()
+                torch.cuda.empty_cache()
+                w = (torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5).bfloat16()
+                made[(bits, K, N, gs)] = (w, quantize_weight(w, gs, bits=bits))
+            w, qm = made[(bits, K, N, gs)]
+            x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+            run = lambda: quant_matmul(x, qm)
+            plain = lambda: quant_matmul_reference(x, qm)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err, tol_ok = paged_close(got, want)
+            row = dict(shape=dict(M=M, K=K, N=N, gs=qm.group_size, bits=str(bits)),
+                       max_abs_err=err.max().item(),
+                       max_rel_err=(err.max() / want.float().abs().max()).item(),
+                       tolerance=PAGED_TOL + " per output row", within=tol_ok)
+            _check(tol_ok, f"quantized matmul kernel disagrees with its plain version at "
+                   f"{row['shape']}: max abs err {row['max_abs_err']}")
+            if not any(r["shape"]["bits"] == str(bits) for r in rows):
+                bites = {"scales_shifted": _bites(got, quant_matmul_reference(
+                    x, _shifted_scales(qm)))}
+                if bits == 4:
+                    bites["nibbles_swapped"] = _bites(got, quant_matmul_reference(
+                        x, _swapped_nibbles(qm)))
+                row["tolerance_bites"] = bites
+                row["equal_bits_twice"] = torch.equal(got, run())
+                _check(all(bites.values()), f"the quantized matmul tolerance does not catch a "
+                       f"broken plain version: {bites}")
+                _check(row["equal_bits_twice"], "two runs of the quantized matmul differ")
+            if timed:
+                nbytes = M * K * 2 + qm.nbytes + M * N * 2
+                b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
+                iters = 10 if M > 1024 else 20
+                row.update(ms=time_cold(run, iters), host_us=host_us(run),
+                           plain_ms=time_cold(plain, iters),
+                           library_ms=time_cold(lambda: x @ qm.dequantize(), iters),
+                           library="dequantize() + torch.matmul",
+                           dense_cublas_ms=time_cold(lambda: x @ w, iters),
+                           bound_ms=b_ms, bound_by=b_by)
+                row["gbytes_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+                row["tflops"] = 2.0 * M * K * N / (row["ms"] * 1e-3) / 1e12
+            rows.append(row)
+            del x, got, want, err
+    made.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_fused_mlp_quant(gen):
+    """B7 at Llama-3-8B widths for the three formats at group 256, B = 8
+    and 1, through ``fused_mlp`` (the engine's call, which dispatches on
+    the weights' type), against its plain version. A plain version with
+    w_down's scale rows shifted by one group (and, for int4, one with
+    w_up's nibbles swapped) must fail the tolerance. Timed beside its
+    bound, the plain version, the dequantize + cuBLAS sequence (the
+    library yardstick) and the cuBLAS sequence on the dense bf16
+    weights."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch.ops.fused_decode import fused_mlp, fused_mlp_quant_reference
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import quantize_weight
+
+    D, Fd = LLAMA_WIDTHS["D"], LLAMA_WIDTHS["F"]
+    wg, wu = [(torch.randn(D, Fd, generator=gen, device="cuda") * D ** -0.5).bfloat16()
+              for _ in range(2)]
+    wd = (torch.randn(Fd, D, generator=gen, device="cuda") * Fd ** -0.5).bfloat16()
+    ln_w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).bfloat16()
+    rows = []
+    with _f32_reduction():
+        for bits in QUANT_FORMATS:
+            qg, qu, qd = (quantize_weight(w, 256, bits=bits) for w in (wg, wu, wd))
+            for B in (8, 1):
+                h = torch.randn(B, D, generator=gen, device="cuda").bfloat16()
+                run = lambda: fused_mlp(h, h, ln_w, qu, qd, qg, eps=1e-5)
+                plain = lambda: fused_mlp_quant_reference(h, h, ln_w, qu, qd, qg, eps=1e-5)
+                got, want = run(), plain()
+                err, tol_ok = quant_mlp_close(got, want)
+                bites = {"w_down_scales_shifted": not quant_mlp_close(
+                    got, fused_mlp_quant_reference(h, h, ln_w, qu, _shifted_scales(qd), qg,
+                                                   eps=1e-5))[1]}
+                if bits == 4:
+                    bites["w_up_nibbles_swapped"] = not quant_mlp_close(
+                        got, fused_mlp_quant_reference(h, h, ln_w, _swapped_nibbles(qu), qd, qg,
+                                                       eps=1e-5))[1]
+                _check(tol_ok, f"fused quantized MLP kernel disagrees with its plain version at "
+                       f"bits={bits} B={B}: max abs err {err.max().item()}")
+                _check(all(bites.values()), f"the fused quantized MLP tolerance does not catch "
+                       f"a broken plain version: {bites}")
+
+                def deq_cublas():
+                    yn = F.rms_norm(h, (D,), ln_w, 1e-5)
+                    return h + (F.silu(yn @ qg.dequantize()) * (yn @ qu.dequantize())) \
+                        @ qd.dequantize()
+
+                def dense_cublas():
+                    yn = F.rms_norm(h, (D,), ln_w, 1e-5)
+                    return h + (F.silu(yn @ wg) * (yn @ wu)) @ wd
+
+                nbytes = qg.nbytes + qu.nbytes + qd.nbytes + 3 * B * D * 2 + D * 2
+                b_ms, b_by = bound(nbytes, 6.0 * B * D * Fd)
+                row = dict(shape=dict(B=B, D=D, F=Fd, gs=256, bits=str(bits)),
+                           max_abs_err=err.max().item(),
+                           max_rel_err=(err.max() / want.float().abs().max()).item(),
+                           tolerance=QUANT_MLP_TOL, within=tol_ok,
+                           tolerance_bites=bites, ms=time_cold(run), host_us=host_us(run),
+                           plain_ms=time_cold(plain), library_ms=time_cold(deq_cublas),
+                           library="dequantize() + the cuBLAS sequence",
+                           dense_cublas_sequence_ms=time_cold(dense_cublas),
+                           bound_ms=b_ms, bound_by=b_by)
+                row["gbytes_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+                rows.append(row)
+                del h, got, want, err
+            del qg, qu, qd
+            torch.cuda.empty_cache()
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serve Llama-3-8B through the scheduler
 # ---------------------------------------------------------------------------
 
@@ -988,16 +1207,16 @@ N_PROMPTS, MAX_NEW = 8, 32
 
 
 def serve(model, params, rng, device=None, config=SERVE_CONFIG, n_prompts=N_PROMPTS,
-          max_new=MAX_NEW, prompt_range=(128, 1024)):
-    """One serve of ``n_prompts`` random prompts through the scheduler.
-    Returns (tokens by uid, scheduler, engine, host seconds of each tick by
-    program); every tick's logits are checked finite and of the expected
-    shape on the way."""
+          max_new=MAX_NEW, prompt_range=(128, 1024), engine=None):
+    """One serve of ``n_prompts`` random prompts through the scheduler, on
+    ``engine`` or a new engine. Returns (tokens by uid, scheduler, engine,
+    host seconds of each tick by program); every tick's logits are checked
+    finite and of the expected shape on the way."""
     from shuffle_exchange_tpu_torch.inference import (ContinuousBatchingScheduler,
                                                       InferenceConfig, InferenceEngineV2)
 
     V = model.config.vocab_size
-    eng = InferenceEngineV2(model, params, InferenceConfig(**config), device=device)
+    eng = engine or InferenceEngineV2(model, params, InferenceConfig(**config), device=device)
     step = eng.step
     tick_s = {"decode": [], "extend": [], "mixed": []}
 
@@ -1026,12 +1245,16 @@ def _kernel_kind(name: str) -> str:
                       ("flash_bwd_", "flash_attention_bwd"),
                       ("fused_adamw_kernel", "fused_adamw"),
                       ("gemv_partial_kernel", "fused_gemv (qkv + mlp products)"),
+                      ("quant_gemv_kernel", "quant_gemv (B8 decode rows + B7 products)"),
+                      ("quant_mma_kernel", "quant_matmul (tensor-core form)"),
+                      ("quant_out_kernel", "quant_gemv (B8 decode rows + B7 products)"),
                       ("qkv_epilogue_kernel", "fused_qkv_rope"),
                       ("split_decode_kernel", "fused_paged_decode_attention"),
                       ("split_merge_kernel", "fused_paged_decode_attention"),
-                      ("norm_rows_kernel", "fused_mlp (norm, epilogues)"),
-                      ("swiglu_epilogue_kernel", "fused_mlp (norm, epilogues)"),
-                      ("residual_epilogue_kernel", "fused_mlp (norm, epilogues)"),
+                      ("norm_rows_kernel", "fused_mlp / fused_mlp_quant (norm, epilogues)"),
+                      ("swiglu_epilogue_kernel", "fused_mlp / fused_mlp_quant (norm, epilogues)"),
+                      ("residual_epilogue_kernel",
+                       "fused_mlp / fused_mlp_quant (norm, epilogues)"),
                       ("paged_decode_kernel", "paged_decode_attention"),
                       ("paged_extend_kernel", "paged_extend_attention"),
                       ("rmsnorm_kernel", "rmsnorm")):
@@ -1044,16 +1267,29 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
+def weight_bytes(params) -> int:
+    """Bytes the engine's weights hold on the device (quantized storage and
+    its scales included)."""
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import QuantizedMatrix
+
+    return sum(v.nbytes if isinstance(v, QuantizedMatrix) else v.numel() * v.element_size()
+               for v in params.values())
+
+
 def trace_serve(model, params, rng, config=SERVE_CONFIG):
     """Device time by kernel kind over a short profiled serve (4 requests
     of 128-512 prompt tokens, 8 new tokens each), against the wall time of
-    the window. The profiler's own host overhead lengthens the window, so
-    the idle share it gives is an upper bound."""
+    the window; the engine (and a quantized engine's quantization) is made
+    before the window opens. The profiler's own host overhead lengthens
+    the window, so the idle share it gives is an upper bound."""
+    from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
+
     out = {}
+    eng = InferenceEngineV2(model, params, InferenceConfig(**config))
 
     def run():
-        out["sched"] = serve(model, params, rng, config=config, n_prompts=4, max_new=8,
-                             prompt_range=(128, 512))[1]
+        out["sched"] = serve(model, params, rng, n_prompts=4, max_new=8,
+                             prompt_range=(128, 512), engine=eng)[1]
 
     summary = profiled(run)
     return summary and dict(summary, ticks=out["sched"].ticks)
@@ -1111,33 +1347,46 @@ def expected_launches(eng, n_layers, loop_steps=0):
     flash kernel. Decode rows (a decode program, a mixed one, or each of
     ``loop_steps`` steps of ``decode_loop``), fused: ln1 in every layer and
     the final norm, and each fused kernel once a layer; else like chunk
-    rows, with the paged decode kernel."""
+    rows, with the paged decode kernel. Quantized weights: every matmul of
+    chunk and prefill rows is the quantized matmul (7 a layer); fused
+    decode rows take it for q, k, v and wo, the split-K attention and the
+    quantized fused MLP (the fused QKV kernel steps aside), unfused ones 7
+    a layer."""
     by = eng.dispatches_by_program
     L = n_layers
     dec = by.get("decode", 0) + by.get("mixed", 0) + loop_steps
     ext = by.get("extend", 0) + by.get("mixed", 0)
     pre = by.get("prefill", 0)
     fused = eng._decode_kernel == "pallas"
+    quant = eng.config.quantize_weights
     out = {"rmsnorm": (2 * L + 1) * (ext + pre) + (L + 1 if fused else 2 * L + 1) * dec,
            "paged_decode_attention": 0 if fused else L * dec,
-           "paged_extend_attention": L * ext, "flash_attention": L * pre}
-    for name in ("fused_qkv_rope", "fused_paged_decode_attention", "fused_mlp"):
-        out[name] = L * dec if fused else 0
+           "paged_extend_attention": L * ext, "flash_attention": L * pre,
+           "fused_paged_decode_attention": L * dec if fused else 0}
+    for name in ("fused_qkv_rope", "fused_mlp"):
+        out[name] = L * dec if fused and not quant else 0
+    out["fused_mlp_quant"] = L * dec if fused and quant else 0
+    out["quant_matmul"] = ((4 if fused else 7) * L * dec + 7 * L * (ext + pre)) if quant else 0
     out.update(flash_attention_bwd=0, fused_adamw=0)     # the training step's
     return out
 
 
-def counted_serve(model, params, rng, config, n_layers, card):
+def counted_serve(model, params, rng, config, n_layers, card, label=None):
     """One serve with every launch counter zeroed just before and read
     just after; the counts must equal what the programs imply."""
     import torch
 
     from shuffle_exchange_tpu_torch import ops
+    from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
 
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = InferenceEngineV2(model, params, InferenceConfig(**config))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out, sched, eng, tick_s = serve(model, params, rng, config=config)
+    out, sched, eng, tick_s = serve(model, params, rng, config=config, engine=eng)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -1153,16 +1402,18 @@ def counted_serve(model, params, rng, config, n_layers, card):
     _check(launches == want, f"launch counts {launches} != implied by the programs {want}")
     tick_ms = {k: dict(n=len(v), p50=float(np.percentile(v, 50)) * 1e3,
                        p90=float(np.percentile(v, 90)) * 1e3) for k, v in tick_s.items() if v}
-    label = config["decode_kernel"]
-    print(f"[serve {label}] resolved {eng._decode_kernel}: {N_PROMPTS} requests x {MAX_NEW} "
-          f"new tokens in {seconds:.2f} s: ticks={stats['ticks']} "
+    label = label or config["decode_kernel"]
+    print(f"[serve {label}] engine made in {init_s:.2f} s; resolved {eng._decode_kernel}: "
+          f"{N_PROMPTS} requests x {MAX_NEW} new tokens in {seconds:.2f} s: ticks={stats['ticks']} "
           f"programs={dict(eng.dispatches_by_program)} preemptions={stats['preemptions']} "
           f"tok/s={stats['sustained_tokens_per_sec']} ttft_p50_s={stats['ttft_p50_s']} "
           f"tpot_p50_s={stats['tpot_p50_s']} launches={launches} "
           f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f} on {card}", flush=True)
     print(f"[serve {label}] host ms per tick by program: {json.dumps(tick_ms)}", flush=True)
-    return dict(stats, seconds=seconds, launches=launches, resolved=eng._decode_kernel,
-                programs=dict(eng.dispatches_by_program), tick_ms=tick_ms, tokens=out)
+    return dict(stats, seconds=seconds, init_s=init_s, launches=launches,
+                resolved=eng._decode_kernel,
+                programs=dict(eng.dispatches_by_program), tick_ms=tick_ms, tokens=out,
+                weight_bytes=weight_bytes(eng.params))
 
 
 # ---------------------------------------------------------------------------
@@ -1181,7 +1432,7 @@ def loop_prompts(rng, V, n=N_PROMPTS):
     return [rng.integers(1, V, size=int(L)).tolist() for L in lens]
 
 
-def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG):
+def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG, label="put"):
     """3b: one ``put()`` of every prompt (one batched prefill program),
     then ``decode_loop`` of LOOP_STEPS steps, with the launch counters
     zeroed just before and read just after; they must equal what the
@@ -1237,7 +1488,7 @@ def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG)
                decode_loop_ms_per_step=loop_s * 1e3 / LOOP_STEPS,
                decode_loop_tokens_per_s=len(uids) * LOOP_STEPS / loop_s, launches=launches,
                programs=programs, equal_to_put_loop=True, tokens=toks.tolist())
-    print(f"[put] {len(uids)} prompts, {n_tok} tokens: prefill {out['prefill_ms']:.1f} ms "
+    print(f"[{label}] {len(uids)} prompts, {n_tok} tokens: prefill {out['prefill_ms']:.1f} ms "
           f"({out['prefill_tokens_per_s']:.0f} tok/s); decode_loop {LOOP_STEPS} steps "
           f"{out['decode_loop_ms_per_step']:.2f} ms/step "
           f"({out['decode_loop_tokens_per_s']:.1f} tok/s); tokens equal to {LOOP_STEPS} "
@@ -1246,29 +1497,35 @@ def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG)
     return out
 
 
-def trace_put_decode_loop(model, params, prompts, n_steps=8):
+def trace_put_decode_loop(model, params, prompts, n_steps=8, config=SERVE_CONFIG):
     """Device time by kernel kind over a profiled ``put()`` of ``prompts``
-    and a ``decode_loop`` of ``n_steps`` steps on a fresh engine."""
+    and a ``decode_loop`` of ``n_steps`` steps on a fresh engine, made
+    before the window opens."""
     from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
 
+    eng = InferenceEngineV2(model, params, InferenceConfig(**config))
+
     def run():
-        eng = InferenceEngineV2(model, params, InferenceConfig(**SERVE_CONFIG))
         first = [int(t) for t in eng.put(list(range(len(prompts))), prompts).argmax(-1)]
         eng.decode_loop(list(range(len(prompts))), first, n_steps)
 
     return profiled(run)
 
 
-def v1_generate(model, params, prompts, n_layers, card, max_new=LOOP_STEPS + 1):
+V1_CONFIG = {"dtype": "bfloat16", "max_seq_len": 2048}
+
+
+def v1_generate(model, params, prompts, n_layers, card, max_new=LOOP_STEPS + 1,
+                config=V1_CONFIG, label="v1 generate"):
     """3c: ``init_inference(model, params, config).generate`` on right-padded
     prompts, greedy, ``max_new`` tokens; the launch counters must equal
     what its prefill (flash kernel) and decode steps (fused QKV without a
-    pool, fused MLP; plain decode attention) imply."""
-    import torch
-
+    pool, fused MLP; plain decode attention) imply. With quantized weights
+    every prefill matmul is the quantized matmul (7 a layer), and a decode
+    step takes it for q, k, v and wo beside the quantized fused MLP."""
     from shuffle_exchange_tpu_torch import init_inference, ops
 
-    eng = init_inference(model, params, {"dtype": "bfloat16", "max_seq_len": 2048})
+    eng = init_inference(model, params, dict(config))
     _check(eng._decode_kernel == "pallas", "v1 decode_kernel auto did not resolve to the "
            "fused kernels on the card")
     T = max(len(p) for p in prompts)
@@ -1289,17 +1546,78 @@ def v1_generate(model, params, prompts, n_layers, card, max_new=LOOP_STEPS + 1):
            f"v1 generate tokens {out.shape} out of shape or range")
     L, steps = n_layers, max_new - 1
     want = {k: 0 for k in launches}
-    want.update(flash_attention=L, rmsnorm=(2 * L + 1) + (L + 1) * steps,
-                fused_qkv_rope=L * steps, fused_mlp=L * steps)
+    want.update(flash_attention=L, rmsnorm=(2 * L + 1) + (L + 1) * steps)
+    if eng.config.quantize_weights:
+        want.update(quant_matmul=7 * L + 4 * L * steps, fused_mlp_quant=L * steps)
+    else:
+        want.update(fused_qkv_rope=L * steps, fused_mlp=L * steps)
     _check(launches == want, f"v1 generate launch counts {launches} != implied {want}")
     step_ms = (seconds - prefill_s) * 1e3 / steps
-    print(f"[v1 generate] {len(prompts)} x {max_new} tokens from prompts padded to {T} in "
+    print(f"[{label}] {len(prompts)} x {max_new} tokens from prompts padded to {T} in "
           f"{seconds:.2f} s ({len(prompts) * max_new / seconds:.1f} tok/s); a 1-token "
           f"generate (prefill) {prefill_s * 1e3:.1f} ms, so {step_ms:.2f} ms a decode step; "
           f"launches={launches} on {card}", flush=True)
     return dict(seconds=seconds, tokens_per_s=len(prompts) * max_new / seconds,
                 prefill_ms=prefill_s * 1e3, decode_step_ms=step_ms, launches=launches,
                 tokens=out.tolist())
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: weight-quantized serving (quantize_weights int8 / int4 / fp8)
+# ---------------------------------------------------------------------------
+
+QUANT_SERVE = {bits: dict(SERVE_CONFIG, quantize_weights=True, quant_bits=bits)
+               for bits in QUANT_FORMATS}
+
+
+def quant_serving(model, params, prompts, n_layers, card, seed, bf16):
+    """3d: a counted ``serve()`` of the phase-3 requests for each format
+    with ``decode_kernel`` "auto" (which must resolve to the fused
+    kernels), then int8 ``put()`` + ``decode_loop`` (tokens equal to the
+    single-token ``put()`` loop) and the int8 v1 ``generate`` on the 3b
+    prompts, and a short profiled int8 serve. Each engine quantizes the
+    dense bf16 weights on the card and is freed before the next; ``bf16``
+    holds phase 3's results, to compare tokens and weight bytes with."""
+    import torch
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"serve": {}}
+    dense_bytes = weight_bytes(params)
+    for bits in QUANT_FORMATS:
+        name = "fp8" if bits == "fp8" else f"int{bits}"
+        r = counted_serve(model, params, np.random.default_rng([seed, 1]), QUANT_SERVE[bits],
+                          n_layers, card, label=name)
+        _check(r["resolved"] == "pallas", f"{name}: decode_kernel auto did not resolve to the "
+               "fused kernels on the card")
+        r["same_tokens_as_bf16"] = sum(r["tokens"][u] == bf16["tokens"][u] for u in r["tokens"])
+        print(f"[serve {name}] weights {r['weight_bytes'] / 1e9:.3f} GB against "
+              f"{dense_bytes / 1e9:.3f} GB in bf16 ({r['weight_bytes'] / dense_bytes:.3f}); "
+              f"requests with tokens equal to the bf16 serve's: {r['same_tokens_as_bf16']} of "
+              f"{N_PROMPTS}", flush=True)
+        r["tokens"] = {int(u): t for u, t in r["tokens"].items()}
+        out["serve"][name] = r
+        free()
+    out["dense_weight_bytes"] = dense_bytes
+    out["put_decode_loop"] = put_decode_loop(model, params, prompts, n_layers, card,
+                                             config=QUANT_SERVE[8], label="put int8")
+    free()
+    out["v1_generate"] = v1_generate(model, params, prompts, n_layers, card,
+                                     config=dict(V1_CONFIG, **_quant(8)),
+                                     label="v1 generate int8")
+    free()
+    out["trace"] = trace_serve(model, params, np.random.default_rng([seed, 4]),
+                               QUANT_SERVE[8])
+    print(f"[trace int8] {json.dumps(out['trace']) if out['trace'] else 'no device kernels'}",
+          flush=True)
+    free()
+    out["trace_put_decode_loop"] = trace_put_decode_loop(model, params, prompts,
+                                                         config=QUANT_SERVE[8])
+    print(f"[trace put_decode_loop int8] {json.dumps(out['trace_put_decode_loop'])}", flush=True)
+    free()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1327,10 +1645,28 @@ def e2e_schedule(rng, V):
     ]
 
 
-def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto"):
+def _quant(bits):
+    """The inference-config settings of a quantized engine (none for None)."""
+    return {} if bits is None else dict(quantize_weights=True, quant_bits=bits)
+
+
+def host_weights(params):
+    """The weights an engine serves, as f32 on the CPU: quantized matrices
+    dequantized in f32 (the plain quantized matmul in f32 multiplies by
+    exactly these), the rest cast."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import QuantizedMatrix
+
+    return {k: (v.dequantize(torch.float32).cpu() if isinstance(v, QuantizedMatrix)
+                else v.detach().float().cpu()) for k, v in params.items()}
+
+
+def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto", quant_bits=None):
     """Run the schedule on a bf16 engine on the card (``decode_kernel`` as
-    given) and an f32 engine on the CPU ("xla": the paged plain versions)
-    built from the same weights; returns per-tick errors."""
+    given; ``quant_bits`` quantizes its weights) and an f32 engine on the
+    CPU ("xla": the paged plain versions) fed the weights the card engine
+    serves; returns per-tick errors."""
     from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
     from shuffle_exchange_tpu_torch.models import Transformer
 
@@ -1338,11 +1674,11 @@ def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto"):
                 serving={"token_budget": 256, "max_running": 8})
     card = InferenceEngineV2(Transformer(cfg, device=card_device), card_state,
                              InferenceConfig(dtype="bfloat16", decode_kernel=decode_kernel,
-                                             **icfg), device=card_device)
+                                             **_quant(quant_bits), **icfg), device=card_device)
     if decode_kernel == "auto" and card_device == "cuda":
         _check(card._decode_kernel == "pallas", "decode_kernel auto did not resolve to the "
                "fused kernels on the card")
-    cpu_state = {k: v.detach().float().cpu() for k, v in card_state.items()}
+    cpu_state = host_weights(card.params)
     host = InferenceEngineV2(Transformer(cfg, device="cpu"), cpu_state,
                              InferenceConfig(dtype="float32", decode_kernel="xla", **icfg),
                              device="cpu")
@@ -1376,24 +1712,26 @@ def put_schedule(rng, V):
             ([1, 3, 0], [t[8:78], t[78:83], [t[83]]])]
 
 
-def e2e_put_check(cfg, card_state, rng, decode_kernels=("auto", "xla")):
-    """The put() schedule on bf16 engines on the card (each decode path)
-    and on an f32 engine on the CPU, from the same weights; per-call
-    logits errors."""
+def e2e_put_check(cfg, card_state, rng, decode_kernels=("auto", "xla"), quant_bits=None):
+    """The put() schedule on bf16 engines on the card (each decode path;
+    ``quant_bits`` quantizes their weights) and on an f32 engine on the
+    CPU fed the weights they serve; per-call logits errors."""
     from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
     from shuffle_exchange_tpu_torch.models import Transformer
 
     icfg = dict(max_seq_len=512, kv_block_size=64, num_kv_blocks=24)
     schedule = put_schedule(rng, cfg.vocab_size)
-    cpu_state = {k: v.detach().float().cpu() for k, v in card_state.items()}
-    host = InferenceEngineV2(Transformer(cfg, device="cpu"), cpu_state,
+    cards = {dk: InferenceEngineV2(Transformer(cfg), card_state,
+                                   InferenceConfig(dtype="bfloat16", decode_kernel=dk,
+                                                   **_quant(quant_bits), **icfg))
+             for dk in decode_kernels}
+    host = InferenceEngineV2(Transformer(cfg, device="cpu"),
+                             host_weights(cards[decode_kernels[0]].params),
                              InferenceConfig(dtype="float32", decode_kernel="xla", **icfg),
                              device="cpu")
     want = [host.put(*call) for call in schedule]
     out = {}
-    for dk in decode_kernels:
-        card = InferenceEngineV2(Transformer(cfg), card_state,
-                                 InferenceConfig(dtype="bfloat16", decode_kernel=dk, **icfg))
+    for dk, card in cards.items():
         out[dk] = [_compare(card.put(*call), w) for call, w in zip(schedule, want)]
         _check(card.program_shapes == host.program_shapes,
                f"put() programs on the card {sorted(card.program_shapes)} != the CPU "
@@ -1644,7 +1982,8 @@ def main(argv=None) -> int:
 
     # 1. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    libs = _build.build_all(["paged_attention", "fused_decode", "flash_attention", "fused_adam"])
+    libs = _build.build_all(["paged_attention", "fused_decode", "flash_attention", "fused_adam",
+                             "quant_matmul"])
     nvcc_s = time.perf_counter() - t0
     for stem, lib in libs.items():
         print(f"[build] nvcc {stem}.cu -> {lib.name}")
@@ -1680,10 +2019,13 @@ def main(argv=None) -> int:
     # 2d. the training kernels: flash backward (and the forward's lse), AdamW
     fbwd = check_flash_bwd(gen, np.random.default_rng([args.seed, 11]))
     adamw = check_fused_adamw(gen)
+    # 2e. the quantized serving kernels
+    qmm = check_quant_matmul(gen)
+    qmlp = check_fused_mlp_quant(gen)
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
-               "fused_mlp": mlp, "flash_attention": flash, "flash_attention_bwd": fbwd,
-               "fused_adamw": adamw}
+               "fused_mlp": mlp, "fused_mlp_quant": qmlp, "quant_matmul": qmm,
+               "flash_attention": flash, "flash_attention_bwd": fbwd, "fused_adamw": adamw}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
@@ -1692,7 +2034,8 @@ def main(argv=None) -> int:
                                        "lse_max_abs_err", "fwd_out_max_abs_err",
                                        "equal_bits_twice",
                                        "autograd_max_err_over_rms", "fwd_lse_ms",
-                                       "gbytes_per_s") if k in r}
+                                       "gbytes_per_s", "dense_cublas_ms",
+                                       "dense_cublas_sequence_ms") if k in r}
             timed = ("" if "ms" not in r else
                      f"kernel_ms={r['ms']} host_us={r['host_us']} plain_ms={r['plain_ms']} "
                      f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} ({r['bound_by']}) ")
@@ -1733,6 +2076,13 @@ def main(argv=None) -> int:
     runs = [serves["auto"]["launches"], serves["xla"]["launches"], loop["launches"],
             v1["launches"]]
 
+    # 3d. weight-quantized serving: each format through serve(), int8
+    # through put() + decode_loop and the v1 generate
+    quant = quant_serving(model, params, prompts, cfg.n_layers, card, args.seed,
+                          serves["auto"])
+    runs += [r["launches"] for r in quant["serve"].values()]
+    runs += [quant["put_decode_loop"]["launches"], quant["v1_generate"]["launches"]]
+
     # where the device time goes: short profiled runs of each path
     traces = {}
     for label, config in (("auto", SERVE_CONFIG), ("xla", XLA_CONFIG)):
@@ -1756,6 +2106,19 @@ def main(argv=None) -> int:
     e2e["put"] = e2e_put_check(cfg2, state2, np.random.default_rng([args.seed, 7]))
     e2e["v1"] = e2e_v1_check(cfg2, state2, np.random.default_rng([args.seed, 8]))
     print(f"[e2e] put() and v1 schedules in {time.perf_counter() - t0:.2f} s", flush=True)
+    # the quantized engines, each against the CPU f32 engine fed the
+    # weights it serves
+    t0 = time.perf_counter()
+    for bits in QUANT_FORMATS:
+        e2e["step"][f"auto {bits}"] = e2e_check(cfg2, state2,
+                                                np.random.default_rng([args.seed, 2]),
+                                                quant_bits=bits)
+        e2e["put"][f"auto {bits}"] = e2e_put_check(cfg2, state2,
+                                                   np.random.default_rng([args.seed, 7]),
+                                                   decode_kernels=("auto",),
+                                                   quant_bits=bits)["auto"]
+    print(f"[e2e quantized] step() and put() schedules of three formats in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for what, by_dk in e2e.items():
         for dk, calls in by_dk.items():
             for i, t in enumerate(calls):
@@ -1805,6 +2168,8 @@ def main(argv=None) -> int:
                 "fused_qkv_rope": "shuffle_exchange_tpu/ops/fused_decode.py:130",
                 "fused_paged_decode_attention": "shuffle_exchange_tpu/ops/fused_decode.py:324",
                 "fused_mlp": "shuffle_exchange_tpu/ops/fused_decode.py:536",
+                "fused_mlp_quant": "shuffle_exchange_tpu/ops/fused_decode.py:634",
+                "quant_matmul": "shuffle_exchange_tpu/ops/quant_matmul.py:217",
                 "flash_attention": "shuffle_exchange_tpu/ops/flash_attention.py:122",
                 "flash_attention_bwd": "shuffle_exchange_tpu/ops/flash_attention.py:122",
                 "fused_adamw": "shuffle_exchange_tpu/ops/fused_adam.py:40"}
@@ -1816,7 +2181,8 @@ def main(argv=None) -> int:
                "paged_extend_attention": ("cuda", paged_cu),
                "fused_qkv_rope": ("cuda", fused_cu),
                "fused_paged_decode_attention": ("cuda", fused_cu),
-               "fused_mlp": ("cuda", fused_cu),
+               "fused_mlp": ("cuda", fused_cu), "fused_mlp_quant": ("cuda", fused_cu),
+               "quant_matmul": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/quant_matmul.cu"),
                "flash_attention": ("cuda", flash_cu), "flash_attention_bwd": ("cuda", flash_cu),
                "fused_adamw": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/fused_adam.cu")}
     kernels = []
@@ -1834,6 +2200,7 @@ def main(argv=None) -> int:
               "build": {"nvcc_s": nvcc_s}, "kernels": kernels,
               "kernel_checks": dict(checked, paged_sweep=sweep, fused_decode_sweep=fsweep),
               "serve": serves, "put_decode_loop": loop, "v1_generate": v1, "trace": traces,
+              "quant_serving": quant,
               "e2e": e2e, "train": trained, "train_e2e": te2e}
     if args.out:
         with open(args.out, "w") as f:

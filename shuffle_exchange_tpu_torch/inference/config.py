@@ -46,6 +46,20 @@ def sampling_knobs(temperature, top_k, top_p) -> str:
     return ", ".join(out)
 
 
+def _normalize_quant_bits(qb):
+    """8, 4 or "fp8" from the spellings the JAX config takes ("FP8 ", "4",
+    4.0); anything else is a ConfigError naming quant_bits."""
+    if str(qb).strip().lower() == "fp8":
+        return "fp8"
+    try:
+        qb_int = int(qb)
+    except (TypeError, ValueError):
+        qb_int = None
+    if qb_int not in (8, 4):
+        raise ConfigError(f"quant_bits must be 8, 4 or \"fp8\", got {qb!r}")
+    return qb_int
+
+
 def _refuse(key: str) -> ConfigError:
     return ConfigError(f"{key!r}: {_UNSUPPORTED[key]} is not in the PyTorch "
                        "port yet")
@@ -145,8 +159,13 @@ class InferenceConfig:
     # over the paged decode kernel; "auto" is "pallas" on the card and
     # "xla" on the CPU
     decode_kernel: str = "auto"
-    # weight-only quantization: not ported yet
+    # weight-only quantization: the layer matrices stored as int8 (8),
+    # packed int4 (4) or e4m3 ("fp8") at a group of min(quant_group_size,
+    # 256) rows, the unembedding rounded through int8 at flat groups of
+    # quant_group_size
     quantize_weights: bool = False
+    quant_bits: Any = 8
+    quant_group_size: int = 2048
     kv_block_size: int = 64
     num_kv_blocks: int = 256
     # only the default bf16 storage (the serving dtype) is ported
@@ -185,9 +204,9 @@ class InferenceConfig:
             raise ConfigError(f"tensor_parallel={self.tensor_parallel}: tensor-parallel "
                               "serving is not in the PyTorch port yet (ROADMAP queue A, "
                               "item 12)")
-        if self.quantize_weights:
-            raise ConfigError("quantize_weights: weight-only quantization is not in the "
-                              "PyTorch port yet (ROADMAP queue A, item 8)")
+        self.quant_bits = _normalize_quant_bits(self.quant_bits)
+        if int(self.quant_group_size) < 1:
+            raise ConfigError(f"quant_group_size must be >= 1, got {self.quant_group_size}")
         sampled = sampling_knobs(self.temperature, self.top_k, self.top_p)
         if sampled:
             raise ConfigError(f"{sampled}: sampled decoding is not in the PyTorch port yet; "
@@ -199,6 +218,18 @@ class InferenceConfig:
         does not port raise, naming the ROADMAP item; other unknown keys
         raise too."""
         d = dict(d or {})
+        if "quant" in d:
+            q = d.pop("quant")
+            if isinstance(q, dict):
+                d["quantize_weights"] = bool(q.get("enabled", False))
+                if "bits" in q:
+                    d["quant_bits"] = q["bits"]   # normalised and validated in __post_init__
+        dtype = d.get("dtype")
+        if dtype is not None and str(dtype).replace("torch.", "") == "int8":
+            # the reference's dtype=torch.int8 means int8-quantized weights:
+            # weight-only quantization with bf16 compute, as in the JAX package
+            d["dtype"] = "bfloat16"
+            d["quantize_weights"] = True
         for key in _UNSUPPORTED:
             if key in ("kv_cache_dtype", "prefix_caching", "moe"):
                 continue   # validated by value below / inside serving

@@ -7,18 +7,25 @@ cached path shares (``_layer_body`` / ``_block_tail`` / the dense
 ``_ffn``), the pieces of the fused decode path both JAX engines share (the
 resolution of ``decode_kernel``, the rope rows of the fused QKV kernel,
 the fused QKV for one-token rows in ``_layer_body`` and the fused MLP in
-``_block_tail``), and the dense-cache v1 engine: ``generate`` over a
+``_block_tail``), the weight-only quantization of ``quantize_weights``
+(``_quantize``), and the dense-cache v1 engine: ``generate`` over a
 ``KVCache`` ``[L, B, max_seq_len, KV, Dh]``, whose prefill runs the flash
 attention kernel and whose decode step runs the plain ``decode_attention``
 (plain jnp in JAX as well), with the fused QKV (no pool) and MLP kernels
 under ``decode_kernel: "pallas"``.
 
+Under ``quantize_weights`` the seven layer matrices are stored as
+``QuantizedMatrix`` leaves and every ``y @ w`` on them runs the quantized
+matmul kernel; quantized attention weights leave the fused QKV kernel (as
+in JAX, a static choice by the weights' type), and a quantized MLP takes
+the fused quantized MLP kernel on one-token rows.
+
 The JAX engine jit-compiles whole programs and scans the stacked layers;
 here each layer is a Python loop iteration over views of the stacked
 ``[L, ...]`` weights, and PyTorch runs eagerly. The v1 engine decodes
-greedily; sampling (ROADMAP queue A, item 3), weight quantization (item
-8), tensor parallelism (item 12), checkpoint-backed serving (item 7),
-Hugging Face models (item 14) and the full-sequence ``forward`` (item 4)
+greedily; sampling (ROADMAP queue A, item 3), tensor parallelism (item
+12), checkpoint-backed serving (item 7), Hugging Face models (item 14), the
+full-sequence ``forward`` (item 4) and quantized MoE experts (item 9)
 raise, naming their item.
 """
 
@@ -33,9 +40,11 @@ import torch.nn.functional as F
 from ..models.transformer import Transformer, _norm, decode_fusion_eligibility, rope_table
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
 from ..ops.flash_attention import flash_attention
-from ..ops.fused_decode import fused_mlp, fused_qkv_rope
+from ..ops.fused_decode import fused_mlp, fused_qkv_rope, mlp_weights_fusable
 from ..ops.paged_attention import decode_attention
-from ..utils.logging import warning_once
+from ..ops.quant import quantize_dequantize
+from ..ops.quant_matmul import QuantizedMatrix, quantize_weight
+from ..utils.logging import logger, warning_once
 from .config import InferenceConfig, sampling_knobs
 
 
@@ -77,6 +86,18 @@ def _apply_rope_batched(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -
 
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+#: the layer matrices ``quantize_weights`` stores quantized (the JAX
+#: engine's storage names; its MoE expert names wait for ROADMAP queue A,
+#: item 9)
+STORAGE_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def qkv_quantized(lw) -> bool:
+    """Whether a layer's attention weights are quantized: they then leave
+    the fused QKV kernel for the quantized matmul (JAX
+    ``_fused_qkv_args``)."""
+    return any(isinstance(lw[n], QuantizedMatrix) for n in ("wq", "wk", "wv"))
 
 
 class InferenceEngine:
@@ -121,7 +142,9 @@ class InferenceEngine:
 
     def _prepare_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Cast floating leaves to the serving dtype and move them to the
-        device (no copy when they already match)."""
+        device (no copy when they already match), then quantize when
+        configured. ``QuantizedMatrix`` leaves (an already quantized tree)
+        move as they are, their compute dtype set to the serving dtype."""
         dtype = self.config.torch_dtype()
         want = self.model.param_shapes()
         if set(params) != set(want):
@@ -131,8 +154,52 @@ class InferenceEngine:
         for k, v in params.items():
             if tuple(v.shape) != want[k]:
                 raise ValueError(f"param {k}: shape {tuple(v.shape)} != model's {want[k]}")
-        return {k: v.to(device=self.device, dtype=dtype if v.is_floating_point() else v.dtype)
-                for k, v in params.items()}
+        out = {}
+        for k, v in params.items():
+            if isinstance(v, QuantizedMatrix):
+                out[k] = v.to(self.device, dtype)
+            else:
+                out[k] = v.to(device=self.device,
+                              dtype=dtype if v.is_floating_point() else v.dtype)
+        if self.config.quantize_weights:
+            out = self._quantize(out)
+        return out
+
+    def _quantize(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Weight-only quantization (JAX ``_quantize``): the layer matrices
+        become ``QuantizedMatrix`` storage at a group of
+        ``min(quant_group_size, 256)`` rows, quantized one layer at a time
+        on the engine's device; the unembedding is rounded through int8 at
+        flat groups of ``quant_group_size`` and stays dense. A matrix no
+        group size of 32 or more divides takes the rounding instead."""
+        if self._mcfg.n_experts:
+            raise NotImplementedError("quantize_weights on MoE expert weights is not in the "
+                                      "PyTorch port yet: ROADMAP queue A, item 9")
+        cfg = self.config
+        gs = cfg.quant_group_size
+        dtype = cfg.torch_dtype()
+        out = {}
+        for name, v in params.items():
+            leaf = name.split(".")[-1]
+            if isinstance(v, QuantizedMatrix):
+                out[name] = v
+            elif name.startswith("layers.") and leaf in STORAGE_NAMES:
+                try:
+                    out[name] = quantize_weight(v, group_size=min(gs, 256), dtype=dtype,
+                                                bits=cfg.quant_bits)
+                except ValueError as e:
+                    # one static warning for the whole walk, the detail at
+                    # debug level (the JAX engine's dedup)
+                    warning_once("quantize_weight rejected some weights; using "
+                                 "quantize-dequantize rounding for them (per-weight detail "
+                                 "at debug level)")
+                    logger.debug(f"quantize_weight({name}): {e}; qdq rounding instead")
+                    out[name] = quantize_dequantize(v, group_size=gs).to(v.dtype)
+            elif leaf == "unembed":
+                out[name] = quantize_dequantize(v, group_size=gs).to(v.dtype)
+            else:
+                out[name] = v
+        return out
 
     def update_params(self, params: Dict[str, torch.Tensor]) -> None:
         self.params = self._prepare_params(params)
@@ -204,7 +271,7 @@ class InferenceEngine:
         (The paged engine's fused decode layer appends to its pool in the
         same kernel instead; this form serves the other one-token rows, as
         JAX's shared ``_layer_body`` does.)"""
-        if not (self._fuse_qkv and y.shape[1] == 1):
+        if not (self._fuse_qkv and y.shape[1] == 1) or qkv_quantized(lw):
             return None
         cfg = self._mcfg
         cosr, sinr = self._fused_qkv_args(positions)
@@ -214,9 +281,16 @@ class InferenceEngine:
 
     def _maybe_fused_ffn(self, lw: Dict[str, torch.Tensor],
                          h: torch.Tensor) -> Optional[torch.Tensor]:
-        """``h + FFN(RMSNorm(h))`` through the fused MLP kernel for
-        one-token rows when the decode path is fused; None otherwise."""
+        """``h + FFN(RMSNorm(h))`` through the fused MLP kernel (bf16
+        weights) or the fused quantized MLP kernel for one-token rows when
+        the decode path is fused; None otherwise, and for MLP weights the
+        fused kernels cannot take (mixed dense and quantized, as JAX
+        routes them: a static choice by the weights' type)."""
         if not (self._fuse_mlp and h.shape[1] == 1):
+            return None
+        reason = mlp_weights_fusable(lw["w_up"], lw["w_down"], lw["w_gate"])
+        if reason is not None:
+            warning_once(f"fused decode: MLP stays on the layer body ({reason})")
             return None
         out = fused_mlp(h[:, 0], h[:, 0], lw["ln2_w"], lw["w_up"], lw["w_down"],
                         lw["w_gate"], eps=self._mcfg.norm_eps)

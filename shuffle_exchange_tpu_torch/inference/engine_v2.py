@@ -15,7 +15,10 @@ chunk's K/V, then the paged extend kernel) and decode rows run
 ``_decode_layer``: with ``decode_kernel`` resolved to "pallas" (the default
 on the card) that is ``_fused_paged_layer`` (the fused QKV+RoPE+append,
 split-K attention and fused MLP kernels), with "xla" the layer body over
-the paged decode kernel.
+the paged decode kernel. Quantized attention weights leave the fused QKV
+kernel, as in JAX: under "pallas" their decode rows run the layer body
+with the quantized matmul for q/k/v/wo, the row append, the split-K
+attention (JAX's "attention-only fusion") and the fused quantized MLP.
 
 Shapes follow the JAX bins exactly (power-of-two row counts and block-table
 widths, the serving chunk ladder), so padding rows scribble on the scratch
@@ -42,7 +45,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.fused_decode import fused_paged_decode_attention, fused_qkv_rope
 from ..ops.paged_attention import paged_decode_attention, paged_extend_attention
 from .config import InferenceConfig
-from .engine import InferenceEngine, _bucket
+from .engine import InferenceEngine, _bucket, qkv_quantized
 from .paged import BlockedAllocator, PagedKVCache, append_token_kv, blocks_needed
 
 
@@ -208,9 +211,11 @@ class InferenceEngineV2(InferenceEngine):
 
     def _decode_layer(self, lw, h, ck, cv, pos, tables) -> torch.Tensor:
         """One decode layer (one token per row): the fused layer when the
-        decode path is fused, else append the token's K/V into the layer's
-        pool view in place and run paged decode attention."""
-        if self._decode_kernel == "pallas" and self._fuse_qkv:
+        decode path is fused and the attention weights are dense, else
+        append the token's K/V into the layer's pool view in place and run
+        the split-K decode kernel (fused path) or the paged decode kernel."""
+        fused = self._decode_kernel == "pallas"
+        if fused and self._fuse_qkv and not qkv_quantized(lw):
             return self._fused_paged_layer(lw, h, ck, cv, pos, tables)
 
         def attn_fn(q, k, v):
@@ -218,6 +223,8 @@ class InferenceEngineV2(InferenceEngine):
             # in place, where the JAX layer scan rewrites the whole pool as
             # scan outputs every step
             append_token_kv(ck, cv, k[:, 0], v[:, 0], tables, pos)
+            if fused:   # JAX's attention-only fusion
+                return fused_paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1)
             return paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1)
 
         return self._layer_body(lw, h, pos, attn_fn)

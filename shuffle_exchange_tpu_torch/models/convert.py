@@ -8,14 +8,69 @@ tests hand weights from one package to the other. A training engine's
 state (f32 master, the Adam moments ``mu`` / ``nu`` and the update count)
 moves the same way, so a test can start both engines from one state and
 compare them after N steps.
+
+Quantized weights cross too: a leaf with the children of a JAX
+``QuantizedMatrix`` (``q``, ``scales``, ``group_size``, ``bits``, the
+column count and the compute dtype; numpy or JAX arrays) becomes the
+port's ``QuantizedMatrix``, and ``params_to_numpy`` gives those children
+back as :class:`QuantizedArrays`. e4m3 storage crosses as its bytes
+(``uint8``) reinterpreted on arrival, because ``torch.from_numpy`` does not
+take ml_dtypes' float8.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
+
+from ..ops.quant_matmul import FP8, QuantizedMatrix
+
+
+class QuantizedArrays(NamedTuple):
+    """A ``QuantizedMatrix`` as numpy children: ``q`` (int8, uint8 packed
+    int4, or the e4m3 bytes as uint8), f32 ``scales``, and its
+    ``group_size``, ``bits``, ``n_cols`` and compute ``dtype`` name."""
+
+    q: np.ndarray
+    scales: np.ndarray
+    group_size: int
+    bits: Any
+    n_cols: int
+    dtype: str
+
+
+def _is_quantized(node: Any) -> bool:
+    return all(hasattr(node, a) for a in ("q", "scales", "group_size", "bits"))
+
+
+def _dtype_name(dtype: Any) -> str:
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return dtype if isinstance(dtype, str) else np.dtype(dtype).name
+
+
+def quantized_from_numpy(node: Any) -> QuantizedMatrix:
+    """A JAX ``QuantizedMatrix`` (or :class:`QuantizedArrays`) -> the port's,
+    on the CPU, bit for bit."""
+    q = np.asarray(node.q)
+    if node.bits == "fp8":
+        qt = torch.from_numpy(q.view(np.uint8).copy()).view(FP8)
+    else:
+        qt = torch.from_numpy(q.copy())
+    n_cols = getattr(node, "n_cols", None) or getattr(node, "_n", 0)
+    return QuantizedMatrix(qt, _to_tensor(node.scales), int(node.group_size),
+                           getattr(torch, _dtype_name(node.dtype)), bits=node.bits,
+                           n_cols=int(n_cols))
+
+
+def quantized_to_numpy(qm: QuantizedMatrix) -> QuantizedArrays:
+    q = qm.q.detach().cpu()
+    if qm.bits == "fp8":
+        q = q.view(torch.uint8)
+    return QuantizedArrays(q.numpy().copy(), qm.scales.detach().cpu().numpy().copy(),
+                           qm.group_size, qm.bits, qm.n_cols, _dtype_name(qm.dtype))
 
 
 def _to_tensor(a: Any) -> torch.Tensor:
@@ -29,7 +84,8 @@ def _to_tensor(a: Any) -> torch.Tensor:
 
 def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Nested dict of arrays -> ``{"embed": t, "layers.wq": t, ...}`` on
-    the CPU, copied bit for bit (the engines cast and move them)."""
+    the CPU, copied bit for bit (the engines cast and move them); quantized
+    leaves become ``QuantizedMatrix``."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -37,7 +93,8 @@ def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             for k, v in node.items():
                 walk(v, f"{prefix}{k}.")
             return
-        out[prefix[:-1]] = _to_tensor(node)
+        out[prefix[:-1]] = (quantized_from_numpy(node) if _is_quantized(node)
+                            else _to_tensor(node))
 
     walk(tree, "")
     return out
@@ -46,16 +103,20 @@ def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def params_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Flattened state dict -> nested dict of numpy arrays (the JAX tree's
     structure). bf16 tensors come back as float32 arrays holding the same
-    values, since numpy has no bfloat16 of its own."""
+    values, since numpy has no bfloat16 of its own; a ``QuantizedMatrix``
+    comes back as :class:`QuantizedArrays`."""
     tree: Dict[str, Any] = {}
     for name, t in state.items():
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
         node = tree
         *path, leaf = name.split(".")
         for p in path:
             node = node.setdefault(p, {})
+        if isinstance(t, QuantizedMatrix):
+            node[leaf] = quantized_to_numpy(t)
+            continue
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
         node[leaf] = t.numpy().copy()
     return tree
 

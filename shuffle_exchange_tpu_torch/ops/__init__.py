@@ -7,8 +7,9 @@ through the kernels.
 
 from .flash_attention import flash_attention, flash_attention_bwd, flash_attention_lse
 from .fused_adam import fused_adamw_update
-from .fused_decode import fused_mlp, fused_paged_decode_attention, fused_qkv_rope
+from .fused_decode import fused_mlp, fused_mlp_quant, fused_paged_decode_attention, fused_qkv_rope
 from .paged_attention import paged_decode_attention, paged_extend_attention
+from .quant_matmul import QuantizedMatrix, quant_matmul, quantize_weight
 from .rmsnorm import rmsnorm
 
 #: the wrappers whose kernels the serving and training paths launch, by
@@ -20,6 +21,8 @@ KERNEL_WRAPPERS = {
     "fused_qkv_rope": fused_qkv_rope,
     "fused_paged_decode_attention": fused_paged_decode_attention,
     "fused_mlp": fused_mlp,
+    "fused_mlp_quant": fused_mlp_quant,
+    "quant_matmul": quant_matmul,
     "flash_attention": flash_attention,
     "flash_attention_bwd": flash_attention_bwd,
     "fused_adamw": fused_adamw_update,
@@ -35,7 +38,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNEL_WRAPPERS", "flash_attention", "flash_attention_bwd", "flash_attention_lse",
-           "fused_adamw_update", "fused_mlp", "fused_paged_decode_attention", "fused_qkv_rope",
-           "launch_counts", "paged_decode_attention", "paged_extend_attention",
+__all__ = ["KERNEL_WRAPPERS", "QuantizedMatrix", "flash_attention", "flash_attention_bwd",
+           "flash_attention_lse", "fused_adamw_update", "fused_mlp", "fused_mlp_quant",
+           "fused_paged_decode_attention", "fused_qkv_rope", "launch_counts",
+           "paged_decode_attention", "paged_extend_attention", "quant_matmul", "quantize_weight",
            "reset_launch_counts", "rmsnorm"]

@@ -1,13 +1,15 @@
 // The fused decode layer for Hopper (sm_90a): QKV projection + RoPE (+ the
-// pool append, when a pool is given), split-K paged flash-decode, and RMSNorm + SwiGLU MLP + residual,
-// behind a plain C interface loaded with ctypes (ops/_build.py builds this
-// file with nvcc at first use). Each C entry point launches all of its
-// kernels on the caller's stream and returns cudaGetLastError().
+// pool append, when a pool is given), split-K paged flash-decode, and RMSNorm + SwiGLU MLP + residual
+// over bf16 or quantized weights, behind a plain C interface loaded with
+// ctypes (ops/_build.py builds this file with nvcc at first use). Each C
+// entry point launches all of its kernels on the caller's stream and
+// returns cudaGetLastError().
 //
 // Replaces the TPU kernels
 //   shuffle_exchange_tpu/ops/fused_decode.py:fused_qkv_rope_pallas
 //   shuffle_exchange_tpu/ops/fused_decode.py:fused_paged_decode_attention_pallas
 //   shuffle_exchange_tpu/ops/fused_decode.py:fused_mlp_pallas
+//   shuffle_exchange_tpu/ops/fused_decode.py:fused_mlp_quant_pallas
 //
 // Layouts (all contiguous, bf16 unless noted):
 //   y, resid      [B, D] activation rows (one token per sequence)
@@ -54,12 +56,24 @@
 // in f32, rounds a = silu(g)*u to bf16, sums the down product in f32, adds
 // the residual in f32 and casts once. Tensor-core MMA, TMA and pipelining
 // are later work.
+//
+// The quantized MLP (int8 / packed int4 / e4m3 weights with f32 scales per
+// (K-group, column), the storage of ops/quant_matmul.py) keeps that
+// structure: norm rows, the split GEMV over [w_gate | w_up], the SwiGLU
+// epilogue, the split GEMV over w_down, the residual epilogue. Its GEMV
+// (quant_gemv.cuh) reads the weights at storage width and dequantizes them
+// in registers as q * s in f32, which is the JAX kernel's rounding point:
+// its weight blocks stay f32 and dot(bf16, f32) promotes, so only yn and a
+// are rounded to bf16. A split covers whole scale groups. Its bound at 8
+// rows of Llama-3-8B is the weight bytes: 176.2 MB of int8 and 2.8 MB of
+// scales at group 256, 53.4 us (int4 and its scales: 27.1 us).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "paged_tile.cuh"   // TK, kNeg, load_kv_tile, bf16x8_to_float
+#include "quant_gemv.cuh"   // formats, the quantized split-K GEMV
 
 namespace {
 
@@ -552,6 +566,48 @@ int sxt_fused_mlp_bf16(const void* resid, const void* y, const void* ln_w, const
         p2, s2, nb, D, static_cast<const __nv_bfloat16*>(resid) + size_t(b0) * D,
         static_cast<__nv_bfloat16*>(out) + size_t(b0) * D);
     const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// RMSNorm + SwiGLU MLP + residual over quantized weights of format fmt (0
+// int8, 1 packed int4, 2 e4m3) and group size gs: q* the storage, s* the
+// f32 scales [K/gs, N]. Workspaces as sxt_fused_mlp_bf16; each split chunk
+// is whole scale groups.
+int sxt_fused_mlp_quant_bf16(const void* resid, const void* y, const void* ln_w, const void* qg,
+                             const void* sg, const void* qu, const void* su, const void* qd,
+                             const void* sd, void* out, void* yn, void* a, void* part1,
+                             void* part2, int B, int D, int F, int gs, int fmt, int s1,
+                             int chunk1, int s2, int chunk2, float eps, void* stream) {
+  if (B <= 0) return 0;
+  if (gs % 32 || D % 16 || F % 16 || fmt < 0 || fmt > 2 || bad_qsplit(D, gs, s1, chunk1) ||
+      bad_qsplit(F, gs, s2, chunk2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const QMats up = make_qmats(qg, sg, F, qu, su, F);
+  const QMats down = make_qmats(qd, sd, D, nullptr, nullptr, 0);
+  auto* ynp = static_cast<__nv_bfloat16*>(yn);
+  auto* ap = static_cast<__nv_bfloat16*>(a);
+  auto* p1 = static_cast<float*>(part1);
+  auto* p2 = static_cast<float*>(part2);
+  for (int b0 = 0; b0 < B; b0 += kMaxRows) {
+    const int nb = B - b0 < kMaxRows ? B - b0 : kMaxRows;
+    norm_rows_kernel<<<nb, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(y) + size_t(b0) * D,
+        static_cast<const __nv_bfloat16*>(ln_w), ynp, D, eps);
+    cudaError_t err = launch_quant_gemv<false>(fmt, dim3(up.tiles[0] + up.tiles[1], s1), s, ynp,
+                                               nb, D, gs, chunk1, up, 2 * F, p1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    swiglu_epilogue_kernel<<<(nb * F + kThreads - 1) / kThreads, kThreads, 0, s>>>(p1, s1, nb,
+                                                                                  F, ap);
+    err = launch_quant_gemv<false>(fmt, dim3(down.tiles[0], s2), s, ap, nb, F, gs, chunk2, down,
+                                   D, p2);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    residual_epilogue_kernel<<<(nb * D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        p2, s2, nb, D, static_cast<const __nv_bfloat16*>(resid) + size_t(b0) * D,
+        static_cast<__nv_bfloat16*>(out) + size_t(b0) * D);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

@@ -9,7 +9,10 @@ Replaces the TPU kernels of ``shuffle_exchange_tpu/ops/fused_decode.py``:
   engine);
 - ``fused_paged_decode_attention_pallas``: split-K flash-decode over the
   block table with an (m, l, acc) merge;
-- ``fused_mlp_pallas``: RMSNorm + SwiGLU MLP + residual.
+- ``fused_mlp_pallas``: RMSNorm + SwiGLU MLP + residual;
+- ``fused_mlp_quant_pallas``: the same over int8 / packed-int4 / e4m3
+  weights (``QuantizedMatrix``, ``ops/quant_matmul.py``), which
+  ``fused_mlp`` dispatches to, as the JAX wrapper does.
 
 The kernels live in ``ops/csrc/fused_decode.cu`` (whose header says what
 bounds them on the H100 and how their design answers it); ``_build``
@@ -22,8 +25,10 @@ The plain versions keep the TPU kernels' rounding points: QKV sums in f32,
 RoPE in f32 and one cast; attention with q scaled in f32, f32 softmax
 weights (not rounded to the cache dtype) and the split merge; the MLP with
 yn and a = silu(g)*u rounded to the activation dtype and the residual added
-in f32. In this slice the kernels take bf16 weights and pools without
-biases, ALiBi or scale planes; those raise, naming the ROADMAP item.
+in f32; the quantized MLP dequantizes its weights to f32 (the JAX
+kernel's ``dot(bf16, f32)`` promotes) and rounds at the same points. The
+kernels take bf16 activations and pools without biases, ALiBi or scale
+planes; those raise, naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch.nn.functional as F
 
 from .dispatch import use_kernel
 from .paged_attention import gather_kv
+from .quant_matmul import QuantizedMatrix, check_storage, quant_splits
 
 _NEG = -1e30     # the TPU kernels' finite mask sentinel
 
@@ -136,6 +142,36 @@ def fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1
     return (resid.float() + a @ w_down.float()).to(resid.dtype)
 
 
+def fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1e-5):
+    """:func:`fused_mlp_reference` over ``QuantizedMatrix`` weights
+    dequantized to f32 (not rounded to the activation dtype): the JAX
+    quantized kernel's rounding points."""
+    f32 = torch.float32
+    return fused_mlp_reference(resid, y_src, ln_w, w_up.dequantize(f32), w_down.dequantize(f32),
+                               w_gate.dequantize(f32), eps)
+
+
+def mlp_weights_fusable(w_up, w_down, w_gate=None) -> Optional[str]:
+    """None when the fused MLP kernels can take these weights (all dense,
+    or all quantized alike); otherwise the reason, in the JAX package's
+    words."""
+    ws = [w for w in (w_gate, w_up, w_down) if w is not None]
+    quant = [isinstance(w, QuantizedMatrix) for w in ws]
+    if not any(quant):
+        return None
+    if not all(quant):
+        return "mixed dense/quantized MLP weights"
+    gs, bits = ws[0].group_size, ws[0].bits
+    if any(w.group_size != gs or w.bits != bits for w in ws):
+        return "mixed group_size/bits across MLP weights"
+    D, F_ = w_up.shape
+    if D % gs or F_ % gs:
+        return f"D={D}/F={F_} not multiples of quant group_size={gs}"
+    if bits == 4 and gs % 2:
+        return f"odd int4 group_size={gs}"
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -157,6 +193,9 @@ def fused_qkv_rope(y, wq, wk, wv, cos, sin, pool_k=None, pool_v=None, block_tabl
     no pool row is written (the dense-cache engine's form). The CUDA kernel
     on a CUDA tensor, the plain version on a CPU tensor."""
     _refuse_biases("QKV", bq, bk, bv)
+    if any(isinstance(w, QuantizedMatrix) for w in (wq, wk, wv)):
+        raise ValueError("fused QKV: quantized attention weights take quant_matmul (the "
+                         "engines route them there, as the JAX engines do)")
     pooled = [a is not None for a in (pool_k, pool_v, block_table, pos)]
     if any(pooled) and not all(pooled):
         raise ValueError("fused QKV: pool_k, pool_v, block_table and pos go together "
@@ -199,15 +238,22 @@ def fused_paged_decode_attention(q, ck, cv, block_table, kv_len, *,
 fused_paged_decode_attention.launches = 0
 
 
+def _refuse_non_gated(w_gate) -> None:
+    if w_gate is None:
+        raise NotImplementedError("the non-gated fused MLP is not ported yet: ROADMAP "
+                                  "queue A, item 4")
+
+
 def fused_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, *, eps: float = 1e-5,
               b_up=None, b_down=None):
     """``resid + mlp(RMSNorm(y_src))`` for one token per sequence: resid /
     y_src [B, D], ln_w [D], w_gate / w_up [D, F], w_down [F, D], SwiGLU.
-    The CUDA kernels on a CUDA tensor, the plain version on a CPU tensor."""
+    ``QuantizedMatrix`` weights go to :func:`fused_mlp_quant`. The CUDA
+    kernels on a CUDA tensor, the plain version on a CPU tensor."""
     _refuse_biases("MLP", b_up, b_down)
-    if w_gate is None:
-        raise NotImplementedError("the non-gated fused MLP is not ported yet: ROADMAP "
-                                  "queue A, item 4")
+    _refuse_non_gated(w_gate)
+    if any(isinstance(w, QuantizedMatrix) for w in (w_gate, w_up, w_down)):
+        return fused_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps=eps)
     if not use_kernel(resid):
         return fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps)
     out = _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps)
@@ -216,6 +262,28 @@ def fused_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, *, eps: float = 1e-5,
 
 
 fused_mlp.launches = 0
+
+
+def fused_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, *, eps: float = 1e-5):
+    """:func:`fused_mlp` over ``QuantizedMatrix`` weights sharing one format
+    and group size, the weights read at storage width and dequantized in
+    registers. Weights the kernel cannot take raise, with the reason of
+    :func:`mlp_weights_fusable`. The CUDA kernels on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    _refuse_non_gated(w_gate)
+    reason = mlp_weights_fusable(w_up, w_down, w_gate)
+    if reason is None and not isinstance(w_up, QuantizedMatrix):
+        reason = "dense MLP weights (they take fused_mlp's bf16 kernel)"
+    if reason is not None:
+        raise ValueError(f"fused quantized MLP: {reason}")
+    if not use_kernel(resid):
+        return fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps)
+    out = _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps)
+    fused_mlp_quant.launches += 1
+    return out
+
+
+fused_mlp_quant.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +297,7 @@ _SIGNATURES = {
     "sxt_fused_qkv_rope_bf16": [_P] * 14 + [_I] * 9 + [_P],
     "sxt_fused_paged_decode_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
     "sxt_fused_mlp_bf16": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "sxt_fused_mlp_quant_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
 }
 _LIB = []
 
@@ -413,6 +482,38 @@ def _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps):
     return out
 
 
-__all__ = ["fused_mlp", "fused_mlp_reference", "fused_paged_decode_attention",
-           "fused_paged_decode_reference", "fused_qkv_rope", "fused_qkv_rope_reference",
-           "gemv_splits", "attention_splits", "split_count", "rope_heads"]
+def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps):
+    dev = resid.device
+    B, D = resid.shape
+    Fd = w_up.shape[1]
+    _bf16("resid", resid, dev)
+    _bf16("y_src", y_src, dev, (B, D))
+    _bf16("ln_w", ln_w, dev, (D,))
+    fmt = check_storage("fused quantized MLP kernel: w_gate", w_gate, dev, D, Fd)
+    check_storage("fused quantized MLP kernel: w_up", w_up, dev, D, Fd)
+    check_storage("fused quantized MLP kernel: w_down", w_down, dev, Fd, D)
+    gs = w_up.group_size
+    rows = min(B, GEMV_ROWS)
+    sms = _sms(dev)
+    s1, c1 = quant_splits(D, gs, (Fd, Fd), sms)
+    s2, c2 = quant_splits(Fd, gs, (D,), sms)
+    out = torch.empty_like(resid)
+    yn = torch.empty(rows, D, device=dev, dtype=resid.dtype)
+    a = torch.empty(rows, Fd, device=dev, dtype=resid.dtype)
+    part1 = torch.empty(s1, rows, 2 * Fd, device=dev, dtype=torch.float32)
+    part2 = torch.empty(s2, rows, D, device=dev, dtype=torch.float32)
+    lib = _lib()
+    err = lib.sxt_fused_mlp_quant_bf16(
+        resid.data_ptr(), y_src.data_ptr(), ln_w.data_ptr(), w_gate.q.data_ptr(),
+        w_gate.scales.data_ptr(), w_up.q.data_ptr(), w_up.scales.data_ptr(),
+        w_down.q.data_ptr(), w_down.scales.data_ptr(), out.data_ptr(), yn.data_ptr(),
+        a.data_ptr(), part1.data_ptr(), part2.data_ptr(), B, D, Fd, gs, fmt, s1, c1, s2, c2,
+        float(eps), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, "quantized MLP")
+    return out
+
+
+__all__ = ["fused_mlp", "fused_mlp_quant", "fused_mlp_quant_reference", "fused_mlp_reference",
+           "fused_paged_decode_attention", "fused_paged_decode_reference", "fused_qkv_rope",
+           "fused_qkv_rope_reference", "gemv_splits", "attention_splits", "mlp_weights_fusable",
+           "split_count", "rope_heads"]

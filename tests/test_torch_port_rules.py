@@ -119,7 +119,8 @@ def _v1_engine(**cfg):
 @pytest.mark.parametrize("what,item", [
     ("config-temperature", "item 3"), ("config-top_k", "item 3"), ("config-top_p", "item 3"),
     ("generate-temperature", "item 3"), ("generate-rng", "item 3"),
-    ("tensor_parallel", "item 12"), ("quantize_weights", "item 8"), ("hf-path", "item 14"),
+    ("tensor_parallel", "item 12"), ("quantize_weights-moe", "item 9"),
+    ("quantize_weights-lora", "item 10"), ("hf-path", "item 14"),
     ("hf-object", "item 14"), ("checkpoint", "item 7"), ("forward", "item 4")])
 def test_v1_refusals_name_their_roadmap_item(what, item):
     model, params, eng = _v1_engine()
@@ -130,7 +131,10 @@ def test_v1_refusals_name_their_roadmap_item(what, item):
         "generate-temperature": lambda: eng.generate([[1, 2]], temperature=0.5),
         "generate-rng": lambda: eng.generate([[1, 2]], rng=torch.Generator()),
         "tensor_parallel": lambda: init_inference(model, params, {"tensor_parallel": 2}),
-        "quantize_weights": lambda: init_inference(model, params, {"quantize_weights": True}),
+        "quantize_weights-moe": lambda: init_inference(_moe(model), params,
+                                                       {"quantize_weights": True}, device="cpu"),
+        "quantize_weights-lora": lambda: init_inference(
+            model, params, {"quantize_weights": True, "adapters": {"enabled": True}}),
         "hf-path": lambda: init_inference("meta-llama/Meta-Llama-3-8B", params, {}),
         "hf-object": lambda: init_inference(torch.nn.Linear(2, 2), params, {}),
         "checkpoint": lambda: init_inference(model, params, {}, checkpoint="ckpt"),
@@ -138,6 +142,15 @@ def test_v1_refusals_name_their_roadmap_item(what, item):
     }
     with pytest.raises((ConfigError, NotImplementedError), match=f"ROADMAP queue A, {item}"):
         calls[what]()
+
+
+def _moe(model):
+    """The model with an MoE config swapped in (the port's Transformer
+    refuses to build one), so the engine meets MoE weights to quantize."""
+    moe = Transformer(tiny(**LLAMA), device="cpu")
+    moe.load_params(model.params())
+    moe.config = dataclasses.replace(model.config, n_experts=2)
+    return moe
 
 
 def test_v1_greedy_generate_on_the_cpu_engine():
@@ -218,7 +231,7 @@ def test_unported_config_keys_raise_naming_the_roadmap(d):
 
 @pytest.mark.parametrize("d", [
     {"decode_kernel": "cuda"}, {"dtype": "int4"}, {"max_seq_len": 0},
-    {"num_kv_blocks": 0}, {"quantize_weights": True}, {"prefix_caching": "yes"},
+    {"num_kv_blocks": 0}, {"quant_bits": 3}, {"prefix_caching": "yes"},
     {"serving": {"token_budget": 0}}, {"serving": {"max_running": 9, "token_budget": 8}},
     {"serving": {"chunk_min": 300}}, {"serving": {"chunk_bins": ["x"]}},
     {"serving": {"bogus": 1}},
@@ -232,7 +245,7 @@ def test_config_defaults_equal_the_jax_package():
     names = ("dtype", "max_batch_size", "max_seq_len", "decode_kernel", "kv_block_size",
              "num_kv_blocks", "kv_cache_dtype", "prefix_caching", "tensor_parallel",
              "max_new_tokens", "eos_token_id", "pad_token_id", "temperature", "top_k",
-             "top_p", "quantize_weights")
+             "top_p", "quantize_weights", "quant_bits", "quant_group_size")
     port, ref = InferenceConfig(), JConfig()
     assert {n: getattr(port, n) for n in names} == {n: getattr(ref, n) for n in names}
     for f in dataclasses.fields(ServingConfig):
@@ -310,6 +323,14 @@ def test_ast_rule_covers_the_training_modules():
             "runtime/optimizers.py", "runtime/lr_schedules.py", "runtime/loss_scaler.py",
             "ops/fused_adam.py", "ops/flash_attention.py", "models/convert.py"} <= files
     for f in ("ops/csrc/fused_adam.cu", "ops/csrc/flash_attention.cu"):
+        assert (PORT / f).exists()
+
+
+def test_ast_rule_covers_the_quantized_serving_modules():
+    files = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    assert {"ops/quant.py", "ops/quant_matmul.py", "ops/fused_decode.py",
+            "models/convert.py", "inference/engine.py"} <= files
+    for f in ("ops/csrc/quant_matmul.cu", "ops/csrc/quant_gemv.cuh"):
         assert (PORT / f).exists()
 
 
