@@ -8,10 +8,10 @@ Run from the repository root, with one CUDA card:
 It never imports JAX or the JAX package, and every failure ends it with a
 non-zero exit code. The phases:
 
-1. Build: ``nvcc`` compiles the five CUDA sources (paged attention, the
-   fused decode layer, flash attention, fused AdamW and the quantized
-   matmul) into ``build/`` at once, one process each, and the Triton
-   RMSNorm kernel compiles at its first launch.
+1. Build: ``nvcc`` compiles the six CUDA sources (paged attention, the
+   fused decode layer, flash attention, fused AdamW, the quantized matmul
+   and the grouped GEMM) into ``build/`` at once, one process each, and
+   the Triton RMSNorm kernel compiles at its first launch.
 2. Kernels: each kernel and its plain PyTorch version run in bf16 on the
    card at the shapes the serving and training paths give it (RMSNorm at
    both); the errors are held to stated
@@ -25,7 +25,11 @@ non-zero exit code. The phases:
    flash forward's out and log-sum-exp at the training shapes, the flash
    backward and fused AdamW, phase 2e for the quantized serving kernels:
    the quantized matmul for int8, int4 and fp8 storage on Llama-3-8B's
-   matrices from 1 to 8192 rows, and the quantized fused MLP.
+   matrices from 1 to 8192 rows, and the quantized fused MLP, phase 2f
+   for the MoE experts' grouped GEMM: bf16, int8 and fp8 stacks of 8
+   experts on Mixtral's two expert shapes, 2 to 16,384 rows in four
+   group patterns (balanced, one expert, empty first and last experts,
+   ragged).
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
    Llama-3-8B at full width and depth with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
@@ -41,6 +45,14 @@ non-zero exit code. The phases:
    weights on the card), then int8 ``put()`` + ``decode_loop`` and the int8
    v1 ``generate``, their launch counters held the same way, and the weight
    bytes against bf16.
+3e. Mixtral-8x7B at full width and depth on the same card, its experts and
+   attention matrices in int8 storage made from a seed (47.7 GB): a serve
+   with ``serving.moe.moe_impl`` "ragged" and one with "auto" (the
+   capacity route), ``put()`` + ``decode_loop`` against the single-token
+   ``put()`` loop and the v1 ``generate``, every engine over the one
+   weight set, the launch counters held the same way (three grouped-GEMM
+   launches a layer of every program) and a profiled serve. It runs after
+   phase 4, once the Llama-3-8B weights are freed, and before training.
 4. End to end: the same weights cut to depth 2 on the card (bf16), with
    "auto" and with "xla", and on the CPU (the plain path in f32) run a
    teacher-forced ``step()`` schedule, a ``put()`` schedule (a cold
@@ -48,7 +60,10 @@ non-zero exit code. The phases:
    prefill and decode steps; all logits must agree within a stated
    tolerance. Then the ``step()`` and ``put()`` schedules of a quantized
    engine of each format against the CPU f32 engine fed the weights it
-   serves.
+   serves. After 3e: Mixtral cut to depth 2, int8 and fp8, its ``step()``
+   and ``put()`` schedules against the CPU f32 engine fed the card's
+   weights dequantized and routed as the card routed; routing flips are
+   reported with their router-logit gaps.
 5. Train: ``initialize`` + ``Engine.train_batch`` on the largest entry of
    the Llama training ladder whose state fits the card (``llama3-1b-style``
    on 80 GB), full depth, bf16, FusedAdam, full remat, batch 32 x 1024, one
@@ -1197,6 +1212,163 @@ def check_fused_mlp_quant(gen):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2f: the grouped GEMM of the MoE experts (B16)
+# ---------------------------------------------------------------------------
+
+GG_FORMATS = ("bf16", 8, "fp8")
+# Mixtral-8x7B's expert matrices (K, F): w_gate / w_up, w_down; 8 experts
+GG_SHAPES = [(4096, 14336), (14336, 4096)]
+GG_E = 8
+# a decode tick's rows at 1 and 8 sequences x top-2, a tick's 256 chunk
+# rows x top-2, and a put() of 8 prompts of 1024 x top-2
+GG_ROWS = [2, 16, 512, 16384]
+GG_PATTERNS = ("balanced", "one_expert", "empty_ends", "ragged")
+
+
+def group_pattern(pattern, N, E, rng):
+    """Group sizes [E] summing to N: ``balanced`` (N // E each, the rest
+    on the first experts), ``one_expert`` (all rows on expert 3),
+    ``empty_ends`` (experts 0 and E - 1 empty, the rows spread at random
+    over the others) or ``ragged`` (spread at random over all)."""
+    if pattern == "balanced":
+        sizes = np.full(E, N // E)
+        sizes[:N % E] += 1
+    elif pattern == "one_expert":
+        sizes = np.zeros(E, np.int64)
+        sizes[3] = N
+    elif pattern == "empty_ends":
+        sizes = np.zeros(E, np.int64)
+        sizes[1:E - 1] = rng.multinomial(N, np.full(E - 2, 1 / (E - 2)))
+    else:
+        sizes = rng.multinomial(N, rng.dirichlet(np.ones(E)))
+    return sizes.astype(np.int32)
+
+
+def _moved_boundary(sizes):
+    """Broken group sizes (numpy in, numpy out): the first row of the
+    second non-empty group handed to the first."""
+    bad = sizes.copy()
+    g, h = np.flatnonzero(bad)[:2]
+    bad[g] += 1
+    bad[h] -= 1
+    return bad
+
+
+def _shifted_expert_scales(qm):
+    """A broken expert stack: every scale row moved down one group along K."""
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import QuantizedMatrix
+
+    return QuantizedMatrix(qm.q, qm.scales.roll(1, -2), qm.group_size, qm.dtype, qm.bits,
+                           qm.n_cols)
+
+
+def _library_grouped(x, w, sizes):
+    """(callable, name) of the library yardstick: ``torch._grouped_mm``
+    over the bf16 stack where this torch has it, else a per-expert cuBLAS
+    loop (group sizes read once on the host, outside the timing)."""
+    import torch
+
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        for form in (w, w.transpose(1, 2).contiguous().transpose(1, 2)):
+            try:
+                torch._grouped_mm(x, form, offs=offs, out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                return (lambda f=form: torch._grouped_mm(x, f, offs=offs,
+                                                         out_dtype=torch.bfloat16)), \
+                    "torch._grouped_mm"
+            except (RuntimeError, TypeError, ValueError):
+                continue
+    bounds = np.concatenate([[0], np.cumsum(sizes.tolist())])
+
+    def loop():
+        return [x[a:b] @ w[g] for g, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])) if b > a]
+
+    return loop, "per-expert cuBLAS loop"
+
+
+def check_grouped_gemm(gen, rng, timed=True):
+    """B16 against its plain version (a per-group loop of f32 products over
+    the weights as the kernel reads them) for bf16, int8 and fp8 expert
+    stacks at group 256, on Mixtral's two expert shapes with 8 experts, at
+    GG_ROWS rows in each of GG_PATTERNS. At each format's first 512-row
+    case a plain version that hands a boundary row to the neighbouring
+    expert, and (quantized) one with the scale rows shifted by one group,
+    must fail the tolerance, and two runs must give equal bits. With
+    ``timed``, every cell is timed beside its bound (the x rows, the bytes
+    of the experts that have rows, the output; 2 N K F operations), the
+    plain version and the library yardstick (dequantize + the library call
+    for the quantized stacks)."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops.grouped_gemm import (grouped_matmul,
+                                                             grouped_matmul_reference)
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import quantize_weight
+
+    rows = []
+    with _f32_reduction():
+        for K, F in GG_SHAPES:
+            w16 = (torch.randn(GG_E, K, F, generator=gen, device="cuda") * K ** -0.5).bfloat16()
+            for fmt in GG_FORMATS:
+                w = w16 if fmt == "bf16" else quantize_weight(w16, 256, bits=fmt)
+                expert_bytes = w.nbytes / GG_E if fmt != "bf16" else K * F * 2
+                for N in GG_ROWS:
+                    x = torch.randn(N, K, generator=gen, device="cuda").bfloat16()
+                    for pattern in GG_PATTERNS:
+                        sizes_np = group_pattern(pattern, N, GG_E, rng)
+                        sizes = torch.from_numpy(sizes_np).cuda()
+                        run = lambda: grouped_matmul(x, w, sizes)
+                        plain = lambda: grouped_matmul_reference(x, w, sizes)
+                        got, want = run(), plain()
+                        torch.cuda.synchronize()
+                        err, tol_ok = paged_close(got, want)
+                        row = dict(shape=dict(N=N, K=K, F=F, E=GG_E, fmt=str(fmt),
+                                              groups=pattern, sizes=sizes_np.tolist()),
+                                   max_abs_err=err.max().item(),
+                                   max_rel_err=(err.max() / want.float().abs().max()).item(),
+                                   tolerance=PAGED_TOL + " per output row", within=tol_ok)
+                        _check(tol_ok, f"grouped matmul kernel disagrees with its plain version "
+                               f"at {row['shape']}: max abs err {row['max_abs_err']}")
+                        if N == 512 and pattern == "balanced" and not any(
+                                r["shape"]["fmt"] == str(fmt) and "tolerance_bites" in r
+                                for r in rows):
+                            bites = {"boundary_row_moved": _bites(got, grouped_matmul_reference(
+                                x, w, torch.from_numpy(_moved_boundary(sizes_np)).cuda()))}
+                            if fmt != "bf16":
+                                bites["scales_shifted"] = _bites(got, grouped_matmul_reference(
+                                    x, _shifted_expert_scales(w), sizes))
+                            row["tolerance_bites"] = bites
+                            row["equal_bits_twice"] = torch.equal(got, run())
+                            _check(all(bites.values()), f"the grouped matmul tolerance does not "
+                                   f"catch a broken plain version: {bites}")
+                            _check(row["equal_bits_twice"], "two runs of the grouped matmul "
+                                   "differ")
+                        if timed:
+                            used = int((sizes_np > 0).sum())
+                            nbytes = N * K * 2 + used * expert_bytes + N * F * 2
+                            b_ms, b_by = bound(nbytes, 2.0 * N * K * F)
+                            lib, lib_name = _library_grouped(x, w16, sizes)
+                            if fmt != "bf16":
+                                lib_q = lib
+                                lib = lambda: (w.dequantize(), lib_q())
+                                lib_name = "dequantize() + " + lib_name
+                            iters = 5 if N > 1024 else 10
+                            row.update(ms=time_cold(run, iters), host_us=host_us(run),
+                                       plain_ms=time_cold(plain, 2), library_ms=time_cold(lib, 3),
+                                       library=lib_name, bound_ms=b_ms, bound_by=b_by)
+                            row["gbytes_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+                            row["tflops"] = 2.0 * N * K * F / (row["ms"] * 1e-3) / 1e12
+                        rows.append(row)
+                        del got, want, err
+                    del x
+                del w
+                torch.cuda.empty_cache()
+            del w16
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serve Llama-3-8B through the scheduler
 # ---------------------------------------------------------------------------
 
@@ -1244,6 +1416,9 @@ def _kernel_kind(name: str) -> str:
     for key, kind in (("flash_fwd_kernel", "flash_attention"),
                       ("flash_bwd_", "flash_attention_bwd"),
                       ("fused_adamw_kernel", "fused_adamw"),
+                      ("grouped_gemv_kernel", "grouped_matmul (B16 decode rows)"),
+                      ("grouped_out_kernel", "grouped_matmul (B16 decode rows)"),
+                      ("grouped_mma_kernel", "grouped_matmul (B16 tensor-core form)"),
                       ("gemv_partial_kernel", "fused_gemv (qkv + mlp products)"),
                       ("quant_gemv_kernel", "quant_gemv (B8 decode rows + B7 products)"),
                       ("quant_mma_kernel", "quant_matmul (tensor-core form)"),
@@ -1351,7 +1526,9 @@ def expected_launches(eng, n_layers, loop_steps=0):
     chunk and prefill rows is the quantized matmul (7 a layer); fused
     decode rows take it for q, k, v and wo, the split-K attention and the
     quantized fused MLP (the fused QKV kernel steps aside), unfused ones 7
-    a layer."""
+    a layer. An MoE model's FFN runs three grouped-GEMM launches a layer on
+    every row kind and never fuses (ln2 is its own RMSNorm); quantized,
+    only q, k, v and wo take the quantized matmul."""
     by = eng.dispatches_by_program
     L = n_layers
     dec = by.get("decode", 0) + by.get("mixed", 0) + loop_steps
@@ -1359,14 +1536,22 @@ def expected_launches(eng, n_layers, loop_steps=0):
     pre = by.get("prefill", 0)
     fused = eng._decode_kernel == "pallas"
     quant = eng.config.quantize_weights
-    out = {"rmsnorm": (2 * L + 1) * (ext + pre) + (L + 1 if fused else 2 * L + 1) * dec,
+    moe = eng._mcfg.n_experts > 0
+    fused_mlp = fused and not moe
+    out = {"rmsnorm": (2 * L + 1) * (ext + pre) + (L + 1 if fused_mlp else 2 * L + 1) * dec,
            "paged_decode_attention": 0 if fused else L * dec,
            "paged_extend_attention": L * ext, "flash_attention": L * pre,
-           "fused_paged_decode_attention": L * dec if fused else 0}
-    for name in ("fused_qkv_rope", "fused_mlp"):
-        out[name] = L * dec if fused and not quant else 0
-    out["fused_mlp_quant"] = L * dec if fused and quant else 0
-    out["quant_matmul"] = ((4 if fused else 7) * L * dec + 7 * L * (ext + pre)) if quant else 0
+           "fused_paged_decode_attention": L * dec if fused else 0,
+           "fused_qkv_rope": L * dec if fused and not quant else 0,
+           "fused_mlp": L * dec if fused_mlp and not quant else 0,
+           "fused_mlp_quant": L * dec if fused_mlp and quant else 0,
+           "grouped_matmul": 3 * L * (dec + ext + pre) if moe else 0}
+    if not quant:
+        out["quant_matmul"] = 0
+    elif moe:
+        out["quant_matmul"] = 4 * L * (dec + ext + pre)
+    else:
+        out["quant_matmul"] = (4 if fused else 7) * L * dec + 7 * L * (ext + pre)
     out.update(flash_attention_bwd=0, fused_adamw=0)     # the training step's
     return out
 
@@ -1409,6 +1594,8 @@ def counted_serve(model, params, rng, config, n_layers, card, label=None):
           f"tok/s={stats['sustained_tokens_per_sec']} ttft_p50_s={stats['ttft_p50_s']} "
           f"tpot_p50_s={stats['tpot_p50_s']} launches={launches} "
           f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f} on {card}", flush=True)
+    if stats["moe"] is not None:
+        print(f"[serve {label}] moe: {json.dumps(stats['moe'])}", flush=True)
     print(f"[serve {label}] host ms per tick by program: {json.dumps(tick_ms)}", flush=True)
     return dict(stats, seconds=seconds, init_s=init_s, launches=launches,
                 resolved=eng._decode_kernel,
@@ -1469,6 +1656,8 @@ def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG,
            f"put/decode_loop programs {sorted(eng.program_shapes)}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     programs = sorted(eng.program_shapes)
+    moe = (dict(dispatched=eng.moe_dispatched, dropped=eng.moe_dropped,
+                expert_load_max=eng.moe_expert_load_max) if eng._moe_serving else None)
     del eng
 
     ref = InferenceEngineV2(model, params, InferenceConfig(**config))
@@ -1487,13 +1676,13 @@ def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG,
                prefill_tokens_per_s=n_tok / prefill_s,
                decode_loop_ms_per_step=loop_s * 1e3 / LOOP_STEPS,
                decode_loop_tokens_per_s=len(uids) * LOOP_STEPS / loop_s, launches=launches,
-               programs=programs, equal_to_put_loop=True, tokens=toks.tolist())
+               programs=programs, equal_to_put_loop=True, tokens=toks.tolist(), moe=moe)
     print(f"[{label}] {len(uids)} prompts, {n_tok} tokens: prefill {out['prefill_ms']:.1f} ms "
           f"({out['prefill_tokens_per_s']:.0f} tok/s); decode_loop {LOOP_STEPS} steps "
           f"{out['decode_loop_ms_per_step']:.2f} ms/step "
           f"({out['decode_loop_tokens_per_s']:.1f} tok/s); tokens equal to {LOOP_STEPS} "
-          f"single-token put() calls; launches={launches}; peak_mem_GiB={peak:.2f} on {card}",
-          flush=True)
+          f"single-token put() calls; launches={launches}; peak_mem_GiB={peak:.2f}"
+          f"{'' if moe is None else f'; moe={json.dumps(moe)}'} on {card}", flush=True)
     return out
 
 
@@ -1546,11 +1735,20 @@ def v1_generate(model, params, prompts, n_layers, card, max_new=LOOP_STEPS + 1,
            f"v1 generate tokens {out.shape} out of shape or range")
     L, steps = n_layers, max_new - 1
     want = {k: 0 for k in launches}
-    want.update(flash_attention=L, rmsnorm=(2 * L + 1) + (L + 1) * steps)
-    if eng.config.quantize_weights:
-        want.update(quant_matmul=7 * L + 4 * L * steps, fused_mlp_quant=L * steps)
+    quant = eng.config.quantize_weights
+    if eng._mcfg.n_experts:     # the MoE FFN: three grouped GEMMs a layer, no fused MLP
+        want.update(flash_attention=L, rmsnorm=(2 * L + 1) * (1 + steps),
+                    grouped_matmul=3 * L * (1 + steps))
+        if quant:
+            want.update(quant_matmul=4 * L * (1 + steps))
+        else:
+            want.update(fused_qkv_rope=L * steps)
+    elif quant:
+        want.update(flash_attention=L, rmsnorm=(2 * L + 1) + (L + 1) * steps,
+                    quant_matmul=7 * L + 4 * L * steps, fused_mlp_quant=L * steps)
     else:
-        want.update(fused_qkv_rope=L * steps, fused_mlp=L * steps)
+        want.update(flash_attention=L, rmsnorm=(2 * L + 1) + (L + 1) * steps,
+                    fused_qkv_rope=L * steps, fused_mlp=L * steps)
     _check(launches == want, f"v1 generate launch counts {launches} != implied {want}")
     step_ms = (seconds - prefill_s) * 1e3 / steps
     print(f"[{label}] {len(prompts)} x {max_new} tokens from prompts padded to {T} in "
@@ -1617,6 +1815,151 @@ def quant_serving(model, params, prompts, n_layers, card, seed, bf16):
                                                          config=QUANT_SERVE[8])
     print(f"[trace put_decode_loop int8] {json.dumps(out['trace_put_decode_loop'])}", flush=True)
     free()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: Mixtral-8x7B MoE serving, int8 experts and attention matrices
+# ---------------------------------------------------------------------------
+
+MOE_SERVE = dict(SERVE_CONFIG, quantize_weights=True, quant_bits=8,
+                 serving=dict(SERVE_CONFIG["serving"], moe={"moe_impl": "ragged"}))
+MOE_AUTO = dict(MOE_SERVE, serving=dict(SERVE_CONFIG["serving"], moe={"moe_impl": "auto"}))
+
+
+def _seeded_storage(lead, K, N, std, gen, bits, device="cuda"):
+    """A ``[*lead, K, N]`` QuantizedMatrix made slice by slice on the card:
+    each ``[K, N]`` (one expert of one layer) drawn in bf16 from ``gen``
+    and quantized at once by the port's ``quantize_weight`` (the function
+    the engine's ``_quantize`` calls), so the bf16 stack never exists; the
+    bytes are those the engine would make from the same bf16 weights."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import QuantizedMatrix, quantize_weight
+
+    q = scales = qm = None
+    flat = int(np.prod(lead))
+    for i in range(flat):
+        w = (torch.randn(K, N, generator=gen, device=device) * std).bfloat16()
+        qm = quantize_weight(w, 256, dtype=torch.bfloat16, bits=bits)
+        if q is None:
+            q = torch.empty(flat, *qm.q.shape, dtype=qm.q.dtype, device=device)
+            scales = torch.empty(flat, *qm.scales.shape, dtype=torch.float32, device=device)
+        q[i], scales[i] = qm.q, qm.scales
+    return QuantizedMatrix(q.reshape(*lead, *q.shape[1:]),
+                           scales.reshape(*lead, *scales.shape[1:]), qm.group_size,
+                           torch.bfloat16, bits=bits, n_cols=N)
+
+
+def mixtral_params(cfg, gen, bits=8, device="cuda"):
+    """Seeded Mixtral-8x7B weights on the card with the JAX init's scales:
+    the four attention matrices and the three expert stacks as ``bits``
+    storage (``[L, K, N]`` and ``[L, E, K, N]``), the router, embedding,
+    unembedding and norms in bf16. Returns (params, seconds)."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.models import Transformer
+
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=device)
+    L, E, D, Fd = cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.ff_dim
+    KVD = cfg.kv_heads * cfg.head_dim
+    storage = {"layers.wq": ((L,), D, D), "layers.wk": ((L,), D, KVD),
+               "layers.wv": ((L,), D, KVD), "layers.wo": ((L,), D, D),
+               "layers.moe_w_gate": ((L, E), D, Fd), "layers.moe_w_up": ((L, E), D, Fd),
+               "layers.moe_w_down": ((L, E), Fd, D)}
+    params = {}
+    for name, shape in model.param_shapes().items():
+        scale = model._init_scale(name)
+        if name in storage:
+            lead, K, N = storage[name]
+            params[name] = _seeded_storage(lead, K, N, scale, gen, bits, device)
+        elif scale is None:
+            params[name] = torch.full(shape, 1.0 if name.endswith("_w") else 0.0,
+                                      dtype=torch.bfloat16, device=device)
+        else:
+            params[name] = (torch.randn(shape, generator=gen, device=device) * scale).bfloat16()
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def mixtral_serving(cfg, seed, card, device="cuda"):
+    """3e: Mixtral-8x7B at full width and depth on one card, int8 experts
+    and attention matrices: a counted ``serve()`` of the phase-3 requests
+    with ``serving.moe.moe_impl`` "ragged" and "auto" (the capacity
+    route), ``put()`` + ``decode_loop`` (tokens equal to the single-token
+    ``put()`` loop) and the v1 ``generate`` (the capacity route), every
+    engine over the one weight set, then a short profiled ragged serve.
+    ``device`` is for a rehearsal at a tiny size on the CPU."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
+    from shuffle_exchange_tpu_torch.models import Transformer
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    params, make_s = mixtral_params(cfg, gen, device=device)
+    model = Transformer(cfg, device=device)
+    nbytes = weight_bytes(params)
+    print(f"[mixtral] seeded {cfg.n_layers}-layer Mixtral-8x7B weights, int8 storage for the "
+          f"experts and attention matrices: {nbytes / 1e9:.3f} GB made in {make_s:.2f} s "
+          f"(peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB) on {card}", flush=True)
+    out = {"weight_bytes": nbytes, "weights_made_s": make_s, "serve": {}}
+    for label, config in (("ragged", MOE_SERVE), ("auto", MOE_AUTO)):
+        r = counted_serve(model, params, np.random.default_rng([seed, 1]), config,
+                          cfg.n_layers, card, label=f"mixtral {label}")
+        _check(r["moe"]["dispatched"] > 0, f"mixtral {label}: no expert assignment counted")
+        if label == "ragged":
+            _check(r["moe"]["dropped"] == 0, "the dropless route dropped assignments")
+        r["tokens"] = {int(u): t for u, t in r["tokens"].items()}
+        out["serve"][label] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = sum(out["serve"]["ragged"]["tokens"][u] == out["serve"]["auto"]["tokens"][u]
+               for u in out["serve"]["ragged"]["tokens"])
+    print(f"[mixtral] requests with equal tokens under ragged and auto (capacity drops, "
+          f"bf16): {same} of {N_PROMPTS}", flush=True)
+    prompts = loop_prompts(np.random.default_rng([seed, 5]), cfg.vocab_size)
+    out["put_decode_loop"] = put_decode_loop(model, params, prompts, cfg.n_layers, card,
+                                             config=MOE_SERVE, label="mixtral put")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["v1_generate"] = v1_generate(model, params, prompts, cfg.n_layers, card,
+                                     config=dict(V1_CONFIG, **_quant(8)),
+                                     label="mixtral v1 generate")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["trace"] = trace_serve(model, params, np.random.default_rng([seed, 4]), MOE_SERVE)
+    print(f"[trace mixtral ragged] {json.dumps(out['trace']) if out['trace'] else 'no device'}",
+          flush=True)
+    # the put() prefill and 8 decode_loop steps, profiled apart
+    eng = InferenceEngineV2(model, params, InferenceConfig(**MOE_SERVE))
+    uids = list(range(len(prompts)))
+    first = []
+    out["trace_prefill"] = profiled(
+        lambda: first.extend(int(t) for t in eng.put(uids, prompts).argmax(-1)), top_other=6)
+    out["trace_decode_loop"] = profiled(lambda: eng.decode_loop(uids, first, 8), top_other=6)
+    for what in ("trace_prefill", "trace_decode_loop"):
+        print(f"[{what} mixtral] {json.dumps(out[what]) if out[what] else 'no device'}",
+              flush=True)
+    del eng
+    out["peak_mem_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    weights = f"weights {nbytes / 1e9:.3f} GB made in {make_s:.2f} s"
+    for label, r in out["serve"].items():
+        print(f"[mixtral summary] serve {label}: {r['sustained_tokens_per_sec']:.2f} tok/s, "
+              f"TTFT p50 {r['ttft_p50_s']:.3f} s, TPOT p50 {r['tpot_p50_s'] * 1e3:.1f} ms, "
+              f"{weights}, moe {json.dumps(r['moe'])}", flush=True)
+    p = out["put_decode_loop"]
+    print(f"[mixtral summary] put + decode_loop: prefill {p['prefill_tokens_per_s']:.0f} tok/s, "
+          f"decode {p['decode_loop_tokens_per_s']:.1f} tok/s ({p['decode_loop_ms_per_step']:.1f} "
+          f"ms a step), {weights}, moe {json.dumps(p['moe'])}", flush=True)
+    v = out["v1_generate"]
+    print(f"[mixtral summary] v1 generate: {v['tokens_per_s']:.2f} tok/s, prefill "
+          f"{v['prefill_ms']:.1f} ms, {v['decode_step_ms']:.1f} ms a decode step, {weights} "
+          f"(the v1 engine keeps no routing counters, as in JAX)", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1700,11 +2043,11 @@ def _compare(got, want):
                 argmax_agree=float(np.mean(got.argmax(-1) == want.argmax(-1))))
 
 
-def put_schedule(rng, V):
+def put_schedule(rng, V, lengths=(200, 120, 60, 30)):
     """A cold batched prefill of four prompts, single-token extensions of
     all four, then a multi-token extension of two (70 tokens: two extend
     chunks of 64 and 6) beside one single."""
-    p = [rng.integers(1, V, size=n).tolist() for n in (200, 120, 60, 30)]
+    p = [rng.integers(1, V, size=n).tolist() for n in lengths]
     t = rng.integers(1, V, size=100).tolist()
     return [([0, 1, 2, 3], p),
             ([0, 1, 2, 3], [[x] for x in t[0:4]]),
@@ -1774,6 +2117,183 @@ def e2e_v1_check(cfg, card_state, rng, decode_kernels=("auto", "xla"), steps=4):
                                InferenceConfig(dtype="bfloat16", decode_kernel=dk,
                                                max_seq_len=512))
         out[dk] = [_compare(g, w) for g, w in zip(run(card), want)]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4, MoE: depth-2 Mixtral, int8 and fp8, against the CPU f32 engine
+# ---------------------------------------------------------------------------
+
+# A routing flip (a row whose top-2 experts differ between the card's bf16
+# engine and the CPU's f32 one) moves that row's FFN output by O(1), so the
+# logits are held where routing agrees: the CPU engine replays the card's
+# top-2 choices call by call (its gate weights still from its own f32
+# logits), and every row whose own choice differs is reported with the gap
+# between its 2nd and 3rd f32 router logits. The bf16 hidden state moves a
+# router logit by its rounding (random router weights give logits of unit
+# scale, ~1e-2 of noise after a layer); a flip needs two logits to cross,
+# so a flip whose gap exceeds twice the largest difference between the two
+# engines' router logits on its row cannot be noise: it is a fault (a
+# wrong top-k rule, a tie broken the other way, TF32 products).
+MOE_FLIP_RULE = "2nd-3rd f32 router-logit gap <= 2 x max |card - CPU router logit| of the row"
+MOE_E2E_CONFIG = dict(max_seq_len=512, kv_block_size=64, num_kv_blocks=24,
+                      serving={"token_budget": 256, "max_running": 8,
+                               "moe": {"moe_impl": "ragged", "overload_policy": "drop"}})
+
+
+def moe_e2e_schedule(rng, V):
+    """step() ticks at lengths the CPU's f32 experts (2.8 B parameters)
+    finish in seconds: two extend-only ticks, a mixed tick with a new uid,
+    two decode-only ticks."""
+    p = [rng.integers(1, V, size=n).tolist() for n in (100, 60, 30, 20)]
+    t = rng.integers(1, V, size=16).tolist()
+    return [([], [], [(0, p[0][:64]), (1, p[1][:40])]),
+            ([], [], [(0, p[0][64:]), (1, p[1][40:]), (2, p[2])]),
+            ([0, 1], t[0:2], [(3, p[3])]),
+            ([0, 1, 2, 3], t[2:6], []),
+            ([0, 1, 2, 3], t[6:10], [])]
+
+
+class RoutingReplay:
+    """Patches the port's one top-k rule (``moe.gating.topk_select``, also
+    bound in ``moe.layer``): while recording, each call's choices are kept
+    and logits (host copies); while replaying, each call returns the
+    recorded choices, with weights and masks from this call's own logits,
+    and notes (gap, router-logit difference) of every row whose own
+    choice differs. Rows are told apart as tokens of sequences or padding
+    (``watch``): padding rows attend over whatever the scratch block holds,
+    which differs between the two engines, so only the tokens' flips and
+    router logits are held to the rule; padding flips are counted."""
+
+    def __init__(self):
+        self.recorded, self.flips, self.calls, self.pending = [], [], 0, []
+        self.replaying, self.max_logit_delta, self.pad_flips = False, 0.0, 0
+
+    def watch(self, eng):
+        """Wrap ``eng``'s programs so that each routing call of theirs knows
+        which rows are tokens: a row whose block-table row starts with a
+        real block, at a position below its new-token count (one mask per
+        lane, per layer, in the order the layer runs its lanes)."""
+        import torch
+
+        L, scratch = eng._mcfg.n_layers, eng._scratch
+
+        def rows(tables, T=1, nnew=None):
+            real = tables[:, 0] != scratch
+            if nnew is None:
+                return real
+            return (real[:, None] & (torch.arange(T)[None, :] < nnew[:, None])).reshape(-1)
+
+        def wrap(name, lanes):
+            program = getattr(eng, name)
+
+            def run(*args):
+                self.pending += lanes(*args) * L
+                return program(*args)
+
+            setattr(eng, name, run)
+
+        wrap("_decode_program", lambda tok, pos, tables: [rows(tables)])
+        wrap("_extend_program", lambda ids, start, nnew, tables: [
+            rows(tables, ids.shape[1], nnew)])
+        wrap("_prefill_program", lambda ids, plen, tables: [rows(tables, ids.shape[1], plen)])
+        wrap("_mixed_program", lambda dtok, dpos, dtables, pids, pstart, pnnew, ptables: [
+            rows(dtables), rows(ptables, pids.shape[1], pnnew)])
+
+    def __enter__(self):
+        from shuffle_exchange_tpu_torch.moe import gating, layer
+
+        self._mods, self._orig = (gating, layer), gating.topk_select
+        for m in self._mods:
+            m.topk_select = self.select
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.topk_select = self._orig
+
+    def select(self, logits, k, normalize_weights=True, train=False, rng=None, noise_std=0.0):
+        import torch
+
+        from shuffle_exchange_tpu_torch.moe.gating import _one_hot
+
+        idx, w, aux, masks = self._orig(logits, k, normalize_weights, train, rng, noise_std)
+        if not self.replaying:
+            self.recorded.append((idx.cpu(), logits.float().cpu()))
+            return idx, w, aux, masks
+        theirs, their_logits = self.recorded[self.calls]
+        self.calls += 1
+        _check(theirs.shape == idx.shape, f"replayed routing {tuple(theirs.shape)} != this "
+               f"call's {tuple(idx.shape)}: the engines ran different programs")
+        real = self.pending.pop(0)
+        _check(real.shape[0] == idx.shape[0], "routing call rows do not match the program")
+        lg = logits.float().cpu()
+        delta = (lg - their_logits).abs().amax(-1)
+        if real.any():
+            self.max_logit_delta = max(self.max_logit_delta, float(delta[real].max()))
+        differ = (idx.cpu().sort(1).values != theirs.sort(1).values).any(1)
+        self.pad_flips += int((differ & ~real).sum())
+        differ &= real
+        if differ.any():
+            top = lg.topk(k + 1, dim=-1).values[differ]
+            self.flips += list(zip((top[:, k - 1] - top[:, k]).tolist(),
+                                   delta[differ].tolist()))
+        card = theirs.to(logits.device)
+        E = logits.shape[-1]
+        gates = torch.softmax(lg, dim=-1)
+        masks = [_one_hot(card[:, j], E) for j in range(k)]
+        w = torch.stack([(gates * m).sum(-1) for m in masks], dim=1)
+        if normalize_weights and k > 1:
+            w = w / torch.clamp(w.sum(1, keepdim=True), min=1e-9)
+        aux = E * (gates.mean(0) * masks[0].mean(0)).sum()
+        return card, w, aux, masks
+
+
+def moe_e2e_check(cfg, card_state, seed, bits):
+    """Depth-2 Mixtral: the step() schedule and the put() schedule on a bf16
+    engine on the card (``quant_bits`` experts and attention matrices,
+    quantized by the engine; decode_kernel "auto", ragged routing) and on
+    an f32 engine on the CPU fed the card engine's weights dequantized,
+    routed as the card routed (``RoutingReplay``). Returns per-call logits
+    errors and the flips."""
+    from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
+    from shuffle_exchange_tpu_torch.models import Transformer
+
+    def engines():
+        card = InferenceEngineV2(Transformer(cfg), card_state,
+                                 InferenceConfig(dtype="bfloat16", decode_kernel="auto",
+                                                 **_quant(bits), **MOE_E2E_CONFIG))
+        _check(card._decode_kernel == "pallas", "decode_kernel auto did not resolve to the "
+               "fused kernels on the card")
+        host = InferenceEngineV2(Transformer(cfg, device="cpu"), host_weights(card.params),
+                                 InferenceConfig(dtype="float32", decode_kernel="xla",
+                                                 **MOE_E2E_CONFIG), device="cpu")
+        return card, host
+
+    out = {}
+    V = cfg.vocab_size
+    for what, schedule, call in (
+            ("step", moe_e2e_schedule(np.random.default_rng([seed, 13]), V),
+             lambda eng, c: np.concatenate([a for a in eng.step(*c) if a.size])),
+            ("put", put_schedule(np.random.default_rng([seed, 14]), V, (100, 60, 30, 20)),
+             lambda eng, c: eng.put(*c))):
+        card, host = engines()
+        with RoutingReplay() as replay:
+            replay.watch(host)
+            got = [call(card, c) for c in schedule]
+            replay.replaying = True
+            want = [call(host, c) for c in schedule]
+        _check(replay.calls == len(replay.recorded), f"{what}: the CPU engine made "
+               f"{replay.calls} routing calls, the card {len(replay.recorded)}")
+        rows = sum(int(r.shape[0]) for r, _ in replay.recorded)
+        flips = sorted(replay.flips, reverse=True)
+        out[what] = dict(calls=[_compare(g, w) for g, w in zip(got, want)],
+                         routed_rows=rows, padding_row_flips=replay.pad_flips, flips=len(flips),
+                         flip_gaps_top=[[round(g, 6), round(d, 6)] for g, d in flips[:10]],
+                         max_router_logit_delta=replay.max_logit_delta,
+                         flips_beyond_noise=sum(g > 2 * d for g, d in flips))
+        del card, host
+        gc.collect()
     return out
 
 
@@ -1973,17 +2493,19 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from shuffle_exchange_tpu_torch import ops
-    from shuffle_exchange_tpu_torch.models import Transformer, llama3_8b
+    from shuffle_exchange_tpu_torch.models import Transformer, llama3_8b, mixtral_8x7b
     from shuffle_exchange_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
     card = card_line()
+    # the MoE router's f32 logits must be full f32 products (moe_layer raises otherwise)
+    _check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     # 1. build: one nvcc per source, all at once
     t0 = time.perf_counter()
     libs = _build.build_all(["paged_attention", "fused_decode", "flash_attention", "fused_adam",
-                             "quant_matmul"])
+                             "quant_matmul", "grouped_gemm"])
     nvcc_s = time.perf_counter() - t0
     for stem, lib in libs.items():
         print(f"[build] nvcc {stem}.cu -> {lib.name}")
@@ -2022,10 +2544,16 @@ def main(argv=None) -> int:
     # 2e. the quantized serving kernels
     qmm = check_quant_matmul(gen)
     qmlp = check_fused_mlp_quant(gen)
+    # 2f. the grouped GEMM of the MoE experts
+    t0 = time.perf_counter()
+    ggm = check_grouped_gemm(gen, np.random.default_rng([args.seed, 12]))
+    print(f"[kernel] grouped_matmul: {len(ggm)} cells in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
                "fused_mlp": mlp, "fused_mlp_quant": qmlp, "quant_matmul": qmm,
-               "flash_attention": flash, "flash_attention_bwd": fbwd, "fused_adamw": adamw}
+               "grouped_matmul": ggm, "flash_attention": flash, "flash_attention_bwd": fbwd,
+               "fused_adamw": adamw}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
@@ -2128,11 +2656,49 @@ def main(argv=None) -> int:
             _check(all(t["within"] for t in calls), f"depth-2 {what} logits on the card ({dk}) "
                    "disagree with the CPU f32 plain path")
 
-    # 5. train the ladder's pick at full width and depth; 6. depth 2 against
-    # the CPU. The serving weights go first: the trainer needs the memory.
+    # 3e. Mixtral-8x7B at full width and depth, int8; the Llama weights go
+    # first: the int8 Mixtral takes 47.7 GB
     del model, params, state2
     gc.collect()
     torch.cuda.empty_cache()
+    mcfg = mixtral_8x7b()
+    t0 = time.perf_counter()
+    mixtral = mixtral_serving(mcfg, args.seed, card)
+    print(f"[mixtral] phase 3e in {time.perf_counter() - t0:.1f} s", flush=True)
+    runs += [r["launches"] for r in mixtral["serve"].values()]
+    runs += [mixtral["put_decode_loop"]["launches"], mixtral["v1_generate"]["launches"]]
+    # 4, MoE: depth 2, int8 and fp8, against the CPU f32 engine
+    t0 = time.perf_counter()
+    mcfg2 = dataclasses.replace(mcfg, n_layers=2)
+    mstate2 = Transformer(mcfg2).init(torch.Generator(device="cuda").manual_seed(args.seed + 9),
+                                      dtype=torch.bfloat16)
+    moe_e2e = {}
+    for bits in (8, "fp8"):
+        name = "fp8" if bits == "fp8" else "int8"
+        moe_e2e[name] = moe_e2e_check(mcfg2, mstate2, args.seed, bits)
+        for what, r in moe_e2e[name].items():
+            for i, t in enumerate(r["calls"]):
+                print(f"[e2e mixtral {name} {what}] call {i}: rows={t['rows']} "
+                      f"max_abs_err={t['max_abs_err']} (tol {E2E_REL_TOL} x |ref| max "
+                      f"{t['ref_abs_max']}) argmax_agree={t['argmax_agree']}")
+            print(f"[e2e mixtral {name} {what}] routed rows {r['routed_rows']} (all layers), "
+                  f"flips on tokens {r['flips']} (on padding rows "
+                  f"{r['padding_row_flips']}); largest [2nd-3rd f32 router-logit gap, router-logit "
+                  f"difference] of the flips {r['flip_gaps_top']}; largest router-logit "
+                  f"difference {r['max_router_logit_delta']} (rule: {MOE_FLIP_RULE})",
+                  flush=True)
+            _check(all(t["within"] for t in r["calls"]), f"depth-2 Mixtral {name} {what} "
+                   "logits on the card disagree with the CPU f32 engine where routing agrees")
+            _check(r["flips_beyond_noise"] == 0, f"depth-2 Mixtral {name} {what}: "
+                   f"{r['flips_beyond_noise']} routing flips wider than the router logits' "
+                   f"difference explains")
+    del mstate2
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[e2e mixtral] int8 and fp8 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 5. train the ladder's pick at full width and depth; 6. depth 2 against
+    # the CPU
     from shuffle_exchange_tpu_torch.models import pick_ladder_config
 
     mem = torch.cuda.get_device_properties(0).total_memory
@@ -2170,6 +2736,7 @@ def main(argv=None) -> int:
                 "fused_mlp": "shuffle_exchange_tpu/ops/fused_decode.py:536",
                 "fused_mlp_quant": "shuffle_exchange_tpu/ops/fused_decode.py:634",
                 "quant_matmul": "shuffle_exchange_tpu/ops/quant_matmul.py:217",
+                "grouped_matmul": "shuffle_exchange_tpu/ops/grouped_gemm.py:63",
                 "flash_attention": "shuffle_exchange_tpu/ops/flash_attention.py:122",
                 "flash_attention_bwd": "shuffle_exchange_tpu/ops/flash_attention.py:122",
                 "fused_adamw": "shuffle_exchange_tpu/ops/fused_adam.py:40"}
@@ -2183,12 +2750,16 @@ def main(argv=None) -> int:
                "fused_paged_decode_attention": ("cuda", fused_cu),
                "fused_mlp": ("cuda", fused_cu), "fused_mlp_quant": ("cuda", fused_cu),
                "quant_matmul": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/quant_matmul.cu"),
+               "grouped_matmul": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/grouped_gemm.cu"),
                "flash_attention": ("cuda", flash_cu), "flash_attention_bwd": ("cuda", flash_cu),
                "fused_adamw": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/fused_adam.cu")}
     kernels = []
     for name, rows in checked.items():
         route, source = sources[name]
         m = rows[0]           # timed at the first (largest) shape
+        if name == "grouped_matmul":    # the main path's cell: a decode tick's int8 w_gate
+            m = next(r for r in rows if r["shape"]["fmt"] == "8" and r["shape"]["N"] == 16
+                     and r["shape"]["K"] == 4096 and r["shape"]["groups"] == "ragged")
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces[name], "launches": launches[name],
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2200,7 +2771,7 @@ def main(argv=None) -> int:
               "build": {"nvcc_s": nvcc_s}, "kernels": kernels,
               "kernel_checks": dict(checked, paged_sweep=sweep, fused_decode_sweep=fsweep),
               "serve": serves, "put_decode_loop": loop, "v1_generate": v1, "trace": traces,
-              "quant_serving": quant,
+              "quant_serving": quant, "mixtral": mixtral, "moe_e2e": moe_e2e,
               "e2e": e2e, "train": trained, "train_e2e": te2e}
     if args.out:
         with open(args.out, "w") as f:

@@ -28,7 +28,6 @@ _UNSUPPORTED = {
     "prefix_caching": "prefix caching (ROADMAP queue A, item 3)",
     "kv_cache_dtype": "int8/fp8 KV storage (ROADMAP queue A, item 3)",
     "adapters": "multi-tenant LoRA adapters (ROADMAP queue A, item 10)",
-    "moe": "MoE serving (ROADMAP queue A, item 9)",
     "router": "the multi-replica router (ROADMAP queue A, item 13)",
 }
 
@@ -66,19 +65,71 @@ def _refuse(key: str) -> ConfigError:
 
 
 @dataclasses.dataclass
+class MoEServingConfig:
+    """Expert-capacity serving knobs, with the JAX package's defaults and
+    validation:
+
+    - ``capacity_factor``: per-expert buffer slack of the capacity routes
+      and the admission pressure bar (overrides the model config's
+      ``capacity_factor`` inside the serving engine only);
+    - ``moe_impl``: "auto" defers to the model config's ``moe_impl``
+      (whose "auto" is the capacity route, as JAX resolves it under its
+      scanned layer stack); "ragged" is the dropless route whose tokens do
+      not depend on the batch;
+    - ``overload_policy``: "park" holds queued requests at their FIFO seat
+      while the previous tick's peak expert load is over
+      ``overload_threshold`` times its capacity; "drop" admits anyway and
+      lets the capacity route drop the overflow.
+    """
+
+    capacity_factor: float = 1.25
+    moe_impl: str = "auto"
+    overload_policy: str = "park"
+    overload_threshold: float = 1.0
+
+    def __post_init__(self):
+        self.capacity_factor = float(self.capacity_factor)
+        if not self.capacity_factor > 0:
+            raise ConfigError(f"serving.moe.capacity_factor must be > 0, got "
+                              f"{self.capacity_factor!r}")
+        allowed = ("auto", "capacity", "capacity_einsum", "ragged")
+        if self.moe_impl not in allowed:
+            raise ConfigError(f"serving.moe.moe_impl must be one of {allowed}, got "
+                              f"{self.moe_impl!r}")
+        if self.overload_policy not in ("park", "drop"):
+            raise ConfigError(f"serving.moe.overload_policy must be 'park' or 'drop', got "
+                              f"{self.overload_policy!r}")
+        self.overload_threshold = float(self.overload_threshold)
+        if not self.overload_threshold > 0:
+            raise ConfigError(f"serving.moe.overload_threshold must be > 0, got "
+                              f"{self.overload_threshold!r}")
+
+
+@dataclasses.dataclass
 class ServingConfig:
     """Continuous-batching scheduler knobs: ``token_budget`` tokens per
     tick (one per running sequence, the rest prefill chunks), at most
     ``max_running`` running sequences, ``chunk_min`` the smallest partial
     prefill chunk worth a slot, ``chunk_bins`` the padded chunk ladder
-    (None derives chunk_min * 2^k capped at token_budget)."""
+    (None derives chunk_min * 2^k capped at token_budget), ``moe`` the
+    expert-capacity knobs of MoE serving."""
 
     token_budget: int = 256
     max_running: int = 8
     chunk_min: int = 16
     chunk_bins: Optional[Tuple[int, ...]] = None
+    moe: MoEServingConfig = dataclasses.field(default_factory=MoEServingConfig)
 
     def __post_init__(self):
+        if self.moe is None:
+            self.moe = MoEServingConfig()
+        elif isinstance(self.moe, dict):
+            allowed = {f.name for f in dataclasses.fields(MoEServingConfig)}
+            unknown = set(self.moe) - allowed
+            if unknown:
+                raise ConfigError(f"unknown serving.moe config keys {sorted(unknown)} "
+                                  f"(allowed: {sorted(allowed)})")
+            self.moe = MoEServingConfig(**self.moe)
         if self.token_budget < 1:
             raise ConfigError(f"serving.token_budget must be >= 1, got "
                               f"{self.token_budget}")
@@ -105,9 +156,8 @@ class ServingConfig:
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ServingConfig":
         d = dict(d)
-        for key in ("speculative", "moe"):
-            if key in d:
-                raise _refuse(key)
+        if "speculative" in d:
+            raise _refuse("speculative")
         allowed = {f.name for f in dataclasses.fields(cls)}
         unknown = set(d) - allowed
         if unknown:
@@ -231,7 +281,7 @@ class InferenceConfig:
             d["dtype"] = "bfloat16"
             d["quantize_weights"] = True
         for key in _UNSUPPORTED:
-            if key in ("kv_cache_dtype", "prefix_caching", "moe"):
+            if key in ("kv_cache_dtype", "prefix_caching"):
                 continue   # validated by value below / inside serving
             if key in d:
                 raise _refuse(key)

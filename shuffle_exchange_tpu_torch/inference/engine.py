@@ -7,7 +7,9 @@ cached path shares (``_layer_body`` / ``_block_tail`` / the dense
 ``_ffn``), the pieces of the fused decode path both JAX engines share (the
 resolution of ``decode_kernel``, the rope rows of the fused QKV kernel,
 the fused QKV for one-token rows in ``_layer_body`` and the fused MLP in
-``_block_tail``), the weight-only quantization of ``quantize_weights``
+``_block_tail``), the MoE FFN of an ``n_experts`` model (``moe_layer``
+over the grouped-GEMM kernel, with the routing-count tap the paged engine
+reads), the weight-only quantization of ``quantize_weights``
 (``_quantize``), and the dense-cache v1 engine: ``generate`` over a
 ``KVCache`` ``[L, B, max_seq_len, KV, Dh]``, whose prefill runs the flash
 attention kernel and whose decode step runs the plain ``decode_attention``
@@ -18,15 +20,17 @@ Under ``quantize_weights`` the seven layer matrices are stored as
 ``QuantizedMatrix`` leaves and every ``y @ w`` on them runs the quantized
 matmul kernel; quantized attention weights leave the fused QKV kernel (as
 in JAX, a static choice by the weights' type), and a quantized MLP takes
-the fused quantized MLP kernel on one-token rows.
+the fused quantized MLP kernel on one-token rows. An MoE model's expert
+stacks are stored as int8 / fp8 ``[L, E, K, N]`` ``QuantizedMatrix``
+leaves, which the grouped-GEMM kernel reads at storage width; int4 keeps
+JAX's rounding emulation for them (dense leaves).
 
 The JAX engine jit-compiles whole programs and scans the stacked layers;
 here each layer is a Python loop iteration over views of the stacked
 ``[L, ...]`` weights, and PyTorch runs eagerly. The v1 engine decodes
 greedily; sampling (ROADMAP queue A, item 3), tensor parallelism (item
-12), checkpoint-backed serving (item 7), Hugging Face models (item 14), the
-full-sequence ``forward`` (item 4) and quantized MoE experts (item 9)
-raise, naming their item.
+12), checkpoint-backed serving (item 7), Hugging Face models (item 14) and
+the full-sequence ``forward`` (item 4) raise, naming their item.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.transformer import Transformer, _norm, decode_fusion_eligibility, rope_table
+from ..moe.layer import moe_layer
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_decode import fused_mlp, fused_qkv_rope, mlp_weights_fusable
@@ -88,9 +93,10 @@ def _apply_rope_batched(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 #: the layer matrices ``quantize_weights`` stores quantized (the JAX
-#: engine's storage names; its MoE expert names wait for ROADMAP queue A,
-#: item 9)
+#: engine's storage names)
 STORAGE_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+#: the MoE expert stacks: int8 / fp8 storage, int4 rounding emulation
+MOE_NAMES = ("moe_w_gate", "moe_w_up", "moe_w_down")
 
 
 def qkv_quantized(lw) -> bool:
@@ -146,14 +152,10 @@ class InferenceEngine:
         configured. ``QuantizedMatrix`` leaves (an already quantized tree)
         move as they are, their compute dtype set to the serving dtype."""
         dtype = self.config.torch_dtype()
-        want = self.model.param_shapes()
-        if set(params) != set(want):
-            raise ValueError(f"params do not match the model: missing "
-                             f"{sorted(set(want) - set(params))}, unexpected "
-                             f"{sorted(set(params) - set(want))}")
-        for k, v in params.items():
-            if tuple(v.shape) != want[k]:
-                raise ValueError(f"param {k}: shape {tuple(v.shape)} != model's {want[k]}")
+        try:
+            self.model.check_params(params)
+        except ValueError as e:
+            raise ValueError(f"params do not match the model: {e}") from None
         out = {}
         for k, v in params.items():
             if isinstance(v, QuantizedMatrix):
@@ -171,19 +173,23 @@ class InferenceEngine:
         ``min(quant_group_size, 256)`` rows, quantized one layer at a time
         on the engine's device; the unembedding is rounded through int8 at
         flat groups of ``quant_group_size`` and stays dense. A matrix no
-        group size of 32 or more divides takes the rounding instead."""
-        if self._mcfg.n_experts:
-            raise NotImplementedError("quantize_weights on MoE expert weights is not in the "
-                                      "PyTorch port yet: ROADMAP queue A, item 9")
+        group size of 32 or more divides takes the rounding instead. MoE
+        expert stacks ``[L, E, K, N]`` join the storage for int8 and fp8
+        and take the rounding for int4, as in JAX."""
         cfg = self.config
         gs = cfg.quant_group_size
         dtype = cfg.torch_dtype()
+        storage, qdq = STORAGE_NAMES, ("unembed",)
+        if cfg.quant_bits in (8, "fp8"):
+            storage = storage + MOE_NAMES
+        else:
+            qdq = qdq + MOE_NAMES
         out = {}
         for name, v in params.items():
             leaf = name.split(".")[-1]
             if isinstance(v, QuantizedMatrix):
                 out[name] = v
-            elif name.startswith("layers.") and leaf in STORAGE_NAMES:
+            elif name.startswith("layers.") and leaf in storage:
                 try:
                     out[name] = quantize_weight(v, group_size=min(gs, 256), dtype=dtype,
                                                 bits=cfg.quant_bits)
@@ -195,7 +201,7 @@ class InferenceEngine:
                                  "at debug level)")
                     logger.debug(f"quantize_weight({name}): {e}; qdq rounding instead")
                     out[name] = quantize_dequantize(v, group_size=gs).to(v.dtype)
-            elif leaf == "unembed":
+            elif leaf in qdq:
                 out[name] = quantize_dequantize(v, group_size=gs).to(v.dtype)
             else:
                 out[name] = v
@@ -297,8 +303,40 @@ class InferenceEngine:
         return out[:, None]
 
     def _ffn(self, lw: Dict[str, torch.Tensor], y: torch.Tensor) -> torch.Tensor:
-        """The dense SwiGLU FFN."""
-        return (F.silu(y @ lw["w_gate"]) * (y @ lw["w_up"])) @ lw["w_down"]
+        """The dense SwiGLU FFN, or the MoE FFN (JAX ``_ffn``): ``moe_layer``
+        with the impl and capacity factor the paged engine's serving config
+        sets (``_moe_impl_override`` / ``_moe_cf_override``; the v1 engine
+        has none and takes the model config's), resolved as under JAX's
+        scanned stack, plus the shared expert. With a routing tap armed
+        (``_moe_tap``, the paged engine's programs) each call appends its
+        expert counts [E] int32 and dropped assignments (f32), on the
+        device."""
+        cfg = self._mcfg
+        if cfg.n_experts == 0:
+            return (F.silu(y @ lw["w_gate"]) * (y @ lw["w_up"])) @ lw["w_down"]
+        experts = {n[4:]: w for n, w in lw.items()
+                   if n.startswith("moe_") and n != "moe_gate" and not n.startswith("moe_shared")}
+        impl = getattr(self, "_moe_impl_override", None) or cfg.moe_impl
+        cf = getattr(self, "_moe_cf_override", None)
+        res = moe_layer(lw["moe_gate"], experts, y, k=cfg.moe_top_k,
+                        capacity_factor=cfg.capacity_factor if cf is None else cf,
+                        activation=cfg.activation, impl=impl,
+                        normalize_weights=cfg.moe_norm_topk, scanned=True)
+        tap = getattr(self, "_moe_tap", None)
+        if tap is not None:
+            # counts are post-drop (capacity) or pre-drop with drop_fraction
+            # 0 (ragged); drop_fraction = 1 - kept / (S k) makes the product
+            # the dropped assignments
+            rows = y.numel() // y.shape[-1]
+            tap.append((res.metadata["expert_counts"].int(),
+                        res.metadata["drop_fraction"] * (rows * cfg.moe_top_k)))
+        out = res.output
+        if cfg.moe_shared_expert_ff > 0:
+            shared = (F.silu(y @ lw["moe_shared_w_gate"])
+                      * (y @ lw["moe_shared_w_up"])) @ lw["moe_shared_w_down"]
+            gate_s = torch.sigmoid(y @ lw["moe_shared_gate"])
+            out = out + gate_s.to(out.dtype) * shared
+        return out
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         return self.model.head(self.params, x)

@@ -24,11 +24,22 @@ Shapes follow the JAX bins exactly (power-of-two row counts and block-table
 widths, the serving chunk ladder), so padding rows scribble on the scratch
 block just as they do in JAX. The bins matter less here than under XLA —
 PyTorch does not compile per shape — but keeping them keeps the two
-engines' kernels fed identical operands.
+engines' kernels fed identical operands, and the MoE capacity route's
+capacity, which counts the padded rows, equal to JAX's.
+
+MoE serving (JAX ``engine_v2``'s expert-capacity serving): every program
+arms a routing tap that the shared ``_ffn`` fills with each layer's expert
+counts and dropped assignments on the device; after the program the tap
+folds to [L, E] (the lanes of a mixed program summed per layer) and is
+read on the host once, beside the logits, into the counters
+``moe_dispatched``, ``moe_dropped`` and ``moe_expert_load_max`` and the
+previous-tick load that ``moe_pressure()`` and the admission read. On one
+card the experts stay whole (JAX's ``_shard_expert_weights`` is a no-op at
+an expert axis of 1).
 
 Left for later slices: ``step_sampled``, speculation, prefix caching and
 ``fork``, int8/fp8 KV and the KV tier (ROADMAP queue A, item 3), adapters
-(item 10) and MoE serving (item 9).
+(item 10) and expert parallelism (item 12).
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import _norm
+from ..moe.gating import compute_capacity
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_decode import fused_paged_decode_attention, fused_qkv_rope
 from ..ops.paged_attention import paged_decode_attention, paged_extend_attention
@@ -87,6 +99,20 @@ class InferenceEngineV2(InferenceEngine):
         self.dispatches_by_program: Dict[str, int] = collections.Counter()
         # distinct program shapes dispatched (the shape-bin ladder's footprint)
         self._program_keys: set = set()
+        # MoE serving: the routing tap and the moe/* counters
+        self._moe_serving = mcfg.n_experts > 0
+        self._moe_tap: Optional[list] = None   # armed per program; _ffn appends
+        self.moe_dispatched = 0        # expert assignments routed (post-drop)
+        self.moe_dropped = 0           # assignments dropped at expert capacity
+        self.moe_expert_load_max = 0   # peak per-(layer, expert) load seen
+        self._moe_last_counts: Optional[np.ndarray] = None   # [E] worst layer, last tick
+        self._moe_last_total = 0       # S*k of the last tick (capacity denominator)
+        if self._moe_serving:
+            mo = cfg.serving.moe
+            # "auto" defers to the model config's moe_impl; an explicit
+            # serving impl wins
+            self._moe_impl_override = None if mo.moe_impl == "auto" else mo.moe_impl
+            self._moe_cf_override = mo.capacity_factor
 
     # -- scheduling queries -------------------------------------------
 
@@ -132,7 +158,75 @@ class InferenceEngineV2(InferenceEngine):
                 f"needs {need} KV blocks, {self.allocator.free_blocks} free "
                 f"(largest single ask: uid {worst_uid} wants {worst_ask} new); "
                 f"flush finished sequences or raise num_kv_blocks")
+        if self._moe_serving and any(self._seqs.get(u) is None for u in uids):
+            # expert capacity: when the previous tick's routing saturated
+            # some expert's buffer, new sequences are refused (known uids
+            # always pass: their ticks drain the pressure)
+            mo = self.config.serving.moe
+            pr = self.moe_pressure()
+            if mo.overload_policy == "park" and self._seqs and pr > mo.overload_threshold:
+                return False, need, (
+                    f"expert capacity (KV is fine: {need} blocks needed, "
+                    f"{self.allocator.free_blocks} free): last tick's peak "
+                    f"expert ran at {pr:.2f}x capacity (threshold "
+                    f"{mo.overload_threshold:g}, policy park); hold new "
+                    f"sequences until routing pressure drains")
         return True, need, ""
+
+    # -- MoE routing counts --------------------------------------------
+
+    def _moe_arm(self) -> None:
+        """Arm the routing tap for one program (``_ffn`` appends one entry
+        per layer and lane); a no-op on dense models."""
+        self._moe_tap = [] if self._moe_serving else None
+
+    def _moe_fold(self, lanes: int = 1):
+        """Close the tap: (counts [L, E] int32, dropped [L] f32) on the
+        device, the lanes of each layer summed (JAX ``_moe_ys``); None on
+        dense models."""
+        tap, self._moe_tap = self._moe_tap, None
+        if tap is None:
+            return None
+        L = self._mcfg.n_layers
+        assert len(tap) == L * lanes, \
+            f"the routing tap holds {len(tap)} entries for {L} layers x {lanes} lanes"
+        counts = torch.stack([c for c, _ in tap]).reshape(L, lanes, -1).sum(1)
+        dropped = torch.stack([d.float() for _, d in tap]).reshape(L, lanes).sum(1)
+        return counts, dropped
+
+    def _pop_moe(self, folded) -> None:
+        """Read one dispatch's folded routing counts on the host (one copy a
+        program) into the per-tick accounting."""
+        if folded is not None:
+            self._note_moe_counts((folded[0].cpu().numpy(), folded[1].cpu().numpy()))
+
+    def _note_moe_counts(self, moe) -> None:
+        """Host-side accounting from one dispatch's routing counts ``moe =
+        (counts [..., L, E], dropped [..., L])`` (a leading steps axis from
+        ``decode_loop``): the moe/* counters and the previous-tick load
+        snapshot ``moe_pressure`` reads. Counts are post-drop (capacity) or
+        pre-drop with no drops (ragged), so ``counts.sum() + dropped``
+        recovers S*k either way."""
+        E = self._mcfg.n_experts
+        counts = np.asarray(moe[0]).reshape(-1, E)
+        dropped = np.asarray(moe[1], np.float64).reshape(-1)
+        self.moe_dispatched += int(counts.sum())
+        self.moe_dropped += int(round(float(dropped.sum())))
+        self.moe_expert_load_max = max(self.moe_expert_load_max, int(counts.max()))
+        self._moe_last_counts = counts.max(axis=0)
+        self._moe_last_total = int(round(float(counts[-1].sum() + dropped[-1])))
+
+    def moe_pressure(self) -> float:
+        """The previous tick's peak per-expert load over that tick's expert
+        capacity (1/capacity_factor under balanced routing; > 1 means some
+        expert ran past its buffer). 0.0 before the first MoE tick and on
+        dense models."""
+        if not self._moe_serving or self._moe_last_counts is None:
+            return 0.0
+        k = max(1, self._mcfg.moe_top_k)
+        S = max(1, self._moe_last_total // k)
+        cap = compute_capacity(S, self._mcfg.n_experts, k, self._moe_cf_override)
+        return float(self._moe_last_counts.max()) / float(max(1, cap))
 
     def _ensure_blocks(self, desc: SequenceDescriptor, total_tokens: int) -> None:
         """Grow ``desc`` to cover ``total_tokens``."""
@@ -273,6 +367,7 @@ class InferenceEngineV2(InferenceEngine):
 
     @torch.no_grad()
     def _decode_program(self, tok, pos, tables) -> torch.Tensor:
+        self._moe_arm()
         x, _ = self._embed_at(tok[:, None], pos)
         for i, lw in enumerate(self._layer_weights):
             x = self._decode_layer(lw, x, self.cache.k[i], self.cache.v[i], pos, tables)
@@ -280,6 +375,7 @@ class InferenceEngineV2(InferenceEngine):
 
     @torch.no_grad()
     def _extend_program(self, ids, start, nnew, tables) -> torch.Tensor:
+        self._moe_arm()
         x, positions = self._embed_at(ids, start)
         for i, lw in enumerate(self._layer_weights):
             x = self._extend_layer(lw, x, self.cache.k[i], self.cache.v[i], positions,
@@ -295,6 +391,7 @@ class InferenceEngineV2(InferenceEngine):
         and padding blocks land on the scratch block) and attends through
         the flash attention kernel over the rows' own K/V, causally.
         Returns f32 logits [P, V] at each row's ``plen - 1``."""
+        self._moe_arm()
         P, tpad = ids.shape
         bs = self.cache.block_size
         nblk = tpad // bs
@@ -323,6 +420,7 @@ class InferenceEngineV2(InferenceEngine):
         first and then the chunk rows, on the same pool (the JAX layer-scan
         order). Decode and chunk rows are disjoint sequences, so they write
         disjoint blocks."""
+        self._moe_arm()
         xd, _ = self._embed_at(dtok[:, None], dpos)
         xp, ppos = self._embed_at(pids, pstart)
         for i, lw in enumerate(self._layer_weights):
@@ -398,12 +496,15 @@ class InferenceEngineV2(InferenceEngine):
             dl, pl = self._mixed_program(*dargs, *pargs)
             key = ("mixed", Bd, Wd, Bp, C, Wp)
             dlogits, plogits = dl.cpu().numpy(), pl.cpu().numpy()
+            self._pop_moe(self._moe_fold(lanes=2))
         elif ddescs:
             key = ("decode", Bd, Wd)
             dlogits = self._decode_program(*dargs).cpu().numpy()
+            self._pop_moe(self._moe_fold())
         elif pdescs:
             key = ("extend", Bp, C, Wp)
             plogits = self._extend_program(*pargs).cpu().numpy()
+            self._pop_moe(self._moe_fold())
         else:
             return dlogits, plogits
         self._count_dispatch(key)
@@ -466,6 +567,7 @@ class InferenceEngineV2(InferenceEngine):
         if prefills:
             P, tpad, ids, plen, btables = self._pack_prefill(prefills)
             logits = self._prefill_program(*self._to_device(ids, plen, btables)).cpu().numpy()
+            self._pop_moe(self._moe_fold())
             self._count_dispatch(("prefill", P, tpad))
             for i, (desc, toks) in enumerate(prefills):
                 desc.seen_tokens = len(toks)
@@ -479,6 +581,7 @@ class InferenceEngineV2(InferenceEngine):
             B, W, tok, pos, tables = self._pack_decode([d for d, _ in singles],
                                                        [t for _, t in singles])
             logits = self._decode_program(*self._to_device(tok, pos, tables)).cpu().numpy()
+            self._pop_moe(self._moe_fold())
             self._count_dispatch(("decode", B, W))
             for i, (d, _) in enumerate(singles):
                 d.seen_tokens += 1
@@ -495,6 +598,7 @@ class InferenceEngineV2(InferenceEngine):
             B, C, W, ids, start, nnew, tables = self._pack_chunks(batch)
             logits = self._extend_program(
                 *self._to_device(ids, start, nnew, tables)).cpu().numpy()
+            self._pop_moe(self._moe_fold())
             self._count_dispatch(("extend", B, C, W))
             for i, (d, chunk) in enumerate(batch):
                 d.seen_tokens += len(chunk)
@@ -535,13 +639,18 @@ class InferenceEngineV2(InferenceEngine):
         pos0 = np.asarray([d.seen_tokens for d in descs], np.int32)
         tok, pos, tables_t = self._to_device(np.asarray(tokens, np.int32), pos0, tables)
         out = torch.empty(n_steps, len(uids), dtype=torch.int32, device=self.device)
+        routed = []    # per step (counts [L, E], dropped [L]), on the device
         for s in range(n_steps):
             logits = self._decode_program(tok, pos, tables_t)
+            routed.append(self._moe_fold())
             tok = logits.argmax(-1).to(torch.int32)
             out[s] = tok
             pos = pos + 1
         toks = out.T.cpu().numpy()
         last = logits.cpu().numpy()
+        if self._moe_serving:   # one read of [n_steps, L, E] for the loop
+            self._pop_moe((torch.stack([c for c, _ in routed]),
+                           torch.stack([d for _, d in routed])))
         self._count_dispatch(("decode_loop", len(uids), n_steps, W))
         for i, d in enumerate(descs):
             d.seen_tokens += n_steps

@@ -8,10 +8,14 @@ plus prefill chunks from partially prefilled and queued sequences, then
 runs the whole mixed batch as one ``engine.step()``. When the KV pool runs
 dry the youngest admitted sequence is preempted: its blocks are freed and
 it is requeued at the front with its generated tokens folded into its
-prefill target, so greedy decoding replays it exactly.
+prefill target, so greedy decoding replays it exactly. On an MoE engine
+expert capacity is an admission resource too: while the previous tick's
+peak expert load is over the threshold, queued requests park at their FIFO
+seat (policy "park"; running sequences are never preempted for it), as
+the JAX scheduler does.
 
-Speculation, the KV tier, fault sites, the sanitizer, deadlines, adapters,
-MoE and the monitor sinks are later slices (ROADMAP queue A).
+Speculation, the KV tier, fault sites, the sanitizer, deadlines, adapters
+and the monitor sinks are later slices (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -48,6 +52,9 @@ class ServingRequest:
     finished_at: Optional[float] = None
     tpot_s: List[float] = dataclasses.field(default_factory=list)
     preemptions: int = 0
+    # parked on expert-capacity pressure: held at its FIFO seat until the
+    # running ticks drain it (park, never preempt)
+    moe_waiting: bool = False
 
     @property
     def prefill_target(self) -> List[int]:
@@ -80,6 +87,8 @@ class ContinuousBatchingScheduler:
         self.clock = clock
         self.ticks = 0
         self.preemptions = 0
+        self.moe_capacity_parks = 0
+        self.moe_unparks = 0
         self._next_uid = 0
 
     # -- request intake ------------------------------------------------
@@ -195,6 +204,17 @@ class ContinuousBatchingScheduler:
             if budget_left <= 0:
                 break
             from_queue = r.state == QUEUED
+            if from_queue and eng._moe_serving and cfg.moe.overload_policy == "park" and \
+                    (self.active or admitted) and \
+                    eng.moe_pressure() > cfg.moe.overload_threshold:
+                # the previous tick's routing ran some expert past its
+                # buffer: hold new sequences at their FIFO seat while the
+                # running ones drain it ("drop" admits and lets the
+                # capacity route drop the overflow)
+                if not r.moe_waiting:
+                    r.moe_waiting = True
+                    self.moe_capacity_parks += 1
+                continue
             if from_queue and len(self.active) + len(admitted) >= cfg.max_running:
                 break
             target = r.prefill_target
@@ -217,6 +237,9 @@ class ContinuousBatchingScheduler:
             prefills.append((r, target[pd:pd + chunk]))
             if from_queue:
                 admitted.append(r)
+                if r.moe_waiting:
+                    r.moe_waiting = False
+                    self.moe_unparks += 1
         for r in admitted:
             self.queue.remove(r)
             self.active.append(r)
@@ -227,6 +250,8 @@ class ContinuousBatchingScheduler:
         if not decodes and not prefills:
             if not (self.active or self.queue):
                 return False
+            if any(r.moe_waiting for r in self.queue):
+                return True     # parked on expert pressure; the running set drains it
             head = next((r for r in self.active if r.state == PREFILL),
                         self.queue[0] if self.queue else None)
             if head is None:
@@ -296,11 +321,14 @@ class ContinuousBatchingScheduler:
     def stats(self) -> Dict[str, object]:
         """Serving summary over finished requests: sustained tokens/s (wall
         span from first submit to last finish), TTFT/TPOT percentiles,
-        ticks and preemptions."""
+        ticks and preemptions, and on an MoE engine the routed traffic,
+        last tick's expert pressure and the capacity parks (None on a
+        dense engine)."""
 
         def pct(xs, q):
             return float(np.percentile(xs, q)) if len(xs) else None
 
+        eng = self.engine
         done = [r for r in self.requests.values() if r.state == FINISHED]
         ttft = [r.first_token_at - r.submitted_at for r in done
                 if r.first_token_at is not None]
@@ -320,4 +348,13 @@ class ContinuousBatchingScheduler:
             "tpot_p95_s": pct(tpot, 95),
             "ticks": self.ticks,
             "preemptions": self.preemptions,
+            "moe": (None if not eng._moe_serving else {
+                "dispatched": eng.moe_dispatched,
+                "dropped": eng.moe_dropped,
+                "expert_load_max": eng.moe_expert_load_max,
+                "pressure": eng.moe_pressure(),
+                "capacity_parks": self.moe_capacity_parks,
+                "unparks": self.moe_unparks,
+                "waiting": sum(1 for r in self.queue if r.moe_waiting),
+            }),
         }

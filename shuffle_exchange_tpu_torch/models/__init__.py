@@ -1,11 +1,13 @@
 from .convert import (QuantizedArrays, load_train_state, params_from_numpy, params_to_numpy,
                       train_state_to_numpy)
 from .transformer import (Transformer, TransformerConfig, llama3_8b, llama_ladder,
-                          param_count, pick_ladder_config, tiny)
+                          mixtral_8x7b, param_count, pick_ladder_config, tiny, tiny_moe)
 
 MODEL_REGISTRY = {
     "llama3-8b": llama3_8b,
+    "mixtral-8x7b": mixtral_8x7b,
     "tiny": tiny,
+    "tiny-moe": tiny_moe,
 }
 
 
@@ -19,5 +21,6 @@ def get_model(name: str, device=None, **overrides) -> Transformer:
 
 
 __all__ = ["MODEL_REGISTRY", "QuantizedArrays", "Transformer", "TransformerConfig", "get_model", "llama3_8b",
-           "llama_ladder", "load_train_state", "param_count", "params_from_numpy",
-           "params_to_numpy", "pick_ladder_config", "tiny", "train_state_to_numpy"]
+           "llama_ladder", "load_train_state", "mixtral_8x7b", "param_count",
+           "params_from_numpy", "params_to_numpy", "pick_ladder_config", "tiny", "tiny_moe",
+           "train_state_to_numpy"]

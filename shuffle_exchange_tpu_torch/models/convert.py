@@ -13,7 +13,10 @@ Quantized weights cross too: a leaf with the children of a JAX
 ``QuantizedMatrix`` (``q``, ``scales``, ``group_size``, ``bits``, the
 column count and the compute dtype; numpy or JAX arrays) becomes the
 port's ``QuantizedMatrix``, and ``params_to_numpy`` gives those children
-back as :class:`QuantizedArrays`. e4m3 storage crosses as its bytes
+back as :class:`QuantizedArrays`. MoE trees cross the same way: the
+router ``moe_gate``, the expert stacks ``moe_w_gate`` / ``moe_w_up`` /
+``moe_w_down`` (``[L, E, K, N]``, dense or quantized), the optional
+expert biases ``moe_b_*`` and the shared expert ``moe_shared_*``. e4m3 storage crosses as its bytes
 (``uint8``) reinterpreted on arrival, because ``torch.from_numpy`` does not
 take ml_dtypes' float8.
 """

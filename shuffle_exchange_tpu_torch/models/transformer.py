@@ -2,10 +2,12 @@
 
 Counterpart of ``shuffle_exchange_tpu/models/transformer.py`` cut to what
 the serving and training slices run: RMSNorm, rotate-half RoPE,
-grouped-query attention, SwiGLU and an untied (or tied) unembedding; the
-pieces the inference engines call (``embed``, ``head``) and the training
-forward (``layer_apply``, ``stack_apply``, ``chunked_loss``, ``loss``),
-which is functional like the JAX one: it takes the parameters as a
+grouped-query attention, SwiGLU or a Mixtral-style MoE FFN (``n_experts``
+> 0: top-k routed experts in every layer, an optional shared expert; for
+serving) and an untied (or tied) unembedding; the pieces the inference
+engines call (``embed``, ``head``) and the training forward
+(``layer_apply``, ``stack_apply``, ``chunked_loss``, ``loss``), which is
+functional like the JAX one: it takes the parameters as a
 flattened-name dict, so the training engine differentiates with respect
 to its own forward copy of the weights. The parameters keep
 the JAX package's leaf names and layouts — per-layer weights stacked on a
@@ -14,7 +16,8 @@ parameter tree moves over by name (``models/convert.py``) and a test can
 compare the two packages leaf by leaf.
 
 Any other structure raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+that ports it; so does the training forward of an MoE model (MoE training,
+ROADMAP queue A, item 9).
 """
 
 from __future__ import annotations
@@ -58,7 +61,17 @@ class TransformerConfig:
     post_ln: bool = False
     local_attention_window: int = 0
     attention_pattern: Tuple[str, ...] = ()
-    n_experts: int = 0
+    # MoE (Mixtral-style when n_experts > 0): top-k routing over n_experts
+    # stacked expert FFNs in every layer
+    n_experts: int = 0                         # 0 = dense
+    moe_top_k: int = 2
+    capacity_factor: float = 1.25
+    moe_impl: str = "auto"   # auto | capacity (index dispatch) | capacity_einsum | ragged
+    moe_shared_expert_ff: int = 0              # Qwen2-MoE shared expert (0 = none)
+    moe_norm_topk: bool = True                 # renormalize the top-k weights (Mixtral)
+    # per-layer MoE flags (Megatron --expert-interval); () = every layer is
+    # MoE. Interleaved dense layers are not ported (ROADMAP queue A, item 9)
+    moe_layer_pattern: Tuple[bool, ...] = ()
     causal: bool = True                        # False = bidirectional (BERT)
     remat: bool = False                        # recompute each layer in backward
     remat_policy: str = "dots_saveable"        # see _remat_policy
@@ -96,9 +109,22 @@ def llama3_8b() -> TransformerConfig:
                              rope_theta=500000.0, tie_embeddings=False)
 
 
+def mixtral_8x7b() -> TransformerConfig:
+    return TransformerConfig(vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+                             n_kv_heads=8, d_ff=14336, max_seq_len=8192, activation="swiglu",
+                             norm="rmsnorm", position="rope", rope_theta=1e6,
+                             tie_embeddings=False, n_experts=8, moe_top_k=2)
+
+
 def tiny(vocab=256, d=64, layers=2, heads=4, seq=64, **kw) -> TransformerConfig:
     return TransformerConfig(vocab_size=vocab, d_model=d, n_layers=layers, n_heads=heads,
                              max_seq_len=seq, **kw)
+
+
+def tiny_moe(vocab=256, d=64, layers=2, heads=4, seq=64, experts=4, **kw) -> TransformerConfig:
+    return TransformerConfig(vocab_size=vocab, d_model=d, n_layers=layers, n_heads=heads,
+                             max_seq_len=seq, activation="swiglu", norm="rmsnorm",
+                             position="rope", n_experts=experts, moe_top_k=2, **kw)
 
 
 def _llama(vocab, d, layers, heads, kv, d_ff=None, tie=True) -> TransformerConfig:
@@ -122,12 +148,15 @@ def llama_ladder():
 
 
 def param_count(cfg: TransformerConfig) -> int:
-    """Weights of a Llama-family config (norm biases, which RMSNorm does not
-    use, are not counted)."""
+    """Weights of a Llama-family config, MoE included (norm biases, which
+    RMSNorm does not use, are not counted)."""
     d, ff = cfg.d_model, cfg.ff_dim
     kv_dim = cfg.kv_heads * cfg.head_dim
     attn = d * d + 2 * d * kv_dim + d * d
     mlp = 3 * d * ff if cfg.activation == "swiglu" else 2 * d * ff
+    if cfg.n_experts > 0:
+        Fs = cfg.moe_shared_expert_ff
+        mlp = cfg.n_experts * mlp + d * cfg.n_experts + (3 * d * Fs + d if Fs else 0)
     per_layer = attn + mlp + 2 * d
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     return cfg.n_layers * per_layer + embed + d
@@ -163,7 +192,8 @@ def check_supported(cfg: TransformerConfig) -> None:
         (cfg.embed_ln, f"embed_ln ({later})"),
         (cfg.post_ln, f"post_ln ({later})"),
         (cfg.attn_qkv_bias or cfg.attn_out_bias, f"attention biases ({later})"),
-        (cfg.n_experts > 0, "MoE layers (ROADMAP queue A, item 9)"),
+        (cfg.n_experts > 0 and bool(cfg.moe_layer_pattern) and not all(cfg.moe_layer_pattern),
+         "interleaved dense and MoE layers (moe_layer_pattern; ROADMAP queue A, item 9)"),
         (cfg.local_attention_window > 0 or "local" in cfg.attention_pattern,
          f"local attention ({later})"),
         (not cfg.causal, f"bidirectional (encoder) attention ({later})"),
@@ -172,6 +202,16 @@ def check_supported(cfg: TransformerConfig) -> None:
     for bad, what in checks:
         if bad:
             raise NotImplementedError(f"not supported by the PyTorch port yet: {what}")
+
+
+def refuse_moe_training(cfg: TransformerConfig) -> None:
+    """The training forward of an MoE model raises: the capacity route's
+    gradients, the aux loss and the grouped GEMM's backward come with MoE
+    training (ROADMAP queue A, item 9)."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "training an MoE model is not in the PyTorch port yet (it serves MoE models): "
+            "MoE training, ROADMAP queue A, item 9")
 
 
 #: activations the port's fused MLP kernel computes. The JAX package's
@@ -193,7 +233,8 @@ def decode_fusion_eligibility(cfg: TransformerConfig) -> dict:
                "fused kernel's rotate-half form does not cover it")
     mlp = None
     if cfg.n_experts > 0:
-        mlp = "MoE FFN (expert dispatch stays on the MoE layer path)"
+        mlp = ("MoE FFN (expert dispatch stays on the moe_layer path, which itself takes "
+               "int8/fp8 expert storage through the grouped-GEMM kernel)")
     elif cfg.activation not in FUSABLE_ACTIVATIONS:
         mlp = (f"activation {cfg.activation!r} is not fusable "
                f"(fusable: {', '.join(FUSABLE_ACTIVATIONS)})")
@@ -327,13 +368,50 @@ class Transformer(nn.Module):
             "layers.wq": (L, D, H * Dh), "layers.wk": (L, D, KV * Dh),
             "layers.wv": (L, D, KV * Dh), "layers.wo": (L, H * Dh, D),
             "layers.ln2_w": (L, D), "layers.ln2_b": (L, D),
-            "layers.w_gate": (L, D, Fd), "layers.w_up": (L, D, Fd),
-            "layers.w_down": (L, Fd, D),
-            "ln_f_w": (D,), "ln_f_b": (D,),
         }
+        if cfg.n_experts > 0:
+            E = cfg.n_experts
+            shapes.update({"layers.moe_gate": (L, D, E), "layers.moe_w_up": (L, E, D, Fd),
+                           "layers.moe_w_down": (L, E, Fd, D),
+                           "layers.moe_w_gate": (L, E, D, Fd)})
+            Fs = cfg.moe_shared_expert_ff
+            if Fs > 0:
+                shapes.update({"layers.moe_shared_w_gate": (L, D, Fs),
+                               "layers.moe_shared_w_up": (L, D, Fs),
+                               "layers.moe_shared_w_down": (L, Fs, D),
+                               "layers.moe_shared_gate": (L, D, 1)})
+        else:
+            shapes.update({"layers.w_gate": (L, D, Fd), "layers.w_up": (L, D, Fd),
+                           "layers.w_down": (L, Fd, D)})
+        shapes.update({"ln_f_w": (D,), "ln_f_b": (D,)})
         if not cfg.tie_embeddings:
             shapes["unembed"] = (D, V)
         return shapes
+
+    def optional_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Leaves a parameter dict may hold beyond ``param_shapes()``: the
+        per-expert biases of the Megatron biased-expert layout, which the
+        JAX init never draws but an imported tree can carry."""
+        cfg = self.config
+        if cfg.n_experts == 0:
+            return {}
+        L, E, D, Fd = cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.ff_dim
+        return {"layers.moe_b_gate": (L, E, Fd), "layers.moe_b_up": (L, E, Fd),
+                "layers.moe_b_down": (L, E, D)}
+
+    def check_params(self, params) -> None:
+        """Raise unless ``params`` holds exactly the model's leaves (plus
+        any of ``optional_shapes()``) at their shapes."""
+        want, extra = self.param_shapes(), self.optional_shapes()
+        missing = sorted(set(want) - set(params))
+        unexpected = sorted(set(params) - set(want) - set(extra))
+        if missing or unexpected:
+            raise ValueError(f"parameter names differ: missing {missing}, unexpected "
+                             f"{unexpected}")
+        for name, t in params.items():
+            shape = want.get(name, extra.get(name))
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
 
     def _init_scale(self, name: str) -> Optional[float]:
         """Std of the JAX init's normal draw for a leaf; None for the norm
@@ -341,12 +419,19 @@ class Transformer(nn.Module):
         cfg = self.config
         L, D, Fd = cfg.n_layers, cfg.d_model, cfg.ff_dim
         HD = cfg.n_heads * cfg.head_dim
+        Fs = max(cfg.moe_shared_expert_ff, 1)
         leaf = name.split(".")[-1]
+        # expert stacks follow JAX init_expert_mlp: 1/sqrt(fan_in), with no
+        # depth factor on the down projection
         return {"embed": 0.02, "unembed": 0.02,
                 "wq": 1 / math.sqrt(D), "wk": 1 / math.sqrt(D), "wv": 1 / math.sqrt(D),
                 "wo": 1 / math.sqrt(2 * L) / math.sqrt(HD),
                 "w_gate": 1 / math.sqrt(D), "w_up": 1 / math.sqrt(D),
-                "w_down": 1 / math.sqrt(2 * L) / math.sqrt(Fd)}.get(leaf)
+                "w_down": 1 / math.sqrt(2 * L) / math.sqrt(Fd),
+                "moe_gate": 1 / math.sqrt(D), "moe_w_gate": 1 / math.sqrt(D),
+                "moe_w_up": 1 / math.sqrt(D), "moe_w_down": 1 / math.sqrt(Fd),
+                "moe_shared_w_gate": 1 / math.sqrt(D), "moe_shared_w_up": 1 / math.sqrt(D),
+                "moe_shared_w_down": 1 / math.sqrt(Fs)}.get(leaf)
 
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None,
@@ -378,15 +463,10 @@ class Transformer(nn.Module):
 
     def load_params(self, state: Dict[str, torch.Tensor]) -> None:
         """Install a flattened-name state dict (no copies). Names and
-        shapes must be exactly ``param_shapes()``."""
-        want = self.param_shapes()
-        if set(state) != set(want):
-            raise ValueError(f"parameter names differ: missing "
-                             f"{sorted(set(want) - set(state))}, unexpected "
-                             f"{sorted(set(state) - set(want))}")
+        shapes must be exactly ``param_shapes()`` (plus any of
+        ``optional_shapes()``)."""
+        self.check_params(state)
         for name, t in state.items():
-            if tuple(t.shape) != want[name]:
-                raise ValueError(f"{name}: shape {tuple(t.shape)} != {want[name]}")
             p = nn.Parameter(t, requires_grad=t.is_floating_point())
             if name.startswith("layers."):
                 self.layers[name[len("layers."):]] = p
@@ -518,6 +598,7 @@ class Transformer(nn.Module):
 
     def apply_with_aux(self, params, input_ids):
         """(logits, moe aux loss): aux is 0 for dense models."""
+        refuse_moe_training(self.config)
         params = self._params_or_own(params)
         x, rope = self.embed(params, self._ids(input_ids, params))
         x, aux = self.stack_apply(self.stacked(params), x, rope)
@@ -528,6 +609,7 @@ class Transformer(nn.Module):
         (labels are the ids shifted by one), or of explicit
         ``batch["labels"]`` (already aligned, -100 = ignore). ``params`` is
         a flattened-name dict, or None for the model's own parameters."""
+        refuse_moe_training(self.config)
         params = self._params_or_own(params)
         for key in ("ltd_keep_prob", "pld_theta"):
             if key in batch:

@@ -61,3 +61,23 @@ def resolve_decode_kernel(mode: str, device: Union[str, torch.device]) -> str:
     if mode == "auto":
         return "pallas" if torch.device(device).type == "cuda" else "xla"
     return mode
+
+
+#: grouped-GEMM call sites of the JAX package's shared seam; "lora" (the
+#: LoRA pool-gather kernel, B9) is not ported yet
+_GROUPED_GEMM_KINDS = ("moe", "lora")
+
+
+def resolve_grouped_gemm(kind: str, t: torch.Tensor) -> str:
+    """Resolve a grouped-GEMM call site (JAX ``resolve_grouped_gemm``) in
+    the port's form: "kernel" for a CUDA tensor (launch the kernel or
+    raise) and "plain" for a CPU tensor. Every shape goes to the kernel on
+    the card: there is no eligibility fallback as the JAX route has for
+    shapes the TPU tiling does not take."""
+    if kind not in _GROUPED_GEMM_KINDS:
+        raise ValueError(f"grouped-GEMM kind must be one of {_GROUPED_GEMM_KINDS}, got "
+                         f"{kind!r}")
+    if kind == "lora":
+        raise NotImplementedError("the LoRA grouped GEMM (B9) is not in the PyTorch port yet: "
+                                  "ROADMAP queue A, item 10")
+    return "kernel" if use_kernel(t) else "plain"

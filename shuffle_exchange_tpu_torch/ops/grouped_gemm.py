@@ -1,0 +1,195 @@
+"""Grouped (ragged) matmul for the MoE experts: the CUDA kernel for Hopper
+and its plain PyTorch version.
+
+Counterpart of ``shuffle_exchange_tpu/ops/grouped_gemm.py``. Shape
+contract: x [N, K] with its rows sorted by group, w [E, K, F] and
+group_sizes [E] int32 (summing to N) -> [N, F] in x's dtype, f32
+accumulation: row n is ``x[n] @ w[g(n)]`` for the group g(n) that owns it.
+``w`` may be an int8 / e4m3 :class:`~.quant_matmul.QuantizedMatrix` stack;
+it then stands for ``bf16(q * s)`` (``w.dequantize()`` cast to x's dtype,
+as JAX dequantizes the stack before its megablox ``gmm``).
+
+On the card ``grouped_matmul`` launches the hand-written kernel of
+``ops/csrc/grouped_gemm.cu`` (whose header says what bounds it on the H100
+and how its design answers it). It replaces the TPU's
+``_grouped_matmul_gmm``; unlike the JAX route, which sends shapes the TPU
+tiling does not take to ``ragged_dot``, every shape the port's models have
+goes to the kernel. The kernel reads int8 / fp8 experts at storage width
+and dequantizes them in registers, and it reads ``group_sizes`` on the
+device: no call here copies a device value to the host. The wrapper runs
+its kernel for a CUDA tensor and its plain version for a CPU tensor, and
+counts one launch per call on the card (``grouped_matmul.launches``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from .dispatch import resolve_grouped_gemm
+from .quant_matmul import FP8, QuantizedMatrix
+
+
+def _dense_stack(w, dtype: torch.dtype) -> torch.Tensor:
+    """The expert stack the product multiplies by: a quantized stack
+    dequantized in f32 and rounded to ``dtype``, a dense one cast."""
+    if isinstance(w, QuantizedMatrix):
+        return w.dequantize().to(dtype)
+    return w.to(dtype)
+
+
+def grouped_matmul_reference(x: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
+    """The plain version: a loop over the groups of f32 products over the
+    weights as the kernel reads them (``bf16(q * s)`` for a quantized
+    stack), one cast of each result to x's dtype; rows past the groups'
+    sum are zeros (``jax.lax.ragged_dot``'s). It reads the group sizes on
+    the host."""
+    wd = _dense_stack(w, x.dtype)
+    N, F = x.shape[0], wd.shape[-1]
+    out = torch.zeros(N, F, dtype=x.dtype, device=x.device)
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + int(size), N)
+        if end > start:
+            out[start:end] = (x[start:end].float() @ wd[g].float()).to(x.dtype)
+        start = end
+    return out
+
+
+def _check_shapes(x, w, group_sizes) -> Tuple[int, int, int, int]:
+    if x.dim() != 2:
+        raise ValueError(f"grouped_matmul: x must be [N, K], got {tuple(x.shape)}")
+    if len(w.shape) != 3:
+        raise ValueError(f"grouped_matmul: w must be [E, K, F], got {tuple(w.shape)}")
+    N, K = x.shape
+    E, K2, F = w.shape
+    if K2 != K:
+        raise ValueError(f"grouped_matmul: x contraction dim {K} != weight K {K2}")
+    if tuple(group_sizes.shape) != (E,):
+        raise ValueError(f"grouped_matmul: group_sizes {tuple(group_sizes.shape)} != ({E},)")
+    return N, K, E, F
+
+
+def grouped_matmul(x: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
+    """x [N, K] (rows sorted by group) @ w [E, K, F] by group_sizes [E]
+    int32 -> [N, F] in x's dtype. The CUDA kernel on a CUDA tensor (bf16
+    activations; bf16, int8 or e4m3 weights), the plain version on a CPU
+    tensor."""
+    _check_shapes(x, w, group_sizes)
+    route = resolve_grouped_gemm("moe", x)
+    if route == "plain":
+        return grouped_matmul_reference(x, w, group_sizes)
+    out = _launch(x, w, group_sizes)
+    grouped_matmul.launches += 1
+    return out
+
+
+grouped_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Launch
+# ---------------------------------------------------------------------------
+
+GEMV_MAX_N = 16      # total rows up to which the split-K GEMV form runs
+GEMV_CHUNK = 1024    # reduction rows per GEMV block, at most
+#: the kernel's codes for the weight formats it takes
+FORMATS = {8: 0, "fp8": 2, "bf16": 3}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LIB = []
+
+
+def _lib():
+    if not _LIB:
+        from . import _build
+
+        lib = _build.load("grouped_gemm")
+        lib.sxt_grouped_matmul_bf16.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+        lib.sxt_grouped_matmul_bf16.restype = ctypes.c_int
+        lib.sxt_grouped_error_string.argtypes = [ctypes.c_int]
+        lib.sxt_grouped_error_string.restype = ctypes.c_char_p
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+@functools.lru_cache(None)
+def gemv_split(K: int, gs: int) -> Tuple[int, int]:
+    """(splits, chunk) of the GEMV form's reduction over K rows: chunks of
+    whole scale groups of ``gs`` rows (bf16 weights: gs = 8), at most
+    GEMV_CHUNK rows each."""
+    per = max(1, GEMV_CHUNK // gs) * gs
+    chunk = min(per, -(-K // gs) * gs)
+    return -(-K // chunk), chunk
+
+
+def _weight_operands(w, device, K: int, F: int):
+    """(weight pointer, scales pointer or None, group size, format code) of
+    the storage the kernel takes; anything else raises."""
+    what = "grouped_matmul kernel"
+    if isinstance(w, QuantizedMatrix):
+        if w.bits not in (8, "fp8"):
+            raise TypeError(f"{what}: takes int8 or fp8 expert storage, got bits={w.bits!r} "
+                            "(int4 experts keep the rounding emulation, as in the JAX engine)")
+        gs = w.group_size
+        if gs % 32 or K % gs or F % 16:
+            raise ValueError(f"{what}: needs group sizes that are multiples of 32 dividing K "
+                             f"and F a multiple of 16; got K={K}, F={F}, group_size={gs}")
+        if w.dtype != torch.bfloat16:
+            raise TypeError(f"{what}: the kernel computes in bf16; the weight's compute dtype "
+                            f"is {w.dtype}")
+        want = {8: torch.int8, "fp8": FP8}[w.bits]
+        for name, t, dt in (("q", w.q, want), ("scales", w.scales, torch.float32)):
+            if t.device != device or t.dtype != dt:
+                raise ValueError(f"{what}: {name} must be {dt} on {device}, got {t.dtype} on "
+                                 f"{t.device}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+        return w.q.data_ptr(), w.scales.data_ptr(), gs, FORMATS[w.bits]
+    if w.dtype != torch.bfloat16 or w.device != device:
+        raise TypeError(f"{what}: dense weights must be bf16 on {device}, got {w.dtype} on "
+                        f"{w.device}")
+    if F % 8:
+        raise ValueError(f"{what}: needs F a multiple of 8 for bf16 weights, got {F}")
+    if not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError(f"{what}: w must be contiguous and 16-byte aligned")
+    return w.data_ptr(), None, 8, FORMATS["bf16"]
+
+
+def _launch(x: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
+    dev = x.device
+    N, K, E, F = _check_shapes(x, w, group_sizes)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"grouped_matmul kernel: x must be bf16, got {x.dtype}")
+    if K % 8:
+        raise ValueError(f"grouped_matmul kernel: needs K a multiple of 8, got {K}")
+    if group_sizes.device != dev or group_sizes.dtype != torch.int32:
+        raise TypeError(f"grouped_matmul kernel: group_sizes must be int32 on {dev}, got "
+                        f"{group_sizes.dtype} on {group_sizes.device}")
+    wp, sp, gs, fmt = _weight_operands(w, dev, K, F)
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.contiguous()
+    sizes = group_sizes.contiguous()
+    out = torch.empty(N, F, device=dev, dtype=torch.bfloat16)
+    if N == 0 or F == 0:
+        return out
+    splits, chunk, part = 1, K, None
+    if N <= GEMV_MAX_N:
+        splits, chunk = gemv_split(K, gs)
+        part = torch.empty(splits, N, F, device=dev, dtype=torch.float32)
+    lib = _lib()
+    err = lib.sxt_grouped_matmul_bf16(
+        x.data_ptr(), wp, sp, sizes.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), N, K, F, E, gs, fmt, splits, chunk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA error {err} "
+                           f"({lib.sxt_grouped_error_string(err).decode()})")
+    return out
+
+
+__all__ = ["FORMATS", "GEMV_MAX_N", "gemv_split", "grouped_matmul",
+           "grouped_matmul_reference"]

@@ -372,7 +372,9 @@ def test_llama_is_fusable_and_pallas_on_nothing_fusable_raises(models):
     model.config = unfusable   # a structure the port's model refuses to build
     with pytest.raises(ValueError, match="no part of the decode layer is fusable"):
         InferenceEngine(model, state, _cfg(InferenceConfig), device="cpu")
-    eng = InferenceEngine(model, state, _cfg(InferenceConfig, "auto"), device="cpu")
+    # the MoE structure's leaves in place of the dense FFN's
+    moe_state = {k: state.get(k, torch.zeros(shape)) for k, shape in model.param_shapes().items()}
+    eng = InferenceEngine(model, moe_state, _cfg(InferenceConfig, "auto"), device="cpu")
     assert eng._decode_kernel == "xla"
 
 

@@ -139,7 +139,8 @@ def test_logits_stay_f32_for_bf16_operands():
     {"norm": "layernorm"}, {"activation": "gelu"}, {"position": "alibi"},
     {"position": "learned"}, {"rope_interleaved": True}, {"rotary_dim": 4},
     {"parallel_block": True}, {"embed_ln": True}, {"post_ln": True},
-    {"attn_qkv_bias": True}, {"n_experts": 4}, {"local_attention_window": 8},
+    {"attn_qkv_bias": True}, {"n_experts": 4, "moe_layer_pattern": (True, False)},
+    {"local_attention_window": 8},
     {"attention_pattern": ("global", "local")},
 ])
 def test_structures_outside_the_llama_family_raise(override):
