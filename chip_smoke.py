@@ -8,10 +8,11 @@ Run from the repository root, with one CUDA card:
 It never imports JAX or the JAX package, and every failure ends it with a
 non-zero exit code. The phases:
 
-1. Build: ``nvcc`` compiles the six CUDA sources (paged attention, the
-   fused decode layer, flash attention, fused AdamW, the quantized matmul
-   and the grouped GEMM) into ``build/`` at once, one process each, and
-   the Triton RMSNorm kernel compiles at its first launch.
+1. Build: ``nvcc`` compiles the seven CUDA sources (paged attention, the
+   fused decode layer, flash attention, fused AdamW, the quantized matmul,
+   the grouped GEMM and the LoRA delta) into ``build/`` at once, one
+   process each, and the Triton RMSNorm kernel compiles at its first
+   launch.
 2. Kernels: each kernel and its plain PyTorch version run in bf16 on the
    card at the shapes the serving and training paths give it (RMSNorm at
    both); the errors are held to stated
@@ -29,7 +30,11 @@ non-zero exit code. The phases:
    for the MoE experts' grouped GEMM: bf16, int8 and fp8 stacks of 8
    experts on Mixtral's two expert shapes, 2 to 16,384 rows in four
    group patterns (balanced, one expert, empty first and last experts,
-   ragged).
+   ragged), phase 2g for the LoRA delta of multi-tenant serving:
+   Llama-3-8B's projections (N 4096 and 1024) at ranks 8, 16 and 64 over
+   pools of 5 and 65 slots, from one decode row to a put() of 8 x 1024
+   rows, with null rows, equal bits twice and each row of a mixed call
+   bit-equal to the row alone.
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
    Llama-3-8B at full width and depth with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
@@ -44,7 +49,14 @@ non-zero exit code. The phases:
    int8, int4 and fp8 (``quantize_weights``; the engine quantizes the bf16
    weights on the card), then int8 ``put()`` + ``decode_loop`` and the int8
    v1 ``generate``, their launch counters held the same way, and the weight
-   bytes against bf16.
+   bytes against bf16. 3f: multi-tenant LoRA serving on the same weights
+   (``bench.py``'s multi-tenant row: a pool of 4 slots of rank 8 over wq
+   and wv, 64 tenants, 24 requests served closed-loop, striped over 1, 8
+   and 64 adapters): tok/s, TTFT, TPOT, pool hits, evictions and parks,
+   no preemption, no new program shape once a stripe is warm, the launch
+   counters held the same way; ``put()`` under 8 adapters +
+   ``decode_loop`` against the single-token ``put()`` loop, and a
+   profiled decode window.
 3e. Mixtral-8x7B at full width and depth on the same card, its experts and
    attention matrices in int8 storage made from a seed (47.7 GB): a serve
    with ``serving.moe.moe_impl`` "ragged" and one with "auto" (the
@@ -60,10 +72,12 @@ non-zero exit code. The phases:
    prefill and decode steps; all logits must agree within a stated
    tolerance. Then the ``step()`` and ``put()`` schedules of a quantized
    engine of each format against the CPU f32 engine fed the weights it
-   serves. After 3e: Mixtral cut to depth 2, int8 and fp8, its ``step()``
-   and ``put()`` schedules against the CPU f32 engine fed the card's
-   weights dequantized and routed as the card routed; routing flips are
-   reported with their router-logit gaps.
+   serves, and of a bf16 and an int8 engine with adapters of rank 8 and 16
+   on all four projections (and rows without one) against the CPU f32
+   engine with the same factors. After 3e: Mixtral cut to depth 2, int8
+   and fp8, its ``step()`` and ``put()`` schedules against the CPU f32
+   engine fed the card's weights dequantized and routed as the card
+   routed; routing flips are reported with their router-logit gaps.
 5. Train: ``initialize`` + ``Engine.train_batch`` on the largest entry of
    the Llama training ladder whose state fits the card (``llama3-1b-style``
    on 80 GB), full depth, bf16, FusedAdam, full remat, batch 32 x 1024, one
@@ -1369,6 +1383,136 @@ def check_grouped_gemm(gen, rng, timed=True):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2g: the per-row LoRA delta of multi-tenant serving (B9)
+# ---------------------------------------------------------------------------
+
+# Llama-3-8B's adapted projections: D 4096 in, N 4096 out (wq, wo) or 1024
+# (wk, wv); pool ranks 8 and 16 and the kernel's ceiling 64; pools of 4
+# and 64 slots plus the null slot
+LORA_D = 4096
+LORA_N = (4096, 1024)
+LORA_R = (8, 16, 64)
+LORA_S = (5, 65)
+# (B, T): one decode row, a decode tick's 8 rows (null rows and repeated
+# slots), a tick's chunk rows and a put() of 8 prompts padded to 1024
+LORA_ROWS = [(1, 1), (8, 1), (2, 256), (8, 1024)]
+
+
+def lora_slots(B, S):
+    """The rows' slots: one adapter for one row; for 8 rows two null rows
+    and repeated slots, the pool's last slot included."""
+    if B == 1:
+        return [1]
+    if B == 2:
+        return [1, S - 1]
+    return [0, 1, S - 1, 1, 0, 2, S - 1, 3]
+
+
+def _lora_mid_bf16(x, a, b, slots):
+    """A broken plain version: the middle product rounded to bf16 (the
+    Punica form) before the second product."""
+    import torch
+
+    idx = slots.long()
+    mid = torch.bmm(x.float(), a[idx].float()).bfloat16().float()
+    return torch.bmm(mid, b[idx].float()).to(x.dtype)
+
+
+def lora_bound(B, T, D, R, N, slots):
+    """The least time for the call's work (ms, and what bounds it): x of
+    the rows that name an adapter read once, every output row written
+    once, the factors of the distinct slots they name read once; the
+    first product's operations at the bf16 tensor-core rate (bf16 inputs,
+    f32 sums) and the second's at the f32 rate (its mid is f32)."""
+    used = [s for s in slots if s != 0]
+    rows = len(used) * T
+    nbytes = rows * D * 2 + B * T * N * 2 + len(set(used)) * (D * R + R * N) * 2 + B * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * rows * D * R / BF16_FLOP_PER_S + 2.0 * rows * R * N / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_lora_gemm(gen):
+    """B9 against its plain version (gather, f32 products, f32 mid) in bf16
+    at every (rows, N, R, S) of the LORA_* lists: the serving kernels'
+    tolerance per output row, null rows exactly 0, equal bits twice, and
+    at 8 rows each row of the mixed call bit-equal to a call of that row
+    alone. At each shape of the 5-slot pool at N 4096 a plain version that
+    reads slot s + 1 must fail the tolerance; one that rounds mid to bf16
+    is reported (it need not fail: mid's rounding moves the output by
+    ~2^-9 of it). Every cell is timed beside its bound, the plain version,
+    the library sequence it replaces (gather + two ``torch.bmm`` in bf16;
+    no single PyTorch call computes it) and the host us of one wrapper
+    call."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops.lora_gemm import lora_delta, lora_delta_reference
+
+    rows = []
+    with _f32_reduction():
+        for S in LORA_S:
+            for R in LORA_R:
+                for N in LORA_N:
+                    a = (torch.randn(S, LORA_D, R, generator=gen, device="cuda")
+                         * LORA_D ** -0.5).bfloat16()
+                    b = (torch.randn(S, R, N, generator=gen, device="cuda") * R ** -0.5).bfloat16()
+                    a[0].zero_()
+                    b[0].zero_()
+                    for B, T in LORA_ROWS:
+                        sl = lora_slots(B, S)
+                        slots = torch.tensor(sl, dtype=torch.int32, device="cuda")
+                        x = torch.randn(B, T, LORA_D, generator=gen, device="cuda").bfloat16()
+                        run = lambda: lora_delta(x, a, b, slots)
+                        plain = lambda: lora_delta_reference(x, a, b, slots)
+                        got, want = run(), plain()
+                        torch.cuda.synchronize()
+                        err, tol_ok = paged_close(got, want)
+                        null = [i for i, s_ in enumerate(sl) if s_ == 0]
+                        row = dict(shape=dict(B=B, T=T, D=LORA_D, R=R, N=N, S=S, slots=sl),
+                                   max_abs_err=err.max().item(),
+                                   max_rel_err=(err.max() / want.float().abs().max()).item(),
+                                   tolerance=PAGED_TOL + " per output row; null rows exactly 0",
+                                   within=tol_ok,
+                                   null_rows_zero=all(bool((got[i] == 0).all()) for i in null),
+                                   equal_bits_twice=torch.equal(got, run()))
+                        _check(tol_ok, f"lora delta kernel disagrees with its plain version at "
+                               f"{row['shape']}: max abs err {row['max_abs_err']}")
+                        _check(row["null_rows_zero"], f"lora delta: a null row is not exactly 0 "
+                               f"at {row['shape']}")
+                        _check(row["equal_bits_twice"], f"two runs of the lora delta differ at "
+                               f"{row['shape']}")
+                        if B == 8:
+                            row["rows_equal_solo"] = all(
+                                torch.equal(got[i], lora_delta(x[i:i + 1], a, b, slots[i:i + 1])[0])
+                                for i in range(B))
+                            _check(row["rows_equal_solo"], f"a row of the mixed lora call differs "
+                                   f"from the row alone at {row['shape']}")
+                        if S == LORA_S[0] and N == LORA_N[0]:
+                            next_slot = lora_delta_reference(x, a, b, (slots + 1) % S)
+                            mid_bf16 = _lora_mid_bf16(x, a, b, slots)
+                            bites = {"slot_plus_one": _bites(got, next_slot),
+                                     "mid_rounded_bf16": _bites(got, mid_bf16)}
+                            row["tolerance_bites"] = bites
+                            _check(bites["slot_plus_one"], "the lora tolerance does not catch a "
+                                   "plain version reading the next slot")
+                        b_ms, b_by = lora_bound(B, T, LORA_D, R, N, sl)
+                        idx = slots.long()
+                        seq = lambda: torch.bmm(torch.bmm(x, a[idx]), b[idx])
+                        iters = 5 if B * T > 1024 else 10
+                        row.update(ms=time_cold(run, iters), host_us=host_us(run),
+                                   plain_ms=time_cold(plain, 3), library_ms=None,
+                                   library_sequence_ms=time_cold(seq, 3),
+                                   library="none (gather + two torch.bmm in bf16 timed as "
+                                           "library_sequence_ms)",
+                                   bound_ms=b_ms, bound_by=b_by)
+                        rows.append(row)
+                        del x, got, want, err
+                    del a, b
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serve Llama-3-8B through the scheduler
 # ---------------------------------------------------------------------------
 
@@ -1419,6 +1563,8 @@ def _kernel_kind(name: str) -> str:
                       ("grouped_gemv_kernel", "grouped_matmul (B16 decode rows)"),
                       ("grouped_out_kernel", "grouped_matmul (B16 decode rows)"),
                       ("grouped_mma_kernel", "grouped_matmul (B16 tensor-core form)"),
+                      ("lora_row_kernel", "lora_delta"),
+                      ("lora_tile_kernel", "lora_delta"),
                       ("gemv_partial_kernel", "fused_gemv (qkv + mlp products)"),
                       ("quant_gemv_kernel", "quant_gemv (B8 decode rows + B7 products)"),
                       ("quant_mma_kernel", "quant_matmul (tensor-core form)"),
@@ -1515,7 +1661,7 @@ def profiled(fn, top_other: int = 0):
     return out
 
 
-def expected_launches(eng, n_layers, loop_steps=0):
+def expected_launches(eng, n_layers, loop_steps=0, by=None):
     """Launches per kernel that the paged engine's programs imply. Chunk
     and prefill rows norm every layer twice and the final rows once;
     chunk rows run the extend kernel in every layer, prefill rows the
@@ -1528,8 +1674,12 @@ def expected_launches(eng, n_layers, loop_steps=0):
     quantized fused MLP (the fused QKV kernel steps aside), unfused ones 7
     a layer. An MoE model's FFN runs three grouped-GEMM launches a layer on
     every row kind and never fuses (ln2 is its own RMSNorm); quantized,
-    only q, k, v and wo take the quantized matmul."""
-    by = eng.dispatches_by_program
+    only q, k, v and wo take the quantized matmul. With the adapter pool
+    on, every row kind runs the LoRA delta once per adapted projection a
+    layer, and decode rows leave the fused QKV kernel (the rest of the
+    fused path stays). ``by``: dispatches by program (default: the
+    engine's since it was made)."""
+    by = eng.dispatches_by_program if by is None else by
     L = n_layers
     dec = by.get("decode", 0) + by.get("mixed", 0) + loop_steps
     ext = by.get("extend", 0) + by.get("mixed", 0)
@@ -1538,14 +1688,17 @@ def expected_launches(eng, n_layers, loop_steps=0):
     quant = eng.config.quantize_weights
     moe = eng._mcfg.n_experts > 0
     fused_mlp = fused and not moe
+    lora = eng.adapters is not None
     out = {"rmsnorm": (2 * L + 1) * (ext + pre) + (L + 1 if fused_mlp else 2 * L + 1) * dec,
            "paged_decode_attention": 0 if fused else L * dec,
            "paged_extend_attention": L * ext, "flash_attention": L * pre,
            "fused_paged_decode_attention": L * dec if fused else 0,
-           "fused_qkv_rope": L * dec if fused and not quant else 0,
+           "fused_qkv_rope": L * dec if fused and not quant and not lora else 0,
            "fused_mlp": L * dec if fused_mlp and not quant else 0,
            "fused_mlp_quant": L * dec if fused_mlp and quant else 0,
-           "grouped_matmul": 3 * L * (dec + ext + pre) if moe else 0}
+           "grouped_matmul": 3 * L * (dec + ext + pre) if moe else 0,
+           "lora_delta": (len(eng.config.adapters.targets) * L * (dec + ext + pre)
+                          if lora else 0)}
     if not quant:
         out["quant_matmul"] = 0
     elif moe:
@@ -1619,12 +1772,15 @@ def loop_prompts(rng, V, n=N_PROMPTS):
     return [rng.integers(1, V, size=int(L)).tolist() for L in lens]
 
 
-def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG, label="put"):
+def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG, label="put",
+                    setup=None):
     """3b: one ``put()`` of every prompt (one batched prefill program),
     then ``decode_loop`` of LOOP_STEPS steps, with the launch counters
     zeroed just before and read just after; they must equal what the
     programs imply. The tokens must equal LOOP_STEPS single-token
-    ``put()`` calls on a second engine."""
+    ``put()`` calls on a second engine. ``setup(engine)``, when given,
+    prepares each engine first (3f: registers adapters and binds the
+    uids)."""
     import torch
 
     from shuffle_exchange_tpu_torch import ops
@@ -1635,6 +1791,8 @@ def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG,
     eng = InferenceEngineV2(model, params, InferenceConfig(**config))
     _check(eng._decode_kernel == "pallas", "decode_kernel auto did not resolve to the fused "
            "kernels on the card")
+    if setup is not None:
+        setup(eng)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1661,6 +1819,8 @@ def put_decode_loop(model, params, prompts, n_layers, card, config=SERVE_CONFIG,
     del eng
 
     ref = InferenceEngineV2(model, params, InferenceConfig(**config))
+    if setup is not None:
+        setup(ref)
     ref_first = [int(t) for t in ref.put(uids, prompts).argmax(-1)]
     nxt, host = ref_first, []
     for _ in range(LOOP_STEPS):
@@ -1815,6 +1975,153 @@ def quant_serving(model, params, prompts, n_layers, card, seed, bf16):
                                                          config=QUANT_SERVE[8])
     print(f"[trace put_decode_loop int8] {json.dumps(out['trace_put_decode_loop'])}", flush=True)
     free()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3f: multi-tenant LoRA serving (the adapter pool, B9)
+# ---------------------------------------------------------------------------
+
+# bench.py's serving_multi_tenant_row geometry: a pool of 4 slots of rank 8
+# over wq and wv, 64 tenants registered, 24 requests of 64-512 prompt
+# tokens and 32 new tokens, striped round-robin over 1, 8 and 64 adapters
+MT_TARGETS = ("wq", "wv")
+MT_RANK = 8
+MT_CONFIG = dict(SERVE_CONFIG, adapters={"enabled": True, "slots": 4, "max_rank": MT_RANK,
+                                         "targets": MT_TARGETS})
+MT_REQUESTS, MT_NEW, MT_PROMPTS = 24, 32, (64, 512)
+MT_STRIPES = (1, 8, 64)
+
+
+def tenant_factors(mcfg, i, rank=MT_RANK, targets=MT_TARGETS, std=0.02, alpha=None):
+    """Tenant i's (A, B) factors: std * N(0, 1) from ``default_rng(1000 +
+    i)``, [L, d_in, rank] and [L, rank, d_out] f32 per target."""
+    from shuffle_exchange_tpu_torch.inference.adapters import target_dims
+
+    frng = np.random.default_rng(1000 + i)
+    out = {}
+    for t in targets:
+        din, dout = target_dims(mcfg, t)
+        out[t] = (std * frng.standard_normal((mcfg.n_layers, din, rank), dtype=np.float32),
+                  std * frng.standard_normal((mcfg.n_layers, rank, dout), dtype=np.float32))
+    return out
+
+
+def multi_tenant_serving(model, params, prompts, n_layers, card, seed):
+    """3f: one engine (the pool's 4 slots, 64 tenants registered), the
+    phase's 24 requests served closed-loop for each stripe of MT_STRIPES
+    adapters: a warm serve, then the measured one with the launch
+    counters zeroed just before and read just after (they must equal what
+    its programs imply: B9 twice a layer and lane, no fused QKV on adapter
+    rows). Every stripe must finish with no preemption and parks ==
+    unparks, and the measured serves of the 8- and 64-adapter stripes add
+    no program shape. Then ``put()`` of the 3b prompts under 8 distinct
+    adapters + ``decode_loop`` (tokens equal to the single-token ``put()``
+    loop), and one profiled decode window."""
+    import torch
+
+    from shuffle_exchange_tpu_torch import ops
+    from shuffle_exchange_tpu_torch.inference import (ContinuousBatchingScheduler,
+                                                      InferenceConfig, InferenceEngineV2)
+
+    mcfg, V = model.config, model.config.vocab_size
+    rng = np.random.default_rng([seed, 13])
+    lo, hi = MT_PROMPTS
+    reqs = [rng.integers(1, V, size=int(n)).tolist()
+            for n in rng.integers(lo, hi + 1, size=MT_REQUESTS)]
+    t0 = time.perf_counter()
+    tenants = {f"tenant-{i:03d}": tenant_factors(mcfg, i) for i in range(max(MT_STRIPES))}
+    eng = InferenceEngineV2(model, params, InferenceConfig(**MT_CONFIG))
+    _check(eng._decode_kernel == "pallas", "multi-tenant: decode_kernel auto did not resolve "
+           "to the fused kernels on the card")
+    for aid, fac in tenants.items():
+        eng.adapters.register(aid, fac)
+    host_gb = sum(a.nbytes + b.nbytes for fac in tenants.values() for a, b in fac.values()) / 1e9
+    pool_mb = sum(t.numel() * t.element_size()
+                  for k in ("a", "b") for t in eng.adapters.device_operands()[k].values()) / 1e6
+    print(f"[multi-tenant] {len(tenants)} tenants registered ({host_gb:.2f} GB of f32 host "
+          f"factors) over a {eng.adapters.slots}-slot pool of {pool_mb:.2f} MB in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out = {"stripes": {}}
+    for n in MT_STRIPES:
+        aids = [f"tenant-{i % n:03d}" for i in range(MT_REQUESTS)]
+        t0 = time.perf_counter()
+        ContinuousBatchingScheduler(eng).serve(reqs, max_new_tokens=MT_NEW, adapter_ids=aids)
+        warm_s = time.perf_counter() - t0
+        programs, pool0 = set(eng.program_shapes), eng.adapters.stats()
+        by0 = dict(eng.dispatches_by_program)
+        sched = ContinuousBatchingScheduler(eng)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = sched.serve(reqs, max_new_tokens=MT_NEW, adapter_ids=aids)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        st = sched.stats()
+        by = {k: v - by0.get(k, 0) for k, v in eng.dispatches_by_program.items()}
+        want = expected_launches(eng, n_layers, by=by)
+        _check(launches == want, f"multi-tenant {n}: launch counts {launches} != implied {want}")
+        _check(len(toks) == MT_REQUESTS and all(len(t) == MT_NEW for t in toks.values()),
+               f"multi-tenant {n}: requests did not all finish with {MT_NEW} tokens")
+        _check(all(0 <= t < V for ts in toks.values() for t in ts), "token out of range")
+        ad = st["adapters"]
+        _check(st["preemptions"] == 0 and ad["parks"] == ad["unparks"] and ad["pinned"] == 0,
+               f"multi-tenant {n}: preemptions {st['preemptions']}, parks {ad['parks']}, "
+               f"unparks {ad['unparks']}, pinned {ad['pinned']}")
+        new_programs = sorted(set(eng.program_shapes) - programs)
+        if n > 1:
+            _check(not new_programs, f"multi-tenant {n}: the measured serve added program "
+                   f"shapes {new_programs}")
+        pool = {k: ad[k] - pool0[k] for k in ("hits", "misses", "evictions", "installs",
+                                              "prefetch_hits", "prefetch_misses")}
+        lookups = pool["hits"] + pool["misses"]
+        r = dict(seconds=seconds, warm_seconds=warm_s, ticks=st["ticks"],
+                 tokens_per_s=st["sustained_tokens_per_sec"], ttft_p50_s=st["ttft_p50_s"],
+                 ttft_p95_s=st["ttft_p95_s"], tpot_p50_s=st["tpot_p50_s"],
+                 tpot_p95_s=st["tpot_p95_s"], pool=pool,
+                 pool_hit_rate=pool["hits"] / lookups if lookups else None,
+                 parks=ad["parks"], unparks=ad["unparks"], preemptions=st["preemptions"],
+                 programs=by, new_programs=new_programs, launches=launches)
+        out["stripes"][n] = r
+        print(f"[multi-tenant {n} adapters] {MT_REQUESTS} requests x {MT_NEW} tokens in "
+              f"{seconds:.2f} s (warm serve {warm_s:.2f} s): tok/s={r['tokens_per_s']} "
+              f"ttft_p50/p95_s={r['ttft_p50_s']}/{r['ttft_p95_s']} "
+              f"tpot_p50/p95_s={r['tpot_p50_s']}/{r['tpot_p95_s']} ticks={r['ticks']} "
+              f"pool={json.dumps(pool)} hit_rate={r['pool_hit_rate']} parks={r['parks']} "
+              f"unparks={r['unparks']} preemptions={r['preemptions']} "
+              f"new_programs={new_programs} launches={launches} on {card}", flush=True)
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # put() + decode_loop under 8 distinct adapters, on a pool with a slot each
+    put_cfg = dict(MT_CONFIG, adapters=dict(MT_CONFIG["adapters"], slots=len(prompts)))
+
+    def setup(e):
+        for i in range(len(prompts)):
+            e.adapters.register(f"tenant-{i:03d}", tenants[f"tenant-{i:03d}"])
+            e.configure_adapter(i, f"tenant-{i:03d}")
+
+    out["put_decode_loop"] = put_decode_loop(model, params, prompts, n_layers, card,
+                                             config=put_cfg, label="put adapters", setup=setup)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = InferenceEngineV2(model, params, InferenceConfig(**put_cfg))
+    setup(eng)
+    uids = list(range(len(prompts)))
+    first = [int(t) for t in eng.put(uids, prompts).argmax(-1)]
+    eng.decode_loop(uids, first, 2)
+    torch.cuda.synchronize()
+    trace = profiled(lambda: eng.decode_loop(uids, first, 8))
+    if trace:
+        trace["lora_share"] = trace["by_kind_ms"].get("lora_delta", 0.0) / trace["device_busy_ms"]
+    out["trace_decode_loop"] = trace
+    print(f"[trace decode_loop adapters] {json.dumps(trace) if trace else 'no device kernels'}",
+          flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1993,6 +2300,24 @@ def _quant(bits):
     return {} if bits is None else dict(quantize_weights=True, quant_bits=bits)
 
 
+# phase 4 with adapters: all four targets, a pool of rank 16 holding
+# adapters of rank 8 and 16 (alpha 2r), uids 0-3 bound to them and to none
+E2E_ADAPTERS = {"enabled": True, "slots": 4, "max_rank": 16}
+E2E_BINDING = {0: "r8", 1: "r16", 2: None, 3: "r8"}
+
+
+def e2e_adapters(engines, cfg):
+    """Register phase 4's two adapters on each engine (the same numpy
+    factors) and bind the schedules' uids to them."""
+    facs = {f"r{r}": tenant_factors(cfg, 500 + r, rank=r, targets=("wq", "wk", "wv", "wo"))
+            for r in (8, 16)}
+    for e in engines:
+        for aid, fac in facs.items():
+            e.adapters.register(aid, fac, alpha=2.0 * int(aid[1:]))
+        for uid, aid in E2E_BINDING.items():
+            e.configure_adapter(uid, aid)
+
+
 def host_weights(params):
     """The weights an engine serves, as f32 on the CPU: quantized matrices
     dequantized in f32 (the plain quantized matmul in f32 multiplies by
@@ -2005,16 +2330,19 @@ def host_weights(params):
                 else v.detach().float().cpu()) for k, v in params.items()}
 
 
-def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto", quant_bits=None):
+def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto", quant_bits=None,
+              adapters=False):
     """Run the schedule on a bf16 engine on the card (``decode_kernel`` as
-    given; ``quant_bits`` quantizes its weights) and an f32 engine on the
-    CPU ("xla": the paged plain versions) fed the weights the card engine
-    serves; returns per-tick errors."""
+    given; ``quant_bits`` quantizes its weights; ``adapters`` adds phase
+    4's adapter pool and bindings) and an f32 engine on the CPU ("xla":
+    the paged plain versions) fed the weights and adapter factors the
+    card engine serves; returns per-tick errors."""
     from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
     from shuffle_exchange_tpu_torch.models import Transformer
 
     icfg = dict(max_seq_len=512, kv_block_size=64, num_kv_blocks=24,
-                serving={"token_budget": 256, "max_running": 8})
+                serving={"token_budget": 256, "max_running": 8},
+                **({"adapters": E2E_ADAPTERS} if adapters else {}))
     card = InferenceEngineV2(Transformer(cfg, device=card_device), card_state,
                              InferenceConfig(dtype="bfloat16", decode_kernel=decode_kernel,
                                              **_quant(quant_bits), **icfg), device=card_device)
@@ -2025,6 +2353,8 @@ def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto", qu
     host = InferenceEngineV2(Transformer(cfg, device="cpu"), cpu_state,
                              InferenceConfig(dtype="float32", decode_kernel="xla", **icfg),
                              device="cpu")
+    if adapters:
+        e2e_adapters((card, host), cfg)
     ticks = []
     for tick in e2e_schedule(rng, cfg.vocab_size):
         got = card.step(*tick)
@@ -2055,14 +2385,17 @@ def put_schedule(rng, V, lengths=(200, 120, 60, 30)):
             ([1, 3, 0], [t[8:78], t[78:83], [t[83]]])]
 
 
-def e2e_put_check(cfg, card_state, rng, decode_kernels=("auto", "xla"), quant_bits=None):
+def e2e_put_check(cfg, card_state, rng, decode_kernels=("auto", "xla"), quant_bits=None,
+                  adapters=False):
     """The put() schedule on bf16 engines on the card (each decode path;
-    ``quant_bits`` quantizes their weights) and on an f32 engine on the
-    CPU fed the weights they serve; per-call logits errors."""
+    ``quant_bits`` quantizes their weights; ``adapters`` adds phase 4's
+    adapters) and on an f32 engine on the CPU fed the weights and factors
+    they serve; per-call logits errors."""
     from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
     from shuffle_exchange_tpu_torch.models import Transformer
 
-    icfg = dict(max_seq_len=512, kv_block_size=64, num_kv_blocks=24)
+    icfg = dict(max_seq_len=512, kv_block_size=64, num_kv_blocks=24,
+                **({"adapters": E2E_ADAPTERS} if adapters else {}))
     schedule = put_schedule(rng, cfg.vocab_size)
     cards = {dk: InferenceEngineV2(Transformer(cfg), card_state,
                                    InferenceConfig(dtype="bfloat16", decode_kernel=dk,
@@ -2072,6 +2405,8 @@ def e2e_put_check(cfg, card_state, rng, decode_kernels=("auto", "xla"), quant_bi
                              host_weights(cards[decode_kernels[0]].params),
                              InferenceConfig(dtype="float32", decode_kernel="xla", **icfg),
                              device="cpu")
+    if adapters:
+        e2e_adapters((*cards.values(), host), cfg)
     want = [host.put(*call) for call in schedule]
     out = {}
     for dk, card in cards.items():
@@ -2187,9 +2522,9 @@ class RoutingReplay:
         def wrap(name, lanes):
             program = getattr(eng, name)
 
-            def run(*args):
+            def run(*args, **kw):
                 self.pending += lanes(*args) * L
-                return program(*args)
+                return program(*args, **kw)
 
             setattr(eng, name, run)
 
@@ -2505,7 +2840,7 @@ def main(argv=None) -> int:
     # 1. build: one nvcc per source, all at once
     t0 = time.perf_counter()
     libs = _build.build_all(["paged_attention", "fused_decode", "flash_attention", "fused_adam",
-                             "quant_matmul", "grouped_gemm"])
+                             "quant_matmul", "grouped_gemm", "lora_gemm"])
     nvcc_s = time.perf_counter() - t0
     for stem, lib in libs.items():
         print(f"[build] nvcc {stem}.cu -> {lib.name}")
@@ -2549,11 +2884,16 @@ def main(argv=None) -> int:
     ggm = check_grouped_gemm(gen, np.random.default_rng([args.seed, 12]))
     print(f"[kernel] grouped_matmul: {len(ggm)} cells in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # 2g. the LoRA delta of multi-tenant serving
+    t0 = time.perf_counter()
+    lora = check_lora_gemm(gen)
+    print(f"[kernel] lora_delta: {len(lora)} cells in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
                "fused_mlp": mlp, "fused_mlp_quant": qmlp, "quant_matmul": qmm,
-               "grouped_matmul": ggm, "flash_attention": flash, "flash_attention_bwd": fbwd,
-               "fused_adamw": adamw}
+               "grouped_matmul": ggm, "lora_delta": lora, "flash_attention": flash,
+               "flash_attention_bwd": fbwd, "fused_adamw": adamw}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
@@ -2563,7 +2903,8 @@ def main(argv=None) -> int:
                                        "equal_bits_twice",
                                        "autograd_max_err_over_rms", "fwd_lse_ms",
                                        "gbytes_per_s", "dense_cublas_ms",
-                                       "dense_cublas_sequence_ms") if k in r}
+                                       "dense_cublas_sequence_ms", "library_sequence_ms",
+                                       "null_rows_zero", "rows_equal_solo") if k in r}
             timed = ("" if "ms" not in r else
                      f"kernel_ms={r['ms']} host_us={r['host_us']} plain_ms={r['plain_ms']} "
                      f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} ({r['bound_by']}) ")
@@ -2620,6 +2961,13 @@ def main(argv=None) -> int:
         print(f"[trace {label}] {json.dumps(t) if t else 'no device kernels recorded'}",
               flush=True)
 
+    # 3f. multi-tenant LoRA serving on the same weights
+    t0 = time.perf_counter()
+    tenants = multi_tenant_serving(model, params, prompts, cfg.n_layers, card, args.seed)
+    print(f"[multi-tenant] phase 3f in {time.perf_counter() - t0:.1f} s", flush=True)
+    runs += [r["launches"] for r in tenants["stripes"].values()]
+    runs.append(tenants["put_decode_loop"]["launches"])
+
     # 4. depth 2 on the card, fused and not, against the CPU f32 plain path
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     state2 = {k: (v[:2] if k.startswith("layers.") else v) for k, v in params.items()}
@@ -2646,6 +2994,17 @@ def main(argv=None) -> int:
                                                    decode_kernels=("auto",),
                                                    quant_bits=bits)["auto"]
     print(f"[e2e quantized] step() and put() schedules of three formats in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # with adapters (bf16 and int8 bases), against the CPU f32 engine with
+    # the same factors
+    t0 = time.perf_counter()
+    for bits, name in ((None, "auto adapters"), (8, "auto int8 adapters")):
+        e2e["step"][name] = e2e_check(cfg2, state2, np.random.default_rng([args.seed, 2]),
+                                      quant_bits=bits, adapters=True)
+        e2e["put"][name] = e2e_put_check(cfg2, state2, np.random.default_rng([args.seed, 7]),
+                                         decode_kernels=("auto",), quant_bits=bits,
+                                         adapters=True)["auto"]
+    print(f"[e2e adapters] step() and put() schedules, bf16 and int8 bases, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for what, by_dk in e2e.items():
         for dk, calls in by_dk.items():
@@ -2737,6 +3096,7 @@ def main(argv=None) -> int:
                 "fused_mlp_quant": "shuffle_exchange_tpu/ops/fused_decode.py:634",
                 "quant_matmul": "shuffle_exchange_tpu/ops/quant_matmul.py:217",
                 "grouped_matmul": "shuffle_exchange_tpu/ops/grouped_gemm.py:63",
+                "lora_delta": "shuffle_exchange_tpu/ops/lora_gemm.py:60",
                 "flash_attention": "shuffle_exchange_tpu/ops/flash_attention.py:122",
                 "flash_attention_bwd": "shuffle_exchange_tpu/ops/flash_attention.py:122",
                 "fused_adamw": "shuffle_exchange_tpu/ops/fused_adam.py:40"}
@@ -2751,6 +3111,7 @@ def main(argv=None) -> int:
                "fused_mlp": ("cuda", fused_cu), "fused_mlp_quant": ("cuda", fused_cu),
                "quant_matmul": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/quant_matmul.cu"),
                "grouped_matmul": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/grouped_gemm.cu"),
+               "lora_delta": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/lora_gemm.cu"),
                "flash_attention": ("cuda", flash_cu), "flash_attention_bwd": ("cuda", flash_cu),
                "fused_adamw": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/fused_adam.cu")}
     kernels = []
@@ -2760,6 +3121,9 @@ def main(argv=None) -> int:
         if name == "grouped_matmul":    # the main path's cell: a decode tick's int8 w_gate
             m = next(r for r in rows if r["shape"]["fmt"] == "8" and r["shape"]["N"] == 16
                      and r["shape"]["K"] == 4096 and r["shape"]["groups"] == "ragged")
+        if name == "lora_delta":        # the main path's cell: a decode tick of phase 3f's pool
+            m = next(r for r in rows if (r["shape"]["B"], r["shape"]["T"], r["shape"]["N"],
+                                         r["shape"]["R"], r["shape"]["S"]) == (8, 1, 4096, 8, 5))
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces[name], "launches": launches[name],
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2771,7 +3135,8 @@ def main(argv=None) -> int:
               "build": {"nvcc_s": nvcc_s}, "kernels": kernels,
               "kernel_checks": dict(checked, paged_sweep=sweep, fused_decode_sweep=fsweep),
               "serve": serves, "put_decode_loop": loop, "v1_generate": v1, "trace": traces,
-              "quant_serving": quant, "mixtral": mixtral, "moe_e2e": moe_e2e,
+              "quant_serving": quant, "multi_tenant": tenants, "mixtral": mixtral,
+              "moe_e2e": moe_e2e,
               "e2e": e2e, "train": trained, "train_e2e": te2e}
     if args.out:
         with open(args.out, "w") as f:

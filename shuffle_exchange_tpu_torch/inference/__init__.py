@@ -1,9 +1,11 @@
 """Serving in PyTorch (counterpart of ``shuffle_exchange_tpu.inference``
 for the names the port has): the paged continuous-batching engine with
-its scheduler and its sequential ``put`` / ``decode_loop`` API, and the
-dense-cache v1 engine (``init_inference(...).generate``)."""
+its scheduler, its sequential ``put`` / ``decode_loop`` API and its
+multi-tenant LoRA adapter pool, and the dense-cache v1 engine
+(``init_inference(...).generate``)."""
 
-from .config import InferenceConfig, MoEServingConfig, ServingConfig
+from .adapters import AdapterPool, AdapterPoolDry
+from .config import AdapterConfig, InferenceConfig, MoEServingConfig, ServingConfig
 from .engine import InferenceEngine, KVCache, init_inference
 from .engine_v2 import InferenceEngineV2, SequenceDescriptor
 from .paged import BlockedAllocator, PagedKVCache
@@ -13,6 +15,9 @@ __all__ = [
     "InferenceConfig",
     "ServingConfig",
     "MoEServingConfig",
+    "AdapterConfig",
+    "AdapterPool",
+    "AdapterPoolDry",
     "InferenceEngine",
     "KVCache",
     "init_inference",

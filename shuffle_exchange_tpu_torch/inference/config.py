@@ -27,7 +27,6 @@ _UNSUPPORTED = {
     "kv_tier": "the host KV tier (ROADMAP queue A, item 3)",
     "prefix_caching": "prefix caching (ROADMAP queue A, item 3)",
     "kv_cache_dtype": "int8/fp8 KV storage (ROADMAP queue A, item 3)",
-    "adapters": "multi-tenant LoRA adapters (ROADMAP queue A, item 10)",
     "router": "the multi-replica router (ROADMAP queue A, item 13)",
 }
 
@@ -62,6 +61,45 @@ def _normalize_quant_bits(qb):
 def _refuse(key: str) -> ConfigError:
     return ConfigError(f"{key!r}: {_UNSUPPORTED[key]} is not in the PyTorch "
                        "port yet")
+
+
+@dataclasses.dataclass
+class AdapterConfig:
+    """Multi-tenant LoRA serving, with the JAX package's defaults and
+    validation: a fixed-slot device pool of rank-padded adapter factor
+    pairs (``inference/adapters.py``) that a mixed-adapter batch gathers
+    from per row inside the serving step.
+
+    - ``slots``: resident adapters (the device planes carry slots + 1;
+      slot 0 is the all-zeros null adapter no-adapter rows gather);
+    - ``max_rank``: the rank ceiling; factors are zero-padded to it;
+    - ``targets``: the attention projections adapted;
+    - ``prefetch_depth``: adapters staged into pinned host buffers ahead
+      of their expected acquire (0 disables staging).
+    """
+
+    enabled: bool = False
+    slots: int = 4
+    max_rank: int = 8
+    targets: Tuple[str, ...] = ("wq", "wk", "wv", "wo")
+    prefetch_depth: int = 1
+
+    def __post_init__(self):
+        if not isinstance(self.enabled, bool):
+            raise ConfigError(f"adapters.enabled must be a bool, got {self.enabled!r}")
+        for name in ("slots", "max_rank"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or v < 1:
+                raise ConfigError(f"adapters.{name} must be an int >= 1, got {v!r}")
+        if not isinstance(self.prefetch_depth, int) or self.prefetch_depth < 0:
+            raise ConfigError(f"adapters.prefetch_depth must be an int >= 0 (0 disables "
+                              f"prefetch staging), got {self.prefetch_depth!r}")
+        self.targets = tuple(self.targets)
+        supported = ("wq", "wk", "wv", "wo")
+        bad = [t for t in self.targets if t not in supported]
+        if bad or not self.targets:
+            raise ConfigError(f"adapters.targets must be a non-empty subset of {supported}, "
+                              f"got {self.targets!r}")
 
 
 @dataclasses.dataclass
@@ -222,8 +260,22 @@ class InferenceConfig:
     kv_cache_dtype: str = "bf16"
     prefix_caching: bool = False
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+    # multi-tenant LoRA serving through the paged engine's adapter pool
+    adapters: AdapterConfig = dataclasses.field(default_factory=AdapterConfig)
 
     def __post_init__(self):
+        if self.adapters is None:
+            self.adapters = AdapterConfig()
+        elif isinstance(self.adapters, dict):
+            allowed = {f.name for f in dataclasses.fields(AdapterConfig)}
+            unknown = set(self.adapters) - allowed
+            if unknown:
+                raise ConfigError(f"unknown adapters config keys {sorted(unknown)} "
+                                  f"(allowed: {sorted(allowed)})")
+            self.adapters = AdapterConfig(**self.adapters)
+        elif not isinstance(self.adapters, AdapterConfig):
+            raise ConfigError(f"adapters must be a dict or AdapterConfig, got "
+                              f"{type(self.adapters).__name__}")
         if self.serving is None:
             self.serving = ServingConfig()
         elif isinstance(self.serving, dict):

@@ -7,9 +7,12 @@ cached path shares (``_layer_body`` / ``_block_tail`` / the dense
 ``_ffn``), the pieces of the fused decode path both JAX engines share (the
 resolution of ``decode_kernel``, the rope rows of the fused QKV kernel,
 the fused QKV for one-token rows in ``_layer_body`` and the fused MLP in
-``_block_tail``), the MoE FFN of an ``n_experts`` model (``moe_layer``
-over the grouped-GEMM kernel, with the routing-count tap the paged engine
-reads), the weight-only quantization of ``quantize_weights``
+``_block_tail``), the per-row adapter deltas the paged engine's adapter
+pool adds to the attention projections through the LoRA kernel
+(``_lora_add``; the v1 engine refuses the ``adapters`` section, which the
+JAX v1 engine ignores), the MoE FFN of an ``n_experts`` model
+(``moe_layer`` over the grouped-GEMM kernel, with the routing-count tap
+the paged engine reads), the weight-only quantization of ``quantize_weights``
 (``_quantize``), and the dense-cache v1 engine: ``generate`` over a
 ``KVCache`` ``[L, B, max_seq_len, KV, Dh]``, whose prefill runs the flash
 attention kernel and whose decode step runs the plain ``decode_attention``
@@ -35,17 +38,19 @@ the full-sequence ``forward`` (item 4) raise, naming their item.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..models.transformer import Transformer, _norm, decode_fusion_eligibility, rope_table
+from ..config.config_utils import ConfigError
 from ..moe.layer import moe_layer
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_decode import fused_mlp, fused_qkv_rope, mlp_weights_fusable
+from ..ops.lora_gemm import MAX_RANK as LORA_MAX_RANK, lora_delta
 from ..ops.paged_attention import decode_attention
 from ..ops.quant import quantize_dequantize
 from ..ops.quant_matmul import QuantizedMatrix, quantize_weight
@@ -91,6 +96,9 @@ def _apply_rope_batched(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -
 
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+#: one layer's adapter operands: ({"a": {target: [S, din, R]}, "b": {target:
+#: [S, R, dout]}}, slots [B] int32 on the device)
+Lora = Tuple[Dict[str, Dict[str, torch.Tensor]], torch.Tensor]
 
 #: the layer matrices ``quantize_weights`` stores quantized (the JAX
 #: engine's storage names)
@@ -112,12 +120,27 @@ class InferenceEngine:
     state dict (``model.params()`` or ``models.convert.params_from_numpy``).
     The engine runs on the card unless ``device="cpu"`` is given."""
 
+    #: whether the engine serves the ``adapters`` section (the paged engine
+    #: does; the JAX v1 engine never reads it, and the port refuses it
+    #: rather than ignore it)
+    serves_adapters = False
+
     def __init__(self, model: Transformer, params: Dict[str, torch.Tensor],
                  config: Optional[InferenceConfig] = None, device=None):
         self.model = model
         self.config = config or InferenceConfig()
+        if self.config.adapters.enabled and not self.serves_adapters:
+            raise ConfigError("adapters.enabled: multi-tenant LoRA adapters serve through the "
+                              "paged InferenceEngineV2 (ContinuousBatchingScheduler, put(), "
+                              "decode_loop()); the v1 engine does not apply them")
         self._mcfg = model.config
         self.device = resolve_device(device)
+        ac = self.config.adapters
+        if ac.enabled and self.device.type == "cuda" and ac.max_rank > LORA_MAX_RANK:
+            # refused before any weight or pool plane reaches the card, and
+            # before a scheduler can pin a slot the first program would fail on
+            raise ConfigError(f"adapters.max_rank={ac.max_rank}: the LoRA delta kernel takes "
+                              f"ranks up to {LORA_MAX_RANK} on the card")
         self._resolve_decode_kernel()
         self.update_params(params)
 
@@ -227,20 +250,43 @@ class InferenceEngine:
         positions = pos.long()[:, None] + torch.arange(ids.shape[1], device=ids.device)[None, :]
         return x, positions
 
+    @staticmethod
+    def _lora_add(base: torch.Tensor, x: torch.Tensor, lora: Lora,
+                  target: str) -> torch.Tensor:
+        """``base + (x @ A[slot[row]]) @ B[slot[row]]``: the per-row adapter
+        delta through the LoRA kernel, added as JAX adds it (the delta cast
+        to base's dtype, then the add: two roundings in bf16). A target the
+        pool does not adapt adds nothing."""
+        pool, slots = lora
+        if target not in pool["a"]:
+            return base
+        delta = lora_delta(x, pool["a"][target], pool["b"][target], slots)
+        return base + delta.to(base.dtype)
+
     def _layer_body(self, lw: Dict[str, torch.Tensor], h: torch.Tensor,
-                    positions: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+                    positions: torch.Tensor, attn_fn: AttnFn,
+                    lora: Optional[Lora] = None) -> torch.Tensor:
         """One block: norm -> QKV + RoPE -> ``attn_fn(q, k, v)`` (which also
         writes the new K/V into the pool) -> output projection, residual,
-        FFN."""
+        FFN. With ``lora`` (the layer's adapter operands) each adapted
+        projection gets its per-row delta after the base matmul and before
+        the reshape and RoPE, and the fused QKV is skipped, as in JAX."""
         cfg = self._mcfg
         B, T = h.shape[:2]
         H, KV, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
         y = _norm(h, lw["ln1_w"], eps=cfg.norm_eps)
-        qkv = self._maybe_fused_qkv(lw, y, positions)
+        qkv = None if lora is not None else self._maybe_fused_qkv(lw, y, positions)
         if qkv is None:
-            q = (y @ lw["wq"]).reshape(B, T, H, Dh)
-            k = (y @ lw["wk"]).reshape(B, T, KV, Dh)
-            v = (y @ lw["wv"]).reshape(B, T, KV, Dh)
+            q = y @ lw["wq"]
+            k = y @ lw["wk"]
+            v = y @ lw["wv"]
+            if lora is not None:
+                q = self._lora_add(q, y, lora, "wq")
+                k = self._lora_add(k, y, lora, "wk")
+                v = self._lora_add(v, y, lora, "wv")
+            q = q.reshape(B, T, H, Dh)
+            k = k.reshape(B, T, KV, Dh)
+            v = v.reshape(B, T, KV, Dh)
             cos, sin = self._rope
             pc, ps = _rope_rows(cos, sin, positions)
             q = _apply_rope_batched(q, pc, ps)
@@ -248,15 +294,20 @@ class InferenceEngine:
         else:
             q, k, v = qkv
         attn = attn_fn(q, k, v)
-        return self._block_tail(lw, h, attn)
+        return self._block_tail(lw, h, attn, lora=lora)
 
     def _block_tail(self, lw: Dict[str, torch.Tensor], h: torch.Tensor,
-                    attn: torch.Tensor) -> torch.Tensor:
-        """Output projection, residual and FFN, shared by the plain and the
-        fused layer bodies (the FFN fuses for one-token rows)."""
+                    attn: torch.Tensor, lora: Optional[Lora] = None) -> torch.Tensor:
+        """Output projection (with the ``wo`` adapter delta under ``lora``),
+        residual and FFN, shared by the plain and the fused layer bodies
+        (the FFN fuses for one-token rows)."""
         cfg = self._mcfg
         B, T = h.shape[:2]
-        h = h + attn.reshape(B, T, cfg.n_heads * cfg.head_dim) @ lw["wo"]
+        attn_flat = attn.reshape(B, T, cfg.n_heads * cfg.head_dim)
+        attn_out = attn_flat @ lw["wo"]
+        if lora is not None:
+            attn_out = self._lora_add(attn_out, attn_flat, lora, "wo")
+        h = h + attn_out
         out = self._maybe_fused_ffn(lw, h)
         if out is not None:
             return out

@@ -37,9 +37,23 @@ previous-tick load that ``moe_pressure()`` and the admission read. On one
 card the experts stay whole (JAX's ``_shard_expert_weights`` is a no-op at
 an expert axis of 1).
 
+Multi-tenant LoRA serving (JAX ``engine_v2``'s adapter pool): with
+``adapters.enabled`` the engine holds an ``AdapterPool`` and every
+descriptor a pinned slot (0, the all-zeros null adapter, for rows without
+one). Every program then passes each lane's slots [B] (an int32 tensor on
+the device, padding rows on slot 0) with the layer's factor stacks down to
+the layer body, where the LoRA kernel adds each row's delta to the
+adapted projections; decode rows skip the fused QKV kernel for it (the
+fused decode layer is not used) and keep the split-K attention and the
+fused MLP, as in JAX. An adapter is pinned when its sequence is admitted
+(``configure_adapter`` binds it beforehand; ``put()`` and ``step()`` pin
+a call's new adapters before any other state changes and release them if
+that fails) and released at ``flush``. Adapter residency is the third
+admission resource, after KV blocks and ``max_seq_len``.
+
 Left for later slices: ``step_sampled``, speculation, prefix caching and
-``fork``, int8/fp8 KV and the KV tier (ROADMAP queue A, item 3), adapters
-(item 10) and expert parallelism (item 12).
+``fork``, int8/fp8 KV and the KV tier (ROADMAP queue A, item 3) and
+expert parallelism (item 12).
 """
 
 from __future__ import annotations
@@ -56,8 +70,9 @@ from ..moe.gating import compute_capacity
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_decode import fused_paged_decode_attention, fused_qkv_rope
 from ..ops.paged_attention import paged_decode_attention, paged_extend_attention
+from .adapters import AdapterPool
 from .config import InferenceConfig
-from .engine import InferenceEngine, _bucket, qkv_quantized
+from .engine import InferenceEngine, Lora, _bucket, qkv_quantized
 from .paged import BlockedAllocator, PagedKVCache, append_token_kv, blocks_needed
 
 
@@ -72,10 +87,16 @@ class SequenceDescriptor:
     seen_tokens: int = 0
     blocks: List[int] = dataclasses.field(default_factory=list)
     last_logits: Optional[np.ndarray] = None
+    # the adapter this sequence decodes under and its pinned pool slot
+    # (slot 0: the all-zeros null adapter, an exact no-op)
+    adapter_id: Optional[str] = None
+    adapter_slot: int = 0
 
 
 class InferenceEngineV2(InferenceEngine):
     """Paged continuous-batching engine over a ``PagedKVCache``."""
+
+    serves_adapters = True
 
     def __init__(self, model, params, config: Optional[InferenceConfig] = None,
                  device=None):
@@ -113,6 +134,20 @@ class InferenceEngineV2(InferenceEngine):
             # serving impl wins
             self._moe_impl_override = None if mo.moe_impl == "auto" else mo.moe_impl
             self._moe_cf_override = mo.capacity_factor
+        # multi-tenant LoRA: the adapter pool (its planes in the serving
+        # dtype on the engine's device), each layer's views of them, and
+        # the bindings of uids not admitted yet
+        self.adapters: Optional[AdapterPool] = None
+        self._adapter_layers: List[Dict[str, Dict[str, torch.Tensor]]] = []
+        self._pending_adapter: Dict[int, str] = {}
+        if cfg.adapters.enabled:
+            ac = cfg.adapters
+            self.adapters = AdapterPool(mcfg, slots=ac.slots, max_rank=ac.max_rank,
+                                        targets=ac.targets, prefetch_depth=ac.prefetch_depth,
+                                        dtype=cfg.torch_dtype(), device=self.device)
+            ops = self.adapters.device_operands()
+            self._adapter_layers = [{k: {t: v[i] for t, v in ops[k].items()} for k in ("a", "b")}
+                                    for i in range(mcfg.n_layers)]
 
     # -- scheduling queries -------------------------------------------
 
@@ -137,7 +172,13 @@ class InferenceEngineV2(InferenceEngine):
 
     def _admission_detail(self, uids: Sequence[int],
                           lengths: Sequence[int]) -> Tuple[bool, int, str]:
-        """(ok, blocks_from_free_pool, why-not), with named numbers."""
+        """(ok, blocks_from_free_pool, why-not), with named numbers.
+
+        The checks on new uids (adapter residency, expert pressure) serve
+        ``put()`` and direct ``step()`` callers. The scheduler gates its
+        admissions in ``tick()`` and creates each descriptor through
+        ``acquire_prefix`` before the tick's ``step()``, as JAX's does, so
+        by then its uids are known and only the KV check applies."""
         bs = self.cache.block_size
         need, worst_uid, worst_ask = 0, None, -1
         for uid, n in zip(uids, lengths):
@@ -158,6 +199,19 @@ class InferenceEngineV2(InferenceEngine):
                 f"needs {need} KV blocks, {self.allocator.free_blocks} free "
                 f"(largest single ask: uid {worst_uid} wants {worst_ask} new); "
                 f"flush finished sequences or raise num_kv_blocks")
+        if self.adapters is not None:
+            # adapter residency, the third resource: a batch whose pending
+            # adapters cannot all be pinned is refused before any change,
+            # naming the adapter pool (not KV), so the scheduler parks
+            want = [self._pending_adapter[u] for u in uids
+                    if self._seqs.get(u) is None and u in self._pending_adapter]
+            if want:
+                aok, awhy = self.adapters.can_acquire_all(want)
+                if not aok:
+                    return False, need, (
+                        f"adapter pool (KV is fine: {need} blocks needed, "
+                        f"{self.allocator.free_blocks} free): {awhy}; park until a running "
+                        f"sequence releases its slot")
         if self._moe_serving and any(self._seqs.get(u) is None for u in uids):
             # expert capacity: when the previous tick's routing saturated
             # some expert's buffer, new sequences are refused (known uids
@@ -303,13 +357,15 @@ class InferenceEngineV2(InferenceEngine):
 
     # -- layers -----------------------------------------------------------
 
-    def _decode_layer(self, lw, h, ck, cv, pos, tables) -> torch.Tensor:
+    def _decode_layer(self, lw, h, ck, cv, pos, tables,
+                      lora: Optional[Lora] = None) -> torch.Tensor:
         """One decode layer (one token per row): the fused layer when the
-        decode path is fused and the attention weights are dense, else
-        append the token's K/V into the layer's pool view in place and run
-        the split-K decode kernel (fused path) or the paged decode kernel."""
+        decode path is fused, the attention weights are dense and no
+        adapter operands ride the call, else append the token's K/V into
+        the layer's pool view in place and run the split-K decode kernel
+        (fused path) or the paged decode kernel."""
         fused = self._decode_kernel == "pallas"
-        if fused and self._fuse_qkv and not qkv_quantized(lw):
+        if fused and self._fuse_qkv and not qkv_quantized(lw) and lora is None:
             return self._fused_paged_layer(lw, h, ck, cv, pos, tables)
 
         def attn_fn(q, k, v):
@@ -321,7 +377,7 @@ class InferenceEngineV2(InferenceEngine):
                 return fused_paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1)
             return paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1)
 
-        return self._layer_body(lw, h, pos, attn_fn)
+        return self._layer_body(lw, h, pos, attn_fn, lora=lora)
 
     def _fused_paged_layer(self, lw, h, ck, cv, pos, tables) -> torch.Tensor:
         """One fused decode layer (JAX ``_fused_paged_layer``): ln1 through
@@ -338,7 +394,8 @@ class InferenceEngineV2(InferenceEngine):
         attn = fused_paged_decode_attention(q[:, None], ck, cv, tables, pos + 1)
         return self._block_tail(lw, h, attn)
 
-    def _extend_layer(self, lw, h, ck, cv, positions, start, nnew, tables) -> torch.Tensor:
+    def _extend_layer(self, lw, h, ck, cv, positions, start, nnew, tables,
+                      lora: Optional[Lora] = None) -> torch.Tensor:
         """One chunked-prefill layer: scatter the chunk's K/V into the
         layer's pool view in place (token i of row b -> block
         tables[b, (start+i)//bs], offset (start+i)%bs; tokens past nnew land
@@ -358,32 +415,48 @@ class InferenceEngineV2(InferenceEngine):
             cv[blk.reshape(-1), :, off.reshape(-1)] = v.reshape(B * C, KV, Dh).to(cv.dtype)
             return paged_extend_attention(q.contiguous(), ck, cv, tables, start, nnew)
 
-        return self._layer_body(lw, h, positions, attn_fn)
+        return self._layer_body(lw, h, positions, attn_fn, lora=lora)
 
     # -- programs -----------------------------------------------------------
 
     def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         return [torch.from_numpy(a).to(self.device) for a in arrays]
 
+    def _aslots(self, descs, B: int) -> Optional[torch.Tensor]:
+        """A lane's adapter slots [B] int32 on the device, padding rows on
+        the null slot; None when the pool is off. Slot values are data:
+        which adapters a batch names never changes a program's shapes."""
+        if self.adapters is None:
+            return None
+        s = np.zeros((B,), np.int32)
+        for i, d in enumerate(descs):
+            s[i] = d.adapter_slot
+        return torch.from_numpy(s).to(self.device)
+
+    def _lora(self, i: int, aslots: Optional[torch.Tensor]) -> Optional[Lora]:
+        """Layer i's adapter operands for a lane with slots ``aslots``."""
+        return None if aslots is None else (self._adapter_layers[i], aslots)
+
     @torch.no_grad()
-    def _decode_program(self, tok, pos, tables) -> torch.Tensor:
+    def _decode_program(self, tok, pos, tables, aslots=None) -> torch.Tensor:
         self._moe_arm()
         x, _ = self._embed_at(tok[:, None], pos)
         for i, lw in enumerate(self._layer_weights):
-            x = self._decode_layer(lw, x, self.cache.k[i], self.cache.v[i], pos, tables)
+            x = self._decode_layer(lw, x, self.cache.k[i], self.cache.v[i], pos, tables,
+                                   lora=self._lora(i, aslots))
         return self._head(x)[:, 0]
 
     @torch.no_grad()
-    def _extend_program(self, ids, start, nnew, tables) -> torch.Tensor:
+    def _extend_program(self, ids, start, nnew, tables, aslots=None) -> torch.Tensor:
         self._moe_arm()
         x, positions = self._embed_at(ids, start)
         for i, lw in enumerate(self._layer_weights):
             x = self._extend_layer(lw, x, self.cache.k[i], self.cache.v[i], positions,
-                                   start, nnew, tables)
+                                   start, nnew, tables, lora=self._lora(i, aslots))
         return self._last_rows_logits(x, nnew)
 
     @torch.no_grad()
-    def _prefill_program(self, ids, plen, btables) -> torch.Tensor:
+    def _prefill_program(self, ids, plen, btables, aslots=None) -> torch.Tensor:
         """The batched prefill (JAX ``_paged_prefill_impl``): ids [P, tpad]
         right-padded prompts from position 0, plen [P], btables [P,
         tpad // bs] (scratch-padded). Each layer scatters every row's K/V
@@ -411,22 +484,24 @@ class InferenceEngineV2(InferenceEngine):
                 cv[flat] = blocks(v).to(cv.dtype)
                 return flash_attention(q, k, v, causal=True)
 
-            x = self._layer_body(lw, x, positions, attn_fn)
+            x = self._layer_body(lw, x, positions, attn_fn, lora=self._lora(i, aslots))
         return self._last_rows_logits(x, plen)
 
     @torch.no_grad()
-    def _mixed_program(self, dtok, dpos, dtables, pids, pstart, pnnew, ptables):
+    def _mixed_program(self, dtok, dpos, dtables, pids, pstart, pnnew, ptables,
+                       daslots=None, paslots=None):
         """The Dynamic-SplitFuse step: within each layer the decode rows run
         first and then the chunk rows, on the same pool (the JAX layer-scan
         order). Decode and chunk rows are disjoint sequences, so they write
-        disjoint blocks."""
+        disjoint blocks. Each lane carries its own adapter slots."""
         self._moe_arm()
         xd, _ = self._embed_at(dtok[:, None], dpos)
         xp, ppos = self._embed_at(pids, pstart)
         for i, lw in enumerate(self._layer_weights):
             ck, cv = self.cache.k[i], self.cache.v[i]
-            xd = self._decode_layer(lw, xd, ck, cv, dpos, dtables)
-            xp = self._extend_layer(lw, xp, ck, cv, ppos, pstart, pnnew, ptables)
+            xd = self._decode_layer(lw, xd, ck, cv, dpos, dtables, lora=self._lora(i, daslots))
+            xp = self._extend_layer(lw, xp, ck, cv, ppos, pstart, pnnew, ptables,
+                                    lora=self._lora(i, paslots))
         return self._head(xd)[:, 0], self._last_rows_logits(xp, pnnew)
 
     def _last_rows_logits(self, x: torch.Tensor, nnew: torch.Tensor) -> torch.Tensor:
@@ -457,11 +532,18 @@ class InferenceEngineV2(InferenceEngine):
             all_uids, [1] * len(decode_uids) + [len(c) for _, c in prefills])
         if not ok:
             raise RuntimeError(f"cannot schedule step(): {why}")
+        # pin this tick's new adapters first, residents first, so a miss's
+        # LRU eviction never takes a slot a hit of the same batch pins
+        order = [(uid, self._pending_adapter[uid]) for uid, _ in prefills
+                 if uid not in self._seqs and uid in self._pending_adapter]
+        if order:
+            order.sort(key=lambda t: self.adapters.slot_of(t[1]) is None)
+        abind = self._pin_adapters(order)
         pdescs = []
         for uid, _ in prefills:
             desc = self._seqs.get(uid)
             if desc is None:
-                desc = self._seqs[uid] = SequenceDescriptor(uid=uid)
+                desc = self._new_descriptor(uid, abind)
             pdescs.append(desc)
         ddescs = [self._seqs[u] for u in decode_uids]
         for d in ddescs:
@@ -469,6 +551,44 @@ class InferenceEngineV2(InferenceEngine):
         for d, (_, chunk) in zip(pdescs, prefills):
             self._ensure_blocks(d, d.seen_tokens + len(chunk))
         return prefills, ddescs, pdescs
+
+    def _pin_adapters(self, order: Sequence[Tuple[int, str]]) -> Dict[int, Tuple[str, int]]:
+        """Acquire the adapter of each (uid, adapter id) in ``order``; if one
+        acquire fails, release the ones made and raise (nothing changes).
+        Returns {uid: (adapter id, slot)}."""
+        abind: Dict[int, Tuple[str, int]] = {}
+        done: List[str] = []
+        try:
+            for uid, aid in order:
+                abind[uid] = (aid, self.adapters.acquire(aid))
+                done.append(aid)
+        except BaseException:
+            for aid in done:
+                self.adapters.release(aid)
+            raise
+        return abind
+
+    def _new_descriptor(self, uid: int, abind: Dict[int, Tuple[str, int]]) -> SequenceDescriptor:
+        """Create the descriptor of a new uid, bound to its pinned adapter."""
+        desc = self._seqs[uid] = SequenceDescriptor(uid=uid)
+        if uid in abind:
+            desc.adapter_id, desc.adapter_slot = abind[uid]
+            self._pending_adapter.pop(uid, None)
+        return desc
+
+    def acquire_prefix(self, uid: int, tokens: Sequence[int]) -> int:
+        """Admit ``uid`` as JAX ``acquire_prefix`` does with prefix caching
+        off (the prefix cache is ROADMAP queue A, item 3): a cold
+        descriptor at position 0, its pending adapter pinned first (a dry
+        pool raises before anything changes). Returns the cached tokens:
+        0."""
+        if uid in self._seqs:
+            raise ValueError(f"uid {uid} is already live")
+        if not len(tokens):
+            raise ValueError(f"new uid {uid} with no tokens")
+        aid = self._pending_adapter.get(uid)
+        self._new_descriptor(uid, self._pin_adapters([(uid, aid)] if aid is not None else []))
+        return 0
 
     def step(self, decode_uids: Sequence[int], decode_tokens: Sequence[int],
              prefills: Sequence[Tuple[int, Sequence[int]]] = ()):
@@ -486,24 +606,26 @@ class InferenceEngineV2(InferenceEngine):
         if ddescs:
             Bd, Wd, tok, pos, dtables = self._pack_decode(ddescs, decode_tokens)
             dargs = self._to_device(tok, pos, dtables)
+            dslots = self._aslots(ddescs, Bd)
         if pdescs:
             chunks = [(d, c) for d, (_, c) in zip(pdescs, prefills)]
             cmax = max(len(c) for _, c in chunks)
             Bp, C, Wp, ids, start, nnew, ptables = self._pack_chunks(
                 chunks, pad_chunk=self.config.serving.bin_chunk(cmax))
             pargs = self._to_device(ids, start, nnew, ptables)
+            pslots = self._aslots(pdescs, Bp)
         if ddescs and pdescs:
-            dl, pl = self._mixed_program(*dargs, *pargs)
+            dl, pl = self._mixed_program(*dargs, *pargs, daslots=dslots, paslots=pslots)
             key = ("mixed", Bd, Wd, Bp, C, Wp)
             dlogits, plogits = dl.cpu().numpy(), pl.cpu().numpy()
             self._pop_moe(self._moe_fold(lanes=2))
         elif ddescs:
             key = ("decode", Bd, Wd)
-            dlogits = self._decode_program(*dargs).cpu().numpy()
+            dlogits = self._decode_program(*dargs, aslots=dslots).cpu().numpy()
             self._pop_moe(self._moe_fold())
         elif pdescs:
             key = ("extend", Bp, C, Wp)
-            plogits = self._extend_program(*pargs).cpu().numpy()
+            plogits = self._extend_program(*pargs, aslots=pslots).cpu().numpy()
             self._pop_moe(self._moe_fold())
         else:
             return dlogits, plogits
@@ -553,6 +675,10 @@ class InferenceEngineV2(InferenceEngine):
             raise ValueError(f"decode batch {n_ext} exceeds max_batch_size "
                              f"{self.config.max_batch_size} (raise it in the inference config)")
         bs = self.cache.block_size
+        # pin the new uids' adapters first, in uid order (JAX admits each
+        # new uid through acquire_prefix in that order)
+        abind = self._pin_adapters([(u, self._pending_adapter[u]) for u in uids
+                                    if u not in self._seqs and u in self._pending_adapter])
         prefills: List[Tuple[SequenceDescriptor, List[int]]] = []
         extends: List[Tuple[SequenceDescriptor, List[int]]] = []
         for uid, toks in zip(uids, tokens):
@@ -561,12 +687,13 @@ class InferenceEngineV2(InferenceEngine):
                 if toks:
                     extends.append((self._seqs[uid], toks))
             else:
-                desc = self._seqs[uid] = SequenceDescriptor(uid=uid)
-                prefills.append((desc, toks))
+                prefills.append((self._new_descriptor(uid, abind), toks))
 
         if prefills:
             P, tpad, ids, plen, btables = self._pack_prefill(prefills)
-            logits = self._prefill_program(*self._to_device(ids, plen, btables)).cpu().numpy()
+            logits = self._prefill_program(
+                *self._to_device(ids, plen, btables),
+                aslots=self._aslots([d for d, _ in prefills], P)).cpu().numpy()
             self._pop_moe(self._moe_fold())
             self._count_dispatch(("prefill", P, tpad))
             for i, (desc, toks) in enumerate(prefills):
@@ -580,7 +707,9 @@ class InferenceEngineV2(InferenceEngine):
                 self._ensure_blocks(d, d.seen_tokens + 1)
             B, W, tok, pos, tables = self._pack_decode([d for d, _ in singles],
                                                        [t for _, t in singles])
-            logits = self._decode_program(*self._to_device(tok, pos, tables)).cpu().numpy()
+            logits = self._decode_program(
+                *self._to_device(tok, pos, tables),
+                aslots=self._aslots([d for d, _ in singles], B)).cpu().numpy()
             self._pop_moe(self._moe_fold())
             self._count_dispatch(("decode", B, W))
             for i, (d, _) in enumerate(singles):
@@ -597,7 +726,8 @@ class InferenceEngineV2(InferenceEngine):
                 self._ensure_blocks(d, d.seen_tokens + len(chunk))
             B, C, W, ids, start, nnew, tables = self._pack_chunks(batch)
             logits = self._extend_program(
-                *self._to_device(ids, start, nnew, tables)).cpu().numpy()
+                *self._to_device(ids, start, nnew, tables),
+                aslots=self._aslots([d for d, _ in batch], B)).cpu().numpy()
             self._pop_moe(self._moe_fold())
             self._count_dispatch(("extend", B, C, W))
             for i, (d, chunk) in enumerate(batch):
@@ -638,10 +768,11 @@ class InferenceEngineV2(InferenceEngine):
         tables = np.stack([self._table(d, W) for d in descs]).astype(np.int32)
         pos0 = np.asarray([d.seen_tokens for d in descs], np.int32)
         tok, pos, tables_t = self._to_device(np.asarray(tokens, np.int32), pos0, tables)
+        aslots = self._aslots(descs, len(uids))
         out = torch.empty(n_steps, len(uids), dtype=torch.int32, device=self.device)
         routed = []    # per step (counts [L, E], dropped [L]), on the device
         for s in range(n_steps):
-            logits = self._decode_program(tok, pos, tables_t)
+            logits = self._decode_program(tok, pos, tables_t, aslots=aslots)
             routed.append(self._moe_fold())
             tok = logits.argmax(-1).to(torch.int32)
             out[s] = tok
@@ -657,10 +788,48 @@ class InferenceEngineV2(InferenceEngine):
             d.last_logits = last[i]
         return toks
 
+    def configure_adapter(self, uid: int, adapter_id: Optional[str]) -> None:
+        """Bind ``adapter_id`` to ``uid`` (JAX ``configure_adapter``). An
+        unknown uid gets a PENDING binding, consumed where its admission
+        creates the descriptor and pins the slot; a live uid rebinds in
+        place, acquiring the new adapter before releasing the old, so a
+        failed acquire changes nothing. ``None`` restores the base model
+        (the null slot 0)."""
+        desc = self._seqs.get(uid)
+        if desc is None:
+            if adapter_id is None:
+                self._pending_adapter.pop(uid, None)
+                return
+            if self.adapters is None:
+                raise RuntimeError("configure_adapter: adapters are disabled (set "
+                                   "adapters.enabled in the inference config)")
+            if not self.adapters.registered(adapter_id):
+                raise KeyError(f"configure_adapter: {adapter_id!r} is not registered — "
+                               "publish it first")
+            self._pending_adapter[uid] = adapter_id
+            return
+        if adapter_id == desc.adapter_id:
+            return
+        if adapter_id is not None:
+            if self.adapters is None:
+                raise RuntimeError("configure_adapter: adapters are disabled (set "
+                                   "adapters.enabled in the inference config)")
+            slot = self.adapters.acquire(adapter_id)
+        else:
+            slot = 0
+        if desc.adapter_id is not None:
+            self.adapters.release(desc.adapter_id)
+        desc.adapter_id, desc.adapter_slot = adapter_id, slot
+
     def flush(self, uids: Sequence[int]) -> None:
-        """Free all state of finished sequences."""
+        """Free all state of finished sequences; each one's adapter is
+        unpinned and stays resident (warm) until LRU eviction needs its
+        slot."""
         for uid in uids:
             desc = self._seqs.pop(uid, None)
             if desc is None:
                 raise ValueError(f"unknown uid {uid}")
+            self._pending_adapter.pop(uid, None)
+            if desc.adapter_id is not None and self.adapters is not None:
+                self.adapters.release(desc.adapter_id)
             self.allocator.free(desc.blocks)

@@ -12,10 +12,15 @@ prefill target, so greedy decoding replays it exactly. On an MoE engine
 expert capacity is an admission resource too: while the previous tick's
 peak expert load is over the threshold, queued requests park at their FIFO
 seat (policy "park"; running sequences are never preempted for it), as
-the JAX scheduler does.
+the JAX scheduler does. With the engine's adapter pool on, a request may
+name an adapter (``submit(adapter_id=)``); a queued request whose adapter
+cannot be seated beside this tick's other admissions parks at its FIFO
+seat until a running sequence releases a slot (park, never preempt), and
+the next waiting adapters are staged ahead of their admission.
 
-Speculation, the KV tier, fault sites, the sanitizer, deadlines, adapters
-and the monitor sinks are later slices (ROADMAP queue A).
+Speculation, the KV tier, fault sites, the sanitizer, deadlines, the
+adapter fleet (``publish_adapter``, affinity, failover) and the monitor
+sinks are later slices (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -55,6 +60,10 @@ class ServingRequest:
     # parked on expert-capacity pressure: held at its FIFO seat until the
     # running ticks drain it (park, never preempt)
     moe_waiting: bool = False
+    # the adapter this request decodes under (None: the base model), and
+    # whether it is parked waiting for an adapter pool slot
+    adapter_id: Optional[str] = None
+    adapter_waiting: bool = False
 
     @property
     def prefill_target(self) -> List[int]:
@@ -89,14 +98,29 @@ class ContinuousBatchingScheduler:
         self.preemptions = 0
         self.moe_capacity_parks = 0
         self.moe_unparks = 0
+        # the engine's adapter pool (None unless adapters.enabled), the
+        # residency parks and the tokens emitted under each adapter
+        self.apool = engine.adapters
+        self.adapter_parks = 0
+        self.adapter_unparks = 0
+        self.adapter_tokens: Dict[str, int] = {}
         self._next_uid = 0
 
     # -- request intake ------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
-               uid: Optional[int] = None) -> int:
+               uid: Optional[int] = None, adapter_id: Optional[str] = None) -> int:
         """Queue one request; returns its uid. Requests that can never fit
-        the engine fail here, with named numbers."""
+        the engine fail here, with named numbers, and so does an adapter
+        the pool does not know (residency is not checked here: a
+        registered adapter pages in at admission, or the request parks)."""
+        if adapter_id is not None:
+            if self.apool is None:
+                raise ValueError(f"request names adapter {adapter_id!r} but the adapter pool "
+                                 "is disabled (enable config.adapters)")
+            if not self.apool.registered(adapter_id):
+                raise ValueError(f"adapter {adapter_id!r} is not registered; register it "
+                                 "first")
         prompt = list(map(int, prompt))
         if not prompt:
             raise ValueError("empty prompt")
@@ -122,7 +146,7 @@ class ContinuousBatchingScheduler:
         elif uid in self.requests or uid in eng._seqs:
             raise ValueError(f"uid {uid} is already live")
         r = ServingRequest(uid=uid, prompt=prompt, max_new_tokens=int(max_new_tokens),
-                           submitted_at=self.clock())
+                           submitted_at=self.clock(), adapter_id=adapter_id)
         self.requests[uid] = r
         self.queue.append(r)
         return uid
@@ -166,6 +190,8 @@ class ContinuousBatchingScheduler:
         elif r.last_token_at is not None:
             r.tpot_s.append(now - r.last_token_at)
         r.last_token_at = now
+        if r.adapter_id is not None:
+            self.adapter_tokens[r.adapter_id] = self.adapter_tokens.get(r.adapter_id, 0) + 1
         if self.on_token is not None:
             self.on_token(r.uid, tok)
         if r.done:
@@ -204,6 +230,18 @@ class ContinuousBatchingScheduler:
             if budget_left <= 0:
                 break
             from_queue = r.state == QUEUED
+            if from_queue and r.adapter_id is not None and self.apool is not None:
+                # can the pool seat this request's adapter beside everything
+                # admitted this tick? If not, park in place: it keeps its
+                # FIFO seat, younger work may pass it, and no running
+                # sequence is preempted for an adapter slot (the acquire
+                # happens at the admission commit below)
+                want = [a.adapter_id for a in admitted] + [r.adapter_id]
+                if not self.apool.can_acquire_all(want)[0]:
+                    if not r.adapter_waiting:
+                        r.adapter_waiting = True
+                        self.adapter_parks += 1
+                    continue
             if from_queue and eng._moe_serving and cfg.moe.overload_policy == "park" and \
                     (self.active or admitted) and \
                     eng.moe_pressure() > cfg.moe.overload_threshold:
@@ -237,6 +275,9 @@ class ContinuousBatchingScheduler:
             prefills.append((r, target[pd:pd + chunk]))
             if from_queue:
                 admitted.append(r)
+                if r.adapter_waiting:
+                    r.adapter_waiting = False
+                    self.adapter_unparks += 1
                 if r.moe_waiting:
                     r.moe_waiting = False
                     self.moe_unparks += 1
@@ -245,13 +286,19 @@ class ContinuousBatchingScheduler:
             self.active.append(r)
             r.state = PREFILL
             r.prefill_done = 0
+            # admit in the engine now, the adapter bound first: the
+            # descriptor is born with its slot pinned, so this tick's chunk
+            # already runs under the adapter
+            if r.adapter_id is not None:
+                eng.configure_adapter(r.uid, r.adapter_id)
+            eng.acquire_prefix(r.uid, r.prefill_target)
 
         # 3) nothing packable?
         if not decodes and not prefills:
             if not (self.active or self.queue):
                 return False
-            if any(r.moe_waiting for r in self.queue):
-                return True     # parked on expert pressure; the running set drains it
+            if any(r.moe_waiting or r.adapter_waiting for r in self.queue):
+                return True     # parked (expert pressure, adapter slots): running rows free them
             head = next((r for r in self.active if r.state == PREFILL),
                         self.queue[0] if self.queue else None)
             if head is None:
@@ -279,6 +326,19 @@ class ContinuousBatchingScheduler:
             if r.prefill_done == len(r.prefill_target):
                 r.state = RUNNING
                 self._emit(r, int(np.argmax(plogits[i])), now)
+        if self.apool is not None:
+            # stage the next waiting adapters' planes into host buffers a
+            # tick ahead of the admission that installs them
+            depth, staged, seen = max(0, eng.config.adapters.prefetch_depth), 0, set()
+            for r in self.queue:
+                if staged >= depth:
+                    break
+                aid = r.adapter_id
+                if aid is None or aid in seen or self.apool.slot_of(aid) is not None:
+                    continue
+                self.apool.prefetch(aid)
+                seen.add(aid)
+                staged += 1
         return bool(self.active or self.queue)
 
     def drain(self) -> None:
@@ -287,12 +347,14 @@ class ContinuousBatchingScheduler:
 
     def serve(self, requests: Sequence[Union[Sequence[int], Tuple[Sequence[int], int]]],
               max_new_tokens: int = 32,
-              arrivals: Optional[Sequence[float]] = None) -> Dict[int, List[int]]:
+              arrivals: Optional[Sequence[float]] = None,
+              adapter_ids: Optional[Sequence[Optional[str]]] = None) -> Dict[int, List[int]]:
         """Serve requests to completion. ``requests``: prompts, or
         ``(prompt, max_new)`` pairs. ``arrivals``: optional arrival offsets
         in seconds — request i is submitted once ``clock() - t0 >=
-        arrivals[i]``; None submits everything up front. Returns ``{uid:
-        generated tokens}`` in submission order."""
+        arrivals[i]``; None submits everything up front. ``adapter_ids``:
+        per-request adapter names (None entries serve the base model).
+        Returns ``{uid: generated tokens}`` in submission order."""
         items = []
         for req in requests:
             if (isinstance(req, tuple) and len(req) == 2
@@ -302,14 +364,17 @@ class ContinuousBatchingScheduler:
                 items.append((list(req), int(max_new_tokens)))
         if arrivals is not None and len(arrivals) != len(items):
             raise ValueError("arrivals must align with requests")
+        if adapter_ids is not None and len(adapter_ids) != len(items):
+            raise ValueError("adapter_ids must align with requests")
         pending = deque(enumerate(items))
         t0 = self.clock()
         uids: List[int] = []
         while pending or self.active or self.queue:
             while pending and (arrivals is None
                                or self.clock() - t0 >= arrivals[pending[0][0]]):
-                _, (prompt, mn) = pending.popleft()
-                uids.append(self.submit(prompt, max_new_tokens=mn))
+                i, (prompt, mn) = pending.popleft()
+                uids.append(self.submit(prompt, max_new_tokens=mn, adapter_id=(
+                    None if adapter_ids is None else adapter_ids[i])))
             if not self.tick() and pending and arrivals is not None:
                 wait = arrivals[pending[0][0]] - (self.clock() - t0)
                 if wait > 0:
@@ -321,9 +386,11 @@ class ContinuousBatchingScheduler:
     def stats(self) -> Dict[str, object]:
         """Serving summary over finished requests: sustained tokens/s (wall
         span from first submit to last finish), TTFT/TPOT percentiles,
-        ticks and preemptions, and on an MoE engine the routed traffic,
-        last tick's expert pressure and the capacity parks (None on a
-        dense engine)."""
+        ticks and preemptions; with the adapter pool on, its counters, the
+        residency parks and the tokens emitted under each adapter (None
+        when it is off); and on an MoE engine the routed traffic, last
+        tick's expert pressure and the capacity parks (None on a dense
+        engine)."""
 
         def pct(xs, q):
             return float(np.percentile(xs, q)) if len(xs) else None
@@ -348,6 +415,13 @@ class ContinuousBatchingScheduler:
             "tpot_p95_s": pct(tpot, 95),
             "ticks": self.ticks,
             "preemptions": self.preemptions,
+            "adapters": (None if self.apool is None else {
+                **self.apool.stats(),
+                "parks": self.adapter_parks,
+                "unparks": self.adapter_unparks,
+                "waiting": sum(1 for r in self.queue if r.adapter_waiting),
+                "tokens_by_adapter": dict(self.adapter_tokens),
+            }),
             "moe": (None if not eng._moe_serving else {
                 "dispatched": eng.moe_dispatched,
                 "dropped": eng.moe_dropped,

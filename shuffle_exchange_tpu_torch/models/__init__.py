@@ -1,5 +1,5 @@
-from .convert import (QuantizedArrays, load_train_state, params_from_numpy, params_to_numpy,
-                      train_state_to_numpy)
+from .convert import (QuantizedArrays, adapter_pool_to_numpy, load_train_state,
+                      params_from_numpy, params_to_numpy, train_state_to_numpy)
 from .transformer import (Transformer, TransformerConfig, llama3_8b, llama_ladder,
                           mixtral_8x7b, param_count, pick_ladder_config, tiny, tiny_moe)
 
@@ -20,7 +20,8 @@ def get_model(name: str, device=None, **overrides) -> Transformer:
     return Transformer(cfg, device=device)
 
 
-__all__ = ["MODEL_REGISTRY", "QuantizedArrays", "Transformer", "TransformerConfig", "get_model", "llama3_8b",
+__all__ = ["MODEL_REGISTRY", "QuantizedArrays", "Transformer", "TransformerConfig",
+           "adapter_pool_to_numpy", "get_model", "llama3_8b",
            "llama_ladder", "load_train_state", "mixtral_8x7b", "param_count",
            "params_from_numpy", "params_to_numpy", "pick_ladder_config", "tiny", "tiny_moe",
            "train_state_to_numpy"]

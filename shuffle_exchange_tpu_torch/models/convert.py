@@ -13,7 +13,8 @@ Quantized weights cross too: a leaf with the children of a JAX
 ``QuantizedMatrix`` (``q``, ``scales``, ``group_size``, ``bits``, the
 column count and the compute dtype; numpy or JAX arrays) becomes the
 port's ``QuantizedMatrix``, and ``params_to_numpy`` gives those children
-back as :class:`QuantizedArrays`. MoE trees cross the same way: the
+back as :class:`QuantizedArrays`. An adapter pool's planes come back as
+numpy with ``adapter_pool_to_numpy``. MoE trees cross the same way: the
 router ``moe_gate``, the expert stacks ``moe_w_gate`` / ``moe_w_up`` /
 ``moe_w_down`` (``[L, E, K, N]``, dense or quantized), the optional
 expert biases ``moe_b_*`` and the shared expert ``moe_shared_*``. e4m3 storage crosses as its bytes
@@ -122,6 +123,17 @@ def params_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             t = t.float()
         node[leaf] = t.numpy().copy()
     return tree
+
+
+def adapter_pool_to_numpy(pool) -> Dict[str, np.ndarray]:
+    """An adapter pool's device planes as f32 numpy arrays under
+    ``{target}.a`` ([L, S, d_in, R]) and ``{target}.b`` ([L, S, R, d_out]),
+    the layout of the JAX pool's ``a[target]`` / ``b[target]``. Adapter
+    factors themselves cross as numpy in both packages (``register`` takes
+    the same arrays), so this is for holding the two pools' planes equal."""
+    ops = pool.device_operands()
+    return {f"{t}.{k}": ops[k][t].detach().float().cpu().numpy().copy()
+            for t in pool.targets for k in ("a", "b")}
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ from .flash_attention import flash_attention, flash_attention_bwd, flash_attenti
 from .fused_adam import fused_adamw_update
 from .fused_decode import fused_mlp, fused_mlp_quant, fused_paged_decode_attention, fused_qkv_rope
 from .grouped_gemm import grouped_matmul
+from .lora_gemm import lora_delta
 from .paged_attention import paged_decode_attention, paged_extend_attention
 from .quant_matmul import QuantizedMatrix, quant_matmul, quantize_weight
 from .rmsnorm import rmsnorm
@@ -25,6 +26,7 @@ KERNEL_WRAPPERS = {
     "fused_mlp_quant": fused_mlp_quant,
     "quant_matmul": quant_matmul,
     "grouped_matmul": grouped_matmul,
+    "lora_delta": lora_delta,
     "flash_attention": flash_attention,
     "flash_attention_bwd": flash_attention_bwd,
     "fused_adamw": fused_adamw_update,
@@ -43,5 +45,5 @@ def reset_launch_counts() -> None:
 __all__ = ["KERNEL_WRAPPERS", "QuantizedMatrix", "flash_attention", "flash_attention_bwd",
            "flash_attention_lse", "fused_adamw_update", "fused_mlp", "fused_mlp_quant",
            "fused_paged_decode_attention", "fused_qkv_rope", "grouped_matmul", "launch_counts",
-           "paged_decode_attention", "paged_extend_attention", "quant_matmul", "quantize_weight",
-           "reset_launch_counts", "rmsnorm"]
+           "lora_delta", "paged_decode_attention", "paged_extend_attention", "quant_matmul",
+           "quantize_weight", "reset_launch_counts", "rmsnorm"]

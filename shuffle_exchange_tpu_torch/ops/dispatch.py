@@ -63,8 +63,8 @@ def resolve_decode_kernel(mode: str, device: Union[str, torch.device]) -> str:
     return mode
 
 
-#: grouped-GEMM call sites of the JAX package's shared seam; "lora" (the
-#: LoRA pool-gather kernel, B9) is not ported yet
+#: grouped-GEMM call sites of the JAX package's shared seam: the MoE
+#: experts' grouped GEMM and the LoRA pool-gather kernel
 _GROUPED_GEMM_KINDS = ("moe", "lora")
 
 
@@ -77,7 +77,4 @@ def resolve_grouped_gemm(kind: str, t: torch.Tensor) -> str:
     if kind not in _GROUPED_GEMM_KINDS:
         raise ValueError(f"grouped-GEMM kind must be one of {_GROUPED_GEMM_KINDS}, got "
                          f"{kind!r}")
-    if kind == "lora":
-        raise NotImplementedError("the LoRA grouped GEMM (B9) is not in the PyTorch port yet: "
-                                  "ROADMAP queue A, item 10")
     return "kernel" if use_kernel(t) else "plain"

@@ -190,8 +190,9 @@ def test_the_route_is_the_tensors_device():
         dispatch.resolve_grouped_gemm("moe", torch.zeros(1, device="meta"))
     with pytest.raises(ValueError, match="kind"):
         dispatch.resolve_grouped_gemm("dense", torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dispatch.resolve_grouped_gemm("lora", torch.zeros(1))
+    assert dispatch.resolve_grouped_gemm("lora", torch.zeros(1)) == "plain"
+    with pytest.raises(ValueError, match="no kernel"):
+        dispatch.resolve_grouped_gemm("lora", torch.zeros(1, device="meta"))
 
 
 @pytest.mark.parametrize("w,err,match", [
