@@ -34,7 +34,11 @@ non-zero exit code. The phases:
    Llama-3-8B's projections (N 4096 and 1024) at ranks 8, 16 and 64 over
    pools of 5 and 65 slots, from one decode row to a put() of 8 x 1024
    rows, with null rows, equal bits twice and each row of a mixed call
-   bit-equal to the row alone.
+   bit-equal to the row alone, phase 2h for the grouped GEMM's backward
+   (B16-dx and B16-dw) at bench.py's _config3 expert shapes in both
+   directions (65,472 ragged rows in the four patterns and with rows past
+   the groups' sum; 8 x 10,230 capacity rows) and Mixtral's at 16,384
+   rows, with equal bits twice.
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
    Llama-3-8B at full width and depth with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
@@ -87,6 +91,18 @@ non-zero exit code. The phases:
 6. The training model cut to depth 2: the card's bf16 loss and every
    gradient leaf against a CPU f32 engine from the same weights, a 3-step
    loss trajectory, and a skipped step that must leave the state bit-equal.
+5b. MoE training: bench.py's _config3 model (8 experts, top-2, 0.61 B
+   parameters) at full width and depth under ``moe_impl`` "capacity" (the
+   bench row) and "ragged", its training config (FusedAdam, bf16, ZeRO 2),
+   batch 32 x 1024, full remat: step p50, tokens/s, MFU billed on the
+   activated parameters, peak memory, a falling loss, the drop fraction,
+   launch counters equal to what the program implies (the grouped GEMM
+   twice a projection and layer under remat, its dx and dw once), one
+   profiled step.
+6b. The _config3 model cut to depth 2 as phase 6, the CPU f32 engine routed
+   as the card routed (``TrainRoutingReplay``; flips reported with their
+   router-logit gaps, and every remat recompute's routing bit-equal to its
+   forward's on the card).
 
 The second-to-last line of standard output is one JSON object with a row
 per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -95,6 +111,7 @@ per kernel; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1383,6 +1400,149 @@ def check_grouped_gemm(gen, rng, timed=True):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2h: the grouped GEMM's backward (B16-dx, B16-dw)
+# ---------------------------------------------------------------------------
+
+# bench.py's _config3 expert matrices (K, F): w_gate / w_up [1024, 2816] and
+# w_down [2816, 1024], at its training rows: 32 x 1023 tokens x top-2 =
+# 65,472 sorted rows on the ragged route, 8 experts x capacity 10,230 on the
+# capacity route; then Mixtral's expert matrices at a put()'s 16,384 rows
+GB_CONFIG3 = [(1024, 2816), (2816, 1024)]
+GB_RAGGED_N, GB_CAPACITY = 65472, 10230
+GB_MIXTRAL = [(4096, 14336), (14336, 4096)]
+GB_PATTERNS = GG_PATTERNS + ("past_sum",)
+
+
+def _bwd_sizes(pattern, N, E, rng):
+    """Group sizes: phase 2f's patterns, or "past_sum" (a ragged spread of
+    N - 100 rows: the last 100 rows belong to no group)."""
+    if pattern == "past_sum":
+        return group_pattern("ragged", N - 100, E, rng)
+    return group_pattern(pattern, N, E, rng)
+
+
+def _library_bwd(which, a, b, sizes):
+    """(callable, name) of the library yardstick for B16-dx / B16-dw:
+    ``torch._grouped_mm`` on the same bf16 operands (dx: dout @ a transposed
+    view of the stack; dw: the 2-D x 2-D form x^T, dout with offsets) where
+    this torch takes them, else a per-expert cuBLAS loop (group sizes read
+    once on the host, outside the timing)."""
+    import torch
+
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        forms = ([(a, b.transpose(1, 2))] if which == "dx" else
+                 [(a.T, b), (a.T.contiguous(), b)])
+        for p, q in forms:
+            try:
+                torch._grouped_mm(p, q, offs=offs, out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                return (lambda p=p, q=q: torch._grouped_mm(p, q, offs=offs,
+                                                           out_dtype=torch.bfloat16)), \
+                    "torch._grouped_mm"
+            except (RuntimeError, TypeError, ValueError):
+                continue
+    bounds = np.concatenate([[0], np.cumsum(sizes.tolist())])
+    spans = [(g, lo, hi) for g, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])) if hi > lo]
+    if which == "dx":
+        return (lambda: [a[lo:hi] @ b[g].T for g, lo, hi in spans]), "per-expert cuBLAS loop"
+    return (lambda: [a[lo:hi].T @ b[lo:hi] for g, lo, hi in spans]), "per-expert cuBLAS loop"
+
+
+def _bwd_cases():
+    """(label, K, F, N, pattern) of phase 2h: the _config3 shapes at the
+    ragged route's rows in every pattern and at the capacity route's equal
+    groups, then Mixtral's shapes at 16,384 ragged rows; last two edge
+    cells: 16 rows (the tiled form takes them too) and K, F that are
+    multiples of 8 but not of the 128-wide tiles."""
+    for K, F in GB_CONFIG3:
+        for pattern in GB_PATTERNS:
+            yield "config3 ragged", K, F, GB_RAGGED_N, pattern
+        yield "config3 capacity", K, F, GG_E * GB_CAPACITY, "balanced"
+    for K, F in GB_MIXTRAL:
+        yield "mixtral", K, F, 16384, "ragged"
+    yield "16 rows", 1024, 2816, 16, "ragged"
+    yield "ragged tile edges", 1000, 1032, 4100, "past_sum"
+
+
+def check_grouped_gemm_bwd(gen, rng, timed=True):
+    """B16-dx and B16-dw against their plain versions (per-group loops of
+    f32 products, one cast) in bf16 at ``_bwd_cases()``. Each cell is held
+    to PAGED_TOL per output row; rows past the groups' sum must be exact
+    zeros in dx and an empty group's dw block exact zeros. At each
+    direction's first _config3 ragged cell, a plain version that hands a
+    boundary row to the neighbouring expert must fail the tolerance, and
+    two runs must give equal bits. With ``timed``, every cell is timed with
+    a cold L2 beside its bound (2 N K F operations; the operands read once
+    and the result written once), the plain version, the library yardstick
+    and the host cost of one wrapper call."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops.grouped_gemm import (grouped_matmul_dw,
+                                                             grouped_matmul_dw_reference,
+                                                             grouped_matmul_dx,
+                                                             grouped_matmul_dx_reference)
+
+    rows, bitten = [], set()
+    with _f32_reduction():
+        for label, K, F, N, pattern in _bwd_cases():
+            sizes_np = _bwd_sizes(pattern, N, GG_E, rng)
+            sizes = torch.from_numpy(sizes_np).cuda()
+            x = torch.randn(N, K, generator=gen, device="cuda").bfloat16()
+            w = (torch.randn(GG_E, K, F, generator=gen, device="cuda") * K ** -0.5).bfloat16()
+            dout = torch.randn(N, F, generator=gen, device="cuda").bfloat16()
+            summed = int(sizes_np.sum())
+            used = int((sizes_np > 0).sum())
+            for which in ("dx", "dw"):
+                if which == "dx":
+                    run = lambda: grouped_matmul_dx(dout, w, sizes)
+                    plain = lambda s=sizes: grouped_matmul_dx_reference(dout, w, s)
+                    nbytes = N * F * 2 + used * K * F * 2 + N * K * 2
+                    lib, lib_name = _library_bwd("dx", dout, w, sizes)
+                else:
+                    run = lambda: grouped_matmul_dw(x, dout, sizes)
+                    plain = lambda s=sizes: grouped_matmul_dw_reference(x, dout, s)
+                    nbytes = summed * (K + F) * 2 + GG_E * K * F * 2
+                    lib, lib_name = _library_bwd("dw", x, dout, sizes)
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                err, tol_ok = paged_close(got, want)
+                row = dict(shape=dict(which=which, label=label, N=N, K=K, F=F, E=GG_E,
+                                      groups=pattern, sizes=sizes_np.tolist()),
+                           max_abs_err=err.max().item(),
+                           max_rel_err=(err.max() / want.float().abs().max()).item(),
+                           tolerance=PAGED_TOL + " per output row", within=tol_ok)
+                _check(tol_ok, f"grouped_matmul_{which} kernel disagrees with its plain version "
+                       f"at {row['shape']}: max abs err {row['max_abs_err']}")
+                if which == "dx" and summed < N:
+                    row["rows_past_sum_zero"] = not got[summed:].any().item()
+                    _check(row["rows_past_sum_zero"], "dx rows past the groups' sum not zero")
+                if which == "dw" and used < GG_E:
+                    row["empty_groups_zero"] = not got[torch.from_numpy(sizes_np == 0).cuda()
+                                                       ].any().item()
+                    _check(row["empty_groups_zero"], "dw blocks of empty groups not zero")
+                if label == "config3 ragged" and which not in bitten:
+                    bitten.add(which)
+                    broken = torch.from_numpy(_moved_boundary(sizes_np)).cuda()
+                    row["tolerance_bites"] = {"boundary_row_moved": _bites(got, plain(broken))}
+                    row["equal_bits_twice"] = torch.equal(got, run())
+                    _check(all(row["tolerance_bites"].values()), f"the grouped_matmul_{which} "
+                           f"tolerance does not catch a broken plain version")
+                    _check(row["equal_bits_twice"], f"two runs of grouped_matmul_{which} differ")
+                if timed:
+                    b_ms, b_by = bound(nbytes, 2.0 * summed * K * F)
+                    row.update(ms=time_cold(run, 5), host_us=host_us(run),
+                               plain_ms=time_cold(plain, 2), library_ms=time_cold(lib, 3),
+                               library=lib_name, bound_ms=b_ms, bound_by=b_by)
+                    row["tflops"] = 2.0 * summed * K * F / (row["ms"] * 1e-3) / 1e12
+                rows.append(row)
+                del got, want, err
+            del x, w, dout
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 2g: the per-row LoRA delta of multi-tenant serving (B9)
 # ---------------------------------------------------------------------------
 
@@ -1563,6 +1723,8 @@ def _kernel_kind(name: str) -> str:
                       ("grouped_gemv_kernel", "grouped_matmul (B16 decode rows)"),
                       ("grouped_out_kernel", "grouped_matmul (B16 decode rows)"),
                       ("grouped_mma_kernel", "grouped_matmul (B16 tensor-core form)"),
+                      ("grouped_dx_kernel", "grouped_matmul_dx (B16-dx)"),
+                      ("grouped_dw_kernel", "grouped_matmul_dw (B16-dw)"),
                       ("lora_row_kernel", "lora_delta"),
                       ("lora_tile_kernel", "lora_delta"),
                       ("gemv_partial_kernel", "fused_gemv (qkv + mlp products)"),
@@ -1705,7 +1867,8 @@ def expected_launches(eng, n_layers, loop_steps=0, by=None):
         out["quant_matmul"] = 4 * L * (dec + ext + pre)
     else:
         out["quant_matmul"] = (4 if fused else 7) * L * dec + 7 * L * (ext + pre)
-    out.update(flash_attention_bwd=0, fused_adamw=0)     # the training step's
+    # the training step's
+    out.update(flash_attention_bwd=0, fused_adamw=0, grouped_matmul_dx=0, grouped_matmul_dw=0)
     return out
 
 
@@ -2489,6 +2652,40 @@ def moe_e2e_schedule(rng, V):
             ([0, 1, 2, 3], t[6:10], [])]
 
 
+def routing_difference(lg, their_logits, idx, theirs):
+    """(each row's largest router-logit difference between two engines,
+    whether its top-k set differs), on host tensors."""
+    delta = (lg - their_logits).abs().amax(-1)
+    return delta, (idx.cpu().sort(1).values != theirs.sort(1).values).any(1)
+
+
+def flip_notes(lg, delta, flipped, k):
+    """[(2nd-3rd router-logit gap, router-logit difference)] of the flipped
+    rows."""
+    if not flipped.any():
+        return []
+    top = lg.topk(k + 1, dim=-1).values[flipped]
+    return list(zip((top[:, k - 1] - top[:, k]).tolist(), delta[flipped].tolist()))
+
+
+def replayed_routing(logits, card, k, normalize_weights):
+    """(weights, aux loss, masks) of the recorded choices ``card`` [S, k]
+    computed from this call's own ``logits`` as ``topk_select`` computes
+    them, so gradients flow through the replay."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.moe.gating import _one_hot
+
+    E = logits.shape[-1]
+    gates = torch.softmax(logits.float(), dim=-1)
+    masks = [_one_hot(card[:, j], E) for j in range(k)]
+    w = torch.stack([(gates * m).sum(-1) for m in masks], dim=1)
+    if normalize_weights and k > 1:
+        w = w / torch.clamp(w.sum(1, keepdim=True), min=1e-9)
+    aux = E * (gates.mean(0) * masks[0].mean(0)).sum()
+    return w, aux, masks
+
+
 class RoutingReplay:
     """Patches the port's one top-k rule (``moe.gating.topk_select``, also
     bound in ``moe.layer``): while recording, each call's choices are kept
@@ -2548,10 +2745,6 @@ class RoutingReplay:
             m.topk_select = self._orig
 
     def select(self, logits, k, normalize_weights=True, train=False, rng=None, noise_std=0.0):
-        import torch
-
-        from shuffle_exchange_tpu_torch.moe.gating import _one_hot
-
         idx, w, aux, masks = self._orig(logits, k, normalize_weights, train, rng, noise_std)
         if not self.replaying:
             self.recorded.append((idx.cpu(), logits.float().cpu()))
@@ -2562,26 +2755,14 @@ class RoutingReplay:
                f"call's {tuple(idx.shape)}: the engines ran different programs")
         real = self.pending.pop(0)
         _check(real.shape[0] == idx.shape[0], "routing call rows do not match the program")
-        lg = logits.float().cpu()
-        delta = (lg - their_logits).abs().amax(-1)
+        lg = logits.detach().float().cpu()
+        delta, differ = routing_difference(lg, their_logits, idx, theirs)
         if real.any():
             self.max_logit_delta = max(self.max_logit_delta, float(delta[real].max()))
-        differ = (idx.cpu().sort(1).values != theirs.sort(1).values).any(1)
         self.pad_flips += int((differ & ~real).sum())
-        differ &= real
-        if differ.any():
-            top = lg.topk(k + 1, dim=-1).values[differ]
-            self.flips += list(zip((top[:, k - 1] - top[:, k]).tolist(),
-                                   delta[differ].tolist()))
+        self.flips += flip_notes(lg, delta, differ & real, k)
         card = theirs.to(logits.device)
-        E = logits.shape[-1]
-        gates = torch.softmax(lg, dim=-1)
-        masks = [_one_hot(card[:, j], E) for j in range(k)]
-        w = torch.stack([(gates * m).sum(-1) for m in masks], dim=1)
-        if normalize_weights and k > 1:
-            w = w / torch.clamp(w.sum(1, keepdim=True), min=1e-9)
-        aux = E * (gates.mean(0) * masks[0].mean(0)).sum()
-        return card, w, aux, masks
+        return (card,) + replayed_routing(logits, card, k, normalize_weights)
 
 
 def moe_e2e_check(cfg, card_state, seed, bits):
@@ -2645,14 +2826,33 @@ TRAIN_CONFIG = {"train_batch_size": 32,
                 "steps_per_print": 10 ** 9}
 TRAIN_BATCH, TRAIN_SEQ = 32, 1024
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FREE = 3, 5, 8
+# phase 5b: bench.py's _config3 row (bench.py:2300-2311): its training
+# config (FusedAdam, bf16, ZeRO stage 2 at world size 1) and fewer steps
+MOE_TRAIN_CONFIG = dict(TRAIN_CONFIG, zero_optimization={"stage": 2})
+MOE_TRAIN_STEPS = (2, 3, 4)
+
+
+def config3(moe_impl="capacity"):
+    """bench.py:2300's 8-expert top-2 training model (mixtral-style, scaled
+    to one chip): vocab 32768, d 1024, 8 layers, 8 heads / 2 KV heads, tied
+    embeddings, capacity factor 1.25 (the config default), ff_dim 2816,
+    full remat. About 0.61 B parameters, 0.19 B of them active a token."""
+    from shuffle_exchange_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(vocab_size=32768, d_model=1024, n_layers=8, n_heads=8,
+                             n_kv_heads=2, max_seq_len=2048, activation="swiglu",
+                             norm="rmsnorm", position="rope", tie_embeddings=True,
+                             n_experts=8, moe_top_k=2, moe_impl=moe_impl, remat=True,
+                             remat_policy="nothing_saveable")
 
 
 def train_expected_launches(model, batch, seq, n_leaves, steps):
     """Launches per kernel that ``steps`` training steps imply: under full
     remat every layer's forward runs twice (two RMSNorms and one flash
-    forward each time) and its flash backward once; the chunked loss norms
-    each chunk twice (it is checkpointed), the full-logits head once; AdamW
-    steps every leaf."""
+    forward each time; an MoE layer's three expert products too) and its
+    backward once (the flash backward; an MoE layer's three products' dx
+    and dw); the chunked loss norms each chunk twice (it is checkpointed),
+    the full-logits head once; AdamW steps every leaf."""
     from shuffle_exchange_tpu_torch import ops
     from shuffle_exchange_tpu_torch.models.transformer import _remat_policy
 
@@ -2664,17 +2864,61 @@ def train_expected_launches(model, batch, seq, n_leaves, steps):
     out = {k: 0 for k in ops.KERNEL_WRAPPERS}
     out.update(rmsnorm=(2 * L * twice + head_norms) * steps, flash_attention=L * twice * steps,
                flash_attention_bwd=L * steps, fused_adamw=n_leaves * steps)
+    if cfg.n_experts > 0:
+        out.update(grouped_matmul=3 * L * twice * steps, grouped_matmul_dx=3 * L * steps,
+                   grouped_matmul_dw=3 * L * steps)
     return out
 
 
-def train(name, cfg, seed, card, device=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+def active_params(cfg, n_params: int) -> int:
+    """Parameters a token activates: all but the (E - k) / E of the routed
+    expert stacks it does not reach (bench.py:2318 bills MoE MFU so)."""
+    if cfg.n_experts == 0:
+        return n_params
+    experts = cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.ff_dim
+    return n_params - experts * (cfg.n_experts - cfg.moe_top_k) // cfg.n_experts
+
+
+class _MoETap:
+    """Records each ``moe_layer`` call's drop fraction and expert counts
+    (device tensors) while it is open."""
+
+    def __enter__(self):
+        from shuffle_exchange_tpu_torch.moe import layer
+
+        self.layer, self.orig, self.seen = layer, layer.moe_layer, []
+
+        def tapped(*args, **kw):
+            res = self.orig(*args, **kw)
+            self.seen.append((res.metadata["drop_fraction"], res.metadata["expert_counts"]))
+            return res
+
+        layer.moe_layer = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.layer.moe_layer = self.orig
+
+    def summary(self):
+        drops = [float(d) for d, _ in self.seen]
+        counts = [c.float() for _, c in self.seen]
+        peak = max(float(c.max() / c.mean()) for c in counts) if counts else None
+        return dict(drop_fraction_by_layer=drops,
+                    drop_fraction=sum(drops) / len(drops) if drops else None,
+                    peak_expert_load_over_mean=peak)
+
+
+def train(name, cfg, seed, card, device=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+          config=TRAIN_CONFIG, steps=(TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FREE)):
     """``initialize`` + ``train_batch`` on one seeded batch, repeated:
-    TRAIN_WARMUP steps, TRAIN_TIMED steps each synchronised (p50) and
-    TRAIN_FREE steps with one synchronisation at the end (tokens/s). The
-    launch counters are zeroed just before the first step and read just
-    after the last; they must equal what the program implies. Then one
-    profiled step. ``device``, ``batch`` and ``seq`` are for a rehearsal
-    at a tiny size on the CPU."""
+    ``steps`` = (warm-up steps, steps each synchronised (p50), steps with
+    one synchronisation at the end (tokens/s)) under the training
+    ``config``. The launch counters are zeroed just before the first step
+    and read just after the last; they must equal what the program
+    implies. An MoE model's MFU bills the activated parameters, and one
+    evaluation of the batch after the steps reads each layer's drop
+    fraction and peak expert load. Then one profiled step. ``device``,
+    ``batch`` and ``seq`` are for a rehearsal at a tiny size on the CPU."""
     import torch
 
     import shuffle_exchange_tpu_torch as sxt
@@ -2683,12 +2927,12 @@ def train(name, cfg, seed, card, device=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
 
     on_card = device is None
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    warmup, timed, free = TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FREE
+    warmup, timed, free = steps
     model = Transformer(dataclasses.replace(cfg, remat=True, remat_policy="nothing_saveable",
                                             max_seq_len=seq), device=device)
     t0 = time.perf_counter()
     engine, opt, loader, sched = sxt.initialize(
-        model=model, config=dict(TRAIN_CONFIG, train_batch_size=batch), seed=seed, device=device)
+        model=model, config=dict(config, train_batch_size=batch), seed=seed, device=device)
     sync()
     init_s = time.perf_counter() - t0
     n_params = sum(m.numel() for m in engine.state.master.values())
@@ -2715,6 +2959,11 @@ def train(name, cfg, seed, card, device=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     launches = ops.launch_counts()
     steps = warmup + timed + free
     want = train_expected_launches(model, batch, seq, len(engine.state.master), steps)
+    moe = None
+    if cfg.n_experts > 0:
+        with _MoETap() as tap:
+            engine.eval_batch(data)
+        moe = tap.summary()
     _check(launches == want, f"training launch counts {launches} != implied {want}")
     _check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
     _check(losses[-1] < losses[0], f"the loss did not fall on the repeated batch: {losses}")
@@ -2722,23 +2971,27 @@ def train(name, cfg, seed, card, device=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
            f"{engine.state.step} updates over {steps} steps")
     p50 = sorted(per_step)[len(per_step) // 2]
     tps = tokens * free / free_s
+    n_active = active_params(cfg, n_params)
     out = dict(model=name, params=n_params, batch=batch, seq=seq, steps=steps, init_s=init_s,
                step_p50_ms=p50 * 1e3, step_ms=[t * 1e3 for t in per_step],
                tokens_per_s=tps, tokens_per_step=tokens,
-               mfu_6n=6.0 * n_params * tps / BF16_FLOP_PER_S, losses=losses,
+               mfu_6n=6.0 * n_active * tps / BF16_FLOP_PER_S, active_params=n_active,
+               moe=moe, moe_impl=cfg.moe_impl if cfg.n_experts else None, losses=losses,
                grad_norm=engine.get_global_grad_norm(), launches=launches,
                launches_per_step={k: v // steps for k, v in launches.items()},
                peak_mem_GiB=(torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None))
+    billed = ("6 x activated params (attention, embedding, router and k/E of the experts: "
+              f"{n_active / 1e9:.3f} B) x tokens/s" if cfg.n_experts else "6 x params x tokens/s")
     print(f"[train] {name} ({n_params / 1e9:.3f} B params), batch {batch} x {seq}, bf16, full "
           f"remat, FusedAdam: init {init_s:.2f} s; step p50 {out['step_p50_ms']:.1f} ms over "
           f"{timed} synchronised steps; {tps:.0f} tokens/s over {free} unsynchronised steps; "
           f"MFU {100 * out['mfu_6n']:.2f}% of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s dense bf16 "
-          f"by 6 x params x tokens/s (bills neither attention nor the remat recompute); peak "
+          f"by {billed} (bills neither attention nor the remat recompute); MoE {moe}; peak "
           f"memory {out['peak_mem_GiB']} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
           f"launches per step {out['launches_per_step']} on {card}", flush=True)
     if on_card:
         out["trace"] = profiled(lambda: engine.train_batch(data), top_other=12)
-        print(f"[trace train] one step: {json.dumps(out['trace'])} on {card}", flush=True)
+        print(f"[trace train {name}] one step: {json.dumps(out['trace'])} on {card}", flush=True)
     return out
 
 
@@ -2755,14 +3008,101 @@ def train(name, cfg, seed, card, device=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 0.02, 0.03
 
 
-def train_e2e_check(cfg, seed, card_device=None, batch=2, seq=128):
+# Phase 6b replays the card's routing into the CPU engine: bf16 on the card
+# against f32 on the CPU changes top-k choices near ties, and one flipped
+# token moves an expert's gradient far beyond the 3% the leaves are held to.
+class TrainRoutingReplay:
+    """Patches the port's one top-k rule (``moe.gating.topk_select``, also
+    bound in ``moe.layer``) for a training comparison of an ``n_layers``
+    model under full remat. Each engine's pass (``start``) makes the same
+    sequence of routing calls: a no-grad forward (one call a layer), and a
+    step's forward and its recompute in backward (2L calls: layers 0..L-1,
+    then L-1..0). While recording (the card), each call's choices and f32
+    logits are kept, and a recompute's must equal its forward's bit for bit
+    (the drops and saved shapes follow them). While replaying (the CPU),
+    call i returns the card's call-i choices with the weights and the aux
+    loss computed from this call's own ``logits`` tensor, so gradients flow
+    as without the replay; rows whose own choice differs are noted with
+    their 2nd-3rd router-logit gap and the row's largest router-logit
+    difference between the engines."""
+
+    def __init__(self, n_layers: int):
+        self.L, self.recorded, self.flips, self.rows = n_layers, [], [], 0
+        self.max_logit_delta, self.remat_pairs = 0.0, 0
+        self.replaying, self.calls, self.block = False, 0, []
+
+    def __enter__(self):
+        from shuffle_exchange_tpu_torch.moe import gating, layer
+
+        self._mods, self._orig = (gating, layer), gating.topk_select
+        for m in self._mods:
+            m.topk_select = self.select
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.topk_select = self._orig
+
+    def start(self, replaying: bool) -> None:
+        """Begin one engine's pass: the card's records, or their replay."""
+        self.replaying, self.calls, self.block = replaying, 0, []
+        if not replaying:
+            self.recorded = []
+
+    def _record(self, idx, logits):
+        import torch
+
+        self.recorded.append((idx.cpu(), logits.detach().float().cpu()))
+        if not logits.requires_grad:
+            return
+        self.block.append(len(self.recorded) - 1)
+        p = len(self.block) - 1
+        if p >= self.L:             # the recompute of layer 2L - 1 - p
+            fwd = self.recorded[self.block[2 * self.L - 1 - p]]
+            now = self.recorded[-1]
+            _check(torch.equal(fwd[0], now[0]) and torch.equal(fwd[1], now[1]),
+                   "a remat recompute routed differently from its forward on the card")
+            self.remat_pairs += 1
+        if len(self.block) == 2 * self.L:
+            self.block = []
+
+    def select(self, logits, k, normalize_weights=True, train=False, rng=None, noise_std=0.0):
+        idx, w, aux, masks = self._orig(logits, k, normalize_weights, train, rng, noise_std)
+        if not self.replaying:
+            self._record(idx, logits)
+            return idx, w, aux, masks
+        theirs, their_logits = self.recorded[self.calls]
+        self.calls += 1
+        _check(theirs.shape == idx.shape, f"replayed routing {tuple(theirs.shape)} != this "
+               f"call's {tuple(idx.shape)}: the engines ran different programs")
+        lg = logits.detach().float().cpu()
+        delta, differ = routing_difference(lg, their_logits, idx, theirs)
+        self.rows += int(idx.shape[0])
+        self.max_logit_delta = max(self.max_logit_delta, float(delta.max()))
+        self.flips += flip_notes(lg, delta, differ, k)
+        card = theirs.to(logits.device)
+        return (card,) + replayed_routing(logits, card, k, normalize_weights)
+
+    def report(self):
+        _check(self.calls == len(self.recorded), f"the CPU engine made {self.calls} routing "
+               f"calls, the card {len(self.recorded)}")
+        flips = sorted(self.flips, reverse=True)
+        return dict(routed_rows=self.rows, flips=len(flips),
+                    flip_gaps_top=[[round(g, 6), round(d, 6)] for g, d in flips[:10]],
+                    max_router_logit_delta=self.max_logit_delta,
+                    flips_beyond_noise=sum(g > 2 * d for g, d in flips),
+                    remat_recomputes_bit_equal=self.remat_pairs)
+
+
+def train_e2e_check(cfg, seed, card_device=None, batch=2, seq=128, config=TRAIN_CONFIG):
     """The training model cut to 2 layers: the card's bf16 loss and every
     gradient leaf (``forward`` / ``backward`` / ``get_full_grad``) against
     a CPU f32 engine started from the same weights, a 3-step loss
     trajectory, and a skipped step (a NaN weight) that must leave master,
-    moments and the step count bit-equal and launch no AdamW.
-    ``card_device``, ``batch`` and ``seq`` are for a rehearsal at a tiny
-    size on the CPU."""
+    moments and the step count bit-equal and launch no AdamW. An MoE
+    model's CPU engine routes as the card routed (``TrainRoutingReplay``;
+    flips are reported). ``card_device``, ``batch`` and ``seq`` are for a
+    rehearsal at a tiny size on the CPU."""
     import torch
 
     import shuffle_exchange_tpu_torch as sxt
@@ -2771,7 +3111,7 @@ def train_e2e_check(cfg, seed, card_device=None, batch=2, seq=128):
 
     cfg = dataclasses.replace(cfg, n_layers=2, remat=True, remat_policy="nothing_saveable",
                               max_seq_len=seq)
-    base = dict(TRAIN_CONFIG, train_batch_size=batch)
+    base = dict(config, train_batch_size=batch)
     card, *_ = sxt.initialize(model=Transformer(cfg, device=card_device), config=base, seed=seed,
                               device=card_device)
     start = {k: v.detach().cpu().clone() for k, v in card.state.master.items()}
@@ -2781,20 +3121,29 @@ def train_e2e_check(cfg, seed, card_device=None, batch=2, seq=128):
     ids = np.random.default_rng([seed, 10]).integers(0, cfg.vocab_size, size=(batch, seq))
     data = {"input_ids": ids.astype(np.int32)}
 
+    replay = TrainRoutingReplay(cfg.n_layers) if cfg.n_experts else None
+
+    def each_engine():
+        for label, eng in (("card", card), ("cpu", host)):
+            if replay is not None:
+                replay.start(replaying=label == "cpu")
+            yield label, eng
+
     losses = {"card": [], "cpu": []}
-    for label, eng in (("card", card), ("cpu", host)):
-        eng.forward(data)
-        losses[label].append(float(eng.backward()))
-    leaves = {}
-    for name in start:
-        got, want = card.get_full_grad(name), host.get_full_grad(name)
-        _check(np.isfinite(got).all(), f"non-finite gradient {name} on the card")
-        scale = float(np.abs(want).max())
-        leaves[name] = dict(max_abs_err=float(np.abs(got - want).max()), ref_abs_max=scale,
-                            rel=float(np.abs(got - want).max() / scale) if scale else 0.0)
-    for label, eng in (("card", card), ("cpu", host)):
-        eng.step()
-        losses[label] += [float(eng.train_batch(data)) for _ in range(2)]
+    with replay or contextlib.nullcontext():
+        for label, eng in each_engine():
+            eng.forward(data)
+            losses[label].append(float(eng.backward()))
+        leaves = {}
+        for name in start:
+            got, want = card.get_full_grad(name), host.get_full_grad(name)
+            _check(np.isfinite(got).all(), f"non-finite gradient {name} on the card")
+            scale = float(np.abs(want).max())
+            leaves[name] = dict(max_abs_err=float(np.abs(got - want).max()), ref_abs_max=scale,
+                                rel=float(np.abs(got - want).max() / scale) if scale else 0.0)
+        for label, eng in each_engine():
+            eng.step()
+            losses[label] += [float(eng.train_batch(data)) for _ in range(2)]
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"])]
 
     # a skipped step: a NaN weight makes the loss non-finite
@@ -2809,8 +3158,11 @@ def train_e2e_check(cfg, seed, card_device=None, batch=2, seq=128):
                    state_bit_equal=all(torch.equal(a, b) for a, b in zip(before, bits())),
                    step_unchanged=(st.step, st.opt_state.count) == step_before,
                    adamw_launches=ops.launch_counts()["fused_adamw"])
-    return dict(losses=losses, loss_rel=loss_rel, leaves=leaves, skipped=skipped,
-                worst_leaf=max(leaves, key=lambda n: leaves[n]["rel"]))
+    out = dict(losses=losses, loss_rel=loss_rel, leaves=leaves, skipped=skipped,
+               worst_leaf=max(leaves, key=lambda n: leaves[n]["rel"]))
+    if replay is not None:
+        out["routing"] = replay.report()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2884,6 +3236,11 @@ def main(argv=None) -> int:
     ggm = check_grouped_gemm(gen, np.random.default_rng([args.seed, 12]))
     print(f"[kernel] grouped_matmul: {len(ggm)} cells in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # 2h. the grouped GEMM's backward (B16-dx, B16-dw)
+    t0 = time.perf_counter()
+    ggb = check_grouped_gemm_bwd(gen, np.random.default_rng([args.seed, 15]))
+    print(f"[kernel] grouped_matmul_dx / _dw: {len(ggb)} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     # 2g. the LoRA delta of multi-tenant serving
     t0 = time.perf_counter()
     lora = check_lora_gemm(gen)
@@ -2892,7 +3249,10 @@ def main(argv=None) -> int:
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
                "fused_mlp": mlp, "fused_mlp_quant": qmlp, "quant_matmul": qmm,
-               "grouped_matmul": ggm, "lora_delta": lora, "flash_attention": flash,
+               "grouped_matmul": ggm,
+               "grouped_matmul_dx": [r for r in ggb if r["shape"]["which"] == "dx"],
+               "grouped_matmul_dw": [r for r in ggb if r["shape"]["which"] == "dw"],
+               "lora_delta": lora, "flash_attention": flash,
                "flash_attention_bwd": fbwd, "fused_adamw": adamw}
     for name, rows in checked.items():
         for r in rows:
@@ -2904,7 +3264,8 @@ def main(argv=None) -> int:
                                        "autograd_max_err_over_rms", "fwd_lse_ms",
                                        "gbytes_per_s", "dense_cublas_ms",
                                        "dense_cublas_sequence_ms", "library_sequence_ms",
-                                       "null_rows_zero", "rows_equal_solo") if k in r}
+                                       "null_rows_zero", "rows_equal_solo",
+                                       "rows_past_sum_zero", "empty_groups_zero") if k in r}
             timed = ("" if "ms" not in r else
                      f"kernel_ms={r['ms']} host_us={r['host_us']} plain_ms={r['plain_ms']} "
                      f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} ({r['bound_by']}) ")
@@ -3083,7 +3444,50 @@ def main(argv=None) -> int:
     _check(sk["loss_is_nan"] and sk["state_bit_equal"] and sk["step_unchanged"]
            and sk["adamw_launches"] == 0, f"a skipped step changed the state: {sk}")
 
+    # 5b. MoE training: bench.py's _config3 model at full width and depth,
+    # under "capacity" (the bench row) and "ragged" (dropless); 6b. cut to
+    # depth 2 against the CPU f32 engine routed as the card routed
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_trained = {}
+    for impl in ("capacity", "ragged"):
+        t0 = time.perf_counter()
+        moe_trained[impl] = train(f"config3-{impl}", config3(impl), args.seed, card,
+                                  config=MOE_TRAIN_CONFIG, steps=MOE_TRAIN_STEPS)
+        print(f"[train moe] {impl} in {time.perf_counter() - t0:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    me2e = train_e2e_check(config3("capacity"), args.seed, config=MOE_TRAIN_CONFIG)
+    r = me2e["routing"]
+    print(f"[e2e train moe] depth 2 _config3 (capacity), bf16 on the card against f32 on the "
+          f"CPU routed as the card routed, in {time.perf_counter() - t0:.2f} s: losses "
+          f"{me2e['losses']} (relative differences {me2e['loss_rel']}, tol {TRAIN_LOSS_TOL}); "
+          f"worst gradient leaf {me2e['worst_leaf']} {me2e['leaves'][me2e['worst_leaf']]} (tol "
+          f"{TRAIN_GRAD_TOL} x the leaf's largest |value|); routed rows {r['routed_rows']}, "
+          f"flips {r['flips']}, largest [2nd-3rd f32 router-logit gap, router-logit "
+          f"difference] of the flips {r['flip_gaps_top']}, largest router-logit difference "
+          f"{r['max_router_logit_delta']} (rule: {MOE_FLIP_RULE}); remat recomputes bit-equal "
+          f"to their forwards: {r['remat_recomputes_bit_equal']}; skipped step "
+          f"{me2e['skipped']} on {card}", flush=True)
+    for name, leaf in me2e["leaves"].items():
+        print(f"[e2e train moe] grad {name}: max_abs_err={leaf['max_abs_err']} "
+              f"ref_abs_max={leaf['ref_abs_max']} rel={leaf['rel']}")
+    _check(all(x <= TRAIN_LOSS_TOL for x in me2e["loss_rel"]),
+           f"depth-2 MoE training losses on the card disagree with the CPU f32 path: "
+           f"{me2e['losses']}")
+    _check(all(leaf["rel"] <= TRAIN_GRAD_TOL for leaf in me2e["leaves"].values()),
+           f"depth-2 MoE gradients on the card disagree with the CPU f32 path: "
+           f"{me2e['worst_leaf']}")
+    _check(r["flips_beyond_noise"] == 0, f"depth-2 MoE training: {r['flips_beyond_noise']} "
+           "routing flips wider than the router logits' difference explains")
+    _check(r["remat_recomputes_bit_equal"] > 0, "no remat recompute was checked")
+    sk = me2e["skipped"]
+    _check(sk["loss_is_nan"] and sk["state_bit_equal"] and sk["step_unchanged"]
+           and sk["adamw_launches"] == 0, f"a skipped MoE step changed the state: {sk}")
+
     runs.append(trained["launches"])
+    runs += [t["launches"] for t in moe_trained.values()]
     launches = {k: sum(r[k] for r in runs) for k in ops.KERNEL_WRAPPERS}
     _check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
 
@@ -3096,6 +3500,8 @@ def main(argv=None) -> int:
                 "fused_mlp_quant": "shuffle_exchange_tpu/ops/fused_decode.py:634",
                 "quant_matmul": "shuffle_exchange_tpu/ops/quant_matmul.py:217",
                 "grouped_matmul": "shuffle_exchange_tpu/ops/grouped_gemm.py:63",
+                "grouped_matmul_dx": "shuffle_exchange_tpu/ops/grouped_gemm.py:63",
+                "grouped_matmul_dw": "shuffle_exchange_tpu/ops/grouped_gemm.py:63",
                 "lora_delta": "shuffle_exchange_tpu/ops/lora_gemm.py:60",
                 "flash_attention": "shuffle_exchange_tpu/ops/flash_attention.py:122",
                 "flash_attention_bwd": "shuffle_exchange_tpu/ops/flash_attention.py:122",
@@ -3111,6 +3517,10 @@ def main(argv=None) -> int:
                "fused_mlp": ("cuda", fused_cu), "fused_mlp_quant": ("cuda", fused_cu),
                "quant_matmul": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/quant_matmul.cu"),
                "grouped_matmul": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/grouped_gemm.cu"),
+               "grouped_matmul_dx": ("cuda",
+                                     "shuffle_exchange_tpu_torch/ops/csrc/grouped_gemm.cu"),
+               "grouped_matmul_dw": ("cuda",
+                                     "shuffle_exchange_tpu_torch/ops/csrc/grouped_gemm.cu"),
                "lora_delta": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/lora_gemm.cu"),
                "flash_attention": ("cuda", flash_cu), "flash_attention_bwd": ("cuda", flash_cu),
                "fused_adamw": ("cuda", "shuffle_exchange_tpu_torch/ops/csrc/fused_adam.cu")}
@@ -3121,6 +3531,9 @@ def main(argv=None) -> int:
         if name == "grouped_matmul":    # the main path's cell: a decode tick's int8 w_gate
             m = next(r for r in rows if r["shape"]["fmt"] == "8" and r["shape"]["N"] == 16
                      and r["shape"]["K"] == 4096 and r["shape"]["groups"] == "ragged")
+        if name in ("grouped_matmul_dx", "grouped_matmul_dw"):   # phase 5b's bench row
+            m = next(r for r in rows if r["shape"]["label"] == "config3 capacity"
+                     and r["shape"]["K"] == 1024)
         if name == "lora_delta":        # the main path's cell: a decode tick of phase 3f's pool
             m = next(r for r in rows if (r["shape"]["B"], r["shape"]["T"], r["shape"]["N"],
                                          r["shape"]["R"], r["shape"]["S"]) == (8, 1, 4096, 8, 5))
@@ -3137,7 +3550,8 @@ def main(argv=None) -> int:
               "serve": serves, "put_decode_loop": loop, "v1_generate": v1, "trace": traces,
               "quant_serving": quant, "multi_tenant": tenants, "mixtral": mixtral,
               "moe_e2e": moe_e2e,
-              "e2e": e2e, "train": trained, "train_e2e": te2e}
+              "e2e": e2e, "train": trained, "train_e2e": te2e, "train_moe": moe_trained,
+              "train_moe_e2e": me2e}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -76,11 +76,6 @@ def initialize(
     if config is None and args is not None and getattr(args, "deepspeed_config", None) is not None:
         config = args.deepspeed_config
 
-    model_cfg = getattr(model, "config", None)
-    if model_cfg is not None and getattr(model_cfg, "n_experts", 0) > 0:
-        from .models.transformer import refuse_moe_training
-
-        refuse_moe_training(model_cfg)
     device = resolve_device(device)
     cfg = SXConfig.load(config, world_size=1)
 

@@ -46,7 +46,6 @@ import torch.nn.functional as F
 
 from ..models.transformer import Transformer, _norm, decode_fusion_eligibility, rope_table
 from ..config.config_utils import ConfigError
-from ..moe.layer import moe_layer
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_decode import fused_mlp, fused_qkv_rope, mlp_weights_fusable
@@ -354,25 +353,19 @@ class InferenceEngine:
         return out[:, None]
 
     def _ffn(self, lw: Dict[str, torch.Tensor], y: torch.Tensor) -> torch.Tensor:
-        """The dense SwiGLU FFN, or the MoE FFN (JAX ``_ffn``): ``moe_layer``
-        with the impl and capacity factor the paged engine's serving config
-        sets (``_moe_impl_override`` / ``_moe_cf_override``; the v1 engine
-        has none and takes the model config's), resolved as under JAX's
-        scanned stack, plus the shared expert. With a routing tap armed
+        """The dense SwiGLU FFN, or the MoE FFN (JAX ``_ffn``): the model's
+        ``moe_ffn`` with the impl and capacity factor the paged engine's
+        serving config sets (``_moe_impl_override`` / ``_moe_cf_override``;
+        the v1 engine has none and takes the model config's), resolved as
+        under JAX's scanned stack, plus the shared expert. With a routing tap armed
         (``_moe_tap``, the paged engine's programs) each call appends its
         expert counts [E] int32 and dropped assignments (f32), on the
         device."""
         cfg = self._mcfg
         if cfg.n_experts == 0:
             return (F.silu(y @ lw["w_gate"]) * (y @ lw["w_up"])) @ lw["w_down"]
-        experts = {n[4:]: w for n, w in lw.items()
-                   if n.startswith("moe_") and n != "moe_gate" and not n.startswith("moe_shared")}
-        impl = getattr(self, "_moe_impl_override", None) or cfg.moe_impl
-        cf = getattr(self, "_moe_cf_override", None)
-        res = moe_layer(lw["moe_gate"], experts, y, k=cfg.moe_top_k,
-                        capacity_factor=cfg.capacity_factor if cf is None else cf,
-                        activation=cfg.activation, impl=impl,
-                        normalize_weights=cfg.moe_norm_topk, scanned=True)
+        out, res = self.model.moe_ffn(lw, y, impl=getattr(self, "_moe_impl_override", None),
+                                      capacity_factor=getattr(self, "_moe_cf_override", None))
         tap = getattr(self, "_moe_tap", None)
         if tap is not None:
             # counts are post-drop (capacity) or pre-drop with drop_fraction
@@ -381,12 +374,6 @@ class InferenceEngine:
             rows = y.numel() // y.shape[-1]
             tap.append((res.metadata["expert_counts"].int(),
                         res.metadata["drop_fraction"] * (rows * cfg.moe_top_k)))
-        out = res.output
-        if cfg.moe_shared_expert_ff > 0:
-            shared = (F.silu(y @ lw["moe_shared_w_gate"])
-                      * (y @ lw["moe_shared_w_up"])) @ lw["moe_shared_w_down"]
-            gate_s = torch.sigmoid(y @ lw["moe_shared_gate"])
-            out = out + gate_s.to(out.dtype) * shared
         return out
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:

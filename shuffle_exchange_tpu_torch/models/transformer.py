@@ -3,8 +3,8 @@
 Counterpart of ``shuffle_exchange_tpu/models/transformer.py`` cut to what
 the serving and training slices run: RMSNorm, rotate-half RoPE,
 grouped-query attention, SwiGLU or a Mixtral-style MoE FFN (``n_experts``
-> 0: top-k routed experts in every layer, an optional shared expert; for
-serving) and an untied (or tied) unembedding; the pieces the inference
+> 0: top-k routed experts in every layer, an optional shared expert) and
+an untied (or tied) unembedding; the pieces the inference
 engines call (``embed``, ``head``) and the training forward
 (``layer_apply``, ``stack_apply``, ``chunked_loss``, ``loss``), which is
 functional like the JAX one: it takes the parameters as a
@@ -16,8 +16,10 @@ parameter tree moves over by name (``models/convert.py``) and a test can
 compare the two packages leaf by leaf.
 
 Any other structure raises ``NotImplementedError`` naming the ROADMAP item
-that ports it; so does the training forward of an MoE model (MoE training,
-ROADMAP queue A, item 9).
+that ports it. The MoE training forward runs every layer's experts
+through ``moe_layer`` (differentiable: the grouped GEMM's backward is its
+own pair of kernels) and adds ``aux_loss_coef`` times the summed aux loss
+to the cross entropy, as the JAX ``loss`` does.
 """
 
 from __future__ import annotations
@@ -202,16 +204,6 @@ def check_supported(cfg: TransformerConfig) -> None:
     for bad, what in checks:
         if bad:
             raise NotImplementedError(f"not supported by the PyTorch port yet: {what}")
-
-
-def refuse_moe_training(cfg: TransformerConfig) -> None:
-    """The training forward of an MoE model raises: the capacity route's
-    gradients, the aux loss and the grouped GEMM's backward come with MoE
-    training (ROADMAP queue A, item 9)."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "training an MoE model is not in the PyTorch port yet (it serves MoE models): "
-            "MoE training, ROADMAP queue A, item 9")
 
 
 #: activations the port's fused MLP kernel computes. The JAX package's
@@ -504,10 +496,10 @@ class Transformer(nn.Module):
     # -- training forward ------------------------------------------------
 
     def layer_apply(self, lw: Dict[str, torch.Tensor], h: torch.Tensor, rope):
-        """One block, ``lw`` one layer's leaves: h [B, T, D] -> (h, moe aux
-        loss, 0 for this dense family). Pre-norm attention (rotate-half
-        RoPE, ``flash_attention`` with no segment ids) and a SwiGLU MLP,
-        each added to the residual stream."""
+        """One block, ``lw`` one layer's leaves: h [B, T, D] -> (h, the
+        layer's MoE aux loss, 0 for a dense model). Pre-norm attention
+        (rotate-half RoPE, ``flash_attention`` with no segment ids) and a
+        SwiGLU MLP or the MoE FFN, each added to the residual stream."""
         from ..ops.flash_attention import flash_attention
 
         cfg = self.config
@@ -521,8 +513,37 @@ class Transformer(nn.Module):
         attn = flash_attention(q, k, v, causal=cfg.causal).reshape(B, T, H * Dh)
         h = h + attn @ lw["wo"]
         y2 = _norm(h, lw["ln2_w"], eps=cfg.norm_eps)
+        if cfg.n_experts > 0:
+            ff, res = self.moe_ffn(lw, y2)
+            return h + ff, res.aux_loss
         h = h + (F.silu(y2 @ lw["w_gate"]) * (y2 @ lw["w_up"])) @ lw["w_down"]
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def moe_ffn(self, lw: Dict[str, torch.Tensor], y: torch.Tensor, impl: Optional[str] = None,
+                capacity_factor: Optional[float] = None):
+        """The MoE FFN of one layer (JAX ``layer_apply``'s MoE branch and the
+        engines' ``_ffn``): the routed experts through ``moe_layer(...,
+        scanned=True)`` (so "auto" resolves to "capacity", as under JAX's
+        layer scan) and the Qwen2-style shared expert added with its
+        per-token sigmoid gate. ``impl`` / ``capacity_factor`` override the
+        config's (a serving config's). Returns (ff, the ``MoEResult``)."""
+        from ..moe.layer import moe_layer
+
+        cfg = self.config
+        experts = {n[len("moe_"):]: v for n, v in lw.items()
+                   if n.startswith("moe_") and n != "moe_gate" and not n.startswith("moe_shared")}
+        res = moe_layer(lw["moe_gate"], experts, y, k=cfg.moe_top_k,
+                        capacity_factor=(cfg.capacity_factor if capacity_factor is None
+                                         else capacity_factor),
+                        activation=cfg.activation, impl=impl or cfg.moe_impl,
+                        normalize_weights=cfg.moe_norm_topk, scanned=True)
+        ff = res.output
+        if cfg.moe_shared_expert_ff > 0:
+            shared = (F.silu(y @ lw["moe_shared_w_gate"])
+                      * (y @ lw["moe_shared_w_up"])) @ lw["moe_shared_w_down"]
+            gate_s = torch.sigmoid(y @ lw["moe_shared_gate"])
+            ff = ff + gate_s.to(ff.dtype) * shared
+        return ff, res
 
     def stack_apply(self, stacked_layers: Dict[str, torch.Tensor], x: torch.Tensor, rope):
         """Run the stack over x: ``stacked_layers`` holds the ``[L, ...]``
@@ -598,7 +619,6 @@ class Transformer(nn.Module):
 
     def apply_with_aux(self, params, input_ids):
         """(logits, moe aux loss): aux is 0 for dense models."""
-        refuse_moe_training(self.config)
         params = self._params_or_own(params)
         x, rope = self.embed(params, self._ids(input_ids, params))
         x, aux = self.stack_apply(self.stacked(params), x, rope)
@@ -608,8 +628,8 @@ class Transformer(nn.Module):
         """Next-token cross entropy of ``batch = {"input_ids": [B, T]}``
         (labels are the ids shifted by one), or of explicit
         ``batch["labels"]`` (already aligned, -100 = ignore). ``params`` is
-        a flattened-name dict, or None for the model's own parameters."""
-        refuse_moe_training(self.config)
+        a flattened-name dict, or None for the model's own parameters. An
+        MoE model adds ``aux_loss_coef`` times its summed aux loss."""
         params = self._params_or_own(params)
         for key in ("ltd_keep_prob", "pld_theta"):
             if key in batch:

@@ -9,8 +9,12 @@ buffer positions given by choice order first and token order second,
 overflow dropped, and the load-balancing aux loss on the first choice.
 
 Every shape is static ([S, E] in), so nothing here reads a device value
-on the host. Gate noise is training-time exploration, which comes with
-MoE training (ROADMAP queue A, item 9).
+on the host. The routing carries JAX's gradients with respect to the
+logits: through the softmax into the aux loss (first choice) and the
+combine weights (renormalized after the drops); the choices, buffer
+positions, masks and drops carry none, as in JAX. Gate noise (training
+exploration) stays refused: the JAX model path never passes an rng, and
+its normal draws need JAX's threefry bits (ROADMAP queue A, item 3 (a)).
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 def _refuse_noise(train: bool, rng, noise_std: float) -> None:
     if train and noise_std > 0.0 and rng is not None:
         raise NotImplementedError("gate noise (training-time exploration) is not in the "
-                                  "PyTorch port yet: MoE training, ROADMAP queue A, item 9")
+                                  "PyTorch port yet: MoE training, ROADMAP queue A, item 9 (its "
+                                  "normal draws need JAX's threefry bits, item 3 (a))")
 
 
 def topk_select(logits: torch.Tensor, k: int, normalize_weights: bool = True,
@@ -100,7 +105,10 @@ def topk_gating_compact(logits: torch.Tensor, k: int = 2, capacity_factor: float
     locations, kept_masks = [], []
     running = torch.zeros(E, dtype=torch.float32, device=logits.device)
     for m in masks:
-        loc = torch.cumsum(m, dim=0) - m + running[None, :]
+        # the running count down the tokens, taken along the last dim of
+        # m^T: a scan over dim 0 of [S, E] is an outer-dim scan, 5 ms at
+        # S = 32,736 on the H100; the counts are exact integers either way
+        loc = torch.cumsum(m.T.contiguous(), dim=1).T - m + running[None, :]
         running = running + m.sum(0)
         if drop_tokens:
             m = m * (loc < capacity)

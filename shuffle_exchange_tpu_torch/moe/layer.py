@@ -17,6 +17,14 @@ Nothing in the layer copies a device value to the host: shapes are fixed
 by S, k, E and the capacity, group sizes stay on the device, and the
 gathers, scatters and the unsort are index operations.
 
+The layer trains: autograd runs through the gathers, the unsort, the
+expert biases, the routing weights and the aux loss, and each grouped
+matmul's backward is its own pair of kernels. The forward adds no floats
+with atomics (its counts are integer sums), so a remat recompute sees
+bit-equal router logits and routes, drops included, as its forward did
+(``chip_smoke.py`` phase 6b checks it); only ``index_select``'s backward
+accumulates floats with atomics.
+
 ``moe_layer`` takes the JAX package's four impls ("auto", "capacity",
 "capacity_einsum" — the dense one-hot oracle — and "ragged"). The JAX
 package's expert-axis sharding (``_gather_expert_sharded``,

@@ -8,7 +8,7 @@ through the kernels.
 from .flash_attention import flash_attention, flash_attention_bwd, flash_attention_lse
 from .fused_adam import fused_adamw_update
 from .fused_decode import fused_mlp, fused_mlp_quant, fused_paged_decode_attention, fused_qkv_rope
-from .grouped_gemm import grouped_matmul
+from .grouped_gemm import grouped_matmul, grouped_matmul_dw, grouped_matmul_dx
 from .lora_gemm import lora_delta
 from .paged_attention import paged_decode_attention, paged_extend_attention
 from .quant_matmul import QuantizedMatrix, quant_matmul, quantize_weight
@@ -26,6 +26,8 @@ KERNEL_WRAPPERS = {
     "fused_mlp_quant": fused_mlp_quant,
     "quant_matmul": quant_matmul,
     "grouped_matmul": grouped_matmul,
+    "grouped_matmul_dx": grouped_matmul_dx,
+    "grouped_matmul_dw": grouped_matmul_dw,
     "lora_delta": lora_delta,
     "flash_attention": flash_attention,
     "flash_attention_bwd": flash_attention_bwd,
@@ -44,6 +46,7 @@ def reset_launch_counts() -> None:
 
 __all__ = ["KERNEL_WRAPPERS", "QuantizedMatrix", "flash_attention", "flash_attention_bwd",
            "flash_attention_lse", "fused_adamw_update", "fused_mlp", "fused_mlp_quant",
-           "fused_paged_decode_attention", "fused_qkv_rope", "grouped_matmul", "launch_counts",
+           "fused_paged_decode_attention", "fused_qkv_rope", "grouped_matmul", "grouped_matmul_dw",
+           "grouped_matmul_dx", "launch_counts",
            "lora_delta", "paged_decode_attention", "paged_extend_attention", "quant_matmul",
            "quantize_weight", "reset_launch_counts", "rmsnorm"]

@@ -43,6 +43,39 @@
 // m16n8k16 (bf16, f32 accumulators) from ldmatrix fragments. A group's
 // weights are read once per 128 of its rows. wgmma, TMA and a producer
 // warp are later work.
+//
+// The backward (megablox ops.py:63-101, the custom VJP jax.grad reaches
+// through _grouped_matmul_gmm) is two more tensor-core kernels, bf16 only
+// (training casts the expert stacks to the activations' bf16):
+//   B16-dx  dx [N, K] = dout [N, F] @ w[g]^T       (megablox gmm(transpose_rhs))
+//   B16-dw  dw [E, K, F], block g = x_g^T @ dout_g   (megablox tgmm)
+// Both sum in f32 and round once to bf16; no sum is split across blocks,
+// so two runs give equal bits.
+//
+// dx is the forward's tiled form with the weight read as it lies: the
+// contraction runs over F, and a [128 of K][32 of F] weight tile is the
+// mma's column-major B operand, taken with plain ldmatrix (no transpose,
+// no dequantize pass). Row tiles come from find_tile as in the forward:
+// an empty group has no tile and reads no weight bytes, rows past the
+// groups' sum are written as zeros. Calls of 16 rows or fewer take the
+// same tiled kernel (training calls have thousands of rows).
+// dw's grid is (F tile, K tile, group); a block finds its group's row
+// range on the device, walks the rows in 32-row steps (a masked tail),
+// the x and dout tiles [32 rows][128] copied with cp.async three steps
+// ahead and taken as ldmatrix.trans fragments (x^T as the row-major A,
+// dout as the B), and writes its [128 x 128] block once; a group of no
+// rows writes zeros. Groups are very uneven (0 to 65,472 rows at
+// bench.py's _config3 shapes); the rows of one group are not split
+// across blocks, so a long group is one long walk per output tile.
+//
+// Bounds on the H100 (989 TFLOP/s bf16, 3.35 TB/s), both kernels being
+// 2 N K F operations with N rows, K x F expert matrices:
+//   _config3 (K 1024, F 2816 and the transpose), ragged N 65,472:
+//     377.6 GFLOP -> 0.382 ms (operations; dx moves 0.549 GB, 0.164 ms);
+//   _config3 capacity, 8 x 10,230 rows: 472.0 GFLOP -> 0.477 ms;
+//   Mixtral (4096 x 14336), 16,384 rows: 1.924 TFLOP -> 1.946 ms.
+// Operations bound every training shape; the simple mma.sync forms here
+// are expected well short of it (wgmma is later work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -510,6 +543,236 @@ cudaError_t launch_forms(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* 
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The backward: dx (B16-dx) and dw (B16-dw), bf16
+// ---------------------------------------------------------------------------
+
+constexpr int kLDT = kBK + 8;             // padded [rows][32] tile row, in bf16 (80 bytes)
+constexpr int kLDW = kBN + 8;             // padded [32][128] tile row, in bf16 (272 bytes)
+
+struct DxStage {
+  __nv_bfloat16 a[kBM * kLDT];   // dout tile [128 rows][32 of F]
+  __nv_bfloat16 b[kBN * kLDT];   // weight tile [128 of K][32 of F]
+};
+
+struct DwStage {
+  __nv_bfloat16 a[kBK * kLDW];   // x tile [32 rows][128 of K]
+  __nv_bfloat16 b[kBK * kLDW];   // dout tile [32 rows][128 of F]
+};
+
+constexpr size_t kDxSmem = kStages * sizeof(DxStage);
+constexpr size_t kDwSmem = kStages * sizeof(DwStage);
+
+// Copies of F step `step` for a dx block: dout rows of the tile and the
+// weight rows k0.. of its group, 32 columns each; past the edges zeros.
+__device__ __forceinline__ void load_dx_step(DxStage& st, const __nv_bfloat16* __restrict__ dout,
+                                             const __nv_bfloat16* __restrict__ wg, int row0,
+                                             int rows, int K, int F, int k0, int step, int tid) {
+  const int f0 = step * kBK;
+  for (int i = tid; i < kBM * 4; i += kMmaThreads) {
+    const int r = i / 4, v = i % 4;
+    const bool ok = r < rows && f0 + v * 8 < F;
+    cp_async16(st.a + r * kLDT + v * 8, dout + (ok ? size_t(row0 + r) * F + f0 + v * 8 : 0), ok);
+  }
+  for (int i = tid; i < kBN * 4; i += kMmaThreads) {
+    const int r = i / 4, v = i % 4;
+    const bool ok = k0 + r < K && f0 + v * 8 < F;
+    cp_async16(st.b + r * kLDT + v * 8, wg + (ok ? size_t(k0 + r) * F + f0 + v * 8 : 0), ok);
+  }
+}
+
+// Block (K tile, row slot): dx rows of the slot's tile = dout rows @ the
+// group's weight^T.
+__global__ void __launch_bounds__(kMmaThreads) grouped_dx_kernel(
+    const __nv_bfloat16* __restrict__ dout, const __nv_bfloat16* __restrict__ w,
+    const int* __restrict__ group_sizes, int E, int N, int K, int F,
+    __nv_bfloat16* __restrict__ dx) {
+  const RowTile tile = find_tile(group_sizes, E, N, kBM, blockIdx.y);
+  if (tile.group == -2) return;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * kBN;
+  if (tile.group == -1) {    // rows past the groups: zeros
+    for (int i = tid; i < tile.rows * kBN; i += kMmaThreads) {
+      const int r = i / kBN, c = k0 + i % kBN;
+      if (c < K) dx[size_t(tile.row0 + r) * K + c] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  DxStage* stage = reinterpret_cast<DxStage*>(smem);
+  const __nv_bfloat16* __restrict__ wg = w + size_t(tile.group) * K * F;
+  const int wm = warp % 4, wn = warp / 4;    // warp tile: rows wm*32, columns wn*64
+  const int steps = (F + kBK - 1) / kBK;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < steps) load_dx_step(stage[i], dout, wg, tile.row0, tile.rows, K, F, k0, i, tid);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    const int ahead = step + kStages - 1;
+    if (ahead < steps)
+      load_dx_step(stage[ahead % kStages], dout, wg, tile.row0, tile.rows, K, F, k0, ahead, tid);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const DxStage& st = stage[step % kStages];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4(af[i], st.a + (wm * 32 + i * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kLDT +
+                           kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        // [K rows][F] is the column-major B: b0/b1 of columns np*16.. and np*16 + 8..
+        uint32_t r[4];
+        ldsm_x4(r, st.b + (wn * 64 + np * 16 + (lane % 8) + (lane / 16) * 8) * kLDT + kk * 16 +
+                       ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * np], af[i], r[0], r[1]);
+          mma_bf16(acc[i][2 * np + 1], af[i], r[2], r[3]);
+        }
+      }
+    }
+    __syncthreads();   // done with this stage before it is refilled
+  }
+
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = k0 + wn * 64 + j * 8 + tq * 2;
+      if (col >= K) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + i * 16 + g + h * 8;
+        if (r >= tile.rows) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dx + size_t(tile.row0 + r) * K + col) =
+            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Copies of row step `step` for a dw block: rows r0.. (below rend) of x
+// (columns k0..) and of dout (columns f0..); past the edges zeros.
+__device__ __forceinline__ void load_dw_step(DwStage& st, const __nv_bfloat16* __restrict__ x,
+                                             const __nv_bfloat16* __restrict__ dout, int r0,
+                                             int rend, int K, int F, int k0, int f0, int tid) {
+  for (int i = tid; i < kBK * (kBM / 8); i += kMmaThreads) {
+    const int r = i / (kBM / 8), v = i % (kBM / 8);
+    const bool ok = r0 + r < rend && k0 + v * 8 < K;
+    cp_async16(st.a + r * kLDW + v * 8, x + (ok ? size_t(r0 + r) * K + k0 + v * 8 : 0), ok);
+  }
+  for (int i = tid; i < kBK * (kBN / 8); i += kMmaThreads) {
+    const int r = i / (kBN / 8), v = i % (kBN / 8);
+    const bool ok = r0 + r < rend && f0 + v * 8 < F;
+    cp_async16(st.b + r * kLDW + v * 8, dout + (ok ? size_t(r0 + r) * F + f0 + v * 8 : 0), ok);
+  }
+}
+
+// Block (F tile, K tile, group g): dw[g][k0.., f0..] = x_g^T @ dout_g over
+// the group's rows, in row order.
+__global__ void __launch_bounds__(kMmaThreads) grouped_dw_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dout,
+    const int* __restrict__ group_sizes, int E, int N, int K, int F,
+    __nv_bfloat16* __restrict__ dw) {
+  const int grp = blockIdx.z;
+  const int k0 = blockIdx.y * kBM, f0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the group's rows, sizes clamped as in find_tile
+  int off = 0;
+  for (int e = 0; e < grp; ++e) off += max(0, min(__ldg(group_sizes + e), N - off));
+  const int size = max(0, min(__ldg(group_sizes + grp), N - off));
+  __nv_bfloat16* __restrict__ out = dw + size_t(grp) * K * F;
+  if (size == 0) {           // an empty group: a zero block
+    for (int i = tid; i < kBM * kBN; i += kMmaThreads) {
+      const int r = k0 + i / kBN, c = f0 + i % kBN;
+      if (r < K && c < F) out[size_t(r) * F + c] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  DwStage* stage = reinterpret_cast<DwStage*>(smem);
+  const int rend = off + size;
+  const int wm = warp % 4, wn = warp / 4;    // warp tile: K rows wm*32, F columns wn*64
+  const int steps = (size + kBK - 1) / kBK;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < steps) load_dw_step(stage[i], x, dout, off + i * kBK, rend, K, F, k0, f0, tid);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    const int ahead = step + kStages - 1;
+    if (ahead < steps)
+      load_dw_step(stage[ahead % kStages], x, dout, off + ahead * kBK, rend, K, F, k0, f0, tid);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const DwStage& st = stage[step % kStages];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      // x^T as the row-major A: the stored [rows][K] tile read transposed
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4_trans(af[i], st.a + (kk * 16 + (lane % 8) + (lane / 16) * 8) * kLDW + wm * 32 +
+                                 i * 16 + ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, st.b + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kLDW + wn * 64 +
+                             np * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * np], af[i], r[0], r[1]);
+          mma_bf16(acc[i][2 * np + 1], af[i], r[2], r[3]);
+        }
+      }
+    }
+    __syncthreads();   // done with this stage before it is refilled
+  }
+
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = f0 + wn * 64 + j * 8 + tq * 2;
+      if (col >= F) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = k0 + wm * 32 + i * 16 + g + h * 8;
+        if (r >= K) continue;
+        *reinterpret_cast<__nv_bfloat162*>(out + size_t(r) * F + col) =
+            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -554,6 +817,43 @@ int sxt_grouped_matmul_bf16(const void* x, const void* w, const void* scales,
   else
     err = launch_forms<kGBf16>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
   return static_cast<int>(err);
+}
+
+// dx [N, K] bf16 = dout [N, F] bf16 (rows sorted by group) @ w[g]^T for
+// the bf16 stack w [E, K, F], by group_sizes [E] int32 on the device.
+// Needs K % 8 == 0 and F % 8 == 0.
+int sxt_grouped_matmul_dx_bf16(const void* dout, const void* w, const void* group_sizes,
+                               void* dx, int N, int K, int F, int E, void* stream) {
+  if (N <= 0 || K <= 0) return 0;
+  if (E < 1 || F < 1 || K % 8 || F % 8) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(grouped_dx_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(kDxSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((K + kBN - 1) / kBN, (N + kBM - 1) / kBM + E);
+  grouped_dx_kernel<<<grid, kMmaThreads, kDxSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const int*>(group_sizes), E, N, K, F, static_cast<__nv_bfloat16*>(dx));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dw [E, K, F] bf16: block g = x_g^T @ dout_g over group g's rows of x
+// [N, K] and dout [N, F] (bf16, rows sorted by group), zeros for an empty
+// group; group_sizes [E] int32 on the device. Needs K % 8 == 0 and F % 8
+// == 0.
+int sxt_grouped_matmul_dw_bf16(const void* x, const void* dout, const void* group_sizes,
+                               void* dw, int N, int K, int F, int E, void* stream) {
+  if (E <= 0 || K <= 0 || F <= 0) return 0;
+  if (N < 0 || K % 8 || F % 8) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(grouped_dw_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(kDwSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((F + kBN - 1) / kBN, (K + kBM - 1) / kBM, E);
+  grouped_dw_kernel<<<grid, kMmaThreads, kDwSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const int*>(group_sizes), E, N, K, F, static_cast<__nv_bfloat16*>(dw));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

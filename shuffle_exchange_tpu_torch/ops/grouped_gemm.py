@@ -19,6 +19,21 @@ and dequantizes them in registers, and it reads ``group_sizes`` on the
 device: no call here copies a device value to the host. The wrapper runs
 its kernel for a CUDA tensor and its plain version for a CPU tensor, and
 counts one launch per call on the card (``grouped_matmul.launches``).
+
+``grouped_matmul`` is differentiable (a ``torch.autograd.Function`` that
+saves x, w and the group sizes), as the megablox ``gmm``'s custom VJP is
+(megablox ``ops.py:63-101``). Its backward calls two more wrappers, each
+with its own kernel in the same source and its own plain version:
+
+- ``grouped_matmul_dx(dout [N, F], w [E, K, F], sizes) -> [N, K]``: row n
+  is ``dout[n] @ w[g(n)]^T`` (megablox ``gmm(transpose_rhs=True)``);
+- ``grouped_matmul_dw(x [N, K], dout [N, F], sizes) -> [E, K, F]``: group
+  g's block is ``x_g^T @ dout_g``, zeros for an empty group (``tgmm``).
+
+Both sum in f32 and round once; rows past the groups' sum give zero dx
+rows and add nothing to dw, as ``ragged_dot``'s gradient. Quantized
+expert stacks serve only: under autograd they raise, as the JAX package
+trains no quantized experts.
 """
 
 from __future__ import annotations
@@ -50,12 +65,9 @@ def grouped_matmul_reference(x: torch.Tensor, w, group_sizes: torch.Tensor) -> t
     wd = _dense_stack(w, x.dtype)
     N, F = x.shape[0], wd.shape[-1]
     out = torch.zeros(N, F, dtype=x.dtype, device=x.device)
-    start = 0
-    for g, size in enumerate(group_sizes.tolist()):
-        end = min(start + int(size), N)
-        if end > start:
-            out[start:end] = (x[start:end].float() @ wd[g].float()).to(x.dtype)
-        start = end
+    for g, (a, b) in enumerate(_bounds(group_sizes, N)):
+        if b > a:
+            out[a:b] = (x[a:b].float() @ wd[g].float()).to(x.dtype)
     return out
 
 
@@ -73,21 +85,123 @@ def _check_shapes(x, w, group_sizes) -> Tuple[int, int, int, int]:
     return N, K, E, F
 
 
+def grouped_matmul_dx_reference(dout: torch.Tensor, w: torch.Tensor,
+                                group_sizes: torch.Tensor) -> torch.Tensor:
+    """The plain dx: per group, f32 ``dout_g @ w[g]^T`` cast once to
+    dout's dtype; rows past the groups' sum are zeros."""
+    N, K = dout.shape[0], w.shape[1]
+    out = torch.zeros(N, K, dtype=dout.dtype, device=dout.device)
+    for g, (a, b) in enumerate(_bounds(group_sizes, N)):
+        if b > a:
+            out[a:b] = (dout[a:b].float() @ w[g].float().T).to(dout.dtype)
+    return out
+
+
+def grouped_matmul_dw_reference(x: torch.Tensor, dout: torch.Tensor,
+                                group_sizes: torch.Tensor) -> torch.Tensor:
+    """The plain dw: per group, f32 ``x_g^T @ dout_g`` cast once to x's
+    dtype; an empty group's block is zeros."""
+    N, K = x.shape
+    E, F = group_sizes.shape[0], dout.shape[1]
+    out = torch.zeros(E, K, F, dtype=x.dtype, device=x.device)
+    for g, (a, b) in enumerate(_bounds(group_sizes, N)):
+        if b > a:
+            out[g] = (x[a:b].float().T @ dout[a:b].float()).to(x.dtype)
+    return out
+
+
+def _bounds(group_sizes: torch.Tensor, N: int):
+    """[(start, end)] row range of each group, clamped to N (host read:
+    the plain versions only)."""
+    out, start = [], 0
+    for size in group_sizes.tolist():
+        end = min(start + int(size), N)
+        out.append((start, end))
+        start = end
+    return out
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """The grouped matmul with the megablox VJP: dx by
+    ``grouped_matmul_dx``, dw by ``grouped_matmul_dw`` (in w's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return _forward(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, group_sizes = ctx.saved_tensors
+        dout = dout.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = grouped_matmul_dx(dout, w, group_sizes)
+        if ctx.needs_input_grad[1]:
+            dw = grouped_matmul_dw(x, dout, group_sizes).to(w.dtype)
+        return dx, dw, None
+
+
 def grouped_matmul(x: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
     """x [N, K] (rows sorted by group) @ w [E, K, F] by group_sizes [E]
     int32 -> [N, F] in x's dtype. The CUDA kernel on a CUDA tensor (bf16
     activations; bf16, int8 or e4m3 weights), the plain version on a CPU
-    tensor."""
+    tensor. Differentiable in x and a dense w."""
     _check_shapes(x, w, group_sizes)
-    route = resolve_grouped_gemm("moe", x)
-    if route == "plain":
+    tracked = torch.is_grad_enabled() and (
+        x.requires_grad or getattr(w, "requires_grad", False))
+    if not tracked:
+        return _forward(x, w, group_sizes)
+    if isinstance(w, QuantizedMatrix):
+        raise TypeError("grouped_matmul: a QuantizedMatrix expert stack has no gradient (the "
+                        "JAX package trains no quantized experts); train dense stacks and "
+                        "quantize for serving")
+    return _GroupedMatmul.apply(x, w, group_sizes)
+
+
+def _forward(x, w, group_sizes):
+    if resolve_grouped_gemm("moe", x) == "plain":
         return grouped_matmul_reference(x, w, group_sizes)
     out = _launch(x, w, group_sizes)
     grouped_matmul.launches += 1
     return out
 
 
+def grouped_matmul_dx(dout: torch.Tensor, w: torch.Tensor,
+                      group_sizes: torch.Tensor) -> torch.Tensor:
+    """dout [N, F] by group @ w [E, K, F]^T -> dx [N, K] in dout's dtype
+    (f32 sums); rows past the groups' sum are zeros. The CUDA kernel on a
+    CUDA tensor (bf16), the plain version on a CPU tensor."""
+    if (dout.dim() != 2 or w.dim() != 3 or w.shape[2] != dout.shape[1]
+            or tuple(group_sizes.shape) != (w.shape[0],)):
+        raise ValueError(f"grouped_matmul_dx: dout {tuple(dout.shape)} and w "
+                         f"{tuple(w.shape)} / group_sizes {tuple(group_sizes.shape)} disagree")
+    if resolve_grouped_gemm("moe", dout) == "plain":
+        return grouped_matmul_dx_reference(dout, w, group_sizes)
+    out = _launch_dx(dout, w, group_sizes)
+    grouped_matmul_dx.launches += 1
+    return out
+
+
+def grouped_matmul_dw(x: torch.Tensor, dout: torch.Tensor,
+                      group_sizes: torch.Tensor) -> torch.Tensor:
+    """x [N, K], dout [N, F] by group -> dw [E, K, F] in x's dtype (the
+    expert stack's: the port casts the stack to x's dtype before the
+    product), f32 sums; an empty group's block is zeros. The CUDA kernel
+    on a CUDA tensor (bf16), the plain version on a CPU tensor."""
+    if x.dim() != 2 or dout.dim() != 2 or dout.shape[0] != x.shape[0] or group_sizes.dim() != 1:
+        raise ValueError(f"grouped_matmul_dw: x {tuple(x.shape)}, dout {tuple(dout.shape)} "
+                         f"and group_sizes {tuple(group_sizes.shape)} disagree")
+    if resolve_grouped_gemm("moe", x) == "plain":
+        return grouped_matmul_dw_reference(x, dout, group_sizes)
+    out = _launch_dw(x, dout, group_sizes)
+    grouped_matmul_dw.launches += 1
+    return out
+
+
 grouped_matmul.launches = 0
+grouped_matmul_dx.launches = 0
+grouped_matmul_dw.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +224,10 @@ def _lib():
         lib = _build.load("grouped_gemm")
         lib.sxt_grouped_matmul_bf16.argtypes = [_P] * 6 + [_I] * 8 + [_P]
         lib.sxt_grouped_matmul_bf16.restype = ctypes.c_int
+        lib.sxt_grouped_matmul_dx_bf16.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.sxt_grouped_matmul_dx_bf16.restype = ctypes.c_int
+        lib.sxt_grouped_matmul_dw_bf16.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.sxt_grouped_matmul_dw_bf16.restype = ctypes.c_int
         lib.sxt_grouped_error_string.argtypes = [ctypes.c_int]
         lib.sxt_grouped_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
@@ -162,17 +280,11 @@ def _weight_operands(w, device, K: int, F: int):
 def _launch(x: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
     dev = x.device
     N, K, E, F = _check_shapes(x, w, group_sizes)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"grouped_matmul kernel: x must be bf16, got {x.dtype}")
     if K % 8:
         raise ValueError(f"grouped_matmul kernel: needs K a multiple of 8, got {K}")
-    if group_sizes.device != dev or group_sizes.dtype != torch.int32:
-        raise TypeError(f"grouped_matmul kernel: group_sizes must be int32 on {dev}, got "
-                        f"{group_sizes.dtype} on {group_sizes.device}")
+    x = _bf16_operand("grouped_matmul", "x", x, dev)
+    sizes = _sizes_operand("grouped_matmul", group_sizes, dev)
     wp, sp, gs, fmt = _weight_operands(w, dev, K, F)
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        x = x.contiguous()
-    sizes = group_sizes.contiguous()
     out = torch.empty(N, F, device=dev, dtype=torch.bfloat16)
     if N == 0 or F == 0:
         return out
@@ -181,15 +293,71 @@ def _launch(x: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
         splits, chunk = gemv_split(K, gs)
         part = torch.empty(splits, N, F, device=dev, dtype=torch.float32)
     lib = _lib()
-    err = lib.sxt_grouped_matmul_bf16(
+    _raise_on(lib, lib.sxt_grouped_matmul_bf16(
         x.data_ptr(), wp, sp, sizes.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), N, K, F, E, gs, fmt, splits, chunk,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA error {err} "
-                           f"({lib.sxt_grouped_error_string(err).decode()})")
+        torch.cuda.current_stream(dev).cuda_stream), "grouped_matmul")
     return out
 
 
-__all__ = ["FORMATS", "GEMV_MAX_N", "gemv_split", "grouped_matmul",
+def _bf16_operand(what: str, name: str, t: torch.Tensor, dev) -> torch.Tensor:
+    if t.dtype != torch.bfloat16 or t.device != dev:
+        raise TypeError(f"{what} kernel: {name} must be bf16 on {dev}, got {t.dtype} on "
+                        f"{t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        t = t.contiguous()
+    return t
+
+
+def _sizes_operand(what: str, group_sizes: torch.Tensor, dev) -> torch.Tensor:
+    if group_sizes.device != dev or group_sizes.dtype != torch.int32:
+        raise TypeError(f"{what} kernel: group_sizes must be int32 on {dev}, got "
+                        f"{group_sizes.dtype} on {group_sizes.device}")
+    return group_sizes.contiguous()
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({lib.sxt_grouped_error_string(err).decode()})")
+
+
+def _launch_dx(dout: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    what, dev = "grouped_matmul_dx", dout.device
+    N, F = dout.shape
+    E, K, _ = w.shape
+    if K % 8 or F % 8:
+        raise ValueError(f"{what} kernel: needs K and F multiples of 8, got K={K}, F={F}")
+    dout = _bf16_operand(what, "dout", dout, dev)
+    w = _bf16_operand(what, "w", w, dev)
+    sizes = _sizes_operand(what, group_sizes, dev)
+    out = torch.empty(N, K, device=dev, dtype=torch.bfloat16)
+    if N == 0:
+        return out
+    lib = _lib()
+    _raise_on(lib, lib.sxt_grouped_matmul_dx_bf16(
+        dout.data_ptr(), w.data_ptr(), sizes.data_ptr(), out.data_ptr(), N, K, F, E,
+        torch.cuda.current_stream(dev).cuda_stream), what)
+    return out
+
+
+def _launch_dw(x: torch.Tensor, dout: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    what, dev = "grouped_matmul_dw", x.device
+    N, K = x.shape
+    F, E = dout.shape[1], group_sizes.shape[0]
+    if K % 8 or F % 8:
+        raise ValueError(f"{what} kernel: needs K and F multiples of 8, got K={K}, F={F}")
+    x = _bf16_operand(what, "x", x, dev)
+    dout = _bf16_operand(what, "dout", dout, dev)
+    sizes = _sizes_operand(what, group_sizes, dev)
+    out = torch.empty(E, K, F, device=dev, dtype=torch.bfloat16)
+    lib = _lib()
+    _raise_on(lib, lib.sxt_grouped_matmul_dw_bf16(
+        x.data_ptr(), dout.data_ptr(), sizes.data_ptr(), out.data_ptr(), N, K, F, E,
+        torch.cuda.current_stream(dev).cuda_stream), what)
+    return out
+
+
+__all__ = ["FORMATS", "GEMV_MAX_N", "gemv_split", "grouped_matmul", "grouped_matmul_dw",
+           "grouped_matmul_dw_reference", "grouped_matmul_dx", "grouped_matmul_dx_reference",
            "grouped_matmul_reference"]

@@ -323,16 +323,22 @@ def test_presets_and_parameter_layout_equal_jax(preset):
 
 
 def test_moe_training_raises_naming_item_9_and_serving_does_not():
+    """MoE training is ported: ``initialize()`` trains one step and the
+    training forward runs; interleaved dense and MoE layers still raise
+    naming item 9. Serving is unaffected."""
     import shuffle_exchange_tpu_torch as sxt
 
     model = Transformer(ttf.tiny_moe(**MOE), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     batch = {"input_ids": np.ones((2, 5), np.int32)}
-    for call in (lambda: model.loss(params, batch), lambda: model.apply(params, [[1, 2]]),
-                 lambda: sxt.initialize(model=model, device="cpu",
-                                        config={"train_batch_size": 2})):
-        with pytest.raises(NotImplementedError, match="MoE training, ROADMAP queue A, item 9"):
-            call()
+    assert np.isfinite(float(model.loss(params, batch)))
+    assert model.apply(params, [[1, 2]]).shape == (1, 2, 97)
+    eng, *_ = sxt.initialize(model=model, device="cpu",
+                             config={"train_batch_size": 2,
+                                     "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}})
+    assert np.isfinite(float(eng.train_batch(batch))) and eng.state.step == 1
+    with pytest.raises(NotImplementedError, match="moe_layer_pattern; ROADMAP queue A, item 9"):
+        Transformer(ttf.tiny_moe(**MOE, moe_layer_pattern=(True, False)), device="cpu")
     eng = InferenceEngineV2(model, params, InferenceConfig(max_seq_len=64, kv_block_size=8,
                                                            num_kv_blocks=16), device="cpu")
     dl, pl = eng.step([], [], [(0, [1, 2, 3])])

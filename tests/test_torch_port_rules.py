@@ -146,23 +146,27 @@ def test_v1_refusals_name_their_roadmap_item(what, item):
 
 def test_moe_serves_quantized_and_its_training_and_expert_axis_raise():
     """MoE serving is accepted, quantized experts included; MoE training
-    (``initialize()``, the training forward) still raises naming item 9,
-    and an expert axis above 1 names item 12."""
+    (``initialize()``, the training forward) trains one step, while
+    interleaved dense and MoE layers still raise naming item 9 and an
+    expert axis above 1 names item 12."""
     import shuffle_exchange_tpu_torch as sxt
     from shuffle_exchange_tpu_torch.models import tiny_moe
     from shuffle_exchange_tpu_torch.moe import moe_layer
 
-    model = Transformer(tiny_moe(**{k: v for k, v in LLAMA.items()
-                                    if k not in ("activation", "norm", "position")}),
-                        device="cpu")
+    moe_cfg = {k: v for k, v in LLAMA.items() if k not in ("activation", "norm", "position")}
+    model = Transformer(tiny_moe(**moe_cfg), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     eng = init_inference(model, params, {"max_seq_len": 64, "quantize_weights": True},
                          device="cpu")
     assert eng.generate([[1, 2, 3]], max_new_tokens=2).shape == (1, 2)
+    trainer, *_ = sxt.initialize(
+        model=model, device="cpu",
+        config={"train_batch_size": 1, "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}})
+    batch = {"input_ids": np.ones((1, 4), np.int32)}
+    assert np.isfinite(float(trainer.train_batch(batch))) and trainer.global_steps == 1
+    assert np.isfinite(float(model.loss(params, batch)))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 9"):
-        sxt.initialize(model=model, config={"train_batch_size": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 9"):
-        model.loss(params, {"input_ids": np.ones((1, 4), np.int32)})
+        Transformer(tiny_moe(**moe_cfg, moe_layer_pattern=(True, False)), device="cpu")
 
     class Mesh:
         shape = {"expert": 2}
