@@ -1,0 +1,180 @@
+"""Digest and time the PyTorch port's mma.sync kernels on one CUDA card.
+
+Runs the flash-attention kernels (B14 / B15 forward and backward), the
+grouped GEMM (B16 forward over bf16 and int8 stacks, its dx and dw), the
+quantized matmul (B8, both forms) and, where the tree has them, the ALiBi
+kernels (B11-B13) on seeded inputs, and prints for each cell a SHA-256 of
+its output bytes and its mean cold-L2 time. Two trees whose digests match
+computed bit-equal results, so a refactor of the kernel sources (shared
+headers, say) is checked against its parent by running this script on
+both, parent-change-change-parent in one session:
+
+    git archive <parent> | tar -x -C build/parent
+    python3 scripts/torch_kernel_digest.py --tree build/parent --out a.json
+    python3 scripts/torch_kernel_digest.py --tree . --out b.json
+
+``--tree`` is the checkout whose ``shuffle_exchange_tpu_torch`` is imported
+(and whose ``ops/csrc`` sources are built, into that checkout's ``build/``).
+It needs a card; it exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+FLUSH_BYTES = 256 << 20   # written between timed launches: more than the 50 MB L2
+
+# (label, B, T, S, H, KV, Dh, causal, segment ids): the shapes the chip
+# smoke test and the training paths give B14 / B15
+FLASH_CELLS = [
+    ("B15 train fwd+bwd", 32, 1023, 1023, 16, 4, 128, True, False),
+    ("B15 prefill fwd", 8, 1024, 1024, 32, 8, 128, True, False),
+    ("B14 MHA fwd+bwd", 2, 1000, 1000, 32, 32, 128, True, False),
+    ("B14 gpt2 fwd+bwd", 16, 1023, 1023, 12, 12, 64, True, False),
+    ("segments fwd+bwd", 2, 512, 512, 8, 8, 64, True, True),
+    ("full T<S fwd", 1, 300, 700, 8, 4, 128, False, False),
+]
+# (label, B, T, S, H, KV, Dh)
+ALIBI_CELLS = [("B11-B13 bloom-1b7", 2, 2047, 2047, 16, 16, 128),
+               ("B11-B13 gqa T<S", 2, 512, 1024, 16, 8, 128)]
+GROUPED_SIZES = {"16 rows": [3, 0, 5, 1, 0, 4, 2, 1],
+                 "4096 rows": [700, 0, 1300, 96, 512, 4, 1000, 484]}
+
+
+def time_cold(fn, iters: int = 10) -> float:
+    """Mean device ms of ``fn`` with the L2 flushed before each call."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(2):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def digest(tensors) -> str:
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run(tree: Path, seed: int) -> dict:
+    import torch
+
+    sys.path.insert(0, str(tree))
+    import shuffle_exchange_tpu_torch as sxt
+
+    if not Path(sxt.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"imported {sxt.__file__}, not the package under {tree}")
+    # the modules (``ops`` exports functions of the same names)
+    fa, gg, qmm, _build = (importlib.import_module(f"shuffle_exchange_tpu_torch.ops.{m}") for m in
+                           ("flash_attention", "grouped_gemm", "quant_matmul", "_build"))
+
+    # one nvcc per source, all at once
+    _build.build_all([s for s in ("flash_attention", "alibi_attention", "grouped_gemm",
+                                  "quant_matmul") if (_build.CSRC / f"{s}.cu").exists()])
+
+    gens = [torch.Generator(device="cuda").manual_seed(seed * 10 + i) for i in range(4)]
+    gen = gens[0]   # each section draws from its own generator: a tree without the
+                    # ALiBi kernels gives the later sections the same inputs
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    cells = {}
+    for label, B, T, S, H, KV, Dh, causal, seg in FLASH_CELLS:
+        q, k, v = randn(B, T, H, Dh), randn(B, S, KV, Dh), randn(B, S, KV, Dh)
+        dout = randn(B, T, H, Dh)
+        segs = None
+        if seg:
+            segs = torch.cumsum(torch.rand(B, T, generator=gen, device="cuda") < 0.01, 1).int()
+        fwd = lambda: fa.flash_attention_lse(q, k, v, causal, segs)
+        out, lse = fwd()
+        cells[f"{label}: forward"] = dict(digest=digest((out, lse)), ms=time_cold(fwd))
+        if "bwd" in label:
+            bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, causal, segs)
+            cells[f"{label}: backward"] = dict(digest=digest(bwd()), ms=time_cold(bwd))
+    try:
+        from shuffle_exchange_tpu_torch.models import alibi_slopes
+        al = importlib.import_module("shuffle_exchange_tpu_torch.ops.alibi_attention")
+    except ImportError:
+        al = None
+    gen = gens[1]
+    for label, B, T, S, H, KV, Dh in (ALIBI_CELLS if al is not None else []):
+        slopes = torch.from_numpy(alibi_slopes(H)).cuda()
+        q, k, v = randn(B, T, H, Dh), randn(B, S, KV, Dh), randn(B, S, KV, Dh)
+        dout = randn(B, T, H, Dh)
+        fwd = lambda: al.alibi_flash_attention_lse(q, k, v, slopes)
+        out, lse = fwd()
+        bwd = lambda: al.alibi_flash_attention_bwd(q, k, v, slopes, out, lse, dout)
+        cells[f"{label}: forward"] = dict(digest=digest((out, lse)), ms=time_cold(fwd))
+        cells[f"{label}: backward + dslope"] = dict(digest=digest(bwd()), ms=time_cold(bwd))
+
+    gen = gens[2]
+    E, K, F = 8, 1024, 2816   # bench.py's _config3 expert shapes
+    w = randn(E, K, F, scale=K ** -0.5)
+    w8 = qmm.quantize_weight(w, 256, bits=8)
+    for what, sizes in GROUPED_SIZES.items():
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        N = sum(sizes)
+        x, dy = randn(N, K), randn(N, F)
+        for name, fn in ((f"B16 bf16 {what}", lambda: gg.grouped_matmul(x, w, gs)),
+                         (f"B16 int8 {what}", lambda: gg.grouped_matmul(x, w8, gs)),
+                         (f"B16-dx {what}", lambda: gg.grouped_matmul_dx(dy, w, gs)),
+                         (f"B16-dw {what}", lambda: gg.grouped_matmul_dw(x, dy, gs))):
+            cells[name] = dict(digest=digest([fn()]), ms=time_cold(fn))
+
+    gen = gens[3]
+    wq = randn(4096, 14336, scale=4096 ** -0.5)
+    for bits in (8, 4):
+        qm = qmm.quantize_weight(wq, 256, bits=bits)
+        for rows in (8, 256):
+            x = randn(rows, 4096)
+            fn = lambda: qmm.quant_matmul(x, qm)
+            cells[f"B8 int{bits} {rows} rows"] = dict(digest=digest([fn()]), ms=time_cold(fn))
+    return cells
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_digest: no CUDA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    tree = Path(args.tree).resolve()
+    result = dict(tree=str(tree), card=card, cells=run(tree, args.seed))
+    text = json.dumps(result, indent=1)
+    if args.out:
+        Path(args.out).write_text(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

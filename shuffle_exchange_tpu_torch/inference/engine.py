@@ -44,7 +44,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.transformer import Transformer, _norm, decode_fusion_eligibility, rope_table
+from ..models.transformer import (Transformer, _norm, check_servable, decode_fusion_eligibility,
+                                  rope_table)
 from ..config.config_utils import ConfigError
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
 from ..ops.flash_attention import flash_attention
@@ -126,6 +127,9 @@ class InferenceEngine:
 
     def __init__(self, model: Transformer, params: Dict[str, torch.Tensor],
                  config: Optional[InferenceConfig] = None, device=None):
+        # before any weight moves: a model outside the served family (ALiBi,
+        # layernorm, biases, ...) must never serve without its structures
+        check_servable(model.config)
         self.model = model
         self.config = config or InferenceConfig()
         if self.config.adapters.enabled and not self.serves_adapters:

@@ -1,0 +1,90 @@
+"""Hugging Face configs into the port's ``TransformerConfig``.
+
+A slice of ``shuffle_exchange_tpu/models/hf.py``: ``config_from_hf`` for a
+``config.json`` dict, for the families the port trains: GPT-2, BLOOM and
+the Llama family (llama, mistral, phi3, which the JAX mapping sends through
+one branch). The field mapping is the JAX package's, line for line. Other
+families, HF config objects and the weight conversion raise, naming ROADMAP
+queue A, item 14; ``transformers`` is never imported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from .transformer import TransformerConfig
+
+# HF architecture class name -> family key (the JAX package's table)
+_ARCH_FAMILIES = {
+    "LlamaForCausalLM": "llama", "MistralForCausalLM": "llama", "Qwen2ForCausalLM": "qwen2",
+    "MixtralForCausalLM": "mixtral", "GPT2LMHeadModel": "gpt2", "OPTForCausalLM": "opt",
+    "Phi3ForCausalLM": "phi3", "Qwen2MoeForCausalLM": "qwen2moe", "GPTJForCausalLM": "gptj",
+    "GPTNeoXForCausalLM": "gptneox", "FalconForCausalLM": "falcon", "RWForCausalLM": "falcon",
+    "BloomForCausalLM": "bloom", "BertForMaskedLM": "bert", "BertForPreTraining": "bert",
+    "BertModel": "bert", "DistilBertForMaskedLM": "distilbert", "GPTNeoForCausalLM": "gptneo",
+    "InternLMForCausalLM": "internlm", "InternLM2ForCausalLM": "internlm2",
+}
+_MODEL_TYPE_FAMILIES = {"llama": "llama", "mistral": "llama", "qwen2": "qwen2",
+                        "mixtral": "mixtral", "gpt2": "gpt2", "opt": "opt", "phi3": "phi3",
+                        "gptj": "gptj", "gpt_neox": "gptneox", "falcon": "falcon",
+                        "bloom": "bloom", "qwen2_moe": "qwen2moe", "bert": "bert",
+                        "distilbert": "distilbert", "gpt_neo": "gptneo", "internlm": "internlm",
+                        "internlm2": "internlm2", "megatron": "megatron",
+                        "megatron-gpt": "megatron", "megatron_gpt": "megatron"}
+_PORTED = ("gpt2", "bloom", "llama", "phi3")
+
+
+def _family(cfg: Dict[str, Any]) -> str:
+    archs = cfg.get("architectures") or []
+    family = next((_ARCH_FAMILIES[a] for a in archs if a in _ARCH_FAMILIES), None)
+    if family is None:
+        family = _MODEL_TYPE_FAMILIES.get(cfg.get("model_type", ""))
+    if family is None:
+        raise ValueError(f"Unsupported HF architecture {archs or cfg.get('model_type')!r}; "
+                         f"supported: {sorted(set(_ARCH_FAMILIES.values()))}")
+    return family
+
+
+def config_from_hf(hf_config: Dict[str, Any]) -> TransformerConfig:
+    """Map an HF ``config.json`` dict to a ``TransformerConfig``, as the JAX
+    ``config_from_hf`` maps it."""
+    if not isinstance(hf_config, dict):
+        raise NotImplementedError("config_from_hf takes a config.json dict in the PyTorch "
+                                  "port; HF config objects are ROADMAP queue A, item 14")
+    cfg = hf_config
+    family = _family(cfg)
+    if family not in _PORTED:
+        raise NotImplementedError(f"config_from_hf for the {family!r} family is not in the "
+                                  f"PyTorch port yet (ported: {', '.join(_PORTED)}): ROADMAP "
+                                  "queue A, item 14")
+    if family == "gpt2":
+        return TransformerConfig(
+            vocab_size=cfg["vocab_size"], d_model=cfg["n_embd"], n_layers=cfg["n_layer"],
+            n_heads=cfg["n_head"], max_seq_len=cfg.get("n_positions", 1024),
+            activation=cfg.get("activation_function", "gelu_new"),
+            norm="layernorm", position="learned",
+            norm_eps=cfg.get("layer_norm_epsilon", 1e-5),
+            attn_qkv_bias=True, attn_out_bias=True, tie_embeddings=True)
+    if family == "bloom":
+        return TransformerConfig(
+            vocab_size=cfg["vocab_size"], d_model=cfg["hidden_size"],
+            n_layers=cfg["n_layer"], n_heads=cfg["n_head"],
+            max_seq_len=cfg.get("seq_length", 2048),
+            activation="gelu_new",   # BloomGelu is the tanh approximation
+            norm="layernorm", position="alibi", embed_ln=True,
+            attn_qkv_bias=True, attn_out_bias=True,
+            norm_eps=cfg.get("layer_norm_epsilon", 1e-5),
+            tie_embeddings=cfg.get("tie_word_embeddings", True))
+    return TransformerConfig(      # llama / mistral / phi3
+        vocab_size=cfg["vocab_size"], d_model=cfg["hidden_size"],
+        n_layers=cfg["num_hidden_layers"], n_heads=cfg["num_attention_heads"],
+        n_kv_heads=cfg.get("num_key_value_heads"),
+        d_ff=cfg.get("intermediate_size"),
+        max_seq_len=cfg.get("max_position_embeddings", 4096),
+        activation="swiglu", norm="rmsnorm", position="rope",
+        rope_theta=float(cfg.get("rope_theta", 10000.0)),
+        norm_eps=cfg.get("rms_norm_eps", 1e-6),
+        tie_embeddings=cfg.get("tie_word_embeddings", False))
+
+
+__all__ = ["config_from_hf"]

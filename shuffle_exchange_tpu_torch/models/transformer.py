@@ -1,13 +1,16 @@
-"""Decoder-only transformer, Llama family, in PyTorch.
+"""Decoder-only transformer, in PyTorch: the Llama family, GPT-2 and BLOOM.
 
 Counterpart of ``shuffle_exchange_tpu/models/transformer.py`` cut to what
-the serving and training slices run: RMSNorm, rotate-half RoPE,
-grouped-query attention, SwiGLU or a Mixtral-style MoE FFN (``n_experts``
-> 0: top-k routed experts in every layer, an optional shared expert) and
-an untied (or tied) unembedding; the pieces the inference
-engines call (``embed``, ``head``) and the training forward
-(``layer_apply``, ``stack_apply``, ``chunked_loss``, ``loss``), which is
-functional like the JAX one: it takes the parameters as a
+the serving and training slices run. Training takes RMSNorm or layernorm,
+rotate-half RoPE, learned positions or ALiBi, grouped-query attention with
+optional q/k/v/out biases, SwiGLU, a plain MLP (gelu, gelu_new,
+gelu_pytorch_tanh, relu or silu, with or without fc biases) or a
+Mixtral-style MoE FFN (``n_experts`` > 0: top-k routed experts in every
+layer, an optional shared expert), ``embed_ln`` and a tied or untied
+unembedding. Serving takes the Llama family only (``check_servable``). The
+pieces the inference engines call (``embed``, ``head``) and the training
+forward (``layer_apply``, ``stack_apply``, ``chunked_loss``, ``loss``) are
+functional like the JAX ones: they take the parameters as a
 flattened-name dict, so the training engine differentiates with respect
 to its own forward copy of the weights. The parameters keep
 the JAX package's leaf names and layouts — per-layer weights stacked on a
@@ -28,6 +31,7 @@ import dataclasses
 import math
 from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -56,10 +60,13 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     attn_qkv_bias: bool = False
     attn_out_bias: bool = False
+    pos_offset: int = 0                        # OPT offsets learned positions by 2
     parallel_block: bool = False
     rotary_dim: int = 0
     rope_interleaved: bool = False
     embed_ln: bool = False
+    alibi_slope_scale: float = 1.0             # falcon scales alibi by 1/sqrt(Dh)
+    mlp_bias: bool = True                      # plain-MLP fc biases (False: Falcon)
     post_ln: bool = False
     local_attention_window: int = 0
     attention_pattern: Tuple[str, ...] = ()
@@ -102,6 +109,19 @@ class TransformerConfig:
             d = int(8 * self.d_model / 3)
             return 256 * ((d + 255) // 256)
         return 4 * self.d_model
+
+
+def gpt2_small() -> TransformerConfig:
+    """GPT-2 125M (``bench.py:2194 _config1``'s model)."""
+    return TransformerConfig(vocab_size=50257, d_model=768, n_layers=12, n_heads=12,
+                             max_seq_len=1024, activation="gelu", norm="layernorm",
+                             position="learned", attn_qkv_bias=True, attn_out_bias=True)
+
+
+def gpt2_large() -> TransformerConfig:
+    return TransformerConfig(vocab_size=50257, d_model=1280, n_layers=36, n_heads=20,
+                             max_seq_len=1024, activation="gelu", norm="layernorm",
+                             position="learned", attn_qkv_bias=True, attn_out_bias=True)
 
 
 def llama3_8b() -> TransformerConfig:
@@ -150,18 +170,27 @@ def llama_ladder():
 
 
 def param_count(cfg: TransformerConfig) -> int:
-    """Weights of a Llama-family config, MoE included (norm biases, which
-    RMSNorm does not use, are not counted)."""
+    """Weights of a config, MoE included. The norm biases count only under
+    layernorm (RMSNorm does not use them, though the JAX init draws them)."""
     d, ff = cfg.d_model, cfg.ff_dim
-    kv_dim = cfg.kv_heads * cfg.head_dim
-    attn = d * d + 2 * d * kv_dim + d * d
-    mlp = 3 * d * ff if cfg.activation == "swiglu" else 2 * d * ff
+    q_dim, kv_dim = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    attn = d * q_dim + 2 * d * kv_dim + q_dim * d
+    attn += (q_dim + 2 * kv_dim if cfg.attn_qkv_bias else 0) + (d if cfg.attn_out_bias else 0)
+    if cfg.activation == "swiglu":
+        mlp = 3 * d * ff
+    else:
+        mlp = 2 * d * ff + (ff + d if cfg.mlp_bias else 0)
     if cfg.n_experts > 0:
         Fs = cfg.moe_shared_expert_ff
         mlp = cfg.n_experts * mlp + d * cfg.n_experts + (3 * d * Fs + d if Fs else 0)
-    per_layer = attn + mlp + 2 * d
+    norm = 2 if cfg.norm == "layernorm" else 1    # weight (and bias) of a norm
+    per_layer = attn + mlp + 2 * norm * d
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
-    return cfg.n_layers * per_layer + embed + d
+    if cfg.position == "learned":
+        embed += (cfg.max_seq_len + cfg.pos_offset) * d
+    if cfg.embed_ln:
+        embed += 2 * d
+    return cfg.n_layers * per_layer + embed + norm * d
 
 
 def pick_ladder_config(device_memory_bytes: int):
@@ -176,24 +205,22 @@ def pick_ladder_config(device_memory_bytes: int):
     return ladder[-1]
 
 
+_ACTIVATIONS = ("swiglu", "gelu", "gelu_new", "gelu_pytorch_tanh", "relu", "silu")
+
+
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for every structure outside the Llama family this slice ports."""
+    """Raise for every structure the port's training forward does not take."""
     later = "ROADMAP queue A, item 4"
     checks = [
-        (cfg.norm != "rmsnorm", f"norm={cfg.norm!r} (only rmsnorm is ported; {later})"),
-        (cfg.activation != "swiglu",
-         f"activation={cfg.activation!r} (only swiglu is ported; {later})"),
-        (cfg.position == "alibi",
-         "ALiBi positions (ALiBi in the paged kernels: ROADMAP queue A, item 3; "
-         f"the model path: {later})"),
-        (cfg.position != "rope" and cfg.position != "alibi",
-         f"position={cfg.position!r} (only rope is ported; {later})"),
-        (cfg.rope_interleaved, f"interleaved (rotate-every-two) rope ({later})"),
-        (cfg.rotary_dim not in (0, cfg.head_dim), f"partial rotary_dim ({later})"),
+        (cfg.norm not in ("rmsnorm", "layernorm"), f"norm={cfg.norm!r} ({later})"),
+        (cfg.activation not in _ACTIVATIONS, f"activation={cfg.activation!r} ({later})"),
+        (cfg.position not in ("rope", "learned", "alibi"), f"position={cfg.position!r} ({later})"),
+        (cfg.position == "rope" and cfg.rope_interleaved,
+         f"interleaved (rotate-every-two) rope ({later})"),
+        (cfg.position == "rope" and cfg.rotary_dim not in (0, cfg.head_dim),
+         f"partial rotary_dim ({later})"),
         (cfg.parallel_block, f"parallel blocks ({later})"),
-        (cfg.embed_ln, f"embed_ln ({later})"),
         (cfg.post_ln, f"post_ln ({later})"),
-        (cfg.attn_qkv_bias or cfg.attn_out_bias, f"attention biases ({later})"),
         (cfg.n_experts > 0 and bool(cfg.moe_layer_pattern) and not all(cfg.moe_layer_pattern),
          "interleaved dense and MoE layers (moe_layer_pattern; ROADMAP queue A, item 9)"),
         (cfg.local_attention_window > 0 or "local" in cfg.attention_pattern,
@@ -204,6 +231,31 @@ def check_supported(cfg: TransformerConfig) -> None:
     for bad, what in checks:
         if bad:
             raise NotImplementedError(f"not supported by the PyTorch port yet: {what}")
+
+
+def check_servable(cfg: TransformerConfig) -> None:
+    """Raise for every structure the port's inference engines do not serve:
+    all that ``check_supported`` refuses, and outside the Llama family
+    (RMSNorm, SwiGLU, RoPE, no biases) the structures the training forward
+    takes but the serving paths and their kernels do not yet (ROADMAP queue
+    A, item 4; ALiBi in the paged kernels, item 3). A model must never
+    serve without its slopes or biases."""
+    check_supported(cfg)
+    later = "ROADMAP queue A, item 4 (a, b)"
+    checks = [
+        (cfg.position == "alibi",
+         "ALiBi positions (ALiBi in the paged kernels: ROADMAP queue A, item 3; the serving "
+         "model path: ROADMAP queue A, item 4 (c))"),
+        (cfg.norm != "rmsnorm", f"norm={cfg.norm!r} (only rmsnorm serves; {later})"),
+        (cfg.activation != "swiglu", f"activation={cfg.activation!r} (only swiglu serves; "
+                                     f"{later})"),
+        (cfg.position != "rope", f"position={cfg.position!r} (only rope serves; {later})"),
+        (cfg.embed_ln, f"embed_ln ({later})"),
+        (cfg.attn_qkv_bias or cfg.attn_out_bias, f"attention biases ({later})"),
+    ]
+    for bad, what in checks:
+        if bad:
+            raise NotImplementedError(f"not served by the PyTorch port yet: {what}")
 
 
 #: activations the port's fused MLP kernel computes. The JAX package's
@@ -241,13 +293,49 @@ def decode_fusion_eligibility(cfg: TransformerConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm in f32, result in x's dtype. The JAX ``_norm`` casts to f32
-    around its rmsnorm call; the kernel takes x as it is and does both
-    casts in registers, so no f32 copy of x is written."""
-    from ..ops.rmsnorm import rmsnorm
+def _norm(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+          kind: str = "rmsnorm", eps: float = 1e-5) -> torch.Tensor:
+    """The JAX ``_norm``: result in x's dtype. RMSNorm goes to its kernel
+    (B1), which takes x as it is and does both f32 casts in registers, so no
+    f32 copy of x is written. Layernorm is plain PyTorch in f32 (population
+    variance), as the JAX one is plain jnp."""
+    if kind == "rmsnorm":
+        from ..ops.rmsnorm import rmsnorm
 
-    return rmsnorm(x, weight, eps=eps)
+        return rmsnorm(x, weight, eps=eps)
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=False)
+    out = (x32 - mean) * (1.0 / torch.sqrt(var + eps))
+    out = out * weight.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def activation_fn(name: str):
+    """The non-gated activations (JAX ``activation_fn``): "gelu" is the
+    exact (erf) form, "gelu_new" and "gelu_pytorch_tanh" the tanh one."""
+    fns = {"gelu": F.gelu, "relu": F.relu, "silu": F.silu,
+           "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+           "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh")}
+    if name not in fns:
+        raise ValueError(f"Unsupported activation {name!r}; use swiglu/gelu/relu/silu/gelu_new")
+    return fns[name]
+
+
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """BLOOM/ALiBi head slopes (Press et al.; HF ``build_alibi_tensor``), f32
+    numpy: the JAX package's ``alibi_slopes`` bit for bit."""
+
+    def pow2(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start ** (i + 1) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        s = pow2(n_heads)
+    else:
+        m = 2 ** math.floor(math.log2(n_heads))
+        s = pow2(m) + pow2(2 * m)[0::2][: n_heads - m]
+    return np.asarray(s, np.float32)
 
 
 def rope_table(seq_len: int, head_dim: int, theta: float,
@@ -317,8 +405,7 @@ def _remat_policy(name: str) -> Optional[str]:
     if name == "save_flash_lse":
         raise NotImplementedError(
             "remat_policy 'save_flash_lse' (keep the flash kernel's out and lse) is not "
-            "ported yet: it comes with the ALiBi flash kernels B11-B13, ROADMAP queue A, "
-            "item 5")
+            "ported yet: ROADMAP queue A, item 5 (a)")
     if name == "offload_kv_host":
         raise NotImplementedError("remat_policy 'offload_kv_host' is not ported yet: host "
                                   "offload is ROADMAP queue A, item 12")
@@ -346,6 +433,7 @@ class Transformer(nn.Module):
         self.config = config
         self.device = resolve_device(device)
         self.layers = nn.ParameterDict()
+        self._slopes: Dict[torch.device, torch.Tensor] = {}   # ALiBi slopes by device
 
     # -- parameters ----------------------------------------------------
 
@@ -354,13 +442,20 @@ class Transformer(nn.Module):
         cfg = self.config
         L, D, H, KV, Dh, Fd, V = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads,
                                   cfg.head_dim, cfg.ff_dim, cfg.vocab_size)
-        shapes = {
-            "embed": (V, D),
+        shapes = {"embed": (V, D)}
+        if cfg.position == "learned":
+            shapes["pos_embed"] = (cfg.max_seq_len + cfg.pos_offset, D)
+        shapes.update({
             "layers.ln1_w": (L, D), "layers.ln1_b": (L, D),
             "layers.wq": (L, D, H * Dh), "layers.wk": (L, D, KV * Dh),
             "layers.wv": (L, D, KV * Dh), "layers.wo": (L, H * Dh, D),
             "layers.ln2_w": (L, D), "layers.ln2_b": (L, D),
-        }
+        })
+        if cfg.attn_qkv_bias:
+            shapes.update({"layers.b_q": (L, H * Dh), "layers.b_k": (L, KV * Dh),
+                           "layers.b_v": (L, KV * Dh)})
+        if cfg.attn_out_bias:
+            shapes["layers.b_o"] = (L, D)
         if cfg.n_experts > 0:
             E = cfg.n_experts
             shapes.update({"layers.moe_gate": (L, D, E), "layers.moe_w_up": (L, E, D, Fd),
@@ -372,9 +467,15 @@ class Transformer(nn.Module):
                                "layers.moe_shared_w_up": (L, D, Fs),
                                "layers.moe_shared_w_down": (L, Fs, D),
                                "layers.moe_shared_gate": (L, D, 1)})
-        else:
+        elif cfg.activation == "swiglu":
             shapes.update({"layers.w_gate": (L, D, Fd), "layers.w_up": (L, D, Fd),
                            "layers.w_down": (L, Fd, D)})
+        else:
+            shapes.update({"layers.w_up": (L, D, Fd), "layers.w_down": (L, Fd, D)})
+            if cfg.mlp_bias:
+                shapes.update({"layers.b_up": (L, Fd), "layers.b_down": (L, D)})
+        if cfg.embed_ln:
+            shapes.update({"embed_ln_w": (D,), "embed_ln_b": (D,)})
         shapes.update({"ln_f_w": (D,), "ln_f_b": (D,)})
         if not cfg.tie_embeddings:
             shapes["unembed"] = (D, V)
@@ -415,7 +516,7 @@ class Transformer(nn.Module):
         leaf = name.split(".")[-1]
         # expert stacks follow JAX init_expert_mlp: 1/sqrt(fan_in), with no
         # depth factor on the down projection
-        return {"embed": 0.02, "unembed": 0.02,
+        return {"embed": 0.02, "unembed": 0.02, "pos_embed": 0.02,
                 "wq": 1 / math.sqrt(D), "wk": 1 / math.sqrt(D), "wv": 1 / math.sqrt(D),
                 "wo": 1 / math.sqrt(2 * L) / math.sqrt(HD),
                 "w_gate": 1 / math.sqrt(D), "w_up": 1 / math.sqrt(D),
@@ -479,45 +580,86 @@ class Transformer(nn.Module):
     # -- forward pieces ------------------------------------------------
 
     def embed(self, params: Dict[str, torch.Tensor], input_ids: torch.Tensor):
-        """ids [.., T] -> (x [.., T, D], (cos, sin) rope tables [T, Dh/2])."""
+        """ids [.., T] -> (x [.., T, D], (cos, sin) rope tables [T, Dh/2], or
+        (None, None) for learned and ALiBi positions)."""
         cfg = self.config
+        T = input_ids.shape[-1]
         x = params["embed"][input_ids]
-        return x, rope_table(input_ids.shape[-1], cfg.rotary_dims, cfg.rope_theta,
-                             device=x.device)
+        if cfg.position == "learned":
+            x = x + params["pos_embed"][cfg.pos_offset:cfg.pos_offset + T].to(x.dtype)
+        if cfg.embed_ln:
+            # BLOOM's word_embeddings_layernorm
+            x = _norm(x, params["embed_ln_w"], params["embed_ln_b"], cfg.norm, eps=cfg.norm_eps)
+        if cfg.position in ("learned", "alibi"):
+            return x, (None, None)
+        return x, rope_table(T, cfg.rotary_dims, cfg.rope_theta, device=x.device)
 
     def unembed_weight(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         return params["embed"].T if self.config.tie_embeddings else params["unembed"]
 
     def head(self, params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         """Final norm + unembed: x [.., D] -> f32 logits [.., vocab]."""
-        x = _norm(x, params["ln_f_w"], eps=self.config.norm_eps)
+        cfg = self.config
+        x = _norm(x, params["ln_f_w"], params.get("ln_f_b"), cfg.norm, eps=cfg.norm_eps)
         return logits_f32(x, self.unembed_weight(params))
 
     # -- training forward ------------------------------------------------
 
+    def alibi(self, device) -> Optional[torch.Tensor]:
+        """The f32 [H] slopes ``alibi_slopes(H) * alibi_slope_scale`` on
+        ``device`` for an ALiBi model (made once a device: a host copy per
+        layer would stall the host on the card's queue), else None."""
+        cfg = self.config
+        if cfg.position != "alibi":
+            return None
+        dev = torch.device(device)
+        if dev not in self._slopes:
+            self._slopes[dev] = torch.from_numpy(alibi_slopes(cfg.n_heads)
+                                                 * cfg.alibi_slope_scale).to(dev)
+        return self._slopes[dev]
+
     def layer_apply(self, lw: Dict[str, torch.Tensor], h: torch.Tensor, rope):
         """One block, ``lw`` one layer's leaves: h [B, T, D] -> (h, the
         layer's MoE aux loss, 0 for a dense model). Pre-norm attention
-        (rotate-half RoPE, ``flash_attention`` with no segment ids) and a
-        SwiGLU MLP or the MoE FFN, each added to the residual stream."""
+        (q/k/v biases, then rotate-half RoPE when ``position`` is "rope";
+        ``flash_attention`` with the ALiBi slopes when it is "alibi"; the
+        out bias) and a SwiGLU MLP, a plain MLP with or without fc biases,
+        or the MoE FFN, each added to the residual stream."""
         from ..ops.flash_attention import flash_attention
 
         cfg = self.config
         B, T = h.shape[:2]
         H, KV, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        cos, sin = rope
-        y = _norm(h, lw["ln1_w"], eps=cfg.norm_eps)
-        q = apply_rope((y @ lw["wq"]).reshape(B, T, H, Dh), cos, sin)
-        k = apply_rope((y @ lw["wk"]).reshape(B, T, KV, Dh), cos, sin)
+        dtype = h.dtype
+        y = _norm(h, lw["ln1_w"], lw.get("ln1_b"), cfg.norm, eps=cfg.norm_eps)
+        q = (y @ lw["wq"]).reshape(B, T, H, Dh)
+        k = (y @ lw["wk"]).reshape(B, T, KV, Dh)
         v = (y @ lw["wv"]).reshape(B, T, KV, Dh)
-        attn = flash_attention(q, k, v, causal=cfg.causal).reshape(B, T, H * Dh)
-        h = h + attn @ lw["wo"]
-        y2 = _norm(h, lw["ln2_w"], eps=cfg.norm_eps)
+        if cfg.attn_qkv_bias:
+            q = q + lw["b_q"].to(dtype).reshape(H, Dh)
+            k = k + lw["b_k"].to(dtype).reshape(KV, Dh)
+            v = v + lw["b_v"].to(dtype).reshape(KV, Dh)
+        if cfg.position == "rope":
+            cos, sin = rope
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        attn = flash_attention(q, k, v, causal=cfg.causal,
+                               alibi_slopes=self.alibi(h.device)).reshape(B, T, H * Dh)
+        attn_out = attn @ lw["wo"]
+        if cfg.attn_out_bias:
+            attn_out = attn_out + lw["b_o"].to(dtype)
+        h = h + attn_out
+        y2 = _norm(h, lw["ln2_w"], lw.get("ln2_b"), cfg.norm, eps=cfg.norm_eps)
         if cfg.n_experts > 0:
             ff, res = self.moe_ffn(lw, y2)
             return h + ff, res.aux_loss
-        h = h + (F.silu(y2 @ lw["w_gate"]) * (y2 @ lw["w_up"])) @ lw["w_down"]
-        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+        if cfg.activation == "swiglu":
+            ff = (F.silu(y2 @ lw["w_gate"]) * (y2 @ lw["w_up"])) @ lw["w_down"]
+        elif cfg.mlp_bias:
+            act = activation_fn(cfg.activation)
+            ff = act(y2 @ lw["w_up"] + lw["b_up"].to(dtype)) @ lw["w_down"] + lw["b_down"].to(dtype)
+        else:
+            ff = activation_fn(cfg.activation)(y2 @ lw["w_up"]) @ lw["w_down"]
+        return h + ff, torch.zeros((), dtype=torch.float32, device=h.device)
 
     def moe_ffn(self, lw: Dict[str, torch.Tensor], y: torch.Tensor, impl: Optional[str] = None,
                 capacity_factor: Optional[float] = None):
@@ -588,20 +730,23 @@ class Transformer(nn.Module):
         ``chunk`` tokens, each checkpointed: the live logits are [B, chunk,
         vocab], never [B, T, vocab]. The same numbers as ``head`` +
         ``token_loss`` (the softmax is per token)."""
+        cfg = self.config
         w = self.unembed_weight(params)
         ln_w = params["ln_f_w"]
-        eps = self.config.norm_eps
+        ln_b = params["ln_f_b"] if cfg.norm == "layernorm" else None
 
-        def body(xch, lch, ln_w, w):
-            return self.token_loss(logits_f32(_norm(xch, ln_w, eps=eps), w), lch)[0]
+        def body(xch, lch, ln_w, ln_b, w):
+            xn = _norm(xch, ln_w, ln_b, cfg.norm, eps=cfg.norm_eps)
+            return self.token_loss(logits_f32(xn, w), lch)[0]
 
         nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for a in range(0, x.shape[1], chunk):
             xch, lch = x[:, a:a + chunk].contiguous(), labels[:, a:a + chunk]
             if torch.is_grad_enabled():
-                nll_sum = nll_sum + checkpoint(body, xch, lch, ln_w, w, use_reentrant=False)
+                nll_sum = nll_sum + checkpoint(body, xch, lch, ln_w, ln_b, w,
+                                               use_reentrant=False)
             else:
-                nll_sum = nll_sum + body(xch, lch, ln_w, w)
+                nll_sum = nll_sum + body(xch, lch, ln_w, ln_b, w)
         return nll_sum, (labels >= 0).sum()
 
     def _loss_chunk(self, B: int, T: int) -> int:

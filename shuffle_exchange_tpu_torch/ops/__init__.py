@@ -5,6 +5,7 @@ Every wrapper counts the launches of its kernel in a plain integer
 through the kernels.
 """
 
+from .alibi_attention import alibi_flash_attention, alibi_flash_attention_bwd
 from .flash_attention import flash_attention, flash_attention_bwd, flash_attention_lse
 from .fused_adam import fused_adamw_update
 from .fused_decode import fused_mlp, fused_mlp_quant, fused_paged_decode_attention, fused_qkv_rope
@@ -32,6 +33,8 @@ KERNEL_WRAPPERS = {
     "flash_attention": flash_attention,
     "flash_attention_bwd": flash_attention_bwd,
     "fused_adamw": fused_adamw_update,
+    "alibi_flash_attention": alibi_flash_attention,
+    "alibi_flash_attention_bwd": alibi_flash_attention_bwd,
 }
 
 
@@ -44,7 +47,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNEL_WRAPPERS", "QuantizedMatrix", "flash_attention", "flash_attention_bwd",
+__all__ = ["KERNEL_WRAPPERS", "QuantizedMatrix", "alibi_flash_attention",
+           "alibi_flash_attention_bwd", "flash_attention", "flash_attention_bwd",
            "flash_attention_lse", "fused_adamw_update", "fused_mlp", "fused_mlp_quant",
            "fused_paged_decode_attention", "fused_qkv_rope", "grouped_matmul", "grouped_matmul_dw",
            "grouped_matmul_dx", "launch_counts",

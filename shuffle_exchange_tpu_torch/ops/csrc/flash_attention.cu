@@ -73,82 +73,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tile.cuh"   // block shape, load_tile, stage_queries, delta_row
+
 namespace {
-
-constexpr int kBlockM = 64;             // query rows per block, 16 per warp
-constexpr int kBlockN = 64;             // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr float kNeg = -1e30f;          // finite mask sentinel (as the TPU kernels)
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; zero-fills when !valid (src is then
-// a valid but unread address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x0, x1) -> bf16x2 hi = bf16(x) and lo = bf16(x - hi); x0 in the low half.
-__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// Stage rows [0, 64) of a [rows, DH] tile whose rows lie `stride` elements
-// apart; rows >= valid are zero-filled. One commit group per caller.
-template <int DH>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int stride, int valid, const __nv_bfloat16* safe,
-                                          int tid) {
-  constexpr int VPR = DH / 8, LD = DH + 8;
-  constexpr int ITERS = kBlockN * VPR / kThreads;
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int i = tid + it * kThreads;
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * LD + c, ok ? src + size_t(r) * stride + c : safe, ok);
-  }
-}
 
 template <int DH>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
@@ -358,54 +285,12 @@ cudaError_t launch(int blocks, cudaStream_t s, const void* q, const void* k, con
 // Backward
 // ---------------------------------------------------------------------------
 
-// delta[b, h, t] = sum_d dout[b, t, h, d] * out[b, t, h, d]; one warp a row
-// of the [B*T*H, DH] views, a fixed butterfly order for the sum.
+// delta[b, h, t] = rowsum(dout * out): one warp a row (flash_tile.cuh).
 template <int DH>
 __global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(
     const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
     float* __restrict__ delta, long long rows, int T, int H) {
-  constexpr int PER = DH / 32;   // elements a lane: 2 or 4
-  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const __nv_bfloat16* op = o + row * DH + lane * PER;
-  const __nv_bfloat16* dp = dout + row * DH + lane * PER;
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; i += 2) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op + i));
-    const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dp + i));
-    acc += a.x * d.x + a.y * d.y;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const long long bt = row / H;
-    const int h = int(row % H), t = int(bt % T);
-    const long long b = bt / T;
-    delta[(b * H + h) * T + t] = acc;
-  }
-}
-
-// Stage one 64-query tile of head h for the dk/dv pass: Q and dO rows by
-// cp.async (the caller commits), lse (into the log2 domain) and delta by
-// plain loads; rows past T read as zero.
-template <int DH>
-__device__ __forceinline__ void stage_queries(
-    __nv_bfloat16* qdst, __nv_bfloat16* dodst, float* lsedst, float* deldst,
-    const __nv_bfloat16* q, const __nv_bfloat16* dout, const float* lse, const float* delta,
-    int b, int h, int q0, int T, int H, int tid) {
-  const int qstride = H * DH;
-  const size_t off = (size_t(b) * T + q0) * qstride + size_t(h) * DH;
-  load_tile<DH>(qdst, q + off, qstride, T - q0, q, tid);
-  load_tile<DH>(dodst, dout + off, qstride, T - q0, dout, tid);
-  if (tid < kBlockM) {
-    const int row = q0 + tid;
-    const bool ok = row < T;
-    const size_t so = (size_t(b) * H + h) * T + (ok ? row : 0);
-    lsedst[tid] = ok ? lse[so] * kLog2e : 0.f;
-    deldst[tid] = ok ? delta[so] : 0.f;
-  }
+  delta_row<DH>(o, dout, delta, rows, T, H);
 }
 
 template <int DH>

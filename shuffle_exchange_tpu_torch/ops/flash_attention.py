@@ -154,10 +154,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     """q [B,T,H,Dh], k/v [B,S,KV,Dh] (H a multiple of KV, query head h
     reading kv head h // (H // KV)) -> [B,T,H,Dh]; ``segment_ids`` [B, T]
     int (T == S) mask pairs whose ids differ. Causal needs T == S. The
-    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor.
+    ``alibi_slopes`` [H] route to ``alibi_flash_attention`` (S >= T,
+    bottom-right diagonal)."""
     if alibi_slopes is not None:
-        raise NotImplementedError("ALiBi in the flash attention kernel is not ported yet: "
-                                  "ROADMAP queue A, item 5")
+        from .alibi_attention import alibi_flash_attention
+
+        return alibi_flash_attention(q, k, v, alibi_slopes, causal, segment_ids)
     _check_shapes(q, k, v, causal, segment_ids)
     if not use_kernel(q):
         return reference_attention(q, k, v, causal, segment_ids)   # autograd sees through it

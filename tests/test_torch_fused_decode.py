@@ -51,6 +51,7 @@ from shuffle_exchange_tpu_torch.models.transformer import decode_fusion_eligibil
 jfd = importlib.import_module("shuffle_exchange_tpu.ops.fused_decode")
 tfd = importlib.import_module("shuffle_exchange_tpu_torch.ops.fused_decode")
 tpa = importlib.import_module("shuffle_exchange_tpu_torch.ops.paged_attention")
+tie = importlib.import_module("shuffle_exchange_tpu_torch.inference.engine")
 
 T = torch.from_numpy
 
@@ -358,7 +359,7 @@ def test_auto_is_the_paged_kernel_path_on_a_cpu_engine(models):
     assert te._decode_kernel == "xla" and not (te._fuse_qkv or te._fuse_mlp)
 
 
-def test_llama_is_fusable_and_pallas_on_nothing_fusable_raises(models):
+def test_llama_is_fusable_and_pallas_on_nothing_fusable_raises(models, monkeypatch):
     _, _, tm, state = models
     assert decode_fusion_eligibility(tm.config) == {"qkv": None, "mlp": None}
     unfusable = dataclasses.replace(tm.config, rope_interleaved=True, n_experts=2)
@@ -370,6 +371,12 @@ def test_llama_is_fusable_and_pallas_on_nothing_fusable_raises(models):
         assert elig["qkv"] is None and reason in elig["mlp"]
     model = Transformer(tiny(**MODEL), device="cpu")
     model.config = unfusable   # a structure the port's model refuses to build
+    # the engines refuse such a structure before anything else ...
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
+        InferenceEngine(model, state, _cfg(InferenceConfig), device="cpu")
+    # ... and behind that refusal, the decode-kernel resolution still
+    # refuses "pallas" on nothing fusable and resolves "auto" to "xla"
+    monkeypatch.setattr(tie, "check_servable", lambda cfg: None)
     with pytest.raises(ValueError, match="no part of the decode layer is fusable"):
         InferenceEngine(model, state, _cfg(InferenceConfig), device="cpu")
     # the MoE structure's leaves in place of the dense FFN's

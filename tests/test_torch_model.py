@@ -19,6 +19,8 @@ import torch
 from shuffle_exchange_tpu.models import Transformer as JTransformer
 from shuffle_exchange_tpu.models import tiny as jtiny
 from shuffle_exchange_tpu.models import transformer as jtf
+from shuffle_exchange_tpu_torch.inference import (InferenceEngine, InferenceEngineV2,
+                                                  init_inference)
 from shuffle_exchange_tpu_torch.models import (Transformer, TransformerConfig,
                                                get_model, llama3_8b,
                                                params_from_numpy,
@@ -144,7 +146,21 @@ def test_logits_stay_f32_for_bf16_operands():
     {"attention_pattern": ("global", "local")},
 ])
 def test_structures_outside_the_llama_family_raise(override):
+    """Structures the training forward takes since the GPT-2 / BLOOM slice
+    build a model, but every serving entry point (v1, v2, init_inference)
+    refuses it before any weight moves, naming ROADMAP item 4 (item 3 for
+    ALiBi in the paged kernels); the rest still refuse the model itself."""
     cfg = tiny(**{**LLAMA_TINY, **override})
+    if set(override) & {"norm", "activation", "position", "embed_ln", "attn_qkv_bias"}:
+        model = Transformer(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        item = "item 3" if override.get("position") == "alibi" else "item 4"
+        for build in (lambda: InferenceEngine(model, params, device="cpu"),
+                      lambda: InferenceEngineV2(model, params, device="cpu"),
+                      lambda: init_inference(model, params, {}, device="cpu")):
+            with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
+                build()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(cfg, device="cpu")
 

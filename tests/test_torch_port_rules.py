@@ -368,6 +368,12 @@ def test_ast_rule_covers_the_quantized_serving_modules():
         assert (PORT / f).exists()
 
 
+def test_ast_rule_covers_the_alibi_and_gpt2_modules():
+    files = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    assert {"ops/alibi_attention.py", "models/hf.py", "models/transformer.py"} <= files
+    assert (PORT / "ops/csrc/alibi_attention.cu").exists()
+
+
 def test_ast_rule_covers_the_moe_modules():
     files = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
     assert {"moe/__init__.py", "moe/gating.py", "moe/layer.py", "ops/grouped_gemm.py"} <= files
