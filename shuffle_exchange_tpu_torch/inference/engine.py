@@ -44,8 +44,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.transformer import (Transformer, _norm, check_servable, decode_fusion_eligibility,
-                                  rope_table)
+from ..models.transformer import (Transformer, _norm, activation_fn, check_servable,
+                                  decode_fusion_eligibility, llama_family, rope_table)
 from ..config.config_utils import ConfigError
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
 from ..ops.flash_attention import flash_attention
@@ -127,11 +127,21 @@ class InferenceEngine:
 
     def __init__(self, model: Transformer, params: Dict[str, torch.Tensor],
                  config: Optional[InferenceConfig] = None, device=None):
-        # before any weight moves: a model outside the served family (ALiBi,
-        # layernorm, biases, ...) must never serve without its structures
+        # before any weight moves: a structure the engines do not serve must
+        # never serve without it
         check_servable(model.config)
         self.model = model
         self.config = config or InferenceConfig()
+        if not llama_family(model.config):
+            if self.config.quantize_weights:
+                raise NotImplementedError(
+                    "not served by the PyTorch port yet: quantize_weights outside the Llama "
+                    "family (layernorm, biases, the gelu family, learned positions or ALiBi: "
+                    "ROADMAP queue A, item 4 (b))")
+            if self.config.adapters.enabled:
+                raise NotImplementedError(
+                    "not served by the PyTorch port yet: adapters outside the Llama family "
+                    "(ROADMAP queue A, item 10)")
         if self.config.adapters.enabled and not self.serves_adapters:
             raise ConfigError("adapters.enabled: multi-tenant LoRA adapters serve through the "
                               "paged InferenceEngineV2 (ContinuousBatchingScheduler, put(), "
@@ -242,15 +252,30 @@ class InferenceEngine:
         self._layer_weights: List[Dict[str, torch.Tensor]] = [
             {k: v[i] for k, v in stacked.items()} for i in range(L)]
         cfg = self._mcfg
-        self._rope = rope_table(self.config.max_seq_len, cfg.rotary_dims,
-                                cfg.rope_theta, device=self.device)
+        self._rope = (rope_table(self.config.max_seq_len, cfg.rotary_dims, cfg.rope_theta,
+                                 device=self.device) if cfg.position == "rope" else None)
+        # the f32 [H] ALiBi slopes on the device, or None (JAX ``self._alibi``)
+        self._alibi = self.model.alibi(self.device)
 
     # -- cached forward pieces ----------------------------------------
 
     def _embed_at(self, ids: torch.Tensor, pos: torch.Tensor):
-        """ids [B, T], pos [B] start positions -> (x [B, T, D], positions [B, T])."""
+        """ids [B, T], pos [B] start positions -> (x [B, T, D], positions [B, T]).
+        As the JAX engines: ``embed_ln`` on the token embedding, then the
+        learned positions (``pos_offset`` added) read with the index clipped
+        to the table, so a position past ``max_seq_len`` reads the last row.
+        (The JAX training ``embed`` applies ``embed_ln`` after the positions;
+        no decoder family has both, ROADMAP queue C.)"""
+        cfg = self._mcfg
         x = self.params["embed"][ids.long()]
+        if cfg.embed_ln:   # BLOOM's word_embeddings_layernorm
+            x = _norm(x, self.params["embed_ln_w"], self.params["embed_ln_b"], cfg.norm,
+                      eps=cfg.norm_eps)
         positions = pos.long()[:, None] + torch.arange(ids.shape[1], device=ids.device)[None, :]
+        if cfg.position == "learned":
+            table = self.params["pos_embed"]
+            idx = (positions + cfg.pos_offset).clamp(0, table.shape[0] - 1)
+            x = x + table[idx].to(x.dtype)
         return x, positions
 
     @staticmethod
@@ -277,7 +302,7 @@ class InferenceEngine:
         cfg = self._mcfg
         B, T = h.shape[:2]
         H, KV, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        y = _norm(h, lw["ln1_w"], eps=cfg.norm_eps)
+        y = _norm(h, lw["ln1_w"], lw.get("ln1_b"), cfg.norm, eps=cfg.norm_eps)
         qkv = None if lora is not None else self._maybe_fused_qkv(lw, y, positions)
         if qkv is None:
             q = y @ lw["wq"]
@@ -290,10 +315,15 @@ class InferenceEngine:
             q = q.reshape(B, T, H, Dh)
             k = k.reshape(B, T, KV, Dh)
             v = v.reshape(B, T, KV, Dh)
-            cos, sin = self._rope
-            pc, ps = _rope_rows(cos, sin, positions)
-            q = _apply_rope_batched(q, pc, ps)
-            k = _apply_rope_batched(k, pc, ps)
+            if cfg.attn_qkv_bias:   # a bf16 bias after the bf16 product, as JAX's body
+                q = q + lw["b_q"].to(y.dtype).reshape(H, Dh)
+                k = k + lw["b_k"].to(y.dtype).reshape(KV, Dh)
+                v = v + lw["b_v"].to(y.dtype).reshape(KV, Dh)
+            if self._rope is not None:
+                cos, sin = self._rope
+                pc, ps = _rope_rows(cos, sin, positions)
+                q = _apply_rope_batched(q, pc, ps)
+                k = _apply_rope_batched(k, pc, ps)
         else:
             q, k, v = qkv
         attn = attn_fn(q, k, v)
@@ -310,19 +340,29 @@ class InferenceEngine:
         attn_out = attn_flat @ lw["wo"]
         if lora is not None:
             attn_out = self._lora_add(attn_out, attn_flat, lora, "wo")
+        if cfg.attn_out_bias:
+            attn_out = attn_out + lw["b_o"].to(attn_out.dtype)
         h = h + attn_out
         out = self._maybe_fused_ffn(lw, h)
         if out is not None:
             return out
-        y2 = _norm(h, lw["ln2_w"], eps=cfg.norm_eps)
+        y2 = _norm(h, lw["ln2_w"], lw.get("ln2_b"), cfg.norm, eps=cfg.norm_eps)
         return h + self._ffn(lw, y2)
 
-    def _fused_qkv_args(self, positions: torch.Tensor):
-        """The f32 rope rows [B, Dh/2] at each one-token row's position,
-        which the fused QKV kernel takes (JAX ``_fused_qkv_args``)."""
-        cos, sin = self._rope
-        pc, ps = _rope_rows(cos, sin, positions)
-        return pc[:, 0].contiguous(), ps[:, 0].contiguous()
+    def _fused_qkv_args(self, lw: Dict[str, torch.Tensor], positions: torch.Tensor):
+        """What the fused QKV kernel takes beside the weights (JAX
+        ``_fused_qkv_args``): the f32 rope rows [B, Dh/2] at each one-token
+        row's position (None, None without RoPE) and the q/k/v bias
+        keywords (empty without biases)."""
+        cosr = sinr = None
+        if self._rope is not None:
+            cos, sin = self._rope
+            pc, ps = _rope_rows(cos, sin, positions)
+            cosr, sinr = pc[:, 0].contiguous(), ps[:, 0].contiguous()
+        bias = {}
+        if self._mcfg.attn_qkv_bias:
+            bias = {"bq": lw["b_q"], "bk": lw["b_k"], "bv": lw["b_v"]}
+        return cosr, sinr, bias
 
     def _maybe_fused_qkv(self, lw: Dict[str, torch.Tensor], y: torch.Tensor,
                          positions: torch.Tensor):
@@ -334,30 +374,39 @@ class InferenceEngine:
         if not (self._fuse_qkv and y.shape[1] == 1) or qkv_quantized(lw):
             return None
         cfg = self._mcfg
-        cosr, sinr = self._fused_qkv_args(positions)
+        cosr, sinr, bias = self._fused_qkv_args(lw, positions)
         q, k, v = fused_qkv_rope(y[:, 0], lw["wq"], lw["wk"], lw["wv"], cosr, sinr,
-                                 n_heads=cfg.n_heads, kv_heads=cfg.kv_heads)
+                                 n_heads=cfg.n_heads, kv_heads=cfg.kv_heads, **bias)
         return q[:, None], k[:, None], v[:, None]
 
     def _maybe_fused_ffn(self, lw: Dict[str, torch.Tensor],
                          h: torch.Tensor) -> Optional[torch.Tensor]:
-        """``h + FFN(RMSNorm(h))`` through the fused MLP kernel (bf16
-        weights) or the fused quantized MLP kernel for one-token rows when
-        the decode path is fused; None otherwise, and for MLP weights the
-        fused kernels cannot take (mixed dense and quantized, as JAX
-        routes them: a static choice by the weights' type)."""
+        """``h + FFN(norm(h))`` through the fused MLP kernel (bf16 weights:
+        RMSNorm or layernorm, gated or plain, with the fc biases) or the
+        fused quantized MLP kernel for one-token rows when the decode path
+        is fused; None otherwise, and for MLP weights the fused kernels
+        cannot take (mixed dense and quantized, as JAX routes them: a
+        static choice by the weights' type)."""
         if not (self._fuse_mlp and h.shape[1] == 1):
             return None
-        reason = mlp_weights_fusable(lw["w_up"], lw["w_down"], lw["w_gate"])
+        cfg = self._mcfg
+        gated = cfg.activation == "swiglu"
+        wg = lw["w_gate"] if gated else None
+        reason = mlp_weights_fusable(lw["w_up"], lw["w_down"], wg)
         if reason is not None:
             warning_once(f"fused decode: MLP stays on the layer body ({reason})")
             return None
-        out = fused_mlp(h[:, 0], h[:, 0], lw["ln2_w"], lw["w_up"], lw["w_down"],
-                        lw["w_gate"], eps=self._mcfg.norm_eps)
+        kw = {}
+        if cfg.mlp_bias and not gated:
+            kw = {"b_up": lw["b_up"], "b_down": lw["b_down"]}
+        out = fused_mlp(h[:, 0], h[:, 0], lw["ln2_w"], lw["w_up"], lw["w_down"], wg,
+                        eps=cfg.norm_eps, ln_b=lw.get("ln2_b"), norm=cfg.norm,
+                        activation=cfg.activation, **kw)
         return out[:, None]
 
     def _ffn(self, lw: Dict[str, torch.Tensor], y: torch.Tensor) -> torch.Tensor:
-        """The dense SwiGLU FFN, or the MoE FFN (JAX ``_ffn``): the model's
+        """The dense FFN (SwiGLU, or the plain MLP of the gelu family with its
+        fc biases), or the MoE FFN (JAX ``_ffn``): the model's
         ``moe_ffn`` with the impl and capacity factor the paged engine's
         serving config sets (``_moe_impl_override`` / ``_moe_cf_override``;
         the v1 engine has none and takes the model config's), resolved as
@@ -367,7 +416,13 @@ class InferenceEngine:
         device."""
         cfg = self._mcfg
         if cfg.n_experts == 0:
-            return (F.silu(y @ lw["w_gate"]) * (y @ lw["w_up"])) @ lw["w_down"]
+            if cfg.activation == "swiglu":
+                return (F.silu(y @ lw["w_gate"]) * (y @ lw["w_up"])) @ lw["w_down"]
+            act = activation_fn(cfg.activation)
+            if not cfg.mlp_bias:
+                return act(y @ lw["w_up"]) @ lw["w_down"]
+            return (act(y @ lw["w_up"] + lw["b_up"].to(y.dtype)) @ lw["w_down"]
+                    + lw["b_down"].to(y.dtype))
         out, res = self.model.moe_ffn(lw, y, impl=getattr(self, "_moe_impl_override", None),
                                       capacity_factor=getattr(self, "_moe_cf_override", None))
         tap = getattr(self, "_moe_tap", None)
@@ -405,7 +460,7 @@ class InferenceEngine:
             def attn_fn(q, k, v, i=i):
                 cache.k[i, :, :Tpad] = k.to(cache.k.dtype)
                 cache.v[i, :, :Tpad] = v.to(cache.v.dtype)
-                return flash_attention(q, k, v, causal=True)
+                return flash_attention(q, k, v, causal=True, alibi_slopes=self._alibi)
 
             x = self._layer_body(lw, x, positions, attn_fn)
         idx = (prompt_len.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
@@ -427,7 +482,7 @@ class InferenceEngine:
             def attn_fn(q, k, v, ck=ck, cv=cv):
                 ck[rows, pos_l] = k[:, 0].to(ck.dtype)
                 cv[rows, pos_l] = v[:, 0].to(cv.dtype)
-                return decode_attention(q, ck, cv, pos + 1)
+                return decode_attention(q, ck, cv, pos + 1, alibi_slopes=self._alibi)
 
             x = self._layer_body(lw, x, pos, attn_fn)
         return self._head(x)[:, 0]

@@ -374,24 +374,30 @@ class InferenceEngineV2(InferenceEngine):
             # scan outputs every step
             append_token_kv(ck, cv, k[:, 0], v[:, 0], tables, pos)
             if fused:   # JAX's attention-only fusion
-                return fused_paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1)
-            return paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1)
+                return fused_paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1,
+                                                    alibi_slopes=self._alibi)
+            return paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1,
+                                          alibi_slopes=self._alibi)
 
         return self._layer_body(lw, h, pos, attn_fn, lora=lora)
 
     def _fused_paged_layer(self, lw, h, ck, cv, pos, tables) -> torch.Tensor:
-        """One fused decode layer (JAX ``_fused_paged_layer``): ln1 through
-        the RMSNorm kernel; the QKV kernel projects, applies RoPE and
-        writes the new token's K/V into the layer's pool view in place;
-        the split-K kernel attends through the block table; ``_block_tail``
-        does the ``wo`` product and the residual and takes the fused MLP.
-        A kernel that fails raises: nothing drops to another path."""
+        """One fused decode layer (JAX ``_fused_paged_layer``): ln1 (through
+        the RMSNorm kernel, or plain layernorm); the QKV kernel projects,
+        adds the q/k/v biases, applies RoPE (none for learned positions and
+        ALiBi) and writes the new token's K/V into the layer's pool view in
+        place; the split-K kernel attends through the block table, with the
+        ALiBi slopes; ``_block_tail`` does the ``wo`` product, its bias and
+        the residual and takes the fused MLP when the model's MLP fuses. A
+        kernel that fails raises: nothing drops to another path."""
         cfg = self._mcfg
-        cosr, sinr = self._fused_qkv_args(pos)
-        y = _norm(h, lw["ln1_w"], eps=cfg.norm_eps)
+        cosr, sinr, bias = self._fused_qkv_args(lw, pos)
+        y = _norm(h, lw["ln1_w"], lw.get("ln1_b"), cfg.norm, eps=cfg.norm_eps)
         q, _, _ = fused_qkv_rope(y[:, 0], lw["wq"], lw["wk"], lw["wv"], cosr, sinr, ck, cv,
-                                 tables, pos, n_heads=cfg.n_heads, kv_heads=cfg.kv_heads)
-        attn = fused_paged_decode_attention(q[:, None], ck, cv, tables, pos + 1)
+                                 tables, pos, n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+                                 **bias)
+        attn = fused_paged_decode_attention(q[:, None], ck, cv, tables, pos + 1,
+                                            alibi_slopes=self._alibi)
         return self._block_tail(lw, h, attn)
 
     def _extend_layer(self, lw, h, ck, cv, positions, start, nnew, tables,
@@ -413,7 +419,8 @@ class InferenceEngineV2(InferenceEngine):
             # index_put_ on the layer's pool view: no copy of the pool
             ck[blk.reshape(-1), :, off.reshape(-1)] = k.reshape(B * C, KV, Dh).to(ck.dtype)
             cv[blk.reshape(-1), :, off.reshape(-1)] = v.reshape(B * C, KV, Dh).to(cv.dtype)
-            return paged_extend_attention(q.contiguous(), ck, cv, tables, start, nnew)
+            return paged_extend_attention(q.contiguous(), ck, cv, tables, start, nnew,
+                                          alibi_slopes=self._alibi)
 
         return self._layer_body(lw, h, positions, attn_fn, lora=lora)
 
@@ -482,7 +489,7 @@ class InferenceEngineV2(InferenceEngine):
             def attn_fn(q, k, v, ck=ck, cv=cv):
                 ck[flat] = blocks(k).to(ck.dtype)
                 cv[flat] = blocks(v).to(cv.dtype)
-                return flash_attention(q, k, v, causal=True)
+                return flash_attention(q, k, v, causal=True, alibi_slopes=self._alibi)
 
             x = self._layer_body(lw, x, positions, attn_fn, lora=self._lora(i, aslots))
         return self._last_rows_logits(x, plen)

@@ -7,7 +7,9 @@ optional q/k/v/out biases, SwiGLU, a plain MLP (gelu, gelu_new,
 gelu_pytorch_tanh, relu or silu, with or without fc biases) or a
 Mixtral-style MoE FFN (``n_experts`` > 0: top-k routed experts in every
 layer, an optional shared expert), ``embed_ln`` and a tied or untied
-unembedding. Serving takes the Llama family only (``check_servable``). The
+unembedding. Serving takes the same structures (``check_servable``);
+weight quantization and adapters serve the Llama family only
+(``llama_family``). The
 pieces the inference engines call (``embed``, ``head``) and the training
 forward (``layer_apply``, ``stack_apply``, ``chunked_loss``, ``loss``) are
 functional like the JAX ones: they take the parameters as a
@@ -38,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.dispatch import resolve_device
+from ..ops.fused_decode import FUSABLE_ACTIVATIONS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,35 +237,25 @@ def check_supported(cfg: TransformerConfig) -> None:
 
 
 def check_servable(cfg: TransformerConfig) -> None:
-    """Raise for every structure the port's inference engines do not serve:
-    all that ``check_supported`` refuses, and outside the Llama family
-    (RMSNorm, SwiGLU, RoPE, no biases) the structures the training forward
-    takes but the serving paths and their kernels do not yet (ROADMAP queue
-    A, item 4; ALiBi in the paged kernels, item 3). A model must never
-    serve without its slopes or biases."""
+    """Raise for every structure the port's inference engines do not serve.
+    They serve what the training forward takes (``check_supported``):
+    RMSNorm or layernorm, RoPE, learned positions or ALiBi, q/k/v/out and
+    fc biases, ``embed_ln``, SwiGLU or a plain MLP of the gelu family, and
+    MoE. Parallel blocks, interleaved or partial RoPE, local or
+    bidirectional attention, ``post_ln`` and the BERT head stay refused
+    there (ROADMAP queue A, item 4 (d)); weight quantization and adapters
+    outside the Llama family are refused by the engines
+    (``llama_family``)."""
     check_supported(cfg)
-    later = "ROADMAP queue A, item 4 (a, b)"
-    checks = [
-        (cfg.position == "alibi",
-         "ALiBi positions (ALiBi in the paged kernels: ROADMAP queue A, item 3; the serving "
-         "model path: ROADMAP queue A, item 4 (c))"),
-        (cfg.norm != "rmsnorm", f"norm={cfg.norm!r} (only rmsnorm serves; {later})"),
-        (cfg.activation != "swiglu", f"activation={cfg.activation!r} (only swiglu serves; "
-                                     f"{later})"),
-        (cfg.position != "rope", f"position={cfg.position!r} (only rope serves; {later})"),
-        (cfg.embed_ln, f"embed_ln ({later})"),
-        (cfg.attn_qkv_bias or cfg.attn_out_bias, f"attention biases ({later})"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"not served by the PyTorch port yet: {what}")
 
 
-#: activations the port's fused MLP kernel computes. The JAX package's
-#: ``ops/fused_decode.py:FUSABLE_ACTIVATIONS`` also has silu, relu,
-#: gelu_new and gelu_pytorch_tanh, which join with those activations
-#: (ROADMAP queue A, item 4)
-FUSABLE_ACTIVATIONS = ("swiglu",)
+def llama_family(cfg: TransformerConfig) -> bool:
+    """RMSNorm, SwiGLU (or MoE experts), RoPE, no biases and no
+    ``embed_ln``: the structures weight quantization and the adapter pool
+    serve."""
+    return (cfg.norm == "rmsnorm" and (cfg.activation == "swiglu" or cfg.n_experts > 0)
+            and cfg.position == "rope" and not (cfg.attn_qkv_bias or cfg.attn_out_bias)
+            and not cfg.embed_ln)
 
 
 def decode_fusion_eligibility(cfg: TransformerConfig) -> dict:
@@ -282,9 +275,8 @@ def decode_fusion_eligibility(cfg: TransformerConfig) -> dict:
     elif cfg.activation not in FUSABLE_ACTIVATIONS:
         mlp = (f"activation {cfg.activation!r} is not fusable "
                f"(fusable: {', '.join(FUSABLE_ACTIVATIONS)})")
-    elif cfg.norm != "rmsnorm":
-        mlp = (f"norm {cfg.norm!r}: the port's fused MLP kernel normalises with "
-               "RMSNorm (layernorm joins with ROADMAP queue A, item 4)")
+    elif cfg.norm not in ("rmsnorm", "layernorm"):
+        mlp = f"unknown norm {cfg.norm!r}"
     return {"qkv": qkv, "mlp": mlp}
 
 

@@ -1,6 +1,7 @@
-// The fused decode layer for Hopper (sm_90a): QKV projection + RoPE (+ the
-// pool append, when a pool is given), split-K paged flash-decode, and RMSNorm + SwiGLU MLP + residual
-// over bf16 or quantized weights, behind a plain C interface loaded with
+// The fused decode layer for Hopper (sm_90a): QKV projection + biases +
+// RoPE (+ the pool append, when a pool is given), split-K paged
+// flash-decode (with ALiBi slopes), and norm + MLP + residual over bf16 or
+// quantized weights, behind a plain C interface loaded with
 // ctypes (ops/_build.py builds this file with nvcc at first use). Each C
 // entry point launches all of its kernels on the caller's stream and
 // returns cudaGetLastError().
@@ -14,8 +15,12 @@
 // Layouts (all contiguous, bf16 unless noted):
 //   y, resid      [B, D] activation rows (one token per sequence)
 //   wq, wk, wv    [D, H*Dh], [D, KV*Dh], [D, KV*Dh]   (stored [in, out])
-//   w_gate, w_up  [D, F];  w_down [F, D];  ln_w [D]
-//   cos, sin      [B, Dh/2] f32 rope rows at each row's position
+//   w_gate, w_up  [D, F];  w_down [F, D];  ln_w, ln_b [D]
+//   bq, bk, bv    [H*Dh], [KV*Dh], [KV*Dh] (null: no q/k/v biases)
+//   b_up, b_down  [F], [D] (null: no fc biases)
+//   cos, sin      [B, Dh/2] f32 rope rows at each row's position (null:
+//                 no RoPE, the learned-position and ALiBi families)
+//   slopes        [H] f32 ALiBi slopes (null: none)
 //   pool k / v    one layer [nblk, KV, bs, Dh];  table [B, W] int32 (-1 is
 //                 read as block 0);  pos / kv_len [B] int32
 //
@@ -48,14 +53,21 @@
 // picks it), and a merge kernel combines the splits:
 //   m_g = max m;  w = exp(m - m_g);  out = sum(w*acc) / max(sum(w*l), 1e-30).
 // q is scaled in f32 before the dot, P stays f32, masked scores are -1e30,
-// and a split past the sequence's end contributes m = -1e30, l = 0.
+// and a split past the sequence's end contributes m = -1e30, l = 0. ALiBi
+// adds slope_h * j in f32 to the scaled score of logical key position j
+// before the running max: a split starts mid-sequence, so j is the
+// position its loop walks, never relative to the split's start.
 //
-// Rounding points (those of the TPU kernels): QKV sums in f32, bias-free
-// RoPE in f32, one cast to bf16, and the pool gets the cast value; the MLP
-// normalises with f32 statistics and rounds yn to bf16, sums both products
-// in f32, rounds a = silu(g)*u to bf16, sums the down product in f32, adds
-// the residual in f32 and casts once. Tensor-core MMA, TMA and pipelining
-// are later work.
+// Rounding points (those of the TPU kernels): QKV sums in f32, the bias
+// added in f32 (bf16 biases read exactly), RoPE in f32, one cast to bf16,
+// and the pool gets the cast value; the MLP normalises with f32 statistics
+// (RMSNorm, or layernorm with the population variance and its bias) and
+// rounds yn to bf16, sums the products in f32, adds the up bias in f32,
+// rounds a = act(g)*u (gated) or act(u) to bf16, sums the down product in
+// f32, adds the residual and then the down bias in f32 and casts once.
+// The activations are those of the TPU kernel's FUSABLE_ACTIVATIONS: silu
+// (swiglu when gated), relu and the tanh gelu (gelu_new,
+// gelu_pytorch_tanh). Tensor-core MMA, TMA and pipelining are later work.
 //
 // The quantized MLP (int8 / packed int4 / e4m3 weights with f32 scales per
 // (K-group, column), the storage of ops/quant_matmul.py) keeps that
@@ -196,23 +208,31 @@ __device__ __forceinline__ float sum_splits(const float* __restrict__ part, int 
 
 // ---------------------------------------------------------------------------
 // QKV epilogue: block (row b, head of [q heads | k heads | v heads]), Dh
-// threads. Adds the partials, applies rotate-half RoPE in f32 to q and k
-// (the partner of column d is d +- Dh/2 of the same head), casts, writes
-// q/k/v and, given a pool, appends k/v to it at (table[b, pos/bs], h,
-// pos % bs).
+// threads. Adds the partials and the head's bias, applies rotate-half RoPE
+// in f32 to q and k when cos is given (the partner of column d is d +- Dh/2
+// of the same head), casts, writes q/k/v and, given a pool, appends k/v to
+// it at (table[b, pos/bs], h, pos % bs).
 // ---------------------------------------------------------------------------
 
 __global__ void qkv_epilogue_kernel(
-    const float* __restrict__ part, int S, int B, int ncols, const float* __restrict__ cos,
-    const float* __restrict__ sin, const int* __restrict__ table, const int* __restrict__ pos,
-    __nv_bfloat16* __restrict__ pool_k, __nv_bfloat16* __restrict__ pool_v,
-    __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ k,
-    __nv_bfloat16* __restrict__ v, int H, int KV, int Dh, int bs, int W) {
+    const float* __restrict__ part, int S, int B, int ncols, const __nv_bfloat16* __restrict__ bq,
+    const __nv_bfloat16* __restrict__ bk, const __nv_bfloat16* __restrict__ bv,
+    const float* __restrict__ cos, const float* __restrict__ sin, const int* __restrict__ table,
+    const int* __restrict__ pos, __nv_bfloat16* __restrict__ pool_k,
+    __nv_bfloat16* __restrict__ pool_v, __nv_bfloat16* __restrict__ q,
+    __nv_bfloat16* __restrict__ k, __nv_bfloat16* __restrict__ v, int H, int KV, int Dh, int bs,
+    int W) {
   extern __shared__ float xh[];   // [Dh]
   const int b = blockIdx.x, head = blockIdx.y, d = threadIdx.x;
   float x = sum_splits(part, S, B, ncols, b, head * Dh + d);
   const bool is_v = head >= H + KV;
-  if (!is_v) {
+  if (bq != nullptr) {   // the three biases go together
+    const __nv_bfloat16* bias = head < H ? bq + head * Dh
+                                : is_v   ? bv + (head - H - KV) * Dh
+                                         : bk + (head - H) * Dh;
+    x += __bfloat162float(bias[d]);
+  }
+  if (!is_v && cos != nullptr) {
     xh[d] = x;
     __syncthreads();
     const int half = Dh / 2;
@@ -234,50 +254,99 @@ __global__ void qkv_epilogue_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// MLP pieces: row RMSNorm (f32 statistics, yn rounded to bf16), the SwiGLU
-// epilogue (a = bf16(silu(g) * u)) and the residual epilogue.
+// MLP pieces: the row norm (f32 statistics, yn rounded to bf16), the
+// activation epilogue (a = bf16(act(g) * u) gated, bf16(act(u)) not) and
+// the residual epilogue.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) norm_rows_kernel(
-    const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ w,
-    __nv_bfloat16* __restrict__ yn, int D, float eps) {
-  __shared__ float red[kThreads / 32];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const __nv_bfloat16* row = y + size_t(b) * D;
-  float ss = 0.f;
-  for (int i = tid; i < D; i += kThreads) {
-    const float xv = __bfloat162float(row[i]);
-    ss += xv * xv;
-  }
+enum NormKind { kRmsNorm = 0, kLayerNorm = 1 };
+enum Act { kSilu = 0, kRelu = 1, kGeluTanh = 2 };
+
+// Sum of one value over the block's threads, returned to all of them.
+__device__ __forceinline__ float block_sum(float x, float* red) {
+  const int tid = threadIdx.x;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if (tid % 32 == 0) red[tid / 32] = ss;
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  __syncthreads();   // red may still be read from a previous call
+  if (tid % 32 == 0) red[tid / 32] = x;
   __syncthreads();
   float total = 0.f;
 #pragma unroll
   for (int i = 0; i < kThreads / 32; ++i) total += red[i];
-  const float inv = rsqrtf(total / D + eps);
-  for (int i = tid; i < D; i += kThreads)
-    yn[size_t(b) * D + i] =
-        __float2bfloat16(__bfloat162float(row[i]) * inv * __bfloat162float(w[i]));
+  return total;
 }
 
-__global__ void swiglu_epilogue_kernel(const float* __restrict__ part, int S, int B, int F,
-                                       __nv_bfloat16* __restrict__ a) {
+// RMSNorm: x * rsqrt(mean(x^2) + eps) * w. Layernorm: (x - mean) *
+// (1 / sqrt(var + eps)) * w + b with the population variance (the TPU
+// kernel's jnp.var), mean and variance in two passes over the row; b may
+// be null (a zero bias).
+__global__ void __launch_bounds__(kThreads) norm_rows_kernel(
+    const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ w,
+    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ yn, int D, float eps,
+    int kind) {
+  __shared__ float red[kThreads / 32];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const __nv_bfloat16* row = y + size_t(b) * D;
+  if (kind == kRmsNorm) {
+    float ss = 0.f;
+    for (int i = tid; i < D; i += kThreads) {
+      const float xv = __bfloat162float(row[i]);
+      ss += xv * xv;
+    }
+    const float inv = rsqrtf(block_sum(ss, red) / D + eps);
+    for (int i = tid; i < D; i += kThreads)
+      yn[size_t(b) * D + i] =
+          __float2bfloat16(__bfloat162float(row[i]) * inv * __bfloat162float(w[i]));
+    return;
+  }
+  float sx = 0.f;
+  for (int i = tid; i < D; i += kThreads) sx += __bfloat162float(row[i]);
+  const float mean = block_sum(sx, red) / D;
+  float sd = 0.f;
+  for (int i = tid; i < D; i += kThreads) {
+    const float dv = __bfloat162float(row[i]) - mean;
+    sd += dv * dv;
+  }
+  const float inv = 1.f / sqrtf(block_sum(sd, red) / D + eps);
+  for (int i = tid; i < D; i += kThreads) {
+    const float bv = bias != nullptr ? __bfloat162float(bias[i]) : 0.f;
+    yn[size_t(b) * D + i] = __float2bfloat16(
+        (__bfloat162float(row[i]) - mean) * inv * __bfloat162float(w[i]) + bv);
+  }
+}
+
+__device__ __forceinline__ float activate(float x, int act) {
+  if (act == kRelu) return fmaxf(x, 0.f);
+  if (act == kGeluTanh)
+    return 0.5f * x * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+  return x / (1.f + expf(-x));   // silu
+}
+
+// Partials [S, B, 2F] (gated: g in [0, F), u in [F, 2F)) or [S, B, F]
+// (u only); b_up may be null.
+__global__ void act_epilogue_kernel(const float* __restrict__ part, int S, int B, int F,
+                                    int gated, int act, const __nv_bfloat16* __restrict__ b_up,
+                                    __nv_bfloat16* __restrict__ a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * F) return;
   const int b = i / F, n = i % F;
-  const float g = sum_splits(part, S, B, 2 * F, b, n);
-  const float u = sum_splits(part, S, B, 2 * F, b, F + n);
-  a[i] = __float2bfloat16(g / (1.f + expf(-g)) * u);
+  const int ncols = gated ? 2 * F : F;
+  float u = sum_splits(part, S, B, ncols, b, gated ? F + n : n);
+  if (b_up != nullptr) u += __bfloat162float(b_up[n]);
+  a[i] = __float2bfloat16(gated ? activate(sum_splits(part, S, B, ncols, b, n), act) * u
+                                : activate(u, act));
 }
 
+// out = resid + down + b_down (b_down may be null), in f32, one cast.
 __global__ void residual_epilogue_kernel(const float* __restrict__ part, int S, int B, int D,
                                          const __nv_bfloat16* __restrict__ resid,
+                                         const __nv_bfloat16* __restrict__ b_down,
                                          __nv_bfloat16* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * D) return;
-  out[i] = __float2bfloat16(__bfloat162float(resid[i]) + sum_splits(part, S, B, D, i / D, i % D));
+  float o = __bfloat162float(resid[i]) + sum_splits(part, S, B, D, i / D, i % D);
+  if (b_down != nullptr) o += __bfloat162float(b_down[i % D]);
+  out[i] = __float2bfloat16(o);
 }
 
 // ---------------------------------------------------------------------------
@@ -292,8 +361,9 @@ template <int DH>
 __global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kpool,
     const __nv_bfloat16* __restrict__ vpool, const int* __restrict__ table,
-    const int* __restrict__ kv_len, float* __restrict__ o_part, float* __restrict__ m_part,
-    float* __restrict__ l_part, int H, int KV, int bs, int W, int spb, float scale) {
+    const int* __restrict__ kv_len, const float* __restrict__ slopes,
+    float* __restrict__ o_part, float* __restrict__ m_part, float* __restrict__ l_part, int H,
+    int KV, int bs, int W, int spb, float scale) {
   constexpr int NT = kDecThreads, LD = DH + 8;
   const int b = blockIdx.x, kv = blockIdx.y, s = blockIdx.z, S = gridDim.z, tid = threadIdx.x;
   const int G = H / KV;
@@ -341,7 +411,7 @@ __global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
 #pragma unroll
           for (int e = 0; e < 8; ++e) a += qr[c + e] * kf[e];
         }
-        sc = a;
+        sc = slopes ? a + slopes[kv * G + g] * float(p0 + t) : a;
       }
       ss[i] = sc;
     }
@@ -443,14 +513,15 @@ template <int DH>
 cudaError_t launch_split_decode(dim3 grid, size_t smem, cudaStream_t s,
                                 const __nv_bfloat16* q, const __nv_bfloat16* k,
                                 const __nv_bfloat16* v, const int* table, const int* kv_len,
-                                float* o_part, float* m_part, float* l_part, int H, int KV,
-                                int bs, int W, int spb, float scale) {
+                                const float* slopes, float* o_part, float* m_part,
+                                float* l_part, int H, int KV, int bs, int W, int spb,
+                                float scale) {
   const cudaError_t err = cudaFuncSetAttribute(
       split_decode_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  split_decode_kernel<DH><<<grid, kDecThreads, smem, s>>>(q, k, v, table, kv_len, o_part,
-                                                          m_part, l_part, H, KV, bs, W, spb,
-                                                          scale);
+  split_decode_kernel<DH><<<grid, kDecThreads, smem, s>>>(q, k, v, table, kv_len, slopes,
+                                                          o_part, m_part, l_part, H, KV, bs, W,
+                                                          spb, scale);
   return cudaSuccess;
 }
 
@@ -462,10 +533,12 @@ const char* sxt_fused_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// QKV + RoPE + append. part: f32 workspace [splits, min(B, 8), (H + 2 KV) * Dh];
-// the reduction over D runs in `splits` chunks of `chunk` rows. With null
-// pools (and null table / pos) no pool row is written.
+// QKV + biases + RoPE + append. part: f32 workspace [splits, min(B, 8),
+// (H + 2 KV) * Dh]; the reduction over D runs in `splits` chunks of `chunk`
+// rows. Null biases: none; null cos / sin: no RoPE; null pools (and null
+// table / pos): no pool row is written.
 int sxt_fused_qkv_rope_bf16(const void* y, const void* wq, const void* wk, const void* wv,
+                            const void* bq, const void* bk, const void* bv,
                             const void* cos, const void* sin, const void* table,
                             const void* pos, void* pool_k, void* pool_v, void* q, void* k,
                             void* v, void* part, int B, int D, int H, int KV, int Dh, int bs,
@@ -483,8 +556,10 @@ int sxt_fused_qkv_rope_bf16(const void* y, const void* wq, const void* wk, const
         static_cast<float*>(part));
     qkv_epilogue_kernel<<<dim3(nb, H + 2 * KV), Dh, Dh * sizeof(float), s>>>(
         static_cast<const float*>(part), splits, nb, ncols,
-        static_cast<const float*>(cos) + size_t(b0) * half,
-        static_cast<const float*>(sin) + size_t(b0) * half,
+        static_cast<const __nv_bfloat16*>(bq), static_cast<const __nv_bfloat16*>(bk),
+        static_cast<const __nv_bfloat16*>(bv),
+        cos ? static_cast<const float*>(cos) + size_t(b0) * half : nullptr,
+        sin ? static_cast<const float*>(sin) + size_t(b0) * half : nullptr,
         table ? static_cast<const int*>(table) + size_t(b0) * W : nullptr,
         pos ? static_cast<const int*>(pos) + b0 : nullptr,
         static_cast<__nv_bfloat16*>(pool_k), static_cast<__nv_bfloat16*>(pool_v),
@@ -500,7 +575,8 @@ int sxt_fused_qkv_rope_bf16(const void* y, const void* wq, const void* wk, const
 // Split-K paged decode. o_part f32 [B, splits, H, Dh], m_part / l_part f32
 // [B, splits, H]; splits * spb >= W with spb = ceil(W / splits).
 int sxt_fused_paged_decode_bf16(const void* q, const void* k, const void* v, const void* table,
-                                const void* kv_len, void* out, void* o_part, void* m_part,
+                                const void* kv_len, const void* slopes, void* out, void* o_part,
+                                void* m_part,
                                 void* l_part, int B, int H, int KV, int Dh, int bs, int W,
                                 int splits, float scale, void* stream) {
   if (B <= 0) return 0;
@@ -517,16 +593,17 @@ int sxt_fused_paged_decode_bf16(const void* q, const void* k, const void* v, con
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   const auto* tp = static_cast<const int*>(table);
   const auto* lp = static_cast<const int*>(kv_len);
+  const auto* slp = static_cast<const float*>(slopes);
   auto* op = static_cast<float*>(o_part);
   auto* mp = static_cast<float*>(m_part);
   auto* lsp = static_cast<float*>(l_part);
   cudaError_t err;
   if (Dh == 128)
-    err = launch_split_decode<128>(grid, smem, s, qp, kp, vp, tp, lp, op, mp, lsp, H, KV, bs, W,
-                                   spb, scale);
+    err = launch_split_decode<128>(grid, smem, s, qp, kp, vp, tp, lp, slp, op, mp, lsp, H, KV,
+                                   bs, W, spb, scale);
   else if (Dh == 64)
-    err = launch_split_decode<64>(grid, smem, s, qp, kp, vp, tp, lp, op, mp, lsp, H, KV, bs, W,
-                                  spb, scale);
+    err = launch_split_decode<64>(grid, smem, s, qp, kp, vp, tp, lp, slp, op, mp, lsp, H, KV,
+                                  bs, W, spb, scale);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -535,17 +612,24 @@ int sxt_fused_paged_decode_bf16(const void* q, const void* k, const void* v, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// RMSNorm + SwiGLU MLP + residual. Workspaces for min(B, 8) rows: yn bf16
-// [., D], a bf16 [., F], part1 f32 [s1, ., 2F], part2 f32 [s2, ., D].
-int sxt_fused_mlp_bf16(const void* resid, const void* y, const void* ln_w, const void* w_gate,
-                       const void* w_up, const void* w_down, void* out, void* yn, void* a,
+// Norm + MLP + residual: gated (w_gate given: act(g) * u) or plain (w_gate
+// null: act(u)); norm 0 RMSNorm, 1 layernorm (ln_b may be null); act 0
+// silu, 1 relu, 2 tanh gelu; b_up / b_down may be null. Workspaces for
+// min(B, 8) rows: yn bf16 [., D], a bf16 [., F], part1 f32 [s1, ., 2F]
+// (gated) or [s1, ., F], part2 f32 [s2, ., D].
+int sxt_fused_mlp_bf16(const void* resid, const void* y, const void* ln_w, const void* ln_b,
+                       const void* w_gate, const void* w_up, const void* w_down,
+                       const void* b_up, const void* b_down, void* out, void* yn, void* a,
                        void* part1, void* part2, int B, int D, int F, int s1, int chunk1, int s2,
-                       int chunk2, float eps, void* stream) {
+                       int chunk2, int norm, int act, float eps, void* stream) {
   if (B <= 0) return 0;
-  if (D % 8 || F % 8 || bad_split(D, s1, chunk1) || bad_split(F, s2, chunk2))
+  if (D % 8 || F % 8 || bad_split(D, s1, chunk1) || bad_split(F, s2, chunk2) || norm < 0 ||
+      norm > 1 || act < 0 || act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Mats up = make_mats(w_gate, F, w_up, F, nullptr, 0);
+  const int gated = w_gate != nullptr;
+  const Mats up = gated ? make_mats(w_gate, F, w_up, F, nullptr, 0)
+                        : make_mats(w_up, F, nullptr, 0, nullptr, 0);
   const Mats down = make_mats(w_down, D, nullptr, 0, nullptr, 0);
   auto* ynp = static_cast<__nv_bfloat16*>(yn);
   auto* ap = static_cast<__nv_bfloat16*>(a);
@@ -555,16 +639,17 @@ int sxt_fused_mlp_bf16(const void* resid, const void* y, const void* ln_w, const
     const int nb = B - b0 < kMaxRows ? B - b0 : kMaxRows;
     norm_rows_kernel<<<nb, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(y) + size_t(b0) * D,
-        static_cast<const __nv_bfloat16*>(ln_w), ynp, D, eps);
-    gemv_partial_kernel<<<dim3(total_tiles(up), s1), kThreads, 0, s>>>(ynp, nb, D, chunk1, up,
-                                                                       2 * F, p1);
-    swiglu_epilogue_kernel<<<(nb * F + kThreads - 1) / kThreads, kThreads, 0, s>>>(p1, s1, nb,
-                                                                                  F, ap);
+        static_cast<const __nv_bfloat16*>(ln_w), static_cast<const __nv_bfloat16*>(ln_b), ynp,
+        D, eps, norm);
+    gemv_partial_kernel<<<dim3(total_tiles(up), s1), kThreads, 0, s>>>(
+        ynp, nb, D, chunk1, up, gated ? 2 * F : F, p1);
+    act_epilogue_kernel<<<(nb * F + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        p1, s1, nb, F, gated, act, static_cast<const __nv_bfloat16*>(b_up), ap);
     gemv_partial_kernel<<<dim3(total_tiles(down), s2), kThreads, 0, s>>>(ap, nb, F, chunk2,
                                                                          down, D, p2);
     residual_epilogue_kernel<<<(nb * D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         p2, s2, nb, D, static_cast<const __nv_bfloat16*>(resid) + size_t(b0) * D,
-        static_cast<__nv_bfloat16*>(out) + size_t(b0) * D);
+        static_cast<const __nv_bfloat16*>(b_down), static_cast<__nv_bfloat16*>(out) + size_t(b0) * D);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -595,17 +680,17 @@ int sxt_fused_mlp_quant_bf16(const void* resid, const void* y, const void* ln_w,
     const int nb = B - b0 < kMaxRows ? B - b0 : kMaxRows;
     norm_rows_kernel<<<nb, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(y) + size_t(b0) * D,
-        static_cast<const __nv_bfloat16*>(ln_w), ynp, D, eps);
+        static_cast<const __nv_bfloat16*>(ln_w), nullptr, ynp, D, eps, kRmsNorm);
     cudaError_t err = launch_quant_gemv<false>(fmt, dim3(up.tiles[0] + up.tiles[1], s1), s, ynp,
                                                nb, D, gs, chunk1, up, 2 * F, p1);
     if (err != cudaSuccess) return static_cast<int>(err);
-    swiglu_epilogue_kernel<<<(nb * F + kThreads - 1) / kThreads, kThreads, 0, s>>>(p1, s1, nb,
-                                                                                  F, ap);
+    act_epilogue_kernel<<<(nb * F + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        p1, s1, nb, F, 1, kSilu, nullptr, ap);
     err = launch_quant_gemv<false>(fmt, dim3(down.tiles[0], s2), s, ap, nb, F, gs, chunk2, down,
                                    D, p2);
     if (err != cudaSuccess) return static_cast<int>(err);
     residual_epilogue_kernel<<<(nb * D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        p2, s2, nb, D, static_cast<const __nv_bfloat16*>(resid) + size_t(b0) * D,
+        p2, s2, nb, D, static_cast<const __nv_bfloat16*>(resid) + size_t(b0) * D, nullptr,
         static_cast<__nv_bfloat16*>(out) + size_t(b0) * D);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

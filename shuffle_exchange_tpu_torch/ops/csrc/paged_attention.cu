@@ -11,9 +11,15 @@
 //   k, v    one layer of the pool [nblk, KV, bs, Dh]       bf16
 //   table   [B, W] int32 block ids (-1 is read as block 0)
 //   kv_len  [B] int32 (decode) / start [B] int32 (extend)
+//   slopes  [H] f32 ALiBi slopes, or null (no position bias)
 //   out     same shape as q, bf16
 // q head h reads kv head h / G (G = H / KV, the _repeat_kv convention);
 // the softmax scale is Dh^-0.5; softmax and accumulation are in f32.
+// ALiBi adds slope_h * j to the scaled score of key position j, in f32
+// and before the running max. j is the logical sequence position the
+// tile loop walks (table entry j / bs, offset j % bs), never a pool slot:
+// a bias of ~1,450 at j = 2048 (slope 2^-0.5) must not be rounded, and a
+// shift that differs between blocks would not cancel in the softmax.
 //
 // What bounds them on the H100: both read every visible K/V row of the
 // pool once per (sequence, kv head), so decode is bound by bytes (G query
@@ -52,8 +58,8 @@ template <int DH>
 __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kpool,
     const __nv_bfloat16* __restrict__ vpool, const int* __restrict__ table,
-    const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out, int H, int KV,
-    int bs, int W, float scale) {
+    const int* __restrict__ kv_len, const float* __restrict__ slopes,
+    __nv_bfloat16* __restrict__ out, int H, int KV, int bs, int W, float scale) {
   constexpr int NT = kDecodeThreads, LD = DH + 8;
   const int b = blockIdx.x, kv = blockIdx.y, tid = threadIdx.x;
   const int G = H / KV;
@@ -99,7 +105,7 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
 #pragma unroll
           for (int e = 0; e < 8; ++e) a += qr[c + e] * kf[e];
         }
-        s = a;
+        s = slopes ? a + slopes[kv * G + g] * float(p0 + t) : a;
       }
       ss[i] = s;
     }
@@ -172,8 +178,9 @@ template <int DH>
 __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kpool,
     const __nv_bfloat16* __restrict__ vpool, const int* __restrict__ table,
-    const int* __restrict__ start, __nv_bfloat16* __restrict__ out, int C, int H,
-    int KV, int bs, int W, int TC, float scale) {
+    const int* __restrict__ start, const float* __restrict__ slopes,
+    __nv_bfloat16* __restrict__ out, int C, int H, int KV, int bs, int W, int TC,
+    float scale) {
   constexpr int NT = kExtendThreads, LD = DH + 8, PLD = TK + 1, CPT = DH / 16;
   const int b = blockIdx.x, kv = blockIdx.y, c0 = blockIdx.z * TC, tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
@@ -204,12 +211,13 @@ __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
   }
 
   int lim[4];
-  float m[4], l[4], acc[4][CPT];
+  float m[4], l[4], sl[4], acc[4][CPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     const int c = c0 + (r < R ? r % TC : 0);
     lim[i] = (r < R && c < C) ? min(st + c + 1, cap) : 0;
+    sl[i] = (slopes && r < R) ? slopes[kv * G + r / TC] : 0.f;
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
@@ -246,8 +254,8 @@ __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
       float mx = kNeg;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool ok = p0 + tx + 16 * j < lim[i];
-        s[i][j] = ok ? s[i][j] * scale : kNeg;
+        const int pos = p0 + tx + 16 * j;
+        s[i][j] = pos < lim[i] ? s[i][j] * scale + sl[i] * float(pos) : kNeg;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -327,8 +335,8 @@ size_t sxt_paged_extend_smem(int Dh) {
 
 // Returns cudaGetLastError() after the launch (0 on success).
 int sxt_paged_decode_bf16(const void* q, const void* k, const void* v, const void* table,
-                          const void* kv_len, void* out, int B, int H, int KV, int Dh,
-                          int bs, int W, float scale, void* stream) {
+                          const void* kv_len, const void* slopes, void* out, int B, int H,
+                          int KV, int Dh, int bs, int W, float scale, void* stream) {
   if (B <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || (H / KV) * Dh > kDecodeThreads * kDecodeMaxAcc)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -340,18 +348,19 @@ int sxt_paged_decode_bf16(const void* q, const void* k, const void* v, const voi
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   const auto* tp = static_cast<const int*>(table);
   const auto* lp = static_cast<const int*>(kv_len);
+  const auto* slp = static_cast<const float*>(slopes);
   auto* op = static_cast<__nv_bfloat16*>(out);
   cudaError_t err;
   if (Dh == 128) {
     err = set_smem(paged_decode_kernel<128>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    paged_decode_kernel<128><<<grid, kDecodeThreads, smem, s>>>(qp, kp, vp, tp, lp, op, H, KV,
-                                                               bs, W, scale);
+    paged_decode_kernel<128><<<grid, kDecodeThreads, smem, s>>>(qp, kp, vp, tp, lp, slp, op, H,
+                                                               KV, bs, W, scale);
   } else if (Dh == 64) {
     err = set_smem(paged_decode_kernel<64>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    paged_decode_kernel<64><<<grid, kDecodeThreads, smem, s>>>(qp, kp, vp, tp, lp, op, H, KV,
-                                                              bs, W, scale);
+    paged_decode_kernel<64><<<grid, kDecodeThreads, smem, s>>>(qp, kp, vp, tp, lp, slp, op, H,
+                                                              KV, bs, W, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -359,8 +368,8 @@ int sxt_paged_decode_bf16(const void* q, const void* k, const void* v, const voi
 }
 
 int sxt_paged_extend_bf16(const void* q, const void* k, const void* v, const void* table,
-                          const void* start, void* out, int B, int C, int H, int KV, int Dh,
-                          int bs, int W, float scale, void* stream) {
+                          const void* start, const void* slopes, void* out, int B, int C,
+                          int H, int KV, int Dh, int bs, int W, float scale, void* stream) {
   if (B <= 0 || C <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || H / KV > kExtendRows)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -374,18 +383,19 @@ int sxt_paged_extend_bf16(const void* q, const void* k, const void* v, const voi
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   const auto* tp = static_cast<const int*>(table);
   const auto* sp = static_cast<const int*>(start);
+  const auto* slp = static_cast<const float*>(slopes);
   auto* op = static_cast<__nv_bfloat16*>(out);
   cudaError_t err;
   if (Dh == 128) {
     err = set_smem(paged_extend_kernel<128>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    paged_extend_kernel<128><<<grid, kExtendThreads, smem, s>>>(qp, kp, vp, tp, sp, op, C, H,
-                                                               KV, bs, W, TC, scale);
+    paged_extend_kernel<128><<<grid, kExtendThreads, smem, s>>>(qp, kp, vp, tp, sp, slp, op, C,
+                                                               H, KV, bs, W, TC, scale);
   } else if (Dh == 64) {
     err = set_smem(paged_extend_kernel<64>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    paged_extend_kernel<64><<<grid, kExtendThreads, smem, s>>>(qp, kp, vp, tp, sp, op, C, H,
-                                                              KV, bs, W, TC, scale);
+    paged_extend_kernel<64><<<grid, kExtendThreads, smem, s>>>(qp, kp, vp, tp, sp, slp, op, C,
+                                                              H, KV, bs, W, TC, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,13 +3,16 @@ versions.
 
 Replaces the TPU kernels of ``shuffle_exchange_tpu/ops/fused_decode.py``:
 
-- ``fused_qkv_rope_pallas``: QKV projection, rotate-half RoPE in f32 and,
-  given a pool, the in-place append of the new token's K/V to the layer's
-  pool (the paged engine); without one, q/k/v only (the dense-cache v1
-  engine);
+- ``fused_qkv_rope_pallas``: QKV projection, q/k/v biases in f32 (all
+  three or none), rotate-half RoPE in f32 (none without cos / sin: the
+  learned-position and ALiBi families) and, given a pool, the in-place
+  append of the new token's K/V to the layer's pool (the paged engine);
+  without one, q/k/v only (the dense-cache v1 engine);
 - ``fused_paged_decode_attention_pallas``: split-K flash-decode over the
-  block table with an (m, l, acc) merge;
-- ``fused_mlp_pallas``: RMSNorm + SwiGLU MLP + residual;
+  block table with an (m, l, acc) merge, with ALiBi slopes;
+- ``fused_mlp_pallas``: RMSNorm or layernorm (with its bias) + a gated
+  (SwiGLU) or plain MLP with one of ``FUSABLE_ACTIVATIONS`` and optional
+  fc biases + residual;
 - ``fused_mlp_quant_pallas``: the same over int8 / packed-int4 / e4m3
   weights (``QuantizedMatrix``, ``ops/quant_matmul.py``), which
   ``fused_mlp`` dispatches to, as the JAX wrapper does.
@@ -22,13 +25,18 @@ version for a CPU tensor, and counts one launch per call on the card
 (``<wrapper>.launches``), whatever number of CUDA kernels the call runs.
 
 The plain versions keep the TPU kernels' rounding points: QKV sums in f32,
-RoPE in f32 and one cast; attention with q scaled in f32, f32 softmax
-weights (not rounded to the cache dtype) and the split merge; the MLP with
-yn and a = silu(g)*u rounded to the activation dtype and the residual added
-in f32; the quantized MLP dequantizes its weights to f32 (the JAX
-kernel's ``dot(bf16, f32)`` promotes) and rounds at the same points. The
-kernels take bf16 activations and pools without biases, ALiBi or scale
-planes; those raise, naming the ROADMAP item.
+the biases added in f32, RoPE in f32 and one cast; attention with q scaled
+in f32, ALiBi's ``slope_h * j`` added in f32 at the logical key position,
+f32 softmax weights (not rounded to the cache dtype) and the split merge;
+the MLP with yn and a = act(g)*u (or act(u + b_up)) rounded to the
+activation dtype and the residual and down bias added in f32; the
+quantized MLP dequantizes its weights to f32 (the JAX kernel's
+``dot(bf16, f32)`` promotes) and rounds at the same points. The unfused
+layer body rounds elsewhere (a bf16 product, then a bf16 bias), so the
+fused and unfused paths differ by a bf16 step. The kernels take bf16
+activations, weights and biases and f32 slopes; KV scale planes raise
+(ROADMAP queue A, item 3 (d)), and so do layernorm, biases and the plain
+MLP over quantized weights (B7 lacks them: ROADMAP queue A, item 4 (b)).
 """
 
 from __future__ import annotations
@@ -40,10 +48,25 @@ import torch
 import torch.nn.functional as F
 
 from .dispatch import use_kernel
-from .paged_attention import gather_kv
+from .paged_attention import _alibi_bias, alibi_operand, gather_kv
 from .quant_matmul import QuantizedMatrix, check_storage, quant_splits
 
 _NEG = -1e30     # the TPU kernels' finite mask sentinel
+
+#: activations the fused MLP kernel computes (the JAX package's
+#: ``ops/fused_decode.py:FUSABLE_ACTIVATIONS``; exact "gelu" is not one)
+FUSABLE_ACTIVATIONS = ("swiglu", "silu", "relu", "gelu_new", "gelu_pytorch_tanh")
+#: the kernel's activation codes (swiglu is silu on the gate)
+_ACT_CODES = {"swiglu": 0, "silu": 0, "relu": 1, "gelu_new": 2, "gelu_pytorch_tanh": 2}
+_NORM_CODES = {"rmsnorm": 0, "layernorm": 1}
+
+
+def _act_f32(name: str):
+    if name in ("swiglu", "silu"):
+        return F.silu
+    if name == "relu":
+        return F.relu
+    return lambda x: F.gelu(x, approximate="tanh")
 
 # ---------------------------------------------------------------------------
 # Plain versions
@@ -72,20 +95,24 @@ def append_rows(pool_k, pool_v, k, v, block_table, pos) -> None:
 
 
 def fused_qkv_rope_reference(y, wq, wk, wv, cos, sin, pool_k=None, pool_v=None,
-                             block_table=None, pos=None, *, n_heads: int, kv_heads: int):
+                             block_table=None, pos=None, *, n_heads: int, kv_heads: int,
+                             bq=None, bk=None, bv=None):
     """y [B, D] -> (q [B, H, Dh], k, v [B, KV, Dh]) in y's dtype, with k/v
     appended to the pool in place when one is given: f32 products and
-    sums, RoPE in f32 from the f32 rows cos/sin [B, Dh/2], one cast."""
+    sums, the biases added in f32, RoPE in f32 from the f32 rows cos/sin
+    [B, Dh/2] (none when cos is None), one cast."""
     B = y.shape[0]
     H, KV = n_heads, kv_heads
     Dh = wq.shape[1] // H
     yf = y.float()
-    q = (yf @ wq.float()).reshape(B, H, Dh)
-    k = (yf @ wk.float()).reshape(B, KV, Dh)
-    v = (yf @ wv.float()).reshape(B, KV, Dh)
-    q = rope_heads(q, cos.float(), sin.float()).to(y.dtype)
-    k = rope_heads(k, cos.float(), sin.float()).to(y.dtype)
-    v = v.to(y.dtype)
+    q, k, v = yf @ wq.float(), yf @ wk.float(), yf @ wv.float()
+    if bq is not None:
+        q, k, v = q + bq.float(), k + bk.float(), v + bv.float()
+    q, k, v = q.reshape(B, H, Dh), k.reshape(B, KV, Dh), v.reshape(B, KV, Dh)
+    if cos is not None:
+        q = rope_heads(q, cos.float(), sin.float())
+        k = rope_heads(k, cos.float(), sin.float())
+    q, k, v = q.to(y.dtype), k.to(y.dtype), v.to(y.dtype)
     if pool_k is not None:
         append_rows(pool_k, pool_v, k, v, block_table, pos)
     return q, k, v
@@ -99,10 +126,12 @@ def split_count(width: int, num_splits: int) -> Tuple[int, int]:
     return -(-width // spb), spb
 
 
-def fused_paged_decode_reference(q, ck, cv, block_table, kv_len, num_splits: int = 2):
+def fused_paged_decode_reference(q, ck, cv, block_table, kv_len, num_splits: int = 2,
+                                 alibi_slopes=None):
     """Split-K paged decode: q [B,1,H,Dh] against one layer of the pool
     through block_table [B,W]; kv_len [B] -> [B,1,H,Dh]. Each split of the
-    table gives (m, l, acc) in f32 with q scaled in f32 and the softmax
+    table gives (m, l, acc) in f32 with q scaled in f32, ``slope_h * j``
+    added at logical position j (``alibi_slopes`` [H]) and the softmax
     weights kept in f32 (masked scores -1e30; a split with no visible
     position gives m = -1e30, l = 0); the merge is that of the TPU
     kernel."""
@@ -117,6 +146,8 @@ def fused_paged_decode_reference(q, ck, cv, block_table, kv_len, num_splits: int
     v = F.pad(v.float(), (0, 0, 0, 0, 0, P - W * bs))
     qf = q.reshape(B, KV, G, Dh).float() * Dh ** -0.5
     sc = torch.einsum("bkgd,bpkd->bkgp", qf, k)
+    if alibi_slopes is not None:
+        sc = sc + _alibi_bias(alibi_slopes, KV, G, P, q.device)[None]
     valid = (torch.arange(P, device=q.device)[None, :]
              < kv_len.to(q.device).long()[:, None])[:, None, None, :]
     sc = sc.masked_fill(~valid, _NEG).reshape(B, KV, G, S, L)
@@ -131,15 +162,35 @@ def fused_paged_decode_reference(q, ck, cv, block_table, kv_len, num_splits: int
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
-def fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1e-5):
-    """``resid + w_down·(silu(yn·w_gate) ⊙ yn·w_up)``, yn = RMSNorm(y_src):
-    f32 statistics, yn and a rounded to resid's dtype, products summed in
-    f32, the residual added in f32, one cast."""
+def fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1e-5, *,
+                        ln_b=None, b_up=None, b_down=None, norm: str = "rmsnorm",
+                        activation: str = "swiglu"):
+    """``resid + w_down·a + b_down`` with a = act(yn·w_gate) ⊙ (yn·w_up +
+    b_up) (gated: ``w_gate`` given) or act(yn·w_up + b_up), yn = norm(y_src)
+    (RMSNorm, or layernorm with ``ln_b`` and the population variance): f32
+    statistics, yn and a rounded to resid's dtype, products summed and the
+    biases added in f32, the residual and then b_down added in f32, one
+    cast."""
     x32 = y_src.float()
-    var = (x32 * x32).mean(-1, keepdim=True)
-    yn = (x32 * torch.rsqrt(var + eps) * ln_w.float()).to(resid.dtype).float()
-    a = (F.silu(yn @ w_gate.float()) * (yn @ w_up.float())).to(resid.dtype).float()
-    return (resid.float() + a @ w_down.float()).to(resid.dtype)
+    if norm == "rmsnorm":
+        var = (x32 * x32).mean(-1, keepdim=True)
+        yn = x32 * torch.rsqrt(var + eps) * ln_w.float()
+    else:
+        mean = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, keepdim=True, unbiased=False)
+        yn = (x32 - mean) * (1.0 / torch.sqrt(var + eps)) * ln_w.float()
+        if ln_b is not None:
+            yn = yn + ln_b.float()
+    yn = yn.to(resid.dtype).float()
+    act = _act_f32(activation)
+    u = yn @ w_up.float()
+    if b_up is not None:
+        u = u + b_up.float()
+    a = act(yn @ w_gate.float()) * u if w_gate is not None else act(u)
+    out = resid.float() + a.to(resid.dtype).float() @ w_down.float()
+    if b_down is not None:
+        out = out + b_down.float()
+    return out.to(resid.dtype)
 
 
 def fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1e-5):
@@ -177,22 +228,22 @@ def mlp_weights_fusable(w_up, w_down, w_gate=None) -> Optional[str]:
 # ---------------------------------------------------------------------------
 
 
-def _refuse_biases(what: str, *biases) -> None:
-    if any(b is not None for b in biases):
-        raise NotImplementedError(f"{what} biases in the fused decode kernels are not "
-                                  "ported yet: ROADMAP queue A, item 4")
-
-
 def fused_qkv_rope(y, wq, wk, wv, cos, sin, pool_k=None, pool_v=None, block_table=None,
                    pos=None, *, n_heads: int, kv_heads: int, bq=None, bk=None, bv=None):
     """One token per sequence: y [B, D] (the normalised hidden rows) ->
-    (q [B, H, Dh], k, v [B, KV, Dh]); rotate-half RoPE from the f32 rows
-    cos/sin [B, Dh/2]. Given a pool, the new K/V is also written into the
-    layer's pool [nblk, KV, bs, Dh] in place at (block_table[b, pos//bs],
-    :, pos % bs) for each row's position ``pos`` [B]; with ``pool_k=None``
-    no pool row is written (the dense-cache engine's form). The CUDA kernel
-    on a CUDA tensor, the plain version on a CPU tensor."""
-    _refuse_biases("QKV", bq, bk, bv)
+    (q [B, H, Dh], k, v [B, KV, Dh]); the biases ``bq`` [H*Dh], ``bk``,
+    ``bv`` [KV*Dh] (all three or none) added in f32, then rotate-half RoPE
+    from the f32 rows cos/sin [B, Dh/2] (``cos = sin = None``: no RoPE).
+    Given a pool, the new K/V is also written into the layer's pool [nblk,
+    KV, bs, Dh] in place at (block_table[b, pos//bs], :, pos % bs) for each
+    row's position ``pos`` [B]; with ``pool_k=None`` no pool row is written
+    (the dense-cache engine's form). The CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if sum(b is None for b in (bq, bk, bv)) not in (0, 3):
+        raise ValueError("fused QKV: bq, bk and bv go together (all given or all None)")
+    if (cos is None) != (sin is None):
+        raise ValueError("fused QKV: cos and sin go together (both given: RoPE; both None: "
+                         "none)")
     if any(isinstance(w, QuantizedMatrix) for w in (wq, wk, wv)):
         raise ValueError("fused QKV: quantized attention weights take quant_matmul (the "
                          "engines route them there, as the JAX engines do)")
@@ -202,9 +253,10 @@ def fused_qkv_rope(y, wq, wk, wv, cos, sin, pool_k=None, pool_v=None, block_tabl
                          "(all given: append; all None: no pool)")
     if not use_kernel(y):
         return fused_qkv_rope_reference(y, wq, wk, wv, cos, sin, pool_k, pool_v,
-                                        block_table, pos, n_heads=n_heads, kv_heads=kv_heads)
+                                        block_table, pos, n_heads=n_heads, kv_heads=kv_heads,
+                                        bq=bq, bk=bk, bv=bv)
     out = _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos,
-                      n_heads, kv_heads)
+                      n_heads, kv_heads, (bq, bk, bv))
     fused_qkv_rope.launches += 1
     return out
 
@@ -219,18 +271,17 @@ def fused_paged_decode_attention(q, ck, cv, block_table, kv_len, *,
     ck/cv [nblk,KV,bs,Dh] through block_table [B,W]; kv_len [B] ->
     [B,1,H,Dh]. ``num_splits`` defaults to the split count that fills the
     card's SMs (on the CPU, JAX's default of 2); the result does not
-    depend on it beyond rounding. The CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    if alibi_slopes is not None:
-        raise NotImplementedError("ALiBi slopes in the split-K decode kernel are not "
-                                  "ported yet: ROADMAP queue A, item 3")
+    depend on it beyond rounding. ``alibi_slopes`` [H] add ``slope_h * j``
+    at logical key position j. The CUDA kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError("int8/fp8 KV scale planes in the split-K decode kernel "
-                                  "are not ported yet: ROADMAP queue A, item 3")
+                                  "are not ported yet: ROADMAP queue A, item 3 (d)")
     if not use_kernel(q):
         return fused_paged_decode_reference(q, ck, cv, block_table, kv_len,
-                                            2 if num_splits is None else num_splits)
-    out = _launch_attention(q, ck, cv, block_table, kv_len, num_splits)
+                                            2 if num_splits is None else num_splits,
+                                            alibi_slopes)
+    out = _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes)
     fused_paged_decode_attention.launches += 1
     return out
 
@@ -240,23 +291,37 @@ fused_paged_decode_attention.launches = 0
 
 def _refuse_non_gated(w_gate) -> None:
     if w_gate is None:
-        raise NotImplementedError("the non-gated fused MLP is not ported yet: ROADMAP "
-                                  "queue A, item 4")
+        raise NotImplementedError("the non-gated fused MLP over quantized weights is not "
+                                  "ported yet (B7 lacks it: ROADMAP queue A, item 4 (b))")
 
 
-def fused_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, *, eps: float = 1e-5,
-              b_up=None, b_down=None):
-    """``resid + mlp(RMSNorm(y_src))`` for one token per sequence: resid /
-    y_src [B, D], ln_w [D], w_gate / w_up [D, F], w_down [F, D], SwiGLU.
-    ``QuantizedMatrix`` weights go to :func:`fused_mlp_quant`. The CUDA
-    kernels on a CUDA tensor, the plain version on a CPU tensor."""
-    _refuse_biases("MLP", b_up, b_down)
-    _refuse_non_gated(w_gate)
+def fused_mlp(resid, y_src, ln_w, w_up, w_down, w_gate=None, *, eps: float = 1e-5,
+              b_up=None, b_down=None, ln_b=None, norm: str = "rmsnorm",
+              activation: str = "swiglu"):
+    """``resid + mlp(norm(y_src))`` for one token per sequence: resid /
+    y_src [B, D], ln_w (and, under layernorm, ``ln_b``) [D], w_up [D, F],
+    w_down [F, D]; gated (SwiGLU form) when ``w_gate`` [D, F] is given,
+    else plain; ``activation`` one of :data:`FUSABLE_ACTIVATIONS`; fc
+    biases ``b_up`` [F] / ``b_down`` [D] optional. ``QuantizedMatrix``
+    weights go to :func:`fused_mlp_quant` (RMSNorm, gated, no biases). The
+    CUDA kernels on a CUDA tensor, the plain version on a CPU tensor."""
+    if activation not in FUSABLE_ACTIVATIONS:
+        raise ValueError(f"fused MLP: activation {activation!r} is not fusable (fusable: "
+                         f"{', '.join(FUSABLE_ACTIVATIONS)})")
+    if norm not in _NORM_CODES:
+        raise ValueError(f"fused MLP: norm must be rmsnorm or layernorm, got {norm!r}")
     if any(isinstance(w, QuantizedMatrix) for w in (w_gate, w_up, w_down)):
+        if (norm, activation) != ("rmsnorm", "swiglu") or b_up is not None or \
+                b_down is not None:
+            raise NotImplementedError("the fused quantized MLP takes RMSNorm + SwiGLU without "
+                                      "biases (B7 lacks layernorm, biases and the other "
+                                      "activations: ROADMAP queue A, item 4 (b))")
         return fused_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps=eps)
+    kw = dict(ln_b=ln_b if norm == "layernorm" else None, b_up=b_up, b_down=b_down,
+              norm=norm, activation=activation)
     if not use_kernel(resid):
-        return fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps)
-    out = _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps)
+        return fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps, **kw)
+    out = _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps, **kw)
     fused_mlp.launches += 1
     return out
 
@@ -294,9 +359,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "sxt_fused_qkv_rope_bf16": [_P] * 14 + [_I] * 9 + [_P],
-    "sxt_fused_paged_decode_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
-    "sxt_fused_mlp_bf16": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "sxt_fused_qkv_rope_bf16": [_P] * 17 + [_I] * 9 + [_P],
+    "sxt_fused_paged_decode_bf16": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "sxt_fused_mlp_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
     "sxt_fused_mlp_quant_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
 }
 _LIB = []
@@ -355,6 +420,24 @@ def _bf16(name, t, device, shape=None):
     return t
 
 
+def _vector(name, t, device, n):
+    """A bias or norm vector the kernels read element by element: bf16 [n]
+    contiguous on ``device`` (no alignment needed), or None."""
+    if t is None:
+        return None
+    if not t.is_cuda or t.device != device or t.dtype != torch.bfloat16:
+        raise TypeError(f"fused decode kernel: {name} must be bf16 on {device}, got "
+                        f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != (n,) or not t.is_contiguous():
+        raise ValueError(f"fused decode kernel: {name} must be contiguous [{n}], got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _index(t, B, device, what, dims=1):
     t = torch.as_tensor(t, device=device)
     if t.dtype.is_floating_point or t.dim() != dims or t.shape[0] != B:
@@ -368,7 +451,7 @@ def _raise_on(err, lib, what):
                            f"({lib.sxt_fused_error_string(err).decode()})")
 
 
-def _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, H, KV):
+def _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, H, KV, biases):
     dev = y.device
     B, D = y.shape
     Nq, Nkv = wq.shape[1], wk.shape[1]
@@ -386,11 +469,15 @@ def _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, H, KV
         if pool_k.dim() != 4 or pool_k.shape[1] != KV or pool_k.shape[3] != Dh:
             raise ValueError(f"fused QKV kernel: pool {tuple(pool_k.shape)} is not "
                              f"[nblk, {KV}, bs, {Dh}]")
-    rope = []
-    for name, t in (("cos", cos), ("sin", sin)):
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (B, Dh // 2):
-            raise ValueError(f"fused QKV kernel: {name} must be f32 [{B}, {Dh // 2}] on {dev}")
-        rope.append(t.contiguous())
+    bq, bk, bv = (_vector(n, b, dev, size)
+                  for n, b, size in zip(("bq", "bk", "bv"), biases, (Nq, Nkv, Nkv)))
+    rope = [None, None]
+    if cos is not None:
+        for i, (name, t) in enumerate((("cos", cos), ("sin", sin))):
+            if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (B, Dh // 2):
+                raise ValueError(f"fused QKV kernel: {name} must be f32 [{B}, {Dh // 2}] on "
+                                 f"{dev}")
+            rope[i] = t.contiguous()
     if pool_k is not None:
         table = _index(block_table, B, dev, "block table", dims=2)
         pos = _index(pos, B, dev, "pos")
@@ -406,15 +493,15 @@ def _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, H, KV
                        dtype=torch.float32)
     lib = _lib()
     err = lib.sxt_fused_qkv_rope_bf16(
-        y.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), rope[0].data_ptr(),
-        rope[1].data_ptr(), *pool_args, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        y.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), _ptr(bq), _ptr(bk), _ptr(bv),
+        _ptr(rope[0]), _ptr(rope[1]), *pool_args, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         part.data_ptr(), B, D, H, KV, Dh, bs, W, splits, chunk,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "QKV")
     return q, k, v
 
 
-def _launch_attention(q, ck, cv, block_table, kv_len, num_splits):
+def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=None):
     dev = q.device
     B, one, H, Dh = q.shape
     if one != 1:
@@ -432,6 +519,7 @@ def _launch_attention(q, ck, cv, block_table, kv_len, num_splits):
         raise ValueError(f"split-K decode kernel: G*Dh = {(H // KV) * Dh} > 1024")
     table = _index(block_table, B, dev, "block table", dims=2)
     lens = _index(kv_len, B, dev, "kv_len")
+    slopes = alibi_operand(alibi_slopes, H, dev, "split-K decode kernel")
     W = table.shape[1]
     if num_splits is None:
         splits = attention_splits(B, KV, W, _sms(dev))
@@ -444,39 +532,45 @@ def _launch_attention(q, ck, cv, block_table, kv_len, num_splits):
     lib = _lib()
     err = lib.sxt_fused_paged_decode_bf16(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), table.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+        _ptr(slopes), out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
         B, H, KV, Dh, bs, W, splits, float(Dh) ** -0.5,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "split-K decode")
     return out
 
 
-def _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps):
+def _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, b_up, b_down, norm,
+                activation):
     dev = resid.device
     B, D = resid.shape
     Fd = w_up.shape[1]
+    gated = w_gate is not None
     if D % 8 or Fd % 8:
         raise ValueError(f"fused MLP kernel: D={D} and F={Fd} must be multiples of 8")
     _bf16("resid", resid, dev)
     _bf16("y_src", y_src, dev, (B, D))
-    _bf16("ln_w", ln_w, dev, (D,))
-    _bf16("w_gate", w_gate, dev, (D, Fd))
+    _vector("ln_w", ln_w, dev, D)
+    ln_b, b_up, b_down = (_vector(n, t, dev, size) for n, t, size in
+                          (("ln_b", ln_b, D), ("b_up", b_up, Fd), ("b_down", b_down, D)))
+    if gated:
+        _bf16("w_gate", w_gate, dev, (D, Fd))
     _bf16("w_up", w_up, dev, (D, Fd))
     _bf16("w_down", w_down, dev, (Fd, D))
     rows = min(B, GEMV_ROWS)
     sms = _sms(dev)
-    s1, c1 = gemv_splits(D, (Fd, Fd), sms)
+    s1, c1 = gemv_splits(D, (Fd, Fd) if gated else (Fd,), sms)
     s2, c2 = gemv_splits(Fd, (D,), sms)
     out = torch.empty_like(resid)
     yn = torch.empty(rows, D, device=dev, dtype=resid.dtype)
     a = torch.empty(rows, Fd, device=dev, dtype=resid.dtype)
-    part1 = torch.empty(s1, rows, 2 * Fd, device=dev, dtype=torch.float32)
+    part1 = torch.empty(s1, rows, (2 if gated else 1) * Fd, device=dev, dtype=torch.float32)
     part2 = torch.empty(s2, rows, D, device=dev, dtype=torch.float32)
     lib = _lib()
     err = lib.sxt_fused_mlp_bf16(
-        resid.data_ptr(), y_src.data_ptr(), ln_w.data_ptr(), w_gate.data_ptr(),
-        w_up.data_ptr(), w_down.data_ptr(), out.data_ptr(), yn.data_ptr(), a.data_ptr(),
-        part1.data_ptr(), part2.data_ptr(), B, D, Fd, s1, c1, s2, c2, float(eps),
+        resid.data_ptr(), y_src.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), _ptr(w_gate),
+        w_up.data_ptr(), w_down.data_ptr(), _ptr(b_up), _ptr(b_down), out.data_ptr(),
+        yn.data_ptr(), a.data_ptr(), part1.data_ptr(), part2.data_ptr(), B, D, Fd, s1, c1, s2,
+        c2, _NORM_CODES[norm], _ACT_CODES[activation], float(eps),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "MLP")
     return out
@@ -513,7 +607,7 @@ def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps):
     return out
 
 
-__all__ = ["fused_mlp", "fused_mlp_quant", "fused_mlp_quant_reference", "fused_mlp_reference",
+__all__ = ["FUSABLE_ACTIVATIONS", "fused_mlp", "fused_mlp_quant", "fused_mlp_quant_reference", "fused_mlp_reference",
            "fused_paged_decode_attention", "fused_paged_decode_reference", "fused_qkv_rope",
            "fused_qkv_rope_reference", "gemv_splits", "attention_splits", "mlp_weights_fusable",
            "split_count", "rope_heads"]

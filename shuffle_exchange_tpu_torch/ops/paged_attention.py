@@ -19,8 +19,12 @@ package in f32, where the two roundings agree, and with ``p_f32=True``
 against the Pallas kernels in bf16; on the card, ``chip_smoke.py`` holds
 each kernel against its plain version with ``p_f32=True`` in bf16.
 
-In this slice the kernels take bf16 pools without ALiBi; ALiBi slopes and
-int8/fp8 scale planes raise (ROADMAP queue A, item 3).
+ALiBi: given ``alibi_slopes`` [H] (f32 on the card), every form adds
+``slope_h * j`` in f32 to the scaled score of logical key position j (the
+sequence position the block table maps, never a pool slot), as JAX's
+``decode_attention`` / ``extend_attention`` and its Pallas kernels do;
+query head ``h = kv * G + g`` takes slope h. The kernels take bf16 pools;
+int8/fp8 scale planes raise (ROADMAP queue A, item 3 (d)).
 """
 
 from __future__ import annotations
@@ -55,17 +59,28 @@ def gather_kv(ck: torch.Tensor, cv: torch.Tensor,
     return g(ck), g(cv)
 
 
+def _alibi_bias(alibi_slopes, KV: int, G: int, S: int, device) -> torch.Tensor:
+    """[KV, G, S] f32: ``slope_h * j`` for query head ``h = kv * G + g`` at
+    key position j (JAX's ``reshape(KV, G)`` of the slopes)."""
+    slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=device).reshape(KV, G)
+    return slopes[:, :, None] * torch.arange(S, dtype=torch.float32, device=device)
+
+
 def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                     kv_len: torch.Tensor, p_f32: bool = False) -> torch.Tensor:
+                     kv_len: torch.Tensor, p_f32: bool = False,
+                     alibi_slopes=None) -> torch.Tensor:
     """One query token against a dense cache: q [B,1,H,Dh], ck/cv
     [B,S,KV,Dh], kv_len [B] valid slots -> [B,1,H,Dh]. Cache-dtype operands
     with f32 products and sums (the upcast is exact), f32 softmax; the
-    weights are rounded to the cache dtype before P·V unless ``p_f32``."""
+    weights are rounded to the cache dtype before P·V unless ``p_f32``.
+    ``alibi_slopes`` [H] add ``slope_h * j`` at key slot j."""
     B, S, KV, Dh = ck.shape
     H = q.shape[2]
     G = H // KV
     qf = q.to(ck.dtype).reshape(B, KV, G, Dh).float()
     scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float()) / math.sqrt(Dh)
+    if alibi_slopes is not None:
+        scores = scores + _alibi_bias(alibi_slopes, KV, G, S, ck.device)[None]
     pos = torch.arange(S, device=ck.device)
     mask = (pos[None, :] < kv_len.to(ck.device).long()[:, None])[:, None, None, :]
     scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
@@ -79,17 +94,20 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 
 def extend_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                      start_pos: torch.Tensor, kv_len: torch.Tensor,
-                     p_f32: bool = False) -> torch.Tensor:
+                     p_f32: bool = False, alibi_slopes=None) -> torch.Tensor:
     """A C-token chunk against a dense cache that already holds the chunk's
     own K/V: q [B,C,H,Dh], ck/cv [B,S,KV,Dh]; query i of sequence b sees
     slots s <= start_pos[b] + i and s < kv_len[b] -> [B,C,H,Dh]. The
-    weights are rounded to the cache dtype before P·V unless ``p_f32``."""
+    weights are rounded to the cache dtype before P·V unless ``p_f32``.
+    ``alibi_slopes`` [H] add ``slope_h * j`` at key slot j."""
     B, S, KV, Dh = ck.shape
     C, H = q.shape[1], q.shape[2]
     G = H // KV
     dev = ck.device
     qf = q.to(ck.dtype).reshape(B, C, KV, G, Dh).float()
     scores = torch.einsum("bckgd,bskd->bckgs", qf, ck.float()) / math.sqrt(Dh)
+    if alibi_slopes is not None:
+        scores = scores + _alibi_bias(alibi_slopes, KV, G, S, dev)[None, None]
     lim = torch.minimum(
         start_pos.to(dev).long()[:, None] + torch.arange(C, device=dev)[None, :] + 1,
         kv_len.to(dev).long()[:, None])                     # [B, C]
@@ -104,18 +122,20 @@ def extend_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.reshape(B, C, H, Dh).to(q.dtype)
 
 
-def paged_decode_reference(q, ck, cv, block_table, kv_len, p_f32=False):
-    """The plain paged decode: gather through the table, dense decode."""
+def paged_decode_reference(q, ck, cv, block_table, kv_len, p_f32=False, alibi_slopes=None):
+    """The plain paged decode: gather through the table (so slot j of the
+    gathered cache is logical position j), dense decode."""
     k, v = gather_kv(ck, cv, block_table)
-    return decode_attention(q, k, v, kv_len, p_f32)
+    return decode_attention(q, k, v, kv_len, p_f32, alibi_slopes)
 
 
-def paged_extend_reference(q, ck, cv, block_table, start, nnew, p_f32=False):
+def paged_extend_reference(q, ck, cv, block_table, start, nnew, p_f32=False,
+                           alibi_slopes=None):
     """The plain paged extend: gather through the table, dense extend with
     ``kv_len = start + nnew``. Rows past ``nnew`` are don't-care (the
     engine reads logits at ``nnew - 1``) and differ from the kernel's."""
     k, v = gather_kv(ck, cv, block_table)
-    return extend_attention(q, k, v, start, start + nnew, p_f32)
+    return extend_attention(q, k, v, start, start + nnew, p_f32, alibi_slopes)
 
 
 # ---------------------------------------------------------------------------
@@ -123,25 +143,24 @@ def paged_extend_reference(q, ck, cv, block_table, start, nnew, p_f32=False):
 # ---------------------------------------------------------------------------
 
 
-def _unsupported(alibi_slopes, k_scale, v_scale) -> None:
-    if alibi_slopes is not None:
-        raise NotImplementedError("ALiBi slopes in the paged kernels are not "
-                                  "ported yet: ROADMAP queue A, item 3")
+def _unsupported(k_scale, v_scale) -> None:
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError("int8/fp8 KV scale planes in the paged "
                                   "kernels are not ported yet: ROADMAP queue "
-                                  "A, item 3")
+                                  "A, item 3 (d)")
 
 
 def paged_decode_attention(q, ck, cv, block_table, kv_len, *,
                            alibi_slopes=None, k_scale=None, v_scale=None):
     """q [B,1,H,Dh] against one layer of the pool ck/cv [nblk,KV,bs,Dh]
-    through block_table [B,W]; kv_len [B] -> [B,1,H,Dh]. The CUDA kernel on
-    a CUDA tensor, the plain version on a CPU tensor."""
-    _unsupported(alibi_slopes, k_scale, v_scale)
+    through block_table [B,W]; kv_len [B] -> [B,1,H,Dh]; ``alibi_slopes``
+    [H] add ``slope_h * j`` at logical key position j. The CUDA kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    _unsupported(k_scale, v_scale)
     if not use_kernel(q):
-        return paged_decode_reference(q, ck, cv, block_table, kv_len)
-    out = _launch("decode", q, ck, cv, block_table, kv_len)
+        return paged_decode_reference(q, ck, cv, block_table, kv_len,
+                                      alibi_slopes=alibi_slopes)
+    out = _launch("decode", q, ck, cv, block_table, kv_len, alibi_slopes)
     paged_decode_attention.launches += 1
     return out
 
@@ -153,12 +172,14 @@ def paged_extend_attention(q, ck, cv, block_table, start, nnew, *,
                            alibi_slopes=None, k_scale=None, v_scale=None):
     """A C-token chunk per sequence, q [B,C,H,Dh], whose own K/V are
     already in the pool; start [B] first new position, nnew [B] <= C.
-    Row c of sequence b sees pool positions < start[b] + c + 1. The CUDA
+    Row c of sequence b sees pool positions < start[b] + c + 1;
+    ``alibi_slopes`` [H] as in :func:`paged_decode_attention`. The CUDA
     kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    _unsupported(alibi_slopes, k_scale, v_scale)
+    _unsupported(k_scale, v_scale)
     if not use_kernel(q):
-        return paged_extend_reference(q, ck, cv, block_table, start, nnew)
-    out = _launch("extend", q, ck, cv, block_table, start)
+        return paged_extend_reference(q, ck, cv, block_table, start, nnew,
+                                      alibi_slopes=alibi_slopes)
+    out = _launch("extend", q, ck, cv, block_table, start, alibi_slopes)
     paged_extend_attention.launches += 1
     return out
 
@@ -173,10 +194,8 @@ paged_extend_attention.launches = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "sxt_paged_decode_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              ctypes.c_float, _P],
-    "sxt_paged_extend_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, ctypes.c_float, _P],
+    "sxt_paged_decode_bf16": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
+    "sxt_paged_extend_bf16": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
 }
 _LIB = []
 
@@ -218,6 +237,23 @@ def _check_operands(q, ck, cv):
         raise ValueError(f"paged kernel: head_dim {Dh} not built (64, 128)")
 
 
+def alibi_operand(slopes, H: int, device, what: str = "paged kernel"):
+    """The slopes a kernel reads: f32 [H] contiguous on ``device``, or None.
+    A CUDA tensor of another dtype or device raises (no silent cast or
+    copy); host arrays are moved once."""
+    if slopes is None:
+        return None
+    if not isinstance(slopes, torch.Tensor):
+        slopes = torch.as_tensor(slopes, dtype=torch.float32, device=device)
+    if slopes.device != device or slopes.dtype != torch.float32:
+        raise TypeError(f"{what}: ALiBi slopes must be f32 on {device}, got {slopes.dtype} "
+                        f"on {slopes.device}")
+    if tuple(slopes.shape) != (H,):
+        raise ValueError(f"{what}: ALiBi slopes must be [H] = [{H}], got "
+                         f"{tuple(slopes.shape)}")
+    return slopes.contiguous()
+
+
 def _index(t, B, device, what):
     t = torch.as_tensor(t, device=device)
     if t.dtype.is_floating_point or t.shape[0] != B:
@@ -225,9 +261,11 @@ def _index(t, B, device, what):
     return t.to(torch.int32).contiguous()
 
 
-def _launch(kind, q, ck, cv, block_table, lens):
+def _launch(kind, q, ck, cv, block_table, lens, alibi_slopes=None):
     _check_operands(q, ck, cv)
     B, C, H, Dh = q.shape
+    slopes = alibi_operand(alibi_slopes, H, q.device)
+    sl_ptr = None if slopes is None else slopes.data_ptr()
     KV, bs = ck.shape[1], ck.shape[2]
     table = _index(block_table, B, q.device, "block table")
     if table.dim() != 2:
@@ -246,13 +284,13 @@ def _launch(kind, q, ck, cv, block_table, lens):
             raise ValueError(f"paged decode kernel: G*Dh = {(H // KV) * Dh} > 1024")
         err = lib.sxt_paged_decode_bf16(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), table.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), B, H, KV, Dh, bs, W, scale, stream)
+            lens.data_ptr(), sl_ptr, out.data_ptr(), B, H, KV, Dh, bs, W, scale, stream)
     else:
         if H // KV > 64:
             raise ValueError(f"paged extend kernel: G = {H // KV} > 64")
         err = lib.sxt_paged_extend_bf16(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), table.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), B, C, H, KV, Dh, bs, W, scale,
+            lens.data_ptr(), sl_ptr, out.data_ptr(), B, C, H, KV, Dh, bs, W, scale,
             stream)
     if err:
         raise RuntimeError(f"paged {kind} kernel launch failed: CUDA error "

@@ -576,15 +576,18 @@ def counted_port(monkeypatch):
         monkeypatch.setattr(m, "use_kernel", lambda t: True)
     monkeypatch.setattr(tlg, "resolve_grouped_gemm", lambda kind, t: "kernel")
     monkeypatch.setattr(tlg, "_launch", tlg.lora_delta_reference)
-    monkeypatch.setattr(fd, "_launch_qkv", lambda y, wq, wk, wv, c, s, pk, pv, bt, pos, H, KV:
+    monkeypatch.setattr(fd, "_launch_qkv", lambda y, wq, wk, wv, c, s, pk, pv, bt, pos, H, KV, b:
                         fd.fused_qkv_rope_reference(y, wq, wk, wv, c, s, pk, pv, bt, pos,
-                                                    n_heads=H, kv_heads=KV))
-    monkeypatch.setattr(fd, "_launch_attention", lambda q, ck, cv, bt, kl, n:
-                        fd.fused_paged_decode_reference(q, ck, cv, bt, kl, 2 if n is None else n))
+                                                    n_heads=H, kv_heads=KV, bq=b[0], bk=b[1],
+                                                    bv=b[2]))
+    monkeypatch.setattr(fd, "_launch_attention", lambda q, ck, cv, bt, kl, n, sl=None:
+                        fd.fused_paged_decode_reference(q, ck, cv, bt, kl, 2 if n is None else n,
+                                                         sl))
     monkeypatch.setattr(fd, "_launch_mlp", lambda *a, **k: fd.fused_mlp_reference(*a, **k))
-    monkeypatch.setattr(pa, "_launch", lambda kind, q, ck, cv, bt, lens: (
-        pa.paged_decode_reference(q, ck, cv, bt, lens) if kind == "decode" else
-        pa.paged_extend_reference(q, ck, cv, bt, lens, torch.full_like(lens, q.shape[1]))))
+    monkeypatch.setattr(pa, "_launch", lambda kind, q, ck, cv, bt, lens, sl=None: (
+        pa.paged_decode_reference(q, ck, cv, bt, lens, alibi_slopes=sl) if kind == "decode" else
+        pa.paged_extend_reference(q, ck, cv, bt, lens, torch.full_like(lens, q.shape[1]),
+                                  alibi_slopes=sl)))
 
     def norm(x, w, eps, residual):
         rn.rmsnorm.launches += 1

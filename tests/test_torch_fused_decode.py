@@ -365,10 +365,12 @@ def test_llama_is_fusable_and_pallas_on_nothing_fusable_raises(models, monkeypat
     unfusable = dataclasses.replace(tm.config, rope_interleaved=True, n_experts=2)
     elig = decode_fusion_eligibility(unfusable)
     assert "interleaved" in elig["qkv"] and "MoE" in elig["mlp"]
-    for change, reason in (({"activation": "gelu"}, "not fusable"),
-                           ({"norm": "layernorm"}, "RMSNorm")):
+    elig = decode_fusion_eligibility(dataclasses.replace(tm.config, activation="gelu"))
+    assert elig["qkv"] is None and "not fusable" in elig["mlp"]
+    # layernorm and the plain MLP's tanh activations fuse (BLOOM's decode layer)
+    for change in ({"norm": "layernorm"}, {"norm": "layernorm", "activation": "gelu_new"}):
         elig = decode_fusion_eligibility(dataclasses.replace(tm.config, **change))
-        assert elig["qkv"] is None and reason in elig["mlp"]
+        assert elig == {"qkv": None, "mlp": None}
     model = Transformer(tiny(**MODEL), device="cpu")
     model.config = unfusable   # a structure the port's model refuses to build
     # the engines refuse such a structure before anything else ...
@@ -386,28 +388,45 @@ def test_llama_is_fusable_and_pallas_on_nothing_fusable_raises(models, monkeypat
 
 
 @pytest.mark.parametrize("which,kw,item", [
-    ("qkv", {"bq": torch.zeros(16)}, "item 4"),
-    ("attention", {"alibi_slopes": torch.ones(4)}, "item 3"),
+    ("qkv", {"bq": torch.ones(16), "bk": torch.ones(8), "bv": torch.ones(8)}, None),
+    ("attention", {"alibi_slopes": torch.ones(4)}, None),
     ("attention", {"k_scale": torch.ones(3, 2, 8), "v_scale": torch.ones(3, 2, 8)}, "item 3"),
-    ("mlp", {"b_up": torch.zeros(32), "b_down": torch.zeros(16)}, "item 4"),
+    ("mlp", {"b_up": torch.ones(32), "b_down": torch.ones(16)}, None),
 ], ids=["qkv-bias", "attention-alibi", "attention-kv-scales", "mlp-bias"])
 def test_fused_wrappers_refuse_unported_features(which, kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
+    """KV scale planes still raise, naming their ROADMAP item. The q/k/v
+    and fc biases and the ALiBi slopes are served since the BLOOM / GPT-2
+    serving slice: the same calls now run and the feature moves the
+    result (a dropped bias or slope would leave it as without)."""
+    rng = np.random.default_rng(0)
+
+    def call(**extra):
         if which == "qkv":
             pool = torch.zeros(3, 2, 8, 4)
-            tfd.fused_qkv_rope(torch.zeros(1, 16), torch.zeros(16, 16), torch.zeros(16, 8),
-                               torch.zeros(16, 8), torch.zeros(1, 2), torch.zeros(1, 2), pool,
-                               pool.clone(), torch.zeros(1, 1, dtype=torch.int32),
-                               torch.zeros(1, dtype=torch.int32), n_heads=4, kv_heads=2, **kw)
-        elif which == "attention":
-            pool = torch.zeros(3, 2, 8, 4)
-            tfd.fused_paged_decode_attention(torch.zeros(1, 1, 4, 4), pool, pool,
-                                             torch.zeros(1, 1, dtype=torch.int32),
-                                             torch.ones(1, dtype=torch.int32), **kw)
-        else:
-            x = torch.zeros(1, 16)
-            tfd.fused_mlp(x, x, torch.ones(16), torch.zeros(16, 32), torch.zeros(32, 16),
-                          torch.zeros(16, 32), **kw)
+            return tfd.fused_qkv_rope(T(rng.standard_normal((1, 16), np.float32)),
+                                      torch.ones(16, 16), torch.ones(16, 8), torch.ones(16, 8),
+                                      torch.zeros(1, 2), torch.ones(1, 2), pool, pool.clone(),
+                                      torch.zeros(1, 1, dtype=torch.int32),
+                                      torch.zeros(1, dtype=torch.int32), n_heads=4, kv_heads=2,
+                                      **extra)[1]
+        if which == "attention":
+            pool = T(rng.standard_normal((3, 2, 8, 4), np.float32))
+            return tfd.fused_paged_decode_attention(torch.ones(1, 1, 4, 4), pool, pool,
+                                                    torch.ones(1, 1, dtype=torch.int32),
+                                                    torch.full((1,), 8, dtype=torch.int32),
+                                                    **extra)
+        x = torch.ones(1, 16)
+        return tfd.fused_mlp(x, x, torch.ones(16), torch.ones(16, 32), torch.ones(32, 16),
+                             torch.ones(16, 32), **extra)
+
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
+            call(**kw)
+        return
+    rng = np.random.default_rng(0)
+    without = call()
+    rng = np.random.default_rng(0)
+    assert not torch.allclose(call(**kw), without)
 
 
 def test_fused_wrappers_on_cpu_do_not_count_launches():

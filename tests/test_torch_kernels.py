@@ -254,15 +254,25 @@ def test_append_token_kv_in_place_matches_jax():
                          ids=["alibi", "kv-scales"])
 @pytest.mark.parametrize("which", ["decode", "extend"])
 def test_paged_wrappers_refuse_unported_features(kw, which):
-    q = torch.zeros(1, 1, 8, 32)
-    ck = cv = torch.zeros(3, 8, 16, 32)
-    bt = torch.zeros(1, 1, dtype=torch.int32)
-    n = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """KV scale planes still raise, naming ROADMAP item 3 (d). ALiBi slopes
+    are served since the BLOOM / GPT-2 serving slice: the same call runs
+    and the slopes move the result."""
+    rng = np.random.default_rng(0)
+    q = T(rng.standard_normal((1, 1, 8, 32), np.float32))
+    ck, cv = (T(rng.standard_normal((3, 8, 16, 32), np.float32)) for _ in range(2))
+    bt = torch.ones(1, 1, dtype=torch.int32)
+    n = torch.full((1,), 12, dtype=torch.int32)
+
+    def call(**extra):
         if which == "decode":
-            tpa.paged_decode_attention(q, ck, cv, bt, n, **kw)
-        else:
-            tpa.paged_extend_attention(q, ck, cv, bt, n - 1, n, **kw)
+            return tpa.paged_decode_attention(q, ck, cv, bt, n, **extra)
+        return tpa.paged_extend_attention(q, ck, cv, bt, n - 1, torch.ones_like(n), **extra)
+
+    if "alibi_slopes" not in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 3"):
+            call(**kw)
+        return
+    assert not torch.allclose(call(**kw), call())
 
 
 def test_paged_wrappers_on_cpu_do_not_count_launches():

@@ -19,7 +19,8 @@ import torch
 from shuffle_exchange_tpu.models import Transformer as JTransformer
 from shuffle_exchange_tpu.models import tiny as jtiny
 from shuffle_exchange_tpu.models import transformer as jtf
-from shuffle_exchange_tpu_torch.inference import (InferenceEngine, InferenceEngineV2,
+from shuffle_exchange_tpu_torch.inference import (InferenceConfig, InferenceEngine,
+                                                  InferenceEngineV2,
                                                   init_inference)
 from shuffle_exchange_tpu_torch.models import (Transformer, TransformerConfig,
                                                get_model, llama3_8b,
@@ -147,19 +148,29 @@ def test_logits_stay_f32_for_bf16_operands():
 ])
 def test_structures_outside_the_llama_family_raise(override):
     """Structures the training forward takes since the GPT-2 / BLOOM slice
-    build a model, but every serving entry point (v1, v2, init_inference)
-    refuses it before any weight moves, naming ROADMAP item 4 (item 3 for
-    ALiBi in the paged kernels); the rest still refuse the model itself."""
+    build a model, and since the BLOOM / GPT-2 serving slice every serving
+    entry point (v1, v2, init_inference) serves them; weight quantization
+    and adapters on them still refuse before any weight moves, naming
+    ROADMAP item 4 (b) and item 10. The rest still refuse the model
+    itself."""
     cfg = tiny(**{**LLAMA_TINY, **override})
     if set(override) & {"norm", "activation", "position", "embed_ln", "attn_qkv_bias"}:
         model = Transformer(cfg, device="cpu")
         params = model.init(torch.Generator().manual_seed(0))
-        item = "item 3" if override.get("position") == "alibi" else "item 4"
-        for build in (lambda: InferenceEngine(model, params, device="cpu"),
-                      lambda: InferenceEngineV2(model, params, device="cpu"),
-                      lambda: init_inference(model, params, {}, device="cpu")):
-            with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
-                build()
+        icfg = dict(max_seq_len=64, kv_block_size=8, num_kv_blocks=16)
+        v1 = init_inference(model, params, dict(icfg), device="cpu")
+        assert v1.generate([[1, 2, 3]], max_new_tokens=2).shape == (1, 2)
+        v2 = InferenceEngineV2(model, params, InferenceConfig(**icfg), device="cpu")
+        assert np.isfinite(v2.put([0], [[1, 2, 3]])).all()
+        for extra, item in (({"quantize_weights": True}, "item 4 \\(b\\)"),
+                            ({"adapters": {"enabled": True}}, "item 10")):
+            for build in (lambda: InferenceEngine(model, params, InferenceConfig(**extra),
+                                                  device="cpu"),
+                          lambda: InferenceEngineV2(model, params, InferenceConfig(**extra),
+                                                    device="cpu"),
+                          lambda: init_inference(model, params, dict(extra), device="cpu")):
+                with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
+                    build()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(cfg, device="cpu")

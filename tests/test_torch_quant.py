@@ -506,11 +506,13 @@ def counted_port(monkeypatch):
     monkeypatch.setattr(tqm, "_launch", tqm.quant_matmul_reference)
     monkeypatch.setattr(tfd, "_launch_mlp_quant", lambda r, y, ln, wu, wd, wg, eps:
                         tfd.fused_mlp_quant_reference(r, y, ln, wu, wd, wg, eps))
-    monkeypatch.setattr(tfd, "_launch_attention", lambda q, ck, cv, bt, kl, n:
-                        tfd.fused_paged_decode_reference(q, ck, cv, bt, kl, 2 if n is None else n))
-    monkeypatch.setattr(pa, "_launch", lambda kind, q, ck, cv, bt, lens: (
-        pa.paged_decode_reference(q, ck, cv, bt, lens) if kind == "decode" else
-        pa.paged_extend_reference(q, ck, cv, bt, lens, torch.full_like(lens, q.shape[1]))))
+    monkeypatch.setattr(tfd, "_launch_attention", lambda q, ck, cv, bt, kl, n, sl=None:
+                        tfd.fused_paged_decode_reference(q, ck, cv, bt, kl, 2 if n is None else n,
+                                                         sl))
+    monkeypatch.setattr(pa, "_launch", lambda kind, q, ck, cv, bt, lens, sl=None: (
+        pa.paged_decode_reference(q, ck, cv, bt, lens, alibi_slopes=sl) if kind == "decode" else
+        pa.paged_extend_reference(q, ck, cv, bt, lens, torch.full_like(lens, q.shape[1]),
+                                  alibi_slopes=sl)))
 
     def norm(x, w, eps, residual):
         rn.rmsnorm.launches += 1
