@@ -53,7 +53,24 @@ non-zero exit code. The phases:
    gelu_pytorch_tanh, relu and silu, and the gated form under layernorm:
    tolerances shown to catch flipped slopes, the neighbouring head's
    slopes, zero slopes, the bias formed in bf16, dropped biases and RMSNorm
-   in place of layernorm.
+   in place of layernorm; phase 2k for the KV scale-plane forms of B2, B3
+   and B5 (int8 / fp8 KV serving): int8 and e4m3 pools with their f32
+   scale planes at Llama-3-8B's heads and BLOOM-1b7's (with its slopes),
+   kv_len up to 2,048, pools in shuffled block order, B5 at 1, 2, 4 and its
+   own split count, timed against the bound at 1 byte an element plus 4 a
+   row, the same kernel over the bf16 pool and dequantize + SDPA:
+   tolerances shown to catch dropped scales, swapped K and V scale planes,
+   scales rolled within a block, int8 read unsigned and e4m3 read as e5m2;
+   phase 2l for B15 with an element mask (splash's ``mask_np``, reached
+   through ``sparse_attention``): forward, dq and dk/dv on the Fixed and
+   BigBird layouts at T = S = 8,192 (16/4 heads of 128, causal) and a
+   layout with fully masked query rows (exactly 0 in out and dq), timed
+   beside the bound on the allowed pairs' operations, SDPA with the
+   boolean mask and B15 unmasked-causal; tolerances shown to catch the
+   mask transposed, the causal AND dropped, a tile map of a shifted layout
+   and a plain version without the zero-row rule; ``impl="dense"`` must
+   raise on a CUDA tensor; then one user call of ``sparse_attention``
+   (forward and backward) must launch the mask form once each.
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
    Llama-3-8B at full width and depth with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
@@ -75,7 +92,12 @@ non-zero exit code. The phases:
    no preemption, no new program shape once a stripe is warm, the launch
    counters held the same way; ``put()`` under 8 adapters +
    ``decode_loop`` against the single-token ``put()`` loop, and a
-   profiled decode window.
+   profiled decode window. 3h: ``kv_cache_dtype`` int8 and fp8 on the same
+   weights: a serve under "auto" (B4 without a pool, the quantizing
+   append, B5 over the scale planes) and one under "xla" (B2), ``put()`` +
+   ``decode_loop`` against the single-token ``put()`` loop, the launch
+   counters held the same way, the pool bytes of bf16, int8 and fp8 and a
+   profiled int8 decode window.
 3e. Mixtral-8x7B at full width and depth on the same card, its experts and
    attention matrices in int8 storage made from a seed (47.7 GB): a serve
    with ``serving.moe.moe_impl`` "ragged" and one with "auto" (the
@@ -93,7 +115,10 @@ non-zero exit code. The phases:
    engine of each format against the CPU f32 engine fed the weights it
    serves, and of a bf16 and an int8 engine with adapters of rank 8 and 16
    on all four projections (and rows without one) against the CPU f32
-   engine with the same factors. After 3e: Mixtral cut to depth 2, int8
+   engine with the same factors. 4c: the ``step()`` schedule ("auto") and
+   the ``put()`` schedule ("auto" and "xla") with int8 and with fp8 KV
+   against the CPU f32 engine in the same KV mode (BLOOM-1b7's after its
+   3g). After 3e: Mixtral cut to depth 2, int8
    and fp8, its ``step()`` and ``put()`` schedules against the CPU f32
    engine fed the card's weights dequantized and routed as the card
    routed; routing flips are reported with their router-logit gaps.
@@ -104,7 +129,9 @@ non-zero exit code. The phases:
    exact-gelu MLP on the layer body) and under "xla" (B2 with the slopes),
    ``put()`` (B11 or B14 in the prefill) + ``decode_loop`` against the
    single-token ``put()`` loop, the v1 ``generate``, the launch counters held
-   to the programs (no RMSNorm launch), and a profiled decode window. 4b:
+   to the programs (no RMSNorm launch), and a profiled decode window;
+   BLOOM-1b7 then serves with int8 KV under "auto" and runs ``put()`` +
+   ``decode_loop`` over it (slopes and scales in one kernel). 4b:
    each cut to depth 2, its ``step()``, ``put()`` and v1 schedules under
    "auto" and "xla" against the CPU f32 engine, as phase 4.
 5. Train: ``initialize`` + ``Engine.train_batch`` on the largest entry of
@@ -2198,6 +2225,76 @@ def quant_serving(model, params, prompts, n_layers, card, seed, bf16):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3h: int8 and fp8 KV serving (kv_cache_dtype)
+# ---------------------------------------------------------------------------
+
+KV_FORMATS = ("int8", "fp8")
+KV_SERVE = {fmt: dict(SERVE_CONFIG, kv_cache_dtype=fmt) for fmt in KV_FORMATS}
+
+
+def pool_nbytes(cfg, config) -> dict:
+    """The KV pool's bytes (scale planes included) in each kv_cache_dtype
+    mode at an engine config's geometry (counted on meta tensors)."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.inference.paged import PagedKVCache
+
+    return {fmt: PagedKVCache.create(cfg.n_layers, config["num_kv_blocks"],
+                                     config["kv_block_size"], cfg.kv_heads, cfg.head_dim,
+                                     torch.bfloat16, "meta", kv_cache_dtype=fmt).pool_nbytes()
+            for fmt in ("bf16",) + KV_FORMATS}
+
+
+def kv_quant_serving(model, params, prompts, n_layers, card, seed, bf16, formats=KV_FORMATS,
+                     decode_kernels=("auto", "xla"), config=SERVE_CONFIG, prompt_range=(128, 1024),
+                     label="", trace=True):
+    """3h: for each KV format a counted ``serve()`` of the phase-3 requests
+    under each decode kernel ("auto" must resolve to the fused path, where
+    B4 runs without a pool and the quantizing append writes the rows; "xla"
+    runs B2), then ``put()`` + ``decode_loop`` (tokens equal to the
+    single-token ``put()`` loop), the launch counters held to the programs
+    each time; the pool bytes of bf16, int8 and fp8 at the serving
+    geometry; and, with ``trace``, a profiled int8 decode window.
+    ``bf16`` holds the bf16 serve's results, to compare tokens with."""
+    import torch
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"serve": {}, "put_decode_loop": {},
+           "pool_nbytes": pool_nbytes(model.config, config)}
+    print(f"[kv {label}] pool bytes at {config['num_kv_blocks']} blocks of "
+          f"{config['kv_block_size']}: {json.dumps(out['pool_nbytes'])}", flush=True)
+    for fmt in formats:
+        conf = dict(config, kv_cache_dtype=fmt)
+        for dk in decode_kernels:
+            r = counted_serve(model, params, np.random.default_rng([seed, 1]),
+                              dict(conf, decode_kernel=dk), n_layers, card,
+                              label=f"{label}{fmt} KV {dk}", prompt_range=prompt_range)
+            _check(dk != "auto" or r["resolved"] == "pallas", f"{fmt} KV: decode_kernel auto "
+                   "did not resolve to the fused kernels on the card")
+            r["same_tokens_as_bf16"] = sum(r["tokens"][u] == bf16["tokens"][u]
+                                           for u in r["tokens"])
+            print(f"[serve {label}{fmt} KV {dk}] requests with tokens equal to the bf16-KV "
+                  f"serve's: {r['same_tokens_as_bf16']} of {N_PROMPTS}", flush=True)
+            r["tokens"] = {int(u): t for u, t in r["tokens"].items()}
+            out["serve"][f"{fmt} {dk}"] = r
+            free()
+        out["put_decode_loop"][fmt] = put_decode_loop(model, params, prompts, n_layers, card,
+                                                      config=conf, label=f"put {label}{fmt} KV")
+        free()
+    if trace:
+        out["trace_decode"] = trace_decode_window(model, params, prompts,
+                                                  config=dict(config, kv_cache_dtype="int8"))
+        print(f"[trace {label}decode_loop int8 KV] "
+              f"{json.dumps(out['trace_decode']) if out['trace_decode'] else 'no device kernels'}",
+              flush=True)
+        free()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 3f: multi-tenant LoRA serving (the adapter pool, B9)
 # ---------------------------------------------------------------------------
 
@@ -2549,19 +2646,50 @@ def host_weights(params):
                 else v.detach().float().cpu()) for k, v in params.items()}
 
 
+@contextlib.contextmanager
+def card_kv(card, host):
+    """For one call of the CPU engine after the same call on the card: the
+    CPU engine's pool holds what the card engine stored (the one-byte rows
+    and their scales, after its call) and its own pool writes are skipped,
+    as RoutingReplay hands it the card's routing. The two engines' K/V
+    projections differ in bf16 rounding, which moves some elements across
+    an int8 or e4m3 rounding boundary; without this the CPU engine would
+    attend over other stored values than the card's kernels read (phase 2k
+    holds ``quantize_kv`` on the card to the CPU's bytes). Both engines run
+    the same schedule, so their block tables agree (checked after)."""
+    from shuffle_exchange_tpu_torch.inference import engine_v2 as ev2
+
+    for name in ("k", "v", "k_scale", "v_scale"):
+        getattr(host.cache, name).copy_(getattr(card.cache, name).cpu())
+    writes = {n: getattr(ev2, n) for n in ("write_rows", "write_blocks", "append_token_kv")}
+    for n in writes:
+        setattr(ev2, n, lambda *a, **k: None)
+    try:
+        yield
+    finally:
+        for n, fn in writes.items():
+            setattr(ev2, n, fn)
+    for uid, desc in card._seqs.items():
+        _check(host._seqs[uid].blocks == desc.blocks,
+               f"uid {uid}: block tables differ between the card and the CPU engine")
+
+
 def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto", quant_bits=None,
-              adapters=False):
+              adapters=False, kv=None):
     """Run the schedule on a bf16 engine on the card (``decode_kernel`` as
     given; ``quant_bits`` quantizes its weights; ``adapters`` adds phase
     4's adapter pool and bindings) and an f32 engine on the CPU ("xla":
     the paged plain versions) fed the weights and adapter factors the
-    card engine serves; returns per-tick errors."""
+    card engine serves; ``kv`` ("int8" / "fp8") stores both engines' KV in
+    that mode, the CPU engine attending over the card's stored bytes
+    (``card_kv``). Returns per-tick errors."""
     from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
     from shuffle_exchange_tpu_torch.models import Transformer
 
     icfg = dict(max_seq_len=512, kv_block_size=64, num_kv_blocks=24,
                 serving={"token_budget": 256, "max_running": 8},
-                **({"adapters": E2E_ADAPTERS} if adapters else {}))
+                **({"adapters": E2E_ADAPTERS} if adapters else {}),
+                **({"kv_cache_dtype": kv} if kv else {}))
     card = InferenceEngineV2(Transformer(cfg, device=card_device), card_state,
                              InferenceConfig(dtype="bfloat16", decode_kernel=decode_kernel,
                                              **_quant(quant_bits), **icfg), device=card_device)
@@ -2577,7 +2705,8 @@ def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto", qu
     ticks = []
     for tick in e2e_schedule(rng, cfg.vocab_size):
         got = card.step(*tick)
-        want = host.step(*tick)
+        with card_kv(card, host) if kv else contextlib.nullcontext():
+            want = host.step(*tick)
         ticks.append(_compare(np.concatenate([a for a in got if a.size]),
                               np.concatenate([a for a in want if a.size])))
     return ticks
@@ -2605,31 +2734,46 @@ def put_schedule(rng, V, lengths=(200, 120, 60, 30)):
 
 
 def e2e_put_check(cfg, card_state, rng, decode_kernels=("auto", "xla"), quant_bits=None,
-                  adapters=False):
+                  adapters=False, kv=None):
     """The put() schedule on bf16 engines on the card (each decode path;
     ``quant_bits`` quantizes their weights; ``adapters`` adds phase 4's
-    adapters) and on an f32 engine on the CPU fed the weights and factors
-    they serve; per-call logits errors."""
+    adapters; ``kv`` stores every engine's KV in that mode, with a CPU
+    engine for each card engine that attends over its stored bytes,
+    ``card_kv``) and on an f32 engine on the CPU fed the weights and
+    factors they serve; per-call logits errors."""
     from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
     from shuffle_exchange_tpu_torch.models import Transformer
 
     icfg = dict(max_seq_len=512, kv_block_size=64, num_kv_blocks=24,
-                **({"adapters": E2E_ADAPTERS} if adapters else {}))
+                **({"adapters": E2E_ADAPTERS} if adapters else {}),
+                **({"kv_cache_dtype": kv} if kv else {}))
     schedule = put_schedule(rng, cfg.vocab_size)
     cards = {dk: InferenceEngineV2(Transformer(cfg), card_state,
                                    InferenceConfig(dtype="bfloat16", decode_kernel=dk,
                                                    **_quant(quant_bits), **icfg))
              for dk in decode_kernels}
-    host = InferenceEngineV2(Transformer(cfg, device="cpu"),
-                             host_weights(cards[decode_kernels[0]].params),
-                             InferenceConfig(dtype="float32", decode_kernel="xla", **icfg),
-                             device="cpu")
+    weights = host_weights(cards[decode_kernels[0]].params)
+
+    def cpu_engine():
+        return InferenceEngineV2(Transformer(cfg, device="cpu"), weights,
+                                 InferenceConfig(dtype="float32", decode_kernel="xla", **icfg),
+                                 device="cpu")
+
+    host = cpu_engine()
     if adapters:
         e2e_adapters((*cards.values(), host), cfg)
-    want = [host.put(*call) for call in schedule]
+    want = None if kv else [host.put(*call) for call in schedule]
     out = {}
     for dk, card in cards.items():
-        out[dk] = [_compare(card.put(*call), w) for call, w in zip(schedule, want)]
+        if kv:   # the CPU engine reads what this card engine stored
+            host = cpu_engine()
+            out[dk] = []
+            for call in schedule:
+                got = card.put(*call)
+                with card_kv(card, host):
+                    out[dk].append(_compare(got, host.put(*call)))
+        else:
+            out[dk] = [_compare(card.put(*call), w) for call, w in zip(schedule, want)]
         _check(card.program_shapes == host.program_shapes,
                f"put() programs on the card {sorted(card.program_shapes)} != the CPU "
                f"engine's {sorted(host.program_shapes)}")
@@ -3491,6 +3635,431 @@ def check_mlp_forms(gen):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2k: B2, B3 and B5 over int8 and fp8 KV scale planes
+# ---------------------------------------------------------------------------
+
+# (label, H, KV, Dh, ALiBi): Llama-3-8B's heads (timed) and BLOOM-1b7's, with
+# its slopes (where slopes and scales meet)
+KVQ_HEADS = [("llama", 32, 8, 128, False), ("bloom", 16, 16, 128, True)]
+KVQ_MAX_LEN = 2048
+KVQ_SPLITS = (None, 1, 2, 4)      # B5: the wrapper's own split count first (timed)
+
+
+def quantized_pools(ck, cv, fmt):
+    """(kq, k_scale, vq, v_scale): bf16 pools quantized on the card as the
+    engine quantizes on write (one f32 scale per (token, kv head) row)."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.inference.paged import quantize_kv
+
+    store = torch.int8 if fmt == "int8" else torch.float8_e4m3fn
+    kq, ks = quantize_kv(ck, store)
+    vq, vs = quantize_kv(cv, store)
+    return kq, ks, vq, vs
+
+
+def kvq_bites(got, plain, planes, fmt, rows=lambda x: x):
+    """{bite: whether PAGED_TOL catches it}: ``plain(kq, ks, vq, vs)`` on
+    broken planes must NOT be within the tolerance of the kernel's output:
+    the scale planes dropped (read as 1), the K and V scale planes swapped,
+    the scales rolled by one position within each block, and the storage
+    misread (int8 as unsigned, e4m3 as e5m2)."""
+    import torch
+
+    kq, ks, vq, vs = planes
+    broken = {"scales_dropped": (kq, torch.ones_like(ks), vq, torch.ones_like(vs)),
+              "planes_swapped": (kq, vs, vq, ks),
+              "scales_rolled": (kq, ks.roll(1, dims=-1), vq, vs.roll(1, dims=-1))}
+    if fmt == "int8":
+        broken["read_unsigned"] = (kq.view(torch.uint8), ks, vq.view(torch.uint8), vs)
+    else:
+        broken["e4m3_read_as_e5m2"] = (kq.view(torch.float8_e5m2), ks,
+                                       vq.view(torch.float8_e5m2), vs)
+    return {k: _bites(rows(got), rows(plain(*p))) for k, p in broken.items()}
+
+
+def _kvq_library(q, planes, table, visible, slopes=None):
+    """The yardstick call: gather the rows through the table, dequantize
+    them to bf16 and run SDPA over them with a boolean mask of ``visible``
+    [B, C] positions (with slopes, _alibi_sdpa's bf16 ALiBi mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch.ops.paged_attention import gather_kv
+
+    kq, ks, vq, vs = planes
+    vis = torch.from_numpy(np.asarray(visible)).cuda().long()              # [B, C]
+    j = torch.arange(table.shape[1] * kq.shape[2], device="cuda")
+    mask = j[None, None, None, :] < vis[:, None, :, None]                  # [B, 1, C, S]
+    if slopes is not None:
+        rel = (j[None, None, :] - (vis - 1)[:, :, None]).float()
+        mask = (slopes[None, :, None, None] * rel[:, None]).masked_fill(
+            ~mask, float("-inf")).bfloat16()
+    qs = q.transpose(1, 2)
+
+    def call():
+        k, v = gather_kv(kq, vq, table, ks, vs)
+        return F.scaled_dot_product_attention(qs, k.bfloat16().transpose(1, 2),
+                                              v.bfloat16().transpose(1, 2), attn_mask=mask,
+                                              enable_gqa=True)
+    return call
+
+
+def _kvq_bound(q, kq, table, kv_rows, pairs):
+    """The bound of one call: q and out in bf16, each of the ``kv_rows``
+    K and V rows read once at 1 byte an element plus its 4-byte scale, the
+    table and the lengths; 4 x pairs x H x Dh operations."""
+    B, C, H, Dh = q.shape
+    KV = kq.shape[1]
+    nbytes = 2 * B * C * H * Dh * 2 + kv_rows * KV * (Dh + 4) * 2 + table.numel() * 4 + 2 * B * 4
+    return bound(nbytes, 4.0 * pairs * H * Dh)
+
+
+def quantize_on_card_equals_cpu(gen) -> dict:
+    """{fmt: the stored bytes and the scales in which ``quantize_kv`` (the
+    engines' quantize-on-write, plain PyTorch) on the card differs from the
+    CPU} over bf16 rows of Llama's K shape, zero rows and rows at the
+    storage maximum among them: both counts must be 0."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.inference.paged import quantize_kv
+
+    x = torch.randn(4096, 8, 128, generator=gen, device="cuda") * torch.rand(
+        4096, 8, 1, generator=gen, device="cuda") * 30
+    x[0] = 0
+    x[1, :, 3] = 448.0
+    x[2, :, 5] = -127.0
+    x = x.bfloat16()
+    out = {}
+    for fmt, store in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        qc, sc = quantize_kv(x, store)
+        qh, sh = quantize_kv(x.cpu(), store)
+        out[fmt] = {"bytes_differing": int((qc.cpu().view(torch.uint8)
+                                            != qh.view(torch.uint8)).sum().item()),
+                    "scales_differing": int((sc.cpu() != sh).sum().item())}
+    return out
+
+
+def check_kv_quant(gen, rng):
+    """B2, B3 and B5 over int8 and e4m3 pools with their f32 scale planes,
+    at Llama-3-8B's heads and BLOOM-1b7's (with its ALiBi slopes): 8
+    sequences of up to KVQ_MAX_LEN positions (B2, B5 at 1, 2, 4 splits and
+    its own count) and two 256-row chunks ending at ~1,800 and 2,048 (B3),
+    pools in shuffled block order with -1 padding, each held to its plain
+    version (gather, dequantize in f32) with PAGED_TOL; every kvq_bites bite
+    must fail it. Timed at Llama's heads, cold L2, beside the bound (1 byte
+    an element plus 4 a row), the plain version, the same kernel over the
+    bf16 pool the planes were made from, and dequantize + SDPA on the
+    gathered KV. The engines' quantize-on-write first: on the card it must
+    give the CPU's bytes and scales. Returns rows by form name."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops.fused_decode import (attention_splits,
+                                                             fused_paged_decode_attention,
+                                                             fused_paged_decode_reference)
+    from shuffle_exchange_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                                paged_decode_reference,
+                                                                paged_extend_attention,
+                                                                paged_extend_reference)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {f"{k}[{fmt}]": [] for k in ("paged_decode_attention", "paged_extend_attention",
+                                       "fused_paged_decode_attention") for fmt in KV_FORMATS}
+    same = quantize_on_card_equals_cpu(gen)
+    print(f"[kernel] quantize_kv, the card against the CPU (elements that differ): {same}",
+          flush=True)
+    _check(not any(n for d in same.values() for n in d.values()),
+           f"quantize_kv on the card differs from the CPU's: {same}")
+    B, C, bs = 8, 256, 64
+    start, nnew = np.asarray([KVQ_MAX_LEN - C, 1600], np.int32), np.asarray([C, 200], np.int32)
+    pick = lambda x: torch.cat([x[b, :n].flatten() for b, n in enumerate(nnew)])
+    for label, H, KV, Dh, alibi in KVQ_HEADS:
+        timed = label == "llama"
+        lens = np.concatenate([[KVQ_MAX_LEN], rng.integers(1, KVQ_MAX_LEN + 1, size=B - 1)]
+                              ).astype(np.int32)
+        ck, cv, table = _paged_inputs(gen, rng, lens, H, KV, Dh, bs, pad=-1)
+        q = torch.randn(B, 1, H, Dh, generator=gen, device="cuda").bfloat16()
+        eck, ecv, etable = _paged_inputs(gen, rng, start + nnew, H, KV, Dh, bs, pad=-1)
+        eq = torch.randn(2, C, H, Dh, generator=gen, device="cuda").bfloat16()
+        kvl = torch.from_numpy(lens).cuda()
+        st, nn = torch.from_numpy(start).cuda(), torch.from_numpy(nnew).cuda()
+        sl = _slopes(H) if alibi else None
+        W = table.shape[1]
+        visible = np.minimum(start[:, None] + np.arange(C)[None, :] + 1, (start + nnew)[:, None])
+        ext_pairs = sum(int(s) * int(n) + int(n) * (int(n) + 1) // 2 for s, n in zip(start, nnew))
+        for fmt in KV_FORMATS:
+            planes = quantized_pools(ck, cv, fmt)
+            eplanes = quantized_pools(eck, ecv, fmt)
+            cells = [("paged_decode_attention", None, planes, q,
+                      lambda kq, ks, vq, vs: paged_decode_attention(
+                          q, kq, vq, table, kvl, alibi_slopes=sl, k_scale=ks, v_scale=vs),
+                      lambda kq, ks, vq, vs: paged_decode_reference(
+                          q, kq, vq, table, kvl, p_f32=True, alibi_slopes=sl, k_scale=ks,
+                          v_scale=vs),
+                      lambda: paged_decode_attention(q, ck, cv, table, kvl, alibi_slopes=sl))]
+            cells.append(("paged_extend_attention", None, eplanes, eq,
+                          lambda kq, ks, vq, vs: paged_extend_attention(
+                              eq, kq, vq, etable, st, nn, alibi_slopes=sl, k_scale=ks,
+                              v_scale=vs),
+                          lambda kq, ks, vq, vs: paged_extend_reference(
+                              eq, kq, vq, etable, st, nn, p_f32=True, alibi_slopes=sl,
+                              k_scale=ks, v_scale=vs),
+                          lambda: paged_extend_attention(eq, eck, ecv, etable, st, nn,
+                                                         alibi_slopes=sl)))
+            for n in KVQ_SPLITS:
+                splits = attention_splits(B, KV, W, sms) if n is None else n
+                cells.append(("fused_paged_decode_attention", n, planes, q,
+                              lambda kq, ks, vq, vs, n=n: fused_paged_decode_attention(
+                                  q, kq, vq, table, kvl, num_splits=n, alibi_slopes=sl,
+                                  k_scale=ks, v_scale=vs),
+                              lambda kq, ks, vq, vs, s_=splits: fused_paged_decode_reference(
+                                  q, kq, vq, table, kvl, s_, alibi_slopes=sl, k_scale=ks,
+                                  v_scale=vs),
+                              lambda n=n: fused_paged_decode_attention(
+                                  q, ck, cv, table, kvl, num_splits=n, alibi_slopes=sl)))
+            for name, n, pl, qq, kernel, plain, bf16_pool in cells:
+                extend = name == "paged_extend_attention"
+                rows = pick if extend else (lambda x: x)
+                got, want = kernel(*pl), plain(*pl)
+                if extend:   # rows past nnew are padding the engine never reads
+                    checks = [paged_close(got[b, :m], want[b, :m]) for b, m in enumerate(nnew)]
+                    err, tol_ok = max(e.max().item() for e, _ in checks), all(
+                        ok for _, ok in checks)
+                else:
+                    e, tol_ok = paged_close(got, want)
+                    err = e.max().item()
+                bites = kvq_bites(got, plain, pl, fmt, rows)
+                shape = dict(label=label, fmt=fmt, B=qq.shape[0], C=qq.shape[1], H=H, KV=KV,
+                             Dh=Dh, bs=bs, alibi=alibi,
+                             table_width=int((etable if extend else table).shape[1]))
+                if extend:
+                    shape.update(start=start.tolist(), nnew=nnew.tolist())
+                else:
+                    shape.update(kv_len=lens.tolist())
+                if name == "fused_paged_decode_attention":
+                    shape.update(splits=attention_splits(B, KV, W, sms) if n is None else n,
+                                 wrapper_splits=n is None)
+                row = dict(shape=shape, max_abs_err=err,
+                           tolerance=PAGED_TOL + (" (rows < nnew)" if extend else ""),
+                           within=tol_ok, tolerance_bites=bites)
+                what = f"{name} [{fmt}] ({label}, {shape})"
+                _check(tol_ok, f"{what} disagrees with its plain version: max abs err {err}")
+                _check(all(bites.values()), f"{what}: the tolerance misses {bites}")
+                if timed and n is None:
+                    lib = _kvq_library(qq, pl, etable if extend else table,
+                                       visible if extend else lens[:, None], sl)
+                    row["library_max_abs_err"] = (rows(lib().transpose(1, 2).float())
+                                                  - rows(want.float())).abs().max().item()
+                    kv_rows = int((start + nnew).sum() if extend else lens.sum())
+                    b_ms, b_by = _kvq_bound(qq, pl[0], etable if extend else table, kv_rows,
+                                            ext_pairs if extend else kv_rows)
+                    row.update(ms=time_cold(lambda: kernel(*pl)),
+                               host_us=host_us(lambda: kernel(*pl)),
+                               ms_bf16_pool=time_cold(bf16_pool),
+                               plain_ms=time_cold(lambda: plain(*pl)),
+                               library_ms=time_cold(lib),
+                               library="dequantize + SDPA on the gathered KV",
+                               bound_ms=b_ms, bound_by=b_by)
+                out[f"{name}[{fmt}]"].append(row)
+            del planes, eplanes
+        del ck, cv, eck, ecv
+    torch.cuda.synchronize()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 2l: B15 with splash's element mask (mask_np), through sparse_attention
+# ---------------------------------------------------------------------------
+
+# a long-context shape: one sequence of 8,192 positions, 16/4 heads of 128
+SPARSE_T, SPARSE_H, SPARSE_KV, SPARSE_D = 8192, 16, 4, 128
+SPARSE_EMPTY_T = 1024
+
+
+def sparse_layouts(seed):
+    """(label, SparsityConfig, T, layout): the Fixed and BigBird layouts at
+    SPARSE_T (blocks of 128, causal), and a causal layout of 16-blocks at
+    SPARSE_EMPTY_T whose sixth query block sees nothing (fully masked rows
+    inside a partial tile)."""
+    from shuffle_exchange_tpu_torch.ops import sparse_attention as sa
+
+    fixed = sa.FixedSparsityConfig(block=128, num_local_blocks=4, num_global_blocks=1)
+    bigbird = sa.BigBirdSparsityConfig(block=128, num_random_blocks=2,
+                                       num_sliding_window_blocks=3, num_global_blocks=1,
+                                       seed=seed)
+    empty = np.tril(np.ones((SPARSE_EMPTY_T // 16,) * 2, bool))
+    empty[5] = False
+    return [("fixed", fixed, SPARSE_T, fixed.make_layout(SPARSE_T)),
+            ("bigbird", bigbird, SPARSE_T, bigbird.make_layout(SPARSE_T)),
+            ("empty_rows", sa.SparsityConfig(block=16), SPARSE_EMPTY_T, empty)]
+
+
+def check_sparse_mask(gen, seed):
+    """B15's element-mask form (forward, dq and dk/dv) against its plain
+    version (reference_attention with the mask ANDed in, P in f32, the
+    zero-row rule) on each sparse_layouts layout, causal: forward within
+    PAGED_TOL, lse within LSE_TOL on rows with an allowed key, gradients
+    within GRAD_TOL, fully masked rows exactly 0 in out and dq. Bites: the
+    mask transposed, the causal AND dropped (forward and gradients), the
+    kernels run on a tile map of the layout shifted by one key block (it
+    skips allowed entries), and a plain version without the zero-row rule
+    (the empty-row layout). impl="dense" on a CUDA tensor must raise.
+    Timed at SPARSE_T beside the bound on the allowed pairs' operations,
+    SDPA with the boolean mask (enable_gqa, forward and backward) and B15
+    unmasked-causal at the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch.ops import sparse_attention as sa
+    from shuffle_exchange_tpu_torch.ops.flash_attention import (flash_attention,
+                                                                flash_attention_bwd,
+                                                                flash_attention_lse,
+                                                                reference_attention,
+                                                                reference_attention_bwd,
+                                                                reference_attention_lse,
+                                                                tile_mask)
+
+    fwd_rows, bwd_rows = [], []
+    B, H, KV, D = 1, SPARSE_H, SPARSE_KV, SPARSE_D
+    for label, cfg, T, layout in sparse_layouts(seed):
+        q = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, T, KV, D, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, T, KV, D, generator=gen, device="cuda").bfloat16()
+        dout = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+        em = sa.element_mask(layout, cfg.block, T, T, True)
+        tm = tile_mask(em)
+        t0 = time.perf_counter()
+        tile_mask(sa.element_mask(np.roll(layout, 1, axis=1), cfg.block, T, T, True))
+        map_ms = (time.perf_counter() - t0) * 1e3
+        empty = torch.from_numpy(tm.empty_rows).cuda()
+        out, lse = flash_attention_lse(q, k, v, False, None, mask=tm)
+        want_out, want_lse = reference_attention_lse(q, k, v, False, None, p_f32=True, mask=tm)
+        err, tol_ok = paged_close(out, want_out)
+        lse_err = (lse - want_lse)[:, :, ~empty].abs().max().item()
+        zero_rows = bool((out[:, empty] == 0).all().item())
+        got = flash_attention_bwd(q, k, v, out, lse, dout, False, None, mask=tm)
+        want = reference_attention_bwd(q, k, v, out, dout, False, None, mask=tm)
+        torch.cuda.synchronize()
+        gchecks = [grad_close(g, w) for g, w in zip(got, want)]
+        errs = {n: e.max().item() for n, (e, _) in zip(("dq", "dk", "dv"), gchecks)}
+        zero_rows = zero_rows and bool((got[0][:, empty] == 0).all().item())
+        shape = dict(label=label, B=B, T=T, S=T, H=H, KV=KV, D=D, block=cfg.block,
+                     causal=True, tiles={s: int((tm.state == i).sum())
+                                         for i, s in enumerate(("empty", "full", "partial"))},
+                     allowed_pairs=tm.allowed, empty_rows=int(tm.empty_rows.sum()))
+        what = f"B15 with an element mask ({label})"
+        _check(tol_ok and lse_err <= LSE_TOL, f"{what}: forward disagrees with its plain "
+               f"version: max abs err {err.max().item()}, lse {lse_err}")
+        _check(all(ok for _, ok in gchecks), f"{what}: backward disagrees with its plain "
+               f"version: {errs}")
+        _check(zero_rows, f"{what}: a fully masked row is not exactly 0 in out or dq")
+        # the bites: broken masks for the plain versions, a shifted tile map for the kernels
+        bad = {"mask_transposed": em.T.copy(),
+               "causal_dropped": sa.element_mask(layout, cfg.block, T, T, False)}
+        fbites = {n: _bites(out, reference_attention(q, k, v, False, None, p_f32=True, mask=m))
+                  for n, m in bad.items()}
+        gbites = {}
+        for n, m in bad.items():
+            broken = reference_attention_bwd(q, k, v, out, dout, False, None, mask=m)
+            gbites[n] = {g: not grad_close(a, b_)[1]
+                         for g, a, b_ in zip(("dq", "dk", "dv"), got, broken)}
+            del broken
+        shifted = tile_mask(sa.element_mask(np.roll(layout, 1, axis=1), cfg.block, T, T, True))
+        s_out, s_lse = flash_attention_lse(q, k, v, False, None, mask=shifted)
+        fbites["tile_map_shifted"] = _bites(s_out, want_out)
+        s_grads = flash_attention_bwd(q, k, v, out, lse, dout, False, None, mask=shifted)
+        gbites["tile_map_shifted"] = {g: not grad_close(a, b_)[1]
+                                      for g, a, b_ in zip(("dq", "dk", "dv"), s_grads, want)}
+        if tm.empty_rows.any():   # without the zero-row rule a masked row averages V
+            uniform = want_out.clone()
+            uniform[:, empty] = torch.repeat_interleave(v.float().mean(1), H // KV, dim=1
+                                                        )[:, None].to(uniform.dtype)
+            fbites["empty_row_nonzero"] = _bites(out, uniform)
+        _check(all(fbites.values()), f"{what}: the forward tolerance misses {fbites}")
+        _check(all(any(b.values()) for b in gbites.values()),
+               f"{what}: the backward tolerance misses {gbites}")
+        del s_out, s_lse, s_grads
+        fwd = dict(shape=shape, max_abs_err=err.max().item(), lse_max_abs_err=lse_err,
+                   tolerance=PAGED_TOL + f" (plain with P in f32); lse {LSE_TOL} abs on rows "
+                   "with an allowed key", within=tol_ok, tolerance_bites=fbites,
+                   zero_rows_exact=zero_rows, tile_map_ms=map_ms)
+        bwd = dict(shape=shape, max_abs_err=max(errs.values()), errs=errs,
+                   tolerance=GRAD_TOL, within=True, tolerance_bites=gbites,
+                   zero_rows_exact=zero_rows)
+        if T == SPARSE_T:
+            pairs = tm.allowed * B
+            nbytes = 2 * B * T * H * D * 2 + 2 * B * T * KV * D * 2
+            f_ms, f_by = bound(nbytes, 4.0 * pairs * H * D)
+            b_ms, b_by = bound(2 * nbytes + B * T * H * (D * 2 + 4), 10.0 * pairs * H * D)
+            allowed = torch.from_numpy(em).cuda()[None, None]
+            qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+            lib_f = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=allowed,
+                                                           enable_gqa=True)
+            lib_out = lib_f()
+            dos = dout.transpose(1, 2).contiguous()
+            lib_b = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dos, retain_graph=True)
+            with torch.no_grad():
+                run = lambda: flash_attention(q, k, v, causal=False, mask=tm)
+                causal_run = lambda: flash_attention(q, k, v, causal=True)
+                fwd.update(ms=time_cold(run, iters=10), host_us=host_us(run),
+                           plain_ms=time_cold(lambda: reference_attention(
+                               q, k, v, False, None, p_f32=True, mask=tm), iters=3),
+                           library_ms=time_cold(lambda: lib_f(), iters=10),
+                           library="SDPA with the boolean [T, S] attn_mask, enable_gqa",
+                           library_kernels=_sdpa_kernels(lib_f),
+                           unmasked_causal_ms=time_cold(causal_run, iters=10),
+                           bound_ms=f_ms, bound_by=f_by)
+            fwd["tflops"] = 4.0 * pairs * H * D / (fwd["ms"] * 1e-3) / 1e12
+            c_out, c_lse = flash_attention_lse(q, k, v, True, None)
+            bwd.update(ms=time_cold(lambda: flash_attention_bwd(q, k, v, out, lse, dout, False,
+                                                                None, mask=tm), iters=10),
+                       host_us=host_us(lambda: flash_attention_bwd(q, k, v, out, lse, dout,
+                                                                   False, None, mask=tm)),
+                       plain_ms=time_cold(lambda: reference_attention_bwd(
+                           q, k, v, out, dout, False, None, mask=tm), iters=3),
+                       library_ms=time_cold(lib_b, iters=10),
+                       library="SDPA backward with the boolean attn_mask",
+                       unmasked_causal_ms=time_cold(lambda: flash_attention_bwd(
+                           q, k, v, c_out, c_lse, dout, True, None), iters=10),
+                       bound_ms=b_ms, bound_by=b_by)
+            bwd["tflops"] = 10.0 * pairs * H * D / (bwd["ms"] * 1e-3) / 1e12
+            del qs, ks, vs, lib_out, dos, allowed, c_out, c_lse
+        fwd_rows.append(fwd)
+        bwd_rows.append(bwd)
+        del q, k, v, dout, out, lse, want_out, want_lse, got, want
+        torch.cuda.empty_cache()
+    q = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.bfloat16)
+    try:
+        sa.sparse_attention(q, q, q, sa.FixedSparsityConfig(block=16), impl="dense")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    _check(refused is not None, "sparse_attention(impl='dense') ran on a CUDA tensor")
+    fwd_rows[0]["dense_on_cuda_refused"] = refused
+    torch.cuda.synchronize()
+    return fwd_rows, bwd_rows
+
+
+def sparse_user_call(seed):
+    """The element-mask form's main path: one user call of
+    ``sparse_attention`` on the Fixed layout at SPARSE_T under autograd,
+    forward and backward; returns (out finite, grads finite)."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops import sparse_attention as sa
+
+    label, cfg, T, layout = sparse_layouts(seed)[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(1, T, h, SPARSE_D, generator=gen, device="cuda").bfloat16()
+               .requires_grad_(True) for h in (SPARSE_H, SPARSE_KV, SPARSE_KV))
+    out = sa.sparse_attention(q, k, v, cfg, causal=True)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    return (bool(torch.isfinite(out).all().item()),
+            all(bool(torch.isfinite(t.grad).all().item()) for t in (q, k, v)))
+
+
+# ---------------------------------------------------------------------------
 # Phases 3g and 4b: serve BLOOM-1b7 and GPT-2 (the ALiBi and learned-position
 # families), and hold them at depth 2 against the CPU f32 engine
 # ---------------------------------------------------------------------------
@@ -3581,6 +4150,31 @@ def family_e2e(name, cfg, params, seed):
                       f"{t['ref_abs_max']}) argmax_agree={t['argmax_agree']}")
             _check(all(t["within"] for t in calls), f"depth-2 {name} {what} logits on the card "
                    f"({dk}) disagree with the CPU f32 plain path")
+    return e2e
+
+
+def kv_e2e(name, cfg, card_state, seed, formats=KV_FORMATS):
+    """Phase 4c: a model cut to depth 2 with int8 and with fp8 KV on the
+    card (bf16 weights) against the CPU f32 engine in the same KV mode:
+    the ``step()`` schedule under "auto" and the ``put()`` schedule under
+    "auto" and "xla", within E2E_REL_TOL."""
+    e2e = {}
+    t0 = time.perf_counter()
+    for fmt in formats:
+        e2e[f"step {fmt}"] = {"auto": e2e_check(cfg, card_state, np.random.default_rng([seed, 2]),
+                                                kv=fmt)}
+        e2e[f"put {fmt}"] = e2e_put_check(cfg, card_state, np.random.default_rng([seed, 7]),
+                                          kv=fmt)
+    print(f"[e2e {name} KV] depth 2: step() and put() schedules, {' and '.join(formats)} KV, "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    for what, by_dk in e2e.items():
+        for dk, calls in by_dk.items():
+            for i, t in enumerate(calls):
+                print(f"[e2e {name} {what} KV {dk}] call {i}: rows={t['rows']} "
+                      f"max_abs_err={t['max_abs_err']} (tol {E2E_REL_TOL} x |ref| max "
+                      f"{t['ref_abs_max']}) argmax_agree={t['argmax_agree']}")
+            _check(all(t["within"] for t in calls), f"depth-2 {name} {what} KV logits on the "
+                   f"card ({dk}) disagree with the CPU f32 engine in the same mode")
     return e2e
 
 
@@ -4064,6 +4658,29 @@ def main(argv=None) -> int:
              "fused_mlp[layernorm,bias,plain]": check_mlp_forms(gen)}
     print(f"[kernel] ALiBi and bias forms: {sum(len(r) for r in forms.values())} cells in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # 2k. B2, B3 and B5 over int8 and fp8 KV scale planes (Llama's and BLOOM's heads)
+    t0 = time.perf_counter()
+    kv_forms = check_kv_quant(gen, np.random.default_rng([args.seed, 17]))
+    print(f"[kernel] KV scale-plane forms: {sum(len(r) for r in kv_forms.values())} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # 2l. B15 with an element mask, then one user call of sparse_attention
+    # (forward and backward) with the counters zeroed just before
+    t0 = time.perf_counter()
+    sp_fwd, sp_bwd = check_sparse_mask(gen, args.seed)
+    ops.reset_launch_counts()
+    sparse_finite = sparse_user_call(args.seed)
+    sparse_launches = ops.launch_counts()
+    _check(all(sparse_finite), f"sparse_attention gave non-finite values (out, grads): "
+           f"{sparse_finite}")
+    _check(sparse_launches["flash_attention"] == 1 and sparse_launches["flash_attention_bwd"] == 1
+           and sum(sparse_launches.values()) == 2,
+           f"sparse_attention forward + backward did not launch B15's mask form once each: "
+           f"{sparse_launches}")
+    mask_forms = {"flash_attention[mask]": sp_fwd, "flash_attention_bwd[mask]": sp_bwd}
+    print(f"[kernel] B15 with an element mask: {len(sp_fwd)} layouts in "
+          f"{time.perf_counter() - t0:.1f} s; a sparse_attention call launched "
+          f"{sparse_launches['flash_attention']} forward and "
+          f"{sparse_launches['flash_attention_bwd']} backward", flush=True)
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
                "fused_mlp": mlp, "fused_mlp_quant": qmlp, "quant_matmul": qmm,
@@ -4073,7 +4690,7 @@ def main(argv=None) -> int:
                "lora_delta": lora, "flash_attention": flash,
                "flash_attention_bwd": fbwd, "fused_adamw": adamw,
                "alibi_flash_attention": al_fwd, "alibi_flash_attention_bwd_dq": al_dq,
-               "alibi_flash_attention_bwd_dkv": al_dkv, **forms}
+               "alibi_flash_attention_bwd_dkv": al_dkv, **forms, **kv_forms, **mask_forms}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
@@ -4089,7 +4706,9 @@ def main(argv=None) -> int:
                                        "bwd_ms", "bwd_bound_ms", "bwd_host_us",
                                        "visible_pairs", "library_fwd_bwd_ms",
                                        "library_max_abs_err", "ms_without_slopes",
-                                       "ms_without_biases") if k in r}
+                                       "ms_without_biases", "ms_bf16_pool",
+                                       "unmasked_causal_ms", "zero_rows_exact",
+                                       "tile_map_ms", "dense_on_cuda_refused") if k in r}
             timed = ("" if "ms" not in r else
                      f"kernel_ms={r['ms']} host_us={r['host_us']} plain_ms={r['plain_ms']} "
                      f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} ({r['bound_by']}) ")
@@ -4153,6 +4772,16 @@ def main(argv=None) -> int:
     runs += [r["launches"] for r in tenants["stripes"].values()]
     runs.append(tenants["put_decode_loop"]["launches"])
 
+    # 3h. int8 and fp8 KV serving on the same weights
+    t0 = time.perf_counter()
+    kvserve = kv_quant_serving(model, params, prompts, cfg.n_layers, card, args.seed,
+                               serves["auto"])
+    print(f"[kv] phase 3h in {time.perf_counter() - t0:.1f} s", flush=True)
+    kv_runs = {fmt: [r["launches"] for key, r in kvserve["serve"].items()
+                     if key.startswith(fmt)] + [kvserve["put_decode_loop"][fmt]["launches"]]
+               for fmt in KV_FORMATS}
+    runs += [r for rs in kv_runs.values() for r in rs]
+
     # 4. depth 2 on the card, fused and not, against the CPU f32 plain path
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     state2 = {k: (v[:2] if k.startswith("layers.") else v) for k, v in params.items()}
@@ -4191,6 +4820,8 @@ def main(argv=None) -> int:
                                          adapters=True)["auto"]
     print(f"[e2e adapters] step() and put() schedules, bf16 and int8 bases, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # 4c. int8 and fp8 KV at depth 2 against the CPU f32 engine in the same mode
+    kv_e2es = {"llama-3-8b": kv_e2e("llama-3-8b", cfg2, state2, args.seed)}
     for what, by_dk in e2e.items():
         for dk, calls in by_dk.items():
             for i, t in enumerate(calls):
@@ -4256,6 +4887,23 @@ def main(argv=None) -> int:
         family_e2es[name] = family_e2e(name, fcfg, fparams, args.seed)
         print(f"[{name}] phase 3g in {t1 - t0:.1f} s, 4b in {time.perf_counter() - t1:.1f} s",
               flush=True)
+        if name == "bloom-1b7":   # where slopes and scales meet: int8 KV, then 4c
+            t1 = time.perf_counter()
+            fprompts = loop_prompts(np.random.default_rng([args.seed + 21, 5]), fcfg.vocab_size,
+                                    longest=longest)
+            families[name]["kv"] = kv_quant_serving(
+                Transformer(fcfg), fparams, fprompts, fcfg.n_layers, card, args.seed + 21,
+                families[name]["serve"]["auto"], formats=("int8",), decode_kernels=("auto",),
+                config=fconf, prompt_range=(128, longest), label=f"{name} ", trace=False)
+            kv_runs["int8"] += [r["launches"] for r in families[name]["kv"]["serve"].values()]
+            kv_runs["int8"].append(families[name]["kv"]["put_decode_loop"]["int8"]["launches"])
+            runs += kv_runs["int8"][-2:]
+            t2 = time.perf_counter()
+            kv_e2es[name] = kv_e2e(name, dataclasses.replace(fcfg, n_layers=2),
+                                   {k: (v[:2] if k.startswith("layers.") else v)
+                                    for k, v in fparams.items()}, args.seed)
+            print(f"[{name}] int8 KV serving in {t2 - t1:.1f} s, 4c in "
+                  f"{time.perf_counter() - t2:.1f} s", flush=True)
         del fparams
         gc.collect()
         torch.cuda.empty_cache()
@@ -4276,6 +4924,16 @@ def main(argv=None) -> int:
            f"a kernel form never launched on its serving path: {form_launches}")
     _check(all(r["rmsnorm"] == 0 for rs in family_runs.values() for r in rs),
            "a layernorm model launched the RMSNorm kernel")
+    # the scale-plane forms' launches on the int8 / fp8 KV runs (3h, BLOOM's
+    # int8 serve), the mask form's on the sparse_attention call
+    kv_launches = {f"{k}[{fmt}]": sum(r[k] for r in kv_runs[fmt]) for fmt in KV_FORMATS
+                   for k in ("paged_decode_attention", "paged_extend_attention",
+                             "fused_paged_decode_attention")}
+    _check(all(n > 0 for n in kv_launches.values()),
+           f"a scale-plane form never launched on its serving path: {kv_launches}")
+    form_launches.update(kv_launches)
+    form_launches.update({f"{k}[mask]": sparse_launches[k]
+                          for k in ("flash_attention", "flash_attention_bwd")})
 
     # 5. train the ladder's pick at full width and depth; 6. depth 2 against
     # the CPU
@@ -4468,7 +5126,9 @@ def main(argv=None) -> int:
               "e2e": e2e, "train": trained, "train_e2e": te2e, "train_moe": moe_trained,
               "train_moe_e2e": me2e, "train_bloom": bloom, "train_gpt2": gpt2,
               "train_bloom_e2e": be2e, "alibi_gpt2_serving": families,
-              "alibi_gpt2_e2e": family_e2es, "form_launches": form_launches}
+              "alibi_gpt2_e2e": family_e2es, "form_launches": form_launches,
+              "kv_quant_serving": kvserve, "kv_e2e": kv_e2es,
+              "sparse_user_call": {"launches": sparse_launches, "finite": sparse_finite}}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

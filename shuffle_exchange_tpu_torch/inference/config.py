@@ -19,14 +19,24 @@ from ..config.config_utils import ConfigError
 _DTYPES = {"bf16": "bfloat16", "bfloat16": "bfloat16", "fp16": "float16",
            "float16": "float16", "fp32": "float32", "float32": "float32"}
 
+_KV_CACHE_DTYPES = {"bf16": "bf16", "bfloat16": "bf16", "int8": "int8",
+                    "fp8": "fp8", "float8": "fp8", "e4m3": "fp8"}
+
+
+def _normalize_kv_cache_dtype(value) -> str:
+    """"bf16", "int8" or "fp8" from the spellings the JAX config takes."""
+    key = str(value).strip().lower()
+    if key not in _KV_CACHE_DTYPES:
+        raise ConfigError(f'kv_cache_dtype must be "bf16", "int8" or "fp8", got {value!r}')
+    return _KV_CACHE_DTYPES[key]
+
 #: keys of the JAX config this slice does not port, and where they go
 _UNSUPPORTED = {
     "speculative": "speculative decoding (ROADMAP queue A, item 3)",
     "sampling": "seeded sampling and stop conditions (ROADMAP queue A, item 3)",
     "seed": "the sampling seed; this slice decodes greedily (ROADMAP queue A, item 3)",
     "kv_tier": "the host KV tier (ROADMAP queue A, item 3)",
-    "prefix_caching": "prefix caching (ROADMAP queue A, item 3)",
-    "kv_cache_dtype": "int8/fp8 KV storage (ROADMAP queue A, item 3)",
+    "prefix_caching": "prefix caching (ROADMAP queue A, item 3 (b))",
     "router": "the multi-replica router (ROADMAP queue A, item 13)",
 }
 
@@ -256,7 +266,8 @@ class InferenceConfig:
     quant_group_size: int = 2048
     kv_block_size: int = 64
     num_kv_blocks: int = 256
-    # only the default bf16 storage (the serving dtype) is ported
+    # KV pool storage: "bf16" (the serving dtype), or "int8" / "fp8" (e4m3)
+    # with an f32 scale per (token, kv head) row; the paged engine only
     kv_cache_dtype: str = "bf16"
     prefix_caching: bool = False
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
@@ -290,9 +301,7 @@ class InferenceConfig:
         if self.decode_kernel not in ("auto", "pallas", "xla"):
             raise ConfigError(f'decode_kernel must be "auto", "pallas" or '
                               f'"xla", got {self.decode_kernel!r}')
-        if str(self.kv_cache_dtype).strip().lower() not in ("bf16", "bfloat16"):
-            raise _refuse("kv_cache_dtype")
-        self.kv_cache_dtype = "bf16"
+        self.kv_cache_dtype = _normalize_kv_cache_dtype(self.kv_cache_dtype)
         if not isinstance(self.prefix_caching, bool):
             raise ConfigError(f"prefix_caching must be a bool, got "
                               f"{self.prefix_caching!r}")
@@ -333,8 +342,8 @@ class InferenceConfig:
             d["dtype"] = "bfloat16"
             d["quantize_weights"] = True
         for key in _UNSUPPORTED:
-            if key in ("kv_cache_dtype", "prefix_caching"):
-                continue   # validated by value below / inside serving
+            if key == "prefix_caching":
+                continue   # validated by value in __post_init__
             if key in d:
                 raise _refuse(key)
         known = {f.name for f in dataclasses.fields(cls)}

@@ -120,10 +120,11 @@ class InferenceEngine:
     state dict (``model.params()`` or ``models.convert.params_from_numpy``).
     The engine runs on the card unless ``device="cpu"`` is given."""
 
-    #: whether the engine serves the ``adapters`` section (the paged engine
-    #: does; the JAX v1 engine never reads it, and the port refuses it
-    #: rather than ignore it)
-    serves_adapters = False
+    #: whether the engine is the paged one, which serves the ``adapters``
+    #: section and stores its KV in ``kv_cache_dtype``; the JAX v1 engine
+    #: reads neither (its dense cache stays in the serving dtype), and the
+    #: port refuses them there rather than ignore them
+    paged = False
 
     def __init__(self, model: Transformer, params: Dict[str, torch.Tensor],
                  config: Optional[InferenceConfig] = None, device=None):
@@ -142,10 +143,14 @@ class InferenceEngine:
                 raise NotImplementedError(
                     "not served by the PyTorch port yet: adapters outside the Llama family "
                     "(ROADMAP queue A, item 10)")
-        if self.config.adapters.enabled and not self.serves_adapters:
+        if self.config.adapters.enabled and not self.paged:
             raise ConfigError("adapters.enabled: multi-tenant LoRA adapters serve through the "
                               "paged InferenceEngineV2 (ContinuousBatchingScheduler, put(), "
                               "decode_loop()); the v1 engine does not apply them")
+        if self.config.kv_cache_dtype != "bf16" and not self.paged:
+            raise ConfigError(f"kv_cache_dtype={self.config.kv_cache_dtype!r}: int8/fp8 KV "
+                              "storage serves through the paged InferenceEngineV2; the v1 "
+                              "engine's dense cache stays in the serving dtype")
         self._mcfg = model.config
         self.device = resolve_device(device)
         ac = self.config.adapters

@@ -51,9 +51,20 @@ a call's new adapters before any other state changes and release them if
 that fails) and released at ``flush``. Adapter residency is the third
 admission resource, after KV blocks and ``max_seq_len``.
 
+int8/fp8 KV (JAX ``kv_cache_dtype``): the pool stores one byte an element
+beside f32 scale planes, and each of the three pool writes quantizes on
+write: the prefill's scatter (its attention still reads the prompt's own
+full-precision K/V, so one-shot ``put()`` logits equal bf16 mode's), the
+chunk scatter of ``_extend_layer`` (the chunk then reads itself back
+dequantized) and the decode append. The fused decode layer takes JAX's
+quantized form: the QKV kernel without a pool (its in-kernel append would
+write raw projections without a scale), the quantizing append, then the
+split-K kernel over the planes. The paged kernels read the pool at
+storage width and dequantize in registers.
+
 Left for later slices: ``step_sampled``, speculation, prefix caching and
-``fork``, int8/fp8 KV and the KV tier (ROADMAP queue A, item 3) and
-expert parallelism (item 12).
+``fork`` and the KV tier (ROADMAP queue A, item 3) and expert parallelism
+(item 12).
 """
 
 from __future__ import annotations
@@ -73,7 +84,20 @@ from ..ops.paged_attention import paged_decode_attention, paged_extend_attention
 from .adapters import AdapterPool
 from .config import InferenceConfig
 from .engine import InferenceEngine, Lora, _bucket, qkv_quantized
-from .paged import BlockedAllocator, PagedKVCache, append_token_kv, blocks_needed
+from .paged import (BlockedAllocator, PagedKVCache, append_token_kv, blocks_needed, kv_parts,
+                    write_blocks, write_rows)
+
+
+def _pool_operands(ck, cv, tables, lens):
+    """The attention wrappers' leading pool operands: the data planes of a
+    layer's K/V parts, the tables and the lengths."""
+    return kv_parts(ck)[0], kv_parts(cv)[0], tables, lens
+
+
+def _scales(ck, cv) -> dict:
+    """The wrappers' scale-plane keywords (none for a bf16 pool)."""
+    ks, vs = kv_parts(ck)[1], kv_parts(cv)[1]
+    return {} if ks is None else dict(k_scale=ks, v_scale=vs)
 
 
 @dataclasses.dataclass
@@ -96,7 +120,7 @@ class SequenceDescriptor:
 class InferenceEngineV2(InferenceEngine):
     """Paged continuous-batching engine over a ``PagedKVCache``."""
 
-    serves_adapters = True
+    paged = True
 
     def __init__(self, model, params, config: Optional[InferenceConfig] = None,
                  device=None):
@@ -106,7 +130,7 @@ class InferenceEngineV2(InferenceEngine):
             raise ValueError("max_seq_len must be a multiple of kv_block_size")
         self.cache = PagedKVCache.create(mcfg.n_layers, cfg.num_kv_blocks, cfg.kv_block_size,
                                          mcfg.kv_heads, mcfg.head_dim, cfg.torch_dtype(),
-                                         self.device)
+                                         self.device, kv_cache_dtype=cfg.kv_cache_dtype)
         self.allocator = BlockedAllocator(cfg.num_kv_blocks)
         # block 0 is scratch: padding table entries and padding rows
         # scribble here, and it is never read unmasked
@@ -363,7 +387,8 @@ class InferenceEngineV2(InferenceEngine):
         decode path is fused, the attention weights are dense and no
         adapter operands ride the call, else append the token's K/V into
         the layer's pool view in place and run the split-K decode kernel
-        (fused path) or the paged decode kernel."""
+        (fused path) or the paged decode kernel. ck/cv are the layer's
+        pool views, or (data, scale) pairs of a quantized pool."""
         fused = self._decode_kernel == "pallas"
         if fused and self._fuse_qkv and not qkv_quantized(lw) and lora is None:
             return self._fused_paged_layer(lw, h, ck, cv, pos, tables)
@@ -373,11 +398,10 @@ class InferenceEngineV2(InferenceEngine):
             # in place, where the JAX layer scan rewrites the whole pool as
             # scan outputs every step
             append_token_kv(ck, cv, k[:, 0], v[:, 0], tables, pos)
-            if fused:   # JAX's attention-only fusion
-                return fused_paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1,
-                                                    alibi_slopes=self._alibi)
-            return paged_decode_attention(q.contiguous(), ck, cv, tables, pos + 1,
-                                          alibi_slopes=self._alibi)
+            attend = fused_paged_decode_attention if fused else paged_decode_attention
+            # fused: JAX's attention-only fusion
+            return attend(q.contiguous(), *_pool_operands(ck, cv, tables, pos + 1),
+                          alibi_slopes=self._alibi, **_scales(ck, cv))
 
         return self._layer_body(lw, h, pos, attn_fn, lora=lora)
 
@@ -389,15 +413,23 @@ class InferenceEngineV2(InferenceEngine):
         place; the split-K kernel attends through the block table, with the
         ALiBi slopes; ``_block_tail`` does the ``wo`` product, its bias and
         the residual and takes the fused MLP when the model's MLP fuses. A
-        kernel that fails raises: nothing drops to another path."""
+        kernel that fails raises: nothing drops to another path. On a
+        quantized pool the QKV kernel runs without a pool and the
+        quantizing append writes the token's rows and scales (JAX's form:
+        the in-kernel append would store raw projections without a
+        scale)."""
         cfg = self._mcfg
         cosr, sinr, bias = self._fused_qkv_args(lw, pos)
         y = _norm(h, lw["ln1_w"], lw.get("ln1_b"), cfg.norm, eps=cfg.norm_eps)
-        q, _, _ = fused_qkv_rope(y[:, 0], lw["wq"], lw["wk"], lw["wv"], cosr, sinr, ck, cv,
-                                 tables, pos, n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
-                                 **bias)
-        attn = fused_paged_decode_attention(q[:, None], ck, cv, tables, pos + 1,
-                                            alibi_slopes=self._alibi)
+        heads = dict(n_heads=cfg.n_heads, kv_heads=cfg.kv_heads, **bias)
+        if self.cache.quantized:
+            q, k, v = fused_qkv_rope(y[:, 0], lw["wq"], lw["wk"], lw["wv"], cosr, sinr, **heads)
+            append_token_kv(ck, cv, k, v, tables, pos)
+        else:
+            q, _, _ = fused_qkv_rope(y[:, 0], lw["wq"], lw["wk"], lw["wv"], cosr, sinr, ck, cv,
+                                     tables, pos, **heads)
+        attn = fused_paged_decode_attention(q[:, None], *_pool_operands(ck, cv, tables, pos + 1),
+                                            alibi_slopes=self._alibi, **_scales(ck, cv))
         return self._block_tail(lw, h, attn)
 
     def _extend_layer(self, lw, h, ck, cv, positions, start, nnew, tables,
@@ -405,7 +437,9 @@ class InferenceEngineV2(InferenceEngine):
         """One chunked-prefill layer: scatter the chunk's K/V into the
         layer's pool view in place (token i of row b -> block
         tables[b, (start+i)//bs], offset (start+i)%bs; tokens past nnew land
-        on the scratch block), then paged extend attention."""
+        on the scratch block; a quantized pool quantizes each row on write),
+        then paged extend attention, which reads the chunk back from the
+        pool (dequantized, on a quantized pool)."""
         B, C = h.shape[:2]
         bs = self.cache.block_size
 
@@ -416,11 +450,11 @@ class InferenceEngineV2(InferenceEngine):
             blk = torch.where(valid, blk, torch.full_like(blk, self._scratch))
             off = positions % bs
             KV, Dh = k.shape[2], k.shape[3]
-            # index_put_ on the layer's pool view: no copy of the pool
-            ck[blk.reshape(-1), :, off.reshape(-1)] = k.reshape(B * C, KV, Dh).to(ck.dtype)
-            cv[blk.reshape(-1), :, off.reshape(-1)] = v.reshape(B * C, KV, Dh).to(cv.dtype)
-            return paged_extend_attention(q.contiguous(), ck, cv, tables, start, nnew,
-                                          alibi_slopes=self._alibi)
+            # index_put_ on the layer's pool views: no copy of the pool
+            write_rows(ck, cv, k.reshape(B * C, KV, Dh), v.reshape(B * C, KV, Dh),
+                       blk.reshape(-1), off.reshape(-1))
+            return paged_extend_attention(q.contiguous(), *_pool_operands(ck, cv, tables, start),
+                                          nnew, alibi_slopes=self._alibi, **_scales(ck, cv))
 
         return self._layer_body(lw, h, positions, attn_fn, lora=lora)
 
@@ -449,7 +483,7 @@ class InferenceEngineV2(InferenceEngine):
         self._moe_arm()
         x, _ = self._embed_at(tok[:, None], pos)
         for i, lw in enumerate(self._layer_weights):
-            x = self._decode_layer(lw, x, self.cache.k[i], self.cache.v[i], pos, tables,
+            x = self._decode_layer(lw, x, *self.cache.layer(i), pos, tables,
                                    lora=self._lora(i, aslots))
         return self._head(x)[:, 0]
 
@@ -458,7 +492,7 @@ class InferenceEngineV2(InferenceEngine):
         self._moe_arm()
         x, positions = self._embed_at(ids, start)
         for i, lw in enumerate(self._layer_weights):
-            x = self._extend_layer(lw, x, self.cache.k[i], self.cache.v[i], positions,
+            x = self._extend_layer(lw, x, *self.cache.layer(i), positions,
                                    start, nnew, tables, lora=self._lora(i, aslots))
         return self._last_rows_logits(x, nnew)
 
@@ -468,27 +502,22 @@ class InferenceEngineV2(InferenceEngine):
         right-padded prompts from position 0, plen [P], btables [P,
         tpad // bs] (scratch-padded). Each layer scatters every row's K/V
         into its blocks of the layer's pool view in place (padding rows
-        and padding blocks land on the scratch block) and attends through
-        the flash attention kernel over the rows' own K/V, causally.
-        Returns f32 logits [P, V] at each row's ``plen - 1``."""
+        and padding blocks land on the scratch block; a quantized pool
+        quantizes each row on write and scatters its scales) and attends
+        through the flash attention kernel over the rows' own
+        full-precision K/V, causally. Returns f32 logits [P, V] at each
+        row's ``plen - 1``."""
         self._moe_arm()
-        P, tpad = ids.shape
-        bs = self.cache.block_size
-        nblk = tpad // bs
+        P = ids.shape[0]
         flat = btables.reshape(-1).long()
         x, positions = self._embed_at(ids, torch.zeros(P, dtype=torch.int32,
                                                        device=ids.device))
-
-        def blocks(t):   # [P, tpad, KV, Dh] -> [P * nblk, KV, bs, Dh]
-            KV, Dh = t.shape[2], t.shape[3]
-            return t.reshape(P, nblk, bs, KV, Dh).transpose(2, 3).reshape(P * nblk, KV, bs, Dh)
-
         for i, lw in enumerate(self._layer_weights):
-            ck, cv = self.cache.k[i], self.cache.v[i]
+            ck, cv = self.cache.layer(i)
 
             def attn_fn(q, k, v, ck=ck, cv=cv):
-                ck[flat] = blocks(k).to(ck.dtype)
-                cv[flat] = blocks(v).to(cv.dtype)
+                write_blocks(ck, k, flat)
+                write_blocks(cv, v, flat)
                 return flash_attention(q, k, v, causal=True, alibi_slopes=self._alibi)
 
             x = self._layer_body(lw, x, positions, attn_fn, lora=self._lora(i, aslots))
@@ -505,7 +534,7 @@ class InferenceEngineV2(InferenceEngine):
         xd, _ = self._embed_at(dtok[:, None], dpos)
         xp, ppos = self._embed_at(pids, pstart)
         for i, lw in enumerate(self._layer_weights):
-            ck, cv = self.cache.k[i], self.cache.v[i]
+            ck, cv = self.cache.layer(i)
             xd = self._decode_layer(lw, xd, ck, cv, dpos, dtables, lora=self._lora(i, daslots))
             xp = self._extend_layer(lw, xp, ck, cv, ppos, pstart, pnnew, ptables,
                                     lora=self._lora(i, paslots))

@@ -242,10 +242,9 @@ def check_servable(cfg: TransformerConfig) -> None:
     RMSNorm or layernorm, RoPE, learned positions or ALiBi, q/k/v/out and
     fc biases, ``embed_ln``, SwiGLU or a plain MLP of the gelu family, and
     MoE. Parallel blocks, interleaved or partial RoPE, local or
-    bidirectional attention, ``post_ln`` and the BERT head stay refused
-    there (ROADMAP queue A, item 4 (d)); weight quantization and adapters
-    outside the Llama family are refused by the engines
-    (``llama_family``)."""
+    bidirectional attention and ``post_ln`` stay refused there (ROADMAP
+    queue A, item 4 (d)); weight quantization and adapters outside the
+    Llama family are refused by the engines (``llama_family``)."""
     check_supported(cfg)
 
 

@@ -7,14 +7,29 @@
 //   shuffle_exchange_tpu/ops/flash_attention.py:pallas_attention
 //     (the stock flash kernel: MHA, causal/full, segment ids; fwd + bwd)
 //   shuffle_exchange_tpu/ops/flash_attention.py:splash_attention_gqa
-//     (GQA with unexpanded K/V, causal/full masks, segment ids; the
-//      forward, the dq pass and the dkv pass)
+//     (GQA with unexpanded K/V, causal/full masks, segment ids and the
+//      block-sparse element mask mask_np; the forward, the dq pass and the
+//      dkv pass)
 //
 // Layouts (contiguous, bf16; the JAX package's [batch, seq, heads, Dh]):
 //   q, o    [B, T, H, Dh];  k, v  [B, S, KV, Dh];  seg  [B, T] int32 or null
 // Query head h reads kv head h / (H / KV) (the _repeat_kv convention), so
 // one kernel serves MHA (H == KV) and GQA. Causal masking needs T == S
 // (query i sees keys j <= i); the wrapper refuses causal T != S.
+//
+// Element mask (splash's NumpyMask, reached through sparse_attention): a
+// [T, S] boolean mask shared by every sequence and head, given as a tile
+// map built on the host (ops/flash_attention.py:TileMask). Each (64-query,
+// 64-key) tile of the mask is empty, full or partial; for each query tile
+// the map lists its non-empty key tiles, and for each key tile its
+// non-empty query tiles, each entry with the index of its partial block
+// (a [64, 64] byte copy of the mask under the tile, zero past T and S) or
+// -1 when full. The forward and dq passes walk their query tile's list,
+// the dk/dv pass its key tile's list, so empty tiles are never loaded or
+// computed; full tiles run unmasked and partial tiles test the byte of
+// their block where segment ids are tested. A query row with no allowed
+// key gives 0 and contributes 0 to every gradient (its probabilities are
+// forced to 0, never a uniform average), as the JAX package's dense path.
 //
 // What it computes (reference_attention, the plain version): scores
 // q.k * Dh^-0.5 in f32; masked scores -1e30 (causal, segment ids that
@@ -77,10 +92,27 @@
 
 namespace {
 
-template <int DH>
+// The host-built tile map of an element mask; row_ptr == null: no mask.
+struct TileMap {
+  const int* row_ptr;            // [nqt + 1]: query tile qt owns entries [row_ptr[qt], row_ptr[qt + 1])
+  const int* row_kt;             // the entry's key tile
+  const int* row_blk;            // its partial block, or -1 (full)
+  const int* col_ptr;            // [nkt + 1]: the same by key tile
+  const int* col_qt;
+  const int* col_blk;
+  const unsigned char* blocks;   // [n_partial][64][64]: mask byte (query row, key) of the tile
+};
+
+// Whether (query r, key c) of a tile with partial block blk is allowed (r,
+// c relative to the tile); a full tile (blk < 0) allows everything.
+__device__ __forceinline__ bool tile_allows(const TileMap& tm, int blk, int r, int c) {
+  return blk < 0 || tm.blocks[(size_t(blk) * kBlockM + r) * kBlockN + c] != 0;
+}
+
+template <int DH, bool SPARSE>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg, const TileMap tm,
     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int T, int S, int H, int KV,
     int causal, float scale_log2) {
   constexpr int LD = DH + 8;
@@ -107,11 +139,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const __nv_bfloat16* kb = k + size_t(b) * S * kstride + size_t(kvh) * DH;
   const __nv_bfloat16* vb = v + size_t(b) * S * kstride + size_t(kvh) * DH;
   const int n_s = (S + kBlockN - 1) / kBlockN;
-  const int n_kv = causal ? min(qt + 1, n_s) : n_s;
+  // the key tiles to visit: 0 .. n_kv - 1, or this query tile's tile-map entries
+  constexpr bool sparse = SPARSE;
+  const int base = sparse ? tm.row_ptr[qt] : 0;
+  const int n_kv = sparse ? tm.row_ptr[qt + 1] - base : causal ? min(qt + 1, n_s) : n_s;
 
   load_tile<DH>(qs, qb, qstride, T - q0, q, tid);
-  load_tile<DH>(ks, kb, kstride, S, k, tid);
-  load_tile<DH>(vs, vb, kstride, S, v, tid);
+  if (n_kv > 0) {
+    const int k00 = (sparse ? tm.row_kt[base] : 0) * kBlockN;
+    load_tile<DH>(ks, kb + size_t(k00) * kstride, kstride, S - k00, k, tid);
+    load_tile<DH>(vs, vb + size_t(k00) * kstride, kstride, S - k00, v, tid);
+  }
   cp_async_commit();
 
   const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
@@ -127,9 +165,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   float m_lo = kNeg, m_hi = kNeg, l_lo = 0.f, l_hi = 0.f;
   uint32_t qa[KSTEPS][4];
 
-  for (int j = 0; j < n_kv; ++j) {
-    if (j + 1 < n_kv) {   // prefetch the next tile into the other buffer
-      const int nb = (j + 1) & 1, k0n = (j + 1) * kBlockN;
+  for (int it = 0; it < n_kv; ++it) {
+    if (it + 1 < n_kv) {   // prefetch the next tile into the other buffer
+      const int nb = (it + 1) & 1;
+      const int k0n = (sparse ? tm.row_kt[base + it + 1] : it + 1) * kBlockN;
       load_tile<DH>(ks + nb * kBlockN * LD, kb + size_t(k0n) * kstride, kstride, S - k0n, k, tid);
       load_tile<DH>(vs + nb * kBlockN * LD, vb + size_t(k0n) * kstride, kstride, S - k0n, v, tid);
       cp_async_commit();
@@ -138,14 +177,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (j == 0) {
+    if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk)
         ldsm_x4(qa[kk], qs + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + kk * 16 +
                             (lane / 16) * 8);
     }
-    const __nv_bfloat16* kt = ks + (j & 1) * kBlockN * LD;
-    const __nv_bfloat16* vt = vs + (j & 1) * kBlockN * LD;
+    const int j = sparse ? tm.row_kt[base + it] : it;
+    const int blk = sparse ? tm.row_blk[base + it] : -1;
+    const __nv_bfloat16* kt = ks + (it & 1) * kBlockN * LD;
+    const __nv_bfloat16* vt = vs + (it & 1) * kBlockN * LD;
 
     // S = Q K^T for this warp's 16 rows x 64 keys
     float sacc[NT][4];
@@ -167,7 +208,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
     // scale into the log2 domain, mask, row max (rows r_lo: e < 2, r_hi: e >= 2)
     const int k0 = j * kBlockN;
-    const bool masked_tile = (causal && j == qt) || k0 + kBlockN > S || segb != nullptr;
+    const bool masked_tile = sparse ? blk >= 0 || segb != nullptr
+                                    : (causal && j == qt) || k0 + kBlockN > S || segb != nullptr;
     float mx_lo = kNeg, mx_hi = kNeg;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -177,7 +219,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         if (masked_tile) {
           const int key = k0 + n * 8 + tq * 2 + (e & 1);
           const int row = e < 2 ? r_lo : r_hi;
-          bool ok = key < S && !(causal && key > row);
+          bool ok = sparse ? tile_allows(tm, blk, row - q0, key - k0)
+                           : key < S && !(causal && key > row);
           if (ok && segb) ok = segb[key] == (e < 2 ? seg_lo : seg_hi);
           s = ok ? s : kNeg;
         }
@@ -200,7 +243,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(sacc[n][e] - (e < 2 ? mn_lo : mn_hi));
+        // under a mask a row may have no allowed key yet: its masked
+        // scores give exactly 0, not exp2(kNeg - kNeg) = 1
+        const float p = sparse && sacc[n][e] <= kNeg ? 0.f
+                                                     : exp2f(sacc[n][e] - (e < 2 ? mn_lo : mn_hi));
         sacc[n][e] = p;
         if (e < 2)
           sum_lo += p;
@@ -265,17 +311,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
-template <int DH>
+template <int DH, bool SPARSE>
 cudaError_t launch(int blocks, cudaStream_t s, const void* q, const void* k, const void* v,
-                   const void* seg, void* o, void* lse, int B, int T, int S, int H, int KV,
-                   int causal, float scale_log2) {
+                   const void* seg, const TileMap& tm, void* o, void* lse, int B, int T, int S,
+                   int H, int KV, int causal, float scale_log2) {
   const size_t smem = size_t(kBlockM + 4 * kBlockN) * (DH + 8) * sizeof(__nv_bfloat16);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      flash_fwd_kernel<DH, SPARSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<DH><<<blocks, kThreads, smem, s>>>(
+  flash_fwd_kernel<DH, SPARSE><<<blocks, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg), tm,
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, T, S, H, KV, causal,
       scale_log2);
   return cudaGetLastError();
@@ -293,13 +339,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(
   delta_row<DH>(o, dout, delta, rows, T, H);
 }
 
-template <int DH>
+template <int DH, bool SPARSE>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ seg,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int T, int S, int H,
-    int KV, int causal, float scale, float scale_log2) {
+    const TileMap tm, __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B,
+    int T, int S, int H, int KV, int causal, float scale, float scale_log2) {
   constexpr int LD = DH + 8;
   constexpr int KSTEPS = DH / 16;     // k-steps over the head dim
   constexpr int NT = kBlockM / 8;     // 8-query column tiles of S^T
@@ -319,8 +365,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int b = bkv / KV, kvh = bkv % KV, n_rep = H / KV;
   const int k0 = kt * kBlockN;
   const int nqt = (T + kBlockM - 1) / kBlockM;
+  // the query tiles to visit: qt_lo .. nqt - 1 (causal needs T == S, so
+  // at least one), or this key tile's tile-map entries (maybe none)
+  constexpr bool sparse = SPARSE;
+  const int base = sparse ? tm.col_ptr[kt] : 0;
   const int qt_lo = causal ? kt : 0;
-  const int n_q = nqt - qt_lo;        // >= 1: causal needs T == S
+  const int n_q = sparse ? tm.col_ptr[kt + 1] - base : nqt - qt_lo;
   const int n_it = n_rep * n_q;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tq = lane % 4;
@@ -329,8 +379,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const size_t koff = (size_t(b) * S + k0) * kstride + size_t(kvh) * DH;
   load_tile<DH>(ks, k + koff, kstride, S - k0, k, tid);
   load_tile<DH>(vs, v + koff, kstride, S - k0, v, tid);
-  stage_queries<DH>(qs, dos, lses, dels, q, dout, lse, delta, b, kvh * n_rep, qt_lo * kBlockM, T, H,
-                    tid);
+  if (n_it > 0)
+    stage_queries<DH>(qs, dos, lses, dels, q, dout, lse, delta, b, kvh * n_rep,
+                      (sparse ? tm.col_qt[base] : qt_lo) * kBlockM, T, H, tid);
   cp_async_commit();
 
   const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
@@ -349,16 +400,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const int buf = it & 1;
     if (it + 1 < n_it) {   // prefetch the next (head, query tile) into the other buffer
       const int nx = it + 1, nb = nx & 1;
+      const int qtn = sparse ? tm.col_qt[base + nx % n_q] : qt_lo + nx % n_q;
       stage_queries<DH>(qs + nb * TILE, dos + nb * TILE, lses + nb * kBlockM, dels + nb * kBlockM,
-                        q, dout, lse, delta, b, kvh * n_rep + nx / n_q,
-                        (qt_lo + nx % n_q) * kBlockM, T, H, tid);
+                        q, dout, lse, delta, b, kvh * n_rep + nx / n_q, qtn * kBlockM, T, H, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int qt = qt_lo + it % n_q, q0 = qt * kBlockM;
+    const int qt = sparse ? tm.col_qt[base + it % n_q] : qt_lo + it % n_q, q0 = qt * kBlockM;
+    const int blk = sparse ? tm.col_blk[base + it % n_q] : -1;
     const __nv_bfloat16* qtile = qs + buf * TILE;
     const __nv_bfloat16* dotile = dos + buf * TILE;
     const float* lse2 = lses + buf * kBlockM;
@@ -390,8 +442,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     }
 
     // P^T = exp(S^T - lse) with masked pairs exactly 0; dS^T = P^T (dP^T - delta)
-    const bool masked_tile = (causal && qt == kt) || q0 + kBlockM > T || k0 + kBlockN > S ||
-                             segb != nullptr;
+    const bool masked_tile = sparse ? blk >= 0 || segb != nullptr
+                                    : (causal && qt == kt) || q0 + kBlockM > T ||
+                                          k0 + kBlockN > S || segb != nullptr;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
@@ -401,7 +454,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
         if (masked_tile) {
           const int query = q0 + c;
           const int key = e < 2 ? key_lo : key_hi;
-          bool ok = key < S && query < T && !(causal && key > query);
+          bool ok = sparse ? tile_allows(tm, blk, c, key - k0)
+                           : key < S && query < T && !(causal && key > query);
           if (ok && segb) ok = segb[query] == (e < 2 ? seg_lo : seg_hi);
           p = ok ? p : 0.f;
         }
@@ -461,13 +515,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   }
 }
 
-template <int DH>
+template <int DH, bool SPARSE>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ seg,
-    __nv_bfloat16* __restrict__ dq, int B, int T, int S, int H, int KV, int causal, float scale,
-    float scale_log2) {
+    const TileMap tm, __nv_bfloat16* __restrict__ dq, int B, int T, int S, int H, int KV,
+    int causal, float scale, float scale_log2) {
   constexpr int LD = DH + 8;
   constexpr int KSTEPS = DH / 16;
   constexpr int NT = kBlockN / 8;
@@ -493,12 +547,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const __nv_bfloat16* kb = k + size_t(b) * S * kstride + size_t(kvh) * DH;
   const __nv_bfloat16* vb = v + size_t(b) * S * kstride + size_t(kvh) * DH;
   const int n_s = (S + kBlockN - 1) / kBlockN;
-  const int n_kv = causal ? min(qt + 1, n_s) : n_s;
+  constexpr bool sparse = SPARSE;
+  const int base = sparse ? tm.row_ptr[qt] : 0;
+  const int n_kv = sparse ? tm.row_ptr[qt + 1] - base : causal ? min(qt + 1, n_s) : n_s;
 
   load_tile<DH>(qs, q + qoff, qstride, T - q0, q, tid);
   load_tile<DH>(dos, dout + qoff, qstride, T - q0, dout, tid);
-  load_tile<DH>(ks, kb, kstride, S, k, tid);
-  load_tile<DH>(vs, vb, kstride, S, v, tid);
+  if (n_kv > 0) {
+    const int k00 = (sparse ? tm.row_kt[base] : 0) * kBlockN;
+    load_tile<DH>(ks, kb + size_t(k00) * kstride, kstride, S - k00, k, tid);
+    load_tile<DH>(vs, vb + size_t(k00) * kstride, kstride, S - k00, v, tid);
+  }
   cp_async_commit();
 
   const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
@@ -519,9 +578,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   uint32_t qa[KSTEPS][4];
   const int a_row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
 
-  for (int j = 0; j < n_kv; ++j) {
-    if (j + 1 < n_kv) {
-      const int nb = (j + 1) & 1, k0n = (j + 1) * kBlockN;
+  for (int it = 0; it < n_kv; ++it) {
+    if (it + 1 < n_kv) {
+      const int nb = (it + 1) & 1;
+      const int k0n = (sparse ? tm.row_kt[base + it + 1] : it + 1) * kBlockN;
       load_tile<DH>(ks + nb * TILE, kb + size_t(k0n) * kstride, kstride, S - k0n, k, tid);
       load_tile<DH>(vs + nb * TILE, vb + size_t(k0n) * kstride, kstride, S - k0n, v, tid);
       cp_async_commit();
@@ -530,12 +590,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (j == 0) {
+    if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qa[kk], qs + a_row * LD + kk * 16 + a_col);
     }
-    const __nv_bfloat16* kt = ks + (j & 1) * TILE;
-    const __nv_bfloat16* vt = vs + (j & 1) * TILE;
+    const int j = sparse ? tm.row_kt[base + it] : it;
+    const int blk = sparse ? tm.row_blk[base + it] : -1;
+    const __nv_bfloat16* kt = ks + (it & 1) * TILE;
+    const __nv_bfloat16* vt = vs + (it & 1) * TILE;
 
     // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
     float sacc[NT][4], dpacc[NT][4];
@@ -562,8 +624,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     }
 
     const int k0 = j * kBlockN;
-    const bool masked_tile = (causal && j == qt) || k0 + kBlockN > S || q0 + kBlockM > T ||
-                             segb != nullptr;
+    const bool masked_tile = sparse ? blk >= 0 || segb != nullptr
+                                    : (causal && j == qt) || k0 + kBlockN > S ||
+                                          q0 + kBlockM > T || segb != nullptr;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
@@ -572,7 +635,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
         if (masked_tile) {
           const int key = k0 + n * 8 + tq * 2 + (e & 1);
           const int row = e < 2 ? r_lo : r_hi;
-          bool ok = key < S && row < T && !(causal && key > row);
+          bool ok = sparse ? tile_allows(tm, blk, row - q0, key - k0)
+                           : key < S && row < T && !(causal && key > row);
           if (ok && segb) ok = segb[key] == (e < 2 ? seg_lo : seg_hi);
           p = ok ? p : 0.f;
         }
@@ -614,11 +678,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
 }
 
-template <int DH>
+template <int DH, bool SPARSE>
 cudaError_t launch_bwd(cudaStream_t s, const void* q, const void* k, const void* v,
-                       const void* seg, const void* o, const void* dout, const void* lse,
-                       void* delta, void* dq, void* dk, void* dv, int B, int T, int S, int H,
-                       int KV, int causal, float scale) {
+                       const void* seg, const TileMap& tm, const void* o, const void* dout,
+                       const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int T,
+                       int S, int H, int KV, int causal, float scale) {
   using bf = __nv_bfloat16;
   const float scale_log2 = scale * kLog2e;
   const long long rows = (long long)B * T * H;
@@ -635,26 +699,43 @@ cudaError_t launch_bwd(cudaStream_t s, const void* q, const void* k, const void*
 
   const size_t tiles = size_t(6) * kBlockN * (DH + 8) * sizeof(bf);
   const size_t dkv_smem = tiles + 4 * kBlockM * sizeof(float);
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DH>,
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DH, SPARSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(dkv_smem));
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<DH><<<int(dkv_blocks), kThreads, dkv_smem, s>>>(
+  flash_bwd_dkv_kernel<DH, SPARSE><<<int(dkv_blocks), kThreads, dkv_smem, s>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
       static_cast<const bf*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<bf*>(dk),
+      static_cast<const float*>(delta), static_cast<const int*>(seg), tm, static_cast<bf*>(dk),
       static_cast<bf*>(dv), B, T, S, H, KV, causal, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DH>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DH, SPARSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(tiles));
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<DH><<<int(dq_blocks), kThreads, tiles, s>>>(
+  flash_bwd_dq_kernel<DH, SPARSE><<<int(dq_blocks), kThreads, tiles, s>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
       static_cast<const bf*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<bf*>(dq), B, T,
-      S, H, KV, causal, scale, scale_log2);
+      static_cast<const float*>(delta), static_cast<const int*>(seg), tm, static_cast<bf*>(dq), B,
+      T, S, H, KV, causal, scale, scale_log2);
   return cudaGetLastError();
+}
+
+// The tile map of an element mask from the host's one int32 buffer (null:
+// no mask): row_ptr [nqt + 1], row_kt [nnz], row_blk [nnz], col_ptr
+// [nkt + 1], col_qt [nnz], col_blk [nnz], in that order.
+TileMap tile_map(const void* tiles, const void* blocks, int nnz, int T, int S) {
+  TileMap tm{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  if (tiles == nullptr) return tm;
+  const int nqt = (T + kBlockM - 1) / kBlockM, nkt = (S + kBlockN - 1) / kBlockN;
+  tm.row_ptr = static_cast<const int*>(tiles);
+  tm.row_kt = tm.row_ptr + nqt + 1;
+  tm.row_blk = tm.row_kt + nnz;
+  tm.col_ptr = tm.row_blk + nnz;
+  tm.col_qt = tm.col_ptr + nkt + 1;
+  tm.col_blk = tm.col_qt + nnz;
+  tm.blocks = static_cast<const unsigned char*>(blocks);
+  return tm;
 }
 
 }  // namespace
@@ -666,43 +747,52 @@ const char* sxt_flash_error_string(int err) {
 }
 
 // o = attention(q, k, v) as described above; seg may be null, and so may
-// lse ([B, H, T] f32, written when given). scale is the softmax scale
-// (Dh^-0.5). Returns cudaGetLastError() after the launch.
+// lse ([B, H, T] f32, written when given) and the mask's tile map (tiles:
+// the int32 buffer of tile_map, blocks: the partial blocks, nnz entries;
+// a mask needs causal = 0). scale is the softmax scale (Dh^-0.5). Returns
+// cudaGetLastError() after the launch.
 int sxt_flash_attention_bf16(const void* q, const void* k, const void* v, const void* seg,
-                             void* o, void* lse, int B, int T, int S, int H, int KV, int Dh,
-                             int causal, float scale, void* stream) {
+                             const void* tiles, const void* blocks, int nnz, void* o, void* lse,
+                             int B, int T, int S, int H, int KV, int Dh, int causal, float scale,
+                             void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
-  if (S <= 0 || KV <= 0 || H % KV || (causal && T != S))
+  if (S <= 0 || KV <= 0 || H % KV || (causal && T != S) || (tiles != nullptr && causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (long long)((T + kBlockM - 1) / kBlockM) * B * H;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks_ = (long long)((T + kBlockM - 1) / kBlockM) * B * H;
+  if (blocks_ > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * kLog2e;
-  if (Dh == 128)
-    return static_cast<int>(launch<128>(int(blocks), s, q, k, v, seg, o, lse, B, T, S, H,
-                                         KV, causal, scale_log2));
-  if (Dh == 64)
-    return static_cast<int>(launch<64>(int(blocks), s, q, k, v, seg, o, lse, B, T, S, H,
-                                        KV, causal, scale_log2));
+  const TileMap tm = tile_map(tiles, blocks, nnz, T, S);
+  auto run = [&](auto kernel_launch) {
+    return static_cast<int>(kernel_launch(int(blocks_), s, q, k, v, seg, tm, o, lse, B, T, S, H,
+                                          KV, causal, scale_log2));
+  };
+  // the mask's code is compiled into its own instances: the unmasked ones are unchanged
+  if (Dh == 128) return tiles ? run(launch<128, true>) : run(launch<128, false>);
+  if (Dh == 64) return tiles ? run(launch<64, true>) : run(launch<64, false>);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dq, dk, dv = the gradients of attention(q, k, v) given dout, the forward's
-// out and its lse; delta is [B, H, T] f32 scratch. seg may be null.
+// out and its lse; delta is [B, H, T] f32 scratch. seg may be null, and so
+// may the mask's tile map (as in the forward).
 int sxt_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* seg,
-                                 const void* o, const void* dout, const void* lse, void* delta,
-                                 void* dq, void* dk, void* dv, int B, int T, int S, int H, int KV,
-                                 int Dh, int causal, float scale, void* stream) {
+                                 const void* tiles, const void* blocks, int nnz, const void* o,
+                                 const void* dout, const void* lse, void* delta, void* dq,
+                                 void* dk, void* dv, int B, int T, int S, int H, int KV, int Dh,
+                                 int causal, float scale, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
-  if (S <= 0 || KV <= 0 || H % KV || (causal && T != S) || (seg != nullptr && T != S))
+  if (S <= 0 || KV <= 0 || H % KV || (causal && T != S) || (seg != nullptr && T != S) ||
+      (tiles != nullptr && causal))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dh == 128)
-    return static_cast<int>(launch_bwd<128>(s, q, k, v, seg, o, dout, lse, delta, dq, dk, dv, B,
-                                            T, S, H, KV, causal, scale));
-  if (Dh == 64)
-    return static_cast<int>(launch_bwd<64>(s, q, k, v, seg, o, dout, lse, delta, dq, dk, dv, B,
-                                           T, S, H, KV, causal, scale));
+  const TileMap tm = tile_map(tiles, blocks, nnz, T, S);
+  auto run = [&](auto kernel_launch) {
+    return static_cast<int>(kernel_launch(s, q, k, v, seg, tm, o, dout, lse, delta, dq, dk, dv, B,
+                                          T, S, H, KV, causal, scale));
+  };
+  if (Dh == 128) return tiles ? run(launch_bwd<128, true>) : run(launch_bwd<128, false>);
+  if (Dh == 64) return tiles ? run(launch_bwd<64, true>) : run(launch_bwd<64, false>);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -21,8 +21,10 @@
 //   cos, sin      [B, Dh/2] f32 rope rows at each row's position (null:
 //                 no RoPE, the learned-position and ALiBi families)
 //   slopes        [H] f32 ALiBi slopes (null: none)
-//   pool k / v    one layer [nblk, KV, bs, Dh];  table [B, W] int32 (-1 is
-//                 read as block 0);  pos / kv_len [B] int32
+//   pool k / v    one layer [nblk, KV, bs, Dh] (the QKV append: bf16; the
+//                 split-K decode: bf16, or int8 / e4m3 with f32 scale planes
+//                 k_scale / v_scale [nblk, KV, bs]);  table [B, W] int32
+//                 (-1 is read as block 0);  pos / kv_len [B] int32
 //
 // What bounds them on the H100 (3.35 TB/s, 989 TFLOP/s bf16): the QKV and
 // MLP products multiply at most 8 rows by each weight, 2 flops per weight
@@ -56,7 +58,10 @@
 // and a split past the sequence's end contributes m = -1e30, l = 0. ALiBi
 // adds slope_h * j in f32 to the scaled score of logical key position j
 // before the running max: a split starts mid-sequence, so j is the
-// position its loop walks, never relative to the split's start.
+// position its loop walks, never relative to the split's start. A
+// one-byte pool is staged at storage width with its rows' scales and
+// dequantized in registers (float(q) * scale, paged_tile.cuh), as in the
+// paged decode kernel.
 //
 // Rounding points (those of the TPU kernels): QKV sums in f32, the bias
 // added in f32 (bf16 biases read exactly), RoPE in f32, one cast to bf16,
@@ -84,7 +89,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "paged_tile.cuh"   // TK, kNeg, load_kv_tile, bf16x8_to_float
+#include "paged_tile.cuh"   // TK, kNeg, storage kinds, load_kv_tile, converters
 #include "quant_gemv.cuh"   // formats, the quantized split-K GEMV
 
 namespace {
@@ -357,20 +362,25 @@ __global__ void residual_epilogue_kernel(const float* __restrict__ part, int S, 
 constexpr int kDecThreads = 128;
 constexpr int kDecMaxAcc = 8;    // G * Dh <= 8 * 128
 
-template <int DH>
+template <int DH, int KIND>
 __global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kpool,
-    const __nv_bfloat16* __restrict__ vpool, const int* __restrict__ table,
+    const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool,
+    const void* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
     const int* __restrict__ kv_len, const float* __restrict__ slopes,
     float* __restrict__ o_part, float* __restrict__ m_part, float* __restrict__ l_part, int H,
     int KV, int bs, int W, int spb, float scale) {
-  constexpr int NT = kDecThreads, LD = DH + 8;
+  constexpr int NT = kDecThreads, LDB = kv_row_bytes<DH, KIND>();
+  constexpr int EB = KvStore<KIND>::kBytes;
+  constexpr bool SCALED = KvStore<KIND>::kScaled;
   const int b = blockIdx.x, kv = blockIdx.y, s = blockIdx.z, S = gridDim.z, tid = threadIdx.x;
   const int G = H / KV;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + TK * LD;
-  float* qs = reinterpret_cast<float*>(vs + TK * LD);   // [G][DH], pre-scaled
+  unsigned char* ks = smem;                              // [TK] rows of LDB bytes
+  unsigned char* vs = ks + TK * LDB;
+  float* kss = reinterpret_cast<float*>(vs + TK * LDB);  // [TK] row scales (one-byte pools)
+  float* vss = kss + TK;
+  float* qs = vss + TK;                                  // [G][DH], pre-scaled
   float* ss = qs + G * DH;                               // [G][TK] scores, then p
   float* ms = ss + G * TK;                               // [G] running max
   float* ls = ms + G;                                    // [G] running sum
@@ -394,7 +404,8 @@ __global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
   const int warp = tid / 32, lane = tid % 32;
   for (int p0 = p_lo; p0 < p_hi; p0 += TK) {
     const int n = min(TK, p_hi - p0);
-    load_kv_tile<DH>(ks, vs, kpool, vpool, trow, kv, KV, bs, p0, n, tid, NT);
+    load_kv_tile<DH, KIND>(ks, vs, kss, vss, kpool, vpool, kscale, vscale, trow, kv, KV, bs,
+                           p0, n, tid, NT);
     __syncthreads();
 
     for (int i = tid; i < G * TK; i += NT) {
@@ -402,14 +413,15 @@ __global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
       float sc = kNeg;
       if (t < n) {
         const float* qr = qs + g * DH;
-        const __nv_bfloat16* kr = ks + t * LD;
+        const unsigned char* kr = ks + t * LDB;
+        const float sk = SCALED ? kss[t] : 1.f;
         float a = 0.f;
 #pragma unroll
         for (int c = 0; c < DH; c += 8) {
           float kf[8];
-          bf16x8_to_float(kr + c, kf);
+          kv8_to_float<KIND>(kr + c * EB, kf);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) a += qr[c + e] * kf[e];
+          for (int e = 0; e < 8; ++e) a += qr[c + e] * (SCALED ? kf[e] * sk : kf[e]);
         }
         sc = slopes ? a + slopes[kv * G + g] * float(p0 + t) : a;
       }
@@ -449,7 +461,10 @@ __global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
         const int g = o / DH, d = o % DH;
         const float* pr = ss + g * TK;
         float a = acc[k] * as[g];
-        for (int t = 0; t < n; ++t) a += pr[t] * __bfloat162float(vs[t * LD + d]);
+        for (int t = 0; t < n; ++t) {
+          const float vf = kv1_to_float<KIND>(vs + t * LDB, d);
+          a += pr[t] * (SCALED ? vf * vss[t] : vf);
+        }
         acc[k] = a;
       }
     }
@@ -509,20 +524,46 @@ bool bad_split(int K, int splits, int chunk) {
          (long long)(splits - 1) * chunk >= K;
 }
 
-template <int DH>
+template <int DH, int KIND>
 cudaError_t launch_split_decode(dim3 grid, size_t smem, cudaStream_t s,
-                                const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                const __nv_bfloat16* v, const int* table, const int* kv_len,
-                                const float* slopes, float* o_part, float* m_part,
-                                float* l_part, int H, int KV, int bs, int W, int spb,
-                                float scale) {
+                                const __nv_bfloat16* q, const void* k, const void* v,
+                                const float* k_scale, const float* v_scale, const int* table,
+                                const int* kv_len, const float* slopes, float* o_part,
+                                float* m_part, float* l_part, int H, int KV, int bs, int W,
+                                int spb, float scale) {
   const cudaError_t err = cudaFuncSetAttribute(
-      split_decode_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      split_decode_kernel<DH, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  split_decode_kernel<DH><<<grid, kDecThreads, smem, s>>>(q, k, v, table, kv_len, slopes,
-                                                          o_part, m_part, l_part, H, KV, bs, W,
-                                                          spb, scale);
+  split_decode_kernel<DH, KIND><<<grid, kDecThreads, smem, s>>>(
+      q, k, v, k_scale, v_scale, table, kv_len, slopes, o_part, m_part, l_part, H, KV, bs, W,
+      spb, scale);
   return cudaSuccess;
+}
+
+// The split-K decode instance for (Dh, storage kind).
+template <int DH>
+cudaError_t launch_split_decode_kind(int kind, dim3 grid, size_t smem, cudaStream_t s,
+                                     const __nv_bfloat16* q, const void* k, const void* v,
+                                     const float* k_scale, const float* v_scale,
+                                     const int* table, const int* kv_len, const float* slopes,
+                                     float* o_part, float* m_part, float* l_part, int H,
+                                     int KV, int bs, int W, int spb, float scale) {
+  switch (kind) {
+    case KvBf16:
+      return launch_split_decode<DH, KvBf16>(grid, smem, s, q, k, v, k_scale, v_scale, table,
+                                             kv_len, slopes, o_part, m_part, l_part, H, KV, bs,
+                                             W, spb, scale);
+    case KvInt8:
+      return launch_split_decode<DH, KvInt8>(grid, smem, s, q, k, v, k_scale, v_scale, table,
+                                             kv_len, slopes, o_part, m_part, l_part, H, KV, bs,
+                                             W, spb, scale);
+    case KvFp8:
+      return launch_split_decode<DH, KvFp8>(grid, smem, s, q, k, v, k_scale, v_scale, table,
+                                            kv_len, slopes, o_part, m_part, l_part, H, KV, bs,
+                                            W, spb, scale);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -572,25 +613,29 @@ int sxt_fused_qkv_rope_bf16(const void* y, const void* wq, const void* wk, const
   return 0;
 }
 
-// Split-K paged decode. o_part f32 [B, splits, H, Dh], m_part / l_part f32
-// [B, splits, H]; splits * spb >= W with spb = ceil(W / splits).
-int sxt_fused_paged_decode_bf16(const void* q, const void* k, const void* v, const void* table,
-                                const void* kv_len, const void* slopes, void* out, void* o_part,
-                                void* m_part,
-                                void* l_part, int B, int H, int KV, int Dh, int bs, int W,
-                                int splits, float scale, void* stream) {
+// Split-K paged decode. kind: 0 bf16 pool (k_scale = v_scale = null), 1
+// int8, 2 e4m3 (with the f32 scale planes). o_part f32 [B, splits, H, Dh],
+// m_part / l_part f32 [B, splits, H]; splits * spb >= W with
+// spb = ceil(W / splits).
+int sxt_fused_paged_decode(const void* q, const void* k, const void* v, const void* k_scale,
+                           const void* v_scale, const void* table, const void* kv_len,
+                           const void* slopes, void* out, void* o_part, void* m_part,
+                           void* l_part, int kind, int B, int H, int KV, int Dh, int bs, int W,
+                           int splits, float scale, void* stream) {
   if (B <= 0) return 0;
-  if (KV <= 0 || H % KV || (H / KV) * Dh > kDecThreads * kDecMaxAcc || splits < 1 || W < 1)
+  if (KV <= 0 || H % KV || (H / KV) * Dh > kDecThreads * kDecMaxAcc || splits < 1 || W < 1 ||
+      kind < KvBf16 || kind > KvFp8 || (kind == KvBf16) != (k_scale == nullptr) ||
+      (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / KV;
   const int spb = (W + splits - 1) / splits;
   const dim3 grid(B, KV, splits);
-  const size_t smem = size_t(2) * TK * (Dh + 8) * sizeof(__nv_bfloat16) +
-                      size_t(G * Dh + G * TK + 3 * G) * sizeof(float);
+  const size_t smem = size_t(2) * TK * (size_t(Dh) * (kind == KvBf16 ? 2 : 1) + 16) +
+                      size_t(2 * TK + G * Dh + G * TK + 3 * G) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* ksp = static_cast<const float*>(k_scale);
+  const auto* vsp = static_cast<const float*>(v_scale);
   const auto* tp = static_cast<const int*>(table);
   const auto* lp = static_cast<const int*>(kv_len);
   const auto* slp = static_cast<const float*>(slopes);
@@ -599,11 +644,11 @@ int sxt_fused_paged_decode_bf16(const void* q, const void* k, const void* v, con
   auto* lsp = static_cast<float*>(l_part);
   cudaError_t err;
   if (Dh == 128)
-    err = launch_split_decode<128>(grid, smem, s, qp, kp, vp, tp, lp, slp, op, mp, lsp, H, KV,
-                                   bs, W, spb, scale);
+    err = launch_split_decode_kind<128>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
+                                        op, mp, lsp, H, KV, bs, W, spb, scale);
   else if (Dh == 64)
-    err = launch_split_decode<64>(grid, smem, s, qp, kp, vp, tp, lp, slp, op, mp, lsp, H, KV,
-                                  bs, W, spb, scale);
+    err = launch_split_decode_kind<64>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
+                                       op, mp, lsp, H, KV, bs, W, spb, scale);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,6 +1,7 @@
 // Paged attention for Hopper (sm_90a): decode and chunked-prefill extend
-// over a block-paged bf16 KV pool, behind a plain C interface loaded with
-// ctypes (ops/_build.py builds this file with nvcc at first use).
+// over a block-paged KV pool (bf16, or int8 / e4m3 with f32 scale planes),
+// behind a plain C interface loaded with ctypes (ops/_build.py builds this
+// file with nvcc at first use).
 //
 // Replaces the TPU kernels
 //   shuffle_exchange_tpu/ops/paged_attention.py:paged_decode_attention_pallas
@@ -8,7 +9,8 @@
 //
 // Layouts (all contiguous):
 //   q       decode [B, 1, H, Dh] / extend [B, C, H, Dh]   bf16
-//   k, v    one layer of the pool [nblk, KV, bs, Dh]       bf16
+//   k, v    one layer of the pool [nblk, KV, bs, Dh]       bf16, int8 or e4m3
+//   k_scale, v_scale  [nblk, KV, bs] f32 (one-byte pools; null for bf16)
 //   table   [B, W] int32 block ids (-1 is read as block 0)
 //   kv_len  [B] int32 (decode) / start [B] int32 (extend)
 //   slopes  [H] f32 ALiBi slopes, or null (no position bias)
@@ -20,6 +22,10 @@
 // tile loop walks (table entry j / bs, offset j % bs), never a pool slot:
 // a bias of ~1,450 at j = 2048 (slope 2^-0.5) must not be rounded, and a
 // shift that differs between blocks would not cancel in the softmax.
+// A one-byte pool is dequantized in registers: each element read from the
+// staged tile becomes float(q) * scale of its row (paged_tile.cuh), the
+// rounding point of the TPU kernels' kb * s[:, None]; all G query heads of
+// a kv head read the same scale row.
 //
 // What bounds them on the H100: both read every visible K/V row of the
 // pool once per (sequence, kv head), so decode is bound by bytes (G query
@@ -34,7 +40,9 @@
 // are never read. Each tile of K and V is staged once in shared memory
 // (16-byte loads, rows padded by 16 bytes so the row-strided reads hit
 // distinct banks) and reused by all G (decode) or G*TC (extend) query rows
-// of that kv head. Masked scores use the finite -1e30 sentinel of the TPU
+// of that kv head; a one-byte pool's tile is staged at that width (half
+// the bytes of a bf16 tile) with its 64 row scales. Masked scores use the
+// finite -1e30 sentinel of the TPU
 // kernels and masked probabilities are exactly 0, and the output divides
 // by max(l, 1e-30): a fully masked row gives 0, never NaN. Tensor-core MMA,
 // TMA staging and split-K over long contexts are later work.
@@ -43,7 +51,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "paged_tile.cuh"   // TK, kNeg, load_kv_tile, bf16x8_to_float
+#include "paged_tile.cuh"   // TK, kNeg, storage kinds, load_kv_tile, converters
 
 namespace {
 
@@ -54,19 +62,24 @@ namespace {
 constexpr int kDecodeThreads = 128;
 constexpr int kDecodeMaxAcc = 8;    // G * Dh <= 8 * 128
 
-template <int DH>
+template <int DH, int KIND>
 __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kpool,
-    const __nv_bfloat16* __restrict__ vpool, const int* __restrict__ table,
+    const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool,
+    const void* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
     const int* __restrict__ kv_len, const float* __restrict__ slopes,
     __nv_bfloat16* __restrict__ out, int H, int KV, int bs, int W, float scale) {
-  constexpr int NT = kDecodeThreads, LD = DH + 8;
+  constexpr int NT = kDecodeThreads, LDB = kv_row_bytes<DH, KIND>();
+  constexpr int EB = KvStore<KIND>::kBytes;
+  constexpr bool SCALED = KvStore<KIND>::kScaled;
   const int b = blockIdx.x, kv = blockIdx.y, tid = threadIdx.x;
   const int G = H / KV;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + TK * LD;
-  float* qs = reinterpret_cast<float*>(vs + TK * LD);   // [G][DH], pre-scaled
+  unsigned char* ks = smem;                              // [TK] rows of LDB bytes
+  unsigned char* vs = ks + TK * LDB;
+  float* kss = reinterpret_cast<float*>(vs + TK * LDB);  // [TK] row scales (one-byte pools)
+  float* vss = kss + TK;
+  float* qs = vss + TK;                                  // [G][DH], pre-scaled
   float* ss = qs + G * DH;                               // [G][TK] scores, then p
   float* ms = ss + G * TK;                               // [G] running max
   float* ls = ms + G;                                    // [G] running sum
@@ -88,7 +101,8 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
   const int warp = tid / 32, lane = tid % 32;
   for (int p0 = 0; p0 < len; p0 += TK) {
     const int n = min(TK, len - p0);
-    load_kv_tile<DH>(ks, vs, kpool, vpool, trow, kv, KV, bs, p0, n, tid, NT);
+    load_kv_tile<DH, KIND>(ks, vs, kss, vss, kpool, vpool, kscale, vscale, trow, kv, KV, bs,
+                           p0, n, tid, NT);
     __syncthreads();
 
     for (int i = tid; i < G * TK; i += NT) {
@@ -96,14 +110,15 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
       float s = kNeg;
       if (t < n) {
         const float* qr = qs + g * DH;
-        const __nv_bfloat16* kr = ks + t * LD;
+        const unsigned char* kr = ks + t * LDB;
+        const float sk = SCALED ? kss[t] : 1.f;
         float a = 0.f;
 #pragma unroll
         for (int c = 0; c < DH; c += 8) {
           float kf[8];
-          bf16x8_to_float(kr + c, kf);
+          kv8_to_float<KIND>(kr + c * EB, kf);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) a += qr[c + e] * kf[e];
+          for (int e = 0; e < 8; ++e) a += qr[c + e] * (SCALED ? kf[e] * sk : kf[e]);
         }
         s = slopes ? a + slopes[kv * G + g] * float(p0 + t) : a;
       }
@@ -143,7 +158,10 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
         const int g = o / DH, d = o % DH;
         const float* pr = ss + g * TK;
         float a = acc[k] * as[g];
-        for (int t = 0; t < n; ++t) a += pr[t] * __bfloat162float(vs[t * LD + d]);
+        for (int t = 0; t < n; ++t) {
+          const float vf = kv1_to_float<KIND>(vs + t * LDB, d);
+          a += pr[t] * (SCALED ? vf * vss[t] : vf);
+        }
         acc[k] = a;
       }
     }
@@ -174,23 +192,28 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
 constexpr int kExtendThreads = 256;
 constexpr int kExtendRows = 64;
 
-template <int DH>
+template <int DH, int KIND>
 __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kpool,
-    const __nv_bfloat16* __restrict__ vpool, const int* __restrict__ table,
+    const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool,
+    const void* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
     const int* __restrict__ start, const float* __restrict__ slopes,
     __nv_bfloat16* __restrict__ out, int C, int H, int KV, int bs, int W, int TC,
     float scale) {
   constexpr int NT = kExtendThreads, LD = DH + 8, PLD = TK + 1, CPT = DH / 16;
+  constexpr int LDB = kv_row_bytes<DH, KIND>(), EB = KvStore<KIND>::kBytes;
+  constexpr bool SCALED = KvStore<KIND>::kScaled;
   const int b = blockIdx.x, kv = blockIdx.y, c0 = blockIdx.z * TC, tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int G = H / KV;
   const int R = G * TC;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);   // [64][LD]
-  __nv_bfloat16* ks = qs + kExtendRows * LD;                    // [TK][LD]
-  __nv_bfloat16* vs = ks + TK * LD;                             // [TK][LD]
-  float* ps = reinterpret_cast<float*>(vs + TK * LD);           // [64][PLD]
+  unsigned char* ks = reinterpret_cast<unsigned char*>(qs + kExtendRows * LD);  // [TK][LDB]
+  unsigned char* vs = ks + TK * LDB;                            // [TK][LDB]
+  float* kss = reinterpret_cast<float*>(vs + TK * LDB);         // [TK] row scales
+  float* vss = kss + TK;
+  float* ps = vss + TK;                                         // [64][PLD]
 
   const int st = start[b];
   const int cap = W * bs;
@@ -227,7 +250,8 @@ __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
 
   for (int p0 = 0; p0 < lim_cta; p0 += TK) {
     const int n = min(TK, lim_cta - p0);
-    load_kv_tile<DH>(ks, vs, kpool, vpool, trow, kv, KV, bs, p0, n, tid, NT);
+    load_kv_tile<DH, KIND>(ks, vs, kss, vss, kpool, vpool, kscale, vscale, trow, kv, KV, bs,
+                           p0, n, tid, NT);
     __syncthreads();
 
     float s[4][4];
@@ -240,7 +264,14 @@ __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i) bf16x8_to_float(qs + (ty + 16 * i) * LD + c, qf[i]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bf16x8_to_float(ks + (tx + 16 * j) * LD + c, kf[j]);
+      for (int j = 0; j < 4; ++j) {
+        kv8_to_float<KIND>(ks + (tx + 16 * j) * LDB + c * EB, kf[j]);
+        if constexpr (SCALED) {
+          const float sk = kss[tx + 16 * j];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) kf[j][e] *= sk;
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -281,9 +312,12 @@ __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
 
     for (int t = 0; t < n; ++t) {
       float vf[CPT];
-      const __nv_bfloat16* vr = vs + t * LD + tx * CPT;
+      const unsigned char* vr = vs + t * LDB;
 #pragma unroll
-      for (int e = 0; e < CPT; ++e) vf[e] = __bfloat162float(vr[e]);
+      for (int e = 0; e < CPT; ++e) {
+        vf[e] = kv1_to_float<KIND>(vr, tx * CPT + e);
+        if constexpr (SCALED) vf[e] *= vss[t];
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = ps[(ty + 16 * i) * PLD + t];
@@ -313,6 +347,85 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Bytes of a staged K and V tile plus their row scales.
+size_t kv_tile_smem(int kind, int Dh) {
+  return size_t(2) * TK * (size_t(Dh) * (kind == KvBf16 ? 2 : 1) + 16) +
+         size_t(2) * TK * sizeof(float);
+}
+
+size_t decode_smem(int kind, int H, int KV, int Dh) {
+  const int G = H / KV;
+  return kv_tile_smem(kind, Dh) + size_t(G * Dh + G * TK + 3 * G) * sizeof(float);
+}
+
+size_t extend_smem(int kind, int Dh) {
+  return size_t(kExtendRows) * (Dh + 8) * sizeof(__nv_bfloat16) + kv_tile_smem(kind, Dh) +
+         size_t(kExtendRows) * (TK + 1) * sizeof(float);
+}
+
+struct PagedArgs {
+  const __nv_bfloat16* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* table;
+  const int* lens;      // kv_len (decode) or start (extend)
+  const float* slopes;
+  __nv_bfloat16* out;
+};
+
+template <int DH, int KIND>
+cudaError_t launch_decode(const PagedArgs& a, dim3 grid, size_t smem, cudaStream_t s, int H,
+                          int KV, int bs, int W, float scale) {
+  const cudaError_t err = set_smem(paged_decode_kernel<DH, KIND>, smem);
+  if (err != cudaSuccess) return err;
+  paged_decode_kernel<DH, KIND><<<grid, kDecodeThreads, smem, s>>>(
+      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lens, a.slopes, a.out, H, KV, bs, W, scale);
+  return cudaSuccess;
+}
+
+template <int DH, int KIND>
+cudaError_t launch_extend(const PagedArgs& a, dim3 grid, size_t smem, cudaStream_t s, int C,
+                          int H, int KV, int bs, int W, int TC, float scale) {
+  const cudaError_t err = set_smem(paged_extend_kernel<DH, KIND>, smem);
+  if (err != cudaSuccess) return err;
+  paged_extend_kernel<DH, KIND><<<grid, kExtendThreads, smem, s>>>(
+      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lens, a.slopes, a.out, C, H, KV, bs, W, TC, scale);
+  return cudaSuccess;
+}
+
+// The instance for (Dh, kind): F<DH, KIND>::run(args...).
+template <template <int, int> class F, typename... Args>
+cudaError_t dispatch(int Dh, int kind, Args... args) {
+  switch (Dh * 4 + kind) {
+    case 128 * 4 + KvBf16: return F<128, KvBf16>::run(args...);
+    case 128 * 4 + KvInt8: return F<128, KvInt8>::run(args...);
+    case 128 * 4 + KvFp8: return F<128, KvFp8>::run(args...);
+    case 64 * 4 + KvBf16: return F<64, KvBf16>::run(args...);
+    case 64 * 4 + KvInt8: return F<64, KvInt8>::run(args...);
+    case 64 * 4 + KvFp8: return F<64, KvFp8>::run(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int DH, int KIND>
+struct Decode {
+  template <typename... A>
+  static cudaError_t run(A... a) { return launch_decode<DH, KIND>(a...); }
+};
+
+template <int DH, int KIND>
+struct Extend {
+  template <typename... A>
+  static cudaError_t run(A... a) { return launch_extend<DH, KIND>(a...); }
+};
+
+bool bad_kind(int kind, const void* ks, const void* vs) {
+  if (kind < KvBf16 || kind > KvFp8) return true;
+  return (kind == KvBf16) != (ks == nullptr) || (ks == nullptr) != (vs == nullptr);
+}
+
 }  // namespace
 
 extern "C" {
@@ -321,84 +434,45 @@ const char* sxt_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared-memory bytes of one decode block (the wrapper checks G * Dh <= 1024).
-size_t sxt_paged_decode_smem(int H, int KV, int Dh) {
-  const int G = H / KV;
-  return size_t(2) * TK * (Dh + 8) * sizeof(__nv_bfloat16) +
-         size_t(G * Dh + G * TK + 3 * G) * sizeof(float);
-}
-
-size_t sxt_paged_extend_smem(int Dh) {
-  return size_t(kExtendRows + 2 * TK) * (Dh + 8) * sizeof(__nv_bfloat16) +
-         size_t(kExtendRows) * (TK + 1) * sizeof(float);
-}
-
-// Returns cudaGetLastError() after the launch (0 on success).
-int sxt_paged_decode_bf16(const void* q, const void* k, const void* v, const void* table,
-                          const void* kv_len, const void* slopes, void* out, int B, int H,
-                          int KV, int Dh, int bs, int W, float scale, void* stream) {
+// kind: 0 bf16 pool (k_scale = v_scale = null), 1 int8, 2 e4m3 (with the
+// f32 scale planes). Returns cudaGetLastError() after the launch (0 on
+// success).
+int sxt_paged_decode(const void* q, const void* k, const void* v, const void* k_scale,
+                     const void* v_scale, const void* table, const void* kv_len,
+                     const void* slopes, void* out, int kind, int B, int H, int KV, int Dh,
+                     int bs, int W, float scale, void* stream) {
   if (B <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || (H / KV) * Dh > kDecodeThreads * kDecodeMaxAcc)
+  if (KV <= 0 || H % KV != 0 || (H / KV) * Dh > kDecodeThreads * kDecodeMaxAcc ||
+      bad_kind(kind, k_scale, v_scale))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B, KV);
-  const size_t smem = sxt_paged_decode_smem(H, KV, Dh);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* tp = static_cast<const int*>(table);
-  const auto* lp = static_cast<const int*>(kv_len);
-  const auto* slp = static_cast<const float*>(slopes);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  cudaError_t err;
-  if (Dh == 128) {
-    err = set_smem(paged_decode_kernel<128>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    paged_decode_kernel<128><<<grid, kDecodeThreads, smem, s>>>(qp, kp, vp, tp, lp, slp, op, H,
-                                                               KV, bs, W, scale);
-  } else if (Dh == 64) {
-    err = set_smem(paged_decode_kernel<64>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    paged_decode_kernel<64><<<grid, kDecodeThreads, smem, s>>>(qp, kp, vp, tp, lp, slp, op, H,
-                                                              KV, bs, W, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const PagedArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
+                    static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                    static_cast<const int*>(table), static_cast<const int*>(kv_len),
+                    static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out)};
+  const cudaError_t err =
+      dispatch<Decode>(Dh, kind, a, dim3(B, KV), decode_smem(kind, H, KV, Dh),
+                       static_cast<cudaStream_t>(stream), H, KV, bs, W, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-int sxt_paged_extend_bf16(const void* q, const void* k, const void* v, const void* table,
-                          const void* start, const void* slopes, void* out, int B, int C,
-                          int H, int KV, int Dh, int bs, int W, float scale, void* stream) {
+int sxt_paged_extend(const void* q, const void* k, const void* v, const void* k_scale,
+                     const void* v_scale, const void* table, const void* start,
+                     const void* slopes, void* out, int kind, int B, int C, int H, int KV,
+                     int Dh, int bs, int W, float scale, void* stream) {
   if (B <= 0 || C <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || H / KV > kExtendRows)
+  if (KV <= 0 || H % KV != 0 || H / KV > kExtendRows || bad_kind(kind, k_scale, v_scale))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / KV;
   const int TC = kExtendRows / G;
-  const dim3 grid(B, KV, (C + TC - 1) / TC);
-  const size_t smem = sxt_paged_extend_smem(Dh);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* tp = static_cast<const int*>(table);
-  const auto* sp = static_cast<const int*>(start);
-  const auto* slp = static_cast<const float*>(slopes);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  cudaError_t err;
-  if (Dh == 128) {
-    err = set_smem(paged_extend_kernel<128>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    paged_extend_kernel<128><<<grid, kExtendThreads, smem, s>>>(qp, kp, vp, tp, sp, slp, op, C,
-                                                               H, KV, bs, W, TC, scale);
-  } else if (Dh == 64) {
-    err = set_smem(paged_extend_kernel<64>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    paged_extend_kernel<64><<<grid, kExtendThreads, smem, s>>>(qp, kp, vp, tp, sp, slp, op, C,
-                                                              H, KV, bs, W, TC, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const PagedArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
+                    static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                    static_cast<const int*>(table), static_cast<const int*>(start),
+                    static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out)};
+  const cudaError_t err =
+      dispatch<Extend>(Dh, kind, a, dim3(B, KV, (C + TC - 1) / TC), extend_smem(kind, Dh),
+                       static_cast<cudaStream_t>(stream), C, H, KV, bs, W, TC, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,9 @@ their plain PyTorch versions.
 Replaces the TPU kernels ``shuffle_exchange_tpu/ops/flash_attention.py:
 pallas_attention`` (the stock flash kernel, MHA, forward and backward) and
 ``splash_attention_gqa`` (GQA with unexpanded K/V: the forward, the dq
-pass and the dkv pass): causal and full masks, segment ids, any T and S,
-head_dim 64 or 128. The kernels live in ``ops/csrc/flash_attention.cu``
+pass and the dkv pass): causal and full masks, segment ids, splash's
+element mask ``mask_np`` (a ``TileMask``), any T and S, head_dim 64 or
+128. The kernels live in ``ops/csrc/flash_attention.cu``
 (whose header says what bounds them on the H100 and how the design answers
 it); ``_build`` compiles that file with ``nvcc`` at first use and this
 module binds it with ctypes.
@@ -32,20 +33,121 @@ gate (``_pallas_ok``: T, S >= 128 and head_dim % 64 == 0, a TPU tiling
 constraint; the kernel masks ragged T and S itself), and the causal mask
 for T != S, where the JAX paths disagree (``reference_attention`` aligns
 the diagonal bottom-right, the TPU kernels top-left): the wrapper refuses
-it. ALiBi is later work (ROADMAP queue A, item 5).
+it. ALiBi slopes route to ``ops/alibi_attention.py`` (B11-B13).
+
+The element mask (splash's ``NumpyMask``, which ``ops/sparse_attention.py``
+builds from a block layout): a ``TileMask`` holds a [T, S] boolean mask
+shared by every sequence and head together with its tile map, built once
+on the host and cached per mask: each (64-query, 64-key) tile of the
+kernels is empty (skipped by all three passes), full (run unmasked) or
+partial (its [64, 64] bytes of the mask are read where segment ids are
+tested). Its plain version is ``reference_attention`` with the mask ANDed
+in and the softmax weights kept in f32, and a query row with no allowed
+key gives 0 with zero gradients, as the JAX package's dense path
+(``ops/sparse_attention.py``'s ``where(mask, probs, 0)``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import hashlib
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .dispatch import use_kernel
 
 _NEG = -1e30     # the mask value of reference_attention and the TPU kernels
 HEAD_DIMS = (64, 128)
+TILE = 64        # the kernels' query and key tile (flash_tile.cuh: kBlockM, kBlockN)
+
+# ---------------------------------------------------------------------------
+# The element mask and its tile map
+# ---------------------------------------------------------------------------
+
+
+class TileMask:
+    """A [T, S] boolean element mask shared by every sequence and head
+    (splash's ``NumpyMask``) and the kernels' tile map of it, built on the
+    host: each (64-query, 64-key) tile is empty, full (inside [T, S] and
+    all True) or partial. ``row_ptr`` / ``row_kt`` / ``row_blk`` list each
+    query tile's non-empty key tiles and ``col_ptr`` / ``col_qt`` /
+    ``col_blk`` each key tile's non-empty query tiles, in ascending order,
+    with the index of the tile's partial block in ``blocks`` [n, 64, 64]
+    uint8 (the mask under the tile, 0 past T and S) or -1 when full.
+    ``allowed`` counts the True elements (the work a call needs)."""
+
+    def __init__(self, mask):
+        m = np.ascontiguousarray(np.asarray(mask, bool))
+        if m.ndim != 2:
+            raise ValueError(f"element mask must be [T, S], got {m.shape}")
+        self.mask = m
+        T, S = m.shape
+        self.T, self.S = T, S
+        nqt, nkt = -(-T // TILE), -(-S // TILE)
+        pad = np.zeros((nqt * TILE, nkt * TILE), bool)
+        pad[:T, :S] = m
+        tiles = pad.reshape(nqt, TILE, nkt, TILE).transpose(0, 2, 1, 3)   # [nqt, nkt, 64, 64]
+        count = tiles.sum((2, 3))
+        inside = ((np.arange(nqt) + 1) * TILE <= T)[:, None] & (
+            (np.arange(nkt) + 1) * TILE <= S)[None, :]
+        full = inside & (count == TILE * TILE)
+        partial = (count > 0) & ~full
+        blk = np.full((nqt, nkt), -1, np.int32)
+        blk[partial] = np.arange(int(partial.sum()), dtype=np.int32)
+        self.blocks = np.ascontiguousarray(tiles[partial].astype(np.uint8))
+        self.state = np.where(full, 1, np.where(partial, 2, 0)).astype(np.int8)
+        qt, kt = np.nonzero(count > 0)                   # row-major: by query tile
+        self.row_ptr = np.searchsorted(qt, np.arange(nqt + 1)).astype(np.int32)
+        self.row_kt, self.row_blk = kt.astype(np.int32), blk[qt, kt]
+        kt2, qt2 = np.nonzero((count > 0).T)             # by key tile
+        self.col_ptr = np.searchsorted(kt2, np.arange(nkt + 1)).astype(np.int32)
+        self.col_qt, self.col_blk = qt2.astype(np.int32), blk[qt2, kt2]
+        self.nnz = int(qt.size)
+        self.allowed = int(count.sum())
+        self._device = {}
+
+    @property
+    def empty_rows(self) -> np.ndarray:
+        """Query rows with no allowed key (they give 0)."""
+        return ~self.mask.any(axis=1)
+
+    def device_operands(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(tiles, blocks) on ``device``, made once: the int32 buffer
+        row_ptr | row_kt | row_blk | col_ptr | col_qt | col_blk the kernels
+        read (flash_attention.cu: tile_map), and the partial blocks."""
+        key = str(device)
+        if key not in self._device:
+            tiles = np.concatenate([self.row_ptr, self.row_kt, self.row_blk, self.col_ptr,
+                                    self.col_qt, self.col_blk]).astype(np.int32)
+            blocks = self.blocks if self.blocks.size else np.zeros((1, TILE, TILE), np.uint8)
+            self._device[key] = (torch.from_numpy(tiles).to(device),
+                                 torch.from_numpy(blocks).to(device))
+        return self._device[key]
+
+
+_TILE_MASKS: "collections.OrderedDict[str, TileMask]" = collections.OrderedDict()
+_TILE_MASK_CACHE = 8
+
+
+def tile_mask(mask) -> TileMask:
+    """The ``TileMask`` of an element mask [T, S], built once per mask:
+    masks are cached by their content (a digest of the packed bits), the
+    eight most recent kept."""
+    if isinstance(mask, TileMask):
+        return mask
+    m = np.ascontiguousarray(np.asarray(mask, bool))
+    key = hashlib.sha1(np.packbits(m).tobytes() + repr(m.shape).encode()).hexdigest()
+    tm = _TILE_MASKS.get(key)
+    if tm is None:
+        tm = _TILE_MASKS[key] = TileMask(m)
+        while len(_TILE_MASKS) > _TILE_MASK_CACHE:
+            _TILE_MASKS.popitem(last=False)
+    _TILE_MASKS.move_to_end(key)
+    return tm
+
 
 # ---------------------------------------------------------------------------
 # Plain version
@@ -63,19 +165,37 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, segment_ids: Optional[torch.Tensor] = None,
-                        p_f32: bool = False) -> torch.Tensor:
+                        p_f32: bool = False, mask=None) -> torch.Tensor:
     """q [B,T,H,Dh], k/v [B,S,KV,Dh] -> [B,T,H,Dh]: scores in f32 with q
     scaled by Dh^-0.5 in f32; masked scores -1e30 (causal: query i sees
-    keys j <= i + S - T; segment ids [B, T] that differ); softmax in f32;
-    the weights cast to v's dtype before P·V unless ``p_f32``."""
+    keys j <= i + S - T; segment ids [B, T] that differ; an element mask
+    [T, S] (bool, or a ``TileMask``) that is False); softmax in f32; the
+    weights cast to v's dtype before P·V unless ``p_f32``. Under an
+    element mask the weights of masked pairs are 0, so a row with no
+    allowed key gives 0 (JAX's dense path)."""
     v = repeat_kv(v, q.shape[2] // k.shape[2])
-    probs = torch.softmax(_masked_logits(q, k, causal, segment_ids), dim=-1)
+    probs = _probs(q, k, causal, segment_ids, mask)
     if not p_f32:
         probs = probs.to(v.dtype)
     return torch.einsum("bhts,bshd->bthd", probs.float(), v.float()).to(q.dtype)
 
 
-def _masked_logits(q, k, causal, segment_ids) -> torch.Tensor:
+def _element_mask(mask, device) -> torch.Tensor:
+    m = mask.mask if isinstance(mask, TileMask) else mask
+    return torch.as_tensor(np.asarray(m, bool) if not isinstance(m, torch.Tensor) else m,
+                           device=device).bool()
+
+
+def _probs(q, k, causal, segment_ids, mask) -> torch.Tensor:
+    """Softmax weights [B, H, T, S] in f32; zero on the pairs an element
+    mask forbids (so also on rows it forbids entirely)."""
+    probs = torch.softmax(_masked_logits(q, k, causal, segment_ids, mask), dim=-1)
+    if mask is not None:
+        probs = probs * _element_mask(mask, q.device)[None, None]
+    return probs
+
+
+def _masked_logits(q, k, causal, segment_ids, mask=None) -> torch.Tensor:
     """The f32 scores [B, H, T, S] of ``reference_attention``, masked."""
     k = repeat_kv(k, q.shape[2] // k.shape[2])
     scale = q.shape[-1] ** -0.5
@@ -88,18 +208,21 @@ def _masked_logits(q, k, causal, segment_ids) -> torch.Tensor:
         seg = segment_ids.to(q.device)
         same = seg[:, None, :, None] == seg[:, None, None, :]
         logits = logits.masked_fill(~same, _NEG)
+    if mask is not None:
+        logits = logits.masked_fill(~_element_mask(mask, q.device)[None, None], _NEG)
     return logits
 
 
 def reference_attention_lse(q, k, v, causal: bool = True, segment_ids=None,
-                            p_f32: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                            p_f32: bool = False, mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``reference_attention`` and the natural-log log-sum-exp of each
     row's masked scaled scores, ``lse [B, H, T]`` f32."""
-    out = reference_attention(q, k, v, causal, segment_ids, p_f32=p_f32)
-    return out, torch.logsumexp(_masked_logits(q, k, causal, segment_ids), dim=-1)
+    out = reference_attention(q, k, v, causal, segment_ids, p_f32=p_f32, mask=mask)
+    return out, torch.logsumexp(_masked_logits(q, k, causal, segment_ids, mask), dim=-1)
 
 
-def reference_attention_bwd(q, k, v, out, dout, causal: bool = True, segment_ids=None):
+def reference_attention_bwd(q, k, v, out, dout, causal: bool = True, segment_ids=None,
+                            mask=None):
     """(dq, dk, dv) in the inputs' dtypes, computed in f32 as the dq and
     dkv passes compute them: ``P = softmax(S)``, ``dP = dO V^T``,
     ``delta = rowsum(dO * out)`` from the forward's stored ``out``,
@@ -110,7 +233,7 @@ def reference_attention_bwd(q, k, v, out, dout, causal: bool = True, segment_ids
     kernels are given, delta carries its rounding here as it does there."""
     B, S, KV, Dh = k.shape
     G = q.shape[2] // KV
-    probs = torch.softmax(_masked_logits(q, k, causal, segment_ids), dim=-1)   # [B,H,T,S]
+    probs = _probs(q, k, causal, segment_ids, mask)                            # [B,H,T,S]
     do = dout.float()
     dp = torch.einsum("bthd,bshd->bhts", do, repeat_kv(v, G).float())
     delta = (do * out.float()).sum(-1).permute(0, 2, 1)                         # [B,H,T]
@@ -128,7 +251,7 @@ def reference_attention_bwd(q, k, v, out, dout, causal: bool = True, segment_ids
 # ---------------------------------------------------------------------------
 
 
-def _check_shapes(q, k, v, causal, segment_ids) -> None:
+def _check_shapes(q, k, v, causal, segment_ids, mask=None) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash attention: q must be [B,T,H,Dh] and k, v [B,S,KV,Dh], got "
                          f"{tuple(q.shape)} / {tuple(k.shape)} / {tuple(v.shape)}")
@@ -146,27 +269,45 @@ def _check_shapes(q, k, v, causal, segment_ids) -> None:
     if segment_ids is not None and (T != S or tuple(segment_ids.shape) != (B, T)):
         raise ValueError(f"flash attention: segment_ids must be [B, T] = [{B}, {T}] with "
                          f"T == S, got {tuple(segment_ids.shape)} and S={S}")
+    if mask is not None:
+        if causal:
+            raise ValueError("flash attention: an element mask takes causal=False (AND the "
+                             "causal mask into it, as sparse_attention does)")
+        if (mask.T, mask.S) != (T, S):
+            raise ValueError(f"flash attention: element mask [{mask.T}, {mask.S}] does not "
+                             f"match T={T}, S={S}")
+
+
+def _mask_kw(mask) -> dict:
+    return {} if mask is None else {"mask": mask}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                     segment_ids: Optional[torch.Tensor] = None, *,
-                    alibi_slopes=None) -> torch.Tensor:
+                    alibi_slopes=None, mask=None) -> torch.Tensor:
     """q [B,T,H,Dh], k/v [B,S,KV,Dh] (H a multiple of KV, query head h
     reading kv head h // (H // KV)) -> [B,T,H,Dh]; ``segment_ids`` [B, T]
     int (T == S) mask pairs whose ids differ. Causal needs T == S. The
     CUDA kernel on a CUDA tensor, the plain version on a CPU tensor.
     ``alibi_slopes`` [H] route to ``alibi_flash_attention`` (S >= T,
-    bottom-right diagonal)."""
+    bottom-right diagonal). ``mask``: an element mask [T, S] (bool array
+    or ``TileMask``; causal=False), whose empty tiles the kernels skip and
+    whose plain version keeps the weights in f32."""
     if alibi_slopes is not None:
+        if mask is not None:
+            raise ValueError("flash attention: ALiBi slopes with an element mask are not a "
+                             "form of any TPU kernel")
         from .alibi_attention import alibi_flash_attention
 
         return alibi_flash_attention(q, k, v, alibi_slopes, causal, segment_ids)
-    _check_shapes(q, k, v, causal, segment_ids)
-    if not use_kernel(q):
-        return reference_attention(q, k, v, causal, segment_ids)   # autograd sees through it
+    mask = None if mask is None else tile_mask(mask)
+    _check_shapes(q, k, v, causal, segment_ids, mask)
+    if not use_kernel(q):   # autograd sees through the plain version
+        return reference_attention(q, k, v, causal, segment_ids, p_f32=mask is not None,
+                                   mask=mask)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, bool(causal), segment_ids)
-    out, _ = _launch(q, k, v, causal, segment_ids, want_lse=False)
+        return _FlashAttention.apply(q, k, v, bool(causal), segment_ids, mask)
+    out, _ = _launch(q, k, v, causal, segment_ids, want_lse=False, **_mask_kw(mask))
     flash_attention.launches += 1
     return out
 
@@ -174,29 +315,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
 flash_attention.launches = 0
 
 
-def flash_attention_lse(q, k, v, causal: bool = True, segment_ids=None):
+def flash_attention_lse(q, k, v, causal: bool = True, segment_ids=None, mask=None):
     """(out, lse): ``flash_attention`` and the log-sum-exp its kernel writes
     (``[B, H, T]`` f32, natural log). No gradient flows through this form."""
-    _check_shapes(q, k, v, causal, segment_ids)
+    mask = None if mask is None else tile_mask(mask)
+    _check_shapes(q, k, v, causal, segment_ids, mask)
     if not use_kernel(q):
-        return reference_attention_lse(q, k, v, causal, segment_ids)
-    out = _launch(q, k, v, causal, segment_ids, want_lse=True)
+        return reference_attention_lse(q, k, v, causal, segment_ids, p_f32=mask is not None,
+                                       mask=mask)
+    out = _launch(q, k, v, causal, segment_ids, want_lse=True, **_mask_kw(mask))
     flash_attention.launches += 1
     return out
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, segment_ids=None):
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, segment_ids=None,
+                        mask=None):
     """(dq, dk, dv) from the forward's operands, its ``out`` and ``lse``
     and the cotangent ``dout`` [B,T,H,Dh]. The CUDA kernels on a CUDA
     tensor; on a CPU tensor the plain version (which recomputes the
     softmax and does not read ``lse``)."""
-    _check_shapes(q, k, v, causal, segment_ids)
+    mask = None if mask is None else tile_mask(mask)
+    _check_shapes(q, k, v, causal, segment_ids, mask)
     if dout.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"flash attention backward: out {tuple(out.shape)} and dout "
                          f"{tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
     if not use_kernel(q):
-        return reference_attention_bwd(q, k, v, out, dout, causal, segment_ids)
-    grads = _launch_bwd(q, k, v, out, lse, dout, causal, segment_ids)
+        return reference_attention_bwd(q, k, v, out, dout, causal, segment_ids, mask=mask)
+    grads = _launch_bwd(q, k, v, out, lse, dout, causal, segment_ids, **_mask_kw(mask))
     flash_attention_bwd.launches += 1
     return grads
 
@@ -205,21 +350,23 @@ flash_attention_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernels under autograd: forward saves (q, k, v, out, lse)."""
+    """The kernels under autograd: forward saves (q, k, v, out, lse) and
+    carries the element mask (if any) to the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, segment_ids):
-        out, lse = _launch(q, k, v, causal, segment_ids, want_lse=True)
+    def forward(ctx, q, k, v, causal, segment_ids, mask=None):
+        out, lse = _launch(q, k, v, causal, segment_ids, want_lse=True, **_mask_kw(mask))
         flash_attention.launches += 1
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.segment_ids = causal, segment_ids
+        ctx.causal, ctx.segment_ids, ctx.mask = causal, segment_ids, mask
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal, ctx.segment_ids)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal, ctx.segment_ids,
+                                         mask=ctx.mask)
+        return dq, dk, dv, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -235,9 +382,11 @@ def _lib():
 
         lib = _build.load("flash_attention")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.sxt_flash_attention_bf16.argtypes = [P] * 6 + [I] * 7 + [ctypes.c_float, P]
+        lib.sxt_flash_attention_bf16.argtypes = [P] * 6 + [I] + [P] * 2 + [I] * 7 + [
+            ctypes.c_float, P]
         lib.sxt_flash_attention_bf16.restype = ctypes.c_int
-        lib.sxt_flash_attention_bwd_bf16.argtypes = [P] * 11 + [I] * 7 + [ctypes.c_float, P]
+        lib.sxt_flash_attention_bwd_bf16.argtypes = [P] * 6 + [I] + [P] * 7 + [I] * 7 + [
+            ctypes.c_float, P]
         lib.sxt_flash_attention_bwd_bf16.restype = ctypes.c_int
         lib.sxt_flash_error_string.argtypes = [ctypes.c_int]
         lib.sxt_flash_error_string.restype = ctypes.c_char_p
@@ -277,7 +426,15 @@ def _raise_on(err, lib, what: str) -> None:
                            f"({lib.sxt_flash_error_string(err).decode()})")
 
 
-def _launch(q, k, v, causal, segment_ids, want_lse: bool):
+def _tile_args(mask, device):
+    """(tiles pointer, blocks pointer, nnz) of a TileMask, or nulls."""
+    if mask is None:
+        return None, None, 0
+    tiles, blocks = mask.device_operands(device)
+    return tiles.data_ptr(), blocks.data_ptr(), mask.nnz
+
+
+def _launch(q, k, v, causal, segment_ids, want_lse: bool, mask=None):
     """(out, lse or None): one launch of the forward kernel."""
     dev = q.device
     _same_device(dev, k=k, v=v, segment_ids=segment_ids)
@@ -290,13 +447,14 @@ def _launch(q, k, v, causal, segment_ids, want_lse: bool):
     lib = _lib()
     err = lib.sxt_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if seg is None else seg.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), B, T, S, H, KV, Dh,
-        int(bool(causal)), float(Dh) ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+        *_tile_args(mask, dev), out.data_ptr(), None if lse is None else lse.data_ptr(), B, T,
+        S, H, KV, Dh, int(bool(causal)), float(Dh) ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "kernel")
     return out, lse
 
 
-def _launch_bwd(q, k, v, out, lse, dout, causal, segment_ids):
+def _launch_bwd(q, k, v, out, lse, dout, causal, segment_ids, mask=None):
     """(dq, dk, dv): the delta, dk/dv and dq kernels, in that order."""
     dev = q.device
     _same_device(dev, k=k, v=v, out=out, lse=lse, dout=dout, segment_ids=segment_ids)
@@ -312,13 +470,14 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, segment_ids):
     lib = _lib()
     err = lib.sxt_flash_attention_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if seg is None else seg.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_tile_args(mask, dev), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, S, H, KV, Dh, int(bool(causal)),
         float(Dh) ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "backward kernels")
     return dq, dk, dv
 
 
-__all__ = ["HEAD_DIMS", "check_operands", "flash_attention", "flash_attention_bwd",
+__all__ = ["HEAD_DIMS", "TileMask", "check_operands", "flash_attention", "flash_attention_bwd",
            "flash_attention_lse", "reference_attention", "reference_attention_bwd",
-           "reference_attention_lse", "repeat_kv"]
+           "reference_attention_lse", "repeat_kv", "tile_mask"]

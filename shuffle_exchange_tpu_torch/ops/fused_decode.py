@@ -9,7 +9,9 @@ Replaces the TPU kernels of ``shuffle_exchange_tpu/ops/fused_decode.py``:
   append of the new token's K/V to the layer's pool (the paged engine);
   without one, q/k/v only (the dense-cache v1 engine);
 - ``fused_paged_decode_attention_pallas``: split-K flash-decode over the
-  block table with an (m, l, acc) merge, with ALiBi slopes;
+  block table with an (m, l, acc) merge, with ALiBi slopes, over a bf16
+  pool or an int8 / e4m3 pool with f32 scale planes (dequantized in
+  registers as in ``ops/paged_attention.py``);
 - ``fused_mlp_pallas``: RMSNorm or layernorm (with its bias) + a gated
   (SwiGLU) or plain MLP with one of ``FUSABLE_ACTIVATIONS`` and optional
   fc biases + residual;
@@ -34,9 +36,9 @@ quantized MLP dequantizes its weights to f32 (the JAX kernel's
 ``dot(bf16, f32)`` promotes) and rounds at the same points. The unfused
 layer body rounds elsewhere (a bf16 product, then a bf16 bias), so the
 fused and unfused paths differ by a bf16 step. The kernels take bf16
-activations, weights and biases and f32 slopes; KV scale planes raise
-(ROADMAP queue A, item 3 (d)), and so do layernorm, biases and the plain
-MLP over quantized weights (B7 lacks them: ROADMAP queue A, item 4 (b)).
+activations, weights and biases and f32 slopes and scale planes;
+layernorm, biases and the plain MLP over quantized weights raise (B7
+lacks them: ROADMAP queue A, item 4 (b)).
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from .dispatch import use_kernel
-from .paged_attention import _alibi_bias, alibi_operand, gather_kv
+from .paged_attention import (_alibi_bias, alibi_operand, gather_kv, pool_kind, scale_kw,
+                              scales_given)
 from .quant_matmul import QuantizedMatrix, check_storage, quant_splits
 
 _NEG = -1e30     # the TPU kernels' finite mask sentinel
@@ -127,20 +130,20 @@ def split_count(width: int, num_splits: int) -> Tuple[int, int]:
 
 
 def fused_paged_decode_reference(q, ck, cv, block_table, kv_len, num_splits: int = 2,
-                                 alibi_slopes=None):
+                                 alibi_slopes=None, k_scale=None, v_scale=None):
     """Split-K paged decode: q [B,1,H,Dh] against one layer of the pool
     through block_table [B,W]; kv_len [B] -> [B,1,H,Dh]. Each split of the
     table gives (m, l, acc) in f32 with q scaled in f32, ``slope_h * j``
     added at logical position j (``alibi_slopes`` [H]) and the softmax
     weights kept in f32 (masked scores -1e30; a split with no visible
     position gives m = -1e30, l = 0); the merge is that of the TPU
-    kernel."""
+    kernel. Scale planes dequantize the gathered rows in f32."""
     B, _, H, Dh = q.shape
     KV, bs = ck.shape[1], ck.shape[2]
     G = H // KV
     W = block_table.shape[1]
     S, spb = split_count(W, num_splits)
-    k, v = gather_kv(ck, cv, block_table)                  # [B, W*bs, KV, Dh]
+    k, v = gather_kv(ck, cv, block_table, k_scale, v_scale)   # [B, W*bs, KV, Dh]
     P, L = S * spb * bs, spb * bs
     k = F.pad(k.float(), (0, 0, 0, 0, 0, P - W * bs))
     v = F.pad(v.float(), (0, 0, 0, 0, 0, P - W * bs))
@@ -272,16 +275,16 @@ def fused_paged_decode_attention(q, ck, cv, block_table, kv_len, *,
     [B,1,H,Dh]. ``num_splits`` defaults to the split count that fills the
     card's SMs (on the CPU, JAX's default of 2); the result does not
     depend on it beyond rounding. ``alibi_slopes`` [H] add ``slope_h * j``
-    at logical key position j. The CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8/fp8 KV scale planes in the split-K decode kernel "
-                                  "are not ported yet: ROADMAP queue A, item 3 (d)")
+    at logical key position j; ``k_scale`` / ``v_scale`` [nblk,KV,bs] f32
+    dequantize an int8 or e4m3 pool. The CUDA kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    scales_given(k_scale, v_scale)
     if not use_kernel(q):
         return fused_paged_decode_reference(q, ck, cv, block_table, kv_len,
                                             2 if num_splits is None else num_splits,
-                                            alibi_slopes)
-    out = _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes)
+                                            alibi_slopes, k_scale, v_scale)
+    out = _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes,
+                            **scale_kw(k_scale, v_scale))
     fused_paged_decode_attention.launches += 1
     return out
 
@@ -360,7 +363,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "sxt_fused_qkv_rope_bf16": [_P] * 17 + [_I] * 9 + [_P],
-    "sxt_fused_paged_decode_bf16": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "sxt_fused_paged_decode": [_P] * 12 + [_I] * 8 + [_F, _P],
     "sxt_fused_mlp_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
     "sxt_fused_mlp_quant_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
 }
@@ -501,15 +504,14 @@ def _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, H, KV
     return q, k, v
 
 
-def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=None):
+def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=None,
+                      k_scale=None, v_scale=None):
     dev = q.device
     B, one, H, Dh = q.shape
     if one != 1:
         raise ValueError("split-K decode kernel: one query token per sequence")
-    _bf16("q", q, dev)
-    _bf16("k pool", ck, dev)
-    _bf16("v pool", cv, dev, ck.shape)
-    if ck.dim() != 4 or ck.shape[3] != Dh or H % ck.shape[1]:
+    store = pool_kind(q, ck, cv, k_scale, v_scale, "split-K decode kernel")
+    if ck.shape != cv.shape or ck.dim() != 4 or ck.shape[3] != Dh or H % ck.shape[1]:
         raise ValueError(f"split-K decode kernel: q heads {H} / Dh {Dh} do not match pool "
                          f"{tuple(ck.shape)}")
     KV, bs = ck.shape[1], ck.shape[2]
@@ -530,10 +532,11 @@ def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=N
     m_part = torch.empty(B, splits, H, device=dev, dtype=torch.float32)
     l_part = torch.empty(B, splits, H, device=dev, dtype=torch.float32)
     lib = _lib()
-    err = lib.sxt_fused_paged_decode_bf16(
-        q.data_ptr(), ck.data_ptr(), cv.data_ptr(), table.data_ptr(), lens.data_ptr(),
-        _ptr(slopes), out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        B, H, KV, Dh, bs, W, splits, float(Dh) ** -0.5,
+    err = lib.sxt_fused_paged_decode(
+        q.data_ptr(), ck.data_ptr(), cv.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        table.data_ptr(), lens.data_ptr(), _ptr(slopes), out.data_ptr(), o_part.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), store, B, H, KV, Dh, bs, W, splits,
+        float(Dh) ** -0.5,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "split-K decode")
     return out

@@ -23,8 +23,14 @@ ALiBi: given ``alibi_slopes`` [H] (f32 on the card), every form adds
 ``slope_h * j`` in f32 to the scaled score of logical key position j (the
 sequence position the block table maps, never a pool slot), as JAX's
 ``decode_attention`` / ``extend_attention`` and its Pallas kernels do;
-query head ``h = kv * G + g`` takes slope h. The kernels take bf16 pools;
-int8/fp8 scale planes raise (ROADMAP queue A, item 3 (d)).
+query head ``h = kv * G + g`` takes slope h.
+
+int8/fp8 KV: given ``k_scale``/``v_scale`` [nblk, KV, bs] f32 (one scale
+per stored (token, kv head) row), the pools are int8 or float8_e4m3fn.
+The plain versions gather and then dequantize in f32 (JAX ``gather_kv``'s
+pairs); the kernels stage the tile's raw one-byte rows and its scales in
+shared memory and form ``float(q) * scale`` in f32 when they read an
+element, which is JAX's ``kb * s[:, None]``. Slopes and scales compose.
 """
 
 from __future__ import annotations
@@ -42,21 +48,25 @@ from .dispatch import use_kernel
 # ---------------------------------------------------------------------------
 
 
-def gather_kv(ck: torch.Tensor, cv: torch.Tensor,
-              block_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def gather_kv(ck: torch.Tensor, cv: torch.Tensor, block_table: torch.Tensor,
+              k_scale=None, v_scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """ck/cv [nblk, KV, bs, Dh] (one layer), block_table [B, maxblk] (-1
     pad, read as block 0) -> k/v [B, maxblk*bs, KV, Dh]. Padding gathers
-    whatever block 0 holds; callers mask by length."""
+    whatever block 0 holds; callers mask by length. With scale planes
+    ``k_scale``/``v_scale`` [nblk, KV, bs] the gathered rows are
+    dequantized to f32 (``float(q) * scale``)."""
     bt = block_table.clamp_min(0).long()
     B, M = bt.shape
 
     def g(c):
-        _, KV, bs, Dh = c.shape
-        x = c[bt.reshape(-1)]                              # [B*M, KV, bs, Dh]
-        return (x.reshape(B, M, KV, bs, Dh).permute(0, 1, 3, 2, 4)
-                .reshape(B, M * bs, KV, Dh))
+        x = c[bt.reshape(-1)]                              # [B*M, KV, bs(, Dh)]
+        x = x.reshape(B, M, *x.shape[1:]).transpose(2, 3)  # [B, M, bs, KV(, Dh)]
+        return x.reshape(B, M * x.shape[2], *x.shape[3:])
 
-    return g(ck), g(cv)
+    if k_scale is None:
+        return g(ck), g(cv)
+    return (g(ck).float() * g(k_scale)[..., None].float(),
+            g(cv).float() * g(v_scale)[..., None].float())
 
 
 def _alibi_bias(alibi_slopes, KV: int, G: int, S: int, device) -> torch.Tensor:
@@ -122,19 +132,22 @@ def extend_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.reshape(B, C, H, Dh).to(q.dtype)
 
 
-def paged_decode_reference(q, ck, cv, block_table, kv_len, p_f32=False, alibi_slopes=None):
+def paged_decode_reference(q, ck, cv, block_table, kv_len, p_f32=False, alibi_slopes=None,
+                           k_scale=None, v_scale=None):
     """The plain paged decode: gather through the table (so slot j of the
-    gathered cache is logical position j), dense decode."""
-    k, v = gather_kv(ck, cv, block_table)
+    gathered cache is logical position j; dequantized in f32 given scale
+    planes), dense decode."""
+    k, v = gather_kv(ck, cv, block_table, k_scale, v_scale)
     return decode_attention(q, k, v, kv_len, p_f32, alibi_slopes)
 
 
 def paged_extend_reference(q, ck, cv, block_table, start, nnew, p_f32=False,
-                           alibi_slopes=None):
-    """The plain paged extend: gather through the table, dense extend with
-    ``kv_len = start + nnew``. Rows past ``nnew`` are don't-care (the
-    engine reads logits at ``nnew - 1``) and differ from the kernel's."""
-    k, v = gather_kv(ck, cv, block_table)
+                           alibi_slopes=None, k_scale=None, v_scale=None):
+    """The plain paged extend: gather through the table (dequantized given
+    scale planes), dense extend with ``kv_len = start + nnew``. Rows past
+    ``nnew`` are don't-care (the engine reads logits at ``nnew - 1``) and
+    differ from the kernel's."""
+    k, v = gather_kv(ck, cv, block_table, k_scale, v_scale)
     return extend_attention(q, k, v, start, start + nnew, p_f32, alibi_slopes)
 
 
@@ -143,24 +156,32 @@ def paged_extend_reference(q, ck, cv, block_table, start, nnew, p_f32=False,
 # ---------------------------------------------------------------------------
 
 
-def _unsupported(k_scale, v_scale) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8/fp8 KV scale planes in the paged "
-                                  "kernels are not ported yet: ROADMAP queue "
-                                  "A, item 3 (d)")
+def scales_given(k_scale, v_scale) -> bool:
+    """Whether a call carries scale planes (both or neither)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged attention: k_scale and v_scale go together")
+    return k_scale is not None
+
+
+def scale_kw(k_scale, v_scale) -> dict:
+    """The launch's scale-plane keywords (none for a bf16 pool)."""
+    return {} if k_scale is None else dict(k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_decode_attention(q, ck, cv, block_table, kv_len, *,
                            alibi_slopes=None, k_scale=None, v_scale=None):
     """q [B,1,H,Dh] against one layer of the pool ck/cv [nblk,KV,bs,Dh]
     through block_table [B,W]; kv_len [B] -> [B,1,H,Dh]; ``alibi_slopes``
-    [H] add ``slope_h * j`` at logical key position j. The CUDA kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
-    _unsupported(k_scale, v_scale)
+    [H] add ``slope_h * j`` at logical key position j; ``k_scale`` /
+    ``v_scale`` [nblk,KV,bs] f32 dequantize an int8 or e4m3 pool. The CUDA
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    scales_given(k_scale, v_scale)
     if not use_kernel(q):
         return paged_decode_reference(q, ck, cv, block_table, kv_len,
-                                      alibi_slopes=alibi_slopes)
-    out = _launch("decode", q, ck, cv, block_table, kv_len, alibi_slopes)
+                                      alibi_slopes=alibi_slopes, k_scale=k_scale,
+                                      v_scale=v_scale)
+    out = _launch("decode", q, ck, cv, block_table, kv_len, alibi_slopes,
+                  **scale_kw(k_scale, v_scale))
     paged_decode_attention.launches += 1
     return out
 
@@ -173,13 +194,16 @@ def paged_extend_attention(q, ck, cv, block_table, start, nnew, *,
     """A C-token chunk per sequence, q [B,C,H,Dh], whose own K/V are
     already in the pool; start [B] first new position, nnew [B] <= C.
     Row c of sequence b sees pool positions < start[b] + c + 1;
-    ``alibi_slopes`` [H] as in :func:`paged_decode_attention`. The CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    _unsupported(k_scale, v_scale)
+    ``alibi_slopes`` and the scale planes as in
+    :func:`paged_decode_attention`. The CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    scales_given(k_scale, v_scale)
     if not use_kernel(q):
         return paged_extend_reference(q, ck, cv, block_table, start, nnew,
-                                      alibi_slopes=alibi_slopes)
-    out = _launch("extend", q, ck, cv, block_table, start, alibi_slopes)
+                                      alibi_slopes=alibi_slopes, k_scale=k_scale,
+                                      v_scale=v_scale)
+    out = _launch("extend", q, ck, cv, block_table, start, alibi_slopes,
+                  **scale_kw(k_scale, v_scale))
     paged_extend_attention.launches += 1
     return out
 
@@ -194,9 +218,11 @@ paged_extend_attention.launches = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "sxt_paged_decode_bf16": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
-    "sxt_paged_extend_bf16": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
+    "sxt_paged_decode": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P],
+    "sxt_paged_extend": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
 }
+#: the kernels' storage codes (paged_tile.cuh: KvBf16, KvInt8, KvFp8)
+KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 _LIB = []
 
 
@@ -215,16 +241,36 @@ def _lib():
     return _LIB[0]
 
 
-def _check_operands(q, ck, cv):
+def pool_kind(q, ck, cv, k_scale, v_scale, what: str = "paged kernel") -> int:
+    """The storage code the kernels take for this pool, after checking
+    what they read: q bf16; a bf16 pool without scales, or an int8 / e4m3
+    pool with f32 scale planes [nblk, KV, bs]; all on q's device,
+    contiguous and 16-byte aligned. Anything else raises (nothing is
+    cast or copied)."""
     for name, t in (("q", q), ("k pool", ck), ("v pool", cv)):
         if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"paged kernel: {name} must be on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"paged kernel: {name} must be bf16 (this slice's "
-                            f"kernels take bf16 pools), got {t.dtype}")
+            raise ValueError(f"{what}: {name} must be on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"paged kernel: {name} must be contiguous and "
-                             "16-byte aligned")
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: q must be bf16, got {q.dtype}")
+    quant = scales_given(k_scale, v_scale)
+    if ck.dtype != cv.dtype or ck.dtype not in KV_KINDS or quant != (ck.dtype != torch.bfloat16):
+        raise TypeError(f"{what}: pools must be bf16 without scale planes or int8 / "
+                        f"float8_e4m3fn with them, got {ck.dtype} / {cv.dtype} "
+                        f"{'with' if quant else 'without'} scales")
+    if quant:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous()
+                    or tuple(t.shape) != tuple(ck.shape[:3])):
+                raise ValueError(f"{what}: {name} must be contiguous f32 "
+                                 f"{list(ck.shape[:3])} on {q.device}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+    return KV_KINDS[ck.dtype]
+
+
+def _check_operands(q, ck, cv, k_scale=None, v_scale=None) -> int:
+    kind = pool_kind(q, ck, cv, k_scale, v_scale)
     if ck.shape != cv.shape or ck.dim() != 4:
         raise ValueError(f"paged kernel: pools must be [nblk,KV,bs,Dh], got "
                          f"{tuple(ck.shape)} / {tuple(cv.shape)}")
@@ -235,6 +281,7 @@ def _check_operands(q, ck, cv):
                          f"pool {tuple(ck.shape)}")
     if Dh not in (64, 128):
         raise ValueError(f"paged kernel: head_dim {Dh} not built (64, 128)")
+    return kind
 
 
 def alibi_operand(slopes, H: int, device, what: str = "paged kernel"):
@@ -261,8 +308,11 @@ def _index(t, B, device, what):
     return t.to(torch.int32).contiguous()
 
 
-def _launch(kind, q, ck, cv, block_table, lens, alibi_slopes=None):
-    _check_operands(q, ck, cv)
+def _launch(kind, q, ck, cv, block_table, lens, alibi_slopes=None, k_scale=None,
+            v_scale=None):
+    store = _check_operands(q, ck, cv, k_scale, v_scale)
+    ks_ptr = None if k_scale is None else k_scale.data_ptr()
+    vs_ptr = None if v_scale is None else v_scale.data_ptr()
     B, C, H, Dh = q.shape
     slopes = alibi_operand(alibi_slopes, H, q.device)
     sl_ptr = None if slopes is None else slopes.data_ptr()
@@ -282,15 +332,15 @@ def _launch(kind, q, ck, cv, block_table, lens, alibi_slopes=None):
             raise ValueError("paged decode kernel: one query token per sequence")
         if (H // KV) * Dh > 1024:
             raise ValueError(f"paged decode kernel: G*Dh = {(H // KV) * Dh} > 1024")
-        err = lib.sxt_paged_decode_bf16(
-            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), table.data_ptr(),
-            lens.data_ptr(), sl_ptr, out.data_ptr(), B, H, KV, Dh, bs, W, scale, stream)
+        err = lib.sxt_paged_decode(
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ks_ptr, vs_ptr, table.data_ptr(),
+            lens.data_ptr(), sl_ptr, out.data_ptr(), store, B, H, KV, Dh, bs, W, scale, stream)
     else:
         if H // KV > 64:
             raise ValueError(f"paged extend kernel: G = {H // KV} > 64")
-        err = lib.sxt_paged_extend_bf16(
-            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), table.data_ptr(),
-            lens.data_ptr(), sl_ptr, out.data_ptr(), B, C, H, KV, Dh, bs, W, scale,
+        err = lib.sxt_paged_extend(
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ks_ptr, vs_ptr, table.data_ptr(),
+            lens.data_ptr(), sl_ptr, out.data_ptr(), store, B, C, H, KV, Dh, bs, W, scale,
             stream)
     if err:
         raise RuntimeError(f"paged {kind} kernel launch failed: CUDA error "

@@ -387,17 +387,19 @@ def test_llama_is_fusable_and_pallas_on_nothing_fusable_raises(models, monkeypat
     assert eng._decode_kernel == "xla"
 
 
-@pytest.mark.parametrize("which,kw,item", [
-    ("qkv", {"bq": torch.ones(16), "bk": torch.ones(8), "bv": torch.ones(8)}, None),
-    ("attention", {"alibi_slopes": torch.ones(4)}, None),
-    ("attention", {"k_scale": torch.ones(3, 2, 8), "v_scale": torch.ones(3, 2, 8)}, "item 3"),
-    ("mlp", {"b_up": torch.ones(32), "b_down": torch.ones(16)}, None),
+@pytest.mark.parametrize("which,kw", [
+    ("qkv", {"bq": torch.ones(16), "bk": torch.ones(8), "bv": torch.ones(8)}),
+    ("attention", {"alibi_slopes": torch.ones(4)}),
+    ("attention", {"k_scale": torch.linspace(0.5, 2, 48).reshape(3, 2, 8),
+                   "v_scale": torch.linspace(2, 0.5, 48).reshape(3, 2, 8)}),
+    ("mlp", {"b_up": torch.ones(32), "b_down": torch.ones(16)}),
 ], ids=["qkv-bias", "attention-alibi", "attention-kv-scales", "mlp-bias"])
-def test_fused_wrappers_refuse_unported_features(which, kw, item):
-    """KV scale planes still raise, naming their ROADMAP item. The q/k/v
-    and fc biases and the ALiBi slopes are served since the BLOOM / GPT-2
-    serving slice: the same calls now run and the feature moves the
-    result (a dropped bias or slope would leave it as without)."""
+def test_fused_wrappers_refuse_unported_features(which, kw):
+    """Nothing of these is refused any more: the q/k/v and fc biases and
+    the ALiBi slopes are served since the BLOOM / GPT-2 serving slice and
+    the KV scale planes since the int8/fp8 KV slice. The same calls run
+    and the feature moves the result (a dropped bias, slope or scale
+    would leave it as without)."""
     rng = np.random.default_rng(0)
 
     def call(**extra):
@@ -419,10 +421,6 @@ def test_fused_wrappers_refuse_unported_features(which, kw, item):
         return tfd.fused_mlp(x, x, torch.ones(16), torch.ones(16, 32), torch.ones(32, 16),
                              torch.ones(16, 32), **extra)
 
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
-            call(**kw)
-        return
     rng = np.random.default_rng(0)
     without = call()
     rng = np.random.default_rng(0)

@@ -249,14 +249,17 @@ def test_append_token_kv_in_place_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [{"alibi_slopes": np.ones(8, np.float32)},
-                                {"k_scale": np.ones((3, 8, 16), np.float32),
-                                 "v_scale": np.ones((3, 8, 16), np.float32)}],
+                                {"k_scale": np.linspace(0.5, 2, 384, dtype=np.float32
+                                                        ).reshape(3, 8, 16),
+                                 "v_scale": np.linspace(2, 0.5, 384, dtype=np.float32
+                                                        ).reshape(3, 8, 16)}],
                          ids=["alibi", "kv-scales"])
 @pytest.mark.parametrize("which", ["decode", "extend"])
 def test_paged_wrappers_refuse_unported_features(kw, which):
-    """KV scale planes still raise, naming ROADMAP item 3 (d). ALiBi slopes
-    are served since the BLOOM / GPT-2 serving slice: the same call runs
-    and the slopes move the result."""
+    """Nothing of these is refused any more: ALiBi slopes are served since
+    the BLOOM / GPT-2 serving slice and KV scale planes since the int8/fp8
+    KV slice. The same call runs and the feature moves the result (a
+    dropped slope or scale would leave it as without)."""
     rng = np.random.default_rng(0)
     q = T(rng.standard_normal((1, 1, 8, 32), np.float32))
     ck, cv = (T(rng.standard_normal((3, 8, 16, 32), np.float32)) for _ in range(2))
@@ -268,11 +271,7 @@ def test_paged_wrappers_refuse_unported_features(kw, which):
             return tpa.paged_decode_attention(q, ck, cv, bt, n, **extra)
         return tpa.paged_extend_attention(q, ck, cv, bt, n - 1, torch.ones_like(n), **extra)
 
-    if "alibi_slopes" not in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 3"):
-            call(**kw)
-        return
-    assert not torch.allclose(call(**kw), call())
+    assert not torch.allclose(call(**{k: T(v) for k, v in kw.items()}), call())
 
 
 def test_paged_wrappers_on_cpu_do_not_count_launches():

@@ -121,7 +121,8 @@ def _v1_engine(**cfg):
     ("generate-temperature", "item 3"), ("generate-rng", "item 3"),
     ("tensor_parallel", "item 12"), ("quantize_weights-lora", "InferenceEngineV2"),
     ("hf-path", "item 14"),
-    ("hf-object", "item 14"), ("checkpoint", "item 7"), ("forward", "item 4")])
+    ("hf-object", "item 14"), ("checkpoint", "item 7"), ("forward", "item 4"),
+    ("kv_cache_dtype-int8", "InferenceEngineV2"), ("kv_cache_dtype-fp8", "InferenceEngineV2")])
 def test_v1_refusals_name_their_roadmap_item(what, item):
     model, params, eng = _v1_engine()
     calls = {
@@ -137,8 +138,11 @@ def test_v1_refusals_name_their_roadmap_item(what, item):
         "hf-object": lambda: init_inference(torch.nn.Linear(2, 2), params, {}),
         "checkpoint": lambda: init_inference(model, params, {}, checkpoint="ckpt"),
         "forward": lambda: eng.forward([[1, 2]]),
+        # JAX's v1 engine never reads kv_cache_dtype; the port refuses it there
+        "kv_cache_dtype-int8": lambda: init_inference(model, params, {"kv_cache_dtype": "int8"}),
+        "kv_cache_dtype-fp8": lambda: init_inference(model, params, {"kv_cache_dtype": "fp8"}),
     }
-    # adapters are ported to the paged engine: the v1 engine names it
+    # adapters and int8/fp8 KV are ported to the paged engine: the v1 engine names it
     match = f"ROADMAP queue A, {item}" if item.startswith("item") else item
     with pytest.raises((ConfigError, NotImplementedError), match=match):
         calls[what]()
@@ -249,6 +253,11 @@ def test_fused_decode_kernels_are_not_ported_yet():
     {"serving": {"speculative": {"k": 4}}},
 ], ids=lambda d: "-".join(f"{k}" for k in d) + "-" + str(next(iter(d.values())))[:12])
 def test_unported_config_keys_raise_naming_the_roadmap(d):
+    if "kv_cache_dtype" in d:
+        # int8/fp8 KV is ported (the paged engine): accepted as JAX accepts it
+        assert (InferenceConfig.from_dict(d).kv_cache_dtype
+                == JConfig.from_dict(d).kv_cache_dtype == d["kv_cache_dtype"])
+        return
     if "adapters" in d:
         # the section is ported: a bad one raises as JAX's AdapterConfig does
         with pytest.raises(JConfigError, match="adapters.targets"):
