@@ -70,7 +70,15 @@ non-zero exit code. The phases:
    mask transposed, the causal AND dropped, a tile map of a shifted layout
    and a plain version without the zero-row rule; ``impl="dense"`` must
    raise on a CUDA tensor; then one user call of ``sparse_attention``
-   (forward and backward) must launch the mask form once each.
+   (forward and backward) must launch the mask form once each; phase 2m
+   for the quantized fused MLP's (B7's) forms: RMSNorm or layernorm with
+   its bias, gated or plain, silu, relu, gelu_new or gelu_pytorch_tanh,
+   int8, int4 or fp8, at Llama-3-8B's, BLOOM-1b7's and GPT-2's widths, 1
+   and 8 rows, over cells in which every value of each axis meets every
+   value of each other axis: tolerances shown to catch a dropped layernorm
+   bias, the gate read on the plain form, gelu_new computed as relu,
+   layernorm computed as RMSNorm and w_down's scale rows shifted, each
+   cell timed beside its bytes bound and dequantize + the cuBLAS sequence.
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
    Llama-3-8B at full width and depth with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
@@ -134,6 +142,18 @@ non-zero exit code. The phases:
    ``decode_loop`` over it (slopes and scales in one kernel). 4b:
    each cut to depth 2, its ``step()``, ``put()`` and v1 schedules under
    "auto" and "xla" against the CPU f32 engine, as phase 4.
+3i. On the same weights: BLOOM-1b7 with int8, int4 and fp8 weights and
+   GPT-2 with int8 weights, each a serve under "auto" and "xla", ``put()``
+   + ``decode_loop`` against the single-token ``put()`` loop and the v1
+   ``generate``, the launch counters held to the programs (the quantized
+   matmul on every matrix, the fused quantized MLP never: the fc biases
+   keep the MLP on the layer body, as in JAX) and the weight bytes;
+   BLOOM-1b7's widths without fc biases, int8, under "auto" (the fused
+   quantized MLP in its layernorm + plain + gelu_new form once a layer and
+   decode row); multi-tenant BLOOM-1b7 on a bf16 and an int8 base (3f's
+   pool and tenants, 24 requests over 8 adapters, no preemption); and a
+   profiled int8 decode window. 4d: BLOOM-1b7 int8 cut to depth 2 (and its
+   widths without fc biases) against the CPU f32 engine, as phase 4.
 5. Train: ``initialize`` + ``Engine.train_batch`` on the largest entry of
    the Llama training ladder whose state fits the card (``llama3-1b-style``
    on 80 GB), full depth, bf16, FusedAdam, full remat, batch 32 x 1024, one
@@ -1303,6 +1323,150 @@ def check_fused_mlp_quant(gen):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2m: B7's norm, gate and activation forms
+# ---------------------------------------------------------------------------
+
+# (D, F) of the three models the port serves quantized
+MQ_WIDTHS = {"llama": (4096, 14336), "bloom": (2048, 8192), "gpt2": (768, 3072)}
+MQ_AXES = {"norm": ("rmsnorm", "layernorm"), "gated": (True, False),
+           "activation": ("silu", "relu", "gelu_new", "gelu_pytorch_tanh"),
+           "bits": QUANT_FORMATS, "width": tuple(MQ_WIDTHS), "B": (8, 1)}
+# the form BLOOM-1b7's widths without fc biases serve (phase 3i) in each
+# format, first: the kernels JSON times the first
+MQ_FIRST = [("layernorm", False, "gelu_new", bits, "bloom", 8) for bits in QUANT_FORMATS]
+
+
+def mlp_quant_cells(first=MQ_FIRST, axes=MQ_AXES):
+    """``first``, then cells of the product of ``axes`` picked greedily
+    (each the one that meets the most value pairs not yet met) until every
+    value of every axis has met every value of every other axis."""
+    import itertools
+
+    n = len(axes)
+
+    def pairs(cell):
+        return {(i, cell[i], j, cell[j]) for i, j in itertools.combinations(range(n), 2)}
+
+    vals = list(axes.values())
+    need = {(i, a, j, b) for i, j in itertools.combinations(range(n), 2)
+            for a in vals[i] for b in vals[j]}
+    cells = list(first)
+    for c in cells:
+        need -= pairs(c)
+    product = list(itertools.product(*vals))
+    while need:
+        best = max(product, key=lambda c: len(pairs(c) & need))
+        cells.append(best)
+        need -= pairs(best)
+    return cells
+
+
+def _b7_broken(h, ln_w, ln_b, qu, qd, qg, norm, act, bite):
+    """A plain B7 with one deliberate fault: ``ln_b`` dropped, the gate read
+    on the plain form (w_up standing in as the gate), gelu_new computed as
+    relu, or RMSNorm (its bias kept) where the form says layernorm."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops.fused_decode import _act_f32, fused_mlp_quant_reference
+
+    if bite == "rmsnorm_for_layernorm":
+        x = h.float()
+        yn = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-5) * ln_w.float()
+              + ln_b.float()).to(h.dtype).float()
+        f32 = torch.float32
+        u = yn @ qu.dequantize(f32)
+        fn = _act_f32(act)
+        a = fn(yn @ qg.dequantize(f32)) * u if qg is not None else fn(u)
+        return (h.float() + a.to(h.dtype).float() @ qd.dequantize(f32)).to(h.dtype)
+    kw = dict(ln_b=None if bite == "dropped_ln_b" else ln_b, norm=norm,
+              activation="relu" if bite == "gelu_new_as_relu" else act)
+    gate = qu if bite == "gate_read_on_plain" else qg
+    return fused_mlp_quant_reference(h, h, ln_w, qu, qd, gate, 1e-5, **kw)
+
+
+def check_mlp_quant_forms(gen):
+    """B7 in every norm (RMSNorm, layernorm with its bias), gate (gated or
+    plain), fusable activation and storage format, at Llama-3-8B's,
+    BLOOM-1b7's and GPT-2's widths and 1 and 8 rows, over the cells of
+    ``mlp_quant_cells`` (each axis value meets each other axis's values),
+    through ``fused_mlp`` against ``fused_mlp_quant_reference`` within
+    QUANT_MLP_TOL, each timed beside its bytes bound, the plain version and
+    dequantize + the cuBLAS sequence. The rows carry a per-row offset (a
+    hidden state's mean), so layernorm and RMSNorm differ; the bites that
+    apply to a cell's form must fail: a dropped ``ln_b``, the gate read on
+    the plain form, gelu_new computed as relu, layernorm computed as
+    RMSNorm."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch.ops.fused_decode import fused_mlp, fused_mlp_quant_reference
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import quantize_weight
+
+    randn = lambda *sh, scale=1.0: scale * torch.randn(*sh, generator=gen, device="cuda")
+    rows, made = [], {}
+    cells = MQ_FIRST + sorted((c for c in mlp_quant_cells() if c not in MQ_FIRST),
+                              key=lambda c: (c[4], str(c[3])))     # one quantization each
+    with _f32_reduction():
+        for norm, gated, act, bits, width, B in cells:
+            D, Fd = MQ_WIDTHS[width]
+            if (width, bits) not in made:
+                made.clear()
+                torch.cuda.empty_cache()
+                ws = [randn(D, Fd, scale=D ** -0.5).bfloat16(), randn(D, Fd, scale=D ** -0.5)
+                      .bfloat16(), randn(Fd, D, scale=Fd ** -0.5).bfloat16()]
+                made[(width, bits)] = [quantize_weight(w, 256, bits=bits) for w in ws]
+                del ws
+            qg_all, qu, qd = made[(width, bits)]
+            qg = qg_all if gated else None
+            ln_w = (1 + randn(D, scale=0.1)).bfloat16()
+            ln_b = randn(D, scale=0.1).bfloat16()
+            h = (randn(B, D) + randn(B, 1, scale=0.5)).bfloat16()
+            kw = dict(ln_b=ln_b, norm=norm, activation=act)
+            run = lambda: fused_mlp(h, h, ln_w, qu, qd, qg, eps=1e-5, **kw)
+            plain = lambda: fused_mlp_quant_reference(h, h, ln_w, qu, qd, qg, 1e-5, **kw)
+            got, want = run(), plain()
+            err, tol_ok = quant_mlp_close(got, want)
+            names = (["dropped_ln_b", "rmsnorm_for_layernorm"] if norm == "layernorm" else []) + \
+                (["gate_read_on_plain"] if not gated else []) + \
+                (["gelu_new_as_relu"] if act == "gelu_new" else [])
+            bites = {b: not quant_mlp_close(got, _b7_broken(h, ln_w, ln_b, qu, qd, qg, norm, act,
+                                                            b))[1] for b in names}
+            bites["w_down_scales_shifted"] = not quant_mlp_close(got, fused_mlp_quant_reference(
+                h, h, ln_w, qu, _shifted_scales(qd), qg, 1e-5, **kw))[1]
+            shape = dict(B=B, D=D, F=Fd, gs=qu.group_size, bits=str(bits), norm=norm,
+                         gated=gated, activation=act, width=width)
+            _check(tol_ok, f"fused quantized MLP kernel disagrees with its plain version at "
+                   f"{shape}: max abs err {err.max().item()}")
+            _check(all(bites.values()), f"the fused quantized MLP tolerance does not catch a "
+                   f"broken plain version at {shape}: {bites}")
+            fn = {"silu": F.silu, "relu": F.relu}.get(act, lambda x: F.gelu(x, approximate="tanh"))
+
+            def deq_cublas():
+                yn = (F.layer_norm(h, (D,), ln_w, ln_b, 1e-5) if norm == "layernorm" else
+                      F.rms_norm(h, (D,), ln_w, 1e-5))
+                u = yn @ qu.dequantize()
+                a = fn(yn @ qg.dequantize()) * u if gated else fn(u)
+                return h + a @ qd.dequantize()
+
+            mats = [w for w in (qg, qu, qd) if w is not None]
+            nbytes = sum(w.nbytes for w in mats) + 3 * B * D * 2 + 2 * D * 2
+            b_ms, b_by = bound(nbytes, 2.0 * B * D * Fd * len(mats))
+            row = dict(shape=shape, max_abs_err=err.max().item(),
+                       max_rel_err=(err.max() / want.float().abs().max()).item(),
+                       tolerance=QUANT_MLP_TOL, within=tol_ok, tolerance_bites=bites,
+                       ms=time_cold(run), host_us=host_us(run), plain_ms=time_cold(plain),
+                       library_ms=time_cold(deq_cublas),
+                       library="dequantize() + the cuBLAS sequence", bound_ms=b_ms,
+                       bound_by=b_by)
+            row["gbytes_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+            rows.append(row)
+            del h, got, want, err
+    made.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 2f: the grouped GEMM of the MoE experts (B16)
 # ---------------------------------------------------------------------------
 
@@ -1895,10 +2059,13 @@ def expected_launches(eng, n_layers, loop_steps=0, by=None):
     ``loop_steps`` steps of ``decode_loop``), fused: ln1 in every layer and
     the final norm, and each fused kernel once a layer; else like chunk
     rows, with the paged decode kernel. Quantized weights: every matmul of
-    chunk and prefill rows is the quantized matmul (7 a layer); fused
-    decode rows take it for q, k, v and wo, the split-K attention and the
-    quantized fused MLP (the fused QKV kernel steps aside), unfused ones 7
-    a layer. Layernorm models launch no RMSNorm; an ALiBi model's prefill
+    chunk and prefill rows is the quantized matmul (7 a layer for a gated
+    MLP, 6 for a plain one); fused decode rows take it for q, k, v and wo,
+    the split-K attention and the quantized fused MLP (the fused QKV kernel
+    steps aside), unfused ones for every matrix. A quantized MLP with fc
+    biases (BLOOM, GPT-2) stays on the layer body, as in JAX: the quantized
+    matmul for w_up and w_down on every row, no fused MLP. Layernorm models
+    launch no RMSNorm; an ALiBi model's prefill
     rows run B11 in place of the flash kernel, and an MLP that does not
     fuse (GPT-2's exact gelu) stays on the layer body. An MoE model's FFN runs three grouped-GEMM launches a layer on
     every row kind and never fuses (ln2 is its own RMSNorm); quantized,
@@ -1912,13 +2079,17 @@ def expected_launches(eng, n_layers, loop_steps=0, by=None):
     dec = by.get("decode", 0) + by.get("mixed", 0) + loop_steps
     ext = by.get("extend", 0) + by.get("mixed", 0)
     pre = by.get("prefill", 0)
+    mcfg = eng._mcfg
     fused = eng._decode_kernel == "pallas"
     quant = eng.config.quantize_weights
-    moe = eng._mcfg.n_experts > 0
-    fused_mlp = fused and eng._fuse_mlp
+    moe = mcfg.n_experts > 0
+    gated = mcfg.activation == "swiglu"
+    n_mlp = 3 if gated else 2
+    fused_mlp = (fused and eng._fuse_mlp
+                 and not (quant and mcfg.mlp_bias and not gated))   # JAX's routing
     lora = eng.adapters is not None
-    rms = eng._mcfg.norm == "rmsnorm"          # layernorm is plain PyTorch, as in JAX
-    alibi = eng._mcfg.position == "alibi"      # the prefill takes B11
+    rms = mcfg.norm == "rmsnorm"               # layernorm is plain PyTorch, as in JAX
+    alibi = mcfg.position == "alibi"           # the prefill takes B11
     out = {"rmsnorm": ((2 * L + 1) * (ext + pre) + (L + 1 if fused_mlp else 2 * L + 1) * dec
                        if rms else 0),
            "paged_decode_attention": 0 if fused else L * dec,
@@ -1935,7 +2106,8 @@ def expected_launches(eng, n_layers, loop_steps=0, by=None):
     elif moe:
         out["quant_matmul"] = 4 * L * (dec + ext + pre)
     else:
-        out["quant_matmul"] = (4 if fused else 7) * L * dec + 7 * L * (ext + pre)
+        out["quant_matmul"] = ((4 if fused_mlp else 4 + n_mlp) * L * dec
+                               + (4 + n_mlp) * L * (ext + pre))
     # the training step's
     out.update(flash_attention_bwd=0, fused_adamw=0, grouped_matmul_dx=0, grouped_matmul_dw=0,
                alibi_flash_attention=L * pre if alibi else 0, alibi_flash_attention_bwd=0)
@@ -2111,8 +2283,10 @@ def v1_generate(model, params, prompts, n_layers, card, max_new=LOOP_STEPS + 1,
     what its prefill (flash kernel, or B11 for ALiBi) and decode steps
     (fused QKV without a pool, fused MLP where the model's MLP fuses; plain
     decode attention) imply. With quantized weights
-    every prefill matmul is the quantized matmul (7 a layer), and a decode
-    step takes it for q, k, v and wo beside the quantized fused MLP."""
+    every prefill matmul is the quantized matmul (7 a layer; 6 for a plain
+    MLP), and a decode step takes it for q, k, v and wo beside the
+    quantized fused MLP, or for every matrix when the MLP has fc biases
+    (BLOOM, GPT-2: the layer body, as in JAX)."""
     from shuffle_exchange_tpu_torch import init_inference, ops
 
     eng = init_inference(model, params, dict(config))
@@ -2138,10 +2312,18 @@ def v1_generate(model, params, prompts, n_layers, card, max_new=LOOP_STEPS + 1,
     want = {k: 0 for k in launches}
     quant = eng.config.quantize_weights
     mcfg = eng._mcfg
+    gated = mcfg.activation == "swiglu"
+    # the fused MLP on decode steps, unless quantized with fc biases (JAX's routing)
+    mlp = eng._fuse_mlp and not (quant and mcfg.mlp_bias and not gated)
     if mcfg.norm != "rmsnorm":   # BLOOM / GPT-2: layernorm, B11 or B14 prefill, B4, maybe B6
         want.update({"alibi_flash_attention" if mcfg.position == "alibi" else
-                     "flash_attention": L}, fused_qkv_rope=L * steps,
-                    fused_mlp=L * steps if eng._fuse_mlp else 0)
+                     "flash_attention": L})
+        if quant:   # B8 on every matrix but a fused MLP's; B4 steps aside
+            n_mlp = 3 if gated else 2
+            want.update(quant_matmul=(4 + n_mlp) * L + (4 if mlp else 4 + n_mlp) * L * steps,
+                        fused_mlp_quant=L * steps if mlp else 0)
+        else:
+            want.update(fused_qkv_rope=L * steps, fused_mlp=L * steps if mlp else 0)
     elif eng._mcfg.n_experts:     # the MoE FFN: three grouped GEMMs a layer, no fused MLP
         want.update(flash_attention=L, rmsnorm=(2 * L + 1) * (1 + steps),
                     grouped_matmul=3 * L * (1 + steps))
@@ -2323,17 +2505,20 @@ def tenant_factors(mcfg, i, rank=MT_RANK, targets=MT_TARGETS, std=0.02, alpha=No
     return out
 
 
-def multi_tenant_serving(model, params, prompts, n_layers, card, seed):
+def multi_tenant_serving(model, params, prompts, n_layers, card, seed, stripes=MT_STRIPES,
+                         config=MT_CONFIG, label="multi-tenant", put_loop=True):
     """3f: one engine (the pool's 4 slots, 64 tenants registered), the
-    phase's 24 requests served closed-loop for each stripe of MT_STRIPES
+    phase's 24 requests served closed-loop for each stripe of ``stripes``
     adapters: a warm serve, then the measured one with the launch
     counters zeroed just before and read just after (they must equal what
     its programs imply: B9 twice a layer and lane, no fused QKV on adapter
     rows). Every stripe must finish with no preemption and parks ==
     unparks, and the measured serves of the 8- and 64-adapter stripes add
-    no program shape. Then ``put()`` of the 3b prompts under 8 distinct
-    adapters + ``decode_loop`` (tokens equal to the single-token ``put()``
-    loop), and one profiled decode window."""
+    no program shape. Then, with ``put_loop``, ``put()`` of the 3b prompts
+    under 8 distinct adapters + ``decode_loop`` (tokens equal to the
+    single-token ``put()`` loop), and one profiled decode window. Phase 3i
+    runs the 8-adapter stripe alone on BLOOM-1b7 (``config`` with
+    ``quantize_weights`` for its int8 base)."""
     import torch
 
     from shuffle_exchange_tpu_torch import ops
@@ -2346,20 +2531,20 @@ def multi_tenant_serving(model, params, prompts, n_layers, card, seed):
     reqs = [rng.integers(1, V, size=int(n)).tolist()
             for n in rng.integers(lo, hi + 1, size=MT_REQUESTS)]
     t0 = time.perf_counter()
-    tenants = {f"tenant-{i:03d}": tenant_factors(mcfg, i) for i in range(max(MT_STRIPES))}
-    eng = InferenceEngineV2(model, params, InferenceConfig(**MT_CONFIG))
-    _check(eng._decode_kernel == "pallas", "multi-tenant: decode_kernel auto did not resolve "
+    tenants = {f"tenant-{i:03d}": tenant_factors(mcfg, i) for i in range(max(stripes))}
+    eng = InferenceEngineV2(model, params, InferenceConfig(**config))
+    _check(eng._decode_kernel == "pallas", f"{label}: decode_kernel auto did not resolve "
            "to the fused kernels on the card")
     for aid, fac in tenants.items():
         eng.adapters.register(aid, fac)
     host_gb = sum(a.nbytes + b.nbytes for fac in tenants.values() for a, b in fac.values()) / 1e9
     pool_mb = sum(t.numel() * t.element_size()
                   for k in ("a", "b") for t in eng.adapters.device_operands()[k].values()) / 1e6
-    print(f"[multi-tenant] {len(tenants)} tenants registered ({host_gb:.2f} GB of f32 host "
+    print(f"[{label}] {len(tenants)} tenants registered ({host_gb:.2f} GB of f32 host "
           f"factors) over a {eng.adapters.slots}-slot pool of {pool_mb:.2f} MB in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     out = {"stripes": {}}
-    for n in MT_STRIPES:
+    for n in stripes:
         aids = [f"tenant-{i % n:03d}" for i in range(MT_REQUESTS)]
         t0 = time.perf_counter()
         ContinuousBatchingScheduler(eng).serve(reqs, max_new_tokens=MT_NEW, adapter_ids=aids)
@@ -2377,17 +2562,17 @@ def multi_tenant_serving(model, params, prompts, n_layers, card, seed):
         st = sched.stats()
         by = {k: v - by0.get(k, 0) for k, v in eng.dispatches_by_program.items()}
         want = expected_launches(eng, n_layers, by=by)
-        _check(launches == want, f"multi-tenant {n}: launch counts {launches} != implied {want}")
+        _check(launches == want, f"{label} {n}: launch counts {launches} != implied {want}")
         _check(len(toks) == MT_REQUESTS and all(len(t) == MT_NEW for t in toks.values()),
-               f"multi-tenant {n}: requests did not all finish with {MT_NEW} tokens")
+               f"{label} {n}: requests did not all finish with {MT_NEW} tokens")
         _check(all(0 <= t < V for ts in toks.values() for t in ts), "token out of range")
         ad = st["adapters"]
         _check(st["preemptions"] == 0 and ad["parks"] == ad["unparks"] and ad["pinned"] == 0,
-               f"multi-tenant {n}: preemptions {st['preemptions']}, parks {ad['parks']}, "
+               f"{label} {n}: preemptions {st['preemptions']}, parks {ad['parks']}, "
                f"unparks {ad['unparks']}, pinned {ad['pinned']}")
         new_programs = sorted(set(eng.program_shapes) - programs)
         if n > 1:
-            _check(not new_programs, f"multi-tenant {n}: the measured serve added program "
+            _check(not new_programs, f"{label} {n}: the measured serve added program "
                    f"shapes {new_programs}")
         pool = {k: ad[k] - pool0[k] for k in ("hits", "misses", "evictions", "installs",
                                               "prefetch_hits", "prefetch_misses")}
@@ -2400,7 +2585,7 @@ def multi_tenant_serving(model, params, prompts, n_layers, card, seed):
                  parks=ad["parks"], unparks=ad["unparks"], preemptions=st["preemptions"],
                  programs=by, new_programs=new_programs, launches=launches)
         out["stripes"][n] = r
-        print(f"[multi-tenant {n} adapters] {MT_REQUESTS} requests x {MT_NEW} tokens in "
+        print(f"[{label} {n} adapters] {MT_REQUESTS} requests x {MT_NEW} tokens in "
               f"{seconds:.2f} s (warm serve {warm_s:.2f} s): tok/s={r['tokens_per_s']} "
               f"ttft_p50/p95_s={r['ttft_p50_s']}/{r['ttft_p95_s']} "
               f"tpot_p50/p95_s={r['tpot_p50_s']}/{r['tpot_p95_s']} ticks={r['ticks']} "
@@ -2410,6 +2595,8 @@ def multi_tenant_serving(model, params, prompts, n_layers, card, seed):
     del eng, sched
     gc.collect()
     torch.cuda.empty_cache()
+    if not put_loop:
+        return out
 
     # put() + decode_loop under 8 distinct adapters, on a pool with a slot each
     put_cfg = dict(MT_CONFIG, adapters=dict(MT_CONFIG["adapters"], slots=len(prompts)))
@@ -2719,6 +2906,19 @@ def _compare(got, want):
                 ref_abs_max=float(np.abs(want).max()),
                 within=bool(err.max() <= E2E_REL_TOL * np.abs(want).max()),
                 argmax_agree=float(np.mean(got.argmax(-1) == want.argmax(-1))))
+
+
+def report_e2e(label, e2e, against="the CPU f32 plain path"):
+    """Print each call's error of ``e2e`` ({what: {decode kernel: calls}})
+    and fail unless every call is within E2E_REL_TOL."""
+    for what, by_dk in e2e.items():
+        for dk, calls in by_dk.items():
+            for i, t in enumerate(calls):
+                print(f"[e2e {label}{what} {dk}] call {i}: rows={t['rows']} "
+                      f"max_abs_err={t['max_abs_err']} (tol {E2E_REL_TOL} x |ref| max "
+                      f"{t['ref_abs_max']}) argmax_agree={t['argmax_agree']}")
+            _check(all(t["within"] for t in calls), f"depth-2 {label}{what} logits on the card "
+                   f"({dk}) disagree with {against}")
 
 
 def put_schedule(rng, V, lengths=(200, 120, 60, 30)):
@@ -4142,14 +4342,7 @@ def family_e2e(name, cfg, params, seed):
     e2e["v1"] = e2e_v1_check(cfg2, state2, np.random.default_rng([seed, 8]))
     print(f"[e2e {name}] depth 2: step(), put() and v1 schedules in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for what, by_dk in e2e.items():
-        for dk, calls in by_dk.items():
-            for i, t in enumerate(calls):
-                print(f"[e2e {name} {what} {dk}] call {i}: rows={t['rows']} "
-                      f"max_abs_err={t['max_abs_err']} (tol {E2E_REL_TOL} x |ref| max "
-                      f"{t['ref_abs_max']}) argmax_agree={t['argmax_agree']}")
-            _check(all(t["within"] for t in calls), f"depth-2 {name} {what} logits on the card "
-                   f"({dk}) disagree with the CPU f32 plain path")
+    report_e2e(f"{name} ", e2e)
     return e2e
 
 
@@ -4167,14 +4360,131 @@ def kv_e2e(name, cfg, card_state, seed, formats=KV_FORMATS):
                                           kv=fmt)
     print(f"[e2e {name} KV] depth 2: step() and put() schedules, {' and '.join(formats)} KV, "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
-    for what, by_dk in e2e.items():
-        for dk, calls in by_dk.items():
-            for i, t in enumerate(calls):
-                print(f"[e2e {name} {what} KV {dk}] call {i}: rows={t['rows']} "
-                      f"max_abs_err={t['max_abs_err']} (tol {E2E_REL_TOL} x |ref| max "
-                      f"{t['ref_abs_max']}) argmax_agree={t['argmax_agree']}")
-            _check(all(t["within"] for t in calls), f"depth-2 {name} {what} KV logits on the "
-                   f"card ({dk}) disagree with the CPU f32 engine in the same mode")
+    report_e2e(f"{name} ", e2e, "the CPU f32 engine in the same KV mode")
+    return e2e
+
+
+# ---------------------------------------------------------------------------
+# Phases 3i and 4d: quantized-weight and multi-tenant serving of BLOOM-1b7
+# and GPT-2 (the layernorm / gelu / bias families), on phase 3g's weights
+# ---------------------------------------------------------------------------
+
+# BLOOM-1b7 serves every format, GPT-2 int8
+FAMILY_QUANT = {"bloom-1b7": QUANT_FORMATS, "gpt2-small": (8,)}
+
+
+def _fmt(bits) -> str:
+    return "fp8" if bits == "fp8" else f"int{bits}"
+
+
+def family_quant_serving(name, cfg, params, seed, card, config=SERVE_CONFIG,
+                         v1_config=V1_CONFIG, longest=1024):
+    """Phase 3i for one model, on phase 3g's bf16 weights (each engine
+    quantizes them on the card and is freed before the next). For each
+    format of FAMILY_QUANT: a counted ``serve()`` under "auto" (which must
+    resolve to the fused path) and "xla", ``put()`` + ``decode_loop``
+    against the single-token ``put()`` loop and the v1 ``generate``, each
+    with its launch counters held to the programs: B8 on q, k, v, wo, w_up
+    and w_down, and B7 never (the fc biases keep the MLP on the layer body,
+    as in JAX); the weight bytes against bf16. BLOOM-1b7 then serves: its
+    widths without fc biases (``mlp_bias=False``), int8, under "auto",
+    where B7 runs once a layer and decode row in its layernorm + plain +
+    gelu_new form; multi-tenant (phase 3f's pool and tenants, the
+    8-adapter stripe) on the bf16 base and on an int8 base; and a profiled
+    8-step int8 ``decode_loop`` (the idle share)."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.models import Transformer
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    model, L = Transformer(cfg), cfg.n_layers
+    dense_bytes = weight_bytes(params)
+    prompts = loop_prompts(np.random.default_rng([seed, 5]), cfg.vocab_size, longest=longest)
+    out = {"serve": {}, "put_decode_loop": {}, "v1_generate": {},
+           "dense_weight_bytes": dense_bytes}
+    runs = []
+    for bits in FAMILY_QUANT[name]:
+        fmt, qconf = _fmt(bits), dict(config, **_quant(bits))
+        for dk in ("auto", "xla"):
+            r = counted_serve(model, params, np.random.default_rng([seed, 1]),
+                              dict(qconf, decode_kernel=dk), L, card,
+                              label=f"{name} {fmt} {dk}", prompt_range=(128, longest))
+            _check(dk != "auto" or r["resolved"] == "pallas", f"{name} {fmt}: decode_kernel "
+                   "auto did not resolve to the fused kernels on the card")
+            _check(r["launches"]["fused_mlp_quant"] == 0 and r["launches"]["quant_matmul"] > 0,
+                   f"{name} {fmt} {dk}: the quantized MLP with fc biases left the layer body")
+            print(f"[serve {name} {fmt} {dk}] weights {r['weight_bytes'] / 1e9:.3f} GB against "
+                  f"{dense_bytes / 1e9:.3f} GB in bf16 ({r['weight_bytes'] / dense_bytes:.3f})",
+                  flush=True)
+            r["tokens"] = {int(u): t for u, t in r["tokens"].items()}
+            out["serve"][f"{fmt} {dk}"] = r
+            runs.append(r["launches"])
+            free()
+        out["put_decode_loop"][fmt] = put_decode_loop(model, params, prompts, L, card,
+                                                      config=qconf, label=f"{name} put {fmt}")
+        free()
+        out["v1_generate"][fmt] = v1_generate(model, params, prompts, L, card,
+                                              config=dict(v1_config, **_quant(bits)),
+                                              label=f"{name} v1 generate {fmt}")
+        runs += [out["put_decode_loop"][fmt]["launches"], out["v1_generate"][fmt]["launches"]]
+        free()
+    out["runs"] = runs
+    if name != "bloom-1b7":
+        return out
+    # BLOOM-1b7's widths without fc biases: B7's layernorm + plain + gelu_new form
+    nb_cfg = dataclasses.replace(cfg, mlp_bias=False)
+    nb_params = {k: v for k, v in params.items() if k not in ("layers.b_up", "layers.b_down")}
+    r = counted_serve(Transformer(nb_cfg), nb_params, np.random.default_rng([seed, 1]),
+                      dict(config, **_quant(8)), L, card, label=f"{name} mlp_bias=False int8",
+                      prompt_range=(128, longest))
+    _check(r["resolved"] == "pallas" and r["launches"]["fused_mlp_quant"] > 0,
+           f"{name} mlp_bias=False int8: B7 did not run ({r['launches']})")
+    r["tokens"] = {int(u): t for u, t in r["tokens"].items()}
+    out["serve"]["nobias int8 auto"] = r
+    out["b7_form_launches"] = r["launches"]["fused_mlp_quant"]
+    runs.append(r["launches"])
+    del nb_params
+    free()
+    # multi-tenant: phase 3f's pool and tenants, 24 requests over 8 adapters
+    out["multi_tenant"] = {}
+    for base, bits in (("bf16", None), ("int8", 8)):
+        mt = multi_tenant_serving(model, params, prompts, L, card, seed, stripes=(8,),
+                                  config=dict(MT_CONFIG, **_quant(bits)),
+                                  label=f"{name} multi-tenant {base}", put_loop=False)
+        out["multi_tenant"][base] = mt["stripes"][8]
+        runs.append(mt["stripes"][8]["launches"])
+        free()
+    out["trace_decode"] = trace_decode_window(model, params, prompts,
+                                              config=dict(config, **_quant(8)))
+    print(f"[trace {name} decode_loop int8] "
+          f"{json.dumps(out['trace_decode']) if out['trace_decode'] else 'no device kernels'}",
+          flush=True)
+    free()
+    return out
+
+
+def family_quant_e2e(name, cfg, params, seed):
+    """Phase 4d: BLOOM-1b7 cut to depth 2 with int8 weights on the card
+    against the CPU f32 engine fed the weights it serves: the ``step()``
+    schedule under "auto" and "xla" and the ``put()`` schedule under both,
+    and its widths without fc biases (B7's layernorm form on the decode
+    rows) under "auto", within E2E_REL_TOL."""
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    state2 = {k: (v[:2] if k.startswith("layers.") else v) for k, v in params.items()}
+    nb_cfg2 = dataclasses.replace(cfg2, mlp_bias=False)
+    nb_state2 = {k: v for k, v in state2.items() if k not in ("layers.b_up", "layers.b_down")}
+    t0 = time.perf_counter()
+    e2e = {"step": {dk: e2e_check(cfg2, state2, np.random.default_rng([seed, 2]),
+                                  decode_kernel=dk, quant_bits=8) for dk in ("auto", "xla")},
+           "put": e2e_put_check(cfg2, state2, np.random.default_rng([seed, 7]), quant_bits=8)}
+    e2e["step"]["auto mlp_bias=False"] = e2e_check(nb_cfg2, nb_state2,
+                                                   np.random.default_rng([seed, 2]), quant_bits=8)
+    print(f"[e2e {name} int8] depth 2: step() and put() schedules in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    report_e2e(f"{name} int8 ", e2e, "the CPU f32 engine")
     return e2e
 
 
@@ -4677,6 +4987,11 @@ def main(argv=None) -> int:
            f"sparse_attention forward + backward did not launch B15's mask form once each: "
            f"{sparse_launches}")
     mask_forms = {"flash_attention[mask]": sp_fwd, "flash_attention_bwd[mask]": sp_bwd}
+    # 2m. B7's norm, gate and activation forms at Llama's, BLOOM's and GPT-2's widths
+    t0 = time.perf_counter()
+    mq_forms = {"fused_mlp_quant[forms]": check_mlp_quant_forms(gen)}
+    print(f"[kernel] B7 forms: {len(mq_forms['fused_mlp_quant[forms]'])} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[kernel] B15 with an element mask: {len(sp_fwd)} layouts in "
           f"{time.perf_counter() - t0:.1f} s; a sparse_attention call launched "
           f"{sparse_launches['flash_attention']} forward and "
@@ -4690,7 +5005,8 @@ def main(argv=None) -> int:
                "lora_delta": lora, "flash_attention": flash,
                "flash_attention_bwd": fbwd, "fused_adamw": adamw,
                "alibi_flash_attention": al_fwd, "alibi_flash_attention_bwd_dq": al_dq,
-               "alibi_flash_attention_bwd_dkv": al_dkv, **forms, **kv_forms, **mask_forms}
+               "alibi_flash_attention_bwd_dkv": al_dkv, **forms, **kv_forms, **mask_forms,
+               **mq_forms}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
@@ -4822,14 +5138,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     # 4c. int8 and fp8 KV at depth 2 against the CPU f32 engine in the same mode
     kv_e2es = {"llama-3-8b": kv_e2e("llama-3-8b", cfg2, state2, args.seed)}
-    for what, by_dk in e2e.items():
-        for dk, calls in by_dk.items():
-            for i, t in enumerate(calls):
-                print(f"[e2e {what} {dk}] call {i}: rows={t['rows']} "
-                      f"max_abs_err={t['max_abs_err']} (tol {E2E_REL_TOL} x |ref| max "
-                      f"{t['ref_abs_max']}) argmax_agree={t['argmax_agree']}")
-            _check(all(t["within"] for t in calls), f"depth-2 {what} logits on the card ({dk}) "
-                   "disagree with the CPU f32 plain path")
+    report_e2e("", e2e)
 
     # 3e. Mixtral-8x7B at full width and depth, int8; the Llama weights go
     # first: the int8 Mixtral takes 47.7 GB
@@ -4876,7 +5185,7 @@ def main(argv=None) -> int:
     # and depth; 4b. each cut to depth 2 against the CPU f32 engine
     from shuffle_exchange_tpu_torch.models import config_from_hf, gpt2_small
 
-    families, family_e2es = {}, {}
+    families, family_e2es, fquant, fquant_e2e = {}, {}, {}, {}
     for name, fcfg, fconf, fv1, longest in (
             ("bloom-1b7", config_from_hf(BLOOM_1B7), SERVE_CONFIG, V1_CONFIG, 1024),
             ("gpt2-small", gpt2_small(), GPT2_SERVE, GPT2_V1, 960)):
@@ -4904,6 +5213,17 @@ def main(argv=None) -> int:
                                     for k, v in fparams.items()}, args.seed)
             print(f"[{name}] int8 KV serving in {t2 - t1:.1f} s, 4c in "
                   f"{time.perf_counter() - t2:.1f} s", flush=True)
+        # 3i. quantized weights and multi-tenant adapters on the same weights;
+        # 4d. BLOOM-1b7 int8 at depth 2 against the CPU f32 engine
+        t1 = time.perf_counter()
+        fquant[name] = family_quant_serving(name, fcfg, fparams, args.seed + 21, card, fconf,
+                                            fv1, longest)
+        runs += fquant[name].pop("runs")
+        t2 = time.perf_counter()
+        if name == "bloom-1b7":
+            fquant_e2e[name] = family_quant_e2e(name, fcfg, fparams, args.seed)
+        print(f"[{name}] phase 3i in {t2 - t1:.1f} s, 4d in {time.perf_counter() - t2:.1f} s",
+              flush=True)
         del fparams
         gc.collect()
         torch.cuda.empty_cache()
@@ -4934,6 +5254,8 @@ def main(argv=None) -> int:
     form_launches.update(kv_launches)
     form_launches.update({f"{k}[mask]": sparse_launches[k]
                           for k in ("flash_attention", "flash_attention_bwd")})
+    # B7's new forms on BLOOM-1b7's widths without fc biases (3i)
+    form_launches["fused_mlp_quant[forms]"] = fquant["bloom-1b7"]["b7_form_launches"]
 
     # 5. train the ladder's pick at full width and depth; 6. depth 2 against
     # the CPU
@@ -5128,6 +5450,7 @@ def main(argv=None) -> int:
               "train_bloom_e2e": be2e, "alibi_gpt2_serving": families,
               "alibi_gpt2_e2e": family_e2es, "form_launches": form_launches,
               "kv_quant_serving": kvserve, "kv_e2e": kv_e2es,
+              "family_quant_serving": fquant, "family_quant_e2e": fquant_e2e,
               "sparse_user_call": {"launches": sparse_launches, "finite": sparse_finite}}
     if args.out:
         with open(args.out, "w") as f:

@@ -19,11 +19,15 @@ attention kernel and whose decode step runs the plain ``decode_attention``
 (plain jnp in JAX as well), with the fused QKV (no pool) and MLP kernels
 under ``decode_kernel: "pallas"``.
 
-Under ``quantize_weights`` the seven layer matrices are stored as
-``QuantizedMatrix`` leaves and every ``y @ w`` on them runs the quantized
-matmul kernel; quantized attention weights leave the fused QKV kernel (as
-in JAX, a static choice by the weights' type), and a quantized MLP takes
-the fused quantized MLP kernel on one-token rows. An MoE model's expert
+Under ``quantize_weights`` the layer matrices (``wq``, ``wk``, ``wv``,
+``wo``, ``w_gate``, ``w_up``, ``w_down``: those the model has) are stored
+as ``QuantizedMatrix`` leaves and every ``y @ w`` on them runs the
+quantized matmul kernel; biases, norms, learned positions and ``embed_ln``
+stay dense. Quantized attention weights leave the fused QKV kernel (as in
+JAX, a static choice by the weights' type), and a quantized MLP takes the
+fused quantized MLP kernel on one-token rows unless it has fc biases
+(BLOOM, GPT-2): that one stays on the layer body, its biases added after
+the quantized matmuls, as the JAX engines route it. An MoE model's expert
 stacks are stored as int8 / fp8 ``[L, E, K, N]`` ``QuantizedMatrix``
 leaves, which the grouped-GEMM kernel reads at storage width; int4 keeps
 JAX's rounding emulation for them (dense leaves).
@@ -45,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.transformer import (Transformer, _norm, activation_fn, check_servable,
-                                  decode_fusion_eligibility, llama_family, rope_table)
+                                  decode_fusion_eligibility, rope_table)
 from ..config.config_utils import ConfigError
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
 from ..ops.flash_attention import flash_attention
@@ -133,16 +137,6 @@ class InferenceEngine:
         check_servable(model.config)
         self.model = model
         self.config = config or InferenceConfig()
-        if not llama_family(model.config):
-            if self.config.quantize_weights:
-                raise NotImplementedError(
-                    "not served by the PyTorch port yet: quantize_weights outside the Llama "
-                    "family (layernorm, biases, the gelu family, learned positions or ALiBi: "
-                    "ROADMAP queue A, item 4 (b))")
-            if self.config.adapters.enabled:
-                raise NotImplementedError(
-                    "not served by the PyTorch port yet: adapters outside the Llama family "
-                    "(ROADMAP queue A, item 10)")
         if self.config.adapters.enabled and not self.paged:
             raise ConfigError("adapters.enabled: multi-tenant LoRA adapters serve through the "
                               "paged InferenceEngineV2 (ContinuousBatchingScheduler, put(), "
@@ -388,22 +382,25 @@ class InferenceEngine:
                          h: torch.Tensor) -> Optional[torch.Tensor]:
         """``h + FFN(norm(h))`` through the fused MLP kernel (bf16 weights:
         RMSNorm or layernorm, gated or plain, with the fc biases) or the
-        fused quantized MLP kernel for one-token rows when the decode path
-        is fused; None otherwise, and for MLP weights the fused kernels
-        cannot take (mixed dense and quantized, as JAX routes them: a
-        static choice by the weights' type)."""
+        fused quantized MLP kernel (the same forms without fc biases) for
+        one-token rows when the decode path is fused; None otherwise, and
+        for MLP weights the fused kernels cannot take: mixed dense and
+        quantized, or quantized with fc biases (BLOOM, GPT-2), which stay
+        on the layer body's quantized matmuls. As in JAX, a static choice
+        by the weights' structure."""
         if not (self._fuse_mlp and h.shape[1] == 1):
             return None
         cfg = self._mcfg
         gated = cfg.activation == "swiglu"
         wg = lw["w_gate"] if gated else None
         reason = mlp_weights_fusable(lw["w_up"], lw["w_down"], wg)
+        has_bias = cfg.mlp_bias and not gated
+        if reason is None and has_bias and isinstance(lw["w_up"], QuantizedMatrix):
+            reason = "quantized MLP weights with fc biases"
         if reason is not None:
             warning_once(f"fused decode: MLP stays on the layer body ({reason})")
             return None
-        kw = {}
-        if cfg.mlp_bias and not gated:
-            kw = {"b_up": lw["b_up"], "b_down": lw["b_down"]}
+        kw = {"b_up": lw["b_up"], "b_down": lw["b_down"]} if has_bias else {}
         out = fused_mlp(h[:, 0], h[:, 0], lw["ln2_w"], lw["w_up"], lw["w_down"], wg,
                         eps=cfg.norm_eps, ln_b=lw.get("ln2_b"), norm=cfg.norm,
                         activation=cfg.activation, **kw)

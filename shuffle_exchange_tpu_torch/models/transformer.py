@@ -7,9 +7,8 @@ optional q/k/v/out biases, SwiGLU, a plain MLP (gelu, gelu_new,
 gelu_pytorch_tanh, relu or silu, with or without fc biases) or a
 Mixtral-style MoE FFN (``n_experts`` > 0: top-k routed experts in every
 layer, an optional shared expert), ``embed_ln`` and a tied or untied
-unembedding. Serving takes the same structures (``check_servable``);
-weight quantization and adapters serve the Llama family only
-(``llama_family``). The
+unembedding. Serving takes the same structures (``check_servable``),
+with weight quantization and adapters on every one of them. The
 pieces the inference engines call (``embed``, ``head``) and the training
 forward (``layer_apply``, ``stack_apply``, ``chunked_loss``, ``loss``) are
 functional like the JAX ones: they take the parameters as a
@@ -241,20 +240,11 @@ def check_servable(cfg: TransformerConfig) -> None:
     They serve what the training forward takes (``check_supported``):
     RMSNorm or layernorm, RoPE, learned positions or ALiBi, q/k/v/out and
     fc biases, ``embed_ln``, SwiGLU or a plain MLP of the gelu family, and
-    MoE. Parallel blocks, interleaved or partial RoPE, local or
-    bidirectional attention and ``post_ln`` stay refused there (ROADMAP
-    queue A, item 4 (d)); weight quantization and adapters outside the
-    Llama family are refused by the engines (``llama_family``)."""
+    MoE, each in bf16 or with quantized weights (``quantize_weights``) and
+    multi-tenant adapters. Parallel blocks, interleaved or partial RoPE,
+    local or bidirectional attention and ``post_ln`` stay refused there
+    (ROADMAP queue A, item 4 (d))."""
     check_supported(cfg)
-
-
-def llama_family(cfg: TransformerConfig) -> bool:
-    """RMSNorm, SwiGLU (or MoE experts), RoPE, no biases and no
-    ``embed_ln``: the structures weight quantization and the adapter pool
-    serve."""
-    return (cfg.norm == "rmsnorm" and (cfg.activation == "swiglu" or cfg.n_experts > 0)
-            and cfg.position == "rope" and not (cfg.attn_qkv_bias or cfg.attn_out_bias)
-            and not cfg.embed_ln)
 
 
 def decode_fusion_eligibility(cfg: TransformerConfig) -> dict:

@@ -76,8 +76,10 @@
 //
 // The quantized MLP (int8 / packed int4 / e4m3 weights with f32 scales per
 // (K-group, column), the storage of ops/quant_matmul.py) keeps that
-// structure: norm rows, the split GEMV over [w_gate | w_up], the SwiGLU
-// epilogue, the split GEMV over w_down, the residual epilogue. Its GEMV
+// structure and its norm, gate and activation forms, without fc biases:
+// norm rows, the split GEMV over [w_gate | w_up] (or w_up alone for the
+// plain MLP, F columns), the activation epilogue, the split GEMV over
+// w_down, the residual epilogue. Its GEMV
 // (quant_gemv.cuh) reads the weights at storage width and dequantizes them
 // in registers as q * s in f32, which is the JAX kernel's rounding point:
 // its weight blocks stay f32 and dot(bf16, f32) promotes, so only yn and a
@@ -701,21 +703,27 @@ int sxt_fused_mlp_bf16(const void* resid, const void* y, const void* ln_w, const
   return 0;
 }
 
-// RMSNorm + SwiGLU MLP + residual over quantized weights of format fmt (0
-// int8, 1 packed int4, 2 e4m3) and group size gs: q* the storage, s* the
-// f32 scales [K/gs, N]. Workspaces as sxt_fused_mlp_bf16; each split chunk
-// is whole scale groups.
-int sxt_fused_mlp_quant_bf16(const void* resid, const void* y, const void* ln_w, const void* qg,
-                             const void* sg, const void* qu, const void* su, const void* qd,
-                             const void* sd, void* out, void* yn, void* a, void* part1,
-                             void* part2, int B, int D, int F, int gs, int fmt, int s1,
-                             int chunk1, int s2, int chunk2, float eps, void* stream) {
+// Norm + MLP + residual over quantized weights of format fmt (0 int8, 1
+// packed int4, 2 e4m3) and group size gs: q* the storage, s* the f32
+// scales [K/gs, N]. Gated when qg is given (act(g) * u), plain (act(u))
+// when qg and sg are null; norm, act and ln_b as sxt_fused_mlp_bf16; no fc
+// biases (the JAX kernel takes none). Workspaces as sxt_fused_mlp_bf16;
+// each split chunk is whole scale groups.
+int sxt_fused_mlp_quant_bf16(const void* resid, const void* y, const void* ln_w, const void* ln_b,
+                             const void* qg, const void* sg, const void* qu, const void* su,
+                             const void* qd, const void* sd, void* out, void* yn, void* a,
+                             void* part1, void* part2, int B, int D, int F, int gs, int fmt,
+                             int s1, int chunk1, int s2, int chunk2, int norm, int act, float eps,
+                             void* stream) {
   if (B <= 0) return 0;
   if (gs % 32 || D % 16 || F % 16 || fmt < 0 || fmt > 2 || bad_qsplit(D, gs, s1, chunk1) ||
-      bad_qsplit(F, gs, s2, chunk2))
+      bad_qsplit(F, gs, s2, chunk2) || norm < 0 || norm > 1 || act < 0 || act > 2 ||
+      (qg == nullptr) != (sg == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const QMats up = make_qmats(qg, sg, F, qu, su, F);
+  const int gated = qg != nullptr;
+  const QMats up = gated ? make_qmats(qg, sg, F, qu, su, F) : make_qmats(qu, su, F, nullptr,
+                                                                         nullptr, 0);
   const QMats down = make_qmats(qd, sd, D, nullptr, nullptr, 0);
   auto* ynp = static_cast<__nv_bfloat16*>(yn);
   auto* ap = static_cast<__nv_bfloat16*>(a);
@@ -725,12 +733,13 @@ int sxt_fused_mlp_quant_bf16(const void* resid, const void* y, const void* ln_w,
     const int nb = B - b0 < kMaxRows ? B - b0 : kMaxRows;
     norm_rows_kernel<<<nb, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(y) + size_t(b0) * D,
-        static_cast<const __nv_bfloat16*>(ln_w), nullptr, ynp, D, eps, kRmsNorm);
+        static_cast<const __nv_bfloat16*>(ln_w), static_cast<const __nv_bfloat16*>(ln_b), ynp,
+        D, eps, norm);
     cudaError_t err = launch_quant_gemv<false>(fmt, dim3(up.tiles[0] + up.tiles[1], s1), s, ynp,
-                                               nb, D, gs, chunk1, up, 2 * F, p1);
+                                               nb, D, gs, chunk1, up, gated ? 2 * F : F, p1);
     if (err != cudaSuccess) return static_cast<int>(err);
     act_epilogue_kernel<<<(nb * F + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        p1, s1, nb, F, 1, kSilu, nullptr, ap);
+        p1, s1, nb, F, gated, act, nullptr, ap);
     err = launch_quant_gemv<false>(fmt, dim3(down.tiles[0], s2), s, ap, nb, F, gs, chunk2, down,
                                    D, p2);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -36,9 +36,12 @@ quantized MLP dequantizes its weights to f32 (the JAX kernel's
 ``dot(bf16, f32)`` promotes) and rounds at the same points. The unfused
 layer body rounds elsewhere (a bf16 product, then a bf16 bias), so the
 fused and unfused paths differ by a bf16 step. The kernels take bf16
-activations, weights and biases and f32 slopes and scale planes;
-layernorm, biases and the plain MLP over quantized weights raise (B7
-lacks them: ROADMAP queue A, item 4 (b)).
+activations, weights and biases and f32 slopes and scale planes. The
+quantized MLP takes every norm, gate and activation form the bf16 one does,
+but no fc biases: ``fused_mlp`` raises for quantized weights with biases,
+as the JAX wrapper does (the engines keep that MLP on the layer body).
+Neither MLP takes ``apply_norm=False``, the shared-layernorm form of the
+parallel blocks (ROADMAP queue A, item 4 (d)).
 """
 
 from __future__ import annotations
@@ -196,13 +199,16 @@ def fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1
     return out.to(resid.dtype)
 
 
-def fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1e-5):
+def fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1e-5, *,
+                              ln_b=None, norm: str = "rmsnorm", activation: str = "swiglu"):
     """:func:`fused_mlp_reference` over ``QuantizedMatrix`` weights
-    dequantized to f32 (not rounded to the activation dtype): the JAX
-    quantized kernel's rounding points."""
+    dequantized to f32 (not rounded to the activation dtype), gated when
+    ``w_gate`` is given, without fc biases: the JAX quantized kernel's
+    rounding points (yn and a rounded to resid's dtype, f32 sums)."""
     f32 = torch.float32
+    gate = None if w_gate is None else w_gate.dequantize(f32)
     return fused_mlp_reference(resid, y_src, ln_w, w_up.dequantize(f32), w_down.dequantize(f32),
-                               w_gate.dequantize(f32), eps)
+                               gate, eps, ln_b=ln_b, norm=norm, activation=activation)
 
 
 def mlp_weights_fusable(w_up, w_down, w_gate=None) -> Optional[str]:
@@ -292,36 +298,41 @@ def fused_paged_decode_attention(q, ck, cv, block_table, kv_len, *,
 fused_paged_decode_attention.launches = 0
 
 
-def _refuse_non_gated(w_gate) -> None:
-    if w_gate is None:
-        raise NotImplementedError("the non-gated fused MLP over quantized weights is not "
-                                  "ported yet (B7 lacks it: ROADMAP queue A, item 4 (b))")
-
-
-def fused_mlp(resid, y_src, ln_w, w_up, w_down, w_gate=None, *, eps: float = 1e-5,
-              b_up=None, b_down=None, ln_b=None, norm: str = "rmsnorm",
-              activation: str = "swiglu"):
-    """``resid + mlp(norm(y_src))`` for one token per sequence: resid /
-    y_src [B, D], ln_w (and, under layernorm, ``ln_b``) [D], w_up [D, F],
-    w_down [F, D]; gated (SwiGLU form) when ``w_gate`` [D, F] is given,
-    else plain; ``activation`` one of :data:`FUSABLE_ACTIVATIONS`; fc
-    biases ``b_up`` [F] / ``b_down`` [D] optional. ``QuantizedMatrix``
-    weights go to :func:`fused_mlp_quant` (RMSNorm, gated, no biases). The
-    CUDA kernels on a CUDA tensor, the plain version on a CPU tensor."""
+def _check_mlp_form(norm: str, activation: str, apply_norm: bool) -> None:
     if activation not in FUSABLE_ACTIVATIONS:
         raise ValueError(f"fused MLP: activation {activation!r} is not fusable (fusable: "
                          f"{', '.join(FUSABLE_ACTIVATIONS)})")
     if norm not in _NORM_CODES:
         raise ValueError(f"fused MLP: norm must be rmsnorm or layernorm, got {norm!r}")
+    if not apply_norm:
+        raise NotImplementedError("the fused MLP without its norm (apply_norm=False, the shared "
+                                  "layernorm of parallel blocks) is not ported yet: ROADMAP "
+                                  "queue A, item 4 (d)")
+
+
+def fused_mlp(resid, y_src, ln_w, w_up, w_down, w_gate=None, *, eps: float = 1e-5,
+              b_up=None, b_down=None, ln_b=None, norm: str = "rmsnorm",
+              activation: str = "swiglu", apply_norm: bool = True):
+    """``resid + mlp(norm(y_src))`` for one token per sequence: resid /
+    y_src [B, D], ln_w (and, under layernorm, ``ln_b``) [D], w_up [D, F],
+    w_down [F, D]; gated (SwiGLU form) when ``w_gate`` [D, F] is given,
+    else plain; ``activation`` one of :data:`FUSABLE_ACTIVATIONS`; fc
+    biases ``b_up`` [F] / ``b_down`` [D] optional. ``QuantizedMatrix``
+    weights go to :func:`fused_mlp_quant` (every norm, gate and activation
+    form; with fc biases they raise, as in JAX). ``apply_norm=False``
+    raises (ROADMAP queue A, item 4 (d)). The CUDA kernels on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    _check_mlp_form(norm, activation, apply_norm)
+    ln_b = ln_b if norm == "layernorm" else None
     if any(isinstance(w, QuantizedMatrix) for w in (w_gate, w_up, w_down)):
-        if (norm, activation) != ("rmsnorm", "swiglu") or b_up is not None or \
-                b_down is not None:
-            raise NotImplementedError("the fused quantized MLP takes RMSNorm + SwiGLU without "
-                                      "biases (B7 lacks layernorm, biases and the other "
-                                      "activations: ROADMAP queue A, item 4 (b))")
-        return fused_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps=eps)
-    kw = dict(ln_b=ln_b if norm == "layernorm" else None, b_up=b_up, b_down=b_down,
-              norm=norm, activation=activation)
+        if b_up is not None or b_down is not None:
+            # JAX's fused_mlp raises here too; the engines keep such an MLP
+            # on the layer body
+            raise ValueError("fused MLP: quantized weights with fc biases are not supported "
+                             "(the engines route them to the layer body's quantized matmuls)")
+        return fused_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps=eps, ln_b=ln_b,
+                               norm=norm, activation=activation)
+    kw = dict(ln_b=ln_b, b_up=b_up, b_down=b_down, norm=norm, activation=activation)
     if not use_kernel(resid):
         return fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps, **kw)
     out = _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps, **kw)
@@ -332,21 +343,26 @@ def fused_mlp(resid, y_src, ln_w, w_up, w_down, w_gate=None, *, eps: float = 1e-
 fused_mlp.launches = 0
 
 
-def fused_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, *, eps: float = 1e-5):
+def fused_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate=None, *, eps: float = 1e-5,
+                    ln_b=None, norm: str = "rmsnorm", activation: str = "swiglu",
+                    apply_norm: bool = True):
     """:func:`fused_mlp` over ``QuantizedMatrix`` weights sharing one format
     and group size, the weights read at storage width and dequantized in
-    registers. Weights the kernel cannot take raise, with the reason of
+    registers: RMSNorm or layernorm (with ``ln_b``), gated when ``w_gate``
+    is given, else plain, any of :data:`FUSABLE_ACTIVATIONS`; no fc biases.
+    Weights the kernel cannot take raise, with the reason of
     :func:`mlp_weights_fusable`. The CUDA kernels on a CUDA tensor, the
     plain version on a CPU tensor."""
-    _refuse_non_gated(w_gate)
+    _check_mlp_form(norm, activation, apply_norm)
     reason = mlp_weights_fusable(w_up, w_down, w_gate)
     if reason is None and not isinstance(w_up, QuantizedMatrix):
         reason = "dense MLP weights (they take fused_mlp's bf16 kernel)"
     if reason is not None:
         raise ValueError(f"fused quantized MLP: {reason}")
+    kw = dict(ln_b=ln_b if norm == "layernorm" else None, norm=norm, activation=activation)
     if not use_kernel(resid):
-        return fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps)
-    out = _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps)
+        return fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps, **kw)
+    out = _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, **kw)
     fused_mlp_quant.launches += 1
     return out
 
@@ -365,7 +381,7 @@ _SIGNATURES = {
     "sxt_fused_qkv_rope_bf16": [_P] * 17 + [_I] * 9 + [_P],
     "sxt_fused_paged_decode": [_P] * 12 + [_I] * 8 + [_F, _P],
     "sxt_fused_mlp_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
-    "sxt_fused_mlp_quant_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
+    "sxt_fused_mlp_quant_bf16": [_P] * 15 + [_I] * 11 + [_F, _P],
 }
 _LIB = []
 
@@ -579,33 +595,39 @@ def _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, b_up, b_
     return out
 
 
-def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps):
+def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, norm,
+                      activation):
     dev = resid.device
     B, D = resid.shape
     Fd = w_up.shape[1]
+    gated = w_gate is not None
     _bf16("resid", resid, dev)
     _bf16("y_src", y_src, dev, (B, D))
-    _bf16("ln_w", ln_w, dev, (D,))
-    fmt = check_storage("fused quantized MLP kernel: w_gate", w_gate, dev, D, Fd)
-    check_storage("fused quantized MLP kernel: w_up", w_up, dev, D, Fd)
+    _vector("ln_w", ln_w, dev, D)
+    _vector("ln_b", ln_b, dev, D)
+    fmt = check_storage("fused quantized MLP kernel: w_up", w_up, dev, D, Fd)
+    if gated:
+        check_storage("fused quantized MLP kernel: w_gate", w_gate, dev, D, Fd)
     check_storage("fused quantized MLP kernel: w_down", w_down, dev, Fd, D)
     gs = w_up.group_size
     rows = min(B, GEMV_ROWS)
     sms = _sms(dev)
-    s1, c1 = quant_splits(D, gs, (Fd, Fd), sms)
+    s1, c1 = quant_splits(D, gs, (Fd, Fd) if gated else (Fd,), sms)
     s2, c2 = quant_splits(Fd, gs, (D,), sms)
     out = torch.empty_like(resid)
     yn = torch.empty(rows, D, device=dev, dtype=resid.dtype)
     a = torch.empty(rows, Fd, device=dev, dtype=resid.dtype)
-    part1 = torch.empty(s1, rows, 2 * Fd, device=dev, dtype=torch.float32)
+    part1 = torch.empty(s1, rows, (2 if gated else 1) * Fd, device=dev, dtype=torch.float32)
     part2 = torch.empty(s2, rows, D, device=dev, dtype=torch.float32)
+    gate = (w_gate.q.data_ptr(), w_gate.scales.data_ptr()) if gated else (None, None)
     lib = _lib()
     err = lib.sxt_fused_mlp_quant_bf16(
-        resid.data_ptr(), y_src.data_ptr(), ln_w.data_ptr(), w_gate.q.data_ptr(),
-        w_gate.scales.data_ptr(), w_up.q.data_ptr(), w_up.scales.data_ptr(),
-        w_down.q.data_ptr(), w_down.scales.data_ptr(), out.data_ptr(), yn.data_ptr(),
-        a.data_ptr(), part1.data_ptr(), part2.data_ptr(), B, D, Fd, gs, fmt, s1, c1, s2, c2,
-        float(eps), torch.cuda.current_stream(dev).cuda_stream)
+        resid.data_ptr(), y_src.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), *gate,
+        w_up.q.data_ptr(), w_up.scales.data_ptr(), w_down.q.data_ptr(),
+        w_down.scales.data_ptr(), out.data_ptr(), yn.data_ptr(), a.data_ptr(),
+        part1.data_ptr(), part2.data_ptr(), B, D, Fd, gs, fmt, s1, c1, s2, c2,
+        _NORM_CODES[norm], _ACT_CODES[activation], float(eps),
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "quantized MLP")
     return out
 

@@ -355,8 +355,16 @@ def test_fused_mlp_refuses_exact_gelu_and_quantized_bias_forms():
     from shuffle_exchange_tpu_torch.ops.quant_matmul import quantize_weight
 
     q = [quantize_weight(a[k], group_size=128, bits=8) for k in ("w_up", "w_down", "w_gate")]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4 \\(b\\)"):
-        tfd.fused_mlp(a["resid"], a["y"], a["ln_w"], *q, ln_b=a["ln_b"], norm="layernorm")
+    # quantized weights with fc biases raise as JAX's fused_mlp does; the
+    # layernorm form without them runs (B7's plain version)
+    with pytest.raises(ValueError, match="fc biases"):
+        tfd.fused_mlp(a["resid"], a["y"], a["ln_w"], *q, ln_b=a["ln_b"], norm="layernorm",
+                      b_up=a["b_up"], b_down=a["b_down"])
+    out = tfd.fused_mlp(a["resid"], a["y"], a["ln_w"], *q, ln_b=a["ln_b"], norm="layernorm")
+    assert torch.isfinite(out).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4 \\(d\\)"):
+        tfd.fused_mlp(a["resid"], a["y"], a["ln_w"], *q, ln_b=a["ln_b"], norm="layernorm",
+                      apply_norm=False)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ import torch
 from shuffle_exchange_tpu.models import Transformer as JTransformer
 from shuffle_exchange_tpu.models import tiny as jtiny
 from shuffle_exchange_tpu.models import transformer as jtf
+from shuffle_exchange_tpu_torch.config import ConfigError
 from shuffle_exchange_tpu_torch.inference import (InferenceConfig, InferenceEngine,
                                                   InferenceEngineV2,
                                                   init_inference)
@@ -27,6 +28,7 @@ from shuffle_exchange_tpu_torch.models import (Transformer, TransformerConfig,
                                                params_from_numpy,
                                                params_to_numpy, tiny)
 from shuffle_exchange_tpu_torch.models import transformer as ttf
+from shuffle_exchange_tpu_torch.ops import QuantizedMatrix
 
 LLAMA_TINY = dict(vocab=97, d=32, layers=2, heads=4, seq=128, activation="swiglu",
                   norm="rmsnorm", position="rope", n_kv_heads=2, tie_embeddings=False)
@@ -148,29 +150,27 @@ def test_logits_stay_f32_for_bf16_operands():
 ])
 def test_structures_outside_the_llama_family_raise(override):
     """Structures the training forward takes since the GPT-2 / BLOOM slice
-    build a model, and since the BLOOM / GPT-2 serving slice every serving
-    entry point (v1, v2, init_inference) serves them; weight quantization
-    and adapters on them still refuse before any weight moves, naming
-    ROADMAP item 4 (b) and item 10. The rest still refuse the model
-    itself."""
+    build a model, and every serving entry point (v1, v2, init_inference)
+    serves them, in bf16 weights, quantized weights and (the paged engine)
+    with adapters. The rest still refuse the model itself."""
     cfg = tiny(**{**LLAMA_TINY, **override})
     if set(override) & {"norm", "activation", "position", "embed_ln", "attn_qkv_bias"}:
         model = Transformer(cfg, device="cpu")
         params = model.init(torch.Generator().manual_seed(0))
         icfg = dict(max_seq_len=64, kv_block_size=8, num_kv_blocks=16)
-        v1 = init_inference(model, params, dict(icfg), device="cpu")
-        assert v1.generate([[1, 2, 3]], max_new_tokens=2).shape == (1, 2)
-        v2 = InferenceEngineV2(model, params, InferenceConfig(**icfg), device="cpu")
+        quant = dict(icfg, quantize_weights=True, quant_group_size=32)
+        for c in (icfg, quant):
+            v1 = init_inference(model, params, dict(c), device="cpu")
+            assert v1.generate([[1, 2, 3]], max_new_tokens=2).shape == (1, 2)
+            v2 = InferenceEngineV2(model, params, InferenceConfig(**c), device="cpu")
+            assert np.isfinite(v2.put([0], [[1, 2, 3]])).all()
+        assert isinstance(v2.params["layers.wq"], QuantizedMatrix)
+        v2 = InferenceEngineV2(model, params, InferenceConfig(**icfg, adapters={"enabled": True}),
+                               device="cpu")
         assert np.isfinite(v2.put([0], [[1, 2, 3]])).all()
-        for extra, item in (({"quantize_weights": True}, "item 4 \\(b\\)"),
-                            ({"adapters": {"enabled": True}}, "item 10")):
-            for build in (lambda: InferenceEngine(model, params, InferenceConfig(**extra),
-                                                  device="cpu"),
-                          lambda: InferenceEngineV2(model, params, InferenceConfig(**extra),
-                                                    device="cpu"),
-                          lambda: init_inference(model, params, dict(extra), device="cpu")):
-                with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
-                    build()
+        with pytest.raises(ConfigError, match="paged InferenceEngineV2"):
+            InferenceEngine(model, params, InferenceConfig(adapters={"enabled": True}),
+                            device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(cfg, device="cpu")

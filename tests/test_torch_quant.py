@@ -271,22 +271,32 @@ def test_mlp_weights_fusable_gives_the_jax_reasons():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    ({"b_up": torch.zeros(256), "b_down": torch.zeros(128)}, NotImplementedError, "item 4"),
-    ({"gate": None}, NotImplementedError, "item 4"),
+    ({"b_up": torch.zeros(256), "b_down": torch.zeros(128)}, ValueError, "fc biases"),
+    ({"gate": None, "activation": "gelu"}, ValueError, "not fusable"),
+    ({"apply_norm": False}, NotImplementedError, "item 4 \\(d\\)"),
     ({"gate": "dense"}, ValueError, "mixed dense/quantized"),
     ({"up": "dense"}, ValueError, "mixed dense/quantized"),
-], ids=["biases", "non-gated", "dense-gate", "dense-up"])
+], ids=["biases", "non-gated", "apply-norm", "dense-gate", "dense-up"])
 def test_quantized_fused_mlp_refusals(kw, err, match):
-    (resid, y, lnw), _, (tg, tu, td) = _mlp_case(8, 64, 2, seed=1)
+    """Quantized weights with fc biases raise as JAX's ``fused_mlp`` does
+    (the engines keep that MLP on the layer body); the plain MLP takes
+    every fusable activation but not exact gelu; ``apply_norm=False`` is
+    item 4 (d); mixed dense and quantized weights raise with JAX's
+    reason."""
+    (resid, y, lnw), (jg, ju, jd), (tg, tu, td) = _mlp_case(8, 64, 2, seed=1)
     kw = dict(kw)
     gate, up = kw.pop("gate", tg), kw.pop("up", tu)
     gate = torch.zeros(128, 256) if gate == "dense" else gate
     up = torch.zeros(128, 256) if up == "dense" else up
     with pytest.raises(err, match=match):
         tfd.fused_mlp(T(resid), T(y), T(lnw), up, td, gate, **kw)
-    if not kw:   # fused_mlp_quant takes no biases
+    if "b_up" in kw:   # JAX's wrapper refuses the same combination
+        with pytest.raises(ValueError, match="fc biases"):
+            jfd.fused_mlp(jnp.asarray(resid), jnp.asarray(y), jnp.asarray(lnw), None, ju, jd,
+                          jg, b_up=jnp.zeros(256), b_down=jnp.zeros(128))
+    else:   # fused_mlp_quant takes no biases
         with pytest.raises(err, match=match):
-            tfd.fused_mlp_quant(T(resid), T(y), T(lnw), up, td, gate)
+            tfd.fused_mlp_quant(T(resid), T(y), T(lnw), up, td, gate, **kw)
 
 
 def test_fused_qkv_refuses_quantized_weights():
@@ -504,8 +514,8 @@ def counted_port(monkeypatch):
     for m in (tfd, tqm, pa, rn, fa):
         monkeypatch.setattr(m, "use_kernel", lambda t: True)
     monkeypatch.setattr(tqm, "_launch", tqm.quant_matmul_reference)
-    monkeypatch.setattr(tfd, "_launch_mlp_quant", lambda r, y, ln, wu, wd, wg, eps:
-                        tfd.fused_mlp_quant_reference(r, y, ln, wu, wd, wg, eps))
+    monkeypatch.setattr(tfd, "_launch_mlp_quant",
+                        lambda *a, **k: tfd.fused_mlp_quant_reference(*a, **k))
     monkeypatch.setattr(tfd, "_launch_attention", lambda q, ck, cv, bt, kl, n, sl=None:
                         tfd.fused_paged_decode_reference(q, ck, cv, bt, kl, 2 if n is None else n,
                                                          sl))
