@@ -78,7 +78,16 @@ non-zero exit code. The phases:
    value of each other axis: tolerances shown to catch a dropped layernorm
    bias, the gate read on the plain form, gelu_new computed as relu,
    layernorm computed as RMSNorm and w_down's scale rows shifted, each
-   cell timed beside its bytes bound and dequantize + the cuBLAS sequence.
+   cell timed beside its bytes bound and dequantize + the cuBLAS sequence;
+   phase 2n for the parallel-block families' forms: B6 and B7 without
+   their norm (``apply_norm=False``) at GPT-J-6B's widths (B7 int8, int4
+   and fp8 without fc biases), B4 with partial rotary (rd 32 of 128) and
+   biases at Pythia-1.4b's heads and a GQA layout, B2 / B3 / B5 at GPT-J's
+   16 x 256 heads over bf16, int8 and fp8 pools, and the flash forward at
+   head_dim 256; tolerances shown to catch the norm applied anyway, ``ln_b``
+   read, y_src swapped for resid, the rotation over all of Dh, the partner
+   at Dh/2, the pass-through columns rotated, the softmax scale of head_dim
+   128, the neighbouring head and a shifted causal diagonal.
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
    Llama-3-8B at full width and depth with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
@@ -154,6 +163,16 @@ non-zero exit code. The phases:
    pool and tenants, 24 requests over 8 adapters, no preemption); and a
    profiled int8 decode window. 4d: BLOOM-1b7 int8 cut to depth 2 (and its
    widths without fc biases) against the CPU f32 engine, as phase 4.
+3j. GPT-J-6B and Pythia-1.4b (``config_from_hf`` of their published
+   configs) at full width and depth, seeded bf16 weights, as phase 3g runs
+   BLOOM-1b7: both serve paths, ``put()`` + ``decode_loop`` against the
+   single-token ``put()`` loop, the v1 ``generate`` and a profiled decode
+   window, with a fused decode step's launches held exactly (GPT-J: per
+   layer B5 and B6 without its norm, no B4; Pythia: B4 and B5, no B6) and
+   the prefill's flash forward once a layer; then GPT-J's widths with
+   ``mlp_bias=False``, int8, at depth 2 (B7 without its norm twice a
+   decode row-step). 4e: each cut to depth 2 against the CPU f32 engine,
+   as phase 4.
 5. Train: ``initialize`` + ``Engine.train_batch`` on the largest entry of
    the Llama training ladder whose state fits the card (``llama3-1b-style``
    on 80 GB), full depth, bf16, FusedAdam, full remat, batch 32 x 1024, one
@@ -2095,7 +2114,7 @@ def expected_launches(eng, n_layers, loop_steps=0, by=None):
            "paged_decode_attention": 0 if fused else L * dec,
            "paged_extend_attention": L * ext, "flash_attention": 0 if alibi else L * pre,
            "fused_paged_decode_attention": L * dec if fused else 0,
-           "fused_qkv_rope": L * dec if fused and not quant and not lora else 0,
+           "fused_qkv_rope": L * dec if fused and eng._fuse_qkv and not quant and not lora else 0,
            "fused_mlp": L * dec if fused_mlp and not quant else 0,
            "fused_mlp_quant": L * dec if fused_mlp and quant else 0,
            "grouped_matmul": 3 * L * (dec + ext + pre) if moe else 0,
@@ -2322,8 +2341,9 @@ def v1_generate(model, params, prompts, n_layers, card, max_new=LOOP_STEPS + 1,
             n_mlp = 3 if gated else 2
             want.update(quant_matmul=(4 + n_mlp) * L + (4 if mlp else 4 + n_mlp) * L * steps,
                         fused_mlp_quant=L * steps if mlp else 0)
-        else:
-            want.update(fused_qkv_rope=L * steps, fused_mlp=L * steps if mlp else 0)
+        else:   # B4 unless the QKV stays on the layer body (GPT-J's interleaved RoPE)
+            want.update(fused_qkv_rope=L * steps if eng._fuse_qkv else 0,
+                        fused_mlp=L * steps if mlp else 0)
     elif eng._mcfg.n_experts:     # the MoE FFN: three grouped GEMMs a layer, no fused MLP
         want.update(flash_attention=L, rmsnorm=(2 * L + 1) * (1 + steps),
                     grouped_matmul=3 * L * (1 + steps))
@@ -4489,6 +4509,456 @@ def family_quant_e2e(name, cfg, params, seed):
 
 
 # ---------------------------------------------------------------------------
+# Phases 2n, 3j and 4e: parallel-block serving (GPT-J-6B, Pythia-1.4b)
+# ---------------------------------------------------------------------------
+
+# the published configs (EleutherAI/gpt-j-6b, EleutherAI/pythia-1.4b), as the
+# fields config_from_hf reads them
+GPTJ_6B = {"architectures": ["GPTJForCausalLM"], "model_type": "gptj", "n_embd": 4096,
+           "n_head": 16, "n_layer": 28, "n_positions": 2048, "rotary_dim": 64,
+           "vocab_size": 50400, "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+           "tie_word_embeddings": False}
+PYTHIA_1B4 = {"architectures": ["GPTNeoXForCausalLM"], "model_type": "gpt_neox",
+              "hidden_size": 2048, "intermediate_size": 8192, "num_attention_heads": 16,
+              "num_hidden_layers": 24, "max_position_embeddings": 2048, "rotary_pct": 0.25,
+              "rotary_emb_base": 10000, "use_parallel_residual": True, "vocab_size": 50304,
+              "hidden_act": "gelu", "layer_norm_eps": 1e-5, "tie_word_embeddings": False}
+GPTJ_WIDTHS = dict(D=4096, H=16, KV=16, Dh=256, F=16384)
+PYTHIA_WIDTHS = dict(D=2048, H=16, KV=16, Dh=128, F=8192, rd=32)
+PB_MAX_LEN = 2048
+
+
+def check_mlp_no_norm(gen):
+    """B6 and B7 with ``apply_norm=False`` (GPT-J's shared layernorm: yn is
+    y_src as given) at GPT-J-6B's widths (D 4096, F 16384, gelu_new): B6
+    with the fc biases, B7 in int8 / int4 / fp8 at group 256 without them
+    (the ``mlp_bias=False`` form), 8 and 1 rows, y_src != resid; held to
+    QUANT_MLP_TOL. Bites: the layernorm applied anyway, ``ln_b`` read (added
+    to y_src), y_src swapped for resid. Timed at 8 rows (B6 bf16, B7 each
+    format) beside the bound, the plain version and the cuBLAS sequence
+    (B7: dequantize + that sequence)."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch.ops.fused_decode import (fused_mlp, fused_mlp_quant_reference,
+                                                             fused_mlp_reference)
+    from shuffle_exchange_tpu_torch.ops.quant_matmul import quantize_weight
+
+    D, Fd = GPTJ_WIDTHS["D"], GPTJ_WIDTHS["F"]
+    randn = lambda *s, scale=1.0: (scale * torch.randn(*s, generator=gen, device="cuda")).bfloat16()
+    ln_w, ln_b = (1 + randn(D, scale=0.1).float()).bfloat16(), randn(D, scale=0.5)
+    wu, wd = randn(D, Fd, scale=D ** -0.5), randn(Fd, D, scale=Fd ** -0.5)
+    b_up, b_down = randn(Fd, scale=0.5), randn(D, scale=0.5)
+    forms = [("bf16", None)] + [(_fmt(b), b) for b in QUANT_FORMATS]
+    rows = []
+    with _f32_reduction():
+        for fmt, bits in forms:
+            if bits is None:
+                up, down, bias = wu, wd, dict(b_up=b_up, b_down=b_down)
+                ref = lambda r, y, **o: fused_mlp_reference(r, y, ln_w, up, down, None, 1e-5,
+                                                            **{**kw, **bias, **o})
+            else:
+                up, down = (quantize_weight(w, 256, bits=bits) for w in (wu, wd))
+                bias = {}
+                ref = lambda r, y, **o: fused_mlp_quant_reference(r, y, ln_w, up, down, None,
+                                                                  1e-5, **{**kw, **o})
+            kw = dict(ln_b=ln_b, norm="layernorm", activation="gelu_new", apply_norm=False)
+            for B in (8, 1):
+                resid, y = randn(B, D), randn(B, D)
+                run = lambda: fused_mlp(resid, y, ln_w, up, down, None, eps=1e-5, **kw, **bias)
+                got, want = run(), ref(resid, y)
+                err, tol_ok = quant_mlp_close(got, want)
+                bite = lambda r, yy, **o: not quant_mlp_close(got, ref(r, yy, **o))[1]
+                bites = {"norm_applied": bite(resid, y, apply_norm=True),
+                         "ln_b_read": bite(resid, (y.float() + ln_b.float()).bfloat16()),
+                         "y_src_swapped_for_resid": bite(resid, resid)}
+                row = dict(shape=dict(B=B, D=D, F=Fd, fmt=fmt, gs=None if bits is None else 256,
+                                      activation="gelu_new", norm="none", biases=bits is None),
+                           max_abs_err=err.max().item(),
+                           max_rel_err=(err.max() / want.float().abs().max()).item(),
+                           tolerance=QUANT_MLP_TOL, within=tol_ok, tolerance_bites=bites)
+                _check(tol_ok, f"fused MLP without its norm ({fmt}, B={B}) disagrees with its "
+                       f"plain version: max abs err {row['max_abs_err']}")
+                _check(all(bites.values()), f"fused MLP without its norm ({fmt}, B={B}): the "
+                       f"tolerance misses {bites}")
+                if B == 8:
+                    wbytes = (2 * D * Fd * 2 + (Fd + D) * 2 if bits is None
+                              else up.nbytes + down.nbytes)
+                    nbytes = wbytes + 3 * B * D * 2
+                    b_ms, b_by = bound(nbytes, 4.0 * B * D * Fd)
+                    if bits is None:
+                        lib = lambda: resid + torch.addmm(b_down, F.gelu(
+                            torch.addmm(b_up, y, wu), approximate="tanh"), wd)
+                        name = "the cuBLAS sequence (no one call)"
+                    else:
+                        lib = lambda: resid + F.gelu(y @ up.dequantize(), approximate="tanh") \
+                            @ down.dequantize()
+                        name = "dequantize() + the cuBLAS sequence"
+                    row.update(ms=time_cold(run), host_us=host_us(run),
+                               plain_ms=time_cold(lambda: ref(resid, y)),
+                               library_ms=time_cold(lib) if bits is not None else None,
+                               cublas_sequence_ms=time_cold(lib), library=name,
+                               bound_ms=b_ms, bound_by=b_by)
+                rows.append(row)
+            del up, down
+            torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def _broken_rope(kind, rd):
+    """The plain versions with a broken partial rotary (``rope_heads``
+    replaced): "all_of_dh" rotates every column (the angles of rd/2 columns
+    tiled over Dh/2), "partner_at_dh_half" pairs column d < rd/2 with d +
+    Dh/2, "pass_through_rotated" also rotates columns >= rd by the same
+    angles (tiled)."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.ops import fused_decode as fd
+
+    orig = fd.rope_heads
+
+    def tiled(c, n):
+        return c.repeat(1, -(-n // c.shape[1]))[:, :n]
+
+    def broken(x, cos, sin):
+        Dh, h = x.shape[-1], rd // 2
+        if kind == "all_of_dh":
+            return orig(x, tiled(cos, Dh // 2), tiled(sin, Dh // 2))
+        if kind == "partner_at_dh_half":
+            c, s = cos[:, None, :], sin[:, None, :]
+            out = x.clone()
+            x1, x2 = x[..., :h], x[..., Dh // 2:Dh // 2 + h]
+            out[..., :h] = x1 * c - x2 * s
+            out[..., Dh // 2:Dh // 2 + h] = x2 * c + x1 * s
+            return out
+        rest = Dh - rd
+        return torch.cat([orig(x[..., :rd], cos, sin),
+                          orig(x[..., rd:], tiled(cos, rest // 2), tiled(sin, rest // 2))], -1)
+
+    fd.rope_heads = broken
+    try:
+        yield
+    finally:
+        fd.rope_heads = orig
+
+
+PARTIAL_ROPE_BITES = ("all_of_dh", "partner_at_dh_half", "pass_through_rotated")
+
+
+def check_qkv_partial_rope(gen, rng):
+    """B4 with partial rotary (rd 32 of Dh 128) and q/k/v biases, at
+    Pythia-1.4b's heads (16 x 128, D 2048) and a GQA layout (16 x 4), with
+    and without a pool, at 8 and 1 rows (timed: Pythia, pool, 8 rows),
+    held to PAGED_TOL; every PARTIAL_ROPE_BITES bite must fail it, and with
+    a pool every pool row but the appended ones stays as it was."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.models.transformer import rope_table
+    from shuffle_exchange_tpu_torch.ops.fused_decode import (fused_qkv_rope,
+                                                             fused_qkv_rope_reference)
+
+    D, Dh, rd = PYTHIA_WIDTHS["D"], PYTHIA_WIDTHS["Dh"], PYTHIA_WIDTHS["rd"]
+    bs, W = 64, 32
+    cos_t, sin_t = rope_table(W * bs, rd, 10000.0, device="cuda")
+    rows = []
+    for label, H, KV in (("pythia", 16, 16), ("gqa", 16, 4)):
+        for pooled in (True, False):
+            for B in (8, 1):
+                pos = rng.integers(0, W * bs, size=B).astype(np.int32)
+                table = np.full((B, W), -1, np.int32)
+                table[np.arange(B), pos // bs] = np.arange(1, B + 1)
+                y = torch.randn(B, D, generator=gen, device="cuda").bfloat16()
+                w = [(torch.randn(D, n * Dh, generator=gen, device="cuda") * D ** -0.5)
+                     .bfloat16() for n in (H, KV, KV)]
+                b = [(0.5 * torch.randn(n * Dh, generator=gen, device="cuda")).bfloat16()
+                     for n in (H, KV, KV)]
+                bias = dict(zip(("bq", "bk", "bv"), b))
+                pt, tt = torch.from_numpy(pos).cuda(), torch.from_numpy(table).cuda()
+                cos, sin = cos_t[pt.long()].contiguous(), sin_t[pt.long()].contiguous()
+                kargs = pargs = ()
+                if pooled:
+                    pool = [torch.randn(B + 1, KV, bs, Dh, generator=gen, device="cuda")
+                            .bfloat16() for _ in range(2)]
+                    kp = [p.clone() for p in pool]
+                    kargs = (*kp, tt, pt)
+                run = lambda: fused_qkv_rope(y, *w, cos, sin, *kargs, n_heads=H, kv_heads=KV,
+                                             **bias)
+                plain = lambda: fused_qkv_rope_reference(y, *w, cos, sin, n_heads=H,
+                                                         kv_heads=KV, **bias)
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                checks = [paged_close(g, wt) for g, wt in zip(got, want)]
+                tol_ok = all(ok for _, ok in checks)
+                err = max(e.max().item() for e, _ in checks)
+                pool_ok = True
+                if pooled:
+                    appended = torch.zeros(pool[0].shape[:3], dtype=torch.bool, device="cuda")
+                    idx = (torch.arange(1, B + 1, device="cuda"), slice(None), pt.long() % bs)
+                    appended[idx] = True
+                    pool_ok = all(torch.equal(k_[~appended], p_[~appended])
+                                  and torch.equal(k_[idx], new)
+                                  for k_, p_, new in zip(kp, pool, got[1:]))
+                bites = {}
+                for kind in PARTIAL_ROPE_BITES:   # q and k rotate: either must show it
+                    with _broken_rope(kind, rd):
+                        broken = plain()
+                    bites[kind] = _bites(got[0], broken[0]) and _bites(got[1], broken[1])
+                row = dict(shape=dict(label=label, B=B, D=D, H=H, KV=KV, Dh=Dh, rd=rd, bs=bs,
+                                      pos=pos.tolist(), pool=pooled, biases=True),
+                           max_abs_err=err, tolerance=PAGED_TOL + " per head row",
+                           within=tol_ok, tolerance_bites=bites)
+                if pooled:
+                    row["pool_rows_exact"] = pool_ok
+                _check(tol_ok and pool_ok, f"fused QKV with partial rotary ({label}, "
+                       f"pool={pooled}, B={B}) disagrees: max abs err {err}, pool rows exact "
+                       f"{pool_ok}")
+                _check(all(bites.values()), f"fused QKV with partial rotary ({label}): the "
+                       f"tolerance misses {bites}")
+                if (label, pooled, B) == ("pythia", True, 8):
+                    wqkv, bqkv = torch.cat(w, dim=1), torch.cat(b)
+                    n_out = (H + 2 * KV) * Dh
+                    nbytes = (D * n_out * 2 + n_out * 2 + B * D * 2 + B * n_out * 2
+                              + 2 * B * (rd // 2) * 4 + B * 2 * KV * Dh * 2 + table.size * 4
+                              + B * 4)
+                    b_ms, b_by = bound(nbytes, 2.0 * B * D * n_out)
+                    row.update(ms=time_cold(run), host_us=host_us(run),
+                               plain_ms=time_cold(plain),
+                               library_ms=time_cold(lambda: torch.addmm(bqkv, y, wqkv)),
+                               library="torch.addmm(b, y, [wq|wk|wv]) (projection only)",
+                               bound_ms=b_ms, bound_by=b_by)
+                rows.append(row)
+    return rows
+
+
+def dh256_bites(got, plain, q, rows=lambda x: x):
+    """{bite: whether PAGED_TOL catches it}: the plain version with the
+    softmax scale of head_dim 128 (q scaled by sqrt(2) in f32) and with each
+    query head reading its neighbour's q."""
+    return {"scale_of_dh_128": _bites(rows(got), rows(plain(q.float() * 2 ** 0.5))),
+            "neighbouring_head": _bites(rows(got), rows(plain(q.roll(1, dims=2))))}
+
+
+def check_paged_dh256(gen, rng):
+    """B2, B5 and B3 at GPT-J-6B's heads (16 x 256, MHA): 8 sequences of up
+    to PB_MAX_LEN positions (B3: two 256-row chunks ending at 2,048 and
+    1,800) in shuffled pool order with -1 padding, over the bf16 pool
+    (timed) and int8 / fp8 pools with their scale planes; held to PAGED_TOL
+    (the plain versions with P in f32); every dh256_bites bite must fail
+    it. Returns {form: rows}."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch.ops.fused_decode import (attention_splits,
+                                                             fused_paged_decode_attention,
+                                                             fused_paged_decode_reference)
+    from shuffle_exchange_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                                paged_decode_reference,
+                                                                paged_extend_attention,
+                                                                paged_extend_reference)
+
+    H, KV, Dh = GPTJ_WIDTHS["H"], GPTJ_WIDTHS["KV"], GPTJ_WIDTHS["Dh"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    q, ck, cv, table, lens = alibi_decode_case(gen, rng, H, KV, Dh)
+    kvl = torch.from_numpy(lens).cuda()
+    splits = attention_splits(len(lens), KV, table.shape[1], sms)
+    B, C, bs = 2, 256, 64
+    start = np.asarray([PB_MAX_LEN - 256, 1600], np.int32)
+    nnew = np.asarray([256, 200], np.int32)
+    eck, ecv, etable = _paged_inputs(gen, rng, start + nnew, H, KV, Dh, bs, pad=-1)
+    eq = torch.randn(B, C, H, Dh, generator=gen, device="cuda").bfloat16()
+    st, nn = torch.from_numpy(start).cuda(), torch.from_numpy(nnew).cuda()
+    pick = lambda x: torch.cat([x[b, :n].flatten() for b, n in enumerate(nnew)])
+    out = {"paged_decode_attention[dh256]": [], "fused_paged_decode_attention[dh256]": [],
+           "paged_extend_attention[dh256]": []}
+    for fmt in ("bf16",) + KV_FORMATS:
+        if fmt == "bf16":
+            planes, eplanes, sc, esc = (ck, None, cv, None), (eck, None, ecv, None), {}, {}
+        else:
+            planes, eplanes = quantized_pools(ck, cv, fmt), quantized_pools(eck, ecv, fmt)
+            sc = dict(k_scale=planes[1], v_scale=planes[3])
+            esc = dict(k_scale=eplanes[1], v_scale=eplanes[3])
+        kq, vq, ekq, evq = planes[0], planes[2], eplanes[0], eplanes[2]
+        calls = {
+            "paged_decode_attention[dh256]": (
+                lambda: paged_decode_attention(q, kq, vq, table, kvl, **sc),
+                lambda qq: paged_decode_reference(qq, kq, vq, table, kvl, p_f32=True, **sc),
+                q, lambda x: x),
+            "fused_paged_decode_attention[dh256]": (
+                lambda: fused_paged_decode_attention(q, kq, vq, table, kvl, **sc),
+                lambda qq: fused_paged_decode_reference(qq, kq, vq, table, kvl, splits, **sc),
+                q, lambda x: x),
+            "paged_extend_attention[dh256]": (
+                lambda: paged_extend_attention(eq, ekq, evq, etable, st, nn, **esc),
+                lambda qq: paged_extend_reference(qq, ekq, evq, etable, st, nn, p_f32=True,
+                                                  **esc),
+                eq, pick)}
+        for form, (run, plain, qq, rows_of) in calls.items():
+            got, want = run(), plain(qq)
+            err, tol_ok = paged_close(rows_of(got), rows_of(want))
+            bites = dh256_bites(got, plain, qq, rows_of)
+            extend = form.startswith("paged_extend")
+            row = dict(shape=dict(H=H, KV=KV, Dh=Dh, bs=64, pool=fmt,
+                                  **(dict(B=B, C=C, start=start.tolist(), nnew=nnew.tolist(),
+                                          table_width=int(etable.shape[1])) if extend else
+                                     dict(B=len(lens), kv_len=lens.tolist(),
+                                          table_width=int(table.shape[1]))),
+                                  **({"splits": splits} if form.startswith("fused") else {})),
+                       max_abs_err=err.max().item(), tolerance=PAGED_TOL, within=tol_ok,
+                       tolerance_bites=bites)
+            _check(tol_ok, f"{form} over a {fmt} pool disagrees with its plain version: max "
+                   f"abs err {row['max_abs_err']}")
+            _check(all(bites.values()), f"{form} ({fmt} pool): the tolerance misses {bites}")
+            if fmt == "bf16":
+                if extend:
+                    visible = np.minimum(start[:, None] + np.arange(C)[None, :] + 1,
+                                         (start + nnew)[:, None])
+                    pairs = sum(int(s) * int(n) + int(n) * (int(n) + 1) // 2
+                                for s, n in zip(start, nnew))
+                    nbytes = (2 * B * C * H * Dh * 2 + int((start + nnew).sum()) * KV * Dh * 4
+                              + etable.numel() * 4 + 2 * B * 4)
+                    b_ms, b_by = bound(nbytes, 4.0 * pairs * H * Dh)
+                    qs, ks, vs, mask = _sdpa_inputs(eq, eck, ecv, etable, visible)
+                else:
+                    b_ms, b_by = _decode_bound(q, ck, table, lens)
+                    qs, ks, vs, mask = _sdpa_inputs(q, ck, cv, table, lens[:, None])
+                lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+                row.update(ms=time_cold(run), host_us=host_us(run),
+                           plain_ms=time_cold(lambda: plain(qq)), library_ms=time_cold(lib),
+                           library="SDPA over the gathered K/V, boolean mask",
+                           bound_ms=b_ms, bound_by=b_by)
+            out[form].append(row)
+    return out
+
+
+# (B, T, S, H, KV, Dh, causal): the GPT-J prefill's shape first (timed, the
+# kernels line's), a GQA layout with ragged T, and full attention T < S
+FLASH_256_SHAPES = [(8, 1024, 1024, 16, 16, 256, True), (2, 1000, 1000, 16, 4, 256, True),
+                    (2, 200, 1000, 16, 16, 256, False)]
+
+
+def check_flash_dh256(gen):
+    """The flash forward at head_dim 256 (Q's fragments from shared memory)
+    at FLASH_256_SHAPES against its plain version with P in f32, within
+    PAGED_TOL; at the first shape a plain version with the causal diagonal
+    shifted by one, one with the softmax scale of head_dim 128 and one
+    reading the neighbouring head's q must fail it. Timed beside the bound
+    and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch.ops.flash_attention import (flash_attention,
+                                                                reference_attention)
+
+    rows = []
+    for i, (B, T, S, H, KV, Dh, causal) in enumerate(FLASH_256_SHAPES):
+        q = torch.randn(B, T, H, Dh, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
+        run = lambda: flash_attention(q, k, v, causal=causal)
+        plain = lambda qq: reference_attention(qq, k, v, causal, p_f32=True)
+        got, want = run(), plain(q)
+        torch.cuda.synchronize()
+        err, tol_ok = paged_close(got, want)
+        _check(tol_ok, f"flash attention at head_dim 256 disagrees with its plain version at "
+               f"{FLASH_256_SHAPES[i]}: max abs err {err.max().item()}")
+        pairs = B * (T * (T + 1) // 2 if causal else T * S)
+        row = dict(shape=dict(B=B, T=T, S=S, H=H, KV=KV, Dh=Dh, causal=causal),
+                   max_abs_err=err.max().item(),
+                   max_rel_err=(err.max() / want.float().abs().max()).item(),
+                   tolerance=PAGED_TOL + " (plain with P in f32)", within=tol_ok,
+                   visible_pairs=pairs)
+        if i == 0:
+            shifted = torch.ones(T, S, dtype=torch.bool, device="cuda").tril(1)
+            row["tolerance_bites"] = dict(dh256_bites(got, plain, q),
+                                          diagonal_shifted=_bites(got, _masked_plain(
+                                              q, k, v, shifted)))
+            _check(all(row["tolerance_bites"].values()), f"the head_dim-256 flash tolerance "
+                   f"misses {row['tolerance_bites']}")
+            qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                         enable_gqa=True)
+            nbytes = 2 * B * T * H * Dh * 2 + 2 * B * S * KV * Dh * 2
+            b_ms, b_by = bound(nbytes, 4.0 * pairs * H * Dh)
+            row.update(ms=time_cold(run), host_us=host_us(run),
+                       plain_ms=time_cold(lambda: plain(q)), library_ms=time_cold(lib),
+                       library_kernels=_sdpa_kernels(lib), bound_ms=b_ms, bound_by=b_by)
+            row["tflops"] = 4.0 * pairs * H * Dh / (row["ms"] * 1e-3) / 1e12
+        rows.append(row)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_parallel_block_forms(gen, seed):
+    """Phase 2n: every kernel form the parallel-block families add, against
+    its plain version with its bites. Returns {form: rows}."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 19])
+    forms = {"fused_mlp[no-norm]": [], "fused_mlp_quant[no-norm]": []}
+    for r in check_mlp_no_norm(gen):
+        forms["fused_mlp[no-norm]" if r["shape"]["fmt"] == "bf16"
+              else "fused_mlp_quant[no-norm]"].append(r)
+    forms["fused_qkv_rope[partial-rope]"] = check_qkv_partial_rope(gen, rng)
+    forms.update(check_paged_dh256(gen, rng))
+    forms["flash_attention[dh256]"] = check_flash_dh256(gen)
+    print(f"[kernel] parallel-block forms: {sum(len(r) for r in forms.values())} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return forms
+
+
+# GPT-J-6B's and Pythia-1.4b's fused decode row: per layer, B4 unless the QKV
+# stays on the layer body (GPT-J's interleaved RoPE), B5 always, B6 unless
+# the MLP does (Pythia's exact gelu)
+PB_PER_LAYER = {"gpt-j-6b": dict(fused_qkv_rope=0, fused_paged_decode_attention=1, fused_mlp=1),
+                "pythia-1.4b": dict(fused_qkv_rope=1, fused_paged_decode_attention=1,
+                                    fused_mlp=0)}
+
+
+def parallel_block_serving(name, cfg, seed, card):
+    """Phase 3j for one model at full width and depth (phase 3g's
+    ``family_serving``: ``serve()`` on "auto" and "xla", ``put()`` +
+    ``decode_loop`` against the single-token ``put()`` loop, the v1
+    ``generate``, a profiled decode window), then the fused decode step's
+    launches held to PB_PER_LAYER exactly (31 ``decode_loop`` steps) and the
+    prefill's flash forward once a layer. GPT-J-6B then serves its widths
+    with ``mlp_bias=False`` at depth 2, int8 (B7 without its norm: 2 a
+    decode row-step). Returns the results and the weights (phase 4e)."""
+    import torch
+
+    from shuffle_exchange_tpu_torch.models import Transformer
+
+    out, params = family_serving(name, cfg, seed, card)
+    L = cfg.n_layers
+    loop = out["put_decode_loop"]["launches"]
+    want = {k: n * L * LOOP_STEPS for k, n in PB_PER_LAYER[name].items()}
+    want["flash_attention"] = L     # the one prefill program
+    got = {k: loop[k] for k in want}
+    _check(got == want, f"{name}: put() + {LOOP_STEPS} decode_loop steps launched {got}, "
+           f"not {want}")
+    print(f"[{name}] a fused decode step launches, per layer: "
+          f"{ {k: n for k, n in PB_PER_LAYER[name].items()} } (held exactly over "
+          f"{LOOP_STEPS} steps); the prefill's flash forward once a layer", flush=True)
+    if name == "gpt-j-6b":
+        nb_cfg = dataclasses.replace(cfg, n_layers=2, mlp_bias=False)
+        nb_params = {k: (v[:2] if k.startswith("layers.") else v) for k, v in params.items()
+                     if k not in ("layers.b_up", "layers.b_down")}
+        r = counted_serve(Transformer(nb_cfg), nb_params, np.random.default_rng([seed, 1]),
+                          dict(SERVE_CONFIG, **_quant(8)), 2, card,
+                          label=f"{name} mlp_bias=False int8 depth 2")
+        dec = r["programs"].get("decode", 0) + r["programs"].get("mixed", 0)
+        _check(r["resolved"] == "pallas" and r["launches"]["fused_mlp_quant"] == 2 * dec > 0,
+               f"{name} mlp_bias=False int8: B7 did not launch 2 a decode row-step "
+               f"({r['launches']}, {dec} decode programs)")
+        r["tokens"] = {int(u): t for u, t in r["tokens"].items()}
+        out["nobias_int8"] = r
+        del nb_params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, params
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: train the ladder's pick through initialize() + train_batch
 # ---------------------------------------------------------------------------
 
@@ -4996,6 +5466,9 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s; a sparse_attention call launched "
           f"{sparse_launches['flash_attention']} forward and "
           f"{sparse_launches['flash_attention_bwd']} backward", flush=True)
+    # 2n. the parallel-block families' forms: B6/B7 without their norm, B4's
+    # partial rotary, B2/B3/B5 and the flash forward at head_dim 256
+    pb_forms = check_parallel_block_forms(gen, args.seed)
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
                "fused_mlp": mlp, "fused_mlp_quant": qmlp, "quant_matmul": qmm,
@@ -5006,7 +5479,7 @@ def main(argv=None) -> int:
                "flash_attention_bwd": fbwd, "fused_adamw": adamw,
                "alibi_flash_attention": al_fwd, "alibi_flash_attention_bwd_dq": al_dq,
                "alibi_flash_attention_bwd_dkv": al_dkv, **forms, **kv_forms, **mask_forms,
-               **mq_forms}
+               **mq_forms, **pb_forms}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
@@ -5257,6 +5730,44 @@ def main(argv=None) -> int:
     # B7's new forms on BLOOM-1b7's widths without fc biases (3i)
     form_launches["fused_mlp_quant[forms]"] = fquant["bloom-1b7"]["b7_form_launches"]
 
+    # 3j. GPT-J-6B (shared-layernorm parallel blocks, interleaved RoPE, head
+    # dim 256) and Pythia-1.4b (two layernorms, partial rotary) at full width
+    # and depth; 4e. each cut to depth 2 against the CPU f32 engine
+    pblocks, pb_e2es = {}, {}
+    for name, hf in (("gpt-j-6b", GPTJ_6B), ("pythia-1.4b", PYTHIA_1B4)):
+        pcfg = config_from_hf(hf)
+        t0 = time.perf_counter()
+        pblocks[name], pparams = parallel_block_serving(name, pcfg, args.seed + 23, card)
+        t1 = time.perf_counter()
+        pb_e2es[name] = family_e2e(name, pcfg, pparams, args.seed)
+        print(f"[{name}] phase 3j in {t1 - t0:.1f} s, 4e in {time.perf_counter() - t1:.1f} s",
+              flush=True)
+        del pparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    pb_runs = {name: [p["serve"]["auto"]["launches"], p["serve"]["xla"]["launches"],
+                      p["put_decode_loop"]["launches"], p["v1_generate"]["launches"]]
+               for name, p in pblocks.items()}
+    runs += [r for rs in pb_runs.values() for r in rs]
+    runs.append(pblocks["gpt-j-6b"]["nobias_int8"]["launches"])
+    _check(all(r["rmsnorm"] == 0 for rs in pb_runs.values() for r in rs),
+           "a layernorm model launched the RMSNorm kernel")
+    # each new form's launches on the path that runs it: head_dim 256 and B6
+    # without its norm on GPT-J's, B4's partial rotary on Pythia's, B7
+    # without its norm on GPT-J's mlp_bias=False int8 serve
+    pb_models = {"fused_mlp[no-norm]": "gpt-j-6b", "fused_qkv_rope[partial-rope]": "pythia-1.4b",
+                 "paged_decode_attention[dh256]": "gpt-j-6b",
+                 "paged_extend_attention[dh256]": "gpt-j-6b",
+                 "fused_paged_decode_attention[dh256]": "gpt-j-6b",
+                 "flash_attention[dh256]": "gpt-j-6b"}
+    for form, m in pb_models.items():
+        form_launches[form] = sum(r[form.split("[")[0]] for r in pb_runs[m])
+    form_launches["fused_mlp_quant[no-norm]"] = \
+        pblocks["gpt-j-6b"]["nobias_int8"]["launches"]["fused_mlp_quant"]
+    _check(all(form_launches[f] > 0 for f in pb_forms),
+           f"a parallel-block kernel form never launched on its serving path: "
+           f"{ {f: form_launches[f] for f in pb_forms} }")
+
     # 5. train the ladder's pick at full width and depth; 6. depth 2 against
     # the CPU
     from shuffle_exchange_tpu_torch.models import pick_ladder_config
@@ -5437,7 +5948,8 @@ def main(argv=None) -> int:
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                         "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
-    for s_ in [*serves.values(), *(s_ for f in families.values() for s_ in f["serve"].values())]:
+    for s_ in [*serves.values(), *(s_ for f in [*families.values(), *pblocks.values()]
+                                   for s_ in f["serve"].values())]:
         s_["tokens"] = {int(u): t for u, t in s_["tokens"].items()}
     result = {"card": card, "seconds": time.perf_counter() - t_start,
               "build": {"nvcc_s": nvcc_s}, "kernels": kernels,
@@ -5451,6 +5963,7 @@ def main(argv=None) -> int:
               "alibi_gpt2_e2e": family_e2es, "form_launches": form_launches,
               "kv_quant_serving": kvserve, "kv_e2e": kv_e2es,
               "family_quant_serving": fquant, "family_quant_e2e": fquant_e2e,
+              "parallel_block_serving": pblocks, "parallel_block_e2e": pb_e2es,
               "sparse_user_call": {"launches": sparse_launches, "finite": sparse_finite}}
     if args.out:
         with open(args.out, "w") as f:

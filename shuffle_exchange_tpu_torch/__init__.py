@@ -81,6 +81,11 @@ def initialize(
 
     resolved = params
     if model is not None and hasattr(model, "loss"):
+        mcfg = getattr(model, "config", None)
+        if mcfg is not None:   # structures that serve but do not train refuse here
+            from .models.transformer import check_supported
+
+            check_supported(mcfg)
         if resolved is None:
             if getattr(model, "has_params", lambda: False)():
                 resolved = model.params()

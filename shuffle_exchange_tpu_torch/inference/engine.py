@@ -3,8 +3,9 @@
 Counterpart of ``shuffle_exchange_tpu/inference/engine.py``: the cast of
 the weights to the serving dtype and their move to the device, the
 embedding at per-sequence positions, the one transformer block every
-cached path shares (``_layer_body`` / ``_block_tail`` / the dense
-``_ffn``), the pieces of the fused decode path both JAX engines share (the
+cached path shares (``_layer_body`` / ``_block_tail``, whose three
+tails are the sequential block and the two parallel blocks of GPT-J and
+GPT-NeoX / the dense ``_ffn``), the pieces of the fused decode path both JAX engines share (the
 resolution of ``decode_kernel``, the rope rows of the fused QKV kernel,
 the fused QKV for one-token rows in ``_layer_body`` and the fused MLP in
 ``_block_tail``), the per-row adapter deltas the paged engine's adapter
@@ -49,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.transformer import (Transformer, _norm, activation_fn, check_servable,
-                                  decode_fusion_eligibility, rope_table)
+                                  decode_fusion_eligibility, rope_rows, rope_table)
 from ..config.config_utils import ConfigError
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
 from ..ops.flash_attention import flash_attention
@@ -90,13 +91,13 @@ def _rope_rows(cos: torch.Tensor, sin: torch.Tensor, pos: torch.Tensor):
     return cos[pos], sin[pos]
 
 
-def _apply_rope_batched(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, T, H, D], cos/sin [B, T, D/2] (per-sequence positions):
-    rotate-half, the rows cast to x's dtype before the multiply."""
-    c = cos[:, :, None, :].to(x.dtype)
-    s = sin[:, :, None, :].to(x.dtype)
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+def _apply_rope_batched(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                        interleaved: bool = False) -> torch.Tensor:
+    """x [B, T, H, D], cos/sin [B, T, rd/2] (per-sequence positions): JAX's
+    ``_apply_rope_batched``, rotate-half or interleaved pairs over the first
+    rd columns, the rest passed through, the rows cast to x's dtype before
+    the multiply."""
+    return rope_rows(x, cos[:, :, None, :], sin[:, :, None, :], interleaved)
 
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -160,10 +161,10 @@ class InferenceEngine:
         """Pin the decode path for the engine's lifetime, as the JAX
         engine's ``_resolve_decode_kernel`` does: "auto" is the fused path
         on the card and the paged-kernel layer body on the CPU; "pallas" on
-        a model with no fusable part of its decode layer raises. (The JAX
-        paged engine also fuses the attention alone for models whose QKV
-        cannot fuse; the port admits no such model yet, ROADMAP queue A,
-        item 4.)"""
+        a model with no fusable part of its decode layer raises. The paged
+        engine always has one: its decode rows fuse the attention alone
+        (split-K) when the QKV cannot fuse (GPT-J's interleaved RoPE), as
+        JAX's ``_fused_attention`` says."""
         requested = self.config.decode_kernel
         self._decode_kernel = resolve_decode_kernel(requested, self.device)
         self._fuse_qkv = self._fuse_mlp = False
@@ -172,7 +173,7 @@ class InferenceEngine:
         elig = decode_fusion_eligibility(self._mcfg)
         self._fuse_qkv = elig["qkv"] is None
         self._fuse_mlp = elig["mlp"] is None
-        if not (self._fuse_qkv or self._fuse_mlp):
+        if not (self._fuse_qkv or self._fuse_mlp or self.paged):
             reasons = "; ".join(r for r in elig.values() if r)
             if requested == "pallas":
                 raise ValueError("decode_kernel='pallas' but no part of the decode layer "
@@ -321,18 +322,22 @@ class InferenceEngine:
             if self._rope is not None:
                 cos, sin = self._rope
                 pc, ps = _rope_rows(cos, sin, positions)
-                q = _apply_rope_batched(q, pc, ps)
-                k = _apply_rope_batched(k, pc, ps)
+                q = _apply_rope_batched(q, pc, ps, cfg.rope_interleaved)
+                k = _apply_rope_batched(k, pc, ps, cfg.rope_interleaved)
         else:
             q, k, v = qkv
         attn = attn_fn(q, k, v)
-        return self._block_tail(lw, h, attn, lora=lora)
+        return self._block_tail(lw, h, y, attn, lora=lora)
 
-    def _block_tail(self, lw: Dict[str, torch.Tensor], h: torch.Tensor,
+    def _block_tail(self, lw: Dict[str, torch.Tensor], h: torch.Tensor, y: torch.Tensor,
                     attn: torch.Tensor, lora: Optional[Lora] = None) -> torch.Tensor:
         """Output projection (with the ``wo`` adapter delta under ``lora``),
-        residual and FFN, shared by the plain and the fused layer bodies
-        (the FFN fuses for one-token rows)."""
+        residual(s) and FFN, shared by the plain and the fused layer bodies
+        (the FFN fuses for one-token rows); ``y`` is the layer's ln1 output.
+        The three tails of JAX's ``_block_tail``: a parallel block with a
+        shared layernorm adds ``ffn(y)`` (fused without a norm), one with
+        two layernorms ``ffn(ln2(h))`` of the block's input h, both beside
+        the attention; a sequential block ``ffn(ln2(h + attn))``."""
         cfg = self._mcfg
         B, T = h.shape[:2]
         attn_flat = attn.reshape(B, T, cfg.n_heads * cfg.head_dim)
@@ -341,8 +346,18 @@ class InferenceEngine:
             attn_out = self._lora_add(attn_out, attn_flat, lora, "wo")
         if cfg.attn_out_bias:
             attn_out = attn_out + lw["b_o"].to(attn_out.dtype)
+        if cfg.parallel_block:
+            resid = h + attn_out
+            if cfg.parallel_shared_ln:
+                out = self._maybe_fused_ffn(lw, resid, y, apply_norm=False)
+                return out if out is not None else resid + self._ffn(lw, y)
+            out = self._maybe_fused_ffn(lw, resid, h, apply_norm=True)
+            if out is not None:
+                return out
+            y2 = _norm(h, lw["ln2_w"], lw.get("ln2_b"), cfg.norm, eps=cfg.norm_eps)
+            return resid + self._ffn(lw, y2)
         h = h + attn_out
-        out = self._maybe_fused_ffn(lw, h)
+        out = self._maybe_fused_ffn(lw, h, h, apply_norm=True)
         if out is not None:
             return out
         y2 = _norm(h, lw["ln2_w"], lw.get("ln2_b"), cfg.norm, eps=cfg.norm_eps)
@@ -350,9 +365,10 @@ class InferenceEngine:
 
     def _fused_qkv_args(self, lw: Dict[str, torch.Tensor], positions: torch.Tensor):
         """What the fused QKV kernel takes beside the weights (JAX
-        ``_fused_qkv_args``): the f32 rope rows [B, Dh/2] at each one-token
-        row's position (None, None without RoPE) and the q/k/v bias
-        keywords (empty without biases)."""
+        ``_fused_qkv_args``): the f32 rope rows [B, rd/2] at each one-token
+        row's position (rd = ``rotary_dims``, the table's width; None, None
+        without RoPE) and the q/k/v bias keywords (empty without
+        biases)."""
         cosr = sinr = None
         if self._rope is not None:
             cos, sin = self._rope
@@ -378,17 +394,18 @@ class InferenceEngine:
                                  n_heads=cfg.n_heads, kv_heads=cfg.kv_heads, **bias)
         return q[:, None], k[:, None], v[:, None]
 
-    def _maybe_fused_ffn(self, lw: Dict[str, torch.Tensor],
-                         h: torch.Tensor) -> Optional[torch.Tensor]:
-        """``h + FFN(norm(h))`` through the fused MLP kernel (bf16 weights:
-        RMSNorm or layernorm, gated or plain, with the fc biases) or the
-        fused quantized MLP kernel (the same forms without fc biases) for
-        one-token rows when the decode path is fused; None otherwise, and
-        for MLP weights the fused kernels cannot take: mixed dense and
-        quantized, or quantized with fc biases (BLOOM, GPT-2), which stay
-        on the layer body's quantized matmuls. As in JAX, a static choice
-        by the weights' structure."""
-        if not (self._fuse_mlp and h.shape[1] == 1):
+    def _maybe_fused_ffn(self, lw: Dict[str, torch.Tensor], resid: torch.Tensor,
+                         y_src: torch.Tensor, apply_norm: bool) -> Optional[torch.Tensor]:
+        """``resid + FFN(ln2(y_src))`` (``apply_norm=False``: ``resid +
+        FFN(y_src)``, the shared layernorm's y) through the fused MLP kernel
+        (bf16 weights: RMSNorm, layernorm or no norm, gated or plain, with
+        the fc biases) or the fused quantized MLP kernel (the same forms
+        without fc biases) for one-token rows when the decode path is
+        fused; None otherwise, and for MLP weights the fused kernels cannot
+        take: mixed dense and quantized, or quantized with fc biases
+        (BLOOM, GPT-2, GPT-J), which stay on the layer body's quantized
+        matmuls. As in JAX, a static choice by the weights' structure."""
+        if not (self._fuse_mlp and resid.shape[1] == 1):
             return None
         cfg = self._mcfg
         gated = cfg.activation == "swiglu"
@@ -401,9 +418,13 @@ class InferenceEngine:
             warning_once(f"fused decode: MLP stays on the layer body ({reason})")
             return None
         kw = {"b_up": lw["b_up"], "b_down": lw["b_down"]} if has_bias else {}
-        out = fused_mlp(h[:, 0], h[:, 0], lw["ln2_w"], lw["w_up"], lw["w_down"], wg,
-                        eps=cfg.norm_eps, ln_b=lw.get("ln2_b"), norm=cfg.norm,
-                        activation=cfg.activation, **kw)
+        # without the norm its weights are unused; ln1_w rides along as a
+        # shape-correct stand-in (JAX's dummy)
+        ln_w = lw["ln2_w"] if apply_norm else lw["ln1_w"]
+        ln_b = lw.get("ln2_b") if apply_norm else None
+        out = fused_mlp(resid[:, 0], y_src[:, 0], ln_w, lw["w_up"], lw["w_down"],
+                        wg, eps=cfg.norm_eps, ln_b=ln_b, norm=cfg.norm,
+                        activation=cfg.activation, apply_norm=apply_norm, **kw)
         return out[:, None]
 
     def _ffn(self, lw: Dict[str, torch.Tensor], y: torch.Tensor) -> torch.Tensor:

@@ -384,11 +384,12 @@ class InferenceEngineV2(InferenceEngine):
     def _decode_layer(self, lw, h, ck, cv, pos, tables,
                       lora: Optional[Lora] = None) -> torch.Tensor:
         """One decode layer (one token per row): the fused layer when the
-        decode path is fused, the attention weights are dense and no
-        adapter operands ride the call, else append the token's K/V into
-        the layer's pool view in place and run the split-K decode kernel
-        (fused path) or the paged decode kernel. ck/cv are the layer's
-        pool views, or (data, scale) pairs of a quantized pool."""
+        decode path is fused, the QKV fuses (not GPT-J's interleaved RoPE),
+        the attention weights are dense and no adapter operands ride the
+        call, else append the token's K/V into the layer's pool view in
+        place and run the split-K decode kernel (fused path: JAX's
+        attention-only fusion) or the paged decode kernel. ck/cv are the
+        layer's pool views, or (data, scale) pairs of a quantized pool."""
         fused = self._decode_kernel == "pallas"
         if fused and self._fuse_qkv and not qkv_quantized(lw) and lora is None:
             return self._fused_paged_layer(lw, h, ck, cv, pos, tables)
@@ -412,7 +413,8 @@ class InferenceEngineV2(InferenceEngine):
         ALiBi) and writes the new token's K/V into the layer's pool view in
         place; the split-K kernel attends through the block table, with the
         ALiBi slopes; ``_block_tail`` does the ``wo`` product, its bias and
-        the residual and takes the fused MLP when the model's MLP fuses. A
+        the residual(s) and takes the fused MLP when the model's MLP fuses
+        (on ln1's y, without a norm, under a shared layernorm). A
         kernel that fails raises: nothing drops to another path. On a
         quantized pool the QKV kernel runs without a pool and the
         quantizing append writes the token's rows and scales (JAX's form:
@@ -430,7 +432,7 @@ class InferenceEngineV2(InferenceEngine):
                                      tables, pos, **heads)
         attn = fused_paged_decode_attention(q[:, None], *_pool_operands(ck, cv, tables, pos + 1),
                                             alibi_slopes=self._alibi, **_scales(ck, cv))
-        return self._block_tail(lw, h, attn)
+        return self._block_tail(lw, h, y, attn)
 
     def _extend_layer(self, lw, h, ck, cv, positions, start, nnew, tables,
                       lora: Optional[Lora] = None) -> torch.Tensor:

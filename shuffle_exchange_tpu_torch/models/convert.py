@@ -5,7 +5,8 @@ the port keys the same leaves by their flattened names (``"layers.wq"``)
 with identical shapes and layouts, so the conversion is a rename: no
 transpose, no reshape. Every leaf crosses by name, the GPT-2 and BLOOM
 ones (``pos_embed``, ``embed_ln_w`` / ``embed_ln_b``, ``b_q`` / ``b_k`` /
-``b_v`` / ``b_o``, ``b_up`` / ``b_down``) as the Llama ones. Leaves travel as numpy arrays, which is how the
+``b_v`` / ``b_o``, ``b_up`` / ``b_down``) as the Llama ones, and so do the
+parallel-block trees (GPT-J's ``unembed_b`` and its missing ``ln2_*``). Leaves travel as numpy arrays, which is how the
 tests hand weights from one package to the other. A training engine's
 state (f32 master, the Adam moments ``mu`` / ``nu`` and the update count)
 moves the same way, so a test can start both engines from one state and

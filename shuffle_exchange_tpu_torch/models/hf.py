@@ -3,7 +3,8 @@
 A slice of ``shuffle_exchange_tpu/models/hf.py``: ``config_from_hf`` for a
 ``config.json`` dict, for the families the port trains: GPT-2, BLOOM and
 the Llama family (llama, mistral, phi3, which the JAX mapping sends through
-one branch). The field mapping is the JAX package's, line for line. Other
+one branch), and those it serves: GPT-J and GPT-NeoX (Pythia), the
+parallel-block families. The field mapping is the JAX package's, line for line. Other
 families, HF config objects and the weight conversion raise, naming ROADMAP
 queue A, item 14; ``transformers`` is never imported.
 """
@@ -31,7 +32,11 @@ _MODEL_TYPE_FAMILIES = {"llama": "llama", "mistral": "llama", "qwen2": "qwen2",
                         "distilbert": "distilbert", "gpt_neo": "gptneo", "internlm": "internlm",
                         "internlm2": "internlm2", "megatron": "megatron",
                         "megatron-gpt": "megatron", "megatron_gpt": "megatron"}
-_PORTED = ("gpt2", "bloom", "llama", "phi3")
+_PORTED = ("gpt2", "bloom", "llama", "phi3", "gptj", "gptneox")
+#: why a family that is not ported waits, where more than its item says
+_WAITS = {"falcon": "Falcon-7B's multi-query attention (71 heads of 64 over one kv head) "
+                    "needs the split-K decode kernel at G*Dh > 1024 (ROADMAP queue B, B5) and "
+                    "the rest of item 4 (d)"}
 
 
 def _family(cfg: Dict[str, Any]) -> str:
@@ -54,9 +59,10 @@ def config_from_hf(hf_config: Dict[str, Any]) -> TransformerConfig:
     cfg = hf_config
     family = _family(cfg)
     if family not in _PORTED:
+        why = f"; {_WAITS[family]}" if family in _WAITS else ""
         raise NotImplementedError(f"config_from_hf for the {family!r} family is not in the "
                                   f"PyTorch port yet (ported: {', '.join(_PORTED)}): ROADMAP "
-                                  "queue A, item 14")
+                                  f"queue A, item 14{why}")
     if family == "gpt2":
         return TransformerConfig(
             vocab_size=cfg["vocab_size"], d_model=cfg["n_embd"], n_layers=cfg["n_layer"],
@@ -75,6 +81,33 @@ def config_from_hf(hf_config: Dict[str, Any]) -> TransformerConfig:
             attn_qkv_bias=True, attn_out_bias=True,
             norm_eps=cfg.get("layer_norm_epsilon", 1e-5),
             tie_embeddings=cfg.get("tie_word_embeddings", True))
+    if family == "gptj":
+        return TransformerConfig(
+            vocab_size=cfg["vocab_size"], d_model=cfg["n_embd"], n_layers=cfg["n_layer"],
+            n_heads=cfg["n_head"], max_seq_len=cfg.get("n_positions", 2048),
+            activation=cfg.get("activation_function", "gelu_new"),
+            norm="layernorm", position="rope", rope_theta=10000.0,
+            rotary_dim=cfg.get("rotary_dim") or 0, rope_interleaved=True,
+            parallel_block=True, parallel_shared_ln=True,
+            norm_eps=cfg.get("layer_norm_epsilon", 1e-5),
+            tie_embeddings=cfg.get("tie_word_embeddings", False),
+            unembed_bias=True)
+    if family == "gptneox":
+        head_dim = cfg["hidden_size"] // cfg["num_attention_heads"]
+        return TransformerConfig(
+            vocab_size=cfg["vocab_size"], d_model=cfg["hidden_size"],
+            n_layers=cfg["num_hidden_layers"], n_heads=cfg["num_attention_heads"],
+            d_ff=cfg.get("intermediate_size"),
+            max_seq_len=cfg.get("max_position_embeddings", 2048),
+            activation=cfg.get("hidden_act", "gelu"),
+            norm="layernorm", position="rope",
+            rope_theta=float(cfg.get("rotary_emb_base", 10000.0)),
+            rotary_dim=int(cfg.get("rotary_pct", 1.0) * head_dim),
+            parallel_block=cfg.get("use_parallel_residual", True),
+            attn_qkv_bias=cfg.get("attention_bias", True),
+            attn_out_bias=cfg.get("attention_bias", True),
+            norm_eps=cfg.get("layer_norm_eps", 1e-5),
+            tie_embeddings=cfg.get("tie_word_embeddings", False))
     return TransformerConfig(      # llama / mistral / phi3
         vocab_size=cfg["vocab_size"], d_model=cfg["hidden_size"],
         n_layers=cfg["num_hidden_layers"], n_heads=cfg["num_attention_heads"],

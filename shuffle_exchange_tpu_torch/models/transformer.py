@@ -1,4 +1,5 @@
-"""Decoder-only transformer, in PyTorch: the Llama family, GPT-2 and BLOOM.
+"""Decoder-only transformer, in PyTorch: the Llama family, GPT-2, BLOOM,
+GPT-J and GPT-NeoX (Pythia).
 
 Counterpart of ``shuffle_exchange_tpu/models/transformer.py`` cut to what
 the serving and training slices run. Training takes RMSNorm or layernorm,
@@ -8,7 +9,11 @@ gelu_pytorch_tanh, relu or silu, with or without fc biases) or a
 Mixtral-style MoE FFN (``n_experts`` > 0: top-k routed experts in every
 layer, an optional shared expert), ``embed_ln`` and a tied or untied
 unembedding. Serving takes the same structures (``check_servable``),
-with weight quantization and adapters on every one of them. The
+with weight quantization and adapters on every one of them, and besides
+the parallel blocks of GPT-J (one shared layernorm) and GPT-NeoX (two),
+interleaved (GPT-J) and partial (``rotary_dim``) RoPE and GPT-J's
+unembedding bias; the training forward refuses those (``check_supported``:
+the flash backward at head_dim 256 is ROADMAP queue A, item 4 (d)). The
 pieces the inference engines call (``embed``, ``head``) and the training
 forward (``layer_apply``, ``stack_apply``, ``chunked_loss``, ``loss``) are
 functional like the JAX ones: they take the parameters as a
@@ -63,12 +68,14 @@ class TransformerConfig:
     attn_qkv_bias: bool = False
     attn_out_bias: bool = False
     pos_offset: int = 0                        # OPT offsets learned positions by 2
-    parallel_block: bool = False
-    rotary_dim: int = 0
-    rope_interleaved: bool = False
+    parallel_block: bool = False               # h + attn(y1) + mlp(y2) (GPT-J/NeoX/Falcon)
+    parallel_shared_ln: bool = False           # y2 = y1, no ln2 (GPT-J, Falcon-7B)
+    rotary_dim: int = 0                        # rope on the first rotary_dim dims (0 = all)
+    rope_interleaved: bool = False             # GPT-J rotate-every-two pairs
     embed_ln: bool = False
     alibi_slope_scale: float = 1.0             # falcon scales alibi by 1/sqrt(Dh)
     mlp_bias: bool = True                      # plain-MLP fc biases (False: Falcon)
+    unembed_bias: bool = False                 # GPT-J lm_head bias (untied only)
     post_ln: bool = False
     local_attention_window: int = 0
     attention_pattern: Tuple[str, ...] = ()
@@ -186,8 +193,11 @@ def param_count(cfg: TransformerConfig) -> int:
         Fs = cfg.moe_shared_expert_ff
         mlp = cfg.n_experts * mlp + d * cfg.n_experts + (3 * d * Fs + d if Fs else 0)
     norm = 2 if cfg.norm == "layernorm" else 1    # weight (and bias) of a norm
-    per_layer = attn + mlp + 2 * norm * d
+    shared_ln = cfg.parallel_block and cfg.parallel_shared_ln   # no ln2
+    per_layer = attn + mlp + (1 if shared_ln else 2) * norm * d
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.unembed_bias and not cfg.tie_embeddings:
+        embed += cfg.vocab_size
     if cfg.position == "learned":
         embed += (cfg.max_seq_len + cfg.pos_offset) * d
     if cfg.embed_ln:
@@ -210,18 +220,21 @@ def pick_ladder_config(device_memory_bytes: int):
 _ACTIVATIONS = ("swiglu", "gelu", "gelu_new", "gelu_pytorch_tanh", "relu", "silu")
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for every structure the port's training forward does not take."""
+#: the ROADMAP item of the structures serving takes and training does not
+PARALLEL_TRAINING = ("ROADMAP queue A, item 4 (d): the training half of the parallel-block "
+                     "families, which needs the flash backward at head_dim 256")
+
+
+def _refusals(cfg: TransformerConfig):
+    """(refused, what) for every structure neither the training forward
+    nor the serving engines take."""
     later = "ROADMAP queue A, item 4"
-    checks = [
+    return [
         (cfg.norm not in ("rmsnorm", "layernorm"), f"norm={cfg.norm!r} ({later})"),
         (cfg.activation not in _ACTIVATIONS, f"activation={cfg.activation!r} ({later})"),
         (cfg.position not in ("rope", "learned", "alibi"), f"position={cfg.position!r} ({later})"),
-        (cfg.position == "rope" and cfg.rope_interleaved,
-         f"interleaved (rotate-every-two) rope ({later})"),
-        (cfg.position == "rope" and cfg.rotary_dim not in (0, cfg.head_dim),
-         f"partial rotary_dim ({later})"),
-        (cfg.parallel_block, f"parallel blocks ({later})"),
+        (cfg.position == "rope" and (cfg.rotary_dims % 2 or cfg.rotary_dims > cfg.head_dim),
+         f"rotary_dim={cfg.rotary_dim} must be even and at most head_dim={cfg.head_dim}"),
         (cfg.post_ln, f"post_ln ({later})"),
         (cfg.n_experts > 0 and bool(cfg.moe_layer_pattern) and not all(cfg.moe_layer_pattern),
          "interleaved dense and MoE layers (moe_layer_pattern; ROADMAP queue A, item 9)"),
@@ -230,21 +243,41 @@ def check_supported(cfg: TransformerConfig) -> None:
         (not cfg.causal, f"bidirectional (encoder) attention ({later})"),
         (cfg.n_heads % cfg.kv_heads != 0, "n_heads must be a multiple of n_kv_heads"),
     ]
+
+
+def _raise_first(checks) -> None:
     for bad, what in checks:
         if bad:
             raise NotImplementedError(f"not supported by the PyTorch port yet: {what}")
 
 
+def check_supported(cfg: TransformerConfig) -> None:
+    """Raise for every structure the port's training forward does not take:
+    those of ``check_servable`` and, besides, the parallel blocks,
+    interleaved or partial RoPE and the unembedding bias, which serve but
+    do not train (``PARALLEL_TRAINING``)."""
+    _raise_first(_refusals(cfg) + [
+        (cfg.position == "rope" and cfg.rope_interleaved,
+         f"interleaved (rotate-every-two) rope in training ({PARALLEL_TRAINING})"),
+        (cfg.position == "rope" and cfg.rotary_dim not in (0, cfg.head_dim),
+         f"partial rotary_dim in training ({PARALLEL_TRAINING})"),
+        (cfg.parallel_block, f"parallel blocks in training ({PARALLEL_TRAINING})"),
+        (cfg.unembed_bias, f"unembed_bias in training ({PARALLEL_TRAINING}; the chunked "
+                           "loss takes no unembedding bias)"),
+    ])
+
+
 def check_servable(cfg: TransformerConfig) -> None:
     """Raise for every structure the port's inference engines do not serve.
-    They serve what the training forward takes (``check_supported``):
-    RMSNorm or layernorm, RoPE, learned positions or ALiBi, q/k/v/out and
-    fc biases, ``embed_ln``, SwiGLU or a plain MLP of the gelu family, and
-    MoE, each in bf16 or with quantized weights (``quantize_weights``) and
-    multi-tenant adapters. Parallel blocks, interleaved or partial RoPE,
-    local or bidirectional attention and ``post_ln`` stay refused there
-    (ROADMAP queue A, item 4 (d))."""
-    check_supported(cfg)
+    They serve RMSNorm or layernorm, RoPE (rotate-half or GPT-J's
+    interleaved pairs, over all of head_dim or its first ``rotary_dim``
+    columns), learned positions or ALiBi, q/k/v/out and fc biases,
+    ``embed_ln``, SwiGLU or a plain MLP of the gelu family, MoE, parallel
+    blocks (two layernorms, or GPT-J's shared one) and an unembedding bias,
+    each in bf16 or with quantized weights (``quantize_weights``) and
+    multi-tenant adapters. Local or bidirectional attention and ``post_ln``
+    stay refused (ROADMAP queue A, item 4 (d))."""
+    _raise_first(_refusals(cfg))
 
 
 def decode_fusion_eligibility(cfg: TransformerConfig) -> dict:
@@ -321,7 +354,9 @@ def alibi_slopes(n_heads: int) -> np.ndarray:
 
 def rope_table(seq_len: int, head_dim: int, theta: float,
                device: Union[str, torch.device, None] = "cpu"):
-    """(cos, sin) [seq_len, head_dim/2] in f32."""
+    """(cos, sin) [seq_len, head_dim/2] in f32; ``head_dim`` is the rotated
+    width (``rotary_dims``: all of a head, or its first ``rotary_dim``
+    columns)."""
     freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                           device=device) / head_dim))
     t = torch.arange(seq_len, dtype=torch.float32, device=device)
@@ -329,13 +364,31 @@ def rope_table(seq_len: int, head_dim: int, theta: float,
     return torch.cos(angles), torch.sin(angles)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, T, H, D], cos/sin [T, D/2]: rotate-half pairing (dim i with
-    i + D/2), the table cast to x's dtype before the multiply."""
-    c = cos[None, :, None, :].to(x.dtype)
-    s = sin[None, :, None, :].to(x.dtype)
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               interleaved: bool = False) -> torch.Tensor:
+    """x [B, T, H, D], cos/sin [T, rd/2]: rotates the first rd = 2 *
+    cos.shape[-1] columns (partial rotary: GPT-NeoX's ``rotary_pct``,
+    GPT-J's ``rotary_dim``) and passes the rest through; the table cast to
+    x's dtype before the multiply."""
+    return rope_rows(x, cos[None, :, None, :], sin[None, :, None, :], interleaved)
+
+
+def rope_rows(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+              interleaved: bool = False) -> torch.Tensor:
+    """JAX ``apply_rope`` on x [..., D] with cos/sin ``c`` / ``s``
+    broadcastable to [..., rd/2]: rotate-half pairs column i with i + rd/2
+    (Llama, NeoX), interleaved ones 2i with 2i + 1 (GPT-J); columns >= rd
+    pass through."""
+    rd = 2 * c.shape[-1]
+    rot, rest = (x[..., :rd], x[..., rd:]) if rd < x.shape[-1] else (x, None)
+    c, s = c.to(x.dtype), s.to(x.dtype)
+    if interleaved:
+        x1, x2 = rot[..., 0::2], rot[..., 1::2]
+        out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).reshape(rot.shape)
+    else:
+        x1, x2 = rot.chunk(2, dim=-1)
+        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out if rest is None else torch.cat([out, rest], dim=-1)
 
 
 class _MmF32Out(torch.autograd.Function):
@@ -410,7 +463,9 @@ class Transformer(nn.Module):
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
-        check_supported(config)
+        # the serving structures build; the training forward refuses the
+        # ones it does not take (stack_apply)
+        check_servable(config)
         self.config = config
         self.device = resolve_device(device)
         self.layers = nn.ParameterDict()
@@ -430,8 +485,9 @@ class Transformer(nn.Module):
             "layers.ln1_w": (L, D), "layers.ln1_b": (L, D),
             "layers.wq": (L, D, H * Dh), "layers.wk": (L, D, KV * Dh),
             "layers.wv": (L, D, KV * Dh), "layers.wo": (L, H * Dh, D),
-            "layers.ln2_w": (L, D), "layers.ln2_b": (L, D),
         })
+        if not (cfg.parallel_block and cfg.parallel_shared_ln):
+            shapes.update({"layers.ln2_w": (L, D), "layers.ln2_b": (L, D)})
         if cfg.attn_qkv_bias:
             shapes.update({"layers.b_q": (L, H * Dh), "layers.b_k": (L, KV * Dh),
                            "layers.b_v": (L, KV * Dh)})
@@ -460,6 +516,8 @@ class Transformer(nn.Module):
         shapes.update({"ln_f_w": (D,), "ln_f_b": (D,)})
         if not cfg.tie_embeddings:
             shapes["unembed"] = (D, V)
+            if cfg.unembed_bias:
+                shapes["unembed_b"] = (V,)
         return shapes
 
     def optional_shapes(self) -> Dict[str, Tuple[int, ...]]:
@@ -579,10 +637,15 @@ class Transformer(nn.Module):
         return params["embed"].T if self.config.tie_embeddings else params["unembed"]
 
     def head(self, params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-        """Final norm + unembed: x [.., D] -> f32 logits [.., vocab]."""
+        """Final norm + unembed: x [.., D] -> f32 logits [.., vocab], plus the
+        unembedding bias in f32 when the model has one (JAX ``_unembed``:
+        untied only)."""
         cfg = self.config
         x = _norm(x, params["ln_f_w"], params.get("ln_f_b"), cfg.norm, eps=cfg.norm_eps)
-        return logits_f32(x, self.unembed_weight(params))
+        logits = logits_f32(x, self.unembed_weight(params))
+        if cfg.unembed_bias and not cfg.tie_embeddings:
+            logits = logits + params["unembed_b"].float()
+        return logits
 
     # -- training forward ------------------------------------------------
 
@@ -675,6 +738,7 @@ class Transformer(nn.Module):
         per leaf; with ``remat`` each layer is checkpointed and runs again
         in backward."""
         cfg = self.config
+        check_supported(cfg)
         names = list(stacked_layers)
         per_layer = zip(*(stacked_layers[n].unbind(0) for n in names))
         full = cfg.remat and _remat_policy(cfg.remat_policy) == "full"

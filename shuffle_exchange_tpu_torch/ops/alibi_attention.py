@@ -34,7 +34,10 @@ from typing import Optional, Tuple
 import torch
 
 from .dispatch import use_kernel
-from .flash_attention import HEAD_DIMS, repeat_kv
+from .flash_attention import repeat_kv
+
+#: the head dims B11-B13 are built for (their own: B14's forward also takes 256)
+HEAD_DIMS = (64, 128)
 
 _NEG = -1e30     # the mask value of reference_attention and the TPU kernels
 _KEY_TILE = 64   # keys per tile of the dk/dv kernel: one dslope partial each

@@ -56,6 +56,12 @@
 // (the card check) and costs half again the tensor-core work (P.V runs
 // twice). wgmma, TMA and warp specialisation are later work.
 //
+// Head dims: the forward takes 64, 128 and 256 (GPT-J-6B's prefill); at
+// 256 its Q fragments are re-read from shared memory at every k-step (the
+// O accumulators take 128 registers a thread) and the staged tiles take
+// 165 KB of dynamic shared memory, one block an SM. The backward takes 64
+// and 128 (the wrapper refuses 256: training at 256 is later work).
+//
 // The forward optionally writes lse [B, H, T] f32, the natural-log
 // log-sum-exp of each row's scaled scores (the convention of the TPU
 // ALiBi flash kernel), which is all the backward needs besides q, k, v,
@@ -119,6 +125,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   constexpr int KSTEPS = DH / 16;     // k-steps of QK^T
   constexpr int NT = kBlockN / 8;     // 8-key column tiles of S
   constexpr int DT = DH / 8;          // 8-wide column tiles of O
+  // Q's A fragments stay in registers up to Dh 128; at 256 the O
+  // accumulators alone take 128 registers a thread, so the fragments are
+  // re-read from the staged Q tile at every k-step instead
+  constexpr bool QREG = DH <= 128;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);   // [64][LD]
   __nv_bfloat16* ks = qs + kBlockM * LD;                         // [2][64][LD]
@@ -163,7 +173,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[d][e] = 0.f;
   float m_lo = kNeg, m_hi = kNeg, l_lo = 0.f, l_hi = 0.f;
-  uint32_t qa[KSTEPS][4];
+  uint32_t qa[QREG ? KSTEPS : 1][4];
+  const __nv_bfloat16* qfrag =   // this lane's ldmatrix row of the warp's 16 query rows
+      qs + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8;
 
   for (int it = 0; it < n_kv; ++it) {
     if (it + 1 < n_kv) {   // prefetch the next tile into the other buffer
@@ -177,11 +189,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if constexpr (QREG) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldsm_x4(qa[kk], qs + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + kk * 16 +
-                            (lane / 16) * 8);
+        for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qa[kk], qfrag + kk * 16);
+      }
     }
     const int j = sparse ? tm.row_kt[base + it] : it;
     const int blk = sparse ? tm.row_blk[base + it] : -1;
@@ -196,13 +208,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qf[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+      } else {
+        ldsm_x4(qf, qfrag + kk * 16);
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t r[4];
         ldsm_x4(r, kt + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
                        ((lane / 8) % 2) * 8);
-        mma_bf16(sacc[2 * np], qa[kk], r[0], r[1]);
-        mma_bf16(sacc[2 * np + 1], qa[kk], r[2], r[3]);
+        mma_bf16(sacc[2 * np], qf, r[0], r[1]);
+        mma_bf16(sacc[2 * np + 1], qf, r[2], r[3]);
       }
     }
 
@@ -768,6 +787,7 @@ int sxt_flash_attention_bf16(const void* q, const void* k, const void* v, const 
                                           KV, causal, scale_log2));
   };
   // the mask's code is compiled into its own instances: the unmasked ones are unchanged
+  if (Dh == 256) return tiles ? run(launch<256, true>) : run(launch<256, false>);   // GPT-J-6B
   if (Dh == 128) return tiles ? run(launch<128, true>) : run(launch<128, false>);
   if (Dh == 64) return tiles ? run(launch<64, true>) : run(launch<64, false>);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -18,8 +18,10 @@
 //   w_gate, w_up  [D, F];  w_down [F, D];  ln_w, ln_b [D]
 //   bq, bk, bv    [H*Dh], [KV*Dh], [KV*Dh] (null: no q/k/v biases)
 //   b_up, b_down  [F], [D] (null: no fc biases)
-//   cos, sin      [B, Dh/2] f32 rope rows at each row's position (null:
-//                 no RoPE, the learned-position and ALiBi families)
+//   cos, sin      [B, rd/2] f32 rope rows at each row's position, rd <= Dh
+//                 the rotated columns of a head (rd < Dh: partial rotary,
+//                 GPT-NeoX / Pythia; the rest pass through; null: no RoPE,
+//                 the learned-position and ALiBi families)
 //   slopes        [H] f32 ALiBi slopes (null: none)
 //   pool k / v    one layer [nblk, KV, bs, Dh] (the QKV append: bf16; the
 //                 split-K decode: bf16, or int8 / e4m3 with f32 scale planes
@@ -30,7 +32,8 @@
 // MLP products multiply at most 8 rows by each weight, 2 flops per weight
 // byte against the card's ~295 flop/byte ridge, so their bound is the
 // weight bytes: 50.3 MB a Llama-3-8B layer for QKV (15.0 us), 352.3 MB for
-// the MLP (105.2 us). The design question is how to keep enough SMs
+// the MLP (105.2 us); GPT-J-6B's MLP without its norm (D 4096, F 16384,
+// fc biases) 268.5 MB (80.1 us). The design question is how to keep enough SMs
 // reading. Answer: a skinny-GEMV kernel (gemv_partial_kernel) tiles the
 // output columns by 64 AND splits the reduction dimension into chunks of
 // at most 1024 rows, so a Llama layer gives 384 (QKV), 1,792 (gate/up) and
@@ -67,7 +70,9 @@
 // added in f32 (bf16 biases read exactly), RoPE in f32, one cast to bf16,
 // and the pool gets the cast value; the MLP normalises with f32 statistics
 // (RMSNorm, or layernorm with the population variance and its bias) and
-// rounds yn to bf16, sums the products in f32, adds the up bias in f32,
+// rounds yn to bf16, or takes yn = y as given (norm "none", the shared
+// layernorm of GPT-J's parallel blocks: y is already that norm's bf16
+// output, which is where the TPU kernel rounds it), sums the products in f32, adds the up bias in f32,
 // rounds a = act(g)*u (gated) or act(u) to bf16, sums the down product in
 // f32, adds the residual and then the down bias in f32 and casts once.
 // The activations are those of the TPU kernel's FUSABLE_ACTIVATIONS: silu
@@ -216,9 +221,10 @@ __device__ __forceinline__ float sum_splits(const float* __restrict__ part, int 
 // ---------------------------------------------------------------------------
 // QKV epilogue: block (row b, head of [q heads | k heads | v heads]), Dh
 // threads. Adds the partials and the head's bias, applies rotate-half RoPE
-// in f32 to q and k when cos is given (the partner of column d is d +- Dh/2
-// of the same head), casts, writes q/k/v and, given a pool, appends k/v to
-// it at (table[b, pos/bs], h, pos % bs).
+// in f32 to the first rd columns of q and k when cos is given (the partner
+// of column d < rd is d +- rd/2 of the same head; columns >= rd pass
+// through), casts, writes q/k/v and, given a pool, appends k/v to it at
+// (table[b, pos/bs], h, pos % bs).
 // ---------------------------------------------------------------------------
 
 __global__ void qkv_epilogue_kernel(
@@ -227,8 +233,8 @@ __global__ void qkv_epilogue_kernel(
     const float* __restrict__ cos, const float* __restrict__ sin, const int* __restrict__ table,
     const int* __restrict__ pos, __nv_bfloat16* __restrict__ pool_k,
     __nv_bfloat16* __restrict__ pool_v, __nv_bfloat16* __restrict__ q,
-    __nv_bfloat16* __restrict__ k, __nv_bfloat16* __restrict__ v, int H, int KV, int Dh, int bs,
-    int W) {
+    __nv_bfloat16* __restrict__ k, __nv_bfloat16* __restrict__ v, int H, int KV, int Dh, int rd,
+    int bs, int W) {
   extern __shared__ float xh[];   // [Dh]
   const int b = blockIdx.x, head = blockIdx.y, d = threadIdx.x;
   float x = sum_splits(part, S, B, ncols, b, head * Dh + d);
@@ -239,12 +245,14 @@ __global__ void qkv_epilogue_kernel(
                                          : bk + (head - H) * Dh;
     x += __bfloat162float(bias[d]);
   }
-  if (!is_v && cos != nullptr) {
+  if (!is_v && cos != nullptr) {   // uniform over the block: the sync is safe
     xh[d] = x;
     __syncthreads();
-    const int half = Dh / 2;
-    const float c = cos[b * half + d % half], sn = sin[b * half + d % half];
-    x = d < half ? x * c - xh[d + half] * sn : x * c + xh[d - half] * sn;
+    if (d < rd) {
+      const int half = rd / 2;
+      const float c = cos[b * half + d % half], sn = sin[b * half + d % half];
+      x = d < half ? x * c - xh[d + half] * sn : x * c + xh[d - half] * sn;
+    }
   }
   const __nv_bfloat16 o = __float2bfloat16(x);
   if (head < H) {
@@ -266,7 +274,7 @@ __global__ void qkv_epilogue_kernel(
 // the residual epilogue.
 // ---------------------------------------------------------------------------
 
-enum NormKind { kRmsNorm = 0, kLayerNorm = 1 };
+enum NormKind { kRmsNorm = 0, kLayerNorm = 1, kNoNorm = 2 };
 enum Act { kSilu = 0, kRelu = 1, kGeluTanh = 2 };
 
 // Sum of one value over the block's threads, returned to all of them.
@@ -521,6 +529,19 @@ Mats make_mats(const void* w0, int n0, const void* w1, int n1, const void* w2, i
 
 int total_tiles(const Mats& m) { return m.tiles[0] + m.tiles[1] + m.tiles[2]; }
 
+// The MLP's first GEMV input for rows [b0, b0 + nb): the norm kernel's yn,
+// or, without a norm, the rows of y as given (no launch, no copy).
+const __nv_bfloat16* norm_input(const void* y, int b0, int D, const void* ln_w,
+                                const void* ln_b, __nv_bfloat16* yn, int nb, float eps, int norm,
+                                cudaStream_t s) {
+  const __nv_bfloat16* rows = static_cast<const __nv_bfloat16*>(y) + size_t(b0) * D;
+  if (norm == kNoNorm) return rows;
+  norm_rows_kernel<<<nb, kThreads, 0, s>>>(rows, static_cast<const __nv_bfloat16*>(ln_w),
+                                           static_cast<const __nv_bfloat16*>(ln_b), yn, D, eps,
+                                           norm);
+  return yn;
+}
+
 bool bad_split(int K, int splits, int chunk) {
   return splits < 1 || chunk < 1 || chunk > kChunk || (long long)splits * chunk < K ||
          (long long)(splits - 1) * chunk >= K;
@@ -578,19 +599,21 @@ const char* sxt_fused_error_string(int err) {
 
 // QKV + biases + RoPE + append. part: f32 workspace [splits, min(B, 8),
 // (H + 2 KV) * Dh]; the reduction over D runs in `splits` chunks of `chunk`
-// rows. Null biases: none; null cos / sin: no RoPE; null pools (and null
-// table / pos): no pool row is written.
+// rows. Null biases: none; null cos / sin: no RoPE, else cos / sin are
+// [B, rd/2] and rotate the first rd columns of each head (rd even, at most
+// Dh); null pools (and null table / pos): no pool row is written.
 int sxt_fused_qkv_rope_bf16(const void* y, const void* wq, const void* wk, const void* wv,
                             const void* bq, const void* bk, const void* bv,
                             const void* cos, const void* sin, const void* table,
                             const void* pos, void* pool_k, void* pool_v, void* q, void* k,
-                            void* v, void* part, int B, int D, int H, int KV, int Dh, int bs,
-                            int W, int splits, int chunk, void* stream) {
+                            void* v, void* part, int B, int D, int H, int KV, int Dh, int rd,
+                            int bs, int W, int splits, int chunk, void* stream) {
   if (B <= 0) return 0;
-  if (KV <= 0 || H % KV || Dh % 8 || Dh > 1024 || bad_split(D, splits, chunk))
+  if (KV <= 0 || H % KV || Dh % 8 || Dh > 1024 || bad_split(D, splits, chunk) ||
+      (cos != nullptr && (rd <= 0 || rd % 2 || rd > Dh)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int Nq = H * Dh, Nkv = KV * Dh, ncols = Nq + 2 * Nkv, half = Dh / 2;
+  const int Nq = H * Dh, Nkv = KV * Dh, ncols = Nq + 2 * Nkv, half = rd / 2;
   const Mats mats = make_mats(wq, Nq, wk, Nkv, wv, Nkv);
   for (int b0 = 0; b0 < B; b0 += kMaxRows) {
     const int nb = B - b0 < kMaxRows ? B - b0 : kMaxRows;
@@ -608,7 +631,7 @@ int sxt_fused_qkv_rope_bf16(const void* y, const void* wq, const void* wk, const
         static_cast<__nv_bfloat16*>(pool_k), static_cast<__nv_bfloat16*>(pool_v),
         static_cast<__nv_bfloat16*>(q) + size_t(b0) * Nq,
         static_cast<__nv_bfloat16*>(k) + size_t(b0) * Nkv,
-        static_cast<__nv_bfloat16*>(v) + size_t(b0) * Nkv, H, KV, Dh, bs, W);
+        static_cast<__nv_bfloat16*>(v) + size_t(b0) * Nkv, H, KV, Dh, rd, bs, W);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -645,7 +668,10 @@ int sxt_fused_paged_decode(const void* q, const void* k, const void* v, const vo
   auto* mp = static_cast<float*>(m_part);
   auto* lsp = static_cast<float*>(l_part);
   cudaError_t err;
-  if (Dh == 128)
+  if (Dh == 256)   // GPT-J-6B
+    err = launch_split_decode_kind<256>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
+                                        op, mp, lsp, H, KV, bs, W, spb, scale);
+  else if (Dh == 128)
     err = launch_split_decode_kind<128>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
                                         op, mp, lsp, H, KV, bs, W, spb, scale);
   else if (Dh == 64)
@@ -660,7 +686,8 @@ int sxt_fused_paged_decode(const void* q, const void* k, const void* v, const vo
 }
 
 // Norm + MLP + residual: gated (w_gate given: act(g) * u) or plain (w_gate
-// null: act(u)); norm 0 RMSNorm, 1 layernorm (ln_b may be null); act 0
+// null: act(u)); norm 0 RMSNorm, 1 layernorm (ln_b may be null), 2 none
+// (yn = y; ln_w and ln_b are not read, and the yn workspace is unused); act 0
 // silu, 1 relu, 2 tanh gelu; b_up / b_down may be null. Workspaces for
 // min(B, 8) rows: yn bf16 [., D], a bf16 [., F], part1 f32 [s1, ., 2F]
 // (gated) or [s1, ., F], part2 f32 [s2, ., D].
@@ -671,7 +698,7 @@ int sxt_fused_mlp_bf16(const void* resid, const void* y, const void* ln_w, const
                        int chunk2, int norm, int act, float eps, void* stream) {
   if (B <= 0) return 0;
   if (D % 8 || F % 8 || bad_split(D, s1, chunk1) || bad_split(F, s2, chunk2) || norm < 0 ||
-      norm > 1 || act < 0 || act > 2)
+      norm > kNoNorm || act < 0 || act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int gated = w_gate != nullptr;
@@ -684,12 +711,9 @@ int sxt_fused_mlp_bf16(const void* resid, const void* y, const void* ln_w, const
   auto* p2 = static_cast<float*>(part2);
   for (int b0 = 0; b0 < B; b0 += kMaxRows) {
     const int nb = B - b0 < kMaxRows ? B - b0 : kMaxRows;
-    norm_rows_kernel<<<nb, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(y) + size_t(b0) * D,
-        static_cast<const __nv_bfloat16*>(ln_w), static_cast<const __nv_bfloat16*>(ln_b), ynp,
-        D, eps, norm);
+    const __nv_bfloat16* xin = norm_input(y, b0, D, ln_w, ln_b, ynp, nb, eps, norm, s);
     gemv_partial_kernel<<<dim3(total_tiles(up), s1), kThreads, 0, s>>>(
-        ynp, nb, D, chunk1, up, gated ? 2 * F : F, p1);
+        xin, nb, D, chunk1, up, gated ? 2 * F : F, p1);
     act_epilogue_kernel<<<(nb * F + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         p1, s1, nb, F, gated, act, static_cast<const __nv_bfloat16*>(b_up), ap);
     gemv_partial_kernel<<<dim3(total_tiles(down), s2), kThreads, 0, s>>>(ap, nb, F, chunk2,
@@ -717,7 +741,7 @@ int sxt_fused_mlp_quant_bf16(const void* resid, const void* y, const void* ln_w,
                              void* stream) {
   if (B <= 0) return 0;
   if (gs % 32 || D % 16 || F % 16 || fmt < 0 || fmt > 2 || bad_qsplit(D, gs, s1, chunk1) ||
-      bad_qsplit(F, gs, s2, chunk2) || norm < 0 || norm > 1 || act < 0 || act > 2 ||
+      bad_qsplit(F, gs, s2, chunk2) || norm < 0 || norm > kNoNorm || act < 0 || act > 2 ||
       (qg == nullptr) != (sg == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -731,11 +755,8 @@ int sxt_fused_mlp_quant_bf16(const void* resid, const void* y, const void* ln_w,
   auto* p2 = static_cast<float*>(part2);
   for (int b0 = 0; b0 < B; b0 += kMaxRows) {
     const int nb = B - b0 < kMaxRows ? B - b0 : kMaxRows;
-    norm_rows_kernel<<<nb, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(y) + size_t(b0) * D,
-        static_cast<const __nv_bfloat16*>(ln_w), static_cast<const __nv_bfloat16*>(ln_b), ynp,
-        D, eps, norm);
-    cudaError_t err = launch_quant_gemv<false>(fmt, dim3(up.tiles[0] + up.tiles[1], s1), s, ynp,
+    const __nv_bfloat16* xin = norm_input(y, b0, D, ln_w, ln_b, ynp, nb, eps, norm, s);
+    cudaError_t err = launch_quant_gemv<false>(fmt, dim3(up.tiles[0] + up.tiles[1], s1), s, xin,
                                                nb, D, gs, chunk1, up, gated ? 2 * F : F, p1);
     if (err != cudaSuccess) return static_cast<int>(err);
     act_epilogue_kernel<<<(nb * F + kThreads - 1) / kThreads, kThreads, 0, s>>>(

@@ -46,6 +46,11 @@
 // kernels and masked probabilities are exactly 0, and the output divides
 // by max(l, 1e-30): a fully masked row gives 0, never NaN. Tensor-core MMA,
 // TMA staging and split-K over long contexts are later work.
+//
+// Head dims 64, 128 and 256 (GPT-J-6B). At 256 the extend kernel's staged
+// Q, K and V tiles and its P tile take ~118 KB of dynamic shared memory
+// (bf16 pool; set_smem raises the limit), and each thread keeps 4 x 16 f32
+// accumulators, so it runs one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -399,6 +404,9 @@ cudaError_t launch_extend(const PagedArgs& a, dim3 grid, size_t smem, cudaStream
 template <template <int, int> class F, typename... Args>
 cudaError_t dispatch(int Dh, int kind, Args... args) {
   switch (Dh * 4 + kind) {
+    case 256 * 4 + KvBf16: return F<256, KvBf16>::run(args...);   // GPT-J-6B
+    case 256 * 4 + KvInt8: return F<256, KvInt8>::run(args...);
+    case 256 * 4 + KvFp8: return F<256, KvFp8>::run(args...);
     case 128 * 4 + KvBf16: return F<128, KvBf16>::run(args...);
     case 128 * 4 + KvInt8: return F<128, KvInt8>::run(args...);
     case 128 * 4 + KvFp8: return F<128, KvFp8>::run(args...);

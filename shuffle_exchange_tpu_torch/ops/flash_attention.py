@@ -5,8 +5,10 @@ Replaces the TPU kernels ``shuffle_exchange_tpu/ops/flash_attention.py:
 pallas_attention`` (the stock flash kernel, MHA, forward and backward) and
 ``splash_attention_gqa`` (GQA with unexpanded K/V: the forward, the dq
 pass and the dkv pass): causal and full masks, segment ids, splash's
-element mask ``mask_np`` (a ``TileMask``), any T and S, head_dim 64 or
-128. The kernels live in ``ops/csrc/flash_attention.cu``
+element mask ``mask_np`` (a ``TileMask``), any T and S, head_dim 64, 128
+or 256 forward (GPT-J-6B's 256 serves; its Q fragments then stay in shared
+memory) and 64 or 128 backward (256 raises, naming the training half of
+ROADMAP queue A, item 4 (d)). The kernels live in ``ops/csrc/flash_attention.cu``
 (whose header says what bounds them on the H100 and how the design answers
 it); ``_build`` compiles that file with ``nvcc`` at first use and this
 module binds it with ctypes.
@@ -60,7 +62,10 @@ import torch
 from .dispatch import use_kernel
 
 _NEG = -1e30     # the mask value of reference_attention and the TPU kernels
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)       # the forward kernel's instances
+BWD_HEAD_DIMS = (64, 128)        # the backward kernels'
+BWD_LATER = ("ROADMAP queue A, item 4 (d): the flash backward at head_dim 256 is the training "
+             "half of the parallel-block families")
 TILE = 64        # the kernels' query and key tile (flash_tile.cuh: kBlockM, kBlockN)
 
 # ---------------------------------------------------------------------------
@@ -394,18 +399,22 @@ def _lib():
     return _LIB[0]
 
 
-def check_operands(q, k, v, segment_ids=None, **more) -> None:
+def check_operands(q, k, v, segment_ids=None, *, backward: bool = False, **more) -> None:
     """What the kernels take, whatever the device: bf16, contiguous and
-    16-byte aligned, head_dim 64 or 128, int32-castable segment ids
-    (``more``: further named bf16 operands, the backward's out and dout).
-    A CUDA tensor that fails raises here; it never takes the plain
-    version, and nothing is copied silently."""
+    16-byte aligned, a head_dim of ``HEAD_DIMS`` (``BWD_HEAD_DIMS`` for the
+    ``backward``), int32-castable segment ids (``more``: further named
+    bf16 operands, the backward's out and dout). A CUDA tensor that fails
+    raises here; it never takes the plain version, and nothing is copied
+    silently."""
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash attention kernel: {name} must be bf16, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash attention kernel: {name} must be contiguous and "
                              "16-byte aligned")
+    if backward and q.shape[3] not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash attention backward kernels: head_dim {q.shape[3]} not built "
+                         f"{BWD_HEAD_DIMS} ({BWD_LATER})")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel: head_dim {q.shape[3]} not built "
                          f"{HEAD_DIMS}")
@@ -458,7 +467,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, segment_ids, mask=None):
     """(dq, dk, dv): the delta, dk/dv and dq kernels, in that order."""
     dev = q.device
     _same_device(dev, k=k, v=v, out=out, lse=lse, dout=dout, segment_ids=segment_ids)
-    check_operands(q, k, v, segment_ids, out=out, dout=dout)
+    check_operands(q, k, v, segment_ids, backward=True, out=out, dout=dout)
     B, T, H, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, T) or not lse.is_contiguous():
@@ -478,6 +487,6 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, segment_ids, mask=None):
     return dq, dk, dv
 
 
-__all__ = ["HEAD_DIMS", "TileMask", "check_operands", "flash_attention", "flash_attention_bwd",
+__all__ = ["BWD_HEAD_DIMS", "HEAD_DIMS", "TileMask", "check_operands", "flash_attention", "flash_attention_bwd",
            "flash_attention_lse", "reference_attention", "reference_attention_bwd",
            "reference_attention_lse", "repeat_kv", "tile_mask"]

@@ -4,17 +4,20 @@ versions.
 Replaces the TPU kernels of ``shuffle_exchange_tpu/ops/fused_decode.py``:
 
 - ``fused_qkv_rope_pallas``: QKV projection, q/k/v biases in f32 (all
-  three or none), rotate-half RoPE in f32 (none without cos / sin: the
-  learned-position and ALiBi families) and, given a pool, the in-place
+  three or none), rotate-half RoPE in f32 over all of head_dim or its
+  first rd columns (partial rotary: GPT-NeoX / Pythia), the rest passed
+  through (none without cos / sin: the learned-position and ALiBi
+  families) and, given a pool, the in-place
   append of the new token's K/V to the layer's pool (the paged engine);
   without one, q/k/v only (the dense-cache v1 engine);
 - ``fused_paged_decode_attention_pallas``: split-K flash-decode over the
   block table with an (m, l, acc) merge, with ALiBi slopes, over a bf16
   pool or an int8 / e4m3 pool with f32 scale planes (dequantized in
-  registers as in ``ops/paged_attention.py``);
-- ``fused_mlp_pallas``: RMSNorm or layernorm (with its bias) + a gated
-  (SwiGLU) or plain MLP with one of ``FUSABLE_ACTIVATIONS`` and optional
-  fc biases + residual;
+  registers as in ``ops/paged_attention.py``), head_dim 64, 128 or 256;
+- ``fused_mlp_pallas``: RMSNorm, layernorm (with its bias) or no norm
+  (``apply_norm=False``: the shared layernorm's y of GPT-J's parallel
+  blocks) + a gated (SwiGLU) or plain MLP with one of
+  ``FUSABLE_ACTIVATIONS`` and optional fc biases + residual;
 - ``fused_mlp_quant_pallas``: the same over int8 / packed-int4 / e4m3
   weights (``QuantizedMatrix``, ``ops/quant_matmul.py``), which
   ``fused_mlp`` dispatches to, as the JAX wrapper does.
@@ -40,8 +43,8 @@ activations, weights and biases and f32 slopes and scale planes. The
 quantized MLP takes every norm, gate and activation form the bf16 one does,
 but no fc biases: ``fused_mlp`` raises for quantized weights with biases,
 as the JAX wrapper does (the engines keep that MLP on the layer body).
-Neither MLP takes ``apply_norm=False``, the shared-layernorm form of the
-parallel blocks (ROADMAP queue A, item 4 (d)).
+Without the norm, yn is y_src rounded to the activation dtype, the TPU
+kernels' rounding point.
 """
 
 from __future__ import annotations
@@ -53,8 +56,8 @@ import torch
 import torch.nn.functional as F
 
 from .dispatch import use_kernel
-from .paged_attention import (_alibi_bias, alibi_operand, gather_kv, pool_kind, scale_kw,
-                              scales_given)
+from .paged_attention import (HEAD_DIMS, _alibi_bias, alibi_operand, gather_kv, pool_kind,
+                              scale_kw, scales_given)
 from .quant_matmul import QuantizedMatrix, check_storage, quant_splits
 
 _NEG = -1e30     # the TPU kernels' finite mask sentinel
@@ -65,6 +68,7 @@ FUSABLE_ACTIVATIONS = ("swiglu", "silu", "relu", "gelu_new", "gelu_pytorch_tanh"
 #: the kernel's activation codes (swiglu is silu on the gate)
 _ACT_CODES = {"swiglu": 0, "silu": 0, "relu": 1, "gelu_new": 2, "gelu_pytorch_tanh": 2}
 _NORM_CODES = {"rmsnorm": 0, "layernorm": 1}
+_NO_NORM = 2     # apply_norm=False: yn = y_src
 
 
 def _act_f32(name: str):
@@ -81,12 +85,14 @@ def _act_f32(name: str):
 
 def rope_heads(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate-half RoPE in f32 on per-head rows: x [B, n, Dh] f32, cos/sin
-    [B, Dh/2] f32 rows at each sequence's position. Column d's partner is
-    d + Dh/2 (first half, negated) or d - Dh/2 (second half), as in JAX's
-    flat-layout ``_rope_flat``."""
+    [B, rd/2] f32 rows at each sequence's position (rd <= Dh, even). Column
+    d < rd pairs with d + rd/2 (first half, negated) or d - rd/2 (second
+    half); columns >= rd pass through, as in JAX's flat-layout
+    ``_rope_flat`` (whose pass-through columns get cos 1 and sin 0)."""
+    rd = 2 * cos.shape[-1]
     c, s = cos[:, None, :], sin[:, None, :]
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    x1, x2, rest = x[..., :rd // 2], x[..., rd // 2:rd], x[..., rd:]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s, rest], dim=-1)
 
 
 def append_rows(pool_k, pool_v, k, v, block_table, pos) -> None:
@@ -106,7 +112,8 @@ def fused_qkv_rope_reference(y, wq, wk, wv, cos, sin, pool_k=None, pool_v=None,
     """y [B, D] -> (q [B, H, Dh], k, v [B, KV, Dh]) in y's dtype, with k/v
     appended to the pool in place when one is given: f32 products and
     sums, the biases added in f32, RoPE in f32 from the f32 rows cos/sin
-    [B, Dh/2] (none when cos is None), one cast."""
+    [B, rd/2] over each head's first rd columns (none when cos is None),
+    one cast."""
     B = y.shape[0]
     H, KV = n_heads, kv_heads
     Dh = wq.shape[1] // H
@@ -170,15 +177,18 @@ def fused_paged_decode_reference(q, ck, cv, block_table, kv_len, num_splits: int
 
 def fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1e-5, *,
                         ln_b=None, b_up=None, b_down=None, norm: str = "rmsnorm",
-                        activation: str = "swiglu"):
+                        activation: str = "swiglu", apply_norm: bool = True):
     """``resid + w_down·a + b_down`` with a = act(yn·w_gate) ⊙ (yn·w_up +
     b_up) (gated: ``w_gate`` given) or act(yn·w_up + b_up), yn = norm(y_src)
-    (RMSNorm, or layernorm with ``ln_b`` and the population variance): f32
-    statistics, yn and a rounded to resid's dtype, products summed and the
-    biases added in f32, the residual and then b_down added in f32, one
+    (RMSNorm, or layernorm with ``ln_b`` and the population variance; with
+    ``apply_norm=False`` yn = y_src and ``ln_w`` / ``ln_b`` are not read):
+    f32 statistics, yn and a rounded to resid's dtype, products summed and
+    the biases added in f32, the residual and then b_down added in f32, one
     cast."""
     x32 = y_src.float()
-    if norm == "rmsnorm":
+    if not apply_norm:
+        yn = x32
+    elif norm == "rmsnorm":
         var = (x32 * x32).mean(-1, keepdim=True)
         yn = x32 * torch.rsqrt(var + eps) * ln_w.float()
     else:
@@ -200,7 +210,8 @@ def fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1
 
 
 def fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: float = 1e-5, *,
-                              ln_b=None, norm: str = "rmsnorm", activation: str = "swiglu"):
+                              ln_b=None, norm: str = "rmsnorm", activation: str = "swiglu",
+                              apply_norm: bool = True):
     """:func:`fused_mlp_reference` over ``QuantizedMatrix`` weights
     dequantized to f32 (not rounded to the activation dtype), gated when
     ``w_gate`` is given, without fc biases: the JAX quantized kernel's
@@ -208,7 +219,8 @@ def fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: flo
     f32 = torch.float32
     gate = None if w_gate is None else w_gate.dequantize(f32)
     return fused_mlp_reference(resid, y_src, ln_w, w_up.dequantize(f32), w_down.dequantize(f32),
-                               gate, eps, ln_b=ln_b, norm=norm, activation=activation)
+                               gate, eps, ln_b=ln_b, norm=norm, activation=activation,
+                               apply_norm=apply_norm)
 
 
 def mlp_weights_fusable(w_up, w_down, w_gate=None) -> Optional[str]:
@@ -242,7 +254,9 @@ def fused_qkv_rope(y, wq, wk, wv, cos, sin, pool_k=None, pool_v=None, block_tabl
     """One token per sequence: y [B, D] (the normalised hidden rows) ->
     (q [B, H, Dh], k, v [B, KV, Dh]); the biases ``bq`` [H*Dh], ``bk``,
     ``bv`` [KV*Dh] (all three or none) added in f32, then rotate-half RoPE
-    from the f32 rows cos/sin [B, Dh/2] (``cos = sin = None``: no RoPE).
+    from the f32 rows cos/sin [B, rd/2] over each head's first rd columns
+    (rd even, at most Dh; the rest pass through; ``cos = sin = None``: no
+    RoPE).
     Given a pool, the new K/V is also written into the layer's pool [nblk,
     KV, bs, Dh] in place at (block_table[b, pos//bs], :, pos % bs) for each
     row's position ``pos`` [B]; with ``pool_k=None`` no pool row is written
@@ -282,8 +296,9 @@ def fused_paged_decode_attention(q, ck, cv, block_table, kv_len, *,
     card's SMs (on the CPU, JAX's default of 2); the result does not
     depend on it beyond rounding. ``alibi_slopes`` [H] add ``slope_h * j``
     at logical key position j; ``k_scale`` / ``v_scale`` [nblk,KV,bs] f32
-    dequantize an int8 or e4m3 pool. The CUDA kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    dequantize an int8 or e4m3 pool; head_dim 64, 128 or 256 with G*Dh
+    at most 1024. The CUDA kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
     scales_given(k_scale, v_scale)
     if not use_kernel(q):
         return fused_paged_decode_reference(q, ck, cv, block_table, kv_len,
@@ -298,16 +313,12 @@ def fused_paged_decode_attention(q, ck, cv, block_table, kv_len, *,
 fused_paged_decode_attention.launches = 0
 
 
-def _check_mlp_form(norm: str, activation: str, apply_norm: bool) -> None:
+def _check_mlp_form(norm: str, activation: str) -> None:
     if activation not in FUSABLE_ACTIVATIONS:
         raise ValueError(f"fused MLP: activation {activation!r} is not fusable (fusable: "
                          f"{', '.join(FUSABLE_ACTIVATIONS)})")
     if norm not in _NORM_CODES:
         raise ValueError(f"fused MLP: norm must be rmsnorm or layernorm, got {norm!r}")
-    if not apply_norm:
-        raise NotImplementedError("the fused MLP without its norm (apply_norm=False, the shared "
-                                  "layernorm of parallel blocks) is not ported yet: ROADMAP "
-                                  "queue A, item 4 (d)")
 
 
 def fused_mlp(resid, y_src, ln_w, w_up, w_down, w_gate=None, *, eps: float = 1e-5,
@@ -320,10 +331,11 @@ def fused_mlp(resid, y_src, ln_w, w_up, w_down, w_gate=None, *, eps: float = 1e-
     biases ``b_up`` [F] / ``b_down`` [D] optional. ``QuantizedMatrix``
     weights go to :func:`fused_mlp_quant` (every norm, gate and activation
     form; with fc biases they raise, as in JAX). ``apply_norm=False``
-    raises (ROADMAP queue A, item 4 (d)). The CUDA kernels on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    _check_mlp_form(norm, activation, apply_norm)
-    ln_b = ln_b if norm == "layernorm" else None
+    skips the norm (yn = y_src; ``ln_w`` and ``ln_b`` are not read: GPT-J's
+    shared layernorm). The CUDA kernels on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    _check_mlp_form(norm, activation)
+    ln_b = ln_b if norm == "layernorm" and apply_norm else None
     if any(isinstance(w, QuantizedMatrix) for w in (w_gate, w_up, w_down)):
         if b_up is not None or b_down is not None:
             # JAX's fused_mlp raises here too; the engines keep such an MLP
@@ -331,8 +343,9 @@ def fused_mlp(resid, y_src, ln_w, w_up, w_down, w_gate=None, *, eps: float = 1e-
             raise ValueError("fused MLP: quantized weights with fc biases are not supported "
                              "(the engines route them to the layer body's quantized matmuls)")
         return fused_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps=eps, ln_b=ln_b,
-                               norm=norm, activation=activation)
-    kw = dict(ln_b=ln_b, b_up=b_up, b_down=b_down, norm=norm, activation=activation)
+                               norm=norm, activation=activation, apply_norm=apply_norm)
+    kw = dict(ln_b=ln_b, b_up=b_up, b_down=b_down, norm=norm, activation=activation,
+              apply_norm=apply_norm)
     if not use_kernel(resid):
         return fused_mlp_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps, **kw)
     out = _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps, **kw)
@@ -349,17 +362,18 @@ def fused_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate=None, *, eps: float
     """:func:`fused_mlp` over ``QuantizedMatrix`` weights sharing one format
     and group size, the weights read at storage width and dequantized in
     registers: RMSNorm or layernorm (with ``ln_b``), gated when ``w_gate``
-    is given, else plain, any of :data:`FUSABLE_ACTIVATIONS`; no fc biases.
-    Weights the kernel cannot take raise, with the reason of
-    :func:`mlp_weights_fusable`. The CUDA kernels on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    _check_mlp_form(norm, activation, apply_norm)
+    is given, else plain, any of :data:`FUSABLE_ACTIVATIONS`; no fc biases;
+    ``apply_norm=False`` skips the norm. Weights the kernel cannot take
+    raise, with the reason of :func:`mlp_weights_fusable`. The CUDA kernels
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    _check_mlp_form(norm, activation)
     reason = mlp_weights_fusable(w_up, w_down, w_gate)
     if reason is None and not isinstance(w_up, QuantizedMatrix):
         reason = "dense MLP weights (they take fused_mlp's bf16 kernel)"
     if reason is not None:
         raise ValueError(f"fused quantized MLP: {reason}")
-    kw = dict(ln_b=ln_b if norm == "layernorm" else None, norm=norm, activation=activation)
+    kw = dict(ln_b=ln_b if norm == "layernorm" and apply_norm else None, norm=norm,
+              activation=activation, apply_norm=apply_norm)
     if not use_kernel(resid):
         return fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps, **kw)
     out = _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, **kw)
@@ -378,7 +392,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "sxt_fused_qkv_rope_bf16": [_P] * 17 + [_I] * 9 + [_P],
+    "sxt_fused_qkv_rope_bf16": [_P] * 17 + [_I] * 10 + [_P],
     "sxt_fused_paged_decode": [_P] * 12 + [_I] * 8 + [_F, _P],
     "sxt_fused_mlp_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
     "sxt_fused_mlp_quant_bf16": [_P] * 15 + [_I] * 11 + [_F, _P],
@@ -490,12 +504,15 @@ def _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, H, KV
                              f"[nblk, {KV}, bs, {Dh}]")
     bq, bk, bv = (_vector(n, b, dev, size)
                   for n, b, size in zip(("bq", "bk", "bv"), biases, (Nq, Nkv, Nkv)))
-    rope = [None, None]
+    rope, rd = [None, None], 0
     if cos is not None:
+        rd = 2 * cos.shape[-1] if cos.dim() == 2 else 0
         for i, (name, t) in enumerate((("cos", cos), ("sin", sin))):
-            if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (B, Dh // 2):
-                raise ValueError(f"fused QKV kernel: {name} must be f32 [{B}, {Dh // 2}] on "
-                                 f"{dev}")
+            if (t.device != dev or t.dtype != torch.float32 or not 0 < rd <= Dh
+                    or tuple(t.shape) != (B, rd // 2)):
+                raise ValueError(f"fused QKV kernel: {name} must be f32 [{B}, rd/2] on {dev} "
+                                 f"with rd even and at most head_dim {Dh}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
             rope[i] = t.contiguous()
     if pool_k is not None:
         table = _index(block_table, B, dev, "block table", dims=2)
@@ -514,7 +531,7 @@ def _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, H, KV
     err = lib.sxt_fused_qkv_rope_bf16(
         y.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), _ptr(bq), _ptr(bk), _ptr(bv),
         _ptr(rope[0]), _ptr(rope[1]), *pool_args, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        part.data_ptr(), B, D, H, KV, Dh, bs, W, splits, chunk,
+        part.data_ptr(), B, D, H, KV, Dh, rd, bs, W, splits, chunk,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "QKV")
     return q, k, v
@@ -531,8 +548,8 @@ def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=N
         raise ValueError(f"split-K decode kernel: q heads {H} / Dh {Dh} do not match pool "
                          f"{tuple(ck.shape)}")
     KV, bs = ck.shape[1], ck.shape[2]
-    if Dh not in (64, 128):
-        raise ValueError(f"split-K decode kernel: head_dim {Dh} not built (64, 128)")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"split-K decode kernel: head_dim {Dh} not built {HEAD_DIMS}")
     if (H // KV) * Dh > 1024:
         raise ValueError(f"split-K decode kernel: G*Dh = {(H // KV) * Dh} > 1024")
     table = _index(block_table, B, dev, "block table", dims=2)
@@ -559,7 +576,7 @@ def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=N
 
 
 def _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, b_up, b_down, norm,
-                activation):
+                activation, apply_norm=True):
     dev = resid.device
     B, D = resid.shape
     Fd = w_up.shape[1]
@@ -589,14 +606,14 @@ def _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, b_up, b_
         resid.data_ptr(), y_src.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), _ptr(w_gate),
         w_up.data_ptr(), w_down.data_ptr(), _ptr(b_up), _ptr(b_down), out.data_ptr(),
         yn.data_ptr(), a.data_ptr(), part1.data_ptr(), part2.data_ptr(), B, D, Fd, s1, c1, s2,
-        c2, _NORM_CODES[norm], _ACT_CODES[activation], float(eps),
+        c2, _NORM_CODES[norm] if apply_norm else _NO_NORM, _ACT_CODES[activation], float(eps),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "MLP")
     return out
 
 
 def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, norm,
-                      activation):
+                      activation, apply_norm=True):
     dev = resid.device
     B, D = resid.shape
     Fd = w_up.shape[1]
@@ -626,7 +643,7 @@ def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, no
         w_up.q.data_ptr(), w_up.scales.data_ptr(), w_down.q.data_ptr(),
         w_down.scales.data_ptr(), out.data_ptr(), yn.data_ptr(), a.data_ptr(),
         part1.data_ptr(), part2.data_ptr(), B, D, Fd, gs, fmt, s1, c1, s2, c2,
-        _NORM_CODES[norm], _ACT_CODES[activation], float(eps),
+        _NORM_CODES[norm] if apply_norm else _NO_NORM, _ACT_CODES[activation], float(eps),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "quantized MLP")
     return out

@@ -31,6 +31,7 @@ The plain versions gather and then dequantize in f32 (JAX ``gather_kv``'s
 pairs); the kernels stage the tile's raw one-byte rows and its scales in
 shared memory and form ``float(q) * scale`` in f32 when they read an
 element, which is JAX's ``kb * s[:, None]``. Slopes and scales compose.
+The kernels take head_dim 64, 128 or 256 (GPT-J-6B's).
 """
 
 from __future__ import annotations
@@ -223,6 +224,8 @@ _SIGNATURES = {
 }
 #: the kernels' storage codes (paged_tile.cuh: KvBf16, KvInt8, KvFp8)
 KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+#: the head dims the paged kernels (and the split-K decode kernel) are built for
+HEAD_DIMS = (64, 128, 256)
 _LIB = []
 
 
@@ -279,8 +282,8 @@ def _check_operands(q, ck, cv, k_scale=None, v_scale=None) -> int:
     if ck.shape[3] != Dh or H % KV:
         raise ValueError(f"paged kernel: q heads {H} / Dh {Dh} do not match "
                          f"pool {tuple(ck.shape)}")
-    if Dh not in (64, 128):
-        raise ValueError(f"paged kernel: head_dim {Dh} not built (64, 128)")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"paged kernel: head_dim {Dh} not built {HEAD_DIMS}")
     return kind
 
 

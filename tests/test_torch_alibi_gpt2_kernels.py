@@ -362,9 +362,14 @@ def test_fused_mlp_refuses_exact_gelu_and_quantized_bias_forms():
                       b_up=a["b_up"], b_down=a["b_down"])
     out = tfd.fused_mlp(a["resid"], a["y"], a["ln_w"], *q, ln_b=a["ln_b"], norm="layernorm")
     assert torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4 \\(d\\)"):
-        tfd.fused_mlp(a["resid"], a["y"], a["ln_w"], *q, ln_b=a["ln_b"], norm="layernorm",
-                      apply_norm=False)
+    # apply_norm=False (GPT-J's shared layernorm) runs since the parallel-block
+    # slice: the norm's weights are not read, and y enters as it is
+    no_norm = tfd.fused_mlp(a["resid"], a["y"], a["ln_w"], *q, ln_b=a["ln_b"],
+                            norm="layernorm", apply_norm=False)
+    torch.testing.assert_close(no_norm, tfd.fused_mlp_quant_reference(
+        a["resid"], a["y"], 0 * a["ln_w"], *q, norm="rmsnorm", apply_norm=False),
+        rtol=0, atol=0)
+    assert (no_norm - out).abs().max() > 1e-3
 
 
 # ---------------------------------------------------------------------------

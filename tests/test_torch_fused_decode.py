@@ -51,7 +51,6 @@ from shuffle_exchange_tpu_torch.models.transformer import decode_fusion_eligibil
 jfd = importlib.import_module("shuffle_exchange_tpu.ops.fused_decode")
 tfd = importlib.import_module("shuffle_exchange_tpu_torch.ops.fused_decode")
 tpa = importlib.import_module("shuffle_exchange_tpu_torch.ops.paged_attention")
-tie = importlib.import_module("shuffle_exchange_tpu_torch.inference.engine")
 
 T = torch.from_numpy
 
@@ -359,7 +358,7 @@ def test_auto_is_the_paged_kernel_path_on_a_cpu_engine(models):
     assert te._decode_kernel == "xla" and not (te._fuse_qkv or te._fuse_mlp)
 
 
-def test_llama_is_fusable_and_pallas_on_nothing_fusable_raises(models, monkeypatch):
+def test_llama_is_fusable_and_pallas_on_nothing_fusable_raises(models):
     _, _, tm, state = models
     assert decode_fusion_eligibility(tm.config) == {"qkv": None, "mlp": None}
     unfusable = dataclasses.replace(tm.config, rope_interleaved=True, n_experts=2)
@@ -372,19 +371,19 @@ def test_llama_is_fusable_and_pallas_on_nothing_fusable_raises(models, monkeypat
         elig = decode_fusion_eligibility(dataclasses.replace(tm.config, **change))
         assert elig == {"qkv": None, "mlp": None}
     model = Transformer(tiny(**MODEL), device="cpu")
-    model.config = unfusable   # a structure the port's model refuses to build
-    # the engines refuse such a structure before anything else ...
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
-        InferenceEngine(model, state, _cfg(InferenceConfig), device="cpu")
-    # ... and behind that refusal, the decode-kernel resolution still
-    # refuses "pallas" on nothing fusable and resolves "auto" to "xla"
-    monkeypatch.setattr(tie, "check_servable", lambda cfg: None)
+    model.config = unfusable   # interleaved RoPE (served since the parallel-block slice) and MoE
+    # the v1 engine refuses "pallas" on nothing fusable and resolves "auto"
+    # to "xla", as JAX's v1 engine does ...
     with pytest.raises(ValueError, match="no part of the decode layer is fusable"):
         InferenceEngine(model, state, _cfg(InferenceConfig), device="cpu")
     # the MoE structure's leaves in place of the dense FFN's
     moe_state = {k: state.get(k, torch.zeros(shape)) for k, shape in model.param_shapes().items()}
     eng = InferenceEngine(model, moe_state, _cfg(InferenceConfig, "auto"), device="cpu")
     assert eng._decode_kernel == "xla"
+    # ... and the paged engine keeps "pallas" with the attention alone fused
+    # (the split-K kernel: JAX's _fused_attention)
+    eng = InferenceEngineV2(model, moe_state, _cfg(InferenceConfig), device="cpu")
+    assert eng._decode_kernel == "pallas" and not (eng._fuse_qkv or eng._fuse_mlp)
 
 
 @pytest.mark.parametrize("which,kw", [

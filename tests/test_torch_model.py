@@ -152,9 +152,14 @@ def test_structures_outside_the_llama_family_raise(override):
     """Structures the training forward takes since the GPT-2 / BLOOM slice
     build a model, and every serving entry point (v1, v2, init_inference)
     serves them, in bf16 weights, quantized weights and (the paged engine)
-    with adapters. The rest still refuse the model itself."""
+    with adapters. Interleaved and partial RoPE and parallel blocks serve
+    the same way since the parallel-block slice, and the training forward
+    refuses them, naming item 4 (d). The rest still refuse the model
+    itself."""
     cfg = tiny(**{**LLAMA_TINY, **override})
-    if set(override) & {"norm", "activation", "position", "embed_ln", "attn_qkv_bias"}:
+    serving_only = {"rope_interleaved", "rotary_dim", "parallel_block"}
+    if set(override) & ({"norm", "activation", "position", "embed_ln", "attn_qkv_bias"}
+                        | serving_only):
         model = Transformer(cfg, device="cpu")
         params = model.init(torch.Generator().manual_seed(0))
         icfg = dict(max_seq_len=64, kv_block_size=8, num_kv_blocks=16)
@@ -171,6 +176,9 @@ def test_structures_outside_the_llama_family_raise(override):
         with pytest.raises(ConfigError, match="paged InferenceEngineV2"):
             InferenceEngine(model, params, InferenceConfig(adapters={"enabled": True}),
                             device="cpu")
+        if set(override) & serving_only:
+            with pytest.raises(NotImplementedError, match="item 4 \\(d\\)"):
+                model.loss(params, {"input_ids": np.asarray([[1, 2, 3, 4]])})
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(cfg, device="cpu")

@@ -273,17 +273,27 @@ def test_mlp_weights_fusable_gives_the_jax_reasons():
 @pytest.mark.parametrize("kw,err,match", [
     ({"b_up": torch.zeros(256), "b_down": torch.zeros(128)}, ValueError, "fc biases"),
     ({"gate": None, "activation": "gelu"}, ValueError, "not fusable"),
-    ({"apply_norm": False}, NotImplementedError, "item 4 \\(d\\)"),
+    ({"apply_norm": False}, None, None),
     ({"gate": "dense"}, ValueError, "mixed dense/quantized"),
     ({"up": "dense"}, ValueError, "mixed dense/quantized"),
 ], ids=["biases", "non-gated", "apply-norm", "dense-gate", "dense-up"])
 def test_quantized_fused_mlp_refusals(kw, err, match):
     """Quantized weights with fc biases raise as JAX's ``fused_mlp`` does
     (the engines keep that MLP on the layer body); the plain MLP takes
-    every fusable activation but not exact gelu; ``apply_norm=False`` is
-    item 4 (d); mixed dense and quantized weights raise with JAX's
-    reason."""
+    every fusable activation but not exact gelu; mixed dense and
+    quantized weights raise with JAX's reason. ``apply_norm=False`` (GPT-J's
+    shared layernorm) is refused no more since the parallel-block slice:
+    both wrappers meet ``fused_mlp_quant_pallas(apply_norm=False)`` in
+    interpret mode."""
     (resid, y, lnw), (jg, ju, jd), (tg, tu, td) = _mlp_case(8, 64, 2, seed=1)
+    if err is None:
+        want = np.asarray(jfd.fused_mlp_quant_pallas(
+            jnp.asarray(resid), jnp.asarray(y), jnp.asarray(lnw), None, ju, jd, jg,
+            norm="rmsnorm", eps=1e-5, activation="swiglu", interpret=True, **kw))
+        for fn in (tfd.fused_mlp, tfd.fused_mlp_quant):
+            got = fn(T(resid), T(y), T(lnw), tu, td, tg, **kw).numpy()
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        return
     kw = dict(kw)
     gate, up = kw.pop("gate", tg), kw.pop("up", tu)
     gate = torch.zeros(128, 256) if gate == "dense" else gate
