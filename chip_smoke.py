@@ -481,14 +481,30 @@ def check_paged_extend(gen, rng):
 # (H, KV, Dh, bs): GQA groups 1, 3, 4 and 8, both built head sizes, two
 # block sizes
 SWEEP = [(8, 8, 64, 16), (24, 8, 128, 64), (32, 8, 128, 16), (16, 2, 64, 64)]
+# a group wider than one decode block (16 query heads of 128 a kv head: two
+# head chunks), drawn from its own generator so the later phases' inputs stay
+# as they were
+WIDE_SWEEP = (64, 4, 128, 16)
+
+
+def _wide_sweep_case(rng_seed=2048):
+    import torch
+
+    H, KV, Dh, bs = WIDE_SWEEP
+    gen = torch.Generator(device="cuda").manual_seed(rng_seed)
+    lens = np.asarray([1, bs, bs + 1, 200, 75], np.int32)
+    ck, cv, table = _paged_inputs(gen, np.random.default_rng(rng_seed), lens, H, KV, Dh, bs,
+                                  pad=-1)
+    q = torch.randn(len(lens), 1, H, Dh, generator=gen, device="cuda").bfloat16()
+    return q, ck, cv, table, torch.from_numpy(lens).cuda()
 
 
 def check_paged_sweep(gen, rng):
     """Correctness only, at shapes off the smoke path: the SWEEP head
     layouts, kv_len 1 and block-boundary lengths, tables padded with -1,
-    one-row and odd-length chunks with rows past nnew, and a head layout
-    the decode kernel refuses. Returns the largest errors; a disagreement
-    beyond PAGED_TOL fails."""
+    one-row and odd-length chunks with rows past nnew, and the decode
+    kernel at WIDE_SWEEP. Returns the largest errors; a disagreement beyond
+    PAGED_TOL fails."""
     import torch
 
     from shuffle_exchange_tpu_torch.ops.paged_attention import (paged_decode_attention,
@@ -523,14 +539,11 @@ def check_paged_sweep(gen, rng):
                 _check(ok, f"paged extend kernel disagrees at H={H} KV={KV} Dh={Dh} bs={bs} "
                        f"C={C} row {b}: {err}")
                 worst["extend"] = max(worst["extend"], err)
-    q = torch.zeros(1, 1, 64, 128, device="cuda", dtype=torch.bfloat16)
-    pool = torch.zeros(2, 4, 16, 128, device="cuda", dtype=torch.bfloat16)
-    one = torch.ones(1, dtype=torch.int32, device="cuda")
-    try:
-        paged_decode_attention(q, pool, pool, one[:, None], one)
-    except ValueError as e:   # G * Dh = 2048 is past what the decode kernel holds
-        worst["refused"] = str(e)
-    _check("refused" in worst, "the decode kernel accepted G * Dh = 2048")
+    q, ck, cv, table, kvl = _wide_sweep_case()
+    err, ok = close(paged_decode_attention(q, ck, cv, table, kvl),
+                    paged_decode_reference(q, ck, cv, table, kvl, p_f32=True))
+    _check(ok, f"paged decode kernel disagrees at {WIDE_SWEEP}: {err}")
+    worst["decode_wide_group"] = err
     torch.cuda.synchronize()
     return worst
 
@@ -548,8 +561,9 @@ def _bites(got, broken) -> bool:
     return not paged_close(got, broken)[1]
 
 
-def check_fused_qkv(gen, rng, B, pooled=True):
-    """B4 at Llama-3-8B widths: B rows at random positions < 2048. With
+def check_fused_qkv(gen, rng, B, pooled=True, widths=LLAMA_WIDTHS, theta=500000.0):
+    """B4 at ``widths`` (Llama-3-8B's; Falcon-7B's in phase 2o) with RoPE
+    base ``theta``: B rows at random positions < 2048. With
     ``pooled`` (the paged engine's form) each row appends into its own
     block of the pool; both sides start from the same pool and must leave
     every other pool row as it was. Without, the v1 decode step's form:
@@ -560,7 +574,7 @@ def check_fused_qkv(gen, rng, B, pooled=True):
     from shuffle_exchange_tpu_torch.ops.fused_decode import (fused_qkv_rope,
                                                              fused_qkv_rope_reference)
 
-    D, H, KV, Dh = (LLAMA_WIDTHS[k] for k in ("D", "H", "KV", "Dh"))
+    D, H, KV, Dh = (widths[k] for k in ("D", "H", "KV", "Dh"))
     bs, W = 64, 32
     pos = rng.integers(0, W * bs, size=B).astype(np.int32)
     table = np.full((B, W), -1, np.int32)
@@ -575,7 +589,7 @@ def check_fused_qkv(gen, rng, B, pooled=True):
                 for _ in range(2)]
         kp, pp = [p.clone() for p in pool], [p.clone() for p in pool]
         kargs, pargs = (*kp, tt, pt), (*pp, tt, pt)
-    cos_t, sin_t = rope_table(W * bs, Dh, 500000.0, device="cuda")
+    cos_t, sin_t = rope_table(W * bs, Dh, theta, device="cuda")
     cos, sin = cos_t[pt.long()].contiguous(), sin_t[pt.long()].contiguous()
     run = lambda: fused_qkv_rope(y, *w, cos, sin, *kargs, n_heads=H, kv_heads=KV)
     plain = lambda: fused_qkv_rope_reference(y, *w, cos, sin, *pargs, n_heads=H, kv_heads=KV)
@@ -702,41 +716,41 @@ def check_fused_decode(case):
 
 
 def check_fused_decode_sweep(gen, rng):
-    """B5 for correctness at the SWEEP head layouts: kv_len 1 and block
-    edges, -1-padded tables, split counts 1, 2, 3, the table width and the
-    wrapper's own; and a head layout it refuses."""
+    """B5 for correctness at the SWEEP head layouts and WIDE_SWEEP: kv_len 1
+    and block edges, -1-padded tables, split counts 1, 2, 3, the table width
+    and the wrapper's own."""
     import torch
 
     from shuffle_exchange_tpu_torch.ops.fused_decode import (attention_splits,
                                                              fused_paged_decode_attention,
                                                              fused_paged_decode_reference)
+    from shuffle_exchange_tpu_torch.ops.paged_attention import decode_head_chunk
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    worst = 0.0
-    for H, KV, Dh, bs in SWEEP:
-        lens = np.asarray([1, bs, bs + 1, 3 * bs - 5, 200], np.int32)
-        ck, cv, table = _paged_inputs(gen, rng, lens, H, KV, Dh, bs, pad=-1)
-        q = torch.randn(len(lens), 1, H, Dh, generator=gen, device="cuda").bfloat16()
-        kvl = torch.from_numpy(lens).cuda()
-        W = table.shape[1]
+
+    def cases():
+        for H, KV, Dh, bs in SWEEP:
+            lens = np.asarray([1, bs, bs + 1, 3 * bs - 5, 200], np.int32)
+            ck, cv, table = _paged_inputs(gen, rng, lens, H, KV, Dh, bs, pad=-1)
+            q = torch.randn(len(lens), 1, H, Dh, generator=gen, device="cuda").bfloat16()
+            yield q, ck, cv, table, torch.from_numpy(lens).cuda()
+        yield _wide_sweep_case()
+
+    worst = {"fused_decode": 0.0}
+    for q, ck, cv, table, kvl in cases():
+        B, _, H, Dh = q.shape
+        KV, W = ck.shape[1], table.shape[1]
+        chunks = decode_head_chunk(H // KV, Dh)[1]
         for n in (1, 2, 3, W, None):
-            splits = attention_splits(len(lens), KV, W, sms) if n is None else n
+            splits = attention_splits(B, KV, W, sms, chunks) if n is None else n
             err, ok = paged_close(fused_paged_decode_attention(q, ck, cv, table, kvl, num_splits=n),
                                   fused_paged_decode_reference(q, ck, cv, table, kvl, splits))
-            _check(ok, f"split-K decode kernel disagrees at H={H} KV={KV} Dh={Dh} bs={bs} "
+            _check(ok, f"split-K decode kernel disagrees at H={H} KV={KV} Dh={Dh} "
                    f"splits={n}: {err.max().item()}")
-            worst = max(worst, err.max().item())
-    q = torch.zeros(1, 1, 64, 128, device="cuda", dtype=torch.bfloat16)
-    pool = torch.zeros(2, 4, 16, 128, device="cuda", dtype=torch.bfloat16)
-    one = torch.ones(1, dtype=torch.int32, device="cuda")
-    refused = None
-    try:
-        fused_paged_decode_attention(q, pool, pool, one[:, None], one)
-    except ValueError as e:   # G * Dh = 2048 is past what the kernel holds
-        refused = str(e)
-    _check(refused is not None, "the split-K decode kernel accepted G * Dh = 2048")
+            key = "fused_decode" if chunks == 1 else "fused_decode_wide_group"
+            worst[key] = max(worst.get(key, 0.0), err.max().item())
     torch.cuda.synchronize()
-    return {"fused_decode": worst, "refused": refused}
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -4731,37 +4745,46 @@ def check_qkv_partial_rope(gen, rng):
     return rows
 
 
-def dh256_bites(got, plain, q, rows=lambda x: x):
+def attention_bites(got, plain, q, rows=lambda x: x, chunk=None):
     """{bite: whether PAGED_TOL catches it}: the plain version with the
     softmax scale of head_dim 128 (q scaled by sqrt(2) in f32) and with each
-    query head reading its neighbour's q."""
-    return {"scale_of_dh_128": _bites(rows(got), rows(plain(q.float() * 2 ** 0.5))),
-            "neighbouring_head": _bites(rows(got), rows(plain(q.roll(1, dims=2))))}
+    query head reading its neighbour's q; given the decode kernels' head
+    chunk of a group wider than one chunk, also each query head reading the
+    q of the head one chunk on (a chunk's head offset lost)."""
+    bites = {"scale_of_dh_128": _bites(rows(got), rows(plain(q.float() * 2 ** 0.5))),
+             "neighbouring_head": _bites(rows(got), rows(plain(q.roll(1, dims=2))))}
+    if chunk is not None:
+        bites["head_one_chunk_on"] = _bites(rows(got), rows(plain(q.roll(-chunk, dims=2))))
+    return bites
 
 
-def check_paged_dh256(gen, rng):
-    """B2, B5 and B3 at GPT-J-6B's heads (16 x 256, MHA): 8 sequences of up
-    to PB_MAX_LEN positions (B3: two 256-row chunks ending at 2,048 and
-    1,800) in shuffled pool order with -1 padding, over the bf16 pool
-    (timed) and int8 / fp8 pools with their scale planes; held to PAGED_TOL
-    (the plain versions with P in f32); every dh256_bites bite must fail
-    it. Returns {form: rows}."""
+def check_paged_heads(gen, rng, H, KV, Dh, suffix, decode_rows=(8,), pools=("bf16",) + KV_FORMATS,
+                      timed=("bf16",), alibi=False):
+    """B2, B5 and B3 at H query heads of Dh over KV kv heads: 8 sequences of
+    up to PB_MAX_LEN positions (B3: two 256-row chunks ending at 2,048 and
+    1,800) in shuffled pool order with -1 padding, and for each other count
+    in ``decode_rows`` the first sequences of those alone (the first is
+    2,048 long), over each of ``pools`` (bf16, or int8 / fp8 with their
+    scale planes); with ``alibi``, one more bf16 pass with slopes. Held to
+    PAGED_TOL (the plain versions with P in f32); every attention_bites bite
+    must fail it. The ``timed`` pools' cells are timed beside their bound,
+    plain version and SDPA over the gathered K/V. Returns {form[suffix]:
+    rows}."""
     import torch
     import torch.nn.functional as F
 
     from shuffle_exchange_tpu_torch.ops.fused_decode import (attention_splits,
                                                              fused_paged_decode_attention,
                                                              fused_paged_decode_reference)
-    from shuffle_exchange_tpu_torch.ops.paged_attention import (paged_decode_attention,
+    from shuffle_exchange_tpu_torch.ops.paged_attention import (decode_head_chunk,
+                                                                paged_decode_attention,
                                                                 paged_decode_reference,
                                                                 paged_extend_attention,
                                                                 paged_extend_reference)
 
-    H, KV, Dh = GPTJ_WIDTHS["H"], GPTJ_WIDTHS["KV"], GPTJ_WIDTHS["Dh"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    q, ck, cv, table, lens = alibi_decode_case(gen, rng, H, KV, Dh)
-    kvl = torch.from_numpy(lens).cuda()
-    splits = attention_splits(len(lens), KV, table.shape[1], sms)
+    chunk, n_chunks = decode_head_chunk(H // KV, Dh)
+    q8, ck, cv, table8, lens8 = alibi_decode_case(gen, rng, H, KV, Dh)
     B, C, bs = 2, 256, 64
     start = np.asarray([PB_MAX_LEN - 256, 1600], np.int32)
     nnew = np.asarray([256, 200], np.int32)
@@ -4769,9 +4792,15 @@ def check_paged_dh256(gen, rng):
     eq = torch.randn(B, C, H, Dh, generator=gen, device="cuda").bfloat16()
     st, nn = torch.from_numpy(start).cuda(), torch.from_numpy(nnew).cuda()
     pick = lambda x: torch.cat([x[b, :n].flatten() for b, n in enumerate(nnew)])
-    out = {"paged_decode_attention[dh256]": [], "fused_paged_decode_attention[dh256]": [],
-           "paged_extend_attention[dh256]": []}
-    for fmt in ("bf16",) + KV_FORMATS:
+    visible = np.minimum(start[:, None] + np.arange(C)[None, :] + 1, (start + nnew)[:, None])
+    pairs = sum(int(s) * int(n) + int(n) * (int(n) + 1) // 2 for s, n in zip(start, nnew))
+    slopes = _slopes(H) if alibi else None
+    names = {f: f"{f}[{suffix}]" for f in ("paged_decode_attention",
+                                           "fused_paged_decode_attention",
+                                           "paged_extend_attention")}
+    out = {n: [] for n in names.values()}
+    passes = [(fmt, None) for fmt in pools] + ([("bf16", slopes)] if alibi else [])
+    for fmt, sl in passes:
         if fmt == "bf16":
             planes, eplanes, sc, esc = (ck, None, cv, None), (eck, None, ecv, None), {}, {}
         else:
@@ -4779,54 +4808,67 @@ def check_paged_dh256(gen, rng):
             sc = dict(k_scale=planes[1], v_scale=planes[3])
             esc = dict(k_scale=eplanes[1], v_scale=eplanes[3])
         kq, vq, ekq, evq = planes[0], planes[2], eplanes[0], eplanes[2]
-        calls = {
-            "paged_decode_attention[dh256]": (
-                lambda: paged_decode_attention(q, kq, vq, table, kvl, **sc),
-                lambda qq: paged_decode_reference(qq, kq, vq, table, kvl, p_f32=True, **sc),
-                q, lambda x: x),
-            "fused_paged_decode_attention[dh256]": (
-                lambda: fused_paged_decode_attention(q, kq, vq, table, kvl, **sc),
-                lambda qq: fused_paged_decode_reference(qq, kq, vq, table, kvl, splits, **sc),
-                q, lambda x: x),
-            "paged_extend_attention[dh256]": (
-                lambda: paged_extend_attention(eq, ekq, evq, etable, st, nn, **esc),
-                lambda qq: paged_extend_reference(qq, ekq, evq, etable, st, nn, p_f32=True,
-                                                  **esc),
-                eq, pick)}
-        for form, (run, plain, qq, rows_of) in calls.items():
+        # (bf16 K, bf16 V, the served planes, index words a row) of each kernel's pool
+        dec_src, ext_src = (ck, cv, planes, 1), (eck, ecv, eplanes, 2)
+        cells = []
+        for nb in decode_rows:
+            q, table, lens = q8[:nb], table8[:nb], lens8[:nb]
+            kvl = torch.from_numpy(lens).cuda()
+            splits = attention_splits(nb, KV, table.shape[1], sms, n_chunks)
+            cells += [
+                (names["paged_decode_attention"], dict(B=nb, kv_len=lens.tolist(),
+                                                       table_width=int(table.shape[1])),
+                 lambda q=q, t=table, k=kvl: paged_decode_attention(q, kq, vq, t, k,
+                                                                    alibi_slopes=sl, **sc),
+                 lambda qq, t=table, k=kvl: paged_decode_reference(qq, kq, vq, t, k, p_f32=True,
+                                                                   alibi_slopes=sl, **sc),
+                 q, lambda x: x, table, lens[:, None], int(lens.sum()), int(lens.sum()), dec_src),
+                (names["fused_paged_decode_attention"],
+                 dict(B=nb, kv_len=lens.tolist(), table_width=int(table.shape[1]),
+                      splits=splits),
+                 lambda q=q, t=table, k=kvl: fused_paged_decode_attention(
+                     q, kq, vq, t, k, alibi_slopes=sl, **sc),
+                 lambda qq, t=table, k=kvl, n=splits: fused_paged_decode_reference(
+                     qq, kq, vq, t, k, n, alibi_slopes=sl, **sc),
+                 q, lambda x: x, table, lens[:, None], int(lens.sum()), int(lens.sum()), dec_src)]
+        cells.append(
+            (names["paged_extend_attention"], dict(B=B, C=C, start=start.tolist(),
+                                                   nnew=nnew.tolist(),
+                                                   table_width=int(etable.shape[1])),
+             lambda: paged_extend_attention(eq, ekq, evq, etable, st, nn, alibi_slopes=sl,
+                                            **esc),
+             lambda qq: paged_extend_reference(qq, ekq, evq, etable, st, nn, p_f32=True,
+                                               alibi_slopes=sl, **esc),
+             eq, pick, etable, visible, int((start + nnew).sum()), pairs, ext_src))
+        for form, shape, run, plain, qq, rows_of, table, vis, kv_rows, n_pairs, src in cells:
             got, want = run(), plain(qq)
             err, tol_ok = paged_close(rows_of(got), rows_of(want))
-            bites = dh256_bites(got, plain, qq, rows_of)
-            extend = form.startswith("paged_extend")
-            row = dict(shape=dict(H=H, KV=KV, Dh=Dh, bs=64, pool=fmt,
-                                  **(dict(B=B, C=C, start=start.tolist(), nnew=nnew.tolist(),
-                                          table_width=int(etable.shape[1])) if extend else
-                                     dict(B=len(lens), kv_len=lens.tolist(),
-                                          table_width=int(table.shape[1]))),
-                                  **({"splits": splits} if form.startswith("fused") else {})),
+            bites = attention_bites(got, plain, qq, rows_of,
+                                chunk=chunk if n_chunks > 1 and "extend" not in form else None)
+            row = dict(shape=dict(H=H, KV=KV, Dh=Dh, bs=64, pool=fmt, alibi=sl is not None,
+                                  head_chunk=chunk, **shape),
                        max_abs_err=err.max().item(), tolerance=PAGED_TOL, within=tol_ok,
                        tolerance_bites=bites)
-            _check(tol_ok, f"{form} over a {fmt} pool disagrees with its plain version: max "
-                   f"abs err {row['max_abs_err']}")
+            _check(tol_ok, f"{form} over a {fmt} pool{' with slopes' if sl is not None else ''} "
+                   f"disagrees with its plain version: max abs err {row['max_abs_err']}")
             _check(all(bites.values()), f"{form} ({fmt} pool): the tolerance misses {bites}")
-            if fmt == "bf16":
-                if extend:
-                    visible = np.minimum(start[:, None] + np.arange(C)[None, :] + 1,
-                                         (start + nnew)[:, None])
-                    pairs = sum(int(s) * int(n) + int(n) * (int(n) + 1) // 2
-                                for s, n in zip(start, nnew))
-                    nbytes = (2 * B * C * H * Dh * 2 + int((start + nnew).sum()) * KV * Dh * 4
-                              + etable.numel() * 4 + 2 * B * 4)
-                    b_ms, b_by = bound(nbytes, 4.0 * pairs * H * Dh)
-                    qs, ks, vs, mask = _sdpa_inputs(eq, eck, ecv, etable, visible)
+            if fmt in timed and sl is None:
+                k16, v16, served, words = src
+                if fmt == "bf16":
+                    nbytes = (2 * qq.numel() * 2 + kv_rows * KV * Dh * 4 + table.numel() * 4
+                              + words * qq.shape[0] * 4)
+                    b_ms, b_by = bound(nbytes, 4.0 * n_pairs * H * Dh)
+                    qs, ks, vs, mask = _sdpa_inputs(qq, k16, v16, table, vis)
+                    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                                 enable_gqa=True)
+                    what = "SDPA over the gathered K/V, boolean mask"
                 else:
-                    b_ms, b_by = _decode_bound(q, ck, table, lens)
-                    qs, ks, vs, mask = _sdpa_inputs(q, ck, cv, table, lens[:, None])
-                lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+                    b_ms, b_by = _kvq_bound(qq, served[0], table, kv_rows, n_pairs)
+                    lib = _kvq_library(qq, served, table, vis)
+                    what = "dequantize + SDPA over the gathered K/V"
                 row.update(ms=time_cold(run), host_us=host_us(run),
                            plain_ms=time_cold(lambda: plain(qq)), library_ms=time_cold(lib),
-                           library="SDPA over the gathered K/V, boolean mask",
-                           bound_ms=b_ms, bound_by=b_by)
+                           library=what, bound_ms=b_ms, bound_by=b_by)
             out[form].append(row)
     return out
 
@@ -4837,10 +4879,10 @@ FLASH_256_SHAPES = [(8, 1024, 1024, 16, 16, 256, True), (2, 1000, 1000, 16, 4, 2
                     (2, 200, 1000, 16, 16, 256, False)]
 
 
-def check_flash_dh256(gen):
-    """The flash forward at head_dim 256 (Q's fragments from shared memory)
-    at FLASH_256_SHAPES against its plain version with P in f32, within
-    PAGED_TOL; at the first shape a plain version with the causal diagonal
+def check_flash_forward(gen, shapes=FLASH_256_SHAPES):
+    """The flash forward at ``shapes`` (FLASH_256_SHAPES: head_dim 256, Q's
+    fragments from shared memory; FLASH_FALCON_SHAPES in phase 2o) against
+    its plain version with P in f32, within PAGED_TOL; at the first shape a plain version with the causal diagonal
     shifted by one, one with the softmax scale of head_dim 128 and one
     reading the neighbouring head's q must fail it. Timed beside the bound
     and SDPA."""
@@ -4851,7 +4893,7 @@ def check_flash_dh256(gen):
                                                                 reference_attention)
 
     rows = []
-    for i, (B, T, S, H, KV, Dh, causal) in enumerate(FLASH_256_SHAPES):
+    for i, (B, T, S, H, KV, Dh, causal) in enumerate(shapes):
         q = torch.randn(B, T, H, Dh, generator=gen, device="cuda").bfloat16()
         k = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
         v = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
@@ -4860,8 +4902,8 @@ def check_flash_dh256(gen):
         got, want = run(), plain(q)
         torch.cuda.synchronize()
         err, tol_ok = paged_close(got, want)
-        _check(tol_ok, f"flash attention at head_dim 256 disagrees with its plain version at "
-               f"{FLASH_256_SHAPES[i]}: max abs err {err.max().item()}")
+        _check(tol_ok, f"flash attention disagrees with its plain version at {shapes[i]}: "
+               f"max abs err {err.max().item()}")
         pairs = B * (T * (T + 1) // 2 if causal else T * S)
         row = dict(shape=dict(B=B, T=T, S=S, H=H, KV=KV, Dh=Dh, causal=causal),
                    max_abs_err=err.max().item(),
@@ -4870,10 +4912,10 @@ def check_flash_dh256(gen):
                    visible_pairs=pairs)
         if i == 0:
             shifted = torch.ones(T, S, dtype=torch.bool, device="cuda").tril(1)
-            row["tolerance_bites"] = dict(dh256_bites(got, plain, q),
+            row["tolerance_bites"] = dict(attention_bites(got, plain, q),
                                           diagonal_shifted=_bites(got, _masked_plain(
                                               q, k, v, shifted)))
-            _check(all(row["tolerance_bites"].values()), f"the head_dim-256 flash tolerance "
+            _check(all(row["tolerance_bites"].values()), f"the flash tolerance at {shapes[i]} "
                    f"misses {row['tolerance_bites']}")
             qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
@@ -4900,19 +4942,24 @@ def check_parallel_block_forms(gen, seed):
         forms["fused_mlp[no-norm]" if r["shape"]["fmt"] == "bf16"
               else "fused_mlp_quant[no-norm]"].append(r)
     forms["fused_qkv_rope[partial-rope]"] = check_qkv_partial_rope(gen, rng)
-    forms.update(check_paged_dh256(gen, rng))
-    forms["flash_attention[dh256]"] = check_flash_dh256(gen)
+    forms.update(check_paged_heads(gen, rng, GPTJ_WIDTHS["H"], GPTJ_WIDTHS["KV"],
+                                   GPTJ_WIDTHS["Dh"], "dh256"))
+    forms["flash_attention[dh256]"] = check_flash_forward(gen)
     print(f"[kernel] parallel-block forms: {sum(len(r) for r in forms.values())} cells in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return forms
 
 
-# GPT-J-6B's and Pythia-1.4b's fused decode row: per layer, B4 unless the QKV
-# stays on the layer body (GPT-J's interleaved RoPE), B5 always, B6 unless
-# the MLP does (Pythia's exact gelu)
-PB_PER_LAYER = {"gpt-j-6b": dict(fused_qkv_rope=0, fused_paged_decode_attention=1, fused_mlp=1),
+# GPT-J-6B's, Pythia-1.4b's and Falcon-7B's fused decode row: per layer, B4
+# unless the QKV stays on the layer body (GPT-J's interleaved RoPE), B5
+# always, B6 unless the MLP does (Pythia's and Falcon's exact gelu), never B7
+# (bf16 weights)
+PB_PER_LAYER = {"gpt-j-6b": dict(fused_qkv_rope=0, fused_paged_decode_attention=1, fused_mlp=1,
+                                 fused_mlp_quant=0),
                 "pythia-1.4b": dict(fused_qkv_rope=1, fused_paged_decode_attention=1,
-                                    fused_mlp=0)}
+                                    fused_mlp=0, fused_mlp_quant=0),
+                "falcon-7b": dict(fused_qkv_rope=1, fused_paged_decode_attention=1, fused_mlp=0,
+                                  fused_mlp_quant=0)}
 
 
 def parallel_block_serving(name, cfg, seed, card):
@@ -4936,9 +4983,16 @@ def parallel_block_serving(name, cfg, seed, card):
     got = {k: loop[k] for k in want}
     _check(got == want, f"{name}: put() + {LOOP_STEPS} decode_loop steps launched {got}, "
            f"not {want}")
+    xla = out["serve"]["xla"]
+    ticks = xla["programs"].get("decode", 0) + xla["programs"].get("mixed", 0)
+    _check(xla["launches"]["paged_decode_attention"] == L * ticks > 0
+           and xla["launches"]["fused_paged_decode_attention"] == 0,
+           f"{name}: the xla serve's {ticks} ticks with decode rows launched B2 "
+           f"{xla['launches']['paged_decode_attention']} times, not {L} a tick")
     print(f"[{name}] a fused decode step launches, per layer: "
           f"{ {k: n for k, n in PB_PER_LAYER[name].items()} } (held exactly over "
-          f"{LOOP_STEPS} steps); the prefill's flash forward once a layer", flush=True)
+          f"{LOOP_STEPS} steps); an xla decode tick B2 {L} times; the prefill's flash "
+          f"forward once a layer", flush=True)
     if name == "gpt-j-6b":
         nb_cfg = dataclasses.replace(cfg, n_layers=2, mlp_bias=False)
         nb_params = {k: (v[:2] if k.startswith("layers.") else v) for k, v in params.items()
@@ -4956,6 +5010,86 @@ def parallel_block_serving(name, cfg, seed, card):
         gc.collect()
         torch.cuda.empty_cache()
     return out, params
+
+
+# tiiuae/falcon-7b's published config, as the fields config_from_hf reads them
+FALCON_7B = {"architectures": ["FalconForCausalLM"], "model_type": "falcon", "alibi": False,
+             "bias": False, "hidden_size": 4544, "layer_norm_epsilon": 1e-5,
+             "multi_query": True, "new_decoder_architecture": False,
+             "num_attention_heads": 71, "num_hidden_layers": 32, "parallel_attn": True,
+             "vocab_size": 65024}
+FALCON_WIDTHS = dict(D=4544, H=71, KV=1, Dh=64, F=18176)
+# (H, KV, Dh) of the decode kernels' head-chunk edges (a block takes
+# 1024 / Dh query heads): exactly one chunk (Falcon-40B's group), a one-head
+# last chunk, and two chunks at 128 and at 256
+WIDE_GROUP_EDGES = [(16, 1, 64), (17, 1, 64), (9, 1, 128), (5, 1, 256)]
+# the extend kernel past 64 heads a kv head (its tiles span two chunk rows)
+EXTEND_EDGE = (65, 1, 64)
+# Falcon-7B's prefill: P = 8, T = 1024, 71 query heads over one kv head
+FLASH_FALCON_SHAPES = [(8, 1024, 1024, 71, 1, 64, True)]
+# depth-2 Falcon-7B against the CPU f32 engine: the largest logit error over
+# every schedule, relative to the largest |logit|
+FALCON_E2E_TOL = 0.01
+
+
+def check_wide_group_forms(gen, seed):
+    """Phase 2o: B2, B5 and B3 at Falcon-7B's group (71 x 64 over one kv
+    head; 8 rows and 1 row; bf16, int8 and fp8 pools, all timed; bf16 with
+    slopes), at WIDE_GROUP_EDGES (bf16) and B3 at EXTEND_EDGE; B4 at
+    Falcon-7B's widths (8 rows, pool) and the flash forward at its prefill.
+    Returns {form: rows}."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 24])
+    H, KV, Dh = (FALCON_WIDTHS[k] for k in ("H", "KV", "Dh"))
+    forms = check_paged_heads(gen, rng, H, KV, Dh, "wide-group", decode_rows=(8, 1),
+                              timed=("bf16",) + KV_FORMATS, alibi=True)
+    for h, kv, dh in WIDE_GROUP_EDGES:
+        for form, rows in check_paged_heads(gen, rng, h, kv, dh, "wide-group",
+                                            pools=("bf16",)).items():
+            forms[form] += rows
+    for form, rows in check_paged_heads(gen, rng, *EXTEND_EDGE, "wide-group", decode_rows=(),
+                                        pools=("bf16",)).items():
+        forms[form] += rows
+    forms["fused_qkv_rope[falcon-7b]"] = [check_fused_qkv(gen, rng, 8, widths=FALCON_WIDTHS,
+                                                          theta=10000.0)]
+    forms["flash_attention[falcon-7b]"] = check_flash_forward(gen, FLASH_FALCON_SHAPES)
+    print(f"[kernel] wide-group forms: {sum(len(r) for r in forms.values())} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return forms
+
+
+def falcon_serving(cfg, seed, card):
+    """Phase 3k: Falcon-7B at full width and depth through
+    ``parallel_block_serving`` (the three entry points, a profiled decode
+    window, a decode step's launches held exactly: B4 and B5 once a layer,
+    never B6 or B7; an xla tick's B2 once a layer; the prefill's flash
+    forward once a layer), with the ms per ``decode_loop`` step beside the
+    weights' bytes over the card's memory rate. Returns the results and the
+    weights (phase 4f)."""
+    out, params = parallel_block_serving("falcon-7b", cfg, seed, card)
+    floor_ms = weight_bytes(params) / HBM_BYTES_PER_S * 1e3
+    loop = out["put_decode_loop"]
+    out["decode_loop_floor_ms"] = floor_ms
+    auto = out["serve"]["auto"]
+    print(f"[falcon-7b] serve auto: {auto['sustained_tokens_per_sec']} tok/s, TPOT p50 "
+          f"{auto['tpot_p50_s']} s, p95 {auto['tpot_p95_s']} s; decode_loop "
+          f"{loop['decode_loop_ms_per_step']:.2f} ms a step against {floor_ms:.2f} ms of "
+          f"weight bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s on {card}", flush=True)
+    return out, params
+
+
+def falcon_e2e(cfg, params, seed):
+    """Phase 4f: phase 4b's ``family_e2e`` on Falcon-7B cut to depth 2, then
+    the largest error over every call within FALCON_E2E_TOL of the largest
+    |logit|."""
+    e2e = family_e2e("falcon-7b", cfg, params, seed)
+    worst = max(t["max_abs_err"] / t["ref_abs_max"] for by_dk in e2e.values()
+                for calls in by_dk.values() for t in calls)
+    print(f"[e2e falcon-7b] largest error over every schedule and decode path: {worst:.5f} "
+          f"of the largest |logit| (tol {FALCON_E2E_TOL})", flush=True)
+    _check(worst <= FALCON_E2E_TOL, f"depth-2 Falcon-7B sits {worst:.5f} of the largest logit "
+           f"from the CPU f32 engine (tol {FALCON_E2E_TOL})")
+    return dict(e2e, worst_rel=worst)
 
 
 # ---------------------------------------------------------------------------
@@ -5469,6 +5603,9 @@ def main(argv=None) -> int:
     # 2n. the parallel-block families' forms: B6/B7 without their norm, B4's
     # partial rotary, B2/B3/B5 and the flash forward at head_dim 256
     pb_forms = check_parallel_block_forms(gen, args.seed)
+    # 2o. B2, B3 and B5 at any query-head group (Falcon-7B's 71 heads over one
+    # kv head, the head-chunk edges), B4 and the flash forward at Falcon-7B's
+    wg_forms = check_wide_group_forms(gen, args.seed)
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
                "fused_mlp": mlp, "fused_mlp_quant": qmlp, "quant_matmul": qmm,
@@ -5479,7 +5616,7 @@ def main(argv=None) -> int:
                "flash_attention_bwd": fbwd, "fused_adamw": adamw,
                "alibi_flash_attention": al_fwd, "alibi_flash_attention_bwd_dq": al_dq,
                "alibi_flash_attention_bwd_dkv": al_dkv, **forms, **kv_forms, **mask_forms,
-               **mq_forms, **pb_forms}
+               **mq_forms, **pb_forms, **wg_forms}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
@@ -5768,6 +5905,30 @@ def main(argv=None) -> int:
            f"a parallel-block kernel form never launched on its serving path: "
            f"{ {f: form_launches[f] for f in pb_forms} }")
 
+    # 3k. Falcon-7B (multi-query: 71 heads of 64 over one kv head; the
+    # shared-layernorm parallel block) at full width and depth; 4f. cut to
+    # depth 2 against the CPU f32 engine
+    fcfg = config_from_hf(FALCON_7B)
+    t0 = time.perf_counter()
+    falcon, fparams = falcon_serving(fcfg, args.seed + 25, card)
+    t1 = time.perf_counter()
+    falcon_e2es = falcon_e2e(fcfg, fparams, args.seed)
+    print(f"[falcon-7b] phase 3k in {t1 - t0:.1f} s, 4f in {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    del fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    falcon_runs = [falcon["serve"]["auto"]["launches"], falcon["serve"]["xla"]["launches"],
+                   falcon["put_decode_loop"]["launches"], falcon["v1_generate"]["launches"]]
+    runs += falcon_runs
+    _check(all(r["rmsnorm"] == 0 for r in falcon_runs),
+           "a layernorm model launched the RMSNorm kernel")
+    for form in wg_forms:
+        form_launches[form] = sum(r[form.split("[")[0]] for r in falcon_runs)
+    _check(all(form_launches[f] > 0 for f in wg_forms),
+           f"a wide-group kernel form never launched on Falcon-7B's serving path: "
+           f"{ {f: form_launches[f] for f in wg_forms} }")
+
     # 5. train the ladder's pick at full width and depth; 6. depth 2 against
     # the CPU
     from shuffle_exchange_tpu_torch.models import pick_ladder_config
@@ -5948,7 +6109,7 @@ def main(argv=None) -> int:
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                         "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
-    for s_ in [*serves.values(), *(s_ for f in [*families.values(), *pblocks.values()]
+    for s_ in [*serves.values(), *(s_ for f in [*families.values(), *pblocks.values(), falcon]
                                    for s_ in f["serve"].values())]:
         s_["tokens"] = {int(u): t for u, t in s_["tokens"].items()}
     result = {"card": card, "seconds": time.perf_counter() - t_start,
@@ -5964,6 +6125,7 @@ def main(argv=None) -> int:
               "kv_quant_serving": kvserve, "kv_e2e": kv_e2es,
               "family_quant_serving": fquant, "family_quant_e2e": fquant_e2e,
               "parallel_block_serving": pblocks, "parallel_block_e2e": pb_e2es,
+              "falcon_serving": falcon, "falcon_e2e": falcon_e2es,
               "sparse_user_call": {"launches": sparse_launches, "finite": sparse_finite}}
     if args.out:
         with open(args.out, "w") as f:

@@ -2,9 +2,12 @@
 
 Runs the flash-attention kernels (B14 / B15 forward and backward), the
 grouped GEMM (B16 forward over bf16 and int8 stacks, its dx and dw), the
-quantized matmul (B8, both forms) and, where the tree has them, the ALiBi
-kernels (B11-B13) on seeded inputs, and prints for each cell a SHA-256 of
-its output bytes and its mean cold-L2 time. Two trees whose digests match
+quantized matmul (B8, both forms), where the tree has them the ALiBi
+kernels (B11-B13), and the paged serving kernels (B2 decode, B5 split-K
+decode, B3 extend over bf16, int8 and fp8 pools) on seeded inputs, and
+prints for each cell a SHA-256 of its output bytes and its mean cold-L2
+time. ``--sections`` picks some of them (``flash alibi grouped quant
+paged``). Two trees whose digests match
 computed bit-equal results, so a refactor of the kernel sources (shared
 headers, say) is checked against its parent by running this script on
 both, parent-change-change-parent in one session:
@@ -12,6 +15,9 @@ both, parent-change-change-parent in one session:
     git archive <parent> | tar -x -C build/parent
     python3 scripts/torch_kernel_digest.py --tree build/parent --out a.json
     python3 scripts/torch_kernel_digest.py --tree . --out b.json
+
+Each run times its cells once; run parent and change twice each, in turn,
+to see how far the times of one tree move between runs.
 
 ``--tree`` is the checkout whose ``shuffle_exchange_tpu_torch`` is imported
 (and whose ``ops/csrc`` sources are built, into that checkout's ``build/``).
@@ -45,6 +51,15 @@ ALIBI_CELLS = [("B11-B13 bloom-1b7", 2, 2047, 2047, 16, 16, 128),
                ("B11-B13 gqa T<S", 2, 512, 1024, 16, 8, 128)]
 GROUPED_SIZES = {"16 rows": [3, 0, 5, 1, 0, 4, 2, 1],
                  "4096 rows": [700, 0, 1300, 96, 512, 4, 1000, 484]}
+# (label, H, KV, Dh, ALiBi slopes): the heads of the chip smoke test's B2 / B3
+# / B5 cells (Llama-3-8B's, BLOOM-1b7's with slopes, GPT-J-6B's at head_dim
+# 256) and a GQA group at head_dim 64; each at 8 sequences of up to 2,048
+# positions (B3: two 256-row chunks starting at each pair of EXTEND_STARTS:
+# ending at 2,048 and 1,800, and the chip smoke test's phase-2 cell)
+PAGED_CELLS = [("llama 32/8x128", 32, 8, 128, False), ("bloom 16x128 alibi", 16, 16, 128, True),
+               ("gpt-j 16x256", 16, 16, 256, False), ("gqa 16/2x64", 16, 2, 64, False)]
+EXTEND_STARTS = ((1792, 1600), (512, 700))
+SECTIONS = ("flash", "alibi", "grouped", "quant", "paged")
 
 
 def time_cold(fn, iters: int = 10) -> float:
@@ -77,7 +92,71 @@ def digest(tensors) -> str:
     return h.hexdigest()
 
 
-def run(tree: Path, seed: int) -> dict:
+def paged_cells(gen, seed) -> dict:
+    """B2, B5 and B3 at PAGED_CELLS over bf16, int8 and fp8 pools."""
+    import numpy as np
+    import torch
+
+    from shuffle_exchange_tpu_torch.inference.paged import quantize_kv
+    from shuffle_exchange_tpu_torch.models import alibi_slopes
+    from shuffle_exchange_tpu_torch.ops.fused_decode import fused_paged_decode_attention
+    from shuffle_exchange_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                                paged_extend_attention)
+
+    rng = np.random.default_rng(seed)
+    bs, cells = 64, {}
+
+    def pool(lens, KV, Dh):
+        nb = [-(-int(n) // bs) for n in lens]
+        ids = rng.permutation(np.arange(1, 1 + sum(nb))).tolist()
+        table = np.full((len(lens), 1 << max(0, (max(nb) - 1).bit_length())), -1, np.int32)
+        for b, n in enumerate(nb):
+            table[b, :n] = [ids.pop() for _ in range(n)]
+        k, v = (torch.randn(1 + sum(nb), KV, bs, Dh, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        return k, v, torch.from_numpy(table).cuda()
+
+    for label, H, KV, Dh, alibi in PAGED_CELLS:
+        slopes = torch.from_numpy(alibi_slopes(H)).cuda() if alibi else None
+        lens = np.concatenate([[2048], rng.integers(1, 2049, size=7)]).astype(np.int32)
+        k, v, table = pool(lens, KV, Dh)
+        q = torch.randn(8, 1, H, Dh, generator=gen, device="cuda").bfloat16()
+        kvl = torch.from_numpy(lens).cuda()
+        nnew = torch.tensor([256, 200], dtype=torch.int32, device="cuda")
+        ext = []
+        for st in EXTEND_STARTS:
+            start = torch.tensor(st, dtype=torch.int32, device="cuda")
+            ek, ev, etable = pool((start + nnew).tolist(), KV, Dh)
+            eq = torch.randn(2, 256, H, Dh, generator=gen, device="cuda").bfloat16()
+            ext.append((st, start, ek, ev, etable, eq))
+        for fmt in ("bf16", "int8", "fp8"):
+            store = torch.int8 if fmt == "int8" else torch.float8_e4m3fn
+
+            def stored(x, y):
+                """(x, y, scale keywords) as the pool holds them in ``fmt``."""
+                if fmt == "bf16":
+                    return x, y, {}
+                (xq, xs), (yq, ys) = quantize_kv(x, store), quantize_kv(y, store)
+                return xq, yq, dict(k_scale=xs, v_scale=ys)
+
+            kk, vv, sc = stored(k, v)
+            runs = [(f"B2 {label} {fmt}", lambda: paged_decode_attention(
+                        q, kk, vv, table, kvl, alibi_slopes=slopes, **sc)),
+                    (f"B5 {label} {fmt}", lambda: fused_paged_decode_attention(
+                        q, kk, vv, table, kvl, alibi_slopes=slopes, **sc))]
+            for st, start, ek, ev, etable, eq in ext:
+                ekk, evv, esc = stored(ek, ev)
+                at = "" if st == EXTEND_STARTS[0] else f" at {st}"
+                runs.append((f"B3 {label} {fmt}{at}",
+                             lambda start=start, ekk=ekk, evv=evv, etable=etable, eq=eq, esc=esc:
+                             paged_extend_attention(eq, ekk, evv, etable, start, nnew,
+                                                    alibi_slopes=slopes, **esc)))
+            for name, fn in runs:
+                cells[name] = dict(digest=digest([fn()]), ms=time_cold(fn))
+    return cells
+
+
+def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
     import torch
 
     sys.path.insert(0, str(tree))
@@ -89,11 +168,14 @@ def run(tree: Path, seed: int) -> dict:
     fa, gg, qmm, _build = (importlib.import_module(f"shuffle_exchange_tpu_torch.ops.{m}") for m in
                            ("flash_attention", "grouped_gemm", "quant_matmul", "_build"))
 
-    # one nvcc per source, all at once
-    _build.build_all([s for s in ("flash_attention", "alibi_attention", "grouped_gemm",
-                                  "quant_matmul") if (_build.CSRC / f"{s}.cu").exists()])
+    # one nvcc per source the sections run, all at once
+    sources = {"flash": ("flash_attention",), "alibi": ("alibi_attention",),
+               "grouped": ("grouped_gemm",), "quant": ("quant_matmul",),
+               "paged": ("paged_attention", "fused_decode")}
+    _build.build_all([s for sec in sections for s in sources[sec]
+                      if (_build.CSRC / f"{s}.cu").exists()])
 
-    gens = [torch.Generator(device="cuda").manual_seed(seed * 10 + i) for i in range(4)]
+    gens = [torch.Generator(device="cuda").manual_seed(seed * 10 + i) for i in range(5)]
     gen = gens[0]   # each section draws from its own generator: a tree without the
                     # ALiBi kernels gives the later sections the same inputs
 
@@ -101,7 +183,7 @@ def run(tree: Path, seed: int) -> dict:
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
 
     cells = {}
-    for label, B, T, S, H, KV, Dh, causal, seg in FLASH_CELLS:
+    for label, B, T, S, H, KV, Dh, causal, seg in (FLASH_CELLS if "flash" in sections else []):
         q, k, v = randn(B, T, H, Dh), randn(B, S, KV, Dh), randn(B, S, KV, Dh)
         dout = randn(B, T, H, Dh)
         segs = None
@@ -118,6 +200,8 @@ def run(tree: Path, seed: int) -> dict:
         al = importlib.import_module("shuffle_exchange_tpu_torch.ops.alibi_attention")
     except ImportError:
         al = None
+    if "alibi" not in sections:
+        al = None
     gen = gens[1]
     for label, B, T, S, H, KV, Dh in (ALIBI_CELLS if al is not None else []):
         slopes = torch.from_numpy(alibi_slopes(H)).cuda()
@@ -133,7 +217,7 @@ def run(tree: Path, seed: int) -> dict:
     E, K, F = 8, 1024, 2816   # bench.py's _config3 expert shapes
     w = randn(E, K, F, scale=K ** -0.5)
     w8 = qmm.quantize_weight(w, 256, bits=8)
-    for what, sizes in GROUPED_SIZES.items():
+    for what, sizes in (GROUPED_SIZES.items() if "grouped" in sections else []):
         gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
         N = sum(sizes)
         x, dy = randn(N, K), randn(N, F)
@@ -145,12 +229,14 @@ def run(tree: Path, seed: int) -> dict:
 
     gen = gens[3]
     wq = randn(4096, 14336, scale=4096 ** -0.5)
-    for bits in (8, 4):
+    for bits in ((8, 4) if "quant" in sections else ()):
         qm = qmm.quantize_weight(wq, 256, bits=bits)
         for rows in (8, 256):
             x = randn(rows, 4096)
             fn = lambda: qmm.quant_matmul(x, qm)
             cells[f"B8 int{bits} {rows} rows"] = dict(digest=digest([fn()]), ms=time_cold(fn))
+    if "paged" in sections:
+        cells.update(paged_cells(gens[4], seed))
     return cells
 
 
@@ -159,6 +245,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--sections", nargs="+", choices=SECTIONS, default=list(SECTIONS))
     args = ap.parse_args(argv)
     import torch
 
@@ -168,7 +255,7 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     tree = Path(args.tree).resolve()
-    result = dict(tree=str(tree), card=card, cells=run(tree, args.seed))
+    result = dict(tree=str(tree), card=card, cells=run(tree, args.seed, args.sections))
     text = json.dumps(result, indent=1)
     if args.out:
         Path(args.out).write_text(text)

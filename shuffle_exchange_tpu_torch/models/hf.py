@@ -3,8 +3,11 @@
 A slice of ``shuffle_exchange_tpu/models/hf.py``: ``config_from_hf`` for a
 ``config.json`` dict, for the families the port trains: GPT-2, BLOOM and
 the Llama family (llama, mistral, phi3, which the JAX mapping sends through
-one branch), and those it serves: GPT-J and GPT-NeoX (Pythia), the
-parallel-block families. The field mapping is the JAX package's, line for line. Other
+one branch), and those it serves: GPT-J, GPT-NeoX (Pythia) and Falcon (the
+7B's multi-query shared-layernorm parallel block, the 40B's
+``new_decoder_architecture`` with two parallel norms, and falcon-rw's
+sequential ALiBi blocks), the parallel-block families. The field mapping
+is the JAX package's, line for line. Other
 families, HF config objects and the weight conversion raise, naming ROADMAP
 queue A, item 14; ``transformers`` is never imported.
 """
@@ -32,11 +35,7 @@ _MODEL_TYPE_FAMILIES = {"llama": "llama", "mistral": "llama", "qwen2": "qwen2",
                         "distilbert": "distilbert", "gpt_neo": "gptneo", "internlm": "internlm",
                         "internlm2": "internlm2", "megatron": "megatron",
                         "megatron-gpt": "megatron", "megatron_gpt": "megatron"}
-_PORTED = ("gpt2", "bloom", "llama", "phi3", "gptj", "gptneox")
-#: why a family that is not ported waits, where more than its item says
-_WAITS = {"falcon": "Falcon-7B's multi-query attention (71 heads of 64 over one kv head) "
-                    "needs the split-K decode kernel at G*Dh > 1024 (ROADMAP queue B, B5) and "
-                    "the rest of item 4 (d)"}
+_PORTED = ("gpt2", "bloom", "llama", "phi3", "gptj", "gptneox", "falcon")
 
 
 def _family(cfg: Dict[str, Any]) -> str:
@@ -59,10 +58,9 @@ def config_from_hf(hf_config: Dict[str, Any]) -> TransformerConfig:
     cfg = hf_config
     family = _family(cfg)
     if family not in _PORTED:
-        why = f"; {_WAITS[family]}" if family in _WAITS else ""
         raise NotImplementedError(f"config_from_hf for the {family!r} family is not in the "
                                   f"PyTorch port yet (ported: {', '.join(_PORTED)}): ROADMAP "
-                                  f"queue A, item 14{why}")
+                                  f"queue A, item 14")
     if family == "gpt2":
         return TransformerConfig(
             vocab_size=cfg["vocab_size"], d_model=cfg["n_embd"], n_layers=cfg["n_layer"],
@@ -108,6 +106,28 @@ def config_from_hf(hf_config: Dict[str, Any]) -> TransformerConfig:
             attn_out_bias=cfg.get("attention_bias", True),
             norm_eps=cfg.get("layer_norm_eps", 1e-5),
             tie_embeddings=cfg.get("tie_word_embeddings", False))
+    if family == "falcon":
+        H = cfg["num_attention_heads"]
+        new_arch = cfg.get("new_decoder_architecture", False)
+        kv = (cfg.get("num_kv_heads") or H) if new_arch else (
+            1 if cfg.get("multi_query", True) else H)
+        return TransformerConfig(
+            vocab_size=cfg["vocab_size"], d_model=cfg["hidden_size"],
+            n_layers=cfg["num_hidden_layers"], n_heads=H, n_kv_heads=kv,
+            max_seq_len=cfg.get("max_position_embeddings", 2048),
+            activation="gelu", norm="layernorm",
+            position="alibi" if cfg.get("alibi", False) else "rope",
+            # Falcon's baddbmm scales the ALiBi bias by 1/sqrt(Dh) (BLOOM's
+            # does not)
+            alibi_slope_scale=(cfg["hidden_size"] // H) ** -0.5,
+            d_ff=cfg.get("ffn_hidden_size"),
+            rope_theta=float(cfg.get("rope_theta", 10000.0)),
+            parallel_block=cfg.get("parallel_attn", True),
+            parallel_shared_ln=cfg.get("parallel_attn", True) and not new_arch,
+            attn_qkv_bias=cfg.get("bias", False), attn_out_bias=cfg.get("bias", False),
+            mlp_bias=cfg.get("bias", False),
+            norm_eps=cfg.get("layer_norm_epsilon", 1e-5),
+            tie_embeddings=cfg.get("tie_word_embeddings", True))
     return TransformerConfig(      # llama / mistral / phi3
         vocab_size=cfg["vocab_size"], d_model=cfg["hidden_size"],
         n_layers=cfg["num_hidden_layers"], n_heads=cfg["num_attention_heads"],

@@ -51,11 +51,14 @@
 //
 // Split-K decode attention is bound by the K/V bytes it reads, as the
 // paged decode kernel in paged_attention.cu is. One block per (sequence,
-// kv head, split) walks its split's share of the block table up to
-// ceil(kv_len / bs), never reading padded entries, stages 64-position K/V
-// tiles in shared memory once for the G query heads of its group, and
-// holds (m, l, acc) in f32; the split count fills the SMs (the wrapper
-// picks it), and a merge kernel combines the splits:
+// kv head, head chunk, split) walks its split's share of the block table
+// up to ceil(kv_len / bs), never reading padded entries, stages 64-position
+// K/V tiles in shared memory once for the query heads of its chunk (the
+// whole group G when G * Dh <= 1024, else 1024 / Dh heads of it: Falcon-7B's
+// 71 heads of 64 make 5 chunks, each re-reading the kv head's tiles from
+// L2), and holds (m, l, acc) in f32, at most 8 accumulators a thread; the
+// split count fills the SMs (the wrapper picks it, counting the chunks),
+// and a merge kernel combines the splits:
 //   m_g = max m;  w = exp(m - m_g);  out = sum(w*acc) / max(sum(w*l), 1e-30).
 // q is scaled in f32 before the dot, P stays f32, masked scores are -1e30,
 // and a split past the sequence's end contributes m = -1e30, l = 0. ALiBi
@@ -365,26 +368,34 @@ __global__ void residual_epilogue_kernel(const float* __restrict__ part, int S, 
 }
 
 // ---------------------------------------------------------------------------
-// Split-K paged decode: block (sequence b, kv head, split s), 128 threads,
-// over positions [s * spb * bs, min((s + 1) * spb * bs, kv_len)).
+// Split-K paged decode: block (sequence b, kv head x head chunk, split s),
+// 128 threads, over positions [s * spb * bs, min((s + 1) * spb * bs,
+// kv_len)); blockIdx.y = kv * NCH + chunk, and the chunk is query heads
+// [chunk * GC, min(G, (chunk + 1) * GC)) of kv head kv. A group that fits
+// one block (NCH = 1) runs the CHUNKED = false instance, whose code is that
+// of the kernel before head chunks (blockIdx.y = kv, G = H / KV).
 // ---------------------------------------------------------------------------
 
 constexpr int kDecThreads = 128;
-constexpr int kDecMaxAcc = 8;    // G * Dh <= 8 * 128
+constexpr int kDecMaxAcc = kDecodeCols / kDecThreads;   // per thread
 
-template <int DH, int KIND>
+template <int DH, int KIND, bool CHUNKED>
 __global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool,
     const void* __restrict__ vpool, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const int* __restrict__ table,
     const int* __restrict__ kv_len, const float* __restrict__ slopes,
     float* __restrict__ o_part, float* __restrict__ m_part, float* __restrict__ l_part, int H,
-    int KV, int bs, int W, int spb, float scale) {
+    int KV, int bs, int W, int spb, float scale, int GC) {
   constexpr int NT = kDecThreads, LDB = kv_row_bytes<DH, KIND>();
   constexpr int EB = KvStore<KIND>::kBytes;
   constexpr bool SCALED = KvStore<KIND>::kScaled;
-  const int b = blockIdx.x, kv = blockIdx.y, s = blockIdx.z, S = gridDim.z, tid = threadIdx.x;
-  const int G = H / KV;
+  const int b = blockIdx.x, s = blockIdx.z, S = gridDim.z, tid = threadIdx.x;
+  const int kv = CHUNKED ? blockIdx.y / (gridDim.y / KV) : blockIdx.y;
+  const int chunk = CHUNKED ? blockIdx.y % (gridDim.y / KV) : 0;
+  // the block's query heads and the first of them
+  const int G = CHUNKED ? min(GC, H / KV - chunk * GC) : H / KV;
+  const size_t h0 = size_t(kv) * (H / KV) + (CHUNKED ? size_t(chunk) * GC : 0);
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ks = smem;                              // [TK] rows of LDB bytes
   unsigned char* vs = ks + TK * LDB;
@@ -400,7 +411,7 @@ __global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
   const int p_lo = s * spb * bs;
   const int p_hi = min(len, (s + 1) * spb * bs);
   const int* trow = table + size_t(b) * W;
-  const __nv_bfloat16* qb = q + (size_t(b) * H + size_t(kv) * G) * DH;
+  const __nv_bfloat16* qb = q + (size_t(b) * H + h0) * DH;
   for (int i = tid; i < G * DH; i += NT) qs[i] = __bfloat162float(qb[i]) * scale;
   for (int g = tid; g < G; g += NT) {
     ms[g] = kNeg;
@@ -433,7 +444,7 @@ __global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
 #pragma unroll
           for (int e = 0; e < 8; ++e) a += qr[c + e] * (SCALED ? kf[e] * sk : kf[e]);
         }
-        sc = slopes ? a + slopes[kv * G + g] * float(p0 + t) : a;
+        sc = slopes ? a + slopes[int(h0) + g] * float(p0 + t) : a;
       }
       ss[i] = sc;
     }
@@ -481,7 +492,7 @@ __global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
     __syncthreads();
   }
 
-  const size_t row0 = (size_t(b) * S + s) * H + size_t(kv) * G;   // [B, S, H] row of head g=0
+  const size_t row0 = (size_t(b) * S + s) * H + h0;   // [B, S, H] row of the chunk's head 0
 #pragma unroll
   for (int k = 0; k < kDecMaxAcc; ++k) {
     const int o = tid + k * NT;
@@ -553,13 +564,15 @@ cudaError_t launch_split_decode(dim3 grid, size_t smem, cudaStream_t s,
                                 const float* k_scale, const float* v_scale, const int* table,
                                 const int* kv_len, const float* slopes, float* o_part,
                                 float* m_part, float* l_part, int H, int KV, int bs, int W,
-                                int spb, float scale) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      split_decode_kernel<DH, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+                                int spb, int GC, float scale) {
+  const auto kernel = int(grid.y) > KV ? split_decode_kernel<DH, KIND, true>
+                                        : split_decode_kernel<DH, KIND, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  split_decode_kernel<DH, KIND><<<grid, kDecThreads, smem, s>>>(
+  kernel<<<grid, kDecThreads, smem, s>>>(
       q, k, v, k_scale, v_scale, table, kv_len, slopes, o_part, m_part, l_part, H, KV, bs, W,
-      spb, scale);
+      spb, scale, GC);
   return cudaSuccess;
 }
 
@@ -570,20 +583,20 @@ cudaError_t launch_split_decode_kind(int kind, dim3 grid, size_t smem, cudaStrea
                                      const float* k_scale, const float* v_scale,
                                      const int* table, const int* kv_len, const float* slopes,
                                      float* o_part, float* m_part, float* l_part, int H,
-                                     int KV, int bs, int W, int spb, float scale) {
+                                     int KV, int bs, int W, int spb, int GC, float scale) {
   switch (kind) {
     case KvBf16:
       return launch_split_decode<DH, KvBf16>(grid, smem, s, q, k, v, k_scale, v_scale, table,
                                              kv_len, slopes, o_part, m_part, l_part, H, KV, bs,
-                                             W, spb, scale);
+                                             W, spb, GC, scale);
     case KvInt8:
       return launch_split_decode<DH, KvInt8>(grid, smem, s, q, k, v, k_scale, v_scale, table,
                                              kv_len, slopes, o_part, m_part, l_part, H, KV, bs,
-                                             W, spb, scale);
+                                             W, spb, GC, scale);
     case KvFp8:
       return launch_split_decode<DH, KvFp8>(grid, smem, s, q, k, v, k_scale, v_scale, table,
                                             kv_len, slopes, o_part, m_part, l_part, H, KV, bs,
-                                            W, spb, scale);
+                                            W, spb, GC, scale);
     default:
       return cudaErrorInvalidValue;
   }
@@ -641,22 +654,24 @@ int sxt_fused_qkv_rope_bf16(const void* y, const void* wq, const void* wk, const
 // Split-K paged decode. kind: 0 bf16 pool (k_scale = v_scale = null), 1
 // int8, 2 e4m3 (with the f32 scale planes). o_part f32 [B, splits, H, Dh],
 // m_part / l_part f32 [B, splits, H]; splits * spb >= W with
-// spb = ceil(W / splits).
+// spb = ceil(W / splits). Any G = H / KV: a block takes GC = min(G,
+// 1024 / Dh) query heads of its kv head.
 int sxt_fused_paged_decode(const void* q, const void* k, const void* v, const void* k_scale,
                            const void* v_scale, const void* table, const void* kv_len,
                            const void* slopes, void* out, void* o_part, void* m_part,
                            void* l_part, int kind, int B, int H, int KV, int Dh, int bs, int W,
                            int splits, float scale, void* stream) {
   if (B <= 0) return 0;
-  if (KV <= 0 || H % KV || (H / KV) * Dh > kDecThreads * kDecMaxAcc || splits < 1 || W < 1 ||
+  if (KV <= 0 || H % KV || splits < 1 || W < 1 ||
       kind < KvBf16 || kind > KvFp8 || (kind == KvBf16) != (k_scale == nullptr) ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / KV;
+  const int GC = decode_chunk(G, Dh);
   const int spb = (W + splits - 1) / splits;
-  const dim3 grid(B, KV, splits);
+  const dim3 grid(B, KV * ((G + GC - 1) / GC), splits);
   const size_t smem = size_t(2) * TK * (size_t(Dh) * (kind == KvBf16 ? 2 : 1) + 16) +
-                      size_t(2 * TK + G * Dh + G * TK + 3 * G) * sizeof(float);
+                      size_t(2 * TK + GC * Dh + GC * TK + 3 * GC) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* ksp = static_cast<const float*>(k_scale);
@@ -670,13 +685,13 @@ int sxt_fused_paged_decode(const void* q, const void* k, const void* v, const vo
   cudaError_t err;
   if (Dh == 256)   // GPT-J-6B
     err = launch_split_decode_kind<256>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
-                                        op, mp, lsp, H, KV, bs, W, spb, scale);
+                                        op, mp, lsp, H, KV, bs, W, spb, GC, scale);
   else if (Dh == 128)
     err = launch_split_decode_kind<128>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
-                                        op, mp, lsp, H, KV, bs, W, spb, scale);
+                                        op, mp, lsp, H, KV, bs, W, spb, GC, scale);
   else if (Dh == 64)
     err = launch_split_decode_kind<64>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
-                                       op, mp, lsp, H, KV, bs, W, spb, scale);
+                                       op, mp, lsp, H, KV, bs, W, spb, GC, scale);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -47,6 +47,18 @@
 // by max(l, 1e-30): a fully masked row gives 0, never NaN. Tensor-core MMA,
 // TMA staging and split-K over long contexts are later work.
 //
+// Any query-head group G = H / KV. A decode block takes a chunk of at most
+// 1024 / Dh query heads of one kv head (a third grid axis over the chunks),
+// so each thread keeps at most 8 f32 accumulators: Falcon-7B's 71 heads of
+// 64 over one kv head make 5 chunks (4 x 16 + 7), each reading the kv
+// head's tiles again (from L2: a layer's K/V at 8 rows of ~1,250 positions
+// is ~2.6 MB). A group that fits one chunk (G * Dh <= 1024) launches as
+// before, one block per (sequence, kv head). The extend kernel tiles a kv
+// head's flattened query rows by 64: up to 64 heads, a tile is TC = 64 / G
+// chunk rows of every head (g-major); past 64 heads, a tile is 64
+// consecutive rows of the c-major order (c, g), so it spans at most two
+// chunk rows, each row with its own head and causal limit.
+//
 // Head dims 64, 128 and 256 (GPT-J-6B). At 256 the extend kernel's staged
 // Q, K and V tiles and its P tile take ~118 KB of dynamic shared memory
 // (bf16 pool; set_smem raises the limit), and each thread keeps 4 x 16 f32
@@ -61,24 +73,30 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// Decode: one query token per sequence. Block (b, kv), 128 threads.
+// Decode: one query token per sequence. Block (b, kv, head chunk), 128
+// threads; the chunk is query heads [z * GC, min(G, (z + 1) * GC)) of kv
+// head kv. A group that fits one block runs the CHUNKED = false instance,
+// whose code is that of the kernel before head chunks (the whole group,
+// G = H / KV, known to the compiler as such).
 // ---------------------------------------------------------------------------
 
 constexpr int kDecodeThreads = 128;
-constexpr int kDecodeMaxAcc = 8;    // G * Dh <= 8 * 128
+constexpr int kDecodeMaxAcc = kDecodeCols / kDecodeThreads;   // per thread
 
-template <int DH, int KIND>
+template <int DH, int KIND, bool CHUNKED>
 __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool,
     const void* __restrict__ vpool, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const int* __restrict__ table,
     const int* __restrict__ kv_len, const float* __restrict__ slopes,
-    __nv_bfloat16* __restrict__ out, int H, int KV, int bs, int W, float scale) {
+    __nv_bfloat16* __restrict__ out, int H, int KV, int bs, int W, float scale, int GC) {
   constexpr int NT = kDecodeThreads, LDB = kv_row_bytes<DH, KIND>();
   constexpr int EB = KvStore<KIND>::kBytes;
   constexpr bool SCALED = KvStore<KIND>::kScaled;
   const int b = blockIdx.x, kv = blockIdx.y, tid = threadIdx.x;
-  const int G = H / KV;
+  // the block's query heads and the first of them
+  const int G = CHUNKED ? min(GC, H / KV - int(blockIdx.z) * GC) : H / KV;
+  const size_t h0 = size_t(kv) * (H / KV) + (CHUNKED ? size_t(blockIdx.z) * GC : 0);
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ks = smem;                              // [TK] rows of LDB bytes
   unsigned char* vs = ks + TK * LDB;
@@ -92,7 +110,7 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
 
   const int len = min(kv_len[b], W * bs);
   const int* trow = table + size_t(b) * W;
-  const __nv_bfloat16* qb = q + (size_t(b) * H + size_t(kv) * G) * DH;
+  const __nv_bfloat16* qb = q + (size_t(b) * H + h0) * DH;
   for (int i = tid; i < G * DH; i += NT) qs[i] = __bfloat162float(qb[i]) * scale;
   for (int g = tid; g < G; g += NT) {
     ms[g] = kNeg;
@@ -125,7 +143,7 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
 #pragma unroll
           for (int e = 0; e < 8; ++e) a += qr[c + e] * (SCALED ? kf[e] * sk : kf[e]);
         }
-        s = slopes ? a + slopes[kv * G + g] * float(p0 + t) : a;
+        s = slopes ? a + slopes[int(h0) + g] * float(p0 + t) : a;
       }
       ss[i] = s;
     }
@@ -179,19 +197,21 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
     if (o < G * DH) {
       const int g = o / DH, d = o % DH;
       const float inv = 1.f / fmaxf(ls[g], 1e-30f);
-      out[(size_t(b) * H + size_t(kv) * G + g) * DH + d] = __float2bfloat16(acc[k] * inv);
+      out[(size_t(b) * H + h0 + g) * DH + d] = __float2bfloat16(acc[k] * inv);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Extend: a C-token chunk per sequence. Block (b, kv, tile of TC chunk
-// rows), 256 threads as 16 x 16; the tile's R = G * TC <= 64 query rows are
-// g-major (row r is head kv*G + r / TC, chunk row c0 + r % TC). Thread
-// (ty, tx) owns rows ty + 16 i and, for scores, positions tx + 16 j of the
-// tile (i, j < 4); for the output, columns [tx * DH/16, (tx + 1) * DH/16).
-// Row c of sequence b sees positions < start[b] + c + 1 (causal within the
-// chunk), capped at the table's W * bs.
+// Extend: a C-token chunk per sequence. Block (b, kv, tile), 256 threads as
+// 16 x 16. A kv head's query rows are numbered u = cb * G * TC + g * TC + ci
+// for chunk row c = cb * TC + ci of head kv*G + g (TC = 64 / G up to 64
+// heads, else 1), and tile z holds rows [z * RT, (z + 1) * RT): RT = G * TC
+// rows up to 64 heads (one block of TC chunk rows, g-major), else 64. Thread
+// (ty, tx) owns tile rows ty + 16 i and, for scores, positions tx + 16 j of
+// the key tile (i, j < 4); for the output, columns [tx * DH/16,
+// (tx + 1) * DH/16). Row c of sequence b sees positions < start[b] + c + 1
+// (causal within the chunk), capped at the table's W * bs.
 // ---------------------------------------------------------------------------
 
 constexpr int kExtendThreads = 256;
@@ -203,15 +223,20 @@ __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
     const void* __restrict__ vpool, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const int* __restrict__ table,
     const int* __restrict__ start, const float* __restrict__ slopes,
-    __nv_bfloat16* __restrict__ out, int C, int H, int KV, int bs, int W, int TC,
+    __nv_bfloat16* __restrict__ out, int C, int H, int KV, int bs, int W, int TC, int RT,
     float scale) {
   constexpr int NT = kExtendThreads, LD = DH + 8, PLD = TK + 1, CPT = DH / 16;
   constexpr int LDB = kv_row_bytes<DH, KIND>(), EB = KvStore<KIND>::kBytes;
   constexpr bool SCALED = KvStore<KIND>::kScaled;
-  const int b = blockIdx.x, kv = blockIdx.y, c0 = blockIdx.z * TC, tid = threadIdx.x;
+  const int b = blockIdx.x, kv = blockIdx.y, tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int G = H / KV;
-  const int R = G * TC;
+  const int GT = G * TC;                                  // rows of one block of TC chunk rows
+  const int u0 = blockIdx.z * RT;                         // the tile's first row
+  const int R = min(RT, (C + TC - 1) / TC * GT - u0);     // the tile's rows
+  // tile row r -> (head g, chunk row c); c >= C is a padding row
+  auto head_of = [&](int r) { return (u0 + r) % GT / TC; };
+  auto row_of = [&](int r) { return (u0 + r) / GT * TC + (u0 + r) % GT % TC; };
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);   // [64][LD]
   unsigned char* ks = reinterpret_cast<unsigned char*>(qs + kExtendRows * LD);  // [TK][LDB]
@@ -222,7 +247,7 @@ __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
 
   const int st = start[b];
   const int cap = W * bs;
-  const int c_last = min(c0 + TC, C) - 1;
+  const int c_last = min((u0 + R - 1) / GT * TC + TC, C) - 1;   // the tile's last chunk row
   const int lim_cta = min(st + c_last + 1, cap);
   const int* trow = table + size_t(b) * W;
 
@@ -230,7 +255,7 @@ __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
     const int r = i / (DH / 8), cc = (i % (DH / 8)) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < R) {
-      const int g = r / TC, c = c0 + r % TC;
+      const int g = head_of(r), c = row_of(r);
       if (c < C)
         val = *reinterpret_cast<const uint4*>(
             q + ((size_t(b) * C + c) * H + size_t(kv) * G + g) * DH + cc);
@@ -243,9 +268,9 @@ __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
-    const int c = c0 + (r < R ? r % TC : 0);
-    lim[i] = (r < R && c < C) ? min(st + c + 1, cap) : 0;
-    sl[i] = (slopes && r < R) ? slopes[kv * G + r / TC] : 0.f;
+    const int c = r < R ? row_of(r) : C;
+    lim[i] = c < C ? min(st + c + 1, cap) : 0;
+    sl[i] = (slopes && r < R) ? slopes[kv * G + head_of(r)] : 0.f;
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
@@ -337,7 +362,7 @@ __global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (r >= R) continue;
-    const int g = r / TC, c = c0 + r % TC;
+    const int g = head_of(r), c = row_of(r);
     if (c >= C) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     __nv_bfloat16* orow = out + ((size_t(b) * C + c) * H + size_t(kv) * G + g) * DH + tx * CPT;
@@ -358,9 +383,8 @@ size_t kv_tile_smem(int kind, int Dh) {
          size_t(2) * TK * sizeof(float);
 }
 
-size_t decode_smem(int kind, int H, int KV, int Dh) {
-  const int G = H / KV;
-  return kv_tile_smem(kind, Dh) + size_t(G * Dh + G * TK + 3 * G) * sizeof(float);
+size_t decode_smem(int kind, int GC, int Dh) {
+  return kv_tile_smem(kind, Dh) + size_t(GC * Dh + GC * TK + 3 * GC) * sizeof(float);
 }
 
 size_t extend_smem(int kind, int Dh) {
@@ -382,21 +406,24 @@ struct PagedArgs {
 
 template <int DH, int KIND>
 cudaError_t launch_decode(const PagedArgs& a, dim3 grid, size_t smem, cudaStream_t s, int H,
-                          int KV, int bs, int W, float scale) {
-  const cudaError_t err = set_smem(paged_decode_kernel<DH, KIND>, smem);
+                          int KV, int bs, int W, int GC, float scale) {
+  const auto kernel = grid.z > 1 ? paged_decode_kernel<DH, KIND, true>
+                                 : paged_decode_kernel<DH, KIND, false>;
+  const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  paged_decode_kernel<DH, KIND><<<grid, kDecodeThreads, smem, s>>>(
-      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lens, a.slopes, a.out, H, KV, bs, W, scale);
+  kernel<<<grid, kDecodeThreads, smem, s>>>(
+      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lens, a.slopes, a.out, H, KV, bs, W, scale, GC);
   return cudaSuccess;
 }
 
 template <int DH, int KIND>
 cudaError_t launch_extend(const PagedArgs& a, dim3 grid, size_t smem, cudaStream_t s, int C,
-                          int H, int KV, int bs, int W, int TC, float scale) {
+                          int H, int KV, int bs, int W, int TC, int RT, float scale) {
   const cudaError_t err = set_smem(paged_extend_kernel<DH, KIND>, smem);
   if (err != cudaSuccess) return err;
   paged_extend_kernel<DH, KIND><<<grid, kExtendThreads, smem, s>>>(
-      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lens, a.slopes, a.out, C, H, KV, bs, W, TC, scale);
+      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lens, a.slopes, a.out, C, H, KV, bs, W, TC, RT,
+      scale);
   return cudaSuccess;
 }
 
@@ -450,16 +477,17 @@ int sxt_paged_decode(const void* q, const void* k, const void* v, const void* k_
                      const void* slopes, void* out, int kind, int B, int H, int KV, int Dh,
                      int bs, int W, float scale, void* stream) {
   if (B <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || (H / KV) * Dh > kDecodeThreads * kDecodeMaxAcc ||
-      bad_kind(kind, k_scale, v_scale))
+  if (KV <= 0 || H % KV != 0 || bad_kind(kind, k_scale, v_scale))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int G = H / KV;
+  const int GC = decode_chunk(G, Dh);
   const PagedArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
                     static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                     static_cast<const int*>(table), static_cast<const int*>(kv_len),
                     static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out)};
   const cudaError_t err =
-      dispatch<Decode>(Dh, kind, a, dim3(B, KV), decode_smem(kind, H, KV, Dh),
-                       static_cast<cudaStream_t>(stream), H, KV, bs, W, scale);
+      dispatch<Decode>(Dh, kind, a, dim3(B, KV, (G + GC - 1) / GC), decode_smem(kind, GC, Dh),
+                       static_cast<cudaStream_t>(stream), H, KV, bs, W, GC, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -469,17 +497,19 @@ int sxt_paged_extend(const void* q, const void* k, const void* v, const void* k_
                      const void* slopes, void* out, int kind, int B, int C, int H, int KV,
                      int Dh, int bs, int W, float scale, void* stream) {
   if (B <= 0 || C <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || H / KV > kExtendRows || bad_kind(kind, k_scale, v_scale))
+  if (KV <= 0 || H % KV != 0 || bad_kind(kind, k_scale, v_scale))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / KV;
-  const int TC = kExtendRows / G;
+  const int TC = G <= kExtendRows ? kExtendRows / G : 1;   // chunk rows of a row block
+  const int RT = G <= kExtendRows ? G * TC : kExtendRows;  // rows of a tile
+  const long long rows = (long long)((C + TC - 1) / TC) * G * TC;
   const PagedArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
                     static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                     static_cast<const int*>(table), static_cast<const int*>(start),
                     static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out)};
   const cudaError_t err =
-      dispatch<Extend>(Dh, kind, a, dim3(B, KV, (C + TC - 1) / TC), extend_smem(kind, Dh),
-                       static_cast<cudaStream_t>(stream), C, H, KV, bs, W, TC, scale);
+      dispatch<Extend>(Dh, kind, a, dim3(B, KV, (rows + RT - 1) / RT), extend_smem(kind, Dh),
+                       static_cast<cudaStream_t>(stream), C, H, KV, bs, W, TC, RT, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 // Helpers shared by the paged-attention kernels (paged_attention.cu and
-// fused_decode.cu): the key tile, the finite mask sentinel, the pool's
-// storage kinds, the staging of one tile of a block-paged K/V pool into
+// fused_decode.cu): the key tile, the finite mask sentinel, the decode
+// kernels' query-head chunk, the pool's storage kinds, the staging of one tile of a block-paged K/V pool into
 // shared memory, and the conversion of stored values to f32.
 //
 // Storage kinds: a bf16 pool, or a one-byte pool (int8, or e4m3 fp8) with
@@ -21,6 +21,13 @@ namespace {
 
 constexpr int TK = 64;            // key positions per tile
 constexpr float kNeg = -1e30f;    // finite mask sentinel (as the TPU kernels)
+// Query-head columns (heads x Dh) one decode block accumulates: 8 f32 a
+// thread at 128 threads, in the paged decode and the split-K decode kernels.
+constexpr int kDecodeCols = 1024;
+
+// Query heads a decode block takes: the whole group G, or kDecodeCols / Dh
+// of it (Falcon-7B's 71 heads of 64 over one kv head: blocks of 16).
+inline int decode_chunk(int G, int Dh) { return G < kDecodeCols / Dh ? G : kDecodeCols / Dh; }
 
 enum KvKind { KvBf16 = 0, KvInt8 = 1, KvFp8 = 2 };
 

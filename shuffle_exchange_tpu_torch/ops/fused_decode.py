@@ -13,7 +13,8 @@ Replaces the TPU kernels of ``shuffle_exchange_tpu/ops/fused_decode.py``:
 - ``fused_paged_decode_attention_pallas``: split-K flash-decode over the
   block table with an (m, l, acc) merge, with ALiBi slopes, over a bf16
   pool or an int8 / e4m3 pool with f32 scale planes (dequantized in
-  registers as in ``ops/paged_attention.py``), head_dim 64, 128 or 256;
+  registers as in ``ops/paged_attention.py``), head_dim 64, 128 or 256,
+  any query-head group (Falcon-7B's 71 heads over one kv head);
 - ``fused_mlp_pallas``: RMSNorm, layernorm (with its bias) or no norm
   (``apply_norm=False``: the shared layernorm's y of GPT-J's parallel
   blocks) + a gated (SwiGLU) or plain MLP with one of
@@ -56,8 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from .dispatch import use_kernel
-from .paged_attention import (HEAD_DIMS, _alibi_bias, alibi_operand, gather_kv, pool_kind,
-                              scale_kw, scales_given)
+from .paged_attention import (HEAD_DIMS, _alibi_bias, alibi_operand, decode_head_chunk,
+                              gather_kv, pool_kind, scale_kw, scales_given)
 from .quant_matmul import QuantizedMatrix, check_storage, quant_splits
 
 _NEG = -1e30     # the TPU kernels' finite mask sentinel
@@ -296,9 +297,10 @@ def fused_paged_decode_attention(q, ck, cv, block_table, kv_len, *,
     card's SMs (on the CPU, JAX's default of 2); the result does not
     depend on it beyond rounding. ``alibi_slopes`` [H] add ``slope_h * j``
     at logical key position j; ``k_scale`` / ``v_scale`` [nblk,KV,bs] f32
-    dequantize an int8 or e4m3 pool; head_dim 64, 128 or 256 with G*Dh
-    at most 1024. The CUDA kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    dequantize an int8 or e4m3 pool; head_dim 64, 128 or 256, any
+    query-head group ``G = H / KV`` (a block takes
+    ``decode_head_chunk(G, Dh)`` heads of it). The CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
     scales_given(k_scale, v_scale)
     if not use_kernel(q):
         return fused_paged_decode_reference(q, ck, cv, block_table, kv_len,
@@ -434,10 +436,12 @@ def gemv_splits(K: int, n_cols: Tuple[int, ...], sms: int) -> Tuple[int, int]:
     return -(-K // chunk), chunk
 
 
-def attention_splits(B: int, KV: int, width: int, sms: int) -> int:
-    """The split count for the card: enough (sequence, kv head, split)
-    blocks for two per SM, capped by the table width."""
-    return split_count(width, -(-2 * sms // max(1, B * KV)))[0]
+def attention_splits(B: int, KV: int, width: int, sms: int, chunks: int = 1) -> int:
+    """The split count for the card: enough (sequence, kv head, head
+    chunk, split) blocks for two per SM, capped by the table width;
+    ``chunks`` is the blocks a kv head's query-head group takes
+    (``decode_head_chunk``), 1 wherever the group fits one block."""
+    return split_count(width, -(-2 * sms // max(1, B * KV * chunks)))[0]
 
 
 def _bf16(name, t, device, shape=None):
@@ -550,14 +554,12 @@ def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=N
     KV, bs = ck.shape[1], ck.shape[2]
     if Dh not in HEAD_DIMS:
         raise ValueError(f"split-K decode kernel: head_dim {Dh} not built {HEAD_DIMS}")
-    if (H // KV) * Dh > 1024:
-        raise ValueError(f"split-K decode kernel: G*Dh = {(H // KV) * Dh} > 1024")
     table = _index(block_table, B, dev, "block table", dims=2)
     lens = _index(kv_len, B, dev, "kv_len")
     slopes = alibi_operand(alibi_slopes, H, dev, "split-K decode kernel")
     W = table.shape[1]
     if num_splits is None:
-        splits = attention_splits(B, KV, W, _sms(dev))
+        splits = attention_splits(B, KV, W, _sms(dev), decode_head_chunk(H // KV, Dh)[1])
     else:
         splits = split_count(W, num_splits)[0]
     out = torch.empty_like(q)

@@ -31,7 +31,11 @@ The plain versions gather and then dequantize in f32 (JAX ``gather_kv``'s
 pairs); the kernels stage the tile's raw one-byte rows and its scales in
 shared memory and form ``float(q) * scale`` in f32 when they read an
 element, which is JAX's ``kb * s[:, None]``. Slopes and scales compose.
-The kernels take head_dim 64, 128 or 256 (GPT-J-6B's).
+The kernels take head_dim 64, 128 or 256 (GPT-J-6B's) and any query-head
+group ``G = H / KV``: a decode block takes ``decode_head_chunk(G, Dh)``
+query heads of its kv head (Falcon-7B's 71 heads of 64 over one kv head
+make 5 blocks a sequence), and the extend kernel tiles a kv head's
+flattened query rows by 64.
 """
 
 from __future__ import annotations
@@ -226,6 +230,16 @@ _SIGNATURES = {
 KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 #: the head dims the paged kernels (and the split-K decode kernel) are built for
 HEAD_DIMS = (64, 128, 256)
+#: query-head columns (heads x head_dim) one decode block accumulates, at most
+DECODE_CHUNK_COLS = 1024
+
+
+def decode_head_chunk(G: int, Dh: int) -> Tuple[int, int]:
+    """(query heads a decode block takes, blocks a kv head's group needs):
+    the whole group when ``G * Dh <= DECODE_CHUNK_COLS``, else chunks of
+    ``DECODE_CHUNK_COLS // Dh`` heads (the kernels' ``decode_chunk``)."""
+    gc = min(G, DECODE_CHUNK_COLS // Dh)
+    return gc, -(-G // gc)
 _LIB = []
 
 
@@ -333,14 +347,10 @@ def _launch(kind, q, ck, cv, block_table, lens, alibi_slopes=None, k_scale=None,
     if kind == "decode":
         if C != 1:
             raise ValueError("paged decode kernel: one query token per sequence")
-        if (H // KV) * Dh > 1024:
-            raise ValueError(f"paged decode kernel: G*Dh = {(H // KV) * Dh} > 1024")
         err = lib.sxt_paged_decode(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ks_ptr, vs_ptr, table.data_ptr(),
             lens.data_ptr(), sl_ptr, out.data_ptr(), store, B, H, KV, Dh, bs, W, scale, stream)
     else:
-        if H // KV > 64:
-            raise ValueError(f"paged extend kernel: G = {H // KV} > 64")
         err = lib.sxt_paged_extend(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ks_ptr, vs_ptr, table.data_ptr(),
             lens.data_ptr(), sl_ptr, out.data_ptr(), store, B, C, H, KV, Dh, bs, W, scale,

@@ -27,8 +27,10 @@ JAX package:
   with ``apply_norm=False``; NeoX reaches B4 (partial rotary) and, under
   ``gelu_new``, B6 with its norm;
 - the launch counters with the kernel gate opened onto the plain versions;
-- the refusals: training on either structure, Falcon, B5 at ``G*Dh >
-  1024``, the flash backward at head_dim 256, ALiBi at head_dim 256.
+- the refusals: training on either structure, the flash backward at
+  head_dim 256, ALiBi at head_dim 256; Falcon's config and the split-K and
+  paged wrappers at its group no longer refuse (``tests/test_torch_falcon.py``
+  holds Falcon serving against the JAX package).
 """
 
 import dataclasses
@@ -507,18 +509,43 @@ def test_training_refuses_the_parallel_block_structures(kind):
 
 
 def test_falcon_and_the_wide_split_k_groups_refuse(monkeypatch):
+    """Neither refuses: Falcon-7B's config maps as JAX maps it, and the
+    split-K and paged wrappers hand its group (71 query heads of 64 over one
+    kv head; B3 also 65) to their C entry points, B5 with the split count
+    that counts the group's 5 head chunks (7 splits for 8 rows of 32 table
+    entries on 132 SMs, where one chunk would take all 32)."""
     falcon = {"architectures": ["FalconForCausalLM"], "model_type": "falcon",
               "hidden_size": 4544, "num_attention_heads": 71, "num_hidden_layers": 32,
               "vocab_size": 65024, "multi_query": True, "parallel_attn": True}
-    with pytest.raises(NotImplementedError, match="G\\*Dh > 1024 \\(ROADMAP queue B, B5\\)"):
-        config_from_hf(falcon)
-    q = torch.zeros(1, 1, 71, 64, dtype=torch.bfloat16)
-    pool = torch.zeros(2, 1, 16, 64, dtype=torch.bfloat16)
-    # the device and storage checks pass as on the card; the group check follows them
-    monkeypatch.setattr(tfd, "pool_kind", lambda *a: 0)
-    with pytest.raises(ValueError, match="G\\*Dh = 4544 > 1024"):
-        tfd._launch_attention(q, pool, pool, torch.zeros(1, 1, dtype=torch.int32),
-                              torch.ones(1, dtype=torch.int32), None)
+    cfg, jcfg = config_from_hf(falcon), jhf.config_from_hf(falcon)
+    assert all(getattr(cfg, f.name) == getattr(jcfg, f.name) for f in dataclasses.fields(cfg))
+    assert (cfg.n_heads, cfg.kv_heads, cfg.head_dim) == (71, 1, 64)
+    calls = {}
+
+    class Lib:   # records each C call's arguments
+        def __getattr__(self, name):
+            return lambda *args: calls.setdefault(name, args) and 0
+
+    # the device and storage checks pass as on the card; the C call is recorded
+    for mod in (tfd, tpa):
+        monkeypatch.setattr(mod, "_lib", Lib)
+        monkeypatch.setattr(mod, "pool_kind", lambda *a: 0)
+    monkeypatch.setattr(tfd, "_sms", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0}))
+    q = torch.zeros(8, 1, 71, 64, dtype=torch.bfloat16)
+    pool = torch.zeros(33, 1, 64, 64, dtype=torch.bfloat16)
+    table = torch.arange(1, 33, dtype=torch.int32).repeat(8, 1)
+    lens = torch.full((8,), 2048, dtype=torch.int32)
+    assert tfd._launch_attention(q, pool, pool, table, lens, None).shape == q.shape
+    assert calls["sxt_fused_paged_decode"][13:16] == (8, 71, 1)
+    assert calls["sxt_fused_paged_decode"][19] == 7 == tfd.attention_splits(8, 1, 32, 132, 5)
+    assert tfd.attention_splits(8, 1, 32, 132) == 32
+    assert tpa._launch("decode", q, pool, pool, table, lens).shape == q.shape
+    assert calls["sxt_paged_decode"][10:13] == (8, 71, 1)
+    eq = torch.zeros(2, 8, 65, 64, dtype=torch.bfloat16)
+    assert tpa._launch("extend", eq, pool, pool, table[:2], lens[:2]).shape == eq.shape
+    assert calls["sxt_paged_extend"][10:14] == (2, 8, 65, 1)
 
 
 def test_head_dim_256_refusals_of_the_flash_backward_and_alibi():

@@ -254,7 +254,7 @@ def test_config_from_hf_equals_jax_field_by_field(hf):
 
 def test_config_from_hf_refuses_unported_families():
     with pytest.raises(NotImplementedError, match="item 14"):
-        config_from_hf({"architectures": ["FalconForCausalLM"], "hidden_size": 64})
+        config_from_hf({"architectures": ["OPTForCausalLM"], "hidden_size": 64})
     with pytest.raises(ValueError, match="Unsupported"):
         config_from_hf({"architectures": ["NoSuchModel"]})
 
