@@ -627,16 +627,16 @@ def check_fused_qkv(gen, rng, B, pooled=True, widths=LLAMA_WIDTHS, theta=500000.
     return row
 
 
-def check_fused_mlp(gen, B):
-    """B6 at Llama-3-8B widths, the engine's call: resid and y_src are the
-    same rows. A plain version without one 64-row tile of F must fail the
-    tolerance."""
+def check_fused_mlp(gen, B, widths=LLAMA_WIDTHS):
+    """B6 at ``widths`` (Llama-3-8B's; Phi-3-mini's in phase 2p), the
+    engine's call: resid and y_src are the same rows. A plain version
+    without one 64-row tile of F must fail the tolerance."""
     import torch
     import torch.nn.functional as F
 
     from shuffle_exchange_tpu_torch.ops.fused_decode import fused_mlp, fused_mlp_reference
 
-    D, Fd = LLAMA_WIDTHS["D"], LLAMA_WIDTHS["F"]
+    D, Fd = widths["D"], widths["F"]
     h = torch.randn(B, D, generator=gen, device="cuda").bfloat16()
     ln_w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).bfloat16()
     wg, wu = [(torch.randn(D, Fd, generator=gen, device="cuda") * D ** -0.5).bfloat16()
@@ -1849,12 +1849,14 @@ def lora_bound(B, T, D, R, N, slots):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_lora_gemm(gen):
+def check_lora_gemm(gen, ranks=LORA_R, pools=LORA_S, row_shapes=LORA_ROWS):
     """B9 against its plain version (gather, f32 products, f32 mid) in bf16
-    at every (rows, N, R, S) of the LORA_* lists: the serving kernels'
-    tolerance per output row, null rows exactly 0, equal bits twice, and
-    at 8 rows each row of the mixed call bit-equal to a call of that row
-    alone. At each shape of the 5-slot pool at N 4096 a plain version that
+    at every (rows, N, R, S) of ``row_shapes``, LORA_N, ``ranks`` and
+    ``pools`` (phase 2g: the LORA_* lists; phase 2p: the ranks above 64,
+    which run in rank chunks): the serving kernels' tolerance per output
+    row, null rows exactly 0, equal bits twice, and at 8 rows each row of
+    the mixed call bit-equal to a call of that row alone. At each shape of
+    the first pool at N 4096 a plain version that
     reads slot s + 1 must fail the tolerance; one that rounds mid to bf16
     is reported (it need not fail: mid's rounding moves the output by
     ~2^-9 of it). Every cell is timed beside its bound, the plain version,
@@ -1867,15 +1869,15 @@ def check_lora_gemm(gen):
 
     rows = []
     with _f32_reduction():
-        for S in LORA_S:
-            for R in LORA_R:
+        for S in pools:
+            for R in ranks:
                 for N in LORA_N:
                     a = (torch.randn(S, LORA_D, R, generator=gen, device="cuda")
                          * LORA_D ** -0.5).bfloat16()
                     b = (torch.randn(S, R, N, generator=gen, device="cuda") * R ** -0.5).bfloat16()
                     a[0].zero_()
                     b[0].zero_()
-                    for B, T in LORA_ROWS:
+                    for B, T in row_shapes:
                         sl = lora_slots(B, S)
                         slots = torch.tensor(sl, dtype=torch.int32, device="cuda")
                         x = torch.randn(B, T, LORA_D, generator=gen, device="cuda").bfloat16()
@@ -1904,7 +1906,7 @@ def check_lora_gemm(gen):
                                 for i in range(B))
                             _check(row["rows_equal_solo"], f"a row of the mixed lora call differs "
                                    f"from the row alone at {row['shape']}")
-                        if S == LORA_S[0] and N == LORA_N[0]:
+                        if S == pools[0] and N == LORA_N[0]:
                             next_slot = lora_delta_reference(x, a, b, (slots + 1) % S)
                             mid_bf16 = _lora_mid_bf16(x, a, b, slots)
                             bites = {"slot_plus_one": _bites(got, next_slot),
@@ -2841,17 +2843,20 @@ def _quant(bits):
 # adapters of rank 8 and 16 (alpha 2r), uids 0-3 bound to them and to none
 E2E_ADAPTERS = {"enabled": True, "slots": 4, "max_rank": 16}
 E2E_BINDING = {0: "r8", 1: "r16", 2: None, 3: "r8"}
+# phase 4g's: a pool of rank 128 holding adapters of ranks 16, 64 and 128
+E2E_WIDE = (dict(E2E_ADAPTERS, max_rank=128), {0: "r128", 1: "r16", 2: None, 3: "r64"})
 
 
-def e2e_adapters(engines, cfg):
-    """Register phase 4's two adapters on each engine (the same numpy
-    factors) and bind the schedules' uids to them."""
+def e2e_adapters(engines, cfg, binding=E2E_BINDING):
+    """Register the adapters ``binding`` names (``r<rank>``) on each engine
+    (the same numpy factors) and bind the schedules' uids to them."""
+    ranks = sorted({int(aid[1:]) for aid in binding.values() if aid})
     facs = {f"r{r}": tenant_factors(cfg, 500 + r, rank=r, targets=("wq", "wk", "wv", "wo"))
-            for r in (8, 16)}
+            for r in ranks}
     for e in engines:
         for aid, fac in facs.items():
             e.adapters.register(aid, fac, alpha=2.0 * int(aid[1:]))
-        for uid, aid in E2E_BINDING.items():
+        for uid, aid in binding.items():
             e.configure_adapter(uid, aid)
 
 
@@ -2901,15 +2906,18 @@ def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto", qu
     given; ``quant_bits`` quantizes its weights; ``adapters`` adds phase
     4's adapter pool and bindings) and an f32 engine on the CPU ("xla":
     the paged plain versions) fed the weights and adapter factors the
-    card engine serves; ``kv`` ("int8" / "fp8") stores both engines' KV in
-    that mode, the CPU engine attending over the card's stored bytes
+    card engine serves (``adapters``: True for phase 4's pool, or a (pool
+    config, binding) pair such as E2E_WIDE); ``kv`` ("int8" / "fp8")
+    stores both engines' KV in that mode, the CPU engine attending over
+    the card's stored bytes
     (``card_kv``). Returns per-tick errors."""
     from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
     from shuffle_exchange_tpu_torch.models import Transformer
 
+    pool, binding = adapters if isinstance(adapters, tuple) else (E2E_ADAPTERS, E2E_BINDING)
     icfg = dict(max_seq_len=512, kv_block_size=64, num_kv_blocks=24,
                 serving={"token_budget": 256, "max_running": 8},
-                **({"adapters": E2E_ADAPTERS} if adapters else {}),
+                **({"adapters": pool} if adapters else {}),
                 **({"kv_cache_dtype": kv} if kv else {}))
     card = InferenceEngineV2(Transformer(cfg, device=card_device), card_state,
                              InferenceConfig(dtype="bfloat16", decode_kernel=decode_kernel,
@@ -2922,7 +2930,7 @@ def e2e_check(cfg, card_state, rng, card_device="cuda", decode_kernel="auto", qu
                              InferenceConfig(dtype="float32", decode_kernel="xla", **icfg),
                              device="cpu")
     if adapters:
-        e2e_adapters((card, host), cfg)
+        e2e_adapters((card, host), cfg, binding)
     ticks = []
     for tick in e2e_schedule(rng, cfg.vocab_size):
         got = card.step(*tick)
@@ -4320,7 +4328,9 @@ def family_serving(name, cfg, seed, card, config=SERVE_CONFIG, v1_config=V1_CONF
     model = Transformer(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(seed), dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    n_params = sum(v.numel() for v in params.values())
+    # the norm biases an RMSNorm model never reads are drawn all the same (as in JAX)
+    n_params = sum(v.numel() for k, v in params.items() if cfg.norm == "layernorm"
+                   or not (k.split(".")[-1].startswith("ln") and k.endswith("_b")))
     _check(n_params == param_count(cfg), f"{name}: {n_params} parameters != {param_count(cfg)}")
     print(f"[{name}] init {cfg.n_layers} layers, {n_params} parameters "
           f"({weight_bytes(params) / 1e9:.2f} GB bf16) in {time.perf_counter() - t0:.2f} s",
@@ -4405,6 +4415,17 @@ def kv_e2e(name, cfg, card_state, seed, formats=KV_FORMATS):
 
 # BLOOM-1b7 serves every format, GPT-2 int8
 FAMILY_QUANT = {"bloom-1b7": QUANT_FORMATS, "gpt2-small": (8,)}
+# phase 3i's depth where it is cut to keep the whole script within its time
+# limit (BLOOM-1b7 has 24 layers; 3i serves 12 of them)
+QUANT_DEPTH = {"bloom-1b7": 12}
+
+
+def cut_depth(cfg, params, n_layers):
+    """(cfg, params) cut to the first ``n_layers`` layers."""
+    if n_layers == cfg.n_layers:
+        return cfg, params
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            {k: (v[:n_layers] if k.startswith("layers.") else v) for k, v in params.items()})
 
 
 def _fmt(bits) -> str:
@@ -4540,6 +4561,9 @@ PYTHIA_1B4 = {"architectures": ["GPTNeoXForCausalLM"], "model_type": "gpt_neox",
 GPTJ_WIDTHS = dict(D=4096, H=16, KV=16, Dh=256, F=16384)
 PYTHIA_WIDTHS = dict(D=2048, H=16, KV=16, Dh=128, F=8192, rd=32)
 PB_MAX_LEN = 2048
+# phase 3j's depth where it is cut to keep the whole script within its time
+# limit (GPT-J-6B has 28 layers; 3j serves 14 of them)
+PB_DEPTH = {"gpt-j-6b": 14}
 
 
 def check_mlp_no_norm(gen):
@@ -4660,88 +4684,92 @@ def _broken_rope(kind, rd):
 PARTIAL_ROPE_BITES = ("all_of_dh", "partner_at_dh_half", "pass_through_rotated")
 
 
-def check_qkv_partial_rope(gen, rng):
-    """B4 with partial rotary (rd 32 of Dh 128) and q/k/v biases, at
-    Pythia-1.4b's heads (16 x 128, D 2048) and a GQA layout (16 x 4), with
-    and without a pool, at 8 and 1 rows (timed: Pythia, pool, 8 rows),
-    held to PAGED_TOL; every PARTIAL_ROPE_BITES bite must fail it, and with
-    a pool every pool row but the appended ones stays as it was."""
+PARTIAL_ROPE_LAYOUTS = (("pythia", 16, 16), ("gqa", 16, 4))
+
+
+def check_qkv_partial_rope(gen, rng, widths=PYTHIA_WIDTHS, layouts=PARTIAL_ROPE_LAYOUTS,
+                           forms=((True, 8), (True, 1), (False, 8), (False, 1))):
+    """B4 with partial rotary and q/k/v biases at ``widths`` (Pythia-1.4b's:
+    rd 32 of Dh 128, D 2048; Pythia-2.8b's rd 20 of 80 in phase 2p), at each
+    (label, H, KV) of ``layouts`` (Pythia-1.4b's 16 x 128 and a GQA 16 x 4)
+    and each (pool, rows) of ``forms`` (timed: the first), held to
+    PAGED_TOL; every PARTIAL_ROPE_BITES bite must fail it, and with a pool
+    every pool row but the appended ones stays as it was."""
     import torch
 
     from shuffle_exchange_tpu_torch.models.transformer import rope_table
     from shuffle_exchange_tpu_torch.ops.fused_decode import (fused_qkv_rope,
                                                              fused_qkv_rope_reference)
 
-    D, Dh, rd = PYTHIA_WIDTHS["D"], PYTHIA_WIDTHS["Dh"], PYTHIA_WIDTHS["rd"]
+    D, Dh, rd = widths["D"], widths["Dh"], widths["rd"]
     bs, W = 64, 32
     cos_t, sin_t = rope_table(W * bs, rd, 10000.0, device="cuda")
     rows = []
-    for label, H, KV in (("pythia", 16, 16), ("gqa", 16, 4)):
-        for pooled in (True, False):
-            for B in (8, 1):
-                pos = rng.integers(0, W * bs, size=B).astype(np.int32)
-                table = np.full((B, W), -1, np.int32)
-                table[np.arange(B), pos // bs] = np.arange(1, B + 1)
-                y = torch.randn(B, D, generator=gen, device="cuda").bfloat16()
-                w = [(torch.randn(D, n * Dh, generator=gen, device="cuda") * D ** -0.5)
-                     .bfloat16() for n in (H, KV, KV)]
-                b = [(0.5 * torch.randn(n * Dh, generator=gen, device="cuda")).bfloat16()
-                     for n in (H, KV, KV)]
-                bias = dict(zip(("bq", "bk", "bv"), b))
-                pt, tt = torch.from_numpy(pos).cuda(), torch.from_numpy(table).cuda()
-                cos, sin = cos_t[pt.long()].contiguous(), sin_t[pt.long()].contiguous()
-                kargs = pargs = ()
-                if pooled:
-                    pool = [torch.randn(B + 1, KV, bs, Dh, generator=gen, device="cuda")
-                            .bfloat16() for _ in range(2)]
-                    kp = [p.clone() for p in pool]
-                    kargs = (*kp, tt, pt)
-                run = lambda: fused_qkv_rope(y, *w, cos, sin, *kargs, n_heads=H, kv_heads=KV,
-                                             **bias)
-                plain = lambda: fused_qkv_rope_reference(y, *w, cos, sin, n_heads=H,
-                                                         kv_heads=KV, **bias)
-                got, want = run(), plain()
-                torch.cuda.synchronize()
-                checks = [paged_close(g, wt) for g, wt in zip(got, want)]
-                tol_ok = all(ok for _, ok in checks)
-                err = max(e.max().item() for e, _ in checks)
-                pool_ok = True
-                if pooled:
-                    appended = torch.zeros(pool[0].shape[:3], dtype=torch.bool, device="cuda")
-                    idx = (torch.arange(1, B + 1, device="cuda"), slice(None), pt.long() % bs)
-                    appended[idx] = True
-                    pool_ok = all(torch.equal(k_[~appended], p_[~appended])
-                                  and torch.equal(k_[idx], new)
-                                  for k_, p_, new in zip(kp, pool, got[1:]))
-                bites = {}
-                for kind in PARTIAL_ROPE_BITES:   # q and k rotate: either must show it
-                    with _broken_rope(kind, rd):
-                        broken = plain()
-                    bites[kind] = _bites(got[0], broken[0]) and _bites(got[1], broken[1])
-                row = dict(shape=dict(label=label, B=B, D=D, H=H, KV=KV, Dh=Dh, rd=rd, bs=bs,
-                                      pos=pos.tolist(), pool=pooled, biases=True),
-                           max_abs_err=err, tolerance=PAGED_TOL + " per head row",
-                           within=tol_ok, tolerance_bites=bites)
-                if pooled:
-                    row["pool_rows_exact"] = pool_ok
-                _check(tol_ok and pool_ok, f"fused QKV with partial rotary ({label}, "
-                       f"pool={pooled}, B={B}) disagrees: max abs err {err}, pool rows exact "
-                       f"{pool_ok}")
-                _check(all(bites.values()), f"fused QKV with partial rotary ({label}): the "
-                       f"tolerance misses {bites}")
-                if (label, pooled, B) == ("pythia", True, 8):
-                    wqkv, bqkv = torch.cat(w, dim=1), torch.cat(b)
-                    n_out = (H + 2 * KV) * Dh
-                    nbytes = (D * n_out * 2 + n_out * 2 + B * D * 2 + B * n_out * 2
-                              + 2 * B * (rd // 2) * 4 + B * 2 * KV * Dh * 2 + table.size * 4
-                              + B * 4)
-                    b_ms, b_by = bound(nbytes, 2.0 * B * D * n_out)
-                    row.update(ms=time_cold(run), host_us=host_us(run),
-                               plain_ms=time_cold(plain),
-                               library_ms=time_cold(lambda: torch.addmm(bqkv, y, wqkv)),
-                               library="torch.addmm(b, y, [wq|wk|wv]) (projection only)",
-                               bound_ms=b_ms, bound_by=b_by)
-                rows.append(row)
+    for label, H, KV in layouts:
+        for pooled, B in forms:
+            pos = rng.integers(0, W * bs, size=B).astype(np.int32)
+            table = np.full((B, W), -1, np.int32)
+            table[np.arange(B), pos // bs] = np.arange(1, B + 1)
+            y = torch.randn(B, D, generator=gen, device="cuda").bfloat16()
+            w = [(torch.randn(D, n * Dh, generator=gen, device="cuda") * D ** -0.5)
+                 .bfloat16() for n in (H, KV, KV)]
+            b = [(0.5 * torch.randn(n * Dh, generator=gen, device="cuda")).bfloat16()
+                 for n in (H, KV, KV)]
+            bias = dict(zip(("bq", "bk", "bv"), b))
+            pt, tt = torch.from_numpy(pos).cuda(), torch.from_numpy(table).cuda()
+            cos, sin = cos_t[pt.long()].contiguous(), sin_t[pt.long()].contiguous()
+            kargs = pargs = ()
+            if pooled:
+                pool = [torch.randn(B + 1, KV, bs, Dh, generator=gen, device="cuda")
+                        .bfloat16() for _ in range(2)]
+                kp = [p.clone() for p in pool]
+                kargs = (*kp, tt, pt)
+            run = lambda: fused_qkv_rope(y, *w, cos, sin, *kargs, n_heads=H, kv_heads=KV,
+                                         **bias)
+            plain = lambda: fused_qkv_rope_reference(y, *w, cos, sin, n_heads=H,
+                                                     kv_heads=KV, **bias)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            checks = [paged_close(g, wt) for g, wt in zip(got, want)]
+            tol_ok = all(ok for _, ok in checks)
+            err = max(e.max().item() for e, _ in checks)
+            pool_ok = True
+            if pooled:
+                appended = torch.zeros(pool[0].shape[:3], dtype=torch.bool, device="cuda")
+                idx = (torch.arange(1, B + 1, device="cuda"), slice(None), pt.long() % bs)
+                appended[idx] = True
+                pool_ok = all(torch.equal(k_[~appended], p_[~appended])
+                              and torch.equal(k_[idx], new)
+                              for k_, p_, new in zip(kp, pool, got[1:]))
+            bites = {}
+            for kind in PARTIAL_ROPE_BITES:   # q and k rotate: either must show it
+                with _broken_rope(kind, rd):
+                    broken = plain()
+                bites[kind] = _bites(got[0], broken[0]) and _bites(got[1], broken[1])
+            row = dict(shape=dict(label=label, B=B, D=D, H=H, KV=KV, Dh=Dh, rd=rd, bs=bs,
+                                  pos=pos.tolist(), pool=pooled, biases=True),
+                       max_abs_err=err, tolerance=PAGED_TOL + " per head row",
+                       within=tol_ok, tolerance_bites=bites)
+            if pooled:
+                row["pool_rows_exact"] = pool_ok
+            _check(tol_ok and pool_ok, f"fused QKV with partial rotary ({label}, "
+                   f"pool={pooled}, B={B}) disagrees: max abs err {err}, pool rows exact "
+                   f"{pool_ok}")
+            _check(all(bites.values()), f"fused QKV with partial rotary ({label}): the "
+                   f"tolerance misses {bites}")
+            if not rows:
+                wqkv, bqkv = torch.cat(w, dim=1), torch.cat(b)
+                n_out = (H + 2 * KV) * Dh
+                nbytes = (D * n_out * 2 + n_out * 2 + B * D * 2 + B * n_out * 2
+                          + 2 * B * (rd // 2) * 4 + B * 2 * KV * Dh * 2 + table.size * 4
+                          + B * 4)
+                b_ms, b_by = bound(nbytes, 2.0 * B * D * n_out)
+                row.update(ms=time_cold(run), host_us=host_us(run),
+                           plain_ms=time_cold(plain),
+                           library_ms=time_cold(lambda: torch.addmm(bqkv, y, wqkv)),
+                           library="torch.addmm(b, y, [wq|wk|wv]) (projection only)",
+                           bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
     return rows
 
 
@@ -4758,8 +4786,20 @@ def attention_bites(got, plain, q, rows=lambda x: x, chunk=None):
     return bites
 
 
+def head_dim_bites(got, plain, q, rows=lambda x: x):
+    """{bite: whether PAGED_TOL catches it} of the head dims 80 and 96: the
+    plain version with the softmax scale of the nearest other built head
+    dim (64 at 80, 128 at 96: q scaled by sqrt(Dh / other) in f32), and its
+    output with every head's columns shifted by one."""
+    Dh = q.shape[-1]
+    other = 64 if Dh < 96 else 128
+    want = plain(q)
+    return {f"softmax_scale_of_dh_{other}": _bites(rows(got), rows(plain(q.float() * (Dh / other) ** 0.5))),
+            "columns_shifted": _bites(rows(got), rows(want.roll(1, dims=-1)))}
+
+
 def check_paged_heads(gen, rng, H, KV, Dh, suffix, decode_rows=(8,), pools=("bf16",) + KV_FORMATS,
-                      timed=("bf16",), alibi=False):
+                      timed=("bf16",), alibi=False, dim_bites=False):
     """B2, B5 and B3 at H query heads of Dh over KV kv heads: 8 sequences of
     up to PB_MAX_LEN positions (B3: two 256-row chunks ending at 2,048 and
     1,800) in shuffled pool order with -1 padding, and for each other count
@@ -4767,9 +4807,9 @@ def check_paged_heads(gen, rng, H, KV, Dh, suffix, decode_rows=(8,), pools=("bf1
     2,048 long), over each of ``pools`` (bf16, or int8 / fp8 with their
     scale planes); with ``alibi``, one more bf16 pass with slopes. Held to
     PAGED_TOL (the plain versions with P in f32); every attention_bites bite
-    must fail it. The ``timed`` pools' cells are timed beside their bound,
-    plain version and SDPA over the gathered K/V. Returns {form[suffix]:
-    rows}."""
+    must fail it, and with ``dim_bites`` every head_dim_bites bite too. The
+    ``timed`` pools' cells are timed beside their bound, plain version and
+    SDPA over the gathered K/V. Returns {form[suffix]: rows}."""
     import torch
     import torch.nn.functional as F
 
@@ -4845,6 +4885,8 @@ def check_paged_heads(gen, rng, H, KV, Dh, suffix, decode_rows=(8,), pools=("bf1
             err, tol_ok = paged_close(rows_of(got), rows_of(want))
             bites = attention_bites(got, plain, qq, rows_of,
                                 chunk=chunk if n_chunks > 1 and "extend" not in form else None)
+            if dim_bites:
+                bites.update(head_dim_bites(got, plain, qq, rows_of))
             row = dict(shape=dict(H=H, KV=KV, Dh=Dh, bs=64, pool=fmt, alibi=sl is not None,
                                   head_chunk=chunk, **shape),
                        max_abs_err=err.max().item(), tolerance=PAGED_TOL, within=tol_ok,
@@ -4879,7 +4921,7 @@ FLASH_256_SHAPES = [(8, 1024, 1024, 16, 16, 256, True), (2, 1000, 1000, 16, 4, 2
                     (2, 200, 1000, 16, 16, 256, False)]
 
 
-def check_flash_forward(gen, shapes=FLASH_256_SHAPES):
+def check_flash_forward(gen, shapes=FLASH_256_SHAPES, dim_bites=False):
     """The flash forward at ``shapes`` (FLASH_256_SHAPES: head_dim 256, Q's
     fragments from shared memory; FLASH_FALCON_SHAPES in phase 2o) against
     its plain version with P in f32, within PAGED_TOL; at the first shape a plain version with the causal diagonal
@@ -4914,7 +4956,8 @@ def check_flash_forward(gen, shapes=FLASH_256_SHAPES):
             shifted = torch.ones(T, S, dtype=torch.bool, device="cuda").tril(1)
             row["tolerance_bites"] = dict(attention_bites(got, plain, q),
                                           diagonal_shifted=_bites(got, _masked_plain(
-                                              q, k, v, shifted)))
+                                              q, k, v, shifted)),
+                                          **(head_dim_bites(got, plain, q) if dim_bites else {}))
             _check(all(row["tolerance_bites"].values()), f"the flash tolerance at {shapes[i]} "
                    f"misses {row['tolerance_bites']}")
             qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -4950,21 +4993,26 @@ def check_parallel_block_forms(gen, seed):
     return forms
 
 
-# GPT-J-6B's, Pythia-1.4b's and Falcon-7B's fused decode row: per layer, B4
-# unless the QKV stays on the layer body (GPT-J's interleaved RoPE), B5
-# always, B6 unless the MLP does (Pythia's and Falcon's exact gelu), never B7
-# (bf16 weights)
+# GPT-J-6B's, Pythia-1.4b's, Falcon-7B's, Phi-3-mini's and Pythia-2.8b's
+# fused decode row: per layer, B4 unless the QKV stays on the layer body
+# (GPT-J's interleaved RoPE), B5 always, B6 unless the MLP does (Pythia's
+# and Falcon's exact gelu), never B7 (bf16 weights)
 PB_PER_LAYER = {"gpt-j-6b": dict(fused_qkv_rope=0, fused_paged_decode_attention=1, fused_mlp=1,
                                  fused_mlp_quant=0),
                 "pythia-1.4b": dict(fused_qkv_rope=1, fused_paged_decode_attention=1,
                                     fused_mlp=0, fused_mlp_quant=0),
                 "falcon-7b": dict(fused_qkv_rope=1, fused_paged_decode_attention=1, fused_mlp=0,
-                                  fused_mlp_quant=0)}
+                                  fused_mlp_quant=0),
+                "phi-3-mini": dict(fused_qkv_rope=1, fused_paged_decode_attention=1, fused_mlp=1,
+                                   fused_mlp_quant=0),
+                "pythia-2.8b": dict(fused_qkv_rope=1, fused_paged_decode_attention=1,
+                                    fused_mlp=0, fused_mlp_quant=0)}
 
 
 def parallel_block_serving(name, cfg, seed, card):
-    """Phase 3j for one model at full width and depth (phase 3g's
-    ``family_serving``: ``serve()`` on "auto" and "xla", ``put()`` +
+    """Phase 3j for one model at full width and depth (GPT-J-6B at
+    PB_DEPTH's) through phase 3g's ``family_serving``: ``serve()`` on
+    "auto" and "xla", ``put()`` +
     ``decode_loop`` against the single-token ``put()`` loop, the v1
     ``generate``, a profiled decode window), then the fused decode step's
     launches held to PB_PER_LAYER exactly (31 ``decode_loop`` steps) and the
@@ -5027,9 +5075,11 @@ WIDE_GROUP_EDGES = [(16, 1, 64), (17, 1, 64), (9, 1, 128), (5, 1, 256)]
 EXTEND_EDGE = (65, 1, 64)
 # Falcon-7B's prefill: P = 8, T = 1024, 71 query heads over one kv head
 FLASH_FALCON_SHAPES = [(8, 1024, 1024, 71, 1, 64, True)]
-# depth-2 Falcon-7B against the CPU f32 engine: the largest logit error over
-# every schedule, relative to the largest |logit|
-FALCON_E2E_TOL = 0.01
+# depth-2 Falcon-7B and Pythia-2.8b against the CPU f32 engine: the largest
+# logit error over every schedule, relative to the largest |logit| (the
+# layernorm families sit at 0.1-0.8% of it; the Llama family, Phi-3-mini
+# with it, at 1.0-1.5% in phase 4, whose E2E_REL_TOL holds it)
+E2E_LOGIT_TOL = 0.01
 
 
 def check_wide_group_forms(gen, seed):
@@ -5058,38 +5108,162 @@ def check_wide_group_forms(gen, seed):
     return forms
 
 
-def falcon_serving(cfg, seed, card):
-    """Phase 3k: Falcon-7B at full width and depth through
-    ``parallel_block_serving`` (the three entry points, a profiled decode
-    window, a decode step's launches held exactly: B4 and B5 once a layer,
-    never B6 or B7; an xla tick's B2 once a layer; the prefill's flash
-    forward once a layer), with the ms per ``decode_loop`` step beside the
-    weights' bytes over the card's memory rate. Returns the results and the
-    weights (phase 4f)."""
-    out, params = parallel_block_serving("falcon-7b", cfg, seed, card)
+def model_serving(name, cfg, seed, card):
+    """Phase 3k (Falcon-7B) and 3l (Phi-3-mini, Pythia-2.8b): one model at
+    full width and depth through ``parallel_block_serving`` (the three entry
+    points, a profiled decode window, a decode step's launches held exactly
+    to PB_PER_LAYER[name]; an xla tick's B2 once a layer; the prefill's
+    flash forward once a layer), with the ms per ``decode_loop`` step beside
+    the weights' bytes over the card's memory rate. Returns the results and
+    the weights (phases 4f, 4g)."""
+    out, params = parallel_block_serving(name, cfg, seed, card)
     floor_ms = weight_bytes(params) / HBM_BYTES_PER_S * 1e3
     loop = out["put_decode_loop"]
     out["decode_loop_floor_ms"] = floor_ms
     auto = out["serve"]["auto"]
-    print(f"[falcon-7b] serve auto: {auto['sustained_tokens_per_sec']} tok/s, TPOT p50 "
+    print(f"[{name}] serve auto: {auto['sustained_tokens_per_sec']} tok/s, TPOT p50 "
           f"{auto['tpot_p50_s']} s, p95 {auto['tpot_p95_s']} s; decode_loop "
           f"{loop['decode_loop_ms_per_step']:.2f} ms a step against {floor_ms:.2f} ms of "
           f"weight bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s on {card}", flush=True)
     return out, params
 
 
-def falcon_e2e(cfg, params, seed):
-    """Phase 4f: phase 4b's ``family_e2e`` on Falcon-7B cut to depth 2, then
-    the largest error over every call within FALCON_E2E_TOL of the largest
+def model_e2e(name, cfg, params, seed, tol=E2E_LOGIT_TOL):
+    """Phases 4f and 4g: phase 4b's ``family_e2e`` on the model cut to depth
+    2, then the largest error over every call within ``tol`` of the largest
     |logit|."""
-    e2e = family_e2e("falcon-7b", cfg, params, seed)
+    e2e = family_e2e(name, cfg, params, seed)
     worst = max(t["max_abs_err"] / t["ref_abs_max"] for by_dk in e2e.values()
                 for calls in by_dk.values() for t in calls)
-    print(f"[e2e falcon-7b] largest error over every schedule and decode path: {worst:.5f} "
-          f"of the largest |logit| (tol {FALCON_E2E_TOL})", flush=True)
-    _check(worst <= FALCON_E2E_TOL, f"depth-2 Falcon-7B sits {worst:.5f} of the largest logit "
-           f"from the CPU f32 engine (tol {FALCON_E2E_TOL})")
+    print(f"[e2e {name}] largest error over every schedule and decode path: {worst:.5f} "
+          f"of the largest |logit| (tol {tol})", flush=True)
+    _check(worst <= tol, f"depth-2 {name} sits {worst:.5f} of the largest logit from the CPU "
+           f"f32 engine (tol {tol})")
     return dict(e2e, worst_rel=worst)
+
+
+# microsoft/Phi-3-mini-4k-instruct's and EleutherAI/pythia-2.8b's published
+# configs, as the fields config_from_hf reads them (Phi-3's sliding_window
+# 2047 is not read, as in the JAX mapping: phase 3l stays below 2,048
+# positions)
+PHI3_MINI = {"architectures": ["Phi3ForCausalLM"], "model_type": "phi3", "hidden_size": 3072,
+             "intermediate_size": 8192, "num_attention_heads": 32, "num_hidden_layers": 32,
+             "num_key_value_heads": 32, "max_position_embeddings": 4096, "rope_theta": 10000.0,
+             "rms_norm_eps": 1e-5, "hidden_act": "silu", "vocab_size": 32064,
+             "tie_word_embeddings": False, "sliding_window": 2047}
+PYTHIA_2B8 = dict(PYTHIA_1B4, hidden_size=2560, intermediate_size=10240, num_attention_heads=32,
+                  num_hidden_layers=32)
+PHI3_WIDTHS = dict(D=3072, H=32, KV=32, Dh=96, F=8192)
+PYTHIA_2B8_WIDTHS = dict(D=2560, H=32, KV=32, Dh=80, F=10240, rd=20)
+# (H, KV, Dh) of the decode kernels' head-chunk edges at the new head dims
+# (a block takes 1024 // Dh query heads: 12 at 80, 10 at 96): a one-head
+# last chunk at each
+HEAD_DIM_EDGES = [(13, 1, 80), (11, 1, 96)]
+# the two prefills: P = 8, T = 1024, 32 heads of 96 and of 80
+FLASH_HEAD_DIM_SHAPES = {96: [(8, 1024, 1024, 32, 32, 96, True)],
+                         80: [(8, 1024, 1024, 32, 32, 80, True)]}
+# B9 past the 64 columns of its shared-memory forms: two chunks, four, and
+# a rank that is no multiple of 8 (a 64 + 64 + 8 split), on a 5-slot pool
+# at phase 2g's decode tick, chunk rows and put() rows
+WIDE_RANKS = (128, 256, 136)
+WIDE_RANK_ROWS = [(8, 1), (2, 256), (8, 1024)]
+# phase 3l's multi-tenant serve: Llama-3-8B at phase 3f's geometry with a
+# rank-128 pool holding tenants of ranks 16, 64 and 128
+WIDE_MT_RANKS = (16, 64, 128)
+WIDE_MT_CONFIG = dict(MT_CONFIG, adapters=dict(MT_CONFIG["adapters"], max_rank=128))
+
+
+def check_head_dim_forms(gen, seed):
+    """Phase 2p: B2, B5 and B3 at Phi-3-mini's 32 x 96 and Pythia-2.8b's
+    32 x 80 (8 and 1 rows; bf16, int8 and fp8 pools, all timed; bf16 with
+    slopes at 80) and at HEAD_DIM_EDGES (bf16), B4 at both families' heads
+    (8 rows, pool; Pythia's partial rotary and biases), B6 at Phi-3-mini's
+    widths (8 and 1 rows), the flash forward at both prefills, and B9 at
+    WIDE_RANKS. The attention forms carry head_dim_bites too. Returns
+    {form: rows}."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 26])
+    forms = {}
+    for Dh, widths in ((96, PHI3_WIDTHS), (80, PYTHIA_2B8_WIDTHS)):
+        forms.update(check_paged_heads(gen, rng, widths["H"], widths["KV"], Dh, f"dh{Dh}",
+                                       decode_rows=(8, 1), timed=("bf16",) + KV_FORMATS,
+                                       alibi=Dh == 80, dim_bites=True))
+    for h, kv, dh in HEAD_DIM_EDGES:
+        for form, rows in check_paged_heads(gen, rng, h, kv, dh, f"dh{dh}", pools=("bf16",),
+                                            dim_bites=True).items():
+            forms[form] += rows
+    forms["fused_qkv_rope[phi-3-mini]"] = [check_fused_qkv(gen, rng, 8, widths=PHI3_WIDTHS,
+                                                           theta=10000.0)]
+    forms["fused_qkv_rope[pythia-2.8b]"] = check_qkv_partial_rope(
+        gen, rng, widths=PYTHIA_2B8_WIDTHS, layouts=(("pythia-2.8b", 32, 32),),
+        forms=((True, 8),))
+    forms["fused_mlp[phi-3-mini]"] = [check_fused_mlp(gen, B, widths=PHI3_WIDTHS)
+                                      for B in (8, 1)]
+    for Dh, shapes in FLASH_HEAD_DIM_SHAPES.items():
+        forms[f"flash_attention[dh{Dh}]"] = check_flash_forward(gen, shapes, dim_bites=True)
+    forms["lora_delta[wide-rank]"] = check_lora_gemm(gen, ranks=WIDE_RANKS, pools=(5,),
+                                                     row_shapes=WIDE_RANK_ROWS)
+    print(f"[kernel] head-dim and rank forms: {sum(len(r) for r in forms.values())} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return forms
+
+
+def wide_rank_serving(model, params, card, seed):
+    """Phase 3l's multi-tenant serve: phase 3f's 24 requests on Llama-3-8B
+    through a 4-slot pool of max_rank 128 over wq and wv, striped over six
+    tenants of WIDE_MT_RANKS (two each, zero-padded to 128 as the pool
+    pads them), the launch counters zeroed just before and held to what the
+    programs imply just after; no preemption, parks == unparks."""
+    import torch
+
+    from shuffle_exchange_tpu_torch import ops
+    from shuffle_exchange_tpu_torch.inference import (ContinuousBatchingScheduler,
+                                                      InferenceConfig, InferenceEngineV2)
+
+    mcfg, V = model.config, model.config.vocab_size
+    rng = np.random.default_rng([seed, 13])
+    lo, hi = MT_PROMPTS
+    reqs = [rng.integers(1, V, size=int(n)).tolist()
+            for n in rng.integers(lo, hi + 1, size=MT_REQUESTS)]
+    eng = InferenceEngineV2(model, params, InferenceConfig(**WIDE_MT_CONFIG))
+    _check(eng._decode_kernel == "pallas" and eng.adapters.max_rank == 128,
+           "wide-rank serve: not the fused path over a rank-128 pool")
+    ranks = [WIDE_MT_RANKS[i % len(WIDE_MT_RANKS)] for i in range(2 * len(WIDE_MT_RANKS))]
+    for i, r in enumerate(ranks):
+        eng.adapters.register(f"r{r}-{i}", tenant_factors(mcfg, 2000 + i, rank=r))
+    aids = [f"r{ranks[i % len(ranks)]}-{i % len(ranks)}" for i in range(MT_REQUESTS)]
+    by0 = dict(eng.dispatches_by_program)
+    sched = ContinuousBatchingScheduler(eng)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = sched.serve(reqs, max_new_tokens=MT_NEW, adapter_ids=aids)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st = sched.stats()
+    by = {k: v - by0.get(k, 0) for k, v in eng.dispatches_by_program.items()}
+    want = expected_launches(eng, mcfg.n_layers, by=by)
+    _check(launches == want, f"wide-rank serve: launch counts {launches} != implied {want}")
+    _check(len(toks) == MT_REQUESTS and all(len(t) == MT_NEW for t in toks.values())
+           and all(0 <= t < V for ts in toks.values() for t in ts),
+           "wide-rank serve: requests did not all finish with in-range tokens")
+    ad = st["adapters"]
+    _check(st["preemptions"] == 0 and ad["parks"] == ad["unparks"] and ad["pinned"] == 0,
+           f"wide-rank serve: preemptions {st['preemptions']}, parks {ad['parks']}, unparks "
+           f"{ad['unparks']}, pinned {ad['pinned']}")
+    r = dict(seconds=seconds, ticks=st["ticks"], tokens_per_s=st["sustained_tokens_per_sec"],
+             tpot_p50_s=st["tpot_p50_s"], tpot_p95_s=st["tpot_p95_s"], ranks=ranks,
+             adapters={k: ad[k] for k in ("hits", "misses", "evictions", "parks", "unparks")},
+             preemptions=st["preemptions"], programs=by, launches=launches)
+    print(f"[wide-rank multi-tenant] {MT_REQUESTS} requests x {MT_NEW} tokens over tenants of "
+          f"ranks {ranks} in a rank-128 pool: {seconds:.2f} s, tok/s={r['tokens_per_s']} "
+          f"tpot_p50/p95_s={r['tpot_p50_s']}/{r['tpot_p95_s']} adapters={r['adapters']} "
+          f"preemptions={r['preemptions']} launches={launches} on {card}", flush=True)
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -5606,6 +5780,9 @@ def main(argv=None) -> int:
     # 2o. B2, B3 and B5 at any query-head group (Falcon-7B's 71 heads over one
     # kv head, the head-chunk edges), B4 and the flash forward at Falcon-7B's
     wg_forms = check_wide_group_forms(gen, args.seed)
+    # 2p. B2, B3, B5 and the flash forward at head dims 80 and 96 (Pythia-2.8b,
+    # Phi-3-mini), B4 and B6 at their widths, B9 above rank 64
+    hd_forms = check_head_dim_forms(gen, args.seed)
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
                "fused_mlp": mlp, "fused_mlp_quant": qmlp, "quant_matmul": qmm,
@@ -5616,7 +5793,7 @@ def main(argv=None) -> int:
                "flash_attention_bwd": fbwd, "fused_adamw": adamw,
                "alibi_flash_attention": al_fwd, "alibi_flash_attention_bwd_dq": al_dq,
                "alibi_flash_attention_bwd_dkv": al_dkv, **forms, **kv_forms, **mask_forms,
-               **mq_forms, **pb_forms, **wg_forms}
+               **mq_forms, **pb_forms, **wg_forms, **hd_forms}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
@@ -5697,6 +5874,11 @@ def main(argv=None) -> int:
     print(f"[multi-tenant] phase 3f in {time.perf_counter() - t0:.1f} s", flush=True)
     runs += [r["launches"] for r in tenants["stripes"].values()]
     runs.append(tenants["put_decode_loop"]["launches"])
+    # 3l (part). the same geometry over a rank-128 pool (tenants of ranks 16, 64, 128)
+    t0 = time.perf_counter()
+    wide_rank = wide_rank_serving(model, params, card, args.seed)
+    print(f"[wide-rank multi-tenant] in {time.perf_counter() - t0:.1f} s", flush=True)
+    runs.append(wide_rank["launches"])
 
     # 3h. int8 and fp8 KV serving on the same weights
     t0 = time.perf_counter()
@@ -5744,8 +5926,12 @@ def main(argv=None) -> int:
         e2e["put"][name] = e2e_put_check(cfg2, state2, np.random.default_rng([args.seed, 7]),
                                          decode_kernels=("auto",), quant_bits=bits,
                                          adapters=True)["auto"]
-    print(f"[e2e adapters] step() and put() schedules, bf16 and int8 bases, in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # 4g (part). one step() schedule over a rank-128 pool (ranks 16, 64, 128)
+    e2e["step"]["auto adapters r128"] = e2e_check(cfg2, state2,
+                                                  np.random.default_rng([args.seed, 2]),
+                                                  adapters=E2E_WIDE)
+    print(f"[e2e adapters] step() and put() schedules, bf16 and int8 bases, and a rank-128 "
+          f"pool's step() schedule in {time.perf_counter() - t0:.2f} s", flush=True)
     # 4c. int8 and fp8 KV at depth 2 against the CPU f32 engine in the same mode
     kv_e2es = {"llama-3-8b": kv_e2e("llama-3-8b", cfg2, state2, args.seed)}
     report_e2e("", e2e)
@@ -5826,8 +6012,10 @@ def main(argv=None) -> int:
         # 3i. quantized weights and multi-tenant adapters on the same weights;
         # 4d. BLOOM-1b7 int8 at depth 2 against the CPU f32 engine
         t1 = time.perf_counter()
-        fquant[name] = family_quant_serving(name, fcfg, fparams, args.seed + 21, card, fconf,
+        qcfg, qparams = cut_depth(fcfg, fparams, QUANT_DEPTH.get(name, fcfg.n_layers))
+        fquant[name] = family_quant_serving(name, qcfg, qparams, args.seed + 21, card, fconf,
                                             fv1, longest)
+        del qparams
         runs += fquant[name].pop("runs")
         t2 = time.perf_counter()
         if name == "bloom-1b7":
@@ -5873,6 +6061,7 @@ def main(argv=None) -> int:
     pblocks, pb_e2es = {}, {}
     for name, hf in (("gpt-j-6b", GPTJ_6B), ("pythia-1.4b", PYTHIA_1B4)):
         pcfg = config_from_hf(hf)
+        pcfg = dataclasses.replace(pcfg, n_layers=PB_DEPTH.get(name, pcfg.n_layers))
         t0 = time.perf_counter()
         pblocks[name], pparams = parallel_block_serving(name, pcfg, args.seed + 23, card)
         t1 = time.perf_counter()
@@ -5910,9 +6099,9 @@ def main(argv=None) -> int:
     # depth 2 against the CPU f32 engine
     fcfg = config_from_hf(FALCON_7B)
     t0 = time.perf_counter()
-    falcon, fparams = falcon_serving(fcfg, args.seed + 25, card)
+    falcon, fparams = model_serving("falcon-7b", fcfg, args.seed + 25, card)
     t1 = time.perf_counter()
-    falcon_e2es = falcon_e2e(fcfg, fparams, args.seed)
+    falcon_e2es = model_e2e("falcon-7b", fcfg, fparams, args.seed)
     print(f"[falcon-7b] phase 3k in {t1 - t0:.1f} s, 4f in {time.perf_counter() - t1:.1f} s",
           flush=True)
     del fparams
@@ -5928,6 +6117,40 @@ def main(argv=None) -> int:
     _check(all(form_launches[f] > 0 for f in wg_forms),
            f"a wide-group kernel form never launched on Falcon-7B's serving path: "
            f"{ {f: form_launches[f] for f in wg_forms} }")
+
+    # 3l. Phi-3-mini (head dim 96) and Pythia-2.8b (head dim 80) at full width
+    # and depth; 4g. each cut to depth 2 against the CPU f32 engine
+    hdims, hd_e2es = {}, {}
+    for name, hf in (("phi-3-mini", PHI3_MINI), ("pythia-2.8b", PYTHIA_2B8)):
+        hcfg = config_from_hf(hf)
+        t0 = time.perf_counter()
+        hdims[name], hparams = model_serving(name, hcfg, args.seed + 27, card)
+        t1 = time.perf_counter()
+        hd_e2es[name] = model_e2e(name, hcfg, hparams, args.seed,
+                                  E2E_REL_TOL if hcfg.norm == "rmsnorm" else E2E_LOGIT_TOL)
+        print(f"[{name}] phase 3l in {t1 - t0:.1f} s, 4g in {time.perf_counter() - t1:.1f} s",
+              flush=True)
+        del hparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    hd_runs = {name: [h["serve"]["auto"]["launches"], h["serve"]["xla"]["launches"],
+                      h["put_decode_loop"]["launches"], h["v1_generate"]["launches"]]
+               for name, h in hdims.items()}
+    runs += [r for rs in hd_runs.values() for r in rs]
+    _check(all(r["rmsnorm"] == 0 for r in hd_runs["pythia-2.8b"]),
+           "a layernorm model launched the RMSNorm kernel")
+    # each new form's launches on the path that runs it: head dim 96, B4 and
+    # B6 at Phi-3-mini's widths on Phi-3-mini's; head dim 80 and B4's rd 20
+    # on Pythia-2.8b's; B9 above rank 64 on the rank-128 serve
+    hd_models = {"[dh96]": "phi-3-mini", "[phi-3-mini]": "phi-3-mini",
+                 "[dh80]": "pythia-2.8b", "[pythia-2.8b]": "pythia-2.8b"}
+    for form in hd_forms:
+        base, tag = form.split("[")[0], "[" + form.split("[")[1]
+        form_launches[form] = (wide_rank["launches"][base] if tag == "[wide-rank]" else
+                               sum(r[base] for r in hd_runs[hd_models[tag]]))
+    _check(all(form_launches[f] > 0 for f in hd_forms),
+           f"a head-dim or rank form never launched on its serving path: "
+           f"{ {f: form_launches[f] for f in hd_forms} }")
 
     # 5. train the ladder's pick at full width and depth; 6. depth 2 against
     # the CPU
@@ -6109,7 +6332,8 @@ def main(argv=None) -> int:
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                         "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
-    for s_ in [*serves.values(), *(s_ for f in [*families.values(), *pblocks.values(), falcon]
+    for s_ in [*serves.values(), *(s_ for f in [*families.values(), *pblocks.values(), falcon,
+                                                *hdims.values()]
                                    for s_ in f["serve"].values())]:
         s_["tokens"] = {int(u): t for u, t in s_["tokens"].items()}
     result = {"card": card, "seconds": time.perf_counter() - t_start,
@@ -6126,6 +6350,8 @@ def main(argv=None) -> int:
               "family_quant_serving": fquant, "family_quant_e2e": fquant_e2e,
               "parallel_block_serving": pblocks, "parallel_block_e2e": pb_e2es,
               "falcon_serving": falcon, "falcon_e2e": falcon_e2es,
+              "head_dim_serving": hdims, "head_dim_e2e": hd_e2es,
+              "wide_rank_serving": wide_rank,
               "sparse_user_call": {"launches": sparse_launches, "finite": sparse_finite}}
     if args.out:
         with open(args.out, "w") as f:

@@ -3,11 +3,14 @@
 Runs the flash-attention kernels (B14 / B15 forward and backward), the
 grouped GEMM (B16 forward over bf16 and int8 stacks, its dx and dw), the
 quantized matmul (B8, both forms), where the tree has them the ALiBi
-kernels (B11-B13), and the paged serving kernels (B2 decode, B5 split-K
-decode, B3 extend over bf16, int8 and fp8 pools) on seeded inputs, and
-prints for each cell a SHA-256 of its output bytes and its mean cold-L2
-time. ``--sections`` picks some of them (``flash alibi grouped quant
-paged``). Two trees whose digests match
+kernels (B11-B13), the paged serving kernels (B2 decode, B5 split-K
+decode, B3 extend over bf16, int8 and fp8 pools) and the LoRA delta (B9 at
+the chip smoke test's phase-2g cells) on seeded inputs, and prints for
+each cell a SHA-256 of its output bytes and its mean cold-L2 time. Cells
+of forms a tree does not build (head dims 80 and 96, ranks above 64) run
+only where it builds them, after the others, so both trees give the
+common cells the same inputs. ``--sections`` picks some of them (``flash
+alibi grouped quant paged lora``). Two trees whose digests match
 computed bit-equal results, so a refactor of the kernel sources (shared
 headers, say) is checked against its parent by running this script on
 both, parent-change-change-parent in one session:
@@ -45,6 +48,9 @@ FLASH_CELLS = [
     ("B14 gpt2 fwd+bwd", 16, 1023, 1023, 12, 12, 64, True, False),
     ("segments fwd+bwd", 2, 512, 512, 8, 8, 64, True, True),
     ("full T<S fwd", 1, 300, 700, 8, 4, 128, False, False),
+    # the head dims 80 and 96 (Pythia-2.8b's and Phi-3-mini's prefill), where built
+    ("phi-3-mini prefill fwd", 8, 1024, 1024, 32, 32, 96, True, False),
+    ("pythia-2.8b prefill fwd", 8, 1024, 1024, 32, 32, 80, True, False),
 ]
 # (label, B, T, S, H, KV, Dh)
 ALIBI_CELLS = [("B11-B13 bloom-1b7", 2, 2047, 2047, 16, 16, 128),
@@ -57,9 +63,18 @@ GROUPED_SIZES = {"16 rows": [3, 0, 5, 1, 0, 4, 2, 1],
 # positions (B3: two 256-row chunks starting at each pair of EXTEND_STARTS:
 # ending at 2,048 and 1,800, and the chip smoke test's phase-2 cell)
 PAGED_CELLS = [("llama 32/8x128", 32, 8, 128, False), ("bloom 16x128 alibi", 16, 16, 128, True),
-               ("gpt-j 16x256", 16, 16, 256, False), ("gqa 16/2x64", 16, 2, 64, False)]
+               ("gpt-j 16x256", 16, 16, 256, False), ("gqa 16/2x64", 16, 2, 64, False),
+               # where built: Phi-3-mini's and Pythia-2.8b's heads (with slopes)
+               ("phi-3-mini 32x96", 32, 32, 96, False),
+               ("pythia-2.8b 32x80 alibi", 32, 32, 80, True)]
 EXTEND_STARTS = ((1792, 1600), (512, 700))
-SECTIONS = ("flash", "alibi", "grouped", "quant", "paged")
+# B9 at the chip smoke test's phase-2g cells (D 4096; N 4096 / 1024; ranks
+# 8, 16, 64; pools of 5 and 65 slots; rows 1 x 1, 8 x 1, 2 x 256, 8 x 1024),
+# then, where built, ranks past 64 on the 5-slot pool
+LORA_D, LORA_N, LORA_R, LORA_S = 4096, (4096, 1024), (8, 16, 64), (5, 65)
+LORA_ROWS = [(1, 1), (8, 1), (2, 256), (8, 1024)]
+LORA_WIDE_R = (128, 256, 136)
+SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora")
 
 
 def time_cold(fn, iters: int = 10) -> float:
@@ -116,7 +131,11 @@ def paged_cells(gen, seed) -> dict:
                 for _ in range(2))
         return k, v, torch.from_numpy(table).cuda()
 
+    pa = importlib.import_module("shuffle_exchange_tpu_torch.ops.paged_attention")
+
     for label, H, KV, Dh, alibi in PAGED_CELLS:
+        if Dh not in pa.HEAD_DIMS:
+            continue
         slopes = torch.from_numpy(alibi_slopes(H)).cuda() if alibi else None
         lens = np.concatenate([[2048], rng.integers(1, 2049, size=7)]).astype(np.int32)
         k, v, table = pool(lens, KV, Dh)
@@ -156,6 +175,35 @@ def paged_cells(gen, seed) -> dict:
     return cells
 
 
+def lora_cells(gen) -> dict:
+    """B9 at the phase-2g cells, then at LORA_WIDE_R where the tree takes
+    ranks past 64; the slots as phase 2g gives them."""
+    import torch
+
+    lg = importlib.import_module("shuffle_exchange_tpu_torch.ops.lora_gemm")
+
+    def slots_of(B, S):
+        return [1] if B == 1 else [1, S - 1] if B == 2 else [0, 1, S - 1, 1, 0, 2, S - 1, 3]
+
+    cells = {}
+    grid = [(S, R) for S in LORA_S for R in LORA_R]
+    grid += [(LORA_S[0], R) for R in LORA_WIDE_R if hasattr(lg, "CHUNK_RANK")]
+    for S, R in grid:
+        for N in LORA_N:
+            a = (torch.randn(S, LORA_D, R, generator=gen, device="cuda") * LORA_D ** -0.5).bfloat16()
+            b = (torch.randn(S, R, N, generator=gen, device="cuda") * R ** -0.5).bfloat16()
+            a[0].zero_()
+            b[0].zero_()
+            for B, T in LORA_ROWS:
+                slots = torch.tensor(slots_of(B, S), dtype=torch.int32, device="cuda")
+                x = torch.randn(B, T, LORA_D, generator=gen, device="cuda").bfloat16()
+                fn = lambda: lg.lora_delta(x, a, b, slots)
+                cells[f"B9 S{S} R{R} N{N} {B}x{T}"] = dict(digest=digest([fn()]),
+                                                           ms=time_cold(fn, 5 if B * T > 1024
+                                                                        else 10))
+    return cells
+
+
 def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
     import torch
 
@@ -171,11 +219,11 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
     # one nvcc per source the sections run, all at once
     sources = {"flash": ("flash_attention",), "alibi": ("alibi_attention",),
                "grouped": ("grouped_gemm",), "quant": ("quant_matmul",),
-               "paged": ("paged_attention", "fused_decode")}
+               "paged": ("paged_attention", "fused_decode"), "lora": ("lora_gemm",)}
     _build.build_all([s for sec in sections for s in sources[sec]
                       if (_build.CSRC / f"{s}.cu").exists()])
 
-    gens = [torch.Generator(device="cuda").manual_seed(seed * 10 + i) for i in range(5)]
+    gens = [torch.Generator(device="cuda").manual_seed(seed * 10 + i) for i in range(6)]
     gen = gens[0]   # each section draws from its own generator: a tree without the
                     # ALiBi kernels gives the later sections the same inputs
 
@@ -184,6 +232,8 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
 
     cells = {}
     for label, B, T, S, H, KV, Dh, causal, seg in (FLASH_CELLS if "flash" in sections else []):
+        if Dh not in fa.HEAD_DIMS:
+            continue
         q, k, v = randn(B, T, H, Dh), randn(B, S, KV, Dh), randn(B, S, KV, Dh)
         dout = randn(B, T, H, Dh)
         segs = None
@@ -237,6 +287,8 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
             cells[f"B8 int{bits} {rows} rows"] = dict(digest=digest([fn()]), ms=time_cold(fn))
     if "paged" in sections:
         cells.update(paged_cells(gens[4], seed))
+    if "lora" in sections:
+        cells.update(lora_cells(gens[5]))
     return cells
 
 

@@ -55,7 +55,7 @@ from ..config.config_utils import ConfigError
 from ..ops.dispatch import resolve_decode_kernel, resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_decode import fused_mlp, fused_qkv_rope, mlp_weights_fusable
-from ..ops.lora_gemm import MAX_RANK as LORA_MAX_RANK, lora_delta
+from ..ops.lora_gemm import lora_delta
 from ..ops.paged_attention import decode_attention
 from ..ops.quant import quantize_dequantize
 from ..ops.quant_matmul import QuantizedMatrix, quantize_weight
@@ -148,12 +148,6 @@ class InferenceEngine:
                               "engine's dense cache stays in the serving dtype")
         self._mcfg = model.config
         self.device = resolve_device(device)
-        ac = self.config.adapters
-        if ac.enabled and self.device.type == "cuda" and ac.max_rank > LORA_MAX_RANK:
-            # refused before any weight or pool plane reaches the card, and
-            # before a scheduler can pin a slot the first program would fail on
-            raise ConfigError(f"adapters.max_rank={ac.max_rank}: the LoRA delta kernel takes "
-                              f"ranks up to {LORA_MAX_RANK} on the card")
         self._resolve_decode_kernel()
         self.update_params(params)
 

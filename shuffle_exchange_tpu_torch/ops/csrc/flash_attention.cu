@@ -56,11 +56,16 @@
 // (the card check) and costs half again the tensor-core work (P.V runs
 // twice). wgmma, TMA and warp specialisation are later work.
 //
-// Head dims: the forward takes 64, 128 and 256 (GPT-J-6B's prefill); at
-// 256 its Q fragments are re-read from shared memory at every k-step (the
-// O accumulators take 128 registers a thread) and the staged tiles take
-// 165 KB of dynamic shared memory, one block an SM. The backward takes 64
-// and 128 (the wrapper refuses 256: training at 256 is later work).
+// Head dims: the forward takes 64, 128 and 256 (GPT-J-6B's prefill), and
+// 80 (Pythia-2.8b) and 96 (Phi-3-mini), where the TPU package runs its jnp
+// reference instead of a kernel. At 256 its Q fragments are re-read from
+// shared memory at every k-step (the O accumulators take 128 registers a
+// thread) and the staged tiles take 165 KB of dynamic shared memory, one
+// block an SM. At 80 and 96 a k-step is 16 columns, so QK^T takes 5 and 6
+// k-steps and P.V 10 and 12 column tiles; the staged rows' pitch of Dh + 8
+// elements (176 and 208 bytes) keeps ldmatrix's 8 rows on 8 distinct
+// groups of 4 banks. The backward takes 64 and 128 (the wrapper refuses
+// the rest: training at 80, 96 and 256 is later work).
 //
 // The forward optionally writes lse [B, H, T] f32, the natural-log
 // log-sum-exp of each row's scaled scores (the convention of the TPU
@@ -790,6 +795,8 @@ int sxt_flash_attention_bf16(const void* q, const void* k, const void* v, const 
   if (Dh == 256) return tiles ? run(launch<256, true>) : run(launch<256, false>);   // GPT-J-6B
   if (Dh == 128) return tiles ? run(launch<128, true>) : run(launch<128, false>);
   if (Dh == 64) return tiles ? run(launch<64, true>) : run(launch<64, false>);
+  if (Dh == 96) return tiles ? run(launch<96, true>) : run(launch<96, false>);   // Phi-3-mini
+  if (Dh == 80) return tiles ? run(launch<80, true>) : run(launch<80, false>);   // Pythia-2.8b
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -56,7 +56,8 @@
 // K/V tiles in shared memory once for the query heads of its chunk (the
 // whole group G when G * Dh <= 1024, else 1024 / Dh heads of it: Falcon-7B's
 // 71 heads of 64 make 5 chunks, each re-reading the kv head's tiles from
-// L2), and holds (m, l, acc) in f32, at most 8 accumulators a thread; the
+// L2; a chunk is 10 heads at head dim 96 and 12 at 80),
+// and holds (m, l, acc) in f32, at most 8 accumulators a thread; the
 // split count fills the SMs (the wrapper picks it, counting the chunks),
 // and a merge kernel combines the splits:
 //   m_g = max m;  w = exp(m - m_g);  out = sum(w*acc) / max(sum(w*l), 1e-30).
@@ -691,6 +692,12 @@ int sxt_fused_paged_decode(const void* q, const void* k, const void* v, const vo
                                         op, mp, lsp, H, KV, bs, W, spb, GC, scale);
   else if (Dh == 64)
     err = launch_split_decode_kind<64>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
+                                       op, mp, lsp, H, KV, bs, W, spb, GC, scale);
+  else if (Dh == 96)   // Phi-3-mini
+    err = launch_split_decode_kind<96>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
+                                       op, mp, lsp, H, KV, bs, W, spb, GC, scale);
+  else if (Dh == 80)   // Pythia-2.8b
+    err = launch_split_decode_kind<80>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
                                        op, mp, lsp, H, KV, bs, W, spb, GC, scale);
   else
     return static_cast<int>(cudaErrorInvalidValue);

@@ -49,6 +49,11 @@
 //   for 8 FMAs, and a fixed xor-shuffle tree adds the lanes. Stage 2: each
 //   thread owns 2 adjacent columns (bf16x2 loads and stores; a scalar path
 //   for odd N) and keeps the tile's 16 tokens' sums in registers.
+// - Ranks above 64 (any rank): the same two forms with stage 1 run in
+//   rank chunks of 64 columns, each chunk a pass over D that re-reads x
+//   and that chunk's columns of A[slot]; mid goes to f32 scratch [B, T, R]
+//   in device memory (the wrapper's), so no rank is too large for shared
+//   memory or registers. Ranks up to 64 run the forms above unchanged.
 // Tensor cores, TMA and skipping null rows are later work.
 
 #include <cuda_bf16.h>
@@ -59,7 +64,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRank = 64;     // the pool's max_rank ceiling the kernel takes
+constexpr int kMaxRank = 64;     // ranks the shared-memory forms take (a chunk of the wide ones)
 constexpr int kTileTokens = 16;  // tokens per block of the tiled form
 constexpr int kDTile = 128;      // D rows of x and A staged per step (tiled form)
 // A's staged rows (144 bytes, 16-byte aligned): 8 lanes reading 16 bytes
@@ -294,10 +299,241 @@ lora_tile_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
 
 // lanes that share one (token, rank group) item's sum over D: the largest
 // power of two <= 32 with items * ks <= kThreads
-int lanes_per_item(int items) {
+__host__ __device__ int lanes_per_item(int items) {
   int ks = 1;
   while (ks < 32 && items * ks * 2 <= kThreads) ks *= 2;
   return ks;
+}
+
+// ---------------------------------------------------------------------------
+// Ranks above kMaxRank: the two forms above with stage 1 run in rank
+// chunks of kMaxRank columns, each chunk a pass over D that re-reads x and
+// reads its columns of A[slot]. mid (f32) goes to the caller's scratch
+// [B, T, R] in device memory instead of shared memory, so no rank is too
+// large; stage 2 reads it back as the forms above read their shared mid.
+// Every column of mid is the same sum in the same order as in the forms
+// above, and ranks <= kMaxRank never reach these kernels.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+lora_row_wide_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ a,
+                     const __nv_bfloat16* __restrict__ b, const int* __restrict__ slots,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ mid_g, int D, int R,
+                     int N, int S) {
+  __shared__ float red[kWarps][kMaxRank];
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int slot = __ldg(slots + row);
+  __nv_bfloat16* o = out + static_cast<size_t>(row) * N;
+  if (bad_slot(slot, S, o, N)) return;
+  const __nv_bfloat16* xr = x + static_cast<size_t>(row) * D;
+  const __nv_bfloat16* A = a + static_cast<size_t>(slot) * D * R;
+  const __nv_bfloat16* Bm = b + static_cast<size_t>(slot) * R * N;
+  float* mid = mid_g + static_cast<size_t>(row) * R;
+
+  // stage 1, chunk by chunk: partial sums over d = tid, tid + 256, ... in order
+#pragma unroll 1
+  for (int c0 = 0; c0 < R; c0 += kMaxRank) {
+    const int rc = min(kMaxRank, R - c0);          // the chunk's ranks
+    float part[kMaxRank];
+#pragma unroll
+    for (int r = 0; r < kMaxRank; ++r) part[r] = 0.f;
+    if ((R & 7) == 0) {                            // A's rows in 16-byte reads
+#pragma unroll 4
+      for (int d = tid; d < D; d += kThreads) {
+        const float xv = bf(xr[d]);
+        const uint4* ar = reinterpret_cast<const uint4*>(A + static_cast<size_t>(d) * R + c0);
+#pragma unroll
+        for (int g = 0; g < kMaxRank / 8; ++g) {
+          if (g * 8 < rc) {
+            const uint4 v = __ldg(ar + g);
+            const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 f = __bfloat1622float2(h[j]);
+              part[g * 8 + 2 * j] = fmaf(xv, f.x, part[g * 8 + 2 * j]);
+              part[g * 8 + 2 * j + 1] = fmaf(xv, f.y, part[g * 8 + 2 * j + 1]);
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int d = tid; d < D; d += kThreads) {
+        const float xv = bf(xr[d]);
+        const __nv_bfloat16* ar = A + static_cast<size_t>(d) * R + c0;
+#pragma unroll
+        for (int r = 0; r < kMaxRank; ++r)
+          if (r < rc) part[r] = fmaf(xv, bf(ar[r]), part[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxRank; ++r) {
+      if (r < rc) {
+        float s = part[r];
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) red[warp][r] = s;
+      }
+    }
+    __syncthreads();
+    if (tid < rc) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += red[w][tid];
+      mid[c0 + tid] = s;
+    }
+    __syncthreads();                               // red is the next chunk's; mid is read below
+  }
+
+  // stage 2: out[n] = bf16(sum_r mid[r] f32(B[r][n]))
+  if ((N & 7) == 0) {
+    for (int c = tid * 8; c < N; c += kThreads * 8) {
+      float acc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < R; ++r) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(Bm + static_cast<size_t>(r) * N + c));
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+        const float m = mid[r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(h[j]);
+          acc[2 * j] = fmaf(m, f.x, acc[2 * j]);
+          acc[2 * j + 1] = fmaf(m, f.y, acc[2 * j + 1]);
+        }
+      }
+      uint4 w;
+      __nv_bfloat162* wh = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wh[j] = __floats2bfloat162_rn(acc[2 * j], acc[2 * j + 1]);
+      *reinterpret_cast<uint4*>(o + c) = w;
+    }
+  } else {
+    for (int n = tid; n < N; n += kThreads) {
+      float acc = 0.f;
+      for (int r = 0; r < R; ++r) acc = fmaf(mid[r], bf(Bm[static_cast<size_t>(r) * N + n]), acc);
+      o[n] = __float2bfloat16(acc);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+lora_tile_wide_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ a,
+                      const __nv_bfloat16* __restrict__ b, const int* __restrict__ slots,
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ mid_g, int T, int D,
+                      int R, int N, int S) {
+  constexpr int TT = kTileTokens;
+  __shared__ __nv_bfloat16 xs[TT][kDTile];
+  __shared__ __align__(16) __nv_bfloat16 as[kDTile][kAPitch];
+
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * TT;
+  const int tt = min(TT, T - t0);                  // tokens of this tile
+  const int tid = threadIdx.x;
+  const int slot = __ldg(slots + row);
+  const size_t xrow = (static_cast<size_t>(row) * T + t0);
+  if (bad_slot(slot, S, out + xrow * N, static_cast<size_t>(tt) * N)) return;
+  const __nv_bfloat16* A = a + static_cast<size_t>(slot) * D * R;
+  const __nv_bfloat16* Bm = b + static_cast<size_t>(slot) * R * N;
+  float* mid = mid_g + xrow * R;                   // [TT][R] of this tile (rows t < tt)
+
+  // stage 1, chunk by chunk: mid[t][c0 + r] = sum_d x[t][d] A[d][c0 + r],
+  // items and lanes as in lora_tile_kernel over the chunk's rank groups
+#pragma unroll 1
+  for (int c0 = 0; c0 < R; c0 += kMaxRank) {
+    const int rc = min(kMaxRank, R - c0);          // the chunk's ranks
+    const int groups = (rc + 7) / 8;
+    const int pad = groups * 8 - rc;               // the groups' columns past rc stay 0
+    for (int i = tid; i < kDTile * pad; i += kThreads) as[i / pad][rc + i % pad] =
+        __float2bfloat16(0.f);
+    const int items = TT * groups;
+    const int ks = lanes_per_item(items);
+    const int k = tid % ks;
+    const int item = tid / ks;
+    const int t = item / groups, rg = item % groups;
+    float acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kDTile) {
+      const int dn = min(kDTile, D - d0);
+      for (int i = tid; i < TT * kDTile; i += kThreads) {
+        const int tx = i / kDTile, dd = i % kDTile;
+        xs[tx][dd] = (tx < tt && dd < dn) ? x[(xrow + tx) * D + d0 + dd] : __float2bfloat16(0.f);
+      }
+      for (int i = tid; i < kDTile * rc; i += kThreads) {
+        const int dd = i / rc, r = i % rc;
+        as[dd][r] = dd < dn ? A[static_cast<size_t>(d0 + dd) * R + c0 + r]
+                            : __float2bfloat16(0.f);
+      }
+      __syncthreads();
+      if (item < items) {
+        for (int dd = k; dd < dn; dd += ks) {
+          const float xv = bf(xs[t][dd]);
+          const uint4 v = *reinterpret_cast<const uint4*>(&as[dd][rg * 8]);
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 f = __bfloat1622float2(h[j]);
+            acc[2 * j] = fmaf(xv, f.x, acc[2 * j]);
+            acc[2 * j + 1] = fmaf(xv, f.y, acc[2 * j + 1]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float sj = acc[j];
+      for (int off = ks >> 1; off > 0; off >>= 1) sj += __shfl_xor_sync(0xffffffffu, sj, off);
+      const int r = rg * 8 + j;
+      if (k == 0 && item < items && r < rc && t < tt) mid[static_cast<size_t>(t) * R + c0 + r] = sj;
+    }
+  }
+  __syncthreads();
+
+  // stage 2: out[t][n] = bf16(sum_r mid[t][r] f32(B[r][n])); rows t >= tt
+  // of the tile read row tt - 1 (in bounds) and are never stored
+  const int tl = tt - 1;
+  if ((N & 1) == 0) {
+    for (int n = tid * 2; n < N; n += kThreads * 2) {
+      float o0[TT], o1[TT];
+#pragma unroll
+      for (int tx = 0; tx < TT; ++tx) o0[tx] = o1[tx] = 0.f;
+#pragma unroll 1
+      for (int r = 0; r < R; ++r) {
+        const float2 bv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Bm + static_cast<size_t>(r) * N + n));
+#pragma unroll
+        for (int tx = 0; tx < TT; ++tx) {
+          const float m = mid[static_cast<size_t>(min(tx, tl)) * R + r];
+          o0[tx] = fmaf(m, bv.x, o0[tx]);
+          o1[tx] = fmaf(m, bv.y, o1[tx]);
+        }
+      }
+#pragma unroll
+      for (int tx = 0; tx < TT; ++tx)
+        if (tx < tt)
+          *reinterpret_cast<__nv_bfloat162*>(out + (xrow + tx) * N + n) =
+              __floats2bfloat162_rn(o0[tx], o1[tx]);
+    }
+  } else {
+    for (int n = tid; n < N; n += kThreads) {
+      float o[TT];
+#pragma unroll
+      for (int tx = 0; tx < TT; ++tx) o[tx] = 0.f;
+#pragma unroll 1
+      for (int r = 0; r < R; ++r) {
+        const float bv = bf(Bm[static_cast<size_t>(r) * N + n]);
+#pragma unroll
+        for (int tx = 0; tx < TT; ++tx)
+          o[tx] = fmaf(mid[static_cast<size_t>(min(tx, tl)) * R + r], bv, o[tx]);
+      }
+#pragma unroll
+      for (int tx = 0; tx < TT; ++tx)
+        if (tx < tt) out[(xrow + tx) * N + n] = __float2bfloat16(o[tx]);
+    }
+  }
 }
 
 }  // namespace
@@ -312,11 +548,13 @@ const char* sxt_lora_error_string(int err) {
 // with f32 sums and an f32 mid: x [B, T, D], A [S, D, R], B [S, R, N]
 // bf16, contiguous, A 16-byte aligned when R % 8 == 0 and B when
 // N % 8 == 0 (4 bytes when N is even); slots [B] int32 on the device.
-// Needs 1 <= R <= 64.
+// Any R >= 1; above 64, mid is f32 scratch [B, T, R] on the device (null
+// at R <= 64, where mid stays in shared memory).
 int sxt_lora_delta_bf16(const void* x, const void* a, const void* b, const void* slots,
-                        void* out, int B, int T, int D, int R, int N, int S, void* stream) {
+                        void* out, void* mid, int B, int T, int D, int R, int N, int S,
+                        void* stream) {
   if (B <= 0 || T <= 0 || N <= 0) return 0;
-  if (D < 1 || R < 1 || R > kMaxRank || S < 1 || B > 65535)
+  if (D < 1 || R < 1 || S < 1 || B > 65535 || (R > kMaxRank) != (mid != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
@@ -324,7 +562,14 @@ int sxt_lora_delta_bf16(const void* x, const void* a, const void* b, const void*
   const auto* bp = static_cast<const __nv_bfloat16*>(b);
   const auto* sp = static_cast<const int*>(slots);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (T == 1) {
+  if (R > kMaxRank) {
+    auto* mp = static_cast<float*>(mid);
+    if (T == 1)
+      lora_row_wide_kernel<<<B, kThreads, 0, s>>>(xp, ap, bp, sp, op, mp, D, R, N, S);
+    else
+      lora_tile_wide_kernel<<<dim3((T + kTileTokens - 1) / kTileTokens, B), kThreads, 0, s>>>(
+          xp, ap, bp, sp, op, mp, T, D, R, N, S);
+  } else if (T == 1) {
     lora_row_kernel<<<B, kThreads, 0, s>>>(xp, ap, bp, sp, op, D, R, N, S);
   } else {
     const dim3 grid((T + kTileTokens - 1) / kTileTokens, B);

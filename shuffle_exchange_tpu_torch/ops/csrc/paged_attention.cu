@@ -59,10 +59,15 @@
 // consecutive rows of the c-major order (c, g), so it spans at most two
 // chunk rows, each row with its own head and causal limit.
 //
-// Head dims 64, 128 and 256 (GPT-J-6B). At 256 the extend kernel's staged
-// Q, K and V tiles and its P tile take ~118 KB of dynamic shared memory
-// (bf16 pool; set_smem raises the limit), and each thread keeps 4 x 16 f32
-// accumulators, so it runs one block an SM.
+// Head dims 64, 128 and 256 (GPT-J-6B), and 80 (Pythia-2.8b) and 96
+// (Phi-3-mini). At 256 the extend kernel's staged Q, K and V tiles and its
+// P tile take ~118 KB of dynamic shared memory (bf16 pool; set_smem raises
+// the limit), and each thread keeps 4 x 16 f32 accumulators, so it runs one
+// block an SM. A built head dim is a multiple of 16, so a stored row (Dh
+// bf16 or Dh bytes) and a staged row are whole 16-byte vectors; at 80 and
+// 96 a decode block takes 12 and 10 query heads (960 columns), and an
+// extend thread owns 5 and 6 output columns, read and stored one at a
+// time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -440,6 +445,12 @@ cudaError_t dispatch(int Dh, int kind, Args... args) {
     case 64 * 4 + KvBf16: return F<64, KvBf16>::run(args...);
     case 64 * 4 + KvInt8: return F<64, KvInt8>::run(args...);
     case 64 * 4 + KvFp8: return F<64, KvFp8>::run(args...);
+    case 96 * 4 + KvBf16: return F<96, KvBf16>::run(args...);    // Phi-3-mini
+    case 96 * 4 + KvInt8: return F<96, KvInt8>::run(args...);
+    case 96 * 4 + KvFp8: return F<96, KvFp8>::run(args...);
+    case 80 * 4 + KvBf16: return F<80, KvBf16>::run(args...);    // Pythia-2.8b
+    case 80 * 4 + KvInt8: return F<80, KvInt8>::run(args...);
+    case 80 * 4 + KvFp8: return F<80, KvFp8>::run(args...);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -13,8 +13,8 @@ Replaces the TPU kernels of ``shuffle_exchange_tpu/ops/fused_decode.py``:
 - ``fused_paged_decode_attention_pallas``: split-K flash-decode over the
   block table with an (m, l, acc) merge, with ALiBi slopes, over a bf16
   pool or an int8 / e4m3 pool with f32 scale planes (dequantized in
-  registers as in ``ops/paged_attention.py``), head_dim 64, 128 or 256,
-  any query-head group (Falcon-7B's 71 heads over one kv head);
+  registers as in ``ops/paged_attention.py``), head_dim 64, 80, 96, 128
+  or 256, any query-head group (Falcon-7B's 71 heads over one kv head);
 - ``fused_mlp_pallas``: RMSNorm, layernorm (with its bias) or no norm
   (``apply_norm=False``: the shared layernorm's y of GPT-J's parallel
   blocks) + a gated (SwiGLU) or plain MLP with one of
@@ -57,8 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from .dispatch import use_kernel
-from .paged_attention import (HEAD_DIMS, _alibi_bias, alibi_operand, decode_head_chunk,
-                              gather_kv, pool_kind, scale_kw, scales_given)
+from .paged_attention import (HEAD_DIM_LATER, HEAD_DIMS, _alibi_bias, alibi_operand,
+                              decode_head_chunk, gather_kv, pool_kind, scale_kw, scales_given)
 from .quant_matmul import QuantizedMatrix, check_storage, quant_splits
 
 _NEG = -1e30     # the TPU kernels' finite mask sentinel
@@ -297,7 +297,7 @@ def fused_paged_decode_attention(q, ck, cv, block_table, kv_len, *,
     card's SMs (on the CPU, JAX's default of 2); the result does not
     depend on it beyond rounding. ``alibi_slopes`` [H] add ``slope_h * j``
     at logical key position j; ``k_scale`` / ``v_scale`` [nblk,KV,bs] f32
-    dequantize an int8 or e4m3 pool; head_dim 64, 128 or 256, any
+    dequantize an int8 or e4m3 pool; head_dim 64, 80, 96, 128 or 256, any
     query-head group ``G = H / KV`` (a block takes
     ``decode_head_chunk(G, Dh)`` heads of it). The CUDA kernel on a CUDA
     tensor, the plain version on a CPU tensor."""
@@ -553,7 +553,8 @@ def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=N
                          f"{tuple(ck.shape)}")
     KV, bs = ck.shape[1], ck.shape[2]
     if Dh not in HEAD_DIMS:
-        raise ValueError(f"split-K decode kernel: head_dim {Dh} not built {HEAD_DIMS}")
+        raise ValueError(f"split-K decode kernel: head_dim {Dh} not built {HEAD_DIMS} "
+                         f"({HEAD_DIM_LATER})")
     table = _index(block_table, B, dev, "block table", dims=2)
     lens = _index(kv_len, B, dev, "kv_len")
     slopes = alibi_operand(alibi_slopes, H, dev, "split-K decode kernel")

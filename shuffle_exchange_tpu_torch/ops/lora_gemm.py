@@ -19,10 +19,12 @@ and how its design answers it). It replaces the TPU's
 ``lora_delta_pallas``. The JAX route sends shapes the TPU tiling does not
 take (D or N not a multiple of 128, R not a multiple of 8) to its gather
 oracle; the port has no such gate: the kernel takes every D and N and any
-rank up to 64, and raises for the rest. The kernel reads ``slots`` on the
-device, so no call here copies a device value to the host. The wrapper
-runs its kernel for a CUDA tensor and its plain version for a CPU tensor,
-and counts one launch per call on the card (``lora_delta.launches``).
+rank (above 64 in rank chunks of 64, with mid in device scratch the
+wrapper allocates), and raises for the rest (dtypes, alignment). The
+kernel reads ``slots`` on the device, so no call here copies a device
+value to the host. The wrapper runs its kernel for a CUDA tensor and its
+plain version for a CPU tensor, and counts one launch per call on the
+card (``lora_delta.launches``).
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ import torch
 
 from .dispatch import resolve_grouped_gemm
 
-#: the largest pool rank (``adapters.max_rank``) the kernel takes
-MAX_RANK = 64
+#: the ranks the kernel's shared-memory forms take; above it, stage 1 runs in
+#: rank chunks of this many columns and mid goes to f32 scratch on the card
+CHUNK_RANK = 64
 
 
 def lora_delta_reference(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
@@ -70,7 +73,7 @@ def lora_delta(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
                slots: torch.Tensor) -> torch.Tensor:
     """x [B, T, D] @ a_stack[slots] [B, D, R] @ b_stack[slots] [B, R, N] ->
     [B, T, N] in x's dtype (f32 sums, f32 mid). The CUDA kernel on a CUDA
-    tensor (bf16 operands, int32 slots on the device, R <= 64), the plain
+    tensor (bf16 operands, int32 slots on the device, any rank), the plain
     version on a CPU tensor."""
     _check_shapes(x, a_stack, b_stack, slots)
     if resolve_grouped_gemm("lora", x) == "plain":
@@ -96,7 +99,7 @@ def _lib():
         from . import _build
 
         lib = _build.load("lora_gemm")
-        lib.sxt_lora_delta_bf16.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+        lib.sxt_lora_delta_bf16.argtypes = [_P] * 6 + [_I] * 6 + [_P]
         lib.sxt_lora_delta_bf16.restype = ctypes.c_int
         lib.sxt_lora_error_string.argtypes = [ctypes.c_int]
         lib.sxt_lora_error_string.restype = ctypes.c_char_p
@@ -108,9 +111,6 @@ def _launch(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
             slots: torch.Tensor) -> torch.Tensor:
     dev = x.device
     B, T, D, S, R, N = _check_shapes(x, a_stack, b_stack, slots)
-    if R > MAX_RANK:
-        raise ValueError(f"lora_delta kernel: rank {R} exceeds the kernel's limit of "
-                         f"{MAX_RANK} (adapters.max_rank <= {MAX_RANK})")
     for name, t in (("x", x), ("a_stack", a_stack), ("b_stack", b_stack)):
         if t.dtype != torch.bfloat16 or t.device != dev:
             raise TypeError(f"lora_delta kernel: {name} must be bf16 on {dev}, got {t.dtype} on "
@@ -131,9 +131,12 @@ def _launch(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
     out = torch.empty(B, T, N, device=dev, dtype=torch.bfloat16)
     if out.numel() == 0:
         return out
+    mid = (torch.empty(B, T, R, device=dev, dtype=torch.float32) if R > CHUNK_RANK
+           else None)
     lib = _lib()
     err = lib.sxt_lora_delta_bf16(x.data_ptr(), a_stack.data_ptr(), b_stack.data_ptr(),
-                                  slots.data_ptr(), out.data_ptr(), B, T, D, R, N, S,
+                                  slots.data_ptr(), out.data_ptr(),
+                                  None if mid is None else mid.data_ptr(), B, T, D, R, N, S,
                                   torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"lora_delta kernel launch failed: CUDA error {err} "
@@ -141,4 +144,4 @@ def _launch(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
     return out
 
 
-__all__ = ["MAX_RANK", "lora_delta", "lora_delta_reference"]
+__all__ = ["CHUNK_RANK", "lora_delta", "lora_delta_reference"]

@@ -31,11 +31,13 @@ The plain versions gather and then dequantize in f32 (JAX ``gather_kv``'s
 pairs); the kernels stage the tile's raw one-byte rows and its scales in
 shared memory and form ``float(q) * scale`` in f32 when they read an
 element, which is JAX's ``kb * s[:, None]``. Slopes and scales compose.
-The kernels take head_dim 64, 128 or 256 (GPT-J-6B's) and any query-head
-group ``G = H / KV``: a decode block takes ``decode_head_chunk(G, Dh)``
-query heads of its kv head (Falcon-7B's 71 heads of 64 over one kv head
-make 5 blocks a sequence), and the extend kernel tiles a kv head's
-flattened query rows by 64.
+The kernels take head_dim 64, 128, 256 (GPT-J-6B's), 80 (Pythia-2.8b's)
+or 96 (Phi-3-mini's) and any query-head group ``G = H / KV``: a decode
+block takes ``decode_head_chunk(G, Dh)`` query heads of its kv head
+(Falcon-7B's 71 heads of 64 over one kv head make 5 blocks a sequence; a
+chunk is 12 heads at 80 and 10 at 96), and the extend kernel tiles a kv
+head's flattened query rows by 64. Another head dim raises, naming its
+ROADMAP item (``HEAD_DIM_LATER``).
 """
 
 from __future__ import annotations
@@ -228,8 +230,12 @@ _SIGNATURES = {
 }
 #: the kernels' storage codes (paged_tile.cuh: KvBf16, KvInt8, KvFp8)
 KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
-#: the head dims the paged kernels (and the split-K decode kernel) are built for
-HEAD_DIMS = (64, 128, 256)
+#: the head dims the paged kernels (and the split-K decode kernel) are built for:
+#: multiples of 16, so a stored row is whole 16-byte vectors
+HEAD_DIMS = (64, 80, 96, 128, 256)
+#: what a head dim outside HEAD_DIMS waits for
+HEAD_DIM_LATER = ("ROADMAP queue A, item 4 (h): the paged and split-K kernels are built at "
+                  "head dims that are multiples of 16")
 #: query-head columns (heads x head_dim) one decode block accumulates, at most
 DECODE_CHUNK_COLS = 1024
 
@@ -297,7 +303,7 @@ def _check_operands(q, ck, cv, k_scale=None, v_scale=None) -> int:
         raise ValueError(f"paged kernel: q heads {H} / Dh {Dh} do not match "
                          f"pool {tuple(ck.shape)}")
     if Dh not in HEAD_DIMS:
-        raise ValueError(f"paged kernel: head_dim {Dh} not built {HEAD_DIMS}")
+        raise ValueError(f"paged kernel: head_dim {Dh} not built {HEAD_DIMS} ({HEAD_DIM_LATER})")
     return kind
 
 

@@ -549,10 +549,19 @@ def test_falcon_and_the_wide_split_k_groups_refuse(monkeypatch):
 
 
 def test_head_dim_256_refusals_of_the_flash_backward_and_alibi():
+    """The flash forward and the paged kernels take 256 (and 80 and 96);
+    the flash backward refuses 256 naming item 4 (d) (i), the training half
+    of the parallel-block families, and 80 / 96 naming item 4 (h); the
+    ALiBi kernels take 64 and 128 alone, as the TPU ones do."""
     q = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16)
     tfa.check_operands(q, q, q)   # the forward is built for 256
-    with pytest.raises(ValueError, match="head_dim 256 not built .*item 4 \\(d\\)"):
+    with pytest.raises(ValueError, match="head_dim 256 not built .*item 4 \\(d\\) \\(i\\)"):
         tfa.check_operands(q, q, q, backward=True, out=q, dout=q)
+    for dh in (80, 96):
+        q80 = torch.zeros(1, 8, 2, dh, dtype=torch.bfloat16)
+        tfa.check_operands(q80, q80, q80)
+        with pytest.raises(ValueError, match=f"head_dim {dh} not built .*item 4 \\(h\\)"):
+            tfa.check_operands(q80, q80, q80, backward=True, out=q80, dout=q80)
     with pytest.raises(ValueError, match="head_dim 256 not built"):
         tal.check_operands(q, q, q, torch.ones(2))
-    assert 256 in tpa.HEAD_DIMS and 256 not in tal.HEAD_DIMS   # the paged kernels take 256
+    assert {80, 96, 256} <= set(tpa.HEAD_DIMS) and 256 not in tal.HEAD_DIMS
