@@ -87,7 +87,15 @@ non-zero exit code. The phases:
    head_dim 256; tolerances shown to catch the norm applied anyway, ``ln_b``
    read, y_src swapped for resid, the rotation over all of Dh, the partner
    at Dh/2, the pass-through columns rotated, the softmax scale of head_dim
-   128, the neighbouring head and a shifted causal diagonal.
+   128, the neighbouring head and a shifted causal diagonal; phases 2o and
+   2p for the wide query-head groups and the head dims 80 and 96; phase 2q
+   for the flash backward at head_dim 256 (its dv and dk passes and the dq
+   pass): GPT-J-6B's training shape (8 x 2048 and 2047, 16 heads), a GQA
+   group of 4, segment ids, a full mask with T < S and the Fixed layout
+   through a tile map, each timed beside its bound and SDPA's backward
+   (its backend named), with a shifted diagonal and the softmax scale of
+   head_dim 128 as bites, and one ``sparse_attention`` call at 256 under
+   autograd.
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
    Llama-3-8B at full width and depth with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
@@ -115,8 +123,9 @@ non-zero exit code. The phases:
    ``decode_loop`` against the single-token ``put()`` loop, the launch
    counters held the same way, the pool bytes of bf16, int8 and fp8 and a
    profiled int8 decode window.
-3e. Mixtral-8x7B at full width and depth on the same card, its experts and
-   attention matrices in int8 storage made from a seed (47.7 GB): a serve
+3e. Mixtral-8x7B at full width, 16 of its 32 layers, on the same card, its
+   experts and attention matrices in int8 storage made from a seed (23.9 GB;
+   all 32 layers, 47.7 GB, ran until the time limit forced the cut): a serve
    with ``serving.moe.moe_impl`` "ragged" and one with "auto" (the
    capacity route), ``put()`` + ``decode_loop`` against the single-token
    ``put()`` loop and the v1 ``generate``, every engine over the one
@@ -202,6 +211,14 @@ non-zero exit code. The phases:
 5d. GPT-2 125M under ``bench.py``'s ``_config1`` (AdamW, ZeRO 1, bf16, no
    remat), batch 16 x 1024: the same metrics, B14 on the MHA path.
 6c. BLOOM-1b7 cut to depth 2 as phase 6, against the CPU f32 engine.
+5e. GPT-J-6B (``config_from_hf`` of its published config: shared-layernorm
+   parallel blocks, interleaved RoPE over 64 of 256 columns, an
+   unembedding bias) at 14 of its 28 layers (3.23 B parameters; all 28 do
+   not fit one card's optimizer state), batch 8 x 2048, phase 5's config,
+   full remat, 9 steps + 1 profiled: the same metrics, and the flash
+   backward at head_dim 256 once a layer and step. 5f. Pythia-1.4b whole
+   (two layernorms, partial rotary) at 16 x 2048. 6d. Each cut to depth 2
+   as phase 6, against the CPU f32 engine.
 
 The second-to-last line of standard output is one JSON object with a row
 per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -2671,6 +2688,9 @@ def multi_tenant_serving(model, params, prompts, n_layers, card, seed, stripes=M
 MOE_SERVE = dict(SERVE_CONFIG, quantize_weights=True, quant_bits=8,
                  serving=dict(SERVE_CONFIG["serving"], moe={"moe_impl": "ragged"}))
 MOE_AUTO = dict(MOE_SERVE, serving=dict(SERVE_CONFIG["serving"], moe={"moe_impl": "auto"}))
+# phase 3e's depth, cut to 16 of Mixtral-8x7B's 32 layers (23.9 GB of int8
+# storage) to keep the whole script within its time limit
+MOE_SERVE_DEPTH = 16
 
 
 def _seeded_storage(lead, K, N, std, gen, bits, device="cuda"):
@@ -2730,7 +2750,8 @@ def mixtral_params(cfg, gen, bits=8, device="cuda"):
 
 
 def mixtral_serving(cfg, seed, card, device="cuda"):
-    """3e: Mixtral-8x7B at full width and depth on one card, int8 experts
+    """3e: Mixtral-8x7B at full width (``MOE_SERVE_DEPTH`` layers in the
+    script) on one card, int8 experts
     and attention matrices: a counted ``serve()`` of the phase-3 requests
     with ``serving.moe.moe_impl`` "ragged" and "auto" (the capacity
     route), ``put()`` + ``decode_loop`` (tokens equal to the single-token
@@ -5267,6 +5288,182 @@ def wide_rank_serving(model, params, card, seed):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2q: the flash backward at head_dim 256 (GPT-J-6B's training)
+# ---------------------------------------------------------------------------
+
+# (label, B, T, S, H, KV, causal, segments), head_dim 256: GPT-J-6B's
+# training shape at 2,048 positions (the kernels line's cell) and at the
+# step's 2,047 after the label shift, a GQA group of 4 at ragged T, segment
+# ids, and a full mask with T < S; every cell timed
+FLASH_BWD_256_SHAPES = [
+    ("gpt-j-6b", 8, 2048, 2048, 16, 16, True, False),
+    ("gpt-j-6b step", 8, 2047, 2047, 16, 16, True, False),
+    ("gqa 16/4", 2, 1000, 1000, 16, 4, True, False),
+    ("segments", 2, 1000, 1000, 16, 16, True, True),
+    ("full T<S", 2, 200, 1000, 16, 4, False, False),
+]
+# the Fixed layout (blocks of 128, causal) at 1,024 positions, 16/4 heads of 256
+FLASH_BWD_256_MASK = (1024, 16, 4)
+
+
+def _sdpa_backend(kernels) -> str:
+    """Which SDPA backend ran, from the names of the kernels it launched
+    (the profiler sometimes records none)."""
+    if not kernels:
+        return "not recorded (the profiler saw no kernel)"
+    names = " ".join(kernels).lower()
+    for key, backend in (("cudnn", "cuDNN"), ("flash", "flash attention"),
+                         ("fmha", "memory-efficient"), ("efficient", "memory-efficient")):
+        if key in names:
+            return backend
+    return "math (no fused backend took the call)"
+
+
+def check_flash_bwd_256(gen, seed):
+    """Phase 2q: the flash backward at head_dim 256 (the delta pass, the dv
+    and dk passes and the dq pass: B14 as the n_rep = 1 case of B15, and
+    B15's element-mask form) against its plain version
+    (reference_attention_bwd on the kernel's own forward out), with the
+    forward's out and lse, at FLASH_BWD_256_SHAPES and the Fixed layout of
+    FLASH_BWD_256_MASK through a TileMask. At the first cell a plain
+    version with the causal diagonal shifted by one and one with the
+    softmax scale of head_dim 128 must fail the tolerance, and two runs
+    must give equal bits. Every cell timed (mean of 10, cold L2) beside
+    its bound (10 x pairs x H x Dh at the bf16 peak), the plain version and
+    SDPA's backward on the same operands (its backend named). Then one
+    ``sparse_attention`` call at 256 under autograd, with the launch
+    counters zeroed just before: forward and backward once each."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch import ops
+    from shuffle_exchange_tpu_torch.ops import sparse_attention as sa
+    from shuffle_exchange_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                                flash_attention_lse,
+                                                                reference_attention,
+                                                                reference_attention_bwd,
+                                                                reference_attention_lse,
+                                                                tile_mask)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 28])
+    Dh = 256
+    fixed = sa.FixedSparsityConfig(block=128, num_local_blocks=4, num_global_blocks=1)
+    Tm, Hm, KVm = FLASH_BWD_256_MASK
+    cells = FLASH_BWD_256_SHAPES + [("fixed mask", 1, Tm, Tm, Hm, KVm, True, "mask")]
+    out_rows = []
+    for i, (label, B, T, S, H, KV, causal, extra) in enumerate(cells):
+        q = torch.randn(B, T, H, Dh, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
+        dout = torch.randn(B, T, H, Dh, generator=gen, device="cuda").bfloat16()
+        seg, mask, em = None, None, None
+        if extra is True:
+            seg = torch.from_numpy(np.sort(rng.integers(0, 4, size=(B, T)), axis=1)
+                                   .astype(np.int32)).cuda()
+        if extra == "mask":
+            em = sa.element_mask(fixed.make_layout(T), fixed.block, T, T, True)
+            mask, causal = tile_mask(em), False
+        out, lse = flash_attention_lse(q, k, v, causal, seg, mask=mask)
+        want_out, want_lse = reference_attention_lse(q, k, v, causal, seg, p_f32=True,
+                                                     mask=mask)
+        torch.cuda.synchronize()
+        out_err, out_ok = paged_close(out, want_out)
+        lse_err = (lse - want_lse).abs().max().item()
+        _check(out_ok and lse_err <= LSE_TOL, f"flash forward at 256 ({label}) disagrees with "
+               f"its plain version: out {out_err.max().item()}, lse {lse_err}")
+        del want_out, want_lse
+        run = lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal, seg, mask=mask)
+        plain = lambda: reference_attention_bwd(q, k, v, out, dout, causal, seg, mask=mask)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        checks = [grad_close(g, w) for g, w in zip(got, want)]
+        errs = {n: e.max().item() for n, (e, _) in zip(("dq", "dk", "dv"), checks)}
+        _check(all(ok for _, ok in checks), f"flash backward at 256 ({label}) disagrees with "
+               f"its plain version: {errs}")
+        allowed = torch.ones(T, S, dtype=torch.bool, device="cuda")
+        if em is not None:
+            allowed = torch.from_numpy(em).cuda()
+        elif causal:
+            allowed = allowed.tril()
+        if seg is not None:
+            allowed = allowed[None] & (seg[:, :, None] == seg[:, None, :])
+        pairs = int(allowed.sum().item()) * (1 if allowed.dim() == 3 else B)
+        row = dict(shape=dict(label=label, B=B, T=T, S=S, H=H, KV=KV, Dh=Dh, causal=causal,
+                              segment_ids=seg is not None, mask=mask is not None),
+                   visible_pairs=pairs, max_abs_err=max(errs.values()), errs=errs,
+                   lse_max_abs_err=lse_err, fwd_out_max_abs_err=out_err.max().item(),
+                   tolerance=GRAD_TOL + f"; lse {LSE_TOL} abs; forward out {PAGED_TOL}",
+                   within=True)
+        if i == 0:
+            again = run()
+            torch.cuda.synchronize()
+            row["equal_bits_twice"] = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+            _check(row["equal_bits_twice"], "two runs of the flash backward at 256 differ")
+            del again
+            small = slice(0, 2)
+            shifted = torch.ones(T, S, dtype=torch.bool, device="cuda").tril(1)
+            broken = _masked_plain_grads(q[small], k[small], v[small], dout[small], shifted)
+            bites = {f"diagonal_shifted_{n}": not grad_close(g[small], w)[1]
+                     for n, g, w in zip(("dq", "dk", "dv"), got, broken)}
+            leaves = [t[small].float().requires_grad_(True) for t in (q, k, v)]
+            scaled = torch.autograd.grad(
+                reference_attention(leaves[0] * 2 ** 0.5, leaves[1], leaves[2], causal, None,
+                                    p_f32=True), leaves, dout[small].float())
+            bites.update({f"scale_of_dh_128_{n}": not grad_close(g[small], w.bfloat16())[1]
+                          for n, g, w in zip(("dq", "dk", "dv"), got, scaled)})
+            row["tolerance_bites"] = bites
+            _check(any(bites[f"diagonal_shifted_{n}"] for n in ("dq", "dk", "dv"))
+                   and all(bites[f"scale_of_dh_128_{n}"] for n in ("dq", "dk", "dv")),
+                   f"the flash backward tolerance at 256 misses {bites}")
+            del broken, leaves, scaled
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        dos = dout.transpose(1, 2).contiguous()
+        sdpa_kw = dict(is_causal=causal, enable_gqa=True)
+        if em is not None:
+            sdpa_kw = dict(attn_mask=torch.from_numpy(em).cuda()[None, None], enable_gqa=True)
+        elif seg is not None:
+            sdpa_kw = dict(attn_mask=allowed[:, None], enable_gqa=True)
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
+        lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dos, retain_graph=True)
+        nbytes = (3 * B * T * H * Dh * 2 + 2 * B * S * KV * Dh * 2 + B * H * T * 4   # reads
+                  + B * T * H * Dh * 2 + 2 * B * S * KV * Dh * 2)                    # writes
+        b_ms, b_by = bound(nbytes, 10.0 * pairs * H * Dh)
+        kernels = _sdpa_kernels(lib)
+        row.update(ms=time_cold(run, iters=10), host_us=host_us(run),
+                   plain_ms=time_cold(plain, iters=3), library_ms=time_cold(lib, iters=10),
+                   library=f"SDPA backward (torch.autograd.grad of scaled_dot_product_attention"
+                           f", enable_gqa{', boolean attn_mask' if 'attn_mask' in sdpa_kw else ''}"
+                           f"): {_sdpa_backend(kernels)}",
+                   library_kernels=kernels, bound_ms=b_ms, bound_by=b_by)
+        row["tflops"] = 10.0 * pairs * H * Dh / (row["ms"] * 1e-3) / 1e12
+        out_rows.append(row)
+        del q, k, v, dout, out, lse, got, want, qs, ks, vs, dos, lib_out, allowed
+        torch.cuda.empty_cache()
+    # the element-mask form's user path at 256: one sparse_attention call under autograd
+    gen2 = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(1, Tm, h, Dh, generator=gen2, device="cuda").bfloat16()
+               .requires_grad_(True) for h in (Hm, KVm, KVm))
+    ops.reset_launch_counts()
+    out = sa.sparse_attention(q, k, v, fixed, causal=True)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    finite = bool(torch.isfinite(out).all().item()) and all(
+        bool(torch.isfinite(t.grad).all().item()) for t in (q, k, v))
+    _check(finite and launches["flash_attention"] == 1 and launches["flash_attention_bwd"] == 1
+           and sum(launches.values()) == 2, f"sparse_attention at head_dim 256: finite {finite}, "
+           f"launches {launches}")
+    out_rows[-1]["sparse_attention_call"] = dict(finite=finite, launches={
+        k_: n for k_, n in launches.items() if n})
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    print(f"[kernel] flash backward at head_dim 256: {len(out_rows)} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out_rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: train the ladder's pick through initialize() + train_batch
 # ---------------------------------------------------------------------------
 
@@ -5300,6 +5497,12 @@ GPT2_BATCH, GPT2_SEQ = 16, 1024
 # once within its first ~10 steps and falls again, in f32 on the CPU as in
 # bf16 on the card (the port's f32 path equals the JAX engine's)
 GPT2_STEPS = (3, 3, 6)
+# phases 5e / 5f: (name, published config, layers (None = all), (batch, seq)):
+# GPT-J-6B at 14 of its 28 layers (3.23 B parameters, 45.2 GB of state at 14
+# bytes a parameter; all 28 layers, 6.05 B, do not fit one 80 GB card), the
+# cut phase 3j serves, at batch 8 x 2048; Pythia-1.4b whole at BLOOM's batch
+PB_TRAIN = [("gpt-j-6b", GPTJ_6B, 14, (8, 2048)),
+            ("pythia-1.4b", PYTHIA_1B4, None, (BLOOM_BATCH, BLOOM_SEQ))]
 
 
 def config3(moe_impl="capacity"):
@@ -5783,6 +5986,8 @@ def main(argv=None) -> int:
     # 2p. B2, B3, B5 and the flash forward at head dims 80 and 96 (Pythia-2.8b,
     # Phi-3-mini), B4 and B6 at their widths, B9 above rank 64
     hd_forms = check_head_dim_forms(gen, args.seed)
+    # 2q. the flash backward at head_dim 256 (GPT-J-6B's training; its mask form)
+    fb256 = check_flash_bwd_256(gen, args.seed)
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
                "fused_qkv_rope": qkv, "fused_paged_decode_attention": [fdec],
                "fused_mlp": mlp, "fused_mlp_quant": qmlp, "quant_matmul": qmm,
@@ -5793,7 +5998,8 @@ def main(argv=None) -> int:
                "flash_attention_bwd": fbwd, "fused_adamw": adamw,
                "alibi_flash_attention": al_fwd, "alibi_flash_attention_bwd_dq": al_dq,
                "alibi_flash_attention_bwd_dkv": al_dkv, **forms, **kv_forms, **mask_forms,
-               **mq_forms, **pb_forms, **wg_forms, **hd_forms}
+               **mq_forms, **pb_forms, **wg_forms, **hd_forms,
+               "flash_attention_bwd[dh256]": fb256}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
@@ -5811,7 +6017,8 @@ def main(argv=None) -> int:
                                        "library_max_abs_err", "ms_without_slopes",
                                        "ms_without_biases", "ms_bf16_pool",
                                        "unmasked_causal_ms", "zero_rows_exact",
-                                       "tile_map_ms", "dense_on_cuda_refused") if k in r}
+                                       "tile_map_ms", "dense_on_cuda_refused",
+                                       "sparse_attention_call") if k in r}
             timed = ("" if "ms" not in r else
                      f"kernel_ms={r['ms']} host_us={r['host_us']} plain_ms={r['plain_ms']} "
                      f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} ({r['bound_by']}) ")
@@ -5936,12 +6143,12 @@ def main(argv=None) -> int:
     kv_e2es = {"llama-3-8b": kv_e2e("llama-3-8b", cfg2, state2, args.seed)}
     report_e2e("", e2e)
 
-    # 3e. Mixtral-8x7B at full width and depth, int8; the Llama weights go
-    # first: the int8 Mixtral takes 47.7 GB
+    # 3e. Mixtral-8x7B at full width, MOE_SERVE_DEPTH layers, int8; the Llama
+    # weights go first
     del model, params, state2
     gc.collect()
     torch.cuda.empty_cache()
-    mcfg = mixtral_8x7b()
+    mcfg = dataclasses.replace(mixtral_8x7b(), n_layers=MOE_SERVE_DEPTH)
     t0 = time.perf_counter()
     mixtral = mixtral_serving(mcfg, args.seed, card)
     print(f"[mixtral] phase 3e in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6261,9 +6468,52 @@ def main(argv=None) -> int:
     _check(sk["loss_is_nan"] and sk["state_bit_equal"] and sk["step_unchanged"]
            and sk["adamw_launches"] == 0, f"a skipped BLOOM step changed the state: {sk}")
 
+    # 5e. GPT-J-6B's widths at 14 of its 28 layers (head_dim 256: the flash
+    # backward's 256 form); 5f. Pythia-1.4b whole; 6d. each cut to depth 2
+    # against the CPU f32 engine
+    pb_trained, pb_te2e = {}, {}
+    for name, hf, layers, (batch, seq) in PB_TRAIN:
+        pcfg = config_from_hf(hf)
+        pcfg = dataclasses.replace(pcfg, n_layers=layers or pcfg.n_layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pb_trained[name] = train(name, pcfg, args.seed, card, batch=batch, seq=seq,
+                                 steps=MOE_TRAIN_STEPS)
+        print(f"[train {name}] phase {'5e' if layers else '5f'} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        e2e = pb_te2e[name] = train_e2e_check(pcfg, args.seed)
+        print(f"[e2e train {name}] phase 6d, depth 2, bf16 on the card against f32 on the CPU "
+              f"in {time.perf_counter() - t0:.2f} s: losses {e2e['losses']} (relative "
+              f"differences {e2e['loss_rel']}, tol {TRAIN_LOSS_TOL}); worst gradient leaf "
+              f"{e2e['worst_leaf']} {e2e['leaves'][e2e['worst_leaf']]} (tol {TRAIN_GRAD_TOL} x "
+              f"the leaf's largest |value|); skipped step {e2e['skipped']} on {card}", flush=True)
+        for leaf_name, leaf in e2e["leaves"].items():
+            print(f"[e2e train {name}] grad {leaf_name}: max_abs_err={leaf['max_abs_err']} "
+                  f"ref_abs_max={leaf['ref_abs_max']} rel={leaf['rel']}")
+        _check(all(x <= TRAIN_LOSS_TOL for x in e2e["loss_rel"]),
+               f"depth-2 {name} training losses on the card disagree with the CPU f32 path: "
+               f"{e2e['losses']}")
+        _check(all(leaf["rel"] <= TRAIN_GRAD_TOL for leaf in e2e["leaves"].values()),
+               f"depth-2 {name} gradients on the card disagree with the CPU f32 path: "
+               f"{e2e['worst_leaf']}")
+        sk = e2e["skipped"]
+        _check(sk["loss_is_nan"] and sk["state_bit_equal"] and sk["step_unchanged"]
+               and sk["adamw_launches"] == 0, f"a skipped {name} step changed the state: {sk}")
+    # the backward's 256 form on GPT-J's training path: once a layer and step
+    gptj_train = pb_trained["gpt-j-6b"]
+    form_launches["flash_attention_bwd[dh256]"] = gptj_train["launches"]["flash_attention_bwd"]
+    _check(gptj_train["launches_per_step"]["flash_attention_bwd"] == PB_TRAIN[0][2],
+           f"GPT-J-6B's training step did not launch the flash backward at head_dim 256 once "
+           f"a layer: {gptj_train['launches_per_step']}")
+
     runs.append(trained["launches"])
     runs += [t["launches"] for t in moe_trained.values()]
     runs += [bloom["launches"], gpt2["launches"]]
+    runs += [t["launches"] for t in pb_trained.values()]
     launches = {k: sum(r[k] for r in runs) for k in ops.KERNEL_WRAPPERS}
     _check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
 
@@ -6344,7 +6594,8 @@ def main(argv=None) -> int:
               "moe_e2e": moe_e2e,
               "e2e": e2e, "train": trained, "train_e2e": te2e, "train_moe": moe_trained,
               "train_moe_e2e": me2e, "train_bloom": bloom, "train_gpt2": gpt2,
-              "train_bloom_e2e": be2e, "alibi_gpt2_serving": families,
+              "train_bloom_e2e": be2e, "train_parallel_block": pb_trained,
+              "train_parallel_block_e2e": pb_te2e, "alibi_gpt2_serving": families,
               "alibi_gpt2_e2e": family_e2es, "form_launches": form_launches,
               "kv_quant_serving": kvserve, "kv_e2e": kv_e2es,
               "family_quant_serving": fquant, "family_quant_e2e": fquant_e2e,

@@ -7,10 +7,10 @@ kernels (B11-B13), the paged serving kernels (B2 decode, B5 split-K
 decode, B3 extend over bf16, int8 and fp8 pools) and the LoRA delta (B9 at
 the chip smoke test's phase-2g cells) on seeded inputs, and prints for
 each cell a SHA-256 of its output bytes and its mean cold-L2 time. Cells
-of forms a tree does not build (head dims 80 and 96, ranks above 64) run
-only where it builds them, after the others, so both trees give the
-common cells the same inputs. ``--sections`` picks some of them (``flash
-alibi grouped quant paged lora``). Two trees whose digests match
+of forms a tree does not build (head dims 80 and 96, the backward at 256,
+ranks above 64) run only where it builds them, after the others, so both
+trees give the common cells the same inputs. ``--sections`` picks some of
+them (``flash alibi grouped quant paged lora``). Two trees whose digests match
 computed bit-equal results, so a refactor of the kernel sources (shared
 headers, say) is checked against its parent by running this script on
 both, parent-change-change-parent in one session:
@@ -51,6 +51,8 @@ FLASH_CELLS = [
     # the head dims 80 and 96 (Pythia-2.8b's and Phi-3-mini's prefill), where built
     ("phi-3-mini prefill fwd", 8, 1024, 1024, 32, 32, 96, True, False),
     ("pythia-2.8b prefill fwd", 8, 1024, 1024, 32, 32, 80, True, False),
+    # GPT-J-6B's training at head_dim 256 (its backward where built)
+    ("gpt-j-6b train fwd+bwd", 8, 2047, 2047, 16, 16, 256, True, False),
 ]
 # (label, B, T, S, H, KV, Dh)
 ALIBI_CELLS = [("B11-B13 bloom-1b7", 2, 2047, 2047, 16, 16, 128),
@@ -242,7 +244,7 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
         fwd = lambda: fa.flash_attention_lse(q, k, v, causal, segs)
         out, lse = fwd()
         cells[f"{label}: forward"] = dict(digest=digest((out, lse)), ms=time_cold(fwd))
-        if "bwd" in label:
+        if "bwd" in label and Dh in fa.BWD_HEAD_DIMS:
             bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, causal, segs)
             cells[f"{label}: backward"] = dict(digest=digest(bwd()), ms=time_cold(bwd))
     try:

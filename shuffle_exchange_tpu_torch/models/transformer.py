@@ -2,24 +2,22 @@
 GPT-J and GPT-NeoX (Pythia).
 
 Counterpart of ``shuffle_exchange_tpu/models/transformer.py`` cut to what
-the serving and training slices run. Training takes RMSNorm or layernorm,
-rotate-half RoPE, learned positions or ALiBi, grouped-query attention with
-optional q/k/v/out biases, SwiGLU, a plain MLP (gelu, gelu_new,
-gelu_pytorch_tanh, relu or silu, with or without fc biases) or a
-Mixtral-style MoE FFN (``n_experts`` > 0: top-k routed experts in every
-layer, an optional shared expert), ``embed_ln`` and a tied or untied
-unembedding. Serving takes the same structures (``check_servable``),
-with weight quantization and adapters on every one of them, and besides
-the parallel blocks of GPT-J (one shared layernorm) and GPT-NeoX (two),
-interleaved (GPT-J) and partial (``rotary_dim``) RoPE and GPT-J's
-unembedding bias; the training forward refuses those (``check_supported``:
-the flash backward at head_dim 256 is ROADMAP queue A, item 4 (d)). The
-pieces the inference engines call (``embed``, ``head``) and the training
-forward (``layer_apply``, ``stack_apply``, ``chunked_loss``, ``loss``) are
-functional like the JAX ones: they take the parameters as a
-flattened-name dict, so the training engine differentiates with respect
-to its own forward copy of the weights. The parameters keep
-the JAX package's leaf names and layouts — per-layer weights stacked on a
+the serving and training slices run. Training and serving take the same
+structures: RMSNorm or layernorm, RoPE (rotate-half or GPT-J's interleaved
+pairs, over all of head_dim or its first ``rotary_dim`` columns), learned
+positions or ALiBi, grouped-query attention with optional q/k/v/out
+biases, SwiGLU, a plain MLP (gelu, gelu_new, gelu_pytorch_tanh, relu or
+silu, with or without fc biases) or a Mixtral-style MoE FFN (``n_experts``
+> 0: top-k routed experts in every layer, an optional shared expert),
+sequential or parallel blocks (GPT-J's and Falcon's one shared layernorm,
+GPT-NeoX's two), ``embed_ln`` and a tied or untied unembedding with an
+optional bias (GPT-J's); serving adds weight quantization and adapters on
+every one of them. The pieces the inference engines call (``embed``,
+``head``) and the training forward (``layer_apply``, ``stack_apply``,
+``chunked_loss``, ``loss``) are functional like the JAX ones: they take
+the parameters as a flattened-name dict, so the training engine
+differentiates with respect to its own forward copy of the weights. The
+parameters keep the JAX package's leaf names and layouts — per-layer weights stacked on a
 leading ``[L, ...]`` dim, projections stored ``[in, out]`` — so a JAX
 parameter tree moves over by name (``models/convert.py``) and a test can
 compare the two packages leaf by leaf.
@@ -220,11 +218,6 @@ def pick_ladder_config(device_memory_bytes: int):
 _ACTIVATIONS = ("swiglu", "gelu", "gelu_new", "gelu_pytorch_tanh", "relu", "silu")
 
 
-#: the ROADMAP item of the structures serving takes and training does not
-PARALLEL_TRAINING = ("ROADMAP queue A, item 4 (d): the training half of the parallel-block "
-                     "families, which needs the flash backward at head_dim 256")
-
-
 def _refusals(cfg: TransformerConfig):
     """(refused, what) for every structure neither the training forward
     nor the serving engines take."""
@@ -253,18 +246,11 @@ def _raise_first(checks) -> None:
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for every structure the port's training forward does not take:
-    those of ``check_servable`` and, besides, the parallel blocks,
-    interleaved or partial RoPE and the unembedding bias, which serve but
-    do not train (``PARALLEL_TRAINING``)."""
-    _raise_first(_refusals(cfg) + [
-        (cfg.position == "rope" and cfg.rope_interleaved,
-         f"interleaved (rotate-every-two) rope in training ({PARALLEL_TRAINING})"),
-        (cfg.position == "rope" and cfg.rotary_dim not in (0, cfg.head_dim),
-         f"partial rotary_dim in training ({PARALLEL_TRAINING})"),
-        (cfg.parallel_block, f"parallel blocks in training ({PARALLEL_TRAINING})"),
-        (cfg.unembed_bias, f"unembed_bias in training ({PARALLEL_TRAINING}; the chunked "
-                           "loss takes no unembedding bias)"),
-    ])
+    the same as ``check_servable`` (``post_ln``, local and bidirectional
+    attention stay refused, ROADMAP queue A, item 4). Parallel blocks,
+    interleaved or partial RoPE and the unembedding bias train as they
+    serve."""
+    _raise_first(_refusals(cfg))
 
 
 def check_servable(cfg: TransformerConfig) -> None:
@@ -463,8 +449,6 @@ class Transformer(nn.Module):
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
-        # the serving structures build; the training forward refuses the
-        # ones it does not take (stack_apply)
         check_servable(config)
         self.config = config
         self.device = resolve_device(device)
@@ -665,10 +649,14 @@ class Transformer(nn.Module):
     def layer_apply(self, lw: Dict[str, torch.Tensor], h: torch.Tensor, rope):
         """One block, ``lw`` one layer's leaves: h [B, T, D] -> (h, the
         layer's MoE aux loss, 0 for a dense model). Pre-norm attention
-        (q/k/v biases, then rotate-half RoPE when ``position`` is "rope";
-        ``flash_attention`` with the ALiBi slopes when it is "alibi"; the
-        out bias) and a SwiGLU MLP, a plain MLP with or without fc biases,
-        or the MoE FFN, each added to the residual stream."""
+        (q/k/v biases, then RoPE when ``position`` is "rope": rotate-half or
+        interleaved, over the first ``rotary_dims`` columns; ``flash_attention``
+        with the ALiBi slopes when it is "alibi"; the out bias) and a SwiGLU
+        MLP, a plain MLP with or without fc biases, or the MoE FFN. A
+        sequential block adds the attention to the residual stream and
+        feeds the MLP ``ln2`` of the sum; a parallel block (GPT-J, NeoX,
+        Falcon) adds both to the block's input, the MLP fed ``ln1``'s output
+        under ``parallel_shared_ln`` and ``ln2`` of the input otherwise."""
         from ..ops.flash_attention import flash_attention
 
         cfg = self.config
@@ -685,14 +673,21 @@ class Transformer(nn.Module):
             v = v + lw["b_v"].to(dtype).reshape(KV, Dh)
         if cfg.position == "rope":
             cos, sin = rope
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            q = apply_rope(q, cos, sin, interleaved=cfg.rope_interleaved)
+            k = apply_rope(k, cos, sin, interleaved=cfg.rope_interleaved)
         attn = flash_attention(q, k, v, causal=cfg.causal,
                                alibi_slopes=self.alibi(h.device)).reshape(B, T, H * Dh)
         attn_out = attn @ lw["wo"]
         if cfg.attn_out_bias:
             attn_out = attn_out + lw["b_o"].to(dtype)
-        h = h + attn_out
-        y2 = _norm(h, lw["ln2_w"], lw.get("ln2_b"), cfg.norm, eps=cfg.norm_eps)
+        if cfg.parallel_block:
+            # GPT-J / NeoX / Falcon: h + attn(ln1 h) + mlp(ln1 h or ln2 h)
+            y2 = y if cfg.parallel_shared_ln else _norm(h, lw["ln2_w"], lw.get("ln2_b"),
+                                                        cfg.norm, eps=cfg.norm_eps)
+            h = h + attn_out
+        else:
+            h = h + attn_out
+            y2 = _norm(h, lw["ln2_w"], lw.get("ln2_b"), cfg.norm, eps=cfg.norm_eps)
         if cfg.n_experts > 0:
             ff, res = self.moe_ffn(lw, y2)
             return h + ff, res.aux_loss
@@ -771,27 +766,33 @@ class Transformer(nn.Module):
         return nll, mask.sum()
 
     def chunked_loss(self, params, x: torch.Tensor, labels: torch.Tensor, chunk: int):
-        """Final norm + unembed + cross entropy over sequence chunks of
-        ``chunk`` tokens, each checkpointed: the live logits are [B, chunk,
-        vocab], never [B, T, vocab]. The same numbers as ``head`` +
-        ``token_loss`` (the softmax is per token)."""
+        """Final norm + unembed (+ the unembedding bias in f32, as ``head``)
+        + cross entropy over sequence chunks of ``chunk`` tokens, each
+        checkpointed: the live logits are [B, chunk, vocab], never [B, T,
+        vocab]. The same numbers as ``head`` + ``token_loss`` (the softmax
+        is per token). The vocab is not padded (JAX pads it on a TPU only),
+        so no pad mask is added."""
         cfg = self.config
         w = self.unembed_weight(params)
         ln_w = params["ln_f_w"]
         ln_b = params["ln_f_b"] if cfg.norm == "layernorm" else None
+        bias = params["unembed_b"] if cfg.unembed_bias and not cfg.tie_embeddings else None
 
-        def body(xch, lch, ln_w, ln_b, w):
+        def body(xch, lch, ln_w, ln_b, w, bias):
             xn = _norm(xch, ln_w, ln_b, cfg.norm, eps=cfg.norm_eps)
-            return self.token_loss(logits_f32(xn, w), lch)[0]
+            logits = logits_f32(xn, w)
+            if bias is not None:
+                logits = logits + bias.float()
+            return self.token_loss(logits, lch)[0]
 
         nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for a in range(0, x.shape[1], chunk):
             xch, lch = x[:, a:a + chunk].contiguous(), labels[:, a:a + chunk]
             if torch.is_grad_enabled():
-                nll_sum = nll_sum + checkpoint(body, xch, lch, ln_w, ln_b, w,
+                nll_sum = nll_sum + checkpoint(body, xch, lch, ln_w, ln_b, w, bias,
                                                use_reentrant=False)
             else:
-                nll_sum = nll_sum + body(xch, lch, ln_w, ln_b, w)
+                nll_sum = nll_sum + body(xch, lch, ln_w, ln_b, w, bias)
         return nll_sum, (labels >= 0).sum()
 
     def _loss_chunk(self, B: int, T: int) -> int:

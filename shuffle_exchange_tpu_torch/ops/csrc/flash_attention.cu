@@ -64,8 +64,9 @@
 // block an SM. At 80 and 96 a k-step is 16 columns, so QK^T takes 5 and 6
 // k-steps and P.V 10 and 12 column tiles; the staged rows' pitch of Dh + 8
 // elements (176 and 208 bytes) keeps ldmatrix's 8 rows on 8 distinct
-// groups of 4 banks. The backward takes 64 and 128 (the wrapper refuses
-// the rest: training at 80, 96 and 256 is later work).
+// groups of 4 banks. The backward takes 64, 128 and 256 (GPT-J-6B's
+// training); the wrapper refuses 80 and 96, where the TPU package has no
+// kernel either (training at those head dims is later work).
 //
 // The forward optionally writes lse [B, H, T] f32, the natural-log
 // log-sum-exp of each row's scaled scores (the convention of the TPU
@@ -94,6 +95,16 @@
 // (dk/dv pass) and K/V tiles (dq pass) are double-buffered with cp.async;
 // K and V fragments of the dk/dv pass are re-read from shared memory per
 // step instead of held, to stay under 255 registers at Dh 128.
+//
+// At Dh 256 dk and dv would take 256 f32 accumulators a thread, past the
+// 255 registers a thread can hold, so the dk/dv pass runs as two launches
+// of the same kernel: a dv pass (S^T, P^T, dv += P^T dO; V is not staged)
+// and a dk pass (S^T and dP^T, dS^T, dk += dS^T Q), each with 128
+// accumulators, as the forward's O at 256. That costs one more S^T
+// recompute (8 tile products where 64 and 128 do 7); each gradient's sums
+// keep the order of the joint pass. The dq pass re-reads Q's fragments
+// from shared memory at every k-step at 256, as the forward does. Both
+// passes stage 6 tiles of 64 x (256 + 8) bf16 (198 KB, one block an SM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -363,7 +374,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(
   delta_row<DH>(o, dout, delta, rows, T, H);
 }
 
-template <int DH, bool SPARSE>
+// What a dk/dv block computes: both gradients (head dims 64 and 128), or
+// at 256 one of them, in two launches (see the header).
+enum DkvPass : int { kDkDv = 0, kDvOnly = 1, kDkOnly = 2 };
+
+template <int DH, bool SPARSE, int PASS>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -375,9 +390,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   constexpr int NT = kBlockM / 8;     // 8-query column tiles of S^T
   constexpr int DT = DH / 8;          // 8-wide column tiles of dk, dv
   constexpr int TILE = kBlockN * LD;
+  constexpr bool DO_DV = PASS != kDkOnly, DO_DK = PASS != kDvOnly;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [64][LD]
-  __nv_bfloat16* vs = ks + TILE;                                 // [64][LD]
+  __nv_bfloat16* vs = ks + TILE;                                 // [64][LD] (dk only)
   __nv_bfloat16* qs = vs + TILE;                                 // [2][64][LD]
   __nv_bfloat16* dos = qs + 2 * TILE;                            // [2][64][LD]
   float* lses = reinterpret_cast<float*>(dos + 2 * TILE);        // [2][64], log2 domain
@@ -402,7 +418,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int kstride = KV * DH;
   const size_t koff = (size_t(b) * S + k0) * kstride + size_t(kvh) * DH;
   load_tile<DH>(ks, k + koff, kstride, S - k0, k, tid);
-  load_tile<DH>(vs, v + koff, kstride, S - k0, v, tid);
+  if constexpr (DO_DK) load_tile<DH>(vs, v + koff, kstride, S - k0, v, tid);
   if (n_it > 0)
     stage_queries<DH>(qs, dos, lses, dels, q, dout, lse, delta, b, kvh * n_rep,
                       (sparse ? tm.col_qt[base] : qt_lo) * kBlockM, T, H, tid);
@@ -413,11 +429,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int seg_lo = segb ? segb[min(key_lo, S - 1)] : 0;
   const int seg_hi = segb ? segb[min(key_hi, S - 1)] : 0;
 
-  float dkacc[DT][4], dvacc[DT][4];
+  float dkacc[DO_DK ? DT : 1][4], dvacc[DO_DV ? DT : 1][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[d][e] = dvacc[d][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (DO_DK) dkacc[d][e] = 0.f;
+      if constexpr (DO_DV) dvacc[d][e] = 0.f;
+    }
 
   const int a_row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
   for (int it = 0; it < n_it; ++it) {
@@ -440,17 +459,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const float* lse2 = lses + buf * kBlockM;
     const float* del = dels + buf * kBlockM;
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 queries
-    float sacc[NT][4], dpacc[NT][4];
+    // S^T = K Q^T and (for dk) dP^T = V dO^T for this warp's 16 keys x 64 queries
+    float sacc[NT][4], dpacc[DO_DK ? NT : 1][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[n][e] = dpacc[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        sacc[n][e] = 0.f;
+        if constexpr (DO_DK) dpacc[n][e] = 0.f;
+      }
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
       uint32_t ka[4], va[4];
       ldsm_x4(ka, ks + a_row * LD + kk * 16 + a_col);
-      ldsm_x4(va, vs + a_row * LD + kk * 16 + a_col);
+      if constexpr (DO_DK) ldsm_x4(va, vs + a_row * LD + kk * 16 + a_col);
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         const int boff = (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
@@ -459,9 +481,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
         ldsm_x4(r, qtile + boff);
         mma_bf16(sacc[2 * np], ka, r[0], r[1]);
         mma_bf16(sacc[2 * np + 1], ka, r[2], r[3]);
-        ldsm_x4(r, dotile + boff);
-        mma_bf16(dpacc[2 * np], va, r[0], r[1]);
-        mma_bf16(dpacc[2 * np + 1], va, r[2], r[3]);
+        if constexpr (DO_DK) {
+          ldsm_x4(r, dotile + boff);
+          mma_bf16(dpacc[2 * np], va, r[0], r[1]);
+          mma_bf16(dpacc[2 * np + 1], va, r[2], r[3]);
+        }
       }
     }
 
@@ -484,7 +508,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
           p = ok ? p : 0.f;
         }
         sacc[n][e] = p;
-        dpacc[n][e] = p * (dpacc[n][e] - del[c]);
+        if constexpr (DO_DK) dpacc[n][e] = p * (dpacc[n][e] - del[c]);
       }
     }
 
@@ -493,29 +517,37 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 #pragma unroll
     for (int kk = 0; kk < kBlockM / 16; ++kk) {
       uint32_t ph[4], pl[4], sh[4], sl[4];
-      split_bf16x2(sacc[2 * kk][0], sacc[2 * kk][1], ph[0], pl[0]);
-      split_bf16x2(sacc[2 * kk][2], sacc[2 * kk][3], ph[1], pl[1]);
-      split_bf16x2(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16x2(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3], ph[3], pl[3]);
-      split_bf16x2(dpacc[2 * kk][0], dpacc[2 * kk][1], sh[0], sl[0]);
-      split_bf16x2(dpacc[2 * kk][2], dpacc[2 * kk][3], sh[1], sl[1]);
-      split_bf16x2(dpacc[2 * kk + 1][0], dpacc[2 * kk + 1][1], sh[2], sl[2]);
-      split_bf16x2(dpacc[2 * kk + 1][2], dpacc[2 * kk + 1][3], sh[3], sl[3]);
+      if constexpr (DO_DV) {
+        split_bf16x2(sacc[2 * kk][0], sacc[2 * kk][1], ph[0], pl[0]);
+        split_bf16x2(sacc[2 * kk][2], sacc[2 * kk][3], ph[1], pl[1]);
+        split_bf16x2(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1], ph[2], pl[2]);
+        split_bf16x2(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3], ph[3], pl[3]);
+      }
+      if constexpr (DO_DK) {
+        split_bf16x2(dpacc[2 * kk][0], dpacc[2 * kk][1], sh[0], sl[0]);
+        split_bf16x2(dpacc[2 * kk][2], dpacc[2 * kk][3], sh[1], sl[1]);
+        split_bf16x2(dpacc[2 * kk + 1][0], dpacc[2 * kk + 1][1], sh[2], sl[2]);
+        split_bf16x2(dpacc[2 * kk + 1][2], dpacc[2 * kk + 1][3], sh[3], sl[3]);
+      }
 #pragma unroll
       for (int dp = 0; dp < DH / 16; ++dp) {
         const int boff = (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 +
                          (lane / 16) * 8;
         uint32_t r[4];
-        ldsm_x4_trans(r, dotile + boff);
-        mma_bf16(dvacc[2 * dp], ph, r[0], r[1]);
-        mma_bf16(dvacc[2 * dp], pl, r[0], r[1]);
-        mma_bf16(dvacc[2 * dp + 1], ph, r[2], r[3]);
-        mma_bf16(dvacc[2 * dp + 1], pl, r[2], r[3]);
-        ldsm_x4_trans(r, qtile + boff);
-        mma_bf16(dkacc[2 * dp], sh, r[0], r[1]);
-        mma_bf16(dkacc[2 * dp], sl, r[0], r[1]);
-        mma_bf16(dkacc[2 * dp + 1], sh, r[2], r[3]);
-        mma_bf16(dkacc[2 * dp + 1], sl, r[2], r[3]);
+        if constexpr (DO_DV) {
+          ldsm_x4_trans(r, dotile + boff);
+          mma_bf16(dvacc[2 * dp], ph, r[0], r[1]);
+          mma_bf16(dvacc[2 * dp], pl, r[0], r[1]);
+          mma_bf16(dvacc[2 * dp + 1], ph, r[2], r[3]);
+          mma_bf16(dvacc[2 * dp + 1], pl, r[2], r[3]);
+        }
+        if constexpr (DO_DK) {
+          ldsm_x4_trans(r, qtile + boff);
+          mma_bf16(dkacc[2 * dp], sh, r[0], r[1]);
+          mma_bf16(dkacc[2 * dp], sl, r[0], r[1]);
+          mma_bf16(dkacc[2 * dp + 1], sh, r[2], r[3]);
+          mma_bf16(dkacc[2 * dp + 1], sl, r[2], r[3]);
+        }
       }
     }
     __syncthreads();   // every warp is done with this buffer before it is refilled
@@ -526,15 +558,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const int col = d * 8 + tq * 2;
     if (key_lo < S) {
       const size_t at = ((size_t(b) * S + key_lo) * KV + kvh) * DH + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dkacc[d][0] * scale, dkacc[d][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(dvacc[d][0], dvacc[d][1]);
+      if constexpr (DO_DK)
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dkacc[d][0] * scale, dkacc[d][1] * scale);
+      if constexpr (DO_DV)
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dvacc[d][0], dvacc[d][1]);
     }
     if (key_hi < S) {
       const size_t at = ((size_t(b) * S + key_hi) * KV + kvh) * DH + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dkacc[d][2] * scale, dkacc[d][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(dvacc[d][2], dvacc[d][3]);
+      if constexpr (DO_DK)
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dkacc[d][2] * scale, dkacc[d][3] * scale);
+      if constexpr (DO_DV)
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dvacc[d][2], dvacc[d][3]);
     }
   }
 }
@@ -551,6 +589,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   constexpr int NT = kBlockN / 8;
   constexpr int DT = DH / 8;
   constexpr int TILE = kBlockN * LD;
+  // Q's A fragments stay in registers up to Dh 128; at 256 the dq
+  // accumulators take 128 registers a thread, and the fragments are re-read
+  // from the staged Q tile at every k-step instead (as the forward does)
+  constexpr bool QREG = DH <= 128;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);   // [64][LD]
   __nv_bfloat16* dos = qs + TILE;                                // [64][LD]
@@ -599,7 +641,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int d = 0; d < DT; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqacc[d][e] = 0.f;
-  uint32_t qa[KSTEPS][4];
+  uint32_t qa[QREG ? KSTEPS : 1][4];
   const int a_row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
 
   for (int it = 0; it < n_kv; ++it) {
@@ -614,9 +656,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if constexpr (QREG) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qa[kk], qs + a_row * LD + kk * 16 + a_col);
+        for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qa[kk], qs + a_row * LD + kk * 16 + a_col);
+      }
     }
     const int j = sparse ? tm.row_kt[base + it] : it;
     const int blk = sparse ? tm.row_blk[base + it] : -1;
@@ -631,16 +675,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       for (int e = 0; e < 4; ++e) sacc[n][e] = dpacc[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t da[4];
+      uint32_t da[4], qf[4];
       ldsm_x4(da, dos + a_row * LD + kk * 16 + a_col);
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+      } else {
+        ldsm_x4(qf, qs + a_row * LD + kk * 16 + a_col);
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         const int boff = (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
                          ((lane / 8) % 2) * 8;
         uint32_t r[4];
         ldsm_x4(r, kt + boff);
-        mma_bf16(sacc[2 * np], qa[kk], r[0], r[1]);
-        mma_bf16(sacc[2 * np + 1], qa[kk], r[2], r[3]);
+        mma_bf16(sacc[2 * np], qf, r[0], r[1]);
+        mma_bf16(sacc[2 * np + 1], qf, r[2], r[3]);
         ldsm_x4(r, vt + boff);
         mma_bf16(dpacc[2 * np], da, r[0], r[1]);
         mma_bf16(dpacc[2 * np + 1], da, r[2], r[3]);
@@ -723,15 +773,24 @@ cudaError_t launch_bwd(cudaStream_t s, const void* q, const void* k, const void*
 
   const size_t tiles = size_t(6) * kBlockN * (DH + 8) * sizeof(bf);
   const size_t dkv_smem = tiles + 4 * kBlockM * sizeof(float);
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DH, SPARSE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(dkv_smem));
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<DH, SPARSE><<<int(dkv_blocks), kThreads, dkv_smem, s>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seg), tm, static_cast<bf*>(dk),
-      static_cast<bf*>(dv), B, T, S, H, KV, causal, scale, scale_log2);
-  err = cudaGetLastError();
+  auto dkv = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(dkv_smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<int(dkv_blocks), kThreads, dkv_smem, s>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+        static_cast<const bf*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<const int*>(seg), tm,
+        static_cast<bf*>(dk), static_cast<bf*>(dv), B, T, S, H, KV, causal, scale, scale_log2);
+    return cudaGetLastError();
+  };
+  if constexpr (DH > 128) {   // dk and dv in two passes (see the header)
+    err = dkv(flash_bwd_dkv_kernel<DH, SPARSE, kDvOnly>);
+    if (err != cudaSuccess) return err;
+    err = dkv(flash_bwd_dkv_kernel<DH, SPARSE, kDkOnly>);
+  } else {
+    err = dkv(flash_bwd_dkv_kernel<DH, SPARSE, kDkDv>);
+  }
   if (err != cudaSuccess) return err;
 
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DH, SPARSE>,
@@ -820,6 +879,7 @@ int sxt_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, co
   };
   if (Dh == 128) return tiles ? run(launch_bwd<128, true>) : run(launch_bwd<128, false>);
   if (Dh == 64) return tiles ? run(launch_bwd<64, true>) : run(launch_bwd<64, false>);
+  if (Dh == 256) return tiles ? run(launch_bwd<256, true>) : run(launch_bwd<256, false>);   // GPT-J-6B
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,14 +6,15 @@ pallas_attention`` (the stock flash kernel, MHA, forward and backward) and
 ``splash_attention_gqa`` (GQA with unexpanded K/V: the forward, the dq
 pass and the dkv pass): causal and full masks, segment ids, splash's
 element mask ``mask_np`` (a ``TileMask``), any T and S, head_dim 64, 128
-or 256 forward (GPT-J-6B's 256 serves; its Q fragments then stay in shared
-memory), 80 and 96 forward (Pythia-2.8b's and Phi-3-mini's prefill, where
-the JAX package runs its jnp reference: the port's own route on the card)
-and 64 or 128 backward (256 raises, naming the training half of ROADMAP
-queue A, item 4 (d) (i); 80 and 96 name item 4 (h)). The kernels live in
-``ops/csrc/flash_attention.cu`` (whose header says what bounds them on the
-H100 and how the design answers it); ``_build`` compiles that file with
-``nvcc`` at first use and this module binds it with ctypes.
+or 256 forward and backward (GPT-J-6B serves and trains at 256: Q's
+fragments then stay in shared memory, and the dk/dv pass runs as a dv pass
+and a dk pass), and 80 and 96 forward only (Pythia-2.8b's and Phi-3-mini's
+prefill, where the JAX package runs its jnp reference: the port's own route
+on the card; the backward refuses them, naming ROADMAP queue A, item 4
+(h)). The kernels live in ``ops/csrc/flash_attention.cu`` (whose header
+says what bounds them on the H100 and how the design answers it);
+``_build`` compiles that file with ``nvcc`` at first use and this module
+binds it with ctypes.
 
 ``flash_attention`` is differentiable: when an input requires grad, a CUDA
 call goes through a ``torch.autograd.Function`` whose forward also writes
@@ -65,11 +66,8 @@ from .dispatch import use_kernel
 
 _NEG = -1e30     # the mask value of reference_attention and the TPU kernels
 HEAD_DIMS = (64, 80, 96, 128, 256)   # the forward kernel's instances
-BWD_HEAD_DIMS = (64, 128)            # the backward kernels'
-#: what the backward at head_dim 256 waits for
-BWD_LATER = ("ROADMAP queue A, item 4 (d) (i): the flash backward at head_dim 256 is the training "
-             "half of the parallel-block families")
-#: what every other unbuilt head dim waits for (the TPU package has no kernel at 80 or 96)
+BWD_HEAD_DIMS = (64, 128, 256)       # the backward kernels'
+#: what every unbuilt head dim waits for (the TPU package has no kernel at 80 or 96)
 LATER = "ROADMAP queue A, item 4 (h): training at head dims 80 and 96, and other head dims"
 TILE = 64        # the kernels' query and key tile (flash_tile.cuh: kBlockM, kBlockN)
 
@@ -420,7 +418,7 @@ def check_operands(q, k, v, segment_ids=None, *, backward: bool = False, **more)
     Dh = q.shape[3]
     if backward and Dh not in BWD_HEAD_DIMS:
         raise ValueError(f"flash attention backward kernels: head_dim {Dh} not built "
-                         f"{BWD_HEAD_DIMS} ({BWD_LATER if Dh == 256 else LATER})")
+                         f"{BWD_HEAD_DIMS} ({LATER})")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel: head_dim {Dh} not built {HEAD_DIMS} "
                          f"({LATER})")
@@ -470,7 +468,8 @@ def _launch(q, k, v, causal, segment_ids, want_lse: bool, mask=None):
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, segment_ids, mask=None):
-    """(dq, dk, dv): the delta, dk/dv and dq kernels, in that order."""
+    """(dq, dk, dv): the delta, dk/dv (at head_dim 256 a dv and a dk pass)
+    and dq kernels, in that order."""
     dev = q.device
     _same_device(dev, k=k, v=v, out=out, lse=lse, dout=dout, segment_ids=segment_ids)
     check_operands(q, k, v, segment_ids, backward=True, out=out, dout=dout)

@@ -155,10 +155,8 @@ def test_config_from_hf_matches_jax_field_for_field(hf):
     for f in dataclasses.fields(got):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     ttf.check_servable(got)
-    # training still refuses the parallel forms, naming item 4 (d)
-    if got.parallel_block:
-        with pytest.raises(NotImplementedError, match="item 4 \\(d\\)"):
-            ttf.check_supported(got)
+    # training takes the parallel forms as serving does
+    ttf.check_supported(got)
 
 
 def test_published_widths_and_parameter_counts():

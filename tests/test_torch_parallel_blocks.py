@@ -497,15 +497,19 @@ def test_launch_counters_follow_the_programs(models, counted_port, decode_kernel
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_training_refuses_the_parallel_block_structures(kind):
+    """No longer refused: each parallel-block structure (interleaved and
+    partial RoPE, the unembedding bias) trains through ``initialize`` and
+    ``train_batch`` on the CPU with a finite loss
+    (``tests/test_torch_train_parallel_blocks.py`` holds its gradients and
+    trajectories against the JAX package)."""
     model = Transformer(tiny(**SHAPES[kind]), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 4 \\(d\\)"):
-        model.loss(params, {"input_ids": np.asarray([[1, 2, 3, 4]])})
-    with pytest.raises(NotImplementedError, match="item 4 \\(d\\)"):
-        sxt.initialize(model=model, config={"train_batch_size": 1}, device="cpu")
-    # an unembedding bias alone refuses training too (the chunked loss takes none)
-    with pytest.raises(NotImplementedError, match="unembed_bias"):
-        ttf.check_supported(dataclasses.replace(tiny(tie_embeddings=False), unembed_bias=True))
+    assert np.isfinite(model.loss(params, {"input_ids": np.asarray([[1, 2, 3, 4]])}).item())
+    engine, *_ = sxt.initialize(model=model, config={
+        "train_batch_size": 1, "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}},
+        device="cpu")
+    assert np.isfinite(float(engine.train_batch({"input_ids": np.asarray([[1, 2, 3, 4, 5]])})))
+    ttf.check_supported(dataclasses.replace(tiny(tie_embeddings=False), unembed_bias=True))
 
 
 def test_falcon_and_the_wide_split_k_groups_refuse(monkeypatch):
@@ -549,14 +553,14 @@ def test_falcon_and_the_wide_split_k_groups_refuse(monkeypatch):
 
 
 def test_head_dim_256_refusals_of_the_flash_backward_and_alibi():
-    """The flash forward and the paged kernels take 256 (and 80 and 96);
-    the flash backward refuses 256 naming item 4 (d) (i), the training half
-    of the parallel-block families, and 80 / 96 naming item 4 (h); the
-    ALiBi kernels take 64 and 128 alone, as the TPU ones do."""
+    """The flash forward and backward and the paged kernels take 256 (the
+    forward and the paged kernels 80 and 96 too); the flash backward
+    refuses 80 / 96 naming item 4 (h); the ALiBi kernels take 64 and 128
+    alone, as the TPU ones do."""
     q = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16)
-    tfa.check_operands(q, q, q)   # the forward is built for 256
-    with pytest.raises(ValueError, match="head_dim 256 not built .*item 4 \\(d\\) \\(i\\)"):
-        tfa.check_operands(q, q, q, backward=True, out=q, dout=q)
+    tfa.check_operands(q, q, q)   # the forward is built for 256, and the backward
+    tfa.check_operands(q, q, q, backward=True, out=q, dout=q)
+    assert 256 in tfa.BWD_HEAD_DIMS
     for dh in (80, 96):
         q80 = torch.zeros(1, 8, 2, dh, dtype=torch.bfloat16)
         tfa.check_operands(q80, q80, q80)

@@ -98,14 +98,16 @@ def test_flash_kernel_operand_check_refuses_unbuilt_head_dims(Dh):
     """On a CUDA tensor the wrapper calls this check before the launch; a
     head_dim the kernel is not built for raises there, naming its ROADMAP
     item, and never reaches the plain version. The forward is built for
-    256 (GPT-J-6B's prefill) and 96 (Phi-3-mini's); the backward is not:
-    at 256 it names the training half of item 4 (d), at 96 item 4 (h)."""
+    256 (GPT-J-6B's prefill) and 96 (Phi-3-mini's); the backward for 256
+    (GPT-J-6B's training) and not for 96, where it names item 4 (h)."""
     q = torch.zeros(1, 8, 4, Dh, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 2, Dh, dtype=torch.bfloat16)
-    if Dh in (96, 256):
+    if Dh == 256:
         tfa.check_operands(q, k, k)
-        item = "item 4 \\(d\\)" if Dh == 256 else "item 4 \\(h\\)"
-        with pytest.raises(ValueError, match=f"head_dim {Dh} not built .*{item}"):
+        tfa.check_operands(q, k, k, backward=True, out=q, dout=q)
+    elif Dh == 96:
+        tfa.check_operands(q, k, k)
+        with pytest.raises(ValueError, match=f"head_dim {Dh} not built .*item 4 \\(h\\)"):
             tfa.check_operands(q, k, k, backward=True, out=q, dout=q)
     else:
         with pytest.raises(ValueError, match=f"head_dim {Dh} not built .*item 4 \\(h\\)"):
