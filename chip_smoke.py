@@ -364,6 +364,15 @@ def paged_close(got, want):
     return err, bool((err <= 2 ** -7 * want.abs() + 1e-3 * rms).all())
 
 
+def equal_bits_twice(run) -> bool:
+    """Two launches of ``run`` on the same inputs give the same bits (no
+    atomics in any sum: the kernels fix their summation order)."""
+    import torch
+
+    a, b = run(), run()
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 def _paged_inputs(gen, rng, lens, H, KV, Dh, bs, pad=0):
     """A bf16 pool holding the sequences' blocks in shuffled order, their
     block tables padded to a power-of-two width with ``pad`` (the scratch
@@ -426,9 +435,11 @@ def check_paged_decode(case):
     B, _, H, Dh = q.shape
     KV, bs = ck.shape[1], ck.shape[2]
     kvl = torch.from_numpy(lens).cuda()
-    got = paged_decode_attention(q, ck, cv, table, kvl)
-    want = paged_decode_reference(q, ck, cv, table, kvl, p_f32=True)
+    run = lambda: paged_decode_attention(q, ck, cv, table, kvl)
+    plain = lambda qq: paged_decode_reference(qq, ck, cv, table, kvl, p_f32=True)
+    got, want = run(), plain(q)
     err, tol_ok = paged_close(got, want)
+    bites, twice = attention_bites(got, plain, q), equal_bits_twice(run)
     want = want.float()
     qs, ks, vs, mask = _sdpa_inputs(q, ck, cv, table, lens[:, None])
     lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
@@ -438,14 +449,15 @@ def check_paged_decode(case):
     row = dict(shape=dict(B=B, H=H, KV=KV, Dh=Dh, bs=bs, kv_len=lens.tolist(),
                           kv_len_total=total, table_width=int(table.shape[1])),
                max_abs_err=err.max().item(), max_rel_err=(err.max() / want.abs().max()).item(),
-               tolerance=PAGED_TOL, within=tol_ok,
-               library_max_abs_err=lib_err,
-               ms=time_cold(lambda: paged_decode_attention(q, ck, cv, table, kvl)),
-               host_us=host_us(lambda: paged_decode_attention(q, ck, cv, table, kvl)),
+               tolerance=PAGED_TOL, within=tol_ok, tolerance_bites=bites,
+               equal_bits_twice=twice, library_max_abs_err=lib_err,
+               ms=time_cold(run), host_us=host_us(run),
                plain_ms=time_cold(lambda: paged_decode_reference(q, ck, cv, table, kvl)),
                library_ms=time_cold(lib), bound_ms=b_ms, bound_by=b_by)
     _check(tol_ok, f"paged decode kernel disagrees with its plain version: "
            f"max abs err {row['max_abs_err']}")
+    _check(all(bites.values()), f"paged decode kernel: the tolerance misses {bites}")
+    _check(twice, "paged decode kernel: two runs gave different bits")
     return row
 
 
@@ -462,13 +474,16 @@ def check_paged_extend(gen, rng):
     ck, cv, table = _paged_inputs(gen, rng, start + nnew, H, KV, Dh, bs)
     q = torch.randn(B, C, H, Dh, generator=gen, device="cuda").bfloat16()
     st, nn = torch.from_numpy(start).cuda(), torch.from_numpy(nnew).cuda()
-    got = paged_extend_attention(q, ck, cv, table, st, nn)
-    want = paged_extend_reference(q, ck, cv, table, st, nn, p_f32=True)
+    run = lambda: paged_extend_attention(q, ck, cv, table, st, nn)
+    plain = lambda qq: paged_extend_reference(qq, ck, cv, table, st, nn, p_f32=True)
+    got, want = run(), plain(q)
     # rows past nnew are padding the engine never reads (the plain version
     # caps them at start + nnew, the kernel keeps them causal)
     checks = [paged_close(got[b, :n], want[b, :n]) for b, n in enumerate(nnew)]
     err = torch.cat([e.flatten() for e, _ in checks])
     tol_ok = all(ok for _, ok in checks)
+    pick = lambda x: torch.cat([x[b, :n].flatten() for b, n in enumerate(nnew)])
+    bites, twice = attention_bites(got, plain, q, pick), equal_bits_twice(run)
     want = want.float()
     ref = torch.cat([want[b, :n].abs().flatten() for b, n in enumerate(nnew)])
     c = np.arange(C)[None, :]
@@ -484,14 +499,15 @@ def check_paged_extend(gen, rng):
     row = dict(shape=dict(B=B, C=C, H=H, KV=KV, Dh=Dh, bs=bs, start=start.tolist(),
                           nnew=nnew.tolist(), table_width=int(table.shape[1])),
                max_abs_err=err.max().item(), max_rel_err=(err.max() / ref.max()).item(),
-               tolerance=PAGED_TOL + " (rows < nnew)",
-               within=tol_ok, library_max_abs_err=lib_err,
-               ms=time_cold(lambda: paged_extend_attention(q, ck, cv, table, st, nn)),
-               host_us=host_us(lambda: paged_extend_attention(q, ck, cv, table, st, nn)),
+               tolerance=PAGED_TOL + " (rows < nnew)", within=tol_ok, tolerance_bites=bites,
+               equal_bits_twice=twice, library_max_abs_err=lib_err,
+               ms=time_cold(run), host_us=host_us(run),
                plain_ms=time_cold(lambda: paged_extend_reference(q, ck, cv, table, st, nn)),
                library_ms=time_cold(lib), bound_ms=b_ms, bound_by=b_by)
     _check(tol_ok, f"paged extend kernel disagrees with its plain version: "
            f"max abs err {row['max_abs_err']}")
+    _check(all(bites.values()), f"paged extend kernel: the tolerance misses {bites}")
+    _check(twice, "paged extend kernel: two runs gave different bits")
     return row
 
 
@@ -502,12 +518,15 @@ SWEEP = [(8, 8, 64, 16), (24, 8, 128, 64), (32, 8, 128, 16), (16, 2, 64, 64)]
 # head chunks), drawn from its own generator so the later phases' inputs stay
 # as they were
 WIDE_SWEEP = (64, 4, 128, 16)
+# groups past one pass of the decode kernel's row tiles (64 query heads a
+# pass at head_dim 128 and 256), each from its own generator too
+PASS_SWEEP = [(72, 1, 128, 64), (65, 1, 256, 16)]
 
 
-def _wide_sweep_case(rng_seed=2048):
+def _wide_sweep_case(rng_seed=2048, shape=WIDE_SWEEP):
     import torch
 
-    H, KV, Dh, bs = WIDE_SWEEP
+    H, KV, Dh, bs = shape
     gen = torch.Generator(device="cuda").manual_seed(rng_seed)
     lens = np.asarray([1, bs, bs + 1, 200, 75], np.int32)
     ck, cv, table = _paged_inputs(gen, np.random.default_rng(rng_seed), lens, H, KV, Dh, bs,
@@ -520,8 +539,8 @@ def check_paged_sweep(gen, rng):
     """Correctness only, at shapes off the smoke path: the SWEEP head
     layouts, kv_len 1 and block-boundary lengths, tables padded with -1,
     one-row and odd-length chunks with rows past nnew, and the decode
-    kernel at WIDE_SWEEP. Returns the largest errors; a disagreement beyond
-    PAGED_TOL fails."""
+    kernel at WIDE_SWEEP and PASS_SWEEP. Returns the largest errors; a
+    disagreement beyond PAGED_TOL fails."""
     import torch
 
     from shuffle_exchange_tpu_torch.ops.paged_attention import (paged_decode_attention,
@@ -561,6 +580,12 @@ def check_paged_sweep(gen, rng):
                     paged_decode_reference(q, ck, cv, table, kvl, p_f32=True))
     _check(ok, f"paged decode kernel disagrees at {WIDE_SWEEP}: {err}")
     worst["decode_wide_group"] = err
+    for i, shape in enumerate(PASS_SWEEP):
+        q, ck, cv, table, kvl = _wide_sweep_case(2049 + i, shape)
+        err, ok = close(paged_decode_attention(q, ck, cv, table, kvl),
+                        paged_decode_reference(q, ck, cv, table, kvl, p_f32=True))
+        _check(ok, f"paged decode kernel disagrees at {shape}: {err}")
+        worst[f"decode_two_passes_{shape[0]}x{shape[2]}"] = err
     torch.cuda.synchronize()
     return worst
 
@@ -2019,6 +2044,7 @@ def _kernel_kind(name: str) -> str:
                       ("residual_epilogue_kernel",
                        "fused_mlp / fused_mlp_quant (norm, epilogues)"),
                       ("paged_decode_kernel", "paged_decode_attention"),
+                      ("paged_decode_merge_kernel", "paged_decode_attention (merge)"),
                       ("paged_extend_kernel", "paged_extend_attention"),
                       ("rmsnorm_kernel", "rmsnorm")):
         if key in low:
@@ -3619,14 +3645,15 @@ def check_alibi_decode(gen, rng):
                                                  alibi_slopes=s)
         got, want = run(), plain(sl)
         err, tol_ok = paged_close(got, want)
-        bites = slope_bites(got, plain, sl)
+        bites, twice = slope_bites(got, plain, sl), equal_bits_twice(run)
         row = dict(shape=dict(label=label, B=len(lens), H=H, KV=KV, Dh=Dh, bs=ck.shape[2],
                               kv_len=lens.tolist(), table_width=int(table.shape[1])),
                    max_abs_err=err.max().item(), tolerance=PAGED_TOL, within=tol_ok,
-                   tolerance_bites=bites)
+                   tolerance_bites=bites, equal_bits_twice=twice)
         _check(tol_ok, f"paged decode kernel with slopes ({label}) disagrees with its plain "
                f"version: max abs err {row['max_abs_err']}")
         _check(all(bites.values()), f"paged decode ({label}): the tolerance misses {bites}")
+        _check(twice, f"paged decode ({label}): two runs gave different bits")
         if label == "bloom":
             lib, lib_rows = _alibi_sdpa(q, ck, cv, table, lens[:, None], sl)
             b_ms, b_by = _decode_bound(q, ck, table, lens)
@@ -3667,15 +3694,16 @@ def check_alibi_extend(gen, rng):
         checks = [paged_close(got[b, :n], want[b, :n]) for b, n in enumerate(nnew)]
         tol_ok = all(ok for _, ok in checks)
         err = max(e.max().item() for e, _ in checks)
-        bites = slope_bites(got, plain, sl, rows=pick)
+        bites, twice = slope_bites(got, plain, sl, rows=pick), equal_bits_twice(run)
         row = dict(shape=dict(label=label, B=B, C=C, H=H, KV=KV, Dh=Dh, bs=bs,
                               start=start.tolist(), nnew=nnew.tolist(),
                               table_width=int(table.shape[1])),
                    max_abs_err=err, tolerance=PAGED_TOL + " (rows < nnew)", within=tol_ok,
-                   tolerance_bites=bites)
+                   tolerance_bites=bites, equal_bits_twice=twice)
         _check(tol_ok, f"paged extend kernel with slopes ({label}) disagrees with its plain "
                f"version: max abs err {err}")
         _check(all(bites.values()), f"paged extend ({label}): the tolerance misses {bites}")
+        _check(twice, f"paged extend ({label}): two runs gave different bits")
         if label == "bloom":
             visible = np.minimum(start[:, None] + np.arange(C)[None, :] + 1,
                                  (start + nnew)[:, None])
@@ -4108,6 +4136,9 @@ def check_kv_quant(gen, rng):
                 what = f"{name} [{fmt}] ({label}, {shape})"
                 _check(tol_ok, f"{what} disagrees with its plain version: max abs err {err}")
                 _check(all(bites.values()), f"{what}: the tolerance misses {bites}")
+                if name != "fused_paged_decode_attention":
+                    row["equal_bits_twice"] = equal_bits_twice(lambda: kernel(*pl))
+                    _check(row["equal_bits_twice"], f"{what}: two runs gave different bits")
                 if timed and n is None:
                     lib = _kvq_library(qq, pl, etable if extend else table,
                                        visible if extend else lens[:, None], sl)
@@ -4915,6 +4946,10 @@ def check_paged_heads(gen, rng, H, KV, Dh, suffix, decode_rows=(8,), pools=("bf1
             _check(tol_ok, f"{form} over a {fmt} pool{' with slopes' if sl is not None else ''} "
                    f"disagrees with its plain version: max abs err {row['max_abs_err']}")
             _check(all(bites.values()), f"{form} ({fmt} pool): the tolerance misses {bites}")
+            if not form.startswith("fused"):
+                row["equal_bits_twice"] = equal_bits_twice(run)
+                _check(row["equal_bits_twice"], f"{form} ({fmt} pool): two runs gave different "
+                       f"bits")
             if fmt in timed and sl is None:
                 k16, v16, served, words = src
                 if fmt == "bf16":

@@ -6,7 +6,11 @@ quantized matmul (B8, both forms), where the tree has them the ALiBi
 kernels (B11-B13), the paged serving kernels (B2 decode, B5 split-K
 decode, B3 extend over bf16, int8 and fp8 pools) and the LoRA delta (B9 at
 the chip smoke test's phase-2g cells) on seeded inputs, and prints for
-each cell a SHA-256 of its output bytes and its mean cold-L2 time. Cells
+each cell a SHA-256 of its output bytes and its mean cold-L2 time. B2 and
+B3 cells are also held to their plain versions (``within`` PAGED_TOL, as
+the chip smoke test holds them), so trees whose B2 / B3 round differently
+still compare, and their bf16 cells carry the time of one SDPA call over
+the gathered K/V (``sdpa_ms``). Cells
 of forms a tree does not build (head dims 80 and 96, the backward at 256,
 ranks above 64) run only where it builds them, after the others, so both
 trees give the common cells the same inputs. ``--sections`` picks some of
@@ -68,7 +72,9 @@ PAGED_CELLS = [("llama 32/8x128", 32, 8, 128, False), ("bloom 16x128 alibi", 16,
                ("gpt-j 16x256", 16, 16, 256, False), ("gqa 16/2x64", 16, 2, 64, False),
                # where built: Phi-3-mini's and Pythia-2.8b's heads (with slopes)
                ("phi-3-mini 32x96", 32, 32, 96, False),
-               ("pythia-2.8b 32x80 alibi", 32, 32, 80, True)]
+               ("pythia-2.8b 32x80 alibi", 32, 32, 80, True),
+               # Falcon-7B's group: 71 query heads over one kv head
+               ("falcon-7b 71/1x64", 71, 1, 64, False)]
 EXTEND_STARTS = ((1792, 1600), (512, 700))
 # B9 at the chip smoke test's phase-2g cells (D 4096; N 4096 / 1024; ranks
 # 8, 16, 64; pools of 5 and 65 slots; rows 1 x 1, 8 x 1, 2 x 256, 8 x 1024),
@@ -109,16 +115,40 @@ def digest(tensors) -> str:
     return h.hexdigest()
 
 
+def sdpa_call(q, k, v, table, visible, slopes):
+    """One SDPA call over the gathered bf16 K/V with the rows' visible
+    lengths [B, C] (and ALiBi as an additive mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from shuffle_exchange_tpu_torch.ops.paged_attention import gather_kv
+
+    kg, vg = gather_kv(k, v, table)
+    S = kg.shape[1]
+    pos = torch.arange(S, device=q.device)
+    allowed = pos[None, None, :] < visible[:, :, None]                # [B, C, S]
+    if slopes is None:
+        mask = allowed[:, None]
+    else:
+        bias = slopes.float()[:, None, None] * pos.float()            # [H, 1, S]
+        mask = torch.where(allowed[:, None], bias[None], float("-inf")).bfloat16()
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, kg, vg))
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+
 def paged_cells(gen, seed) -> dict:
     """B2, B5 and B3 at PAGED_CELLS over bf16, int8 and fp8 pools."""
     import numpy as np
     import torch
 
+    from chip_smoke import paged_close   # the tree's PAGED_TOL
     from shuffle_exchange_tpu_torch.inference.paged import quantize_kv
     from shuffle_exchange_tpu_torch.models import alibi_slopes
     from shuffle_exchange_tpu_torch.ops.fused_decode import fused_paged_decode_attention
     from shuffle_exchange_tpu_torch.ops.paged_attention import (paged_decode_attention,
-                                                                paged_extend_attention)
+                                                                paged_decode_reference,
+                                                                paged_extend_attention,
+                                                                paged_extend_reference)
 
     rng = np.random.default_rng(seed)
     bs, cells = 64, {}
@@ -161,19 +191,37 @@ def paged_cells(gen, seed) -> dict:
                 return xq, yq, dict(k_scale=xs, v_scale=ys)
 
             kk, vv, sc = stored(k, v)
+            # (name, kernel, plain version with P in f32 (B2 / B3), rows compared, SDPA)
             runs = [(f"B2 {label} {fmt}", lambda: paged_decode_attention(
-                        q, kk, vv, table, kvl, alibi_slopes=slopes, **sc)),
+                        q, kk, vv, table, kvl, alibi_slopes=slopes, **sc),
+                     lambda: paged_decode_reference(q, kk, vv, table, kvl, p_f32=True,
+                                                    alibi_slopes=slopes, **sc),
+                     lambda x: x, (q, k, v, table, kvl[:, None])),
                     (f"B5 {label} {fmt}", lambda: fused_paged_decode_attention(
-                        q, kk, vv, table, kvl, alibi_slopes=slopes, **sc))]
+                        q, kk, vv, table, kvl, alibi_slopes=slopes, **sc), None, None, None)]
             for st, start, ek, ev, etable, eq in ext:
                 ekk, evv, esc = stored(ek, ev)
                 at = "" if st == EXTEND_STARTS[0] else f" at {st}"
+                vis = torch.minimum(start[:, None] + torch.arange(256, device="cuda")[None] + 1,
+                                    (start + nnew)[:, None])
                 runs.append((f"B3 {label} {fmt}{at}",
                              lambda start=start, ekk=ekk, evv=evv, etable=etable, eq=eq, esc=esc:
                              paged_extend_attention(eq, ekk, evv, etable, start, nnew,
-                                                    alibi_slopes=slopes, **esc)))
-            for name, fn in runs:
-                cells[name] = dict(digest=digest([fn()]), ms=time_cold(fn))
+                                                    alibi_slopes=slopes, **esc),
+                             lambda start=start, ekk=ekk, evv=evv, etable=etable, eq=eq, esc=esc:
+                             paged_extend_reference(eq, ekk, evv, etable, start, nnew,
+                                                    p_f32=True, alibi_slopes=slopes, **esc),
+                             # rows past nnew are padding the engine never reads
+                             lambda x: torch.cat([x[b, :n] for b, n in enumerate(nnew.tolist())]),
+                             (eq, ek, ev, etable, vis)))
+            for name, fn, plain, rows, lib in runs:
+                out = fn()
+                cells[name] = dict(digest=digest([out]), ms=time_cold(fn))
+                if plain is not None:
+                    err, ok = paged_close(rows(out), rows(plain()))
+                    cells[name].update(max_abs_err=err.max().item(), within=ok)
+                    if fmt == "bf16":
+                        cells[name]["sdpa_ms"] = time_cold(sdpa_call(*lib, slopes))
     return cells
 
 

@@ -15,6 +15,8 @@
 //   kv_len  [B] int32 (decode) / start [B] int32 (extend)
 //   slopes  [H] f32 ALiBi slopes, or null (no position bias)
 //   out     same shape as q, bf16
+//   o_part [B, S, H, Dh], m_part / l_part [B, S, H] f32: the decode's split
+//           partials, from the wrapper (null when S = 1)
 // q head h reads kv head h / G (G = H / KV, the _repeat_kv convention);
 // the softmax scale is Dh^-0.5; softmax and accumulation are in f32.
 // ALiBi adds slope_h * j to the scaled score of key position j, in f32
@@ -22,357 +24,755 @@
 // tile loop walks (table entry j / bs, offset j % bs), never a pool slot:
 // a bias of ~1,450 at j = 2048 (slope 2^-0.5) must not be rounded, and a
 // shift that differs between blocks would not cancel in the softmax.
-// A one-byte pool is dequantized in registers: each element read from the
-// staged tile becomes float(q) * scale of its row (paged_tile.cuh), the
-// rounding point of the TPU kernels' kb * s[:, None]; all G query heads of
-// a kv head read the same scale row.
+// Masked scores are the finite -1e30 sentinel of the TPU kernels, masked
+// probabilities are exactly 0, and the output divides by max(l, 1e-30):
+// a fully masked row gives 0, never NaN.
 //
-// What bounds them on the H100: both read every visible K/V row of the
-// pool once per (sequence, kv head), so decode is bound by bytes (G query
-// rows per K/V row is far below the ~295 flop/byte ridge of the bf16 tensor
-// cores). Extend reuses each K/V row for G*TC query rows and has more
-// arithmetic, but this first version computes on the CUDA cores in f32,
-// so at long chunks its own arithmetic, not memory, is what limits it.
-// Design: one thread block per (sequence, kv head[, tile of chunk rows])
-// walks the block table in tiles of 64 positions up to the last visible
-// position. The TPU kernel's sequential grid axis over the table becomes
-// this in-block loop, so padded table entries past the sequence's length
-// are never read. Each tile of K and V is staged once in shared memory
-// (16-byte loads, rows padded by 16 bytes so the row-strided reads hit
-// distinct banks) and reused by all G (decode) or G*TC (extend) query rows
-// of that kv head; a one-byte pool's tile is staged at that width (half
-// the bytes of a bf16 tile) with its 64 row scales. Masked scores use the
-// finite -1e30 sentinel of the TPU
-// kernels and masked probabilities are exactly 0, and the output divides
-// by max(l, 1e-30): a fully masked row gives 0, never NaN. Tensor-core MMA,
-// TMA staging and split-K over long contexts are later work.
+// What bounds them on the H100. Decode reads every visible K/V row of the
+// pool once per (sequence, kv head) and does 4 * G flops per K/V element:
+// far below the ~295 flop/byte ridge of the bf16 tensor cores, so bytes
+// bound it: ~1 us at Falcon-7B's 8 sequences over one kv head (2.9 MB of
+// K/V a layer) to ~45 us at GPT-J-6B's 16 kv heads of 256. Below ~10 us
+// what is left is latency: how many SMs the launch keeps busy and how
+// fast each block gets its tiles. Extend reuses each K/V row for the
+// G * TC query rows of a block, ~64 * 4 flops per K/V element: the tensor
+// cores bound it.
 //
-// Any query-head group G = H / KV. A decode block takes a chunk of at most
-// 1024 / Dh query heads of one kv head (a third grid axis over the chunks),
-// so each thread keeps at most 8 f32 accumulators: Falcon-7B's 71 heads of
-// 64 over one kv head make 5 chunks (4 x 16 + 7), each reading the kv
-// head's tiles again (from L2: a layer's K/V at 8 rows of ~1,250 positions
-// is ~2.6 MB). A group that fits one chunk (G * Dh <= 1024) launches as
-// before, one block per (sequence, kv head). The extend kernel tiles a kv
-// head's flattened query rows by 64: up to 64 heads, a tile is TC = 64 / G
-// chunk rows of every head (g-major); past 64 heads, a tile is 64
-// consecutive rows of the c-major order (c, g), so it spans at most two
-// chunk rows, each row with its own head and causal limit.
+// A block that walks a whole sequence alone, dot products in f32 on the
+// CUDA cores, synchronous staging, or a tile staged once per head chunk
+// each keep these kernels at a few percent of those bounds. This design:
 //
-// Head dims 64, 128 and 256 (GPT-J-6B), and 80 (Pythia-2.8b) and 96
-// (Phi-3-mini). At 256 the extend kernel's staged Q, K and V tiles and its
-// P tile take ~118 KB of dynamic shared memory (bf16 pool; set_smem raises
-// the limit), and each thread keeps 4 x 16 f32 accumulators, so it runs one
-// block an SM. A built head dim is a multiple of 16, so a stored row (Dh
-// bf16 or Dh bytes) and a staged row are whole 16-byte vectors; at 80 and
-// 96 a decode block takes 12 and 10 query heads (960 columns), and an
-// extend thread owns 5 and 6 output columns, read and stored one at a
-// time.
+// Decode (B2): split-K over the sequence, tensor cores, one read of K/V.
+//   - The grid is (sequence, kv head, split). A split is split_len logical
+//     positions, a multiple of 16 chosen by the wrapper from the SM count:
+//     256 (four tiles, so the ring's prologue and the partials are paid once
+//     per four tiles), shorter, down to 128, where 256 leaves the grid under
+//     one block an SM, and one split where the (sequence, kv head) blocks
+//     alone reach two an SM. On the H100 that ran within 3% of the fastest
+//     fixed length from 128 to 512 at the decode cells of Llama-3-8B,
+//     Falcon-7B, GPT-J-6B, BLOOM-1b7, Phi-3-mini and Pythia-2.8b, and 12-15%
+//     below the 43 splits of 48 positions that two blocks an SM take at
+//     Falcon-7B's (8 sequences of 2,048 over one kv head). One split at one
+//     block an SM ran up to 35% slower over one-byte pools (Phi-3-mini's
+//     and Pythia-2.8b's 8 x 32 kv heads).
+//     A split past the sequence's end returns at once. With one split the
+//     kernel writes out itself; otherwise each split writes its f32
+//     (acc, m, l) and paged_decode_merge_kernel combines the first
+//     ceil(len / split_len) of them in split order (B5's formula, in base
+//     2). The f32 partials come from the wrapper; nothing is allocated here.
+//   - The whole query-head group of the kv head is one block: Q is G rows
+//     of bf16 in shared memory, zero-padded to whole 16-row MMA tiles, and
+//     every K/V tile is staged once and read by all of them. A group of
+//     at most 16 heads (one MMA row tile: MHA, Llama's 4, GPT-J's 1) lets
+//     the 4 warps split each 64-key tile into four 16-key slices, each warp
+//     with its own (m, l, acc), merged through shared memory in warp order
+//     at the end. A wider group gives each warp whole 16-row tiles against
+//     all 64 keys: up to 128 heads at head_dim <= 96 (Falcon-7B's 71 heads
+//     of 64: 5 row tiles, two on warp 0), 64 at 128 and 256 (registers);
+//     past that the block walks its split again for the next 128 / 64
+//     heads (from L2).
+// Extend (B3): FlashAttention-2 on mma.sync over block-table tiles.
+//   - A block takes 64 query rows of one (sequence, kv head), 16 a warp.
+//     Rows are numbered as before: u = cb * G * TC + g * TC + ci for chunk
+//     row c = cb * TC + ci of head kv * G + g, TC = 64 / G chunk rows up to
+//     64 heads (a block is TC chunk rows of every head, g-major), TC = 1
+//     past 64 (64 consecutive rows of the c-major order, spanning at most
+//     two chunk rows). Each row keeps its own causal limit start + c + 1
+//     (capped at W * bs) and its own slope.
+//   - Tiles wholly below every row's limit run unmasked; tiles past the
+//     block's largest limit are never loaded. Blocks are issued longest
+//     first (highest chunk rows), so the short ones fill the tail.
+//   - At head_dim 256 shared memory holds one block an SM, so the block
+//     runs 8 warps, the second four on the second half of every key tile,
+//     and the two halves' (m, l, O) merge through shared memory at the end:
+//     the block's serial chain of tiles halves. On the H100 that ran
+//     1.2-1.3x faster than 4 warps at GPT-J-6B's heads at 2, 4 and 8 x 256
+//     chunk rows (128 to 512 blocks, one wave and past it), over bf16 and
+//     int8 pools alike. At the other head dims 2-4 blocks an SM already
+//     give 8-16 warps, and 8-warp blocks ran slower (BLOOM-1b7's 128,
+//     Phi-3-mini's 96).
+// Both:
+//   - K/V tiles of 64 positions are gathered through the block table by
+//     cp.async into a double buffer: the copies of tile i + 1 are issued
+//     right after the one barrier of tile i and land while it computes.
+//     Each warp looks up its rows' pool addresses once a tile (one table
+//     read and one division a row, handed to the copying lanes by shuffle).
+//     Positions past the end are zero-filled, so no NaN meets a zero
+//     probability. Staged rows are padded by 16 bytes, so ldmatrix reads of
+//     8 rows hit 8 distinct groups of banks (at head_dim 80 and 96 too:
+//     pitches of 176 and 208 bytes).
+//   - S = Q K^T and O += P V are m16n8k16 bf16 MMAs with f32 accumulators,
+//     operands loaded by ldmatrix. Q's fragments stay in registers in the
+//     extend kernel at head_dim 128 (its block count is bound by shared
+//     memory there); elsewhere they are re-read from shared memory at every
+//     k-step (registers go to O: 128 a thread at 256). P enters P V as two
+//     bf16 terms, hi = bf16(P) and lo = bf16(P - hi), so it keeps ~16 bits
+//     (flash_attention.cu's convention): within one bf16 step of the plain
+//     version with P in f32.
+//   - The running max and sum stay in registers. Scores are kept in the
+//     log2 domain (the softmax scale and the ALiBi slopes times log2(e),
+//     the bias still added in f32 at logical position j), so a probability
+//     is one MUFU.EX2 of x - m. Every sum runs in a fixed order and no sum
+//     uses atomics: two runs give equal bits.
+//   - One-byte pools: the tile is staged at storage width (half the bytes
+//     of a bf16 tile) with its 64 row scales, then widened in shared memory
+//     to bf16 (exact: int8 needs 8 significant bits, e4m3 has 4). The K row
+//     scale multiplies S's column in f32; the V row scale multiplies P's
+//     column before the hi / lo split. That moves the rounding point of the
+//     TPU kernels' kb * s[:, None] (dequantize, then multiply) by an f32
+//     rounding: the card check holds it to PAGED_TOL.
+// wgmma, TMA and warp specialisation are later work.
+//
+// Head dims 64, 80, 96, 128 and 256: a k-step is 16 columns, so QK^T takes
+// Dh / 16 k-steps and P V Dh / 8 column tiles. At 256 the extend kernel's
+// staged Q and double-buffered K/V take ~169 KB of dynamic shared memory
+// (one block an SM); set_smem raises the limit. The extend kernel's
+// registers are held to what its shared memory allows
+// (extend_min_blocks); registers and spills of every instance are in the
+// build's -Xptxas -v log (ops/_build.py keeps it beside the library).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "paged_tile.cuh"   // TK, kNeg, storage kinds, load_kv_tile, converters
+#include "mma_sync.cuh"     // cp_async16, ldsm_x4(_trans), mma_bf16, split_bf16x2
+#include "paged_tile.cuh"   // TK, kNeg, storage kinds, kv_row_bytes, e4m3x2_to_float2
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// Decode: one query token per sequence. Block (b, kv, head chunk), 128
-// threads; the chunk is query heads [z * GC, min(G, (z + 1) * GC)) of kv
-// head kv. A group that fits one block runs the CHUNKED = false instance,
-// whose code is that of the kernel before head chunks (the whole group,
-// G = H / KV, known to the compiler as such).
-// ---------------------------------------------------------------------------
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kExtendRows = 16 * kWarps;   // query rows of an extend block
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kDecodeThreads = 128;
-constexpr int kDecodeMaxAcc = kDecodeCols / kDecodeThreads;   // per thread
+// 4-byte async copy global -> shared; zero-fills when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
 
-template <int DH, int KIND, bool CHUNKED>
-__global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
-    const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool,
-    const void* __restrict__ vpool, const float* __restrict__ kscale,
-    const float* __restrict__ vscale, const int* __restrict__ table,
-    const int* __restrict__ kv_len, const float* __restrict__ slopes,
-    __nv_bfloat16* __restrict__ out, int H, int KV, int bs, int W, float scale, int GC) {
-  constexpr int NT = kDecodeThreads, LDB = kv_row_bytes<DH, KIND>();
-  constexpr int EB = KvStore<KIND>::kBytes;
-  constexpr bool SCALED = KvStore<KIND>::kScaled;
-  const int b = blockIdx.x, kv = blockIdx.y, tid = threadIdx.x;
-  // the block's query heads and the first of them
-  const int G = CHUNKED ? min(GC, H / KV - int(blockIdx.z) * GC) : H / KV;
-  const size_t h0 = size_t(kv) * (H / KV) + (CHUNKED ? size_t(blockIdx.z) * GC : 0);
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ks = smem;                              // [TK] rows of LDB bytes
-  unsigned char* vs = ks + TK * LDB;
-  float* kss = reinterpret_cast<float*>(vs + TK * LDB);  // [TK] row scales (one-byte pools)
-  float* vss = kss + TK;
-  float* qs = vss + TK;                                  // [G][DH], pre-scaled
-  float* ss = qs + G * DH;                               // [G][TK] scores, then p
-  float* ms = ss + G * TK;                               // [G] running max
-  float* ls = ms + G;                                    // [G] running sum
-  float* as = ls + G;                                    // [G] tile rescale
+// 2^x (MUFU.EX2; flushes results below 2^-126 to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int len = min(kv_len[b], W * bs);
-  const int* trow = table + size_t(b) * W;
-  const __nv_bfloat16* qb = q + (size_t(b) * H + h0) * DH;
-  for (int i = tid; i < G * DH; i += NT) qs[i] = __bfloat162float(qb[i]) * scale;
-  for (int g = tid; g < G; g += NT) {
-    ms[g] = kNeg;
-    ls[g] = 0.f;
+// The shared-memory layout of the staged K/V tiles of (DH, KIND).
+template <int DH, int KIND>
+struct Tiles {
+  static constexpr bool kScaled = KvStore<KIND>::kScaled;
+  static constexpr int kLd = DH + 8;                           // bf16 row pitch, elements
+  static constexpr int kRowBytes = DH * KvStore<KIND>::kBytes; // a stored row
+  static constexpr int kPitch = kv_row_bytes<DH, KIND>();      // a staged row, bytes
+  // a stage: K rows, V rows, then (one-byte pools) K and V row scales
+  static constexpr int kStage = 2 * TK * kPitch + (kScaled ? 2 * TK * 4 : 0);
+  // two stages, then (one-byte pools) the widened bf16 K and V tiles
+  static constexpr int kBytes = 2 * kStage + (kScaled ? 2 * TK * kLd * 2 : 0);
+};
+
+// Issue the cp.async copies of positions [p0, p0 + n) of one (sequence,
+// kv head) into a stage: raw K and V rows and a one-byte pool's row
+// scales. Rows t >= n are zero-filled (scales too). Table entries below 0
+// are read as block 0. Each of the block's NW warps stages RW = 64 / NW
+// rows: lane l < RW looks up its row's pool row once (one table read, one
+// division) and hands it to the lanes that copy the row's 16-byte
+// vectors. All threads call it; the caller commits.
+template <int DH, int KIND, int NW = kWarps>
+__device__ __forceinline__ void stage_kv(unsigned char* stage, const unsigned char* kpool,
+                                         const unsigned char* vpool, const float* kscale,
+                                         const float* vscale, const int* __restrict__ trow,
+                                         int kv, int KV, int bs, int p0, int n, int warp,
+                                         int lane) {
+  using T = Tiles<DH, KIND>;
+  constexpr int RW = TK / NW;               // rows a warp stages
+  constexpr int VPR = T::kRowBytes / 16;   // 16-byte vectors a row
+  constexpr int ITERS = (RW * VPR + 31) / 32;
+  unsigned char* ks = stage;
+  unsigned char* vs = stage + TK * T::kPitch;
+  const int tl = warp * RW + lane % RW;
+  int prow = 0;   // the pool row (block, kv head, offset) of tile row tl
+  if (tl < n) {
+    const int pos = p0 + tl;
+    prow = (max(trow[pos / bs], 0) * KV + kv) * bs + pos % bs;
   }
-  float acc[kDecodeMaxAcc];
 #pragma unroll
-  for (int k = 0; k < kDecodeMaxAcc; ++k) acc[k] = 0.f;
-  __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32;
-  for (int p0 = 0; p0 < len; p0 += TK) {
-    const int n = min(TK, len - p0);
-    load_kv_tile<DH, KIND>(ks, vs, kss, vss, kpool, vpool, kscale, vscale, trow, kv, KV, bs,
-                           p0, n, tid, NT);
-    __syncthreads();
-
-    for (int i = tid; i < G * TK; i += NT) {
-      const int g = i / TK, t = i % TK;
-      float s = kNeg;
-      if (t < n) {
-        const float* qr = qs + g * DH;
-        const unsigned char* kr = ks + t * LDB;
-        const float sk = SCALED ? kss[t] : 1.f;
-        float a = 0.f;
-#pragma unroll
-        for (int c = 0; c < DH; c += 8) {
-          float kf[8];
-          kv8_to_float<KIND>(kr + c * EB, kf);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) a += qr[c + e] * (SCALED ? kf[e] * sk : kf[e]);
-        }
-        s = slopes ? a + slopes[int(h0) + g] * float(p0 + t) : a;
-      }
-      ss[i] = s;
+  for (int k = 0; k < ITERS; ++k) {
+    const int j = lane + 32 * k;
+    const int r = min(j / VPR, RW - 1), c = (j % VPR) * 16;
+    const int pr = __shfl_sync(0xffffffffu, prow, r);
+    const int t = warp * RW + r;
+    if (j < RW * VPR) {
+      const bool ok = t < n;
+      const size_t off = size_t(pr) * T::kRowBytes + c;
+      cp_async16(ks + t * T::kPitch + c, kpool + off, ok);
+      cp_async16(vs + t * T::kPitch + c, vpool + off, ok);
     }
-    __syncthreads();
-
-    // online softmax: one warp per query head, two positions per lane
-    for (int g = warp; g < G; g += NT / 32) {
-      float* sr = ss + g * TK;
-      const float s0 = sr[lane], s1 = sr[lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = ms[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0v = lane < n ? expf(s0 - m_new) : 0.f;
-      const float p1v = lane + 32 < n ? expf(s1 - m_new) : 0.f;
-      float sum = p0v + p1v;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      sr[lane] = p0v;
-      sr[lane + 32] = p1v;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        as[g] = alpha;
-        ls[g] = ls[g] * alpha + sum;
-        ms[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int k = 0; k < kDecodeMaxAcc; ++k) {
-      const int o = tid + k * NT;
-      if (o < G * DH) {
-        const int g = o / DH, d = o % DH;
-        const float* pr = ss + g * TK;
-        float a = acc[k] * as[g];
-        for (int t = 0; t < n; ++t) {
-          const float vf = kv1_to_float<KIND>(vs + t * LDB, d);
-          a += pr[t] * (SCALED ? vf * vss[t] : vf);
-        }
-        acc[k] = a;
-      }
-    }
-    __syncthreads();
   }
-
-#pragma unroll
-  for (int k = 0; k < kDecodeMaxAcc; ++k) {
-    const int o = tid + k * NT;
-    if (o < G * DH) {
-      const int g = o / DH, d = o % DH;
-      const float inv = 1.f / fmaxf(ls[g], 1e-30f);
-      out[(size_t(b) * H + h0 + g) * DH + d] = __float2bfloat16(acc[k] * inv);
+  if constexpr (T::kScaled) {
+    float* kss = reinterpret_cast<float*>(vs + TK * T::kPitch);
+    if (lane < RW) {
+      cp_async4(kss + tl, kscale + prow, tl < n);
+      cp_async4(kss + TK + tl, vscale + prow, tl < n);
     }
   }
 }
 
+// Eight stored one-byte values -> eight bf16 (exact for int8 and e4m3).
+template <int KIND>
+__device__ __forceinline__ uint4 widen8(uint2 raw) {
+  const uint32_t w[2] = {raw.x, raw.y};
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t pair = (w[k / 2] >> (16 * (k % 2))) & 0xffffu;
+    __nv_bfloat162 h;
+    if constexpr (KIND == KvInt8) {
+      h = __floats2bfloat162_rn(float(static_cast<int8_t>(pair & 0xffu)),
+                                float(static_cast<int8_t>(pair >> 8)));
+    } else {
+      h = __float22bfloat162_rn(e4m3x2_to_float2(static_cast<uint16_t>(pair)));
+    }
+    o[k] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// Widen a one-byte stage's K and V rows into the bf16 tiles kw / vw.
+template <int DH, int KIND, int NT = kThreads>
+__device__ __forceinline__ void widen_kv(const unsigned char* stage, __nv_bfloat16* kw,
+                                         __nv_bfloat16* vw, int tid) {
+  using T = Tiles<DH, KIND>;
+  constexpr int V8 = DH / 8;
+  for (int i = tid; i < 2 * TK * V8; i += NT) {
+    const int which = i / (TK * V8), j = i % (TK * V8);
+    const int t = j / V8, c = (j % V8) * 8;
+    const uint2 raw =
+        *reinterpret_cast<const uint2*>(stage + (which * TK + t) * T::kPitch + c);
+    *reinterpret_cast<uint4*>((which ? vw : kw) + t * T::kLd + c) = widen8<KIND>(raw);
+  }
+}
+
+// The online-softmax state of a warp's 16 query rows: rows g (lo) and
+// g + 8 (hi) of the mma fragment (g = lane / 4), and their O accumulators.
+template <int DH>
+struct Rows {
+  float m[2], l[2];
+  float o[DH / 8][4];
+  __device__ __forceinline__ void init() {
+    m[0] = m[1] = kNeg;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  }
+};
+
+// One warp: its 16 query rows (qw, pitch DH + 8; or the caller's A
+// fragments qa, QREG) against keys [k0, k0 + NK) of a staged bf16 tile
+// whose key 0 is logical position p0. Key j is visible to row lo / hi when
+// p0 + j < lim[0 / 1]; `masked` is false when every key of the slice is
+// visible to both rows. kss / vss are a one-byte pool's row scales
+// (SCALED), sl the rows' ALiBi slopes (alibi); scores are kept in the log2
+// domain: scale_log2 = Dh^-0.5 log2(e), slopes times log2(e), m in log2
+// units.
+template <int DH, bool SCALED, int NK, bool QREG = false>
+__device__ __forceinline__ void attend(Rows<DH>& r, const __nv_bfloat16* qw,
+                                       const uint32_t (*qa)[4], const __nv_bfloat16* kt,
+                                       const __nv_bfloat16* vt, const float* kss,
+                                       const float* vss, int k0, int p0, const int (&lim)[2],
+                                       const float (&sl)[2], bool alibi, bool masked,
+                                       float scale_log2, int lane) {
+  constexpr int LD = DH + 8, KSTEPS = DH / 16, NT = NK / 8;
+  const int tq = lane % 4;
+  float s[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  const __nv_bfloat16* qfrag = qw + ((lane % 8) + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8;
+  const __nv_bfloat16* kfrag = kt + (k0 + (lane % 8) + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t qf[4];
+    if constexpr (QREG) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+    } else {
+      ldsm_x4(qf, qfrag + kk * 16);
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, kfrag + np * 16 * LD + kk * 16);
+      mma_bf16(s[2 * np], qf, b[0], b[1]);
+      mma_bf16(s[2 * np + 1], qf, b[2], b[3]);
+    }
+  }
+
+  // scores in the log2 domain: scale (and the K row scale), bias, mask;
+  // row max (e < 2: lo, else hi)
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = k0 + n * 8 + tq * 2 + (e & 1), h = e >> 1;
+      float x = s[n][e] * scale_log2;
+      if constexpr (SCALED) x *= kss[j];
+      if (alibi) x = fmaf(sl[h], float(p0 + j), x);
+      if (masked && p0 + j >= lim[h]) x = kNeg;
+      s[n][e] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+  // p = 2^(x - m); a row with no visible key so far keeps m = kNeg and
+  // alpha = 2^0 = 1 over its zero sums
+  float mn[2], al[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mn[h] = fmaxf(r.m[h], mx[h]);
+    al[h] = ex2(r.m[h] - mn[h]);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = k0 + n * 8 + tq * 2 + (e & 1), h = e >> 1;
+      float p = masked && p0 + j >= lim[h] ? 0.f : ex2(s[n][e] - mn[h]);
+      sum[h] += p;
+      if constexpr (SCALED) p *= vss[j];
+      s[n][e] = p;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    r.l[h] = r.l[h] * al[h] + sum[h];
+    r.m[h] = mn[h];
+  }
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d) {
+    r.o[d][0] *= al[0];
+    r.o[d][1] *= al[0];
+    r.o[d][2] *= al[1];
+    r.o[d][3] *= al[1];
+  }
+
+  // O += P V: the S accumulators of two 8-key tiles are one A operand
+  const __nv_bfloat16* vfrag = vt + (k0 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8;
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    uint32_t ph[4], pl[4];
+    split_bf16x2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+    split_bf16x2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+    split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+    split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int dp = 0; dp < DH / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, vfrag + kk * 16 * LD + dp * 16);
+      mma_bf16(r.o[2 * dp], ph, b[0], b[1]);
+      mma_bf16(r.o[2 * dp], pl, b[0], b[1]);
+      mma_bf16(r.o[2 * dp + 1], ph, b[2], b[3]);
+      mma_bf16(r.o[2 * dp + 1], pl, b[2], b[3]);
+    }
+  }
+}
+
+// The bf16 K / V tiles and the row scales of stage `stage` (widening a
+// one-byte stage into kw / vw first: the caller syncs after).
+struct TileView {
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const float* ks;
+  const float* vs;
+};
+
+template <int DH, int KIND, int NT = kThreads>
+__device__ __forceinline__ TileView view_tile(const unsigned char* stage, __nv_bfloat16* kw,
+                                              __nv_bfloat16* vw, int tid) {
+  using T = Tiles<DH, KIND>;
+  if constexpr (T::kScaled) {
+    widen_kv<DH, KIND, NT>(stage, kw, vw, tid);
+    const float* ks = reinterpret_cast<const float*>(stage + 2 * TK * T::kPitch);
+    return {kw, vw, ks, ks + TK};
+  } else {
+    return {reinterpret_cast<const __nv_bfloat16*>(stage),
+            reinterpret_cast<const __nv_bfloat16*>(stage + TK * T::kPitch), nullptr, nullptr};
+  }
+}
+
 // ---------------------------------------------------------------------------
-// Extend: a C-token chunk per sequence. Block (b, kv, tile), 256 threads as
-// 16 x 16. A kv head's query rows are numbered u = cb * G * TC + g * TC + ci
-// for chunk row c = cb * TC + ci of head kv*G + g (TC = 64 / G up to 64
-// heads, else 1), and tile z holds rows [z * RT, (z + 1) * RT): RT = G * TC
-// rows up to 64 heads (one block of TC chunk rows, g-major), else 64. Thread
-// (ty, tx) owns tile rows ty + 16 i and, for scores, positions tx + 16 j of
-// the key tile (i, j < 4); for the output, columns [tx * DH/16,
-// (tx + 1) * DH/16). Row c of sequence b sees positions < start[b] + c + 1
-// (causal within the chunk), capped at the table's W * bs.
+// Decode: one query token per sequence. Block (b, kv, split s), 128
+// threads; the split is logical positions [s * split_len, min(len, (s + 1)
+// * split_len)). KSPLIT (G <= 16): the warps take the four 16-key slices of
+// each tile; else warp w takes row tiles w, w + 4, ... of the pass.
 // ---------------------------------------------------------------------------
 
-constexpr int kExtendThreads = 256;
-constexpr int kExtendRows = 64;
+template <int DH, bool KSPLIT>
+struct DecodeShape {
+  static constexpr int kRowTiles = KSPLIT ? 1 : (DH <= 96 ? 2 : 1);   // row tiles a warp holds
+  static constexpr int kPassRows = KSPLIT ? 16 : 16 * kWarps * kRowTiles;
+  static constexpr int kMergeLd = DH + 4;   // the KSPLIT merge's f32 row pitch
+  static constexpr int kMergeBytes = KSPLIT ? (2 * kWarps * 16 + kWarps * 16 * kMergeLd) * 4 : 0;
+};
 
-template <int DH, int KIND>
-__global__ void __launch_bounds__(kExtendThreads) paged_extend_kernel(
-    const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool,
-    const void* __restrict__ vpool, const float* __restrict__ kscale,
+template <int DH, int KIND, bool KSPLIT>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+    const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool_,
+    const void* __restrict__ vpool_, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
+    const int* __restrict__ kv_len, const float* __restrict__ slopes,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ o_part, float* __restrict__ m_part,
+    float* __restrict__ l_part, int H, int KV, int bs, int W, int split_len, float scale) {
+  using T = Tiles<DH, KIND>;
+  using D = DecodeShape<DH, KSPLIT>;
+  constexpr int LD = T::kLd, RT = D::kRowTiles, PR = D::kPassRows;
+  const int b = blockIdx.x, kv = blockIdx.y, s = blockIdx.z, S = gridDim.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int G = H / KV;
+  const int len = min(kv_len[b], W * bs);
+  const int p_lo = s * split_len, p_hi = min(len, p_lo + split_len);
+  if (S > 1 && p_lo >= p_hi) return;   // past the sequence: the merge reads no such split
+  const int ntile = p_hi > p_lo ? (p_hi - p_lo + TK - 1) / TK : 0;
+  const unsigned char* kpool = static_cast<const unsigned char*>(kpool_);
+  const unsigned char* vpool = static_cast<const unsigned char*>(vpool_);
+  const int* trow = table + size_t(b) * W;
+  const bool alibi = slopes != nullptr;
+  const int lim[2] = {p_hi, p_hi};
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);   // [PR][LD]
+  unsigned char* ring = smem + PR * LD * 2;                      // two stages
+  __nv_bfloat16* kw = reinterpret_cast<__nv_bfloat16*>(ring + 2 * T::kStage);
+  __nv_bfloat16* vw = kw + TK * LD;                              // (one-byte pools)
+
+  for (int r0 = 0; r0 < G; r0 += PR) {   // one pass for G <= PR
+    const int rows = min(PR, G - r0);
+    const size_t h0 = size_t(kv) * G + r0;   // the pass's first query head
+    for (int i = tid; i < PR * (DH / 8); i += kThreads) {
+      const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+      const bool ok = r < rows;
+      cp_async16(qs + r * LD + c, ok ? q + (size_t(b) * H + h0 + r) * DH + c : q, ok);
+    }
+    cp_async_commit();
+    if (ntile > 0) {
+      stage_kv<DH, KIND>(ring, kpool, vpool, kscale, vscale, trow, kv, KV, bs, p_lo,
+                         min(TK, p_hi - p_lo), warp, lane);
+      cp_async_commit();
+    }
+
+    Rows<DH> st[RT];
+    float sl[RT][2];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      st[i].init();
+      const int rt = KSPLIT ? 0 : warp + kWarps * i;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rt * 16 + g + 8 * h;
+        sl[i][h] = alibi && r < rows ? slopes[h0 + r] * kLog2e : 0.f;
+      }
+    }
+
+    for (int it = 0; it < ntile; ++it) {
+      const int p0 = p_lo + it * TK;
+      cp_async_wait<0>();   // tile it (and Q)
+      // everyone's copies of tile it are visible, and everyone is done with
+      // tile it - 1, whose stage the next tile fills while this one computes
+      __syncthreads();
+      if (it + 1 < ntile) {
+        stage_kv<DH, KIND>(ring + ((it + 1) & 1) * T::kStage, kpool, vpool, kscale, vscale, trow,
+                           kv, KV, bs, p0 + TK, min(TK, p_hi - p0 - TK), warp, lane);
+        cp_async_commit();
+      }
+      const TileView tv = view_tile<DH, KIND>(ring + (it & 1) * T::kStage, kw, vw, tid);
+      if constexpr (T::kScaled) __syncthreads();
+      const bool masked = p0 + TK > p_hi;
+      if constexpr (KSPLIT) {
+        attend<DH, T::kScaled, 16>(st[0], qs, nullptr, tv.k, tv.v, tv.ks, tv.vs, warp * 16, p0,
+                                   lim, sl[0], alibi, masked, scale * kLog2e, lane);
+      } else {
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const int rt = warp + kWarps * i;
+          if (rt * 16 < rows)
+            attend<DH, T::kScaled, TK>(st[i], qs + rt * 16 * LD, nullptr, tv.k, tv.v, tv.ks,
+                                       tv.vs, 0, p0, lim, sl[i], alibi, masked, scale * kLog2e,
+                                       lane);
+        }
+      }
+    }
+    cp_async_wait<0>();   // (no tile: Q's copy)
+    __syncthreads();      // every warp is done with the ring (the KSPLIT merge reuses it)
+
+    // row r of the pass: unnormalised o over columns [d, d + 2), m, l
+    auto emit = [&](int r, int d, float o0, float o1, float m, float l) {
+      const size_t h = h0 + r;
+      if (S == 1) {
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t(b) * H + h) * DH + d) =
+            __floats2bfloat162_rn(o0 * inv, o1 * inv);
+      } else {
+        const size_t row = (size_t(b) * S + s) * H + h;
+        *reinterpret_cast<float2*>(o_part + row * DH + d) = make_float2(o0, o1);
+        if (d == 0) {
+          m_part[row] = m;
+          l_part[row] = l;
+        }
+      }
+    };
+    if constexpr (KSPLIT) {
+      // the four warps' states of the same 16 rows, merged in warp order
+      float* mw = reinterpret_cast<float*>(ring);   // [4][16]
+      float* lw = mw + kWarps * 16;                 // [4][16]
+      float* ow = lw + kWarps * 16;                 // [4][16][kMergeLd]
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        if (tq == 0) {
+          mw[r] = st[0].m[h];
+          lw[r] = st[0].l[h];
+        }
+#pragma unroll
+        for (int d = 0; d < DH / 8; ++d)
+          *reinterpret_cast<float2*>(ow + r * D::kMergeLd + d * 8 + tq * 2) =
+              make_float2(st[0].o[d][2 * h], st[0].o[d][2 * h + 1]);
+      }
+      __syncthreads();
+      for (int i = tid; i < rows * (DH / 2); i += kThreads) {
+        const int r = i / (DH / 2), d = (i % (DH / 2)) * 2;
+        float m = kNeg;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) m = fmaxf(m, mw[w * 16 + r]);
+        float l = 0.f, o0 = 0.f, o1 = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          const float f = exp2f(mw[w * 16 + r] - m);
+          const float2 ov = *reinterpret_cast<const float2*>(ow + (w * 16 + r) * D::kMergeLd + d);
+          l += f * lw[w * 16 + r];
+          o0 += f * ov.x;
+          o1 += f * ov.y;
+        }
+        emit(r, d, o0, o1, m, l);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int rt = warp + kWarps * i;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rt * 16 + g + 8 * h;
+          if (r >= rows) continue;
+#pragma unroll
+          for (int d = 0; d < DH / 8; ++d)
+            emit(r, d * 8 + tq * 2, st[i].o[d][2 * h], st[i].o[d][2 * h + 1], st[i].m[h],
+                 st[i].l[h]);
+        }
+      }
+    }
+    __syncthreads();   // before the next pass restages Q and the ring
+  }
+}
+
+// Merge of the splits: block (b, h), Dh threads; split s of sequence b
+// exists when s * split_len < len (B5's formula over those, in order).
+__global__ void paged_decode_merge_kernel(const float* __restrict__ o_part,
+                                          const float* __restrict__ m_part,
+                                          const float* __restrict__ l_part,
+                                          const int* __restrict__ kv_len,
+                                          __nv_bfloat16* __restrict__ out, int S, int H, int Dh,
+                                          int cap, int split_len) {
+  const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
+  const int len = min(kv_len[b], cap);
+  const int n = len > 0 ? min(S, (len + split_len - 1) / split_len) : 0;
+  const size_t r0 = size_t(b) * S * H + h;   // row (b, s=0, h); rows of s step by H
+  float mg = kNeg;
+  for (int s = 0; s < n; ++s) mg = fmaxf(mg, m_part[r0 + size_t(s) * H]);
+  float l = 0.f, o = 0.f;
+  for (int s = 0; s < n; ++s) {
+    const size_t r = r0 + size_t(s) * H;
+    const float w = exp2f(m_part[r] - mg);
+    l += w * l_part[r];
+    o += w * o_part[r * Dh + d];
+  }
+  out[(size_t(b) * H + h) * Dh + d] = __float2bfloat16(o / fmaxf(l, 1e-30f));
+}
+
+// ---------------------------------------------------------------------------
+// Extend: a C-token chunk per sequence. Block rank x of a 1-D grid: (b, kv)
+// = x % (B * KV), row tile z = NZ - 1 - x / (B * KV) (longest first); tile
+// z holds rows [z * RT, z * RT + R) of (b, kv), RT = G * TC up to 64 heads,
+// else 64. Warp w owns rows [16 (w % 4), 16 (w % 4) + 16) of the tile and,
+// with NG = 2 key groups (8 warps), the half w / 4 of every key tile; the
+// two groups' (m, l, O) merge through shared memory at the end.
+// ---------------------------------------------------------------------------
+
+// Blocks an SM the extend kernel's registers are held to: what its shared
+// memory allows (head_dim 64: 4, 80 / 96: 3, 128: 2, 256: 1)
+template <int DH>
+__host__ __device__ constexpr int extend_min_blocks() {
+  return DH == 64 ? 4 : DH <= 96 ? 3 : DH == 128 ? 2 : 1;
+}
+
+template <int DH, int KIND, int NG>
+__global__ void __launch_bounds__(kThreads * NG, extend_min_blocks<DH>()) paged_extend_kernel(
+    const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool_,
+    const void* __restrict__ vpool_, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const int* __restrict__ table,
     const int* __restrict__ start, const float* __restrict__ slopes,
-    __nv_bfloat16* __restrict__ out, int C, int H, int KV, int bs, int W, int TC, int RT,
-    float scale) {
-  constexpr int NT = kExtendThreads, LD = DH + 8, PLD = TK + 1, CPT = DH / 16;
-  constexpr int LDB = kv_row_bytes<DH, KIND>(), EB = KvStore<KIND>::kBytes;
-  constexpr bool SCALED = KvStore<KIND>::kScaled;
-  const int b = blockIdx.x, kv = blockIdx.y, tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+    __nv_bfloat16* __restrict__ out, int B, int C, int H, int KV, int bs, int W, int TC, int RT,
+    int NZ, float scale) {
+  using T = Tiles<DH, KIND>;
+  constexpr int LD = T::kLd, NT = kThreads * NG, NK = TK / NG;
+  const int bk = blockIdx.x % (B * KV), z = NZ - 1 - int(blockIdx.x / (B * KV));
+  const int b = bk / KV, kv = bk % KV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rw = warp % kWarps, grp = warp / kWarps;   // row tile, key group
+  const int g = lane / 4, tq = lane % 4;
   const int G = H / KV;
-  const int GT = G * TC;                                  // rows of one block of TC chunk rows
-  const int u0 = blockIdx.z * RT;                         // the tile's first row
-  const int R = min(RT, (C + TC - 1) / TC * GT - u0);     // the tile's rows
+  const int GT = G * TC;                                // rows of one block of TC chunk rows
+  const int u0 = z * RT;                                // the tile's first row
+  const int R = min(RT, (C + TC - 1) / TC * GT - u0);   // the tile's rows
   // tile row r -> (head g, chunk row c); c >= C is a padding row
   auto head_of = [&](int r) { return (u0 + r) % GT / TC; };
   auto row_of = [&](int r) { return (u0 + r) / GT * TC + (u0 + r) % GT % TC; };
+  const unsigned char* kpool = static_cast<const unsigned char*>(kpool_);
+  const unsigned char* vpool = static_cast<const unsigned char*>(vpool_);
+  const bool alibi = slopes != nullptr;
+
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);   // [64][LD]
-  unsigned char* ks = reinterpret_cast<unsigned char*>(qs + kExtendRows * LD);  // [TK][LDB]
-  unsigned char* vs = ks + TK * LDB;                            // [TK][LDB]
-  float* kss = reinterpret_cast<float*>(vs + TK * LDB);         // [TK] row scales
-  float* vss = kss + TK;
-  float* ps = vss + TK;                                         // [64][PLD]
+  unsigned char* ring = smem + kExtendRows * LD * 2;             // two stages
+  __nv_bfloat16* kw = reinterpret_cast<__nv_bfloat16*>(ring + 2 * T::kStage);
+  __nv_bfloat16* vw = kw + TK * LD;                              // (one-byte pools)
 
   const int st = start[b];
   const int cap = W * bs;
-  const int c_last = min((u0 + R - 1) / GT * TC + TC, C) - 1;   // the tile's last chunk row
-  const int lim_cta = min(st + c_last + 1, cap);
+  // the tile's first and last chunk rows bound its rows' causal limits
+  const int c_first = u0 / GT * TC;
+  const int c_last = min((u0 + R - 1) / GT * TC + TC, C) - 1;
+  const int lim_min = min(st + c_first + 1, cap);
+  const int lim_max = min(st + c_last + 1, cap);
   const int* trow = table + size_t(b) * W;
 
   for (int i = tid; i < kExtendRows * (DH / 8); i += NT) {
     const int r = i / (DH / 8), cc = (i % (DH / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < R) {
-      const int g = head_of(r), c = row_of(r);
-      if (c < C)
-        val = *reinterpret_cast<const uint4*>(
-            q + ((size_t(b) * C + c) * H + size_t(kv) * G + g) * DH + cc);
-    }
-    *reinterpret_cast<uint4*>(qs + r * LD + cc) = val;
-  }
-
-  int lim[4];
-  float m[4], l[4], sl[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
     const int c = r < R ? row_of(r) : C;
-    lim[i] = c < C ? min(st + c + 1, cap) : 0;
-    sl[i] = (slopes && r < R) ? slopes[kv * G + head_of(r)] : 0.f;
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) acc[i][e] = 0.f;
+    const bool ok = c < C;
+    cp_async16(qs + r * LD + cc,
+               ok ? q + ((size_t(b) * C + c) * H + size_t(kv) * G + head_of(r)) * DH + cc : q, ok);
   }
-  __syncthreads();
+  cp_async_commit();
+  const int ntile = lim_max > 0 ? (lim_max + TK - 1) / TK : 0;
+  if (ntile > 0) {
+    stage_kv<DH, KIND, kWarps * NG>(ring, kpool, vpool, kscale, vscale, trow, kv, KV, bs, 0,
+                                    min(TK, lim_max), warp, lane);
+    cp_async_commit();
+  }
 
-  for (int p0 = 0; p0 < lim_cta; p0 += TK) {
-    const int n = min(TK, lim_cta - p0);
-    load_kv_tile<DH, KIND>(ks, vs, kss, vss, kpool, vpool, kscale, vscale, trow, kv, KV, bs,
-                           p0, n, tid, NT);
-    __syncthreads();
+  int lim[2];
+  float sl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rw * 16 + g + 8 * h;
+    const int c = r < R ? row_of(r) : C;
+    lim[h] = c < C ? min(st + c + 1, cap) : 0;
+    sl[h] = alibi && r < R ? slopes[kv * G + head_of(r)] * kLog2e : 0.f;
+  }
+  Rows<DH> rs;
+  rs.init();
+  // Q's A fragments stay in registers at head_dim 128 with one key group
+  // (the block count is bound by shared memory there, not registers)
+  constexpr bool QREG = DH == 128 && NG == 1;
+  uint32_t qa[QREG ? DH / 16 : 1][4];
+  const __nv_bfloat16* qw = qs + rw * 16 * LD;
 
-    float s[4][4];
+  for (int it = 0; it < ntile; ++it) {
+    const int p0 = it * TK;
+    cp_async_wait<0>();   // tile it (and Q)
+    __syncthreads();      // tile it visible; tile it - 1's stage free
+    if (it + 1 < ntile) {
+      stage_kv<DH, KIND, kWarps * NG>(ring + ((it + 1) & 1) * T::kStage, kpool, vpool, kscale,
+                                      vscale, trow, kv, KV, bs, p0 + TK,
+                                      min(TK, lim_max - p0 - TK), warp, lane);
+      cp_async_commit();
+    }
+    if constexpr (QREG) {
+      if (it == 0) {
+        const __nv_bfloat16* qfrag =
+            qw + ((lane % 8) + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int kk = 0; kk < DH / 16; ++kk) ldsm_x4(qa[kk], qfrag + kk * 16);
+      }
+    }
+    const TileView tv =
+        view_tile<DH, KIND, NT>(ring + (it & 1) * T::kStage, kw, vw, tid);
+    if constexpr (T::kScaled) __syncthreads();
+    attend<DH, T::kScaled, NK, QREG>(rs, qw, qa, tv.k, tv.v, tv.ks, tv.vs, grp * NK, p0, lim, sl,
+                                     alibi, p0 + TK > lim_min, scale * kLog2e, lane);
+  }
+  cp_async_wait<0>();
+
+  if constexpr (NG == 2) {
+    // the second key group's (m, l, O) of each row, merged into the first's
+    __syncthreads();   // every warp is done with the ring
+    constexpr int OL = DH + 4;
+    float* mo = reinterpret_cast<float*>(ring);   // [64] m, then [64] l
+    float* oo = mo + 2 * kExtendRows;             // [64][OL]
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < DH; c += 8) {
-      float qf[4][8], kf[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) bf16x8_to_float(qs + (ty + 16 * i) * LD + c, qf[i]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv8_to_float<KIND>(ks + (tx + 16 * j) * LDB + c * EB, kf[j]);
-        if constexpr (SCALED) {
-          const float sk = kss[tx + 16 * j];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) kf[j][e] *= sk;
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw * 16 + g + 8 * h;
+      if (grp == 1) {
+        if (tq == 0) {
+          mo[r] = rs.m[h];
+          mo[kExtendRows + r] = rs.l[h];
         }
-      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) s[i][j] += qf[i][e] * kf[j][e];
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int pos = p0 + tx + 16 * j;
-        s[i][j] = pos < lim[i] ? s[i][j] * scale + sl[i] * float(pos) : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o, 16));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = tx + 16 * j;
-        const float p = p0 + t < lim[i] ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;
-        ps[(ty + 16 * i) * PLD + t] = p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o, 16);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) acc[i][e] *= alpha;
-    }
-    __syncthreads();
-
-    for (int t = 0; t < n; ++t) {
-      float vf[CPT];
-      const unsigned char* vr = vs + t * LDB;
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) {
-        vf[e] = kv1_to_float<KIND>(vr, tx * CPT + e);
-        if constexpr (SCALED) vf[e] *= vss[t];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ps[(ty + 16 * i) * PLD + t];
-#pragma unroll
-        for (int e = 0; e < CPT; ++e) acc[i][e] += p * vf[e];
+        for (int d = 0; d < DH / 8; ++d)
+          *reinterpret_cast<float2*>(oo + r * OL + d * 8 + tq * 2) =
+              make_float2(rs.o[d][2 * h], rs.o[d][2 * h + 1]);
       }
     }
     __syncthreads();
+    if (grp == 1) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw * 16 + g + 8 * h;
+      const float m1 = mo[r], m = fmaxf(rs.m[h], m1);
+      const float f0 = ex2(rs.m[h] - m), f1 = ex2(m1 - m);
+      rs.m[h] = m;
+      rs.l[h] = f0 * rs.l[h] + f1 * mo[kExtendRows + r];
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        const float2 o1 = *reinterpret_cast<const float2*>(oo + r * OL + d * 8 + tq * 2);
+        rs.o[d][2 * h] = f0 * rs.o[d][2 * h] + f1 * o1.x;
+        rs.o[d][2 * h + 1] = f0 * rs.o[d][2 * h + 1] + f1 * o1.y;
+      }
+    }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int r = rw * 16 + g + 8 * h;
     if (r >= R) continue;
-    const int g = head_of(r), c = row_of(r);
+    const int c = row_of(r);
     if (c >= C) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = out + ((size_t(b) * C + c) * H + size_t(kv) * G + g) * DH + tx * CPT;
+    const float inv = 1.f / fmaxf(rs.l[h], 1e-30f);
+    __nv_bfloat16* orow = out + ((size_t(b) * C + c) * H + size_t(kv) * G + head_of(r)) * DH;
 #pragma unroll
-    for (int e = 0; e < CPT; ++e) orow[e] = __float2bfloat16(acc[i][e] * inv);
+    for (int d = 0; d < DH / 8; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + tq * 2) =
+          __floats2bfloat162_rn(rs.o[d][2 * h] * inv, rs.o[d][2 * h + 1] * inv);
   }
 }
 
@@ -380,21 +780,6 @@ template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-// Bytes of a staged K and V tile plus their row scales.
-size_t kv_tile_smem(int kind, int Dh) {
-  return size_t(2) * TK * (size_t(Dh) * (kind == KvBf16 ? 2 : 1) + 16) +
-         size_t(2) * TK * sizeof(float);
-}
-
-size_t decode_smem(int kind, int GC, int Dh) {
-  return kv_tile_smem(kind, Dh) + size_t(GC * Dh + GC * TK + 3 * GC) * sizeof(float);
-}
-
-size_t extend_smem(int kind, int Dh) {
-  return size_t(kExtendRows) * (Dh + 8) * sizeof(__nv_bfloat16) + kv_tile_smem(kind, Dh) +
-         size_t(kExtendRows) * (TK + 1) * sizeof(float);
 }
 
 struct PagedArgs {
@@ -409,27 +794,54 @@ struct PagedArgs {
   __nv_bfloat16* out;
 };
 
-template <int DH, int KIND>
-cudaError_t launch_decode(const PagedArgs& a, dim3 grid, size_t smem, cudaStream_t s, int H,
-                          int KV, int bs, int W, int GC, float scale) {
-  const auto kernel = grid.z > 1 ? paged_decode_kernel<DH, KIND, true>
-                                 : paged_decode_kernel<DH, KIND, false>;
+struct Partials {
+  float* o;
+  float* m;
+  float* l;
+};
+
+template <int DH, int KIND, bool KSPLIT>
+cudaError_t launch_decode_as(const PagedArgs& a, const Partials& p, dim3 grid, cudaStream_t s,
+                             int H, int KV, int bs, int W, int split_len, float scale) {
+  using T = Tiles<DH, KIND>;
+  using D = DecodeShape<DH, KSPLIT>;
+  const size_t smem = size_t(D::kPassRows) * T::kLd * 2 +
+                      (T::kBytes > D::kMergeBytes ? T::kBytes : D::kMergeBytes);
+  const auto kernel = paged_decode_kernel<DH, KIND, KSPLIT>;
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kDecodeThreads, smem, s>>>(
-      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lens, a.slopes, a.out, H, KV, bs, W, scale, GC);
+  kernel<<<grid, kThreads, smem, s>>>(a.q, a.k, a.v, a.ks, a.vs, a.table, a.lens, a.slopes, a.out,
+                                      p.o, p.m, p.l, H, KV, bs, W, split_len, scale);
   return cudaSuccess;
 }
 
 template <int DH, int KIND>
-cudaError_t launch_extend(const PagedArgs& a, dim3 grid, size_t smem, cudaStream_t s, int C,
-                          int H, int KV, int bs, int W, int TC, int RT, float scale) {
-  const cudaError_t err = set_smem(paged_extend_kernel<DH, KIND>, smem);
+cudaError_t launch_decode(const PagedArgs& a, const Partials& p, dim3 grid, cudaStream_t s, int H,
+                          int KV, int bs, int W, int split_len, float scale) {
+  return H / KV <= 16
+             ? launch_decode_as<DH, KIND, true>(a, p, grid, s, H, KV, bs, W, split_len, scale)
+             : launch_decode_as<DH, KIND, false>(a, p, grid, s, H, KV, bs, W, split_len, scale);
+}
+
+template <int DH, int KIND, int NG>
+cudaError_t launch_extend_as(const PagedArgs& a, unsigned grid, cudaStream_t s, int B, int C,
+                             int H, int KV, int bs, int W, int TC, int RT, int NZ, float scale) {
+  using T = Tiles<DH, KIND>;
+  const size_t smem = size_t(kExtendRows) * T::kLd * 2 + T::kBytes;
+  const auto kernel = paged_extend_kernel<DH, KIND, NG>;
+  const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  paged_extend_kernel<DH, KIND><<<grid, kExtendThreads, smem, s>>>(
-      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lens, a.slopes, a.out, C, H, KV, bs, W, TC, RT,
-      scale);
+  kernel<<<grid, kThreads * NG, smem, s>>>(a.q, a.k, a.v, a.ks, a.vs, a.table, a.lens, a.slopes,
+                                           a.out, B, C, H, KV, bs, W, TC, RT, NZ, scale);
   return cudaSuccess;
+}
+
+// two key groups (8 warps) at head_dim 256, where one block fills an SM
+template <int DH, int KIND>
+cudaError_t launch_extend(const PagedArgs& a, unsigned grid, cudaStream_t s, int B, int C, int H,
+                          int KV, int bs, int W, int TC, int RT, int NZ, float scale) {
+  return launch_extend_as<DH, KIND, DH == 256 ? 2 : 1>(a, grid, s, B, C, H, KV, bs, W, TC, RT,
+                                                       NZ, scale);
 }
 
 // The instance for (Dh, kind): F<DH, KIND>::run(args...).
@@ -481,25 +893,35 @@ const char* sxt_cuda_error_string(int err) {
 }
 
 // kind: 0 bf16 pool (k_scale = v_scale = null), 1 int8, 2 e4m3 (with the
-// f32 scale planes). Returns cudaGetLastError() after the launch (0 on
-// success).
+// f32 scale planes). splits x split_len positions cover the table's W * bs,
+// none of the splits empty; with splits > 1, o_part [B, splits, H, Dh] and
+// m_part / l_part [B, splits, H] f32 (else null). Returns
+// cudaGetLastError() after the launches (0 on success).
 int sxt_paged_decode(const void* q, const void* k, const void* v, const void* k_scale,
                      const void* v_scale, const void* table, const void* kv_len,
-                     const void* slopes, void* out, int kind, int B, int H, int KV, int Dh,
-                     int bs, int W, float scale, void* stream) {
+                     const void* slopes, void* out, void* o_part, void* m_part, void* l_part,
+                     int kind, int B, int H, int KV, int Dh, int bs, int W, int splits,
+                     int split_len, float scale, void* stream) {
   if (B <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || bad_kind(kind, k_scale, v_scale))
+  const long long cap = (long long)W * bs;
+  if (KV <= 0 || H % KV != 0 || bad_kind(kind, k_scale, v_scale) || splits < 1 ||
+      split_len < 1 || (long long)splits * split_len < cap ||
+      (long long)(splits - 1) * split_len >= cap ||
+      (splits > 1 && (o_part == nullptr || m_part == nullptr || l_part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = H / KV;
-  const int GC = decode_chunk(G, Dh);
   const PagedArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
                     static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                     static_cast<const int*>(table), static_cast<const int*>(kv_len),
                     static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out)};
-  const cudaError_t err =
-      dispatch<Decode>(Dh, kind, a, dim3(B, KV, (G + GC - 1) / GC), decode_smem(kind, GC, Dh),
-                       static_cast<cudaStream_t>(stream), H, KV, bs, W, GC, scale);
+  const Partials p{static_cast<float*>(o_part), static_cast<float*>(m_part),
+                   static_cast<float*>(l_part)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dispatch<Decode>(Dh, kind, a, p, dim3(B, KV, splits), s, H, KV, bs, W,
+                                           split_len, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (splits > 1)
+    paged_decode_merge_kernel<<<dim3(B, H), Dh, 0, s>>>(p.o, p.m, p.l, a.lens, a.out, splits, H,
+                                                        Dh, int(cap), split_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -514,13 +936,14 @@ int sxt_paged_extend(const void* q, const void* k, const void* v, const void* k_
   const int TC = G <= kExtendRows ? kExtendRows / G : 1;   // chunk rows of a row block
   const int RT = G <= kExtendRows ? G * TC : kExtendRows;  // rows of a tile
   const long long rows = (long long)((C + TC - 1) / TC) * G * TC;
+  const int NZ = int((rows + RT - 1) / RT);
   const PagedArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
                     static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                     static_cast<const int*>(table), static_cast<const int*>(start),
                     static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out)};
   const cudaError_t err =
-      dispatch<Extend>(Dh, kind, a, dim3(B, KV, (rows + RT - 1) / RT), extend_smem(kind, Dh),
-                       static_cast<cudaStream_t>(stream), C, H, KV, bs, W, TC, RT, scale);
+      dispatch<Extend>(Dh, kind, a, unsigned(B) * KV * NZ, static_cast<cudaStream_t>(stream), B,
+                       C, H, KV, bs, W, TC, RT, NZ, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

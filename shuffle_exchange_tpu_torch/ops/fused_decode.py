@@ -57,7 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from .dispatch import use_kernel
-from .paged_attention import (HEAD_DIM_LATER, HEAD_DIMS, _alibi_bias, alibi_operand,
+from .paged_attention import (HEAD_DIM_LATER, HEAD_DIMS, _alibi_bias, _sms, alibi_operand,
                               decode_head_chunk, gather_kv, pool_kind, scale_kw, scales_given)
 from .quant_matmul import QuantizedMatrix, check_storage, quant_splits
 
@@ -419,10 +419,6 @@ def _lib():
         lib.sxt_fused_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
     return _LIB[0]
-
-
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gemv_splits(K: int, n_cols: Tuple[int, ...], sms: int) -> Tuple[int, int]:

@@ -13,11 +13,23 @@ The plain versions port the JAX package's oracle path:
 into ``[B, S, KV, Dh]``) and ``inference/engine.py:decode_attention`` /
 ``extend_attention`` (dense attention with f32 scores). Like the JAX plain
 path they round the softmax weights to the cache dtype before P·V; the
-kernels keep them in f32, and so do the plain versions given
-``p_f32=True``. The CPU tests hold the plain versions against the JAX
-package in f32, where the two roundings agree, and with ``p_f32=True``
-against the Pallas kernels in bf16; on the card, ``chip_smoke.py`` holds
-each kernel against its plain version with ``p_f32=True`` in bf16.
+kernels keep them to ~16 bits (two bf16 terms), and the plain versions
+given ``p_f32=True`` keep them in f32. The CPU tests hold the plain
+versions against the JAX package in f32, where the two roundings agree,
+and with ``p_f32=True`` against the Pallas kernels in bf16; on the card,
+``chip_smoke.py`` holds each kernel against its plain version with
+``p_f32=True`` in bf16.
+
+The decode kernel splits each sequence: ``decode_splits`` picks, from the
+card's SM count, splits of 256 of the table's ``W * bs`` positions, fewer
+(down to 128) where the (sequence, kv head, split) blocks would not reach
+one an SM, and one split where the (sequence, kv head) blocks reach two an
+SM. Each split writes f32 partials (``acc``, ``m``, ``l``, one buffer)
+that this module allocates, and a merge kernel combines them in split
+order; with one split no partials exist and the kernel writes the output
+itself. A decode block takes the whole query-head group of its kv head and
+reads each K/V tile once; the extend kernel tiles a kv head's flattened
+query rows by 64 and issues the tiles longest first.
 
 ALiBi: given ``alibi_slopes`` [H] (f32 on the card), every form adds
 ``slope_h * j`` in f32 to the scaled score of logical key position j (the
@@ -28,21 +40,19 @@ query head ``h = kv * G + g`` takes slope h.
 int8/fp8 KV: given ``k_scale``/``v_scale`` [nblk, KV, bs] f32 (one scale
 per stored (token, kv head) row), the pools are int8 or float8_e4m3fn.
 The plain versions gather and then dequantize in f32 (JAX ``gather_kv``'s
-pairs); the kernels stage the tile's raw one-byte rows and its scales in
-shared memory and form ``float(q) * scale`` in f32 when they read an
-element, which is JAX's ``kb * s[:, None]``. Slopes and scales compose.
-The kernels take head_dim 64, 128, 256 (GPT-J-6B's), 80 (Pythia-2.8b's)
-or 96 (Phi-3-mini's) and any query-head group ``G = H / KV``: a decode
-block takes ``decode_head_chunk(G, Dh)`` query heads of its kv head
-(Falcon-7B's 71 heads of 64 over one kv head make 5 blocks a sequence; a
-chunk is 12 heads at 80 and 10 at 96), and the extend kernel tiles a kv
-head's flattened query rows by 64. Another head dim raises, naming its
-ROADMAP item (``HEAD_DIM_LATER``).
+pairs); the kernels stage the tile's raw one-byte rows and its scales,
+widen the rows to bf16 (exactly), and apply the K scale to the score's
+column and the V scale to the probability's column in f32. Slopes and
+scales compose. The kernels take head_dim 64, 128, 256 (GPT-J-6B's), 80
+(Pythia-2.8b's) or 96 (Phi-3-mini's) and any query-head group
+``G = H / KV`` (Falcon-7B's 71 heads of 64 over one kv head). Another
+head dim raises, naming its ROADMAP item (``HEAD_DIM_LATER``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Tuple
 
@@ -225,7 +235,7 @@ paged_extend_attention.launches = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "sxt_paged_decode": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P],
+    "sxt_paged_decode": [_P] * 12 + [_I] * 9 + [ctypes.c_float, _P],
     "sxt_paged_extend": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
 }
 #: the kernels' storage codes (paged_tile.cuh: KvBf16, KvInt8, KvFp8)
@@ -236,16 +246,51 @@ HEAD_DIMS = (64, 80, 96, 128, 256)
 #: what a head dim outside HEAD_DIMS waits for
 HEAD_DIM_LATER = ("ROADMAP queue A, item 4 (h): the paged and split-K kernels are built at "
                   "head dims that are multiples of 16")
-#: query-head columns (heads x head_dim) one decode block accumulates, at most
+#: query-head columns (heads x head_dim) one block of the split-K decode
+#: kernel (B5, ``ops/fused_decode.py``) accumulates, at most
 DECODE_CHUNK_COLS = 1024
+#: the decode kernel's splits are whole multiples of this many positions
+DECODE_SPLIT_UNIT = 16
+#: positions of a decode split, and the fewest a split is cut to where the
+#: (sequence, kv head, split) blocks would not reach one an SM
+DECODE_SPLIT_LEN, DECODE_SPLIT_MIN = 256, 128
 
 
 def decode_head_chunk(G: int, Dh: int) -> Tuple[int, int]:
-    """(query heads a decode block takes, blocks a kv head's group needs):
-    the whole group when ``G * Dh <= DECODE_CHUNK_COLS``, else chunks of
-    ``DECODE_CHUNK_COLS // Dh`` heads (the kernels' ``decode_chunk``)."""
+    """(query heads a block of the split-K decode kernel takes, blocks a kv
+    head's group needs): the whole group when ``G * Dh <=
+    DECODE_CHUNK_COLS``, else chunks of ``DECODE_CHUNK_COLS // Dh`` heads
+    (``paged_tile.cuh:decode_chunk``). The paged decode kernel takes the
+    whole group in one block."""
     gc = min(G, DECODE_CHUNK_COLS // Dh)
     return gc, -(-G // gc)
+
+
+def decode_splits(B: int, KV: int, width: int, bs: int, sms: int) -> Tuple[int, int]:
+    """(splits, positions per split) of the paged decode kernel over a table
+    of ``width`` entries of ``bs`` positions on a card of ``sms`` SMs: one
+    split (the kernel then writes the output without a merge) where the
+    ``B * KV`` (sequence, kv head) blocks reach ``2 * sms``; else splits of
+    DECODE_SPLIT_LEN positions, cut to as few as DECODE_SPLIT_MIN (in
+    multiples of DECODE_SPLIT_UNIT) where those leave fewer than ``sms``
+    blocks; none empty."""
+    positions, blocks = width * bs, B * KV
+    if blocks >= 2 * sms:
+        return 1, positions
+    per = DECODE_SPLIT_LEN
+    if blocks * -(-positions // per) < sms:
+        want = -(-sms // blocks)
+        per = max(DECODE_SPLIT_MIN, positions // want // DECODE_SPLIT_UNIT * DECODE_SPLIT_UNIT)
+    if per >= positions:
+        return 1, positions
+    return -(-positions // per), per
+
+
+@functools.lru_cache(None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 _LIB = []
 
 
@@ -353,9 +398,16 @@ def _launch(kind, q, ck, cv, block_table, lens, alibi_slopes=None, k_scale=None,
     if kind == "decode":
         if C != 1:
             raise ValueError("paged decode kernel: one query token per sequence")
+        splits, split_len = decode_splits(B, KV, W, bs, _sms(q.device))
+        part = [None] * 3
+        if splits > 1:   # the splits' f32 acc, m and l (merged by the second kernel), one buffer
+            rows = B * splits * H
+            buf = torch.empty(rows * (Dh + 2), device=q.device, dtype=torch.float32)
+            part = [buf.data_ptr() + 4 * rows * off for off in (0, Dh, Dh + 1)]
         err = lib.sxt_paged_decode(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ks_ptr, vs_ptr, table.data_ptr(),
-            lens.data_ptr(), sl_ptr, out.data_ptr(), store, B, H, KV, Dh, bs, W, scale, stream)
+            lens.data_ptr(), sl_ptr, out.data_ptr(), *part, store, B, H, KV, Dh, bs, W,
+            splits, split_len, scale, stream)
     else:
         err = lib.sxt_paged_extend(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ks_ptr, vs_ptr, table.data_ptr(),

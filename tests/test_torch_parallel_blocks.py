@@ -534,7 +534,8 @@ def test_falcon_and_the_wide_split_k_groups_refuse(monkeypatch):
     for mod in (tfd, tpa):
         monkeypatch.setattr(mod, "_lib", Lib)
         monkeypatch.setattr(mod, "pool_kind", lambda *a: 0)
-    monkeypatch.setattr(tfd, "_sms", lambda dev: 132)
+    for mod in (tfd, tpa):
+        monkeypatch.setattr(mod, "_sms", lambda dev: 132)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: type("S", (), {"cuda_stream": 0}))
     q = torch.zeros(8, 1, 71, 64, dtype=torch.bfloat16)
@@ -546,7 +547,7 @@ def test_falcon_and_the_wide_split_k_groups_refuse(monkeypatch):
     assert calls["sxt_fused_paged_decode"][19] == 7 == tfd.attention_splits(8, 1, 32, 132, 5)
     assert tfd.attention_splits(8, 1, 32, 132) == 32
     assert tpa._launch("decode", q, pool, pool, table, lens).shape == q.shape
-    assert calls["sxt_paged_decode"][10:13] == (8, 71, 1)
+    assert calls["sxt_paged_decode"][13:16] == (8, 71, 1)
     eq = torch.zeros(2, 8, 65, 64, dtype=torch.bfloat16)
     assert tpa._launch("extend", eq, pool, pool, table[:2], lens[:2]).shape == eq.shape
     assert calls["sxt_paged_extend"][10:14] == (2, 8, 65, 1)
