@@ -97,7 +97,7 @@ non-zero exit code. The phases:
    head_dim 128 as bites, and one ``sparse_attention`` call at 256 under
    autograd.
 3. Serve: ``ContinuousBatchingScheduler(InferenceEngineV2(...)).serve`` on
-   Llama-3-8B at full width and depth with random weights from a seeded
+   Llama-3-8B at full width (SERVE_LAYERS layers) with random weights from a seeded
    generator on the card, twice: with ``decode_kernel: "auto"`` (which
    must resolve to the fused kernels) and with ``"xla"`` (the paged
    decode kernel). 3b: one ``put()`` of 8 prompts (one batched prefill
@@ -173,7 +173,7 @@ non-zero exit code. The phases:
    profiled int8 decode window. 4d: BLOOM-1b7 int8 cut to depth 2 (and its
    widths without fc biases) against the CPU f32 engine, as phase 4.
 3j. GPT-J-6B and Pythia-1.4b (``config_from_hf`` of their published
-   configs) at full width and depth, seeded bf16 weights, as phase 3g runs
+   configs) at full width (SERVE_LAYERS layers), seeded bf16 weights, as phase 3g runs
    BLOOM-1b7: both serve paths, ``put()`` + ``decode_loop`` against the
    single-token ``put()`` loop, the v1 ``generate`` and a profiled decode
    window, with a fused decode step's launches held exactly (GPT-J: per
@@ -242,6 +242,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 FLUSH_BYTES = 256 << 20        # written between timed launches: > the 50 MB L2
+# the layers every served model keeps (at full width): its host-bound serving
+# phases take time in proportion to its depth, and 4 keeps the whole script
+# within 1,000 s on a slow host (with 8 it took 1,008.5 s on one H100
+# machine; Llama-3-8B has 32 layers, Mixtral-8x7B 32, GPT-J-6B 28)
+SERVE_LAYERS = 4
 
 
 def _check(ok, what: str) -> None:
@@ -260,14 +265,15 @@ def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_cold(fn, iters: int = 20) -> float:
-    """Mean device ms of ``fn`` with a cold L2: before each timed call the
-    card writes FLUSH_BYTES and then idles for about a millisecond, so the
-    host has enqueued the call before its start event is reached."""
+def time_cold(fn, iters: int = 10, warm: int = 3) -> float:
+    """Mean device ms of ``iters`` calls of ``fn`` with a cold L2: before
+    each timed call the card writes FLUSH_BYTES and then idles for about a
+    millisecond, so the host has enqueued the call before its start event
+    is reached."""
     import torch
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     pairs = []
     for _ in range(iters):
@@ -280,6 +286,12 @@ def time_cold(fn, iters: int = 20) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def time_plain(fn) -> float:
+    """Mean device ms of a plain version (the kernel's arithmetic in plain
+    PyTorch, no yardstick of speed): 3 cold calls after one warm-up."""
+    return time_cold(fn, 3, warm=1)
 
 
 def host_us(fn, calls: int = 20) -> float:
@@ -337,7 +349,7 @@ def check_rmsnorm(gen):
             within=tol_ok, library_max_abs_err=(lib - want).abs().max().item(),
             ms=time_cold(lambda: rmsnorm(x, w, 1e-5)),
             host_us=host_us(lambda: rmsnorm(x, w, 1e-5)),
-            plain_ms=time_cold(lambda: rmsnorm_reference(x, w, 1e-5)),
+            plain_ms=time_plain(lambda: rmsnorm_reference(x, w, 1e-5)),
             library_ms=time_cold(lambda: F.rms_norm(x, (D,), w, 1e-5)),
             bound_ms=b_ms, bound_by=b_by))
         _check(tol_ok, f"rmsnorm kernel disagrees with its plain version at {list(shape)}: "
@@ -452,7 +464,7 @@ def check_paged_decode(case):
                tolerance=PAGED_TOL, within=tol_ok, tolerance_bites=bites,
                equal_bits_twice=twice, library_max_abs_err=lib_err,
                ms=time_cold(run), host_us=host_us(run),
-               plain_ms=time_cold(lambda: paged_decode_reference(q, ck, cv, table, kvl)),
+               plain_ms=time_plain(lambda: paged_decode_reference(q, ck, cv, table, kvl)),
                library_ms=time_cold(lib), bound_ms=b_ms, bound_by=b_by)
     _check(tol_ok, f"paged decode kernel disagrees with its plain version: "
            f"max abs err {row['max_abs_err']}")
@@ -502,7 +514,7 @@ def check_paged_extend(gen, rng):
                tolerance=PAGED_TOL + " (rows < nnew)", within=tol_ok, tolerance_bites=bites,
                equal_bits_twice=twice, library_max_abs_err=lib_err,
                ms=time_cold(run), host_us=host_us(run),
-               plain_ms=time_cold(lambda: paged_extend_reference(q, ck, cv, table, st, nn)),
+               plain_ms=time_plain(lambda: paged_extend_reference(q, ck, cv, table, st, nn)),
                library_ms=time_cold(lib), bound_ms=b_ms, bound_by=b_by)
     _check(tol_ok, f"paged extend kernel disagrees with its plain version: "
            f"max abs err {row['max_abs_err']}")
@@ -658,7 +670,7 @@ def check_fused_qkv(gen, rng, B, pooled=True, widths=LLAMA_WIDTHS, theta=500000.
     row = dict(shape=dict(B=B, D=D, H=H, KV=KV, Dh=Dh, bs=bs, pos=pos.tolist(), pool=pooled),
                max_abs_err=err, tolerance=PAGED_TOL + " per head row", within=tol_ok,
                tolerance_bites=bites, ms=time_cold(run), host_us=host_us(run),
-               plain_ms=time_cold(plain), library_ms=time_cold(lambda: y @ wqkv),
+               plain_ms=time_plain(plain), library_ms=time_cold(lambda: y @ wqkv),
                library="torch.matmul(y, [wq|wk|wv]) (projection only)",
                bound_ms=b_ms, bound_by=b_by)
     if pooled:
@@ -704,7 +716,7 @@ def check_fused_mlp(gen, B, widths=LLAMA_WIDTHS):
                ms=time_cold(lambda: fused_mlp(h, h, ln_w, wu, wd, wg, eps=1e-5)),
                host_us=host_us(lambda: fused_mlp(h, h, ln_w, wu, wd, wg, eps=1e-5)),
                cublas_sequence_host_us=host_us(cublas_sequence),
-               plain_ms=time_cold(lambda: fused_mlp_reference(h, h, ln_w, wu, wd, wg, eps=1e-5)),
+               plain_ms=time_plain(lambda: fused_mlp_reference(h, h, ln_w, wu, wd, wg, eps=1e-5)),
                library_ms=None, cublas_sequence_ms=time_cold(cublas_sequence),
                bound_ms=b_ms, bound_by=b_by)
     _check(tol_ok, f"fused MLP kernel disagrees with its plain version at B={B}: "
@@ -748,7 +760,7 @@ def check_fused_decode(case):
                tolerance=PAGED_TOL, within=tol_ok, tolerance_bites=bites,
                ms=time_cold(lambda: fused_paged_decode_attention(q, ck, cv, table, kvl)),
                host_us=host_us(lambda: fused_paged_decode_attention(q, ck, cv, table, kvl)),
-               plain_ms=time_cold(lambda: fused_paged_decode_reference(q, ck, cv, table, kvl,
+               plain_ms=time_plain(lambda: fused_paged_decode_reference(q, ck, cv, table, kvl,
                                                                        splits)),
                library_ms=time_cold(lib), bound_ms=b_ms, bound_by=b_by)
     _check(tol_ok, f"split-K decode kernel disagrees with its plain version: "
@@ -828,9 +840,12 @@ def _sdpa_kernels(fn):
 
 
 # (B, T, S, H, KV, Dh, causal, segments): the prefill's largest program
-# (8 prompts padded to 1024), one long prompt, then a sweep over MHA, GQA
-# groups 4 and 8 and both head sizes, at ragged lengths (down to one row
-# and below one tile), a full mask with T != S and segment-id cases
+# (8 prompts padded to 1024) and one long prompt (the two timed cells),
+# then a sweep over MHA, GQA groups 4 and 8 and both head sizes, at ragged
+# lengths (down to one row and below one tile), a full mask with T != S and
+# segment-id cases, each held to its plain version (their times are
+# scripts/torch_kernel_digest.py's sweeps section)
+FLASH_TIMED = 2
 FLASH_SHAPES = [
     (8, 1024, 1024, 32, 8, 128, True, False),
     (1, 2048, 2048, 32, 8, 128, True, False),
@@ -848,12 +863,13 @@ FLASH_SHAPES = [
 
 def check_flash(gen, rng):
     """The flash kernel against its plain version with P in f32 (both round
-    one f32 result to bf16) at every FLASH_SHAPES shape, within PAGED_TOL;
-    each shape timed beside its bound, the plain version and SDPA (as a
-    yardstick; the kernels SDPA ran are recorded). At the first shape (the
-    one the ``kernels`` line reports) a
-    plain version with the causal diagonal shifted by one, and one without
-    the last 64-key tile, must fail the tolerance."""
+    one f32 result to bf16) at every FLASH_SHAPES shape, within PAGED_TOL.
+    The first FLASH_TIMED shapes (the first is the one the ``kernels`` line
+    reports) are timed beside their bound, the plain version and SDPA (as a
+    yardstick; its backend named from the kernels it ran); at each of them
+    two launches give equal bits, and a plain version with the causal
+    diagonal shifted by one, and one without the last 64-key tile, must
+    fail the tolerance."""
     import torch
     import torch.nn.functional as F
 
@@ -887,15 +903,21 @@ def check_flash(gen, rng):
                    max_abs_err=err.max().item(),
                    max_rel_err=(err.max() / want.float().abs().max()).item(),
                    tolerance=PAGED_TOL + " (plain with P in f32)", within=tol_ok)
-        if i == 0:
-            shifted = torch.ones(T, S, dtype=torch.bool, device="cuda").tril(1)
-            short = torch.ones(T, S, dtype=torch.bool, device="cuda").tril()
-            short[:, S - 64:] = False     # rows past S - 64 keep keys 0 .. S - 65
-            row["tolerance_bites"] = {
-                "diagonal_shifted": _bites(got, _masked_plain(q, k, v, shifted)),
-                "last_kv_tile_missing": _bites(got, _masked_plain(q, k, v, short))}
-            _check(all(row["tolerance_bites"].values()), f"the flash tolerance does not catch "
-                   f"a broken plain version: {row['tolerance_bites']}")
+        if i >= FLASH_TIMED:
+            rows.append(row)
+            del q, k, v, got, want
+            continue
+        row["equal_bits_twice"] = equal_bits_twice(run)
+        _check(row["equal_bits_twice"], f"two runs of the flash forward differ at "
+               f"{FLASH_SHAPES[i]}")
+        shifted = torch.ones(T, S, dtype=torch.bool, device="cuda").tril(1)
+        short = torch.ones(T, S, dtype=torch.bool, device="cuda").tril()
+        short[:, S - 64:] = False     # rows past S - 64 keep keys 0 .. S - 65
+        row["tolerance_bites"] = {
+            "diagonal_shifted": _bites(got, _masked_plain(q, k, v, shifted)),
+            "last_kv_tile_missing": _bites(got, _masked_plain(q, k, v, short))}
+        _check(all(row["tolerance_bites"].values()), f"the flash tolerance does not catch "
+               f"a broken plain version at {FLASH_SHAPES[i]}: {row['tolerance_bites']}")
         qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if seg is None:
             lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
@@ -909,8 +931,9 @@ def check_flash(gen, rng):
         nbytes = 2 * B * T * H * Dh * 2 + 2 * B * S * KV * Dh * 2 + (0 if seg is None else B * T * 4)
         b_ms, b_by = bound(nbytes, 4.0 * pairs * H * Dh)
         row.update(visible_pairs=pairs, ms=time_cold(run), host_us=host_us(run),
-                   plain_ms=time_cold(plain), library_ms=time_cold(lib),
+                   plain_ms=time_plain(plain), library_ms=time_cold(lib),
                    library_kernels=_sdpa_kernels(lib), bound_ms=b_ms, bound_by=b_by)
+        row["library_backend"] = _sdpa_backend(row["library_kernels"])
         row["tflops"] = 4.0 * pairs * H * Dh / (row["ms"] * 1e-3) / 1e12
         rows.append(row)
         del q, k, v, got, want
@@ -986,10 +1009,11 @@ def check_flash_bwd(gen, rng):
     plain versions at every FLASH_BWD_SHAPES shape (the kernel's out goes
     into both backwards only once it has agreed with the plain out); the
     first FLASH_BWD_TIMED shapes are timed beside their bound, the plain
-    version and SDPA's backward (a yardstick only). At the first shape a
-    plain version with the causal diagonal shifted by one must fail both
-    tolerances, two runs of the kernels must give equal bits, and the
-    kernels must stay within AUTOGRAD_TOL of autograd through the plain
+    version, SDPA's forward and SDPA's backward (yardsticks only, the
+    backend named). At each timed shape a plain version with the causal
+    diagonal shifted by one must fail both tolerances and two runs of the
+    forward and of the backward kernels must give equal bits; at the first
+    the kernels must stay within AUTOGRAD_TOL of autograd through the plain
     forward."""
     import torch
     import torch.nn.functional as F
@@ -1045,11 +1069,15 @@ def check_flash_bwd(gen, rng):
                    fwd_out_max_abs_err=out_err,
                    tolerance=GRAD_TOL + f"; lse {LSE_TOL} abs; forward out {PAGED_TOL}",
                    within=tol_ok)
-        if i == 0:
+        if i < FLASH_BWD_TIMED:
             again = run()
             torch.cuda.synchronize()
             row["equal_bits_twice"] = all(torch.equal(a, b_) for a, b_ in zip(got, again))
-            _check(row["equal_bits_twice"], "two runs of the flash backward kernels differ")
+            row["fwd_equal_bits_twice"] = equal_bits_twice(
+                lambda: flash_attention_lse(q, k, v, causal, seg)[0])
+            _check(row["equal_bits_twice"] and row["fwd_equal_bits_twice"],
+                   f"two runs of the flash kernels differ at {shape}")
+            del again
             small = slice(0, 4)      # the shifted plain version on 4 sequences
             shifted = torch.ones(T, S, dtype=torch.bool, device="cuda").tril(1)
             broken = _masked_plain_grads(q[small], k[small], v[small], dout[small], shifted)
@@ -1062,7 +1090,9 @@ def check_flash_bwd(gen, rng):
             row["tolerance_bites"]["lse"] = bool(
                 (lse[small] - shifted_lse).abs().max().item() > LSE_TOL)
             _check(all(row["tolerance_bites"].values()), "the flash backward tolerance does "
-                   f"not catch a shifted diagonal: {row['tolerance_bites']}")
+                   f"not catch a shifted diagonal at {shape}: {row['tolerance_bites']}")
+            del broken, logits, shifted_lse
+        if i == 0:
             leaves = [t[small].float().requires_grad_(True) for t in (q, k, v)]
             auto = torch.autograd.grad(reference_attention(*leaves, causal, None), leaves,
                                        dout[small].float())
@@ -1073,12 +1103,13 @@ def check_flash_bwd(gen, rng):
                    f"the flash backward kernels are further than {AUTOGRAD_TOL} of the "
                    f"tensor's RMS from autograd through the plain forward: "
                    f"{row['autograd_max_err_over_rms']}")
-            del broken, logits, shifted_lse, leaves, auto
+            del leaves, auto
         if i < FLASH_BWD_TIMED:
             qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
             dos = dout.transpose(1, 2).contiguous()
-            lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
-                                                     enable_gqa=True)
+            lib_fwd = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                             enable_gqa=True)
+            lib_out = lib_fwd()
             lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dos, retain_graph=True)
             lib_dq = lib()[0].transpose(1, 2)
             row["library_max_abs_err"] = (lib_dq.float() - want[0].float()).abs().max().item()
@@ -1086,13 +1117,17 @@ def check_flash_bwd(gen, rng):
                       + B * T * H * Dh * 2 + 2 * B * S * KV * Dh * 2)                    # writes
             b_ms, b_by = bound(nbytes, 10.0 * pairs * H * Dh)
             row.update(visible_pairs=pairs, ms=time_cold(run, iters=10),
-                       host_us=host_us(run), plain_ms=time_cold(plain, iters=3),
+                       host_us=host_us(run), plain_ms=time_plain(plain),
                        library_ms=time_cold(lib, iters=10),
                        library="SDPA backward (torch.autograd.grad of "
                                "scaled_dot_product_attention, enable_gqa)",
                        library_kernels=_sdpa_kernels(lib), bound_ms=b_ms, bound_by=b_by,
                        fwd_lse_ms=time_cold(lambda: flash_attention_lse(q, k, v, causal, seg),
-                                            iters=10))
+                                            iters=10),
+                       library_fwd_ms=time_cold(lib_fwd, iters=10))
+            row["library_backend"] = _sdpa_backend(row["library_kernels"])
+            row["fwd_bound_ms"] = bound(2 * B * T * H * Dh * 2 + 2 * B * S * KV * Dh * 2
+                                        + B * H * T * 4, 4.0 * pairs * H * Dh)[0]
             row["tflops"] = 10.0 * pairs * H * Dh / (row["ms"] * 1e-3) / 1e12
             del qs, ks, vs, dos, lib_out, lib_dq
         rows.append(row)
@@ -1174,7 +1209,7 @@ def check_fused_adamw(gen):
                                     weight_decay=0.1, fused=True)
             b_ms, b_by = bound(28.0 * n, 12.0 * n, F32_FLOP_PER_S)
             row.update(ms=time_cold(run, iters=10), host_us=host_us(run),
-                       plain_ms=time_cold(plain, iters=3),
+                       plain_ms=time_plain(plain),
                        library_ms=time_cold(opt.step, iters=10),
                        library="torch.optim.AdamW(fused=True).step()",
                        bound_ms=b_ms, bound_by=b_by)
@@ -1258,9 +1293,11 @@ def _swapped_nibbles(qm):
 def check_quant_matmul(gen):
     """B8 against its plain version (the JAX default formula) for the three
     formats at group 256 on Llama-3-8B's four matrix shapes and QUANT_ROWS
-    rows, then QUANT_EXTRA; each Llama case is timed beside its bound, the
-    plain version, dequantize + ``torch.matmul`` (the library yardstick)
-    and cuBLAS on the dense bf16 weight. At each format's first case a
+    rows, then QUANT_EXTRA; the cases of the first shape (w_gate / w_up)
+    are timed beside their bound, the plain version, dequantize +
+    ``torch.matmul`` (the library yardstick) and cuBLAS on the dense bf16
+    weight (the other shapes' times are scripts/torch_kernel_digest.py's
+    sweeps section). At each format's first case a
     plain version with the scale rows shifted by one group (and, for
     int4, one with the nibbles swapped) must fail the tolerance, and two
     runs must give equal bits."""
@@ -1270,8 +1307,8 @@ def check_quant_matmul(gen):
                                                              quant_matmul_reference,
                                                              quantize_weight)
 
-    cases = [(bits, M, K, N, 256, True) for bits in QUANT_FORMATS for K, N in QUANT_SHAPES
-             for M in QUANT_ROWS]
+    cases = [(bits, M, K, N, 256, (K, N) == QUANT_SHAPES[0]) for bits in QUANT_FORMATS
+             for K, N in QUANT_SHAPES for M in QUANT_ROWS]
     cases += [(bits, M, K, N, gs, False) for bits in QUANT_FORMATS
               for M, K, N, gs in QUANT_EXTRA]
     rows, made = [], {}
@@ -1311,7 +1348,7 @@ def check_quant_matmul(gen):
                 b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
                 iters = 10 if M > 1024 else 20
                 row.update(ms=time_cold(run, iters), host_us=host_us(run),
-                           plain_ms=time_cold(plain, iters),
+                           plain_ms=time_plain(plain),
                            library_ms=time_cold(lambda: x @ qm.dequantize(), iters),
                            library="dequantize() + torch.matmul",
                            dense_cublas_ms=time_cold(lambda: x @ w, iters),
@@ -1383,7 +1420,7 @@ def check_fused_mlp_quant(gen):
                            max_rel_err=(err.max() / want.float().abs().max()).item(),
                            tolerance=QUANT_MLP_TOL, within=tol_ok,
                            tolerance_bites=bites, ms=time_cold(run), host_us=host_us(run),
-                           plain_ms=time_cold(plain), library_ms=time_cold(deq_cublas),
+                           plain_ms=time_plain(plain), library_ms=time_cold(deq_cublas),
                            library="dequantize() + the cuBLAS sequence",
                            dense_cublas_sequence_ms=time_cold(dense_cublas),
                            bound_ms=b_ms, bound_by=b_by)
@@ -1465,8 +1502,10 @@ def check_mlp_quant_forms(gen):
     BLOOM-1b7's and GPT-2's widths and 1 and 8 rows, over the cells of
     ``mlp_quant_cells`` (each axis value meets each other axis's values),
     through ``fused_mlp`` against ``fused_mlp_quant_reference`` within
-    QUANT_MLP_TOL, each timed beside its bytes bound, the plain version and
-    dequantize + the cuBLAS sequence. The rows carry a per-row offset (a
+    QUANT_MLP_TOL; the MQ_FIRST cells (BLOOM's form in each format) timed
+    beside their bytes bound, the plain version and dequantize + the cuBLAS
+    sequence (the others' times: scripts/torch_kernel_digest.py's sweeps
+    section). The rows carry a per-row offset (a
     hidden state's mean), so layernorm and RMSNorm differ; the bites that
     apply to a cell's form must fail: a dropped ``ln_b``, the gate read on
     the plain form, gelu_new computed as relu, layernorm computed as
@@ -1528,12 +1567,13 @@ def check_mlp_quant_forms(gen):
             b_ms, b_by = bound(nbytes, 2.0 * B * D * Fd * len(mats))
             row = dict(shape=shape, max_abs_err=err.max().item(),
                        max_rel_err=(err.max() / want.float().abs().max()).item(),
-                       tolerance=QUANT_MLP_TOL, within=tol_ok, tolerance_bites=bites,
-                       ms=time_cold(run), host_us=host_us(run), plain_ms=time_cold(plain),
-                       library_ms=time_cold(deq_cublas),
-                       library="dequantize() + the cuBLAS sequence", bound_ms=b_ms,
-                       bound_by=b_by)
-            row["gbytes_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+                       tolerance=QUANT_MLP_TOL, within=tol_ok, tolerance_bites=bites)
+            if (norm, gated, act, bits, width, B) in MQ_FIRST:   # BLOOM's form: timed
+                row.update(ms=time_cold(run), host_us=host_us(run), plain_ms=time_plain(plain),
+                           library_ms=time_cold(deq_cublas),
+                           library="dequantize() + the cuBLAS sequence", bound_ms=b_ms,
+                           bound_by=b_by)
+                row["gbytes_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
             rows.append(row)
             del h, got, want, err
     made.clear()
@@ -1553,6 +1593,9 @@ GG_E = 8
 # rows x top-2, and a put() of 8 prompts of 1024 x top-2
 GG_ROWS = [2, 16, 512, 16384]
 GG_PATTERNS = ("balanced", "one_expert", "empty_ends", "ragged")
+# the (format, pattern) cells timed here: a routed batch's bf16 and int8
+# stacks (the others' times are scripts/torch_kernel_digest.py's sweeps section)
+GG_TIMED = (("bf16", "ragged"), (8, "ragged"))
 
 
 def group_pattern(pattern, N, E, rng):
@@ -1625,10 +1668,10 @@ def check_grouped_gemm(gen, rng, timed=True):
     case a plain version that hands a boundary row to the neighbouring
     expert, and (quantized) one with the scale rows shifted by one group,
     must fail the tolerance, and two runs must give equal bits. With
-    ``timed``, every cell is timed beside its bound (the x rows, the bytes
-    of the experts that have rows, the output; 2 N K F operations), the
-    plain version and the library yardstick (dequantize + the library call
-    for the quantized stacks)."""
+    ``timed``, the GG_TIMED cells are timed beside their bound (the x rows,
+    the bytes of the experts that have rows, the output; 2 N K F
+    operations), the plain version and the library yardstick (dequantize +
+    the library call for the quantized stacks)."""
     import torch
 
     from shuffle_exchange_tpu_torch.ops.grouped_gemm import (grouped_matmul,
@@ -1673,7 +1716,7 @@ def check_grouped_gemm(gen, rng, timed=True):
                                    f"catch a broken plain version: {bites}")
                             _check(row["equal_bits_twice"], "two runs of the grouped matmul "
                                    "differ")
-                        if timed:
+                        if timed and (fmt, pattern) in GG_TIMED:
                             used = int((sizes_np > 0).sum())
                             nbytes = N * K * 2 + used * expert_bytes + N * F * 2
                             b_ms, b_by = bound(nbytes, 2.0 * N * K * F)
@@ -1684,7 +1727,7 @@ def check_grouped_gemm(gen, rng, timed=True):
                                 lib_name = "dequantize() + " + lib_name
                             iters = 5 if N > 1024 else 10
                             row.update(ms=time_cold(run, iters), host_us=host_us(run),
-                                       plain_ms=time_cold(plain, 2), library_ms=time_cold(lib, 3),
+                                       plain_ms=time_plain(plain), library_ms=time_cold(lib, 3),
                                        library=lib_name, bound_ms=b_ms, bound_by=b_by)
                             row["gbytes_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
                             row["tflops"] = 2.0 * N * K * F / (row["ms"] * 1e-3) / 1e12
@@ -1831,7 +1874,7 @@ def check_grouped_gemm_bwd(gen, rng, timed=True):
                 if timed:
                     b_ms, b_by = bound(nbytes, 2.0 * summed * K * F)
                     row.update(ms=time_cold(run, 5), host_us=host_us(run),
-                               plain_ms=time_cold(plain, 2), library_ms=time_cold(lib, 3),
+                               plain_ms=time_plain(plain), library_ms=time_cold(lib, 3),
                                library=lib_name, bound_ms=b_ms, bound_by=b_by)
                     row["tflops"] = 2.0 * summed * K * F / (row["ms"] * 1e-3) / 1e12
                 rows.append(row)
@@ -1961,7 +2004,7 @@ def check_lora_gemm(gen, ranks=LORA_R, pools=LORA_S, row_shapes=LORA_ROWS):
                         seq = lambda: torch.bmm(torch.bmm(x, a[idx]), b[idx])
                         iters = 5 if B * T > 1024 else 10
                         row.update(ms=time_cold(run, iters), host_us=host_us(run),
-                                   plain_ms=time_cold(plain, 3), library_ms=None,
+                                   plain_ms=time_plain(plain), library_ms=None,
                                    library_sequence_ms=time_cold(seq, 3),
                                    library="none (gather + two torch.bmm in bf16 timed as "
                                            "library_sequence_ms)",
@@ -2022,6 +2065,9 @@ def _kernel_kind(name: str) -> str:
                       ("alibi_bwd_dq_kernel", "alibi dq (B12)"),
                       ("alibi_bwd_dkv_kernel", "alibi dk/dv (B13)"),
                       ("alibi_bwd_delta_kernel", "alibi delta"),
+                      ("wg_fwd_kernel", "flash_attention (wgmma forward)"),
+                      ("wg_dkv_kernel", "flash_attention_bwd (wgmma dk/dv)"),
+                      ("wg_dq_kernel", "flash_attention_bwd (wgmma dq)"),
                       ("flash_fwd_kernel", "flash_attention"),
                       ("flash_bwd_", "flash_attention_bwd"),
                       ("fused_adamw_kernel", "fused_adamw"),
@@ -2714,9 +2760,6 @@ def multi_tenant_serving(model, params, prompts, n_layers, card, seed, stripes=M
 MOE_SERVE = dict(SERVE_CONFIG, quantize_weights=True, quant_bits=8,
                  serving=dict(SERVE_CONFIG["serving"], moe={"moe_impl": "ragged"}))
 MOE_AUTO = dict(MOE_SERVE, serving=dict(SERVE_CONFIG["serving"], moe={"moe_impl": "auto"}))
-# phase 3e's depth, cut to 16 of Mixtral-8x7B's 32 layers (23.9 GB of int8
-# storage) to keep the whole script within its time limit
-MOE_SERVE_DEPTH = 16
 
 
 def _seeded_storage(lead, K, N, std, gen, bits, device="cuda"):
@@ -2776,7 +2819,7 @@ def mixtral_params(cfg, gen, bits=8, device="cuda"):
 
 
 def mixtral_serving(cfg, seed, card, device="cuda"):
-    """3e: Mixtral-8x7B at full width (``MOE_SERVE_DEPTH`` layers in the
+    """3e: Mixtral-8x7B at full width (``SERVE_LAYERS`` layers in the
     script) on one card, int8 experts
     and attention matrices: a counted ``serve()`` of the phase-3 requests
     with ``serving.moe.moe_impl`` "ragged" and "auto" (the capacity
@@ -3662,7 +3705,7 @@ def check_alibi_decode(gen, rng):
                        ms=time_cold(run), host_us=host_us(run),
                        ms_without_slopes=time_cold(
                            lambda: paged_decode_attention(q, ck, cv, table, kvl)),
-                       plain_ms=time_cold(lambda: plain(sl)), library_ms=time_cold(lib),
+                       plain_ms=time_plain(lambda: plain(sl)), library_ms=time_cold(lib),
                        library="SDPA, bf16 relative-ALiBi mask", bound_ms=b_ms,
                        bound_by=b_by)
         rows.append(row)
@@ -3718,7 +3761,7 @@ def check_alibi_extend(gen, rng):
                        ms=time_cold(run), host_us=host_us(run),
                        ms_without_slopes=time_cold(
                            lambda: paged_extend_attention(q, ck, cv, table, st, nn)),
-                       plain_ms=time_cold(lambda: plain(sl)), library_ms=time_cold(lib),
+                       plain_ms=time_plain(lambda: plain(sl)), library_ms=time_cold(lib),
                        library="SDPA, bf16 relative-ALiBi mask", bound_ms=b_ms,
                        bound_by=b_by)
         rows.append(row)
@@ -3766,7 +3809,7 @@ def check_alibi_split(gen, rng):
                 row.update(ms=time_cold(run), host_us=host_us(run),
                            ms_without_slopes=time_cold(lambda: fused_paged_decode_attention(
                                q, ck, cv, table, kvl)),
-                           plain_ms=time_cold(lambda: plain(sl)), library_ms=time_cold(lib),
+                           plain_ms=time_plain(lambda: plain(sl)), library_ms=time_cold(lib),
                            library="SDPA, bf16 relative-ALiBi mask", bound_ms=b_ms,
                            bound_by=b_by)
             rows.append(row)
@@ -3846,7 +3889,7 @@ def check_qkv_bias(gen, rng):
                     row.update(ms=time_cold(run), host_us=host_us(run),
                                ms_without_biases=time_cold(lambda: fused_qkv_rope(
                                    y, *w, None, None, *kargs, n_heads=H, kv_heads=KV)),
-                               plain_ms=time_cold(lambda: plain(**bias)),
+                               plain_ms=time_plain(lambda: plain(**bias)),
                                library_ms=time_cold(lambda: torch.addmm(bqkv, y, wqkv)),
                                library="torch.addmm(b, y, [wq|wk|wv]) (projection only)",
                                bound_ms=b_ms, bound_by=b_by)
@@ -3917,7 +3960,7 @@ def check_mlp_forms(gen):
 
                 nbytes = 2 * D * Fd * 2 + (Fd + D) * 2 + 2 * D * 2 + 2 * B * D * 2
                 b_ms, b_by = bound(nbytes, 2.0 * B * D * Fd * 2)
-                row.update(ms=time_cold(run), host_us=host_us(run), plain_ms=time_cold(plain),
+                row.update(ms=time_cold(run), host_us=host_us(run), plain_ms=time_plain(plain),
                            library_ms=None, cublas_sequence_ms=time_cold(cublas_sequence),
                            cublas_sequence_host_us=host_us(cublas_sequence),
                            bound_ms=b_ms, bound_by=b_by)
@@ -4150,7 +4193,7 @@ def check_kv_quant(gen, rng):
                     row.update(ms=time_cold(lambda: kernel(*pl)),
                                host_us=host_us(lambda: kernel(*pl)),
                                ms_bf16_pool=time_cold(bf16_pool),
-                               plain_ms=time_cold(lambda: plain(*pl)),
+                               plain_ms=time_plain(lambda: plain(*pl)),
                                library_ms=time_cold(lib),
                                library="dequantize + SDPA on the gathered KV",
                                bound_ms=b_ms, bound_by=b_by)
@@ -4296,8 +4339,8 @@ def check_sparse_mask(gen, seed):
                 run = lambda: flash_attention(q, k, v, causal=False, mask=tm)
                 causal_run = lambda: flash_attention(q, k, v, causal=True)
                 fwd.update(ms=time_cold(run, iters=10), host_us=host_us(run),
-                           plain_ms=time_cold(lambda: reference_attention(
-                               q, k, v, False, None, p_f32=True, mask=tm), iters=3),
+                           plain_ms=time_plain(lambda: reference_attention(
+                               q, k, v, False, None, p_f32=True, mask=tm)),
                            library_ms=time_cold(lambda: lib_f(), iters=10),
                            library="SDPA with the boolean [T, S] attn_mask, enable_gqa",
                            library_kernels=_sdpa_kernels(lib_f),
@@ -4309,8 +4352,8 @@ def check_sparse_mask(gen, seed):
                                                                 None, mask=tm), iters=10),
                        host_us=host_us(lambda: flash_attention_bwd(q, k, v, out, lse, dout,
                                                                    False, None, mask=tm)),
-                       plain_ms=time_cold(lambda: reference_attention_bwd(
-                           q, k, v, out, dout, False, None, mask=tm), iters=3),
+                       plain_ms=time_plain(lambda: reference_attention_bwd(
+                           q, k, v, out, dout, False, None, mask=tm)),
                        library_ms=time_cold(lib_b, iters=10),
                        library="SDPA backward with the boolean attn_mask",
                        unmasked_causal_ms=time_cold(lambda: flash_attention_bwd(
@@ -4366,7 +4409,7 @@ GPT2_V1 = dict(V1_CONFIG, max_seq_len=1024)
 
 def family_serving(name, cfg, seed, card, config=SERVE_CONFIG, v1_config=V1_CONFIG,
                    longest=1024):
-    """Phase 3g for one model at full width and depth, seeded weights made on
+    """Phase 3g for one model at full width (as deep as ``cfg``), seeded weights made on
     the card: ``serve()`` with "auto" (which must resolve to the fused path)
     and "xla", ``put()`` + ``decode_loop`` against the single-token ``put()``
     loop, the v1 ``generate`` (each with its launch counters held to what
@@ -4467,17 +4510,6 @@ def kv_e2e(name, cfg, card_state, seed, formats=KV_FORMATS):
 
 # BLOOM-1b7 serves every format, GPT-2 int8
 FAMILY_QUANT = {"bloom-1b7": QUANT_FORMATS, "gpt2-small": (8,)}
-# phase 3i's depth where it is cut to keep the whole script within its time
-# limit (BLOOM-1b7 has 24 layers; 3i serves 12 of them)
-QUANT_DEPTH = {"bloom-1b7": 12}
-
-
-def cut_depth(cfg, params, n_layers):
-    """(cfg, params) cut to the first ``n_layers`` layers."""
-    if n_layers == cfg.n_layers:
-        return cfg, params
-    return (dataclasses.replace(cfg, n_layers=n_layers),
-            {k: (v[:n_layers] if k.startswith("layers.") else v) for k, v in params.items()})
 
 
 def _fmt(bits) -> str:
@@ -4613,9 +4645,6 @@ PYTHIA_1B4 = {"architectures": ["GPTNeoXForCausalLM"], "model_type": "gpt_neox",
 GPTJ_WIDTHS = dict(D=4096, H=16, KV=16, Dh=256, F=16384)
 PYTHIA_WIDTHS = dict(D=2048, H=16, KV=16, Dh=128, F=8192, rd=32)
 PB_MAX_LEN = 2048
-# phase 3j's depth where it is cut to keep the whole script within its time
-# limit (GPT-J-6B has 28 layers; 3j serves 14 of them)
-PB_DEPTH = {"gpt-j-6b": 14}
 
 
 def check_mlp_no_norm(gen):
@@ -4685,7 +4714,7 @@ def check_mlp_no_norm(gen):
                             @ down.dequantize()
                         name = "dequantize() + the cuBLAS sequence"
                     row.update(ms=time_cold(run), host_us=host_us(run),
-                               plain_ms=time_cold(lambda: ref(resid, y)),
+                               plain_ms=time_plain(lambda: ref(resid, y)),
                                library_ms=time_cold(lib) if bits is not None else None,
                                cublas_sequence_ms=time_cold(lib), library=name,
                                bound_ms=b_ms, bound_by=b_by)
@@ -4817,7 +4846,7 @@ def check_qkv_partial_rope(gen, rng, widths=PYTHIA_WIDTHS, layouts=PARTIAL_ROPE_
                           + B * 4)
                 b_ms, b_by = bound(nbytes, 2.0 * B * D * n_out)
                 row.update(ms=time_cold(run), host_us=host_us(run),
-                           plain_ms=time_cold(plain),
+                           plain_ms=time_plain(plain),
                            library_ms=time_cold(lambda: torch.addmm(bqkv, y, wqkv)),
                            library="torch.addmm(b, y, [wq|wk|wv]) (projection only)",
                            bound_ms=b_ms, bound_by=b_by)
@@ -4965,7 +4994,7 @@ def check_paged_heads(gen, rng, H, KV, Dh, suffix, decode_rows=(8,), pools=("bf1
                     lib = _kvq_library(qq, served, table, vis)
                     what = "dequantize + SDPA over the gathered K/V"
                 row.update(ms=time_cold(run), host_us=host_us(run),
-                           plain_ms=time_cold(lambda: plain(qq)), library_ms=time_cold(lib),
+                           plain_ms=time_plain(lambda: plain(qq)), library_ms=time_cold(lib),
                            library=what, bound_ms=b_ms, bound_by=b_by)
             out[form].append(row)
     return out
@@ -4978,12 +5007,13 @@ FLASH_256_SHAPES = [(8, 1024, 1024, 16, 16, 256, True), (2, 1000, 1000, 16, 4, 2
 
 
 def check_flash_forward(gen, shapes=FLASH_256_SHAPES, dim_bites=False):
-    """The flash forward at ``shapes`` (FLASH_256_SHAPES: head_dim 256, Q's
-    fragments from shared memory; FLASH_FALCON_SHAPES in phase 2o) against
-    its plain version with P in f32, within PAGED_TOL; at the first shape a plain version with the causal diagonal
-    shifted by one, one with the softmax scale of head_dim 128 and one
-    reading the neighbouring head's q must fail it. Timed beside the bound
-    and SDPA."""
+    """The flash forward at ``shapes`` (FLASH_256_SHAPES: head_dim 256;
+    FLASH_FALCON_SHAPES in phase 2o, FLASH_HEAD_DIM_SHAPES in 2p) against
+    its plain version with P in f32, within PAGED_TOL. The first shape is
+    timed beside the bound and SDPA (its backend named); there two launches
+    give equal bits, and a plain version with the causal diagonal shifted
+    by one, one with the softmax scale of head_dim 128 and one reading the
+    neighbouring head's q must fail the tolerance."""
     import torch
     import torch.nn.functional as F
 
@@ -5022,9 +5052,13 @@ def check_flash_forward(gen, shapes=FLASH_256_SHAPES, dim_bites=False):
             nbytes = 2 * B * T * H * Dh * 2 + 2 * B * S * KV * Dh * 2
             b_ms, b_by = bound(nbytes, 4.0 * pairs * H * Dh)
             row.update(ms=time_cold(run), host_us=host_us(run),
-                       plain_ms=time_cold(lambda: plain(q)), library_ms=time_cold(lib),
+                       plain_ms=time_plain(lambda: plain(q)), library_ms=time_cold(lib),
                        library_kernels=_sdpa_kernels(lib), bound_ms=b_ms, bound_by=b_by)
+            row["library_backend"] = _sdpa_backend(row["library_kernels"])
             row["tflops"] = 4.0 * pairs * H * Dh / (row["ms"] * 1e-3) / 1e12
+            row["equal_bits_twice"] = equal_bits_twice(run)
+            _check(row["equal_bits_twice"], f"two runs of the flash forward differ at "
+                   f"{shapes[i]}")
         rows.append(row)
         del q, k, v, got, want
     torch.cuda.empty_cache()
@@ -5066,8 +5100,8 @@ PB_PER_LAYER = {"gpt-j-6b": dict(fused_qkv_rope=0, fused_paged_decode_attention=
 
 
 def parallel_block_serving(name, cfg, seed, card):
-    """Phase 3j for one model at full width and depth (GPT-J-6B at
-    PB_DEPTH's) through phase 3g's ``family_serving``: ``serve()`` on
+    """Phase 3j for one model at full width (as deep as ``cfg``) through
+    phase 3g's ``family_serving``: ``serve()`` on
     "auto" and "xla", ``put()`` +
     ``decode_loop`` against the single-token ``put()`` loop, the v1
     ``generate``, a profiled decode window), then the fused decode step's
@@ -5140,15 +5174,16 @@ E2E_LOGIT_TOL = 0.01
 
 def check_wide_group_forms(gen, seed):
     """Phase 2o: B2, B5 and B3 at Falcon-7B's group (71 x 64 over one kv
-    head; 8 rows and 1 row; bf16, int8 and fp8 pools, all timed; bf16 with
-    slopes), at WIDE_GROUP_EDGES (bf16) and B3 at EXTEND_EDGE; B4 at
+    head; 8 rows and 1 row; bf16, int8 and fp8 pools, the bf16 ones timed:
+    the others' times are scripts/torch_kernel_digest.py's paged section;
+    bf16 with slopes), at WIDE_GROUP_EDGES (bf16) and B3 at EXTEND_EDGE; B4 at
     Falcon-7B's widths (8 rows, pool) and the flash forward at its prefill.
     Returns {form: rows}."""
     t0 = time.perf_counter()
     rng = np.random.default_rng([seed, 24])
     H, KV, Dh = (FALCON_WIDTHS[k] for k in ("H", "KV", "Dh"))
     forms = check_paged_heads(gen, rng, H, KV, Dh, "wide-group", decode_rows=(8, 1),
-                              timed=("bf16",) + KV_FORMATS, alibi=True)
+                              alibi=True)
     for h, kv, dh in WIDE_GROUP_EDGES:
         for form, rows in check_paged_heads(gen, rng, h, kv, dh, "wide-group",
                                             pools=("bf16",)).items():
@@ -5166,7 +5201,7 @@ def check_wide_group_forms(gen, seed):
 
 def model_serving(name, cfg, seed, card):
     """Phase 3k (Falcon-7B) and 3l (Phi-3-mini, Pythia-2.8b): one model at
-    full width and depth through ``parallel_block_serving`` (the three entry
+    full width (as deep as ``cfg``) through ``parallel_block_serving`` (the three entry
     points, a profiled decode window, a decode step's launches held exactly
     to PB_PER_LAYER[name]; an xla tick's B2 once a layer; the prefill's
     flash forward once a layer), with the ms per ``decode_loop`` step beside
@@ -5231,8 +5266,9 @@ WIDE_MT_CONFIG = dict(MT_CONFIG, adapters=dict(MT_CONFIG["adapters"], max_rank=1
 
 def check_head_dim_forms(gen, seed):
     """Phase 2p: B2, B5 and B3 at Phi-3-mini's 32 x 96 and Pythia-2.8b's
-    32 x 80 (8 and 1 rows; bf16, int8 and fp8 pools, all timed; bf16 with
-    slopes at 80) and at HEAD_DIM_EDGES (bf16), B4 at both families' heads
+    32 x 80 (8 and 1 rows; bf16, int8 and fp8 pools, the bf16 ones timed:
+    the others' times are scripts/torch_kernel_digest.py's paged section;
+    bf16 with slopes at 80) and at HEAD_DIM_EDGES (bf16), B4 at both families' heads
     (8 rows, pool; Pythia's partial rotary and biases), B6 at Phi-3-mini's
     widths (8 and 1 rows), the flash forward at both prefills, and B9 at
     WIDE_RANKS. The attention forms carry head_dim_bites too. Returns
@@ -5242,8 +5278,7 @@ def check_head_dim_forms(gen, seed):
     forms = {}
     for Dh, widths in ((96, PHI3_WIDTHS), (80, PYTHIA_2B8_WIDTHS)):
         forms.update(check_paged_heads(gen, rng, widths["H"], widths["KV"], Dh, f"dh{Dh}",
-                                       decode_rows=(8, 1), timed=("bf16",) + KV_FORMATS,
-                                       alibi=Dh == 80, dim_bites=True))
+                                       decode_rows=(8, 1), alibi=Dh == 80, dim_bites=True))
     for h, kv, dh in HEAD_DIM_EDGES:
         for form, rows in check_paged_heads(gen, rng, h, kv, dh, f"dh{dh}", pools=("bf16",),
                                             dim_bites=True).items():
@@ -5355,15 +5390,16 @@ def _sdpa_backend(kernels) -> str:
 
 
 def check_flash_bwd_256(gen, seed):
-    """Phase 2q: the flash backward at head_dim 256 (the delta pass, the dv
-    and dk passes and the dq pass: B14 as the n_rep = 1 case of B15, and
-    B15's element-mask form) against its plain version
-    (reference_attention_bwd on the kernel's own forward out), with the
-    forward's out and lse, at FLASH_BWD_256_SHAPES and the Fixed layout of
-    FLASH_BWD_256_MASK through a TileMask. At the first cell a plain
-    version with the causal diagonal shifted by one and one with the
-    softmax scale of head_dim 128 must fail the tolerance, and two runs
-    must give equal bits. Every cell timed (mean of 10, cold L2) beside
+    """Phase 2q: the flash backward at head_dim 256 (the delta pass, the
+    dk/dv pass and the dq pass: B14 as the n_rep = 1 case of B15, and
+    B15's element-mask form, whose dk/dv pass is a dv and a dk launch)
+    against its plain version (reference_attention_bwd on the kernel's own
+    forward out), with the forward's out and lse, at FLASH_BWD_256_SHAPES
+    and the Fixed layout of FLASH_BWD_256_MASK through a TileMask. At every
+    cell a plain version with the softmax scale of head_dim 128 (and, where
+    causal, one with the diagonal shifted by one) must fail the tolerance,
+    and two runs of the forward and of the backward must give equal bits.
+    Every cell timed (mean of 10, cold L2) beside
     its bound (10 x pairs x H x Dh at the bf16 peak), the plain version and
     SDPA's backward on the same operands (its backend named). Then one
     ``sparse_attention`` call at 256 under autograd, with the launch
@@ -5430,28 +5466,36 @@ def check_flash_bwd_256(gen, seed):
                    lse_max_abs_err=lse_err, fwd_out_max_abs_err=out_err.max().item(),
                    tolerance=GRAD_TOL + f"; lse {LSE_TOL} abs; forward out {PAGED_TOL}",
                    within=True)
-        if i == 0:
-            again = run()
-            torch.cuda.synchronize()
-            row["equal_bits_twice"] = all(torch.equal(a, b_) for a, b_ in zip(got, again))
-            _check(row["equal_bits_twice"], "two runs of the flash backward at 256 differ")
-            del again
-            small = slice(0, 2)
+        again = run()
+        torch.cuda.synchronize()
+        row["equal_bits_twice"] = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        row["fwd_equal_bits_twice"] = equal_bits_twice(
+            lambda: flash_attention_lse(q, k, v, causal, seg, mask=mask)[0])
+        _check(row["equal_bits_twice"] and row["fwd_equal_bits_twice"],
+               f"two runs of the flash kernels at 256 differ ({label})")
+        del again
+        small = slice(0, 2)
+        bites = {}
+        if causal:   # the diagonal shifted by one
             shifted = torch.ones(T, S, dtype=torch.bool, device="cuda").tril(1)
+            if seg is not None:
+                shifted = shifted[None] & (seg[small, :, None] == seg[small, None, :])
             broken = _masked_plain_grads(q[small], k[small], v[small], dout[small], shifted)
-            bites = {f"diagonal_shifted_{n}": not grad_close(g[small], w)[1]
-                     for n, g, w in zip(("dq", "dk", "dv"), got, broken)}
-            leaves = [t[small].float().requires_grad_(True) for t in (q, k, v)]
-            scaled = torch.autograd.grad(
-                reference_attention(leaves[0] * 2 ** 0.5, leaves[1], leaves[2], causal, None,
-                                    p_f32=True), leaves, dout[small].float())
-            bites.update({f"scale_of_dh_128_{n}": not grad_close(g[small], w.bfloat16())[1]
-                          for n, g, w in zip(("dq", "dk", "dv"), got, scaled)})
-            row["tolerance_bites"] = bites
-            _check(any(bites[f"diagonal_shifted_{n}"] for n in ("dq", "dk", "dv"))
-                   and all(bites[f"scale_of_dh_128_{n}"] for n in ("dq", "dk", "dv")),
-                   f"the flash backward tolerance at 256 misses {bites}")
-            del broken, leaves, scaled
+            bites.update({f"diagonal_shifted_{n}": not grad_close(g[small], w)[1]
+                          for n, g, w in zip(("dq", "dk", "dv"), got, broken)})
+            del broken
+        leaves = [t[small].float().requires_grad_(True) for t in (q, k, v)]
+        scaled = torch.autograd.grad(   # the softmax scale of head_dim 128
+            reference_attention(leaves[0] * 2 ** 0.5, leaves[1], leaves[2], causal,
+                                None if seg is None else seg[small], p_f32=True, mask=mask),
+            leaves, dout[small].float())
+        bites.update({f"scale_of_dh_128_{n}": not grad_close(g[small], w.bfloat16())[1]
+                      for n, g, w in zip(("dq", "dk", "dv"), got, scaled)})
+        row["tolerance_bites"] = bites
+        _check((not causal or any(bites[f"diagonal_shifted_{n}"] for n in ("dq", "dk", "dv")))
+               and all(bites[f"scale_of_dh_128_{n}"] for n in ("dq", "dk", "dv")),
+               f"the flash backward tolerance at 256 ({label}) misses {bites}")
+        del leaves, scaled
         qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
         dos = dout.transpose(1, 2).contiguous()
         sdpa_kw = dict(is_causal=causal, enable_gqa=True)
@@ -5466,7 +5510,7 @@ def check_flash_bwd_256(gen, seed):
         b_ms, b_by = bound(nbytes, 10.0 * pairs * H * Dh)
         kernels = _sdpa_kernels(lib)
         row.update(ms=time_cold(run, iters=10), host_us=host_us(run),
-                   plain_ms=time_cold(plain, iters=3), library_ms=time_cold(lib, iters=10),
+                   plain_ms=time_plain(plain), library_ms=time_cold(lib, iters=10),
                    library=f"SDPA backward (torch.autograd.grad of scaled_dot_product_attention"
                            f", enable_gqa{', boolean attn_mask' if 'attn_mask' in sdpa_kw else ''}"
                            f"): {_sdpa_backend(kernels)}",
@@ -5908,11 +5952,22 @@ def main(argv=None) -> int:
     from shuffle_exchange_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
+    t_mark = [t_start, "start"]
+
+    def phase(name):
+        """Prints the seconds the phase that ends here took (and the
+        script's total so far): the per-phase times of PERF.md's cells."""
+        now = time.perf_counter()
+        print(f"[phase] {t_mark[1]} took {now - t_mark[0]:.1f} s (at {now - t_start:.1f} s); "
+              f"{name} starts", flush=True)
+        t_mark[:] = [now, name]
+
     card = card_line()
     # the MoE router's f32 logits must be full f32 products (moe_layer raises otherwise)
     _check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
+    phase("1")
     # 1. build: one nvcc per source, all at once
     t0 = time.perf_counter()
     libs = _build.build_all(["paged_attention", "fused_decode", "flash_attention", "fused_adam",
@@ -5930,6 +5985,7 @@ def main(argv=None) -> int:
     print(f"[build] triton rmsnorm first launch (compile): {time.perf_counter() - t0:.2f} s",
           flush=True)
 
+    phase("2")
     # 2. kernels against their plain versions
     rng = np.random.default_rng(args.seed)
     rms = check_rmsnorm(gen)
@@ -5945,35 +6001,43 @@ def main(argv=None) -> int:
     fsweep = check_fused_decode_sweep(gen, fused_rng)
     print(f"[kernel] split-K decode sweep {SWEEP}: {json.dumps(fsweep)}", flush=True)
     del case
+    phase("2c")
     # 2c. the prefill's flash kernel, and B4 without a pool (v1 decode)
     flash_rng = np.random.default_rng([args.seed, 6])
     flash = check_flash(gen, flash_rng)
     qkv += [check_fused_qkv(gen, flash_rng, B, pooled=False) for B in (8, 1)]
+    phase("2d")
     # 2d. the training kernels: flash backward (and the forward's lse), AdamW
     fbwd = check_flash_bwd(gen, np.random.default_rng([args.seed, 11]))
     adamw = check_fused_adamw(gen)
+    phase("2e")
     # 2e. the quantized serving kernels
     qmm = check_quant_matmul(gen)
     qmlp = check_fused_mlp_quant(gen)
+    phase("2f")
     # 2f. the grouped GEMM of the MoE experts
     t0 = time.perf_counter()
     ggm = check_grouped_gemm(gen, np.random.default_rng([args.seed, 12]))
     print(f"[kernel] grouped_matmul: {len(ggm)} cells in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    phase("2h")
     # 2h. the grouped GEMM's backward (B16-dx, B16-dw)
     t0 = time.perf_counter()
     ggb = check_grouped_gemm_bwd(gen, np.random.default_rng([args.seed, 15]))
     print(f"[kernel] grouped_matmul_dx / _dw: {len(ggb)} cells in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase("2g")
     # 2g. the LoRA delta of multi-tenant serving
     t0 = time.perf_counter()
     lora = check_lora_gemm(gen)
     print(f"[kernel] lora_delta: {len(lora)} cells in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    phase("2i")
     # 2i. the ALiBi flash kernels (B11, B12, B13)
     t0 = time.perf_counter()
     al_fwd, al_dq, al_dkv = check_alibi(gen)
     print(f"[kernel] alibi: {len(al_fwd)} cells in {time.perf_counter() - t0:.1f} s", flush=True)
+    phase("2j")
     # 2j. the serving kernels' ALiBi and bias forms (BLOOM-1b7's and GPT-2's shapes)
     t0 = time.perf_counter()
     j_rng = np.random.default_rng([args.seed, 16])
@@ -5984,11 +6048,13 @@ def main(argv=None) -> int:
              "fused_mlp[layernorm,bias,plain]": check_mlp_forms(gen)}
     print(f"[kernel] ALiBi and bias forms: {sum(len(r) for r in forms.values())} cells in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase("2k")
     # 2k. B2, B3 and B5 over int8 and fp8 KV scale planes (Llama's and BLOOM's heads)
     t0 = time.perf_counter()
     kv_forms = check_kv_quant(gen, np.random.default_rng([args.seed, 17]))
     print(f"[kernel] KV scale-plane forms: {sum(len(r) for r in kv_forms.values())} cells in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase("2l")
     # 2l. B15 with an element mask, then one user call of sparse_attention
     # (forward and backward) with the counters zeroed just before
     t0 = time.perf_counter()
@@ -6003,6 +6069,7 @@ def main(argv=None) -> int:
            f"sparse_attention forward + backward did not launch B15's mask form once each: "
            f"{sparse_launches}")
     mask_forms = {"flash_attention[mask]": sp_fwd, "flash_attention_bwd[mask]": sp_bwd}
+    phase("2m")
     # 2m. B7's norm, gate and activation forms at Llama's, BLOOM's and GPT-2's widths
     t0 = time.perf_counter()
     mq_forms = {"fused_mlp_quant[forms]": check_mlp_quant_forms(gen)}
@@ -6012,15 +6079,19 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s; a sparse_attention call launched "
           f"{sparse_launches['flash_attention']} forward and "
           f"{sparse_launches['flash_attention_bwd']} backward", flush=True)
+    phase("2n")
     # 2n. the parallel-block families' forms: B6/B7 without their norm, B4's
     # partial rotary, B2/B3/B5 and the flash forward at head_dim 256
     pb_forms = check_parallel_block_forms(gen, args.seed)
+    phase("2o")
     # 2o. B2, B3 and B5 at any query-head group (Falcon-7B's 71 heads over one
     # kv head, the head-chunk edges), B4 and the flash forward at Falcon-7B's
     wg_forms = check_wide_group_forms(gen, args.seed)
+    phase("2p")
     # 2p. B2, B3, B5 and the flash forward at head dims 80 and 96 (Pythia-2.8b,
     # Phi-3-mini), B4 and B6 at their widths, B9 above rank 64
     hd_forms = check_head_dim_forms(gen, args.seed)
+    phase("2q")
     # 2q. the flash backward at head_dim 256 (GPT-J-6B's training; its mask form)
     fb256 = check_flash_bwd_256(gen, args.seed)
     checked = {"rmsnorm": rms, "paged_decode_attention": [dec], "paged_extend_attention": [ext],
@@ -6041,7 +6112,8 @@ def main(argv=None) -> int:
                                        "cublas_sequence_ms", "cublas_sequence_host_us",
                                        "library", "tflops", "library_kernels", "errs",
                                        "lse_max_abs_err", "fwd_out_max_abs_err",
-                                       "equal_bits_twice",
+                                       "equal_bits_twice", "fwd_equal_bits_twice",
+                                       "library_backend", "library_fwd_ms", "fwd_bound_ms",
                                        "autograd_max_err_over_rms", "fwd_lse_ms",
                                        "gbytes_per_s", "dense_cublas_ms",
                                        "dense_cublas_sequence_ms", "library_sequence_ms",
@@ -6060,9 +6132,10 @@ def main(argv=None) -> int:
             print(f"[kernel] {name} {json.dumps(r['shape'])}: max_abs_err={r['max_abs_err']} "
                   f"(tol {r['tolerance']}) {timed}{json.dumps(extra)} on {card}", flush=True)
 
-    # 3. serve Llama-3-8B at full width and depth: "auto" (the fused
-    # kernels on the card), then "xla" (the paged decode kernel)
-    cfg = llama3_8b()
+    phase("3")
+    # 3. serve Llama-3-8B at full width, SERVE_LAYERS layers: "auto" (the
+    # fused kernels on the card), then "xla" (the paged decode kernel)
+    cfg = dataclasses.replace(llama3_8b(), n_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     model = Transformer(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(args.seed),
@@ -6084,6 +6157,7 @@ def main(argv=None) -> int:
     print(f"[serve] requests with equal tokens on both paths (bf16, greedy): {same} of "
           f"{N_PROMPTS}", flush=True)
 
+    phase("3b")
     # 3b. put() + decode_loop, 3c. the v1 generate, on the same prompts
     prompts = loop_prompts(np.random.default_rng([args.seed, 5]), cfg.vocab_size)
     loop = put_decode_loop(model, params, prompts, cfg.n_layers, card)
@@ -6094,6 +6168,7 @@ def main(argv=None) -> int:
     runs = [serves["auto"]["launches"], serves["xla"]["launches"], loop["launches"],
             v1["launches"]]
 
+    phase("3d")
     # 3d. weight-quantized serving: each format through serve(), int8
     # through put() + decode_loop and the v1 generate
     quant = quant_serving(model, params, prompts, cfg.n_layers, card, args.seed,
@@ -6110,6 +6185,7 @@ def main(argv=None) -> int:
         print(f"[trace {label}] {json.dumps(t) if t else 'no device kernels recorded'}",
               flush=True)
 
+    phase("3f")
     # 3f. multi-tenant LoRA serving on the same weights
     t0 = time.perf_counter()
     tenants = multi_tenant_serving(model, params, prompts, cfg.n_layers, card, args.seed)
@@ -6122,6 +6198,7 @@ def main(argv=None) -> int:
     print(f"[wide-rank multi-tenant] in {time.perf_counter() - t0:.1f} s", flush=True)
     runs.append(wide_rank["launches"])
 
+    phase("3h")
     # 3h. int8 and fp8 KV serving on the same weights
     t0 = time.perf_counter()
     kvserve = kv_quant_serving(model, params, prompts, cfg.n_layers, card, args.seed,
@@ -6132,6 +6209,7 @@ def main(argv=None) -> int:
                for fmt in KV_FORMATS}
     runs += [r for rs in kv_runs.values() for r in rs]
 
+    phase("4")
     # 4. depth 2 on the card, fused and not, against the CPU f32 plain path
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     state2 = {k: (v[:2] if k.startswith("layers.") else v) for k, v in params.items()}
@@ -6174,16 +6252,18 @@ def main(argv=None) -> int:
                                                   adapters=E2E_WIDE)
     print(f"[e2e adapters] step() and put() schedules, bf16 and int8 bases, and a rank-128 "
           f"pool's step() schedule in {time.perf_counter() - t0:.2f} s", flush=True)
+    phase("4c")
     # 4c. int8 and fp8 KV at depth 2 against the CPU f32 engine in the same mode
     kv_e2es = {"llama-3-8b": kv_e2e("llama-3-8b", cfg2, state2, args.seed)}
     report_e2e("", e2e)
 
-    # 3e. Mixtral-8x7B at full width, MOE_SERVE_DEPTH layers, int8; the Llama
+    phase("3e")
+    # 3e. Mixtral-8x7B at full width, SERVE_LAYERS layers, int8; the Llama
     # weights go first
     del model, params, state2
     gc.collect()
     torch.cuda.empty_cache()
-    mcfg = dataclasses.replace(mixtral_8x7b(), n_layers=MOE_SERVE_DEPTH)
+    mcfg = dataclasses.replace(mixtral_8x7b(), n_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     mixtral = mixtral_serving(mcfg, args.seed, card)
     print(f"[mixtral] phase 3e in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6219,14 +6299,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"[e2e mixtral] int8 and fp8 in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 3g. BLOOM-1b7 (ALiBi) and GPT-2 125M (learned positions) at full width
-    # and depth; 4b. each cut to depth 2 against the CPU f32 engine
+    phase("3g")
+    # 3g. BLOOM-1b7 (ALiBi) and GPT-2 125M (learned positions) at full width,
+    # SERVE_LAYERS layers; 4b. each cut to depth 2 against the CPU f32 engine
     from shuffle_exchange_tpu_torch.models import config_from_hf, gpt2_small
 
     families, family_e2es, fquant, fquant_e2e = {}, {}, {}, {}
     for name, fcfg, fconf, fv1, longest in (
             ("bloom-1b7", config_from_hf(BLOOM_1B7), SERVE_CONFIG, V1_CONFIG, 1024),
             ("gpt2-small", gpt2_small(), GPT2_SERVE, GPT2_V1, 960)):
+        fcfg = dataclasses.replace(fcfg, n_layers=min(fcfg.n_layers, SERVE_LAYERS))
         t0 = time.perf_counter()
         families[name], fparams = family_serving(name, fcfg, args.seed + 21, card, fconf, fv1,
                                                  longest)
@@ -6254,7 +6336,7 @@ def main(argv=None) -> int:
         # 3i. quantized weights and multi-tenant adapters on the same weights;
         # 4d. BLOOM-1b7 int8 at depth 2 against the CPU f32 engine
         t1 = time.perf_counter()
-        qcfg, qparams = cut_depth(fcfg, fparams, QUANT_DEPTH.get(name, fcfg.n_layers))
+        qcfg, qparams = fcfg, fparams
         fquant[name] = family_quant_serving(name, qcfg, qparams, args.seed + 21, card, fconf,
                                             fv1, longest)
         del qparams
@@ -6297,13 +6379,14 @@ def main(argv=None) -> int:
     # B7's new forms on BLOOM-1b7's widths without fc biases (3i)
     form_launches["fused_mlp_quant[forms]"] = fquant["bloom-1b7"]["b7_form_launches"]
 
+    phase("3j")
     # 3j. GPT-J-6B (shared-layernorm parallel blocks, interleaved RoPE, head
-    # dim 256) and Pythia-1.4b (two layernorms, partial rotary) at full width
-    # and depth; 4e. each cut to depth 2 against the CPU f32 engine
+    # dim 256) and Pythia-1.4b (two layernorms, partial rotary) at full width,
+    # SERVE_LAYERS layers; 4e. each cut to depth 2 against the CPU f32 engine
     pblocks, pb_e2es = {}, {}
     for name, hf in (("gpt-j-6b", GPTJ_6B), ("pythia-1.4b", PYTHIA_1B4)):
         pcfg = config_from_hf(hf)
-        pcfg = dataclasses.replace(pcfg, n_layers=PB_DEPTH.get(name, pcfg.n_layers))
+        pcfg = dataclasses.replace(pcfg, n_layers=min(pcfg.n_layers, SERVE_LAYERS))
         t0 = time.perf_counter()
         pblocks[name], pparams = parallel_block_serving(name, pcfg, args.seed + 23, card)
         t1 = time.perf_counter()
@@ -6336,10 +6419,11 @@ def main(argv=None) -> int:
            f"a parallel-block kernel form never launched on its serving path: "
            f"{ {f: form_launches[f] for f in pb_forms} }")
 
+    phase("3k")
     # 3k. Falcon-7B (multi-query: 71 heads of 64 over one kv head; the
-    # shared-layernorm parallel block) at full width and depth; 4f. cut to
-    # depth 2 against the CPU f32 engine
-    fcfg = config_from_hf(FALCON_7B)
+    # shared-layernorm parallel block) at full width, SERVE_LAYERS layers;
+    # 4f. cut to depth 2 against the CPU f32 engine
+    fcfg = dataclasses.replace(config_from_hf(FALCON_7B), n_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     falcon, fparams = model_serving("falcon-7b", fcfg, args.seed + 25, card)
     t1 = time.perf_counter()
@@ -6360,11 +6444,12 @@ def main(argv=None) -> int:
            f"a wide-group kernel form never launched on Falcon-7B's serving path: "
            f"{ {f: form_launches[f] for f in wg_forms} }")
 
-    # 3l. Phi-3-mini (head dim 96) and Pythia-2.8b (head dim 80) at full width
-    # and depth; 4g. each cut to depth 2 against the CPU f32 engine
+    phase("3l")
+    # 3l. Phi-3-mini (head dim 96) and Pythia-2.8b (head dim 80) at full width,
+    # SERVE_LAYERS layers; 4g. each cut to depth 2 against the CPU f32 engine
     hdims, hd_e2es = {}, {}
     for name, hf in (("phi-3-mini", PHI3_MINI), ("pythia-2.8b", PYTHIA_2B8)):
-        hcfg = config_from_hf(hf)
+        hcfg = dataclasses.replace(config_from_hf(hf), n_layers=SERVE_LAYERS)
         t0 = time.perf_counter()
         hdims[name], hparams = model_serving(name, hcfg, args.seed + 27, card)
         t1 = time.perf_counter()
@@ -6394,6 +6479,7 @@ def main(argv=None) -> int:
            f"a head-dim or rank form never launched on its serving path: "
            f"{ {f: form_launches[f] for f in hd_forms} }")
 
+    phase("5")
     # 5. train the ladder's pick at full width and depth; 6. depth 2 against
     # the CPU
     from shuffle_exchange_tpu_torch.models import pick_ladder_config
@@ -6421,6 +6507,7 @@ def main(argv=None) -> int:
     _check(sk["loss_is_nan"] and sk["state_bit_equal"] and sk["step_unchanged"]
            and sk["adamw_launches"] == 0, f"a skipped step changed the state: {sk}")
 
+    phase("5b")
     # 5b. MoE training: bench.py's _config3 model at full width and depth,
     # under "capacity" (the bench row) and "ragged" (dropless); 6b. cut to
     # depth 2 against the CPU f32 engine routed as the card routed
@@ -6463,6 +6550,7 @@ def main(argv=None) -> int:
     _check(sk["loss_is_nan"] and sk["state_bit_equal"] and sk["step_unchanged"]
            and sk["adamw_launches"] == 0, f"a skipped MoE step changed the state: {sk}")
 
+    phase("5c")
     # 5c. BLOOM-1b7 (ALiBi: B11-B13) at full width and depth; 5d. GPT-2
     # under _config1 (B14 on the MHA path); 6c. BLOOM cut to depth 2 against
     # the CPU f32 engine
@@ -6503,6 +6591,7 @@ def main(argv=None) -> int:
     _check(sk["loss_is_nan"] and sk["state_bit_equal"] and sk["step_unchanged"]
            and sk["adamw_launches"] == 0, f"a skipped BLOOM step changed the state: {sk}")
 
+    phase("5e")
     # 5e. GPT-J-6B's widths at 14 of its 28 layers (head_dim 256: the flash
     # backward's 256 form); 5f. Pythia-1.4b whole; 6d. each cut to depth 2
     # against the CPU f32 engine
@@ -6596,6 +6685,7 @@ def main(argv=None) -> int:
     # B12 and B13 launch together under one wrapper (and one counter)
     counter = {"alibi_flash_attention_bwd_dq": "alibi_flash_attention_bwd",
                "alibi_flash_attention_bwd_dkv": "alibi_flash_attention_bwd"}
+    phase("report")
     kernels = []
     for name, rows in checked.items():
         base = name.split("[")[0]

@@ -1,6 +1,7 @@
-"""Digest and time the PyTorch port's mma.sync kernels on one CUDA card.
+"""Digest and time the PyTorch port's kernels on one CUDA card.
 
-Runs the flash-attention kernels (B14 / B15 forward and backward), the
+Runs the flash-attention kernels (B14 / B15 forward and backward, and
+B15's element-mask form), the
 grouped GEMM (B16 forward over bf16 and int8 stacks, its dx and dw), the
 quantized matmul (B8, both forms), where the tree has them the ALiBi
 kernels (B11-B13), the paged serving kernels (B2 decode, B5 split-K
@@ -10,11 +11,20 @@ each cell a SHA-256 of its output bytes and its mean cold-L2 time. B2 and
 B3 cells are also held to their plain versions (``within`` PAGED_TOL, as
 the chip smoke test holds them), so trees whose B2 / B3 round differently
 still compare, and their bf16 cells carry the time of one SDPA call over
-the gathered K/V (``sdpa_ms``). Cells
+the gathered K/V (``sdpa_ms``). So are the dense flash cells: the forward
+within PAGED_TOL of ``reference_attention`` with P in f32, the backward
+within GRAD_TOL of ``reference_attention_bwd`` on the kernel's own out,
+both with ``equal_bits_twice``, beside one SDPA call on the same operands
+(``sdpa_ms``, ``sdpa_bwd_ms`` for the backward, the backend SDPA ran
+named); each forward cell also holds the plain version with P cast to one
+bf16 term to the same tolerance (``p_bf16_within``: whether the kernels'
+hi + lo split of P could go). The element-mask cells (``sparse_attention``'s layouts through a
+``TileMask``) and the ALiBi cells are compared by digest alone. Cells
 of forms a tree does not build (head dims 80 and 96, the backward at 256,
 ranks above 64) run only where it builds them, after the others, so both
 trees give the common cells the same inputs. ``--sections`` picks some of
-them (``flash alibi grouped quant paged lora``). Two trees whose digests match
+them (``flash alibi grouped quant paged lora sweeps``; ``sweeps`` times the
+cells ``chip_smoke.py`` checks but does not time). Two trees whose digests match
 computed bit-equal results, so a refactor of the kernel sources (shared
 headers, say) is checked against its parent by running this script on
 both, parent-change-change-parent in one session:
@@ -57,7 +67,15 @@ FLASH_CELLS = [
     ("pythia-2.8b prefill fwd", 8, 1024, 1024, 32, 32, 80, True, False),
     # GPT-J-6B's training at head_dim 256 (its backward where built)
     ("gpt-j-6b train fwd+bwd", 8, 2047, 2047, 16, 16, 256, True, False),
+    # GPT-J-6B's prefill (P=8, T=1024) and the chip smoke test's GQA cell at 256
+    ("gpt-j-6b prefill fwd", 8, 1024, 1024, 16, 16, 256, True, False),
+    ("gqa 16/4 x 256 fwd+bwd", 2, 1000, 1000, 16, 4, 256, True, False),
 ]
+# (label, T, H, KV, Dh, layout): B15's element-mask form through a TileMask,
+# the chip smoke test's sparse_attention layouts (blocks of 128, causal)
+MASK_CELLS = [("mask fixed 8192 fwd+bwd", 8192, 16, 4, 128, "fixed"),
+              ("mask bigbird 8192 fwd+bwd", 8192, 16, 4, 128, "bigbird"),
+              ("mask fixed 1024 x 256 fwd+bwd", 1024, 16, 4, 256, "fixed")]
 # (label, B, T, S, H, KV, Dh)
 ALIBI_CELLS = [("B11-B13 bloom-1b7", 2, 2047, 2047, 16, 16, 128),
                ("B11-B13 gqa T<S", 2, 512, 1024, 16, 8, 128)]
@@ -82,7 +100,23 @@ EXTEND_STARTS = ((1792, 1600), (512, 700))
 LORA_D, LORA_N, LORA_R, LORA_S = 4096, (4096, 1024), (8, 16, 64), (5, 65)
 LORA_ROWS = [(1, 1), (8, 1), (2, 256), (8, 1024)]
 LORA_WIDE_R = (128, 256, 136)
-SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora")
+# "sweeps": the cells `chip_smoke.py` checks but does not time (to stay
+# within its time limit): phase 2c's flash shapes past its two
+# timed ones, 2e's quantized matmul on Llama-3-8B's other three matrix
+# shapes, 2f's grouped GEMM at Mixtral-8x7B's expert shapes in every format
+# and group pattern but its ragged bf16 / int8 cells, and 2m's B7 forms
+# past BLOOM-1b7's (the chip smoke test's `mlp_quant_cells`)
+SWEEP_FLASH = [(2, 1000, 1000, 32, 8, 128, True, False), (2, 200, 200, 32, 32, 128, True, False),
+               (2, 1000, 1000, 32, 32, 128, True, False), (2, 200, 200, 16, 2, 64, True, False),
+               (2, 1000, 1000, 16, 2, 64, True, False), (2, 200, 1000, 32, 8, 128, False, False),
+               (2, 1000, 1000, 32, 8, 128, True, True), (3, 1, 1, 8, 2, 128, True, False),
+               (3, 37, 37, 8, 2, 64, True, True)]
+SWEEP_QUANT_SHAPES = [(4096, 4096), (4096, 1024), (14336, 4096)]
+SWEEP_QUANT_ROWS = [8, 1, 256, 8192]
+SWEEP_GG_SHAPES = [(4096, 14336), (14336, 4096)]
+SWEEP_GG_ROWS = [2, 16, 512, 16384]
+SWEEP_GG_PATTERNS = ("balanced", "one_expert", "empty_ends", "ragged")
+SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora", "sweeps")
 
 
 def time_cold(fn, iters: int = 10) -> float:
@@ -254,6 +288,154 @@ def lora_cells(gen) -> dict:
     return cells
 
 
+def flash_cells(fa, gen, randn, seed) -> dict:
+    """The FLASH_CELLS (each dense cell held to its plain version, equal
+    bits twice, beside SDPA) and the MASK_CELLS."""
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import _sdpa_backend, _sdpa_kernels, grad_close, paged_close
+
+    def sdpa(q, k, v, causal, segs):
+        """(forward, backward) of one SDPA call on the same operands."""
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        kw = dict(is_causal=causal, enable_gqa=True)
+        if segs is not None:   # segment ids (T == S) as a boolean mask, causal ANDed in
+            allowed = segs[:, :, None] == segs[:, None, :]
+            if causal:
+                allowed = allowed & torch.ones_like(allowed[0]).tril()
+            kw = dict(attn_mask=allowed[:, None], enable_gqa=True)
+        fwd = lambda: F.scaled_dot_product_attention(qs, ks, vs, **kw)
+        out = fwd()
+        dos = torch.randn_like(out)
+        return fwd, lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+
+    cells = {}
+    for label, B, T, S, H, KV, Dh, causal, seg in FLASH_CELLS:
+        if Dh not in fa.HEAD_DIMS:
+            continue
+        q, k, v = randn(B, T, H, Dh), randn(B, S, KV, Dh), randn(B, S, KV, Dh)
+        dout = randn(B, T, H, Dh)
+        segs = None
+        if seg:
+            segs = torch.cumsum(torch.rand(B, T, generator=gen, device="cuda") < 0.01, 1).int()
+        fwd = lambda: fa.flash_attention_lse(q, k, v, causal, segs)
+        out, lse = fwd()
+        want = fa.reference_attention(q, k, v, causal, segs, p_f32=True)
+        err, ok = paged_close(out, want)
+        # P as one bf16 term (the plain version's cast) against the same tolerance:
+        # what a kernel without the hi + lo split could at best reach
+        err1, ok1 = paged_close(fa.reference_attention(q, k, v, causal, segs), want)
+        lib_fwd, lib_bwd = sdpa(q, k, v, causal, segs)
+        cells[f"{label}: forward"] = dict(
+            digest=digest((out, lse)), ms=time_cold(fwd), max_abs_err=err.max().item(),
+            within=ok, equal_bits_twice=digest(fwd()) == digest(fwd()),
+            sdpa_ms=time_cold(lib_fwd), sdpa_backend=_sdpa_backend(_sdpa_kernels(lib_fwd)),
+            p_bf16_max_abs_err=err1.max().item(), p_bf16_within=ok1)
+        del err, err1, want
+        if "bwd" in label and Dh in fa.BWD_HEAD_DIMS:
+            bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, causal, segs)
+            got = bwd()
+            checks = [grad_close(g, w) for g, w in
+                      zip(got, fa.reference_attention_bwd(q, k, v, out, dout, causal, segs))]
+            cells[f"{label}: backward"] = dict(
+                digest=digest(got), ms=time_cold(bwd),
+                max_abs_err=max(e.max().item() for e, _ in checks),
+                within=all(c for _, c in checks), equal_bits_twice=digest(bwd()) == digest(bwd()),
+                sdpa_bwd_ms=time_cold(lib_bwd),
+                sdpa_backend=_sdpa_backend(_sdpa_kernels(lib_bwd)))
+            del got, checks
+        del q, k, v, dout, out, lse, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+    sa = importlib.import_module("shuffle_exchange_tpu_torch.ops.sparse_attention")
+    configs = {"fixed": sa.FixedSparsityConfig(block=128, num_local_blocks=4,
+                                               num_global_blocks=1),
+               "bigbird": sa.BigBirdSparsityConfig(block=128, num_random_blocks=2,
+                                                   num_sliding_window_blocks=3,
+                                                   num_global_blocks=1, seed=seed)}
+    for label, T, H, KV, Dh, kind in MASK_CELLS:
+        if Dh not in fa.BWD_HEAD_DIMS:
+            continue
+        cfg = configs[kind]
+        mask = fa.tile_mask(sa.element_mask(cfg.make_layout(T), cfg.block, T, T, True))
+        q, k, v, dout = randn(1, T, H, Dh), randn(1, T, KV, Dh), randn(1, T, KV, Dh), randn(1, T, H, Dh)
+        fwd = lambda: fa.flash_attention_lse(q, k, v, False, None, mask=mask)
+        out, lse = fwd()
+        bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, False, None, mask=mask)
+        cells[f"{label}: forward"] = dict(digest=digest((out, lse)), ms=time_cold(fwd))
+        cells[f"{label}: backward"] = dict(digest=digest(bwd()), ms=time_cold(bwd))
+    return cells
+
+
+def sweep_cells(gen, seed) -> dict:
+    """The SWEEP_* cells: a digest and the mean cold-L2 time of each."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import MQ_FIRST, MQ_WIDTHS, group_pattern, mlp_quant_cells
+
+    fa, gg, qmm, fd = (importlib.import_module(f"shuffle_exchange_tpu_torch.ops.{m}") for m in
+                       ("flash_attention", "grouped_gemm", "quant_matmul", "fused_decode"))
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    cells = {}
+    for B, T, S, H, KV, Dh, causal, seg in SWEEP_FLASH:
+        q, k, v = randn(B, T, H, Dh), randn(B, S, KV, Dh), randn(B, S, KV, Dh)
+        segs = None
+        if seg:
+            segs = torch.from_numpy(np.sort(rng.integers(0, 4, size=(B, T)), axis=1)
+                                    .astype(np.int32)).cuda()
+        fn = lambda: fa.flash_attention(q, k, v, causal, segs)
+        cells[f"flash {B}x{T}x{S} {H}/{KV}x{Dh}{'' if causal else ' full'}"
+              f"{' seg' if seg else ''}: forward"] = dict(digest=digest([fn()]), ms=time_cold(fn))
+    for K, N in SWEEP_QUANT_SHAPES:
+        w = randn(K, N, scale=K ** -0.5)
+        for bits in (8, 4, "fp8"):
+            qm = qmm.quantize_weight(w, 256, bits=bits)
+            for rows in SWEEP_QUANT_ROWS:
+                x = randn(rows, K)
+                fn = lambda: qmm.quant_matmul(x, qm)
+                cells[f"B8 {bits} {rows}x[{K}, {N}]"] = dict(digest=digest([fn()]),
+                                                             ms=time_cold(fn))
+    for K, F in SWEEP_GG_SHAPES:
+        w16 = randn(8, K, F, scale=K ** -0.5)
+        for fmt in ("bf16", 8, "fp8"):
+            w = w16 if fmt == "bf16" else qmm.quantize_weight(w16, 256, bits=fmt)
+            for N in SWEEP_GG_ROWS:
+                x = randn(N, K)
+                for pattern in SWEEP_GG_PATTERNS:
+                    sizes = torch.from_numpy(group_pattern(pattern, N, 8, rng)).cuda()
+                    if pattern == "ragged" and fmt in ("bf16", 8):
+                        continue   # timed by chip_smoke.py
+                    fn = lambda: gg.grouped_matmul(x, w, sizes)
+                    cells[f"B16 {fmt} {N}x[{K}, {F}] {pattern}"] = dict(
+                        digest=digest([fn()]), ms=time_cold(fn, 5 if N > 1024 else 10))
+            del w
+        del w16
+        torch.cuda.empty_cache()
+    made = {}
+    for norm, gated, act, bits, width, B in mlp_quant_cells():
+        if (norm, gated, act, bits, width, B) in MQ_FIRST:
+            continue   # timed by chip_smoke.py
+        D, Fd = MQ_WIDTHS[width]
+        if (width, bits) not in made:
+            made.clear()
+            made[(width, bits)] = [qmm.quantize_weight(randn(*shape, scale=shape[0] ** -0.5), 256,
+                                                       bits=bits)
+                                   for shape in ((D, Fd), (D, Fd), (Fd, D))]
+        qg, qu, qd = made[(width, bits)]
+        ln_w, ln_b = (1 + randn(D, scale=0.1)), randn(D, scale=0.1)
+        h = randn(B, D)
+        fn = lambda: fd.fused_mlp(h, h, ln_w, qu, qd, qg if gated else None, eps=1e-5,
+                                  ln_b=ln_b, norm=norm, activation=act)
+        cells[f"B7 {norm} {'gated' if gated else 'plain'} {act} {bits} {width} {B}"] = dict(
+            digest=digest([fn()]), ms=time_cold(fn))
+    return cells
+
+
 def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
     import torch
 
@@ -269,9 +451,10 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
     # one nvcc per source the sections run, all at once
     sources = {"flash": ("flash_attention",), "alibi": ("alibi_attention",),
                "grouped": ("grouped_gemm",), "quant": ("quant_matmul",),
-               "paged": ("paged_attention", "fused_decode"), "lora": ("lora_gemm",)}
-    _build.build_all([s for sec in sections for s in sources[sec]
-                      if (_build.CSRC / f"{s}.cu").exists()])
+               "paged": ("paged_attention", "fused_decode"), "lora": ("lora_gemm",),
+               "sweeps": ("flash_attention", "quant_matmul", "grouped_gemm", "fused_decode")}
+    _build.build_all(sorted({s for sec in sections for s in sources[sec]
+                             if (_build.CSRC / f"{s}.cu").exists()}))
 
     gens = [torch.Generator(device="cuda").manual_seed(seed * 10 + i) for i in range(6)]
     gen = gens[0]   # each section draws from its own generator: a tree without the
@@ -281,20 +464,8 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
 
     cells = {}
-    for label, B, T, S, H, KV, Dh, causal, seg in (FLASH_CELLS if "flash" in sections else []):
-        if Dh not in fa.HEAD_DIMS:
-            continue
-        q, k, v = randn(B, T, H, Dh), randn(B, S, KV, Dh), randn(B, S, KV, Dh)
-        dout = randn(B, T, H, Dh)
-        segs = None
-        if seg:
-            segs = torch.cumsum(torch.rand(B, T, generator=gen, device="cuda") < 0.01, 1).int()
-        fwd = lambda: fa.flash_attention_lse(q, k, v, causal, segs)
-        out, lse = fwd()
-        cells[f"{label}: forward"] = dict(digest=digest((out, lse)), ms=time_cold(fwd))
-        if "bwd" in label and Dh in fa.BWD_HEAD_DIMS:
-            bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, causal, segs)
-            cells[f"{label}: backward"] = dict(digest=digest(bwd()), ms=time_cold(bwd))
+    if "flash" in sections:
+        cells.update(flash_cells(fa, gen, randn, seed))
     try:
         from shuffle_exchange_tpu_torch.models import alibi_slopes
         al = importlib.import_module("shuffle_exchange_tpu_torch.ops.alibi_attention")
@@ -339,6 +510,8 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
         cells.update(paged_cells(gens[4], seed))
     if "lora" in sections:
         cells.update(lora_cells(gens[5]))
+    if "sweeps" in sections:
+        cells.update(sweep_cells(torch.Generator(device="cuda").manual_seed(seed * 10 + 6), seed))
     return cells
 
 

@@ -6,15 +6,16 @@ pallas_attention`` (the stock flash kernel, MHA, forward and backward) and
 ``splash_attention_gqa`` (GQA with unexpanded K/V: the forward, the dq
 pass and the dkv pass): causal and full masks, segment ids, splash's
 element mask ``mask_np`` (a ``TileMask``), any T and S, head_dim 64, 128
-or 256 forward and backward (GPT-J-6B serves and trains at 256: Q's
-fragments then stay in shared memory, and the dk/dv pass runs as a dv pass
-and a dk pass), and 80 and 96 forward only (Pythia-2.8b's and Phi-3-mini's
-prefill, where the JAX package runs its jnp reference: the port's own route
-on the card; the backward refuses them, naming ROADMAP queue A, item 4
-(h)). The kernels live in ``ops/csrc/flash_attention.cu`` (whose header
-says what bounds them on the H100 and how the design answers it);
-``_build`` compiles that file with ``nvcc`` at first use and this module
-binds it with ctypes.
+or 256 forward and backward (GPT-J-6B serves and trains at 256), and 80 and
+96 forward only (Pythia-2.8b's and Phi-3-mini's prefill, where the JAX
+package runs its jnp reference: the port's own route on the card; the
+backward refuses them, naming ROADMAP queue A, item 4 (h)). The kernels
+live in ``ops/csrc/flash_attention.cu`` (whose header says what bounds them
+on the H100 and how the design answers it): the dense forms at head dims
+128 and 256 run warp-specialised wgmma kernels over TMA-fed tiles, the
+element-mask forms and the other head dims ``mma.sync`` kernels over
+64 x 64 tiles. ``_build`` compiles that file with ``nvcc`` at first use and
+this module binds it with ctypes.
 
 ``flash_attention`` is differentiable: when an input requires grad, a CUDA
 call goes through a ``torch.autograd.Function`` whose forward also writes
@@ -69,7 +70,7 @@ HEAD_DIMS = (64, 80, 96, 128, 256)   # the forward kernel's instances
 BWD_HEAD_DIMS = (64, 128, 256)       # the backward kernels'
 #: what every unbuilt head dim waits for (the TPU package has no kernel at 80 or 96)
 LATER = "ROADMAP queue A, item 4 (h): training at head dims 80 and 96, and other head dims"
-TILE = 64        # the kernels' query and key tile (flash_tile.cuh: kBlockM, kBlockN)
+TILE = 64        # the mma.sync kernels' query and key tile (flash_tile.cuh: kBlockM, kBlockN)
 
 # ---------------------------------------------------------------------------
 # The element mask and its tile map
@@ -468,8 +469,8 @@ def _launch(q, k, v, causal, segment_ids, want_lse: bool, mask=None):
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, segment_ids, mask=None):
-    """(dq, dk, dv): the delta, dk/dv (at head_dim 256 a dv and a dk pass)
-    and dq kernels, in that order."""
+    """(dq, dk, dv): the delta, dk/dv (one launch, but two passes for the
+    element mask at head_dim 256) and dq kernels, in that order."""
     dev = q.device
     _same_device(dev, k=k, v=v, out=out, lse=lse, dout=dout, segment_ids=segment_ids)
     check_operands(q, k, v, segment_ids, backward=True, out=out, dout=dout)

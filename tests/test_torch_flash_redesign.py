@@ -1,0 +1,515 @@
+"""The flash forward and backward redesigned for Hopper (the dense forms at
+head dims 128 and 256: warp-specialised wgmma kernels over TMA-fed tiles,
+``ops/csrc/flash_attention.cu``), on the CPU: what of their design can be
+held without the card.
+
+- Each instance's shared memory, from a mirror of the launchers' formula
+  (``wgmma_smem_bytes``), fits an H100 block (232,448 B) and equals the
+  CUDA source's (the ``WgFwd`` / ``WgDq`` / ``WgDkv`` structs' expressions
+  evaluated), and so do the tile shapes it mirrors.
+- A mirror of the block schedules: query tiles of one head (128 rows at
+  head dim 128, 64 at 256), grouped by (sequence, kv head) and longest
+  first within the group under a causal mask, every (sequence, head, tile)
+  once, over ragged T (1, 37, 129, ...); each consumer warpgroup's live key
+  tiles cover every key its rows see and skip only tiles wholly above its
+  diagonal; the dk/dv pass's blocks grouped by (sequence, kv head), key
+  tile 0 first, and its iterations visit every (query head of the group,
+  query tile at or below the diagonal) once, heads in ascending order.
+- A plain mirror of the new arithmetic in f32 (the log2-domain online
+  softmax over the row blocks and 64-key tiles with the rescale
+  2^(m - m_new) and masked probabilities exactly 0; the dk/dv pass with
+  its query split and head-dim column split between two warpgroups and its
+  fixed group-sum order; the dq pass over its row blocks) equals JAX
+  ``reference_attention`` (its ``jax.vjp`` for the gradients) and
+  ``splash_attention_gqa`` in interpret mode within 1e-5.
+- The wrappers hand the C entry points the operands, shapes, causal flag
+  and scale, and the backward an f32 [B, H, T] delta buffer.
+"""
+
+import importlib
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shuffle_exchange_tpu.ops.flash_attention import reference_attention as jreference
+from shuffle_exchange_tpu.ops.flash_attention import splash_attention_gqa
+
+fa = importlib.import_module("shuffle_exchange_tpu_torch.ops.flash_attention")
+CU = (fa.__file__.rsplit("/", 1)[0]) + "/csrc/flash_attention.cu"
+T_ = torch.from_numpy
+NEG = -1e30
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+WG_ROWS = 64        # rows (or, in the dk/dv pass, head-dim halves) a consumer warpgroup
+# the head dims whose dense forms (no element mask) run the wgmma kernels
+WGMMA_HEAD_DIMS = (128, 256)
+SMEM_LIMIT = 232448   # dynamic shared memory an H100 block can have
+_SLACK = 1024         # the kernels align their tiles to the 1024-byte swizzle period
+
+
+def wgmma_tiles(dh: int) -> dict:
+    """The wgmma kernels' blocks at head dim ``dh`` (flash_attention.cu's
+    ``WgFwd`` / ``WgDq`` / ``WgDkv``): ``fwd`` and ``dq`` -> (query rows a
+    block, keys a ring tile, ring slots), ``dkv`` -> (keys a block, query
+    rows a ring tile, ring slots). Two consumer warpgroups take 64 rows
+    each at 128; at 256 (and always in the dk/dv pass) they split the
+    head-dim columns of the accumulators instead."""
+    if dh not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"no wgmma flash kernel at head_dim {dh} {WGMMA_HEAD_DIMS}")
+    wide = dh == 256
+    return {"fwd": (64 if wide else 128, 64, 4 if wide else 8),
+            "dq": (64 if wide else 128, 64, 3 if wide else 8),
+            "dkv": (64, 64, 4 if wide else 8)}
+
+
+def wgmma_smem_bytes(which: str, dh: int) -> int:
+    """Dynamic shared memory of one block of the wgmma kernel ``which``
+    ("fwd", "dq", "dkv") at head dim ``dh``, as its launcher asks for it
+    (a mirror of the ``SMEM`` formulas of the ``Wg*`` structs):
+    the alignment slack, the resident tiles (Q; Q and dO; K and V), the
+    ring, the exchange between the two consumers (at 256 the forward's two
+    buffers of both partial score tiles and the dq pass's one buffer of
+    both partial S and dP tiles, f32; the dk/dv pass's four [64, 64] bf16
+    P^T / dS^T tiles, two sets of them at 128, and each consumer's two
+    staged lse / delta rows) and the ring's mbarriers (8 bytes each: full
+    and empty a slot, one more for the resident tiles)."""
+    rows, cols, slots = wgmma_tiles(dh)[which]
+    resident = {"fwd": 1, "dq": 2, "dkv": 2}[which] * rows * dh * 2
+    if which == "dkv":   # two sets of P^T / dS^T tiles at 128, one at 256
+        exchange = (1 if dh == 256 else 2) * 4 * rows * cols * 2 + 2 * 2 * cols * 4
+    elif dh == 256:
+        exchange = 2 * 2 * rows * cols * 4
+    else:
+        exchange = 0
+    return _SLACK + resident + slots * cols * dh * 2 + exchange + 8 * (2 * slots + 1)
+
+
+KNOWN_SMEM = {("fwd", 128): 165000, ("fwd", 256): 230472, ("dq", 128): 197768,
+              ("dq", 256): 230456, ("dkv", 128): 231560, ("dkv", 256): 231496}
+# the CUDA source's constants its structs' expressions use
+SOURCE_CONSTANTS = {"kConsumerWgs": 2, "kAlign": 1024}
+
+
+# ---------------------------------------------------------------------------
+# Shared memory and tile shapes
+# ---------------------------------------------------------------------------
+
+
+def _source_tiles(struct: str, dh: int) -> dict:
+    """The constants of a ``Wg*`` struct of the CUDA source at head dim dh,
+    each evaluated from its C expression in order (``a ? b : c`` as
+    Python's conditional)."""
+    body = open(CU).read().split(f"struct {struct} {{", 1)[1].split("};", 1)[0]
+    env = dict(SOURCE_CONSTANTS, DH=dh)
+    for decl in re.findall(r"static constexpr (?:int|bool) ([^;]+);", body):
+        for name, expr in re.findall(r"(\w+) =\s*((?:[^,(]|\([^)]*\))+)", decl):
+            expr = " ".join(expr.split())
+            expr = re.sub(r"^(.*?) \? (.*?) : (.*)$", r"(\2) if (\1) else (\3)", expr)
+            env[name] = eval(expr, {}, env)
+    return env
+
+
+@pytest.mark.parametrize("dh", WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])
+def test_shared_memory_fits_a_block_and_matches_the_source(which, dh):
+    smem = wgmma_smem_bytes(which, dh)
+    assert smem <= SMEM_LIMIT == 232448
+    assert smem == KNOWN_SMEM[(which, dh)]
+    src = _source_tiles({"fwd": "WgFwd", "dq": "WgDq", "dkv": "WgDkv"}[which], dh)
+    rows, cols, slots = wgmma_tiles(dh)[which]
+    if which == "dkv":
+        assert (src["BN"], src["BQ"], src["SLOTS"]) == (rows, cols, slots)
+    else:
+        assert (src["BM"], src["BN"], src["SLOTS"]) == (rows, cols, slots)
+    assert src["SMEM"] == smem            # the mirror is the launcher's formula
+    assert rows % WG_ROWS == 0 and cols % 16 == 0 and dh % 64 == 0
+    # every ring tile is 32 KB at 256 (the budget the slot counts are cut to)
+    if dh == 256:
+        assert cols * dh * 2 == 32768
+
+
+def test_wgmma_tiles_refuse_other_head_dims():
+    for dh in (64, 80, 96):
+        with pytest.raises(ValueError, match="no wgmma flash kernel"):
+            wgmma_tiles(dh)
+
+
+# ---------------------------------------------------------------------------
+# Block schedules
+# ---------------------------------------------------------------------------
+
+
+def fwd_blocks(B, T, H, causal, BM=128, KV=None):
+    """The forward's and the dq pass's blocks in issue order, (b, h, qt):
+    the kernels' ``block_of_rows``: by (sequence, kv head), then query tile
+    (longest first under a causal mask), then the group's query heads."""
+    KV = H if KV is None else KV
+    G, nqt = H // KV, -(-T // BM)
+    blocks = []
+    for x in range(B * KV * nqt * G):
+        grp, rem = divmod(x, nqt * G)
+        rank, g = divmod(rem, G)
+        b, kvh = divmod(grp, KV)
+        blocks.append((b, kvh * G + g, nqt - 1 - rank if causal else rank))
+    return blocks
+
+
+def dkv_blocks(B, S, KV):
+    """The dk/dv pass's blocks in issue order, (b, kv head, key tile)."""
+    nkt = -(-S // 64)
+    return [(bkv // KV, bkv % KV, kt) for bkv, kt in
+            (divmod(x, nkt) for x in range(B * KV * nkt))]
+
+
+def live_tiles(r0, T, S, causal, BM, BN):
+    """(key tiles the block loads, the ones warpgroup rows [r0, r0 + 64)
+    computes): n_kv as the kernel's, a tile wholly above the diagonal
+    skipped."""
+    q0 = r0 // BM * BM
+    n_s = -(-S // BN)
+    n_kv = min((q0 + BM - 1) // BN + 1, n_s) if causal else n_s
+    return n_kv, [j for j in range(n_kv) if not (causal and j * BN > r0 + WG_ROWS - 1)]
+
+
+def dkv_iterations(kt, kvh, n_rep, T, causal, BQ=64):
+    """The dk/dv pass's (head, query tile) sequence for key tile kt."""
+    nqt = -(-T // BQ)
+    qt_lo = kt if causal else 0
+    n_q = nqt - qt_lo
+    return [(kvh * n_rep + i // n_q, qt_lo + i % n_q) for i in range(n_rep * n_q)]
+
+
+@pytest.mark.parametrize("dh", WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("T,S,causal", [(1, 1, True), (37, 37, True), (128, 128, True),
+                                        (129, 129, True), (1000, 1000, True),
+                                        (200, 1000, False), (37, 37, False)])
+def test_forward_and_dq_blocks_cover_every_tile_once_longest_first(dh, T, S, causal):
+    B, H, KV = 2, 4, 2
+    for which in ("fwd", "dq"):
+        BM, BN, _ = wgmma_tiles(dh)[which]
+        blocks = fwd_blocks(B, T, H, causal, BM, KV)
+        assert sorted(blocks) == sorted({(b, h, qt) for b in range(B) for h in range(H)
+                                         for qt in range(-(-T // BM))})
+        assert len(blocks) == len(set(blocks))
+        # a (sequence, kv head)'s blocks are contiguous, its longest first, the
+        # group's query heads of one query tile side by side
+        per = -(-T // BM) * (H // KV)
+        for start in range(0, len(blocks), per):
+            group = blocks[start:start + per]
+            assert len({(b, h // (H // KV)) for b, h, _ in group}) == 1
+            loads = [live_tiles(qt * BM, T, S, causal, BM, BN)[0] for _, _, qt in group]
+            assert loads == sorted(loads, reverse=True)
+            assert [qt for _, _, qt in group[::H // KV]] == [qt for _, _, qt in group][::H // KV]
+        for _, _, qt in blocks:
+            # at 128 two consumers take 64 rows each; at 256 both take the
+            # block's 64 rows (and half the head dim each)
+            for w in range(BM // WG_ROWS):
+                r0 = qt * BM + w * WG_ROWS
+                n_kv, live = live_tiles(r0, T, S, causal, BM, BN)
+                rows = range(r0, min(r0 + WG_ROWS, T))
+                seen = {j * BN + c for j in live for c in range(BN)}
+                for r in rows:   # every key a row sees lies in a computed tile
+                    visible = range(0, min(r + 1, S)) if causal else range(S)
+                    assert set(visible) <= seen
+                for j in set(range(n_kv)) - set(live):   # skipped: wholly above the diagonal
+                    assert causal and j * BN > r0 + WG_ROWS - 1
+        if T in (1, 37):   # one query tile: rows past T are computed, not written
+            assert len(blocks) == B * H and all(qt == 0 for _, _, qt in blocks)
+
+
+@pytest.mark.parametrize("S", [1, 37, 1000])
+def test_dkv_blocks_cover_every_key_tile_once_grouped_by_kv_head(S):
+    B, KV = 3, 2
+    blocks = dkv_blocks(B, S, KV)
+    nkt = -(-S // 64)
+    assert sorted(blocks) == sorted({(b, kvh, kt) for b in range(B) for kvh in range(KV)
+                                     for kt in range(nkt)})
+    for start in range(0, len(blocks), nkt):   # key tile 0 (the most query tiles) first
+        assert [kt for _, _, kt in blocks[start:start + nkt]] == list(range(nkt))
+
+
+@pytest.mark.parametrize("T,causal", [(1, True), (37, True), (200, True), (200, False)])
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_dkv_iterations_cover_each_head_and_query_tile_once_in_order(T, causal, n_rep):
+    kvh = 1
+    for kt in range(-(-T // 64)):
+        its = dkv_iterations(kt, kvh, n_rep, T, causal)
+        heads = [h for h, _ in its]
+        assert heads == sorted(heads)                                  # fixed group-sum order
+        want = {(kvh * n_rep + g, qt) for g in range(n_rep)
+                for qt in range(kt if causal else 0, -(-T // 64))}
+        assert sorted(its) == sorted(want) and len(its) == len(want)
+        assert len(its) >= 1
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic, mirrored in f32
+# ---------------------------------------------------------------------------
+
+
+def _rows(x, start, n):
+    """Rows [start, start + n) of [L, ...], zeros past the end (TMA's fill)."""
+    out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype)
+    stop = min(start + n, x.shape[0])
+    if stop > start:
+        out[:stop - start] = x[start:stop]
+    return out
+
+
+def _allowed(rows, keys, S, T, causal, seg):
+    ok = (keys[None, :] < S) & (rows[:, None] < T)
+    if causal:
+        ok &= ~(keys[None, :] > rows[:, None])
+    if seg is not None:
+        last = seg.shape[0] - 1   # the kernels read row min(r, T - 1)'s id
+        sr, sk = seg[rows.clamp(max=last)], seg[keys.clamp(max=last)]
+        ok &= sr[:, None] == sk[None, :]
+    return ok
+
+
+def mirror_forward(q, k, v, causal, seg=None):
+    """The wgmma forward's arithmetic in f32: (out, lse)."""
+    B, T, H, Dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    BM, BN, _ = wgmma_tiles(Dh)["fwd"]
+    sl2 = Dh ** -0.5 * LOG2E
+    out, lse = torch.zeros(B, T, H, Dh), torch.zeros(B, H, T)
+    for b, h, qt in fwd_blocks(B, T, H, causal, BM):
+        kvh = h // (H // KV)
+        sb = None if seg is None else seg[b]
+        for w in range(BM // WG_ROWS):
+            r0 = qt * BM + w * WG_ROWS
+            rows = torch.arange(r0, r0 + WG_ROWS)
+            qs = _rows(q[b, :, h], r0, WG_ROWS)
+            m, l = torch.full((WG_ROWS,), NEG), torch.zeros(WG_ROWS)
+            acc = torch.zeros(WG_ROWS, Dh)
+            for j in live_tiles(r0, T, S, causal, BM, BN)[1]:
+                k0 = j * BN
+                keys = torch.arange(k0, k0 + BN)
+                kt, vt = _rows(k[b, :, kvh], k0, BN), _rows(v[b, :, kvh], k0, BN)
+                s = (qs @ kt.T) * sl2
+                masked = (causal and k0 + BN - 1 > r0) or k0 + BN > S or sb is not None
+                if masked:   # rows past T are not masked here: the kernel writes none of them
+                    s = torch.where(_allowed(rows, keys, S, 1 << 30, causal, sb), s,
+                                    torch.tensor(NEG))
+                mn = torch.maximum(m, s.max(1).values)
+                al = torch.exp2(m - mn)
+                p = torch.exp2(s - mn[:, None])
+                if masked:
+                    p = torch.where(s <= NEG, torch.zeros(()), p)
+                l = l * al + p.sum(1)
+                acc = acc * al[:, None] + p @ vt
+                m = mn
+            for i, r in enumerate(rows.tolist()):
+                if r < T:
+                    out[b, r, h] = acc[i] / max(l[i].item(), 1e-30)
+                    lse[b, h, r] = (m[i] + torch.log2(l[i].clamp(min=1e-30))) * LN2
+    return out, lse
+
+
+def mirror_backward(q, k, v, out, dout, lse, causal, seg=None):
+    """The wgmma backward's arithmetic in f32: delta, the dk/dv pass (two
+    warpgroups, each forming P^T and dS^T for half the queries and then
+    accumulating half the head-dim columns, the group's query heads summed
+    in order) and the dq pass (its row blocks). -> (dq, dk, dv)."""
+    B, T, H, Dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    n_rep, half, scale = H // KV, Dh // 2, Dh ** -0.5
+    sl2 = scale * LOG2E
+    delta = (dout * out).sum(-1).permute(0, 2, 1)                  # [B, H, T]
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    BN, BQ, _ = wgmma_tiles(Dh)["dkv"]
+    for kt in range(-(-S // BN)):
+        for b in range(B):
+            sb = None if seg is None else seg[b]
+            for kvh in range(KV):
+                k0 = kt * BN
+                keys = torch.arange(k0, k0 + BN)
+                K, V = _rows(k[b, :, kvh], k0, BN), _rows(v[b, :, kvh], k0, BN)
+                acc = [[torch.zeros(BN, half), torch.zeros(BN, half)] for _ in range(2)]
+                for head, qt in dkv_iterations(kt, kvh, n_rep, T, causal, BQ):
+                    q0 = qt * BQ
+                    queries = torch.arange(q0, q0 + BQ)
+                    Q, dO = _rows(q[b, :, head], q0, BQ), _rows(dout[b, :, head], q0, BQ)
+                    # each warpgroup forms S^T and dP^T for its 32 queries
+                    st = torch.cat([K @ Q[w * 32:(w + 1) * 32].T for w in range(2)], 1)
+                    dpt = torch.cat([V @ dO[w * 32:(w + 1) * 32].T for w in range(2)], 1)
+                    lse2 = torch.where(queries < T, _rows(lse[b, head], q0, BQ) * LOG2E, 0.)
+                    dlt = torch.where(queries < T, _rows(delta[b, head], q0, BQ), 0.)
+                    p = torch.exp2(st * sl2 - lse2[None])
+                    masked = (causal and qt == kt) or q0 + BQ > T or k0 + BN > S or sb is not None
+                    if masked:
+                        p = torch.where(_allowed(queries, keys, S, T, causal, sb).T, p,
+                                        torch.zeros(()))
+                    ds = p * (dpt - dlt[None])
+                    for w in range(2):   # warpgroup w: columns [w * half, (w + 1) * half)
+                        cols = slice(w * half, (w + 1) * half)
+                        acc[w][0] += p @ dO[:, cols]
+                        acc[w][1] += ds @ Q[:, cols]
+                n = min(BN, S - k0)
+                dv[b, k0:k0 + n, kvh] = torch.cat([acc[0][0], acc[1][0]], 1)[:n]
+                dk[b, k0:k0 + n, kvh] = torch.cat([acc[0][1], acc[1][1]], 1)[:n] * scale
+    BM, BN, _ = wgmma_tiles(Dh)["dq"]
+    for b, h, qt in fwd_blocks(B, T, H, causal, BM):
+        kvh = h // n_rep
+        sb = None if seg is None else seg[b]
+        for w in range(BM // WG_ROWS):
+            r0 = qt * BM + w * WG_ROWS
+            rows = torch.arange(r0, r0 + WG_ROWS)
+            Q, dO = _rows(q[b, :, h], r0, WG_ROWS), _rows(dout[b, :, h], r0, WG_ROWS)
+            lse2 = torch.where(rows < T, _rows(lse[b, h], r0, WG_ROWS) * LOG2E, 0.)
+            dlt = torch.where(rows < T, _rows(delta[b, h], r0, WG_ROWS), 0.)
+            acc = torch.zeros(WG_ROWS, Dh)
+            for j in live_tiles(r0, T, S, causal, BM, BN)[1]:
+                k0 = j * BN
+                keys = torch.arange(k0, k0 + BN)
+                K, V = _rows(k[b, :, kvh], k0, BN), _rows(v[b, :, kvh], k0, BN)
+                p = torch.exp2((Q @ K.T) * sl2 - lse2[:, None])
+                if (causal and k0 + BN - 1 > r0) or k0 + BN > S or sb is not None:
+                    p = torch.where(_allowed(rows, keys, S, 1 << 30, causal, sb), p,
+                                    torch.zeros(()))
+                acc += (p * (dO @ V.T - dlt[:, None])) @ K
+            n = max(0, min(WG_ROWS, T - r0))
+            dq[b, r0:r0 + n, h] = acc[:n] * scale
+    return dq, dk, dv
+
+
+# (B, T, S, H, KV, causal, segments)
+CASES = [(2, 200, 200, 4, 2, True, False), (1, 37, 37, 4, 1, True, True),
+         (2, 1, 1, 2, 2, True, False), (1, 130, 300, 4, 4, False, False),
+         (1, 256, 256, 2, 2, True, True)]
+CASE_IDS = ["gqa", "ragged-seg", "one-row", "full-t<s", "mha-seg"]
+
+
+def _case(B, T, S, H, KV, Dh, segments, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, Dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, Dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, Dh)).astype(np.float32)
+    dout = rng.standard_normal((B, T, H, Dh)).astype(np.float32)
+    seg = None
+    if segments:
+        seg = np.sort(rng.integers(0, 3, size=(B, T)), axis=1).astype(np.int32)
+    return q, k, v, dout, seg
+
+
+@pytest.mark.parametrize("dh", WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("B,T,S,H,KV,causal,segments", CASES, ids=CASE_IDS)
+def test_forward_mirror_matches_jax(dh, B, T, S, H, KV, causal, segments):
+    q, k, v, _, seg = _case(B, T, S, H, KV, dh, segments, seed=T + dh)
+    out, lse = mirror_forward(T_(q), T_(k), T_(v), causal, None if seg is None else T_(seg))
+    jseg = None if seg is None else jnp.asarray(seg)
+    want = jreference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, jseg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    # lse against the log-sum-exp of the same masked scores
+    logits = fa._masked_logits(T_(q), T_(k), causal, None if seg is None else T_(seg))
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(logits, -1).numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dh", WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("segments", [False, True], ids=["noseg", "seg"])
+def test_forward_mirror_matches_splash_interpret(dh, segments):
+    q, k, v, _, seg = _case(1, 256, 256, 4, 2, dh, segments, seed=7)
+    out, _ = mirror_forward(T_(q), T_(k), T_(v), True, None if seg is None else T_(seg))
+    want = splash_attention_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                                segment_ids=None if seg is None else jnp.asarray(seg),
+                                interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dh", WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("B,T,S,H,KV,causal,segments", CASES, ids=CASE_IDS)
+def test_backward_mirror_matches_jax_vjp(dh, B, T, S, H, KV, causal, segments):
+    q, k, v, dout, seg = _case(B, T, S, H, KV, dh, segments, seed=2 * T + dh)
+    jseg = None if seg is None else jnp.asarray(seg)
+    want_out, vjp = jax.vjp(lambda a, b_, c: jreference(a, b_, c, causal, jseg),
+                            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    tseg = None if seg is None else T_(seg)
+    out, lse = mirror_forward(T_(q), T_(k), T_(v), causal, tseg)
+    got = mirror_backward(T_(q), T_(k), T_(v), out, T_(dout), lse, causal, tseg)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def test_dkv_column_split_is_the_joint_pass():
+    """The two warpgroups' halves of dk and dv, concatenated, are the
+    joint product over all the head-dim columns, bit for bit in f32 (each
+    output column's sum runs over the same terms in the same order)."""
+    q, k, v, dout, _ = _case(1, 64, 64, 2, 1, 256, False, seed=11)
+    q, k, v, dout = map(T_, (q, k, v, dout))
+    out, lse = mirror_forward(q, k, v, True)
+    _, dk, dv = mirror_backward(q, k, v, out, dout, lse, True)
+    delta = (dout * out).sum(-1).permute(0, 2, 1)
+    sl2 = 256 ** -0.5 * LOG2E
+    dk_joint, dv_joint = torch.zeros(64, 256), torch.zeros(64, 256)
+    keys = torch.arange(64)
+    for head in range(2):
+        Q, dO = q[0, :, head], dout[0, :, head]
+        p = torch.exp2(k[0, :, 0] @ Q.T * sl2 - lse[0, head][None] * LOG2E)
+        p = torch.where(keys[:, None] > keys[None, :], torch.zeros(()), p)
+        ds = p * (v[0, :, 0] @ dO.T - delta[0, head][None])
+        dv_joint += p @ dO
+        dk_joint += ds @ Q
+    torch.testing.assert_close(dv[0, :, 0], dv_joint, rtol=0, atol=0)
+    torch.testing.assert_close(dk[0, :, 0], dk_joint * 256 ** -0.5, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The C arguments
+# ---------------------------------------------------------------------------
+
+
+class _Lib:   # records each C call's arguments
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.setdefault(name, args) and 0
+
+
+@pytest.mark.parametrize("dh", WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_wrappers_hand_the_c_entry_points_operands_and_scratch(monkeypatch, dh, causal):
+    calls, made = {}, {}
+    monkeypatch.setattr(fa, "_lib", lambda: _Lib(calls))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0}))
+    real_empty, real_empty_like = torch.empty, torch.empty_like
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        made[t.data_ptr()] = (tuple(t.shape), t.dtype)
+        return t
+
+    def empty_like(x, **kw):
+        t = real_empty_like(x, **kw)
+        made[t.data_ptr()] = (tuple(t.shape), t.dtype)
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch, "empty_like", empty_like)
+    B, T, H, KV = 2, 37, 8, 2
+    q = torch.zeros(B, T, H, dh, dtype=torch.bfloat16)
+    k = torch.zeros(B, T, KV, dh, dtype=torch.bfloat16)
+    v = torch.zeros(B, T, KV, dh, dtype=torch.bfloat16)
+    out, lse = fa._launch(q, k, v, causal, None, want_lse=True)
+    args = calls["sxt_flash_attention_bf16"]
+    assert args[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None, 0)
+    assert args[7:9] == (out.data_ptr(), lse.data_ptr())
+    assert made[args[7]] == ((B, T, H, dh), torch.bfloat16)
+    assert made[args[8]] == ((B, H, T), torch.float32)
+    assert args[9:17] == (B, T, T, H, KV, dh, int(causal), dh ** -0.5)
+    dq, dk, dv = fa._launch_bwd(q, k, v, out, lse, q, causal, None)
+    args = calls["sxt_flash_attention_bwd_bf16"]
+    assert args[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None, 0)
+    assert args[7:10] == (out.data_ptr(), q.data_ptr(), lse.data_ptr())
+    assert made[args[10]] == ((B, H, T), torch.float32)                # delta: scratch
+    assert args[11:14] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    assert made[args[12]] == ((B, T, KV, dh), torch.bfloat16)
+    assert args[14:22] == (B, T, T, H, KV, dh, int(causal), dh ** -0.5)
