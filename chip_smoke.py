@@ -1795,8 +1795,8 @@ def _bwd_cases():
     """(label, K, F, N, pattern) of phase 2h: the _config3 shapes at the
     ragged route's rows in every pattern and at the capacity route's equal
     groups, then Mixtral's shapes at 16,384 ragged rows; last two edge
-    cells: 16 rows (the tiled form takes them too) and K, F that are
-    multiples of 8 but not of the 128-wide tiles."""
+    cells: 16 rows (the wgmma kernels take dx and dw at every row count)
+    and K, F that are multiples of 8 but not of the kernels' tiles."""
     for K, F in GB_CONFIG3:
         for pattern in GB_PATTERNS:
             yield "config3 ragged", K, F, GB_RAGGED_N, pattern
@@ -2073,9 +2073,10 @@ def _kernel_kind(name: str) -> str:
                       ("fused_adamw_kernel", "fused_adamw"),
                       ("grouped_gemv_kernel", "grouped_matmul (B16 decode rows)"),
                       ("grouped_out_kernel", "grouped_matmul (B16 decode rows)"),
-                      ("grouped_mma_kernel", "grouped_matmul (B16 tensor-core form)"),
-                      ("grouped_dx_kernel", "grouped_matmul_dx (B16-dx)"),
-                      ("grouped_dw_kernel", "grouped_matmul_dw (B16-dw)"),
+                      ("grouped_mma_kernel", "grouped_matmul (B16 int8 / fp8 tensor-core form)"),
+                      ("wg_gmm_kernel<true>", "grouped_matmul_dx (B16-dx, wgmma)"),
+                      ("wg_gmm_kernel", "grouped_matmul (B16 bf16, wgmma)"),
+                      ("wg_tgmm_kernel", "grouped_matmul_dw (B16-dw, wgmma)"),
                       ("lora_row_kernel", "lora_delta"),
                       ("lora_tile_kernel", "lora_delta"),
                       ("gemv_partial_kernel", "fused_gemv (qkv + mlp products)"),

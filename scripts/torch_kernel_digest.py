@@ -2,7 +2,9 @@
 
 Runs the flash-attention kernels (B14 / B15 forward and backward, and
 B15's element-mask form), the
-grouped GEMM (B16 forward over bf16 and int8 stacks, its dx and dw), the
+grouped GEMM (B16 forward over bf16 and int8 stacks, its dx and dw; at the
+main paths' shapes in every format beside ``torch._grouped_mm``, the bf16
+forward, dx and dw held to their plain versions), the
 quantized matmul (B8, both forms), where the tree has them the ALiBi
 kernels (B11-B13), the paged serving kernels (B2 decode, B5 split-K
 decode, B3 extend over bf16, int8 and fp8 pools) and the LoRA delta (B9 at
@@ -23,8 +25,10 @@ hi + lo split of P could go). The element-mask cells (``sparse_attention``'s lay
 of forms a tree does not build (head dims 80 and 96, the backward at 256,
 ranks above 64) run only where it builds them, after the others, so both
 trees give the common cells the same inputs. ``--sections`` picks some of
-them (``flash alibi grouped quant paged lora sweeps``; ``sweeps`` times the
-cells ``chip_smoke.py`` checks but does not time). Two trees whose digests match
+them (``flash alibi grouped quant paged lora sweeps moe_train``; ``sweeps``
+times the cells ``chip_smoke.py`` checks but does not time; ``moe_train``
+runs the chip smoke test's phase 5b, the _config3 MoE training steps, with
+the tree's own ``chip_smoke.train``). Two trees whose digests match
 computed bit-equal results, so a refactor of the kernel sources (shared
 headers, say) is checked against its parent by running this script on
 both, parent-change-change-parent in one session:
@@ -81,6 +85,24 @@ ALIBI_CELLS = [("B11-B13 bloom-1b7", 2, 2047, 2047, 16, 16, 128),
                ("B11-B13 gqa T<S", 2, 512, 1024, 16, 8, 128)]
 GROUPED_SIZES = {"16 rows": [3, 0, 5, 1, 0, 4, 2, 1],
                  "4096 rows": [700, 0, 1300, 96, 512, 4, 1000, 484]}
+# B16 at the main paths' shapes, 8 experts, each cell timed beside its bound
+# and torch._grouped_mm (the chip smoke test's yardsticks): the forward over
+# Mixtral-8x7B's w_gate / w_down in each format at a decode tick's 2 and 16
+# rows, a chunk tick's 512 and a put()'s 16,384 ragged rows; dx and dw at
+# bench.py's _config3 [1024, 2816] and its transpose on the capacity route's
+# 8 x 10,230 rows and the ragged route's 65,472 (ragged and one_expert), and
+# at Mixtral's w_gate with 16,384 ragged rows. The bf16 forward of 512 rows
+# or more, dx and dw are held to their plain versions (PAGED_TOL per row)
+# with equal bits twice.
+GROUPED_FWD = [((4096, 14336), rows) for rows in (2, 16, 512, 16384)] + \
+              [((14336, 4096), rows) for rows in (2, 16, 512, 16384)]
+GROUPED_BWD = [("config3 capacity", (1024, 2816), 8 * 10230, "balanced"),
+               ("config3 capacity", (2816, 1024), 8 * 10230, "balanced"),
+               ("config3 ragged", (1024, 2816), 65472, "ragged"),
+               ("config3 ragged", (2816, 1024), 65472, "ragged"),
+               ("config3 ragged", (1024, 2816), 65472, "one_expert"),
+               ("config3 ragged", (2816, 1024), 65472, "one_expert"),
+               ("mixtral", (4096, 14336), 16384, "ragged")]
 # (label, H, KV, Dh, ALiBi slopes): the heads of the chip smoke test's B2 / B3
 # / B5 cells (Llama-3-8B's, BLOOM-1b7's with slopes, GPT-J-6B's at head_dim
 # 256) and a GQA group at head_dim 64; each at 8 sequences of up to 2,048
@@ -116,7 +138,7 @@ SWEEP_QUANT_ROWS = [8, 1, 256, 8192]
 SWEEP_GG_SHAPES = [(4096, 14336), (14336, 4096)]
 SWEEP_GG_ROWS = [2, 16, 512, 16384]
 SWEEP_GG_PATTERNS = ("balanced", "one_expert", "empty_ends", "ragged")
-SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora", "sweeps")
+SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora", "sweeps", "moe_train")
 
 
 def time_cold(fn, iters: int = 10) -> float:
@@ -288,6 +310,110 @@ def lora_cells(gen) -> dict:
     return cells
 
 
+def grouped_cells(gen, seed) -> dict:
+    """The GROUPED_FWD and GROUPED_BWD cells: a digest and the mean cold-L2
+    time of each beside its bound and torch._grouped_mm's time; the bf16
+    forward past 16 rows, dx and dw also ``within`` their plain versions
+    and ``equal_bits_twice``."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import (_f32_reduction, _library_bwd, _library_grouped, bound,
+                            group_pattern, paged_close)
+
+    gg, qmm = (importlib.import_module(f"shuffle_exchange_tpu_torch.ops.{m}") for m in
+               ("grouped_gemm", "quant_matmul"))
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    def cell(fn, plain, lib, nbytes, flops, iters):
+        out = fn()
+        row = dict(digest=digest([out]), ms=time_cold(fn, iters), library_ms=time_cold(lib, 3))
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        if plain is not None:
+            err, ok = paged_close(out, plain())
+            row.update(max_abs_err=err.max().item(), within=ok,
+                       equal_bits_twice=digest([fn()]) == row["digest"])
+        return row
+
+    cells = {}
+    with _f32_reduction():
+        for (K, F), N in GROUPED_FWD:
+            w16 = randn(8, K, F, scale=K ** -0.5)
+            x = randn(N, K)
+            sizes_np = group_pattern("ragged", N, 8, rng)
+            sizes = torch.from_numpy(sizes_np).cuda()
+            used = int((sizes_np > 0).sum())
+            lib16 = _library_grouped(x, w16, sizes)[0]
+            for fmt in ("bf16", 8, "fp8"):
+                w = w16 if fmt == "bf16" else qmm.quantize_weight(w16, 256, bits=fmt)
+                expert_bytes = K * F * 2 if fmt == "bf16" else w.nbytes / 8
+                lib = lib16 if fmt == "bf16" else (lambda w=w: (w.dequantize(), lib16()))
+                plain = ((lambda w=w: gg.grouped_matmul_reference(x, w, sizes))
+                         if fmt == "bf16" and N > gg.GEMV_MAX_N else None)
+                cells[f"B16 {'int8' if fmt == 8 else fmt} {N}x[{K}, {F}] ragged"] = cell(
+                    lambda w=w: gg.grouped_matmul(x, w, sizes), plain, lib,
+                    N * K * 2 + used * expert_bytes + N * F * 2, 2.0 * N * K * F,
+                    5 if N > 1024 else 10)
+                del w
+            del w16, x
+            torch.cuda.empty_cache()
+        for label, (K, F), N, pattern in GROUPED_BWD:
+            sizes_np = group_pattern(pattern, N, 8, rng)
+            sizes = torch.from_numpy(sizes_np).cuda()
+            used = int((sizes_np > 0).sum())
+            x, dout, w = randn(N, K), randn(N, F), randn(8, K, F, scale=K ** -0.5)
+            flops = 2.0 * N * K * F
+            cells[f"B16-dx {label} {N}x[{K}, {F}] {pattern}"] = cell(
+                lambda: gg.grouped_matmul_dx(dout, w, sizes),
+                lambda: gg.grouped_matmul_dx_reference(dout, w, sizes),
+                _library_bwd("dx", dout, w, sizes)[0],
+                N * F * 2 + used * K * F * 2 + N * K * 2, flops, 5)
+            cells[f"B16-dw {label} {N}x[{K}, {F}] {pattern}"] = cell(
+                lambda: gg.grouped_matmul_dw(x, dout, sizes),
+                lambda: gg.grouped_matmul_dw_reference(x, dout, sizes),
+                _library_bwd("dw", x, dout, sizes)[0],
+                N * (K + F) * 2 + 8 * K * F * 2, flops, 5)
+            del x, dout, w
+            torch.cuda.empty_cache()
+    return cells
+
+
+def moe_train_cells(seed) -> dict:
+    """The chip smoke test's phase 5b on this tree (its ``train`` at its
+    MOE_TRAIN_CONFIG and MOE_TRAIN_STEPS): bench.py's _config3 model under
+    "capacity" and "ragged", step p50, tokens/s, MFU and the profiled
+    step's device ms by kernel kind, with the grouped GEMMs' (B16, dx, dw)
+    share of the step's busy device time."""
+    import gc
+
+    import torch
+
+    from chip_smoke import MOE_TRAIN_CONFIG, MOE_TRAIN_STEPS, card_line, config3, train
+
+    cells = {}
+    for impl in ("capacity", "ragged"):
+        r = train(f"config3-{impl}", config3(impl), seed, card_line(), config=MOE_TRAIN_CONFIG,
+                  steps=MOE_TRAIN_STEPS)
+        trace = r.get("trace") or {}
+        kinds = trace.get("by_kind_ms", {})
+        b16 = sum(v for k, v in kinds.items() if k.startswith("grouped_matmul"))
+        busy = trace.get("device_busy_ms")
+        cells[f"config3-{impl} train step"] = dict(
+            step_p50_ms=r["step_p50_ms"], step_ms=r["step_ms"], tokens_per_s=r["tokens_per_s"],
+            mfu_6n=r["mfu_6n"], peak_mem_GiB=r["peak_mem_GiB"], losses=r["losses"],
+            device_busy_ms=busy, idle_share=trace.get("idle_share"), grouped_ms=b16,
+            grouped_share=b16 / busy if busy else None, by_kind_ms=kinds,
+            kernels_by_kind=trace.get("kernels_by_kind"))
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cells
+
+
 def flash_cells(fa, gen, randn, seed) -> dict:
     """The FLASH_CELLS (each dense cell held to its plain version, equal
     bits twice, beside SDPA) and the MASK_CELLS."""
@@ -450,6 +576,7 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
 
     # one nvcc per source the sections run, all at once
     sources = {"flash": ("flash_attention",), "alibi": ("alibi_attention",),
+               "moe_train": ("flash_attention", "grouped_gemm", "fused_adam"),
                "grouped": ("grouped_gemm",), "quant": ("quant_matmul",),
                "paged": ("paged_attention", "fused_decode"), "lora": ("lora_gemm",),
                "sweeps": ("flash_attention", "quant_matmul", "grouped_gemm", "fused_decode")}
@@ -512,6 +639,11 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
         cells.update(lora_cells(gens[5]))
     if "sweeps" in sections:
         cells.update(sweep_cells(torch.Generator(device="cuda").manual_seed(seed * 10 + 6), seed))
+    if "grouped" in sections:
+        cells.update(grouped_cells(torch.Generator(device="cuda").manual_seed(seed * 10 + 7),
+                                   seed))
+    if "moe_train" in sections:
+        cells.update(moe_train_cells(seed))
     return cells
 
 

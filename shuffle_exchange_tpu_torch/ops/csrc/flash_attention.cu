@@ -924,10 +924,8 @@ struct WgDkv {
   static_assert(SMEM <= kSmemLimit, "dk/dv pass: shared memory");
 };
 
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
-  const uint32_t a = wg::saddr(p);
-  return p + ((kAlign - (a % kAlign)) % kAlign);
-}
+using wg::align_smem;   // kAlign is the swizzle's period, wg::kSwizzleAlign
+static_assert(kAlign == wg::kSwizzleAlign, "tiles align to the swizzle's period");
 
 // One [ROWS, CB * 64] tile: CB boxes of {64, ROWS}, column blocks ROWS * 128 bytes apart.
 template <int ROWS, int CB>
@@ -939,22 +937,10 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* 
                     row0, b);
 }
 
-// The ring: tile t lives in slot t % SLOTS; its round is t / SLOTS.
-template <int SLOTS>
-__device__ __forceinline__ void ring_fill(uint64_t* full, uint64_t* empty, int t,
-                                          uint32_t bytes) {
-  const int slot = t % SLOTS, round = t / SLOTS;
-  if (round > 0) wg::mbar_wait(&empty[slot], (round - 1) & 1);
-  wg::mbar_expect_tx(&full[slot], bytes);
-}
-template <int SLOTS>
-__device__ __forceinline__ void ring_wait(uint64_t* full, int t) {
-  wg::mbar_wait(&full[t % SLOTS], (t / SLOTS) & 1);
-}
-template <int SLOTS>
-__device__ __forceinline__ void ring_free(uint64_t* empty, int t, int lane) {
-  if (lane == 0) wg::mbar_arrive(&empty[t % SLOTS]);
-}
+// The ring (wgmma_tile.cuh): tile t lives in slot t % SLOTS; its round is t / SLOTS.
+using wg::ring_fill;
+using wg::ring_free;
+using wg::ring_wait;
 
 __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int slots,
                                           uint64_t* once) {
@@ -1024,11 +1010,7 @@ __device__ __forceinline__ void mask_tile(float (&x)[N], int k0, int r_lo, int r
   }
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
-}
+using wg::zero;
 
 // The block of a forward or dq launch: blocks go by (sequence, kv head),
 // then query tile (longest first under a causal mask), then the group's

@@ -25,64 +25,93 @@
 // sum (none when the sizes sum to N) are written as zeros. The host never
 // reads group_sizes.
 //
-// What bounds it on the H100 (3.35 TB/s, 989 TFLOP/s bf16): in a decode
-// tick (8 rows, top-2: N = 16 on ~7 experts) the weight bytes of the
-// experts hit: one Mixtral w_gate call reads ~7 x 59.6 MB of int8 and
-// scales, >= 0.13 ms. Those calls (N <= 16) take a split-K GEMV: blocks of
-// (64 columns, <= 8 rows of one group, a chunk of whole scale groups <=
-// 1024 rows), each streaming its weight rows once with 8- (int8, fp8) or
-// 16-byte (bf16) loads into FMAs for only as many rows (1, 2, 4 or 8) as
-// its group has, f32 partials [splits, N, F] added in split order by
-// grouped_out_kernel (two runs give equal bits). Larger calls (a tick's
-// 512 chunk rows: all experts, 477 MB, >= 0.14 ms; a put() of 8 x 1024
-// prompts: 16,384 rows, 1.92 TFLOP, >= 1.95 ms) take a tiled tensor-core
-// kernel: 128 x 128 output tiles of one group, 8 warps of 32 x 64, K steps
-// of 32 rows that never cross a scale group, the x tile, the raw weight
-// tile and the scale row copied with cp.async three steps ahead, the
-// weight tile dequantized by all threads into a bf16 tile, mma.sync
-// m16n8k16 (bf16, f32 accumulators) from ldmatrix fragments. A group's
-// weights are read once per 128 of its rows. wgmma, TMA and a producer
-// warp are later work.
-//
 // The backward (megablox ops.py:63-101, the custom VJP jax.grad reaches
-// through _grouped_matmul_gmm) is two more tensor-core kernels, bf16 only
-// (training casts the expert stacks to the activations' bf16):
+// through _grouped_matmul_gmm) is two more products, bf16 only (training
+// casts the expert stacks to the activations' bf16):
 //   B16-dx  dx [N, K] = dout [N, F] @ w[g]^T       (megablox gmm(transpose_rhs))
 //   B16-dw  dw [E, K, F], block g = x_g^T @ dout_g   (megablox tgmm)
-// Both sum in f32 and round once to bf16; no sum is split across blocks,
-// so two runs give equal bits.
+// Every form sums in f32 and rounds once to bf16; no sum is split across
+// blocks and there are no atomics, so two runs give equal bits.
 //
-// dx is the forward's tiled form with the weight read as it lies: the
-// contraction runs over F, and a [128 of K][32 of F] weight tile is the
-// mma's column-major B operand, taken with plain ldmatrix (no transpose,
-// no dequantize pass). Row tiles come from find_tile as in the forward:
-// an empty group has no tile and reads no weight bytes, rows past the
-// groups' sum are written as zeros. Calls of 16 rows or fewer take the
-// same tiled kernel (training calls have thousands of rows).
-// dw's grid is (F tile, K tile, group); a block finds its group's row
-// range on the device, walks the rows in 32-row steps (a masked tail),
-// the x and dout tiles [32 rows][128] copied with cp.async three steps
-// ahead and taken as ldmatrix.trans fragments (x^T as the row-major A,
-// dout as the B), and writes its [128 x 128] block once; a group of no
-// rows writes zeros. Groups are very uneven (0 to 65,472 rows at
-// bench.py's _config3 shapes); the rows of one group are not split
-// across blocks, so a long group is one long walk per output tile.
+// What bounds it on the H100 (3.35 TB/s, 989 TFLOP/s bf16), with N rows
+// and K x F expert matrices (2 N K F operations):
+//   a decode tick (8 rows, top-2: N = 16 on ~7 experts) reads the weight
+//   bytes of the experts hit: one Mixtral w_gate call ~7 x 59.6 MB of int8
+//   and scales, >= 0.13 ms (bytes);
+//   a put() of 8 x 1024 prompts, Mixtral (4096 x 14336), 16,384 rows:
+//   1.924 TFLOP -> 1.946 ms (operations);
+//   _config3's training (K 1024, F 2816 and the transpose), ragged N 65,472:
+//   377.6 GFLOP -> 0.382 ms; capacity 8 x 10,230 rows: 472.0 GFLOP ->
+//   0.477 ms (operations).
+// Three designs answer it.
 //
-// Bounds on the H100 (989 TFLOP/s bf16, 3.35 TB/s), both kernels being
-// 2 N K F operations with N rows, K x F expert matrices:
-//   _config3 (K 1024, F 2816 and the transpose), ragged N 65,472:
-//     377.6 GFLOP -> 0.382 ms (operations; dx moves 0.549 GB, 0.164 ms);
-//   _config3 capacity, 8 x 10,230 rows: 472.0 GFLOP -> 0.477 ms;
-//   Mixtral (4096 x 14336), 16,384 rows: 1.924 TFLOP -> 1.946 ms.
-// Operations bound every training shape; the simple mma.sync forms here
-// are expected well short of it (wgmma is later work).
+// 1. N <= 16 (the decode tick), every format: a split-K GEMV. Blocks of (64
+// columns, <= 8 rows of one group, a chunk of whole scale groups <= 1024
+// rows) each stream their weight rows once with 8- (int8, fp8) or 16-byte
+// (bf16) loads into FMAs for only as many rows (1, 2, 4 or 8) as its group
+// has; f32 partials [splits, N, F] added in split order by
+// grouped_out_kernel.
+//
+// 2. bf16 weights at N > 16, dx at every N and dw: warp-specialised wgmma
+// kernels over TMA-fed tiles (wgmma_tile.cuh), the shape of the flash
+// kernels' dense forms. A block is three warpgroups: two consumers that
+// compute and one producer whose single thread issues every TMA load into a
+// 4-slot ring of 48 KB stages guarded by mbarriers (full: the bytes landed;
+// empty: all 8 consumer warps are done with the slot); setmaxnreg gives the
+// consumers 240 registers a thread and the producer 24. Tiles live in the
+// 128-byte swizzle that TMA writes and wgmma's descriptors read (64-column
+// blocks of 128-byte rows). A consumer accumulates 64 x 256 outputs
+// (m64n256k16, 128 f32 registers) over reduction steps of 64; its products
+// of step s stay in flight while it waits for step s + 1, and it frees slot
+// s - 1 once they are done. A block computes one output tile; its epilogue
+// stages each consumer's bf16 results through shared memory a 64-column
+// block at a time and stores whole 128-byte row segments (bf16 pairs
+// stored straight from the accumulators' fragments were slower, most on
+// the small and short-reduction calls). The tensor maps are encoded on the
+// host for each call and passed as __grid_constant__ parameters.
+//   gmm (wg_gmm_kernel<TRANS>: the forward, and dx with TRANS): a tile is a
+//     128 x 256 output tile of one group's row tile (find_tile); A is the
+//     tile's 128 rows of x (dx: dout), K-major; B is w[g] through one map
+//     of [E, K, F] in {64, 64} boxes: four side by side [64 of K][256 of F]
+//     read MN-major (the forward), or four one under the other [256 of
+//     K][64 of F] read K-major (dx). A box past a group's last row reads
+//     the next group's rows, which the epilogue does not store; rows past N
+//     and columns past K or F read as zeros. Raster: tiles go in bands of
+//     kBand = 16 row tiles; within a band the row tiles run fastest, then
+//     the column tiles, so the 132 tiles in flight cover ~16 row tiles x ~8
+//     column tiles, and each [K, 256] weight panel they read is shared
+//     through L2 by up to 16 row tiles. A group's weights are then read
+//     once per band that holds its row tiles: at Mixtral's 16,384 ragged
+//     rows (~16 row tiles a group, 9 bands of 16) ~2 GB of w_gate's 0.94,
+//     where an order that runs all column tiles of one row tile in turn
+//     reads them once per row tile or two (~8-15 GB).
+//   tgmm (wg_tgmm_kernel: dw): a tile is a 128 (K) x 256 (F) tile of one
+//     group's dw; the tiles go by group, the groups ranked by size, largest
+//     first (so the longest walks start first), a group's tiles in the band
+//     raster (K tiles as its row tiles). A tile walks its group's rows from
+//     the first in steps of 64: A = x^T, B = dout, both MN-major boxes [64
+//     rows][64 columns] (wgmma with A transposed). The last step's box
+//     reaches past the group into the next group's rows: the consumers zero
+//     those rows in shared memory (then fence.proxy.async and a named
+//     barrier) before the products read them. An empty group writes a zero
+//     block. A group's rows are never split between tiles.
+//
+// 3. int8 / e4m3 weights at N > 16: a tiled mma.sync kernel, 128 x 128
+// output tiles of one group, 8 warps of 32 x 64, K steps of 32 rows that
+// never cross a scale group, the x tile, the raw weight tile and the scale
+// row copied with cp.async three steps ahead, the weight tile dequantized
+// by all threads into a bf16 tile, mma.sync m16n8k16 from ldmatrix
+// fragments. A group's weights are read once per 128 of its rows. Its lever
+// is form 2's body with the dequantize in the producer.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "quant_gemv.cuh"   // kQInt8 / kQFp8, q_value, deq<ROUND_W>
 #include "mma_sync.cuh"     // cp_async16, ldsm_x4, mma_bf16, ...
+#include "wgmma_tile.cuh"   // wg:: mbarriers, the ring, TMA, wgmma; tile_map_3d
 
 namespace {
 
@@ -307,7 +336,7 @@ __global__ void grouped_out_kernel(const float* __restrict__ part, int S, size_t
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core form
+// The quantized tensor-core form (int8, e4m3 weights; N > kGemvMaxN)
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 128, kBN = 128, kBK = 32;
@@ -318,7 +347,10 @@ constexpr int kLDB = kBN + 8;             // padded bf16 weight tile row (272 by
 
 struct Stage {
   __nv_bfloat16 a[kBM * kLDA];   // x tile [128][32 + 8]
-  uint8_t q[kBK * kBN * 2];      // raw weight rows [32][128] (bf16: 256 bytes a row)
+  // raw weight rows [32][128], one byte an element, in room for two: the
+  // size keeps this kernel's shared-memory layout the one its times were
+  // measured with
+  uint8_t q[kBK * kBN * 2];
   float s[kBN];                  // the step's scale row
 };
 
@@ -338,7 +370,7 @@ __device__ __forceinline__ void load_step(Stage& st, const __nv_bfloat16* __rest
     const __nv_bfloat16* src = x + (ok ? size_t(row0 + r) * K + k0 + v * 8 : 0);
     cp_async16(st.a + r * kLDA + v * 8, src, ok);
   }
-  // raw weight rows: 128 columns = 8 (int8, fp8) or 16 (bf16) vectors a row
+  // raw weight rows: 128 columns = 8 vectors a row
   constexpr int eb = elt_bytes<FMT>();
   constexpr int vecs = kBN * eb / 16;
   for (int i = tid; i < kBK * vecs; i += kMmaThreads) {
@@ -349,23 +381,22 @@ __device__ __forceinline__ void load_step(Stage& st, const __nv_bfloat16* __rest
     cp_async16(st.q + r * kBN * eb + v * 16, src, ok);
   }
   // scales: 128 f32 = 32 vectors
-  if constexpr (FMT != kGBf16) {
-    if (tid < kBN / 4) {
-      const bool ok = n0 + tid * 4 < F;
-      cp_async16(st.s + tid * 4, sc + (ok ? size_t(k0 / gs) * F + n0 + tid * 4 : 0), ok);
-    }
+  if (tid < kBN / 4) {
+    const bool ok = n0 + tid * 4 < F;
+    cp_async16(st.s + tid * 4, sc + (ok ? size_t(k0 / gs) * F + n0 + tid * 4 : 0), ok);
   }
 }
 
 constexpr size_t kMmaSmem = kStages * sizeof(Stage) + size_t(kBK) * kLDB * sizeof(__nv_bfloat16);
 
 // Block (column tile, row slot): out rows of the slot's tile = x rows @
-// the group's weight.
+// the group's dequantized weight.
 template <int FMT>
 __global__ void __launch_bounds__(kMmaThreads) grouped_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
     const float* __restrict__ sc, const int* __restrict__ group_sizes, int E, int N, int K, int F,
     int gs, __nv_bfloat16* __restrict__ out) {
+  static_assert(FMT == kQInt8 || FMT == kQFp8, "bf16 weights take wg_gmm_kernel");
   const RowTile tile = find_tile(group_sizes, E, N, kBM, blockIdx.y);
   if (tile.group == -2) return;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -383,8 +414,7 @@ __global__ void __launch_bounds__(kMmaThreads) grouped_mma_kernel(
   __nv_bfloat16* bt = reinterpret_cast<__nv_bfloat16*>(smem + kStages * sizeof(Stage));
   constexpr int eb = elt_bytes<FMT>();
   const uint8_t* __restrict__ q = w + size_t(tile.group) * K * F * eb;
-  const float* __restrict__ scg =
-      FMT == kGBf16 ? nullptr : sc + size_t(tile.group) * (K / gs) * F;
+  const float* __restrict__ scg = sc + size_t(tile.group) * (K / gs) * F;
   const int wm = warp % 4, wn = warp / 4;    // warp tile: rows wm*32, columns wn*64
   const int steps = (K + kBK - 1) / kBK;
 
@@ -414,30 +444,24 @@ __global__ void __launch_bounds__(kMmaThreads) grouped_mma_kernel(
     __syncthreads();
     const Stage& st = stage[step % kStages];
 
-    // the bf16 weight tile: thread -> (row kr, 16 columns)
+    // the dequantized bf16 weight tile: thread -> (row kr, 16 columns)
     {
       const int kr = tid / 8, c0 = (tid % 8) * 16;
-      if constexpr (FMT == kGBf16) {
-        const uint4* src = reinterpret_cast<const uint4*>(st.q + (kr * kBN + c0) * 2);
-        *reinterpret_cast<uint4*>(bt + kr * kLDB + c0) = src[0];
-        *reinterpret_cast<uint4*>(bt + kr * kLDB + c0 + 8) = src[1];
-      } else {
-        const uint4 raw = *reinterpret_cast<const uint4*>(st.q + kr * kBN + c0);
-        const uint2 lo2 = make_uint2(raw.x, raw.y), hi2 = make_uint2(raw.z, raw.w);
-        union {
-          __nv_bfloat162 h[4];
-          uint4 u;
-        } w0, w1;
+      const uint4 raw = *reinterpret_cast<const uint4*>(st.q + kr * kBN + c0);
+      const uint2 lo2 = make_uint2(raw.x, raw.y), hi2 = make_uint2(raw.z, raw.w);
+      union {
+        __nv_bfloat162 h[4];
+        uint4 u;
+      } w0, w1;
 #pragma unroll
-        for (int e = 0; e < 8; e += 2) {
-          w0.h[e / 2] = __floats2bfloat162_rn(q_value<FMT>(lo2, e, 0) * st.s[c0 + e],
-                                              q_value<FMT>(lo2, e + 1, 0) * st.s[c0 + e + 1]);
-          w1.h[e / 2] = __floats2bfloat162_rn(q_value<FMT>(hi2, e, 0) * st.s[c0 + 8 + e],
-                                              q_value<FMT>(hi2, e + 1, 0) * st.s[c0 + 9 + e]);
-        }
-        *reinterpret_cast<uint4*>(bt + kr * kLDB + c0) = w0.u;
-        *reinterpret_cast<uint4*>(bt + kr * kLDB + c0 + 8) = w1.u;
+      for (int e = 0; e < 8; e += 2) {
+        w0.h[e / 2] = __floats2bfloat162_rn(q_value<FMT>(lo2, e, 0) * st.s[c0 + e],
+                                            q_value<FMT>(lo2, e + 1, 0) * st.s[c0 + e + 1]);
+        w1.h[e / 2] = __floats2bfloat162_rn(q_value<FMT>(hi2, e, 0) * st.s[c0 + 8 + e],
+                                            q_value<FMT>(hi2, e + 1, 0) * st.s[c0 + 9 + e]);
       }
+      *reinterpret_cast<uint4*>(bt + kr * kLDB + c0) = w0.u;
+      *reinterpret_cast<uint4*>(bt + kr * kLDB + c0 + 8) = w1.u;
     }
     __syncthreads();
 
@@ -482,19 +506,23 @@ __global__ void __launch_bounds__(kMmaThreads) grouped_mma_kernel(
 }
 
 template <int FMT>
-cudaError_t launch_forms(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* w,
-                         const float* sc, const int* sizes, __nv_bfloat16* out, float* part,
-                         int N, int K, int F, int E, int gs, int splits, int chunk) {
-  if (N <= kGemvMaxN) {
-    const dim3 grid((F + kGTN - 1) / kGTN, (N + kGRows - 1) / kGRows + E, splits);
-    grouped_gemv_kernel<FMT><<<grid, kGThreads, 0, s>>>(x, w, sc, sizes, E, N, K, F, gs, chunk,
-                                                        part);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const size_t NF = size_t(N) * F;
-    grouped_out_kernel<<<unsigned((NF + 255) / 256), 256, 0, s>>>(part, splits, NF, out);
-    return cudaGetLastError();
-  }
+cudaError_t launch_gemv(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* w,
+                        const float* sc, const int* sizes, __nv_bfloat16* out, float* part,
+                        int N, int K, int F, int E, int gs, int splits, int chunk) {
+  const dim3 grid((F + kGTN - 1) / kGTN, (N + kGRows - 1) / kGRows + E, splits);
+  grouped_gemv_kernel<FMT><<<grid, kGThreads, 0, s>>>(x, w, sc, sizes, E, N, K, F, gs, chunk,
+                                                      part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t NF = size_t(N) * F;
+  grouped_out_kernel<<<unsigned((NF + 255) / 256), 256, 0, s>>>(part, splits, NF, out);
+  return cudaGetLastError();
+}
+
+template <int FMT>
+cudaError_t launch_mma(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* w,
+                       const float* sc, const int* sizes, __nv_bfloat16* out, int N, int K, int F,
+                       int E, int gs) {
   const cudaError_t err = cudaFuncSetAttribute(
       grouped_mma_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kMmaSmem));
   if (err != cudaSuccess) return err;
@@ -504,234 +532,343 @@ cudaError_t launch_forms(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* 
   return cudaGetLastError();
 }
 
-
 // ---------------------------------------------------------------------------
-// The backward: dx (B16-dx) and dw (B16-dw), bf16
+// The bf16 forms: warp-specialised wgmma kernels over TMA-fed tiles
 // ---------------------------------------------------------------------------
 
-constexpr int kLDT = kBK + 8;             // padded [rows][32] tile row, in bf16 (80 bytes)
-constexpr int kLDW = kBN + 8;             // padded [32][128] tile row, in bf16 (272 bytes)
+constexpr int kWgThreads = 128;                      // one warpgroup
+constexpr int kConsumerWgs = 2;                      // the warpgroups that compute
+constexpr int kWgBlockThreads = kWgThreads * (kConsumerWgs + 1);   // + the producer's
+constexpr int kConsumerWarps = 4 * kConsumerWgs;     // the arrivals that free a ring slot
+// 128 x 24 + 256 x 240 = 64,512 of the SM's 65,536 registers, one block an SM
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kSmemLimit = 232448;                   // dynamic shared memory a block can have
+constexpr int kAlign = 1024;                         // the swizzle's period: every tile's alignment
+constexpr int kBand = 16;                            // row tiles a band of the gmm raster
+constexpr int kBarZero = 1;                          // tgmm: the last step's rows are zeroed
+constexpr int kBarStore = 2;                         // + the warpgroup: its staging tile is full
+constexpr int kStageLd = 144;                        // bytes a staging row: 128 + 16 of padding
 
-struct DxStage {
-  __nv_bfloat16 a[kBM * kLDT];   // dout tile [128 rows][32 of F]
-  __nv_bfloat16 b[kBN * kLDT];   // weight tile [128 of K][32 of F]
+// The block of both kernels: a BM x BN output tile, two consumers of 64
+// rows each; stages of BK reduction rows, an A tile [BM][BK] and a B tile
+// [BK][BN] (gmm: BM rows of x or dout, BN columns of out; tgmm: BM of K,
+// BN of F, BK rows of x and dout). 64 x 256 accumulators a consumer is
+// 128 f32 registers, under the ~160 live accumulator registers at which
+// ptxas serialises the wgmmas (flash_attention.cu's note).
+struct WgGemm {
+  static constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // each consumer's [64][64] bf16 staging tile of the epilogue
+  static constexpr int OUT_BYTES = kConsumerWgs * 64 * kStageLd;
+  static constexpr int SMEM = kAlign + STAGES * STAGE_BYTES + OUT_BYTES + 8 * 2 * STAGES;
+  // tgmm, after the barriers: the group of the block's rank, then each
+  // group's first row and size
+  static constexpr int RANK_BYTES = 4, GROUP_BYTES = 2 * 4;
+  static constexpr int MAX_GROUPS = (kSmemLimit - SMEM - RANK_BYTES) / GROUP_BYTES;
+  static_assert(SMEM <= kSmemLimit, "wgmma grouped GEMM: shared memory");
 };
+static_assert(WgGemm::BK == wg::kBlockCols && WgGemm::BM == kConsumerWgs * 64 &&
+                  kAlign == wg::kSwizzleAlign,
+              "a stage is 64-column blocks of 64-row boxes, 64 rows a consumer");
 
-struct DwStage {
-  __nv_bfloat16 a[kBK * kLDW];   // x tile [32 rows][128 of K]
-  __nv_bfloat16 b[kBK * kLDW];   // dout tile [32 rows][128 of F]
-};
-
-constexpr size_t kDxSmem = kStages * sizeof(DxStage);
-constexpr size_t kDwSmem = kStages * sizeof(DwStage);
-
-// Copies of F step `step` for a dx block: dout rows of the tile and the
-// weight rows k0.. of its group, 32 columns each; past the edges zeros.
-__device__ __forceinline__ void load_dx_step(DxStage& st, const __nv_bfloat16* __restrict__ dout,
-                                             const __nv_bfloat16* __restrict__ wg, int row0,
-                                             int rows, int K, int F, int k0, int step, int tid) {
-  const int f0 = step * kBK;
-  for (int i = tid; i < kBM * 4; i += kMmaThreads) {
-    const int r = i / 4, v = i % 4;
-    const bool ok = r < rows && f0 + v * 8 < F;
-    cp_async16(st.a + r * kLDT + v * 8, dout + (ok ? size_t(row0 + r) * F + f0 + v * 8 : 0), ok);
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  for (int i = 0; i < WgGemm::STAGES; ++i) {
+    wg::mbar_init(&full[i], 1);
+    wg::mbar_init(&empty[i], kConsumerWarps);
   }
-  for (int i = tid; i < kBN * 4; i += kMmaThreads) {
-    const int r = i / 4, v = i % 4;
-    const bool ok = k0 + r < K && f0 + v * 8 < F;
-    cp_async16(st.b + r * kLDT + v * 8, wg + (ok ? size_t(k0 + r) * F + f0 + v * 8 : 0), ok);
+  wg::mbar_fence_init();
+}
+
+// Zeros over rows [r0, r0 + rows) x columns [c0, c0 + BN) of a [.., ld]
+// bf16 matrix, clipped to `c_end` columns (a multiple of 8), by all the
+// block's threads.
+__device__ __forceinline__ void zero_tile(__nv_bfloat16* __restrict__ out, size_t ld, int r0,
+                                          int rows, int c0, int c_end) {
+  constexpr int vecs = WgGemm::BN / 8;
+  for (int i = threadIdx.x; i < rows * vecs; i += blockDim.x) {
+    const int r = i / vecs, c = c0 + (i % vecs) * 8;
+    if (c < c_end)
+      *reinterpret_cast<uint4*>(out + size_t(r0 + r) * ld + c) = make_uint4(0, 0, 0, 0);
   }
 }
 
-// Block (K tile, row slot): dx rows of the slot's tile = dout rows @ the
-// group's weight^T.
-__global__ void __launch_bounds__(kMmaThreads) grouped_dx_kernel(
-    const __nv_bfloat16* __restrict__ dout, const __nv_bfloat16* __restrict__ w,
-    const int* __restrict__ group_sizes, int E, int N, int K, int F,
-    __nv_bfloat16* __restrict__ dx) {
-  const RowTile tile = find_tile(group_sizes, E, N, kBM, blockIdx.y);
-  if (tile.group == -2) return;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int k0 = blockIdx.x * kBN;
-  if (tile.group == -1) {    // rows past the groups: zeros
-    for (int i = tid; i < tile.rows * kBN; i += kMmaThreads) {
-      const int r = i / kBN, c = k0 + i % kBN;
-      if (c < K) dx[size_t(tile.row0 + r) * K + c] = __float2bfloat16(0.f);
+// The consumer's products of one stage: acc += A (64 x BK) B (BK x BN).
+// TA / TB 1: that operand MN-major (rows of the reduction 128 bytes apart,
+// 64-column blocks `lbo` bytes apart), else K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void stage_products(float (&acc)[WgGemm::BN / 2],
+                                               const unsigned char* a, const unsigned char* b,
+                                               uint32_t a_lbo, uint32_t b_lbo) {
+  wg::fence_regs(acc);
+  wg::mma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WgGemm::BK / 16; ++kk) {
+    const uint64_t da = TA ? wg::desc_mn(a + kk * 16 * wg::kSwizzleBytes, a_lbo)
+                           : wg::desc_k(a + kk * 32);
+    const uint64_t db = TB ? wg::desc_mn(b + kk * 16 * wg::kSwizzleBytes, b_lbo)
+                           : wg::desc_k(b + kk * 32);
+    wg::mma_ss<WgGemm::BN, TB, TA>(acc, da, db, 1);
+  }
+  wg::mma_commit();
+}
+
+// Stores a consumer's 64 x BN accumulators as bf16, rows of out `ld` apart
+// from `base` (its first row), the rows from `rows` on and the columns
+// from C on left out. A 64-column block at a time goes through the
+// warpgroup's staging tile `stage` (rows kStageLd bytes apart: the
+// fragments' bf16 pairs land in 32 distinct banks), then to device memory
+// as whole 128-byte row segments, 16 bytes a thread.
+__device__ __forceinline__ void store_acc(const float (&acc)[WgGemm::BN / 2],
+                                          unsigned char* stage, int wgi,
+                                          __nv_bfloat16* __restrict__ base, size_t ld, int rows,
+                                          int c0, int C) {
+  const int tid = threadIdx.x % kWgThreads, warp = tid / 32, lane = tid % 32;
+  const int r_lo = warp * 16 + lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int cb = 0; cb < WgGemm::BN / 64; ++cb) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * (cb * 8 + n) + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(stage + (r_lo + 8 * h) * kStageLd + n * 16 + tq * 4) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      }
+    wg::bar_sync<kWgThreads>(kBarStore + wgi);
+    for (int i = tid; i < 64 * 8; i += kWgThreads) {
+      const int r = i / 8, col = c0 + cb * 64 + (i % 8) * 8;
+      if (r < rows && col < C)
+        *reinterpret_cast<uint4*>(base + size_t(r) * ld + col) =
+            *reinterpret_cast<const uint4*>(stage + r * kStageLd + (i % 8) * 16);
     }
+    wg::bar_sync<kWgThreads>(kBarStore + wgi);   // read before the next block lands
+  }
+}
+
+// The raster: tile b -> (row slot y, column tile c). Row slots go in bands
+// of kBand; within a band the slots run fastest, then the column tiles, so
+// the tiles in flight cover a patch of row tiles x column tiles and share
+// each weight panel (tgmm: each row panel of x and dout) through L2.
+__device__ __forceinline__ void raster(int b, int slots, int col_tiles, int& y, int& c) {
+  const int per = kBand * col_tiles;
+  const int band = b / per, r = b % per;
+  const int width = min(kBand, slots - band * kBand);
+  c = r / width;
+  y = band * kBand + r % width;
+}
+
+// Block (row slot, column tile) by the raster: out rows of the slot's tile
+// = A rows @ the group's weight (TRANS: its transpose). R is the reduction
+// length (K; dx: F), C the output columns (F; dx: K).
+template <bool TRANS>
+__global__ void __launch_bounds__(kWgBlockThreads, 1) wg_gmm_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+    const int* __restrict__ group_sizes, int E, int N, int R, int C, int slots, int col_tiles,
+    __nv_bfloat16* __restrict__ out) {
+  using Sh = WgGemm;
+  constexpr int BM = Sh::BM, BN = Sh::BN, BK = Sh::BK, STAGES = Sh::STAGES;
+  constexpr uint32_t BOX = BK * wg::kSwizzleBytes;   // one {64, 64} box
+  int y, c;
+  raster(blockIdx.x, slots, col_tiles, y, c);
+  const RowTile tile = find_tile(group_sizes, E, N, BM, y);
+  if (tile.group == -2) return;
+  const int c0 = c * BN;
+  if (tile.group == -1) {    // rows past the groups: zeros
+    zero_tile(out, C, tile.row0, tile.rows, c0, C);
     return;
   }
-  extern __shared__ __align__(16) unsigned char smem[];
-  DxStage* stage = reinterpret_cast<DxStage*>(smem);
-  const __nv_bfloat16* __restrict__ wg = w + size_t(tile.group) * K * F;
-  const int wm = warp % 4, wn = warp / 4;    // warp tile: rows wm*32, columns wn*64
-  const int steps = (F + kBK - 1) / kBK;
-
-  float acc[2][8][4];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = wg::align_smem(smem_raw);    // STAGES x (A tile, B tile)
+  unsigned char* staging = ring + STAGES * Sh::STAGE_BYTES;   // the consumers' [64][64] tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + Sh::OUT_BYTES);
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) init_ring(full, empty);
+  __syncthreads();
+  const int steps = (R + BK - 1) / BK;
+  const int wgi = threadIdx.x / kWgThreads;
+  if (wgi == kConsumerWgs) {   // the producer: one thread issues every load
+    wg::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumerWgs * kWgThreads) {
+      for (int s = 0; s < steps; ++s) {
+        wg::ring_fill<STAGES>(full, empty, s, Sh::STAGE_BYTES);
+        unsigned char* st = ring + (s % STAGES) * Sh::STAGE_BYTES;
+        uint64_t* bar = &full[s % STAGES];
+        wg::tma_load_3d(st, &amap, bar, s * BK, tile.row0, 0);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < steps) load_dx_step(stage[i], dout, wg, tile.row0, tile.rows, K, F, k0, i, tid);
-    cp_async_commit();
-  }
-  for (int step = 0; step < steps; ++step) {
-    const int ahead = step + kStages - 1;
-    if (ahead < steps)
-      load_dx_step(stage[ahead % kStages], dout, wg, tile.row0, tile.rows, K, F, k0, ahead, tid);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    const DxStage& st = stage[step % kStages];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4(af[i], st.a + (wm * 32 + i * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kLDT +
-                           kk * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        // [K rows][F] is the column-major B: b0/b1 of columns np*16.. and np*16 + 8..
-        uint32_t r[4];
-        ldsm_x4(r, st.b + (wn * 64 + np * 16 + (lane % 8) + (lane / 16) * 8) * kLDT + kk * 16 +
-                       ((lane / 8) % 2) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * np], af[i], r[0], r[1]);
-          mma_bf16(acc[i][2 * np + 1], af[i], r[2], r[3]);
+        for (int j = 0; j < BN / 64; ++j) {
+          // the forward: box j is columns c0 + 64 j of K rows s * BK..; dx:
+          // K rows c0 + 64 j of F columns s * BK..
+          if constexpr (TRANS)
+            wg::tma_load_3d(st + Sh::A_BYTES + j * BOX, &wmap, bar, s * BK, c0 + j * 64,
+                            tile.group);
+          else
+            wg::tma_load_3d(st + Sh::A_BYTES + j * BOX, &wmap, bar, c0 + j * 64, s * BK,
+                            tile.group);
         }
       }
     }
-    __syncthreads();   // done with this stage before it is refilled
+    return;
   }
-
-  const int g = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = k0 + wn * 64 + j * 8 + tq * 2;
-      if (col >= K) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + i * 16 + g + h * 8;
-        if (r >= tile.rows) continue;
-        *reinterpret_cast<__nv_bfloat162*>(dx + size_t(tile.row0 + r) * K + col) =
-            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
+  wg::regs_alloc<kConsumerRegs>();
+  const int lane = threadIdx.x % 32;
+  // both consumers compute their 64 rows, also those past a short tile's
+  // end (not stored): a branch around the products serialises them (ptxas)
+  float acc[BN / 2];
+  wg::zero(acc);
+  for (int s = 0; s < steps; ++s) {
+    wg::ring_wait<STAGES>(full, s);
+    const unsigned char* st = ring + (s % STAGES) * Sh::STAGE_BYTES;
+    stage_products<0, TRANS ? 0 : 1>(acc, st + wgi * 64 * wg::kSwizzleBytes, st + Sh::A_BYTES,
+                                     0, BOX);
+    wg::mma_wait<1>();   // step s - 1's products are done; step s's may still run
+    wg::fence_regs(acc);
+    if (s > 0) wg::ring_free<STAGES>(empty, s - 1, lane);
   }
+  wg::mma_wait<0>();
+  wg::fence_regs(acc);
+  store_acc(acc, staging + wgi * 64 * kStageLd, wgi, out + size_t(tile.row0 + wgi * 64) * C, C,
+            tile.rows - wgi * 64, c0, C);
 }
 
-// Copies of row step `step` for a dw block: rows r0.. (below rend) of x
-// (columns k0..) and of dout (columns f0..); past the edges zeros.
-__device__ __forceinline__ void load_dw_step(DwStage& st, const __nv_bfloat16* __restrict__ x,
-                                             const __nv_bfloat16* __restrict__ dout, int r0,
-                                             int rend, int K, int F, int k0, int f0, int tid) {
-  for (int i = tid; i < kBK * (kBM / 8); i += kMmaThreads) {
-    const int r = i / (kBM / 8), v = i % (kBM / 8);
-    const bool ok = r0 + r < rend && k0 + v * 8 < K;
-    cp_async16(st.a + r * kLDW + v * 8, x + (ok ? size_t(r0 + r) * K + k0 + v * 8 : 0), ok);
-  }
-  for (int i = tid; i < kBK * (kBN / 8); i += kMmaThreads) {
-    const int r = i / (kBN / 8), v = i % (kBN / 8);
-    const bool ok = r0 + r < rend && f0 + v * 8 < F;
-    cp_async16(st.b + r * kLDW + v * 8, dout + (ok ? size_t(r0 + r) * F + f0 + v * 8 : 0), ok);
-  }
-}
-
-// Block (F tile, K tile, group g): dw[g][k0.., f0..] = x_g^T @ dout_g over
-// the group's rows, in row order.
-__global__ void __launch_bounds__(kMmaThreads) grouped_dw_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dout,
+// Block (tile b of group rank z): dw[g][k0.., f0..] = x_g^T @ dout_g over
+// the rows of the group g ranked z-th by size (largest first, ties by
+// index), walked in order from its first row; the group's (K tile, F tile)
+// by the raster, K tiles as its row slots.
+__global__ void __launch_bounds__(kWgBlockThreads, 1) wg_tgmm_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dmap,
     const int* __restrict__ group_sizes, int E, int N, int K, int F,
     __nv_bfloat16* __restrict__ dw) {
-  const int grp = blockIdx.z;
-  const int k0 = blockIdx.y * kBM, f0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // the group's rows, sizes clamped as in find_tile
-  int off = 0;
-  for (int e = 0; e < grp; ++e) off += max(0, min(__ldg(group_sizes + e), N - off));
-  const int size = max(0, min(__ldg(group_sizes + grp), N - off));
+  using Sh = WgGemm;
+  constexpr int BM = Sh::BM, BN = Sh::BN, BK = Sh::BK, STAGES = Sh::STAGES;
+  constexpr uint32_t BOX = BK * wg::kSwizzleBytes;   // one {64 columns, 64 rows} box
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = wg::align_smem(smem_raw);
+  unsigned char* staging = ring + STAGES * Sh::STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + Sh::OUT_BYTES);
+  uint64_t* empty = full + STAGES;
+  int* ranked = reinterpret_cast<int*>(empty + STAGES);  // the group of rank blockIdx.y
+  int* offs = ranked + 1;                                // [E] each group's first row
+  int* sizes = offs + E;                                 // [E] its rows, clamped as in find_tile
+  if (threadIdx.x == 0) {
+    init_ring(full, empty);
+    int off = 0;
+    for (int g = 0; g < E; ++g) {
+      const int size = max(0, min(__ldg(group_sizes + g), N - off));
+      offs[g] = off;
+      sizes[g] = size;
+      off += size;
+    }
+  }
+  __syncthreads();
+  for (int h = threadIdx.x; h < E; h += blockDim.x) {
+    int rank = 0;
+    for (int j = 0; j < E; ++j) rank += sizes[j] > sizes[h] || (sizes[j] == sizes[h] && j < h);
+    if (rank == int(blockIdx.y)) *ranked = h;
+  }
+  __syncthreads();
+  const int grp = *ranked, off = offs[grp], size = sizes[grp];
+  int kt, ft;
+  raster(blockIdx.x, (K + BM - 1) / BM, (F + BN - 1) / BN, kt, ft);
+  const int k0 = kt * BM, f0 = ft * BN;
   __nv_bfloat16* __restrict__ out = dw + size_t(grp) * K * F;
   if (size == 0) {           // an empty group: a zero block
-    for (int i = tid; i < kBM * kBN; i += kMmaThreads) {
-      const int r = k0 + i / kBN, c = f0 + i % kBN;
-      if (r < K && c < F) out[size_t(r) * F + c] = __float2bfloat16(0.f);
+    zero_tile(out, F, k0, min(BM, K - k0), f0, F);
+    return;
+  }
+  const int steps = (size + BK - 1) / BK;
+  const int wgi = threadIdx.x / kWgThreads;
+  if (wgi == kConsumerWgs) {   // the producer
+    wg::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumerWgs * kWgThreads) {
+      for (int s = 0; s < steps; ++s) {
+        wg::ring_fill<STAGES>(full, empty, s, Sh::STAGE_BYTES);
+        unsigned char* st = ring + (s % STAGES) * Sh::STAGE_BYTES;
+        uint64_t* bar = &full[s % STAGES];
+        const int row = off + s * BK;
+#pragma unroll
+        for (int j = 0; j < BM / 64; ++j)
+          wg::tma_load_3d(st + j * BOX, &xmap, bar, k0 + j * 64, row, 0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          wg::tma_load_3d(st + Sh::A_BYTES + j * BOX, &dmap, bar, f0 + j * 64, row, 0);
+      }
     }
     return;
   }
-  extern __shared__ __align__(16) unsigned char smem[];
-  DwStage* stage = reinterpret_cast<DwStage*>(smem);
-  const int rend = off + size;
-  const int wm = warp % 4, wn = warp / 4;    // warp tile: K rows wm*32, F columns wn*64
-  const int steps = (size + kBK - 1) / kBK;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < steps) load_dw_step(stage[i], x, dout, off + i * kBK, rend, K, F, k0, f0, tid);
-    cp_async_commit();
-  }
-  for (int step = 0; step < steps; ++step) {
-    const int ahead = step + kStages - 1;
-    if (ahead < steps)
-      load_dw_step(stage[ahead % kStages], x, dout, off + ahead * kBK, rend, K, F, k0, f0, tid);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    const DwStage& st = stage[step % kStages];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      // x^T as the row-major A: the stored [rows][K] tile read transposed
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4_trans(af[i], st.a + (kk * 16 + (lane % 8) + (lane / 16) * 8) * kLDW + wm * 32 +
-                                 i * 16 + ((lane / 8) % 2) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, st.b + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kLDW + wn * 64 +
-                             np * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * np], af[i], r[0], r[1]);
-          mma_bf16(acc[i][2 * np + 1], af[i], r[2], r[3]);
-        }
+  wg::regs_alloc<kConsumerRegs>();
+  const int lane = threadIdx.x % 32;
+  float acc[BN / 2];
+  wg::zero(acc);
+  for (int s = 0; s < steps; ++s) {
+    wg::ring_wait<STAGES>(full, s);
+    unsigned char* st = ring + (s % STAGES) * Sh::STAGE_BYTES;
+    const int valid = size - s * BK;
+    if (valid < BK) {
+      // the walk's last step: its box reaches past the group (into the next
+      // group's rows, or past N where TMA filled zeros); zero those rows of
+      // every 64-column block of x and dout (a swizzled row is 128
+      // contiguous bytes), then hand the stores to wgmma's proxy
+      constexpr int BLOCKS = (BM + BN) / 64;
+      const int chunks = (BK - valid) * (wg::kSwizzleBytes / 16);
+      for (int i = threadIdx.x; i < BLOCKS * chunks; i += kConsumerWgs * kWgThreads) {
+        const int blk = i / chunks, rem = i % chunks;
+        *reinterpret_cast<uint4*>(st + blk * BOX + valid * wg::kSwizzleBytes + rem * 16) =
+            make_uint4(0, 0, 0, 0);
       }
+      wg::fence_proxy_async();
+      wg::bar_sync<kConsumerWgs * kWgThreads>(kBarZero);
     }
-    __syncthreads();   // done with this stage before it is refilled
+    stage_products<1, 1>(acc, st + wgi * BOX, st + Sh::A_BYTES, BOX, BOX);
+    wg::mma_wait<1>();
+    wg::fence_regs(acc);
+    if (s > 0) wg::ring_free<STAGES>(empty, s - 1, lane);
   }
+  wg::mma_wait<0>();
+  wg::fence_regs(acc);
+  store_acc(acc, staging + wgi * 64 * kStageLd, wgi, out + size_t(k0 + wgi * 64) * F, F,
+            K - k0 - wgi * 64, f0, F);
+}
 
-  const int g = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = f0 + wn * 64 + j * 8 + tq * 2;
-      if (col >= F) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = k0 + wm * 32 + i * 16 + g + h * 8;
-        if (r >= K) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + size_t(r) * F + col) =
-            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
-  }
+// gmm launcher: out [N, C] = a [N, R] by group @ w [E, K, F] (TRANS: ^T).
+template <bool TRANS>
+cudaError_t launch_gmm(cudaStream_t s, const void* a, const void* w, const int* sizes,
+                       __nv_bfloat16* out, int N, int K, int F, int E) {
+  using Sh = WgGemm;
+  const int R = TRANS ? F : K, C = TRANS ? K : F;
+  const long long slots = (long long)(N + Sh::BM - 1) / Sh::BM + E;
+  const long long col_tiles = (C + Sh::BN - 1) / Sh::BN;
+  if (slots * col_tiles > INT_MAX) return cudaErrorInvalidValue;
+  CUtensorMap am, wm;
+  cudaError_t err = tile_map_3d(&am, a, 1, N, R, Sh::BM);
+  if (err == cudaSuccess) err = tile_map_3d(&wm, w, E, K, F, Sh::BK);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wg_gmm_kernel<TRANS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Sh::SMEM);
+  if (err != cudaSuccess) return err;
+  wg_gmm_kernel<TRANS><<<int(slots * col_tiles), kWgBlockThreads, Sh::SMEM, s>>>(
+      am, wm, sizes, E, N, R, C, int(slots), int(col_tiles), out);
+  return cudaGetLastError();
+}
+
+// tgmm launcher: dw [E, K, F] from x [N, K] and dout [N, F].
+cudaError_t launch_tgmm(cudaStream_t s, const void* x, const void* dout, const int* sizes,
+                        __nv_bfloat16* dw, int N, int K, int F, int E) {
+  using Sh = WgGemm;
+  const long long tiles = (long long)((K + Sh::BM - 1) / Sh::BM) * ((F + Sh::BN - 1) / Sh::BN);
+  if (E > Sh::MAX_GROUPS || tiles > INT_MAX) return cudaErrorInvalidValue;
+  if (N == 0)   // every group is empty: nothing to map
+    return cudaMemsetAsync(dw, 0, size_t(E) * K * F * sizeof(__nv_bfloat16), s);
+  const int smem = Sh::SMEM + Sh::RANK_BYTES + Sh::GROUP_BYTES * E;
+  CUtensorMap xm, dm;
+  cudaError_t err = tile_map_3d(&xm, x, 1, N, K, Sh::BK);
+  if (err == cudaSuccess) err = tile_map_3d(&dm, dout, 1, N, F, Sh::BK);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wg_tgmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  wg_tgmm_kernel<<<dim3(unsigned(tiles), unsigned(E)), kWgBlockThreads, smem, s>>>(
+      xm, dm, sizes, E, N, K, F, dw);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -747,9 +884,9 @@ const char* sxt_grouped_error_string(int err) {
 // and scales [E, K/gs, F]; 3 bf16: w [E, K, F], scales unused), by
 // group_sizes [E] int32 on the device. N <= 16 runs the split-K GEMV over
 // `splits` chunks of `chunk` rows (whole scale groups, <= 1024 rows) with
-// f32 partials in part [splits, N, F]; larger N the tensor-core kernel.
-// Needs K % 8 == 0, F % 16 == 0 (bf16: F % 8 == 0) and, quantized, K % gs
-// == 0 and gs % 32 == 0.
+// f32 partials in part [splits, N, F]; larger N the tensor-core kernels
+// (bf16: wg_gmm_kernel). Needs K % 8 == 0, F % 16 == 0 (bf16: F % 8 == 0),
+// 16-byte aligned bases and, quantized, K % gs == 0 and gs % 32 == 0.
 int sxt_grouped_matmul_bf16(const void* x, const void* w, const void* scales,
                             const void* group_sizes, void* out, void* part, int N, int K, int F,
                             int E, int gs, int fmt, int splits, int chunk, void* stream) {
@@ -771,50 +908,46 @@ int sxt_grouped_matmul_bf16(const void* x, const void* w, const void* scales,
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* pp = static_cast<float*>(part);
   cudaError_t err;
-  if (fmt == kQInt8)
-    err = launch_forms<kQInt8>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
-  else if (fmt == kQFp8)
-    err = launch_forms<kQFp8>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
-  else
-    err = launch_forms<kGBf16>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
+  if (N <= kGemvMaxN) {
+    if (fmt == kQInt8)
+      err = launch_gemv<kQInt8>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
+    else if (fmt == kQFp8)
+      err = launch_gemv<kQFp8>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
+    else
+      err = launch_gemv<kGBf16>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
+  } else if (fmt == kQInt8) {
+    err = launch_mma<kQInt8>(s, xp, wp, sp, gp, op, N, K, F, E, gs);
+  } else if (fmt == kQFp8) {
+    err = launch_mma<kQFp8>(s, xp, wp, sp, gp, op, N, K, F, E, gs);
+  } else {
+    err = launch_gmm<false>(s, x, w, gp, op, N, K, F, E);
+  }
   return static_cast<int>(err);
 }
 
 // dx [N, K] bf16 = dout [N, F] bf16 (rows sorted by group) @ w[g]^T for
 // the bf16 stack w [E, K, F], by group_sizes [E] int32 on the device.
-// Needs K % 8 == 0 and F % 8 == 0.
+// Needs K % 8 == 0, F % 8 == 0 and 16-byte aligned bases.
 int sxt_grouped_matmul_dx_bf16(const void* dout, const void* w, const void* group_sizes,
                                void* dx, int N, int K, int F, int E, void* stream) {
   if (N <= 0 || K <= 0) return 0;
   if (E < 1 || F < 1 || K % 8 || F % 8) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(grouped_dx_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(kDxSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((K + kBN - 1) / kBN, (N + kBM - 1) / kBM + E);
-  grouped_dx_kernel<<<grid, kMmaThreads, kDxSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const int*>(group_sizes), E, N, K, F, static_cast<__nv_bfloat16*>(dx));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_gmm<true>(static_cast<cudaStream_t>(stream), dout, w,
+                                           static_cast<const int*>(group_sizes),
+                                           static_cast<__nv_bfloat16*>(dx), N, K, F, E));
 }
 
 // dw [E, K, F] bf16: block g = x_g^T @ dout_g over group g's rows of x
 // [N, K] and dout [N, F] (bf16, rows sorted by group), zeros for an empty
-// group; group_sizes [E] int32 on the device. Needs K % 8 == 0 and F % 8
-// == 0.
+// group; group_sizes [E] int32 on the device. Needs K % 8 == 0, F % 8 == 0
+// and 16-byte aligned bases.
 int sxt_grouped_matmul_dw_bf16(const void* x, const void* dout, const void* group_sizes,
                                void* dw, int N, int K, int F, int E, void* stream) {
   if (E <= 0 || K <= 0 || F <= 0) return 0;
   if (N < 0 || K % 8 || F % 8) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(grouped_dw_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(kDwSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((F + kBN - 1) / kBN, (K + kBM - 1) / kBM, E);
-  grouped_dw_kernel<<<grid, kMmaThreads, kDwSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const int*>(group_sizes), E, N, K, F, static_cast<__nv_bfloat16*>(dw));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_tgmm(static_cast<cudaStream_t>(stream), x, dout,
+                                      static_cast<const int*>(group_sizes),
+                                      static_cast<__nv_bfloat16*>(dw), N, K, F, E));
 }
 
 }  // extern "C"

@@ -9,9 +9,12 @@ accumulation: row n is ``x[n] @ w[g(n)]`` for the group g(n) that owns it.
 it then stands for ``bf16(q * s)`` (``w.dequantize()`` cast to x's dtype,
 as JAX dequantizes the stack before its megablox ``gmm``).
 
-On the card ``grouped_matmul`` launches the hand-written kernel of
-``ops/csrc/grouped_gemm.cu`` (whose header says what bounds it on the H100
-and how its design answers it). It replaces the TPU's
+On the card ``grouped_matmul`` launches the hand-written kernels of
+``ops/csrc/grouped_gemm.cu`` (whose header says what bounds them on the
+H100 and how their designs answer it): a split-K GEMV at 16 rows or fewer,
+above that a warp-specialised ``wgmma`` kernel over TMA-fed tiles for bf16
+experts (``dx`` and ``dw`` too) and a tiled ``mma.sync`` kernel that
+dequantizes int8 / e4m3 experts in registers. It replaces the TPU's
 ``_grouped_matmul_gmm``; unlike the JAX route, which sends shapes the TPU
 tiling does not take to ``ragged_dot``, every shape the port's models have
 goes to the kernel. The kernel reads int8 / fp8 experts at storage width
@@ -301,11 +304,15 @@ def _launch(x: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
 
 
 def _bf16_operand(what: str, name: str, t: torch.Tensor, dev) -> torch.Tensor:
+    """``t`` contiguous, checked for what the kernels' TMA tensor maps need:
+    bf16 on ``dev`` and a 16-byte aligned base."""
     if t.dtype != torch.bfloat16 or t.device != dev:
         raise TypeError(f"{what} kernel: {name} must be bf16 on {dev}, got {t.dtype} on "
                         f"{t.device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        t = t.contiguous()
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} kernel: {name} {tuple(t.shape)} must start on a 16-byte "
+                         "boundary (the base of its TMA tensor map)")
     return t
 
 
