@@ -526,9 +526,9 @@ def check_paged_extend(gen, rng):
 # (H, KV, Dh, bs): GQA groups 1, 3, 4 and 8, both built head sizes, two
 # block sizes
 SWEEP = [(8, 8, 64, 16), (24, 8, 128, 64), (32, 8, 128, 16), (16, 2, 64, 64)]
-# a group wider than one decode block (16 query heads of 128 a kv head: two
-# head chunks), drawn from its own generator so the later phases' inputs stay
-# as they were
+# a group wider than one MMA row tile (16 query heads of 128 a kv head: the
+# decode kernels' warps take whole row tiles), drawn from its own generator
+# so the later phases' inputs stay as they were
 WIDE_SWEEP = (64, 4, 128, 16)
 # groups past one pass of the decode kernel's row tiles (64 query heads a
 # pass at head_dim 128 and 256), each from its own generator too
@@ -740,7 +740,8 @@ def check_fused_decode(case):
     q, ck, cv, table, lens = case
     B, _, H, Dh = q.shape
     KV, bs, W = ck.shape[1], ck.shape[2], table.shape[1]
-    splits = attention_splits(B, KV, W, torch.cuda.get_device_properties(0).multi_processor_count)
+    splits = attention_splits(B, KV, W, bs,
+                              torch.cuda.get_device_properties(0).multi_processor_count)
     kvl = torch.from_numpy(lens).cuda()
     got = fused_paged_decode_attention(q, ck, cv, table, kvl)
     want = fused_paged_decode_reference(q, ck, cv, table, kvl, splits)
@@ -772,13 +773,12 @@ def check_fused_decode(case):
 def check_fused_decode_sweep(gen, rng):
     """B5 for correctness at the SWEEP head layouts and WIDE_SWEEP: kv_len 1
     and block edges, -1-padded tables, split counts 1, 2, 3, the table width
-    and the wrapper's own."""
+    and the wrapper's own, each with the merge folded into the last split
+    and as a second kernel."""
     import torch
 
-    from shuffle_exchange_tpu_torch.ops.fused_decode import (attention_splits,
-                                                             fused_paged_decode_attention,
+    from shuffle_exchange_tpu_torch.ops.fused_decode import (_launch_attention, attention_splits,
                                                              fused_paged_decode_reference)
-    from shuffle_exchange_tpu_torch.ops.paged_attention import decode_head_chunk
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -794,15 +794,16 @@ def check_fused_decode_sweep(gen, rng):
     for q, ck, cv, table, kvl in cases():
         B, _, H, Dh = q.shape
         KV, W = ck.shape[1], table.shape[1]
-        chunks = decode_head_chunk(H // KV, Dh)[1]
         for n in (1, 2, 3, W, None):
-            splits = attention_splits(B, KV, W, sms, chunks) if n is None else n
-            err, ok = paged_close(fused_paged_decode_attention(q, ck, cv, table, kvl, num_splits=n),
-                                  fused_paged_decode_reference(q, ck, cv, table, kvl, splits))
-            _check(ok, f"split-K decode kernel disagrees at H={H} KV={KV} Dh={Dh} "
-                   f"splits={n}: {err.max().item()}")
-            key = "fused_decode" if chunks == 1 else "fused_decode_wide_group"
-            worst[key] = max(worst.get(key, 0.0), err.max().item())
+            splits = attention_splits(B, KV, W, ck.shape[2], sms) if n is None else n
+            want = fused_paged_decode_reference(q, ck, cv, table, kvl, splits)
+            for fold in (True, False):   # the merge in the last split, and as a second kernel
+                err, ok = paged_close(_launch_attention(q, ck, cv, table, kvl, n, fold=fold),
+                                      want)
+                _check(ok, f"split-K decode kernel disagrees at H={H} KV={KV} Dh={Dh} "
+                       f"splits={n} fold={fold}: {err.max().item()}")
+                key = "fused_decode" if H // KV <= 16 else "fused_decode_wide_group"
+                worst[key] = max(worst.get(key, 0.0), err.max().item())
     torch.cuda.synchronize()
     return worst
 
@@ -2084,8 +2085,8 @@ def _kernel_kind(name: str) -> str:
                       ("quant_mma_kernel", "quant_matmul (tensor-core form)"),
                       ("quant_out_kernel", "quant_gemv (B8 decode rows + B7 products)"),
                       ("qkv_epilogue_kernel", "fused_qkv_rope"),
-                      ("split_decode_kernel", "fused_paged_decode_attention"),
-                      ("split_merge_kernel", "fused_paged_decode_attention"),
+                      ("group_decode_kernel", "fused_paged_decode_attention"),
+                      ("group_merge_kernel", "fused_paged_decode_attention (merge)"),
                       ("norm_rows_kernel", "fused_mlp / fused_mlp_quant (norm, epilogues)"),
                       ("act_epilogue_kernel", "fused_mlp / fused_mlp_quant (norm, epilogues)"),
                       ("residual_epilogue_kernel",
@@ -3787,7 +3788,7 @@ def check_alibi_split(gen, rng):
         sl, kvl = _slopes(H), torch.from_numpy(lens).cuda()
         W = table.shape[1]
         for n in (None, 1, 2, 4):
-            splits = attention_splits(len(lens), KV, W, sms) if n is None else n
+            splits = attention_splits(len(lens), KV, W, ck.shape[2], sms) if n is None else n
             run = lambda: fused_paged_decode_attention(q, ck, cv, table, kvl, num_splits=n,
                                                        alibi_slopes=sl)
             plain = lambda s: fused_paged_decode_reference(q, ck, cv, table, kvl, splits,
@@ -4142,7 +4143,7 @@ def check_kv_quant(gen, rng):
                           lambda: paged_extend_attention(eq, eck, ecv, etable, st, nn,
                                                          alibi_slopes=sl)))
             for n in KVQ_SPLITS:
-                splits = attention_splits(B, KV, W, sms) if n is None else n
+                splits = attention_splits(B, KV, W, bs, sms) if n is None else n
                 cells.append(("fused_paged_decode_attention", n, planes, q,
                               lambda kq, ks, vq, vs, n=n: fused_paged_decode_attention(
                                   q, kq, vq, table, kvl, num_splits=n, alibi_slopes=sl,
@@ -4172,7 +4173,7 @@ def check_kv_quant(gen, rng):
                 else:
                     shape.update(kv_len=lens.tolist())
                 if name == "fused_paged_decode_attention":
-                    shape.update(splits=attention_splits(B, KV, W, sms) if n is None else n,
+                    shape.update(splits=attention_splits(B, KV, W, bs, sms) if n is None else n,
                                  wrapper_splits=n is None)
                 row = dict(shape=shape, max_abs_err=err,
                            tolerance=PAGED_TOL + (" (rows < nnew)" if extend else ""),
@@ -4855,16 +4856,16 @@ def check_qkv_partial_rope(gen, rng, widths=PYTHIA_WIDTHS, layouts=PARTIAL_ROPE_
     return rows
 
 
-def attention_bites(got, plain, q, rows=lambda x: x, chunk=None):
+def attention_bites(got, plain, q, rows=lambda x: x, pass_heads=None):
     """{bite: whether PAGED_TOL catches it}: the plain version with the
     softmax scale of head_dim 128 (q scaled by sqrt(2) in f32) and with each
-    query head reading its neighbour's q; given the decode kernels' head
-    chunk of a group wider than one chunk, also each query head reading the
-    q of the head one chunk on (a chunk's head offset lost)."""
+    query head reading its neighbour's q; given the heads of one pass of
+    the decode kernels over a group wider than a pass, also each query head
+    reading the q of the head one pass on (a pass's head offset lost)."""
     bites = {"scale_of_dh_128": _bites(rows(got), rows(plain(q.float() * 2 ** 0.5))),
              "neighbouring_head": _bites(rows(got), rows(plain(q.roll(1, dims=2))))}
-    if chunk is not None:
-        bites["head_one_chunk_on"] = _bites(rows(got), rows(plain(q.roll(-chunk, dims=2))))
+    if pass_heads is not None:
+        bites["head_one_pass_on"] = _bites(rows(got), rows(plain(q.roll(-pass_heads, dims=2))))
     return bites
 
 
@@ -4898,14 +4899,14 @@ def check_paged_heads(gen, rng, H, KV, Dh, suffix, decode_rows=(8,), pools=("bf1
     from shuffle_exchange_tpu_torch.ops.fused_decode import (attention_splits,
                                                              fused_paged_decode_attention,
                                                              fused_paged_decode_reference)
-    from shuffle_exchange_tpu_torch.ops.paged_attention import (decode_head_chunk,
+    from shuffle_exchange_tpu_torch.ops.paged_attention import (decode_passes,
                                                                 paged_decode_attention,
                                                                 paged_decode_reference,
                                                                 paged_extend_attention,
                                                                 paged_extend_reference)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chunk, n_chunks = decode_head_chunk(H // KV, Dh)
+    per_pass, n_passes = decode_passes(H // KV, Dh)
     q8, ck, cv, table8, lens8 = alibi_decode_case(gen, rng, H, KV, Dh)
     B, C, bs = 2, 256, 64
     start = np.asarray([PB_MAX_LEN - 256, 1600], np.int32)
@@ -4936,7 +4937,7 @@ def check_paged_heads(gen, rng, H, KV, Dh, suffix, decode_rows=(8,), pools=("bf1
         for nb in decode_rows:
             q, table, lens = q8[:nb], table8[:nb], lens8[:nb]
             kvl = torch.from_numpy(lens).cuda()
-            splits = attention_splits(nb, KV, table.shape[1], sms, n_chunks)
+            splits = attention_splits(nb, KV, table.shape[1], bs, sms)
             cells += [
                 (names["paged_decode_attention"], dict(B=nb, kv_len=lens.tolist(),
                                                        table_width=int(table.shape[1])),
@@ -4966,11 +4967,12 @@ def check_paged_heads(gen, rng, H, KV, Dh, suffix, decode_rows=(8,), pools=("bf1
             got, want = run(), plain(qq)
             err, tol_ok = paged_close(rows_of(got), rows_of(want))
             bites = attention_bites(got, plain, qq, rows_of,
-                                chunk=chunk if n_chunks > 1 and "extend" not in form else None)
+                                    pass_heads=per_pass if n_passes > 1 and "extend" not in form
+                                    else None)
             if dim_bites:
                 bites.update(head_dim_bites(got, plain, qq, rows_of))
             row = dict(shape=dict(H=H, KV=KV, Dh=Dh, bs=64, pool=fmt, alibi=sl is not None,
-                                  head_chunk=chunk, **shape),
+                                  heads_a_pass=per_pass, **shape),
                        max_abs_err=err.max().item(), tolerance=PAGED_TOL, within=tol_ok,
                        tolerance_bites=bites)
             _check(tol_ok, f"{form} over a {fmt} pool{' with slopes' if sl is not None else ''} "
@@ -5158,9 +5160,9 @@ FALCON_7B = {"architectures": ["FalconForCausalLM"], "model_type": "falcon", "al
              "num_attention_heads": 71, "num_hidden_layers": 32, "parallel_attn": True,
              "vocab_size": 65024}
 FALCON_WIDTHS = dict(D=4544, H=71, KV=1, Dh=64, F=18176)
-# (H, KV, Dh) of the decode kernels' head-chunk edges (a block takes
-# 1024 / Dh query heads): exactly one chunk (Falcon-40B's group), a one-head
-# last chunk, and two chunks at 128 and at 256
+# (H, KV, Dh) of the decode kernels' group edges over one kv head: 16 heads
+# (Falcon-40B's group; the widest whose warps split each key tile), 17 (the
+# narrowest in whole row tiles, a one-head last tile), 9 at 128 and 5 at 256
 WIDE_GROUP_EDGES = [(16, 1, 64), (17, 1, 64), (9, 1, 128), (5, 1, 256)]
 # the extend kernel past 64 heads a kv head (its tiles span two chunk rows)
 EXTEND_EDGE = (65, 1, 64)
@@ -5247,9 +5249,8 @@ PYTHIA_2B8 = dict(PYTHIA_1B4, hidden_size=2560, intermediate_size=10240, num_att
                   num_hidden_layers=32)
 PHI3_WIDTHS = dict(D=3072, H=32, KV=32, Dh=96, F=8192)
 PYTHIA_2B8_WIDTHS = dict(D=2560, H=32, KV=32, Dh=80, F=10240, rd=20)
-# (H, KV, Dh) of the decode kernels' head-chunk edges at the new head dims
-# (a block takes 1024 // Dh query heads: 12 at 80, 10 at 96): a one-head
-# last chunk at each
+# (H, KV, Dh) of odd groups over one kv head at the head dims 80 and 96: a
+# partly filled last row tile at each
 HEAD_DIM_EDGES = [(13, 1, 80), (11, 1, 96)]
 # the two prefills: P = 8, T = 1024, 32 heads of 96 and of 80
 FLASH_HEAD_DIM_SHAPES = {96: [(8, 1024, 1024, 32, 32, 96, True)],
@@ -6086,7 +6087,7 @@ def main(argv=None) -> int:
     pb_forms = check_parallel_block_forms(gen, args.seed)
     phase("2o")
     # 2o. B2, B3 and B5 at any query-head group (Falcon-7B's 71 heads over one
-    # kv head, the head-chunk edges), B4 and the flash forward at Falcon-7B's
+    # kv head, the group edges), B4 and the flash forward at Falcon-7B's
     wg_forms = check_wide_group_forms(gen, args.seed)
     phase("2p")
     # 2p. B2, B3, B5 and the flash forward at head dims 80 and 96 (Pythia-2.8b,

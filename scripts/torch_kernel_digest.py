@@ -9,11 +9,13 @@ quantized matmul (B8, both forms), where the tree has them the ALiBi
 kernels (B11-B13), the paged serving kernels (B2 decode, B5 split-K
 decode, B3 extend over bf16, int8 and fp8 pools) and the LoRA delta (B9 at
 the chip smoke test's phase-2g cells) on seeded inputs, and prints for
-each cell a SHA-256 of its output bytes and its mean cold-L2 time. B2 and
-B3 cells are also held to their plain versions (``within`` PAGED_TOL, as
-the chip smoke test holds them), so trees whose B2 / B3 round differently
-still compare, and their bf16 cells carry the time of one SDPA call over
-the gathered K/V (``sdpa_ms``). So are the dense flash cells: the forward
+each cell a SHA-256 of its output bytes and its mean cold-L2 time. B2, B5
+and B3 cells are also held to their plain versions (``within`` PAGED_TOL,
+as the chip smoke test holds them; B5 at the tree's own split count), so
+trees that round differently still compare, and their bf16 cells carry the
+time of one SDPA call over the gathered K/V (``sdpa_ms``); where the tree
+folds B5's merge into its last split, B5's cells also time both merges
+(``fold_ms``, ``merge_launch_ms``). So are the dense flash cells: the forward
 within PAGED_TOL of ``reference_attention`` with P in f32, the backward
 within GRAD_TOL of ``reference_attention_bwd`` on the kernel's own out,
 both with ``equal_bits_twice``, beside one SDPA call on the same operands
@@ -69,6 +71,8 @@ FLASH_CELLS = [
     # the head dims 80 and 96 (Pythia-2.8b's and Phi-3-mini's prefill), where built
     ("phi-3-mini prefill fwd", 8, 1024, 1024, 32, 32, 96, True, False),
     ("pythia-2.8b prefill fwd", 8, 1024, 1024, 32, 32, 80, True, False),
+    # Falcon-7B's prefill: 71 query heads of 64 over one kv head
+    ("falcon-7b prefill fwd", 8, 1024, 1024, 71, 1, 64, True, False),
     # GPT-J-6B's training at head_dim 256 (its backward where built)
     ("gpt-j-6b train fwd+bwd", 8, 2047, 2047, 16, 16, 256, True, False),
     # GPT-J-6B's prefill (P=8, T=1024) and the chip smoke test's GQA cell at 256
@@ -192,6 +196,20 @@ def sdpa_call(q, k, v, table, visible, slopes):
     return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
 
 
+def b5_splits(fd, pa, B, H, KV, Dh, W, bs) -> int:
+    """The split count the tree's B5 wrapper picks on this card (the
+    redesigned rule takes the block size; the first design counted the
+    group's head chunks)."""
+    import inspect
+
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if "bs" in inspect.signature(fd.attention_splits).parameters:
+        return fd.attention_splits(B, KV, W, bs, sms)
+    return fd.attention_splits(B, KV, W, sms, pa.decode_head_chunk(H // KV, Dh)[1])
+
+
 def paged_cells(gen, seed) -> dict:
     """B2, B5 and B3 at PAGED_CELLS over bf16, int8 and fp8 pools."""
     import numpy as np
@@ -200,7 +218,8 @@ def paged_cells(gen, seed) -> dict:
     from chip_smoke import paged_close   # the tree's PAGED_TOL
     from shuffle_exchange_tpu_torch.inference.paged import quantize_kv
     from shuffle_exchange_tpu_torch.models import alibi_slopes
-    from shuffle_exchange_tpu_torch.ops.fused_decode import fused_paged_decode_attention
+    from shuffle_exchange_tpu_torch.ops.fused_decode import (fused_paged_decode_attention,
+                                                             fused_paged_decode_reference)
     from shuffle_exchange_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                                 paged_decode_reference,
                                                                 paged_extend_attention,
@@ -220,6 +239,7 @@ def paged_cells(gen, seed) -> dict:
         return k, v, torch.from_numpy(table).cuda()
 
     pa = importlib.import_module("shuffle_exchange_tpu_torch.ops.paged_attention")
+    fd = importlib.import_module("shuffle_exchange_tpu_torch.ops.fused_decode")
 
     for label, H, KV, Dh, alibi in PAGED_CELLS:
         if Dh not in pa.HEAD_DIMS:
@@ -229,6 +249,7 @@ def paged_cells(gen, seed) -> dict:
         k, v, table = pool(lens, KV, Dh)
         q = torch.randn(8, 1, H, Dh, generator=gen, device="cuda").bfloat16()
         kvl = torch.from_numpy(lens).cuda()
+        splits = b5_splits(fd, pa, 8, H, KV, Dh, table.shape[1], bs)
         nnew = torch.tensor([256, 200], dtype=torch.int32, device="cuda")
         ext = []
         for st in EXTEND_STARTS:
@@ -247,14 +268,17 @@ def paged_cells(gen, seed) -> dict:
                 return xq, yq, dict(k_scale=xs, v_scale=ys)
 
             kk, vv, sc = stored(k, v)
-            # (name, kernel, plain version with P in f32 (B2 / B3), rows compared, SDPA)
+            # (name, kernel, plain version with P in f32, rows compared, SDPA)
             runs = [(f"B2 {label} {fmt}", lambda: paged_decode_attention(
                         q, kk, vv, table, kvl, alibi_slopes=slopes, **sc),
                      lambda: paged_decode_reference(q, kk, vv, table, kvl, p_f32=True,
                                                     alibi_slopes=slopes, **sc),
                      lambda x: x, (q, k, v, table, kvl[:, None])),
                     (f"B5 {label} {fmt}", lambda: fused_paged_decode_attention(
-                        q, kk, vv, table, kvl, alibi_slopes=slopes, **sc), None, None, None)]
+                        q, kk, vv, table, kvl, alibi_slopes=slopes, **sc),
+                     lambda: fused_paged_decode_reference(q, kk, vv, table, kvl, splits,
+                                                          alibi_slopes=slopes, **sc),
+                     lambda x: x, (q, k, v, table, kvl[:, None]))]
             for st, start, ek, ev, etable, eq in ext:
                 ekk, evv, esc = stored(ek, ev)
                 at = "" if st == EXTEND_STARTS[0] else f" at {st}"
@@ -273,11 +297,18 @@ def paged_cells(gen, seed) -> dict:
             for name, fn, plain, rows, lib in runs:
                 out = fn()
                 cells[name] = dict(digest=digest([out]), ms=time_cold(fn))
-                if plain is not None:
-                    err, ok = paged_close(rows(out), rows(plain()))
-                    cells[name].update(max_abs_err=err.max().item(), within=ok)
-                    if fmt == "bf16":
-                        cells[name]["sdpa_ms"] = time_cold(sdpa_call(*lib, slopes))
+                err, ok = paged_close(rows(out), rows(plain()))
+                cells[name].update(max_abs_err=err.max().item(), within=ok)
+                if fmt == "bf16":
+                    cells[name]["sdpa_ms"] = time_cold(sdpa_call(*lib, slopes))
+                if name.startswith("B5"):
+                    cells[name]["splits"] = splits
+                    if hasattr(fd, "folds"):   # both merges, whichever the wrapper takes
+                        sms = torch.cuda.get_device_properties(0).multi_processor_count
+                        cells[name].update(folds=fd.folds(8, KV, H // KV, Dh, splits, sms), **{
+                            f"{key}_ms": time_cold(lambda f=f: fd._launch_attention(
+                                q, kk, vv, table, kvl, None, slopes, fold=f, **sc))
+                            for key, f in (("fold", True), ("merge_launch", False))})
     return cells
 
 

@@ -42,9 +42,10 @@
 // cores, so the tensor cores bound it; the backward (10 * pairs * H * Dh
 // flops against ~3x the forward's bytes) likewise. Two designs answer it.
 //
-// 1. The dense forms at head dims 128 and 256 (every main path: Llama-3-8B's
-// and GPT-J-6B's prefill, Llama-style, Pythia-1.4b and GPT-J-6B training):
-// the FlashAttention-3 shape, wgmma over TMA-fed tiles (wgmma_tile.cuh).
+// 1. The dense forms (every main path: the prefill of every served model,
+// and training): the FlashAttention-3 shape, wgmma over TMA-fed tiles
+// (wgmma_tile.cuh); the forward at head dims 64, 80, 96, 128 and 256, the
+// backward at 128 and 256.
 // A block is three warpgroups: two consumers that compute and one producer
 // whose single thread issues every TMA load into a ring of single K, V, Q
 // or dO tiles guarded by mbarriers (full: the bytes landed; empty: all 8
@@ -67,7 +68,7 @@
 //   partial scores over its 128 columns, the two partials are summed
 //   through shared memory (each adds the other's: f32 addition commutes,
 //   so both hold the same bits), and each accumulates its 128 columns of O
-//   or dq. At 128 a block is 128 rows, 64 a consumer.
+//   or dq. At 128 (and 64, 80, 96) a block is 128 rows, 64 a consumer.
 //   forward: K_j and V_j tiles of 64 keys pass through a ring (4 slots at
 //     256, 8 at 128), K_j freed right after S. S = Q K^T by wgmma m64n64k16
 //     with both operands in shared memory; the online softmax in registers
@@ -77,10 +78,17 @@
 //     from registers as wgmma's A operand (the RS form) and V read
 //     MN-major. FlashAttention-3's intra-warpgroup overlap: S_j and
 //     P_j-1 V_j-1 are in flight together and tile j's softmax runs under
-//     P_j-1 V_j-1. At 128 a tile wholly above a consumer's diagonal is
+//     P_j-1 V_j-1. Below 256 a tile wholly above a consumer's diagonal is
 //     skipped (its slots still freed); interior tiles run unmasked.
+//     At 80 and 96 (Pythia-2.8b's and Phi-3-mini's prefill) a tile is one
+//     full 64-column block and a tail block of 16 or 32 columns in the 32-
+//     or 64-byte swizzle (its own TMA map and descriptors): S adds 1 or 2
+//     k-steps, O an m64n16 or m64n32 product over V's tail read MN-major;
+//     at 64 a tile is one block. O then takes 40 / 48 / 32 f32 registers a
+//     consumer thread beside S's 32.
 //     Shared memory: 230,472 B at 256 (Q 32 KB, ring 4 x 32 KB, two f32
-//     exchange buffers 64 KB), 165,000 B at 128.
+//     exchange buffers 64 KB), 165,000 B at 128, 124,040 at 96, 103,560 at
+//     80, 83,080 at 64.
 //   dk/dv: a block is a 64-key tile of one kv head (K and V resident); Q_i
 //     and dO_i of every 64-query tile at and below the diagonal of every
 //     query head of the group pass through the ring. Each consumer
@@ -101,8 +109,8 @@
 //   and 7 products a tile pair; every sum runs in a fixed order, so two
 //   runs give equal bits.
 
-// 2. The element-mask forms (sparse_attention) at every head dim and the
-// dense forms at 64, 80 and 96: FlashAttention-2 on mma.sync, one block
+// 2. The element-mask forms (sparse_attention) at every head dim, and the
+// dense backward at 64: FlashAttention-2 on mma.sync, one block
 // per (64-row query tile, head, sequence), 4 warps of 16 query rows each;
 // a loop over 64-key K/V tiles up to the causal limit (tiles wholly above
 // the diagonal are never loaded), K/V staged with cp.async into a double
@@ -181,12 +189,14 @@ __device__ __forceinline__ bool tile_allows(const TileMap& tm, int blk, int r, i
   return blk < 0 || tm.blocks[(size_t(blk) * kBlockM + r) * kBlockN + c] != 0;
 }
 
-template <int DH, bool SPARSE>
+// The element-mask forward (the dense forms run wg_fwd_kernel): the key
+// tiles of each query tile are its tile-map entries.
+template <int DH>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg, const TileMap tm,
     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int T, int S, int H, int KV,
-    int causal, float scale_log2) {
+    float scale_log2) {
   constexpr int LD = DH + 8;
   constexpr int KSTEPS = DH / 16;     // k-steps of QK^T
   constexpr int NT = kBlockN / 8;     // 8-key column tiles of S
@@ -200,11 +210,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   __nv_bfloat16* ks = qs + kBlockM * LD;                         // [2][64][LD]
   __nv_bfloat16* vs = ks + 2 * kBlockN * LD;                     // [2][64][LD]
 
-  // longest causal query tiles first; heads of one kv group side by side
-  const int nqt = (T + kBlockM - 1) / kBlockM;
+  // heads of one kv group side by side
   const int BH = B * H;
-  const int rank = blockIdx.x / BH, bh = blockIdx.x % BH;
-  const int qt = causal ? nqt - 1 - rank : rank;
+  const int qt = blockIdx.x / BH, bh = blockIdx.x % BH;
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int q0 = qt * kBlockM;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -214,15 +222,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const __nv_bfloat16* qb = q + (size_t(b) * T + q0) * qstride + size_t(h) * DH;
   const __nv_bfloat16* kb = k + size_t(b) * S * kstride + size_t(kvh) * DH;
   const __nv_bfloat16* vb = v + size_t(b) * S * kstride + size_t(kvh) * DH;
-  const int n_s = (S + kBlockN - 1) / kBlockN;
-  // the key tiles to visit: 0 .. n_kv - 1, or this query tile's tile-map entries
-  constexpr bool sparse = SPARSE;
-  const int base = sparse ? tm.row_ptr[qt] : 0;
-  const int n_kv = sparse ? tm.row_ptr[qt + 1] - base : causal ? min(qt + 1, n_s) : n_s;
+  // the key tiles to visit: this query tile's tile-map entries
+  const int base = tm.row_ptr[qt];
+  const int n_kv = tm.row_ptr[qt + 1] - base;
 
   load_tile<DH>(qs, qb, qstride, T - q0, q, tid);
   if (n_kv > 0) {
-    const int k00 = (sparse ? tm.row_kt[base] : 0) * kBlockN;
+    const int k00 = tm.row_kt[base] * kBlockN;
     load_tile<DH>(ks, kb + size_t(k00) * kstride, kstride, S - k00, k, tid);
     load_tile<DH>(vs, vb + size_t(k00) * kstride, kstride, S - k00, v, tid);
   }
@@ -246,7 +252,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   for (int it = 0; it < n_kv; ++it) {
     if (it + 1 < n_kv) {   // prefetch the next tile into the other buffer
       const int nb = (it + 1) & 1;
-      const int k0n = (sparse ? tm.row_kt[base + it + 1] : it + 1) * kBlockN;
+      const int k0n = tm.row_kt[base + it + 1] * kBlockN;
       load_tile<DH>(ks + nb * kBlockN * LD, kb + size_t(k0n) * kstride, kstride, S - k0n, k, tid);
       load_tile<DH>(vs + nb * kBlockN * LD, vb + size_t(k0n) * kstride, kstride, S - k0n, v, tid);
       cp_async_commit();
@@ -261,8 +267,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qa[kk], qfrag + kk * 16);
       }
     }
-    const int j = sparse ? tm.row_kt[base + it] : it;
-    const int blk = sparse ? tm.row_blk[base + it] : -1;
+    const int j = tm.row_kt[base + it];
+    const int blk = tm.row_blk[base + it];
     const __nv_bfloat16* kt = ks + (it & 1) * kBlockN * LD;
     const __nv_bfloat16* vt = vs + (it & 1) * kBlockN * LD;
 
@@ -293,8 +299,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
     // scale into the log2 domain, mask, row max (rows r_lo: e < 2, r_hi: e >= 2)
     const int k0 = j * kBlockN;
-    const bool masked_tile = sparse ? blk >= 0 || segb != nullptr
-                                    : (causal && j == qt) || k0 + kBlockN > S || segb != nullptr;
+    const bool masked_tile = blk >= 0 || segb != nullptr;
     float mx_lo = kNeg, mx_hi = kNeg;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -304,8 +309,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         if (masked_tile) {
           const int key = k0 + n * 8 + tq * 2 + (e & 1);
           const int row = e < 2 ? r_lo : r_hi;
-          bool ok = sparse ? tile_allows(tm, blk, row - q0, key - k0)
-                           : key < S && !(causal && key > row);
+          bool ok = tile_allows(tm, blk, row - q0, key - k0);
           if (ok && segb) ok = segb[key] == (e < 2 ? seg_lo : seg_hi);
           s = ok ? s : kNeg;
         }
@@ -330,8 +334,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       for (int e = 0; e < 4; ++e) {
         // under a mask a row may have no allowed key yet: its masked
         // scores give exactly 0, not exp2(kNeg - kNeg) = 1
-        const float p = sparse && sacc[n][e] <= kNeg ? 0.f
-                                                     : exp2f(sacc[n][e] - (e < 2 ? mn_lo : mn_hi));
+        const float p = sacc[n][e] <= kNeg ? 0.f : exp2f(sacc[n][e] - (e < 2 ? mn_lo : mn_hi));
         sacc[n][e] = p;
         if (e < 2)
           sum_lo += p;
@@ -396,19 +399,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
-template <int DH, bool SPARSE>
+template <int DH>
 cudaError_t launch(int blocks, cudaStream_t s, const void* q, const void* k, const void* v,
                    const void* seg, const TileMap& tm, void* o, void* lse, int B, int T, int S,
-                   int H, int KV, int causal, float scale_log2) {
+                   int H, int KV, float scale_log2) {
   const size_t smem = size_t(kBlockM + 4 * kBlockN) * (DH + 8) * sizeof(__nv_bfloat16);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH, SPARSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<DH, SPARSE><<<blocks, kThreads, smem, s>>>(
+  flash_fwd_kernel<DH><<<blocks, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg), tm,
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, T, S, H, KV, causal,
-      scale_log2);
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, T, S, H, KV, scale_log2);
   return cudaGetLastError();
 }
 
@@ -878,10 +880,14 @@ constexpr int kAlign = 1024;                         // the swizzle's period: ev
 // That keeps a consumer's accumulators at 64 (O) + 32 (S) registers: 64
 // rows of O at 256 (128 registers) beside S and P do not fit the wgmma
 // pipeline's registers (ptxas serialises the wgmmas and spills).
+// At 80 and 96 a tile is one full 64-column block and a narrow tail block
+// of TAIL columns (16 in the 32-byte swizzle, 32 in the 64-byte one): S
+// takes one or two more k-steps over it, O one m64n16 / m64n32 product.
 template <int DH>
 struct WgFwd {
   static constexpr bool COLS = DH == 256;
   static constexpr int BM = COLS ? 64 : 128, BN = 64, SLOTS = COLS ? 4 : 8, CB = DH / 64;
+  static constexpr int TAIL = DH % 64;
   static constexpr int Q_BYTES = BM * DH * 2, TILE_BYTES = BN * DH * 2;
   static constexpr int X_BYTES = COLS ? 2 * kConsumerWgs * BM * BN * 4 : 0;
   static constexpr int SMEM =
@@ -935,6 +941,18 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* 
   for (int cb = 0; cb < CB; ++cb)
     wg::tma_load_3d(dst + cb * ROWS * wg::kSwizzleBytes, map, bar, col0 + cb * wg::kBlockCols,
                     row0, b);
+}
+
+// One [ROWS, CB * 64 + TAIL] tile: the CB full blocks, then (TAIL > 0) the
+// tail block of {TAIL, ROWS} through its own map, right after them.
+template <int ROWS, int CB, int TAIL>
+__device__ __forceinline__ void tma_tile_tail(unsigned char* dst, const CUtensorMap* map,
+                                              const CUtensorMap* tail_map, uint64_t* bar,
+                                              int col0, int row0, int b) {
+  tma_tile<ROWS, CB>(dst, map, bar, col0, row0, b);
+  if constexpr (TAIL > 0)
+    wg::tma_load_3d(dst + CB * ROWS * wg::kSwizzleBytes, tail_map, bar,
+                    col0 + CB * wg::kBlockCols, row0, b);
 }
 
 // The ring (wgmma_tile.cuh): tile t lives in slot t % SLOTS; its round is t / SLOTS.
@@ -1049,14 +1067,16 @@ constexpr int kBarXFree = 2;   // both have read them (the dq pass's single buff
 template <int DH>
 __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_fwd_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, const int* __restrict__ seg,
-    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int T, int S, int H, int KV,
-    int causal, float scale_log2) {
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap qtail,
+    const __grid_constant__ CUtensorMap ktail, const __grid_constant__ CUtensorMap vtail,
+    const int* __restrict__ seg, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B,
+    int T, int S, int H, int KV, int causal, float scale_log2) {
   using Sh = WgFwd<DH>;
   constexpr bool COLS = Sh::COLS;
-  constexpr int BM = Sh::BM, BN = Sh::BN, SLOTS = Sh::SLOTS, CB = Sh::CB;
-  constexpr int NO = COLS ? DH / 2 : DH;             // a consumer's columns of O
-  constexpr int KSTEPS = COLS ? DH / 32 : DH / 16;   // its k-steps of S
+  constexpr int BM = Sh::BM, BN = Sh::BN, SLOTS = Sh::SLOTS, CB = Sh::CB, TAIL = Sh::TAIL;
+  constexpr int NO = COLS ? DH / 2 : CB * 64;        // a consumer's columns of O (full blocks)
+  constexpr int KSTEPS = COLS ? DH / 32 : CB * 4;    // its k-steps of S over the full blocks
+  constexpr int TB = TAIL * 2;                       // bytes of a tail block's row: its swizzle
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* qs = align_smem(smem_raw);          // CB blocks of [BM][64]
   unsigned char* ring = qs + Sh::Q_BYTES;            // SLOTS tiles of CB blocks of [BN][64]
@@ -1079,11 +1099,12 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_fwd_kernel(
     wg::regs_dealloc<kProducerRegs>();
     if (threadIdx.x == kConsumerWgs * kWgThreads) {
       wg::mbar_expect_tx(qbar, Sh::Q_BYTES);
-      tma_tile<BM, CB>(qs, &qmap, qbar, h * DH, q0, b);
+      tma_tile_tail<BM, CB, TAIL>(qs, &qmap, &qtail, qbar, h * DH, q0, b);
       for (int t = 0; t < 2 * n_kv; ++t) {
         ring_fill<SLOTS>(full, empty, t, Sh::TILE_BYTES);
-        tma_tile<BN, CB>(ring + (t % SLOTS) * Sh::TILE_BYTES, (t & 1) ? &vmap : &kmap,
-                         &full[t % SLOTS], kvh * DH, (t >> 1) * BN, b);
+        tma_tile_tail<BN, CB, TAIL>(ring + (t % SLOTS) * Sh::TILE_BYTES,
+                                    (t & 1) ? &vmap : &kmap, (t & 1) ? &vtail : &ktail,
+                                    &full[t % SLOTS], kvh * DH, (t >> 1) * BN, b);
       }
     }
   } else {
@@ -1098,12 +1119,15 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_fwd_kernel(
     // this warpgroup's rows of Q, and its first column block of Q, K and V
     const int cb0 = COLS ? wgi * (CB / 2) : 0;
     const unsigned char* qa = qs + (COLS ? 0 : wgi * 64 * wg::kSwizzleBytes);
+    // and of Q's tail block (80, 96): its rows are TB bytes
+    const unsigned char* qa_tail = qs + CB * BM * wg::kSwizzleBytes + wgi * 64 * TB;
     // the key tiles this warpgroup computes: a prefix (a tile wholly above its
     // diagonal is the block's last and is skipped; its slots are still freed)
     const int n_live = causal ? min(n_kv, (r0 + 63) / BN + 1) : n_kv;
 
-    float oacc[NO / 2], s[BN / 2];
+    float oacc[NO / 2], otail[TAIL > 0 ? TAIL / 2 : 1], s[BN / 2];
     zero(oacc);
+    if constexpr (TAIL > 0) zero(otail);
     float m_lo = kNeg, m_hi = kNeg, l_lo = 0.f, l_hi = 0.f;
 
     // S = Q K_j^T: 64 rows x 64 keys (COLS: the partial over this warpgroup's columns)
@@ -1119,6 +1143,12 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_fwd_kernel(
         wg::mma_ss<BN, 0>(s, wg::desc_k(qa + cb * BM * 128 + off),
                           wg::desc_k(kt + cb * BN * 128 + off), kk > 0);
       }
+      if constexpr (TAIL > 0) {   // the tail block's k-steps, 32 bytes each in its swizzle
+#pragma unroll
+        for (int kk = 0; kk < TAIL / 16; ++kk)
+          wg::mma_ss<BN, 0>(s, wg::desc_k<TB>(qa_tail + kk * 32),
+                            wg::desc_k<TB>(kt + CB * BN * 128 + kk * 32), 1);
+      }
       wg::mma_commit();
     };
     // O += P_j V_j over this warpgroup's columns, P from registers as bf16 hi + lo, V MN-major
@@ -1127,12 +1157,18 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_fwd_kernel(
       const unsigned char* vt = ring + ((2 * j + 1) % SLOTS) * Sh::TILE_BYTES;
       ring_wait<SLOTS>(full, 2 * j + 1);
       wg::fence_regs(oacc);
+      if constexpr (TAIL > 0) wg::fence_regs(otail);
       wg::mma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         const uint64_t vd = wg::desc_mn(vt + cb0 * BN * 128 + kk * 16 * 128, BN * 128);
         wg::mma_rs<NO, 1>(oacc, ph[kk], vd, 1);
         wg::mma_rs<NO, 1>(oacc, pl[kk], vd, 1);
+        if constexpr (TAIL > 0) {   // V's tail block, MN-major: 16 rows of TB bytes a k-step
+          const uint64_t vtd = wg::desc_mn<TB>(vt + CB * BN * 128 + kk * 16 * TB, BN * TB);
+          wg::mma_rs<TAIL, 1>(otail, ph[kk], vtd, 1);
+          wg::mma_rs<TAIL, 1>(otail, pl[kk], vtd, 1);
+        }
       }
       wg::mma_commit();
     };
@@ -1210,6 +1246,7 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_fwd_kernel(
       softmax(j, next_hi, next_lo, al_lo, al_hi);
       wg::mma_wait<0>();
       wg::fence_regs(oacc);
+      if constexpr (TAIL > 0) wg::fence_regs(otail);
       ring_free<SLOTS>(empty, 2 * j - 1, lane);
 #pragma unroll
       for (int d = 0; d < NO / 8; ++d) {
@@ -1217,6 +1254,13 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_fwd_kernel(
         oacc[4 * d + 1] *= al_lo;
         oacc[4 * d + 2] *= al_hi;
         oacc[4 * d + 3] *= al_hi;
+      }
+#pragma unroll
+      for (int d = 0; d < TAIL / 8; ++d) {
+        otail[4 * d + 0] *= al_lo;
+        otail[4 * d + 1] *= al_lo;
+        otail[4 * d + 2] *= al_hi;
+        otail[4 * d + 3] *= al_hi;
       }
     };
     wg::mbar_wait(qbar, 0);
@@ -1241,6 +1285,7 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_fwd_kernel(
       }
       wg::mma_wait<0>();
       wg::fence_regs(oacc);
+      if constexpr (TAIL > 0) wg::fence_regs(otail);
       ring_free<SLOTS>(empty, 2 * n_live - 1, lane);
     }
     for (int t = 2 * n_live; t < 2 * n_kv; ++t) {   // tiles above the diagonal: free their slots
@@ -1250,16 +1295,22 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_fwd_kernel(
 
     const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
     const int c0 = COLS ? wgi * NO : 0;
-#pragma unroll
-    for (int d = 0; d < NO / 8; ++d) {
-      const int col = c0 + d * 8 + tq * 2;
+    // 8 columns (d) of O: the accumulator's 4 values a thread, rows r_lo / r_hi
+    auto store = [&](int col, float a0, float a1, float a2, float a3) {
       if (r_lo < T)
         *reinterpret_cast<__nv_bfloat162*>(o + ((size_t(b) * T + r_lo) * H + h) * DH + col) =
-            __floats2bfloat162_rn(oacc[4 * d + 0] * inv_lo, oacc[4 * d + 1] * inv_lo);
+            __floats2bfloat162_rn(a0 * inv_lo, a1 * inv_lo);
       if (r_hi < T)
         *reinterpret_cast<__nv_bfloat162*>(o + ((size_t(b) * T + r_hi) * H + h) * DH + col) =
-            __floats2bfloat162_rn(oacc[4 * d + 2] * inv_hi, oacc[4 * d + 3] * inv_hi);
-    }
+            __floats2bfloat162_rn(a2 * inv_hi, a3 * inv_hi);
+    };
+#pragma unroll
+    for (int d = 0; d < NO / 8; ++d)
+      store(c0 + d * 8 + tq * 2, oacc[4 * d], oacc[4 * d + 1], oacc[4 * d + 2], oacc[4 * d + 3]);
+#pragma unroll
+    for (int d = 0; d < TAIL / 8; ++d)
+      store(NO + d * 8 + tq * 2, otail[4 * d], otail[4 * d + 1], otail[4 * d + 2],
+            otail[4 * d + 3]);
     // the quad holds equal m and l: one lane writes (under COLS, of warpgroup 0)
     if (lse != nullptr && tq == 0 && (!COLS || wgi == 0)) {
       float* lrow = lse + (size_t(b) * H + h) * T;
@@ -1628,16 +1679,26 @@ cudaError_t wg_launch(cudaStream_t s, const void* q, const void* k, const void* 
   using Sh = WgFwd<DH>;
   const long long blocks = (long long)((T + Sh::BM - 1) / Sh::BM) * B * H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  CUtensorMap qm, km, vm;
-  cudaError_t err = tile_map_3d(&qm, q, B, T, (long long)H * DH, Sh::BM);
-  if (err == cudaSuccess) err = tile_map_3d(&km, k, B, S, (long long)KV * DH, Sh::BN);
-  if (err == cudaSuccess) err = tile_map_3d(&vm, v, B, S, (long long)KV * DH, Sh::BN);
+  // the full blocks' maps, and the tail blocks' (80, 96; else the same maps, unread)
+  CUtensorMap qm, km, vm, qt, kt, vt;
+  const long long qcols = (long long)H * DH, kcols = (long long)KV * DH;
+  cudaError_t err = tile_map_3d(&qm, q, B, T, qcols, Sh::BM);
+  if (err == cudaSuccess) err = tile_map_3d(&km, k, B, S, kcols, Sh::BN);
+  if (err == cudaSuccess) err = tile_map_3d(&vm, v, B, S, kcols, Sh::BN);
+  qt = qm;
+  kt = km;
+  vt = vm;
+  if constexpr (Sh::TAIL > 0) {
+    if (err == cudaSuccess) err = tile_map_3d(&qt, q, B, T, qcols, Sh::BM, Sh::TAIL);
+    if (err == cudaSuccess) err = tile_map_3d(&kt, k, B, S, kcols, Sh::BN, Sh::TAIL);
+    if (err == cudaSuccess) err = tile_map_3d(&vt, v, B, S, kcols, Sh::BN, Sh::TAIL);
+  }
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(wg_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Sh::SMEM);
   if (err != cudaSuccess) return err;
   wg_fwd_kernel<DH><<<int(blocks), kWgBlockThreads, Sh::SMEM, s>>>(
-      qm, km, vm, static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(o),
+      qm, km, vm, qt, kt, vt, static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), B, T, S, H, KV, causal, scale_log2);
   return cudaGetLastError();
 }
@@ -1734,19 +1795,19 @@ int sxt_flash_attention_bf16(const void* q, const void* k, const void* v, const 
   const TileMap tm = tile_map(tiles, blocks, nnz, T, S);
   auto run = [&](auto kernel_launch) {
     return static_cast<int>(kernel_launch(int(blocks_), s, q, k, v, seg, tm, o, lse, B, T, S, H,
-                                          KV, causal, scale_log2));
+                                          KV, scale_log2));
   };
-  // the mask's code is compiled into its own instances; the dense forms at
-  // 128 and 256 run the wgmma kernel
+  // the mask's code is compiled into its own mma.sync instances; the dense
+  // forms run the wgmma kernel
   auto dense = [&](auto wg_kernel_launch) {
     return static_cast<int>(wg_kernel_launch(s, q, k, v, seg, o, lse, B, T, S, H, KV, causal,
                                              scale_log2));
   };
-  if (Dh == 256) return tiles ? run(launch<256, true>) : dense(wg_launch<256>);   // GPT-J-6B
-  if (Dh == 128) return tiles ? run(launch<128, true>) : dense(wg_launch<128>);
-  if (Dh == 64) return tiles ? run(launch<64, true>) : run(launch<64, false>);
-  if (Dh == 96) return tiles ? run(launch<96, true>) : run(launch<96, false>);   // Phi-3-mini
-  if (Dh == 80) return tiles ? run(launch<80, true>) : run(launch<80, false>);   // Pythia-2.8b
+  if (Dh == 256) return tiles ? run(launch<256>) : dense(wg_launch<256>);   // GPT-J-6B
+  if (Dh == 128) return tiles ? run(launch<128>) : dense(wg_launch<128>);
+  if (Dh == 64) return tiles ? run(launch<64>) : dense(wg_launch<64>);
+  if (Dh == 96) return tiles ? run(launch<96>) : dense(wg_launch<96>);   // Phi-3-mini
+  if (Dh == 80) return tiles ? run(launch<80>) : dense(wg_launch<80>);   // Pythia-2.8b
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

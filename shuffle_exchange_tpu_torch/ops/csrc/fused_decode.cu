@@ -50,25 +50,36 @@
 // group).
 //
 // Split-K decode attention is bound by the K/V bytes it reads, as the
-// paged decode kernel in paged_attention.cu is. One block per (sequence,
-// kv head, head chunk, split) walks its split's share of the block table
-// up to ceil(kv_len / bs), never reading padded entries, stages 64-position
-// K/V tiles in shared memory once for the query heads of its chunk (the
-// whole group G when G * Dh <= 1024, else 1024 / Dh heads of it: Falcon-7B's
-// 71 heads of 64 make 5 chunks, each re-reading the kv head's tiles from
-// L2; a chunk is 10 heads at head dim 96 and 12 at 80),
-// and holds (m, l, acc) in f32, at most 8 accumulators a thread; the
-// split count fills the SMs (the wrapper picks it, counting the chunks),
-// and a merge kernel combines the splits:
-//   m_g = max m;  w = exp(m - m_g);  out = sum(w*acc) / max(sum(w*l), 1e-30).
-// q is scaled in f32 before the dot, P stays f32, masked scores are -1e30,
-// and a split past the sequence's end contributes m = -1e30, l = 0. ALiBi
-// adds slope_h * j in f32 to the scaled score of logical key position j
-// before the running max: a split starts mid-sequence, so j is the
-// position its loop walks, never relative to the split's start. A
-// one-byte pool is staged at storage width with its rows' scales and
-// dequantized in registers (float(q) * scale, paged_tile.cuh), as in the
-// paged decode kernel.
+// paged decode kernel (B2) in paged_attention.cu is, and below ~10 us by
+// latency: how many SMs a launch keeps busy and how fast each block gets
+// its tiles. Its first design (dot products in f32 on the CUDA cores, one
+// thread per output element walking every staged key for P V, a wide group
+// cut into head chunks that each re-read the kv head's tiles, a second
+// launch to merge) ran at 1.2-2.6x one SDPA call. It now runs B2's decode
+// body (paged_decode.cuh: decode_split), over JAX's table-entry splits:
+// one block per (sequence, kv head, split) holds the whole query-head group
+// (Q as bf16 rows padded to 16-row MMA tiles; past 128 heads at head_dim
+// <= 96, or 64 above, the block walks its split again for the next heads),
+// 64-position K/V tiles come through the block table by cp.async into a
+// double buffer and are read once by every head, S = Q K^T and O += P V are
+// m16n8k16 MMAs with f32 accumulators, the softmax runs in the log2 domain
+// with ALiBi's slope * j added in f32 at the logical position j, and P
+// enters P V as bf16 hi + lo terms. One-byte pools are staged at storage
+// width and widened to bf16 in shared memory (exact); the K row scale
+// multiplies S's column and the V row scale P's column, in f32. The merge
+// folds into the kernel: the last split of each (sequence, kv head) to
+// finish merges all of its live splits in split order (B5's formula, base
+// 2: m_g = max m, w = 2^(m - m_g), out = sum(w * acc) / max(sum(w * l),
+// 1e-30)), found through a per-(sequence, kv head) counter that it resets
+// for the next call; a sequence in one split writes its output directly.
+// That saves a launch where the grid is about one wave and the partials
+// are few. One block reading a wide group's partials in series is slower
+// than a second launch over the whole card (1.6x at Falcon-7B's 71 heads of
+// 64 in 16 splits), and past ~4 blocks an SM the fold ran up to 5% slower, so
+// the wrapper passes the counters only up to 16K partial values a
+// (sequence, kv head) and 4 blocks an SM (ops/fused_decode.py: folds), and
+// without them group_merge_kernel merges.
+// The wrapper picks the split count from B2's rule (attention_splits).
 //
 // Rounding points (those of the TPU kernels): QKV sums in f32, the bias
 // added in f32 (bf16 biases read exactly), RoPE in f32, one cast to bf16,
@@ -81,7 +92,8 @@
 // f32, adds the residual and then the down bias in f32 and casts once.
 // The activations are those of the TPU kernel's FUSABLE_ACTIVATIONS: silu
 // (swiglu when gated), relu and the tanh gelu (gelu_new,
-// gelu_pytorch_tanh). Tensor-core MMA, TMA and pipelining are later work.
+// gelu_pytorch_tanh). In the GEMVs, tensor-core MMA, TMA and pipelining
+// are later work.
 //
 // The quantized MLP (int8 / packed int4 / e4m3 weights with f32 scales per
 // (K-group, column), the storage of ops/quant_matmul.py) keeps that
@@ -100,8 +112,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "paged_tile.cuh"   // TK, kNeg, storage kinds, load_kv_tile, converters
-#include "quant_gemv.cuh"   // formats, the quantized split-K GEMV
+#include "paged_decode.cuh"  // pdec::decode_split (B2's decode body), merge_partials
+#include "paged_tile.cuh"    // TK, kNeg, storage kinds, converters
+#include "quant_gemv.cuh"    // formats, the quantized split-K GEMV
 
 namespace {
 
@@ -369,160 +382,40 @@ __global__ void residual_epilogue_kernel(const float* __restrict__ part, int S, 
 }
 
 // ---------------------------------------------------------------------------
-// Split-K paged decode: block (sequence b, kv head x head chunk, split s),
-// 128 threads, over positions [s * spb * bs, min((s + 1) * spb * bs,
-// kv_len)); blockIdx.y = kv * NCH + chunk, and the chunk is query heads
-// [chunk * GC, min(G, (chunk + 1) * GC)) of kv head kv. A group that fits
-// one block (NCH = 1) runs the CHUNKED = false instance, whose code is that
-// of the kernel before head chunks (blockIdx.y = kv, G = H / KV).
+// Split-K paged decode: block (sequence b, kv head, split s), 128 threads,
+// over positions [s * spb * bs, min((s + 1) * spb * bs, kv_len)): the table
+// entries [s * spb, (s + 1) * spb) of JAX's num_splits. The body is
+// paged_decode.cuh's decode_split, B2's: the whole query-head group of the
+// kv head in one block, tensor cores, each K/V tile staged once. Given the
+// counters, the last live split of each (sequence, kv head) merges the
+// partials (FOLD); without them group_merge_kernel does, in a second
+// launch.
 // ---------------------------------------------------------------------------
 
-constexpr int kDecThreads = 128;
-constexpr int kDecMaxAcc = kDecodeCols / kDecThreads;   // per thread
-
-template <int DH, int KIND, bool CHUNKED>
-__global__ void __launch_bounds__(kDecThreads) split_decode_kernel(
+template <int DH, int KIND, bool KSPLIT>
+__global__ void __launch_bounds__(pdec::kThreads) group_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool,
     const void* __restrict__ vpool, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const int* __restrict__ table,
     const int* __restrict__ kv_len, const float* __restrict__ slopes,
-    float* __restrict__ o_part, float* __restrict__ m_part, float* __restrict__ l_part, int H,
-    int KV, int bs, int W, int spb, float scale, int GC) {
-  constexpr int NT = kDecThreads, LDB = kv_row_bytes<DH, KIND>();
-  constexpr int EB = KvStore<KIND>::kBytes;
-  constexpr bool SCALED = KvStore<KIND>::kScaled;
-  const int b = blockIdx.x, s = blockIdx.z, S = gridDim.z, tid = threadIdx.x;
-  const int kv = CHUNKED ? blockIdx.y / (gridDim.y / KV) : blockIdx.y;
-  const int chunk = CHUNKED ? blockIdx.y % (gridDim.y / KV) : 0;
-  // the block's query heads and the first of them
-  const int G = CHUNKED ? min(GC, H / KV - chunk * GC) : H / KV;
-  const size_t h0 = size_t(kv) * (H / KV) + (CHUNKED ? size_t(chunk) * GC : 0);
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ks = smem;                              // [TK] rows of LDB bytes
-  unsigned char* vs = ks + TK * LDB;
-  float* kss = reinterpret_cast<float*>(vs + TK * LDB);  // [TK] row scales (one-byte pools)
-  float* vss = kss + TK;
-  float* qs = vss + TK;                                  // [G][DH], pre-scaled
-  float* ss = qs + G * DH;                               // [G][TK] scores, then p
-  float* ms = ss + G * TK;                               // [G] running max
-  float* ls = ms + G;                                    // [G] running sum
-  float* as = ls + G;                                    // [G] tile rescale
-
-  const int len = min(kv_len[b], W * bs);
-  const int p_lo = s * spb * bs;
-  const int p_hi = min(len, (s + 1) * spb * bs);
-  const int* trow = table + size_t(b) * W;
-  const __nv_bfloat16* qb = q + (size_t(b) * H + h0) * DH;
-  for (int i = tid; i < G * DH; i += NT) qs[i] = __bfloat162float(qb[i]) * scale;
-  for (int g = tid; g < G; g += NT) {
-    ms[g] = kNeg;
-    ls[g] = 0.f;
-  }
-  float acc[kDecMaxAcc];
-#pragma unroll
-  for (int k = 0; k < kDecMaxAcc; ++k) acc[k] = 0.f;
-  __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32;
-  for (int p0 = p_lo; p0 < p_hi; p0 += TK) {
-    const int n = min(TK, p_hi - p0);
-    load_kv_tile<DH, KIND>(ks, vs, kss, vss, kpool, vpool, kscale, vscale, trow, kv, KV, bs,
-                           p0, n, tid, NT);
-    __syncthreads();
-
-    for (int i = tid; i < G * TK; i += NT) {
-      const int g = i / TK, t = i % TK;
-      float sc = kNeg;
-      if (t < n) {
-        const float* qr = qs + g * DH;
-        const unsigned char* kr = ks + t * LDB;
-        const float sk = SCALED ? kss[t] : 1.f;
-        float a = 0.f;
-#pragma unroll
-        for (int c = 0; c < DH; c += 8) {
-          float kf[8];
-          kv8_to_float<KIND>(kr + c * EB, kf);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) a += qr[c + e] * (SCALED ? kf[e] * sk : kf[e]);
-        }
-        sc = slopes ? a + slopes[int(h0) + g] * float(p0 + t) : a;
-      }
-      ss[i] = sc;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query head, two positions per lane
-    for (int g = warp; g < G; g += NT / 32) {
-      float* sr = ss + g * TK;
-      const float s0 = sr[lane], s1 = sr[lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = ms[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0v = lane < n ? expf(s0 - m_new) : 0.f;
-      const float p1v = lane + 32 < n ? expf(s1 - m_new) : 0.f;
-      float sum = p0v + p1v;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      sr[lane] = p0v;
-      sr[lane + 32] = p1v;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        as[g] = alpha;
-        ls[g] = ls[g] * alpha + sum;
-        ms[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int k = 0; k < kDecMaxAcc; ++k) {
-      const int o = tid + k * NT;
-      if (o < G * DH) {
-        const int g = o / DH, d = o % DH;
-        const float* pr = ss + g * TK;
-        float a = acc[k] * as[g];
-        for (int t = 0; t < n; ++t) {
-          const float vf = kv1_to_float<KIND>(vs + t * LDB, d);
-          a += pr[t] * (SCALED ? vf * vss[t] : vf);
-        }
-        acc[k] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-  const size_t row0 = (size_t(b) * S + s) * H + h0;   // [B, S, H] row of the chunk's head 0
-#pragma unroll
-  for (int k = 0; k < kDecMaxAcc; ++k) {
-    const int o = tid + k * NT;
-    if (o < G * DH) o_part[(row0 + o / DH) * DH + o % DH] = acc[k];
-  }
-  for (int g = tid; g < G; g += NT) {
-    m_part[row0 + g] = ms[g];
-    l_part[row0 + g] = ls[g];
-  }
+    __nv_bfloat16* __restrict__ out, float* __restrict__ o_part, float* __restrict__ m_part,
+    float* __restrict__ l_part, int* __restrict__ counters, int H, int KV, int bs, int W,
+    int split_len, float scale) {
+  pdec::decode_split<DH, KIND, KSPLIT, true>(q, kpool, vpool, kscale, vscale, table, kv_len,
+                                             slopes, out, o_part, m_part, l_part, counters, H, KV,
+                                             bs, W, split_len, scale);
 }
 
-// Merge of the splits: block (b, h), Dh threads.
-__global__ void split_merge_kernel(const float* __restrict__ o_part,
+// Merge of the splits without the counters: block (b, h), Dh threads.
+__global__ void group_merge_kernel(const float* __restrict__ o_part,
                                    const float* __restrict__ m_part,
                                    const float* __restrict__ l_part,
-                                   __nv_bfloat16* __restrict__ out, int S, int H, int Dh) {
-  const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
-  const size_t r0 = size_t(b) * S * H + h;   // row (b, s=0, h); rows of s step by H
-  float mg = kNeg;
-  for (int s = 0; s < S; ++s) mg = fmaxf(mg, m_part[r0 + size_t(s) * H]);
-  float l = 0.f, o = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const size_t r = r0 + size_t(s) * H;
-    const float w = expf(m_part[r] - mg);
-    l += w * l_part[r];
-    o += w * o_part[r * Dh + d];
-  }
-  out[(size_t(b) * H + h) * Dh + d] = __float2bfloat16(o / fmaxf(l, 1e-30f));
+                                   const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out,
+                                   int S, int H, int Dh, int cap, int split_len) {
+  pdec::merge_partials(o_part, m_part, l_part, kv_len, out, S, H, Dh, cap, split_len, blockIdx.x,
+                       blockIdx.y, threadIdx.x);
 }
+
 
 Mats make_mats(const void* w0, int n0, const void* w1, int n1, const void* w2, int n2) {
   Mats m;
@@ -559,49 +452,60 @@ bool bad_split(int K, int splits, int chunk) {
          (long long)(splits - 1) * chunk >= K;
 }
 
-template <int DH, int KIND>
-cudaError_t launch_split_decode(dim3 grid, size_t smem, cudaStream_t s,
-                                const __nv_bfloat16* q, const void* k, const void* v,
-                                const float* k_scale, const float* v_scale, const int* table,
-                                const int* kv_len, const float* slopes, float* o_part,
-                                float* m_part, float* l_part, int H, int KV, int bs, int W,
-                                int spb, int GC, float scale) {
-  const auto kernel = int(grid.y) > KV ? split_decode_kernel<DH, KIND, true>
-                                        : split_decode_kernel<DH, KIND, false>;
+// The operands of one split-K decode call.
+struct DecodeCall {
+  const __nv_bfloat16* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* table;
+  const int* lens;
+  const float* slopes;
+  __nv_bfloat16* out;
+  float* o;
+  float* m;
+  float* l;
+  int* counters;
+  int H, KV, bs, W, split_len;
+  float scale;
+};
+
+template <int DH, int KIND, bool KSPLIT>
+cudaError_t launch_group_decode_as(const DecodeCall& c, dim3 grid, cudaStream_t s) {
+  using Sm = pdec::DecodeSmem<DH, KIND, KSPLIT>;
+  // the folded merge's m_g and sums, a flag and (where they fit) the weights
+  if (c.counters != nullptr && 16 + 8LL * (c.H / c.KV) > Sm::kRing) return cudaErrorInvalidValue;
+  const auto kernel = group_decode_kernel<DH, KIND, KSPLIT>;
   const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::kBytes);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kDecThreads, smem, s>>>(
-      q, k, v, k_scale, v_scale, table, kv_len, slopes, o_part, m_part, l_part, H, KV, bs, W,
-      spb, scale, GC);
+  kernel<<<grid, pdec::kThreads, Sm::kBytes, s>>>(c.q, c.k, c.v, c.ks, c.vs, c.table, c.lens,
+                                                  c.slopes, c.out, c.o, c.m, c.l, c.counters,
+                                                  c.H, c.KV, c.bs, c.W, c.split_len, c.scale);
   return cudaSuccess;
 }
 
-// The split-K decode instance for (Dh, storage kind).
+// The instance for (Dh, storage kind): the four warps split each key tile
+// where the group is one 16-row MMA tile (G <= 16), as in B2.
 template <int DH>
-cudaError_t launch_split_decode_kind(int kind, dim3 grid, size_t smem, cudaStream_t s,
-                                     const __nv_bfloat16* q, const void* k, const void* v,
-                                     const float* k_scale, const float* v_scale,
-                                     const int* table, const int* kv_len, const float* slopes,
-                                     float* o_part, float* m_part, float* l_part, int H,
-                                     int KV, int bs, int W, int spb, int GC, float scale) {
+cudaError_t launch_group_decode(int kind, const DecodeCall& c, dim3 grid, cudaStream_t s) {
+  const bool ksplit = c.H / c.KV <= 16;
   switch (kind) {
     case KvBf16:
-      return launch_split_decode<DH, KvBf16>(grid, smem, s, q, k, v, k_scale, v_scale, table,
-                                             kv_len, slopes, o_part, m_part, l_part, H, KV, bs,
-                                             W, spb, GC, scale);
+      return ksplit ? launch_group_decode_as<DH, KvBf16, true>(c, grid, s)
+                    : launch_group_decode_as<DH, KvBf16, false>(c, grid, s);
     case KvInt8:
-      return launch_split_decode<DH, KvInt8>(grid, smem, s, q, k, v, k_scale, v_scale, table,
-                                             kv_len, slopes, o_part, m_part, l_part, H, KV, bs,
-                                             W, spb, GC, scale);
+      return ksplit ? launch_group_decode_as<DH, KvInt8, true>(c, grid, s)
+                    : launch_group_decode_as<DH, KvInt8, false>(c, grid, s);
     case KvFp8:
-      return launch_split_decode<DH, KvFp8>(grid, smem, s, q, k, v, k_scale, v_scale, table,
-                                            kv_len, slopes, o_part, m_part, l_part, H, KV, bs,
-                                            W, spb, GC, scale);
+      return ksplit ? launch_group_decode_as<DH, KvFp8, true>(c, grid, s)
+                    : launch_group_decode_as<DH, KvFp8, false>(c, grid, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
 
 }  // namespace
 
@@ -653,59 +557,52 @@ int sxt_fused_qkv_rope_bf16(const void* y, const void* wq, const void* wk, const
 }
 
 // Split-K paged decode. kind: 0 bf16 pool (k_scale = v_scale = null), 1
-// int8, 2 e4m3 (with the f32 scale planes). o_part f32 [B, splits, H, Dh],
-// m_part / l_part f32 [B, splits, H]; splits * spb >= W with
-// spb = ceil(W / splits). Any G = H / KV: a block takes GC = min(G,
-// 1024 / Dh) query heads of its kv head.
+// int8, 2 e4m3 (with the f32 scale planes). The table's W entries split
+// into `splits` runs of spb = ceil(W / splits) entries, none empty. With
+// splits > 1: o_part [B, splits, H, Dh] and m_part / l_part [B, splits, H]
+// f32, and counters [B, KV] int32, all zero (the kernel leaves them zero),
+// or null to merge in a second kernel. Any G = H / KV.
 int sxt_fused_paged_decode(const void* q, const void* k, const void* v, const void* k_scale,
                            const void* v_scale, const void* table, const void* kv_len,
                            const void* slopes, void* out, void* o_part, void* m_part,
-                           void* l_part, int kind, int B, int H, int KV, int Dh, int bs, int W,
-                           int splits, float scale, void* stream) {
+                           void* l_part, void* counters, int kind, int B, int H, int KV, int Dh,
+                           int bs, int W, int splits, float scale, void* stream) {
   if (B <= 0) return 0;
-  if (KV <= 0 || H % KV || splits < 1 || W < 1 ||
+  const int spb = splits < 1 ? 0 : (W + splits - 1) / splits;
+  if (KV <= 0 || H % KV || splits < 1 || W < 1 || bs < 1 || (splits - 1) * spb >= W ||
       kind < KvBf16 || kind > KvFp8 || (kind == KvBf16) != (k_scale == nullptr) ||
-      (k_scale == nullptr) != (v_scale == nullptr))
+      (k_scale == nullptr) != (v_scale == nullptr) ||
+      (splits > 1 && (o_part == nullptr || m_part == nullptr || l_part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = H / KV;
-  const int GC = decode_chunk(G, Dh);
-  const int spb = (W + splits - 1) / splits;
-  const dim3 grid(B, KV * ((G + GC - 1) / GC), splits);
-  const size_t smem = size_t(2) * TK * (size_t(Dh) * (kind == KvBf16 ? 2 : 1) + 16) +
-                      size_t(2 * TK + GC * Dh + GC * TK + 3 * GC) * sizeof(float);
+  const DecodeCall c{static_cast<const __nv_bfloat16*>(q), k, v,
+                     static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                     static_cast<const int*>(table), static_cast<const int*>(kv_len),
+                     static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out),
+                     static_cast<float*>(o_part), static_cast<float*>(m_part),
+                     static_cast<float*>(l_part), splits > 1 ? static_cast<int*>(counters) : nullptr,
+                     H, KV, bs, W, spb * bs, scale};
+  const dim3 grid(B, KV, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* ksp = static_cast<const float*>(k_scale);
-  const auto* vsp = static_cast<const float*>(v_scale);
-  const auto* tp = static_cast<const int*>(table);
-  const auto* lp = static_cast<const int*>(kv_len);
-  const auto* slp = static_cast<const float*>(slopes);
-  auto* op = static_cast<float*>(o_part);
-  auto* mp = static_cast<float*>(m_part);
-  auto* lsp = static_cast<float*>(l_part);
   cudaError_t err;
   if (Dh == 256)   // GPT-J-6B
-    err = launch_split_decode_kind<256>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
-                                        op, mp, lsp, H, KV, bs, W, spb, GC, scale);
+    err = launch_group_decode<256>(kind, c, grid, s);
   else if (Dh == 128)
-    err = launch_split_decode_kind<128>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
-                                        op, mp, lsp, H, KV, bs, W, spb, GC, scale);
+    err = launch_group_decode<128>(kind, c, grid, s);
   else if (Dh == 64)
-    err = launch_split_decode_kind<64>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
-                                       op, mp, lsp, H, KV, bs, W, spb, GC, scale);
+    err = launch_group_decode<64>(kind, c, grid, s);
   else if (Dh == 96)   // Phi-3-mini
-    err = launch_split_decode_kind<96>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
-                                       op, mp, lsp, H, KV, bs, W, spb, GC, scale);
+    err = launch_group_decode<96>(kind, c, grid, s);
   else if (Dh == 80)   // Pythia-2.8b
-    err = launch_split_decode_kind<80>(kind, grid, smem, s, qp, k, v, ksp, vsp, tp, lp, slp,
-                                       op, mp, lsp, H, KV, bs, W, spb, GC, scale);
+    err = launch_group_decode<80>(kind, c, grid, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess) return static_cast<int>(err);
-  split_merge_kernel<<<dim3(B, H), Dh, 0, s>>>(op, mp, lsp, static_cast<__nv_bfloat16*>(out),
-                                               splits, H, Dh);
+  if (splits > 1 && c.counters == nullptr)
+    group_merge_kernel<<<dim3(B, H), Dh, 0, s>>>(c.o, c.m, c.l, c.lens, c.out, splits, H, Dh,
+                                                 W * bs, spb * bs);
   return static_cast<int>(cudaGetLastError());
 }
+
 
 // Norm + MLP + residual: gated (w_gate given: act(g) * u) or plain (w_gate
 // null: act(u)); norm 0 RMSNorm, 1 layernorm (ln_b may be null), 2 none

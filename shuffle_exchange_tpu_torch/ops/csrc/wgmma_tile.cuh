@@ -16,6 +16,14 @@
 //     a k-step of 16, 8-row groups 1024 bytes apart (SBO), LBO unused;
 //   MN-major (the reduction along rows): start + 16 rows a k-step, 8-row
 //     groups 1024 bytes apart (SBO), 64-column blocks LBO bytes apart.
+// A head dim that is not a multiple of 64 (80, 96) adds one narrow tail
+// block after the full ones, also on a 1024-byte boundary: [rows, 32] in the
+// 64-byte swizzle (rows 64 bytes apart, chunk c of row r at c ^ (r / 2 % 4),
+// 8-row groups 512 bytes apart) or [rows, 16] in the 32-byte swizzle (rows
+// 32 bytes apart, chunk c at c ^ (r / 4 % 2), 8-row groups 256 bytes apart),
+// written by a TMA box of {32 or 16 columns, rows} in that swizzle and read
+// by descriptors of the same swizzle (desc_k<SW>, desc_mn<SW>): K-major with
+// 32 bytes a k-step inside a 64-byte row, MN-major with 16 rows a k-step.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums (types only: nothing links libcuda)
@@ -143,21 +151,32 @@ __device__ __forceinline__ void regs_alloc() {
 
 // ---- wgmma ------------------------------------------------------------------
 
+// The descriptor's layout field for a swizzle of SW bytes (128: 1, 64: 2,
+// 32: 3); its 8-row groups are 8 * SW bytes apart.
+template <int SW>
+__host__ __device__ constexpr uint64_t swizzle_layout() {
+  static_assert(SW == 128 || SW == 64 || SW == 32, "swizzles: 128, 64 or 32 bytes");
+  return SW == 128 ? 1 : SW == 64 ? 2 : 3;
+}
+
+template <int SW = kSwizzleBytes>
 __device__ __forceinline__ uint64_t desc_encode(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(sbo >> 4) << 32) | (uint64_t(1) << 62);   // layout 1: 128-byte swizzle
+         (uint64_t(sbo >> 4) << 32) | (swizzle_layout<SW>() << 62);
 }
 
 // A K-major operand whose rows start at `p` (a row of a column block,
-// plus 32 bytes per k-step within the block).
+// plus 32 bytes per k-step within the block), in the SW-byte swizzle.
+template <int SW = kSwizzleBytes>
 __device__ __forceinline__ uint64_t desc_k(const void* p) {
-  return desc_encode(saddr(p), 16, 8 * kSwizzleBytes);
+  return desc_encode<SW>(saddr(p), 16, 8 * SW);
 }
 
 // An MN-major operand whose k-rows start at `p` (a row of a column block),
-// its 64-column blocks `block_bytes` apart.
+// its column blocks `block_bytes` apart, in the SW-byte swizzle.
+template <int SW = kSwizzleBytes>
 __device__ __forceinline__ uint64_t desc_mn(const void* p, uint32_t block_bytes) {
-  return desc_encode(saddr(p), block_bytes, 8 * kSwizzleBytes);
+  return desc_encode<SW>(saddr(p), block_bytes, 8 * SW);
 }
 
 __device__ __forceinline__ void mma_fence() {
@@ -288,6 +307,57 @@ __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
 }
 
+// d[0:8] (+)= A (64 x 16 from registers: each warp's 16 rows as the m16n8k16 A
+// fragment) * B (16 x 16 from shared memory; TB as above).
+template <int TB>
+__device__ __forceinline__ void mma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+// d[0:16] (+)= A (64 x 16 from registers: each warp's 16 rows as the m16n8k16 A
+// fragment) * B (16 x 32 from shared memory; TB as above).
+template <int TB>
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+// d[0:32] (+)= A (64 x 16 from registers: each warp's 16 rows as the m16n8k16 A
+// fragment) * B (16 x 64 from shared memory; TB as above).
+template <int TB>
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
 // d[0:64] (+)= A (64 x 16 from registers: each warp's 16 rows as the m16n8k16 A
 // fragment) * B (16 x 128 from shared memory; TB as above).
 template <int TB>
@@ -330,8 +400,12 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t 
 template <int N, int TB>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                        int acc) {
-  static_assert(N == 128, "wgmma width built (register A): 128");
-  mma_rs_n128<TB>(d, a, db, acc);
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma widths built (register A): 16, 32, 64, 128");
+  if constexpr (N == 16) mma_rs_n16<TB>(d, a, db, acc);
+  else if constexpr (N == 32) mma_rs_n32<TB>(d, a, db, acc);
+  else if constexpr (N == 64) mma_rs_n64<TB>(d, a, db, acc);
+  else mma_rs_n128<TB>(d, a, db, acc);
 }
 
 // Byte offset of (row r, bf16 column c) in a [rows, 64] column block.
@@ -370,19 +444,26 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // The map of a bf16 tensor [batch, rows, cols] (contiguous) read in boxes of
-// {64 columns, box_rows rows, 1} into the 128-byte swizzle. Rows past `rows`
-// read as zeros: a box at a sequence's end never reaches the next sequence.
+// {box_cols columns, box_rows rows, 1} into the swizzle of one box row's
+// bytes: 64 columns into the 128-byte swizzle, 32 into the 64-byte one, 16
+// into the 32-byte one (a tile's narrow tail block). Rows past `rows` read
+// as zeros: a box at a sequence's end never reaches the next sequence.
 inline cudaError_t tile_map_3d(CUtensorMap* map, const void* base, int batch, int rows,
-                               long long cols, int box_rows) {
+                               long long cols, int box_rows, int box_cols = wg::kBlockCols) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                      : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE) return cudaErrorInvalidValue;
   const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(batch)};
   const cuuint64_t strides[2] = {cuuint64_t(cols) * 2, cuuint64_t(cols) * 2 * rows};
-  const cuuint32_t box[3] = {cuuint32_t(wg::kBlockCols), cuuint32_t(box_rows), 1};
+  const cuuint32_t box[3] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -11,10 +11,11 @@ or 256 forward and backward (GPT-J-6B serves and trains at 256), and 80 and
 package runs its jnp reference: the port's own route on the card; the
 backward refuses them, naming ROADMAP queue A, item 4 (h)). The kernels
 live in ``ops/csrc/flash_attention.cu`` (whose header says what bounds them
-on the H100 and how the design answers it): the dense forms at head dims
-128 and 256 run warp-specialised wgmma kernels over TMA-fed tiles, the
-element-mask forms and the other head dims ``mma.sync`` kernels over
-64 x 64 tiles. ``_build`` compiles that file with ``nvcc`` at first use and
+on the H100 and how the design answers it): the dense forward at every
+head dim and the dense backward at 128 and 256 run warp-specialised wgmma
+kernels over TMA-fed tiles (at 80 and 96 a tile's last 16 or 32 columns
+are a narrow tail block), the element-mask forms and the backward at 64
+``mma.sync`` kernels over 64 x 64 tiles. ``_build`` compiles that file with ``nvcc`` at first use and
 this module binds it with ctypes.
 
 ``flash_attention`` is differentiable: when an input requires grad, a CUDA

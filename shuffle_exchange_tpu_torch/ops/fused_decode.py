@@ -58,7 +58,7 @@ import torch.nn.functional as F
 
 from .dispatch import use_kernel
 from .paged_attention import (HEAD_DIM_LATER, HEAD_DIMS, _alibi_bias, _sms, alibi_operand,
-                              decode_head_chunk, gather_kv, pool_kind, scale_kw, scales_given)
+                              decode_splits, gather_kv, pool_kind, scale_kw, scales_given)
 from .quant_matmul import QuantizedMatrix, check_storage, quant_splits
 
 _NEG = -1e30     # the TPU kernels' finite mask sentinel
@@ -293,14 +293,14 @@ def fused_paged_decode_attention(q, ck, cv, block_table, kv_len, *,
                                  k_scale=None, v_scale=None):
     """Split-K paged decode: q [B,1,H,Dh] against one layer of the pool
     ck/cv [nblk,KV,bs,Dh] through block_table [B,W]; kv_len [B] ->
-    [B,1,H,Dh]. ``num_splits`` defaults to the split count that fills the
-    card's SMs (on the CPU, JAX's default of 2); the result does not
-    depend on it beyond rounding. ``alibi_slopes`` [H] add ``slope_h * j``
-    at logical key position j; ``k_scale`` / ``v_scale`` [nblk,KV,bs] f32
-    dequantize an int8 or e4m3 pool; head_dim 64, 80, 96, 128 or 256, any
-    query-head group ``G = H / KV`` (a block takes
-    ``decode_head_chunk(G, Dh)`` heads of it). The CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    [B,1,H,Dh]. ``num_splits`` (JAX's: split s covers the table entries
+    [s * spb, (s + 1) * spb)) defaults to :func:`attention_splits` on the
+    card (on the CPU, JAX's default of 2); the result does not depend on it
+    beyond rounding. ``alibi_slopes`` [H] add ``slope_h * j`` at logical key
+    position j; ``k_scale`` / ``v_scale`` [nblk,KV,bs] f32 dequantize an int8
+    or e4m3 pool; head_dim 64, 80, 96, 128 or 256, any query-head group
+    ``G = H / KV`` (a block holds the whole group: ``decode_passes``). The
+    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
     scales_given(k_scale, v_scale)
     if not use_kernel(q):
         return fused_paged_decode_reference(q, ck, cv, block_table, kv_len,
@@ -395,7 +395,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "sxt_fused_qkv_rope_bf16": [_P] * 17 + [_I] * 10 + [_P],
-    "sxt_fused_paged_decode": [_P] * 12 + [_I] * 8 + [_F, _P],
+    "sxt_fused_paged_decode": [_P] * 13 + [_I] * 8 + [_F, _P],
     "sxt_fused_mlp_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
     "sxt_fused_mlp_quant_bf16": [_P] * 15 + [_I] * 11 + [_F, _P],
 }
@@ -432,12 +432,50 @@ def gemv_splits(K: int, n_cols: Tuple[int, ...], sms: int) -> Tuple[int, int]:
     return -(-K // chunk), chunk
 
 
-def attention_splits(B: int, KV: int, width: int, sms: int, chunks: int = 1) -> int:
-    """The split count for the card: enough (sequence, kv head, head
-    chunk, split) blocks for two per SM, capped by the table width;
-    ``chunks`` is the blocks a kv head's query-head group takes
-    (``decode_head_chunk``), 1 wherever the group fits one block."""
-    return split_count(width, -(-2 * sms // max(1, B * KV * chunks)))[0]
+def attention_splits(B: int, KV: int, width: int, bs: int, sms: int) -> int:
+    """The split count the wrapper gives the kernel on a card of ``sms``
+    SMs: the table-entry splits nearest B2's positions per split
+    (:func:`decode_splits`: 256 positions, down to 128 where the (sequence,
+    kv head, split) blocks would not reach one an SM, one split where the
+    (sequence, kv head) blocks reach two an SM), whole table entries of
+    ``bs`` positions and at least one a split."""
+    per = decode_splits(B, KV, width, bs, sms)[1]
+    spb = max(1, per // bs)
+    return split_count(width, -(-width // spb))[0]
+
+
+#: the folded merge's limits: the f32 partials (G * Dh * splits values) the
+#: last split of a (sequence, kv head) reads back, and the grid's blocks
+#: an SM. Past either the merge runs as a second kernel, over the whole
+#: card. On the H100 (scripts/torch_kernel_digest.py --sections paged) the
+#: fold ran up to 7% faster at Llama-3-8B's 512 blocks (4 x 128 heads in 8
+#: splits: 4K values), within 4% either way at a 16/2 x 64 group's 176,
+#: took 1.6x the merge launch's time at Falcon-7B's 73K values (71 x 64
+#: heads in 16 splits: one block's loads in series), and ran mostly 1-5%
+#: slower at 1,024-2,048 blocks (GPT-J-6B's, Phi-3-mini's, Pythia-2.8b's and
+#: BLOOM-1b7's 16-32 kv heads in 8 splits).
+FOLD_MAX_PARTIALS = 16384
+FOLD_MAX_BLOCKS_PER_SM = 4
+#: the counters of the folded merge, one int32 a (sequence, kv head), zero
+#: between calls, kept per (device, stream)
+_COUNTERS = {}
+
+
+def folds(B: int, KV: int, G: int, Dh: int, splits: int, sms: int) -> bool:
+    """Whether the split-K decode merges in its last split (else a second
+    kernel merges): more than one split, at most FOLD_MAX_PARTIALS partial
+    values a (sequence, kv head) and at most FOLD_MAX_BLOCKS_PER_SM blocks
+    an SM."""
+    return (splits > 1 and G * Dh * splits <= FOLD_MAX_PARTIALS
+            and B * KV * splits <= FOLD_MAX_BLOCKS_PER_SM * sms)
+
+
+def _counters(dev, stream: int, n: int) -> torch.Tensor:
+    have = _COUNTERS.get((dev, stream))
+    if have is None or have.numel() < n:
+        have = _COUNTERS[(dev, stream)] = torch.zeros(max(n, 64), device=dev,
+                                                      dtype=torch.int32)
+    return have
 
 
 def _bf16(name, t, device, shape=None):
@@ -538,7 +576,10 @@ def _launch_qkv(y, wq, wk, wv, cos, sin, pool_k, pool_v, block_table, pos, H, KV
 
 
 def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=None,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, fold: Optional[bool] = None):
+    """One launch of the split-K decode kernel; the merge folds into each
+    last split where :func:`folds` says so (``fold`` True / False forces
+    it, or a second merge kernel)."""
     dev = q.device
     B, one, H, Dh = q.shape
     if one != 1:
@@ -555,21 +596,22 @@ def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=N
     lens = _index(kv_len, B, dev, "kv_len")
     slopes = alibi_operand(alibi_slopes, H, dev, "split-K decode kernel")
     W = table.shape[1]
-    if num_splits is None:
-        splits = attention_splits(B, KV, W, _sms(dev), decode_head_chunk(H // KV, Dh)[1])
-    else:
-        splits = split_count(W, num_splits)[0]
+    splits = split_count(W, attention_splits(B, KV, W, bs, _sms(dev)) if num_splits is None
+                         else num_splits)[0]
     out = torch.empty_like(q)
-    o_part = torch.empty(B, splits, H, Dh, device=dev, dtype=torch.float32)
-    m_part = torch.empty(B, splits, H, device=dev, dtype=torch.float32)
-    l_part = torch.empty(B, splits, H, device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part, counters = [None] * 3, None
+    if splits > 1:   # the splits' f32 acc, m and l, one buffer
+        rows = B * splits * H
+        buf = torch.empty(rows * (Dh + 2), device=dev, dtype=torch.float32)
+        part = [buf.data_ptr() + 4 * rows * off for off in (0, Dh, Dh + 1)]
+        if folds(B, KV, H // KV, Dh, splits, _sms(dev)) if fold is None else fold:
+            counters = _counters(dev, stream, B * KV).data_ptr()
     lib = _lib()
     err = lib.sxt_fused_paged_decode(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-        table.data_ptr(), lens.data_ptr(), _ptr(slopes), out.data_ptr(), o_part.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), store, B, H, KV, Dh, bs, W, splits,
-        float(Dh) ** -0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
+        table.data_ptr(), lens.data_ptr(), _ptr(slopes), out.data_ptr(), *part, counters, store,
+        B, H, KV, Dh, bs, W, splits, float(Dh) ** -0.5, stream)
     _raise_on(err, lib, "split-K decode")
     return out
 
@@ -649,6 +691,6 @@ def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, no
 
 
 __all__ = ["FUSABLE_ACTIVATIONS", "fused_mlp", "fused_mlp_quant", "fused_mlp_quant_reference", "fused_mlp_reference",
-           "fused_paged_decode_attention", "fused_paged_decode_reference", "fused_qkv_rope",
+           "folds", "fused_paged_decode_attention", "fused_paged_decode_reference", "fused_qkv_rope",
            "fused_qkv_rope_reference", "gemv_splits", "attention_splits", "mlp_weights_fusable",
            "split_count", "rope_heads"]

@@ -246,9 +246,9 @@ HEAD_DIMS = (64, 80, 96, 128, 256)
 #: what a head dim outside HEAD_DIMS waits for
 HEAD_DIM_LATER = ("ROADMAP queue A, item 4 (h): the paged and split-K kernels are built at "
                   "head dims that are multiples of 16")
-#: query-head columns (heads x head_dim) one block of the split-K decode
-#: kernel (B5, ``ops/fused_decode.py``) accumulates, at most
-DECODE_CHUNK_COLS = 1024
+#: query heads a decode block (B2 and B5: ``csrc/paged_decode.cuh``) takes in
+#: one pass past a group of 16: 128 at head_dim <= 96, 64 above (registers)
+DECODE_PASS_HEADS = {64: 128, 80: 128, 96: 128, 128: 64, 256: 64}
 #: the decode kernel's splits are whole multiples of this many positions
 DECODE_SPLIT_UNIT = 16
 #: positions of a decode split, and the fewest a split is cut to where the
@@ -256,14 +256,14 @@ DECODE_SPLIT_UNIT = 16
 DECODE_SPLIT_LEN, DECODE_SPLIT_MIN = 256, 128
 
 
-def decode_head_chunk(G: int, Dh: int) -> Tuple[int, int]:
-    """(query heads a block of the split-K decode kernel takes, blocks a kv
-    head's group needs): the whole group when ``G * Dh <=
-    DECODE_CHUNK_COLS``, else chunks of ``DECODE_CHUNK_COLS // Dh`` heads
-    (``paged_tile.cuh:decode_chunk``). The paged decode kernel takes the
-    whole group in one block."""
-    gc = min(G, DECODE_CHUNK_COLS // Dh)
-    return gc, -(-G // gc)
+def decode_passes(G: int, Dh: int) -> Tuple[int, int]:
+    """(query heads a pass of a decode block takes, passes): a block of the
+    paged decode kernels (B2, B5) holds the whole query-head group of its kv
+    head, in one pass up to ``DECODE_PASS_HEADS[Dh]`` heads (any group of 16
+    or fewer: one MMA row tile), walking its split again for the next heads
+    past that (``paged_decode.cuh: DecodeShape``)."""
+    per = G if G <= 16 else min(G, DECODE_PASS_HEADS[Dh])
+    return per, -(-G // per)
 
 
 def decode_splits(B: int, KV: int, width: int, bs: int, sms: int) -> Tuple[int, int]:

@@ -313,20 +313,23 @@ def test_wide_group_split_decode_plain_matches_pallas(H, KV, Dh, splits, pool):
 
 @pytest.mark.parametrize("H,KV,Dh", GROUPS + [(8, 8, 128)], ids=GROUP_IDS + ["mha"])
 def test_decode_head_chunks_and_split_counts(H, KV, Dh):
-    """A decode block takes the whole group up to 1024 columns, else
-    1024 / Dh heads; the split count counts the chunks and stays what it
-    was wherever the group fits one block."""
+    """A decode block (B2 and B5) takes the whole group in one pass up to
+    128 heads at head_dim <= 96 (64 above), walking its split again past
+    that; B5's split count is B2's positions per split in whole table
+    entries and does not depend on the group (Falcon-7B's 8 rows of 32
+    entries of 64 positions on 132 SMs: 8 (sequence, kv head) blocks, so
+    splits of 128 positions, 2 entries: 16 splits)."""
     G = H // KV
-    gc, n = tpa.decode_head_chunk(G, Dh)
-    assert gc * Dh <= 1024 and (gc == G) == (G * Dh <= 1024)
-    assert (n - 1) * gc < G <= n * gc
+    per, n = tpa.decode_passes(G, Dh)
+    assert (n - 1) * per < G <= n * per
+    assert n == 1 and per == G   # every group here fits one pass
     for B, W in ((8, 32), (1, 32), (8, 4)):
-        splits = tfd.attention_splits(B, KV, W, 132, n)
-        assert splits == tfd.split_count(W, -(-264 // (B * KV * n)))[0]
-        if n == 1:
-            assert splits == tfd.attention_splits(B, KV, W, 132)
+        splits = tfd.attention_splits(B, KV, W, 64, 132)
+        spb = max(1, tpa.decode_splits(B, KV, W, 64, 132)[1] // 64)
+        assert splits == tfd.split_count(W, -(-W // spb))[0]
+        assert (splits - 1) * spb < W <= splits * spb   # none empty, the table covered
     if (H, KV, Dh) == (71, 1, 64):
-        assert (gc, n) == (16, 5) and tfd.attention_splits(8, 1, 32, 132, n) == 7
+        assert tfd.attention_splits(8, 1, 32, 64, 132) == 16
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,16 @@
-"""The flash forward and backward redesigned for Hopper (the dense forms at
-head dims 128 and 256: warp-specialised wgmma kernels over TMA-fed tiles,
+"""The flash forward and backward redesigned for Hopper (the dense forward
+at head dims 64, 80, 96, 128 and 256 and the dense backward at 128 and 256:
+warp-specialised wgmma kernels over TMA-fed tiles,
 ``ops/csrc/flash_attention.cu``), on the CPU: what of their design can be
 held without the card.
 
 - Each instance's shared memory, from a mirror of the launchers' formula
   (``wgmma_smem_bytes``), fits an H100 block (232,448 B) and equals the
   CUDA source's (the ``WgFwd`` / ``WgDq`` / ``WgDkv`` structs' expressions
-  evaluated), and so do the tile shapes it mirrors.
+  evaluated), and so do the tile shapes it mirrors; at 80 and 96 a tile's
+  column blocks (one full 64-column block in the 128-byte swizzle and a
+  16- or 32-column tail in the 32- or 64-byte swizzle) cover the head dim,
+  each within its swizzle's TMA box and on a 1024-byte boundary.
 - A mirror of the block schedules: query tiles of one head (128 rows at
   head dim 128, 64 at 256), grouped by (sequence, kv head) and longest
   first within the group under a causal mask, every (sequence, head, tile)
@@ -15,13 +19,15 @@ held without the card.
   diagonal; the dk/dv pass's blocks grouped by (sequence, kv head), key
   tile 0 first, and its iterations visit every (query head of the group,
   query tile at or below the diagonal) once, heads in ascending order.
-- A plain mirror of the new arithmetic in f32 (the log2-domain online
-  softmax over the row blocks and 64-key tiles with the rescale
+- A plain mirror of the new arithmetic in f32 (S summed over the column
+  blocks in k-step order, O's column blocks side by side; the log2-domain
+  online softmax over the row blocks and 64-key tiles with the rescale
   2^(m - m_new) and masked probabilities exactly 0; the dk/dv pass with
   its query split and head-dim column split between two warpgroups and its
   fixed group-sum order; the dq pass over its row blocks) equals JAX
-  ``reference_attention`` (its ``jax.vjp`` for the gradients) and
-  ``splash_attention_gqa`` in interpret mode within 1e-5.
+  ``reference_attention`` (its ``jax.vjp`` for the gradients) and, at the
+  head dims splash takes (multiples of 64), ``splash_attention_gqa`` in
+  interpret mode within 1e-5.
 - The wrappers hand the C entry points the operands, shapes, causal flag
   and scale, and the backward an f32 [B, H, T] delta buffer.
 """
@@ -45,8 +51,10 @@ NEG = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 WG_ROWS = 64        # rows (or, in the dk/dv pass, head-dim halves) a consumer warpgroup
-# the head dims whose dense forms (no element mask) run the wgmma kernels
-WGMMA_HEAD_DIMS = (128, 256)
+# the head dims whose dense forms (no element mask) run the wgmma kernels:
+# the forward at all of them, the backward at WGMMA_BWD_HEAD_DIMS
+WGMMA_HEAD_DIMS = (64, 80, 96, 128, 256)
+WGMMA_BWD_HEAD_DIMS = (128, 256)
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block can have
 _SLACK = 1024         # the kernels align their tiles to the 1024-byte swizzle period
 
@@ -55,15 +63,28 @@ def wgmma_tiles(dh: int) -> dict:
     """The wgmma kernels' blocks at head dim ``dh`` (flash_attention.cu's
     ``WgFwd`` / ``WgDq`` / ``WgDkv``): ``fwd`` and ``dq`` -> (query rows a
     block, keys a ring tile, ring slots), ``dkv`` -> (keys a block, query
-    rows a ring tile, ring slots). Two consumer warpgroups take 64 rows
-    each at 128; at 256 (and always in the dk/dv pass) they split the
-    head-dim columns of the accumulators instead."""
+    rows a ring tile, ring slots); ``dq`` and ``dkv`` only where the
+    backward is built. Two consumer warpgroups take 64 rows each below 256;
+    at 256 (and always in the dk/dv pass) they split the head-dim columns
+    of the accumulators instead."""
     if dh not in WGMMA_HEAD_DIMS:
         raise ValueError(f"no wgmma flash kernel at head_dim {dh} {WGMMA_HEAD_DIMS}")
     wide = dh == 256
-    return {"fwd": (64 if wide else 128, 64, 4 if wide else 8),
-            "dq": (64 if wide else 128, 64, 3 if wide else 8),
-            "dkv": (64, 64, 4 if wide else 8)}
+    tiles = {"fwd": (64 if wide else 128, 64, 4 if wide else 8)}
+    if dh in WGMMA_BWD_HEAD_DIMS:
+        tiles.update(dq=(64 if wide else 128, 64, 3 if wide else 8), dkv=(64, 64, 4 if wide else 8))
+    return tiles
+
+
+def column_blocks(dh: int) -> list:
+    """A tile's column blocks at head dim ``dh``: (first column, columns,
+    swizzle bytes): dh // 64 full blocks of 64 columns in the 128-byte
+    swizzle, then a tail of dh % 64 columns (16: the 32-byte swizzle, 32:
+    the 64-byte one), whose rows are as many bytes as its swizzle."""
+    blocks = [(64 * i, 64, 128) for i in range(dh // 64)]
+    if dh % 64:
+        blocks.append((dh - dh % 64, dh % 64, 2 * (dh % 64)))
+    return blocks
 
 
 def wgmma_smem_bytes(which: str, dh: int) -> int:
@@ -77,7 +98,11 @@ def wgmma_smem_bytes(which: str, dh: int) -> int:
     P^T / dS^T tiles, two sets of them at 128, and each consumer's two
     staged lse / delta rows) and the ring's mbarriers (8 bytes each: full
     and empty a slot, one more for the resident tiles)."""
-    rows, cols, slots = wgmma_tiles(dh)[which]
+    tiles = wgmma_tiles(dh)
+    if which not in tiles:
+        raise ValueError(f"no wgmma flash kernel for the {which} pass at head_dim {dh} "
+                         f"{WGMMA_BWD_HEAD_DIMS}")
+    rows, cols, slots = tiles[which]
     resident = {"fwd": 1, "dq": 2, "dkv": 2}[which] * rows * dh * 2
     if which == "dkv":   # two sets of P^T / dS^T tiles at 128, one at 256
         exchange = (1 if dh == 256 else 2) * 4 * rows * cols * 2 + 2 * 2 * cols * 4
@@ -88,7 +113,8 @@ def wgmma_smem_bytes(which: str, dh: int) -> int:
     return _SLACK + resident + slots * cols * dh * 2 + exchange + 8 * (2 * slots + 1)
 
 
-KNOWN_SMEM = {("fwd", 128): 165000, ("fwd", 256): 230472, ("dq", 128): 197768,
+KNOWN_SMEM = {("fwd", 64): 83080, ("fwd", 80): 103560, ("fwd", 96): 124040,
+              ("fwd", 128): 165000, ("fwd", 256): 230472, ("dq", 128): 197768,
               ("dq", 256): 230456, ("dkv", 128): 231560, ("dkv", 256): 231496}
 # the CUDA source's constants its structs' expressions use
 SOURCE_CONSTANTS = {"kConsumerWgs": 2, "kAlign": 1024}
@@ -102,19 +128,22 @@ SOURCE_CONSTANTS = {"kConsumerWgs": 2, "kAlign": 1024}
 def _source_tiles(struct: str, dh: int) -> dict:
     """The constants of a ``Wg*`` struct of the CUDA source at head dim dh,
     each evaluated from its C expression in order (``a ? b : c`` as
-    Python's conditional)."""
+    Python's conditional, ``/`` as C's integer division)."""
     body = open(CU).read().split(f"struct {struct} {{", 1)[1].split("};", 1)[0]
     env = dict(SOURCE_CONSTANTS, DH=dh)
     for decl in re.findall(r"static constexpr (?:int|bool) ([^;]+);", body):
         for name, expr in re.findall(r"(\w+) =\s*((?:[^,(]|\([^)]*\))+)", decl):
             expr = " ".join(expr.split())
             expr = re.sub(r"^(.*?) \? (.*?) : (.*)$", r"(\2) if (\1) else (\3)", expr)
+            expr = re.sub(r"(?<!/)/(?!/)", "//", expr)   # C's integer division
             env[name] = eval(expr, {}, env)
     return env
 
 
-@pytest.mark.parametrize("dh", WGMMA_HEAD_DIMS)
-@pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])
+SMEM_CASES = [(which, dh) for dh in WGMMA_HEAD_DIMS for which in wgmma_tiles(dh)]
+
+
+@pytest.mark.parametrize("which,dh", SMEM_CASES, ids=[f"{w}-{d}" for w, d in SMEM_CASES])
 def test_shared_memory_fits_a_block_and_matches_the_source(which, dh):
     smem = wgmma_smem_bytes(which, dh)
     assert smem <= SMEM_LIMIT == 232448
@@ -126,16 +155,47 @@ def test_shared_memory_fits_a_block_and_matches_the_source(which, dh):
     else:
         assert (src["BM"], src["BN"], src["SLOTS"]) == (rows, cols, slots)
     assert src["SMEM"] == smem            # the mirror is the launcher's formula
-    assert rows % WG_ROWS == 0 and cols % 16 == 0 and dh % 64 == 0
+    assert rows % WG_ROWS == 0 and cols % 16 == 0 and dh % 16 == 0
+    if which == "fwd":   # full column blocks and the tail block
+        assert (src["CB"], src["TAIL"]) == (dh // 64, dh % 64)
+        assert src["CB"] * 64 + src["TAIL"] == dh
     # every ring tile is 32 KB at 256 (the budget the slot counts are cut to)
     if dh == 256:
         assert cols * dh * 2 == 32768
 
 
 def test_wgmma_tiles_refuse_other_head_dims():
+    """What stays unbuilt: the wgmma backward at 64, 80 and 96 (64 runs the
+    mma.sync backward; 80 and 96 have none), and head dims that are not
+    multiples of 16, such as 72."""
     for dh in (64, 80, 96):
+        for which in ("dq", "dkv"):
+            with pytest.raises(ValueError, match="no wgmma flash kernel"):
+                wgmma_smem_bytes(which, dh)
+    for dh in (72, 48, 512):
         with pytest.raises(ValueError, match="no wgmma flash kernel"):
             wgmma_tiles(dh)
+
+
+@pytest.mark.parametrize("dh", WGMMA_HEAD_DIMS)
+def test_column_blocks_cover_the_head_dim_within_their_swizzles(dh):
+    """A tile's column blocks tile [0, dh) in order; each block's row is
+    exactly its swizzle's bytes (the TMA box's inner dimension may not pass
+    the swizzle span), the tail's k-steps are whole (16 columns), and every
+    block of a 64-, 128- or BM-row tile starts on a 1024-byte boundary."""
+    blocks = column_blocks(dh)
+    assert [c0 for c0, _, _ in blocks] == list(np.cumsum([0] + [n for _, n, _ in blocks[:-1]]))
+    assert sum(n for _, n, _ in blocks) == dh
+    src = _source_tiles("WgFwd", dh)
+    for c0, n, swizzle in blocks:
+        assert 2 * n == swizzle and swizzle in (32, 64, 128) and n % 16 == 0
+    for rows in (64, src["BM"]):
+        starts = np.cumsum([0] + [rows * sw for _, _, sw in blocks[:-1]])
+        assert all(int(x) % 1024 == 0 for x in starts)
+        assert sum(rows * sw for _, _, sw in blocks) == rows * dh * 2   # the tile's bytes
+    # a consumer's 64 rows of the tail start on the tail swizzle's 8-row period
+    c0, n, swizzle = blocks[-1]
+    assert (64 * swizzle) % (8 * swizzle) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +249,7 @@ def dkv_iterations(kt, kvh, n_rep, T, causal, BQ=64):
                                         (200, 1000, False), (37, 37, False)])
 def test_forward_and_dq_blocks_cover_every_tile_once_longest_first(dh, T, S, causal):
     B, H, KV = 2, 4, 2
-    for which in ("fwd", "dq"):
+    for which in [w for w in ("fwd", "dq") if w in wgmma_tiles(dh)]:
         BM, BN, _ = wgmma_tiles(dh)[which]
         blocks = fwd_blocks(B, T, H, causal, BM, KV)
         assert sorted(blocks) == sorted({(b, h, qt) for b in range(B) for h in range(H)
@@ -291,7 +351,9 @@ def mirror_forward(q, k, v, causal, seg=None):
                 k0 = j * BN
                 keys = torch.arange(k0, k0 + BN)
                 kt, vt = _rows(k[b, :, kvh], k0, BN), _rows(v[b, :, kvh], k0, BN)
-                s = (qs @ kt.T) * sl2
+                # S over the column blocks in k-step order (a tail block last)
+                s = sum(qs[:, c0:c0 + n] @ kt[:, c0:c0 + n].T for c0, n, _ in column_blocks(Dh))
+                s = s * sl2
                 masked = (causal and k0 + BN - 1 > r0) or k0 + BN > S or sb is not None
                 if masked:   # rows past T are not masked here: the kernel writes none of them
                     s = torch.where(_allowed(rows, keys, S, 1 << 30, causal, sb), s,
@@ -302,7 +364,9 @@ def mirror_forward(q, k, v, causal, seg=None):
                 if masked:
                     p = torch.where(s <= NEG, torch.zeros(()), p)
                 l = l * al + p.sum(1)
-                acc = acc * al[:, None] + p @ vt
+                # O's column blocks side by side (the tail's own product)
+                pv = torch.cat([p @ vt[:, c0:c0 + n] for c0, n, _ in column_blocks(Dh)], 1)
+                acc = acc * al[:, None] + pv
                 m = mn
             for i, r in enumerate(rows.tolist()):
                 if r < T:
@@ -411,7 +475,7 @@ def test_forward_mirror_matches_jax(dh, B, T, S, H, KV, causal, segments):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("dh", WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("dh", [d for d in WGMMA_HEAD_DIMS if d % 64 == 0])
 @pytest.mark.parametrize("segments", [False, True], ids=["noseg", "seg"])
 def test_forward_mirror_matches_splash_interpret(dh, segments):
     q, k, v, _, seg = _case(1, 256, 256, 4, 2, dh, segments, seed=7)
@@ -422,7 +486,7 @@ def test_forward_mirror_matches_splash_interpret(dh, segments):
     np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dh", WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("dh", WGMMA_BWD_HEAD_DIMS)
 @pytest.mark.parametrize("B,T,S,H,KV,causal,segments", CASES, ids=CASE_IDS)
 def test_backward_mirror_matches_jax_vjp(dh, B, T, S, H, KV, causal, segments):
     q, k, v, dout, seg = _case(B, T, S, H, KV, dh, segments, seed=2 * T + dh)
@@ -505,6 +569,8 @@ def test_wrappers_hand_the_c_entry_points_operands_and_scratch(monkeypatch, dh, 
     assert made[args[7]] == ((B, T, H, dh), torch.bfloat16)
     assert made[args[8]] == ((B, H, T), torch.float32)
     assert args[9:17] == (B, T, T, H, KV, dh, int(causal), dh ** -0.5)
+    if dh not in fa.BWD_HEAD_DIMS:   # 80, 96: forward only
+        return
     dq, dk, dv = fa._launch_bwd(q, k, v, out, lse, q, causal, None)
     args = calls["sxt_flash_attention_bwd_bf16"]
     assert args[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None, 0)

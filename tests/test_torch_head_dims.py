@@ -248,17 +248,18 @@ def test_split_decode_plain_matches_pallas(H, KV, Dh, pool):
     assert _close(got, want, pool)
 
 
-@pytest.mark.parametrize("H,KV,Dh,chunk", [(13, 1, 80, (12, 2)), (11, 1, 96, (10, 2)),
-                                           (32, 32, 96, (1, 1)), (12, 1, 80, (12, 1))],
-                         ids=["g13x80", "g11x96", "phi-3-mini", "g12x80"])
+@pytest.mark.parametrize("H,KV,Dh,chunk", [(13, 1, 80, (13, 1)), (11, 1, 96, (11, 1)),
+                                           (32, 32, 96, (1, 1)), (12, 1, 80, (12, 1)),
+                                           (130, 1, 80, (128, 2))],
+                         ids=["g13x80", "g11x96", "phi-3-mini", "g12x80", "g130x80"])
 def test_decode_head_chunks_at_the_new_dims(H, KV, Dh, chunk):
-    """A decode block takes 1024 // Dh heads of a wider group (12 at 80, 10
-    at 96: not powers of two), the whole group when it fits; the split
-    count counts the chunks."""
-    gc, n = tpa.decode_head_chunk(H // KV, Dh)
-    assert (gc, n) == chunk and gc * Dh <= tpa.DECODE_CHUNK_COLS
-    assert tfd.attention_splits(8, KV, 32, 132, n) == tfd.split_count(
-        32, -(-264 // (8 * KV * n)))[0]
+    """A decode block takes the whole group in one pass up to 128 heads at
+    80 and 96 (two passes past that); the split count is B2's positions per
+    split in whole table entries, whatever the group."""
+    per, n = tpa.decode_passes(H // KV, Dh)
+    assert (per, n) == chunk and per <= tpa.DECODE_PASS_HEADS[Dh]
+    spb = max(1, tpa.decode_splits(8, KV, 32, 64, 132)[1] // 64)
+    assert tfd.attention_splits(8, KV, 32, 64, 132) == tfd.split_count(32, -(-32 // spb))[0]
 
 
 # ---------------------------------------------------------------------------

@@ -515,9 +515,9 @@ def test_training_refuses_the_parallel_block_structures(kind):
 def test_falcon_and_the_wide_split_k_groups_refuse(monkeypatch):
     """Neither refuses: Falcon-7B's config maps as JAX maps it, and the
     split-K and paged wrappers hand its group (71 query heads of 64 over one
-    kv head; B3 also 65) to their C entry points, B5 with the split count
-    that counts the group's 5 head chunks (7 splits for 8 rows of 32 table
-    entries on 132 SMs, where one chunk would take all 32)."""
+    kv head; B3 also 65) to their C entry points, B5 with B2's split
+    length in whole table entries (16 splits of 2 entries for 8 rows of 32
+    table entries of 64 positions on 132 SMs)."""
     falcon = {"architectures": ["FalconForCausalLM"], "model_type": "falcon",
               "hidden_size": 4544, "num_attention_heads": 71, "num_hidden_layers": 32,
               "vocab_size": 65024, "multi_query": True, "parallel_attn": True}
@@ -543,9 +543,9 @@ def test_falcon_and_the_wide_split_k_groups_refuse(monkeypatch):
     table = torch.arange(1, 33, dtype=torch.int32).repeat(8, 1)
     lens = torch.full((8,), 2048, dtype=torch.int32)
     assert tfd._launch_attention(q, pool, pool, table, lens, None).shape == q.shape
-    assert calls["sxt_fused_paged_decode"][13:16] == (8, 71, 1)
-    assert calls["sxt_fused_paged_decode"][19] == 7 == tfd.attention_splits(8, 1, 32, 132, 5)
-    assert tfd.attention_splits(8, 1, 32, 132) == 32
+    assert calls["sxt_fused_paged_decode"][14:17] == (8, 71, 1)
+    assert calls["sxt_fused_paged_decode"][20] == 16 == tfd.attention_splits(8, 1, 32, 64, 132)
+    assert tfd.attention_splits(1, 1, 32, 64, 132) == 16
     assert tpa._launch("decode", q, pool, pool, table, lens).shape == q.shape
     assert calls["sxt_paged_decode"][13:16] == (8, 71, 1)
     eq = torch.zeros(2, 8, 65, 64, dtype=torch.bfloat16)
