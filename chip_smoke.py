@@ -978,14 +978,18 @@ def grad_close(got, want):
 
 # (B, T, S, H, KV, Dh, causal, segments): the training step's shape (32
 # sequences of 1023 positions after the label shift, 16/4 heads of 128), the
-# same at T = 1024 and an MHA shape (these three are timed), then MHA at
-# T = 200, head size 64, segment ids, ragged T = 37, one row, and a full
-# mask with T != S
-FLASH_BWD_TIMED = 3
+# same at T = 1024, an MHA shape and GPT-2 _config1's training shape (16 x
+# 1023, 12 heads of 64) (these four are timed), then MHA at T = 200, head
+# size 64, segment ids, ragged T = 37, one row, and a full mask with T != S.
+# GPT-2's cell draws from its own generator (seeded from the phase's), so the
+# phases after this one keep the inputs they had before it was added
+FLASH_BWD_TIMED = 4
+FLASH_BWD_GPT2 = (16, 1023, 1023, 12, 12, 64, True, False)
 FLASH_BWD_SHAPES = [
     (32, 1023, 1023, 16, 4, 128, True, False),
     (32, 1024, 1024, 16, 4, 128, True, False),
     (2, 1000, 1000, 32, 32, 128, True, False),
+    FLASH_BWD_GPT2,
     (2, 200, 200, 8, 8, 128, True, False),
     (2, 1000, 1000, 16, 2, 64, True, False),
     (2, 1000, 1000, 16, 4, 128, True, True),
@@ -1026,12 +1030,14 @@ def check_flash_bwd(gen, rng):
                                                                 reference_attention_lse)
 
     rows = []
+    gpt2_gen = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 1)
     for i, (B, T, S, H, KV, Dh, causal, segments) in enumerate(FLASH_BWD_SHAPES):
         shape = (B, T, S, H, KV, Dh, causal, segments)
-        q = torch.randn(B, T, H, Dh, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(B, S, KV, Dh, generator=gen, device="cuda").bfloat16()
-        dout = torch.randn(B, T, H, Dh, generator=gen, device="cuda").bfloat16()
+        g = gpt2_gen if shape == FLASH_BWD_GPT2 else gen
+        q = torch.randn(B, T, H, Dh, generator=g, device="cuda").bfloat16()
+        k = torch.randn(B, S, KV, Dh, generator=g, device="cuda").bfloat16()
+        v = torch.randn(B, S, KV, Dh, generator=g, device="cuda").bfloat16()
+        dout = torch.randn(B, T, H, Dh, generator=g, device="cuda").bfloat16()
         seg = None
         if segments:
             seg = torch.from_numpy(np.sort(rng.integers(0, 4, size=(B, T)), axis=1)
@@ -1594,9 +1600,9 @@ GG_E = 8
 # rows x top-2, and a put() of 8 prompts of 1024 x top-2
 GG_ROWS = [2, 16, 512, 16384]
 GG_PATTERNS = ("balanced", "one_expert", "empty_ends", "ragged")
-# the (format, pattern) cells timed here: a routed batch's bf16 and int8
-# stacks (the others' times are scripts/torch_kernel_digest.py's sweeps section)
-GG_TIMED = (("bf16", "ragged"), (8, "ragged"))
+# the (format, pattern) cells timed here: a routed batch's bf16, int8 and
+# fp8 stacks (the others' times are scripts/torch_kernel_digest.py's sweeps section)
+GG_TIMED = (("bf16", "ragged"), (8, "ragged"), ("fp8", "ragged"))
 
 
 def group_pattern(pattern, N, E, rng):
@@ -2060,6 +2066,9 @@ def serve(model, params, rng, device=None, config=SERVE_CONFIG, n_prompts=N_PROM
     return out, sched, eng, tick_s
 
 
+QGMM_KIND = "grouped_matmul (B16 int8 / fp8, wgmma)"   # wg_qgmm_kernel's kind in a trace
+
+
 def _kernel_kind(name: str) -> str:
     low = name.lower()
     for key, kind in (("alibi_fwd_kernel", "alibi_flash_attention (B11)"),
@@ -2068,13 +2077,14 @@ def _kernel_kind(name: str) -> str:
                       ("alibi_bwd_delta_kernel", "alibi delta"),
                       ("wg_fwd_kernel", "flash_attention (wgmma forward)"),
                       ("wg_dkv_kernel", "flash_attention_bwd (wgmma dk/dv)"),
+                      ("wg_dkv_keys_kernel", "flash_attention_bwd (wgmma dk/dv)"),
                       ("wg_dq_kernel", "flash_attention_bwd (wgmma dq)"),
                       ("flash_fwd_kernel", "flash_attention"),
                       ("flash_bwd_", "flash_attention_bwd"),
                       ("fused_adamw_kernel", "fused_adamw"),
                       ("grouped_gemv_kernel", "grouped_matmul (B16 decode rows)"),
                       ("grouped_out_kernel", "grouped_matmul (B16 decode rows)"),
-                      ("grouped_mma_kernel", "grouped_matmul (B16 int8 / fp8 tensor-core form)"),
+                      ("wg_qgmm_kernel", QGMM_KIND),
                       ("wg_gmm_kernel<true>", "grouped_matmul_dx (B16-dx, wgmma)"),
                       ("wg_gmm_kernel", "grouped_matmul (B16 bf16, wgmma)"),
                       ("wg_tgmm_kernel", "grouped_matmul_dw (B16-dw, wgmma)"),
@@ -6107,7 +6117,10 @@ def main(argv=None) -> int:
                "alibi_flash_attention": al_fwd, "alibi_flash_attention_bwd_dq": al_dq,
                "alibi_flash_attention_bwd_dkv": al_dkv, **forms, **kv_forms, **mask_forms,
                **mq_forms, **pb_forms, **wg_forms, **hd_forms,
-               "flash_attention_bwd[dh256]": fb256}
+               "flash_attention_bwd[dh256]": fb256,
+               "grouped_matmul[int8 / fp8, > 16 rows]": [
+                   r for r in ggm if r["shape"]["fmt"] != "bf16" and r["shape"]["N"] > 16],
+               "flash_attention_bwd[dh64]": [r for r in fbwd if r["shape"]["Dh"] == 64]}
     for name, rows in checked.items():
         for r in rows:
             extra = {k: r[k] for k in ("tolerance_bites", "pool_rows_exact",
@@ -6269,6 +6282,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mixtral = mixtral_serving(mcfg, args.seed, card)
     print(f"[mixtral] phase 3e in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the put() prefill's expert products ran B16's int8 wgmma form: 3 a layer
+    prefill_kinds = (mixtral["trace_prefill"] or {}).get("kernels_by_kind", {})
+    qgmm_launches = prefill_kinds.get(QGMM_KIND, 0)
+    _check(qgmm_launches == 3 * mcfg.n_layers,
+           f"Mixtral's int8 put() prefill did not launch B16's quantized wgmma kernel 3 times "
+           f"a layer: {prefill_kinds}")
     runs += [r["launches"] for r in mixtral["serve"].values()]
     runs += [mixtral["put_decode_loop"]["launches"], mixtral["v1_generate"]["launches"]]
     # 4, MoE: depth 2, int8 and fp8, against the CPU f32 engine
@@ -6364,6 +6383,7 @@ def main(argv=None) -> int:
                    "fused_mlp[layernorm,bias,plain]": ("bloom-1b7",)}
     form_launches = {form: sum(r[form.split("[")[0]] for m in models_ for r in family_runs[m])
                      for form, models_ in form_models.items()}
+    form_launches["grouped_matmul[int8 / fp8, > 16 rows]"] = qgmm_launches
     _check(all(n > 0 for n in form_launches.values()),
            f"a kernel form never launched on its serving path: {form_launches}")
     _check(all(r["rmsnorm"] == 0 for rs in family_runs.values() for r in rs),
@@ -6571,6 +6591,16 @@ def main(argv=None) -> int:
     gpt2 = train("gpt2-small (_config1)", gpt2_small(), args.seed, card, batch=GPT2_BATCH,
                  seq=GPT2_SEQ, config=CONFIG1, steps=GPT2_STEPS, remat=False)
     print(f"[train gpt2] phase 5d in {time.perf_counter() - t0:.1f} s", flush=True)
+    # GPT-2's step ran the flash backward at head_dim 64 once a layer, on the
+    # wgmma dk/dv and dq kernels (its profiled step)
+    form_launches["flash_attention_bwd[dh64]"] = gpt2["launches"]["flash_attention_bwd"]
+    gpt2_layers = gpt2_small().n_layers
+    gpt2_kinds = (gpt2.get("trace") or {}).get("kernels_by_kind", {})
+    _check(gpt2["launches_per_step"]["flash_attention_bwd"] == gpt2_layers
+           and all(gpt2_kinds.get(f"flash_attention_bwd (wgmma {k})") == gpt2_layers
+                   for k in ("dk/dv", "dq")),
+           f"GPT-2's training step did not run the wgmma flash backward at head_dim 64 once a "
+           f"layer: {gpt2['launches_per_step']}, profiled step {gpt2_kinds}")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6695,6 +6725,9 @@ def main(argv=None) -> int:
         m = rows[0]           # timed at the first (largest) shape
         if name == "grouped_matmul":    # the main path's cell: a decode tick's int8 w_gate
             m = next(r for r in rows if r["shape"]["fmt"] == "8" and r["shape"]["N"] == 16
+                     and r["shape"]["K"] == 4096 and r["shape"]["groups"] == "ragged")
+        if name.startswith("grouped_matmul[int8"):   # a put()'s 16,384 rows of int8 w_gate
+            m = next(r for r in rows if r["shape"]["fmt"] == "8" and r["shape"]["N"] == 16384
                      and r["shape"]["K"] == 4096 and r["shape"]["groups"] == "ragged")
         if name in ("grouped_matmul_dx", "grouped_matmul_dw"):   # phase 5b's bench row
             m = next(r for r in rows if r["shape"]["label"] == "config3 capacity"

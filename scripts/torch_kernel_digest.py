@@ -5,7 +5,8 @@ B15's element-mask form), the
 grouped GEMM (B16 forward over bf16 and int8 stacks, its dx and dw; at the
 main paths' shapes in every format beside ``torch._grouped_mm``, the bf16
 forward, dx and dw held to their plain versions), the
-quantized matmul (B8, both forms), where the tree has them the ALiBi
+quantized matmul (B8, both forms; at a put()'s 8,192 rows on Llama-3-8B's
+four matrices beside dequantize + ``torch.matmul``), where the tree has them the ALiBi
 kernels (B11-B13), the paged serving kernels (B2 decode, B5 split-K
 decode, B3 extend over bf16, int8 and fp8 pools) and the LoRA delta (B9 at
 the chip smoke test's phase-2g cells) on seeded inputs, and prints for
@@ -95,9 +96,9 @@ GROUPED_SIZES = {"16 rows": [3, 0, 5, 1, 0, 4, 2, 1],
 # rows, a chunk tick's 512 and a put()'s 16,384 ragged rows; dx and dw at
 # bench.py's _config3 [1024, 2816] and its transpose on the capacity route's
 # 8 x 10,230 rows and the ragged route's 65,472 (ragged and one_expert), and
-# at Mixtral's w_gate with 16,384 ragged rows. The bf16 forward of 512 rows
-# or more, dx and dw are held to their plain versions (PAGED_TOL per row)
-# with equal bits twice.
+# at Mixtral's w_gate with 16,384 ragged rows. The forward of 512 rows or
+# more in every format, dx and dw are held to their plain versions
+# (PAGED_TOL per row) with equal bits twice.
 GROUPED_FWD = [((4096, 14336), rows) for rows in (2, 16, 512, 16384)] + \
               [((14336, 4096), rows) for rows in (2, 16, 512, 16384)]
 GROUPED_BWD = [("config3 capacity", (1024, 2816), 8 * 10230, "balanced"),
@@ -142,6 +143,7 @@ SWEEP_QUANT_ROWS = [8, 1, 256, 8192]
 SWEEP_GG_SHAPES = [(4096, 14336), (14336, 4096)]
 SWEEP_GG_ROWS = [2, 16, 512, 16384]
 SWEEP_GG_PATTERNS = ("balanced", "one_expert", "empty_ends", "ragged")
+QUANT_PREFILL_ROWS = 8192   # B8's prefill cells: a put() of 8 prompts padded to 1024
 SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora", "sweeps", "moe_train")
 
 
@@ -343,9 +345,9 @@ def lora_cells(gen) -> dict:
 
 def grouped_cells(gen, seed) -> dict:
     """The GROUPED_FWD and GROUPED_BWD cells: a digest and the mean cold-L2
-    time of each beside its bound and torch._grouped_mm's time; the bf16
-    forward past 16 rows, dx and dw also ``within`` their plain versions
-    and ``equal_bits_twice``."""
+    time of each beside its bound and torch._grouped_mm's time; the forward
+    past 16 rows in every format, dx and dw also ``within`` their plain
+    versions and ``equal_bits_twice``."""
     import numpy as np
     import torch
 
@@ -384,7 +386,7 @@ def grouped_cells(gen, seed) -> dict:
                 expert_bytes = K * F * 2 if fmt == "bf16" else w.nbytes / 8
                 lib = lib16 if fmt == "bf16" else (lambda w=w: (w.dequantize(), lib16()))
                 plain = ((lambda w=w: gg.grouped_matmul_reference(x, w, sizes))
-                         if fmt == "bf16" and N > gg.GEMV_MAX_N else None)
+                         if N > gg.GEMV_MAX_N else None)
                 cells[f"B16 {'int8' if fmt == 8 else fmt} {N}x[{K}, {F}] ragged"] = cell(
                     lambda w=w: gg.grouped_matmul(x, w, sizes), plain, lib,
                     N * K * 2 + used * expert_bytes + N * F * 2, 2.0 * N * K * F,
@@ -409,6 +411,39 @@ def grouped_cells(gen, seed) -> dict:
                 _library_bwd("dw", x, dout, sizes)[0],
                 N * (K + F) * 2 + 8 * K * F * 2, flops, 5)
             del x, dout, w
+            torch.cuda.empty_cache()
+    return cells
+
+
+def quant_prefill_cells(qmm, gen) -> dict:
+    """B8 at a put()'s 8,192 rows on Llama-3-8B's four matrices (the chip
+    smoke test's QUANT_SHAPES) in each format at group 256, beside its
+    bound, the library yardstick (dequantize() + torch.matmul: one
+    dequantize of the stored weight, then cuBLAS) and cuBLAS on the dense
+    bf16 weight."""
+    import torch
+
+    from chip_smoke import QUANT_FORMATS, QUANT_SHAPES, _f32_reduction, bound
+
+    cells = {}
+    rows = QUANT_PREFILL_ROWS
+    with _f32_reduction():
+        for K, N in QUANT_SHAPES:
+            w = (torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5).bfloat16()
+            x = torch.randn(rows, K, generator=gen, device="cuda").bfloat16()
+            dense_ms = time_cold(lambda: x @ w)
+            for bits in QUANT_FORMATS:
+                qm = qmm.quantize_weight(w, 256, bits=bits)
+                fn = lambda: qmm.quant_matmul(x, qm)
+                row = dict(digest=digest([fn()]), ms=time_cold(fn),
+                           library_ms=time_cold(lambda: x @ qm.dequantize()),
+                           library="dequantize() + torch.matmul", dense_cublas_ms=dense_ms)
+                row["bound_ms"], row["bound_by"] = bound(rows * K * 2 + qm.nbytes + rows * N * 2,
+                                                         2.0 * rows * K * N)
+                row["library_over_kernel"] = row["library_ms"] / row["ms"]
+                cells[f"B8 {bits} {rows}x[{K}, {N}] prefill"] = row
+                del qm
+            del w, x
             torch.cuda.empty_cache()
     return cells
 
@@ -565,7 +600,7 @@ def sweep_cells(gen, seed) -> dict:
                 x = randn(N, K)
                 for pattern in SWEEP_GG_PATTERNS:
                     sizes = torch.from_numpy(group_pattern(pattern, N, 8, rng)).cuda()
-                    if pattern == "ragged" and fmt in ("bf16", 8):
+                    if pattern == "ragged":
                         continue   # timed by chip_smoke.py
                     fn = lambda: gg.grouped_matmul(x, w, sizes)
                     cells[f"B16 {fmt} {N}x[{K}, {F}] {pattern}"] = dict(
@@ -664,6 +699,9 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
             x = randn(rows, 4096)
             fn = lambda: qmm.quant_matmul(x, qm)
             cells[f"B8 int{bits} {rows} rows"] = dict(digest=digest([fn()]), ms=time_cold(fn))
+    if "quant" in sections:
+        cells.update(quant_prefill_cells(qmm, torch.Generator(device="cuda").manual_seed(
+            seed * 10 + 8)))
     if "paged" in sections:
         cells.update(paged_cells(gens[4], seed))
     if "lora" in sections:

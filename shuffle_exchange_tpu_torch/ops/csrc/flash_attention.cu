@@ -45,7 +45,7 @@
 // 1. The dense forms (every main path: the prefill of every served model,
 // and training): the FlashAttention-3 shape, wgmma over TMA-fed tiles
 // (wgmma_tile.cuh); the forward at head dims 64, 80, 96, 128 and 256, the
-// backward at 128 and 256.
+// backward at 64, 128 and 256.
 // A block is three warpgroups: two consumers that compute and one producer
 // whose single thread issues every TMA load into a ring of single K, V, Q
 // or dO tiles guarded by mbarriers (full: the bytes landed; empty: all 8
@@ -101,16 +101,23 @@
 //     every head dim, and the group's sum over query heads stays in
 //     registers in a fixed order. The tiles come in two sets by iteration
 //     at 128 (231,560 B), one at 256 (231,496 B: a second barrier).
+//     At 64 that split would leave m64n32 products and four shared tiles a
+//     step for little work, so the pass takes FlashAttention-3's shape: a
+//     block is a 128-key tile, each consumer owns 64 keys and all 64
+//     queries of a ring tile (S^T and dP^T at m64n64k16), and P^T and dS^T
+//     feed dv += P^T dO and dk += dS^T Q from registers (the RS form, dO
+//     and Q MN-major): no shared P^T / dS^T tiles, no barrier between the
+//     consumers, 32 + 32 accumulator registers (101,512 B).
 //   dq: a block is a query tile of one head (Q and dO resident); V_j then
-//     K_j of 64 keys pass through the ring (3 slots at 256, 8 at 128); S
-//     and dP by wgmma, dS from registers (RS) against K MN-major. 230,456 B
-//     at 256, 197,768 B at 128.
+//     K_j of 64 keys pass through the ring (3 slots at 256, 8 at 128 and
+//     64); S and dP by wgmma, dS from registers (RS) against K MN-major.
+//     230,456 B at 256, 197,768 B at 128, 99,464 B at 64.
 //   With no atomics the backward stays three kernels (delta, dk/dv, dq)
 //   and 7 products a tile pair; every sum runs in a fixed order, so two
 //   runs give equal bits.
 
-// 2. The element-mask forms (sparse_attention) at every head dim, and the
-// dense backward at 64: FlashAttention-2 on mma.sync, one block
+// 2. The element-mask forms (sparse_attention) at every head dim:
+// FlashAttention-2 on mma.sync, one block
 // per (64-row query tile, head, sequence), 4 warps of 16 query rows each;
 // a loop over 64-key K/V tiles up to the causal limit (tiles wholly above
 // the diagonal are never loaded), K/V staged with cp.async into a double
@@ -857,7 +864,7 @@ cudaError_t launch_bwd(cudaStream_t s, const void* q, const void* k, const void*
 }
 
 // ---------------------------------------------------------------------------
-// Dense instances at head dims 128 and 256: warp-specialised wgmma kernels
+// Dense instances: warp-specialised wgmma kernels
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 128;                      // one warpgroup
@@ -911,20 +918,34 @@ struct WgDq {
   static_assert(SMEM <= kSmemLimit, "dq pass: shared memory");
 };
 
-// The dk/dv pass: a block is a 64-key tile of one kv head (K and V stay);
-// Q_i and dO_i of each 64-query tile of each query head of the group pass
-// through the ring. Each warpgroup forms P^T and dS^T for 32 of the 64
-// queries and writes them, as bf16 hi and lo, into 4 shared [64, 64]
-// tiles that both then read (two sets by iteration where shared memory
-// allows); each stages its 32 queries' lse and delta in VEC_BYTES.
+// The dk/dv pass: Q_i and dO_i of each 64-query tile of each query head of
+// the group pass through the ring; K and V stay.
+// At 128 and 256 a block is a 64-key tile of one kv head. Each warpgroup
+// forms P^T and dS^T for 32 of the 64 queries and writes them, as bf16 hi
+// and lo, into 4 shared [64, 64] tiles that both then read (two sets by
+// iteration where shared memory allows), then accumulates half the
+// head-dim columns of dk and dv; each stages its 32 queries' lse and delta
+// in VEC_BYTES.
+// At 64 (KEY_SPLIT, FlashAttention-3's backward) a block is a 128-key tile
+// and each warpgroup owns 64 of its keys: S^T and dP^T over all 64 queries
+// (m64n64), then dv += P^T dO and dk += dS^T Q with P^T and dS^T straight
+// from registers as wgmma's A operand (bf16 hi and lo): no P^T / dS^T
+// tiles and no barrier between the warpgroups. Each stages the tile's 64
+// lse and delta values. (Split by head-dim columns, 64 would shrink every
+// dk and dv product to m64n32 and pass P^T and dS^T through shared memory.)
 template <int DH>
 struct WgDkv {
-  static constexpr int BN = 64, BQ = 64, SLOTS = DH == 256 ? 4 : 8, CB = DH / 64, HALF = DH / 2;
+  static constexpr bool KEY_SPLIT = DH == 64;
+  static constexpr int BN = KEY_SPLIT ? 128 : 64, BQ = 64, SLOTS = DH == 256 ? 4 : 8;
+  static constexpr int CB = DH / 64, HALF = DH / 2;
   static constexpr int KV_BYTES = BN * DH * 2, TILE_BYTES = BQ * DH * 2;
-  // P^T / dS^T tiles: two sets by iteration where shared memory allows (128), one at 256
+  // P^T / dS^T tiles: two sets by iteration where shared memory allows (128), one at 256,
+  // none under KEY_SPLIT
   static constexpr int PBUF = DH == 256 ? 1 : 2;
-  static constexpr int P_TILE = BN * BQ * 2, P_BYTES = PBUF * 4 * P_TILE;
-  static constexpr int VEC_BYTES = kConsumerWgs * 2 * BQ * 4;
+  static constexpr int P_TILE = KEY_SPLIT ? 0 : BN * BQ * 2, P_BYTES = PBUF * 4 * P_TILE;
+  // a warpgroup's staged lse and delta values, two iterations: its 32 queries' or all 64
+  static constexpr int VEC = KEY_SPLIT ? BQ : BQ / 2;
+  static constexpr int VEC_BYTES = kConsumerWgs * 2 * 2 * VEC * 4;
   static constexpr int SMEM = kAlign + 2 * KV_BYTES + SLOTS * TILE_BYTES + P_BYTES + VEC_BYTES +
                               8 * (2 * SLOTS + 1);
   static_assert(SMEM <= kSmemLimit, "dk/dv pass: shared memory");
@@ -1482,6 +1503,7 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_dkv_kernel(
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int T, int S, int H,
     int KV, int causal, float scale, float scale_log2) {
   using Sh = WgDkv<DH>;
+  static_assert(!Sh::KEY_SPLIT, "64 runs wg_dkv_keys_kernel");
   constexpr int BN = Sh::BN, BQ = Sh::BQ, SLOTS = Sh::SLOTS, CB = Sh::CB, HALF = Sh::HALF;
   constexpr int QW = BQ / kConsumerWgs;               // a warpgroup's query columns of S^T, dP^T
   constexpr int BOTH = 2 * kWgThreads;
@@ -1672,6 +1694,199 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_dkv_kernel(
   }
 }
 
+// The dk/dv pass at 64 (WgDkv's KEY_SPLIT): a block is a 128-key tile of
+// one kv head, warpgroup w its keys [k0 + 64 w, k0 + 64 w + 64). For each
+// (query head of the group, 64-query tile) in the ring's order it computes
+// S^T = K_w Q^T and dP^T = V_w dO^T (m64n64k16, 64 keys x 64 queries),
+// P^T = 2^(S^T scale_log2 - lse2) with masked pairs exactly 0 and dS^T =
+// P^T (dP^T - delta) in registers, then dv += P^T dO and dk += dS^T Q with
+// those tiles, as bf16 hi and lo terms, as wgmma's register A operand and
+// dO, Q read MN-major. A query tile wholly above a warpgroup's keys
+// (causal) is computed all masked: it adds exact zeros.
+template <int DH>
+__global__ void __launch_bounds__(kWgBlockThreads, 1) wg_dkv_keys_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ seg,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int T, int S, int H,
+    int KV, int causal, float scale, float scale_log2) {
+  using Sh = WgDkv<DH>;
+  static_assert(Sh::KEY_SPLIT && Sh::CB == 1, "the key split is built at head_dim 64");
+  constexpr int BN = Sh::BN, BQ = Sh::BQ, SLOTS = Sh::SLOTS;
+  constexpr int WK = BN / kConsumerWgs;               // a warpgroup's keys
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ks = align_smem(smem_raw);          // [128 keys][64]: warpgroup w's at row 64 w
+  unsigned char* vs = ks + Sh::KV_BYTES;
+  unsigned char* ring = vs + Sh::KV_BYTES;           // SLOTS tiles: Q_i, dO_i, Q_i+1, ...
+  float* vecs = reinterpret_cast<float*>(ring + SLOTS * Sh::TILE_BYTES);   // [2 wg][2 it][lse2 | delta][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + SLOTS * Sh::TILE_BYTES + Sh::VEC_BYTES);
+  uint64_t* empty = full + SLOTS;
+  uint64_t* kvbar = empty + SLOTS;
+
+  // blocks by (sequence, kv head), then key tile, key tile 0 (the most
+  // query tiles under a causal mask) first
+  const int nkt = (S + BN - 1) / BN;
+  const int bkv = blockIdx.x / nkt, kt = blockIdx.x % nkt;
+  const int b = bkv / KV, kvh = bkv % KV, n_rep = H / KV;
+  const int k0 = kt * BN;
+  const int nqt = (T + BQ - 1) / BQ;
+  const int qt_lo = causal ? k0 / BQ : 0;   // causal needs T == S: at least one query tile
+  const int n_q = nqt - qt_lo, n_it = n_rep * n_q;
+
+  if (threadIdx.x == 0) init_ring(full, empty, SLOTS, kvbar);
+  __syncthreads();
+  const int wgi = threadIdx.x / kWgThreads;
+  if (wgi == kConsumerWgs) {
+    wg::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumerWgs * kWgThreads) {
+      // K and V as two 64-row boxes each, one under the other (rows past S read as zeros)
+      wg::mbar_expect_tx(kvbar, 2 * Sh::KV_BYTES);
+#pragma unroll
+      for (int w = 0; w < kConsumerWgs; ++w) {
+        wg::tma_load_3d(ks + w * WK * wg::kSwizzleBytes, &kmap, kvbar, kvh * DH, k0 + w * WK, b);
+        wg::tma_load_3d(vs + w * WK * wg::kSwizzleBytes, &vmap, kvbar, kvh * DH, k0 + w * WK, b);
+      }
+      for (int t = 0; t < 2 * n_it; ++t) {   // Q_i, then dO_i
+        const int i = t >> 1;
+        ring_fill<SLOTS>(full, empty, t, Sh::TILE_BYTES);
+        wg::tma_load_3d(ring + (t % SLOTS) * Sh::TILE_BYTES, (t & 1) ? &domap : &qmap,
+                        &full[t % SLOTS], (kvh * n_rep + i / n_q) * DH, (qt_lo + i % n_q) * BQ,
+                        b);
+      }
+    }
+  } else {
+    wg::regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % kWgThreads, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, tq = lane % 4;
+    const int kw0 = k0 + wgi * WK;                   // this warpgroup's keys
+    const int key_lo = kw0 + warp * 16 + g, key_hi = key_lo + 8;   // this lane's rows
+    const int* segb = seg ? seg + size_t(b) * T : nullptr;   // segment ids need T == S
+    const int seg_lo = segb ? segb[min(key_lo, S - 1)] : 0;
+    const int seg_hi = segb ? segb[min(key_hi, S - 1)] : 0;
+    const unsigned char* ka = ks + wgi * WK * wg::kSwizzleBytes;
+    const unsigned char* va = vs + wgi * WK * wg::kSwizzleBytes;
+
+    float dkacc[DH / 2], dvacc[DH / 2];
+    zero(dkacc);
+    zero(dvacc);
+    // the tile's lse (into the log2 domain: threads 0-63) and delta (64-127)
+    // of its 64 queries, read one iteration ahead and staged in shared memory
+    auto load_vec = [&](int i) {
+      const int head = kvh * n_rep + i / n_q;
+      const int query = (qt_lo + i % n_q) * BQ + tid % BQ;
+      const float* vec = tid < BQ ? lse : delta;
+      return query < T ? vec[(size_t(b) * H + head) * T + query] * (tid < BQ ? kLog2e : 1.f)
+                       : 0.f;
+    };
+    float next_vec = load_vec(0);
+    wg::mbar_wait(kvbar, 0);
+    for (int i = 0; i < n_it; ++i) {
+      const int tqt = 2 * i, tdo = tqt + 1;
+      const unsigned char* qtile = ring + (tqt % SLOTS) * Sh::TILE_BYTES;
+      const unsigned char* dotile = ring + (tdo % SLOTS) * Sh::TILE_BYTES;
+      const int q0 = (qt_lo + i % n_q) * BQ;
+      ring_wait<SLOTS>(full, tqt);
+      ring_wait<SLOTS>(full, tdo);
+
+      // S^T = K_w Q^T and dP^T = V_w dO^T: 64 keys x 64 queries. Both
+      // warpgroups compute every iteration (a branch around the products
+      // serialises them, ptxas C7518): a query tile wholly above this
+      // warpgroup's keys is all masked and adds exact zeros.
+      float st[BQ / 2], dpt[BQ / 2];
+      zero(st);
+      zero(dpt);
+      wg::fence_regs(st);
+      wg::fence_regs(dpt);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        wg::mma_ss<BQ, 0>(st, wg::desc_k(ka + kk * 32), wg::desc_k(qtile + kk * 32), kk > 0);
+        wg::mma_ss<BQ, 0>(dpt, wg::desc_k(va + kk * 32), wg::desc_k(dotile + kk * 32), kk > 0);
+      }
+      wg::mma_commit();
+      float* colv = vecs + (wgi * 2 + (i & 1)) * 2 * BQ;   // [lse2 | delta] of the 64 queries
+      const float mine = next_vec;
+      if (i + 1 < n_it) next_vec = load_vec(i + 1);
+      colv[tid] = mine;
+      wg::bar_sync<kWgThreads>(kBarVec + wgi);
+
+      wg::mma_wait<0>();
+      wg::fence_regs(st);
+      wg::fence_regs(dpt);
+      // P^T = exp(S^T - lse) with masked pairs exactly 0, dS^T = P^T (dP^T - delta);
+      // keys are rows here, queries columns
+      const bool masked = (causal && kw0 + WK - 1 > q0) || q0 + BQ > T || kw0 + WK > S ||
+                          segb != nullptr;
+      if (masked) {
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int query = q0 + n * 8 + tq * 2 + (e & 1), key = e < 2 ? key_lo : key_hi;
+            bool ok = key < S && query < T && !(causal && key > query);
+            if (segb != nullptr) ok = ok && segb[min(query, T - 1)] == (e < 2 ? seg_lo : seg_hi);
+            st[4 * n + e] = ok ? st[4 * n + e] : kNeg;
+          }
+      }
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + tq * 2 + (e & 1);
+          float p = ex2(fmaf(st[4 * n + e], scale_log2, -colv[c]));
+          if (masked) p = st[4 * n + e] <= kNeg ? 0.f : p;
+          st[4 * n + e] = p;
+          dpt[4 * n + e] = p * (dpt[4 * n + e] - colv[BQ + c]);
+        }
+      // dv += P^T dO and dk += dS^T Q: P^T and dS^T from registers as bf16 hi + lo
+      // (16 queries a k-step), dO and Q MN-major
+      uint32_t ph[BQ / 16][4], pl[BQ / 16][4], sh[BQ / 16][4], sl[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        split_fragment(st, kk, ph[kk], pl[kk]);
+        split_fragment(dpt, kk, sh[kk], sl[kk]);
+      }
+      wg::fence_regs(dkacc);
+      wg::fence_regs(dvacc);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint64_t dod = wg::desc_mn(dotile + kk * 16 * wg::kSwizzleBytes, BQ * 128);
+        const uint64_t qd = wg::desc_mn(qtile + kk * 16 * wg::kSwizzleBytes, BQ * 128);
+        wg::mma_rs<DH, 1>(dvacc, ph[kk], dod, 1);
+        wg::mma_rs<DH, 1>(dvacc, pl[kk], dod, 1);
+        wg::mma_rs<DH, 1>(dkacc, sh[kk], qd, 1);
+        wg::mma_rs<DH, 1>(dkacc, sl[kk], qd, 1);
+      }
+      wg::mma_commit();
+      wg::mma_wait<0>();
+      wg::fence_regs(dkacc);
+      wg::fence_regs(dvacc);
+      ring_free<SLOTS>(empty, tqt, lane);
+      ring_free<SLOTS>(empty, tdo, lane);
+    }
+
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      const int col = d * 8 + tq * 2;
+      if (key_lo < S) {
+        const size_t at = ((size_t(b) * S + key_lo) * KV + kvh) * DH + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dkacc[4 * d + 0] * scale, dkacc[4 * d + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dvacc[4 * d + 0], dvacc[4 * d + 1]);
+      }
+      if (key_hi < S) {
+        const size_t at = ((size_t(b) * S + key_hi) * KV + kvh) * DH + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dkacc[4 * d + 2] * scale, dkacc[4 * d + 3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dvacc[4 * d + 2], dvacc[4 * d + 3]);
+      }
+    }
+  }
+}
+
 template <int DH>
 cudaError_t wg_launch(cudaStream_t s, const void* q, const void* k, const void* v,
                       const void* seg, void* o, void* lse, int B, int T, int S, int H, int KV,
@@ -1725,8 +1940,13 @@ cudaError_t wg_launch_bwd(cudaStream_t s, const void* q, const void* k, const vo
   if (err == cudaSuccess) err = tile_map_3d(&v64, v, B, S, kcols, 64);
   if (err == cudaSuccess) err = tile_map_3d(&qbm, q, B, T, qcols, WgDq<DH>::BM);
   if (err == cudaSuccess) err = tile_map_3d(&dobm, dout, B, T, qcols, WgDq<DH>::BM);
+  // the dk/dv kernel: the key split at 64, the query and column split above
+  auto* dkv_kernel = [] {
+    if constexpr (WgDkv<DH>::KEY_SPLIT) return wg_dkv_keys_kernel<DH>;
+    else return wg_dkv_kernel<DH>;
+  }();
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(wg_dkv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                WgDkv<DH>::SMEM);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(wg_dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1738,7 +1958,7 @@ cudaError_t wg_launch_bwd(cudaStream_t s, const void* q, const void* k, const vo
       H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  wg_dkv_kernel<DH><<<int(dkv_blocks), kWgBlockThreads, WgDkv<DH>::SMEM, s>>>(
+  dkv_kernel<<<int(dkv_blocks), kWgBlockThreads, WgDkv<DH>::SMEM, s>>>(
       q64, do64, k64, v64, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int*>(seg), static_cast<bf*>(dk), static_cast<bf*>(dv), B, T, S, H, KV,
       causal, scale, scale_log2);
@@ -1834,7 +2054,7 @@ int sxt_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, co
                                               T, S, H, KV, causal, scale));
   };
   if (Dh == 128) return tiles ? run(launch_bwd<128, true>) : dense(wg_launch_bwd<128>);
-  if (Dh == 64) return tiles ? run(launch_bwd<64, true>) : run(launch_bwd<64, false>);
+  if (Dh == 64) return tiles ? run(launch_bwd<64, true>) : dense(wg_launch_bwd<64>);
   if (Dh == 256) return tiles ? run(launch_bwd<256, true>) : dense(wg_launch_bwd<256>);   // GPT-J-6B
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,7 +11,7 @@
 //   bf16  w [E, K, F]
 //   int8  q [E, K, F] int8, scales [E, K/gs, F] f32
 //   fp8   q [E, K, F] e4m3, scales [E, K/gs, F] f32
-// A quantized weight is dequantized in registers as bf16(q * s), the q * s
+// A quantized weight is dequantized on the chip as bf16(q * s), the q * s
 // product in f32 (quant_gemv.cuh's deq<true>): the JAX route dequantizes
 // the stack to the activation dtype before gmm, so the products here run
 // over the same bf16 values, summed in f32, and the result is cast once.
@@ -96,13 +96,21 @@
 //     barrier) before the products read them. An empty group writes a zero
 //     block. A group's rows are never split between tiles.
 //
-// 3. int8 / e4m3 weights at N > 16: a tiled mma.sync kernel, 128 x 128
-// output tiles of one group, 8 warps of 32 x 64, K steps of 32 rows that
-// never cross a scale group, the x tile, the raw weight tile and the scale
-// row copied with cp.async three steps ahead, the weight tile dequantized
-// by all threads into a bf16 tile, mma.sync m16n8k16 from ldmatrix
-// fragments. A group's weights are read once per 128 of its rows. Its lever
-// is form 2's body with the dequantize in the producer.
+// 3. int8 / e4m3 weights at N > 16 (wg_qgmm_kernel<FMT>): form 2's
+// consumers, raster and epilogue over weight tiles widened on the chip.
+// The producer's one thread TMA-loads each step's raw one-byte [64 of K]
+// [128 of F] tile and its (at most two) scale rows, unswizzled, into a ring
+// of 6 raw stages, and x's [256][64] tile into a ring of 3 widened 48 KB
+// slots; the producer's other three warps write bf16(q * s) (the product
+// in f32, quant_gemv.cuh's deq<true> bit for bit) into the slot's B tile in
+// the 128-byte swizzle the descriptors read, fence.proxy.async, and arrive
+// on the slot's barrier, so widening step s + 1 overlaps the products of
+// step s. The widening bounds the block, not the tensor cores: each
+// widened step is reused for BM rows, so the tile is 256 x 128 (each
+// consumer two m64n128 accumulators), half the widening a product of form
+// 2's 128 x 256. The weight bytes cross device memory at one byte an
+// element (half the bf16 stack's) and the widened stack never leaves
+// shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,7 +118,6 @@
 #include <stdint.h>
 
 #include "quant_gemv.cuh"   // kQInt8 / kQFp8, q_value, deq<ROUND_W>
-#include "mma_sync.cuh"     // cp_async16, ldsm_x4, mma_bf16, ...
 #include "wgmma_tile.cuh"   // wg:: mbarriers, the ring, TMA, wgmma; tile_map_3d
 
 namespace {
@@ -335,176 +342,6 @@ __global__ void grouped_out_kernel(const float* __restrict__ part, int S, size_t
   out[i] = __float2bfloat16(sum);
 }
 
-// ---------------------------------------------------------------------------
-// The quantized tensor-core form (int8, e4m3 weights; N > kGemvMaxN)
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kStages = 3;                // K steps in flight
-constexpr int kMmaThreads = 256;          // 8 warps: 4 along M x 2 along N
-constexpr int kLDA = kBK + 8;             // padded x tile row, in bf16 (80 bytes)
-constexpr int kLDB = kBN + 8;             // padded bf16 weight tile row (272 bytes)
-
-struct Stage {
-  __nv_bfloat16 a[kBM * kLDA];   // x tile [128][32 + 8]
-  // raw weight rows [32][128], one byte an element, in room for two: the
-  // size keeps this kernel's shared-memory layout the one its times were
-  // measured with
-  uint8_t q[kBK * kBN * 2];
-  float s[kBN];                  // the step's scale row
-};
-
-// Issue the copies of K step `step` of row tile (row0, rows) into `st`
-// (the caller commits). Rows of x past the tile and K rows past K are
-// zero-filled.
-template <int FMT>
-__device__ __forceinline__ void load_step(Stage& st, const __nv_bfloat16* __restrict__ x,
-                                          const uint8_t* __restrict__ q,
-                                          const float* __restrict__ sc, int row0, int rows, int K,
-                                          int F, int gs, int n0, int step, int tid) {
-  const int k0 = step * kBK;
-  // x: 128 rows x 4 vectors of 8 bf16
-  for (int i = tid; i < kBM * 4; i += kMmaThreads) {
-    const int r = i / 4, v = i % 4;
-    const bool ok = r < rows && k0 + v * 8 < K;
-    const __nv_bfloat16* src = x + (ok ? size_t(row0 + r) * K + k0 + v * 8 : 0);
-    cp_async16(st.a + r * kLDA + v * 8, src, ok);
-  }
-  // raw weight rows: 128 columns = 8 vectors a row
-  constexpr int eb = elt_bytes<FMT>();
-  constexpr int vecs = kBN * eb / 16;
-  for (int i = tid; i < kBK * vecs; i += kMmaThreads) {
-    const int r = i / vecs, v = i % vecs;
-    const int col = n0 + v * (16 / eb);
-    const bool ok = col < F && k0 + r < K;
-    const uint8_t* src = q + (ok ? (size_t(k0 + r) * F + col) * eb : 0);
-    cp_async16(st.q + r * kBN * eb + v * 16, src, ok);
-  }
-  // scales: 128 f32 = 32 vectors
-  if (tid < kBN / 4) {
-    const bool ok = n0 + tid * 4 < F;
-    cp_async16(st.s + tid * 4, sc + (ok ? size_t(k0 / gs) * F + n0 + tid * 4 : 0), ok);
-  }
-}
-
-constexpr size_t kMmaSmem = kStages * sizeof(Stage) + size_t(kBK) * kLDB * sizeof(__nv_bfloat16);
-
-// Block (column tile, row slot): out rows of the slot's tile = x rows @
-// the group's dequantized weight.
-template <int FMT>
-__global__ void __launch_bounds__(kMmaThreads) grouped_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-    const float* __restrict__ sc, const int* __restrict__ group_sizes, int E, int N, int K, int F,
-    int gs, __nv_bfloat16* __restrict__ out) {
-  static_assert(FMT == kQInt8 || FMT == kQFp8, "bf16 weights take wg_gmm_kernel");
-  const RowTile tile = find_tile(group_sizes, E, N, kBM, blockIdx.y);
-  if (tile.group == -2) return;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n0 = blockIdx.x * kBN;
-  if (tile.group == -1) {    // rows past the groups: zeros
-    for (int i = tid; i < tile.rows * kBN; i += kMmaThreads) {
-      const int r = i / kBN, c = n0 + i % kBN;
-      if (c < F) out[size_t(tile.row0 + r) * F + c] = __float2bfloat16(0.f);
-    }
-    return;
-  }
-  extern __shared__ __align__(16) unsigned char smem[];
-  Stage* stage = reinterpret_cast<Stage*>(smem);
-  // the dequantized weight tile [32][136]
-  __nv_bfloat16* bt = reinterpret_cast<__nv_bfloat16*>(smem + kStages * sizeof(Stage));
-  constexpr int eb = elt_bytes<FMT>();
-  const uint8_t* __restrict__ q = w + size_t(tile.group) * K * F * eb;
-  const float* __restrict__ scg = sc + size_t(tile.group) * (K / gs) * F;
-  const int wm = warp % 4, wn = warp / 4;    // warp tile: rows wm*32, columns wn*64
-  const int steps = (K + kBK - 1) / kBK;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // one commit group per step, empty past the end, so the wait below
-  // always leaves the newer kStages - 1 steps in flight
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < steps)
-      load_step<FMT>(stage[i], x, q, scg, tile.row0, tile.rows, K, F, gs, n0, i, tid);
-    cp_async_commit();
-  }
-  for (int step = 0; step < steps; ++step) {
-    const int ahead = step + kStages - 1;
-    if (ahead < steps)
-      load_step<FMT>(stage[ahead % kStages], x, q, scg, tile.row0, tile.rows, K, F, gs, n0,
-                     ahead, tid);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    const Stage& st = stage[step % kStages];
-
-    // the dequantized bf16 weight tile: thread -> (row kr, 16 columns)
-    {
-      const int kr = tid / 8, c0 = (tid % 8) * 16;
-      const uint4 raw = *reinterpret_cast<const uint4*>(st.q + kr * kBN + c0);
-      const uint2 lo2 = make_uint2(raw.x, raw.y), hi2 = make_uint2(raw.z, raw.w);
-      union {
-        __nv_bfloat162 h[4];
-        uint4 u;
-      } w0, w1;
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        w0.h[e / 2] = __floats2bfloat162_rn(q_value<FMT>(lo2, e, 0) * st.s[c0 + e],
-                                            q_value<FMT>(lo2, e + 1, 0) * st.s[c0 + e + 1]);
-        w1.h[e / 2] = __floats2bfloat162_rn(q_value<FMT>(hi2, e, 0) * st.s[c0 + 8 + e],
-                                            q_value<FMT>(hi2, e + 1, 0) * st.s[c0 + 9 + e]);
-      }
-      *reinterpret_cast<uint4*>(bt + kr * kLDB + c0) = w0.u;
-      *reinterpret_cast<uint4*>(bt + kr * kLDB + c0 + 8) = w1.u;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4(af[i], st.a + (wm * 32 + i * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kLDA +
-                           kk * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, bt + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kLDB + wn * 64 +
-                             np * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * np], af[i], r[0], r[1]);
-          mma_bf16(acc[i][2 * np + 1], af[i], r[2], r[3]);
-        }
-      }
-    }
-    __syncthreads();   // done with this stage and the bf16 tile before they are refilled
-  }
-
-  const int g = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + wn * 64 + j * 8 + tq * 2;
-      if (col >= F) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + i * 16 + g + h * 8;
-        if (r >= tile.rows) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + size_t(tile.row0 + r) * F + col) =
-            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
-  }
-}
-
 template <int FMT>
 cudaError_t launch_gemv(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* w,
                         const float* sc, const int* sizes, __nv_bfloat16* out, float* part,
@@ -516,19 +353,6 @@ cudaError_t launch_gemv(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* w
   if (err != cudaSuccess) return err;
   const size_t NF = size_t(N) * F;
   grouped_out_kernel<<<unsigned((NF + 255) / 256), 256, 0, s>>>(part, splits, NF, out);
-  return cudaGetLastError();
-}
-
-template <int FMT>
-cudaError_t launch_mma(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* w,
-                       const float* sc, const int* sizes, __nv_bfloat16* out, int N, int K, int F,
-                       int E, int gs) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      grouped_mma_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kMmaSmem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((F + kBN - 1) / kBN, (N + kBM - 1) / kBM + E);
-  grouped_mma_kernel<FMT><<<grid, kMmaThreads, kMmaSmem, s>>>(x, w, sc, sizes, E, N, K, F, gs,
-                                                              out);
   return cudaGetLastError();
 }
 
@@ -583,9 +407,10 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
 // Zeros over rows [r0, r0 + rows) x columns [c0, c0 + BN) of a [.., ld]
 // bf16 matrix, clipped to `c_end` columns (a multiple of 8), by all the
 // block's threads.
+template <int BN = WgGemm::BN>
 __device__ __forceinline__ void zero_tile(__nv_bfloat16* __restrict__ out, size_t ld, int r0,
                                           int rows, int c0, int c_end) {
-  constexpr int vecs = WgGemm::BN / 8;
+  constexpr int vecs = BN / 8;
   for (int i = threadIdx.x; i < rows * vecs; i += blockDim.x) {
     const int r = i / vecs, c = c0 + (i % vecs) * 8;
     if (c < c_end)
@@ -619,14 +444,14 @@ __device__ __forceinline__ void stage_products(float (&acc)[WgGemm::BN / 2],
 // warpgroup's staging tile `stage` (rows kStageLd bytes apart: the
 // fragments' bf16 pairs land in 32 distinct banks), then to device memory
 // as whole 128-byte row segments, 16 bytes a thread.
-__device__ __forceinline__ void store_acc(const float (&acc)[WgGemm::BN / 2],
-                                          unsigned char* stage, int wgi,
+template <int NACC>
+__device__ __forceinline__ void store_acc(const float (&acc)[NACC], unsigned char* stage, int wgi,
                                           __nv_bfloat16* __restrict__ base, size_t ld, int rows,
                                           int c0, int C) {
   const int tid = threadIdx.x % kWgThreads, warp = tid / 32, lane = tid % 32;
   const int r_lo = warp * 16 + lane / 4, tq = lane % 4;
 #pragma unroll
-  for (int cb = 0; cb < WgGemm::BN / 64; ++cb) {
+  for (int cb = 0; cb < NACC / 32; ++cb) {
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -830,6 +655,256 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_tgmm_kernel(
             K - k0 - wgi * 64, f0, F);
 }
 
+// ---------------------------------------------------------------------------
+// The quantized forward (int8, e4m3 weights; N > kGemvMaxN): wg_gmm_kernel's
+// consumers over weight tiles widened in shared memory
+// ---------------------------------------------------------------------------
+
+// A block is two consumer warpgroups over 64-row reduction steps, with
+// wg_gmm_kernel's band raster and staged epilogue, on a 256 x 128 output
+// tile: each consumer takes 128 rows as two m64n128 accumulators (64 f32
+// registers each). The widened slots are 48 KB stages: x's [256][64] tile
+// and the step's bf16 [64 of K][128 of F] weight tile in 64-column blocks
+// of the 128-byte swizzle, read MN-major. The producer warpgroup fills
+// them: its warp 0 has one thread that TMA-loads each step's raw one-byte
+// [64][128] weight tile and its two scale rows (a 64-row step spans at
+// most two scale groups: gs >= 32) into RAW raw stages, and x's tile into
+// the widened slot; its warps 1-3 (the widening warps) write each raw
+// stage into the slot's B tile as bf16(q * s) with the product in f32
+// (quant_gemv.cuh's deq<true>, bit for bit), then fence.proxy.async and
+// arrive on the slot's `full` barrier, which completes once x's bytes have
+// landed too. The widening, not the tensor cores, bounds the block: a
+// widened step feeds BM rows of products, so the tile is tall (256 x 128
+// widens half the weights a product of wg_gmm's 128 x 256, and at few rows
+// a group its padded rows still cost less than the widening). Three
+// widened slots (a fourth does not fit) and six raw stages.
+struct WgQGemm {
+  static constexpr int BM = 256, BN = 128, BK = WgGemm::BK, SLOTS = 3, RAW = 6;
+  static constexpr int SUBS = BM / (kConsumerWgs * 64);      // m64 row blocks a consumer
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int Q_BYTES = BK * BN;                    // the raw one-byte tile
+  static constexpr int SC_ROWS = 2, SC_BYTES = SC_ROWS * BN * 4;
+  static constexpr int RAW_BYTES = Q_BYTES + SC_BYTES;
+  static constexpr int SMEM = kAlign + SLOTS * STAGE_BYTES + RAW * RAW_BYTES +
+                              WgGemm::OUT_BYTES + 8 * 2 * (SLOTS + RAW);
+  static_assert(SMEM <= kSmemLimit, "quantized grouped GEMM: shared memory");
+  static_assert(SUBS * BN / 2 == 128, "a consumer's accumulators: 128 f32 registers");
+};
+// The widening warps keep the launch's registers: setmaxnreg's smaller
+// producer budget held their loads and products in series.
+constexpr int kWidenWarps = 3;       // the producer's warps 1-3 (warp 0 loads)
+constexpr int kWidenBatch = 5;       // raw rows a widening thread loads before it widens them
+
+// 8 weights (one raw row's 8 bytes at 8 consecutive columns) as bf16(q * s)
+// pairs, the product in f32, as quant_gemv.cuh's deq<true>(q_value): int8
+// b as the f32 2^23 + (b + 128) minus 2^23 + 128 (exact, no conversion
+// instruction); e4m3 pairs through cvt.rn.f16x2.e4m3x2 and f16 -> f32, the
+// path fp8_to_float takes.
+template <int FMT>
+__device__ __forceinline__ uint4 widen8(uint2 raw, const float (&s)[8]) {
+  float v[8];
+  if constexpr (FMT == kQInt8) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t word = e < 4 ? raw.x : raw.y;
+      const uint32_t biased = __byte_perm(word ^ 0x80808080u, 0x4B000000u, 0x7440 | (e & 3));
+      v[e] = (__uint_as_float(biased) - 8388736.f) * s[e];
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t word = p < 2 ? raw.x : raw.y;
+      const __nv_fp8x2_storage_t pair =
+          static_cast<__nv_fp8x2_storage_t>(p % 2 ? word >> 16 : word & 0xFFFFu);
+      const float2 q = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3)));
+      v[2 * p] = q.x * s[2 * p];
+      v[2 * p + 1] = q.y * s[2 * p + 1];
+    }
+  }
+  union {
+    __nv_bfloat162 h[4];
+    uint4 u;
+  } w;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) w.h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  return w.u;
+}
+
+// Widens rows row, row + STRIDE, .. < end of a raw stage `st` (rows of BN
+// bytes) into the swizzled B tile `b` (this lane's 64-column block), the 8
+// columns from `col` with scales `s`: kWidenBatch rows at a time, their
+// bytes loaded first and no branch inside a batch, so the loads and the
+// rows' arithmetic overlap; the last rows one by one. Returns the first of
+// those rows past `end`.
+template <int FMT, int STRIDE>
+__device__ __forceinline__ int widen_rows(const unsigned char* st, unsigned char* b, int row,
+                                          int end, int col, const float (&s)[8]) {
+  constexpr int BN = WgQGemm::BN;
+  for (; row + (kWidenBatch - 1) * STRIDE < end; row += kWidenBatch * STRIDE) {
+    uint2 q[kWidenBatch];
+#pragma unroll
+    for (int i = 0; i < kWidenBatch; ++i)
+      q[i] = *reinterpret_cast<const uint2*>(st + (row + i * STRIDE) * BN + col);
+    uint4 w[kWidenBatch];
+#pragma unroll
+    for (int i = 0; i < kWidenBatch; ++i) w[i] = widen8<FMT>(q[i], s);
+#pragma unroll
+    for (int i = 0; i < kWidenBatch; ++i)
+      *reinterpret_cast<uint4*>(b + wg::swizzled(row + i * STRIDE, col % 64)) = w[i];
+  }
+  for (; row < end; row += STRIDE)
+    *reinterpret_cast<uint4*>(b + wg::swizzled(row, col % 64)) =
+        widen8<FMT>(*reinterpret_cast<const uint2*>(st + row * BN + col), s);
+  return row;
+}
+
+// Block (row slot, column tile) by the raster: out rows of the slot's tile
+// = x rows @ the group's widened weight [K, F].
+template <int FMT>
+__global__ void __launch_bounds__(kWgBlockThreads, 1) wg_qgmm_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap smap, const int* __restrict__ group_sizes, int E, int N,
+    int K, int F, int gs, int slots, int col_tiles, __nv_bfloat16* __restrict__ out) {
+  static_assert(FMT == kQInt8 || FMT == kQFp8, "bf16 weights take wg_gmm_kernel");
+  using Qs = WgQGemm;
+  constexpr int BM = Qs::BM, BN = Qs::BN, BK = Qs::BK, SLOTS = Qs::SLOTS, RAW = Qs::RAW;
+  constexpr int SUBS = Qs::SUBS;
+  constexpr uint32_t BOX = BK * wg::kSwizzleBytes;   // one {64, 64} bf16 block
+  int y, c;
+  raster(blockIdx.x, slots, col_tiles, y, c);
+  const RowTile tile = find_tile(group_sizes, E, N, BM, y);
+  if (tile.group == -2) return;
+  const int c0 = c * BN;
+  if (tile.group == -1) {    // rows past the groups: zeros
+    zero_tile<BN>(out, F, tile.row0, tile.rows, c0, F);
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* wide = wg::align_smem(smem_raw);           // SLOTS x (x tile, bf16 B tile)
+  unsigned char* raw = wide + SLOTS * Qs::STAGE_BYTES;      // RAW x (q tile, 2 scale rows)
+  unsigned char* staging = raw + RAW * Qs::RAW_BYTES;       // the consumers' [64][64] tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + WgGemm::OUT_BYTES);   // widened slots
+  uint64_t* empty = full + SLOTS;
+  uint64_t* raw_full = empty + SLOTS;                        // raw stages
+  uint64_t* raw_empty = raw_full + RAW;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SLOTS; ++i) {
+      wg::mbar_init(&full[i], 1 + kWidenWarps);   // x's bytes + every widening warp
+      wg::mbar_init(&empty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < RAW; ++i) {
+      wg::mbar_init(&raw_full[i], 1);
+      wg::mbar_init(&raw_empty[i], kWidenWarps);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  const int steps = (K + BK - 1) / BK;
+  const int wgi = threadIdx.x / kWgThreads;
+  if (wgi == kConsumerWgs) {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    if (warp == 0) {
+      // one thread serves both rings, polling: the raw stages run up to RAW
+      // steps ahead of the widening, x's tiles up to SLOTS ahead of the consumers
+      if (lane != 0) return;
+      int r = 0, a = 0;
+      for (uint32_t idle = 0; r < steps || a < steps;) {
+        bool moved = false;
+        if (r < steps && (r < RAW || wg::mbar_test(&raw_empty[r % RAW], (r / RAW - 1) & 1))) {
+          unsigned char* st = raw + (r % RAW) * Qs::RAW_BYTES;
+          uint64_t* bar = &raw_full[r % RAW];
+          wg::mbar_expect_tx(bar, Qs::RAW_BYTES);
+          wg::tma_load_3d(st, &qmap, bar, c0, r * BK, tile.group);
+          wg::tma_load_3d(st + Qs::Q_BYTES, &smap, bar, c0, r * BK / gs, tile.group);
+          ++r;
+          moved = true;
+        }
+        if (a < steps && (a < SLOTS || wg::mbar_test(&empty[a % SLOTS], (a / SLOTS - 1) & 1))) {
+          uint64_t* bar = &full[a % SLOTS];
+          wg::mbar_expect_tx(bar, Qs::A_BYTES);
+          wg::tma_load_3d(wide + (a % SLOTS) * Qs::STAGE_BYTES, &amap, bar, a * BK, tile.row0, 0);
+          ++a;
+          moved = true;
+        }
+        idle = moved ? 0 : idle + 1;
+        if (idle > (1u << 26)) __trap();   // a schedule fault: fail the launch, free the card
+      }
+      return;
+    }
+    // the widening warps: a row of BN columns is BN / 8 lanes of 8 columns
+    // (a 16-byte chunk of a 64-column block), a warp's instruction 256 / BN
+    // rows; warp w takes rows w * (256 / BN) + lane / (BN / 8), then every
+    // kWidenWarps * (256 / BN)-th
+    constexpr int LANES_PER_ROW = BN / 8, ROWS = 32 / LANES_PER_ROW;
+    constexpr int STRIDE = kWidenWarps * ROWS;
+    const int col = (lane % LANES_PER_ROW) * 8;
+    const int first = (warp - 1) * ROWS + lane / LANES_PER_ROW;
+    unsigned char* const bcol = wide + Qs::A_BYTES + (col / 64) * BOX;
+    for (int s = 0; s < steps; ++s) {
+      wg::mbar_wait(&raw_full[s % RAW], (s / RAW) & 1);
+      if (s >= SLOTS) wg::mbar_wait(&empty[s % SLOTS], (s / SLOTS - 1) & 1);
+      const unsigned char* st = raw + (s % RAW) * Qs::RAW_BYTES;
+      unsigned char* b = bcol + (s % SLOTS) * Qs::STAGE_BYTES;
+      // rows [0, split) take the step's first scale row, [split, BK) its second
+      const int k0 = s * BK, split = min((k0 / gs + 1) * gs - k0, BK);
+      int row = first;
+#pragma unroll
+      for (int part = 0; part < Qs::SC_ROWS; ++part) {
+        const int end = part == 0 ? split : BK;
+        if (row >= end) continue;
+        const float4* sp = reinterpret_cast<const float4*>(st + Qs::Q_BYTES + part * BN * 4 +
+                                                           col * 4);
+        const float4 lo = sp[0], hi = sp[1];
+        const float sc[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        row = widen_rows<FMT, STRIDE>(st, b, row, end, col, sc);
+      }
+      // the B tile's stores, visible to wgmma's reads; one arrival a warp
+      wg::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        wg::mbar_arrive(&raw_empty[s % RAW]);
+        wg::mbar_arrive(&full[s % SLOTS]);
+      }
+    }
+    return;
+  }
+  const int lane = threadIdx.x % 32;
+  // a consumer's SUBS row blocks of 64: rows wgi * 64 * SUBS + 64 h
+  float acc[SUBS][BN / 2];
+#pragma unroll
+  for (int h = 0; h < SUBS; ++h) wg::zero(acc[h]);
+  for (int s = 0; s < steps; ++s) {
+    wg::ring_wait<SLOTS>(full, s);
+    const unsigned char* st = wide + (s % SLOTS) * Qs::STAGE_BYTES;
+    const unsigned char* a = st + wgi * SUBS * 64 * wg::kSwizzleBytes;
+#pragma unroll
+    for (int h = 0; h < SUBS; ++h) wg::fence_regs(acc[h]);
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = wg::desc_mn(st + Qs::A_BYTES + kk * 16 * wg::kSwizzleBytes, BOX);
+#pragma unroll
+      for (int h = 0; h < SUBS; ++h)
+        wg::mma_ss<BN, 1>(acc[h], wg::desc_k(a + h * 64 * wg::kSwizzleBytes + kk * 32), db, 1);
+    }
+    wg::mma_commit();
+    // the step's products done, its slot freed: keeping them in flight into
+    // the next step (wg_gmm's mma_wait<1>) made ptxas serialise the wgmmas
+    // here (C7515) and was slower
+    wg::mma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < SUBS; ++h) wg::fence_regs(acc[h]);
+    wg::ring_free<SLOTS>(empty, s, lane);
+  }
+#pragma unroll
+  for (int h = 0; h < SUBS; ++h) {
+    const int r0 = (wgi * SUBS + h) * 64;
+    store_acc(acc[h], staging + wgi * 64 * kStageLd, wgi, out + size_t(tile.row0 + r0) * F, F,
+              tile.rows - r0, c0, F);
+  }
+}
+
 // gmm launcher: out [N, C] = a [N, R] by group @ w [E, K, F] (TRANS: ^T).
 template <bool TRANS>
 cudaError_t launch_gmm(cudaStream_t s, const void* a, const void* w, const int* sizes,
@@ -848,6 +923,32 @@ cudaError_t launch_gmm(cudaStream_t s, const void* a, const void* w, const int* 
   if (err != cudaSuccess) return err;
   wg_gmm_kernel<TRANS><<<int(slots * col_tiles), kWgBlockThreads, Sh::SMEM, s>>>(
       am, wm, sizes, E, N, R, C, int(slots), int(col_tiles), out);
+  return cudaGetLastError();
+}
+
+// Quantized gmm launcher: out [N, F] = x [N, K] by group @ bf16(q [E, K, F] * s), scales
+// s [E, K / gs, F] f32.
+template <int FMT>
+cudaError_t launch_qgmm(cudaStream_t s, const void* x, const void* q, const void* sc,
+                        const int* sizes, __nv_bfloat16* out, int N, int K, int F, int E,
+                        int gs) {
+  using Qs = WgQGemm;
+  const long long slots = (long long)(N + Qs::BM - 1) / Qs::BM + E;
+  const long long col_tiles = (F + Qs::BN - 1) / Qs::BN;
+  if (slots * col_tiles > INT_MAX) return cudaErrorInvalidValue;
+  CUtensorMap am, qm, sm;
+  cudaError_t err = tile_map_3d(&am, x, 1, N, K, Qs::BM);
+  if (err == cudaSuccess)
+    err = plain_map_3d(&qm, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, E, K, F, Qs::BK, Qs::BN);
+  if (err == cudaSuccess)
+    err = plain_map_3d(&sm, sc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, E, K / gs, F, Qs::SC_ROWS,
+                       Qs::BN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wg_qgmm_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Qs::SMEM);
+  if (err != cudaSuccess) return err;
+  wg_qgmm_kernel<FMT><<<int(slots * col_tiles), kWgBlockThreads, Qs::SMEM, s>>>(
+      am, qm, sm, sizes, E, N, K, F, gs, int(slots), int(col_tiles), out);
   return cudaGetLastError();
 }
 
@@ -884,9 +985,10 @@ const char* sxt_grouped_error_string(int err) {
 // and scales [E, K/gs, F]; 3 bf16: w [E, K, F], scales unused), by
 // group_sizes [E] int32 on the device. N <= 16 runs the split-K GEMV over
 // `splits` chunks of `chunk` rows (whole scale groups, <= 1024 rows) with
-// f32 partials in part [splits, N, F]; larger N the tensor-core kernels
-// (bf16: wg_gmm_kernel). Needs K % 8 == 0, F % 16 == 0 (bf16: F % 8 == 0),
-// 16-byte aligned bases and, quantized, K % gs == 0 and gs % 32 == 0.
+// f32 partials in part [splits, N, F]; larger N the wgmma kernels (bf16:
+// wg_gmm_kernel, int8 / e4m3: wg_qgmm_kernel). Needs K % 8 == 0, F % 16 ==
+// 0 (bf16: F % 8 == 0), 16-byte aligned bases and, quantized, K % gs == 0
+// and gs % 32 == 0.
 int sxt_grouped_matmul_bf16(const void* x, const void* w, const void* scales,
                             const void* group_sizes, void* out, void* part, int N, int K, int F,
                             int E, int gs, int fmt, int splits, int chunk, void* stream) {
@@ -916,9 +1018,9 @@ int sxt_grouped_matmul_bf16(const void* x, const void* w, const void* scales,
     else
       err = launch_gemv<kGBf16>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
   } else if (fmt == kQInt8) {
-    err = launch_mma<kQInt8>(s, xp, wp, sp, gp, op, N, K, F, E, gs);
+    err = launch_qgmm<kQInt8>(s, x, w, scales, gp, op, N, K, F, E, gs);
   } else if (fmt == kQFp8) {
-    err = launch_mma<kQFp8>(s, xp, wp, sp, gp, op, N, K, F, E, gs);
+    err = launch_qgmm<kQFp8>(s, x, w, scales, gp, op, N, K, F, E, gs);
   } else {
     err = launch_gmm<false>(s, x, w, gp, op, N, K, F, E);
   }

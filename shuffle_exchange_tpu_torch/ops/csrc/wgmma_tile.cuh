@@ -1,5 +1,5 @@
 // Hopper tile code of the flash kernels' dense instances (flash_attention.cu)
-// and the bf16 grouped GEMMs (grouped_gemm.cu): mbarriers and the ring of
+// and the grouped GEMMs (grouped_gemm.cu): mbarriers and the ring of
 // TMA-fed slots they guard, TMA loads of 128-byte-swizzled tiles, wgmma
 // shared-memory descriptors, the wgmma instructions (m64nNk16, bf16 in, f32
 // out), named barriers and warpgroup register reallocation, all as inline
@@ -24,6 +24,11 @@
 // written by a TMA box of {32 or 16 columns, rows} in that swizzle and read
 // by descriptors of the same swizzle (desc_k<SW>, desc_mn<SW>): K-major with
 // 32 bytes a k-step inside a 64-byte row, MN-major with 16 rows a k-step.
+// A tile that threads write themselves (the quantized grouped GEMM's
+// widened weights) goes to the same places, `swizzled(r, c)` (the byte of
+// row r, bf16 column c of a 64-column block), followed by
+// fence_proxy_async() before wgmma reads it. One-byte and f32 tensors that
+// threads read themselves come through plain_map_3d: unswizzled boxes.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums (types only: nothing links libcuda)
@@ -61,6 +66,20 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(bar)) : "memory");
+}
+
+// Whether the barrier's phase of parity `parity` has completed, without
+// waiting (a thread that serves two rings polls both).
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(saddr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 // Wait for the completion of the barrier's phase of parity `parity`. A
@@ -463,6 +482,34 @@ inline cudaError_t tile_map_3d(CUtensorMap* map, const void* base, int batch, in
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a contiguous tensor [batch, rows, cols] of one-byte (int8,
+// e4m3: `type` CU_TENSOR_MAP_DATA_TYPE_UINT8) or f32 elements read in boxes
+// of {box_cols, box_rows, 1} without a swizzle: a box lands as a plain
+// row-major [box_rows][box_cols] tile (the raw weight tiles and scale rows
+// the quantized grouped GEMM widens itself). box_cols * bytes must be a
+// multiple of 16 and box_cols at most 256; rows and columns past the
+// tensor read as zeros.
+inline cudaError_t plain_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                                int batch, long long rows, long long cols, int box_rows,
+                                int box_cols) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const int bytes = type == CU_TENSOR_MAP_DATA_TYPE_UINT8     ? 1
+                    : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
+                                                              : 0;
+  if (bytes == 0 || (box_cols * bytes) % 16 || box_cols > 256 || box_rows > 256)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(batch)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * bytes, cuuint64_t(cols) * bytes * rows};
+  const cuuint32_t box[3] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

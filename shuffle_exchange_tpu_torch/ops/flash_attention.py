@@ -12,11 +12,12 @@ package runs its jnp reference: the port's own route on the card; the
 backward refuses them, naming ROADMAP queue A, item 4 (h)). The kernels
 live in ``ops/csrc/flash_attention.cu`` (whose header says what bounds them
 on the H100 and how the design answers it): the dense forward at every
-head dim and the dense backward at 128 and 256 run warp-specialised wgmma
-kernels over TMA-fed tiles (at 80 and 96 a tile's last 16 or 32 columns
-are a narrow tail block), the element-mask forms and the backward at 64
-``mma.sync`` kernels over 64 x 64 tiles. ``_build`` compiles that file with ``nvcc`` at first use and
-this module binds it with ctypes.
+head dim and the dense backward at 64, 128 and 256 run warp-specialised
+wgmma kernels over TMA-fed tiles (at 80 and 96 a tile's last 16 or 32
+columns are a narrow tail block; at 64 the dk/dv pass gives each consumer
+its own 64 keys), the element-mask forms ``mma.sync`` kernels over 64 x 64
+tiles. ``_build`` compiles that file with ``nvcc`` at first use and this
+module binds it with ctypes.
 
 ``flash_attention`` is differentiable: when an input requires grad, a CUDA
 call goes through a ``torch.autograd.Function`` whose forward also writes

@@ -12,13 +12,13 @@ as JAX dequantizes the stack before its megablox ``gmm``).
 On the card ``grouped_matmul`` launches the hand-written kernels of
 ``ops/csrc/grouped_gemm.cu`` (whose header says what bounds them on the
 H100 and how their designs answer it): a split-K GEMV at 16 rows or fewer,
-above that a warp-specialised ``wgmma`` kernel over TMA-fed tiles for bf16
-experts (``dx`` and ``dw`` too) and a tiled ``mma.sync`` kernel that
-dequantizes int8 / e4m3 experts in registers. It replaces the TPU's
+above that a warp-specialised ``wgmma`` kernel over TMA-fed tiles (``dx``
+and ``dw`` too), whose producer warps widen int8 / e4m3 expert tiles to
+bf16 in shared memory as they arrive. It replaces the TPU's
 ``_grouped_matmul_gmm``; unlike the JAX route, which sends shapes the TPU
 tiling does not take to ``ragged_dot``, every shape the port's models have
 goes to the kernel. The kernel reads int8 / fp8 experts at storage width
-and dequantizes them in registers, and it reads ``group_sizes`` on the
+and dequantizes them on the chip, and it reads ``group_sizes`` on the
 device: no call here copies a device value to the host. The wrapper runs
 its kernel for a CUDA tensor and its plain version for a CPU tensor, and
 counts one launch per call on the card (``grouped_matmul.launches``).

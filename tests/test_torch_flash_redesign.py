@@ -1,5 +1,6 @@
 """The flash forward and backward redesigned for Hopper (the dense forward
-at head dims 64, 80, 96, 128 and 256 and the dense backward at 128 and 256:
+at head dims 64, 80, 96, 128 and 256 and the dense backward at 64, 128 and
+256:
 warp-specialised wgmma kernels over TMA-fed tiles,
 ``ops/csrc/flash_attention.cu``), on the CPU: what of their design can be
 held without the card.
@@ -18,16 +19,23 @@ held without the card.
   tiles cover every key its rows see and skip only tiles wholly above its
   diagonal; the dk/dv pass's blocks grouped by (sequence, kv head), key
   tile 0 first, and its iterations visit every (query head of the group,
-  query tile at or below the diagonal) once, heads in ascending order.
+  query tile at or below the diagonal) once, heads in ascending order; at
+  64 (the key split: a block is 128 keys, each consumer its own 64 over
+  every query of a ring tile) each consumer covers each of its keys once,
+  in the same fixed order, and skips only query tiles wholly above its
+  keys.
 - A plain mirror of the new arithmetic in f32 (S summed over the column
   blocks in k-step order, O's column blocks side by side; the log2-domain
   online softmax over the row blocks and 64-key tiles with the rescale
   2^(m - m_new) and masked probabilities exactly 0; the dk/dv pass with
-  its query split and head-dim column split between two warpgroups and its
-  fixed group-sum order; the dq pass over its row blocks) equals JAX
+  its query split and head-dim column split between two warpgroups, or at
+  64 its key split, and its fixed group-sum order; the dq pass over its
+  row blocks) equals JAX
   ``reference_attention`` (its ``jax.vjp`` for the gradients) and, at the
   head dims splash takes (multiples of 64), ``splash_attention_gqa`` in
-  interpret mode within 1e-5.
+  interpret mode within 1e-5; at 64 the backward mirror also equals
+  ``jax.vjp`` of ``splash_attention_gqa`` in interpret mode (MHA, GQA,
+  segment ids, ragged T).
 - The wrappers hand the C entry points the operands, shapes, causal flag
   and scale, and the backward an f32 [B, H, T] delta buffer.
 """
@@ -54,7 +62,7 @@ WG_ROWS = 64        # rows (or, in the dk/dv pass, head-dim halves) a consumer w
 # the head dims whose dense forms (no element mask) run the wgmma kernels:
 # the forward at all of them, the backward at WGMMA_BWD_HEAD_DIMS
 WGMMA_HEAD_DIMS = (64, 80, 96, 128, 256)
-WGMMA_BWD_HEAD_DIMS = (128, 256)
+WGMMA_BWD_HEAD_DIMS = (64, 128, 256)
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block can have
 _SLACK = 1024         # the kernels align their tiles to the 1024-byte swizzle period
 
@@ -65,14 +73,16 @@ def wgmma_tiles(dh: int) -> dict:
     block, keys a ring tile, ring slots), ``dkv`` -> (keys a block, query
     rows a ring tile, ring slots); ``dq`` and ``dkv`` only where the
     backward is built. Two consumer warpgroups take 64 rows each below 256;
-    at 256 (and always in the dk/dv pass) they split the head-dim columns
-    of the accumulators instead."""
+    at 256 (and in the dk/dv pass at 128 and 256) they split the head-dim
+    columns of the accumulators instead; in the dk/dv pass at 64 a block is
+    128 keys, 64 a consumer."""
     if dh not in WGMMA_HEAD_DIMS:
         raise ValueError(f"no wgmma flash kernel at head_dim {dh} {WGMMA_HEAD_DIMS}")
     wide = dh == 256
     tiles = {"fwd": (64 if wide else 128, 64, 4 if wide else 8)}
     if dh in WGMMA_BWD_HEAD_DIMS:
-        tiles.update(dq=(64 if wide else 128, 64, 3 if wide else 8), dkv=(64, 64, 4 if wide else 8))
+        tiles.update(dq=(64 if wide else 128, 64, 3 if wide else 8),
+                     dkv=(128 if dh == 64 else 64, 64, 4 if wide else 8))
     return tiles
 
 
@@ -95,17 +105,20 @@ def wgmma_smem_bytes(which: str, dh: int) -> int:
     ring, the exchange between the two consumers (at 256 the forward's two
     buffers of both partial score tiles and the dq pass's one buffer of
     both partial S and dP tiles, f32; the dk/dv pass's four [64, 64] bf16
-    P^T / dS^T tiles, two sets of them at 128, and each consumer's two
-    staged lse / delta rows) and the ring's mbarriers (8 bytes each: full
-    and empty a slot, one more for the resident tiles)."""
+    P^T / dS^T tiles, two sets of them at 128, none at 64, and each
+    consumer's two staged lse / delta rows: its 32 queries', at 64 all 64)
+    and the ring's mbarriers (8 bytes each: full and empty a slot, one more
+    for the resident tiles)."""
     tiles = wgmma_tiles(dh)
     if which not in tiles:
         raise ValueError(f"no wgmma flash kernel for the {which} pass at head_dim {dh} "
                          f"{WGMMA_BWD_HEAD_DIMS}")
     rows, cols, slots = tiles[which]
     resident = {"fwd": 1, "dq": 2, "dkv": 2}[which] * rows * dh * 2
-    if which == "dkv":   # two sets of P^T / dS^T tiles at 128, one at 256
-        exchange = (1 if dh == 256 else 2) * 4 * rows * cols * 2 + 2 * 2 * cols * 4
+    if which == "dkv":   # two sets of P^T / dS^T tiles at 128, one at 256, none at 64
+        key_split = dh == 64
+        ptiles = 0 if key_split else (1 if dh == 256 else 2) * 4 * rows * cols * 2
+        exchange = ptiles + 2 * 2 * 2 * (cols if key_split else cols // 2) * 4
     elif dh == 256:
         exchange = 2 * 2 * rows * cols * 4
     else:
@@ -114,8 +127,9 @@ def wgmma_smem_bytes(which: str, dh: int) -> int:
 
 
 KNOWN_SMEM = {("fwd", 64): 83080, ("fwd", 80): 103560, ("fwd", 96): 124040,
-              ("fwd", 128): 165000, ("fwd", 256): 230472, ("dq", 128): 197768,
-              ("dq", 256): 230456, ("dkv", 128): 231560, ("dkv", 256): 231496}
+              ("fwd", 128): 165000, ("fwd", 256): 230472, ("dq", 64): 99464,
+              ("dq", 128): 197768, ("dq", 256): 230456, ("dkv", 64): 101512,
+              ("dkv", 128): 231560, ("dkv", 256): 231496}
 # the CUDA source's constants its structs' expressions use
 SOURCE_CONSTANTS = {"kConsumerWgs": 2, "kAlign": 1024}
 
@@ -165,10 +179,9 @@ def test_shared_memory_fits_a_block_and_matches_the_source(which, dh):
 
 
 def test_wgmma_tiles_refuse_other_head_dims():
-    """What stays unbuilt: the wgmma backward at 64, 80 and 96 (64 runs the
-    mma.sync backward; 80 and 96 have none), and head dims that are not
-    multiples of 16, such as 72."""
-    for dh in (64, 80, 96):
+    """What stays unbuilt: the wgmma backward at 80 and 96 (they have no
+    backward), and head dims that are not multiples of 16, such as 72."""
+    for dh in (80, 96):
         for which in ("dq", "dkv"):
             with pytest.raises(ValueError, match="no wgmma flash kernel"):
                 wgmma_smem_bytes(which, dh)
@@ -218,9 +231,9 @@ def fwd_blocks(B, T, H, causal, BM=128, KV=None):
     return blocks
 
 
-def dkv_blocks(B, S, KV):
+def dkv_blocks(B, S, KV, BN=64):
     """The dk/dv pass's blocks in issue order, (b, kv head, key tile)."""
-    nkt = -(-S // 64)
+    nkt = -(-S // BN)
     return [(bkv // KV, bkv % KV, kt) for bkv, kt in
             (divmod(x, nkt) for x in range(B * KV * nkt))]
 
@@ -235,10 +248,11 @@ def live_tiles(r0, T, S, causal, BM, BN):
     return n_kv, [j for j in range(n_kv) if not (causal and j * BN > r0 + WG_ROWS - 1)]
 
 
-def dkv_iterations(kt, kvh, n_rep, T, causal, BQ=64):
-    """The dk/dv pass's (head, query tile) sequence for key tile kt."""
+def dkv_iterations(kt, kvh, n_rep, T, causal, BQ=64, BN=64):
+    """The dk/dv pass's (head, query tile) sequence for key tile kt (of BN
+    keys): from the query tile of the tile's first key under a causal mask."""
     nqt = -(-T // BQ)
-    qt_lo = kt if causal else 0
+    qt_lo = kt * BN // BQ if causal else 0
     n_q = nqt - qt_lo
     return [(kvh * n_rep + i // n_q, qt_lo + i % n_q) for i in range(n_rep * n_q)]
 
@@ -281,27 +295,29 @@ def test_forward_and_dq_blocks_cover_every_tile_once_longest_first(dh, T, S, cau
             assert len(blocks) == B * H and all(qt == 0 for _, _, qt in blocks)
 
 
+@pytest.mark.parametrize("BN", [64, 128])
 @pytest.mark.parametrize("S", [1, 37, 1000])
-def test_dkv_blocks_cover_every_key_tile_once_grouped_by_kv_head(S):
+def test_dkv_blocks_cover_every_key_tile_once_grouped_by_kv_head(S, BN):
     B, KV = 3, 2
-    blocks = dkv_blocks(B, S, KV)
-    nkt = -(-S // 64)
+    blocks = dkv_blocks(B, S, KV, BN)
+    nkt = -(-S // BN)
     assert sorted(blocks) == sorted({(b, kvh, kt) for b in range(B) for kvh in range(KV)
                                      for kt in range(nkt)})
     for start in range(0, len(blocks), nkt):   # key tile 0 (the most query tiles) first
         assert [kt for _, _, kt in blocks[start:start + nkt]] == list(range(nkt))
 
 
+@pytest.mark.parametrize("BN", [64, 128])
 @pytest.mark.parametrize("T,causal", [(1, True), (37, True), (200, True), (200, False)])
 @pytest.mark.parametrize("n_rep", [1, 4])
-def test_dkv_iterations_cover_each_head_and_query_tile_once_in_order(T, causal, n_rep):
+def test_dkv_iterations_cover_each_head_and_query_tile_once_in_order(T, causal, n_rep, BN):
     kvh = 1
-    for kt in range(-(-T // 64)):
-        its = dkv_iterations(kt, kvh, n_rep, T, causal)
+    for kt in range(-(-T // BN)):
+        its = dkv_iterations(kt, kvh, n_rep, T, causal, BN=BN)
         heads = [h for h, _ in its]
         assert heads == sorted(heads)                                  # fixed group-sum order
         want = {(kvh * n_rep + g, qt) for g in range(n_rep)
-                for qt in range(kt if causal else 0, -(-T // 64))}
+                for qt in range(kt * BN // 64 if causal else 0, -(-T // 64))}
         assert sorted(its) == sorted(want) and len(its) == len(want)
         assert len(its) >= 1
 
@@ -375,6 +391,42 @@ def mirror_forward(q, k, v, causal, seg=None):
     return out, lse
 
 
+def key_split_live(its, kw0, causal, BQ=64):
+    """The iterations that add anything for a key-split warpgroup with keys
+    [kw0, kw0 + 64): all but the query tiles wholly above its keys
+    (causal), which the kernel computes all masked (exact zeros, so the
+    mirror may leave them out)."""
+    return [(h, qt) for h, qt in its if not (causal and qt * BQ + BQ - 1 < kw0)]
+
+
+def key_split_dkv(q, k, v, dout, lse, delta, sb, kw0, kt, kvh, n_rep, causal, sl2):
+    """One key-split warpgroup of the dk/dv pass at 64 (one sequence: q,
+    dout [T, H, Dh], k, v [S, Dh], lse, delta [H, T]): S^T = K_w Q^T and
+    dP^T = V_w dO^T over all 64 queries of each live iteration's tile,
+    P^T with masked pairs exactly 0 (the masked form only where the tile
+    needs it), dS^T = P^T (dP^T - delta), dv += P^T dO and dk += dS^T Q in
+    the iterations' order. -> (dv, dk unscaled), [64, Dh] each."""
+    T, S, Dh = q.shape[0], k.shape[0], q.shape[-1]
+    BQ = 64
+    keys = torch.arange(kw0, kw0 + WG_ROWS)
+    K, V = _rows(k, kw0, WG_ROWS), _rows(v, kw0, WG_ROWS)
+    dv, dk = torch.zeros(WG_ROWS, Dh), torch.zeros(WG_ROWS, Dh)
+    its = dkv_iterations(kt, kvh, n_rep, T, causal, BQ, 2 * WG_ROWS)
+    for head, qt in key_split_live(its, kw0, causal):
+        q0 = qt * BQ
+        queries = torch.arange(q0, q0 + BQ)
+        Q, dO = _rows(q[:, head], q0, BQ), _rows(dout[:, head], q0, BQ)
+        lse2 = torch.where(queries < T, _rows(lse[head], q0, BQ) * LOG2E, 0.)
+        dlt = torch.where(queries < T, _rows(delta[head], q0, BQ), 0.)
+        p = torch.exp2((K @ Q.T) * sl2 - lse2[None])
+        if (causal and kw0 + WG_ROWS - 1 > q0) or q0 + BQ > T or kw0 + WG_ROWS > S or sb is not None:
+            p = torch.where(_allowed(queries, keys, S, T, causal, sb).T, p, torch.zeros(()))
+        ds = p * ((V @ dO.T) - dlt[None])
+        dv += p @ dO
+        dk += ds @ Q
+    return dv, dk
+
+
 def mirror_backward(q, k, v, out, dout, lse, causal, seg=None):
     """The wgmma backward's arithmetic in f32: delta, the dk/dv pass (two
     warpgroups, each forming P^T and dS^T for half the queries and then
@@ -392,6 +444,16 @@ def mirror_backward(q, k, v, out, dout, lse, causal, seg=None):
             sb = None if seg is None else seg[b]
             for kvh in range(KV):
                 k0 = kt * BN
+                if BN == 2 * WG_ROWS:   # the key split: warpgroup w owns keys k0 + 64 w ..
+                    for w in range(2):
+                        kw0 = k0 + w * WG_ROWS
+                        dvw, dkw = key_split_dkv(q[b], k[b, :, kvh], v[b, :, kvh], dout[b],
+                                                 lse[b], delta[b], sb, kw0, kt, kvh, n_rep,
+                                                 causal, sl2)
+                        n = max(0, min(WG_ROWS, S - kw0))
+                        dv[b, kw0:kw0 + n, kvh] = dvw[:n]
+                        dk[b, kw0:kw0 + n, kvh] = dkw[:n] * scale
+                    continue
                 keys = torch.arange(k0, k0 + BN)
                 K, V = _rows(k[b, :, kvh], k0, BN), _rows(v[b, :, kvh], k0, BN)
                 acc = [[torch.zeros(BN, half), torch.zeros(BN, half)] for _ in range(2)]
@@ -497,6 +559,58 @@ def test_backward_mirror_matches_jax_vjp(dh, B, T, S, H, KV, causal, segments):
     tseg = None if seg is None else T_(seg)
     out, lse = mirror_forward(T_(q), T_(k), T_(v), causal, tseg)
     got = mirror_backward(T_(q), T_(k), T_(v), out, T_(dout), lse, causal, tseg)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,causal", [(1, True), (37, True), (200, True), (1000, True),
+                                      (200, False)])
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_dkv_key_split_covers_each_key_once_per_consumer_in_a_fixed_order(T, causal, n_rep):
+    """At 64 a dk/dv block is 128 keys: warpgroup w owns keys [k0 + 64 w,
+    k0 + 64 w + 64). Every key lies in exactly one warpgroup's range; each
+    warpgroup walks the block's iterations in the ring's order (heads
+    ascending, query tiles ascending); the only ones that add nothing are
+    query tiles wholly above its keys (all masked), and the rest hold every
+    query that sees each of its keys, in every head of the group."""
+    BN, BQ, _ = wgmma_tiles(64)["dkv"]
+    assert BN == 2 * WG_ROWS
+    S, kvh = T, 1
+    owners = np.zeros(S, np.int64)
+    for _, _, kt in dkv_blocks(1, S, 1, BN):
+        its = dkv_iterations(kt, kvh, n_rep, T, causal, BQ, BN)
+        assert its == sorted(its)
+        for w in range(2):
+            kw0 = kt * BN + w * WG_ROWS
+            live = key_split_live(its, kw0, causal)
+            assert live == sorted(live)
+            for h, qt in set(its) - set(live):   # skipped: every query before every key
+                assert causal and qt * BQ + BQ - 1 < kw0
+            for key in range(kw0, min(kw0 + WG_ROWS, S)):
+                owners[key] += 1
+                seen = range(key, T) if causal else range(T)
+                for g in range(n_rep):
+                    tiles = {qt for h, qt in live if h == kvh * n_rep + g}
+                    assert {x // BQ for x in seen} <= tiles
+    assert (owners == 1).all()
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,segments", [(1, 256, 256, 4, 4, False),
+                                                 (1, 256, 256, 4, 2, True),
+                                                 (2, 384, 384, 4, 1, False)],
+                         ids=["mha", "gqa-seg", "mqa"])
+def test_backward_mirror_at_64_matches_splash_vjp_interpret(B, T, S, H, KV, segments):
+    """Splash takes sequence lengths in multiples of 128; ragged T at 64 is
+    held against ``jax.vjp`` of ``reference_attention`` above."""
+    q, k, v, dout, seg = _case(B, T, S, H, KV, 64, segments, seed=T + H)
+    jseg = None if seg is None else jnp.asarray(seg)
+    _, vjp = jax.vjp(lambda a, b_, c: splash_attention_gqa(a, b_, c, causal=True,
+                                                            segment_ids=jseg, interpret=True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    tseg = None if seg is None else T_(seg)
+    out, lse = mirror_forward(T_(q), T_(k), T_(v), True, tseg)
+    got = mirror_backward(T_(q), T_(k), T_(v), out, T_(dout), lse, True, tseg)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
 

@@ -25,6 +25,18 @@ design can be held without the card.
 - The wrappers hand the C entry points their operands, shapes and form (dx
   is the transposed product's own entry point), and refuse a base that is
   not 16-byte aligned, naming the shape.
+- The quantized forward (``wg_qgmm_kernel``: a 256 x 128 gmm block over
+  weight tiles that the producer's warps widen to bf16 in shared memory):
+  its shared memory against the source's ``WgQGemm`` and 232,448 B, no
+  register reallocation; the widening (int8 through the exact 2^23 + b
+  path, e4m3 through fp8_to_float's conversion) equal to bf16(q * s) for
+  every byte; the widening warps writing each element of a step's
+  swizzled tile once, each K row with its own scale row; and a plain f32
+  mirror of the tiled arithmetic (64-row steps, at most two scale rows a
+  step, bf16(q * s), 16-row k-steps) against JAX ``grouped_matmul`` over
+  int8 and e4m3 ``QuantizedMatrix`` stacks at group sizes 32, 64, 96 and
+  256 in the four group patterns, within 1e-5; a mirror that reads only
+  the step's first scale row misses it at group size 32.
 """
 
 import importlib
@@ -37,7 +49,9 @@ import pytest
 import torch
 
 jgg = importlib.import_module("shuffle_exchange_tpu.ops.grouped_gemm")
+jqm = importlib.import_module("shuffle_exchange_tpu.ops.quant_matmul")
 gg = importlib.import_module("shuffle_exchange_tpu_torch.ops.grouped_gemm")
+tqm = importlib.import_module("shuffle_exchange_tpu_torch.ops.quant_matmul")
 CU = (gg.__file__.rsplit("/", 1)[0]) + "/csrc/grouped_gemm.cu"
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block can have
 SMS = 132             # the H100's SMs: one block each (the blocks' shared memory)
@@ -68,7 +82,7 @@ def _source() -> str:
 
 
 def _constant(name: str) -> int:
-    return int(re.search(rf"constexpr int {name} = (\d+);", _source()).group(1))
+    return int(re.search(rf"constexpr int (?:\w+ = \d+, )*{name} = (\d+)[;,]", _source()).group(1))
 
 
 def _source_tiles() -> dict:
@@ -170,14 +184,15 @@ def raster(b, slots, col_tiles, band=BAND):
     return band_i * band + r % width, r // width
 
 
-def gmm_blocks(sizes, N, C):
+def gmm_blocks(sizes, N, C, bm=TILE["BM"], bn=TILE["BN"]):
     """The gmm launch: (row slot, column tile, (row0, rows, group)) of
-    every block in issue order; C is the output width (F; dx: K)."""
-    slots, col_tiles = -(-N // TILE["BM"]) + len(sizes), -(-C // TILE["BN"])
+    every block in issue order; C is the output width (F; dx: K), the
+    tiles bm x bn (the quantized forward's tall tile: 256 x 128)."""
+    slots, col_tiles = -(-N // bm) + len(sizes), -(-C // bn)
     out = []
     for b in range(slots * col_tiles):
         y, c = raster(b, slots, col_tiles)
-        out.append((y, c, find_tile(sizes, N, TILE["BM"], y)))
+        out.append((y, c, find_tile(sizes, N, bm, y)))
     return out
 
 
@@ -478,10 +493,283 @@ def test_wrappers_refuse_an_unaligned_base_naming_the_shape(recorded):
 
 def test_the_replaced_kernels_are_gone_and_nothing_switches_back():
     src = _source()
-    for gone in ("grouped_dx_kernel", "grouped_dw_kernel", "DxStage", "DwStage"):
+    for gone in ("grouped_dx_kernel", "grouped_dw_kernel", "DxStage", "DwStage",
+                 "grouped_mma_kernel", "launch_mma", "struct Stage", "load_step", "mma_sync.cuh",
+                 "ldsm_x4", "cp_async"):
         assert gone not in src
-    # the mma.sync tensor-core form is built for the quantized formats only
+    # the quantized wgmma form is built for int8 and e4m3 only, and both
+    # quantized formats past 16 rows route to it
     assert 'static_assert(FMT == kQInt8 || FMT == kQFp8, "bf16 weights take wg_gmm_kernel")' in src
+    assert "launch_qgmm<kQInt8>" in src and "launch_qgmm<kQFp8>" in src
     assert "launch_gmm<false>" in src and "launch_gmm<true>" in src
     py = open(gg.__file__).read()
     assert "environ" not in py and "getenv" not in py
+
+
+# ---------------------------------------------------------------------------
+# The quantized forward: wg_qgmm_kernel's widened tiles
+# ---------------------------------------------------------------------------
+
+# the quantized forward's tile (BM, BN): tall, so that each widened step
+# feeds 256 rows of products
+QTILE = (256, 128)
+QSLOTS, QRAW, SC_ROWS = 3, 6, 2   # widened slots, raw stages, scale rows a raw stage
+
+
+def qgmm_smem_bytes(slots=QSLOTS, raw=QRAW) -> int:
+    """The quantized forward's dynamic shared memory: the alignment slack,
+    ``slots`` widened slots (x's [BM][64] bf16 tile and the [64][BN] bf16 B
+    tile), ``raw`` raw stages (the one-byte [64][BN] weight tile and two
+    f32 scale rows of BN), the two consumers' epilogue staging tiles and
+    the two rings' mbarriers."""
+    bm, bn = QTILE
+    stage = (bm * 64 + 64 * bn) * 2
+    raw_stage = 64 * bn + SC_ROWS * bn * 4
+    return 1024 + slots * stage + raw * raw_stage + 2 * WG_ROWS * STAGE_LD + 8 * 2 * (slots + raw)
+
+
+def _source_qtiles() -> dict:
+    """``WgQGemm``'s constants, its ``WgGemm::`` terms taken from
+    ``WgGemm``'s evaluated constants."""
+    body = _source().split("struct WgQGemm {", 1)[1].split("};", 1)[0]
+    env = dict(_source_tiles())
+    for decl in re.findall(r"static constexpr (?:int|bool) ([^;]+);", body):
+        for name, expr in re.findall(r"(\w+) =\s*((?:[^,(]|\([^)]*\))+)", decl):
+            expr = " ".join(expr.replace("WgGemm::", "").split())
+            env[name] = eval(expr.replace("/", "//"), {}, env)
+    return env
+
+
+def test_quantized_block_fits_shared_memory_and_the_register_file():
+    src = _source_qtiles()
+    bm, bn = QTILE
+    assert (src["BM"], src["BN"], src["SLOTS"], src["RAW"], src["SC_ROWS"]) == \
+        (bm, bn, QSLOTS, QRAW, SC_ROWS)
+    smem = qgmm_smem_bytes()
+    assert src["SMEM"] == smem == 222352 and smem <= SMEM_LIMIT
+    # a fourth widened slot does not fit
+    assert qgmm_smem_bytes(slots=4) > SMEM_LIMIT
+    assert src["RAW_BYTES"] % 1024 == 0 and src["STAGE_BYTES"] % 1024 == 0   # tiles stay aligned
+    # a consumer's accumulators: SUBS m64 row blocks of BN / 2 f32 registers, 128 in all
+    assert src["SUBS"] * 2 * WG_ROWS == bm and src["SUBS"] * bn // 2 == 128
+    assert bm <= 256 and bn % 64 == 0          # one TMA box of x's rows; whole swizzle blocks
+    # three warpgroups at the launch's 168 registers a thread: the widening
+    # warps keep theirs (no setmaxnreg in the quantized kernel)
+    body = _source().split("void __launch_bounds__(kWgBlockThreads, 1) wg_qgmm_kernel(", 1)[1]
+    body = body.split("\n}\n", 1)[0]
+    assert "regs_dealloc" not in body and "regs_alloc" not in body
+    assert _constant("kWidenWarps") == 3 and _constant("kWidenBatch") >= 1
+    # the bf16 kernels' split: 168 a thread at launch, 24 / 240 after
+    assert 128 * _constant("kProducerRegs") + 256 * _constant("kConsumerRegs") <= 384 * 168
+
+
+def test_the_tall_tile_widens_half_the_weights_a_product():
+    """A widened [64][BN] step feeds BM rows: widened elements per product
+    1 / (2 BM), half wg_gmm's 128 x 256 tile's."""
+    bm, bn = QTILE
+    wide = (TILE["BM"], TILE["BN"])
+    per = lambda m, n: (64 * n) / (2 * m * n * 64)
+    assert per(bm, bn) == per(*wide) / 2 and bm * bn == wide[0] * wide[1]
+
+
+def _fp8_values() -> np.ndarray:
+    """fp8_to_float of every byte (NaN at 0x7F and 0xFF)."""
+    return torch.arange(256, dtype=torch.uint8).view(torch.float8_e4m3fn).float().numpy()
+
+
+def widen_values(raw: np.ndarray, scales: np.ndarray, fmt, rounding=True) -> np.ndarray:
+    """The kernel's widening of raw bytes (uint8, any shape) with their
+    scales (f32, broadcast): int8 b in its own bit path, the f32 of bits
+    0x4B000000 | (b ^ 0x80) minus 2^23 + 128, times s; e4m3 through the
+    e4m3 -> f16 -> f32 conversion (fp8_to_float's), times s. Rounded to bf16
+    (as f32) unless ``rounding`` is off."""
+    b = raw.astype(np.uint32)
+    s = np.broadcast_to(scales.astype(np.float32), raw.shape)
+    if fmt == 8:
+        biased = (np.uint32(0x4B000000) | (b ^ np.uint32(0x80))).view(np.float32)
+        v = (biased - np.float32(8388736.0)) * s
+    else:
+        with np.errstate(invalid="ignore"):
+            v = _fp8_values()[raw] * s
+    v = v.astype(np.float32)
+    return torch.from_numpy(v).bfloat16().float().numpy() if rounding else v
+
+
+@pytest.mark.parametrize("fmt", [8, "fp8"])
+def test_widening_equals_the_dequantize_for_every_byte(fmt):
+    """Every byte (e4m3's NaN bytes 0x7F / 0xFF, which the quantizer never
+    writes, aside), at scales across the range (subnormal products and
+    overflow), widens to bf16(q * s) with the product in f32:
+    quant_gemv.cuh's deq<true> of q_value's q; for int8 the exact
+    2^23 + b path equals the signed byte's value."""
+    byte = np.arange(256, dtype=np.uint8)
+    q = byte.view(np.int8).astype(np.float32) if fmt == 8 else _fp8_values()
+    keep = ~np.isnan(q)
+    scales = np.array([1.0, 3.1e-3, 1.7 / 448, 2.0 ** -130, 1e-40, 255.75, 256.0, 300.5, 1e30],
+                      np.float32)
+    for s in scales:
+        with np.errstate(over="ignore"):
+            prod = (q[keep] * s).astype(np.float32)
+        want = torch.from_numpy(prod).bfloat16()
+        got = torch.from_numpy(widen_values(byte[keep], np.float32(s), fmt)).bfloat16()
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), (fmt, s)
+    if fmt == 8:   # the bit path's q is the signed byte, exactly
+        biased = np.uint32(0x4B000000) | (byte.astype(np.uint32) ^ np.uint32(0x80))
+        assert ((biased.view(np.float32) - np.float32(8388736.0)) == q).all()
+    else:
+        assert np.isnan(_fp8_values()[[0x7F, 0xFF]]).all() and _fp8_values()[0x7E] == 448.0
+
+
+def widening_writes(gs: int, step: int, bn: int):
+    """Where the widening warps write one step's [64][bn] B tile: for each
+    (warp, lane, row) the byte offset in the slot's B tile, the K row it
+    widens, its first column and the scale row (0 or 1 of the step's two)
+    it multiplies by. A row is bn / 8 lanes of 8 columns (a 16-byte chunk
+    of a 64-column block), a warp's instruction 256 / bn rows: warp w takes
+    rows w * (256 / bn) + lane // (bn / 8), then every 3 * (256 / bn)-th;
+    rows below ``split`` take the first scale row."""
+    bk = TILE["BK"]
+    k0 = step * bk
+    split = min((k0 // gs + 1) * gs - k0, bk)
+    per_row, rows = bn // 8, 256 // bn
+    out = []
+    for w in range(3):
+        for lane in range(32):
+            col = (lane % per_row) * 8
+            for row in range(w * rows + lane // per_row, bk, 3 * rows):
+                chunk = (col % 64) // 8
+                at = (col // 64) * bk * 128 + row * 128 + ((chunk ^ (row & 7)) << 4)
+                out.append((at, row, col, 0 if row < split else 1))
+    return out
+
+
+@pytest.mark.parametrize("gs", [32, 64, 96, 128, 256])
+def test_widening_threads_write_each_element_once_with_its_scale_row(gs):
+    bn = QTILE[1]
+    bk = TILE["BK"]
+    for step in range(6):
+        writes = widening_writes(gs, step, bn)
+        offsets = sorted(at for at, *_ in writes)
+        # every 16-byte chunk of the tile, once: the 128-byte swizzle's places
+        assert offsets == list(range(0, bk * bn * 2, 16))
+        for at, row, col, part in writes:
+            k = step * bk + row
+            first = step * bk // gs
+            assert k // gs == first + part            # the K row's own scale row
+            # the swizzled place of (row, col) in its block: TMA's 128-byte swizzle
+            blk = col // 64
+            assert at == blk * bk * 128 + row * 128 + ((((col % 64) // 8) ^ (row % 8)) * 16)
+        # a step spans at most two scale rows, since gs >= 32
+        assert len({part for *_, part in writes}) <= 2
+
+
+def qgmm_mirror(x, q, scales, gs, fmt, sizes, rounding=True, first_row_only=False):
+    """The quantized kernel's arithmetic: per gmm block of its tile, 64-row
+    steps of the raw weight tile (zeros past K and F, as TMA
+    fills them) widened with the step's scale rows (its first below
+    ``split``, else its second; zeros past K / gs), rounded to bf16, and the
+    products added in 16-row k-steps in order; only the tile's own rows
+    stored."""
+    N, K = x.shape
+    E, _, F = q.shape
+    bm, bn = QTILE
+    bk = TILE["BK"]
+    out = np.full((N, F), np.nan, np.float32)
+    for _, c, (row0, rows, g) in gmm_blocks(sizes, N, F, bm, bn):
+        if g == -2:
+            continue
+        c0, c1 = c * bn, min(F, (c + 1) * bn)
+        if g == -1:
+            out[row0:row0 + rows, c0:c1] = 0
+            continue
+        A = _box(x, row0, bm)
+        acc = np.zeros((bm, c1 - c0), np.float32)
+        for k0 in range(0, K, bk):
+            raw = np.zeros((bk, c1 - c0), np.uint8)
+            part = q[g, k0:k0 + bk, c0:c1]
+            raw[:len(part)] = part
+            first = k0 // gs
+            sc = np.zeros((2, c1 - c0), np.float32)
+            for i in range(2):
+                if first + i < K // gs:
+                    sc[i] = scales[g, first + i, c0:c1]
+            split = bk if first_row_only else min((first + 1) * gs - k0, bk)
+            rows_sc = np.where((np.arange(bk) < split)[:, None], sc[0][None], sc[1][None])
+            wide = widen_values(raw, rows_sc, fmt, rounding)
+            a = np.zeros((bm, bk), np.float32)
+            take = A[:, k0:k0 + bk]
+            a[:, :take.shape[1]] = take
+            for j in range(0, bk, 16):
+                acc += a[:, j:j + 16] @ wide[j:j + 16]
+        out[row0:row0 + rows, c0:c1] = acc[:rows]
+    assert not np.isnan(out).any()
+    return out
+
+
+# (group size, K): K a multiple of the group size; 160 and 288 end on half a step
+QUANT_GROUPS = [(32, 160), (64, 192), (96, 288), (256, 512)]
+QUANT_CASES = [(fmt, gs, K, p) for fmt in (8, "fp8") for gs, K in QUANT_GROUPS
+               for p in ("balanced", "one_expert", "empty_ends", "ragged")]
+
+
+def _quantized_case(fmt, gs, K, pattern, N=300, F=264, groups=4):
+    rng = np.random.default_rng(K + gs + (fmt == 8))
+    sizes = group_sizes(pattern, N, rng, groups=groups)
+    x = rng.standard_normal((N, K)).astype(np.float32)
+    w = (rng.standard_normal((groups, K, F)) * K ** -0.5).astype(np.float32)
+    qm = jqm.quantize_weight(jnp.asarray(w), gs, bits=fmt)
+    assert qm.group_size == gs
+    q = np.array(qm.q).view(np.uint8)
+    return x, qm, q, np.array(qm.scales), sizes
+
+
+@pytest.mark.parametrize("fmt,gs,K,pattern", QUANT_CASES)
+def test_quantized_mirror_matches_jax_grouped_matmul(fmt, gs, K, pattern):
+    """Without the bf16 rounding the mirror is JAX's f32 route (the stack
+    dequantized to f32 before ragged_dot); with it, JAX's route over the
+    stack JAX dequantizes and casts to bf16 (the activations' dtype on the
+    card). Both within 1e-5."""
+    x, qm, q, scales, sizes = _quantized_case(fmt, gs, K, pattern)
+    js = jnp.asarray(sizes)
+    want = np.asarray(jgg.grouped_matmul(jnp.asarray(x), qm, js))
+    dense16 = qm.dequantize().astype(jnp.bfloat16).astype(jnp.float32)
+    want16 = np.asarray(jgg.grouped_matmul(jnp.asarray(x), dense16, js))
+    _close(qgmm_mirror(x, q, scales, gs, fmt, sizes, rounding=False), want, "f32 widening")
+    _close(qgmm_mirror(x, q, scales, gs, fmt, sizes), want16, "bf16 widening")
+    # and the port's plain version over the same storage, in f32
+    tq = torch.from_numpy(q).view(torch.int8 if fmt == 8 else torch.float8_e4m3fn)
+    tw = tqm.QuantizedMatrix(tq, torch.from_numpy(scales), gs, torch.float32, fmt)
+    _close(gg.grouped_matmul_reference(torch.from_numpy(x), tw, torch.from_numpy(sizes)).numpy(),
+           want, "plain")
+
+
+@pytest.mark.parametrize("fmt", [8, "fp8"])
+def test_a_mirror_reading_only_the_first_scale_row_misses_jax(fmt):
+    """At group size 32 every 64-row step spans two scale groups: widening
+    the step with its first scale row only is far from JAX."""
+    x, qm, q, scales, sizes = _quantized_case(fmt, 32, 160, "ragged")
+    want = np.asarray(jgg.grouped_matmul(jnp.asarray(x), qm, jnp.asarray(sizes)))
+    bad = qgmm_mirror(x, q, scales, 32, fmt, sizes, rounding=False, first_row_only=True)
+    assert np.abs(bad - want).max() > 1e-2
+
+
+@pytest.mark.parametrize("fmt", [8, "fp8"])
+@pytest.mark.parametrize("N", [17, 300])
+def test_wrapper_hands_the_quantized_form_its_storage(recorded, fmt, N):
+    """Past 16 rows a quantized stack goes to the kernel as its storage: q
+    and the f32 scales, the group size and the format code, one split over
+    K and no partials (the GEMV's)."""
+    K, F = 192, 272
+    w = tqm.quantize_weight(torch.randn(E, K, F), 64, bits=fmt).to(None, torch.bfloat16)
+    x = torch.zeros(N, K, dtype=torch.bfloat16)
+    sizes = torch.tensor(group_sizes("ragged", N, np.random.default_rng(0)))
+    out = gg._launch(x, w, sizes)
+    args = recorded.pop("sxt_grouped_matmul_bf16")
+    assert args[:5] == (x.data_ptr(), w.q.data_ptr(), w.scales.data_ptr(), sizes.data_ptr(),
+                        out.data_ptr())
+    assert args[6:12] == (N, K, F, E, 64, gg.FORMATS[fmt])
+    if N > gg.GEMV_MAX_N:
+        assert args[5] is None and args[12:14] == (1, K)
+    else:
+        assert args[5] is not None and args[12:14] == gg.gemv_split(K, 64)
+    assert not recorded
