@@ -5,11 +5,16 @@ B15's element-mask form), the
 grouped GEMM (B16 forward over bf16 and int8 stacks, its dx and dw; at the
 main paths' shapes in every format beside ``torch._grouped_mm``, the bf16
 forward, dx and dw held to their plain versions), the
-quantized matmul (B8, both forms; at a put()'s 8,192 rows on Llama-3-8B's
-four matrices beside dequantize + ``torch.matmul``), where the tree has them the ALiBi
+quantized matmul (B8, both forms; at a tick's 256 chunk rows and a put()'s
+8,192 rows on Llama-3-8B's four matrices in each format beside dequantize
++ ``torch.matmul``), where the tree has them the ALiBi
 kernels (B11-B13), the paged serving kernels (B2 decode, B5 split-K
 decode, B3 extend over bf16, int8 and fp8 pools) and the LoRA delta (B9 at
-the chip smoke test's phase-2g cells) on seeded inputs, and prints for
+the chip smoke test's phase-2g cells, ranks 8, 16 and 64, then 128, 256
+and 136; its multi-token cells at ranks 8, 64 and 128 beside gather + two
+bf16 ``torch.bmm``, ``library_sequence_ms``; one-token rows at ranks 8-64
+on the row kernel and on the tensor-core pair, ``pair_ms``, where the tree
+has the pair) on seeded inputs, and prints for
 each cell a SHA-256 of its output bytes and its mean cold-L2 time. B2, B5
 and B3 cells are also held to their plain versions (``within`` PAGED_TOL,
 as the chip smoke test holds them; B5 at the tree's own split count), so
@@ -127,6 +132,8 @@ EXTEND_STARTS = ((1792, 1600), (512, 700))
 LORA_D, LORA_N, LORA_R, LORA_S = 4096, (4096, 1024), (8, 16, 64), (5, 65)
 LORA_ROWS = [(1, 1), (8, 1), (2, 256), (8, 1024)]
 LORA_WIDE_R = (128, 256, 136)
+LORA_SEQ_R = (8, 64, 128)   # ranks whose multi-token cells time gather + two torch.bmm too
+LORA_ROUTE_R = (8, 16, 32, 64)   # one-token rows timed on the row kernel and on the pair
 # "sweeps": the cells `chip_smoke.py` checks but does not time (to stay
 # within its time limit): phase 2c's flash shapes past its two
 # timed ones, 2e's quantized matmul on Llama-3-8B's other three matrix
@@ -144,6 +151,8 @@ SWEEP_GG_SHAPES = [(4096, 14336), (14336, 4096)]
 SWEEP_GG_ROWS = [2, 16, 512, 16384]
 SWEEP_GG_PATTERNS = ("balanced", "one_expert", "empty_ends", "ragged")
 QUANT_PREFILL_ROWS = 8192   # B8's prefill cells: a put() of 8 prompts padded to 1024
+QUANT_CHUNK_ROWS = 256      # and its chunk cells: a tick's 256-token budget
+QUANT_FEW_ROWS = 64         # and a tick of few rows past the GEMV's (B8's short tile)
 SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora", "sweeps", "moe_train")
 
 
@@ -326,7 +335,8 @@ def lora_cells(gen) -> dict:
 
     cells = {}
     grid = [(S, R) for S in LORA_S for R in LORA_R]
-    grid += [(LORA_S[0], R) for R in LORA_WIDE_R if hasattr(lg, "CHUNK_RANK")]
+    grid += [(LORA_S[0], R) for R in LORA_WIDE_R
+             if hasattr(lg, "CHUNK_RANK") or hasattr(lg, "ROW_RANK")]
     for S, R in grid:
         for N in LORA_N:
             a = (torch.randn(S, LORA_D, R, generator=gen, device="cuda") * LORA_D ** -0.5).bfloat16()
@@ -337,9 +347,40 @@ def lora_cells(gen) -> dict:
                 slots = torch.tensor(slots_of(B, S), dtype=torch.int32, device="cuda")
                 x = torch.randn(B, T, LORA_D, generator=gen, device="cuda").bfloat16()
                 fn = lambda: lg.lora_delta(x, a, b, slots)
-                cells[f"B9 S{S} R{R} N{N} {B}x{T}"] = dict(digest=digest([fn()]),
-                                                           ms=time_cold(fn, 5 if B * T > 1024
-                                                                        else 10))
+                cell = dict(digest=digest([fn()]), ms=time_cold(fn, 5 if B * T > 1024 else 10))
+                if T > 1 and R in LORA_SEQ_R and S == LORA_S[0] and N == LORA_N[0]:
+                    idx = slots.long()
+                    cell["library_sequence_ms"] = time_cold(
+                        lambda: torch.bmm(torch.bmm(x, a[idx]), b[idx]), 5)
+                cells[f"B9 S{S} R{R} N{N} {B}x{T}"] = cell
+    if hasattr(lg, "ROW_RANK"):   # a tree whose row kernel has a rank cutoff
+        cells.update(lora_route_cells(lg, gen, slots_of))
+    return cells
+
+
+def lora_route_cells(lg, gen, slots_of) -> dict:
+    """One-token rows at LORA_ROUTE_R on the row kernel (``ms``) and on
+    the tensor-core pair (``pair_ms``: the wrapper with ROW_RANK at 0),
+    the cells that place the row kernel's rank cutoff."""
+    import torch
+
+    cells = {}
+    S = LORA_S[0]
+    for R in LORA_ROUTE_R:
+        for N in LORA_N:
+            a = (torch.randn(S, LORA_D, R, generator=gen, device="cuda") * LORA_D ** -0.5).bfloat16()
+            b = (torch.randn(S, R, N, generator=gen, device="cuda") * R ** -0.5).bfloat16()
+            for B in (1, 8):
+                slots = torch.tensor(slots_of(B, S), dtype=torch.int32, device="cuda")
+                x = torch.randn(B, 1, LORA_D, generator=gen, device="cuda").bfloat16()
+                fn = lambda: lg.lora_delta(x, a, b, slots)
+                cell = dict(row_kernel=R <= lg.ROW_RANK, digest=digest([fn()]), ms=time_cold(fn))
+                saved, lg.ROW_RANK = lg.ROW_RANK, 0
+                try:
+                    cell.update(pair_digest=digest([fn()]), pair_ms=time_cold(fn))
+                finally:
+                    lg.ROW_RANK = saved
+                cells[f"B9 route S{S} R{R} N{N} {B}x1"] = cell
     return cells
 
 
@@ -416,34 +457,41 @@ def grouped_cells(gen, seed) -> dict:
 
 
 def quant_prefill_cells(qmm, gen) -> dict:
-    """B8 at a put()'s 8,192 rows on Llama-3-8B's four matrices (the chip
-    smoke test's QUANT_SHAPES) in each format at group 256, beside its
-    bound, the library yardstick (dequantize() + torch.matmul: one
-    dequantize of the stored weight, then cuBLAS) and cuBLAS on the dense
-    bf16 weight."""
+    """B8 at a put()'s 8,192 rows, a tick's 256 chunk rows and 64 rows (the
+    short tile) on Llama-3-8B's four matrices (the chip smoke test's QUANT_SHAPES) in each
+    format at group 256, beside its bound, the library yardstick
+    (dequantize() + torch.matmul: one dequantize of the stored weight, then
+    cuBLAS) and cuBLAS on the dense bf16 weight."""
     import torch
 
     from chip_smoke import QUANT_FORMATS, QUANT_SHAPES, _f32_reduction, bound
 
     cells = {}
-    rows = QUANT_PREFILL_ROWS
     with _f32_reduction():
         for K, N in QUANT_SHAPES:
             w = (torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5).bfloat16()
-            x = torch.randn(rows, K, generator=gen, device="cuda").bfloat16()
-            dense_ms = time_cold(lambda: x @ w)
-            for bits in QUANT_FORMATS:
-                qm = qmm.quantize_weight(w, 256, bits=bits)
-                fn = lambda: qmm.quant_matmul(x, qm)
-                row = dict(digest=digest([fn()]), ms=time_cold(fn),
-                           library_ms=time_cold(lambda: x @ qm.dequantize()),
-                           library="dequantize() + torch.matmul", dense_cublas_ms=dense_ms)
-                row["bound_ms"], row["bound_by"] = bound(rows * K * 2 + qm.nbytes + rows * N * 2,
-                                                         2.0 * rows * K * N)
-                row["library_over_kernel"] = row["library_ms"] / row["ms"]
-                cells[f"B8 {bits} {rows}x[{K}, {N}] prefill"] = row
-                del qm
-            del w, x
+            xs = {QUANT_PREFILL_ROWS: torch.randn(QUANT_PREFILL_ROWS, K, generator=gen,
+                                                  device="cuda").bfloat16()}
+            xs[QUANT_CHUNK_ROWS] = torch.randn(QUANT_CHUNK_ROWS, K, generator=gen,
+                                               device="cuda").bfloat16()
+            xs[QUANT_FEW_ROWS] = torch.randn(QUANT_FEW_ROWS, K, generator=gen,
+                                             device="cuda").bfloat16()
+            for rows, x in xs.items():
+                dense_ms = time_cold(lambda: x @ w)
+                for bits in QUANT_FORMATS:
+                    qm = qmm.quantize_weight(w, 256, bits=bits)
+                    fn = lambda: qmm.quant_matmul(x, qm)
+                    row = dict(digest=digest([fn()]), ms=time_cold(fn),
+                               library_ms=time_cold(lambda: x @ qm.dequantize()),
+                               library="dequantize() + torch.matmul", dense_cublas_ms=dense_ms)
+                    row["bound_ms"], row["bound_by"] = bound(
+                        rows * K * 2 + qm.nbytes + rows * N * 2, 2.0 * rows * K * N)
+                    row["library_over_kernel"] = row["library_ms"] / row["ms"]
+                    what = {QUANT_PREFILL_ROWS: "prefill", QUANT_CHUNK_ROWS: "chunk"}.get(
+                        rows, "few rows")
+                    cells[f"B8 {bits} {rows}x[{K}, {N}] {what}"] = row
+                    del qm
+            del w, xs
             torch.cuda.empty_cache()
     return cells
 

@@ -110,15 +110,17 @@
 // consumer two m64n128 accumulators), half the widening a product of form
 // 2's 128 x 256. The weight bytes cross device memory at one byte an
 // element (half the bf16 stack's) and the widened stack never leaves
-// shared memory.
+// shared memory. The block is wgmma_qgemm.cuh's qgemm_tile, which the
+// quantized matmul (quant_matmul.cu, B8) runs too, as one group.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
-#include "quant_gemv.cuh"   // kQInt8 / kQFp8, q_value, deq<ROUND_W>
-#include "wgmma_tile.cuh"   // wg:: mbarriers, the ring, TMA, wgmma; tile_map_3d
+#include "quant_gemv.cuh"    // kQInt8 / kQFp8, q_value, deq<ROUND_W>
+#include "wgmma_qgemm.cuh"   // the block layout, raster, epilogue, qgemm_tile (shared with B8)
+#include "wgmma_tile.cuh"    // wg:: mbarriers, the ring, TMA, wgmma; tile_map_3d
 
 namespace {
 
@@ -360,18 +362,10 @@ cudaError_t launch_gemv(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* w
 // The bf16 forms: warp-specialised wgmma kernels over TMA-fed tiles
 // ---------------------------------------------------------------------------
 
-constexpr int kWgThreads = 128;                      // one warpgroup
-constexpr int kConsumerWgs = 2;                      // the warpgroups that compute
-constexpr int kWgBlockThreads = kWgThreads * (kConsumerWgs + 1);   // + the producer's
-constexpr int kConsumerWarps = 4 * kConsumerWgs;     // the arrivals that free a ring slot
+// (the block's warpgroups, kBand, kBarStore and kStageLd: wgmma_qgemm.cuh)
 // 128 x 24 + 256 x 240 = 64,512 of the SM's 65,536 registers, one block an SM
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr int kSmemLimit = 232448;                   // dynamic shared memory a block can have
-constexpr int kAlign = 1024;                         // the swizzle's period: every tile's alignment
-constexpr int kBand = 16;                            // row tiles a band of the gmm raster
 constexpr int kBarZero = 1;                          // tgmm: the last step's rows are zeroed
-constexpr int kBarStore = 2;                         // + the warpgroup: its staging tile is full
-constexpr int kStageLd = 144;                        // bytes a staging row: 128 + 16 of padding
 
 // The block of both kernels: a BM x BN output tile, two consumers of 64
 // rows each; stages of BK reduction rows, an A tile [BM][BK] and a B tile
@@ -404,20 +398,6 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
   wg::mbar_fence_init();
 }
 
-// Zeros over rows [r0, r0 + rows) x columns [c0, c0 + BN) of a [.., ld]
-// bf16 matrix, clipped to `c_end` columns (a multiple of 8), by all the
-// block's threads.
-template <int BN = WgGemm::BN>
-__device__ __forceinline__ void zero_tile(__nv_bfloat16* __restrict__ out, size_t ld, int r0,
-                                          int rows, int c0, int c_end) {
-  constexpr int vecs = BN / 8;
-  for (int i = threadIdx.x; i < rows * vecs; i += blockDim.x) {
-    const int r = i / vecs, c = c0 + (i % vecs) * 8;
-    if (c < c_end)
-      *reinterpret_cast<uint4*>(out + size_t(r0 + r) * ld + c) = make_uint4(0, 0, 0, 0);
-  }
-}
-
 // The consumer's products of one stage: acc += A (64 x BK) B (BK x BN).
 // TA / TB 1: that operand MN-major (rows of the reduction 128 bytes apart,
 // 64-column blocks `lbo` bytes apart), else K-major.
@@ -438,51 +418,6 @@ __device__ __forceinline__ void stage_products(float (&acc)[WgGemm::BN / 2],
   wg::mma_commit();
 }
 
-// Stores a consumer's 64 x BN accumulators as bf16, rows of out `ld` apart
-// from `base` (its first row), the rows from `rows` on and the columns
-// from C on left out. A 64-column block at a time goes through the
-// warpgroup's staging tile `stage` (rows kStageLd bytes apart: the
-// fragments' bf16 pairs land in 32 distinct banks), then to device memory
-// as whole 128-byte row segments, 16 bytes a thread.
-template <int NACC>
-__device__ __forceinline__ void store_acc(const float (&acc)[NACC], unsigned char* stage, int wgi,
-                                          __nv_bfloat16* __restrict__ base, size_t ld, int rows,
-                                          int c0, int C) {
-  const int tid = threadIdx.x % kWgThreads, warp = tid / 32, lane = tid % 32;
-  const int r_lo = warp * 16 + lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int cb = 0; cb < NACC / 32; ++cb) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = 4 * (cb * 8 + n) + 2 * h;
-        *reinterpret_cast<__nv_bfloat162*>(stage + (r_lo + 8 * h) * kStageLd + n * 16 + tq * 4) =
-            __floats2bfloat162_rn(acc[i], acc[i + 1]);
-      }
-    wg::bar_sync<kWgThreads>(kBarStore + wgi);
-    for (int i = tid; i < 64 * 8; i += kWgThreads) {
-      const int r = i / 8, col = c0 + cb * 64 + (i % 8) * 8;
-      if (r < rows && col < C)
-        *reinterpret_cast<uint4*>(base + size_t(r) * ld + col) =
-            *reinterpret_cast<const uint4*>(stage + r * kStageLd + (i % 8) * 16);
-    }
-    wg::bar_sync<kWgThreads>(kBarStore + wgi);   // read before the next block lands
-  }
-}
-
-// The raster: tile b -> (row slot y, column tile c). Row slots go in bands
-// of kBand; within a band the slots run fastest, then the column tiles, so
-// the tiles in flight cover a patch of row tiles x column tiles and share
-// each weight panel (tgmm: each row panel of x and dout) through L2.
-__device__ __forceinline__ void raster(int b, int slots, int col_tiles, int& y, int& c) {
-  const int per = kBand * col_tiles;
-  const int band = b / per, r = b % per;
-  const int width = min(kBand, slots - band * kBand);
-  c = r / width;
-  y = band * kBand + r % width;
-}
-
 // Block (row slot, column tile) by the raster: out rows of the slot's tile
 // = A rows @ the group's weight (TRANS: its transpose). R is the reduction
 // length (K; dx: F), C the output columns (F; dx: K).
@@ -500,7 +435,7 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_gmm_kernel(
   if (tile.group == -2) return;
   const int c0 = c * BN;
   if (tile.group == -1) {    // rows past the groups: zeros
-    zero_tile(out, C, tile.row0, tile.rows, c0, C);
+    zero_tile<Sh::BN>(out, C, tile.row0, tile.rows, c0, C);
     return;
   }
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -598,7 +533,7 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_tgmm_kernel(
   const int k0 = kt * BM, f0 = ft * BN;
   __nv_bfloat16* __restrict__ out = dw + size_t(grp) * K * F;
   if (size == 0) {           // an empty group: a zero block
-    zero_tile(out, F, k0, min(BM, K - k0), f0, F);
+    zero_tile<BN>(out, F, k0, min(BM, K - k0), f0, F);
     return;
   }
   const int steps = (size + BK - 1) / BK;
@@ -660,104 +595,10 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_tgmm_kernel(
 // consumers over weight tiles widened in shared memory
 // ---------------------------------------------------------------------------
 
-// A block is two consumer warpgroups over 64-row reduction steps, with
-// wg_gmm_kernel's band raster and staged epilogue, on a 256 x 128 output
-// tile: each consumer takes 128 rows as two m64n128 accumulators (64 f32
-// registers each). The widened slots are 48 KB stages: x's [256][64] tile
-// and the step's bf16 [64 of K][128 of F] weight tile in 64-column blocks
-// of the 128-byte swizzle, read MN-major. The producer warpgroup fills
-// them: its warp 0 has one thread that TMA-loads each step's raw one-byte
-// [64][128] weight tile and its two scale rows (a 64-row step spans at
-// most two scale groups: gs >= 32) into RAW raw stages, and x's tile into
-// the widened slot; its warps 1-3 (the widening warps) write each raw
-// stage into the slot's B tile as bf16(q * s) with the product in f32
-// (quant_gemv.cuh's deq<true>, bit for bit), then fence.proxy.async and
-// arrive on the slot's `full` barrier, which completes once x's bytes have
-// landed too. The widening, not the tensor cores, bounds the block: a
-// widened step feeds BM rows of products, so the tile is tall (256 x 128
-// widens half the weights a product of wg_gmm's 128 x 256, and at few rows
-// a group its padded rows still cost less than the widening). Three
-// widened slots (a fourth does not fit) and six raw stages.
-struct WgQGemm {
-  static constexpr int BM = 256, BN = 128, BK = WgGemm::BK, SLOTS = 3, RAW = 6;
-  static constexpr int SUBS = BM / (kConsumerWgs * 64);      // m64 row blocks a consumer
-  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2;
-  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-  static constexpr int Q_BYTES = BK * BN;                    // the raw one-byte tile
-  static constexpr int SC_ROWS = 2, SC_BYTES = SC_ROWS * BN * 4;
-  static constexpr int RAW_BYTES = Q_BYTES + SC_BYTES;
-  static constexpr int SMEM = kAlign + SLOTS * STAGE_BYTES + RAW * RAW_BYTES +
-                              WgGemm::OUT_BYTES + 8 * 2 * (SLOTS + RAW);
-  static_assert(SMEM <= kSmemLimit, "quantized grouped GEMM: shared memory");
-  static_assert(SUBS * BN / 2 == 128, "a consumer's accumulators: 128 f32 registers");
-};
-// The widening warps keep the launch's registers: setmaxnreg's smaller
-// producer budget held their loads and products in series.
-constexpr int kWidenWarps = 3;       // the producer's warps 1-3 (warp 0 loads)
-constexpr int kWidenBatch = 5;       // raw rows a widening thread loads before it widens them
-
-// 8 weights (one raw row's 8 bytes at 8 consecutive columns) as bf16(q * s)
-// pairs, the product in f32, as quant_gemv.cuh's deq<true>(q_value): int8
-// b as the f32 2^23 + (b + 128) minus 2^23 + 128 (exact, no conversion
-// instruction); e4m3 pairs through cvt.rn.f16x2.e4m3x2 and f16 -> f32, the
-// path fp8_to_float takes.
-template <int FMT>
-__device__ __forceinline__ uint4 widen8(uint2 raw, const float (&s)[8]) {
-  float v[8];
-  if constexpr (FMT == kQInt8) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const uint32_t word = e < 4 ? raw.x : raw.y;
-      const uint32_t biased = __byte_perm(word ^ 0x80808080u, 0x4B000000u, 0x7440 | (e & 3));
-      v[e] = (__uint_as_float(biased) - 8388736.f) * s[e];
-    }
-  } else {
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const uint32_t word = p < 2 ? raw.x : raw.y;
-      const __nv_fp8x2_storage_t pair =
-          static_cast<__nv_fp8x2_storage_t>(p % 2 ? word >> 16 : word & 0xFFFFu);
-      const float2 q = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3)));
-      v[2 * p] = q.x * s[2 * p];
-      v[2 * p + 1] = q.y * s[2 * p + 1];
-    }
-  }
-  union {
-    __nv_bfloat162 h[4];
-    uint4 u;
-  } w;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) w.h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-  return w.u;
-}
-
-// Widens rows row, row + STRIDE, .. < end of a raw stage `st` (rows of BN
-// bytes) into the swizzled B tile `b` (this lane's 64-column block), the 8
-// columns from `col` with scales `s`: kWidenBatch rows at a time, their
-// bytes loaded first and no branch inside a batch, so the loads and the
-// rows' arithmetic overlap; the last rows one by one. Returns the first of
-// those rows past `end`.
-template <int FMT, int STRIDE>
-__device__ __forceinline__ int widen_rows(const unsigned char* st, unsigned char* b, int row,
-                                          int end, int col, const float (&s)[8]) {
-  constexpr int BN = WgQGemm::BN;
-  for (; row + (kWidenBatch - 1) * STRIDE < end; row += kWidenBatch * STRIDE) {
-    uint2 q[kWidenBatch];
-#pragma unroll
-    for (int i = 0; i < kWidenBatch; ++i)
-      q[i] = *reinterpret_cast<const uint2*>(st + (row + i * STRIDE) * BN + col);
-    uint4 w[kWidenBatch];
-#pragma unroll
-    for (int i = 0; i < kWidenBatch; ++i) w[i] = widen8<FMT>(q[i], s);
-#pragma unroll
-    for (int i = 0; i < kWidenBatch; ++i)
-      *reinterpret_cast<uint4*>(b + wg::swizzled(row + i * STRIDE, col % 64)) = w[i];
-  }
-  for (; row < end; row += STRIDE)
-    *reinterpret_cast<uint4*>(b + wg::swizzled(row, col % 64)) =
-        widen8<FMT>(*reinterpret_cast<const uint2*>(st + row * BN + col), s);
-  return row;
-}
+// wgmma_qgemm.cuh's qgemm_tile over the block's (group, row tile) by the
+// band raster: a 256 x 128 output tile, two consumer warpgroups of two
+// m64n128 accumulators, the producer's warp 0 loading and its warps 1-3
+// widening each raw one-byte [64][128] tile into the slot's bf16 B tile.
 
 // Block (row slot, column tile) by the raster: out rows of the slot's tile
 // = x rows @ the group's widened weight [K, F].
@@ -768,141 +609,17 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_qgmm_kernel(
     int K, int F, int gs, int slots, int col_tiles, __nv_bfloat16* __restrict__ out) {
   static_assert(FMT == kQInt8 || FMT == kQFp8, "bf16 weights take wg_gmm_kernel");
   using Qs = WgQGemm;
-  constexpr int BM = Qs::BM, BN = Qs::BN, BK = Qs::BK, SLOTS = Qs::SLOTS, RAW = Qs::RAW;
-  constexpr int SUBS = Qs::SUBS;
-  constexpr uint32_t BOX = BK * wg::kSwizzleBytes;   // one {64, 64} bf16 block
   int y, c;
   raster(blockIdx.x, slots, col_tiles, y, c);
-  const RowTile tile = find_tile(group_sizes, E, N, BM, y);
+  const RowTile tile = find_tile(group_sizes, E, N, Qs::BM, y);
   if (tile.group == -2) return;
-  const int c0 = c * BN;
+  const int c0 = c * Qs::BN;
   if (tile.group == -1) {    // rows past the groups: zeros
-    zero_tile<BN>(out, F, tile.row0, tile.rows, c0, F);
+    zero_tile<Qs::BN>(out, F, tile.row0, tile.rows, c0, F);
     return;
   }
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* wide = wg::align_smem(smem_raw);           // SLOTS x (x tile, bf16 B tile)
-  unsigned char* raw = wide + SLOTS * Qs::STAGE_BYTES;      // RAW x (q tile, 2 scale rows)
-  unsigned char* staging = raw + RAW * Qs::RAW_BYTES;       // the consumers' [64][64] tiles
-  uint64_t* full = reinterpret_cast<uint64_t*>(staging + WgGemm::OUT_BYTES);   // widened slots
-  uint64_t* empty = full + SLOTS;
-  uint64_t* raw_full = empty + SLOTS;                        // raw stages
-  uint64_t* raw_empty = raw_full + RAW;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < SLOTS; ++i) {
-      wg::mbar_init(&full[i], 1 + kWidenWarps);   // x's bytes + every widening warp
-      wg::mbar_init(&empty[i], kConsumerWarps);
-    }
-    for (int i = 0; i < RAW; ++i) {
-      wg::mbar_init(&raw_full[i], 1);
-      wg::mbar_init(&raw_empty[i], kWidenWarps);
-    }
-    wg::mbar_fence_init();
-  }
-  __syncthreads();
-  const int steps = (K + BK - 1) / BK;
-  const int wgi = threadIdx.x / kWgThreads;
-  if (wgi == kConsumerWgs) {
-    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    if (warp == 0) {
-      // one thread serves both rings, polling: the raw stages run up to RAW
-      // steps ahead of the widening, x's tiles up to SLOTS ahead of the consumers
-      if (lane != 0) return;
-      int r = 0, a = 0;
-      for (uint32_t idle = 0; r < steps || a < steps;) {
-        bool moved = false;
-        if (r < steps && (r < RAW || wg::mbar_test(&raw_empty[r % RAW], (r / RAW - 1) & 1))) {
-          unsigned char* st = raw + (r % RAW) * Qs::RAW_BYTES;
-          uint64_t* bar = &raw_full[r % RAW];
-          wg::mbar_expect_tx(bar, Qs::RAW_BYTES);
-          wg::tma_load_3d(st, &qmap, bar, c0, r * BK, tile.group);
-          wg::tma_load_3d(st + Qs::Q_BYTES, &smap, bar, c0, r * BK / gs, tile.group);
-          ++r;
-          moved = true;
-        }
-        if (a < steps && (a < SLOTS || wg::mbar_test(&empty[a % SLOTS], (a / SLOTS - 1) & 1))) {
-          uint64_t* bar = &full[a % SLOTS];
-          wg::mbar_expect_tx(bar, Qs::A_BYTES);
-          wg::tma_load_3d(wide + (a % SLOTS) * Qs::STAGE_BYTES, &amap, bar, a * BK, tile.row0, 0);
-          ++a;
-          moved = true;
-        }
-        idle = moved ? 0 : idle + 1;
-        if (idle > (1u << 26)) __trap();   // a schedule fault: fail the launch, free the card
-      }
-      return;
-    }
-    // the widening warps: a row of BN columns is BN / 8 lanes of 8 columns
-    // (a 16-byte chunk of a 64-column block), a warp's instruction 256 / BN
-    // rows; warp w takes rows w * (256 / BN) + lane / (BN / 8), then every
-    // kWidenWarps * (256 / BN)-th
-    constexpr int LANES_PER_ROW = BN / 8, ROWS = 32 / LANES_PER_ROW;
-    constexpr int STRIDE = kWidenWarps * ROWS;
-    const int col = (lane % LANES_PER_ROW) * 8;
-    const int first = (warp - 1) * ROWS + lane / LANES_PER_ROW;
-    unsigned char* const bcol = wide + Qs::A_BYTES + (col / 64) * BOX;
-    for (int s = 0; s < steps; ++s) {
-      wg::mbar_wait(&raw_full[s % RAW], (s / RAW) & 1);
-      if (s >= SLOTS) wg::mbar_wait(&empty[s % SLOTS], (s / SLOTS - 1) & 1);
-      const unsigned char* st = raw + (s % RAW) * Qs::RAW_BYTES;
-      unsigned char* b = bcol + (s % SLOTS) * Qs::STAGE_BYTES;
-      // rows [0, split) take the step's first scale row, [split, BK) its second
-      const int k0 = s * BK, split = min((k0 / gs + 1) * gs - k0, BK);
-      int row = first;
-#pragma unroll
-      for (int part = 0; part < Qs::SC_ROWS; ++part) {
-        const int end = part == 0 ? split : BK;
-        if (row >= end) continue;
-        const float4* sp = reinterpret_cast<const float4*>(st + Qs::Q_BYTES + part * BN * 4 +
-                                                           col * 4);
-        const float4 lo = sp[0], hi = sp[1];
-        const float sc[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        row = widen_rows<FMT, STRIDE>(st, b, row, end, col, sc);
-      }
-      // the B tile's stores, visible to wgmma's reads; one arrival a warp
-      wg::fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) {
-        wg::mbar_arrive(&raw_empty[s % RAW]);
-        wg::mbar_arrive(&full[s % SLOTS]);
-      }
-    }
-    return;
-  }
-  const int lane = threadIdx.x % 32;
-  // a consumer's SUBS row blocks of 64: rows wgi * 64 * SUBS + 64 h
-  float acc[SUBS][BN / 2];
-#pragma unroll
-  for (int h = 0; h < SUBS; ++h) wg::zero(acc[h]);
-  for (int s = 0; s < steps; ++s) {
-    wg::ring_wait<SLOTS>(full, s);
-    const unsigned char* st = wide + (s % SLOTS) * Qs::STAGE_BYTES;
-    const unsigned char* a = st + wgi * SUBS * 64 * wg::kSwizzleBytes;
-#pragma unroll
-    for (int h = 0; h < SUBS; ++h) wg::fence_regs(acc[h]);
-    wg::mma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t db = wg::desc_mn(st + Qs::A_BYTES + kk * 16 * wg::kSwizzleBytes, BOX);
-#pragma unroll
-      for (int h = 0; h < SUBS; ++h)
-        wg::mma_ss<BN, 1>(acc[h], wg::desc_k(a + h * 64 * wg::kSwizzleBytes + kk * 32), db, 1);
-    }
-    wg::mma_commit();
-    // the step's products done, its slot freed: keeping them in flight into
-    // the next step (wg_gmm's mma_wait<1>) made ptxas serialise the wgmmas
-    // here (C7515) and was slower
-    wg::mma_wait<0>();
-#pragma unroll
-    for (int h = 0; h < SUBS; ++h) wg::fence_regs(acc[h]);
-    wg::ring_free<SLOTS>(empty, s, lane);
-  }
-#pragma unroll
-  for (int h = 0; h < SUBS; ++h) {
-    const int r0 = (wgi * SUBS + h) * 64;
-    store_acc(acc[h], staging + wgi * 64 * kStageLd, wgi, out + size_t(tile.row0 + r0) * F, F,
-              tile.rows - r0, c0, F);
-  }
+  qgemm_tile<FMT>(&amap, &qmap, &smap, tile.group, tile.row0, tile.rows, c0, F, gs, 0,
+                  (K + Qs::BK - 1) / Qs::BK, out, nullptr, F);
 }
 
 // gmm launcher: out [N, C] = a [N, R] by group @ w [E, K, F] (TRANS: ^T).

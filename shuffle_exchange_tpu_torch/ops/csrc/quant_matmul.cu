@@ -22,189 +22,54 @@
 // partials added in a fixed order by quant_out_kernel below, so two runs give
 // equal bits). Above 8 rows (extend chunks, mixed ticks, a put() of 8
 // prompts padded to 1024 = 8192 rows) the work turns to operations: 2 M K N
-// flops, ~0.97 ms at M = 8192, K 4096, N 14336. Those rows take a tiled
-// tensor-core kernel: 128 x 128 output tiles, 8 warps of 32 x 64, K steps of
-// 32 rows that never cross a scale group. Each step copies the x tile and
-// the raw weight tile (int8 / fp8 32 rows, int4 16 packed rows) and the
-// group's scale row into shared memory with cp.async, three steps in flight,
-// then all threads dequantize the raw tile into a bf16 tile, and the warps
-// run mma.sync m16n8k16 (bf16, f32 accumulators) from ldmatrix fragments.
-// An int4 step pairs packed rows p with logical rows p and p + gs/2 of the
-// group, so its x tile takes two 16-column pieces of the group. Ragged M and
-// N are masked (zero-filled loads, guarded stores); nothing is padded on the
-// host. A grid of fewer tiles than the card has SMs (a tick's 256 chunk rows
-// against a [4096, 1024] weight is 16 tiles) splits K across blocks: each
-// split writes f32 partials that quant_out_kernel adds in split order. wgmma,
-// TMA and a producer warp are later work.
+// flops, ~0.97 ms at M = 8192, K 4096, N 14336. Those rows take
+// wg_qmatmul_kernel: the quantized grouped GEMM's block (wgmma_qgemm.cuh's
+// qgemm_tile, shared with grouped_gemm.cu's B16) over the one matrix, its
+// row tiles in the band raster. A 256 x 128 output tile a block (128 x 128,
+// WgQGemmShort, where the call has at most 128 rows: the tile's products
+// are half the tall tile's there, and one row tile spans the call either
+// way; 15-25% faster on w_gate at 9-128 rows, on the H100); a producer
+// warpgroup whose one thread TMA-loads x's [256][64] tiles and the raw
+// one-byte [64][128] weight tiles with their scale rows, and whose three
+// other warps widen each raw tile to bf16(q * s) (f32 product, the rounding
+// of the default route above) in the 128-byte swizzle; two consumer
+// warpgroups of m64n128k16 wgmmas. Packed int4 reads each 64-row logical
+// step as four 16-row pieces of packed rows, each the low or high nibbles of
+// one group half, so x's tile and the reduction order are int8's. The
+// widening bounds the block (as it does B16's: the widened step is
+// shared by 256 rows of products, the shared-memory stores and the
+// conversions are the cost). Ragged M and N are zero-filled by TMA and
+// masked at the store; nothing is padded on the host. A grid of fewer tiles
+// than the card has SMs (256 chunk rows against wk's [4096, 1024] is 8
+// tiles) splits K across blocks in whole 64-row steps: each split writes f32
+// partials that quant_out_kernel adds in split order, so two runs give equal
+// bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "quant_gemv.cuh"   // formats, q_value, the split-K GEMV
-#include "mma_sync.cuh"     // cp_async16, ldsm_x4, mma_bf16, ...
+#include "quant_gemv.cuh"    // formats, q_value, the split-K GEMV
+#include "wgmma_qgemm.cuh"   // qgemm_tile, the raster (shared with B16)
+#include "wgmma_tile.cuh"    // tile_map_3d, plain_map_3d
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kStages = 3;                // K steps in flight
-constexpr int kMmaThreads = 256;          // 8 warps: 4 along M x 2 along N
-constexpr int kLDA = kBK + 8;             // padded x tile row, in bf16 (80 bytes)
-constexpr int kLDB = kBN + 8;             // padded bf16 weight tile row (272 bytes)
-
-struct Stage {
-  __nv_bfloat16 a[kBM * kLDA];   // x tile [128][32 + 8]
-  uint8_t q[kBK * kBN];          // raw weight rows [32][128] (int4: 16 packed rows)
-  float s[kBN];                  // the step's scale row
-};
-
-// Issue the copies of K step `step` into `st` (the caller commits).
-template <int FMT>
-__device__ __forceinline__ void load_step(Stage& st, const __nv_bfloat16* __restrict__ x,
-                                          const uint8_t* __restrict__ q,
-                                          const float* __restrict__ sc, int M, int K, int N,
-                                          int gs, int m0, int n0, int step, int tid) {
-  const int grp = step * kBK / gs;
-  // the x columns of the step's two 16-row halves
-  int col[2];
-  if (FMT == kQInt4) {
-    const int off = step * (kBK / 2) - grp * (gs / 2);   // packed row offset in the group
-    col[0] = grp * gs + off;
-    col[1] = col[0] + gs / 2;
-  } else {
-    col[0] = step * kBK;
-    col[1] = col[0] + kBK / 2;
-  }
-  // x: 128 rows x 4 vectors of 8 bf16
-  for (int i = tid; i < kBM * 4; i += kMmaThreads) {
-    const int r = i / 4, v = i % 4;
-    const bool ok = m0 + r < M;
-    const __nv_bfloat16* src = x + size_t(ok ? m0 + r : 0) * K + col[v / 2] + (v % 2) * 8;
-    cp_async16(st.a + r * kLDA + v * 8, src, ok);
-  }
-  // raw weight rows: 128 bytes = 8 vectors a row
-  const int qrows = FMT == kQInt4 ? kBK / 2 : kBK;
-  const size_t qrow0 = FMT == kQInt4 ? size_t(step) * (kBK / 2) : size_t(step) * kBK;
-  for (int i = tid; i < qrows * 8; i += kMmaThreads) {
-    const int r = i / 8, v = i % 8;
-    const bool ok = n0 + v * 16 < N;
-    cp_async16(st.q + r * kBN + v * 16, q + (qrow0 + r) * N + (ok ? n0 + v * 16 : 0), ok);
-  }
-  // scales: 128 f32 = 32 vectors
-  if (tid < kBN / 4) {
-    const bool ok = n0 + tid * 4 < N;
-    cp_async16(st.s + tid * 4, sc + size_t(grp) * N + (ok ? n0 + tid * 4 : 0), ok);
-  }
-}
-
-constexpr size_t kMmaSmem = kStages * sizeof(Stage) + size_t(kBK) * kLDB * sizeof(__nv_bfloat16);
-
-// Block (column tile, row tile, K split): out (or, split, part[split]) =
-// the split's K steps of x @ deq(q).
-template <int FMT>
-__global__ void __launch_bounds__(kMmaThreads) quant_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-    const float* __restrict__ sc, __nv_bfloat16* __restrict__ out, float* __restrict__ part,
-    int M, int K, int N, int gs, int split_steps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Stage* stage = reinterpret_cast<Stage*>(smem);
-  // the dequantized weight tile [32][136]
-  __nv_bfloat16* bt = reinterpret_cast<__nv_bfloat16*>(smem + kStages * sizeof(Stage));
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int wm = warp % 4, wn = warp / 4;    // warp tile: rows wm*32, columns wn*64
-  const int s0 = blockIdx.z * split_steps;
-  const int steps = min(K / kBK - s0, split_steps);
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // one commit group per step, empty past the split's end, so the wait
-  // below always leaves the newer kStages - 1 steps in flight
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < steps) load_step<FMT>(stage[i], x, q, sc, M, K, N, gs, m0, n0, s0 + i, tid);
-    cp_async_commit();
-  }
-  for (int step = 0; step < steps; ++step) {
-    const int ahead = step + kStages - 1;
-    if (ahead < steps)
-      load_step<FMT>(stage[ahead % kStages], x, q, sc, M, K, N, gs, m0, n0, s0 + ahead, tid);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    const Stage& st = stage[step % kStages];
-
-    // dequantize: thread -> (row kr, 16 columns); bf16(q * s)
-    {
-      const int kr = tid / 8, c0 = (tid % 8) * 16;
-      const int hi = FMT == kQInt4 ? kr / 16 : 0;
-      const int qr = FMT == kQInt4 ? kr % 16 : kr;
-      const uint4 raw = *reinterpret_cast<const uint4*>(st.q + qr * kBN + c0);
-      const uint2 lo2 = make_uint2(raw.x, raw.y), hi2 = make_uint2(raw.z, raw.w);
-      union {
-        __nv_bfloat162 h[4];
-        uint4 u;
-      } w0, w1;
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        w0.h[e / 2] = __floats2bfloat162_rn(q_value<FMT>(lo2, e, hi) * st.s[c0 + e],
-                                            q_value<FMT>(lo2, e + 1, hi) * st.s[c0 + e + 1]);
-        w1.h[e / 2] = __floats2bfloat162_rn(q_value<FMT>(hi2, e, hi) * st.s[c0 + 8 + e],
-                                            q_value<FMT>(hi2, e + 1, hi) * st.s[c0 + 9 + e]);
-      }
-      *reinterpret_cast<uint4*>(bt + kr * kLDB + c0) = w0.u;
-      *reinterpret_cast<uint4*>(bt + kr * kLDB + c0 + 8) = w1.u;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4(af[i], st.a + (wm * 32 + i * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kLDA +
-                           kk * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, bt + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kLDB + wn * 64 +
-                             np * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * np], af[i], r[0], r[1]);
-          mma_bf16(acc[i][2 * np + 1], af[i], r[2], r[3]);
-        }
-      }
-    }
-    __syncthreads();   // done with this stage and the bf16 tile before they are refilled
-  }
-
-  const int g = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + wn * 64 + j * 8 + tq * 2;
-      if (col >= N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + i * 16 + g + h * 8;
-        if (row >= M) continue;
-        if (part == nullptr)
-          *reinterpret_cast<__nv_bfloat162*>(out + size_t(row) * N + col) =
-              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        else
-          *reinterpret_cast<float2*>(part + (size_t(blockIdx.z) * M + row) * N + col) =
-              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
-  }
+// Block (tile b by the raster, split blockIdx.y): out (one split) or
+// part[split] (several) over the split's steps of x @ widened(q).
+template <int FMT, class Qs>
+__global__ void __launch_bounds__(kWgBlockThreads, 1) wg_qmatmul_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap smap, int M, int K, int N, int gs, int row_tiles,
+    int col_tiles, int split_steps, __nv_bfloat16* __restrict__ out, float* __restrict__ part) {
+  int y, c;
+  raster(blockIdx.x, row_tiles, col_tiles, y, c);
+  const int s0 = blockIdx.y * split_steps;
+  const int steps = min((K + Qs::BK - 1) / Qs::BK - s0, split_steps);
+  float* pp = part == nullptr ? nullptr : part + size_t(blockIdx.y) * M * N;
+  qgemm_tile<FMT, Qs>(&amap, &qmap, &smap, 0, y * Qs::BM, min(Qs::BM, M - y * Qs::BM),
+                      c * Qs::BN, N, gs, s0, steps, out, pp, N);
 }
 
 // Sum of split partials [S, B, N] in split order, cast to bf16.
@@ -217,16 +82,29 @@ __global__ void quant_out_kernel(const float* __restrict__ part, int S, int B, i
   out[i] = __float2bfloat16(sum);
 }
 
-template <int FMT>
-cudaError_t launch_mma(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* q, const float* sc,
-                       __nv_bfloat16* out, float* part, int M, int K, int N, int gs, int splits,
-                       int split_steps) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      quant_mma_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kMmaSmem));
+template <int FMT, class Qs>
+cudaError_t launch_wg(cudaStream_t s, const void* x, const void* q, const void* sc,
+                      __nv_bfloat16* out, float* part, int M, int K, int N, int gs, int splits,
+                      int split_steps) {
+  const int row_tiles = (M + Qs::BM - 1) / Qs::BM, col_tiles = (N + Qs::BN - 1) / Qs::BN;
+  if ((long long)row_tiles * col_tiles > INT_MAX) return cudaErrorInvalidValue;
+  CUtensorMap am, qm, sm;
+  cudaError_t err = tile_map_3d(&am, x, 1, M, K, Qs::BM);
+  if (err == cudaSuccess)
+    err = FMT == kQInt4 ? plain_map_3d(&qm, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2, N,
+                                       Qs::PIECE, Qs::BN)
+                        : plain_map_3d(&qm, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, Qs::BK,
+                                       Qs::BN);
+  if (err == cudaSuccess)
+    err = plain_map_3d(&sm, sc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, K / gs, N, Qs::SC_ROWS,
+                       Qs::BN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wg_qmatmul_kernel<FMT, Qs>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Qs::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  quant_mma_kernel<FMT><<<grid, kMmaThreads, kMmaSmem, s>>>(x, q, sc, out, part, M, K, N, gs,
-                                                            split_steps);
+  wg_qmatmul_kernel<FMT, Qs><<<dim3(row_tiles * col_tiles, splits), kWgBlockThreads, Qs::SMEM,
+                               s>>>(am, qm, sm, M, K, N, gs, row_tiles, col_tiles, split_steps,
+                                    out, part);
   return cudaGetLastError();
 }
 
@@ -242,8 +120,9 @@ const char* sxt_quant_error_string(int err) {
 // 1 packed int4, 2 e4m3) and group size gs. The reduction over K runs in
 // `splits` chunks of `chunk` rows, with f32 partials in part [splits, M, N]
 // (unused when splits is 1 above 8 rows). M <= 8 runs the GEMV, whose chunks
-// are whole groups; larger M the tensor-core kernel, whose chunks are whole
-// 32-row steps. Needs K % gs == 0, gs % 32 == 0 and N % 16 == 0.
+// are whole groups; larger M the wgmma kernel (on 128-row tiles up to 128
+// rows, 256-row tiles past them), whose chunks are whole 64-row steps.
+// Needs K % gs == 0, gs % 32 == 0, N % 16 == 0 and 16-byte aligned bases.
 int sxt_quant_matmul_bf16(const void* x, const void* q, const void* scales, void* out,
                           void* part, int M, int K, int N, int gs, int fmt, int splits, int chunk,
                           void* stream) {
@@ -252,8 +131,6 @@ int sxt_quant_matmul_bf16(const void* x, const void* q, const void* scales, void
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* qp = static_cast<const uint8_t*>(q);
-  const auto* sp = static_cast<const float*>(scales);
   auto* op = static_cast<__nv_bfloat16*>(out);
   if (M <= kQMaxRows) {
     if (part == nullptr || bad_qsplit(K, gs, splits, chunk))
@@ -267,17 +144,28 @@ int sxt_quant_matmul_bf16(const void* x, const void* q, const void* scales, void
                                                          M, N, op);
     return static_cast<int>(cudaGetLastError());
   }
-  if (chunk % kBK || splits < 1 || (long long)splits * chunk < K ||
+  constexpr int BK = WgQGemm::BK;
+  if (chunk % BK || splits < 1 || splits > 65535 || (long long)splits * chunk < K ||
       (long long)(splits - 1) * chunk >= K || (splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   float* pp = splits > 1 ? static_cast<float*>(part) : nullptr;
   cudaError_t err;
-  if (fmt == kQInt8)
-    err = launch_mma<kQInt8>(s, xp, qp, sp, op, pp, M, K, N, gs, splits, chunk / kBK);
-  else if (fmt == kQInt4)
-    err = launch_mma<kQInt4>(s, xp, qp, sp, op, pp, M, K, N, gs, splits, chunk / kBK);
-  else
-    err = launch_mma<kQFp8>(s, xp, qp, sp, op, pp, M, K, N, gs, splits, chunk / kBK);
+  const int ss = chunk / BK;
+  if (M <= WgQGemmShort::BM) {   // one short row tile spans the call
+    if (fmt == kQInt8)
+      err = launch_wg<kQInt8, WgQGemmShort>(s, x, q, scales, op, pp, M, K, N, gs, splits, ss);
+    else if (fmt == kQInt4)
+      err = launch_wg<kQInt4, WgQGemmShort>(s, x, q, scales, op, pp, M, K, N, gs, splits, ss);
+    else
+      err = launch_wg<kQFp8, WgQGemmShort>(s, x, q, scales, op, pp, M, K, N, gs, splits, ss);
+  } else {
+    if (fmt == kQInt8)
+      err = launch_wg<kQInt8, WgQGemm>(s, x, q, scales, op, pp, M, K, N, gs, splits, ss);
+    else if (fmt == kQInt4)
+      err = launch_wg<kQInt4, WgQGemm>(s, x, q, scales, op, pp, M, K, N, gs, splits, ss);
+    else
+      err = launch_wg<kQFp8, WgQGemm>(s, x, q, scales, op, pp, M, K, N, gs, splits, ss);
+  }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   quant_out_kernel<<<(M * N + 255) / 256, 256, 0, s>>>(pp, splits, M, N, op);
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,6 @@
 // Hopper tile code of the flash kernels' dense instances (flash_attention.cu)
-// and the grouped GEMMs (grouped_gemm.cu): mbarriers and the ring of
+// and the grouped GEMMs (grouped_gemm.cu; the quantized block of
+// wgmma_qgemm.cuh, which quant_matmul.cu shares): mbarriers and the ring of
 // TMA-fed slots they guard, TMA loads of 128-byte-swizzled tiles, wgmma
 // shared-memory descriptors, the wgmma instructions (m64nNk16, bf16 in, f32
 // out), named barriers and warpgroup register reallocation, all as inline

@@ -17,11 +17,13 @@ exactly: dequantize in f32, round to the compute dtype, multiply in the
 activation dtype, output in ``qm.dtype``. On the TPU XLA fuses that
 convert into the dot, so the weights cross HBM at storage width; PyTorch
 eager cannot, so on the card ``quant_matmul`` launches the hand-written
-kernel of ``ops/csrc/quant_matmul.cu`` (whose header says what bounds it
-on the H100 and how its design answers it), which dequantizes in
-registers at the same rounding point. The kernel replaces the TPU's
-``_quant_matmul_pallas``; ``impl`` "auto" and "pallas" both take it.
-The wrapper runs its kernel for a CUDA tensor and its plain version for a
+kernels of ``ops/csrc/quant_matmul.cu`` (whose header says what bounds
+them on the H100 and how their design answers it): a split-K GEMV up to
+``GEMV_ROWS`` rows, past them the quantized grouped GEMM's ``wgmma`` block
+(``ops/csrc/wgmma_qgemm.cuh``) over the one matrix. Both dequantize on the
+chip at the same rounding point. The kernels replace the TPU's
+``_quant_matmul_pallas``; ``impl`` "auto" and "pallas" both take them.
+The wrapper runs its kernels for a CUDA tensor and its plain version for a
 CPU tensor, and counts one launch per call on the card
 (``quant_matmul.launches``).
 """
@@ -205,11 +207,13 @@ quant_matmul.launches = 0
 # Launch
 # ---------------------------------------------------------------------------
 
-GEMV_ROWS = 8        # rows at most of the split-K GEMV form; more take the MMA kernel
+GEMV_ROWS = 8        # rows at most of the split-K GEMV form; more take the wgmma kernel
 GEMV_TILE = 64       # output columns per GEMV block
 GEMV_CHUNK = 1024    # reduction rows per GEMV block, at most
-MMA_TILE = 128       # output rows and columns per MMA block
-MMA_STEP = 32        # reduction rows per MMA step
+WG_TILE = (256, 128)  # output rows and columns per wgmma block (wgmma_qgemm.cuh's WgQGemm)
+WG_SHORT_ROWS = 128  # its short tile's rows (WgQGemmShort), taken up to this many rows
+WG_STEP = 64         # reduction rows per wgmma step
+WG_MIN_STEPS = 4     # reduction steps of a split at least
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = []
@@ -240,15 +244,23 @@ def quant_splits(K: int, gs: int, n_cols: Tuple[int, ...], sms: int) -> Tuple[in
     return -(-groups // per), per * gs
 
 
-def mma_splits(M: int, K: int, N: int, sms: int) -> Tuple[int, int]:
-    """(splits, chunk) of the tensor-core form's reduction: one split when
-    the output tiles fill the SMs, else enough splits of at least 4 steps
-    (128 rows) for two blocks an SM."""
-    tiles = -(-M // MMA_TILE) * -(-N // MMA_TILE)
-    steps = K // MMA_STEP
-    splits = 1 if tiles >= sms else min(-(-2 * sms // tiles), max(1, steps // 4))
+def wgmma_tile_rows(M: int) -> int:
+    """Rows of the wgmma form's output tile: the short tile where it spans
+    the call (the C entry point picks it by the same rule; the split
+    schedule below counts its tiles)."""
+    return WG_SHORT_ROWS if M <= WG_SHORT_ROWS else WG_TILE[0]
+
+
+def wgmma_splits(M: int, K: int, N: int, sms: int) -> Tuple[int, int]:
+    """(splits, chunk) of the wgmma form's reduction: one split when the
+    output tiles fill half the SMs, else as many splits as one wave of
+    blocks holds (one block an SM: the block's shared memory), each of at
+    least WG_MIN_STEPS whole steps of WG_STEP rows."""
+    tiles = -(-M // wgmma_tile_rows(M)) * -(-N // WG_TILE[1])
+    steps = -(-K // WG_STEP)
+    splits = 1 if 2 * tiles > sms else max(1, min(sms // tiles, steps // WG_MIN_STEPS))
     per = -(-steps // splits)
-    return -(-steps // per), per * MMA_STEP
+    return -(-steps // per), per * WG_STEP
 
 
 @functools.lru_cache(None)
@@ -287,9 +299,9 @@ def _launch(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
         raise TypeError(f"quant_matmul kernel: x must be bf16, got {x.dtype}")
     fmt = check_storage("quant_matmul kernel", qm, dev, K, N)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, K)
-    if not x2.is_contiguous() or x2.data_ptr() % 16:
-        x2 = x2.contiguous()
+    x2 = x.reshape(-1, K).contiguous()
+    if x2.data_ptr() % 16:   # TMA reads x from a 16-byte aligned base
+        x2 = x2.clone()
     M = x2.shape[0]
     out = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
     if M == 0:
@@ -298,7 +310,7 @@ def _launch(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
     if M <= GEMV_ROWS:
         splits, chunk = quant_splits(K, qm.group_size, (N,), sms)
     else:
-        splits, chunk = mma_splits(M, K, N, sms)
+        splits, chunk = wgmma_splits(M, K, N, sms)
     part = None
     if M <= GEMV_ROWS or splits > 1:
         part = torch.empty(splits, M, N, device=dev, dtype=torch.float32)
@@ -313,5 +325,5 @@ def _launch(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
     return out.reshape(*lead, N)
 
 
-__all__ = ["FORMATS", "FP8", "QuantizedMatrix", "check_storage", "mma_splits", "quant_matmul",
-           "quant_matmul_reference", "quant_splits", "quantize_weight"]
+__all__ = ["FORMATS", "FP8", "QuantizedMatrix", "check_storage", "quant_matmul",
+           "quant_matmul_reference", "quant_splits", "quantize_weight", "wgmma_splits"]

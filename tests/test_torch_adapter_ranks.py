@@ -6,8 +6,9 @@ the JAX package, on the CPU, in f32.
   (no multiple of 64; the kernel's rank chunks are 64 wide), null rows
   exactly zero;
 - the wrapper's launch on a card (its C entry point stood in for here):
-  ranks up to 64 pass no scratch, a larger rank an f32 ``mid`` scratch
-  [B, T, R]; nothing refuses a rank;
+  one-token rows up to rank 8 pass no scratch (the row kernel), every
+  other call mid's two bf16 terms [2, B, T, R rounded up to 16] and its
+  splits of D and N; nothing refuses a rank;
 - a serve on ``tests/test_adapters.py``'s tiny model with a pool of
   ``max_rank`` 128 holding tenants of ranks 16, 64 and 128 (zero-padded to
   128 as both pools pad them): tokens equal to the JAX scheduler's on
@@ -59,11 +60,13 @@ def test_plain_delta_matches_the_oracle_and_the_pallas_kernel(R):
     assert tlg.lora_delta.launches == 0       # a CPU tensor takes the plain version
 
 
-@pytest.mark.parametrize("R,T_", [(64, 1), (64, 40), (65, 1), (128, 40), (1024, 1)])
+@pytest.mark.parametrize("R,T_", [(8, 1), (64, 1), (64, 40), (65, 1), (128, 40), (136, 3), (512, 1),
+                                  (1024, 1)])
 def test_launch_passes_mid_scratch_past_the_shared_memory_ranks(R, T_, monkeypatch):
-    """The kernel's shared-memory forms take ranks up to CHUNK_RANK and get
-    a null ``mid``; past it the wrapper hands the wide forms an f32 scratch
-    [B, T, R]. No rank is refused."""
+    """One-token rows up to ROW_RANK take the row kernel and get a null
+    ``mid``; every other call hands the tensor-core pair mid's two bf16
+    terms [2, B, T, R rounded up to 16] and the splits of D and N the
+    schedule gives. No rank is refused: rank 1024 launches the pair."""
     calls = []
 
     class Lib:
@@ -78,16 +81,28 @@ def test_launch_passes_mid_scratch_past_the_shared_memory_ranks(R, T_, monkeypat
     B, D, N, S = 3, 48, 40, 4
     x = torch.zeros(B, T_, D, dtype=torch.bfloat16)
     a, b = torch.zeros(S, D, R, dtype=torch.bfloat16), torch.zeros(S, R, N, dtype=torch.bfloat16)
-    out = tlg._launch(x, a, b, torch.tensor([0, 1, 3], dtype=torch.int32))
+    slots = torch.tensor([0, 1, 3], dtype=torch.int32)
+    made = []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *s_, **k: made.append(s_) or real_empty(*s_, **k))
+    out = tlg._launch(x, a, b, slots)
     assert out.shape == (B, T_, N) and len(calls) == 1
     args = calls[0]
-    assert len(args) == 13 and args[6:12] == (B, T_, D, R, N, S)
-    assert (args[5] is None) == (R <= tlg.CHUNK_RANK)
+    assert len(args) == 16 and args[6:12] == (B, T_, D, R, N, S)
+    row_kernel = T_ == 1 and R <= tlg.ROW_RANK
+    assert (args[5] is None) == row_kernel
+    if row_kernel:
+        assert args[12:15] == (0, 0, 0)
+    else:
+        assert made[-1] == (2, B, T_, -(-R // 16) * 16)   # mid's terms, after out
+        assert args[12:14] == tlg.shrink_splits(T_, D, R)
+        assert args[14] == tlg.expand_col_splits(B, T_, N)
 
 
 def test_c_signature_carries_the_scratch_pointer():
     """The ctypes signature the wrapper sets: six pointers (x, A, B, slots,
-    out, mid), six ints, the stream."""
+    out, mid), six shape ints, three split ints (D splits, their rows, N
+    splits), the stream."""
     lib = type("L", (), {})()
     lib.sxt_lora_delta_bf16 = type("F", (), {})()
     lib.sxt_lora_error_string = type("F", (), {})()
@@ -97,7 +112,7 @@ def test_c_signature_carries_the_scratch_pointer():
         _build.load = lambda stem: lib
         tlg._LIB.clear()
         tlg._lib()
-        assert lib.sxt_lora_delta_bf16.argtypes == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        assert lib.sxt_lora_delta_bf16.argtypes == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
     finally:
         _build.load = saved_load

@@ -639,18 +639,18 @@ def test_launch_counters_follow_the_programs(models, counted_port, decode_kernel
 
 
 def test_cuda_engine_refuses_a_rank_above_the_kernel_limit(models, monkeypatch):
-    """The LoRA kernel takes every rank (past 64 in rank chunks), so no pool
-    rank is refused when the engine is built for the card: a rank-128 pool
-    gets past the config checks and fails here only where the weights move
-    to a card this build of PyTorch lacks; the CPU engine takes it."""
-    from shuffle_exchange_tpu_torch.ops.lora_gemm import CHUNK_RANK
+    """The LoRA kernels take every rank (past 512 the expand stages mid's
+    ranks beside B's), so no pool rank is refused when the engine is built
+    for the card: a rank-1024 pool gets past the config checks and fails
+    here only where the weights move to a card this build of PyTorch lacks;
+    the CPU engine takes it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    icfg = _icfg(InferenceConfig, max_rank=2 * CHUNK_RANK)
+    icfg = _icfg(InferenceConfig, max_rank=1024)
     with pytest.raises(Exception) as err:
         InferenceEngineV2(models[2], models[3], icfg, device="cuda")
     assert not isinstance(err.value, ConfigError) and "CUDA" in str(err.value)
     eng = InferenceEngineV2(models[2], models[3], icfg, device="cpu")
-    assert eng.adapters.max_rank == 2 * CHUNK_RANK
+    assert eng.adapters.max_rank == 1024
 
 
 def test_adapters_config_as_jax():

@@ -53,6 +53,7 @@ jqm = importlib.import_module("shuffle_exchange_tpu.ops.quant_matmul")
 gg = importlib.import_module("shuffle_exchange_tpu_torch.ops.grouped_gemm")
 tqm = importlib.import_module("shuffle_exchange_tpu_torch.ops.quant_matmul")
 CU = (gg.__file__.rsplit("/", 1)[0]) + "/csrc/grouped_gemm.cu"
+QGEMM = (gg.__file__.rsplit("/", 1)[0]) + "/csrc/wgmma_qgemm.cuh"
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block can have
 SMS = 132             # the H100's SMs: one block each (the blocks' shared memory)
 # the kernels' block: a BM x BN output tile (tgmm: BM of K, BN of F), two
@@ -78,7 +79,10 @@ def wgmma_smem_bytes(which: str, groups: int = E) -> int:
 
 
 def _source() -> str:
-    return open(CU).read()
+    """grouped_gemm.cu with the header whose block it shares with B8
+    (``wgmma_qgemm.cuh``: the block layout, raster, epilogue and the
+    quantized form's ``qgemm_tile``)."""
+    return open(CU).read() + open(QGEMM).read()
 
 
 def _constant(name: str) -> int:
