@@ -42,7 +42,8 @@ non-zero exit code. The phases:
    directions (65,472 ragged rows in the four patterns and with rows past
    the groups' sum; 8 x 10,230 capacity rows) and Mixtral's at 16,384
    rows, with equal bits twice, phase 2i for the ALiBi flash kernels (B11
-   forward + lse, B12 dq, B13 dk/dv + dslope) at BLOOM-1b7's training
+   forward + lse, B12 dq, B13 dk/dv + dslope: the ALiBi instances of the
+   wgmma flash kernels) at BLOOM-1b7's training
    shape (timed at its batch of 16), on block boundaries, at T < S (the
    bottom-right diagonal), GQA and head dim 64, on a generator of its own:
    tolerances shown to catch flipped slopes, a top-left diagonal and a zero
@@ -159,7 +160,9 @@ non-zero exit code. The phases:
    exact-gelu MLP on the layer body) and under "xla" (B2 with the slopes),
    ``put()`` (B11 or B14 in the prefill) + ``decode_loop`` against the
    single-token ``put()`` loop, the v1 ``generate``, the launch counters held
-   to the programs (no RMSNorm launch), and a profiled decode window;
+   to the programs (no RMSNorm launch), a profiled ``put()`` (BLOOM's
+   prefill: as many B11 launches by its kernel's name as its counter
+   counts, a multiple of the layers) and decode window;
    BLOOM-1b7 then serves with int8 KV under "auto" and runs ``put()`` +
    ``decode_loop`` over it (slopes and scales in one kernel). 4b:
    each cut to depth 2, its ``step()``, ``put()`` and v1 schedules under
@@ -211,7 +214,8 @@ non-zero exit code. The phases:
    ``config_from_hf`` from its published config) at full width and depth
    under phase 5's config, batch 16 x 2048, full remat, 9 steps + 1
    profiled: the same metrics, the ALiBi kernels B11 (2L a step) and their
-   backward (L) on the implied counts, no RMSNorm launch.
+   backward (L) on the implied counts and, by kernel name, in the profiled
+   step; no RMSNorm launch.
 5d. GPT-2 125M under ``bench.py``'s ``_config1`` (AdamW, ZeRO 1, bf16, no
    remat), batch 16 x 1024: the same metrics, B14 on the MHA path.
 6c. BLOOM-1b7 cut to depth 2 as phase 6, against the CPU f32 engine.
@@ -2080,10 +2084,12 @@ LORA_EXPAND_KIND = "lora_delta (B9 expand, tensor cores)"
 
 def _kernel_kind(name: str) -> str:
     low = name.lower()
-    for key, kind in (("alibi_fwd_kernel", "alibi_flash_attention (B11)"),
-                      ("alibi_bwd_dq_kernel", "alibi dq (B12)"),
-                      ("alibi_bwd_dkv_kernel", "alibi dk/dv (B13)"),
-                      ("alibi_bwd_delta_kernel", "alibi delta"),
+    # the ALiBi instances' names contain the dense ones' (wg_fwd_kernel, ...):
+    # they come first (alibi_wg_dkv: the dk/dv pass at 128 and its key split at 64)
+    for key, kind in (("alibi_wg_fwd_kernel", "alibi_flash_attention (B11)"),
+                      ("alibi_wg_dq_kernel", "alibi dq (B12)"),
+                      ("alibi_wg_dkv", "alibi dk/dv (B13)"),
+                      ("flash_bwd_delta_kernel", "attention delta (flash and ALiBi backward)"),
                       ("wg_fwd_kernel", "flash_attention (wgmma forward)"),
                       ("wg_dkv_kernel", "flash_attention_bwd (wgmma dk/dv)"),
                       ("wg_dkv_keys_kernel", "flash_attention_bwd (wgmma dk/dv)"),
@@ -3408,9 +3414,10 @@ def moe_e2e_check(cfg, card_state, seed, bits):
 # absolute key positions, and whether every head's |dslope| clears 1e-4 of
 # its terms depends on the draw. So a zero dslope must fail in every head
 # of every cell but at most DSLOPE_UNBITTEN heads in all (the draw of seed 0
-# leaves one: head 6 of "blocks", |dslope| 0.96x its tolerance, PERF.md section
-# 7); the heads it leaves are reported. Phase 2i draws from a generator of
-# its own, so no other phase's draws move its inputs.
+# leaves one: head 6 of "blocks", |dslope| 0.27x its tolerance; the plain
+# dslope is taken on the kernels' out and lse, so it moves with them: PERF.md
+# section 7); the heads it leaves are reported. Phase 2i draws from a
+# generator of its own, so no other phase's draws move its inputs.
 ALIBI_LSE_TOL = "1e-3 + 1e-6*|plain lse|"
 DSLOPE_RSS = 1e-4
 DSLOPE_UNBITTEN = 1
@@ -4501,22 +4508,39 @@ def family_serving(name, cfg, seed, card, config=SERVE_CONFIG, v1_config=V1_CONF
                            label=f"{name} put")
     v1 = v1_generate(model, params, prompts, cfg.n_layers, card, config=v1_config,
                      label=f"{name} v1 generate")
-    trace = trace_decode_window(model, params, prompts, config=config)
+    traces = {}
+    trace = trace_decode_window(model, params, prompts, config=config, prefill=traces)
     print(f"[{name} trace decode_loop] {json.dumps(trace) if trace else 'no device kernels'}",
           flush=True)
+    if cfg.position == "alibi":   # the put() prefill's attention is B11, by its kernel's name
+        kinds = (traces["prefill"] or {}).get("kernels_by_kind", {})
+        b11 = traces["prefill_launches"]["alibi_flash_attention"]
+        _check(b11 > 0 and b11 % cfg.n_layers == 0
+               and kinds.get("alibi_flash_attention (B11)") == b11
+               and not any(k.startswith("flash_attention") for k in kinds),
+               f"{name}: the put() prefill's {b11} B11 launches are not its profile's: {kinds}")
     return dict(serve=serves, put_decode_loop=loop, v1_generate=v1, trace_decode=trace,
-                params=n_params), params
+                trace_prefill=traces["prefill"], params=n_params), params
 
 
-def trace_decode_window(model, params, prompts, n_steps=8, config=SERVE_CONFIG):
+def trace_decode_window(model, params, prompts, n_steps=8, config=SERVE_CONFIG, prefill=None):
     """Device time by kernel kind over a profiled ``decode_loop`` of
-    ``n_steps`` steps, after an unprofiled ``put()`` of ``prompts`` on a
-    fresh engine."""
+    ``n_steps`` steps, after a ``put()`` of ``prompts`` on a fresh engine
+    (profiled too when ``prefill`` is a dict: its trace lands there under
+    "prefill", its launches by kernel under "prefill_launches")."""
+    from shuffle_exchange_tpu_torch import ops
     from shuffle_exchange_tpu_torch.inference import InferenceConfig, InferenceEngineV2
 
     eng = InferenceEngineV2(model, params, InferenceConfig(**config))
     uids = list(range(len(prompts)))
-    first = [int(t) for t in eng.put(uids, prompts).argmax(-1)]
+    put = lambda: [int(t) for t in eng.put(uids, prompts).argmax(-1)]
+    if prefill is None:
+        first = put()
+    else:
+        got, before = {}, ops.launch_counts()
+        prefill["prefill"] = profiled(lambda: got.update(first=put()))
+        prefill["prefill_launches"] = {k: n - before[k] for k, n in ops.launch_counts().items()}
+        first = got["first"]
     return profiled(lambda: eng.decode_loop(uids, first, n_steps))
 
 
@@ -6658,6 +6682,13 @@ def main(argv=None) -> int:
     bloom = train("bloom-1b7", bloom_cfg, args.seed, card, batch=BLOOM_BATCH, seq=BLOOM_SEQ,
                   steps=MOE_TRAIN_STEPS)
     print(f"[train bloom] phase 5c in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the profiled step ran the ALiBi wgmma kernels by name: B11 2L (full
+    # remat), B12 and B13 L
+    bloom_kinds = (bloom.get("trace") or {}).get("kernels_by_kind", {})
+    L_bloom = bloom_cfg.n_layers
+    _check([bloom_kinds.get(k) for k in ("alibi_flash_attention (B11)", "alibi dq (B12)",
+                                         "alibi dk/dv (B13)")] == [2 * L_bloom, L_bloom, L_bloom],
+           f"BLOOM-1b7's profiled step did not run B11 2L and B12 / B13 L times: {bloom_kinds}")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -29,14 +29,18 @@ both with ``equal_bits_twice``, beside one SDPA call on the same operands
 named); each forward cell also holds the plain version with P cast to one
 bf16 term to the same tolerance (``p_bf16_within``: whether the kernels'
 hi + lo split of P could go). The element-mask cells (``sparse_attention``'s layouts through a
-``TileMask``) and the ALiBi cells are compared by digest alone. Cells
+``TileMask``) and the ALiBi cells are compared by digest alone, the ALiBi
+cells (head dims 128 and 64, with dslope) with ``equal_bits_twice``; the
+``alibi`` section also runs the tree's own phase 2i (``check_alibi``: its
+times beside their bounds and dslope's per-head margins). Cells
 of forms a tree does not build (head dims 80 and 96, the backward at 256,
 ranks above 64) run only where it builds them, after the others, so both
 trees give the common cells the same inputs. ``--sections`` picks some of
-them (``flash alibi grouped quant paged lora sweeps moe_train``; ``sweeps``
-times the cells ``chip_smoke.py`` checks but does not time; ``moe_train``
-runs the chip smoke test's phase 5b, the _config3 MoE training steps, with
-the tree's own ``chip_smoke.train``). Two trees whose digests match
+them (``flash alibi grouped quant paged lora sweeps moe_train alibi_train``;
+``sweeps`` times the cells ``chip_smoke.py`` checks but does not time;
+``moe_train`` runs the chip smoke test's phase 5b, the _config3 MoE
+training steps, and ``alibi_train`` its phase 5c, BLOOM-1b7's training
+steps, each with the tree's own ``chip_smoke.train``). Two trees whose digests match
 computed bit-equal results, so a refactor of the kernel sources (shared
 headers, say) is checked against its parent by running this script on
 both, parent-change-change-parent in one session:
@@ -90,9 +94,11 @@ FLASH_CELLS = [
 MASK_CELLS = [("mask fixed 8192 fwd+bwd", 8192, 16, 4, 128, "fixed"),
               ("mask bigbird 8192 fwd+bwd", 8192, 16, 4, 128, "bigbird"),
               ("mask fixed 1024 x 256 fwd+bwd", 1024, 16, 4, 256, "fixed")]
-# (label, B, T, S, H, KV, Dh)
+# (label, B, T, S, H, KV, Dh): digested with dslope, equal bits twice; the
+# third is bloom-560m's heads, so both built head dims are digested
 ALIBI_CELLS = [("B11-B13 bloom-1b7", 2, 2047, 2047, 16, 16, 128),
-               ("B11-B13 gqa T<S", 2, 512, 1024, 16, 8, 128)]
+               ("B11-B13 gqa T<S", 2, 512, 1024, 16, 8, 128),
+               ("B11-B13 bloom-560m Dh 64", 2, 2047, 2047, 16, 16, 64)]
 GROUPED_SIZES = {"16 rows": [3, 0, 5, 1, 0, 4, 2, 1],
                  "4096 rows": [700, 0, 1300, 96, 512, 4, 1000, 484]}
 # B16 at the main paths' shapes, 8 experts, each cell timed beside its bound
@@ -153,7 +159,8 @@ SWEEP_GG_PATTERNS = ("balanced", "one_expert", "empty_ends", "ragged")
 QUANT_PREFILL_ROWS = 8192   # B8's prefill cells: a put() of 8 prompts padded to 1024
 QUANT_CHUNK_ROWS = 256      # and its chunk cells: a tick's 256-token budget
 QUANT_FEW_ROWS = 64         # and a tick of few rows past the GEMV's (B8's short tile)
-SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora", "sweeps", "moe_train")
+SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora", "sweeps", "moe_train",
+            "alibi_train")
 
 
 def time_cold(fn, iters: int = 10) -> float:
@@ -528,6 +535,62 @@ def moe_train_cells(seed) -> dict:
     return cells
 
 
+def alibi_phase_cells(seed) -> dict:
+    """The chip smoke test's phase 2i on this tree (its ``check_alibi``:
+    B11-B13 against their plain versions at ``ALIBI_CELLS``, on the phase's
+    own generator, each cell timed at its timed batch on the training
+    route): per cell the forward, dq, dk/dv and whole-backward times
+    beside their bounds, the errors, and dslope's per-head error over the
+    root-sum-square of its terms (its tolerance is 1e-4)."""
+    import torch
+
+    from chip_smoke import check_alibi
+
+    cells = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for f, q, k in zip(*check_alibi(gen)):
+        shape = f["shape"]
+        cells[f"2i {shape['label']} (B={shape['B_timed']})"] = dict(
+            fwd_ms=f["ms"], fwd_bound_ms=f["bound_ms"], dq_ms=q["ms"], dq_bound_ms=q["bound_ms"],
+            dkv_ms=k["ms"], dkv_bound_ms=k["bound_ms"], bwd_ms=f["bwd_ms"],
+            bwd_bound_ms=f["bwd_bound_ms"], library_fwd_ms=f["library_ms"],
+            library_bwd_ms=q["library_ms"], errs=f["errs"], out_max_abs_err=f["max_abs_err"],
+            lse_max_abs_err=f["lse_max_abs_err"], equal_bits_twice=f.get("equal_bits_twice"),
+            dslope_err_over_rss=k["dslope_err_over_rss"],
+            dslope_bites=k["tolerance_bites"], bites=f.get("tolerance_bites"))
+    return cells
+
+
+def alibi_train_cells(seed) -> dict:
+    """The chip smoke test's phase 5c on this tree (its ``train`` of
+    BLOOM-1b7 at full width and depth, batch 16 x 2048, full remat): step
+    p50, tokens/s, MFU and the profiled step's device ms by kernel kind,
+    with the ALiBi kernels' share of the step's busy device time."""
+    import gc
+
+    import torch
+
+    from chip_smoke import (BLOOM_1B7, BLOOM_BATCH, BLOOM_SEQ, MOE_TRAIN_STEPS, card_line,
+                            train)
+    from shuffle_exchange_tpu_torch.models import config_from_hf
+
+    r = train("bloom-1b7", config_from_hf(BLOOM_1B7), seed, card_line(), batch=BLOOM_BATCH,
+              seq=BLOOM_SEQ, steps=MOE_TRAIN_STEPS)
+    trace = r.get("trace") or {}
+    kinds = trace.get("by_kind_ms", {})
+    alibi = sum(v for k, v in kinds.items() if k.startswith("alibi"))
+    busy = trace.get("device_busy_ms")
+    cell = dict(step_p50_ms=r["step_p50_ms"], step_ms=r["step_ms"], tokens_per_s=r["tokens_per_s"],
+                mfu_6n=r["mfu_6n"], peak_mem_GiB=r["peak_mem_GiB"], losses=r["losses"],
+                device_busy_ms=busy, idle_share=trace.get("idle_share"), alibi_ms=alibi,
+                alibi_share=alibi / busy if busy else None, by_kind_ms=kinds,
+                kernels_by_kind=trace.get("kernels_by_kind"))
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bloom-1b7 train step": cell}
+
+
 def flash_cells(fa, gen, randn, seed) -> dict:
     """The FLASH_CELLS (each dense cell held to its plain version, equal
     bits twice, beside SDPA) and the MASK_CELLS."""
@@ -691,6 +754,7 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
     # one nvcc per source the sections run, all at once
     sources = {"flash": ("flash_attention",), "alibi": ("alibi_attention",),
                "moe_train": ("flash_attention", "grouped_gemm", "fused_adam"),
+               "alibi_train": ("alibi_attention", "fused_adam"),
                "grouped": ("grouped_gemm",), "quant": ("quant_matmul",),
                "paged": ("paged_attention", "fused_decode"), "lora": ("lora_gemm",),
                "sweeps": ("flash_attention", "quant_matmul", "grouped_gemm", "fused_decode")}
@@ -722,8 +786,13 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
         fwd = lambda: al.alibi_flash_attention_lse(q, k, v, slopes)
         out, lse = fwd()
         bwd = lambda: al.alibi_flash_attention_bwd(q, k, v, slopes, out, lse, dout)
-        cells[f"{label}: forward"] = dict(digest=digest((out, lse)), ms=time_cold(fwd))
-        cells[f"{label}: backward + dslope"] = dict(digest=digest(bwd()), ms=time_cold(bwd))
+        cells[f"{label}: forward"] = dict(digest=digest((out, lse)), ms=time_cold(fwd),
+                                          equal_bits_twice=digest(fwd()) == digest(fwd()))
+        cells[f"{label}: backward + dslope"] = dict(
+            digest=digest(bwd()), ms=time_cold(bwd),
+            equal_bits_twice=digest(bwd()) == digest(bwd()))
+    if al is not None:
+        cells.update(alibi_phase_cells(seed))
 
     gen = gens[2]
     E, K, F = 8, 1024, 2816   # bench.py's _config3 expert shapes
@@ -761,6 +830,8 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
                                    seed))
     if "moe_train" in sections:
         cells.update(moe_train_cells(seed))
+    if "alibi_train" in sections:
+        cells.update(alibi_train_cells(seed))
     return cells
 
 

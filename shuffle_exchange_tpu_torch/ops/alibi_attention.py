@@ -4,9 +4,11 @@ and their plain PyTorch versions.
 Replaces the TPU kernels of ``shuffle_exchange_tpu/ops/alibi_attention.py``:
 ``_alibi_flash_fwd_impl`` (B11, out and lse), and the dq pass (B12) and the
 dk/dv pass with the slope cotangent (B13) of ``_flash_bwd_impl``. The kernels
-live in ``ops/csrc/alibi_attention.cu`` (whose header says what bounds them
-on the H100 and how the design answers it); ``_build`` compiles that file
-with ``nvcc`` at first use and this module binds it with ctypes.
+are the ALiBi instances of the dense flash kernels' warp-specialised
+``wgmma`` bodies (``ops/csrc/wgmma_flash.cuh``), wrapped in
+``ops/csrc/alibi_attention.cu`` (whose header says what bounds them on the
+H100 and what the ALiBi form adds); ``_build`` compiles that file with
+``nvcc`` at first use and this module binds it with ctypes.
 
 What is computed, as the JAX package computes it: scores q.k * Dh^-0.5 in
 f32 plus ``slope_h * j`` on the absolute key position j; the causal

@@ -1,8 +1,9 @@
-// Tile code shared by the flash-attention kernels of flash_attention.cu
-// (B14/B15) and alibi_attention.cu (B11-B13): their block shape, the
-// staging of a 64-row tile into shared memory by cp.async, the staging of
-// one query tile (Q, dO, lse, delta) for a dk/dv pass, and the delta row
-// sum of the backward's first pass.
+// Tile code of the flash-attention kernels: the mma.sync block shape and
+// constants (kNeg, kLog2e, kLn2, which the wgmma bodies of wgmma_flash.cuh
+// share), the staging of a 64-row tile into shared memory by cp.async and
+// of one query tile (Q, dO, lse, delta) for the mask forms' dk/dv pass
+// (flash_attention.cu), and the delta row sum of the backward's first pass
+// (flash_bwd_delta_kernel, dense and ALiBi alike).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,8 +61,7 @@ __device__ __forceinline__ void stage_queries(
 
 // delta[b, h, t] = sum_d dout[b, t, h, d] * out[b, t, h, d] for the row of
 // the [B*T*H, DH] views that the calling warp owns (kWarps rows a block), a
-// fixed butterfly order for the sum. Each library's delta kernel is this
-// body under its own name, so a profile tells the two apart.
+// fixed butterfly order for the sum.
 template <int DH>
 __device__ __forceinline__ void delta_row(const __nv_bfloat16* __restrict__ o,
                                           const __nv_bfloat16* __restrict__ dout,

@@ -1,6 +1,6 @@
 // Tensor-core and async-copy helpers shared by the mma.sync kernels
-// (flash_attention.cu, alibi_attention.cu, the paged kernels and
-// lora_gemm.cu): shared-memory addresses, 16-byte cp.async with zero
+// (flash_attention.cu's mask forms, the paged kernels and lora_gemm.cu):
+// shared-memory addresses, 16-byte cp.async with zero
 // fill, ldmatrix (plain and transposed), the m16n8k16 bf16 MMA with f32
 // accumulators, and the split of an f32 pair into two bf16 terms.
 #pragma once

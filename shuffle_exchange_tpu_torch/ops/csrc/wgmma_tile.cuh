@@ -1,4 +1,5 @@
-// Hopper tile code of the flash kernels' dense instances (flash_attention.cu)
+// Hopper tile code of the flash kernels' wgmma bodies (wgmma_flash.cuh: the
+// dense instances of flash_attention.cu, the ALiBi ones of alibi_attention.cu)
 // and the grouped GEMMs (grouped_gemm.cu; the quantized block of
 // wgmma_qgemm.cuh, which quant_matmul.cu shares): mbarriers and the ring of
 // TMA-fed slots they guard, TMA loads of 128-byte-swizzled tiles, wgmma

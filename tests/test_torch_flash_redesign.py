@@ -8,7 +8,7 @@ held without the card.
 - Each instance's shared memory, from a mirror of the launchers' formula
   (``wgmma_smem_bytes``), fits an H100 block (232,448 B) and equals the
   CUDA source's (the ``WgFwd`` / ``WgDq`` / ``WgDkv`` structs' expressions
-  evaluated), and so do the tile shapes it mirrors; at 80 and 96 a tile's
+  in ``wgmma_flash.cuh`` evaluated), and so do the tile shapes it mirrors; at 80 and 96 a tile's
   column blocks (one full 64-column block in the 128-byte swizzle and a
   16- or 32-column tail in the 32- or 64-byte swizzle) cover the head dim,
   each within its swizzle's TMA box and on a 1024-byte boundary.
@@ -54,6 +54,7 @@ from shuffle_exchange_tpu.ops.flash_attention import splash_attention_gqa
 
 fa = importlib.import_module("shuffle_exchange_tpu_torch.ops.flash_attention")
 CU = (fa.__file__.rsplit("/", 1)[0]) + "/csrc/flash_attention.cu"
+WG = (fa.__file__.rsplit("/", 1)[0]) + "/csrc/wgmma_flash.cuh"   # the kernels' shapes and bodies
 T_ = torch.from_numpy
 NEG = -1e30
 LOG2E = 1.4426950408889634
@@ -143,7 +144,7 @@ def _source_tiles(struct: str, dh: int) -> dict:
     """The constants of a ``Wg*`` struct of the CUDA source at head dim dh,
     each evaluated from its C expression in order (``a ? b : c`` as
     Python's conditional, ``/`` as C's integer division)."""
-    body = open(CU).read().split(f"struct {struct} {{", 1)[1].split("};", 1)[0]
+    body = (open(CU).read() + open(WG).read()).split(f"struct {struct} {{", 1)[1].split("};", 1)[0]
     env = dict(SOURCE_CONSTANTS, DH=dh)
     for decl in re.findall(r"static constexpr (?:int|bool) ([^;]+);", body):
         for name, expr in re.findall(r"(\w+) =\s*((?:[^,(]|\([^)]*\))+)", decl):
@@ -238,21 +239,23 @@ def dkv_blocks(B, S, KV, BN=64):
             (divmod(x, nkt) for x in range(B * KV * nkt))]
 
 
-def live_tiles(r0, T, S, causal, BM, BN):
+def live_tiles(r0, T, S, causal, BM, BN, off=0):
     """(key tiles the block loads, the ones warpgroup rows [r0, r0 + 64)
     computes): n_kv as the kernel's, a tile wholly above the diagonal
-    skipped."""
+    skipped. ``off``: the ALiBi form's bottom-right diagonal (query i sees
+    keys j <= i + off)."""
     q0 = r0 // BM * BM
     n_s = -(-S // BN)
-    n_kv = min((q0 + BM - 1) // BN + 1, n_s) if causal else n_s
-    return n_kv, [j for j in range(n_kv) if not (causal and j * BN > r0 + WG_ROWS - 1)]
+    n_kv = min((q0 + BM - 1 + off) // BN + 1, n_s) if causal else n_s
+    return n_kv, [j for j in range(n_kv) if not (causal and j * BN > r0 + WG_ROWS - 1 + off)]
 
 
-def dkv_iterations(kt, kvh, n_rep, T, causal, BQ=64, BN=64):
+def dkv_iterations(kt, kvh, n_rep, T, causal, BQ=64, BN=64, off=0):
     """The dk/dv pass's (head, query tile) sequence for key tile kt (of BN
-    keys): from the query tile of the tile's first key under a causal mask."""
+    keys): from the query tile of the first query that sees the tile's
+    first key under a causal mask (``off`` as in ``live_tiles``)."""
     nqt = -(-T // BQ)
-    qt_lo = kt * BN // BQ if causal else 0
+    qt_lo = max(0, (kt * BN - off) // BQ) if causal else 0
     n_q = nqt - qt_lo
     return [(kvh * n_rep + i // n_q, qt_lo + i % n_q) for i in range(n_rep * n_q)]
 
@@ -336,10 +339,10 @@ def _rows(x, start, n):
     return out
 
 
-def _allowed(rows, keys, S, T, causal, seg):
+def _allowed(rows, keys, S, T, causal, seg, off=0):
     ok = (keys[None, :] < S) & (rows[:, None] < T)
     if causal:
-        ok &= ~(keys[None, :] > rows[:, None])
+        ok &= ~(keys[None, :] > rows[:, None] + off)
     if seg is not None:
         last = seg.shape[0] - 1   # the kernels read row min(r, T - 1)'s id
         sr, sk = seg[rows.clamp(max=last)], seg[keys.clamp(max=last)]
@@ -347,12 +350,24 @@ def _allowed(rows, keys, S, T, causal, seg):
     return ok
 
 
-def mirror_forward(q, k, v, causal, seg=None):
-    """The wgmma forward's arithmetic in f32: (out, lse)."""
+def alibi_off(T, S, slopes, off):
+    """The diagonal's offset a mirror uses: the ALiBi form's bottom-right
+    S - T unless ``off`` overrides it (a broken mirror); 0 without slopes."""
+    if off is not None:
+        return off
+    return S - T if slopes is not None else 0
+
+
+def mirror_forward(q, k, v, causal, seg=None, slopes=None, off=None):
+    """The wgmma forward's arithmetic in f32: (out, lse). With ``slopes``
+    [H] the ALiBi form: t = s * scale log2(e) + slope_h log2(e) j at the
+    absolute key j, the row max over t, the bottom-right diagonal
+    (``alibi_off``), keys past S masked."""
     B, T, H, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     BM, BN, _ = wgmma_tiles(Dh)["fwd"]
     sl2 = Dh ** -0.5 * LOG2E
+    off = alibi_off(T, S, slopes, off)
     out, lse = torch.zeros(B, T, H, Dh), torch.zeros(B, H, T)
     for b, h, qt in fwd_blocks(B, T, H, causal, BM):
         kvh = h // (H // KV)
@@ -363,16 +378,20 @@ def mirror_forward(q, k, v, causal, seg=None):
             qs = _rows(q[b, :, h], r0, WG_ROWS)
             m, l = torch.full((WG_ROWS,), NEG), torch.zeros(WG_ROWS)
             acc = torch.zeros(WG_ROWS, Dh)
-            for j in live_tiles(r0, T, S, causal, BM, BN)[1]:
+            for j in live_tiles(r0, T, S, causal, BM, BN, off)[1]:
                 k0 = j * BN
                 keys = torch.arange(k0, k0 + BN)
                 kt, vt = _rows(k[b, :, kvh], k0, BN), _rows(v[b, :, kvh], k0, BN)
                 # S over the column blocks in k-step order (a tail block last)
                 s = sum(qs[:, c0:c0 + n] @ kt[:, c0:c0 + n].T for c0, n, _ in column_blocks(Dh))
-                s = s * sl2
-                masked = (causal and k0 + BN - 1 > r0) or k0 + BN > S or sb is not None
+                if slopes is None:
+                    s = s * sl2
+                    masked = (causal and k0 + BN - 1 > r0) or k0 + BN > S or sb is not None
+                else:   # the bias at the absolute key, in the log2 domain
+                    s = s * sl2 + (slopes[h] * LOG2E) * keys.float()
+                    masked = k0 + BN - 1 > r0 + off or k0 + BN > S
                 if masked:   # rows past T are not masked here: the kernel writes none of them
-                    s = torch.where(_allowed(rows, keys, S, 1 << 30, causal, sb), s,
+                    s = torch.where(_allowed(rows, keys, S, 1 << 30, causal, sb, off), s,
                                     torch.tensor(NEG))
                 mn = torch.maximum(m, s.max(1).values)
                 al = torch.exp2(m - mn)
@@ -391,53 +410,89 @@ def mirror_forward(q, k, v, causal, seg=None):
     return out, lse
 
 
-def key_split_live(its, kw0, causal, BQ=64):
+def key_split_live(its, kw0, causal, BQ=64, off=0):
     """The iterations that add anything for a key-split warpgroup with keys
     [kw0, kw0 + 64): all but the query tiles wholly above its keys
     (causal), which the kernel computes all masked (exact zeros, so the
     mirror may leave them out)."""
-    return [(h, qt) for h, qt in its if not (causal and qt * BQ + BQ - 1 < kw0)]
+    return [(h, qt) for h, qt in its if not (causal and qt * BQ + BQ - 1 + off < kw0)]
 
 
-def key_split_dkv(q, k, v, dout, lse, delta, sb, kw0, kt, kvh, n_rep, causal, sl2):
+def _exponent_t(K, Q, sl2, lse2, keys, slopes, head):
+    """P^T's exponent in the log2 domain, keys as rows: (K Q^T) scale
+    log2(e) - lse2; with ``slopes`` plus the head's bias slope log2(e) j at
+    each key j, the bias less lse2 first (as the kernels form it)."""
+    st = (K @ Q.T) * sl2
+    if slopes is None:
+        return st - lse2[None]
+    return st + (((slopes[head] * LOG2E) * keys.float())[:, None] - lse2[None])
+
+
+def _query_vectors(lse, delta, head, q0, T, BQ, alibi):
+    """A ring tile's staged lse (log2 domain) and delta for queries
+    [q0, q0 + BQ): a query past T reads 0, or in the ALiBi form lse +1e30
+    (its P is then exactly 0)."""
+    queries = torch.arange(q0, q0 + BQ)
+    lse2 = torch.where(queries < T, _rows(lse[head], q0, BQ) * LOG2E, -NEG if alibi else 0.)
+    return queries, lse2, torch.where(queries < T, _rows(delta[head], q0, BQ), 0.)
+
+
+def key_split_dkv(q, k, v, dout, lse, delta, sb, kw0, kt, kvh, n_rep, causal, sl2, slopes=None,
+                  off=0):
     """One key-split warpgroup of the dk/dv pass at 64 (one sequence: q,
     dout [T, H, Dh], k, v [S, Dh], lse, delta [H, T]): S^T = K_w Q^T and
     dP^T = V_w dO^T over all 64 queries of each live iteration's tile,
     P^T with masked pairs exactly 0 (the masked form only where the tile
     needs it), dS^T = P^T (dP^T - delta), dv += P^T dO and dk += dS^T Q in
-    the iterations' order. -> (dv, dk unscaled), [64, Dh] each."""
+    the iterations' order. -> (dv, dk unscaled), [64, Dh] each, and the
+    [H] dslope partials of these 64 keys (ALiBi: per key the sum of dS
+    over a head's queries, times j, summed over the keys)."""
     T, S, Dh = q.shape[0], k.shape[0], q.shape[-1]
     BQ = 64
     keys = torch.arange(kw0, kw0 + WG_ROWS)
     K, V = _rows(k, kw0, WG_ROWS), _rows(v, kw0, WG_ROWS)
     dv, dk = torch.zeros(WG_ROWS, Dh), torch.zeros(WG_ROWS, Dh)
-    its = dkv_iterations(kt, kvh, n_rep, T, causal, BQ, 2 * WG_ROWS)
-    for head, qt in key_split_live(its, kw0, causal):
+    dsum = torch.zeros(q.shape[1], WG_ROWS)
+    its = dkv_iterations(kt, kvh, n_rep, T, causal, BQ, 2 * WG_ROWS, off)
+    for head, qt in key_split_live(its, kw0, causal, BQ, off):
         q0 = qt * BQ
-        queries = torch.arange(q0, q0 + BQ)
         Q, dO = _rows(q[:, head], q0, BQ), _rows(dout[:, head], q0, BQ)
-        lse2 = torch.where(queries < T, _rows(lse[head], q0, BQ) * LOG2E, 0.)
-        dlt = torch.where(queries < T, _rows(delta[head], q0, BQ), 0.)
-        p = torch.exp2((K @ Q.T) * sl2 - lse2[None])
-        if (causal and kw0 + WG_ROWS - 1 > q0) or q0 + BQ > T or kw0 + WG_ROWS > S or sb is not None:
-            p = torch.where(_allowed(queries, keys, S, T, causal, sb).T, p, torch.zeros(()))
+        queries, lse2, dlt = _query_vectors(lse, delta, head, q0, T, BQ, slopes is not None)
+        p = torch.exp2(_exponent_t(K, Q, sl2, lse2, keys, slopes, head))
+        if slopes is None:
+            masked = ((causal and kw0 + WG_ROWS - 1 > q0) or q0 + BQ > T or kw0 + WG_ROWS > S
+                      or sb is not None)
+        else:
+            masked = kw0 + WG_ROWS - 1 > q0 + off or kw0 + WG_ROWS > S
+        if masked:
+            p = torch.where(_allowed(queries, keys, S, T, causal, sb, off).T, p, torch.zeros(()))
         ds = p * ((V @ dO.T) - dlt[None])
         dv += p @ dO
         dk += ds @ Q
-    return dv, dk
+        dsum[head] += ds.sum(1)
+    return dv, dk, (dsum * keys.float()).sum(1)
 
 
-def mirror_backward(q, k, v, out, dout, lse, causal, seg=None):
+def mirror_backward(q, k, v, out, dout, lse, causal, seg=None, slopes=None, off=None):
     """The wgmma backward's arithmetic in f32: delta, the dk/dv pass (two
     warpgroups, each forming P^T and dS^T for half the queries and then
     accumulating half the head-dim columns, the group's query heads summed
-    in order) and the dq pass (its row blocks). -> (dq, dk, dv)."""
+    in order) and the dq pass (its row blocks). -> (dq, dk, dv). With
+    ``slopes`` the ALiBi form (as ``mirror_forward``): each query head's
+    bias at the absolute key, queries past T at lse +1e30, and the dslope
+    partials [B, H, ceil(S / 64)] (each 64-key tile's sum of dS times j:
+    the key split's warpgroup its own 64 keys, the query split's two
+    warpgroups' sums over their 32 queries of a tile added in order), which
+    the wrapper sums -> (dq, dk, dv, dslope)."""
     B, T, H, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     n_rep, half, scale = H // KV, Dh // 2, Dh ** -0.5
     sl2 = scale * LOG2E
+    off = alibi_off(T, S, slopes, off)
+    alibi = slopes is not None
     delta = (dout * out).sum(-1).permute(0, 2, 1)                  # [B, H, T]
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    part = torch.zeros(B, H, -(-S // 64))
     BN, BQ, _ = wgmma_tiles(Dh)["dkv"]
     for kt in range(-(-S // BN)):
         for b in range(B):
@@ -447,38 +502,48 @@ def mirror_backward(q, k, v, out, dout, lse, causal, seg=None):
                 if BN == 2 * WG_ROWS:   # the key split: warpgroup w owns keys k0 + 64 w ..
                     for w in range(2):
                         kw0 = k0 + w * WG_ROWS
-                        dvw, dkw = key_split_dkv(q[b], k[b, :, kvh], v[b, :, kvh], dout[b],
-                                                 lse[b], delta[b], sb, kw0, kt, kvh, n_rep,
-                                                 causal, sl2)
+                        dvw, dkw, pw = key_split_dkv(q[b], k[b, :, kvh], v[b, :, kvh], dout[b],
+                                                     lse[b], delta[b], sb, kw0, kt, kvh, n_rep,
+                                                     causal, sl2, slopes, off)
                         n = max(0, min(WG_ROWS, S - kw0))
                         dv[b, kw0:kw0 + n, kvh] = dvw[:n]
                         dk[b, kw0:kw0 + n, kvh] = dkw[:n] * scale
+                        if kw0 < S:
+                            heads = slice(kvh * n_rep, (kvh + 1) * n_rep)
+                            part[b, heads, kw0 // 64] = pw[heads]
                     continue
                 keys = torch.arange(k0, k0 + BN)
                 K, V = _rows(k[b, :, kvh], k0, BN), _rows(v[b, :, kvh], k0, BN)
                 acc = [[torch.zeros(BN, half), torch.zeros(BN, half)] for _ in range(2)]
-                for head, qt in dkv_iterations(kt, kvh, n_rep, T, causal, BQ):
+                dsum = torch.zeros(H, 2, BN)   # per head and warpgroup: dS summed over its queries
+                for head, qt in dkv_iterations(kt, kvh, n_rep, T, causal, BQ, off=off):
                     q0 = qt * BQ
-                    queries = torch.arange(q0, q0 + BQ)
                     Q, dO = _rows(q[b, :, head], q0, BQ), _rows(dout[b, :, head], q0, BQ)
+                    queries, lse2, dlt = _query_vectors(lse[b], delta[b], head, q0, T, BQ, alibi)
                     # each warpgroup forms S^T and dP^T for its 32 queries
-                    st = torch.cat([K @ Q[w * 32:(w + 1) * 32].T for w in range(2)], 1)
+                    p = torch.exp2(torch.cat([_exponent_t(K, Q[w * 32:(w + 1) * 32], sl2,
+                                                          lse2[w * 32:(w + 1) * 32], keys, slopes,
+                                                          head) for w in range(2)], 1))
                     dpt = torch.cat([V @ dO[w * 32:(w + 1) * 32].T for w in range(2)], 1)
-                    lse2 = torch.where(queries < T, _rows(lse[b, head], q0, BQ) * LOG2E, 0.)
-                    dlt = torch.where(queries < T, _rows(delta[b, head], q0, BQ), 0.)
-                    p = torch.exp2(st * sl2 - lse2[None])
-                    masked = (causal and qt == kt) or q0 + BQ > T or k0 + BN > S or sb is not None
+                    if alibi:
+                        masked = k0 + BN - 1 > q0 + off or k0 + BN > S
+                    else:
+                        masked = ((causal and qt == kt) or q0 + BQ > T or k0 + BN > S
+                                  or sb is not None)
                     if masked:
-                        p = torch.where(_allowed(queries, keys, S, T, causal, sb).T, p,
+                        p = torch.where(_allowed(queries, keys, S, T, causal, sb, off).T, p,
                                         torch.zeros(()))
                     ds = p * (dpt - dlt[None])
                     for w in range(2):   # warpgroup w: columns [w * half, (w + 1) * half)
                         cols = slice(w * half, (w + 1) * half)
                         acc[w][0] += p @ dO[:, cols]
                         acc[w][1] += ds @ Q[:, cols]
+                        dsum[head, w] += ds[:, w * 32:(w + 1) * 32].sum(1)
                 n = min(BN, S - k0)
                 dv[b, k0:k0 + n, kvh] = torch.cat([acc[0][0], acc[1][0]], 1)[:n]
                 dk[b, k0:k0 + n, kvh] = torch.cat([acc[0][1], acc[1][1]], 1)[:n] * scale
+                for head in range(kvh * n_rep, (kvh + 1) * n_rep):
+                    part[b, head, kt] = sum((dsum[head, w] * keys.float()).sum() for w in range(2))
     BM, BN, _ = wgmma_tiles(Dh)["dq"]
     for b, h, qt in fwd_blocks(B, T, H, causal, BM):
         kvh = h // n_rep
@@ -487,21 +552,27 @@ def mirror_backward(q, k, v, out, dout, lse, causal, seg=None):
             r0 = qt * BM + w * WG_ROWS
             rows = torch.arange(r0, r0 + WG_ROWS)
             Q, dO = _rows(q[b, :, h], r0, WG_ROWS), _rows(dout[b, :, h], r0, WG_ROWS)
-            lse2 = torch.where(rows < T, _rows(lse[b, h], r0, WG_ROWS) * LOG2E, 0.)
-            dlt = torch.where(rows < T, _rows(delta[b, h], r0, WG_ROWS), 0.)
+            _, lse2, dlt = _query_vectors(lse[b], delta[b], h, r0, T, WG_ROWS, alibi)
             acc = torch.zeros(WG_ROWS, Dh)
-            for j in live_tiles(r0, T, S, causal, BM, BN)[1]:
+            for j in live_tiles(r0, T, S, causal, BM, BN, off)[1]:
                 k0 = j * BN
                 keys = torch.arange(k0, k0 + BN)
                 K, V = _rows(k[b, :, kvh], k0, BN), _rows(v[b, :, kvh], k0, BN)
-                p = torch.exp2((Q @ K.T) * sl2 - lse2[:, None])
-                if (causal and k0 + BN - 1 > r0) or k0 + BN > S or sb is not None:
-                    p = torch.where(_allowed(rows, keys, S, 1 << 30, causal, sb), p,
+                # (transposed: rows are keys in _exponent_t)
+                p = torch.exp2(_exponent_t(K, Q, sl2, lse2, keys, slopes, h).T)
+                if alibi:
+                    masked = k0 + BN - 1 > r0 + off or k0 + BN > S
+                else:
+                    masked = (causal and k0 + BN - 1 > r0) or k0 + BN > S or sb is not None
+                if masked:
+                    p = torch.where(_allowed(rows, keys, S, 1 << 30, causal, sb, off), p,
                                     torch.zeros(()))
                 acc += (p * (dO @ V.T - dlt[:, None])) @ K
             n = max(0, min(WG_ROWS, T - r0))
             dq[b, r0:r0 + n, h] = acc[:n] * scale
-    return dq, dk, dv
+    if not alibi:
+        return dq, dk, dv
+    return dq, dk, dv, part.sum(dim=(0, 2))
 
 
 # (B, T, S, H, KV, causal, segments)
