@@ -28,11 +28,12 @@ non-zero exit code. The phases:
    the quantized matmul for int8, int4 and fp8 storage on Llama-3-8B's
    matrices from 1 to 8192 rows (the split-K GEMV to 8 rows, the wgmma
    kernel past them, its 256-row cells timed on all four matrices), and
-   the quantized fused MLP, phase 2f
+   the quantized fused MLP at 1, 8, 9 and 16 rows (its tensor-core GEMV
+   takes 16 rows a pass), phase 2f
    for the MoE experts' grouped GEMM: bf16, int8 and fp8 stacks of 8
    experts on Mixtral's two expert shapes, 2 to 16,384 rows in four
    group patterns (balanced, one expert, empty first and last experts,
-   ragged), phase 2g for the LoRA delta of multi-tenant serving:
+   ragged; 16 rows or fewer on the tensor-core GEMV), phase 2g for the LoRA delta of multi-tenant serving:
    Llama-3-8B's projections (N 4096 and 1024) at ranks 8, 16 and 64 over
    pools of 5 and 65 slots, from one decode row to a put() of 8 x 1024
    rows, with null rows, equal bits twice, each row of a mixed call
@@ -1379,8 +1380,9 @@ def check_quant_matmul(gen):
 
 
 def check_fused_mlp_quant(gen):
-    """B7 at Llama-3-8B widths for the three formats at group 256, B = 8
-    and 1, through ``fused_mlp`` (the engine's call, which dispatches on
+    """B7 at Llama-3-8B widths for the three formats at group 256, B = 8,
+    1, 16 (the kernel's pass of 16 rows) and 9 (a pass past the old 8-row
+    groups), through ``fused_mlp`` (the engine's call, which dispatches on
     the weights' type), against its plain version. A plain version with
     w_down's scale rows shifted by one group (and, for int4, one with
     w_up's nibbles swapped) must fail the tolerance. Timed beside its
@@ -1402,7 +1404,7 @@ def check_fused_mlp_quant(gen):
     with _f32_reduction():
         for bits in QUANT_FORMATS:
             qg, qu, qd = (quantize_weight(w, 256, bits=bits) for w in (wg, wu, wd))
-            for B in (8, 1):
+            for B in (8, 1, 16, 9):
                 h = torch.randn(B, D, generator=gen, device="cuda").bfloat16()
                 run = lambda: fused_mlp(h, h, ln_w, qu, qd, qg, eps=1e-5)
                 plain = lambda: fused_mlp_quant_reference(h, h, ln_w, qu, qd, qg, eps=1e-5)
@@ -1419,6 +1421,8 @@ def check_fused_mlp_quant(gen):
                        f"bits={bits} B={B}: max abs err {err.max().item()}")
                 _check(all(bites.values()), f"the fused quantized MLP tolerance does not catch "
                        f"a broken plain version: {bites}")
+                twice = torch.equal(got, run())
+                _check(twice, f"two runs of the fused quantized MLP differ at bits={bits} B={B}")
 
                 def deq_cublas():
                     yn = F.rms_norm(h, (D,), ln_w, 1e-5)
@@ -1434,7 +1438,7 @@ def check_fused_mlp_quant(gen):
                 row = dict(shape=dict(B=B, D=D, F=Fd, gs=256, bits=str(bits)),
                            max_abs_err=err.max().item(),
                            max_rel_err=(err.max() / want.float().abs().max()).item(),
-                           tolerance=QUANT_MLP_TOL, within=tol_ok,
+                           tolerance=QUANT_MLP_TOL, within=tol_ok, equal_bits_twice=twice,
                            tolerance_bites=bites, ms=time_cold(run), host_us=host_us(run),
                            plain_ms=time_plain(plain), library_ms=time_cold(deq_cublas),
                            library="dequantize() + the cuBLAS sequence",
@@ -1569,6 +1573,8 @@ def check_mlp_quant_forms(gen):
                    f"{shape}: max abs err {err.max().item()}")
             _check(all(bites.values()), f"the fused quantized MLP tolerance does not catch a "
                    f"broken plain version at {shape}: {bites}")
+            twice = torch.equal(got, run())
+            _check(twice, f"two runs of the fused quantized MLP differ at {shape}")
             fn = {"silu": F.silu, "relu": F.relu}.get(act, lambda x: F.gelu(x, approximate="tanh"))
 
             def deq_cublas():
@@ -1583,7 +1589,8 @@ def check_mlp_quant_forms(gen):
             b_ms, b_by = bound(nbytes, 2.0 * B * D * Fd * len(mats))
             row = dict(shape=shape, max_abs_err=err.max().item(),
                        max_rel_err=(err.max() / want.float().abs().max()).item(),
-                       tolerance=QUANT_MLP_TOL, within=tol_ok, tolerance_bites=bites)
+                       tolerance=QUANT_MLP_TOL, within=tol_ok, tolerance_bites=bites,
+                       equal_bits_twice=twice)
             if (norm, gated, act, bits, width, B) in MQ_FIRST:   # BLOOM's form: timed
                 row.update(ms=time_cold(run), host_us=host_us(run), plain_ms=time_plain(plain),
                            library_ms=time_cold(deq_cublas),
@@ -1605,9 +1612,10 @@ GG_FORMATS = ("bf16", 8, "fp8")
 # Mixtral-8x7B's expert matrices (K, F): w_gate / w_up, w_down; 8 experts
 GG_SHAPES = [(4096, 14336), (14336, 4096)]
 GG_E = 8
-# a decode tick's rows at 1 and 8 sequences x top-2, a tick's 256 chunk
-# rows x top-2, and a put() of 8 prompts of 1024 x top-2
-GG_ROWS = [2, 16, 512, 16384]
+# a decode tick's rows at 1, 8 and 32 sequences x top-2 (64: the most the
+# tensor-core GEMV takes), a tick's 256 chunk rows x top-2, and a put() of 8
+# prompts of 1024 x top-2
+GG_ROWS = [2, 16, 64, 512, 16384]
 GG_PATTERNS = ("balanced", "one_expert", "empty_ends", "ragged")
 # the (format, pattern) cells timed here: a routed batch's bf16, int8 and
 # fp8 stacks (the others' times are scripts/torch_kernel_digest.py's sweeps section)
@@ -1680,8 +1688,9 @@ def check_grouped_gemm(gen, rng, timed=True):
     """B16 against its plain version (a per-group loop of f32 products over
     the weights as the kernel reads them) for bf16, int8 and fp8 expert
     stacks at group 256, on Mixtral's two expert shapes with 8 experts, at
-    GG_ROWS rows in each of GG_PATTERNS. At each format's first 512-row
-    case a plain version that hands a boundary row to the neighbouring
+    GG_ROWS rows in each of GG_PATTERNS. At each format's first balanced
+    case of 16 rows (the decode rows' tensor-core GEMV) and of 512 rows (the
+    wgmma forms) a plain version that hands a boundary row to the neighbouring
     expert, and (quantized) one with the scale rows shifted by one group,
     must fail the tolerance, and two runs must give equal bits. With
     ``timed``, the GG_TIMED cells are timed beside their bound (the x rows,
@@ -1718,9 +1727,11 @@ def check_grouped_gemm(gen, rng, timed=True):
                                    tolerance=PAGED_TOL + " per output row", within=tol_ok)
                         _check(tol_ok, f"grouped matmul kernel disagrees with its plain version "
                                f"at {row['shape']}: max abs err {row['max_abs_err']}")
-                        if N == 512 and pattern == "balanced" and not any(
-                                r["shape"]["fmt"] == str(fmt) and "tolerance_bites" in r
-                                for r in rows):
+                        # the bites and equal bits at each format's first balanced cell of
+                        # the GEMV's rows (16) and of the wgmma forms' (512)
+                        if N in (16, 512) and pattern == "balanced" and not any(
+                                r["shape"]["fmt"] == str(fmt) and r["shape"]["N"] == N
+                                and "tolerance_bites" in r for r in rows):
                             bites = {"boundary_row_moved": _bites(got, grouped_matmul_reference(
                                 x, w, torch.from_numpy(_moved_boundary(sizes_np)).cuda()))}
                             if fmt != "bf16":
@@ -2080,6 +2091,8 @@ QGMM_KIND = "grouped_matmul (B16 int8 / fp8, wgmma)"   # wg_qgmm_kernel's kind i
 QMM_KIND = "quant_matmul (B8 > 8 rows, wgmma)"          # wg_qmatmul_kernel's
 LORA_SHRINK_KIND = "lora_delta (B9 shrink, tensor cores)"
 LORA_EXPAND_KIND = "lora_delta (B9 expand, tensor cores)"
+GEMV_KIND = "grouped_matmul (B16 decode rows, tensor-core GEMV)"   # mma_gemv_grouped_kernel's
+B7_KIND = "fused_mlp_quant (B7, tensor-core GEMV)"   # mma_gemv_mlp_up / _down_kernel's
 
 
 def _kernel_kind(name: str) -> str:
@@ -2097,8 +2110,8 @@ def _kernel_kind(name: str) -> str:
                       ("flash_fwd_kernel", "flash_attention"),
                       ("flash_bwd_", "flash_attention_bwd"),
                       ("fused_adamw_kernel", "fused_adamw"),
-                      ("grouped_gemv_kernel", "grouped_matmul (B16 decode rows)"),
-                      ("grouped_out_kernel", "grouped_matmul (B16 decode rows)"),
+                      ("mma_gemv_grouped_kernel", GEMV_KIND),
+                      ("mma_gemv_mlp_", B7_KIND),
                       ("wg_qgmm_kernel", QGMM_KIND),
                       ("wg_gmm_kernel<true>", "grouped_matmul_dx (B16-dx, wgmma)"),
                       ("wg_gmm_kernel", "grouped_matmul (B16 bf16, wgmma)"),
@@ -2107,16 +2120,16 @@ def _kernel_kind(name: str) -> str:
                       ("lora_shrink_kernel", LORA_SHRINK_KIND),
                       ("lora_expand_kernel", LORA_EXPAND_KIND),
                       ("gemv_partial_kernel", "fused_gemv (qkv + mlp products)"),
-                      ("quant_gemv_kernel", "quant_gemv (B8 decode rows + B7 products)"),
+                      ("quant_gemv_kernel", "quant_gemv (B8 decode rows)"),
                       ("wg_qmatmul_kernel", QMM_KIND),
-                      ("quant_out_kernel", "quant_gemv (B8 decode rows + B7 products)"),
+                      ("quant_out_kernel", "quant_gemv (B8 decode rows)"),
                       ("qkv_epilogue_kernel", "fused_qkv_rope"),
                       ("group_decode_kernel", "fused_paged_decode_attention"),
                       ("group_merge_kernel", "fused_paged_decode_attention (merge)"),
-                      ("norm_rows_kernel", "fused_mlp / fused_mlp_quant (norm, epilogues)"),
-                      ("act_epilogue_kernel", "fused_mlp / fused_mlp_quant (norm, epilogues)"),
+                      ("norm_rows_kernel", "fused_mlp (norm, epilogues)"),
+                      ("act_epilogue_kernel", "fused_mlp (norm, epilogues)"),
                       ("residual_epilogue_kernel",
-                       "fused_mlp / fused_mlp_quant (norm, epilogues)"),
+                       "fused_mlp (norm, epilogues)"),
                       ("paged_decode_kernel", "paged_decode_attention"),
                       ("paged_decode_merge_kernel", "paged_decode_attention (merge)"),
                       ("paged_extend_kernel", "paged_extend_attention"),
@@ -2558,6 +2571,15 @@ def quant_serving(model, params, prompts, n_layers, card, seed, bf16):
     out["trace_put_decode_loop"] = trace_put_decode_loop(model, params, prompts,
                                                          config=QUANT_SERVE[8])
     print(f"[trace put_decode_loop int8] {json.dumps(out['trace_put_decode_loop'])}", flush=True)
+    # B7 runs on the decode rows only: its device ms a step of the window's 8
+    t = out["trace_put_decode_loop"] or {}
+    b7 = dict(launches=t.get("kernels_by_kind", {}).get(B7_KIND, 0),
+              ms_per_step=t.get("by_kind_ms", {}).get(B7_KIND, 0.0) / 8, layers=n_layers)
+    out["b7_decode"] = b7
+    print(f"[trace put_decode_loop int8] B7 (the quantized fused MLP, tensor-core GEMV): "
+          f"{b7['launches']} kernel launches over 8 decode steps at {n_layers} layers, "
+          f"{b7['ms_per_step']:.4f} device ms a step ({b7['ms_per_step'] / n_layers:.4f} a "
+          f"layer)", flush=True)
     free()
     # the int8 put() prefill program alone: B8's launches past 8 rows (7 a
     # layer, every matrix of the 8 x 1024 rows) and their device ms
@@ -6383,6 +6405,20 @@ def main(argv=None) -> int:
     _check(qgmm_launches == 3 * mcfg.n_layers,
            f"Mixtral's int8 put() prefill did not launch B16's quantized wgmma kernel 3 times "
            f"a layer: {prefill_kinds}")
+    # the decode window's expert products (16 rows a tick) ran B16's tensor-core
+    # GEMV, found by its kernel's name: its device ms a tick of the 8 steps
+    dec = mixtral["trace_decode_loop"] or {}
+    gemv_launches = dec.get("kernels_by_kind", {}).get(GEMV_KIND, 0)
+    gemv_ms = dec.get("by_kind_ms", {}).get(GEMV_KIND, 0.0) / 8
+    mixtral["b16_decode"] = dict(launches=gemv_launches, ms_per_tick=gemv_ms,
+                                 layers=mcfg.n_layers)
+    print(f"[trace_decode_loop mixtral] B16 decode rows (tensor-core GEMV): {gemv_launches} "
+          f"launches by name over 8 ticks at {mcfg.n_layers} layers, {gemv_ms:.4f} device ms a "
+          f"tick ({gemv_ms / mcfg.n_layers:.4f} a layer; of {dec.get('device_busy_ms', 0) / 8:.4f} "
+          f"busy ms a tick)", flush=True)
+    _check(gemv_launches == 3 * mcfg.n_layers * 8,
+           f"Mixtral's int8 decode window did not launch B16's tensor-core GEMV 3 times a layer "
+           f"and tick: {dec.get('kernels_by_kind')}")
     runs += [r["launches"] for r in mixtral["serve"].values()]
     runs += [mixtral["put_decode_loop"]["launches"], mixtral["v1_generate"]["launches"]]
     # 4, MoE: depth 2, int8 and fp8, against the CPU f32 engine

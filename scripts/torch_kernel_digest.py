@@ -36,7 +36,10 @@ times beside their bounds and dslope's per-head margins). Cells
 of forms a tree does not build (head dims 80 and 96, the backward at 256,
 ranks above 64) run only where it builds them, after the others, so both
 trees give the common cells the same inputs. ``--sections`` picks some of
-them (``flash alibi grouped quant paged lora sweeps moe_train alibi_train``;
+them (``flash alibi grouped quant paged lora sweeps moe_train alibi_train
+decode_gemv``; ``decode_gemv`` times B16's decode rows and B7 on the
+tensor-core GEMV of ``ops/csrc/mma_gemv.cuh``, and, where the tree has its
+plan, B16 at 32 and 64 rows on the GEMV beside the wgmma forms;
 ``sweeps`` times the cells ``chip_smoke.py`` checks but does not time;
 ``moe_train`` runs the chip smoke test's phase 5b, the _config3 MoE
 training steps, and ``alibi_train`` its phase 5c, BLOOM-1b7's training
@@ -62,6 +65,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -160,7 +164,14 @@ QUANT_PREFILL_ROWS = 8192   # B8's prefill cells: a put() of 8 prompts padded to
 QUANT_CHUNK_ROWS = 256      # and its chunk cells: a tick's 256-token budget
 QUANT_FEW_ROWS = 64         # and a tick of few rows past the GEMV's (B8's short tile)
 SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora", "sweeps", "moe_train",
-            "alibi_train")
+            "alibi_train", "decode_gemv")
+
+
+def gemv_rows(gg) -> int:
+    """The most rows a tree's grouped GEMV sends to its GEMV form (its
+    GEMV_MAX_N: one count, or one a weight format)."""
+    limit = gg.GEMV_MAX_N
+    return max(limit.values()) if isinstance(limit, dict) else limit
 
 
 def time_cold(fn, iters: int = 10) -> float:
@@ -434,7 +445,7 @@ def grouped_cells(gen, seed) -> dict:
                 expert_bytes = K * F * 2 if fmt == "bf16" else w.nbytes / 8
                 lib = lib16 if fmt == "bf16" else (lambda w=w: (w.dequantize(), lib16()))
                 plain = ((lambda w=w: gg.grouped_matmul_reference(x, w, sizes))
-                         if N > gg.GEMV_MAX_N else None)
+                         if N > gemv_rows(gg) else None)
                 cells[f"B16 {'int8' if fmt == 8 else fmt} {N}x[{K}, {F}] ragged"] = cell(
                     lambda w=w: gg.grouped_matmul(x, w, sizes), plain, lib,
                     N * K * 2 + used * expert_bytes + N * F * 2, 2.0 * N * K * F,
@@ -589,6 +600,129 @@ def alibi_train_cells(seed) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"bloom-1b7 train step": cell}
+
+
+# "decode_gemv": the tensor-core GEMV of B16's decode rows and of B7 (its
+# plan is ops/decode_gemv.py): B16 at a decode tick's 2 and 16 rows over
+# Mixtral-8x7B's two expert shapes in every format and group pattern, B7 at
+# the chip smoke test's mlp_quant_cells at 1, 8 and 16 rows; where the tree
+# has the GEMV's plan, B16 at 32 and 64 rows on the GEMV (GEMV_MAX_N raised
+# for the call, ``gemv_ms``) and on the wgmma forms (``wgmma_ms``)
+DG_B16_ROWS = (2, 16)
+DG_B7_ROWS = (1, 8, 16)
+DG_WIDE_ROWS = (32, 64)
+
+
+def decode_gemv_cells(gen, seed) -> dict:
+    """The ``decode_gemv`` cells: a digest and the mean cold-L2 time of
+    each, held to its plain version (B16: PAGED_TOL per row; B7:
+    QUANT_MLP_TOL) with equal bits twice; the ragged B16 cells and the
+    B7 cells beside their bounds and library yardsticks (torch._grouped_mm,
+    dequantize + torch._grouped_mm, dequantize + the cuBLAS sequence)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import (GG_PATTERNS, MQ_WIDTHS, _f32_reduction, _library_grouped, bound,
+                            group_pattern, mlp_quant_cells, paged_close, quant_mlp_close)
+
+    gg, qmm, fd = (importlib.import_module(f"shuffle_exchange_tpu_torch.ops.{m}") for m in
+                   ("grouped_gemm", "quant_matmul", "fused_decode"))
+    has_plan = importlib.util.find_spec("shuffle_exchange_tpu_torch.ops.decode_gemv") is not None
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    def held(fn, plain, close):
+        out = fn()
+        err, ok = close(out, plain())
+        return out, dict(digest=digest([out]), max_abs_err=err.max().item(), within=ok,
+                         equal_bits_twice=digest([fn()]) == digest([out]))
+
+    cells = {}
+    with _f32_reduction():
+        for K, F_ in ((4096, 14336), (14336, 4096)):
+            w16 = randn(8, K, F_, scale=K ** -0.5)
+            for fmt in ("bf16", 8, "fp8"):
+                w = w16 if fmt == "bf16" else qmm.quantize_weight(w16, 256, bits=fmt)
+                expert_bytes = K * F_ * 2 if fmt == "bf16" else w.nbytes / 8
+                name = "int8" if fmt == 8 else fmt
+                rows = DG_B16_ROWS + (DG_WIDE_ROWS if has_plan else ())
+                for N in rows:
+                    x = randn(N, K)
+                    for pattern in (GG_PATTERNS if N in DG_B16_ROWS else ("ragged",)):
+                        sizes_np = group_pattern(pattern, N, 8, rng)
+                        sizes = torch.from_numpy(sizes_np).cuda()
+                        fn = lambda: gg.grouped_matmul(x, w, sizes)
+                        plain = lambda: gg.grouped_matmul_reference(x, w, sizes)
+                        _, row = held(fn, plain, paged_close)
+                        row["ms"] = time_cold(fn, 10)
+                        if pattern == "ragged":
+                            used = int((sizes_np > 0).sum())
+                            nbytes = N * K * 2 + used * expert_bytes + N * F_ * 2
+                            row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * N * K * F_)
+                            lib = _library_grouped(x, w16, sizes)[0]
+                            row["library_ms"] = time_cold(
+                                lib if fmt == "bf16" else (lambda: (w.dequantize(), lib())), 5)
+                        if N in DG_WIDE_ROWS:   # the GEMV and the wgmma form at these rows
+                            wide = gg.GEMV_MAX_N
+                            gg.GEMV_MAX_N = dict.fromkeys(wide, max(DG_WIDE_ROWS))
+                            try:
+                                _, g = held(fn, plain, paged_close)
+                                row.update(gemv_ms=time_cold(fn, 10), gemv_within=g["within"],
+                                           gemv_digest=g["digest"])
+                            finally:
+                                gg.GEMV_MAX_N = wide
+                            gg.GEMV_MAX_N = dict.fromkeys(wide, 0)
+                            try:
+                                row["wgmma_ms"] = time_cold(fn, 10)
+                            finally:
+                                gg.GEMV_MAX_N = wide
+                        cells[f"B16 {name} {N}x[{K}, {F_}] {pattern}"] = row
+                del w
+            del w16
+            torch.cuda.empty_cache()
+        made = {}
+        for norm, gated, act, bits, width, _ in mlp_quant_cells():
+            D, Fd = MQ_WIDTHS[width]
+            if (width, bits) not in made:
+                made.clear()
+                torch.cuda.empty_cache()
+                made[(width, bits)] = [qmm.quantize_weight(randn(*shape, scale=shape[0] ** -0.5),
+                                                           256, bits=bits)
+                                       for shape in ((D, Fd), (D, Fd), (Fd, D))]
+            qg, qu, qd = made[(width, bits)]
+            qg = qg if gated else None
+            ln_w, ln_b = (1 + randn(D, scale=0.1)), randn(D, scale=0.1)
+            kw = dict(ln_b=ln_b, norm=norm, activation=act)
+            fn_act = {"silu": F.silu, "relu": F.relu}.get(
+                act, lambda v: F.gelu(v, approximate="tanh"))
+            for B in DG_B7_ROWS:
+                key = f"B7 {norm} {'gated' if gated else 'plain'} {act} {bits} {width} {B}"
+                if key in cells:
+                    continue
+                h = (randn(B, D) + randn(B, 1, scale=0.5)).bfloat16()
+                fn = lambda: fd.fused_mlp(h, h, ln_w, qu, qd, qg, eps=1e-5, **kw)
+                plain = lambda: fd.fused_mlp_quant_reference(h, h, ln_w, qu, qd, qg, 1e-5, **kw)
+                _, row = held(fn, plain, quant_mlp_close)
+                row["ms"] = time_cold(fn, 10)
+                mats = [m for m in (qg, qu, qd) if m is not None]
+                nbytes = sum(m.nbytes for m in mats) + 3 * B * D * 2 + 2 * D * 2
+                row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * B * D * Fd * len(mats))
+
+                def library():
+                    yn = (F.layer_norm(h, (D,), ln_w, ln_b, 1e-5) if norm == "layernorm" else
+                          F.rms_norm(h, (D,), ln_w, 1e-5))
+                    u = yn @ qu.dequantize()
+                    a = fn_act(yn @ qg.dequantize()) * u if gated else fn_act(u)
+                    return h + a @ qd.dequantize()
+
+                row["library_ms"] = time_cold(library, 5)
+                cells[key] = row
+        made.clear()
+    torch.cuda.empty_cache()
+    return cells
 
 
 def flash_cells(fa, gen, randn, seed) -> dict:
@@ -757,7 +891,8 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
                "alibi_train": ("alibi_attention", "fused_adam"),
                "grouped": ("grouped_gemm",), "quant": ("quant_matmul",),
                "paged": ("paged_attention", "fused_decode"), "lora": ("lora_gemm",),
-               "sweeps": ("flash_attention", "quant_matmul", "grouped_gemm", "fused_decode")}
+               "sweeps": ("flash_attention", "quant_matmul", "grouped_gemm", "fused_decode"),
+               "decode_gemv": ("grouped_gemm", "fused_decode")}
     _build.build_all(sorted({s for sec in sections for s in sources[sec]
                              if (_build.CSRC / f"{s}.cu").exists()}))
 
@@ -832,6 +967,9 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
         cells.update(moe_train_cells(seed))
     if "alibi_train" in sections:
         cells.update(alibi_train_cells(seed))
+    if "decode_gemv" in sections:
+        cells.update(decode_gemv_cells(torch.Generator(device="cuda").manual_seed(seed * 10 + 9),
+                                       seed))
     return cells
 
 

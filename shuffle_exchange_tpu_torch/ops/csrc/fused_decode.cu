@@ -92,19 +92,24 @@
 // f32, adds the residual and then the down bias in f32 and casts once.
 // The activations are those of the TPU kernel's FUSABLE_ACTIVATIONS: silu
 // (swiglu when gated), relu and the tanh gelu (gelu_new,
-// gelu_pytorch_tanh). In the GEMVs, tensor-core MMA, TMA and pipelining
-// are later work.
+// gelu_pytorch_tanh). In the bf16 GEMVs, tensor-core MMA, TMA and
+// pipelining are later work.
 //
 // The quantized MLP (int8 / packed int4 / e4m3 weights with f32 scales per
-// (K-group, column), the storage of ops/quant_matmul.py) keeps that
-// structure and its norm, gate and activation forms, without fc biases:
-// norm rows, the split GEMV over [w_gate | w_up] (or w_up alone for the
-// plain MLP, F columns), the activation epilogue, the split GEMV over
-// w_down, the residual epilogue. Its GEMV
-// (quant_gemv.cuh) reads the weights at storage width and dequantizes them
-// in registers as q * s in f32, which is the JAX kernel's rounding point:
-// its weight blocks stay f32 and dot(bf16, f32) promotes, so only yn and a
-// are rounded to bf16. A split covers whole scale groups. Its bound at 8
+// (K-group, column), the storage of ops/quant_matmul.py) has the same norm,
+// gate and activation forms, without fc biases, on mma_gemv.cuh's
+// tensor-core GEMV (the CUDA-core split-K GEMV of quant_gemv.cuh it replaced,
+// in five launches, reached 21% of the bound): two launches a pass of
+// up to 16 rows. The up GEMV normalises its rows into the A operand (each
+// block computes the rows' statistics itself, in a fixed order), multiplies
+// by [w_gate | w_up] (or w_up alone, the plain MLP) and writes a =
+// bf16(act(g) * u); the down GEMV multiplies a by w_down and adds the
+// residual. Split chunks fold in the tile's last block, in split order.
+// The weights are read at storage width and widened to bf16 exactly; each
+// scale group's products x * q are summed in f32 on the tensor cores and
+// the group sum is multiplied by its f32 scale, so q * s is never rounded
+// (the JAX kernel's weight blocks stay f32 and dot(bf16, f32) promotes):
+// only yn and a are rounded to bf16. Its bound at 8
 // rows of Llama-3-8B is the weight bytes: 176.2 MB of int8 and 2.8 MB of
 // scales at group 256, 53.4 us (int4 and its scales: 27.1 us).
 
@@ -112,9 +117,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "paged_decode.cuh"  // pdec::decode_split (B2's decode body), merge_partials
 #include "paged_tile.cuh"    // TK, kNeg, storage kinds, converters
-#include "quant_gemv.cuh"    // formats, the quantized split-K GEMV
+#include "mma_gemv.cuh"      // tcg:: the tensor-core GEMV (B7's products; shared with B16)
+#include "quant_gemv.cuh"    // kQInt8 / kQInt4 / kQFp8
 
 namespace {
 
@@ -379,6 +387,304 @@ __global__ void residual_epilogue_kernel(const float* __restrict__ part, int S, 
   float o = __bfloat162float(resid[i]) + sum_splits(part, S, B, D, i / D, i % D);
   if (b_down != nullptr) o += __bfloat162float(b_down[i % D]);
   out[i] = __float2bfloat16(o);
+}
+
+// ---------------------------------------------------------------------------
+// The quantized MLP (B7) on mma_gemv.cuh's tensor-core GEMV: a pass of up to
+// 16 rows is two launches. mma_gemv_mlp_up_kernel normalises the rows on the
+// way into the A operand (every block the same statistics, in the same
+// order), multiplies by w_gate and w_up (a tile: 128 columns of each, warps
+// 0-3 the gate's, 4-7 the up matrix's; plain: w_up alone) and writes a =
+// bf16(act(g) * u)
+// (plain: bf16(act(u))), folding its split partials in the tile's last
+// block. mma_gemv_mlp_down_kernel multiplies a by w_down and writes
+// bf16(resid + down), folded likewise.
+// ---------------------------------------------------------------------------
+
+struct MlpQuantCall {
+  const __nv_bfloat16* y;      // the pass's rows [B, D]
+  const __nv_bfloat16* ln_w;
+  const __nv_bfloat16* ln_b;   // null: no layernorm bias
+  const __nv_bfloat16* resid;  // [B, D]
+  const uint8_t* qg;           // null: the plain MLP
+  const uint8_t* qu;
+  const uint8_t* qd;
+  const float* sg;
+  const float* su;
+  const float* sd;
+  __nv_bfloat16* a;            // [B, F]
+  __nv_bfloat16* out;          // [B, D]
+  float* part1;                // [s1, B, 2F] (plain: [s1, B, F]); null with one split
+  float* part2;                // [s2, B, D]; null with one split
+  int* counters;               // a tile each, zero between calls
+  int B, D, F, gs, s1, c1, s2, c2, act;
+  float eps;
+};
+
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// mean and 1 / std of rows [0, B) (RMSNorm: mean 0, rsqrt(mean(x^2) + eps);
+// layernorm: 1 / sqrt(var + eps), the population variance in a second pass):
+// warp w takes rows w, w + 8; a lane sums its 8-column pieces in order, the
+// warp adds the lanes by shuffles.
+template <int NORM>
+__device__ __forceinline__ void row_stats(const __nv_bfloat16* __restrict__ y, int B, int D,
+                                          float eps, float* mean, float* inv) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < B; r += tcg::kWarps) {
+    const __nv_bfloat16* row = y + size_t(r) * D;
+    float sum = 0.f;
+    for (int k = 8 * lane; k < D; k += 256) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + k));
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = unpack2(w[i]);
+        sum += NORM == kRmsNorm ? f.x * f.x : f.x;
+        sum += NORM == kRmsNorm ? f.y * f.y : f.y;
+      }
+    }
+    sum = warp_sum(sum);
+    float m = 0.f, iv;
+    if (NORM == kRmsNorm) {
+      iv = rsqrtf(sum / D + eps);
+    } else {
+      m = sum / D;
+      float sd = 0.f;
+      for (int k = 8 * lane; k < D; k += 256) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + k));
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = unpack2(w[i]);
+          sd += (f.x - m) * (f.x - m);
+          sd += (f.y - m) * (f.y - m);
+        }
+      }
+      iv = 1.f / sqrtf(warp_sum(sd) / D + eps);
+    }
+    if (lane == 0) {
+      mean[r] = m;
+      inv[r] = iv;
+    }
+  }
+}
+
+// The first GEMV's A operand: rows of y normalised as norm_rows_kernel does
+// (RMSNorm: x * inv * w; layernorm: (x - mean) * inv * w + b), rounded to
+// bf16.
+template <int NORM>
+struct RowsNormed {
+  const __nv_bfloat16* y;
+  const __nv_bfloat16* w;
+  const __nv_bfloat16* b;
+  const float* mean;
+  const float* inv;
+  int ld, rows;
+
+  __device__ __forceinline__ uint32_t norm2(int r, uint32_t yv, uint32_t wv, uint32_t bv) const {
+    const float2 f = unpack2(yv), g = unpack2(wv), h = unpack2(bv);
+    if (NORM == kRmsNorm)
+      return tcg::pack2(f.x * inv[r] * g.x, f.y * inv[r] * g.y);
+    return tcg::pack2((f.x - mean[r]) * inv[r] * g.x + h.x, (f.y - mean[r]) * inv[r] * g.y + h.y);
+  }
+  // the normalised pair at columns k, k + 1 of row r (k even)
+  __device__ __forceinline__ uint32_t load2(int r, int k) const {
+    if (r >= rows) return 0u;
+    const uint32_t yv = __ldg(reinterpret_cast<const uint32_t*>(y + size_t(r) * ld + k));
+    const uint32_t wv = __ldg(reinterpret_cast<const uint32_t*>(w + k));
+    const uint32_t bv = b != nullptr ? __ldg(reinterpret_cast<const uint32_t*>(b + k)) : 0u;
+    return norm2(r, yv, wv, bv);
+  }
+};
+
+// The items of one of the MLP's GEMVs: (split, 128-column tile), the tile
+// fastest. In the gated up GEMV warps 0-3 multiply the gate's tile and
+// warps 4-7 the same tile of the up matrix, each a quarter of the chunk.
+template <class Rows>
+struct MlpGemv {
+  const CUtensorMap* m0;   // the matrix's map (the gated up GEMV: the gate's)
+  const CUtensorMap* m1;   // the up matrix's map (the gated up GEMV's warps 4-7)
+  const float* s0;
+  const float* s1;
+  Rows xr;
+  int items, N, K, gs, splits, chunk, tiles, parts;   // parts: 8, or 4 (gated)
+
+  __device__ int units(int item) const { return tcg::chunk_stages(item / tiles, chunk, K); }
+  __device__ tcg::Geo geo(int item, int lane, int warp) const {
+    tcg::Geo g;
+    g.tile = item % tiles;
+    g.split = item / tiles;
+    g.map = parts == 4 && warp >= 4 ? m1 : m0;
+    g.c0 = g.tile * tcg::kTileCols;
+    g.batch = 0;
+    g.col = g.c0 + tcg::kLaneCols * (lane >> 2);
+    g.s = nullptr;
+    g.col_ok = g.col < N;
+    g.u0 = g.split * chunk / tcg::kStageRows;
+    g.row0 = 0;
+    g.rows = xr.rows;
+    g.grp = 0;
+    return g;
+  }
+  __device__ Rows rows_of(const tcg::Geo&) const { return xr; }
+  // scales of scale group `grp` for the lane's accumulator columns 32 t + 16 e + j
+  __device__ const float* fold_scales(const tcg::Geo& g, int lane, int warp, int grp,
+                                      int e) const {
+    const int col = g.c0 + tcg::kLaneCols * (2 * (lane & 3) + e);
+    return col < N ? (parts == 4 && warp >= 4 ? s1 : s0) + size_t(grp) * N + col : nullptr;
+  }
+};
+
+// a = bf16(act(g) * u) (gated) or bf16(act(u)) for rows [0, c.B) of y
+// normalised (NORM) over [w_gate | w_up].
+template <int FMT, int NORM>
+__global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_mlp_up_kernel(
+    const __grid_constant__ CUtensorMap map0, const __grid_constant__ CUtensorMap map1,
+    const MlpQuantCall c) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const tcg::Smem sm = tcg::smem_layout(smem_raw);
+  float *red = sm.red, *mean = sm.mean, *inv = sm.inv;
+  int* flag = sm.meta;
+  const bool gated = c.qg != nullptr;
+  const int F = c.F, B = c.B, splits = c.s1;
+  const int tiles = (F + tcg::kTileCols - 1) / tcg::kTileCols;
+  using Rows = typename std::conditional<NORM == kNoNorm, tcg::RowsPlain, RowsNormed<NORM>>::type;
+  Rows xr;
+  if constexpr (NORM == kNoNorm)
+    xr = tcg::RowsPlain{c.y, c.D, B, c.D};
+  else
+    xr = RowsNormed<NORM>{c.y, c.ln_w, NORM == kLayerNorm ? c.ln_b : nullptr, mean, inv, c.D, B};
+  const MlpGemv<Rows> p{&map0, &map1, gated ? c.sg : c.su, c.su, xr, splits * tiles, F, c.D,
+                        c.gs, splits, c.c1, tiles, gated ? tcg::kWarps / 2 : tcg::kWarps};
+  auto pre = [&] {
+    if constexpr (NORM != kNoNorm) {
+      row_stats<NORM>(c.y, B, c.D, c.eps, mean, inv);
+      __syncthreads();
+    }
+  };
+  auto done = [&](int, const tcg::Geo& g, const float (&acc)[16][4]) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    __syncthreads();   // the last item's sums are read
+    tcg::write_red<FMT>(red, warp, lane, acc, B);
+    __syncthreads();
+    // gated: the gate's sums are warps 0-3's, the up matrix's warps 4-7's
+    const int ncols = gated ? 2 * F : F, half = tcg::kWarps / 2;
+    if (splits > 1) {
+      for (int i = threadIdx.x; i < B * tcg::kTileCols; i += tcg::kThreads) {
+        const int r = i / tcg::kTileCols, t = i % tcg::kTileCols, n = g.c0 + t;
+        if (n >= F) continue;
+        float* row = c.part1 + (size_t(g.split) * B + r) * ncols;
+        if (gated) {
+          row[n] = tcg::red_sum(red, r, t, 0, half);
+          row[F + n] = tcg::red_sum(red, r, t, half, tcg::kWarps);
+        } else {
+          row[n] = tcg::red_sum(red, r, t);
+        }
+      }
+      if (!tcg::last_of_tile(c.counters + g.tile, splits, flag)) return;
+    }
+    for (int i = threadIdx.x; i < B * tcg::kTileCols; i += tcg::kThreads) {
+      const int r = i / tcg::kTileCols, t = i % tcg::kTileCols, n = g.c0 + t;
+      if (n >= F) continue;
+      float gv = 0.f, u = 0.f;
+      if (splits == 1) {
+        u = gated ? tcg::red_sum(red, r, t, half, tcg::kWarps) : tcg::red_sum(red, r, t);
+        if (gated) gv = tcg::red_sum(red, r, t, 0, half);
+      } else {
+#pragma unroll 4
+        for (int s = 0; s < splits; ++s) {
+          const float* row = c.part1 + (size_t(s) * B + r) * ncols;
+          u += __ldcg(row + (gated ? F : 0) + n);
+          if (gated) gv += __ldcg(row + n);
+        }
+      }
+      c.a[size_t(r) * F + n] =
+          __float2bfloat16(gated ? activate(gv, c.act) * u : activate(u, c.act));
+    }
+  };
+  tcg::run<FMT, false, true>(p, sm, pre, done);
+}
+
+// out = bf16(resid + a @ w_down) for rows [0, c.B).
+template <int FMT>
+__global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_mlp_down_kernel(
+    const __grid_constant__ CUtensorMap map, const MlpQuantCall c) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const tcg::Smem sm = tcg::smem_layout(smem_raw);
+  float* red = sm.red;
+  int* flag = sm.meta;
+  const int D = c.D, B = c.B, splits = c.s2;
+  const int tiles = (D + tcg::kTileCols - 1) / tcg::kTileCols;
+  const MlpGemv<tcg::RowsPlain> p{&map, &map, c.sd, nullptr, tcg::RowsPlain{c.a, c.F, B, c.F},
+                                  splits * tiles, D, c.F, c.gs, splits, c.c2, tiles, tcg::kWarps};
+  auto done = [&](int, const tcg::Geo& g, const float (&acc)[16][4]) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    __syncthreads();   // the last item's sums are read
+    tcg::write_red<FMT>(red, warp, lane, acc, B);
+    __syncthreads();
+    const int cells = B * tcg::kTileCols;
+    if (splits > 1) {
+      for (int i = threadIdx.x; i < cells; i += tcg::kThreads) {
+        const int r = i / tcg::kTileCols, t = i % tcg::kTileCols, n = g.c0 + t;
+        if (n < D) c.part2[(size_t(g.split) * B + r) * D + n] = tcg::red_sum(red, r, t);
+      }
+      if (!tcg::last_of_tile(c.counters + g.tile, splits, flag)) return;
+    }
+    for (int i = threadIdx.x; i < cells; i += tcg::kThreads) {
+      const int r = i / tcg::kTileCols, t = i % tcg::kTileCols, n = g.c0 + t;
+      if (n >= D) continue;
+      float v = 0.f;
+      if (splits == 1)
+        v = tcg::red_sum(red, r, t);
+      else
+#pragma unroll 4
+        for (int s = 0; s < splits; ++s) v += __ldcg(c.part2 + (size_t(s) * B + r) * D + n);
+      c.out[size_t(r) * D + n] = __float2bfloat16(__bfloat162float(c.resid[size_t(r) * D + n]) + v);
+    }
+  };
+  tcg::run<FMT, false, true>(p, sm, [] {}, done);
+}
+
+// The map of a [K, N] weight's storage (int4: [K / 2, N] packed rows) in
+// one-byte boxes of 32 rows (int4: 16 packed rows) of 128 columns.
+cudaError_t mlp_map(CUtensorMap* map, const uint8_t* q, int fmt, int K, int N) {
+  const bool int4 = fmt == kQInt4;
+  return tcg::box_map(map, q, false, 1, int4 ? K / 2 : K, N, int4 ? 16 : tcg::kStageRows,
+                      tcg::kTileCols);
+}
+
+// One pass of up to 16 rows: the up GEMV (its norm form), then the down GEMV.
+template <int FMT>
+cudaError_t mlp_quant_pass(const MlpQuantCall& c, int norm, int blocks1, int blocks2,
+                           cudaStream_t s) {
+  const bool gated = c.qg != nullptr;
+  CUtensorMap m0, m1, md;
+  cudaError_t err = mlp_map(&m0, gated ? c.qg : c.qu, FMT, c.D, c.F);
+  if (err == cudaSuccess) err = mlp_map(&m1, c.qu, FMT, c.D, c.F);
+  if (err == cudaSuccess) err = mlp_map(&md, c.qd, FMT, c.F, c.D);
+  if (err != cudaSuccess) return err;
+  auto up = norm == kRmsNorm     ? mma_gemv_mlp_up_kernel<FMT, kRmsNorm>
+            : norm == kLayerNorm ? mma_gemv_mlp_up_kernel<FMT, kLayerNorm>
+                                 : mma_gemv_mlp_up_kernel<FMT, kNoNorm>;
+  err = cudaFuncSetAttribute(up, cudaFuncAttributeMaxDynamicSharedMemorySize, tcg::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  up<<<blocks1, tcg::kThreads, tcg::kSmemBytes, s>>>(m0, m1, c);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mma_gemv_mlp_down_kernel<FMT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, tcg::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  mma_gemv_mlp_down_kernel<FMT><<<blocks2, tcg::kThreads, tcg::kSmemBytes, s>>>(md, c);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -650,43 +956,51 @@ int sxt_fused_mlp_bf16(const void* resid, const void* y, const void* ln_w, const
 // packed int4, 2 e4m3) and group size gs: q* the storage, s* the f32
 // scales [K/gs, N]. Gated when qg is given (act(g) * u), plain (act(u))
 // when qg and sg are null; norm, act and ln_b as sxt_fused_mlp_bf16; no fc
-// biases (the JAX kernel takes none). Workspaces as sxt_fused_mlp_bf16;
-// each split chunk is whole scale groups.
+// biases (the JAX kernel takes none). Passes of up to 16 rows, each the two
+// tensor-core GEMV launches: the up GEMV on `blocks1` persistent blocks over
+// s1 chunks of chunk1 rows of D, the down GEMV on `blocks2` over s2 chunks
+// of chunk2 rows of F (chunks of whole scale groups). Workspaces: a bf16
+// [min(B, 16), F]; with several splits part1 f32 [s1, min(B, 16), 2F]
+// (plain: F), part2 [s2, min(B, 16), D] and counters int32 (one a column
+// tile of either GEMV), zero between calls (the kernels leave them zero).
 int sxt_fused_mlp_quant_bf16(const void* resid, const void* y, const void* ln_w, const void* ln_b,
                              const void* qg, const void* sg, const void* qu, const void* su,
-                             const void* qd, const void* sd, void* out, void* yn, void* a,
-                             void* part1, void* part2, int B, int D, int F, int gs, int fmt,
-                             int s1, int chunk1, int s2, int chunk2, int norm, int act, float eps,
-                             void* stream) {
+                             const void* qd, const void* sd, void* out, void* a, void* part1,
+                             void* part2, void* counters, int B, int D, int F, int gs, int fmt,
+                             int s1, int chunk1, int s2, int chunk2, int blocks1, int blocks2,
+                             int norm, int act, float eps, void* stream) {
   if (B <= 0) return 0;
-  if (gs % 32 || D % 16 || F % 16 || fmt < 0 || fmt > 2 || bad_qsplit(D, gs, s1, chunk1) ||
-      bad_qsplit(F, gs, s2, chunk2) || norm < 0 || norm > kNoNorm || act < 0 || act > 2 ||
-      (qg == nullptr) != (sg == nullptr))
+  auto bad = [gs](int K, int splits, int chunk, void* part) {
+    return splits < 1 || chunk < 1 || chunk % gs || (long long)splits * chunk < K ||
+           (long long)(splits - 1) * chunk >= K || (splits > 1 && part == nullptr);
+  };
+  if (gs < 32 || gs % 32 || D % gs || F % gs || D % 16 || F % 16 || fmt < 0 || fmt > 2 ||
+      bad(D, s1, chunk1, part1) || bad(F, s2, chunk2, part2) || blocks1 < 1 || blocks2 < 1 ||
+      ((s1 > 1 || s2 > 1) && counters == nullptr) || norm < 0 || norm > kNoNorm || act < 0 ||
+      act > 2 || (qg == nullptr) != (sg == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int gated = qg != nullptr;
-  const QMats up = gated ? make_qmats(qg, sg, F, qu, su, F) : make_qmats(qu, su, F, nullptr,
-                                                                         nullptr, 0);
-  const QMats down = make_qmats(qd, sd, D, nullptr, nullptr, 0);
-  auto* ynp = static_cast<__nv_bfloat16*>(yn);
-  auto* ap = static_cast<__nv_bfloat16*>(a);
-  auto* p1 = static_cast<float*>(part1);
-  auto* p2 = static_cast<float*>(part2);
-  for (int b0 = 0; b0 < B; b0 += kMaxRows) {
-    const int nb = B - b0 < kMaxRows ? B - b0 : kMaxRows;
-    const __nv_bfloat16* xin = norm_input(y, b0, D, ln_w, ln_b, ynp, nb, eps, norm, s);
-    cudaError_t err = launch_quant_gemv<false>(fmt, dim3(up.tiles[0] + up.tiles[1], s1), s, xin,
-                                               nb, D, gs, chunk1, up, gated ? 2 * F : F, p1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    act_epilogue_kernel<<<(nb * F + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        p1, s1, nb, F, gated, act, nullptr, ap);
-    err = launch_quant_gemv<false>(fmt, dim3(down.tiles[0], s2), s, ap, nb, F, gs, chunk2, down,
-                                   D, p2);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    residual_epilogue_kernel<<<(nb * D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        p2, s2, nb, D, static_cast<const __nv_bfloat16*>(resid) + size_t(b0) * D, nullptr,
-        static_cast<__nv_bfloat16*>(out) + size_t(b0) * D);
-    err = cudaGetLastError();
+  MlpQuantCall c{static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(ln_w),
+                 static_cast<const __nv_bfloat16*>(ln_b), static_cast<const __nv_bfloat16*>(resid),
+                 static_cast<const uint8_t*>(qg), static_cast<const uint8_t*>(qu),
+                 static_cast<const uint8_t*>(qd), static_cast<const float*>(sg),
+                 static_cast<const float*>(su), static_cast<const float*>(sd),
+                 static_cast<__nv_bfloat16*>(a), static_cast<__nv_bfloat16*>(out),
+                 static_cast<float*>(part1), static_cast<float*>(part2),
+                 static_cast<int*>(counters), 0, D, F, gs, s1, chunk1, s2, chunk2, act, eps};
+  for (int b0 = 0; b0 < B; b0 += tcg::kRows) {
+    MlpQuantCall pass = c;
+    pass.B = B - b0 < tcg::kRows ? B - b0 : tcg::kRows;
+    pass.y = c.y + size_t(b0) * D;
+    pass.resid = c.resid + size_t(b0) * D;
+    pass.out = c.out + size_t(b0) * D;
+    cudaError_t err;
+    if (fmt == kQInt8)
+      err = mlp_quant_pass<kQInt8>(pass, norm, blocks1, blocks2, s);
+    else if (fmt == kQInt4)
+      err = mlp_quant_pass<kQInt4>(pass, norm, blocks1, blocks2, s);
+    else
+      err = mlp_quant_pass<kQFp8>(pass, norm, blocks1, blocks2, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

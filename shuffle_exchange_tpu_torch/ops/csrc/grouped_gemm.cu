@@ -30,8 +30,9 @@
 // casts the expert stacks to the activations' bf16):
 //   B16-dx  dx [N, K] = dout [N, F] @ w[g]^T       (megablox gmm(transpose_rhs))
 //   B16-dw  dw [E, K, F], block g = x_g^T @ dout_g   (megablox tgmm)
-// Every form sums in f32 and rounds once to bf16; no sum is split across
-// blocks and there are no atomics, so two runs give equal bits.
+// Every form sums in f32 and rounds once to bf16; the wgmma forms split no
+// sum across blocks, the GEMV adds its splits in split order, so two runs
+// give equal bits.
 //
 // What bounds it on the H100 (3.35 TB/s, 989 TFLOP/s bf16), with N rows
 // and K x F expert matrices (2 N K F operations):
@@ -45,14 +46,18 @@
 //   0.477 ms (operations).
 // Three designs answer it.
 //
-// 1. N <= 16 (the decode tick), every format: a split-K GEMV. Blocks of (64
-// columns, <= 8 rows of one group, a chunk of whole scale groups <= 1024
-// rows) each stream their weight rows once with 8- (int8, fp8) or 16-byte
-// (bf16) loads into FMAs for only as many rows (1, 2, 4 or 8) as its group
-// has; f32 partials [splits, N, F] added in split order by
-// grouped_out_kernel.
+// 1. N <= 16 (the decode tick), every format: mma_gemv.cuh's tensor-core
+// GEMV (it replaced a split-K CUDA-core GEMV, which reached 25% of the
+// bytes bound). Persistent blocks walk (row group of <= 16 rows of
+// one group, 128-column tile, K chunk) items; each warp streams a run of
+// the chunk's 32-row stages through its own cp.async ring and multiplies on
+// mma.sync (x the A operand, the weight widened to bf16(q * s) the B
+// operand); the block adds its warps' sums in order. A group of no rows
+// has no item and reads no weight bytes; every weight byte of a group with
+// rows is read once a call. Split chunks write f32 partials [splits, N, F]
+// that the tile's last block adds in split order (a counter it resets).
 //
-// 2. bf16 weights at N > 16, dx at every N and dw: warp-specialised wgmma
+// 2. bf16 weights past the GEMV's rows, dx at every N and dw: warp-specialised wgmma
 // kernels over TMA-fed tiles (wgmma_tile.cuh), the shape of the flash
 // kernels' dense forms. A block is three warpgroups: two consumers that
 // compute and one producer whose single thread issues every TMA load into a
@@ -96,7 +101,7 @@
 //     barrier) before the products read them. An empty group writes a zero
 //     block. A group's rows are never split between tiles.
 //
-// 3. int8 / e4m3 weights at N > 16 (wg_qgmm_kernel<FMT>): form 2's
+// 3. int8 / e4m3 weights past the GEMV's rows (wg_qgmm_kernel<FMT>): form 2's
 // consumers, raster and epilogue over weight tiles widened on the chip.
 // The producer's one thread TMA-loads each step's raw one-byte [64 of K]
 // [128 of F] tile and its (at most two) scale rows, unswizzled, into a ring
@@ -118,7 +123,8 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include "quant_gemv.cuh"    // kQInt8 / kQFp8, q_value, deq<ROUND_W>
+#include "mma_gemv.cuh"      // tcg:: the tensor-core GEMV of the decode rows (shared with B7)
+#include "quant_gemv.cuh"    // kQInt8 / kQFp8
 #include "wgmma_qgemm.cuh"   // the block layout, raster, epilogue, qgemm_tile (shared with B8)
 #include "wgmma_tile.cuh"    // wg:: mbarriers, the ring, TMA, wgmma; tile_map_3d
 
@@ -155,206 +161,149 @@ __device__ __forceinline__ RowTile find_tile(const int* __restrict__ group_sizes
   return {0, 0, -2};
 }
 
-template <int FMT>
-__host__ __device__ constexpr int elt_bytes() {
-  return FMT == kGBf16 ? 2 : 1;
-}
-
 // ---------------------------------------------------------------------------
-// The split-K GEMV form (N <= kGemvMaxN)
+// The decode-row form (N <= the wrapper's GEMV_MAX_N): mma_gemv.cuh's
+// tensor-core GEMV over the groups that have rows
 // ---------------------------------------------------------------------------
 
-constexpr int kGThreads = 256;
-constexpr int kGTN = 64;                  // output columns per block
-constexpr int kGTPR = kGTN / 8;           // threads per weight row (8 columns each)
-constexpr int kGRG = kGThreads / kGTPR;   // row groups per block
-constexpr int kGRows = 8;                 // rows of one group per block, at most
-constexpr int kGChunk = 1024;             // reduction rows per block, at most
-constexpr int kGUnroll = 4;               // weight rows in flight per thread
-constexpr int kGemvMaxN = 16;             // total rows up to which the GEMV form runs
+// A row group of the GEMV: up to tcg::kRows rows of one group.
+struct GroupRows {
+  int g, row0, rows;
+};
 
-// 8 weights of one row from raw bytes: bf16 values as they are, quantized
-// ones as bf16(q * s).
-template <int FMT>
-__device__ __forceinline__ void row_values(const uint4& raw, const float (&scale)[8],
-                                           float (&w)[8]) {
-  if constexpr (FMT == kGBf16) {
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) w[e] = __bfloat162float(h[e]);
-  } else {
-    const uint2 r2 = make_uint2(raw.x, raw.y);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) w[e] = deq<true>(q_value<FMT>(r2, e, 0), scale[e]);
-  }
+// Row groups of the groups that have rows, in group order (a group of more
+// than 16 rows in several): at most min(E, N) + N / 16.
+__host__ __device__ constexpr int row_groups_max(int E, int N) {
+  return (E < N ? E : N) + N / tcg::kRows;
 }
 
-// The GEMV body for a tile of at most R rows (R = 1, 2, 4 or 8, so a
-// decode tick's groups of 1-4 rows spend no FMAs on absent rows): the
-// block's part rows for its 64 columns and reduction chunk, from the x
-// chunk in shared memory.
-template <int FMT, int R>
-__device__ __forceinline__ void gemv_rows(float* xs, int chunk, const uint8_t* __restrict__ q,
-                                          const float* __restrict__ scg, int F, int gs,
-                                          int grp_rows, int d0, int rows, int n0,
-                                          const RowTile& tile, float* __restrict__ out) {
-  const int tid = threadIdx.x;
-  const size_t eb = elt_bytes<FMT>();
-  const int lc = tid % kGTPR, rg = tid / kGTPR;
-  const int c = n0 + lc * 8;
-  const bool col_ok = c < F;
-  float acc[R][8];
-#pragma unroll
-  for (int b = 0; b < R; ++b)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[b][e] = 0.f;
+// The items of the grouped GEMV: (row group, split, column tile), the
+// tile fastest, so neighbouring blocks share the group's x rows and read
+// neighbouring columns of the same weight rows.
+struct GroupedGemv {
+  const __nv_bfloat16* x;
+  const float* sc;
+  const GroupRows* tab;
+  size_t mat_scales;              // one group's scales
+  const CUtensorMap* map;         // [E, K, F] in one-byte [32][128] or bf16 [32][64] boxes
+  int items, N, K, gs, splits, chunk, tiles;
+  static constexpr int parts = tcg::kWarps;   // each warp a part of the chunk
 
-  for (int g0 = 0; g0 < rows; g0 += grp_rows) {
-    float scale[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) scale[e] = 1.f;
-    if constexpr (FMT != kGBf16) {
-      if (col_ok) {
-        const int grp = (d0 + g0) / gs;
-        const float4 s0 = *reinterpret_cast<const float4*>(scg + size_t(grp) * F + c);
-        const float4 s1 = *reinterpret_cast<const float4*>(scg + size_t(grp) * F + c + 4);
-        scale[0] = s0.x, scale[1] = s0.y, scale[2] = s0.z, scale[3] = s0.w;
-        scale[4] = s1.x, scale[5] = s1.y, scale[6] = s1.z, scale[7] = s1.w;
-      }
-    }
-    const int grows = min(grp_rows, rows - g0);
-    const size_t row0 = size_t(d0 + g0);
-    for (int r = rg; r < grows; r += kGRG * kGUnroll) {
-      uint4 raw[kGUnroll];
-#pragma unroll
-      for (int u = 0; u < kGUnroll; ++u) {
-        const int rr = r + u * kGRG;
-        raw[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (col_ok && rr < grows) {
-          const uint8_t* p = q + ((row0 + rr) * F + c) * eb;
-          if constexpr (FMT == kGBf16) {
-            raw[u] = __ldg(reinterpret_cast<const uint4*>(p));
-          } else {
-            const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-            raw[u].x = v.x;
-            raw[u].y = v.y;
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kGUnroll; ++u) {
-        const int rr = r + u * kGRG;
-        if (rr < grows) {
-          float wv[8];
-          row_values<FMT>(raw[u], scale, wv);
-          const float* xr = xs + g0 + rr;
-#pragma unroll
-          for (int b = 0; b < R; ++b) {
-            const float xv = xr[b * chunk];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) acc[b][e] += xv * wv[e];
-          }
-        }
-      }
-    }
+  __device__ int units(int item) const {
+    return tcg::chunk_stages((item / tiles) % splits, chunk, K);
   }
+  __device__ tcg::Geo geo(int item, int lane, int) const {
+    const int rest = item / tiles, split = rest % splits;
+    const GroupRows t = tab[rest / splits];
+    tcg::Geo g;
+    g.s = sc == nullptr ? nullptr : sc + size_t(t.g) * mat_scales;
+    g.tile = item % tiles;
+    g.map = map;
+    g.c0 = g.tile * tcg::kTileCols;
+    g.batch = t.g;
+    g.col = g.tile * tcg::kTileCols + tcg::kLaneCols * (lane >> 2);
+    g.col_ok = g.col < N;
+    g.u0 = split * chunk / tcg::kStageRows;
+    g.row0 = t.row0;
+    g.rows = t.rows;
+    g.grp = rest / splits;
+    g.split = split;
+    return g;
+  }
+  __device__ tcg::RowsPlain rows_of(const tcg::Geo& g) const {
+    return {x + size_t(g.row0) * K, K, g.rows, K};
+  }
+  __device__ const float* fold_scales(const tcg::Geo&, int, int, int, int) const {
+    return nullptr;
+  }
+};
 
-  // the row groups of one warp share columns: fold them with shuffles,
-  // then the warps through shared memory
-#pragma unroll
-  for (int b = 0; b < R; ++b)
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-#pragma unroll
-      for (int o = kGTPR; o < 32; o <<= 1) acc[b][e] += __shfl_xor_sync(0xffffffffu, acc[b][e], o);
-  __syncthreads();   // every thread is done with the x chunk
-  float* red = xs;   // [warps][R][kGTN]
-  const int warp = tid / 32, lane = tid % 32;
-  if (lane < kGTPR) {
-#pragma unroll
-    for (int b = 0; b < R; ++b)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) red[(warp * R + b) * kGTN + lane * 8 + e] = acc[b][e];
-  }
-  __syncthreads();
-  for (int i = tid; i < tile.rows * kGTN; i += kGThreads) {
-    const int b = i / kGTN, cc = i % kGTN;
-    float sum = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kGThreads / 32; ++wp) sum += red[(wp * R + b) * kGTN + cc];
-    if (n0 + cc < F) out[size_t(tile.row0 + b) * F + n0 + cc] = sum;
-  }
-}
-
-// part[s, row, col] for the rows of one row tile, the block's 64 columns
-// and reduction chunk s. Quantized weights walk whole scale groups of gs
-// rows; bf16 weights take the chunk as one group with unit scales.
+// out [N, F] (bf16) of x [N, K] by group @ w [E, K, F]: every row group's
+// items, the weights widened as bf16(q * s) (bf16 weights as they are);
+// one split writes out, several write part [splits, N, F] and the last
+// block of each (row group, tile) adds them in split order. Rows past the
+// groups' sum are zeros.
 template <int FMT>
-__global__ void __launch_bounds__(kGThreads) grouped_gemv_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+__global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_grouped_kernel(
+    const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __restrict__ x,
     const float* __restrict__ sc, const int* __restrict__ group_sizes, int E, int N, int K,
-    int F, int gs, int chunk, float* __restrict__ part) {
-  __shared__ __align__(16) float xs[kGRows * kGChunk];   // x chunk; then the reduction
-  const RowTile tile = find_tile(group_sizes, E, N, kGRows, blockIdx.y);
-  if (tile.group == -2) return;
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kGTN;
-  const int s = blockIdx.z;
-  float* __restrict__ out = part + size_t(s) * N * F;
-  if (tile.group == -1) {    // rows past the groups: zero partials
-    for (int i = tid; i < tile.rows * kGTN; i += kGThreads) {
-      const int r = i / kGTN, c = n0 + i % kGTN;
-      if (c < F) out[size_t(tile.row0 + r) * F + c] = 0.f;
+    int F, int gs, int splits, int chunk, float* __restrict__ part, int* __restrict__ counters,
+    __nv_bfloat16* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const tcg::Smem sm = tcg::smem_layout(smem_raw);
+  float* red = sm.red;
+  int* flag = sm.meta;
+  int* meta = sm.meta + 1;   // row groups, rows in the groups
+  GroupRows* tab = reinterpret_cast<GroupRows*>(sm.tail);
+  if (threadIdx.x == 0) {
+    int off = 0, n = 0;
+    for (int g = 0; g < E; ++g) {
+      const int size = max(0, min(__ldg(group_sizes + g), N - off));
+      for (int r = 0; r < size; r += tcg::kRows) tab[n++] = {g, off + r, min(tcg::kRows, size - r)};
+      off += size;
     }
-    return;
-  }
-  const int d0 = s * chunk;
-  const int rows = min(K, d0 + chunk) - d0;
-  const size_t eb = elt_bytes<FMT>();
-  const uint8_t* __restrict__ q = w + size_t(tile.group) * K * F * eb;
-  const float* __restrict__ scg =
-      FMT == kGBf16 ? nullptr : sc + size_t(tile.group) * (K / gs) * F;
-  const int grp_rows = FMT == kGBf16 ? chunk : gs;
-
-  for (int i = tid; i < kGRows * chunk; i += kGThreads) {
-    const int b = i / chunk, d = i % chunk;
-    xs[i] = (b < tile.rows && d < rows)
-                ? __bfloat162float(x[size_t(tile.row0 + b) * K + d0 + d])
-                : 0.f;
+    meta[0] = n;
+    meta[1] = off;
   }
   __syncthreads();
-  // tile.rows is the same for the whole block
-  if (tile.rows <= 1)
-    gemv_rows<FMT, 1>(xs, chunk, q, scg, F, gs, grp_rows, d0, rows, n0, tile, out);
-  else if (tile.rows <= 2)
-    gemv_rows<FMT, 2>(xs, chunk, q, scg, F, gs, grp_rows, d0, rows, n0, tile, out);
-  else if (tile.rows <= 4)
-    gemv_rows<FMT, 4>(xs, chunk, q, scg, F, gs, grp_rows, d0, rows, n0, tile, out);
-  else
-    gemv_rows<FMT, kGRows>(xs, chunk, q, scg, F, gs, grp_rows, d0, rows, n0, tile, out);
-}
-
-// Sum of split partials [S, N, F] in split order, cast to bf16.
-__global__ void grouped_out_kernel(const float* __restrict__ part, int S, size_t NF,
-                                   __nv_bfloat16* __restrict__ out) {
-  const size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= NF) return;
-  float sum = 0.f;
-  for (int s = 0; s < S; ++s) sum += part[size_t(s) * NF + i];
-  out[i] = __float2bfloat16(sum);
+  const int tiles = (F + tcg::kTileCols - 1) / tcg::kTileCols;
+  const bool quant = FMT != tcg::kBf16;
+  const GroupedGemv p{x, quant ? sc : nullptr, tab, quant ? size_t(K / gs) * F : 0, &wmap,
+                      meta[0] * splits * tiles, F, K, quant ? gs : tcg::kStageRows, splits, chunk,
+                      tiles};
+  auto done = [&](int, const tcg::Geo& g, const float (&acc)[16][4]) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    __syncthreads();   // the last item's sums are read
+    tcg::write_red<FMT>(red, warp, lane, acc, g.rows);
+    __syncthreads();
+    const int n0 = g.tile * tcg::kTileCols, cells = g.rows * tcg::kTileCols;
+    if (splits == 1) {
+      for (int i = threadIdx.x; i < cells; i += tcg::kThreads) {
+        const int r = i / tcg::kTileCols, c = i % tcg::kTileCols;
+        if (n0 + c < F)
+          out[size_t(g.row0 + r) * F + n0 + c] = __float2bfloat16(tcg::red_sum(red, r, c));
+      }
+      return;
+    }
+    for (int i = threadIdx.x; i < cells; i += tcg::kThreads) {
+      const int r = i / tcg::kTileCols, c = i % tcg::kTileCols;
+      if (n0 + c < F)
+        part[(size_t(g.split) * N + g.row0 + r) * F + n0 + c] = tcg::red_sum(red, r, c);
+    }
+    if (!tcg::last_of_tile(counters + g.grp * tiles + g.tile, splits, flag)) return;
+    for (int i = threadIdx.x; i < cells; i += tcg::kThreads) {
+      const int r = i / tcg::kTileCols, c = i % tcg::kTileCols;
+      if (n0 + c >= F) continue;
+      float v = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < splits; ++s)
+        v += __ldcg(part + (size_t(s) * N + g.row0 + r) * F + n0 + c);
+      out[size_t(g.row0 + r) * F + n0 + c] = __float2bfloat16(v);
+    }
+  };
+  tcg::run<FMT, FMT != tcg::kBf16, false>(p, sm, [] {}, done);
+  const size_t past = size_t(N - meta[1]) * F;   // rows past the groups' sum
+  for (size_t i = size_t(blockIdx.x) * tcg::kThreads + threadIdx.x; i < past;
+       i += size_t(gridDim.x) * tcg::kThreads)
+    out[size_t(meta[1]) * F + i] = __float2bfloat16(0.f);
 }
 
 template <int FMT>
-cudaError_t launch_gemv(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* w,
-                        const float* sc, const int* sizes, __nv_bfloat16* out, float* part,
-                        int N, int K, int F, int E, int gs, int splits, int chunk) {
-  const dim3 grid((F + kGTN - 1) / kGTN, (N + kGRows - 1) / kGRows + E, splits);
-  grouped_gemv_kernel<FMT><<<grid, kGThreads, 0, s>>>(x, w, sc, sizes, E, N, K, F, gs, chunk,
-                                                      part);
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch_decode_gemv(cudaStream_t s, const __nv_bfloat16* x, const uint8_t* w,
+                            const float* sc, const int* sizes, __nv_bfloat16* out, float* part,
+                            int* counters, int N, int K, int F, int E, int gs, int splits,
+                            int chunk, int blocks) {
+  const int smem = tcg::kSmemBytes + row_groups_max(E, N) * int(sizeof(GroupRows));
+  if (smem > tcg::kSmemLimit) return cudaErrorInvalidValue;
+  constexpr bool bf16 = FMT == kGBf16;
+  CUtensorMap wmap;
+  cudaError_t err = tcg::box_map(&wmap, w, bf16, E, K, F, tcg::kStageRows, bf16 ? 64 : 128);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mma_gemv_grouped_kernel<FMT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const size_t NF = size_t(N) * F;
-  grouped_out_kernel<<<unsigned((NF + 255) / 256), 256, 0, s>>>(part, splits, NF, out);
+  mma_gemv_grouped_kernel<FMT><<<blocks, tcg::kThreads, smem, s>>>(
+      wmap, x, sc, sizes, E, N, K, F, gs, splits, chunk, part, counters, out);
   return cudaGetLastError();
 }
 
@@ -591,7 +540,7 @@ __global__ void __launch_bounds__(kWgBlockThreads, 1) wg_tgmm_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The quantized forward (int8, e4m3 weights; N > kGemvMaxN): wg_gmm_kernel's
+// The quantized forward (int8, e4m3 weights; past the GEMV's rows): wg_gmm_kernel's
 // consumers over weight tiles widened in shared memory
 // ---------------------------------------------------------------------------
 
@@ -700,24 +649,28 @@ const char* sxt_grouped_error_string(int err) {
 // out [N, F] bf16 = the grouped product of x [N, K] bf16 (rows sorted by
 // group) with the E weights w of format fmt (0 int8, 2 e4m3: q [E, K, F]
 // and scales [E, K/gs, F]; 3 bf16: w [E, K, F], scales unused), by
-// group_sizes [E] int32 on the device. N <= 16 runs the split-K GEMV over
-// `splits` chunks of `chunk` rows (whole scale groups, <= 1024 rows) with
-// f32 partials in part [splits, N, F]; larger N the wgmma kernels (bf16:
+// group_sizes [E] int32 on the device. N <= gemv_max_n runs the tensor-core
+// GEMV (mma_gemv.cuh) on `blocks` persistent blocks over `splits` chunks of
+// `chunk` rows (whole scale groups; bf16: multiples of 32); with several
+// splits, f32 partials in part [splits, N, F] and counters
+// [(min(E, N) + N / 16) * ceil(F / 128)] int32, zero between calls (the
+// kernel leaves them zero). Larger N runs the wgmma kernels (bf16:
 // wg_gmm_kernel, int8 / e4m3: wg_qgmm_kernel). Needs K % 8 == 0, F % 16 ==
 // 0 (bf16: F % 8 == 0), 16-byte aligned bases and, quantized, K % gs == 0
 // and gs % 32 == 0.
 int sxt_grouped_matmul_bf16(const void* x, const void* w, const void* scales,
                             const void* group_sizes, void* out, void* part, int N, int K, int F,
-                            int E, int gs, int fmt, int splits, int chunk, void* stream) {
+                            int E, int gs, int fmt, int splits, int chunk, void* counters,
+                            int blocks, int gemv_max_n, void* stream) {
   if (N <= 0 || F <= 0) return 0;
   const bool quant = fmt == kQInt8 || fmt == kQFp8;
   if ((!quant && fmt != kGBf16) || E < 1 || K < 1 || K % 8 || F % (quant ? 16 : 8) ||
       (quant && (gs < 32 || gs % 32 || K % gs)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (N <= kGemvMaxN &&
-      (part == nullptr || splits < 1 || chunk < 1 || chunk > kGChunk ||
-       (quant && chunk % gs) || (long long)splits * chunk < K ||
-       (long long)(splits - 1) * chunk >= K))
+  const bool gemv = N <= gemv_max_n;
+  if (gemv && (splits < 1 || chunk < 1 || chunk % (quant ? gs : tcg::kStageRows) ||
+               (long long)splits * chunk < K || (long long)(splits - 1) * chunk >= K ||
+               blocks < 1 || (splits > 1 && (part == nullptr || counters == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
@@ -726,14 +679,18 @@ int sxt_grouped_matmul_bf16(const void* x, const void* w, const void* scales,
   const auto* gp = static_cast<const int*>(group_sizes);
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* pp = static_cast<float*>(part);
+  auto* cp = static_cast<int*>(counters);
   cudaError_t err;
-  if (N <= kGemvMaxN) {
+  if (gemv) {
     if (fmt == kQInt8)
-      err = launch_gemv<kQInt8>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
+      err = launch_decode_gemv<kQInt8>(s, xp, wp, sp, gp, op, pp, cp, N, K, F, E, gs, splits, chunk,
+                                    blocks);
     else if (fmt == kQFp8)
-      err = launch_gemv<kQFp8>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
+      err = launch_decode_gemv<kQFp8>(s, xp, wp, sp, gp, op, pp, cp, N, K, F, E, gs, splits, chunk,
+                                   blocks);
     else
-      err = launch_gemv<kGBf16>(s, xp, wp, sp, gp, op, pp, N, K, F, E, gs, splits, chunk);
+      err = launch_decode_gemv<kGBf16>(s, xp, wp, sp, gp, op, pp, cp, N, K, F, E, gs, splits, chunk,
+                                    blocks);
   } else if (fmt == kQInt8) {
     err = launch_qgmm<kQInt8>(s, x, w, scales, gp, op, N, K, F, E, gs);
   } else if (fmt == kQFp8) {

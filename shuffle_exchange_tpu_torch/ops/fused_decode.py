@@ -59,7 +59,8 @@ import torch.nn.functional as F
 from .dispatch import use_kernel
 from .paged_attention import (HEAD_DIM_LATER, HEAD_DIMS, _alibi_bias, _sms, alibi_operand,
                               decode_splits, gather_kv, pool_kind, scale_kw, scales_given)
-from .quant_matmul import QuantizedMatrix, check_storage, quant_splits
+from . import decode_gemv
+from .quant_matmul import QuantizedMatrix, check_storage
 
 _NEG = -1e30     # the TPU kernels' finite mask sentinel
 
@@ -397,7 +398,7 @@ _SIGNATURES = {
     "sxt_fused_qkv_rope_bf16": [_P] * 17 + [_I] * 10 + [_P],
     "sxt_fused_paged_decode": [_P] * 13 + [_I] * 8 + [_F, _P],
     "sxt_fused_mlp_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
-    "sxt_fused_mlp_quant_bf16": [_P] * 15 + [_I] * 11 + [_F, _P],
+    "sxt_fused_mlp_quant_bf16": [_P] * 15 + [_I] * 13 + [_F, _P],
 }
 _LIB = []
 
@@ -456,8 +457,9 @@ def attention_splits(B: int, KV: int, width: int, bs: int, sms: int) -> int:
 #: BLOOM-1b7's 16-32 kv heads in 8 splits).
 FOLD_MAX_PARTIALS = 16384
 FOLD_MAX_BLOCKS_PER_SM = 4
-#: the counters of the folded merge, one int32 a (sequence, kv head), zero
-#: between calls, kept per (device, stream)
+#: the counters of the folded merges (B5's, one int32 a (sequence, kv head);
+#: the decode-row GEMV's, one a column tile of B7 and B16), zero between
+#: calls (the kernels leave them so), kept per (device, stream)
 _COUNTERS = {}
 
 
@@ -653,6 +655,23 @@ def _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, b_up, b_
     return out
 
 
+def mlp_quant_plan(D: int, F: int, gs: int, gated: bool, rows: int, elt_bytes: float,
+                   sms: int) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
+    """((splits, chunk, blocks) of the up GEMV, (...) of the down GEMV) of
+    B7 for a pass of ``rows`` rows (``decode_gemv.plan``): the up GEMV's
+    items are 128 columns of w_up (gated: and of w_gate, twice the bytes)
+    over K = D, the down GEMV's 128 columns of D over K = F."""
+    up_tiles = -(-F // decode_gemv.TILE_COLS)
+    down_tiles = -(-D // decode_gemv.TILE_COLS)
+    out = []
+    for K, tiles, n_out, elt in ((D, up_tiles, (2 if gated else 1) * F,
+                                  (2 if gated else 1) * elt_bytes),
+                                 (F, down_tiles, D, elt_bytes)):
+        splits, chunk = decode_gemv.plan(K, gs, tiles, 1, rows, n_out, elt, sms)
+        out.append((splits, chunk, decode_gemv.blocks(tiles * splits, sms)))
+    return out[0], out[1]
+
+
 def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, norm,
                       activation, apply_norm=True):
     dev = resid.device
@@ -668,29 +687,33 @@ def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, no
         check_storage("fused quantized MLP kernel: w_gate", w_gate, dev, D, Fd)
     check_storage("fused quantized MLP kernel: w_down", w_down, dev, Fd, D)
     gs = w_up.group_size
-    rows = min(B, GEMV_ROWS)
-    sms = _sms(dev)
-    s1, c1 = quant_splits(D, gs, (Fd, Fd) if gated else (Fd,), sms)
-    s2, c2 = quant_splits(Fd, gs, (D,), sms)
+    rows = min(B, decode_gemv.PASS_ROWS)
+    (s1, c1, b1), (s2, c2, b2) = mlp_quant_plan(D, Fd, gs, gated, rows,
+                                                0.5 if w_up.bits == 4 else 1, _sms(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(resid)
-    yn = torch.empty(rows, D, device=dev, dtype=resid.dtype)
     a = torch.empty(rows, Fd, device=dev, dtype=resid.dtype)
-    part1 = torch.empty(s1, rows, (2 if gated else 1) * Fd, device=dev, dtype=torch.float32)
-    part2 = torch.empty(s2, rows, D, device=dev, dtype=torch.float32)
+    part1 = (torch.empty(s1, rows, (2 if gated else 1) * Fd, device=dev, dtype=torch.float32)
+             if s1 > 1 else None)
+    part2 = torch.empty(s2, rows, D, device=dev, dtype=torch.float32) if s2 > 1 else None
+    counters = None
+    if s1 > 1 or s2 > 1:
+        counters = _counters(dev, stream, max(-(-Fd // 128), -(-D // 128)))
     gate = (w_gate.q.data_ptr(), w_gate.scales.data_ptr()) if gated else (None, None)
     lib = _lib()
     err = lib.sxt_fused_mlp_quant_bf16(
         resid.data_ptr(), y_src.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), *gate,
         w_up.q.data_ptr(), w_up.scales.data_ptr(), w_down.q.data_ptr(),
-        w_down.scales.data_ptr(), out.data_ptr(), yn.data_ptr(), a.data_ptr(),
-        part1.data_ptr(), part2.data_ptr(), B, D, Fd, gs, fmt, s1, c1, s2, c2,
+        w_down.scales.data_ptr(), out.data_ptr(), a.data_ptr(), _ptr(part1), _ptr(part2),
+        _ptr(counters), B, D, Fd, gs, fmt, s1, c1, s2, c2, b1, b2,
         _NORM_CODES[norm] if apply_norm else _NO_NORM, _ACT_CODES[activation], float(eps),
-        torch.cuda.current_stream(dev).cuda_stream)
+        stream)
     _raise_on(err, lib, "quantized MLP")
     return out
 
 
 __all__ = ["FUSABLE_ACTIVATIONS", "fused_mlp", "fused_mlp_quant", "fused_mlp_quant_reference", "fused_mlp_reference",
            "folds", "fused_paged_decode_attention", "fused_paged_decode_reference", "fused_qkv_rope",
-           "fused_qkv_rope_reference", "gemv_splits", "attention_splits", "mlp_weights_fusable",
+           "fused_qkv_rope_reference", "gemv_splits", "attention_splits", "mlp_quant_plan",
+           "mlp_weights_fusable",
            "split_count", "rope_heads"]

@@ -11,10 +11,13 @@ as JAX dequantizes the stack before its megablox ``gmm``).
 
 On the card ``grouped_matmul`` launches the hand-written kernels of
 ``ops/csrc/grouped_gemm.cu`` (whose header says what bounds them on the
-H100 and how their designs answer it): a split-K GEMV at 16 rows or fewer,
-above that a warp-specialised ``wgmma`` kernel over TMA-fed tiles (``dx``
-and ``dw`` too), whose producer warps widen int8 / e4m3 expert tiles to
-bf16 in shared memory as they arrive. It replaces the TPU's
+H100 and how their designs answer it): up to ``GEMV_MAX_N`` rows (64 over
+int8 / e4m3 stacks, 32 over bf16: a decode tick's and small chunks') the
+tensor-core GEMV of ``ops/csrc/mma_gemv.cuh`` (shared with B7; its work
+plan in ``ops/decode_gemv.py``), above that a warp-specialised
+``wgmma`` kernel over TMA-fed tiles (``dx`` and ``dw`` too), whose producer
+warps widen int8 / e4m3 expert tiles to bf16 in shared memory as they
+arrive. It replaces the TPU's
 ``_grouped_matmul_gmm``; unlike the JAX route, which sends shapes the TPU
 tiling does not take to ``ragged_dot``, every shape the port's models have
 goes to the kernel. The kernel reads int8 / fp8 experts at storage width
@@ -42,13 +45,14 @@ trains no quantized experts.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
+from . import decode_gemv
 from .dispatch import resolve_grouped_gemm
-from .quant_matmul import FP8, QuantizedMatrix
+from .fused_decode import _counters
+from .quant_matmul import FP8, QuantizedMatrix, _sms
 
 
 def _dense_stack(w, dtype: torch.dtype) -> torch.Tensor:
@@ -211,8 +215,12 @@ grouped_matmul_dw.launches = 0
 # Launch
 # ---------------------------------------------------------------------------
 
-GEMV_MAX_N = 16      # total rows up to which the split-K GEMV form runs
-GEMV_CHUNK = 1024    # reduction rows per GEMV block, at most
+#: total rows up to which the tensor-core GEMV runs, by weight format (the
+#: wgmma forms past them). On the H100 the GEMV beat the wgmma forms at 32
+#: and 64 ragged rows over Mixtral's experts in int8 and e4m3 (2-3x), and in
+#: bf16 at 32 rows but not at 64 (scripts/torch_kernel_digest.py --sections
+#: decode_gemv)
+GEMV_MAX_N = {"bf16": 32, 8: 64, "fp8": 64}
 #: the kernel's codes for the weight formats it takes
 FORMATS = {8: 0, "fp8": 2, "bf16": 3}
 
@@ -225,7 +233,7 @@ def _lib():
         from . import _build
 
         lib = _build.load("grouped_gemm")
-        lib.sxt_grouped_matmul_bf16.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+        lib.sxt_grouped_matmul_bf16.argtypes = [_P] * 6 + [_I] * 8 + [_P] + [_I] * 2 + [_P]
         lib.sxt_grouped_matmul_bf16.restype = ctypes.c_int
         lib.sxt_grouped_matmul_dx_bf16.argtypes = [_P] * 4 + [_I] * 4 + [_P]
         lib.sxt_grouped_matmul_dx_bf16.restype = ctypes.c_int
@@ -237,14 +245,23 @@ def _lib():
     return _LIB[0]
 
 
-@functools.lru_cache(None)
-def gemv_split(K: int, gs: int) -> Tuple[int, int]:
-    """(splits, chunk) of the GEMV form's reduction over K rows: chunks of
-    whole scale groups of ``gs`` rows (bf16 weights: gs = 8), at most
-    GEMV_CHUNK rows each."""
-    per = max(1, GEMV_CHUNK // gs) * gs
-    chunk = min(per, -(-K // gs) * gs)
-    return -(-K // chunk), chunk
+def row_groups(E: int, N: int) -> int:
+    """The GEMV's row groups at most (mma_gemv_grouped_kernel's table):
+    each group with rows, one more for every 16 of N."""
+    return min(E, N) + N // decode_gemv.PASS_ROWS
+
+
+def gemv_split(K: int, gs: int, F: int, E: int, N: int, elt_bytes: float,
+               sms: int) -> Tuple[int, int]:
+    """(splits, chunk) of the GEMV for N rows on E groups of [K, F] weights
+    of ``elt_bytes`` a value, the reduction over K rows in chunks of whole
+    scale groups of ``gs`` rows (bf16 weights: gs = 8, whole 32-row
+    stages): ``decode_gemv.plan`` over the groups a call can hit, min(E, N)
+    (one more for every 16 rows past the first 16)."""
+    unit = gs if elt_bytes == 1 else decode_gemv.STAGE_ROWS
+    groups = min(E, N) + (N - 1) // decode_gemv.PASS_ROWS
+    return decode_gemv.plan(K, unit, -(-F // decode_gemv.TILE_COLS), groups, N, F, elt_bytes,
+                            sms)
 
 
 def _weight_operands(w, device, K: int, F: int):
@@ -291,15 +308,24 @@ def _launch(x: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
     out = torch.empty(N, F, device=dev, dtype=torch.bfloat16)
     if N == 0 or F == 0:
         return out
-    splits, chunk, part = 1, K, None
-    if N <= GEMV_MAX_N:
-        splits, chunk = gemv_split(K, gs)
-        part = torch.empty(splits, N, F, device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gemv_max_n = GEMV_MAX_N["bf16" if fmt == FORMATS["bf16"] else w.bits]
+    splits, chunk, part, counters, blocks = 1, K, None, None, 0
+    if N <= gemv_max_n:
+        sms = _sms(dev.index if dev.index is not None else torch.cuda.current_device())
+        elt = 2 if fmt == FORMATS["bf16"] else 1
+        splits, chunk = gemv_split(K, gs, F, E, N, elt, sms)
+        tiles = -(-F // decode_gemv.TILE_COLS)
+        blocks = decode_gemv.blocks(row_groups(E, N) * tiles * splits, sms)
+        if splits > 1:
+            part = torch.empty(splits, N, F, device=dev, dtype=torch.float32)
+            counters = _counters(dev, stream, row_groups(E, N) * tiles)
     lib = _lib()
     _raise_on(lib, lib.sxt_grouped_matmul_bf16(
         x.data_ptr(), wp, sp, sizes.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), N, K, F, E, gs, fmt, splits, chunk,
-        torch.cuda.current_stream(dev).cuda_stream), "grouped_matmul")
+        None if counters is None else counters.data_ptr(), blocks, gemv_max_n, stream),
+        "grouped_matmul")
     return out
 
 

@@ -450,7 +450,7 @@ def recorded(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("N", [17, 300])
+@pytest.mark.parametrize("N", [33, 300])
 def test_wrappers_hand_the_c_entry_points_operands_shapes_and_form(recorded, N):
     K, F = 136, 264
     x = torch.zeros(N, K, dtype=torch.bfloat16)
@@ -459,8 +459,8 @@ def test_wrappers_hand_the_c_entry_points_operands_shapes_and_form(recorded, N):
     sizes = torch.tensor(group_sizes("ragged", N, np.random.default_rng(0)))
     out = gg._launch(x, w, sizes)
     args = recorded.pop("sxt_grouped_matmul_bf16")
-    # x, w, no scales, sizes, out, no partials (N > 16: the wgmma kernel), the
-    # shapes, bf16 (code 3), one split over K
+    # x, w, no scales, sizes, out, no partials (past GEMV_MAX_N's 32 bf16 rows:
+    # the wgmma kernel), the shapes, bf16 (code 3), one split over K
     assert args[:6] == (x.data_ptr(), w.data_ptr(), None, sizes.data_ptr(), out.data_ptr(), None)
     assert args[6:14] == (N, K, F, E, 8, gg.FORMATS["bf16"], 1, K)
     assert out.shape == (N, F) and out.dtype == torch.bfloat16
@@ -759,10 +759,12 @@ def test_a_mirror_reading_only_the_first_scale_row_misses_jax(fmt):
 
 @pytest.mark.parametrize("fmt", [8, "fp8"])
 @pytest.mark.parametrize("N", [17, 300])
-def test_wrapper_hands_the_quantized_form_its_storage(recorded, fmt, N):
-    """Past 16 rows a quantized stack goes to the kernel as its storage: q
-    and the f32 scales, the group size and the format code, one split over
-    K and no partials (the GEMV's)."""
+def test_wrapper_hands_the_quantized_form_its_storage(recorded, monkeypatch, fmt, N):
+    """A quantized stack goes to the kernel as its storage: q and the f32
+    scales, the group size and the format code; past GEMV_MAX_N's 64 rows
+    one split over K and no partials, up to them the GEMV's plan."""
+    monkeypatch.setattr(gg, "_sms", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     K, F = 192, 272
     w = tqm.quantize_weight(torch.randn(E, K, F), 64, bits=fmt).to(None, torch.bfloat16)
     x = torch.zeros(N, K, dtype=torch.bfloat16)
@@ -772,8 +774,8 @@ def test_wrapper_hands_the_quantized_form_its_storage(recorded, fmt, N):
     assert args[:5] == (x.data_ptr(), w.q.data_ptr(), w.scales.data_ptr(), sizes.data_ptr(),
                         out.data_ptr())
     assert args[6:12] == (N, K, F, E, 64, gg.FORMATS[fmt])
-    if N > gg.GEMV_MAX_N:
+    if N > gg.GEMV_MAX_N[fmt]:
         assert args[5] is None and args[12:14] == (1, K)
     else:
-        assert args[5] is not None and args[12:14] == gg.gemv_split(K, 64)
+        assert args[12:14] == gg.gemv_split(K, 64, F, E, N, 1, 132)
     assert not recorded

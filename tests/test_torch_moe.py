@@ -212,10 +212,14 @@ def test_kernel_operands_refuse_what_the_kernel_does_not_take(w, err, match):
 
 
 def test_gemv_split_covers_k_in_whole_groups():
-    for K, gs in ((4096, 256), (14336, 256), (64, 32), (72, 8)):
-        splits, chunk = tgg.gemv_split(K, gs)
-        assert chunk % gs == 0 and chunk <= tgg.GEMV_CHUNK
-        assert splits * chunk >= K > (splits - 1) * chunk
+    """The decode-row GEMV's plan (``gemv_split``: splits, chunk) cuts K
+    into whole scale groups (bf16 weights: gs 8, whole 32-row stages) and
+    covers it once."""
+    for K, gs, elt in ((4096, 256, 1), (14336, 256, 1), (64, 32, 1), (72, 8, 2)):
+        for F, E, N in ((14336, 8, 16), (4096, 8, 2), (64, 4, 3)):
+            splits, chunk = tgg.gemv_split(K, gs, F, E, N, elt, 132)
+            assert chunk % (gs if elt == 1 else 32) == 0
+            assert splits * chunk >= K > (splits - 1) * chunk
 
 
 # ---------------------------------------------------------------------------
