@@ -37,9 +37,16 @@ of forms a tree does not build (head dims 80 and 96, the backward at 256,
 ranks above 64) run only where it builds them, after the others, so both
 trees give the common cells the same inputs. ``--sections`` picks some of
 them (``flash alibi grouped quant paged lora sweeps moe_train alibi_train
-decode_gemv``; ``decode_gemv`` times B16's decode rows and B7 on the
-tensor-core GEMV of ``ops/csrc/mma_gemv.cuh``, and, where the tree has its
-plan, B16 at 32 and 64 rows on the GEMV beside the wgmma forms;
+decode_gemv gemv_plan``; ``decode_gemv`` times B16's decode rows, B7, B6
+and B8's decode rows on the tensor-core GEMV of ``ops/csrc/mma_gemv.cuh``
+(B6 beside the cuBLAS sequence it replaces and over many draws against
+its plain version and the f64 function, B8 beside dequantize +
+``torch.matmul``), and, where the tree has the plans, B16 at 32 and 64 rows
+and B8 at 8-64 rows on the GEMV beside the wgmma forms, and whether
+PyTorch's CUDA mean of x^2 equals B6's statistics order bit for bit;
+``b6_b8`` runs only B6's and B8's part of it; ``gemv_plan``
+times the GEMV's cells at every split count (one tree: the plan replaced
+for the call);
 ``sweeps`` times the cells ``chip_smoke.py`` checks but does not time;
 ``moe_train`` runs the chip smoke test's phase 5b, the _config3 MoE
 training steps, and ``alibi_train`` its phase 5c, BLOOM-1b7's training
@@ -164,7 +171,7 @@ QUANT_PREFILL_ROWS = 8192   # B8's prefill cells: a put() of 8 prompts padded to
 QUANT_CHUNK_ROWS = 256      # and its chunk cells: a tick's 256-token budget
 QUANT_FEW_ROWS = 64         # and a tick of few rows past the GEMV's (B8's short tile)
 SECTIONS = ("flash", "alibi", "grouped", "quant", "paged", "lora", "sweeps", "moe_train",
-            "alibi_train", "decode_gemv")
+            "alibi_train", "decode_gemv", "b6_b8", "gemv_plan")
 
 
 def gemv_rows(gg) -> int:
@@ -613,23 +620,40 @@ DG_B7_ROWS = (1, 8, 16)
 DG_WIDE_ROWS = (32, 64)
 
 
+def b16_draws(seed, has_plan=True) -> dict:
+    """The group sizes decode_gemv_cells draws for each (K, F, fmt, N,
+    pattern) cell, replayed from its generator (the split sweep times the
+    same cells)."""
+    import numpy as np
+
+    from chip_smoke import GG_PATTERNS, group_pattern
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for K, F_ in ((4096, 14336), (14336, 4096)):
+        for fmt in ("bf16", 8, "fp8"):
+            for N in DG_B16_ROWS + (DG_WIDE_ROWS if has_plan else ()):
+                for pattern in (GG_PATTERNS if N in DG_B16_ROWS else ("ragged",)):
+                    out[(K, F_, fmt, N, pattern)] = group_pattern(pattern, N, 8, rng)
+    return out
+
+
 def decode_gemv_cells(gen, seed) -> dict:
     """The ``decode_gemv`` cells: a digest and the mean cold-L2 time of
     each, held to its plain version (B16: PAGED_TOL per row; B7:
     QUANT_MLP_TOL) with equal bits twice; the ragged B16 cells and the
     B7 cells beside their bounds and library yardsticks (torch._grouped_mm,
     dequantize + torch._grouped_mm, dequantize + the cuBLAS sequence)."""
-    import numpy as np
     import torch
     import torch.nn.functional as F
 
     from chip_smoke import (GG_PATTERNS, MQ_WIDTHS, _f32_reduction, _library_grouped, bound,
-                            group_pattern, mlp_quant_cells, paged_close, quant_mlp_close)
+                            mlp_quant_cells, paged_close, quant_mlp_close)
 
     gg, qmm, fd = (importlib.import_module(f"shuffle_exchange_tpu_torch.ops.{m}") for m in
                    ("grouped_gemm", "quant_matmul", "fused_decode"))
     has_plan = importlib.util.find_spec("shuffle_exchange_tpu_torch.ops.decode_gemv") is not None
-    rng = np.random.default_rng(seed)
+    draws = b16_draws(seed, has_plan)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
@@ -652,7 +676,7 @@ def decode_gemv_cells(gen, seed) -> dict:
                 for N in rows:
                     x = randn(N, K)
                     for pattern in (GG_PATTERNS if N in DG_B16_ROWS else ("ragged",)):
-                        sizes_np = group_pattern(pattern, N, 8, rng)
+                        sizes_np = draws[(K, F_, fmt, N, pattern)]
                         sizes = torch.from_numpy(sizes_np).cuda()
                         fn = lambda: gg.grouped_matmul(x, w, sizes)
                         plain = lambda: gg.grouped_matmul_reference(x, w, sizes)
@@ -722,6 +746,338 @@ def decode_gemv_cells(gen, seed) -> dict:
                 cells[key] = row
         made.clear()
     torch.cuda.empty_cache()
+    return cells
+
+
+# B6 (the bf16 fused MLP) and B8's decode rows, on the tensor-core GEMV
+# where the tree has moved them there: B6 as the engines call it (resid and
+# y_src the same rows) at Llama-3-8B's widths (gated, RMSNorm, 1 / 8 / 16
+# rows), GPT-J-6B's without its norm (plain gelu_new, fc biases, 8 rows) and
+# Phi-3-mini's (gated, RMSNorm, 8 rows), each beside the cuBLAS sequence it
+# replaces; B8 at 8 rows over Llama-3-8B's four attention matrices (wq, wk,
+# wv, wo: "a layer") and w_gate in each format at group 256, beside
+# dequantize + torch.matmul; and, where the tree has B8's GEMV plan, B8 at
+# 9-64 rows on the GEMV (GEMV_ROWS raised for the call, ``gemv_ms``) and on
+# the wgmma short tile (``wgmma_ms``) over w_gate, wq, wk and w_down
+B6_CELLS = [("llama-3-8b", 4096, 14336, True, "rmsnorm", "swiglu", False, (1, 8, 16)),
+            ("gpt-j-6b no norm", 4096, 16384, False, None, "gelu_new", True, (8,)),
+            ("phi-3-mini", 3072, 8192, True, "rmsnorm", "swiglu", False, (8,))]
+B6_DRAWS = 40
+B8_ATTN = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
+           "w_gate": (4096, 14336)}
+B8_BOUNDARY_ROWS = (8, 9, 16, 32, 64)
+B8_BOUNDARY_SHAPES = {"w_gate": (4096, 14336), "wq": (4096, 4096), "wk": (4096, 1024),
+                      "w_down": (14336, 4096)}
+
+
+def b6_f64(h, ln_w, wg, wu, wd, eps=1e-5):
+    """B6's gated RMSNorm form in f64 with its bf16 rounding points (yn and
+    a rounded to bf16, one cast at the end): the function both the kernel
+    and the f32 plain version approximate."""
+    import torch
+    import torch.nn.functional as F
+
+    x = h.double()
+    yn = (x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * ln_w.double()).bfloat16()
+    yn = yn.double()
+    a = (F.silu(yn @ wg.double()) * (yn @ wu.double())).bfloat16().double()
+    return (x + a @ wd.double()).bfloat16()
+
+
+# (rows, D) of the statistics-order cells: the widths B6 serves
+B6_ORDER_SHAPES = [(r, D) for D in (4096, 3072, 2560, 2048, 768) for r in (1, 2, 4, 8, 16, 20)]
+
+
+def rows_tree(rows: int, D: int) -> int:
+    """fused_decode.cu's rows_tree: PyTorch's threads a row in its CUDA
+    reduction of [rows, D] f32 over D."""
+    h = w = 1
+    while 2 * h <= rows and h < 16:
+        h *= 2
+    while 2 * w <= D // 4:
+        w *= 2
+    return max(min(w, 512 // h), 32)
+
+
+def sumsq_mean_kernel_order(x):
+    """mean(x^2) over each row of x [rows, D] (bf16 values, numpy f32) in
+    the order of fused_decode.cu's rms_stats_torch_order: thread t of tree
+    adds 4-element loads t, t + tree, ... into 4 accumulators, then the 4
+    in order; threads t and t + h add for h = tree / 2 ... 32; shuffles down
+    by 16 ... 1 (lane l + o past 31 adds itself); times fl(1 / D)."""
+    import numpy as np
+
+    rows, D = x.shape
+    tree = rows_tree(rows, D)
+    n4 = D // 4
+    loads = -(-n4 // tree) * tree
+    sq = np.zeros((rows, loads * 4), np.float32)
+    sq[:, :D] = x * x
+    sq = sq.reshape(rows, loads // tree, tree, 4)
+    acc = np.zeros((rows, tree, 4), np.float32)
+    for i in range(sq.shape[1]):
+        acc = acc + sq[:, i]
+    v = ((acc[..., 0] + acc[..., 1]) + acc[..., 2]) + acc[..., 3]
+    h = tree // 2
+    while h >= 32:
+        v = np.concatenate([v[:, :h] + v[:, h:2 * h], v[:, h:]], axis=1)
+        h //= 2
+    v = v[:, :32]
+    for o in (16, 8, 4, 2, 1):
+        v = v + np.concatenate([v[:, o:], v[:, 32 - o:]], axis=1)
+    return v[:, 0] * np.float32(1.0 / D)
+
+
+def b6_order_cells(gen) -> dict:
+    """Whether PyTorch's CUDA ``(x * x).mean(-1)`` (the plain version's RMSNorm
+    statistic) equals, bit for bit, the sum in B6's kernel order
+    (sumsq_mean_kernel_order) and the f64 sum rounded once, row by row, at
+    B6_ORDER_SHAPES."""
+    import numpy as np
+    import torch
+
+    cells = {}
+    for rows, D in B6_ORDER_SHAPES:
+        x = torch.randn(rows, D, generator=gen, device="cuda").bfloat16()
+        xf = x.float()
+        torch_mean = (xf * xf).mean(-1).cpu().numpy()
+        xn = xf.cpu().numpy()
+        f64 = ((xn.astype(np.float64) ** 2).sum(-1) / D).astype(np.float32)
+        cells[f"B6 statistics order {rows}x{D}"] = dict(
+            tree=rows_tree(rows, D), rows=rows,
+            kernel_order_equal=int((sumsq_mean_kernel_order(xn) == torch_mean).sum()),
+            f64_equal=int((f64 == torch_mean).sum()))
+    return cells
+
+
+def b6_draws(kernel, plain, exact, draw) -> dict:
+    """Over B6_DRAWS draws: how often (and how far, the largest ratio) the
+    kernel against the plain version, the kernel against the f64 function
+    and the plain version against it are beyond PAGED_TOL, and the kernel
+    against the plain version beyond QUANT_MLP_TOL."""
+    def ratio(got, want, rms_share):
+        got, want = got.float(), want.float()
+        rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+        return ((got - want).abs() / (2 ** -7 * want.abs() + rms_share * rms)).max().item()
+
+    pairs = {"kernel_vs_plain": [], "kernel_vs_f64": [], "plain_vs_f64": [],
+             "kernel_vs_plain_quant_mlp_tol": []}
+    for _ in range(B6_DRAWS):
+        h = draw()
+        got, want, f64 = kernel(h), plain(h), exact(h)
+        pairs["kernel_vs_plain"].append(ratio(got, want, 1e-3))
+        pairs["kernel_vs_f64"].append(ratio(got, f64, 1e-3))
+        pairs["plain_vs_f64"].append(ratio(want, f64, 1e-3))
+        pairs["kernel_vs_plain_quant_mlp_tol"].append(ratio(got, want, 2 ** -7))
+    return {k: dict(beyond=sum(r > 1 for r in v), max=max(v)) for k, v in pairs.items()}
+
+
+def b6_b8_cells(gen) -> dict:
+    """B6 and B8's decode-row cells (above): a digest and the mean cold-L2
+    time of each, held to its plain version (PAGED_TOL, as the chip smoke
+    test holds them; B6's no-norm form QUANT_MLP_TOL) with equal bits twice,
+    beside its bound and yardstick; and B6's gated forms over B6_DRAWS
+    draws of 8 and 16 rows each against the f32 plain version and the f64
+    function (b6_draws)."""
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import _f32_reduction, bound, paged_close, quant_mlp_close
+
+    qmm, fd = (importlib.import_module(f"shuffle_exchange_tpu_torch.ops.{m}") for m in
+               ("quant_matmul", "fused_decode"))
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    def held(fn, plain, close):
+        out = fn()
+        err, ok = close(out, plain())
+        return dict(digest=digest([out]), max_abs_err=err.max().item(), within=ok,
+                    equal_bits_twice=digest([fn()]) == digest([out]))
+
+    cells = {}
+    with _f32_reduction():
+        for label, D, Fd, gated, norm, act, biased, rows in B6_CELLS:
+            wg = randn(D, Fd, scale=D ** -0.5) if gated else None
+            wu, wd = randn(D, Fd, scale=D ** -0.5), randn(Fd, D, scale=Fd ** -0.5)
+            ln_w = (1 + randn(D, scale=0.1).float()).bfloat16()
+            bias = dict(b_up=randn(Fd, scale=0.5), b_down=randn(D, scale=0.5)) if biased else {}
+            kw = dict(norm=norm or "layernorm", activation=act, apply_norm=norm is not None,
+                      **bias)
+            for B in rows:
+                h = randn(B, D)
+                fn = lambda: fd.fused_mlp(h, h, ln_w, wu, wd, wg, eps=1e-5, **kw)
+                plain = lambda: fd.fused_mlp_reference(h, h, ln_w, wu, wd, wg, 1e-5, **kw)
+                row = held(fn, plain, paged_close if norm else quant_mlp_close)
+
+                def cublas_sequence():
+                    yn = F.rms_norm(h, (D,), ln_w, 1e-5) if norm else h
+                    if gated:
+                        return h + (F.silu(yn @ wg) * (yn @ wu)) @ wd
+                    return h + torch.addmm(bias["b_down"], F.gelu(
+                        torch.addmm(bias["b_up"], yn, wu), approximate="tanh"), wd)
+
+                n_w = 3 if gated else 2
+                nbytes = n_w * D * Fd * 2 + 2 * B * D * 2 + (D * 2 if norm else 0) + (
+                    (Fd + D) * 2 if biased else 0)
+                row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * B * D * Fd * n_w)
+                row.update(ms=time_cold(fn, 10), cublas_sequence_ms=time_cold(cublas_sequence, 10))
+                cells[f"B6 {label} {B}"] = row
+            if gated:   # the tolerances over B6_DRAWS draws of 8 and of 16 rows
+                for B in (8, 16):
+                    cells[f"B6 {label} {B}: {B6_DRAWS} draws"] = b6_draws(
+                        lambda h: fd.fused_mlp(h, h, ln_w, wu, wd, wg, eps=1e-5, **kw),
+                        lambda h: fd.fused_mlp_reference(h, h, ln_w, wu, wd, wg, 1e-5, **kw),
+                        lambda h: b6_f64(h, ln_w, wg, wu, wd), lambda: randn(B, D))
+            del wg, wu, wd
+            torch.cuda.empty_cache()
+        for bits in (8, 4, "fp8"):
+            for name, (K, N) in B8_ATTN.items():
+                w = randn(K, N, scale=K ** -0.5)
+                qm = qmm.quantize_weight(w, 256, bits=bits)
+                x = randn(8, K)
+                fn = lambda: qmm.quant_matmul(x, qm)
+                row = held(fn, lambda: qmm.quant_matmul_reference(x, qm), paged_close)
+                row["bound_ms"], row["bound_by"] = bound(8 * K * 2 + qm.nbytes + 8 * N * 2,
+                                                         2.0 * 8 * K * N)
+                row.update(ms=time_cold(fn, 20),
+                           library_ms=time_cold(lambda: x @ qm.dequantize(), 10))
+                cells[f"B8 {bits} 8x{name} [{K}, {N}]"] = row
+        if hasattr(qmm, "gemv_plan"):
+            gemv_rows = qmm.GEMV_ROWS
+            for name, (K, N) in B8_BOUNDARY_SHAPES.items():
+                w = randn(K, N, scale=K ** -0.5)
+                for bits in (8, 4, "fp8"):
+                    qm = qmm.quantize_weight(w, 256, bits=bits)
+                    for M in B8_BOUNDARY_ROWS:
+                        x = randn(M, K)
+                        fn = lambda: qmm.quant_matmul(x, qm)
+                        row = {}
+                        try:
+                            for route, limit in (("gemv", max(B8_BOUNDARY_ROWS)), ("wgmma", 0)):
+                                qmm.GEMV_ROWS = limit
+                                g = held(fn, lambda: qmm.quant_matmul_reference(x, qm),
+                                         paged_close)
+                                row.update({f"{route}_ms": time_cold(fn, 10),
+                                            f"{route}_within": g["within"],
+                                            f"{route}_equal_bits_twice": g["equal_bits_twice"]})
+                        finally:
+                            qmm.GEMV_ROWS = gemv_rows
+                        row["bound_ms"], row["bound_by"] = bound(M * K * 2 + qm.nbytes + M * N * 2,
+                                                                 2.0 * M * K * N)
+                        cells[f"B8 boundary {bits} {M}x{name} [{K}, {N}]"] = row
+                    del qm
+                del w
+                torch.cuda.empty_cache()
+    return cells
+
+
+# "gemv_plan": a split sweep of the tensor-core GEMV (decode_gemv.plan's
+# cost, re-fitted from it): each cell timed at every split count of a
+# range (decode_gemv.plan replaced for the call by the forced split of the
+# reduction over K), with the plan's own pick named. B6 at Llama-3-8B's
+# widths, 8 rows (its down GEMV's K 14336, then its up GEMV's K 4096), B16
+# bf16 at Mixtral's w_down and w_gate, 16 ragged rows, B7 int8 at 8 rows
+# (down, then up), B8 int8 at 8 rows on w_gate, wq and w_down
+PLAN_SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 16, 20, 24, 28, 32)
+
+
+def plan_sweep_cells(gen, seed) -> dict:
+    """The ``gemv_plan`` cells (above): ms by split count and the plan's
+    pick (every split count held to the plain version: PAGED_TOL, B7
+    QUANT_MLP_TOL)."""
+    import torch
+
+    from chip_smoke import _f32_reduction, paged_close, quant_mlp_close
+
+    dg, gg, qmm, fd = (importlib.import_module(f"shuffle_exchange_tpu_torch.ops.{m}") for m in
+                       ("decode_gemv", "grouped_gemm", "quant_matmul", "fused_decode"))
+    orig = dg.plan
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    def options(K, unit):
+        """(splits, chunk) of each split count of PLAN_SPLITS the plan could take."""
+        units = -(-K // unit)
+        least = min(units, -(-dg.WARPS * dg.STAGE_ROWS // unit))
+        out = {}
+        for s in PLAN_SPLITS:
+            per = -(-units // s)
+            if per >= least:
+                out.setdefault(-(-K // (per * unit)), per * unit)
+        return out
+
+    def sweep(fn, plain, close, K, unit):
+        picked = {}
+
+        def spy(*a):
+            got = orig(*a)
+            if a[0] == K:
+                picked["plan"] = got[0]
+            return got
+
+        dg.plan = spy
+        try:
+            fn()
+        finally:
+            dg.plan = orig
+        row = dict(plan_splits=picked.get("plan"), ms={}, within={})
+        for s, chunk in options(K, unit).items():
+            dg.plan = lambda *a, s=s, chunk=chunk: (s, chunk) if a[0] == K else orig(*a)
+            try:
+                out = fn()
+                row["within"][s] = close(out, plain())[1]
+                row["ms"][s] = time_cold(fn, 10)
+            finally:
+                dg.plan = orig
+        row["best_splits"] = min(row["ms"], key=row["ms"].get)
+        row["plan_over_best"] = row["ms"].get(row["plan_splits"], float("nan")) / min(
+            row["ms"].values())
+        return row
+
+    cells = {}
+    with _f32_reduction():
+        D, Fd = 4096, 14336
+        wg, wu = randn(D, Fd, scale=D ** -0.5), randn(D, Fd, scale=D ** -0.5)
+        wd = randn(Fd, D, scale=Fd ** -0.5)
+        ln_w = (1 + randn(D, scale=0.1).float()).bfloat16()
+        h = randn(8, D)
+        fn = lambda: fd.fused_mlp(h, h, ln_w, wu, wd, wg, eps=1e-5)
+        plain = lambda: fd.fused_mlp_reference(h, h, ln_w, wu, wd, wg, 1e-5)
+        for what, K in (("down", Fd), ("up", D)):
+            cells[f"split sweep: B6 llama-3-8b 8, {what} GEMV"] = sweep(fn, plain, paged_close,
+                                                                       K, 32)
+        q = [qmm.quantize_weight(w, 256, bits=8) for w in (wg, wu, wd)]
+        fn = lambda: fd.fused_mlp(h, h, ln_w, q[1], q[2], q[0], eps=1e-5)
+        plain = lambda: fd.fused_mlp_quant_reference(h, h, ln_w, q[1], q[2], q[0], 1e-5)
+        for what, K in (("down", Fd), ("up", D)):
+            cells[f"split sweep: B7 int8 llama-3-8b 8, {what} GEMV"] = sweep(
+                fn, plain, quant_mlp_close, K, 256)
+        for name, (K, N), w in (("w_gate", (D, Fd), wg), ("wq", (D, D), wg[:, :D].contiguous()),
+                                ("wk", (D, 1024), wg[:, :1024].contiguous()),
+                                ("w_down", (Fd, D), wd)):
+            qm = qmm.quantize_weight(w, 256, bits=8)
+            x = randn(8, K)
+            if hasattr(qmm, "gemv_plan"):
+                cells[f"split sweep: B8 int8 8x{name}"] = sweep(
+                    lambda: qmm.quant_matmul(x, qm), lambda: qmm.quant_matmul_reference(x, qm),
+                    paged_close, K, 256)
+        del wg, wu, wd, q
+        torch.cuda.empty_cache()
+        # decode_gemv_cells' own B16 bf16 cells (their group sizes replayed)
+        draws = b16_draws(seed)
+        for K, F_ in ((14336, 4096), (4096, 14336)):
+            w16 = randn(8, K, F_, scale=K ** -0.5)
+            for N in (16, 2):
+                x = randn(N, K)
+                sizes = torch.from_numpy(draws[(K, F_, "bf16", N, "ragged")]).cuda()
+                cells[f"split sweep: B16 bf16 {N}x[{K}, {F_}] ragged"] = sweep(
+                    lambda: gg.grouped_matmul(x, w16, sizes),
+                    lambda: gg.grouped_matmul_reference(x, w16, sizes), paged_close, K, 32)
+            del w16
+            torch.cuda.empty_cache()
     return cells
 
 
@@ -892,7 +1248,9 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
                "grouped": ("grouped_gemm",), "quant": ("quant_matmul",),
                "paged": ("paged_attention", "fused_decode"), "lora": ("lora_gemm",),
                "sweeps": ("flash_attention", "quant_matmul", "grouped_gemm", "fused_decode"),
-               "decode_gemv": ("grouped_gemm", "fused_decode")}
+               "decode_gemv": ("grouped_gemm", "fused_decode", "quant_matmul"),
+               "b6_b8": ("fused_decode", "quant_matmul"),
+               "gemv_plan": ("grouped_gemm", "fused_decode", "quant_matmul")}
     _build.build_all(sorted({s for sec in sections for s in sources[sec]
                              if (_build.CSRC / f"{s}.cu").exists()}))
 
@@ -970,6 +1328,12 @@ def run(tree: Path, seed: int, sections=SECTIONS) -> dict:
     if "decode_gemv" in sections:
         cells.update(decode_gemv_cells(torch.Generator(device="cuda").manual_seed(seed * 10 + 9),
                                        seed))
+    if {"decode_gemv", "b6_b8"} & set(sections):
+        cells.update(b6_b8_cells(torch.Generator(device="cuda").manual_seed(seed * 10 + 10)))
+        cells.update(b6_order_cells(torch.Generator(device="cuda").manual_seed(seed * 10 + 12)))
+    if "gemv_plan" in sections:
+        cells.update(plan_sweep_cells(torch.Generator(device="cuda").manual_seed(seed * 10 + 11),
+                                      seed))
     return cells
 
 

@@ -29,25 +29,21 @@
 //                 (-1 is read as block 0);  pos / kv_len [B] int32
 //
 // What bounds them on the H100 (3.35 TB/s, 989 TFLOP/s bf16): the QKV and
-// MLP products multiply at most 8 rows by each weight, 2 flops per weight
-// byte against the card's ~295 flop/byte ridge, so their bound is the
-// weight bytes: 50.3 MB a Llama-3-8B layer for QKV (15.0 us), 352.3 MB for
-// the MLP (105.2 us); GPT-J-6B's MLP without its norm (D 4096, F 16384,
-// fc biases) 268.5 MB (80.1 us). The design question is how to keep enough SMs
-// reading. Answer: a skinny-GEMV kernel (gemv_partial_kernel) tiles the
-// output columns by 64 AND splits the reduction dimension into chunks of
-// at most 1024 rows, so a Llama layer gives 384 (QKV), 1,792 (gate/up) and
-// 896 (down) blocks, several per SM. Each thread streams one 16-byte
-// vector (8 columns) of a weight row, four rows in flight, and keeps the
-// f32 sums of 8 columns x 8 activation rows in registers; the activation
-// chunk sits in shared memory as f32. A block writes its f32 partial sums
-// (6.3 MB a Llama layer at 8 rows, written once and read once: about 3% of
-// the weight bytes); a small epilogue
-// kernel adds the partials in a fixed order (results do not change from
-// run to run) and applies what follows: RoPE and the pool append for QKV,
-// silu(g)*u for the MLP's first half, the residual for its second half.
-// Batches above 8 rows run in groups of 8 (the weights are read once per
-// group).
+// MLP products multiply at most 16 rows by each weight, 2 flops per weight
+// byte a row against the card's ~295 flop/byte ridge, so their bound is
+// the weight bytes: 50.3 MB a Llama-3-8B layer for QKV (15.0 us), 352.3 MB
+// for the MLP (105.2 us); GPT-J-6B's MLP without its norm (D 4096, F
+// 16384, fc biases) 268.5 MB (80.1 us). The design question is how to
+// keep enough SMs reading. QKV: a skinny-GEMV kernel (gemv_partial_kernel)
+// tiles the output columns by 64 AND splits the reduction dimension into
+// chunks of at most 1024 rows, so a Llama layer gives 384 blocks, several
+// per SM. Each thread streams one 16-byte vector (8 columns) of a weight
+// row, four rows in flight, and keeps the f32 sums of 8 columns x 8
+// activation rows in registers; the activation chunk sits in shared memory
+// as f32. A block writes its f32 partial sums; qkv_epilogue_kernel adds
+// them in a fixed order (results do not change from run to run) and
+// applies the biases, RoPE and the pool append. Batches above 8 rows run
+// in groups of 8 (the weights are read once per group).
 //
 // Split-K decode attention is bound by the K/V bytes it reads, as the
 // paged decode kernel (B2) in paged_attention.cu is, and below ~10 us by
@@ -87,31 +83,36 @@
 // (RMSNorm, or layernorm with the population variance and its bias) and
 // rounds yn to bf16, or takes yn = y as given (norm "none", the shared
 // layernorm of GPT-J's parallel blocks: y is already that norm's bf16
-// output, which is where the TPU kernel rounds it), sums the products in f32, adds the up bias in f32,
-// rounds a = act(g)*u (gated) or act(u) to bf16, sums the down product in
-// f32, adds the residual and then the down bias in f32 and casts once.
-// The activations are those of the TPU kernel's FUSABLE_ACTIVATIONS: silu
-// (swiglu when gated), relu and the tanh gelu (gelu_new,
-// gelu_pytorch_tanh). In the bf16 GEMVs, tensor-core MMA, TMA and
-// pipelining are later work.
+// output, which is where the TPU kernel rounds it), sums the products in
+// f32, adds the up bias in f32, rounds a = act(g)*u (gated) or act(u) to
+// bf16, sums the down product in f32, adds the residual and then the down
+// bias in f32 and casts once. The activations are those of the TPU
+// kernel's FUSABLE_ACTIVATIONS: silu (swiglu when gated), relu and the
+// tanh gelu (gelu_new, gelu_pytorch_tanh).
 //
-// The quantized MLP (int8 / packed int4 / e4m3 weights with f32 scales per
-// (K-group, column), the storage of ops/quant_matmul.py) has the same norm,
-// gate and activation forms, without fc biases, on mma_gemv.cuh's
-// tensor-core GEMV (the CUDA-core split-K GEMV of quant_gemv.cuh it replaced,
-// in five launches, reached 21% of the bound): two launches a pass of
-// up to 16 rows. The up GEMV normalises its rows into the A operand (each
-// block computes the rows' statistics itself, in a fixed order), multiplies
-// by [w_gate | w_up] (or w_up alone, the plain MLP) and writes a =
-// bf16(act(g) * u); the down GEMV multiplies a by w_down and adds the
-// residual. Split chunks fold in the tile's last block, in split order.
-// The weights are read at storage width and widened to bf16 exactly; each
-// scale group's products x * q are summed in f32 on the tensor cores and
-// the group sum is multiplied by its f32 scale, so q * s is never rounded
-// (the JAX kernel's weight blocks stay f32 and dot(bf16, f32) promotes):
-// only yn and a are rounded to bf16. Its bound at 8
-// rows of Llama-3-8B is the weight bytes: 176.2 MB of int8 and 2.8 MB of
-// scales at group 256, 53.4 us (int4 and its scales: 27.1 us).
+// The MLP, over bf16 weights (B6) or int8 / packed int4 / e4m3 weights with
+// f32 scales per (K-group, column), the storage of ops/quant_matmul.py
+// (B7), runs on mma_gemv.cuh's tensor-core GEMV: two launches a pass of up
+// to 16 rows (the CUDA-core split-K GEMVs they replaced, with a norm
+// kernel and two epilogue kernels, took five launches a pass of 8 and
+// reached 21% (B7) and 44% (B6) of the bound). The up GEMV normalises its
+// rows into the A operand (each block computes the rows' statistics
+// itself, in a fixed order: B6's RMSNorm PyTorch's, so yn rounds as the
+// plain version's does), multiplies by [w_gate | w_up] (or w_up alone,
+// the plain MLP; warps 0-3 a tile of the gate, 4-7 the same tile of w_up),
+// adds b_up and writes a = bf16(act(g) * u); the down GEMV multiplies a by
+// w_down and adds the residual, then b_down. Split chunks fold in the
+// tile's last block, in split order. B6's bf16 weights enter the B
+// operand as they are (every product exact in f32), and each stage's 32
+// products summed on the tensor cores are added to f32 accumulators
+// (tcg::add_stage). B7's weights are read
+// at storage width and widened to bf16 exactly; each scale group's
+// products x * q are summed in f32 on the tensor cores and the group sum
+// is multiplied by its f32 scale, so q * s is never rounded (the JAX
+// kernel's weight blocks stay f32 and dot(bf16, f32) promotes); B7 takes
+// no fc biases. Only yn and a are rounded to bf16. B7's bound at 8 rows of
+// Llama-3-8B is the weight bytes: 176.2 MB of int8 and 2.8 MB of scales
+// at group 256, 53.4 us (int4 and its scales: 27.1 us).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,8 +122,7 @@
 
 #include "paged_decode.cuh"  // pdec::decode_split (B2's decode body), merge_partials
 #include "paged_tile.cuh"    // TK, kNeg, storage kinds, converters
-#include "mma_gemv.cuh"      // tcg:: the tensor-core GEMV (B7's products; shared with B16)
-#include "quant_gemv.cuh"    // kQInt8 / kQInt4 / kQFp8
+#include "mma_gemv.cuh"      // tcg:: the tensor-core GEMV (B6, B7; shared with B8, B16), QFormat
 
 namespace {
 
@@ -294,66 +294,19 @@ __global__ void qkv_epilogue_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// MLP pieces: the row norm (f32 statistics, yn rounded to bf16), the
-// activation epilogue (a = bf16(act(g) * u) gated, bf16(act(u)) not) and
-// the residual epilogue.
+// The MLP (B6 over bf16 weights, B7 over quantized ones) on mma_gemv.cuh's
+// tensor-core GEMV: a pass of up to 16 rows is two launches.
+// mma_gemv_mlp_up_kernel normalises the rows on the way into the A operand
+// (every block the same statistics, in the same order), multiplies by
+// w_gate and w_up (a tile: 128 columns of each, warps 0-3 the gate's, 4-7
+// the up matrix's; plain: w_up alone), adds b_up and writes a =
+// bf16(act(g) * u) (plain: bf16(act(u))), folding its split partials in
+// the tile's last block. mma_gemv_mlp_down_kernel multiplies a by w_down
+// and writes bf16((resid + down) + b_down), folded likewise.
 // ---------------------------------------------------------------------------
 
 enum NormKind { kRmsNorm = 0, kLayerNorm = 1, kNoNorm = 2 };
 enum Act { kSilu = 0, kRelu = 1, kGeluTanh = 2 };
-
-// Sum of one value over the block's threads, returned to all of them.
-__device__ __forceinline__ float block_sum(float x, float* red) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  __syncthreads();   // red may still be read from a previous call
-  if (tid % 32 == 0) red[tid / 32] = x;
-  __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) total += red[i];
-  return total;
-}
-
-// RMSNorm: x * rsqrt(mean(x^2) + eps) * w. Layernorm: (x - mean) *
-// (1 / sqrt(var + eps)) * w + b with the population variance (the TPU
-// kernel's jnp.var), mean and variance in two passes over the row; b may
-// be null (a zero bias).
-__global__ void __launch_bounds__(kThreads) norm_rows_kernel(
-    const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ w,
-    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ yn, int D, float eps,
-    int kind) {
-  __shared__ float red[kThreads / 32];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const __nv_bfloat16* row = y + size_t(b) * D;
-  if (kind == kRmsNorm) {
-    float ss = 0.f;
-    for (int i = tid; i < D; i += kThreads) {
-      const float xv = __bfloat162float(row[i]);
-      ss += xv * xv;
-    }
-    const float inv = rsqrtf(block_sum(ss, red) / D + eps);
-    for (int i = tid; i < D; i += kThreads)
-      yn[size_t(b) * D + i] =
-          __float2bfloat16(__bfloat162float(row[i]) * inv * __bfloat162float(w[i]));
-    return;
-  }
-  float sx = 0.f;
-  for (int i = tid; i < D; i += kThreads) sx += __bfloat162float(row[i]);
-  const float mean = block_sum(sx, red) / D;
-  float sd = 0.f;
-  for (int i = tid; i < D; i += kThreads) {
-    const float dv = __bfloat162float(row[i]) - mean;
-    sd += dv * dv;
-  }
-  const float inv = 1.f / sqrtf(block_sum(sd, red) / D + eps);
-  for (int i = tid; i < D; i += kThreads) {
-    const float bv = bias != nullptr ? __bfloat162float(bias[i]) : 0.f;
-    yn[size_t(b) * D + i] = __float2bfloat16(
-        (__bfloat162float(row[i]) - mean) * inv * __bfloat162float(w[i]) + bv);
-  }
-}
 
 __device__ __forceinline__ float activate(float x, int act) {
   if (act == kRelu) return fmaxf(x, 0.f);
@@ -362,114 +315,84 @@ __device__ __forceinline__ float activate(float x, int act) {
   return x / (1.f + expf(-x));   // silu
 }
 
-// Partials [S, B, 2F] (gated: g in [0, F), u in [F, 2F)) or [S, B, F]
-// (u only); b_up may be null.
-__global__ void act_epilogue_kernel(const float* __restrict__ part, int S, int B, int F,
-                                    int gated, int act, const __nv_bfloat16* __restrict__ b_up,
-                                    __nv_bfloat16* __restrict__ a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * F) return;
-  const int b = i / F, n = i % F;
-  const int ncols = gated ? 2 * F : F;
-  float u = sum_splits(part, S, B, ncols, b, gated ? F + n : n);
-  if (b_up != nullptr) u += __bfloat162float(b_up[n]);
-  a[i] = __float2bfloat16(gated ? activate(sum_splits(part, S, B, ncols, b, n), act) * u
-                                : activate(u, act));
-}
-
-// out = resid + down + b_down (b_down may be null), in f32, one cast.
-__global__ void residual_epilogue_kernel(const float* __restrict__ part, int S, int B, int D,
-                                         const __nv_bfloat16* __restrict__ resid,
-                                         const __nv_bfloat16* __restrict__ b_down,
-                                         __nv_bfloat16* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * D) return;
-  float o = __bfloat162float(resid[i]) + sum_splits(part, S, B, D, i / D, i % D);
-  if (b_down != nullptr) o += __bfloat162float(b_down[i % D]);
-  out[i] = __float2bfloat16(o);
-}
-
-// ---------------------------------------------------------------------------
-// The quantized MLP (B7) on mma_gemv.cuh's tensor-core GEMV: a pass of up to
-// 16 rows is two launches. mma_gemv_mlp_up_kernel normalises the rows on the
-// way into the A operand (every block the same statistics, in the same
-// order), multiplies by w_gate and w_up (a tile: 128 columns of each, warps
-// 0-3 the gate's, 4-7 the up matrix's; plain: w_up alone) and writes a =
-// bf16(act(g) * u)
-// (plain: bf16(act(u))), folding its split partials in the tile's last
-// block. mma_gemv_mlp_down_kernel multiplies a by w_down and writes
-// bf16(resid + down), folded likewise.
-// ---------------------------------------------------------------------------
-
-struct MlpQuantCall {
+struct MlpCall {
   const __nv_bfloat16* y;      // the pass's rows [B, D]
   const __nv_bfloat16* ln_w;
   const __nv_bfloat16* ln_b;   // null: no layernorm bias
   const __nv_bfloat16* resid;  // [B, D]
-  const uint8_t* qg;           // null: the plain MLP
-  const uint8_t* qu;
-  const uint8_t* qd;
-  const float* sg;
+  const void* wg;              // the weights' storage (bf16, or quantized); null wg: the plain MLP
+  const void* wu;
+  const void* wd;
+  const float* sg;             // B7's scales (null for bf16 weights)
   const float* su;
   const float* sd;
+  const __nv_bfloat16* b_up;   // B6's fc biases [F], [D] (null: none)
+  const __nv_bfloat16* b_down;
   __nv_bfloat16* a;            // [B, F]
   __nv_bfloat16* out;          // [B, D]
   float* part1;                // [s1, B, 2F] (plain: [s1, B, F]); null with one split
   float* part2;                // [s2, B, D]; null with one split
   int* counters;               // a tile each, zero between calls
-  int B, D, F, gs, s1, c1, s2, c2, act;
+  int B, D, F, gs, s1, c1, s2, c2, act;   // gs: the scale group (bf16: a stage's rows)
   float eps;
+  int tree;                    // B6's RMSNorm: threads a row of rms_sum_torch_order (B7: 0)
 };
 
 __device__ __forceinline__ float2 unpack2(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
 // mean and 1 / std of rows [0, B) (RMSNorm: mean 0, rsqrt(mean(x^2) + eps);
-// layernorm: 1 / sqrt(var + eps), the population variance in a second pass):
-// warp w takes rows w, w + 8; a lane sums its 8-column pieces in order, the
-// warp adds the lanes by shuffles.
-template <int NORM>
+// layernorm: 1 / sqrt(var + eps), the population variance in a second pass),
+// the sums in ACC: warp w takes rows w, w + 8; a lane sums its 8-column
+// pieces in order, the warp adds the lanes by shuffles. B7 sums in f32;
+// B6's layernorm in f64, so its statistics round once, to f32 (B6's
+// RMSNorm: rms_stats_torch_order).
+template <int NORM, typename ACC>
 __device__ __forceinline__ void row_stats(const __nv_bfloat16* __restrict__ y, int B, int D,
                                           float eps, float* mean, float* inv) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < B; r += tcg::kWarps) {
     const __nv_bfloat16* row = y + size_t(r) * D;
-    float sum = 0.f;
+    ACC sum = 0;
     for (int k = 8 * lane; k < D; k += 256) {
       const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + k));
       const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float2 f = unpack2(w[i]);
-        sum += NORM == kRmsNorm ? f.x * f.x : f.x;
-        sum += NORM == kRmsNorm ? f.y * f.y : f.y;
+        const ACC x = f.x, z = f.y;
+        sum += NORM == kRmsNorm ? x * x : x;
+        sum += NORM == kRmsNorm ? z * z : z;
       }
     }
     sum = warp_sum(sum);
     float m = 0.f, iv;
-    if (NORM == kRmsNorm) {
+    if constexpr (NORM == kRmsNorm) {
       iv = rsqrtf(sum / D + eps);
     } else {
-      m = sum / D;
-      float sd = 0.f;
+      const ACC mu = sum / D;
+      m = float(mu);
+      ACC sd = 0;
       for (int k = 8 * lane; k < D; k += 256) {
         const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + k));
         const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float2 f = unpack2(w[i]);
-          sd += (f.x - m) * (f.x - m);
-          sd += (f.y - m) * (f.y - m);
+          const ACC x = f.x - mu, z = f.y - mu;
+          sd += x * x;
+          sd += z * z;
         }
       }
-      iv = 1.f / sqrtf(warp_sum(sd) / D + eps);
+      iv = float(ACC(1) / sqrt(warp_sum(sd) / D + ACC(eps)));
     }
     if (lane == 0) {
       mean[r] = m;
@@ -478,9 +401,77 @@ __device__ __forceinline__ void row_stats(const __nv_bfloat16* __restrict__ y, i
   }
 }
 
-// The first GEMV's A operand: rows of y normalised as norm_rows_kernel does
-// (RMSNorm: x * inv * w; layernorm: (x - mean) * inv * w + b), rounded to
-// bf16.
+// B6's RMSNorm statistics, summed in the order of PyTorch's CUDA reduction
+// (PyTorch 2.11) of the plain version's (x * x).mean(-1) over [rows, D] f32
+// (x * x is exact for bf16 x), so that inv = rsqrtf(mean + eps) and yn =
+// bf16(x * inv * w) round as the plain version's do: `tree` threads a row
+// (rows_tree), thread t adding the 4-element loads t, t + tree, ... into 4
+// accumulators and then the 4 in order; threads t and t + h add for h =
+// tree / 2, ..., 32 through shared memory, then a warp's shuffles down by
+// 16, 8, ..., 1; the mean is the sum times fl(1 / D). The block's threads
+// play the B x tree threads, loading 8 steps ahead (the order of the adds
+// is the order above; loads past the row add zeros). `vals` holds B x tree
+// floats. One yn element rounded the other way moves every column of a,
+// and the output by up to ~1.5e-3 of its row's RMS (PERF.md section 6),
+// past PAGED_TOL's 1e-3 near zero.
+__device__ __forceinline__ void rms_stats_torch_order(const __nv_bfloat16* __restrict__ y,
+                                                      int B, int D, float eps, int tree,
+                                                      float* vals, float* mean, float* inv) {
+  const int n4 = D / 4;
+  for (int v = threadIdx.x; v < B * tree; v += tcg::kThreads) {
+    const uint2* row = reinterpret_cast<const uint2*>(y + size_t(v / tree) * D);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = v % tree; i < n4; i += 8 * tree) {
+      uint2 u[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        u[k] = i + k * tree < n4 ? __ldg(row + i + k * tree) : make_uint2(0u, 0u);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float2 a = unpack2(u[k].x), b = unpack2(u[k].y);
+        acc[0] += a.x * a.x;
+        acc[1] += a.y * a.y;
+        acc[2] += b.x * b.x;
+        acc[3] += b.y * b.y;
+      }
+    }
+    vals[v] = ((acc[0] + acc[1]) + acc[2]) + acc[3];
+  }
+  __syncthreads();
+  for (int h = tree / 2; h >= 32; h >>= 1) {
+    for (int v = threadIdx.x; v < B * h; v += tcg::kThreads)
+      vals[(v / h) * tree + v % h] += vals[(v / h) * tree + v % h + h];
+    __syncthreads();
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < B; r += tcg::kWarps) {
+    float s = vals[r * tree + lane];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (lane == 0) {
+      mean[r] = 0.f;
+      // the mean and + eps rounded apart, as PyTorch's two kernels round
+      // them (an FMA of the two moved yn at D 3072)
+      inv[r] = rsqrtf(__fadd_rn(__fmul_rn(s, 1.0f / float(D)), eps));
+    }
+  }
+}
+
+// PyTorch's threads a row in its CUDA reduction of a contiguous [rows, D]
+// f32 tensor over D (4-element loads; D >= 128; one warp row of threads a
+// row while D / tree < 16 min(pow2floor(rows), 16), as at every width B6
+// serves): min(pow2floor(D / 4), 512 / min(pow2floor(rows), 16)), at least
+// 32; rows those of the whole call (its passes keep the call's order).
+int rows_tree(int rows, int D) {
+  int h = 1, w = 1;
+  while (2 * h <= rows && h < 16) h *= 2;
+  while (2 * w <= D / 4) w *= 2;
+  w = w < 512 / h ? w : 512 / h;
+  return w < 32 ? 32 : w;
+}
+
+// The first GEMV's A operand: rows of y normalised (RMSNorm: x * inv * w;
+// layernorm: (x - mean) * inv * w + b, b null: none), rounded to bf16.
 template <int NORM>
 struct RowsNormed {
   const __nv_bfloat16* y;
@@ -496,7 +487,9 @@ struct RowsNormed {
       return tcg::pack2(f.x * inv[r] * g.x, f.y * inv[r] * g.y);
     return tcg::pack2((f.x - mean[r]) * inv[r] * g.x + h.x, (f.y - mean[r]) * inv[r] * g.y + h.y);
   }
-  // the normalised pair at columns k, k + 1 of row r (k even)
+  // the normalised pair at columns k, k + 1 of row r (k even; D a multiple
+  // of 32, so a stage's rows lie inside the row: a bound check here cost B7
+  // 4-8% at 16 rows of RMSNorm on the H100)
   __device__ __forceinline__ uint32_t load2(int r, int k) const {
     if (r >= rows) return 0u;
     const uint32_t yv = __ldg(reinterpret_cast<const uint32_t*>(y + size_t(r) * ld + k));
@@ -536,7 +529,7 @@ struct MlpGemv {
     return g;
   }
   __device__ Rows rows_of(const tcg::Geo&) const { return xr; }
-  // scales of scale group `grp` for the lane's accumulator columns 32 t + 16 e + j
+  // B7's scales of scale group `grp` for the lane's accumulator columns 32 t + 16 e + j
   __device__ const float* fold_scales(const tcg::Geo& g, int lane, int warp, int grp,
                                       int e) const {
     const int col = g.c0 + tcg::kLaneCols * (2 * (lane & 3) + e);
@@ -544,17 +537,17 @@ struct MlpGemv {
   }
 };
 
-// a = bf16(act(g) * u) (gated) or bf16(act(u)) for rows [0, c.B) of y
-// normalised (NORM) over [w_gate | w_up].
+// a = bf16(act(g) * u) (gated) or bf16(act(u)) with u = (y normalised
+// (NORM) @ w_up) + b_up, for rows [0, c.B).
 template <int FMT, int NORM>
 __global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_mlp_up_kernel(
     const __grid_constant__ CUtensorMap map0, const __grid_constant__ CUtensorMap map1,
-    const MlpQuantCall c) {
+    const MlpCall c) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const tcg::Smem sm = tcg::smem_layout(smem_raw);
   float *red = sm.red, *mean = sm.mean, *inv = sm.inv;
   int* flag = sm.meta;
-  const bool gated = c.qg != nullptr;
+  const bool gated = c.wg != nullptr;
   const int F = c.F, B = c.B, splits = c.s1;
   const int tiles = (F + tcg::kTileCols - 1) / tcg::kTileCols;
   using Rows = typename std::conditional<NORM == kNoNorm, tcg::RowsPlain, RowsNormed<NORM>>::type;
@@ -567,7 +560,11 @@ __global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_mlp_up_kernel(
                         c.gs, splits, c.c1, tiles, gated ? tcg::kWarps / 2 : tcg::kWarps};
   auto pre = [&] {
     if constexpr (NORM != kNoNorm) {
-      row_stats<NORM>(c.y, B, c.D, c.eps, mean, inv);
+      if constexpr (FMT == tcg::kBf16 && NORM == kRmsNorm)
+        rms_stats_torch_order(c.y, B, c.D, c.eps, c.tree, red, mean, inv);
+      else
+        row_stats<NORM, typename std::conditional<FMT == tcg::kBf16, double, float>::type>(
+            c.y, B, c.D, c.eps, mean, inv);
       __syncthreads();
     }
   };
@@ -607,6 +604,7 @@ __global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_mlp_up_kernel(
           if (gated) gv += __ldcg(row + n);
         }
       }
+      if (c.b_up != nullptr) u += __bfloat162float(c.b_up[n]);
       c.a[size_t(r) * F + n] =
           __float2bfloat16(gated ? activate(gv, c.act) * u : activate(u, c.act));
     }
@@ -614,10 +612,10 @@ __global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_mlp_up_kernel(
   tcg::run<FMT, false, true>(p, sm, pre, done);
 }
 
-// out = bf16(resid + a @ w_down) for rows [0, c.B).
+// out = bf16((resid + a @ w_down) + b_down) for rows [0, c.B).
 template <int FMT>
 __global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_mlp_down_kernel(
-    const __grid_constant__ CUtensorMap map, const MlpQuantCall c) {
+    const __grid_constant__ CUtensorMap map, const MlpCall c) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const tcg::Smem sm = tcg::smem_layout(smem_raw);
   float* red = sm.red;
@@ -648,29 +646,22 @@ __global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_mlp_down_kernel(
       else
 #pragma unroll 4
         for (int s = 0; s < splits; ++s) v += __ldcg(c.part2 + (size_t(s) * B + r) * D + n);
-      c.out[size_t(r) * D + n] = __float2bfloat16(__bfloat162float(c.resid[size_t(r) * D + n]) + v);
+      float o = __bfloat162float(c.resid[size_t(r) * D + n]) + v;
+      if (c.b_down != nullptr) o += __bfloat162float(c.b_down[n]);
+      c.out[size_t(r) * D + n] = __float2bfloat16(o);
     }
   };
   tcg::run<FMT, false, true>(p, sm, [] {}, done);
 }
 
-// The map of a [K, N] weight's storage (int4: [K / 2, N] packed rows) in
-// one-byte boxes of 32 rows (int4: 16 packed rows) of 128 columns.
-cudaError_t mlp_map(CUtensorMap* map, const uint8_t* q, int fmt, int K, int N) {
-  const bool int4 = fmt == kQInt4;
-  return tcg::box_map(map, q, false, 1, int4 ? K / 2 : K, N, int4 ? 16 : tcg::kStageRows,
-                      tcg::kTileCols);
-}
-
 // One pass of up to 16 rows: the up GEMV (its norm form), then the down GEMV.
 template <int FMT>
-cudaError_t mlp_quant_pass(const MlpQuantCall& c, int norm, int blocks1, int blocks2,
-                           cudaStream_t s) {
-  const bool gated = c.qg != nullptr;
+cudaError_t mlp_pass(const MlpCall& c, int norm, int blocks1, int blocks2, cudaStream_t s) {
+  const bool gated = c.wg != nullptr;
   CUtensorMap m0, m1, md;
-  cudaError_t err = mlp_map(&m0, gated ? c.qg : c.qu, FMT, c.D, c.F);
-  if (err == cudaSuccess) err = mlp_map(&m1, c.qu, FMT, c.D, c.F);
-  if (err == cudaSuccess) err = mlp_map(&md, c.qd, FMT, c.F, c.D);
+  cudaError_t err = tcg::weight_map<FMT>(&m0, gated ? c.wg : c.wu, 1, c.D, c.F);
+  if (err == cudaSuccess) err = tcg::weight_map<FMT>(&m1, c.wu, 1, c.D, c.F);
+  if (err == cudaSuccess) err = tcg::weight_map<FMT>(&md, c.wd, 1, c.F, c.D);
   if (err != cudaSuccess) return err;
   auto up = norm == kRmsNorm     ? mma_gemv_mlp_up_kernel<FMT, kRmsNorm>
             : norm == kLayerNorm ? mma_gemv_mlp_up_kernel<FMT, kLayerNorm>
@@ -685,6 +676,32 @@ cudaError_t mlp_quant_pass(const MlpQuantCall& c, int norm, int blocks1, int blo
   if (err != cudaSuccess) return err;
   mma_gemv_mlp_down_kernel<FMT><<<blocks2, tcg::kThreads, tcg::kSmemBytes, s>>>(md, c);
   return cudaGetLastError();
+}
+
+// The passes of up to 16 rows of an MLP call (c.B rows), each mlp_pass's
+// two launches.
+template <int FMT>
+cudaError_t mlp_passes(const MlpCall& c, int norm, int blocks1, int blocks2, cudaStream_t s) {
+  for (int b0 = 0; b0 < c.B; b0 += tcg::kRows) {
+    MlpCall pass = c;
+    pass.B = c.B - b0 < tcg::kRows ? c.B - b0 : tcg::kRows;
+    pass.y = c.y + size_t(b0) * c.D;
+    pass.resid = c.resid + size_t(b0) * c.D;
+    pass.out = c.out + size_t(b0) * c.D;
+    const cudaError_t err = mlp_pass<FMT>(pass, norm, blocks1, blocks2, s);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// A split of K rows into `splits` chunks of `chunk` rows, each whole units
+// of `unit` rows (B7: the scale group; B6: a stage), with partials and
+// counters where there are several.
+bool bad_gemv_split(int K, int unit, int splits, int chunk, const void* part,
+                    const void* counters) {
+  return splits < 1 || chunk < 1 || chunk % unit || (long long)splits * chunk < K ||
+         (long long)(splits - 1) * chunk >= K ||
+         (splits > 1 && (part == nullptr || counters == nullptr));
 }
 
 // ---------------------------------------------------------------------------
@@ -739,19 +756,6 @@ Mats make_mats(const void* w0, int n0, const void* w1, int n1, const void* w2, i
 }
 
 int total_tiles(const Mats& m) { return m.tiles[0] + m.tiles[1] + m.tiles[2]; }
-
-// The MLP's first GEMV input for rows [b0, b0 + nb): the norm kernel's yn,
-// or, without a norm, the rows of y as given (no launch, no copy).
-const __nv_bfloat16* norm_input(const void* y, int b0, int D, const void* ln_w,
-                                const void* ln_b, __nv_bfloat16* yn, int nb, float eps, int norm,
-                                cudaStream_t s) {
-  const __nv_bfloat16* rows = static_cast<const __nv_bfloat16*>(y) + size_t(b0) * D;
-  if (norm == kNoNorm) return rows;
-  norm_rows_kernel<<<nb, kThreads, 0, s>>>(rows, static_cast<const __nv_bfloat16*>(ln_w),
-                                           static_cast<const __nv_bfloat16*>(ln_b), yn, D, eps,
-                                           norm);
-  return yn;
-}
 
 bool bad_split(int K, int splits, int chunk) {
   return splits < 1 || chunk < 1 || chunk > kChunk || (long long)splits * chunk < K ||
@@ -910,59 +914,48 @@ int sxt_fused_paged_decode(const void* q, const void* k, const void* v, const vo
 }
 
 
-// Norm + MLP + residual: gated (w_gate given: act(g) * u) or plain (w_gate
-// null: act(u)); norm 0 RMSNorm, 1 layernorm (ln_b may be null), 2 none
-// (yn = y; ln_w and ln_b are not read, and the yn workspace is unused); act 0
-// silu, 1 relu, 2 tanh gelu; b_up / b_down may be null. Workspaces for
-// min(B, 8) rows: yn bf16 [., D], a bf16 [., F], part1 f32 [s1, ., 2F]
-// (gated) or [s1, ., F], part2 f32 [s2, ., D].
+// Norm + MLP + residual over bf16 weights: gated (w_gate given: act(g) *
+// u) or plain (w_gate null: act(u)); norm 0 RMSNorm, 1 layernorm (ln_b may
+// be null), 2 none (yn = y; ln_w and ln_b are not read); act 0 silu, 1
+// relu, 2 tanh gelu; b_up / b_down may be null. Passes of up to 16 rows,
+// each the two tensor-core GEMV launches: the up GEMV on `blocks1`
+// persistent blocks over s1 chunks of chunk1 rows of D, the down GEMV on
+// `blocks2` over s2 chunks of chunk2 rows of F (chunks of whole 32-row
+// stages). Workspaces: a bf16 [min(B, 16), F]; with several splits part1
+// f32 [s1, min(B, 16), 2F] (plain: F), part2 [s2, min(B, 16), D] and
+// counters int32 (one a column tile of either GEMV), zero between calls
+// (the kernels leave them zero). Needs D % 32 == 0, F % 8 == 0 and 16-byte
+// aligned bases.
 int sxt_fused_mlp_bf16(const void* resid, const void* y, const void* ln_w, const void* ln_b,
                        const void* w_gate, const void* w_up, const void* w_down,
-                       const void* b_up, const void* b_down, void* out, void* yn, void* a,
-                       void* part1, void* part2, int B, int D, int F, int s1, int chunk1, int s2,
-                       int chunk2, int norm, int act, float eps, void* stream) {
+                       const void* b_up, const void* b_down, void* out, void* a, void* part1,
+                       void* part2, void* counters, int B, int D, int F, int s1, int chunk1,
+                       int s2, int chunk2, int blocks1, int blocks2, int norm, int act, float eps,
+                       void* stream) {
   if (B <= 0) return 0;
-  if (D % 8 || F % 8 || bad_split(D, s1, chunk1) || bad_split(F, s2, chunk2) || norm < 0 ||
-      norm > kNoNorm || act < 0 || act > 2)
+  if (D < 32 || F < 8 || D % 32 || F % 8 ||
+      bad_gemv_split(D, tcg::kStageRows, s1, chunk1, part1, counters) ||
+      bad_gemv_split(F, tcg::kStageRows, s2, chunk2, part2, counters) || blocks1 < 1 ||
+      blocks2 < 1 || norm < 0 || norm > kNoNorm || act < 0 || act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int gated = w_gate != nullptr;
-  const Mats up = gated ? make_mats(w_gate, F, w_up, F, nullptr, 0)
-                        : make_mats(w_up, F, nullptr, 0, nullptr, 0);
-  const Mats down = make_mats(w_down, D, nullptr, 0, nullptr, 0);
-  auto* ynp = static_cast<__nv_bfloat16*>(yn);
-  auto* ap = static_cast<__nv_bfloat16*>(a);
-  auto* p1 = static_cast<float*>(part1);
-  auto* p2 = static_cast<float*>(part2);
-  for (int b0 = 0; b0 < B; b0 += kMaxRows) {
-    const int nb = B - b0 < kMaxRows ? B - b0 : kMaxRows;
-    const __nv_bfloat16* xin = norm_input(y, b0, D, ln_w, ln_b, ynp, nb, eps, norm, s);
-    gemv_partial_kernel<<<dim3(total_tiles(up), s1), kThreads, 0, s>>>(
-        xin, nb, D, chunk1, up, gated ? 2 * F : F, p1);
-    act_epilogue_kernel<<<(nb * F + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        p1, s1, nb, F, gated, act, static_cast<const __nv_bfloat16*>(b_up), ap);
-    gemv_partial_kernel<<<dim3(total_tiles(down), s2), kThreads, 0, s>>>(ap, nb, F, chunk2,
-                                                                         down, D, p2);
-    residual_epilogue_kernel<<<(nb * D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        p2, s2, nb, D, static_cast<const __nv_bfloat16*>(resid) + size_t(b0) * D,
-        static_cast<const __nv_bfloat16*>(b_down), static_cast<__nv_bfloat16*>(out) + size_t(b0) * D);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  const MlpCall c{static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(ln_w),
+                  static_cast<const __nv_bfloat16*>(ln_b),
+                  static_cast<const __nv_bfloat16*>(resid), w_gate, w_up, w_down, nullptr,
+                  nullptr, nullptr, static_cast<const __nv_bfloat16*>(b_up),
+                  static_cast<const __nv_bfloat16*>(b_down), static_cast<__nv_bfloat16*>(a),
+                  static_cast<__nv_bfloat16*>(out), static_cast<float*>(part1),
+                  static_cast<float*>(part2), static_cast<int*>(counters), B, D, F,
+                  tcg::kStageRows, s1, chunk1, s2, chunk2, act, eps, rows_tree(B, D)};
+  return static_cast<int>(
+      mlp_passes<tcg::kBf16>(c, norm, blocks1, blocks2, static_cast<cudaStream_t>(stream)));
 }
 
 // Norm + MLP + residual over quantized weights of format fmt (0 int8, 1
 // packed int4, 2 e4m3) and group size gs: q* the storage, s* the f32
 // scales [K/gs, N]. Gated when qg is given (act(g) * u), plain (act(u))
-// when qg and sg are null; norm, act and ln_b as sxt_fused_mlp_bf16; no fc
-// biases (the JAX kernel takes none). Passes of up to 16 rows, each the two
-// tensor-core GEMV launches: the up GEMV on `blocks1` persistent blocks over
-// s1 chunks of chunk1 rows of D, the down GEMV on `blocks2` over s2 chunks
-// of chunk2 rows of F (chunks of whole scale groups). Workspaces: a bf16
-// [min(B, 16), F]; with several splits part1 f32 [s1, min(B, 16), 2F]
-// (plain: F), part2 [s2, min(B, 16), D] and counters int32 (one a column
-// tile of either GEMV), zero between calls (the kernels leave them zero).
+// when qg and sg are null; norm, act, ln_b, the passes, the plan and the
+// workspaces as sxt_fused_mlp_bf16's (chunks of whole scale groups); no
+// fc biases (the JAX kernel takes none).
 int sxt_fused_mlp_quant_bf16(const void* resid, const void* y, const void* ln_w, const void* ln_b,
                              const void* qg, const void* sg, const void* qu, const void* su,
                              const void* qd, const void* sd, void* out, void* a, void* part1,
@@ -970,40 +963,28 @@ int sxt_fused_mlp_quant_bf16(const void* resid, const void* y, const void* ln_w,
                              int s1, int chunk1, int s2, int chunk2, int blocks1, int blocks2,
                              int norm, int act, float eps, void* stream) {
   if (B <= 0) return 0;
-  auto bad = [gs](int K, int splits, int chunk, void* part) {
-    return splits < 1 || chunk < 1 || chunk % gs || (long long)splits * chunk < K ||
-           (long long)(splits - 1) * chunk >= K || (splits > 1 && part == nullptr);
-  };
   if (gs < 32 || gs % 32 || D % gs || F % gs || D % 16 || F % 16 || fmt < 0 || fmt > 2 ||
-      bad(D, s1, chunk1, part1) || bad(F, s2, chunk2, part2) || blocks1 < 1 || blocks2 < 1 ||
-      ((s1 > 1 || s2 > 1) && counters == nullptr) || norm < 0 || norm > kNoNorm || act < 0 ||
-      act > 2 || (qg == nullptr) != (sg == nullptr))
+      bad_gemv_split(D, gs, s1, chunk1, part1, counters) ||
+      bad_gemv_split(F, gs, s2, chunk2, part2, counters) || blocks1 < 1 || blocks2 < 1 ||
+      norm < 0 || norm > kNoNorm || act < 0 || act > 2 || (qg == nullptr) != (sg == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MlpQuantCall c{static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(ln_w),
-                 static_cast<const __nv_bfloat16*>(ln_b), static_cast<const __nv_bfloat16*>(resid),
-                 static_cast<const uint8_t*>(qg), static_cast<const uint8_t*>(qu),
-                 static_cast<const uint8_t*>(qd), static_cast<const float*>(sg),
-                 static_cast<const float*>(su), static_cast<const float*>(sd),
-                 static_cast<__nv_bfloat16*>(a), static_cast<__nv_bfloat16*>(out),
-                 static_cast<float*>(part1), static_cast<float*>(part2),
-                 static_cast<int*>(counters), 0, D, F, gs, s1, chunk1, s2, chunk2, act, eps};
-  for (int b0 = 0; b0 < B; b0 += tcg::kRows) {
-    MlpQuantCall pass = c;
-    pass.B = B - b0 < tcg::kRows ? B - b0 : tcg::kRows;
-    pass.y = c.y + size_t(b0) * D;
-    pass.resid = c.resid + size_t(b0) * D;
-    pass.out = c.out + size_t(b0) * D;
-    cudaError_t err;
-    if (fmt == kQInt8)
-      err = mlp_quant_pass<kQInt8>(pass, norm, blocks1, blocks2, s);
-    else if (fmt == kQInt4)
-      err = mlp_quant_pass<kQInt4>(pass, norm, blocks1, blocks2, s);
-    else
-      err = mlp_quant_pass<kQFp8>(pass, norm, blocks1, blocks2, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  const MlpCall c{static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(ln_w),
+                  static_cast<const __nv_bfloat16*>(ln_b),
+                  static_cast<const __nv_bfloat16*>(resid), qg, qu, qd,
+                  static_cast<const float*>(sg), static_cast<const float*>(su),
+                  static_cast<const float*>(sd), nullptr, nullptr,
+                  static_cast<__nv_bfloat16*>(a), static_cast<__nv_bfloat16*>(out),
+                  static_cast<float*>(part1), static_cast<float*>(part2),
+                  static_cast<int*>(counters), B, D, F, gs, s1, chunk1, s2, chunk2, act, eps};
+  cudaError_t err;
+  if (fmt == kQInt8)
+    err = mlp_passes<kQInt8>(c, norm, blocks1, blocks2, s);
+  else if (fmt == kQInt4)
+    err = mlp_passes<kQInt4>(c, norm, blocks1, blocks2, s);
+  else
+    err = mlp_passes<kQFp8>(c, norm, blocks1, blocks2, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

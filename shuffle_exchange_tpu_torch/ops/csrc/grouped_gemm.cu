@@ -12,7 +12,7 @@
 //   int8  q [E, K, F] int8, scales [E, K/gs, F] f32
 //   fp8   q [E, K, F] e4m3, scales [E, K/gs, F] f32
 // A quantized weight is dequantized on the chip as bf16(q * s), the q * s
-// product in f32 (quant_gemv.cuh's deq<true>): the JAX route dequantizes
+// product in f32 (mma_gemv.cuh's pair1<FMT, true>): the JAX route dequantizes
 // the stack to the activation dtype before gmm, so the products here run
 // over the same bf16 values, summed in f32, and the result is cast once.
 // The kernel then differs from grouped_matmul_reference in summation order
@@ -46,11 +46,12 @@
 //   0.477 ms (operations).
 // Three designs answer it.
 //
-// 1. N <= 16 (the decode tick), every format: mma_gemv.cuh's tensor-core
-// GEMV (it replaced a split-K CUDA-core GEMV, which reached 25% of the
-// bytes bound). Persistent blocks walk (row group of <= 16 rows of
-// one group, 128-column tile, K chunk) items; each warp streams a run of
-// the chunk's 32-row stages through its own cp.async ring and multiplies on
+// 1. N <= the wrapper's GEMV_MAX_N (the decode tick; 32 rows of bf16, 64
+// of int8 / e4m3): mma_gemv.cuh's tensor-core GEMV (it replaced a split-K
+// CUDA-core GEMV, which reached 25% of the bytes bound). Persistent blocks
+// walk (row group of <= 16 rows of one group, 128-column tile, K chunk)
+// items; each warp streams a run of the chunk's 32-row stages through its
+// own TMA ring and multiplies on
 // mma.sync (x the A operand, the weight widened to bf16(q * s) the B
 // operand); the block adds its warps' sums in order. A group of no rows
 // has no item and reads no weight bytes; every weight byte of a group with
@@ -107,7 +108,7 @@
 // [128 of F] tile and its (at most two) scale rows, unswizzled, into a ring
 // of 6 raw stages, and x's [256][64] tile into a ring of 3 widened 48 KB
 // slots; the producer's other three warps write bf16(q * s) (the product
-// in f32, quant_gemv.cuh's deq<true> bit for bit) into the slot's B tile in
+// in f32, mma_gemv.cuh's pair1<FMT, true> bit for bit) into the slot's B tile in
 // the 128-byte swizzle the descriptors read, fence.proxy.async, and arrive
 // on the slot's barrier, so widening step s + 1 overlaps the products of
 // step s. The widening bounds the block, not the tensor cores: each
@@ -123,8 +124,7 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include "mma_gemv.cuh"      // tcg:: the tensor-core GEMV of the decode rows (shared with B7)
-#include "quant_gemv.cuh"    // kQInt8 / kQFp8
+#include "mma_gemv.cuh"      // tcg:: the tensor-core GEMV of the decode rows, QFormat
 #include "wgmma_qgemm.cuh"   // the block layout, raster, epilogue, qgemm_tile (shared with B8)
 #include "wgmma_tile.cuh"    // wg:: mbarriers, the ring, TMA, wgmma; tile_map_3d
 
@@ -231,9 +231,7 @@ __global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_grouped_kernel(
     __nv_bfloat16* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const tcg::Smem sm = tcg::smem_layout(smem_raw);
-  float* red = sm.red;
-  int* flag = sm.meta;
-  int* meta = sm.meta + 1;   // row groups, rows in the groups
+  int* meta = sm.meta + 1;   // row groups, rows in the groups ([0]: the fold's flag)
   GroupRows* tab = reinterpret_cast<GroupRows*>(sm.tail);
   if (threadIdx.x == 0) {
     int off = 0, n = 0;
@@ -252,34 +250,7 @@ __global__ void __launch_bounds__(tcg::kThreads, 1) mma_gemv_grouped_kernel(
                       meta[0] * splits * tiles, F, K, quant ? gs : tcg::kStageRows, splits, chunk,
                       tiles};
   auto done = [&](int, const tcg::Geo& g, const float (&acc)[16][4]) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    __syncthreads();   // the last item's sums are read
-    tcg::write_red<FMT>(red, warp, lane, acc, g.rows);
-    __syncthreads();
-    const int n0 = g.tile * tcg::kTileCols, cells = g.rows * tcg::kTileCols;
-    if (splits == 1) {
-      for (int i = threadIdx.x; i < cells; i += tcg::kThreads) {
-        const int r = i / tcg::kTileCols, c = i % tcg::kTileCols;
-        if (n0 + c < F)
-          out[size_t(g.row0 + r) * F + n0 + c] = __float2bfloat16(tcg::red_sum(red, r, c));
-      }
-      return;
-    }
-    for (int i = threadIdx.x; i < cells; i += tcg::kThreads) {
-      const int r = i / tcg::kTileCols, c = i % tcg::kTileCols;
-      if (n0 + c < F)
-        part[(size_t(g.split) * N + g.row0 + r) * F + n0 + c] = tcg::red_sum(red, r, c);
-    }
-    if (!tcg::last_of_tile(counters + g.grp * tiles + g.tile, splits, flag)) return;
-    for (int i = threadIdx.x; i < cells; i += tcg::kThreads) {
-      const int r = i / tcg::kTileCols, c = i % tcg::kTileCols;
-      if (n0 + c >= F) continue;
-      float v = 0.f;
-#pragma unroll 4
-      for (int s = 0; s < splits; ++s)
-        v += __ldcg(part + (size_t(s) * N + g.row0 + r) * F + n0 + c);
-      out[size_t(g.row0 + r) * F + n0 + c] = __float2bfloat16(v);
-    }
+    tcg::store_sums<FMT>(sm, g, acc, F, N, splits, part, counters, out);
   };
   tcg::run<FMT, FMT != tcg::kBf16, false>(p, sm, [] {}, done);
   const size_t past = size_t(N - meta[1]) * F;   // rows past the groups' sum
@@ -295,9 +266,8 @@ cudaError_t launch_decode_gemv(cudaStream_t s, const __nv_bfloat16* x, const uin
                             int chunk, int blocks) {
   const int smem = tcg::kSmemBytes + row_groups_max(E, N) * int(sizeof(GroupRows));
   if (smem > tcg::kSmemLimit) return cudaErrorInvalidValue;
-  constexpr bool bf16 = FMT == kGBf16;
   CUtensorMap wmap;
-  cudaError_t err = tcg::box_map(&wmap, w, bf16, E, K, F, tcg::kStageRows, bf16 ? 64 : 128);
+  cudaError_t err = tcg::weight_map<FMT>(&wmap, w, E, K, F);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(mma_gemv_grouped_kernel<FMT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -1,11 +1,12 @@
-// Tensor-core GEMV for decode rows on Hopper (sm_90a), shared by B16's
-// decode rows (grouped_gemm.cu: mma_gemv_grouped_kernel) and B7, the
-// quantized fused MLP (fused_decode.cu: mma_gemv_mlp_up_kernel and
-// mma_gemv_mlp_down_kernel).
+// Tensor-core GEMV for decode rows on Hopper (sm_90a), shared by four
+// kernels: B16's decode rows (grouped_gemm.cu: mma_gemv_grouped_kernel),
+// B8's (quant_matmul.cu: mma_gemv_quant_kernel), and the fused MLP over
+// bf16 weights (B6) and quantized ones (B7) (fused_decode.cu:
+// mma_gemv_mlp_up_kernel and mma_gemv_mlp_down_kernel).
 //
 // out[r, n] = sum over k of x[r, k] * W[k, n] for up to 16 activation rows r
 // of one row group, W [K, N] stored as bf16, int8, packed int4 or e4m3
-// (quant_gemv.cuh describes the storage; f32 scales [K / gs, N]).
+// (QFormat below; f32 scales [K / gs, N]).
 //
 // What bounds it on the H100 (3.35 TB/s, 989 TFLOP/s bf16): the weight bytes.
 // 16 rows make 32 flops a weight element against the card's ~295 flop/byte
@@ -27,17 +28,18 @@
 //    and lane / 4 + 8); the epilogue stores each at its column. Byte
 //    permutes pair rows k and k + 1 of a column into one bf16x2 B register:
 //    per weight element only the widening is left.
-// 2. Rounding points, each TPU kernel's own. B16: bf16(q * s), the product
-//    in f32 (quant_gemv.cuh's deq<true>, the JAX route), and bf16 weights
-//    as they are: every product x * w is exact in f32. B7: q widened to
-//    bf16 exactly (int8, int4 and e4m3 values all are), each scale group's
-//    products x * q summed in f32 on the tensor cores, then s[g, n] x the
-//    group sum added to the accumulator in f32 (q * s is never rounded).
+// 2. Rounding points, each TPU kernel's own. B16 and B8: bf16(q * s), the
+//    product in f32 (pair1<FMT, true>, the JAX route's dequantize and
+//    cast), and bf16 weights (B16, B6) as they are: every product x * w is
+//    exact in f32. B7: q widened to bf16 exactly (int8, int4 and e4m3
+//    values all are), each scale group's products x * q summed in f32 on
+//    the tensor cores, then s[g, n] x the group sum added to the
+//    accumulator in f32 (q * s is never rounded).
 // 3. Streaming: each warp keeps a private ring of kRingBytes of stages in
 //    shared memory; its lane 0 fills a stage with TMA boxes of 128-byte
 //    rows in the 128-byte swizzle that complete on the slot's mbarrier,
 //    ring_stages - 1 stages ahead of the products and across item
-//    boundaries (rows of 64 bytes, B7's gate and up tiles side by side,
+//    boundaries (rows of 64 bytes, the MLP's gate and up tiles side by side,
 //    streamed ~25% slower). The swizzle puts the rows a lane quad reads
 //    (rows 2 t + {0, 1, 8, 9} of each 16) in distinct banks. 16-byte
 //    cp.async into the same ring streamed at ~1.7 TB/s on the H100, TMA
@@ -46,8 +48,8 @@
 // 4. Work: an item is (row group, 128-column tile, K chunk of whole scale
 //    groups); warp w takes part w of the chunk's stages (a contiguous run)
 //    and the warps add their sums in warp order through shared memory
-//    (B7's gated up GEMV: warps 0-3 the gate's tile, 4-7 the up matrix's,
-//    each of the four a quarter of the chunk).
+//    (the fused MLP's gated up GEMV: warps 0-3 the gate's tile, 4-7 the up
+//    matrix's, each of the four a quarter of the chunk).
 //    Blocks are persistent (one an SM) and walk items blockIdx.x, +
 //    gridDim.x, ... A chunk that is not the whole of K writes f32 partials;
 //    the last block to finish a tile (an atomic counter it resets to zero)
@@ -65,8 +67,22 @@
 #include <stdint.h>
 
 #include "mma_sync.cuh"     // mma_bf16
-#include "quant_gemv.cuh"   // kQInt8 / kQInt4 / kQFp8
 #include "wgmma_tile.cuh"   // wg:: mbarriers, TMA; encode_tiled
+
+namespace {
+
+// The storage formats of a weight-only quantized weight [K, N]
+// (QuantizedMatrix in ops/quant_matmul.py), shared with the quantized
+// `wgmma` block (wgmma_qgemm.cuh):
+//   int8  q int8 [K, N]
+//   int4  q uint8 [K/2, N]: within each K-group of gs rows, row r < gs/2
+//         shares a byte with row r + gs/2, low nibble first; a nibble is a
+//         two's-complement value in [-8, 7]
+//   fp8   q e4m3 [K, N]
+// with f32 scales [K/gs, N]; the weight is q * s, dequantized on the chip.
+enum QFormat { kQInt8 = 0, kQInt4 = 1, kQFp8 = 2 };
+
+}  // namespace
 
 namespace tcg {
 
@@ -83,7 +99,7 @@ constexpr int kRingBytes = 16384;        // a warp's ring of stages
 // distinct banks)
 constexpr int kRedLd = kTileCols + 16;
 constexpr int kRedBytes = kWarps * kRows * kRedLd * 4;
-constexpr int kStatBytes = 2 * kRows * 4;                   // B7's norm: mean, 1 / std a row
+constexpr int kStatBytes = 2 * kRows * 4;                   // the MLP's norm: mean, 1 / std a row
 constexpr int kMetaBytes = 16;                              // a flag, B16's table sizes
 constexpr int kBarBytes = kWarps * 8 * 8;                   // the rings' mbarriers (<= 8 slots)
 constexpr int kAlign = 1024;                                // the swizzle's period
@@ -109,7 +125,7 @@ static_assert(ring_stages<kQInt4>() <= 8, "kBarBytes: at most 8 slots a warp");
 struct Smem {
   unsigned char* ring;   // kWarps x kRingBytes
   float* red;            // the warps' sums
-  float* mean;           // B7's row statistics
+  float* mean;           // the MLP's row statistics
   float* inv;
   int* meta;             // [0] the fold's flag, [1], [2] B16's table sizes
   uint64_t* bars;        // kWarps x 8
@@ -136,8 +152,8 @@ __device__ __forceinline__ Smem smem_layout(unsigned char* raw) {
 struct Geo {
   const CUtensorMap* map;  // the warp's weight in boxes
   int c0, batch;           // the tile's first column, the map's batch (B16: the group)
-  const float* s;     // the lane's scales [K / gs, N] (B16's B-side scales; null for bf16)
-  int col;            // the lane's first column (B16's scales)
+  const float* s;     // the lane's scales [K / gs, N] (B16's, B8's; null for bf16)
+  int col;            // the lane's first column (B16's and B8's scales)
   bool col_ok;        // col < N
   int u0;             // the item's first stage, counted from row 0 (32 logical rows a stage)
   int row0, rows;     // the item's activation rows
@@ -363,6 +379,21 @@ __device__ __forceinline__ void fold_group(float (&acc)[16][4], float (&gacc)[16
   }
 }
 
+// B6's stage fold: acc += gacc in f32 (rounded to nearest), gacc = 0, so
+// the tensor cores' own f32 accumulation spans one stage's 32 products.
+// Accumulating all of K on the tensor cores left B6's g and u far enough
+// from their f64 values that a = bf16(act(g) * u) rounded the other way
+// 3.6x as often as in the plain version's f32 sums (PERF.md section 6).
+__device__ __forceinline__ void add_stage(float (&acc)[16][4], float (&gacc)[16][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[j][c] += gacc[j][c];
+      gacc[j][c] = 0.f;
+    }
+}
+
 // ---------------------------------------------------------------------------
 // The block's sum of an item
 // ---------------------------------------------------------------------------
@@ -445,11 +476,12 @@ __device__ __forceinline__ bool last_of_tile(int* counter, int splits, int* flag
 // each warp's run of each item's stages through its ring, then
 // done(item, geo, acc) with the warp's sums (called by every warp of the
 // block for every item, in order). GSUM: B7's form (per-group sums folded
-// with p.fold_scales); SCALED: B16's (bf16(q * s) in the B operand). A
-// stage's A operand (and B16's scale row at a group's start) is loaded
-// while the stage before it multiplies. `pre` runs after the rings' first
-// loads are issued and before any product (a block-wide step such as B7's
-// row statistics, ending in its own barrier). Each warp's lane 0
+// with p.fold_scales), and over bf16 weights B6's (each stage's sums added
+// to acc, add_stage); SCALED: B16's and B8's (bf16(q * s) in the B
+// operand). A stage's A operand (and their scale row at a group's start)
+// is loaded while the stage before it multiplies. `pre` runs after the
+// rings' first loads are issued and before any product (a block-wide step
+// such as the MLP's row statistics, ending in its own barrier). Each warp's lane 0
 // initialises the warp's mbarriers, which only that warp uses.
 template <int FMT, bool SCALED, bool GSUM, class P, class Pre, class Done>
 __device__ __forceinline__ void run(const P& p, const Smem& sm, Pre&& pre, Done&& done) {
@@ -522,7 +554,9 @@ __device__ __forceinline__ void run(const P& p, const Smem& sm, Pre&& pre, Done&
       const unsigned char* st = ring + (ci % S) * SB;
       if constexpr (GSUM) {
         stage_products<FMT, SCALED>(st, lane, a, sc, gacc);
-        if (!more || (unit + 1) % per == 0)
+        if constexpr (FMT == kBf16)
+          add_stage(acc, gacc);
+        else if (!more || (unit + 1) % per == 0)
           fold_group(acc, gacc, p.fold_scales(g, lane, warp, unit / per, 0),
                      p.fold_scales(g, lane, warp, unit / per, 1));
       } else {
@@ -541,6 +575,42 @@ __device__ __forceinline__ void run(const P& p, const Smem& sm, Pre&& pre, Done&
       }
     }
     done(item, g, acc);
+  }
+}
+
+// The block's sums of item g (its rows g.row0 .. of the call's `rows`,
+// the tile's columns from g.c0 of `n`) into out (bf16 [rows, n]): directly
+// with one split; else its split's f32 partials into part [splits, rows, n],
+// and the tile's last block (counter g.grp x tiles + g.tile) adds every
+// split's in split order. Called by the whole block.
+template <int FMT>
+__device__ __forceinline__ void store_sums(const Smem& sm, const Geo& g, const float (&acc)[16][4],
+                                           int n, int rows, int splits, float* part,
+                                           int* counters, __nv_bfloat16* out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();   // the last item's sums are read
+  write_red<FMT>(sm.red, warp, lane, acc, g.rows);
+  __syncthreads();
+  const int cells = g.rows * kTileCols;
+  if (splits > 1) {
+    for (int i = threadIdx.x; i < cells; i += kThreads) {
+      const int r = i / kTileCols, c = i % kTileCols;
+      if (g.c0 + c < n)
+        part[(size_t(g.split) * rows + g.row0 + r) * n + g.c0 + c] = red_sum(sm.red, r, c);
+    }
+    const int tiles = (n + kTileCols - 1) / kTileCols;
+    if (!last_of_tile(counters + g.grp * tiles + g.tile, splits, sm.meta)) return;
+  }
+  for (int i = threadIdx.x; i < cells; i += kThreads) {
+    const int r = i / kTileCols, c = i % kTileCols;
+    if (g.c0 + c >= n) continue;
+    float v = 0.f;
+    if (splits == 1)
+      v = red_sum(sm.red, r, c);
+    else
+#pragma unroll 4
+      for (int s = 0; s < splits; ++s) v += __ldcg(part + (size_t(s) * rows + g.row0 + r) * n + g.c0 + c);
+    out[size_t(g.row0 + r) * n + g.c0 + c] = __float2bfloat16(v);
   }
 }
 
@@ -564,6 +634,16 @@ inline cudaError_t box_map(CUtensorMap* map, const void* base, bool bf16, int ba
       row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of `batch` [K, N] weights of format FMT in a stage's boxes:
+// one-byte [32 rows][128 columns] (int4: 16 packed rows of [K / 2, N]),
+// bf16 [32][64] (issue_stage loads two side by side).
+template <int FMT>
+inline cudaError_t weight_map(CUtensorMap* map, const void* w, int batch, int K, int N) {
+  if (FMT == kBf16) return box_map(map, w, true, batch, K, N, kStageRows, 64);
+  if (FMT == kQInt4) return box_map(map, w, false, batch, K / 2, N, 16, kTileCols);
+  return box_map(map, w, false, batch, K, N, kStageRows, kTileCols);
 }
 
 }  // namespace tcg

@@ -15,7 +15,7 @@
 // most two scale groups: gs >= 32) into RAW raw stages, and x's tile into
 // the widened slot; its warps 1-3 (the widening warps) write each raw
 // stage into the slot's B tile as bf16(q * s) with the product in f32
-// (quant_gemv.cuh's deq<true>, bit for bit), then fence.proxy.async and
+// (mma_gemv.cuh's pair1<FMT, true>, bit for bit), then fence.proxy.async and
 // arrive on the slot's `full` barrier, which completes once x's bytes have
 // landed too. The widening, not the tensor cores, bounds the block: a
 // widened step feeds BM rows of products, so the tile is tall (256 x 128
@@ -40,10 +40,12 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "quant_gemv.cuh"   // kQInt8 / kQInt4 / kQFp8
+#include "mma_gemv.cuh"     // QFormat: kQInt8 / kQInt4 / kQFp8
 #include "wgmma_tile.cuh"   // wg:: mbarriers, TMA, wgmma, swizzled
 
 namespace {
@@ -186,11 +188,11 @@ __device__ __forceinline__ int int4_piece_row(int k, int gs, bool& high) {
 }
 
 // 8 weights (one raw row's 8 bytes at 8 consecutive columns) as bf16(q * s)
-// pairs, the product in f32, as quant_gemv.cuh's deq<true>(q_value): int8
+// pairs, the product in f32, as mma_gemv.cuh's pair1<FMT, true>: int8
 // b as the f32 2^23 + (b + 128) minus 2^23 + 128 (exact, no conversion
 // instruction); int4 likewise from the row's nibble (`high`: the upper
 // one), 2^23 + (n ^ 8) minus 2^23 + 8; e4m3 pairs through
-// cvt.rn.f16x2.e4m3x2 and f16 -> f32, the path fp8_to_float takes.
+// cvt.rn.f16x2.e4m3x2 and f16 -> f32, the path pair1 takes.
 template <int FMT>
 __device__ __forceinline__ uint4 widen8(uint2 raw, const float (&s)[8], bool high) {
   float v[8];

@@ -1,7 +1,7 @@
 """The work plan of the tensor-core GEMV of the decode rows
 (``ops/csrc/mma_gemv.cuh``), shared by B16's decode rows
-(``ops/grouped_gemm.py``) and B7, the quantized fused MLP
-(``ops/fused_decode.py``).
+(``ops/grouped_gemm.py``), B8's (``ops/quant_matmul.py``) and the fused
+MLP over bf16 and quantized weights, B6 and B7 (``ops/fused_decode.py``).
 
 The kernel's blocks are persistent (one an SM) and walk items of one row
 group (up to 16 activation rows), one 128-column weight tile and one K
@@ -18,11 +18,28 @@ from __future__ import annotations
 import functools
 from typing import Tuple
 
+import torch
+
 #: the kernel's geometry (mma_gemv.cuh: kTileCols, kRows, kStageRows, kWarps)
 TILE_COLS = 128     # weight columns a tile
 PASS_ROWS = 16      # activation rows a row group (the m16 A operand)
 STAGE_ROWS = 32     # weight rows a stage (two k16 steps)
 WARPS = 8           # warps a block; each takes a contiguous run of a chunk's stages
+
+
+#: the fold counters, zero between calls (the kernels leave them so), kept
+#: per (device, stream): one int32 a column tile of the GEMV's calls (B6,
+#: B7, B8, B16) and one a (sequence, kv head) of B5's folded merge
+_COUNTERS = {}
+
+
+def _counters(dev, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``dev`` for ``stream``."""
+    have = _COUNTERS.get((dev, stream))
+    if have is None or have.numel() < n:
+        have = _COUNTERS[(dev, stream)] = torch.zeros(max(n, 64), device=dev,
+                                                      dtype=torch.int32)
+    return have
 
 
 #: an item's fixed cost beyond its weight bytes, and a split item's fold,

@@ -227,11 +227,15 @@ def fused_mlp_quant_reference(resid, y_src, ln_w, w_up, w_down, w_gate, eps: flo
 
 def mlp_weights_fusable(w_up, w_down, w_gate=None) -> Optional[str]:
     """None when the fused MLP kernels can take these weights (all dense,
-    or all quantized alike); otherwise the reason, in the JAX package's
-    words."""
+    D a multiple of 32 and F of 8, or all quantized alike); otherwise the
+    reason, in the JAX package's words where it has them."""
     ws = [w for w in (w_gate, w_up, w_down) if w is not None]
     quant = [isinstance(w, QuantizedMatrix) for w in ws]
     if not any(quant):
+        D, Fd = w_up.shape
+        if D % 32 or Fd % 8:
+            return (f"dense MLP widths D={D}, F={Fd} (the bf16 kernels need D a multiple of 32 "
+                    f"and F of 8)")
         return None
     if not all(quant):
         return "mixed dense/quantized MLP weights"
@@ -397,11 +401,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sxt_fused_qkv_rope_bf16": [_P] * 17 + [_I] * 10 + [_P],
     "sxt_fused_paged_decode": [_P] * 13 + [_I] * 8 + [_F, _P],
-    "sxt_fused_mlp_bf16": [_P] * 14 + [_I] * 9 + [_F, _P],
+    "sxt_fused_mlp_bf16": [_P] * 14 + [_I] * 11 + [_F, _P],
     "sxt_fused_mlp_quant_bf16": [_P] * 15 + [_I] * 13 + [_F, _P],
 }
 _LIB = []
 
+#: B4's CUDA-core GEMV (gemv_partial_kernel)
 GEMV_TILE = 64       # output columns per block of the GEMV kernel
 GEMV_CHUNK = 1024    # reduction rows per block, at most
 GEMV_ROWS = 8        # activation rows per launch
@@ -457,12 +462,6 @@ def attention_splits(B: int, KV: int, width: int, bs: int, sms: int) -> int:
 #: BLOOM-1b7's 16-32 kv heads in 8 splits).
 FOLD_MAX_PARTIALS = 16384
 FOLD_MAX_BLOCKS_PER_SM = 4
-#: the counters of the folded merges (B5's, one int32 a (sequence, kv head);
-#: the decode-row GEMV's, one a column tile of B7 and B16), zero between
-#: calls (the kernels leave them so), kept per (device, stream)
-_COUNTERS = {}
-
-
 def folds(B: int, KV: int, G: int, Dh: int, splits: int, sms: int) -> bool:
     """Whether the split-K decode merges in its last split (else a second
     kernel merges): more than one split, at most FOLD_MAX_PARTIALS partial
@@ -470,14 +469,6 @@ def folds(B: int, KV: int, G: int, Dh: int, splits: int, sms: int) -> bool:
     an SM."""
     return (splits > 1 and G * Dh * splits <= FOLD_MAX_PARTIALS
             and B * KV * splits <= FOLD_MAX_BLOCKS_PER_SM * sms)
-
-
-def _counters(dev, stream: int, n: int) -> torch.Tensor:
-    have = _COUNTERS.get((dev, stream))
-    if have is None or have.numel() < n:
-        have = _COUNTERS[(dev, stream)] = torch.zeros(max(n, 64), device=dev,
-                                                      dtype=torch.int32)
-    return have
 
 
 def _bf16(name, t, device, shape=None):
@@ -608,7 +599,7 @@ def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=N
         buf = torch.empty(rows * (Dh + 2), device=dev, dtype=torch.float32)
         part = [buf.data_ptr() + 4 * rows * off for off in (0, Dh, Dh + 1)]
         if folds(B, KV, H // KV, Dh, splits, _sms(dev)) if fold is None else fold:
-            counters = _counters(dev, stream, B * KV).data_ptr()
+            counters = decode_gemv._counters(dev, stream, B * KV).data_ptr()
     lib = _lib()
     err = lib.sxt_fused_paged_decode(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), _ptr(k_scale), _ptr(v_scale),
@@ -618,14 +609,50 @@ def _launch_attention(q, ck, cv, block_table, kv_len, num_splits, alibi_slopes=N
     return out
 
 
+def mlp_plan(D: int, F: int, unit: int, gated: bool, rows: int, elt_bytes: float,
+             sms: int) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
+    """((splits, chunk, blocks) of the up GEMV, (...) of the down GEMV) of
+    the fused MLP on the tensor-core GEMV (B6: ``unit`` a stage's
+    STAGE_ROWS, ``elt_bytes`` 2; B7: the scale group and the format's bytes)
+    for a pass of ``rows`` rows (``decode_gemv.plan``): the up GEMV's items
+    are 128 columns of w_up (gated: and of w_gate, twice the bytes) over K =
+    D, the down GEMV's 128 columns of D over K = F."""
+    up_tiles = -(-F // decode_gemv.TILE_COLS)
+    down_tiles = -(-D // decode_gemv.TILE_COLS)
+    out = []
+    for K, tiles, n_out, elt in ((D, up_tiles, (2 if gated else 1) * F,
+                                  (2 if gated else 1) * elt_bytes),
+                                 (F, down_tiles, D, elt_bytes)):
+        splits, chunk = decode_gemv.plan(K, unit, tiles, 1, rows, n_out, elt, sms)
+        out.append((splits, chunk, decode_gemv.blocks(tiles * splits, sms)))
+    return out[0], out[1]
+
+
+def _mlp_workspaces(dev, stream, B: int, D: int, F: int, gated: bool, plan, dtype):
+    """a [min(B, 16), F], the f32 partials of each GEMV that splits K, and
+    the counters where either does."""
+    (s1, _, _), (s2, _, _) = plan
+    rows = min(B, decode_gemv.PASS_ROWS)
+    a = torch.empty(rows, F, device=dev, dtype=dtype)
+    part1 = (torch.empty(s1, rows, (2 if gated else 1) * F, device=dev, dtype=torch.float32)
+             if s1 > 1 else None)
+    part2 = torch.empty(s2, rows, D, device=dev, dtype=torch.float32) if s2 > 1 else None
+    counters = None
+    if s1 > 1 or s2 > 1:
+        counters = decode_gemv._counters(dev, stream, max(-(-F // decode_gemv.TILE_COLS),
+                                                          -(-D // decode_gemv.TILE_COLS)))
+    return a, part1, part2, counters
+
+
 def _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, b_up, b_down, norm,
                 activation, apply_norm=True):
     dev = resid.device
     B, D = resid.shape
     Fd = w_up.shape[1]
     gated = w_gate is not None
-    if D % 8 or Fd % 8:
-        raise ValueError(f"fused MLP kernel: D={D} and F={Fd} must be multiples of 8")
+    if D % 32 or Fd % 8:
+        raise ValueError(f"fused MLP kernel: D={D} must be a multiple of 32 (the GEMV's "
+                         f"32-row stages) and F={Fd} of 8")
     _bf16("resid", resid, dev)
     _bf16("y_src", y_src, dev, (B, D))
     _vector("ln_w", ln_w, dev, D)
@@ -635,41 +662,21 @@ def _launch_mlp(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, b_up, b_
         _bf16("w_gate", w_gate, dev, (D, Fd))
     _bf16("w_up", w_up, dev, (D, Fd))
     _bf16("w_down", w_down, dev, (Fd, D))
-    rows = min(B, GEMV_ROWS)
-    sms = _sms(dev)
-    s1, c1 = gemv_splits(D, (Fd, Fd) if gated else (Fd,), sms)
-    s2, c2 = gemv_splits(Fd, (D,), sms)
+    plan = mlp_plan(D, Fd, decode_gemv.STAGE_ROWS, gated, min(B, decode_gemv.PASS_ROWS), 2,
+                    _sms(dev))
+    (s1, c1, b1), (s2, c2, b2) = plan
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(resid)
-    yn = torch.empty(rows, D, device=dev, dtype=resid.dtype)
-    a = torch.empty(rows, Fd, device=dev, dtype=resid.dtype)
-    part1 = torch.empty(s1, rows, (2 if gated else 1) * Fd, device=dev, dtype=torch.float32)
-    part2 = torch.empty(s2, rows, D, device=dev, dtype=torch.float32)
+    a, part1, part2, counters = _mlp_workspaces(dev, stream, B, D, Fd, gated, plan, resid.dtype)
     lib = _lib()
     err = lib.sxt_fused_mlp_bf16(
         resid.data_ptr(), y_src.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), _ptr(w_gate),
         w_up.data_ptr(), w_down.data_ptr(), _ptr(b_up), _ptr(b_down), out.data_ptr(),
-        yn.data_ptr(), a.data_ptr(), part1.data_ptr(), part2.data_ptr(), B, D, Fd, s1, c1, s2,
-        c2, _NORM_CODES[norm] if apply_norm else _NO_NORM, _ACT_CODES[activation], float(eps),
-        torch.cuda.current_stream(dev).cuda_stream)
+        a.data_ptr(), _ptr(part1), _ptr(part2), _ptr(counters), B, D, Fd, s1, c1, s2, c2, b1,
+        b2, _NORM_CODES[norm] if apply_norm else _NO_NORM, _ACT_CODES[activation], float(eps),
+        stream)
     _raise_on(err, lib, "MLP")
     return out
-
-
-def mlp_quant_plan(D: int, F: int, gs: int, gated: bool, rows: int, elt_bytes: float,
-                   sms: int) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
-    """((splits, chunk, blocks) of the up GEMV, (...) of the down GEMV) of
-    B7 for a pass of ``rows`` rows (``decode_gemv.plan``): the up GEMV's
-    items are 128 columns of w_up (gated: and of w_gate, twice the bytes)
-    over K = D, the down GEMV's 128 columns of D over K = F."""
-    up_tiles = -(-F // decode_gemv.TILE_COLS)
-    down_tiles = -(-D // decode_gemv.TILE_COLS)
-    out = []
-    for K, tiles, n_out, elt in ((D, up_tiles, (2 if gated else 1) * F,
-                                  (2 if gated else 1) * elt_bytes),
-                                 (F, down_tiles, D, elt_bytes)):
-        splits, chunk = decode_gemv.plan(K, gs, tiles, 1, rows, n_out, elt, sms)
-        out.append((splits, chunk, decode_gemv.blocks(tiles * splits, sms)))
-    return out[0], out[1]
 
 
 def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, norm,
@@ -687,18 +694,12 @@ def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, no
         check_storage("fused quantized MLP kernel: w_gate", w_gate, dev, D, Fd)
     check_storage("fused quantized MLP kernel: w_down", w_down, dev, Fd, D)
     gs = w_up.group_size
-    rows = min(B, decode_gemv.PASS_ROWS)
-    (s1, c1, b1), (s2, c2, b2) = mlp_quant_plan(D, Fd, gs, gated, rows,
-                                                0.5 if w_up.bits == 4 else 1, _sms(dev))
+    plan = mlp_plan(D, Fd, gs, gated, min(B, decode_gemv.PASS_ROWS),
+                    0.5 if w_up.bits == 4 else 1, _sms(dev))
+    (s1, c1, b1), (s2, c2, b2) = plan
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(resid)
-    a = torch.empty(rows, Fd, device=dev, dtype=resid.dtype)
-    part1 = (torch.empty(s1, rows, (2 if gated else 1) * Fd, device=dev, dtype=torch.float32)
-             if s1 > 1 else None)
-    part2 = torch.empty(s2, rows, D, device=dev, dtype=torch.float32) if s2 > 1 else None
-    counters = None
-    if s1 > 1 or s2 > 1:
-        counters = _counters(dev, stream, max(-(-Fd // 128), -(-D // 128)))
+    a, part1, part2, counters = _mlp_workspaces(dev, stream, B, D, Fd, gated, plan, resid.dtype)
     gate = (w_gate.q.data_ptr(), w_gate.scales.data_ptr()) if gated else (None, None)
     lib = _lib()
     err = lib.sxt_fused_mlp_quant_bf16(
@@ -714,6 +715,6 @@ def _launch_mlp_quant(resid, y_src, ln_w, w_up, w_down, w_gate, eps, *, ln_b, no
 
 __all__ = ["FUSABLE_ACTIVATIONS", "fused_mlp", "fused_mlp_quant", "fused_mlp_quant_reference", "fused_mlp_reference",
            "folds", "fused_paged_decode_attention", "fused_paged_decode_reference", "fused_qkv_rope",
-           "fused_qkv_rope_reference", "gemv_splits", "attention_splits", "mlp_quant_plan",
+           "fused_qkv_rope_reference", "gemv_splits", "attention_splits", "mlp_plan",
            "mlp_weights_fusable",
            "split_count", "rope_heads"]

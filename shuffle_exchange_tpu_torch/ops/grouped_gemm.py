@@ -13,7 +13,7 @@ On the card ``grouped_matmul`` launches the hand-written kernels of
 ``ops/csrc/grouped_gemm.cu`` (whose header says what bounds them on the
 H100 and how their designs answer it): up to ``GEMV_MAX_N`` rows (64 over
 int8 / e4m3 stacks, 32 over bf16: a decode tick's and small chunks') the
-tensor-core GEMV of ``ops/csrc/mma_gemv.cuh`` (shared with B7; its work
+tensor-core GEMV of ``ops/csrc/mma_gemv.cuh`` (shared with B6, B7 and B8; its work
 plan in ``ops/decode_gemv.py``), above that a warp-specialised
 ``wgmma`` kernel over TMA-fed tiles (``dx`` and ``dw`` too), whose producer
 warps widen int8 / e4m3 expert tiles to bf16 in shared memory as they
@@ -51,7 +51,6 @@ import torch
 
 from . import decode_gemv
 from .dispatch import resolve_grouped_gemm
-from .fused_decode import _counters
 from .quant_matmul import FP8, QuantizedMatrix, _sms
 
 
@@ -319,7 +318,7 @@ def _launch(x: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
         blocks = decode_gemv.blocks(row_groups(E, N) * tiles * splits, sms)
         if splits > 1:
             part = torch.empty(splits, N, F, device=dev, dtype=torch.float32)
-            counters = _counters(dev, stream, row_groups(E, N) * tiles)
+            counters = decode_gemv._counters(dev, stream, row_groups(E, N) * tiles)
     lib = _lib()
     _raise_on(lib, lib.sxt_grouped_matmul_bf16(
         x.data_ptr(), wp, sp, sizes.data_ptr(), out.data_ptr(),

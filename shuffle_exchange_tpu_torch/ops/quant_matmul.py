@@ -18,10 +18,11 @@ activation dtype, output in ``qm.dtype``. On the TPU XLA fuses that
 convert into the dot, so the weights cross HBM at storage width; PyTorch
 eager cannot, so on the card ``quant_matmul`` launches the hand-written
 kernels of ``ops/csrc/quant_matmul.cu`` (whose header says what bounds
-them on the H100 and how their design answers it): a split-K GEMV up to
-``GEMV_ROWS`` rows, past them the quantized grouped GEMM's ``wgmma`` block
-(``ops/csrc/wgmma_qgemm.cuh``) over the one matrix. Both dequantize on the
-chip at the same rounding point. The kernels replace the TPU's
+them on the H100 and how their design answers it): up to ``GEMV_ROWS``
+rows the tensor-core GEMV of ``ops/csrc/mma_gemv.cuh`` (its work plan in
+``ops/decode_gemv.py``), past them the quantized grouped GEMM's ``wgmma``
+block (``ops/csrc/wgmma_qgemm.cuh``) over the one matrix. Both dequantize
+on the chip at the same rounding point. The kernels replace the TPU's
 ``_quant_matmul_pallas``; ``impl`` "auto" and "pallas" both take them.
 The wrapper runs its kernels for a CUDA tensor and its plain version for a
 CPU tensor, and counts one launch per call on the card
@@ -36,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import decode_gemv
 from .dispatch import use_kernel
 
 FP8 = torch.float8_e4m3fn
@@ -207,9 +209,8 @@ quant_matmul.launches = 0
 # Launch
 # ---------------------------------------------------------------------------
 
-GEMV_ROWS = 8        # rows at most of the split-K GEMV form; more take the wgmma kernel
-GEMV_TILE = 64       # output columns per GEMV block
-GEMV_CHUNK = 1024    # reduction rows per GEMV block, at most
+#: rows at most of the tensor-core GEMV form; more take the wgmma kernel
+GEMV_ROWS = 8
 WG_TILE = (256, 128)  # output rows and columns per wgmma block (wgmma_qgemm.cuh's WgQGemm)
 WG_SHORT_ROWS = 128  # its short tile's rows (WgQGemmShort), taken up to this many rows
 WG_STEP = 64         # reduction rows per wgmma step
@@ -224,7 +225,7 @@ def _lib():
         from . import _build
 
         lib = _build.load("quant_matmul")
-        lib.sxt_quant_matmul_bf16.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+        lib.sxt_quant_matmul_bf16.argtypes = [_P] * 6 + [_I] * 9 + [_P]
         lib.sxt_quant_matmul_bf16.restype = ctypes.c_int
         lib.sxt_quant_error_string.argtypes = [ctypes.c_int]
         lib.sxt_quant_error_string.restype = ctypes.c_char_p
@@ -232,16 +233,15 @@ def _lib():
     return _LIB[0]
 
 
-def quant_splits(K: int, gs: int, n_cols: Tuple[int, ...], sms: int) -> Tuple[int, int]:
-    """(splits, chunk) of the quantized GEMV's reduction over K rows for
-    output matrices of ``n_cols`` columns: chunks of whole scale groups,
-    at most GEMV_CHUNK rows, and enough of them that the blocks number at
-    least twice the SMs. Needs gs <= GEMV_CHUNK and K % gs == 0."""
-    tiles = sum(-(-n // GEMV_TILE) for n in n_cols)
-    groups = K // gs
-    splits = max(-(-K // GEMV_CHUNK), -(-2 * sms // tiles), 1)
-    per = min(-(-groups // splits), GEMV_CHUNK // gs)
-    return -(-groups // per), per * gs
+def gemv_plan(M: int, K: int, N: int, gs: int, bits, sms: int) -> Tuple[int, int, int]:
+    """(splits, chunk, blocks) of the tensor-core GEMV for M rows of x
+    against a [K, N] weight of ``bits`` and group ``gs``: ``decode_gemv.plan``
+    over ceil(M / 16) row groups of 128-column tiles, chunks of whole scale
+    groups."""
+    groups = -(-M // decode_gemv.PASS_ROWS)
+    tiles = -(-N // decode_gemv.TILE_COLS)
+    splits, chunk = decode_gemv.plan(K, gs, tiles, groups, M, N, 0.5 if bits == 4 else 1, sms)
+    return splits, chunk, decode_gemv.blocks(groups * tiles * splits, sms)
 
 
 def wgmma_tile_rows(M: int) -> int:
@@ -275,10 +275,10 @@ def check_storage(what: str, qm: QuantizedMatrix, device, K: int, N: int) -> int
     if tuple(qm.shape) != (K, N):
         raise ValueError(f"{what}: weight {tuple(qm.shape)} != ({K}, {N})")
     gs = qm.group_size
-    if gs % 32 or K % gs or gs > GEMV_CHUNK or N % 16:
+    if gs % 32 or K % gs or N % 16:
         raise ValueError(f"{what}: the kernel takes group sizes that are multiples of 32 "
-                         f"up to {GEMV_CHUNK} dividing K, and N a multiple of 16; got "
-                         f"K={K}, N={N}, group_size={gs}")
+                         f"dividing K, and N a multiple of 16; got K={K}, N={N}, "
+                         f"group_size={gs}")
     if qm.dtype != torch.bfloat16:
         raise TypeError(f"{what}: the kernel computes in bf16; the weight's compute dtype "
                         f"is {qm.dtype}")
@@ -307,23 +307,29 @@ def _launch(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
     if M == 0:
         return out.reshape(*lead, N)
     sms = _sms(dev.index if dev.index is not None else torch.cuda.current_device())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters = None
     if M <= GEMV_ROWS:
-        splits, chunk = quant_splits(K, qm.group_size, (N,), sms)
+        splits, chunk, blocks = gemv_plan(M, K, N, qm.group_size, qm.bits, sms)
+        if splits > 1:
+            counters = decode_gemv._counters(dev, stream, -(-M // decode_gemv.PASS_ROWS)
+                                             * -(-N // decode_gemv.TILE_COLS))
     else:
-        splits, chunk = wgmma_splits(M, K, N, sms)
+        (splits, chunk), blocks = wgmma_splits(M, K, N, sms), 0
     part = None
-    if M <= GEMV_ROWS or splits > 1:
+    if splits > 1:
         part = torch.empty(splits, M, N, device=dev, dtype=torch.float32)
     lib = _lib()
     err = lib.sxt_quant_matmul_bf16(
         x2.data_ptr(), qm.q.data_ptr(), qm.scales.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), M, K, N, qm.group_size, fmt, splits, chunk,
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), M, K, N, qm.group_size, fmt, splits,
+        chunk, blocks, GEMV_ROWS, stream)
     if err:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error {err} "
                            f"({lib.sxt_quant_error_string(err).decode()})")
     return out.reshape(*lead, N)
 
 
-__all__ = ["FORMATS", "FP8", "QuantizedMatrix", "check_storage", "quant_matmul",
-           "quant_matmul_reference", "quant_splits", "quantize_weight", "wgmma_splits"]
+__all__ = ["FORMATS", "FP8", "GEMV_ROWS", "QuantizedMatrix", "check_storage", "gemv_plan",
+           "quant_matmul", "quant_matmul_reference", "quantize_weight", "wgmma_splits"]

@@ -33,7 +33,8 @@ the design can be held without the card.
   counters (a recorded fake library); B16 takes the GEMV up to GEMV_MAX_N
   rows of its format (bf16 32, int8 / e4m3 64), the wgmma forms past them.
 - ``grouped_gemv_kernel`` is gone; B7's entry point reaches the new body
-  and not ``quant_gemv_kernel``, which B8's rows of 8 or fewer still run.
+  and not ``quant_gemv_kernel``, which is gone too: B8's rows up to
+  ``GEMV_ROWS`` run the same body (``tests/test_torch_dense_mlp_b8_gemv.py``).
 """
 
 import importlib
@@ -123,7 +124,10 @@ PLAN_CASES = [(4096, 256, 112, 8, 16, 14336, 1), (14336, 256, 32, 8, 16, 4096, 1
               (4096, 32, 112, 8, 16, 14336, 2), (14336, 32, 32, 2, 2, 4096, 2),
               (4096, 256, 224, 1, 8, 28672, 1), (14336, 256, 32, 1, 8, 4096, 0.5),
               (2048, 256, 64, 1, 8, 8192, 1), (768, 256, 24, 1, 1, 3072, 1),
-              (1000, 32, 3, 8, 16, 272, 2), (64, 32, 1, 4, 3, 64, 1)]
+              (1000, 32, 3, 8, 16, 272, 2), (64, 32, 1, 4, 3, 64, 1),
+              # B6's down and up GEMVs (bf16, Llama-3-8B, 8 rows), B8's wk and wq
+              (14336, 32, 32, 1, 8, 4096, 2), (4096, 32, 112, 1, 8, 28672, 4),
+              (4096, 256, 8, 1, 8, 1024, 1), (4096, 256, 32, 1, 8, 4096, 1)]
 
 
 def least_units(K, unit):
@@ -503,7 +507,7 @@ def _b7_case(fmt, gated, norm, B=ROWS):
 def _b7_run(fmt, gated, norm, B, **mirror_kw):
     resid, y, ln_w, ln_b, tw, want, kw = _b7_case(fmt, gated, norm, B)
     mats = (_q_values(tw[0]) if gated else None, _q_values(tw[1]), _q_values(tw[2]))
-    up, down = fd.mlp_quant_plan(B7_D, B7_F, B7_GS, gated, B, 0.5 if fmt == 4 else 1, SMS)
+    up, down = fd.mlp_plan(B7_D, B7_F, B7_GS, gated, B, 0.5 if fmt == 4 else 1, SMS)
     got = b7_mirror(resid, y, ln_w, ln_b if kw["norm"] == "layernorm" else None, mats, B7_GS,
                     fmt, kw["norm"], kw["activation"], kw["apply_norm"], (up[:2], down[:2]),
                     **mirror_kw)
@@ -565,7 +569,7 @@ def recorded(monkeypatch):
     for mod in (gg, fd):
         monkeypatch.setattr(mod, "_lib", lambda: _Lib(calls))
         monkeypatch.setattr(mod, "_sms", lambda dev: SMS)
-    monkeypatch.setattr(fd, "_COUNTERS", {})
+    monkeypatch.setattr(dg, "_COUNTERS", {})
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: type("S", (), {"cuda_stream": 7}))
@@ -602,7 +606,7 @@ def test_b16_wrapper_hands_the_gemv_its_plan_partials_and_counters(recorded, fmt
     if splits == 1:
         assert args[5] is None and args[14] is None
     else:
-        counters = fd._COUNTERS[(x.device, 7)]
+        counters = dg._COUNTERS[(x.device, 7)]
         assert args[14] == counters.data_ptr() and not counters.any()
         assert counters.numel() >= gg.row_groups(E, N) * tiles
 
@@ -636,7 +640,7 @@ def test_b7_wrapper_hands_the_entry_point_its_plan_and_workspaces(recorded, monk
                          ws[1].q.data_ptr(), ws[1].scales.data_ptr(), ws[2].q.data_ptr(),
                          ws[2].scales.data_ptr())
     rows = min(B, ROWS)
-    (s1, c1, b1), (s2, c2, b2) = fd.mlp_quant_plan(D, F, gs, gated, rows,
+    (s1, c1, b1), (s2, c2, b2) = fd.mlp_plan(D, F, gs, gated, rows,
                                                    0.5 if fmt == 4 else 1, SMS)
     assert args[15:] == (B, D, F, gs, tqm.FORMATS[fmt], s1, c1, s2, c2, b1, b2, 0,
                          0 if gated else 1, 1e-5, 7)
@@ -647,7 +651,7 @@ def test_b7_wrapper_hands_the_entry_point_its_plan_and_workspaces(recorded, monk
     if s2 > 1:
         assert made[args[13]] == ((s2, rows, D), torch.float32)
     if s1 > 1 or s2 > 1:
-        counters = fd._COUNTERS[(h.device, 7)]
+        counters = dg._COUNTERS[(h.device, 7)]
         assert args[14] == counters.data_ptr() and not counters.any()
         assert counters.numel() >= max(-(-F // TILE), -(-D // TILE))
     else:
@@ -660,18 +664,22 @@ def test_b7_wrapper_hands_the_entry_point_its_plan_and_workspaces(recorded, monk
 
 
 def test_the_replaced_gemvs_are_gone_and_b8_keeps_its_own():
+    """B8 keeps its own entry point; its decode rows, like B7's, now run
+    the tensor-core GEMV body, and the CUDA-core GEMV is gone."""
     sources = {p.name: p.read_text() for p in CSRC.iterdir()}
     assert not any("grouped_gemv_kernel" in t or "grouped_out_kernel" in t
                    for t in sources.values())
     fused = sources["fused_decode.cu"]
     entry = fused.split("int sxt_fused_mlp_quant_bf16(", 1)[1]
     assert "quant_gemv_kernel" not in fused and "launch_quant_gemv" not in fused
-    assert "mlp_quant_pass<" in entry and "tcg::run<FMT, false, true>" in fused
+    assert "mlp_passes<" in entry and "tcg::run<FMT, false, true>" in fused   # B6 and B7
     grouped = sources["grouped_gemm.cu"]
     assert "launch_decode_gemv<" in grouped and "tcg::run<FMT, FMT != tcg::kBf16, false>" in grouped
-    # B8's rows of 8 or fewer keep the CUDA-core GEMV of quant_gemv.cuh
-    assert "launch_quant_gemv<true>" in sources["quant_matmul.cu"]
-    assert tqm.GEMV_ROWS == 8
+    # B8's decode rows run its own instance of the same body
+    qmm = sources["quant_matmul.cu"]
+    assert "launch_gemv<kQInt8>" in qmm and "tcg::run<FMT, true, false>" in qmm
+    assert not any("launch_quant_gemv" in t or "quant_gemv_kernel" in t for t in sources.values())
+    assert tqm.GEMV_ROWS >= 8
     py = Path(gg.__file__).read_text() + Path(fd.__file__).read_text()
     assert "GEMV_CHUNK = 1024    # reduction rows per GEMV block" not in Path(gg.__file__).read_text()
     assert "quant_splits" not in Path(fd.__file__).read_text() and "environ" not in py

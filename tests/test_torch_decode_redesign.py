@@ -41,6 +41,7 @@ from shuffle_exchange_tpu_torch.inference import paged as tpaged
 jfd = importlib.import_module("shuffle_exchange_tpu.ops.fused_decode")
 tpa = importlib.import_module("shuffle_exchange_tpu_torch.ops.paged_attention")
 tfd = importlib.import_module("shuffle_exchange_tpu_torch.ops.fused_decode")
+dg = importlib.import_module("shuffle_exchange_tpu_torch.ops.decode_gemv")
 
 T = torch.from_numpy
 NEG = -1e30
@@ -270,7 +271,7 @@ def test_wrapper_hands_the_c_entry_point_splits_partials_and_counters(monkeypatc
     monkeypatch.setattr(tfd, "_lib", lambda: _Lib(calls))
     monkeypatch.setattr(tfd, "pool_kind", lambda *a: 0)
     monkeypatch.setattr(tfd, "_sms", lambda dev: SMS)
-    monkeypatch.setattr(tfd, "_COUNTERS", {})
+    monkeypatch.setattr(dg, "_COUNTERS", {})
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: type("S", (), {"cuda_stream": 7}))
     real_empty = torch.empty
@@ -303,7 +304,7 @@ def test_wrapper_hands_the_c_entry_point_splits_partials_and_counters(monkeypatc
     if not (tfd.folds(B, KV, H // KV, Dh, splits, SMS) if fold is None else fold):
         assert args[12] is None
         return
-    counters = tfd._COUNTERS[(q.device, 7)]
+    counters = dg._COUNTERS[(q.device, 7)]
     assert args[12] == counters.data_ptr()
     assert counters.dtype == torch.int32 and counters.numel() >= B * KV
     assert not counters.any()          # zero between calls: the kernel leaves them so

@@ -604,7 +604,7 @@ def test_widening_equals_the_dequantize_for_every_byte(fmt):
     """Every byte (e4m3's NaN bytes 0x7F / 0xFF, which the quantizer never
     writes, aside), at scales across the range (subnormal products and
     overflow), widens to bf16(q * s) with the product in f32:
-    quant_gemv.cuh's deq<true> of q_value's q; for int8 the exact
+    mma_gemv.cuh's pair1<FMT, true> of the stored q; for int8 the exact
     2^23 + b path equals the signed byte's value."""
     byte = np.arange(256, dtype=np.uint8)
     q = byte.view(np.int8).astype(np.float32) if fmt == 8 else _fp8_values()

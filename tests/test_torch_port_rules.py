@@ -383,7 +383,7 @@ def test_ast_rule_covers_the_quantized_serving_modules():
     files = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
     assert {"ops/quant.py", "ops/quant_matmul.py", "ops/fused_decode.py",
             "models/convert.py", "inference/engine.py"} <= files
-    for f in ("ops/csrc/quant_matmul.cu", "ops/csrc/quant_gemv.cuh"):
+    for f in ("ops/csrc/quant_matmul.cu", "ops/csrc/mma_gemv.cuh"):
         assert (PORT / f).exists()
 
 

@@ -53,6 +53,7 @@ jqm = importlib.import_module("shuffle_exchange_tpu.ops.quant_matmul")
 jlg = importlib.import_module("shuffle_exchange_tpu.ops.lora_gemm")
 tqm = importlib.import_module("shuffle_exchange_tpu_torch.ops.quant_matmul")
 tlg = importlib.import_module("shuffle_exchange_tpu_torch.ops.lora_gemm")
+tdg = importlib.import_module("shuffle_exchange_tpu_torch.ops.decode_gemv")
 CSRC = Path(tqm.__file__).parent / "csrc"
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block can have
 SMS = 132             # the H100's SMs
@@ -113,7 +114,7 @@ def test_b8_block_fits_shared_memory_and_matches_the_wrapper():
     # int4's pieces: 16 logical rows, inside one half of a group (gs % 32 == 0)
     assert src["PIECE"] == 16 and src["BK"] % src["PIECE"] == 0
     assert src["Q_BYTES"] == 64 * bn                   # int4's four pieces fill int8's raw tile
-    assert tqm.GEMV_ROWS == 8                          # the GEMV keeps the decode rows
+    assert tqm.GEMV_ROWS == 8                          # the tensor-core GEMV keeps the decode rows
     # the short tile: 128 x 128, one m64 block a consumer, the same stages
     short = _qgemm_tiles("WgQGemmShort")
     assert (short["BM"], short["BN"], short["SUBS"]) == (tqm.WG_SHORT_ROWS, bn, 1) == (128, 128, 1)
@@ -464,6 +465,7 @@ def recorded(monkeypatch):
     for mod in (tqm, tlg):
         monkeypatch.setattr(mod, "_lib", lambda: _Lib(calls))
     monkeypatch.setattr(tqm, "_sms", lambda index: SMS)
+    monkeypatch.setattr(tdg, "_COUNTERS", {})
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: type("S", (), {"cuda_stream": 7}))
@@ -481,15 +483,22 @@ def test_b8_wrapper_hands_the_c_entry_point_its_form(recorded, fmt, M, K, N):
     args = recorded.pop("sxt_quant_matmul_bf16")
     assert not recorded and out.shape == (M, N)
     assert args[:4] == (x.data_ptr(), qm.q.data_ptr(), qm.scales.data_ptr(), out.data_ptr())
-    assert len(args) == 13 and args[5:10] == (M, K, N, qm.group_size, tqm.FORMATS[fmt])
-    assert args[12] == 7
-    if M <= tqm.GEMV_ROWS:
-        splits, chunk = tqm.quant_splits(K, qm.group_size, (N,), SMS)
+    assert len(args) == 16 and args[6:11] == (M, K, N, qm.group_size, tqm.FORMATS[fmt])
+    assert args[14:] == (tqm.GEMV_ROWS, 7)
+    if M <= tqm.GEMV_ROWS:   # the tensor-core GEMV's plan, blocks and counters
+        splits, chunk, blocks = tqm.gemv_plan(M, K, N, qm.group_size, qm.bits, SMS)
+        assert chunk % qm.group_size == 0 and args[13] == blocks
+        if splits == 1:
+            assert args[5] is None
+        else:
+            counters = tdg._COUNTERS[(x.device, 7)]
+            assert args[5] == counters.data_ptr() and not counters.any()
+            assert counters.numel() >= -(-M // 16) * -(-N // 128)
     else:
         splits, chunk = tqm.wgmma_splits(M, K, N, SMS)
-        assert chunk % STEP == 0
-    assert args[10:12] == (splits, chunk)
-    assert (args[4] is None) == (M > tqm.GEMV_ROWS and splits == 1)   # f32 partials otherwise
+        assert chunk % STEP == 0 and args[5] is None and args[13] == 0
+    assert args[11:13] == (splits, chunk)
+    assert (args[4] is None) == (splits == 1)   # f32 partials otherwise
 
 
 def test_b8_wrapper_copies_an_unaligned_x(recorded):
@@ -510,7 +519,7 @@ def test_the_replaced_kernels_are_gone():
                  "lora_tile_kernel", "launch_mma<", "lanes_per_item"):
         assert not any(gone in text for text in sources.values()), gone
     qmm = sources["quant_matmul.cu"]
-    assert qmm.count("<<<") == 3          # the wgmma kernel and the split sum, the GEMV's sum
+    assert qmm.count("<<<") == 3          # the wgmma kernel and its split sum, the GEMV
     for fmt in ("kQInt8", "kQInt4", "kQFp8"):
         assert f"launch_wg<{fmt}, WgQGemm>" in qmm and f"launch_wg<{fmt}, WgQGemmShort>" in qmm
     lora = sources["lora_gemm.cu"]
